@@ -1,0 +1,167 @@
+"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface: no PyTorch headers, so a build
+takes seconds, not minutes.  Libraries land in ``build/svbfm_tpu_torch/``
+under the repository root (git-ignored), named by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads at once.
+
+Every kernel wrapper bumps its entry in :data:`launch_counts` where it
+launches its kernel, and nowhere else: a run can show that its main path
+went through the kernels.
+
+Nothing is built at import: this module imports on machines without nvcc
+or a GPU (the CPU tests import every module).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "svbfm_tpu_torch")
+HEADERS = ("svbfm_common.cuh",)
+NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# one source file per library; the kernels each library holds
+LIBRARIES = {
+    "fm_forward": ("fm_scores", "fm_t_terms"),
+    "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows"),
+}
+
+# C signatures of the exported launch functions (P: pointer or stream,
+# I: int, L: int64); every one returns cudaGetLastError() as an int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+SIGNATURES = {
+    "svbfm_fm_scores": (_P, _I, _P, _P, _P, _L, _I, _P, _P),
+    "svbfm_fm_t_terms": (_P, _I, _P, _P, _P, _L, _I, _P, _P),
+    "svbfm_vb_build_qt": (_P, _L, _I, _P, _P, _L, _I, _P, _P, _P, _P),
+    "svbfm_vb_col_stats_update": (
+        _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P),
+    "svbfm_vb_patch_rows": (_P, _I, _I, _I, _P, _P, _L, _I, _P, _P, _P, _P,
+                            _P, _P),
+}
+
+launch_counts: dict[str, int] = {
+    k: 0 for names in LIBRARIES.values() for k in names}
+# ptxas resource report (registers, spills) of each library's last build
+build_logs: dict[str, str] = {}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def count_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists(NVCC_FALLBACK):
+        path = NVCC_FALLBACK
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of svbfm_tpu_torch "
+                           "are built from source at first use")
+    return path
+
+
+def library_path(name: str) -> str:
+    """Where ``name``'s library goes: keyed by sources and flags."""
+    h = hashlib.sha256()
+    for fn in (f"{name}.cu",) + HEADERS:
+        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    so = library_path(name)
+    if not os.path.exists(so):
+        nvcc = _nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(rc={r.returncode}):\n{r.stderr}{r.stdout}")
+        build_logs[name] = r.stderr + r.stdout
+        os.replace(tmp, so)  # atomic: a concurrent build never half-loads
+    lib = ctypes.CDLL(so)
+    lib.svbfm_error_string.restype = ctypes.c_char_p
+    lib.svbfm_error_string.argtypes = [ctypes.c_int]
+    for kernel in LIBRARIES[name]:
+        fn = getattr(lib, f"svbfm_{kernel}")
+        fn.argtypes = list(SIGNATURES[f"svbfm_{kernel}"])
+        fn.restype = ctypes.c_int
+    _libs[name] = lib
+    return lib
+
+
+def build_all() -> float:
+    """Build and load every library; returns the seconds it took."""
+    t0 = time.perf_counter()
+    for name in LIBRARIES:
+        load_library(name)
+    return time.perf_counter() - t0
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error, else count it."""
+    if rc != 0:
+        msg = lib.svbfm_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({rc})")
+    count_launch(name)
+
+
+# -- argument helpers shared by the wrappers --------------------------------
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require(t, dtype, shape, device, name: str) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, shape, layout."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def on_cpu(t) -> bool:
+    """True for a CPU tensor (plain twin); False for CUDA (kernel).  Any
+    other device raises: there is no silent fallback."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {t.device}")

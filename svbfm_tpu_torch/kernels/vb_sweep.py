@@ -1,0 +1,225 @@
+"""K2-K4: the batch VBFM factor-block sweep (``csrc/vb_sweep.cu``).
+
+``vb_build_qt`` (K2) builds the row caches q, tq, tz; ``vb_col_stats_update``
+(K3) computes one degree bucket's per-column statistics and applies the
+closed-form update; ``vb_patch_rows`` (K4) patches the row caches after a
+bin.  On CUDA tensors each op launches its hand-written kernel; on CPU
+tensors it runs the plain PyTorch twin beside it.  K3 and K4 update their
+outputs in place, kernel and twin alike.
+
+Layouts (see ``csrc/vb_sweep.cu``): row caches [N, F]; mu/sigma tables
+[D, F]; the per-bin patch table ``ptab`` [D, CH] with channels
+(mu_old, sig_old, dmu, dsig, dmu2 [, wdmu, wdsig]), CH = 5F (+2).
+
+Replaces ``svbfm_tpu/learners/vb.py:vb_v_block_update`` → ``build_qt``
+(:317), ``tile_stats`` + update (:382, :449-487), ``patch_tile`` (:508).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from svbfm_tpu_torch.kernels import build
+from svbfm_tpu_torch.learners.base import keep_finite, nonfinite
+
+_I32, _F32 = torch.int32, torch.float32
+
+
+# ---- K2 ---------------------------------------------------------------------
+
+def vb_build_qt_plain(ptab, F: int, ids, vals):
+    """q = sum_p mu x, tq = sum_p sig x^2, tz = sum_p mu^2 x^2, each [N, F],
+    from channels 0..F-1 (mu) and F..2F-1 (sig) of ``ptab``."""
+    N = ids.shape[0]
+    q = torch.zeros(N, F, dtype=_F32, device=ptab.device)
+    tq = torch.zeros_like(q)
+    tz = torch.zeros_like(q)
+    for p in range(ids.shape[1]):
+        g = ptab.index_select(0, ids[:, p])
+        xp = vals[:, p, None]
+        x2p = xp * xp
+        mug, sigg = g[:, :F], g[:, F:2 * F]
+        q = q + mug * xp
+        tq = tq + sigg * x2p
+        tz = tz + mug * mug * x2p
+    return q, tq, tz
+
+
+def vb_build_qt(ptab, F: int, ids, vals):
+    if build.on_cpu(ids):
+        return vb_build_qt_plain(ptab, F, ids, vals)
+    N, P = ids.shape
+    dev = ids.device
+    if ptab.dim() != 2 or ptab.shape[1] < 2 * F:
+        raise ValueError(f"vb_build_qt.ptab: shape {tuple(ptab.shape)} has "
+                         f"fewer than 2F={2 * F} channels")
+    build.require(ptab, _F32, ptab.shape, dev, "vb_build_qt.ptab")
+    build.require(ids, _I32, (N, P), dev, "vb_build_qt.ids")
+    build.require(vals, _F32, (N, P), dev, "vb_build_qt.vals")
+    q = torch.empty(N, F, dtype=_F32, device=dev)
+    tq = torch.empty_like(q)
+    tz = torch.empty_like(q)
+    if N * F == 0:
+        return q.zero_(), tq.zero_(), tz.zero_()
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_vb_build_qt(
+            build.ptr(ptab), ptab.shape[1], F, build.ptr(ids),
+            build.ptr(vals), N, P, build.ptr(q), build.ptr(tq), build.ptr(tz),
+            build.stream_of(ids))
+    build.check_launch(lib, rc, "vb_build_qt")
+    return q, tq, tz
+
+
+# ---- K3 ---------------------------------------------------------------------
+
+def vb_col_stats_update_plain(rows, x, cols, group, sx2, e, q, tq, ptab,
+                              mu_t, sig_t, sv, alpha, w, nans) -> None:
+    """One [C, L] bucket: per-column statistics, the closed-form update,
+    and its writes (in place).  ``w`` is (mu_w, sig_w_dash, sigma_w) for
+    the merged linear-term rider, or None."""
+    C, L = rows.shape
+    F = mu_t.shape[1]
+    cl = cols.long()
+    prow = ptab.index_select(0, cols)
+    mu_c, sig_c = prow[:, :F], prow[:, F:2 * F]
+    ridx = rows.reshape(-1)
+    e_g = e.index_select(0, ridx).reshape(C, L)
+    q_g = q.index_select(0, ridx).reshape(C, L, F)
+    tq_g = tq.index_select(0, ridx).reshape(C, L, F)
+    xb = x[:, :, None]
+    mu_b, sig_b = mu_c[:, None, :], sig_c[:, None, :]
+    h = q_g - xb * mu_b
+    h1 = tq_g - xb * xb * sig_b
+    vm = (xb * h * (e_g[:, :, None] + xb * mu_b * h)).sum(1)  # [C, F]
+    vs = (xb * xb * (h * h + h1)).sum(1)
+    sxe = (x * e_g).sum(1)  # [C]
+
+    sig_cand = 1.0 / (sv.index_select(0, group) + alpha * vs)
+    nan_v = nonfinite(sig_cand)
+    sig_new = keep_finite(sig_cand, sig_c)
+    mu_cand = sig_new * alpha * vm
+    nan_v = nan_v + nonfinite(mu_cand)
+    mu_new = keep_finite(mu_cand, mu_c)
+    mu_t[cl] = mu_new
+    sig_t[cl] = sig_new
+    ptab[cl, 2 * F:3 * F] = mu_new - mu_c
+    ptab[cl, 3 * F:4 * F] = sig_new - sig_c
+    ptab[cl, 4 * F:5 * F] = mu_new * mu_new - mu_c * mu_c
+    nans[0] += nan_v
+
+    if w is not None:
+        mu_w, sig_w, sigma_w = w
+        wmu_c, wsig_c = mu_w[cl], sig_w[cl]
+        wsig_cand = 1.0 / (sigma_w.index_select(0, group) + alpha * sx2)
+        wsig_new = keep_finite(wsig_cand, wsig_c)
+        wmu_cand = wsig_new * alpha * (sxe + wmu_c * sx2)
+        nans[1] += nonfinite(wsig_cand) + nonfinite(wmu_cand)
+        wmu_new = keep_finite(wmu_cand, wmu_c)
+        mu_w[cl] = wmu_new
+        sig_w[cl] = wsig_new
+        ptab[cl, 5 * F] = wmu_c - wmu_new
+        ptab[cl, 5 * F + 1] = wsig_new - wsig_c
+
+
+def vb_col_stats_update(rows, x, cols, group, sx2, e, q, tq, ptab, mu_t,
+                        sig_t, sv, alpha, w: Optional[tuple], nans) -> None:
+    if build.on_cpu(rows):
+        return vb_col_stats_update_plain(rows, x, cols, group, sx2, e, q, tq,
+                                         ptab, mu_t, sig_t, sv, alpha, w,
+                                         nans)
+    C, L = rows.shape
+    D, F = mu_t.shape
+    N = e.shape[0]
+    CH = 5 * F + (2 if w is not None else 0)
+    dev = rows.device
+    req = build.require
+    req(rows, _I32, (C, L), dev, "vb_col_stats_update.rows")
+    req(x, _F32, (C, L), dev, "vb_col_stats_update.x")
+    for name, a, dt in (("cols", cols, _I32), ("group", group, _I32),
+                        ("sx2", sx2, _F32)):
+        req(a, dt, (C,), dev, f"vb_col_stats_update.{name}")
+    req(e, _F32, (N,), dev, "vb_col_stats_update.e")
+    req(q, _F32, (N, F), dev, "vb_col_stats_update.q")
+    req(tq, _F32, (N, F), dev, "vb_col_stats_update.tq")
+    req(ptab, _F32, (D, CH), dev, "vb_col_stats_update.ptab")
+    req(mu_t, _F32, (D, F), dev, "vb_col_stats_update.mu_t")
+    req(sig_t, _F32, (D, F), dev, "vb_col_stats_update.sig_t")
+    req(sv, _F32, (sv.shape[0], F), dev, "vb_col_stats_update.sv")
+    req(alpha, _F32, (), dev, "vb_col_stats_update.alpha")
+    req(nans, _I32, (2,), dev, "vb_col_stats_update.nans")
+    if w is not None:
+        mu_w, sig_w, sigma_w = w
+        req(mu_w, _F32, (D,), dev, "vb_col_stats_update.mu_w")
+        req(sig_w, _F32, (D,), dev, "vb_col_stats_update.sig_w")
+        req(sigma_w, _F32, (sv.shape[0],), dev, "vb_col_stats_update.sigma_w")
+        wp = (build.ptr(mu_w), build.ptr(sig_w), build.ptr(sigma_w))
+    else:
+        wp = (None, None, None)
+    if C == 0 or F == 0:
+        return
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_vb_col_stats_update(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(group), build.ptr(sx2), build.ptr(e), build.ptr(q),
+            build.ptr(tq), F, build.ptr(ptab), CH, build.ptr(mu_t),
+            build.ptr(sig_t), build.ptr(sv), build.ptr(alpha), *wp,
+            build.ptr(nans), build.stream_of(rows))
+    build.check_launch(lib, rc, "vb_col_stats_update")
+
+
+# ---- K4 ---------------------------------------------------------------------
+
+def vb_patch_rows_plain(ptab, F: int, merge_w: bool, ids, vals, q, tq, tz, e,
+                        t) -> None:
+    """Patch q/tq/tz [N, F] and e/t [N] in place from ``ptab``, walking the
+    row positions in order (the caches change between positions)."""
+    for p in range(ids.shape[1]):
+        gg = ptab.index_select(0, ids[:, p])  # [N, CH]
+        x = vals[:, p]
+        xp = x[:, None]
+        x2p = xp * xp
+        mu_e, sig_e = gg[:, :F], gg[:, F:2 * F]
+        dmu_e, dsig_e, dmu2_e = (gg[:, 2 * F:3 * F], gg[:, 3 * F:4 * F],
+                                 gg[:, 4 * F:5 * F])
+        he = xp * (q - xp * mu_e)
+        h1e = x2p * (tq - x2p * sig_e)
+        h2e = x2p * (tz - x2p * mu_e * mu_e)
+        q += xp * dmu_e
+        tq += x2p * dsig_e
+        tz += x2p * dmu2_e
+        e -= (he * dmu_e).sum(1)
+        t += ((h1e + h2e) * dsig_e + h1e * dmu2_e).sum(1)
+        if merge_w:
+            e += x * gg[:, 5 * F]
+            t += x * x * gg[:, 5 * F + 1]
+
+
+def vb_patch_rows(ptab, F: int, merge_w: bool, ids, vals, q, tq, tz, e,
+                  t) -> None:
+    if build.on_cpu(ids):
+        return vb_patch_rows_plain(ptab, F, merge_w, ids, vals, q, tq, tz, e,
+                                   t)
+    N, P = ids.shape
+    CH = 5 * F + (2 if merge_w else 0)
+    dev = ids.device
+    req = build.require
+    req(ptab, _F32, (ptab.shape[0], CH), dev, "vb_patch_rows.ptab")
+    req(ids, _I32, (N, P), dev, "vb_patch_rows.ids")
+    req(vals, _F32, (N, P), dev, "vb_patch_rows.vals")
+    for name, a in (("q", q), ("tq", tq), ("tz", tz)):
+        req(a, _F32, (N, F), dev, f"vb_patch_rows.{name}")
+    req(e, _F32, (N,), dev, "vb_patch_rows.e")
+    req(t, _F32, (N,), dev, "vb_patch_rows.t")
+    if N == 0:
+        return
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_vb_patch_rows(
+            build.ptr(ptab), CH, F, int(merge_w), build.ptr(ids),
+            build.ptr(vals), N, P, build.ptr(q), build.ptr(tq), build.ptr(tz),
+            build.ptr(e), build.ptr(t), build.stream_of(ids))
+    build.check_launch(lib, rc, "vb_patch_rows")

@@ -1,0 +1,57 @@
+"""The port imports neither JAX, nor flax, nor the JAX package."""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_RUN_WITHOUT_JAX = r"""
+import sys
+for name in ("jax", "flax", "svbfm_tpu"):
+    sys.modules[name] = None  # any import of them now raises
+import svbfm_tpu_torch
+from svbfm_tpu_torch.data.dataset import SparseDataset
+from svbfm_tpu_torch.data.meta import DataMetaInfo
+from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
+from svbfm_tpu_torch.learners.base import FMConfig
+from svbfm_tpu_torch.learners.vb import VBLearner
+from svbfm_tpu_torch.utils import convert  # noqa: F401
+
+coo = make_movielens_like(num_users=9, num_items=7, num_ratings=96, seed=2)
+tr, te = train_test_split(coo, 0.25, seed=3)
+D = coo.num_features
+meta = DataMetaInfo.from_field_offsets(D, [0, 9])
+cfg = FMConfig(num_attributes=D, num_factor=3, num_groups=2, seed=7,
+               min_target=float(tr.target.min()),
+               max_target=float(tr.target.max()))
+learner = VBLearner(cfg, SparseDataset.from_coo(tr, D),
+                    SparseDataset.from_coo(te, D), meta, device="cpu",
+                    write_files=False)
+_, hist = learner.run(num_iter=2, verbose=False)
+loaded = [m for m, v in sys.modules.items() if v is not None and
+          m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
+assert not loaded, loaded
+print("sweeps", len(hist), "rmse", hist[-1]["rmse"])
+"""
+
+
+def test_port_runs_two_sweeps_without_jax():
+    r = subprocess.run([sys.executable, "-c", _RUN_WITHOUT_JAX], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "sweeps 2" in r.stdout
+
+
+def test_no_jax_import_statement_in_port():
+    pat = re.compile(r"^\s*(import|from) (jax|flax|svbfm_tpu)\b")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "svbfm_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path) as f:
+            bad += [f"{path}:{i}" for i, line in enumerate(f, 1)
+                    if pat.match(line)]
+    assert len(files) > 10 and not bad, bad
