@@ -1,0 +1,274 @@
+"""libFM-compatible command line of the PyTorch/CUDA port, for the methods
+it runs: batch VBFM (``-method vb``, fast or exact mode) and in-memory
+online VBFM (``-method vb_online``), regression, one device.
+
+    python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
+        -dim '1,1,20' -method vb_online -iter 10 -device cuda
+
+The flags these methods read keep the names, defaults and meanings of the
+JAX package's CLI (``svbfm_tpu/cli.py``); ``-device`` (default ``cuda``)
+is the one addition.  The run writes what that CLI writes: ``v_file.txt``
+(the initial factors), the reference-named trajectory files
+(``test_rmse_<k0><k1><K>_<method>``, ``free_energy_*``) in the working
+directory, the ``Final\\tTest=`` line and, with ``-out``, the final test
+predictions.  Every other method and flag exits non-zero with the ROADMAP
+item that will bring it; nothing is silently ignored, and ``-device cuda``
+without a GPU is refused rather than run on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+
+HELP = """svbfm-torch — the PyTorch/CUDA port's libFM-compatible CLI
+Flags (-name value):
+  -task        r=regression [MANDATORY; c is not ported yet]
+  -train       filename for training data (libFM text) [MANDATORY]
+  -test        filename for test data (libFM text) [MANDATORY]
+  -meta        filename with one group id per attribute line
+  -out         filename for final test predictions
+  -dim         'k0,k1,k2': bias,1-way,2-way dim; default=1,1,8
+  -iter        number of iterations; default=100
+  -method      vb|vb_online; default=mcmc, which is not ported yet
+  -batch       number of chunks for vb_online; default=50
+  -reshuffle   vb_online: 1 = re-partition chunk membership every epoch;
+               default 0 keeps membership fixed with shuffled order
+  -factor_block  factors per sweep block; 0=all (fast), 1=reference-exact
+  -bins        column-bin mode: auto|fields|greedy|jacobi
+  -seed        RNG seed
+  -verbosity   how much to print; default=0
+  -device      torch device to train on; default=cuda (cpu runs the
+               kernels' plain PyTorch twins)
+  -help        this screen
+"""
+
+SUPPORTED = {"task", "train", "test", "meta", "out", "dim", "iter", "method",
+             "batch", "reshuffle", "factor_block", "bins", "seed",
+             "verbosity", "device", "help"}
+
+_Q1 = "ROADMAP.md queue 1"
+_NOT_READ = "is not read by -method vb or vb_online"
+# flags of svbfm_tpu/cli.py that the port refuses, and why
+REFUSED = {
+    "relation": f"block structure (relations) is not ported yet ({_Q1}, "
+                "item 11)",
+    "cache_size": f"out-of-core windowed training is not ported yet ({_Q1}, "
+                  "item 10)",
+    "checkpoint": f"checkpoints are not ported yet ({_Q1}, item 12)",
+    "checkpoint_every": f"checkpoints are not ported yet ({_Q1}, item 12)",
+    "rlog": f"the RLog metrics file is not ported yet ({_Q1}, item 12)",
+    "map_eval": f"MAP@k evaluation is not ported yet ({_Q1}, item 12)",
+    "map_item_offset": f"MAP@k evaluation is not ported yet ({_Q1}, item 12)",
+    "map_k": f"MAP@k evaluation is not ported yet ({_Q1}, item 12)",
+    "profile": f"the profiler flag is not ported yet ({_Q1}, item 12)",
+    "feature_shards": f"feature sharding over several GPUs is not ported yet "
+                      f"({_Q1}, item 13)",
+    "distributed": f"multi-process training is not ported yet ({_Q1}, "
+                   "item 13)",
+    "num_eval_cases": f"held-back test rows are not ported yet ({_Q1}, "
+                      "item 4)",
+    "validation": f"{_NOT_READ} (SGDA: {_Q1}, item 8)",
+    "regular": f"{_NOT_READ} (SGD/ALS/MCMC: {_Q1}, items 7-8)",
+    "init_stdev": f"{_NOT_READ} (the VB init is 0.1 N(0,1))",
+    "stdev": f"{_NOT_READ} (exp-SGD: {_Q1}, item 8)",
+    "learn_rate": f"{_NOT_READ} (SGD: {_Q1}, item 8)",
+    "do_sampling": f"{_NOT_READ} (MCMC: {_Q1}, item 7)",
+    "do_multilevel": f"{_NOT_READ} (MCMC: {_Q1}, item 7)",
+    "factor_jacobi": f"{_NOT_READ} (ALS: {_Q1}, item 7)",
+    "bpr_neg_field": f"{_NOT_READ} (BPR: {_Q1}, item 8)",
+}
+METHODS_LATER = {
+    "mcmc": "item 7", "als": "item 7", "sgd": "item 8", "sgda": "item 8",
+    "sgd_online": "item 8", "exp_sgd": "item 8", "exp_sgd_stoc": "item 8",
+    "bpr": "item 8",
+}
+
+
+class CmdLine:
+    """`-name value` parser with duplicate detection (reference
+    ``src/util/cmdline.h:29-197``, as ``svbfm_tpu/cli.py`` parses)."""
+
+    def __init__(self, argv: list[str]):
+        self.args: dict[str, str] = {}
+        i = 0
+        while i < len(argv):
+            tok = argv[i]
+            if not tok.startswith("-") or _is_number(tok):
+                raise SystemExit(f"expected parameter, found '{tok}'")
+            name = tok.lstrip("-")
+            if name in self.args:
+                raise SystemExit(f"the parameter '{name}' is specified twice")
+            if i + 1 < len(argv) and (not argv[i + 1].startswith("-")
+                                      or _is_number(argv[i + 1])):
+                self.args[name] = argv[i + 1]
+                i += 2
+            else:
+                self.args[name] = ""
+                i += 1
+
+    def has(self, name: str) -> bool:
+        return name in self.args
+
+    def get_str(self, name: str, default: str = "") -> str:
+        return self.args.get(name, default)
+
+    def get_int(self, name: str, default: int = 0) -> int:
+        v = self.args.get(name, "")
+        return int(v) if v else default
+
+    def get_list(self, name: str) -> list[float]:
+        v = self.args.get(name, "")
+        if not v:
+            return []
+        return [float(x) for x in v.replace(";", ",").split(",") if x != ""]
+
+
+def _is_number(s: str) -> bool:
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False
+
+
+def _has_binary(prefix: str) -> bool:
+    """The reference's binary input (.x/.y or .data/.target beside the
+    name), which ``svbfm_tpu/cli.py`` would load instead of the text."""
+    return ((os.path.exists(prefix + ".x") or os.path.exists(prefix + ".data"))
+            and (os.path.exists(prefix + ".y")
+                 or os.path.exists(prefix + ".target")))
+
+
+def _debug_data(coo) -> None:
+    """Data::debug (Data.h:569-579): the first <= 4 rows."""
+    first = np.searchsorted(coo.row, np.arange(5), side="left")
+    for r in range(min(4, coo.num_rows)):
+        ent = " ".join(f"{coo.col[j]}:{coo.val[j]:g}"
+                       for j in range(first[r], first[r + 1]))
+        print(f"{coo.target[r]:g} {ent}".rstrip())
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cmd = CmdLine(argv)
+    if cmd.has("help") or not argv:
+        print(HELP)
+        return 0
+    for name in cmd.args:
+        if name in REFUSED:
+            raise SystemExit(f"-{name}: {REFUSED[name]}")
+        if name not in SUPPORTED:
+            raise SystemExit(f"unknown parameter '{name}'")
+
+    task_s = cmd.get_str("task")
+    if task_s in ("c", "p"):
+        raise SystemExit(f"-task {task_s}: classification is not ported yet "
+                         f"({_Q1}, Next C)")
+    if task_s != "r":
+        raise SystemExit("unknown task (use r)")
+    method = cmd.get_str("method", "mcmc").lower()
+    if method in METHODS_LATER:
+        raise SystemExit(f"-method {method} is not ported yet ({_Q1}, "
+                         f"{METHODS_LATER[method]}); the port runs vb and "
+                         "vb_online")
+    if method not in ("vb", "vb_online"):
+        raise SystemExit(f"unknown method '{method}'")
+
+    import torch
+
+    device = torch.device(cmd.get_str("device", "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("-device cuda: torch.cuda.is_available() is False; "
+                         "the port does not fall back to the CPU (pass "
+                         "-device cpu to run the plain PyTorch twins)")
+    if device.type not in ("cuda", "cpu"):
+        raise SystemExit(f"-device {device}: use cuda or cpu")
+
+    dim = cmd.get_list("dim") or [1, 1, 8]
+    if len(dim) != 3:
+        raise SystemExit("-dim needs 3 values 'k0,k1,k2'")
+    k0, k1, K = bool(int(dim[0])), bool(int(dim[1])), int(dim[2])
+    train_file = cmd.get_str("train")
+    test_file = cmd.get_str("test")
+    if not train_file or not test_file:
+        raise SystemExit("-train and -test are mandatory")
+    for path in (train_file, test_file):
+        if _has_binary(path):
+            raise SystemExit(f"{path}: binary input (.x/.y) is not ported "
+                             f"yet ({_Q1}, item 10); pass libFM text")
+    verbosity = cmd.get_int("verbosity", 0)
+
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.libfm_text import load_libfm_text
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.learners.base import FMConfig, TASK_REGRESSION
+
+    train = load_libfm_text(train_file)
+    if verbosity > 0:
+        _debug_data(train)
+    test = load_libfm_text(test_file)
+    if verbosity > 0:
+        _debug_data(test)
+    D = max(train.num_features, test.num_features)
+    min_t, max_t = float(train.target.min()), float(train.target.max())
+    meta = DataMetaInfo(D)
+    if cmd.has("meta"):
+        meta.load_groups_from_file(cmd.get_str("meta"))
+    G = meta.num_attr_groups
+    if verbosity > 0:
+        print(f"#attr={meta.num_attributes}\t#groups={G}")
+        for g in range(G):
+            print(f"#attr_in_group[{g}]={meta.num_attr_per_group[g]}")
+
+    cfg = FMConfig(
+        num_attributes=D, num_factor=K, k0=k0, k1=k1, task=TASK_REGRESSION,
+        min_target=min_t, max_target=max_t, num_groups=G,
+        num_iter=cmd.get_int("iter", 100), seed=cmd.get_int("seed", 0),
+        factor_block=cmd.get_int("factor_block", 0),
+        num_batches=cmd.get_int("batch", 50),
+        reshuffle=cmd.get_int("reshuffle", 0) == 1)
+    bins = cmd.get_str("bins", "auto")
+    tr_ds = SparseDataset.from_coo(train, D)
+    te_ds = SparseDataset.from_coo(test, D)
+    if method == "vb":
+        from svbfm_tpu_torch.learners.vb import VBLearner
+        learner = VBLearner(cfg, tr_ds, te_ds, meta, device=device, bins=bins)
+    else:
+        from svbfm_tpu_torch.learners.vb_online import OVBLearner
+        learner = OVBLearner(cfg, tr_ds, te_ds, meta, device=device,
+                             bins=bins)
+
+    # the initial factors (fm_model::init writes v_file.txt,
+    # fm_model.h:92-101); the state is handed to run() below
+    init_state = learner.init_state()
+    np.savetxt("v_file.txt", init_state.mu_v.cpu().numpy(), fmt="%g")
+    if verbosity > 0:
+        print(f"num_attributes={D}")
+        print(f"use w0={int(k0)}")
+        print(f"use w1={int(k1)}")
+        print(f"dim v ={K}")
+        print(f"task={TASK_REGRESSION}")
+        print(f"min_target={min_t:g}")
+        print(f"max_target={max_t:g}")
+        print(f"device={device}")
+
+    state, _history = learner.run(state=init_state, num_iter=cfg.num_iter,
+                                  verbose=True)
+
+    # final evaluation + -out predictions (libfm.cpp:508-519)
+    out_vals = np.clip(learner.predict_test_scores(state), min_t, max_t)
+    rmse = float(np.sqrt(np.mean((out_vals - test.target) ** 2)))
+    print(f"Final\tTest={rmse:.6g}")
+    if cmd.has("out"):
+        with open(cmd.get_str("out"), "w") as f:
+            for v in out_vals:
+                f.write(f"{float(v):g}\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

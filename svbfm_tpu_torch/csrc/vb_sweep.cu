@@ -1,12 +1,18 @@
-// K2-K4: one factor block of the batch VBFM coordinate sweep, fast mode
-// (all K factors in one block, the linear-term update riding along).
+// K2-K4: one factor block of the batch VBFM coordinate sweep: fast mode
+// (all K factors in one block, the linear-term update riding along) or
+// exact mode (blocks of factor_block factors).  K2 and K4 also serve the
+// online VB factor sweep (vb_online.py:444 _qtz_generic, :561-580), whose
+// column statistics are K6 (ovb_sweep.cu).
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_v_block_update, whose three XLA
 // gather chains are
 //   K2 build_qt   (vb.py:317-332)  row caches q, tq, tz;
 //   K3 tile_stats (vb.py:382-405) + the closed-form update (vb.py:449-487)
 //                                  per-column statistics of one [C, L] bucket;
-//   K4 patch_tile (vb.py:508-568)  the per-bin row-cache patch.
+//   K4 patch_tile (vb.py:508-568)  the per-bin row-cache patch; at F = 0
+//                                  it is also the w patch of the standalone
+//                                  linear-term sweep (vb.py:149-157,
+//                                  vb_online.py:270-282).
 //
 // Layouts.  Row caches q/tq/tz are [N, F] row-major (the JAX package keeps
 // [F, N] for the TPU's (8,128) tiling): one row's F factors are one
@@ -150,11 +156,24 @@ __global__ void col_stats_kernel(
 }
 
 // ---- K4: per-bin row-cache patch ------------------------------------------
-// One warp per row, lanes over factors.  Positions are walked in order
-// p = 0..P-1 because q/tq/tz change between positions (vb.py:523-549).
-// Each row owns its cache slots, so the in-place update has no races.
-constexpr int kPatchWarps = 8;
+// kLanes threads per row, lanes over factors: a warp (32) wherever there
+// are factors; one thread (1) at F = 0, the w patch, where a warp would
+// idle 31 lanes.  kSeq (batch VB): positions are walked in order
+// p = 0..P-1 and q/tq/tz change between positions (vb.py:523-549).  !kSeq
+// (online VB, vb_online.py:561-580): every position reads the caches from
+// before the patch and the cache increments are applied after the last
+// position.  The two agree wherever a row has at most one entry in the bin
+// (conflict-free bins).  Template parameters and not runtime flags, so the
+// batch-VB loop compiles as it did alone.  Each row owns its cache slots,
+// so the in-place update has no races.
+constexpr int kPatchThreads = 256;
 
+template <int kLanes>
+__device__ __forceinline__ float row_sum(float v) {
+  return kLanes == 1 ? v : svbfm::warp_sum(v);
+}
+
+template <bool kSeq, int kLanes>
 __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
                                   int F, int merge_w,
                                   const int* __restrict__ ids,
@@ -164,10 +183,11 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
                                   float* __restrict__ tz,
                                   float* __restrict__ e,
                                   float* __restrict__ t) {
-  const int lane = threadIdx.x & 31;
-  const int64_t n =
-      static_cast<int64_t>(blockIdx.x) * kPatchWarps + (threadIdx.x >> 5);
-  if (n >= N) return;  // the whole warp leaves together
+  static_assert(kLanes == 1 || kLanes == 32, "a thread or a warp per row");
+  const int lane = threadIdx.x % kLanes;
+  const int64_t n = static_cast<int64_t>(blockIdx.x) *
+                        (kPatchThreads / kLanes) + threadIdx.x / kLanes;
+  if (n >= N) return;  // a row's lanes leave together
   float ev = e[n];
   float tv = t[n];
   for (int p = 0; p < P; ++p) {
@@ -175,7 +195,7 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
     const float xv = vals[n * P + p];
     const float x2 = xv * xv;
     float esum = 0.f, tsum = 0.f;
-    for (int f = lane; f < F; f += 32) {
+    for (int f = lane; f < F; f += kLanes) {
       const float mu_e = g[f];
       const float sig_e = g[F + f];
       const float dmu = g[2 * F + f];
@@ -186,17 +206,36 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
       const float he = xv * (qv - xv * mu_e);
       const float h1e = x2 * (tqv - x2 * sig_e);
       const float h2e = x2 * (tzv - x2 * mu_e * mu_e);
-      q[o] = qv + xv * dmu;
-      tq[o] = tqv + x2 * dsig;
-      tz[o] = tzv + x2 * dmu2;
+      if (kSeq) {
+        q[o] = qv + xv * dmu;
+        tq[o] = tqv + x2 * dsig;
+        tz[o] = tzv + x2 * dmu2;
+      }
       esum += he * dmu;
       tsum += (h1e + h2e) * dsig + h1e * dmu2;
     }
-    ev = ev - svbfm::warp_sum(esum);
-    tv = tv + svbfm::warp_sum(tsum);
+    ev = ev - row_sum<kLanes>(esum);
+    tv = tv + row_sum<kLanes>(tsum);
     if (merge_w) {
       ev = ev + xv * g[5 * F];
       tv = tv + xv * xv * g[5 * F + 1];
+    }
+  }
+  if (!kSeq) {
+    for (int f = lane; f < F; f += kLanes) {
+      const int64_t o = n * F + f;
+      float dq = 0.f, dtq = 0.f, dtz = 0.f;
+      for (int p = 0; p < P; ++p) {
+        const float* g = ptab + static_cast<int64_t>(ids[n * P + p]) * CH;
+        const float xv = vals[n * P + p];
+        const float x2 = xv * xv;
+        dq += xv * g[2 * F + f];
+        dtq += x2 * g[3 * F + f];
+        dtz += x2 * g[4 * F + f];
+      }
+      q[o] += dq;
+      tq[o] += dtq;
+      tz[o] += dtz;
     }
   }
   if (lane == 0) {
@@ -239,15 +278,35 @@ SVBFM_EXPORT int svbfm_vb_col_stats_update(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Patch q/tq/tz [N, F] and e/t [N] in place from ptab [D, CH].
+// Patch q/tq/tz [N, F] and e/t [N] in place from ptab [D, CH]; seq
+// selects the batch-VB (1) or online-VB (0) position order; a warp per row.
+// The w patch (F = 0) has its own launch below, a thread per row.
 SVBFM_EXPORT int svbfm_vb_patch_rows(const float* ptab, int CH, int F,
-                                     int merge_w, const int* ids,
+                                     int merge_w, int seq, const int* ids,
                                      const float* vals, int64_t N, int P,
                                      float* q, float* tq, float* tz, float* e,
                                      float* t, cudaStream_t stream) {
+  const int64_t rows = kPatchThreads / 32;
+  const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
+  if (seq) {
+    patch_rows_kernel<true, 32><<<blocks, kPatchThreads, 0, stream>>>(
+        ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
+  } else {
+    patch_rows_kernel<false, 32><<<blocks, kPatchThreads, 0, stream>>>(
+        ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The w patch of the standalone linear-term sweep: K4 at F = 0, one thread
+// per row, its table dtab [D, 2] being the two w channels (mu_old - mu_new,
+// sig_new - sig_old); e/t [N] += sum_p x dtab[id, 0], sum_p x^2 dtab[id, 1].
+SVBFM_EXPORT int svbfm_w_patch_rows(const float* dtab, const int* ids,
+                                    const float* vals, int64_t N, int P,
+                                    float* e, float* t, cudaStream_t stream) {
   const unsigned blocks =
-      static_cast<unsigned>((N + kPatchWarps - 1) / kPatchWarps);
-  patch_rows_kernel<<<blocks, 32 * kPatchWarps, 0, stream>>>(
-      ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
+      static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
+  patch_rows_kernel<true, 1><<<blocks, kPatchThreads, 0, stream>>>(
+      dtab, 2, 0, 1, ids, vals, N, P, nullptr, nullptr, nullptr, e, t);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # one source file per library; the kernels each library holds
 LIBRARIES = {
     "fm_forward": ("fm_scores", "fm_t_terms"),
-    "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows"),
+    "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
+                 "w_patch_rows"),
+    "w_sweep": ("w_col_update",),
+    "ovb_sweep": ("ovb_col_stats_update",),
 }
 
 # C signatures of the exported launch functions (P: pointer or stream,
@@ -49,8 +52,15 @@ SIGNATURES = {
     "svbfm_vb_col_stats_update": (
         _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
         _P, _P, _P, _P, _P),
-    "svbfm_vb_patch_rows": (_P, _I, _I, _I, _P, _P, _L, _I, _P, _P, _P, _P,
-                            _P, _P),
+    "svbfm_vb_patch_rows": (_P, _I, _I, _I, _I, _P, _P, _L, _I, _P, _P, _P,
+                            _P, _P, _P),
+    "svbfm_w_col_update": (
+        _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+        _P, _P, _P, _P, _P),
+    "svbfm_w_patch_rows": (_P, _P, _P, _L, _I, _P, _P, _P),
+    "svbfm_ovb_col_stats_update": (
+        _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P),
 }
 
 launch_counts: dict[str, int] = {
@@ -89,25 +99,39 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
+def _start_build(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` unless its library exists; returns
+    the running job (library path, temp path, process) or None."""
+    so = library_path(name)
+    if os.path.exists(so):
+        return None
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+    return so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+
+
+def _finish_build(name: str, job) -> None:
+    so, tmp, proc = job
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(rc={proc.returncode}):\n{err}{out}")
+    build_logs[name] = err + out
+    os.replace(tmp, so)  # atomic: a concurrent build never half-loads
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    so = library_path(name)
-    if not os.path.exists(so):
-        nvcc = _nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, f"{name}.cu")]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(rc={r.returncode}):\n{r.stderr}{r.stdout}")
-        build_logs[name] = r.stderr + r.stdout
-        os.replace(tmp, so)  # atomic: a concurrent build never half-loads
-    lib = ctypes.CDLL(so)
+    job = _start_build(name)
+    if job is not None:
+        _finish_build(name, job)
+    lib = ctypes.CDLL(library_path(name))
     lib.svbfm_error_string.restype = ctypes.c_char_p
     lib.svbfm_error_string.argtypes = [ctypes.c_int]
     for kernel in LIBRARIES[name]:
@@ -119,8 +143,23 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build and load every library; returns the seconds it took."""
+    """Build every library, one nvcc per source, all started together, and
+    load them; returns the seconds it took.  On a failed build the other
+    compilers are stopped before the error is raised."""
     t0 = time.perf_counter()
+    jobs = {}
+    try:
+        for name in LIBRARIES:
+            if name not in _libs:
+                jobs[name] = _start_build(name)
+        for name, job in jobs.items():
+            if job is not None:
+                _finish_build(name, job)
+    finally:
+        for job in jobs.values():
+            if job is not None and job[2].poll() is None:
+                job[2].kill()
+                job[2].communicate()
     for name in LIBRARIES:
         load_library(name)
     return time.perf_counter() - t0

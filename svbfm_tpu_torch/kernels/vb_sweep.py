@@ -3,7 +3,8 @@
 ``vb_build_qt`` (K2) builds the row caches q, tq, tz; ``vb_col_stats_update``
 (K3) computes one degree bucket's per-column statistics and applies the
 closed-form update; ``vb_patch_rows`` (K4) patches the row caches after a
-bin.  On CUDA tensors each op launches its hand-written kernel; on CPU
+bin; ``w_patch_rows`` is K4 at F = 0, the w patch of the standalone
+linear-term sweep.  On CUDA tensors each op launches its hand-written kernel; on CPU
 tensors it runs the plain PyTorch twin beside it.  K3 and K4 update their
 outputs in place, kernel and twin alike.
 
@@ -12,7 +13,11 @@ Layouts (see ``csrc/vb_sweep.cu``): row caches [N, F]; mu/sigma tables
 (mu_old, sig_old, dmu, dsig, dmu2 [, wdmu, wdsig]), CH = 5F (+2).
 
 Replaces ``svbfm_tpu/learners/vb.py:vb_v_block_update`` → ``build_qt``
-(:317), ``tile_stats`` + update (:382, :449-487), ``patch_tile`` (:508).
+(:317), ``tile_stats`` + update (:382, :449-487), ``patch_tile`` (:508);
+the w patch of ``vb_w_bin_update`` (:149-157) and of the online w sweep
+(``svbfm_tpu/learners/vb_online.py``:270-282).
+K2 and K4 also serve the online VB factor sweep (``learners/vb_online.py``;
+``vb_patch_rows(..., sequential=False)``).
 """
 
 from __future__ import annotations
@@ -174,9 +179,13 @@ def vb_col_stats_update(rows, x, cols, group, sx2, e, q, tq, ptab, mu_t,
 # ---- K4 ---------------------------------------------------------------------
 
 def vb_patch_rows_plain(ptab, F: int, merge_w: bool, ids, vals, q, tq, tz, e,
-                        t) -> None:
-    """Patch q/tq/tz [N, F] and e/t [N] in place from ``ptab``, walking the
-    row positions in order (the caches change between positions)."""
+                        t, sequential: bool = True) -> None:
+    """Patch q/tq/tz [N, F] and e/t [N] in place from ``ptab``.  With
+    ``sequential`` (batch VB) the row positions are walked in order and the
+    caches change between positions; without it (online VB) every position
+    reads the caches from before the patch."""
+    q0, tq0, tz0 = ((q, tq, tz) if sequential
+                    else (q.clone(), tq.clone(), tz.clone()))
     for p in range(ids.shape[1]):
         gg = ptab.index_select(0, ids[:, p])  # [N, CH]
         x = vals[:, p]
@@ -185,9 +194,9 @@ def vb_patch_rows_plain(ptab, F: int, merge_w: bool, ids, vals, q, tq, tz, e,
         mu_e, sig_e = gg[:, :F], gg[:, F:2 * F]
         dmu_e, dsig_e, dmu2_e = (gg[:, 2 * F:3 * F], gg[:, 3 * F:4 * F],
                                  gg[:, 4 * F:5 * F])
-        he = xp * (q - xp * mu_e)
-        h1e = x2p * (tq - x2p * sig_e)
-        h2e = x2p * (tz - x2p * mu_e * mu_e)
+        he = xp * (q0 - xp * mu_e)
+        h1e = x2p * (tq0 - x2p * sig_e)
+        h2e = x2p * (tz0 - x2p * mu_e * mu_e)
         q += xp * dmu_e
         tq += x2p * dsig_e
         tz += x2p * dmu2_e
@@ -199,10 +208,10 @@ def vb_patch_rows_plain(ptab, F: int, merge_w: bool, ids, vals, q, tq, tz, e,
 
 
 def vb_patch_rows(ptab, F: int, merge_w: bool, ids, vals, q, tq, tz, e,
-                  t) -> None:
+                  t, sequential: bool = True) -> None:
     if build.on_cpu(ids):
         return vb_patch_rows_plain(ptab, F, merge_w, ids, vals, q, tq, tz, e,
-                                   t)
+                                   t, sequential)
     N, P = ids.shape
     CH = 5 * F + (2 if merge_w else 0)
     dev = ids.device
@@ -219,7 +228,38 @@ def vb_patch_rows(ptab, F: int, merge_w: bool, ids, vals, q, tq, tz, e,
     lib = build.load_library("vb_sweep")
     with torch.cuda.device(dev):
         rc = lib.svbfm_vb_patch_rows(
-            build.ptr(ptab), CH, F, int(merge_w), build.ptr(ids),
+            build.ptr(ptab), CH, F, int(merge_w), int(sequential),
+            build.ptr(ids),
             build.ptr(vals), N, P, build.ptr(q), build.ptr(tq), build.ptr(tz),
             build.ptr(e), build.ptr(t), build.stream_of(ids))
     build.check_launch(lib, rc, "vb_patch_rows")
+
+
+# ---- K4 at F = 0: the w patch ----------------------------------------------
+
+def w_patch_rows_plain(dtab, ids, vals, e, t) -> None:
+    """e += sum_p x dtab[id, 0], t += sum_p x^2 dtab[id, 1] (in place):
+    K4's twin with no factor channels, ``dtab`` [D, 2] its w channels."""
+    none = e.new_empty(e.shape[0], 0)
+    vb_patch_rows_plain(dtab, 0, True, ids, vals, none, none, none, e, t)
+
+
+def w_patch_rows(dtab, ids, vals, e, t) -> None:
+    if build.on_cpu(ids):
+        return w_patch_rows_plain(dtab, ids, vals, e, t)
+    N, P = ids.shape
+    dev = ids.device
+    req = build.require
+    req(dtab, _F32, (dtab.shape[0], 2), dev, "w_patch_rows.dtab")
+    req(ids, _I32, (N, P), dev, "w_patch_rows.ids")
+    req(vals, _F32, (N, P), dev, "w_patch_rows.vals")
+    req(e, _F32, (N,), dev, "w_patch_rows.e")
+    req(t, _F32, (N,), dev, "w_patch_rows.t")
+    if N == 0:
+        return
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_w_patch_rows(
+            build.ptr(dtab), build.ptr(ids), build.ptr(vals), N, P,
+            build.ptr(e), build.ptr(t), build.stream_of(ids))
+    build.check_launch(lib, rc, "w_patch_rows")

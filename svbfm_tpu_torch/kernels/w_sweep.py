@@ -1,0 +1,128 @@
+"""K5: the standalone linear-term sweep (``csrc/w_sweep.cu``).
+
+``w_col_update`` (K5) computes one degree bucket's per-column statistic and
+updates the linear term at its columns: the closed form of batch VB, or
+with ``ovb=`` the natural-gradient blend of online VB.  It writes the
+bucket's rows of the ``[D, 2]`` delta table ``dtab`` (mu_old - mu_new,
+sig_new - sig_old), which the caller zeroes before each bin;
+``vb_sweep.w_patch_rows`` (K4 at F = 0) then adds the bin's deltas to the
+row caches e and t.  On CUDA tensors the op launches its hand-written
+kernel; on CPU tensors it runs the plain PyTorch twin beside it.  Both
+update their outputs in place, kernel and twin alike.
+
+``bad`` is an int32 [4] counter: (nan mu, inf mu, nan sig, inf sig)
+candidates.
+
+Replaces ``svbfm_tpu/learners/vb.py:vb_w_bin_update`` (:125-148) and the w
+column updates of ``svbfm_tpu/learners/vb_online.py:ovb_chunk_update``
+(:230-269).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from svbfm_tpu_torch.kernels import build
+from svbfm_tpu_torch.learners.base import keep_finite
+
+_I32, _F32 = torch.int32, torch.float32
+
+
+def count_candidates(bad, mu_cand, sig_cand) -> None:
+    """bad [4] += (nan, inf) counts of the mu candidates, then of sig."""
+    bad[0] += torch.isnan(mu_cand).sum(dtype=_I32)
+    bad[1] += torch.isinf(mu_cand).sum(dtype=_I32)
+    bad[2] += torch.isnan(sig_cand).sum(dtype=_I32)
+    bad[3] += torch.isinf(sig_cand).sum(dtype=_I32)
+
+
+# ---- K5 ---------------------------------------------------------------------
+
+def w_col_update_plain(rows, x, cols, group, sx2, e, mu_w, sig_w, sigma_w,
+                       alpha, dtab, bad, ovb: Optional[tuple] = None) -> None:
+    """One [C, L] bucket.  ``ovb`` is (cnt, col_count, n_mu_w, n_sig_w,
+    rho_w, t_wj) for online VB, or None for batch VB."""
+    cl = cols.long()
+    mu_c, sig_c = mu_w[cl], sig_w[cl]
+    sw = sigma_w.index_select(0, group)
+    e_g = e.index_select(0, rows.reshape(-1)).reshape(rows.shape)
+    if ovb is None:
+        # vb.py:140-144
+        sxe = (x * e_g).sum(1)
+        sig_cand = 1.0 / (sw + alpha * sx2)
+        sig_new = keep_finite(sig_cand, sig_c)
+        mu_cand = sig_new * alpha * (sxe + mu_c * sx2)
+        mu_new = keep_finite(mu_cand, mu_c)
+    else:
+        # vb_online.py:236-269
+        cnt, col_count, n_mu, n_sig, rho_w, t_wj = ovb
+        active = cnt > 0
+        cnt1 = torch.clamp(cnt, min=1.0)
+        rho = rho_w[cl]
+        s1 = (x * (e_g + x * mu_c[:, None])).sum(1) / cnt1
+        msx2 = sx2 / cnt1
+        nmu_c, nsig_c = n_mu[cl], n_sig[cl]
+        nsig_new = (1.0 - rho) * nsig_c + rho * (sw + alpha * col_count * msx2)
+        nmu_new = (1.0 - rho) * nmu_c + rho * col_count * alpha * s1
+        zero = torch.zeros((), dtype=_F32, device=e.device)
+        mu_cand = torch.where(active, nmu_new / nsig_new, zero)
+        sig_cand = torch.where(active, 1.0 / nsig_new, zero)
+        mu_new = torch.where(active, keep_finite(nmu_new / nsig_new, mu_c),
+                             mu_c)
+        sig_new = torch.where(active, keep_finite(1.0 / nsig_new, sig_c),
+                              sig_c)
+        n_mu[cl] = torch.where(active, nmu_new, nmu_c)
+        n_sig[cl] = torch.where(active, nsig_new, nsig_c)
+        t_wj.index_add_(0, cols, torch.where(active, cnt, zero))
+    count_candidates(bad, mu_cand, sig_cand)
+    mu_w[cl] = mu_new
+    sig_w[cl] = sig_new
+    dtab[cl, 0] = mu_c - mu_new
+    dtab[cl, 1] = sig_new - sig_c
+
+
+def w_col_update(rows, x, cols, group, sx2, e, mu_w, sig_w, sigma_w, alpha,
+                 dtab, bad, ovb: Optional[tuple] = None) -> None:
+    if build.on_cpu(rows):
+        return w_col_update_plain(rows, x, cols, group, sx2, e, mu_w, sig_w,
+                                  sigma_w, alpha, dtab, bad, ovb)
+    C, L = rows.shape
+    D = mu_w.shape[0]
+    dev = rows.device
+    req = build.require
+    req(rows, _I32, (C, L), dev, "w_col_update.rows")
+    req(x, _F32, (C, L), dev, "w_col_update.x")
+    for name, a, dt in (("cols", cols, _I32), ("group", group, _I32),
+                        ("sx2", sx2, _F32)):
+        req(a, dt, (C,), dev, f"w_col_update.{name}")
+    req(e, _F32, (e.shape[0],), dev, "w_col_update.e")
+    req(mu_w, _F32, (D,), dev, "w_col_update.mu_w")
+    req(sig_w, _F32, (D,), dev, "w_col_update.sig_w")
+    req(sigma_w, _F32, (sigma_w.shape[0],), dev, "w_col_update.sigma_w")
+    req(alpha, _F32, (), dev, "w_col_update.alpha")
+    req(dtab, _F32, (D, 2), dev, "w_col_update.dtab")
+    req(bad, _I32, (4,), dev, "w_col_update.bad")
+    if ovb is not None:
+        cnt, col_count, n_mu, n_sig, rho_w, t_wj = ovb
+        req(cnt, _F32, (C,), dev, "w_col_update.cnt")
+        req(col_count, _F32, (C,), dev, "w_col_update.col_count")
+        for name, a in (("n_mu_w", n_mu), ("n_sig_w", n_sig),
+                        ("rho_w", rho_w), ("t_wj", t_wj)):
+            req(a, _F32, (D,), dev, f"w_col_update.{name}")
+        op = tuple(build.ptr(a) for a in ovb)
+    else:
+        op = (None,) * 6
+    if C == 0:
+        return
+    lib = build.load_library("w_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_w_col_update(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(group), build.ptr(sx2), build.ptr(e), build.ptr(mu_w),
+            build.ptr(sig_w), build.ptr(sigma_w), build.ptr(alpha),
+            build.ptr(dtab), build.ptr(bad), int(ovb is not None), *op,
+            build.stream_of(rows))
+    build.check_launch(lib, rc, "w_col_update")
+

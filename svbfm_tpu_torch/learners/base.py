@@ -24,7 +24,7 @@ TASK_REGRESSION = 0
 @dataclass(frozen=True)
 class FMConfig:
     """Static learner configuration: the JAX package's FMConfig fields that
-    batch VBFM reads (same names and defaults)."""
+    batch and online VBFM read (same names and defaults)."""
 
     num_attributes: int
     num_factor: int
@@ -37,8 +37,13 @@ class FMConfig:
     num_iter: int = 100
     seed: int = 0
     # factors per block in the VB v sweep; 0 = all K in one block ("fast
-    # mode", the linear-term sweep riding inside it)
+    # mode", the linear-term sweep riding inside it); 1 = the reference's
+    # factor-sequential order.  Online VB turns 0 into 1.
     factor_block: int = 0
+    # online VB: chunks per epoch (-batch), and whether chunk membership is
+    # re-drawn every epoch (-reshuffle) instead of fixed once
+    num_batches: int = 50
+    reshuffle: bool = False
 
     @property
     def dim_tag(self) -> str:
@@ -57,14 +62,15 @@ class RowData:
 
 @dataclass
 class BlockData:
-    """One ColumnBlock (single shard) on the device: the fields the VB
-    sweep reads."""
+    """One ColumnBlock (single shard) on the device."""
 
     rows: torch.Tensor  # int32 [C, L]
     x: torch.Tensor  # f32 [C, L]
     cols: torch.Tensor  # int32 [C]
     group: torch.Tensor  # int32 [C]
     sx2: torch.Tensor  # f32 [C]
+    cnt: torch.Tensor  # f32 [C] entry count in this data (an OVB chunk)
+    col_count: torch.Tensor  # f32 [C] occurrences in the full train set
 
 
 @dataclass
@@ -102,7 +108,8 @@ def build_plan_data(plan: SweepPlan, meta: DataMetaInfo, device) -> PlanData:
             BlockData(
                 rows=_put(blk.rows[0], device), x=_put(blk.x[0], device),
                 cols=_put(blk.cols, device), group=_put(blk.group, device),
-                sx2=_put(blk.sx2, device))
+                sx2=_put(blk.sx2, device), cnt=_put(blk.cnt, device),
+                col_count=_put(blk.col_count, device))
             for blk in bin_blocks)
         for bin_blocks in plan.blocks)
     return PlanData(
@@ -120,8 +127,46 @@ def keep_finite(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
 
 
 def nonfinite(x: torch.Tensor) -> torch.Tensor:
-    """Count of non-finite entries, as an int32 device scalar."""
+    """Count of non-finite entries, as an int32 device scalar (batch VB
+    counts NaN and Inf together)."""
     return (~torch.isfinite(x)).sum(dtype=torch.int32)
+
+
+def zero_counters(families, device) -> dict:
+    """All-zero int32 device counters ``nan_<family>``/``inf_<family>``."""
+    z = torch.zeros((), dtype=torch.int32, device=device)
+    return {k: z for fam in families for k in (f"nan_{fam}", f"inf_{fam}")}
+
+
+def count_bad(counters: dict, name: str, cand: torch.Tensor) -> None:
+    """Add the NaN and the Inf candidates of ``cand`` to ``counters`` under
+    ``nan_<name>`` and ``inf_<name>`` (svbfm_tpu/learners/mcmc.py:106-117;
+    online VB counts the two apart)."""
+    counters[f"nan_{name}"] = (counters[f"nan_{name}"]
+                               + torch.isnan(cand).sum(dtype=torch.int32))
+    counters[f"inf_{name}"] = (counters[f"inf_{name}"]
+                               + torch.isinf(cand).sum(dtype=torch.int32))
+
+
+def print_nonzero_nans(rec: dict, verbose: bool = True) -> None:
+    """Print a history record's nonzero ``nan_*``/``inf_*`` counters on one
+    line, as the reference prints only nonzero counters
+    (fm_learn_vb_online_simultaneous.h:159-186)."""
+    if not verbose:
+        return
+    bad = {k: int(v) for k, v in rec.items()
+           if (k.startswith("nan_") or k.startswith("inf_")) and int(v) != 0}
+    if bad:
+        print("\t".join(f"#{k.split('_', 1)[0]}s in {k.split('_', 1)[1]}: {v}"
+                        for k, v in bad.items()))
+
+
+def regression_metrics(scores: torch.Tensor, row: RowData, num_rows: int,
+                       min_target: float, max_target: float):
+    """Test RMSE and MAE of clipped scores, as device scalars."""
+    n = float(num_rows)
+    err = (torch.clamp(scores, min_target, max_target) - row.target) * row.valid
+    return torch.sqrt(torch.sum(err * err) / n), torch.sum(torch.abs(err)) / n
 
 
 def evaluate_regression(pred, target, min_target, max_target, normalizer=1.0,

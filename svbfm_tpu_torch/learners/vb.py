@@ -1,15 +1,20 @@
 """VBFM — batch coordinate-ascent variational Bayes, on one device.
 
-Counterpart of ``svbfm_tpu/learners/vb.py`` for the fast mode
-(``factor_block=0``: all K factors form one block and the linear-term
-update rides in its bin passes), regression.  The math and its order are
-the JAX package's; the execution is eager PyTorch around four hand-written
-CUDA kernels (``kernels/``), each with a plain twin that runs on the CPU:
+Counterpart of ``svbfm_tpu/learners/vb.py``, regression, in both of its
+modes: fast (``factor_block=0``: all K factors form one block and the
+linear-term update rides in its bin passes) and exact (``factor_block=F``
+> 0, or K = 0: the linear-term sweep runs standalone first, then blocks of
+F factors, the last block narrower when F does not divide K; F = 1 is the
+reference's own order).  The math and its order are the JAX package's; the
+execution is eager PyTorch around hand-written CUDA kernels (``kernels/``),
+each with a plain twin that runs on the CPU:
 
 * K1 ``fm_scores`` / ``fm_t_terms``: init caches and the per-sweep test eval;
 * K2 ``vb_build_qt``: the q/tq/tz row caches at block entry;
 * K3 ``vb_col_stats_update``: per-bucket column statistics + closed form;
-* K4 ``vb_patch_rows``: the per-bin row-cache patch.
+* K4 ``vb_patch_rows``: the per-bin row-cache patch;
+* K5 ``w_col_update`` + ``w_patch_rows`` (K4 at F = 0): the standalone
+  linear-term sweep.
 
 Sweep semantics (see the JAX module's docstring): bins in order, exact
 Gauss-Seidel over conflict-free columns; factors within the block Jacobi;
@@ -33,11 +38,13 @@ from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
 from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.kernels.vb_sweep import (vb_build_qt,
                                               vb_col_stats_update,
-                                              vb_patch_rows)
+                                              vb_patch_rows, w_patch_rows)
+from svbfm_tpu_torch.kernels.w_sweep import w_col_update
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, PlanData,
                                            RowData, TrajectoryFile,
                                            build_plan_data, build_row_data,
-                                           keep_finite, nonfinite)
+                                           keep_finite, nonfinite,
+                                           regression_metrics)
 from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
 
 _F32 = torch.float32
@@ -92,14 +99,8 @@ def init_vb_params(generator: torch.Generator, cfg: FMConfig,
 
 def check_slice(cfg: FMConfig) -> None:
     """Raise for what the port does not run yet; nothing falls back."""
-    if cfg.factor_block != 0:
-        raise NotImplementedError(
-            "factor_block > 0 (exact mode: standalone vb_w_bin_update and "
-            f"the factor-block loop) is not ported yet; {_ROADMAP}")
-    if cfg.num_factor <= 0:
-        raise NotImplementedError(
-            "num_factor = 0 needs the standalone linear-term sweep "
-            f"(vb_w_bin_update), not ported yet; {_ROADMAP}")
+    if cfg.factor_block < 0 or cfg.num_factor < 0:
+        raise ValueError("factor_block and num_factor must be >= 0")
     if cfg.task != TASK_REGRESSION:
         raise NotImplementedError(
             f"classification (probit e-resampling) is not ported yet; "
@@ -147,10 +148,35 @@ def vb_v_block_update(e, t, mu_t, sig_t, sv, alpha, plan: PlanData,
     return nans
 
 
+def vb_w_bin_update(e, t, mu_w, sigma_w_dash, sigma_w, alpha, bin_blocks,
+                    row: RowData, dtab, bad) -> None:
+    """One conflict-free bin of the standalone linear-term sweep
+    (fm_learn_vb.h:527-574), in place on e, t, mu_w and sigma_w_dash: K5 per
+    degree bucket into the zeroed [D, 2] delta table ``dtab``, then the w
+    patch of the row caches.  ``bad`` [4] gathers the candidate counts."""
+    dtab.zero_()
+    for blk in bin_blocks:
+        w_col_update(blk.rows, blk.x, blk.cols, blk.group, blk.sx2, e, mu_w,
+                     sigma_w_dash, sigma_w, alpha, dtab, bad)
+    w_patch_rows(dtab, row.ids, row.vals, e, t)
+
+
+def factor_blocks(K: int, factor_block: int):
+    """(start, stop) of each factor block: ``factor_block`` factors each
+    (0 = all K), the last block narrower when the width does not divide K.
+    The JAX package pads K to a multiple of the width and masks the pad
+    factors instead; their deltas are zero, so the values are the same."""
+    F = min(factor_block if factor_block > 0 else K, K)
+    return [(f0, min(f0 + F, K)) for f0 in range(0, K, F)] if K else []
+
+
 def vb_update_all(state: VBState, row: RowData, plan: PlanData, cfg: FMConfig,
                   num_cases: float):
     """One full VB sweep (fm_learn_vb.h:383-501) + free energy.  Returns
-    (new_state, fe, nans) with device scalars; ``state`` is not modified."""
+    (new_state, fe, nans) with device scalars; ``state`` is not modified.
+    ``nan_w`` counts the linear-term candidates that were not finite in
+    fast mode only, as the JAX package records it: the standalone sweep of
+    exact mode keeps its reverts but reports none."""
     check_slice(cfg)
     dev = state.e.device
     e, t = state.e.clone(), state.t.clone()
@@ -167,19 +193,40 @@ def vb_update_all(state: VBState, row: RowData, plan: PlanData, cfg: FMConfig,
         t += sigma_new - sigma_0_dash
         mu_0, sigma_0_dash = mu_new, sigma_new
 
-    # --- v sweep, all K factors in one block; w rides along ---
+    # In fast mode the linear-term update rides in the single v block's
+    # passes; otherwise (exact mode, K = 0) it runs standalone first.
+    K = cfg.num_factor
+    merge_w = cfg.k1 and cfg.factor_block == 0 and K > 0
     mu_w, sigma_w_dash = state.mu_w.clone(), state.sigma_w_dash.clone()
-    mu_t = state.mu_v.T.contiguous()  # [D, K]
-    sig_t = state.sigma_v_dash.T.contiguous()
-    w_state = (mu_w, sigma_w_dash, state.sigma_w) if cfg.k1 else None
-    nans_vw = vb_v_block_update(e, t, mu_t, sig_t, state.sigma_v.contiguous(),
-                                alpha, plan, row, w_state)
-    mu_v, sigma_v_dash = mu_t.T.contiguous(), sig_t.T.contiguous()
+    nan_w = torch.zeros((), dtype=torch.int32, device=dev)
+    nan_v = torch.zeros((), dtype=torch.int32, device=dev)
+
+    # --- w sweep (fm_learn_vb.h:390-406) ---
+    if cfg.k1 and not merge_w:
+        dtab = torch.empty(cfg.num_attributes, 2, dtype=_F32, device=dev)
+        bad = torch.zeros(4, dtype=torch.int32, device=dev)
+        for bin_blocks in plan.blocks:
+            vb_w_bin_update(e, t, mu_w, sigma_w_dash, state.sigma_w, alpha,
+                            bin_blocks, row, dtab, bad)
+
+    # --- v sweeps, factor-major (fm_learn_vb.h:409-440) ---
+    mu_v = state.mu_v.clone()
+    sigma_v_dash = state.sigma_v_dash.clone()
+    w_state = (mu_w, sigma_w_dash, state.sigma_w) if merge_w else None
+    for f0, f1 in factor_blocks(K, cfg.factor_block):
+        mu_t = state.mu_v[f0:f1].T.contiguous()  # [D, F]
+        sig_t = state.sigma_v_dash[f0:f1].T.contiguous()
+        nans_vw = vb_v_block_update(
+            e, t, mu_t, sig_t, state.sigma_v[:, f0:f1].contiguous(), alpha,
+            plan, row, w_state)
+        mu_v[f0:f1], sigma_v_dash[f0:f1] = mu_t.T, sig_t.T
+        nan_v = nan_v + nans_vw[0]
+        nan_w = nan_w + nans_vw[1]
 
     new_state, fe, nan_alpha = vb_finalize(
         e, t, mu_0, sigma_0_dash, mu_w, sigma_w_dash, mu_v, sigma_v_dash,
         state, row, plan, cfg, N)
-    nans = dict(nan_w=nans_vw[1], nan_v=nans_vw[0], nan_alpha=nan_alpha)
+    nans = dict(nan_w=nan_w, nan_v=nan_v, nan_alpha=nan_alpha)
     return new_state, fe, nans
 
 
@@ -197,9 +244,10 @@ def vb_finalize(e, t, mu_0, sigma_0_dash, mu_w, sigma_w_dash, mu_v,
     zero = torch.zeros((), dtype=_F32, device=dev)
 
     # columns with no occurrences: sigma' = 1/sigma(g), mu' = 0
-    sv_d = state.sigma_v.index_select(0, ag).T  # [K, D]
-    sigma_v_dash = torch.where(unobs[None, :], 1.0 / sv_d, sigma_v_dash)
-    mu_v = torch.where(unobs[None, :], zero, mu_v)
+    if K > 0:
+        sv_d = state.sigma_v.index_select(0, ag).T  # [K, D]
+        sigma_v_dash = torch.where(unobs[None, :], 1.0 / sv_d, sigma_v_dash)
+        mu_v = torch.where(unobs[None, :], zero, mu_v)
     if cfg.k1:
         sw_d = state.sigma_w.index_select(0, ag)
         sigma_w_dash = torch.where(unobs, 1.0 / sw_d, sigma_w_dash)
@@ -321,11 +369,8 @@ class VBLearner:
         cfg, trow = self.cfg, self.test_row
         scores = fm_scores(state.mu_0, state.mu_w, state.mu_v, trow.ids,
                            trow.vals, k0=cfg.k0, k1=cfg.k1)
-        nt = float(self.test_n)
-        p = torch.clamp(scores, cfg.min_target, cfg.max_target)
-        err = (p - trow.target) * trow.valid
-        rmse = torch.sqrt(torch.sum(err * err) / nt)
-        mae = torch.sum(torch.abs(err)) / nt
+        rmse, mae = regression_metrics(scores, trow, self.test_n,
+                                       cfg.min_target, cfg.max_target)
         e_c = torch.clamp(state.e, cfg.min_target, cfg.max_target)
         train_rmse = torch.sqrt(torch.sum(e_c * e_c * self.train_row.valid)
                                 / float(self.train_n))

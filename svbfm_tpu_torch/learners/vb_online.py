@@ -1,0 +1,453 @@
+"""OVBFM — online variational Bayes FM (natural-gradient chunk updates with
+Robbins-Monro rates), regression, in-memory data, one device.
+
+Counterpart of ``svbfm_tpu/learners/vb_online.py``: the math, its order and
+the reference's quirks are the JAX package's (see that module's docstring):
+naturals eta1 = mu/sigma', eta2 = 1/sigma' blended toward chunk-mean
+statistics with rho = (1 + t)^-0.5; primal NaN/Inf reverts that keep the
+naturals; hyperparameters smoothed with the chunk rate and skipped on a bad
+alpha; the chunk free energy with 2*3.14.  Chunk membership is a seeded
+permutation split into ``num_batches`` chunks, fixed or (``reshuffle``)
+re-drawn every epoch; the epoch order is re-drawn every epoch.  The numpy
+streams are the JAX learner's, so both packages run the same chunks in the
+same order.
+
+Execution is eager PyTorch around the hand-written kernels:
+
+* K1 ``fm_scores`` / ``fm_t_terms``: each chunk's e/t caches, the test eval;
+* K5 ``w_col_update`` (online mode) + ``w_patch_rows`` (K4 at F = 0):
+  the w sweep;
+* K2 ``vb_build_qt``: q/tq/tz at each factor block's entry;
+* K6 ``ovb_col_stats_update``: per-bucket v statistics + blend;
+* K4 ``vb_patch_rows`` (``sequential=False``): the per-bin cache patch.
+
+The v sweep is factor-sequential: ``factor_block`` 0 becomes 1, because
+Jacobi blocks of factors diverge online (``svbfm_tpu`` ``OVBLearner``).
+
+Not carried over from the JAX learner, each for its reason:
+* the F = 1 flat form ``ovb_v_factor`` and its dispatch: it exists only to
+  dodge the TPU's tile padding of a size-1 minor dimension; its math is
+  ``ovb_v_block`` at F = 1, which runs here;
+* pass pipelining (the next block's q/tq/tz built in the last bin's patch
+  pass): same values, a later performance candidate;
+* the alignment of all chunk plans to one padded shape (one compiled XLA
+  program): each chunk runs its own plan here;
+* the ``lax.scan`` epoch program: a Python loop over chunks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
+from svbfm_tpu_torch.data.meta import DataMetaInfo
+from svbfm_tpu_torch.kernels.ovb_sweep import ovb_col_stats_update
+from svbfm_tpu_torch.kernels.vb_sweep import (vb_build_qt, vb_patch_rows,
+                                              w_patch_rows)
+from svbfm_tpu_torch.kernels.w_sweep import w_col_update
+from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, RowData,
+                                           TrajectoryFile, build_plan_data,
+                                           build_row_data, count_bad,
+                                           keep_finite, print_nonzero_nans,
+                                           regression_metrics, zero_counters)
+from svbfm_tpu_torch.learners.vb import factor_blocks, init_vb_params
+from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
+
+_F32, _I32 = torch.float32, torch.int32
+_ROADMAP = "see ROADMAP.md queue 1"
+
+LAMBDA = 0.5
+T0_W0 = 1.0
+T0_WJ = 1.0
+T0_VJ = 1.0
+
+#: reference nan/inf counter families
+#: (fm_learn_vb_online_simultaneous.h:71-72)
+OVB_NAN_FAMILIES = ("alpha", "sigma_0", "sigma_w", "sigma_v",
+                    "mu_0_dash", "sigma_0_dash", "mu_w_dash",
+                    "sigma_w_dash", "mu_v_dash", "sigma_v_dash")
+COUNTER_KEYS = tuple(k for fam in OVB_NAN_FAMILIES
+                     for k in (f"nan_{fam}", f"inf_{fam}"))
+
+
+@dataclass
+class OVBState:
+    # primal variational parameters
+    mu_0: torch.Tensor  # scalar
+    sigma_0_dash: torch.Tensor  # scalar
+    mu_w: torch.Tensor  # [D]
+    sigma_w_dash: torch.Tensor  # [D]
+    mu_v: torch.Tensor  # [K, D]
+    sigma_v_dash: torch.Tensor  # [K, D]
+    # natural parameters
+    n_mu_0: torch.Tensor
+    n_sig_0: torch.Tensor
+    n_mu_w: torch.Tensor  # [D]
+    n_sig_w: torch.Tensor  # [D]
+    n_mu_v: torch.Tensor  # [K, D]
+    n_sig_v: torch.Tensor  # [K, D]
+    # hyperparameters
+    alpha: torch.Tensor  # scalar
+    sigma_0: torch.Tensor  # scalar
+    sigma_w: torch.Tensor  # [G]
+    sigma_v: torch.Tensor  # [G, K]
+    # Robbins-Monro occurrence counters
+    t_w0: torch.Tensor  # scalar
+    t_wj: torch.Tensor  # [D]
+    t_vj: torch.Tensor  # [D]
+
+
+def init_ovb_state(generator: torch.Generator, cfg: FMConfig,
+                   device) -> OVBState:
+    """VB init plus the naturals (fm_learn_vb_online.h:750-765); the
+    reference's quirk is kept: eta1 = mu / 0.02, whatever sigma' is."""
+    p = init_vb_params(generator, cfg, device)
+    return OVBState(
+        mu_0=p["mu_0"], sigma_0_dash=p["sigma_0_dash"],
+        mu_w=p["mu_w"], sigma_w_dash=p["sigma_w_dash"],
+        mu_v=p["mu_v"], sigma_v_dash=p["sigma_v_dash"],
+        n_mu_0=p["mu_0"] / 0.02, n_sig_0=1.0 / p["sigma_0_dash"],
+        n_mu_w=p["mu_w"] / 0.02, n_sig_w=1.0 / p["sigma_w_dash"],
+        n_mu_v=p["mu_v"] / 0.02, n_sig_v=1.0 / p["sigma_v_dash"],
+        alpha=p["alpha"], sigma_0=p["sigma_0"],
+        sigma_w=p["sigma_w"], sigma_v=p["sigma_v"],
+        t_w0=torch.zeros((), dtype=_F32, device=device),
+        t_wj=torch.zeros(cfg.num_attributes, dtype=_F32, device=device),
+        t_vj=torch.zeros(cfg.num_attributes, dtype=_F32, device=device))
+
+
+def check_slice(cfg: FMConfig) -> None:
+    if cfg.task != TASK_REGRESSION:
+        raise NotImplementedError(
+            f"online VB classification is not ported yet; {_ROADMAP}")
+    if cfg.factor_block < 0 or cfg.num_factor < 0:
+        raise ValueError("factor_block and num_factor must be >= 0")
+
+
+# ---------------------------------------------------------------------------
+# One chunk
+# ---------------------------------------------------------------------------
+
+def ovb_v_block(e, t, mu_t, sig_t, nmu_t, nsig_t, sv, alpha, rho_v, blocks,
+                row: RowData, tv_add, bad) -> None:
+    """Online v update of one block of F factors (fm_learn_vb_online.h:
+    560-627; svbfm_tpu ``ovb_v_block``), in place on e, t and the [D, F]
+    tables mu_t/sig_t/nmu_t/nsig_t; ``sv`` [G, F] is the block's prior
+    precision, ``rho_v`` [D] the per-column rate.  ``tv_add`` [D] gathers
+    the columns' chunk counts, ``bad`` [4] the candidate counts.
+
+    K2 builds q/tq/tz from the block's tables; per bin, the patch table
+    takes the PRE-BIN mu/sig and zeroed deltas, K6 updates each bucket's
+    columns, and K4 patches the row caches (every position reading the
+    caches from before the patch, as the JAX function does)."""
+    D, F = mu_t.shape
+    ptab = torch.empty(D, 5 * F, dtype=_F32, device=e.device)
+    q = tq = tz = None
+    for bi, bin_blocks in enumerate(blocks):
+        ptab[:, :F] = mu_t
+        ptab[:, F:2 * F] = sig_t
+        ptab[:, 2 * F:].zero_()
+        if bi == 0:
+            q, tq, tz = vb_build_qt(ptab, F, row.ids, row.vals)
+        for blk in bin_blocks:
+            ovb_col_stats_update(blk.rows, blk.x, blk.cols, blk.group,
+                                 blk.cnt, blk.col_count, e, q, tq, ptab,
+                                 mu_t, sig_t, nmu_t, nsig_t, sv, alpha,
+                                 rho_v, tv_add, bad)
+        vb_patch_rows(ptab, F, False, row.ids, row.vals, q, tq, tz, e, t,
+                      sequential=False)
+
+
+def _add_family(counters: dict, name: str, bad) -> None:
+    """Fold a kernel's [4] counter (nan mu, inf mu, nan sig, inf sig) into
+    the ``<name>`` families: ``mu_<name>_dash`` and ``sigma_<name>_dash``."""
+    for i, k in enumerate((f"nan_mu_{name}_dash", f"inf_mu_{name}_dash",
+                           f"nan_sigma_{name}_dash",
+                           f"inf_sigma_{name}_dash")):
+        counters[k] = counters[k] + bad[i]
+
+
+def ovb_chunk_update(state: OVBState, row: RowData, blocks, cfg: FMConfig,
+                     n_full: float, n_chunk: float, attr_group,
+                     num_attr_per_group):
+    """Process one chunk (fm_learn_vb_online.h:354-468).  ``blocks`` is the
+    chunk's (bins -> buckets) BlockData.  Returns ``(new_state, fe, nans)``
+    with device scalars; ``nans`` maps ``nan_<family>``/``inf_<family>`` to
+    int32 candidate counts.  ``state`` is not modified."""
+    dev = row.ids.device
+    counters = zero_counters(OVB_NAN_FAMILIES, dev)
+    D, K, G = cfg.num_attributes, cfg.num_factor, cfg.num_groups
+    Nf, Nc = float(n_full), float(n_chunk)
+    alpha = state.alpha
+    rho0 = (T0_W0 + state.t_w0) ** (-LAMBDA)
+
+    # chunk e / T caches from the current primal parameters (K1)
+    yhat = fm_scores(state.mu_0, state.mu_w, state.mu_v, row.ids, row.vals,
+                     k0=cfg.k0, k1=cfg.k1)
+    e = (row.target - yhat) * row.valid
+    t = fm_t_terms(state.sigma_0_dash, state.sigma_w_dash, state.mu_v,
+                   state.sigma_v_dash, row.ids, row.vals, k0=cfg.k0,
+                   k1=cfg.k1) * row.valid
+
+    mu_0, sigma_0_dash = state.mu_0, state.sigma_0_dash
+    n_mu_0, n_sig_0 = state.n_mu_0, state.n_sig_0
+
+    # --- w0 (fm_learn_vb_online.h:471-497) ---
+    if cfg.k0:
+        w0_temp = torch.sum(e) / Nc + mu_0
+        n_sig_0 = (1.0 - rho0) * n_sig_0 + rho0 * (state.sigma_0 + Nf * alpha)
+        n_mu_0 = (1.0 - rho0) * n_mu_0 + rho0 * Nf * alpha * w0_temp
+        count_bad(counters, "mu_0_dash", n_mu_0 / n_sig_0)
+        count_bad(counters, "sigma_0_dash", 1.0 / n_sig_0)
+        mu_new = keep_finite(n_mu_0 / n_sig_0, mu_0)
+        sig_new = keep_finite(1.0 / n_sig_0, sigma_0_dash)
+        e = e + (mu_0 - mu_new) * row.valid
+        t = t + (sig_new - sigma_0_dash) * row.valid
+        mu_0, sigma_0_dash = mu_new, sig_new
+
+    # --- w sweep (fm_learn_vb_online.h:499-557): K5 + the w patch ---
+    mu_w, sigma_w_dash = state.mu_w.clone(), state.sigma_w_dash.clone()
+    n_mu_w, n_sig_w = state.n_mu_w.clone(), state.n_sig_w.clone()
+    t_wj = state.t_wj.clone()
+    if cfg.k1:
+        # a column sits in one bucket of one bin, so the rate read at its
+        # bucket is the rate from before the chunk
+        rho_w = (T0_WJ + state.t_wj) ** (-LAMBDA)
+        dtab = torch.empty(D, 2, dtype=_F32, device=dev)
+        bad = torch.zeros(4, dtype=_I32, device=dev)
+        for bin_blocks in blocks:
+            dtab.zero_()
+            for blk in bin_blocks:
+                w_col_update(blk.rows, blk.x, blk.cols, blk.group, blk.sx2, e,
+                             mu_w, sigma_w_dash, state.sigma_w, alpha, dtab,
+                             bad, ovb=(blk.cnt, blk.col_count, n_mu_w,
+                                       n_sig_w, rho_w, t_wj))
+            w_patch_rows(dtab, row.ids, row.vals, e, t)
+        _add_family(counters, "w", bad)
+
+    # --- v sweeps, factor-sequential (fm_learn_vb_online.h:375-407,
+    # 560-627) ---
+    mu_v, sigma_v_dash = state.mu_v.clone(), state.sigma_v_dash.clone()
+    n_mu_v, n_sig_v = state.n_mu_v.clone(), state.n_sig_v.clone()
+    t_vj = state.t_vj
+    if K > 0:
+        rho_v = (T0_VJ + state.t_vj) ** (-LAMBDA)  # once per chunk
+        tv_add = torch.zeros(D, dtype=_F32, device=dev)
+        bad = torch.zeros(4, dtype=_I32, device=dev)
+        spans = factor_blocks(K, cfg.factor_block)
+        for f0, f1 in spans:
+            tabs = [a[f0:f1].T.contiguous()
+                    for a in (mu_v, sigma_v_dash, n_mu_v, n_sig_v)]
+            ovb_v_block(e, t, *tabs, state.sigma_v[:, f0:f1].contiguous(),
+                        alpha, rho_v, blocks, row, tv_add, bad)
+            for a, b in zip((mu_v, sigma_v_dash, n_mu_v, n_sig_v), tabs):
+                a[f0:f1] = b.T
+        _add_family(counters, "v", bad)
+        # every block adds the chunk counts; the reference counts once per
+        # chunk (its f == 0 pass), hence the division
+        t_vj = t_vj + tv_add / float(len(spans))
+
+    # --- hyperparameter smoothing (fm_learn_vb_online.h:410-468) ---
+    alpha_temp = torch.sum(e * e + t)
+    alpha_cand = (1.0 - rho0) * alpha + rho0 * (Nc / alpha_temp)
+    count_bad(counters, "alpha", alpha_cand)
+    alpha_ok = torch.isfinite(alpha_cand)
+    alpha_new = torch.where(alpha_ok, alpha_cand, alpha)
+    # the reference returns early on a bad alpha, skipping the remaining
+    # hyperparameter updates and the t_w0 increment for this chunk
+    sigma_0_cand = ((1.0 - rho0) * state.sigma_0
+                    + rho0 * (1.0 / (mu_0 * mu_0 + sigma_0_dash)))
+    count_bad(counters, "sigma_0", sigma_0_cand)
+    sigma_0 = torch.where(alpha_ok, sigma_0_cand, state.sigma_0)
+    w_stat = torch.zeros(G, dtype=_F32, device=dev).index_add_(
+        0, attr_group, mu_w * mu_w + sigma_w_dash)
+    sigma_w_cand = ((1.0 - rho0) * state.sigma_w
+                    + rho0 * (num_attr_per_group / w_stat))
+    count_bad(counters, "sigma_w", sigma_w_cand)
+    sigma_w = torch.where(alpha_ok, sigma_w_cand, state.sigma_w)
+    v_stat = torch.zeros(G, K, dtype=_F32, device=dev).index_add_(
+        0, attr_group, (mu_v * mu_v + sigma_v_dash).T)
+    sigma_v_cand = ((1.0 - rho0) * state.sigma_v
+                    + rho0 * (num_attr_per_group[:, None] / v_stat))
+    count_bad(counters, "sigma_v", sigma_v_cand)
+    sigma_v = torch.where(alpha_ok, sigma_v_cand, state.sigma_v)
+    t_w0 = state.t_w0 + alpha_ok.to(_F32)
+
+    # --- chunk free energy (fm_learn_vb_online.h:629-663; 2*3.14 kept) ---
+    fe = (-0.5 * alpha_new * alpha_temp
+          - 0.5 * Nc * torch.log(2 * 3.14 / alpha_new))
+    fe = fe + (-0.5 * sigma_0 * (mu_0 * mu_0 + sigma_0_dash)
+               + 0.5 * torch.log(sigma_0_dash * sigma_0) + 0.5)
+    sw_d = sigma_w.index_select(0, attr_group)
+    fe = fe + torch.sum(-0.5 * sw_d * (mu_w * mu_w + sigma_w_dash)
+                        + 0.5 * torch.log(sigma_w_dash * sw_d) + 0.5)
+    sv_d = sigma_v.index_select(0, attr_group).T  # [K, D]
+    fe = fe + torch.sum(-0.5 * sv_d * (mu_v * mu_v + sigma_v_dash)
+                        + 0.5 * torch.log(sigma_v_dash * sv_d) + 0.5)
+
+    new_state = OVBState(
+        mu_0=mu_0, sigma_0_dash=sigma_0_dash, mu_w=mu_w,
+        sigma_w_dash=sigma_w_dash, mu_v=mu_v, sigma_v_dash=sigma_v_dash,
+        n_mu_0=n_mu_0, n_sig_0=n_sig_0, n_mu_w=n_mu_w, n_sig_w=n_sig_w,
+        n_mu_v=n_mu_v, n_sig_v=n_sig_v, alpha=alpha_new, sigma_0=sigma_0,
+        sigma_w=sigma_w, sigma_v=sigma_v, t_w0=t_w0, t_wj=t_wj, t_vj=t_vj)
+    return new_state, fe, counters
+
+
+# ---------------------------------------------------------------------------
+# The learner
+# ---------------------------------------------------------------------------
+
+class OVBLearner:
+    """Online VBFM trainer (method 'vb_online') on one device, in-memory
+    data (``device`` is required: the learner never moves itself)."""
+
+    method = "vb_online"
+
+    def __init__(self, cfg: FMConfig, train: SparseDataset,
+                 test: SparseDataset, meta: Optional[DataMetaInfo] = None, *,
+                 device, bins: str = "auto", out_dir: str = ".",
+                 write_files: bool = True):
+        check_slice(cfg)
+        if cfg.factor_block == 0:  # factor-sequential; see module docstring
+            cfg = dataclasses.replace(cfg, factor_block=1)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        meta = meta if meta is not None else DataMetaInfo(cfg.num_attributes)
+        if meta.num_attributes != cfg.num_attributes:
+            raise ValueError("meta and cfg disagree on num_attributes")
+        self.meta = meta
+        self.train_n = train.num_rows
+        self.col_count = train.col_count()
+        self.num_chunks = max(1, min(cfg.num_batches, train.num_rows))
+        self._train_ds = train
+        self._bins = bins
+        # the JAX learner's numpy streams: membership from seed, epoch
+        # order from seed + 1, re-drawn membership from seed + 2
+        perm = np.random.default_rng(cfg.seed).permutation(train.num_rows)
+        self._set_membership(perm)
+        self._member_rng = np.random.default_rng(cfg.seed + 2)
+        self.rng = np.random.default_rng(cfg.seed + 1)
+        self.test_row, self.test_n = build_row_data(test, self.device)
+        self.attr_group = torch.from_numpy(
+            meta.attr_group.astype(np.int32)).to(self.device)
+        self.num_attr_per_group = torch.from_numpy(
+            meta.num_attr_per_group.astype(np.float32)).to(self.device)
+        self.out_dir = out_dir
+        self.write_files = write_files
+
+    def _set_membership(self, perm: np.ndarray) -> None:
+        """Split ``perm`` into the chunks and put each chunk's rows and its
+        own sweep plan (chunk counts ``cnt``, full-train ``col_count``) on
+        the device."""
+        train, D = self._train_ds, self.cfg.num_attributes
+        self.member_perm = perm
+        self.chunks = []
+        sizes = []
+        for rows_idx in np.array_split(perm, self.num_chunks):
+            sub = SparseDataset(
+                ids=train.ids[rows_idx], vals=train.vals[rows_idx],
+                target=train.target[rows_idx], num_rows=len(rows_idx),
+                num_features=D, min_target=train.min_target,
+                max_target=train.max_target, row_nnz=train.row_nnz[rows_idx])
+            plan = SweepPlan.build(sub.to_coo(), D,
+                                   meta_groups=self.meta.attr_group,
+                                   bins=self._bins, col_count=self.col_count)
+            row, n = build_row_data(sub, self.device)
+            self.chunks.append(
+                (row, build_plan_data(plan, self.meta, self.device)))
+            sizes.append(n)
+        self.chunk_sizes = np.array(sizes, np.int64)
+
+    def _reshuffle_membership(self) -> None:
+        """Re-draw chunk membership (the reference's per-epoch disk
+        re-split, fm_learn_vb_online_simultaneous.h:74-101)."""
+        self._set_membership(self._member_rng.permutation(self.train_n))
+
+    # ---- state ------------------------------------------------------------
+
+    def init_state(self, generator: Optional[torch.Generator] = None
+                   ) -> OVBState:
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.cfg.seed)
+        return init_ovb_state(generator, self.cfg, self.device)
+
+    def predict_test_scores(self, state: OVBState) -> np.ndarray:
+        s = fm_scores(state.mu_0, state.mu_w, state.mu_v, self.test_row.ids,
+                      self.test_row.vals, k0=self.cfg.k0, k1=self.cfg.k1)
+        return s.cpu().numpy()[: self.test_n]
+
+    # ---- one epoch --------------------------------------------------------
+
+    def epoch(self, state: OVBState, order: np.ndarray):
+        """Every chunk once, in ``order``, then the test eval.  Returns
+        (state, packed): a float32 device vector of the first and last
+        chunk's free energy, rmse, mae and the counters in
+        ``COUNTER_KEYS`` order, summed over the chunks."""
+        cfg = self.cfg
+        fes = []
+        total = None
+        for ci in order:
+            row, plan = self.chunks[ci]
+            state, fe, nans = ovb_chunk_update(
+                state, row, plan.blocks, cfg, float(self.train_n),
+                float(self.chunk_sizes[ci]), self.attr_group,
+                self.num_attr_per_group)
+            fes.append(fe)
+            total = nans if total is None else {
+                k: total[k] + v for k, v in nans.items()}
+        scores = fm_scores(state.mu_0, state.mu_w, state.mu_v,
+                           self.test_row.ids, self.test_row.vals,
+                           k0=cfg.k0, k1=cfg.k1)
+        rmse, mae = regression_metrics(scores, self.test_row, self.test_n,
+                                       cfg.min_target, cfg.max_target)
+        packed = torch.stack([fes[0], fes[-1], rmse, mae] +
+                             [total[k].to(_F32) for k in COUNTER_KEYS])
+        return state, packed
+
+    # ---- training loop ----------------------------------------------------
+
+    def run(self, state: Optional[OVBState] = None,
+            num_iter: Optional[int] = None, verbose: bool = True):
+        """Train for ``num_iter`` epochs; one device sync per epoch, where
+        its metrics are fetched.  ``time_learn`` is the epoch's wall time
+        up to that fetch (membership re-draw included), ``time_pred`` the
+        fetch.  Returns (state, history)."""
+        cfg = self.cfg
+        if state is None:
+            state = self.init_state()
+        num_iter = num_iter if num_iter is not None else cfg.num_iter
+        on = self.write_files
+        rmse_file = TrajectoryFile("test_rmse", cfg, self.method,
+                                   self.out_dir, on)
+        fe_file = TrajectoryFile("free_energy", cfg, self.method,
+                                 self.out_dir, on)
+        history = []
+        for it in range(num_iter):
+            t0 = time.perf_counter()
+            if cfg.reshuffle and it > 0:
+                self._reshuffle_membership()
+            order = self.rng.permutation(self.num_chunks)
+            state, packed = self.epoch(state, order)
+            t_pred = time.perf_counter()
+            m = packed.cpu().numpy()  # the one sync
+            now = time.perf_counter()
+            # reference: free energy appended for the first and last chunk
+            fe_file.append(-float(m[0]))
+            fe_file.append(-float(m[1]))
+            rec = {"iter": it, "free_energy": float(m[1]),
+                   "rmse": float(m[2]), "mae": float(m[3]),
+                   "time_pred": now - t_pred, "time_learn": now - t0,
+                   **{k: int(v) for k, v in zip(COUNTER_KEYS, m[4:])}}
+            rmse_file.append(rec["rmse"])
+            if verbose:
+                print(f"#Iter={it:3d}\tTest={rec['rmse']:.6g}")
+            print_nonzero_nans(rec, verbose)
+            history.append(rec)
+        return state, history

@@ -2,9 +2,9 @@
 
 ``jax.random`` bits cannot be reproduced in torch, so tests that hold the
 two packages to each other start both from the same parameters: the JAX
-learner's ``VBState``, fetched to numpy with ``jax.device_get``, becomes
-the port's :class:`~svbfm_tpu_torch.learners.vb.VBState`.  Nothing here
-imports JAX.
+learner's ``VBState`` (or ``OVBState``), fetched to numpy with
+``jax.device_get``, becomes the port's state of the same name.  Nothing
+here imports JAX.
 """
 
 from __future__ import annotations
@@ -16,15 +16,26 @@ import numpy as np
 import torch
 
 from svbfm_tpu_torch.learners.vb import VBState
+from svbfm_tpu_torch.learners.vb_online import OVBState
+
+
+def _from_jax(cls, np_state: Any, device):
+    if not isinstance(np_state, Mapping):
+        np_state = {f.name: getattr(np_state, f.name)
+                    for f in dataclasses.fields(np_state)}
+    return cls(**{
+        f.name: torch.from_numpy(
+            np.array(np_state[f.name], dtype=np.float32)).to(device)
+        for f in dataclasses.fields(cls)})
 
 
 def state_from_jax(np_state: Any, device) -> VBState:
     """``np_state``: a mapping of VBState field names to numpy arrays, or a
     dataclass holding them (what ``jax.device_get`` returns)."""
-    if not isinstance(np_state, Mapping):
-        np_state = {f.name: getattr(np_state, f.name)
-                    for f in dataclasses.fields(np_state)}
-    return VBState(**{
-        f.name: torch.from_numpy(
-            np.array(np_state[f.name], dtype=np.float32)).to(device)
-        for f in dataclasses.fields(VBState)})
+    return _from_jax(VBState, np_state, device)
+
+
+def ovb_state_from_jax(np_state: Any, device) -> OVBState:
+    """The same for the online learner's ``OVBState`` (naturals and
+    Robbins-Monro counters included)."""
+    return _from_jax(OVBState, np_state, device)

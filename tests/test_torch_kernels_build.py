@@ -47,3 +47,38 @@ def test_launch_counts_reset(monkeypatch):
     assert build.launch_counts["vb_patch_rows"] == 4
     build.reset_launch_counts()
     assert set(build.launch_counts.values()) == {0}
+
+
+def _no_libs(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "b"))
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "build_logs", {})
+
+
+def test_build_all_without_nvcc_raises(tmp_path, monkeypatch):
+    _no_libs(tmp_path, monkeypatch)
+    monkeypatch.setattr(build, "NVCC_FALLBACK", str(tmp_path / "no_nvcc"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+    assert not os.path.exists(build.BUILD_DIR)
+
+
+def test_build_all_stops_the_other_compilers_on_a_failure(tmp_path,
+                                                          monkeypatch):
+    """One compiler per source, all started together: when the first fails,
+    the ones still running are stopped, not waited for."""
+    import time
+
+    _no_libs(tmp_path, monkeypatch)
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "case \"$*\" in *fm_forward.cu*) echo broken >&2; "
+                    "exit 3;; esac\nexec sleep 60\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="nvcc failed for fm_forward.cu"):
+        build.build_all()
+    assert time.monotonic() - t0 < 30
+    assert not any(n.endswith(".so") for n in os.listdir(build.BUILD_DIR))

@@ -14,6 +14,7 @@ from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
 from svbfm_tpu_torch.kernels import build
 from svbfm_tpu_torch.learners.base import FMConfig
 from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+from svbfm_tpu_torch.learners.vb_online import OVBLearner, init_ovb_state
 
 pytestmark = pytest.mark.cuda
 
@@ -29,13 +30,37 @@ def test_kernels_match_twins_on_ragged_case(cuda):
     import chip_smoke
 
     before = dict(build.launch_counts)
-    out = chip_smoke.check_cases(chip_smoke.ragged_tensors(cuda), "ragged",
-                                 timed=False)
+    out = chip_smoke.merge_reports(*(
+        chip_smoke.check_cases(s, timed=False)
+        for s in chip_smoke.ragged_tensors(cuda)))
     assert set(out) == set(build.launch_counts)
     assert all(build.launch_counts[k] > before[k] for k in before)
 
 
-def test_learner_on_gpu_matches_cpu(cuda):
+@pytest.mark.parametrize("kernel,which", [
+    ("w_col_update", 1), ("w_col_update", 2), ("ovb_col_stats_update", 2),
+    ("w_patch_rows", 1), ("vb_patch_rows", 2)])
+def test_new_kernels_match_twins_with_nan_column(cuda, kernel, which):
+    """K5 in batch-VB (1) and online (2) mode, K6, the w patch and K4's
+    online position order on the ragged case, whose column 9 produces NaN
+    candidates and column 17 has cnt = 0: the kernel gives the twin's
+    outputs, counters included."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_tensors(cuda)[which]
+    cases = chip_smoke.make_cases(s)[kernel]
+    assert cases
+    for label, prepare, call, _ in cases:
+        ok, op = call("kernel", prepare()), call("plain", prepare())
+        torch.cuda.synchronize()
+        chip_smoke.compare(ok, op, f"{kernel} ({label})")
+        if kernel in ("w_col_update", "ovb_col_stats_update"):
+            bad = ok[-1] if kernel == "ovb_col_stats_update" else ok[3]
+            assert bad.sum() > 0 and torch.equal(
+                bad, op[-1] if kernel == "ovb_col_stats_update" else op[3])
+
+
+def _small(**cfg_kw):
     coo = make_movielens_like(num_users=60, num_items=40, num_ratings=5000,
                               rank=2, seed=1)
     tr, te = train_test_split(coo, 0.2, seed=2)
@@ -43,7 +68,13 @@ def test_learner_on_gpu_matches_cpu(cuda):
     meta = DataMetaInfo.from_field_offsets(D, [0, 60])
     cfg = FMConfig(num_attributes=D, num_factor=5, num_groups=2, seed=3,
                    min_target=float(tr.target.min()),
-                   max_target=float(tr.target.max()))
+                   max_target=float(tr.target.max()), **cfg_kw)
+    return tr, te, D, meta, cfg
+
+
+@pytest.mark.parametrize("factor_block", [0, 1, 2])
+def test_learner_on_gpu_matches_cpu(cuda, factor_block):
+    tr, te, D, meta, cfg = _small(factor_block=factor_block)
     params = init_vb_params(torch.Generator().manual_seed(3), cfg, "cpu")
     hists = []
     for dev in (cuda, "cpu"):
@@ -55,4 +86,20 @@ def test_learner_on_gpu_matches_cpu(cuda):
         hists.append(h)
     for g, c in zip(*hists):
         for k in ("rmse", "train_rmse", "free_energy"):
+            np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("reshuffle", [False, True])
+def test_ovb_learner_on_gpu_matches_cpu(cuda, reshuffle):
+    tr, te, D, meta, cfg = _small(num_batches=4, reshuffle=reshuffle)
+    init = init_ovb_state(torch.Generator().manual_seed(3), cfg, "cpu")
+    hists = []
+    for dev in (cuda, "cpu"):
+        learner = OVBLearner(cfg, SparseDataset.from_coo(tr, D),
+                             SparseDataset.from_coo(te, D), meta, device=dev,
+                             write_files=False)
+        state = type(init)(**{k: v.to(dev) for k, v in vars(init).items()})
+        hists.append(learner.run(state, num_iter=3, verbose=False)[1])
+    for g, c in zip(*hists):
+        for k in ("rmse", "mae", "free_energy"):
             np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)

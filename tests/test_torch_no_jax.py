@@ -8,6 +8,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _RUN_WITHOUT_JAX = r"""
+import dataclasses
 import sys
 for name in ("jax", "flax", "svbfm_tpu"):
     sys.modules[name] = None  # any import of them now raises
@@ -17,7 +18,9 @@ from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
 from svbfm_tpu_torch.learners.base import FMConfig
 from svbfm_tpu_torch.learners.vb import VBLearner
+from svbfm_tpu_torch.learners.vb_online import OVBLearner
 from svbfm_tpu_torch.utils import convert  # noqa: F401
+from svbfm_tpu_torch import cli  # noqa: F401
 
 coo = make_movielens_like(num_users=9, num_items=7, num_ratings=96, seed=2)
 tr, te = train_test_split(coo, 0.25, seed=3)
@@ -30,10 +33,18 @@ learner = VBLearner(cfg, SparseDataset.from_coo(tr, D),
                     SparseDataset.from_coo(te, D), meta, device="cpu",
                     write_files=False)
 _, hist = learner.run(num_iter=2, verbose=False)
+train, test = SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D)
+exact = VBLearner(dataclasses.replace(cfg, factor_block=1), train, test,
+                  meta, device="cpu", write_files=False)
+_, hx = exact.run(num_iter=1, verbose=False)
+ovb = OVBLearner(dataclasses.replace(cfg, num_batches=3), train, test, meta,
+                 device="cpu", write_files=False)
+_, ho = ovb.run(num_iter=1, verbose=False)
 loaded = [m for m, v in sys.modules.items() if v is not None and
           m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
 assert not loaded, loaded
 print("sweeps", len(hist), "rmse", hist[-1]["rmse"])
+print("exact", len(hx), "ovb", len(ho), ho[-1]["rmse"])
 """
 
 
@@ -42,6 +53,7 @@ def test_port_runs_two_sweeps_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "sweeps 2" in r.stdout
+    assert "exact 1 ovb 1" in r.stdout
 
 
 def test_no_jax_import_statement_in_port():

@@ -220,13 +220,17 @@ def _tiny_port_data():
                                                     num_factor=2)
 
 
-@pytest.mark.parametrize("change", [dict(factor_block=1), dict(task=1),
-                                    dict(num_factor=0)])
+@pytest.mark.parametrize("change", [dict(task=1),
+                                    dict(task=1, factor_block=1),
+                                    dict(task=1, num_factor=0)])
 def test_out_of_slice_raises(change):
+    """Classification raises in every mode, batch and online alike."""
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+
     ds, cfg = _tiny_port_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvb.VBLearner(dataclasses.replace(cfg, **change), ds, ds,
-                      device="cpu")
+    for cls in (tvb.VBLearner, OVBLearner):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cls(dataclasses.replace(cfg, **change), ds, ds, device="cpu")
 
 
 def test_num_eval_cases_raises():

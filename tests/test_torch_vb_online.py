@@ -1,0 +1,272 @@
+"""Online VBFM in the port (CPU twins of K1, K2, K4, K5, K6 and the w
+patch) against the JAX package's ``OVBLearner`` and the float64
+``OVBOracle``, both packages started from the JAX learner's init
+(``utils.convert.ovb_state_from_jax``).
+
+Tolerances, never looser than the JAX tests' own (test_vb_online.py:60-67:
+rtol 5e-3 on mu, 3e-3 on mu_0, 5e-3 on sigma'_w and alpha; the
+Robbins-Monro counters exactly) and set from what was measured on this
+data over 2 epochs (worst relative difference ~3e-4 on the naturals, whose
+col_count-scaled sums cancel; ~1e-6 on primal parameters, rmse and the
+free energy; float32 sums taken in another order):
+  * parameters, precisions and caches: rtol 1e-4 / atol 1e-5;
+  * naturals eta1, eta2: rtol 1e-3 / atol 1e-4;
+  * rmse, mae, free energy: rtol 1e-5;
+  * t_w0, t_wj, t_vj and the nan/inf counters: equal.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from svbfm_tpu.data.dataset import SparseDataset as JDataset
+from svbfm_tpu.data.meta import DataMetaInfo as JMeta
+from svbfm_tpu.data.synth import make_movielens_like, train_test_split
+from svbfm_tpu.learners import vb_online as jov
+from svbfm_tpu.learners.base import FMConfig as JConfig
+from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm_tpu_torch.data.dataset import SparseDataset
+from svbfm_tpu_torch.data.meta import DataMetaInfo
+from svbfm_tpu_torch.learners import vb_online as tov
+from svbfm_tpu_torch.learners.base import FMConfig
+from svbfm_tpu_torch.utils.convert import ovb_state_from_jax
+
+from oracle import OVBOracle
+
+FIELDS = [f.name for f in dataclasses.fields(tov.OVBState)]
+NATURALS = ("n_mu_0", "n_sig_0", "n_mu_w", "n_sig_w", "n_mu_v", "n_sig_v")
+COUNTERS = ("t_w0", "t_wj", "t_vj")
+
+
+def _data(num_rows, num_users, num_items, seed):
+    coo = make_movielens_like(num_users=num_users, num_items=num_items,
+                              num_ratings=num_rows, rank=2, noise=0.4,
+                              seed=seed)
+    return coo, *train_test_split(coo, 0.25, seed=seed + 1)
+
+
+def _pair(num_rows=120, num_users=9, num_items=7, K=3, seed=2,
+          num_batches=3, **cfg_kw):
+    """The JAX learner and the port's on the same data and config
+    (test_vb_online.py's _setup shapes)."""
+    coo, tr, te = _data(num_rows, num_users, num_items, seed)
+    D = coo.num_features
+    kw = dict(num_attributes=D, num_factor=K, min_target=float(tr.target.min()),
+              max_target=float(tr.target.max()), seed=7,
+              num_batches=num_batches, **cfg_kw)
+    jmeta = JMeta.from_field_offsets(D, [0, num_users])
+    tmeta = DataMetaInfo.from_field_offsets(D, [0, num_users])
+    jl = jov.OVBLearner(JConfig(num_groups=jmeta.num_attr_groups, **kw),
+                        JDataset.from_coo(tr, D), JDataset.from_coo(te, D),
+                        jmeta, mesh=make_mesh(1), write_files=False)
+    tl = tov.OVBLearner(FMConfig(num_groups=tmeta.num_attr_groups, **kw),
+                        SparseDataset.from_coo(tr, D),
+                        SparseDataset.from_coo(te, D), tmeta, device="cpu",
+                        write_files=False)
+    return jl, tl, tr
+
+
+def _np(state):
+    if isinstance(state, tov.OVBState):
+        return {k: getattr(state, k).numpy() for k in FIELDS}
+    return {k: np.asarray(getattr(state, k)) for k in FIELDS}
+
+
+def _assert_states_close(tn, jn):
+    for k in FIELDS:
+        if k in COUNTERS:
+            np.testing.assert_array_equal(tn[k], jn[k], err_msg=k)
+        elif k in NATURALS:
+            np.testing.assert_allclose(tn[k], jn[k], rtol=1e-3, atol=1e-4,
+                                       err_msg=k)
+        else:
+            np.testing.assert_allclose(tn[k], jn[k], rtol=1e-4, atol=1e-5,
+                                       err_msg=k)
+
+
+def _run_both(jl, tl, epochs):
+    js = jl.init_state()
+    ts = ovb_state_from_jax(jax.device_get(js), "cpu")
+    js, jh = jl.run(js, num_iter=epochs, verbose=False)
+    ts, th = tl.run(ts, num_iter=epochs, verbose=False)
+    return _np(ts), th, _np(jax.device_get(js)), jh
+
+
+def _assert_histories_close(th, jh):
+    assert len(th) == len(jh)
+    for a, b in zip(jh, th):
+        assert set(a) == set(b)
+        for k in ("rmse", "mae", "free_energy"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, err_msg=k)
+        counters = [k for k in a if k.startswith(("nan_", "inf_"))]
+        assert len(counters) == 20
+        assert {k: b[k] for k in counters} == {k: int(a[k]) for k in counters}
+
+
+def test_ovb_state_from_jax_round_trip():
+    jl, tl, _ = _pair()
+    js = jax.device_get(jl.init_state())
+    ts = ovb_state_from_jax(js, "cpu")
+    assert all(getattr(ts, k).dtype == torch.float32 for k in FIELDS)
+    for k in FIELDS:
+        np.testing.assert_array_equal(getattr(ts, k).numpy(),
+                                      np.asarray(getattr(js, k)), err_msg=k)
+    # the port's own init keeps the reference's naturals quirk
+    own = tl.init_state()
+    np.testing.assert_array_equal(own.n_mu_w.numpy(),
+                                  (own.mu_w / 0.02).numpy())
+    np.testing.assert_array_equal(own.n_sig_v.numpy(),
+                                  (1.0 / own.sigma_v_dash).numpy())
+    assert float(own.t_w0) == 0.0 and not own.t_vj.any()
+
+
+def test_one_chunk_one_epoch_matches_jax():
+    jl, tl, _ = _pair(num_batches=1)
+    tn, th, jn, jh = _run_both(jl, tl, 1)
+    _assert_states_close(tn, jn)
+    _assert_histories_close(th, jh)
+
+
+@pytest.mark.parametrize("reshuffle", [False, True])
+def test_three_chunks_two_epochs_match_jax(reshuffle):
+    jl, tl, _ = _pair(num_batches=3, reshuffle=reshuffle)
+    tn, th, jn, jh = _run_both(jl, tl, 2)
+    _assert_states_close(tn, jn)
+    _assert_histories_close(th, jh)
+
+
+def test_chunk_membership_and_order_match_jax():
+    jl, tl, _ = _pair(num_rows=200, num_batches=4, reshuffle=True)
+    np.testing.assert_array_equal(tl.chunk_sizes, jl.chunk_sizes)
+
+    def same_chunks():
+        for ci, (row, _plan) in enumerate(tl.chunks):
+            n = int(tl.chunk_sizes[ci])
+            for field in ("ids", "vals", "target"):
+                np.testing.assert_array_equal(
+                    getattr(row, field).numpy(),
+                    np.asarray(getattr(jl.chunk_row, field))[ci][:n])
+
+    same_chunks()
+    for _ in range(3):  # epoch orders
+        np.testing.assert_array_equal(tl.rng.permutation(tl.num_chunks),
+                                      jl.rng.permutation(jl.num_chunks))
+    jl._reshuffle_membership()
+    tl._reshuffle_membership()
+    np.testing.assert_array_equal(tl.member_perm, jl._last_member_perm)
+    same_chunks()
+
+
+def test_ovb_matches_serial_oracle():
+    """As test_vb_online.py:33-67 holds the JAX learner (its tolerances)."""
+    jl, tl, tr = _pair(factor_block=1)
+    ts = tl.init_state()
+    orc = OVBOracle(tr.row, tr.col, tr.val, tr.target, tl.cfg.num_attributes,
+                    tl.cfg.num_factor, tl.col_count, tr.num_rows,
+                    groups=tl.meta.attr_group)
+    orc.init(float(ts.mu_0), float(ts.sigma_0_dash), ts.mu_w.numpy(),
+             ts.sigma_w_dash.numpy(), ts.mu_v.numpy(),
+             ts.sigma_v_dash.numpy())
+    perm = np.random.default_rng(tl.cfg.seed).permutation(tr.num_rows)
+    chunk_rows = np.array_split(perm, tl.num_chunks)
+    order_rng = np.random.default_rng(tl.cfg.seed + 1)
+    for _epoch in range(2):
+        order = order_rng.permutation(tl.num_chunks)
+        ts, packed = tl.epoch(ts, order)
+        assert not packed[4:].any()  # healthy run: no nan/inf candidates
+        for ci in order:
+            orc.chunk_update(chunk_rows[ci])
+        np.testing.assert_allclose(float(ts.mu_0), orc.mu_0, rtol=3e-3,
+                                   atol=1e-4)
+        np.testing.assert_allclose(ts.mu_w.numpy(), orc.mu_w, rtol=5e-3,
+                                   atol=5e-4)
+        np.testing.assert_allclose(ts.mu_v.numpy(), orc.mu_v, rtol=5e-3,
+                                   atol=5e-4)
+        np.testing.assert_allclose(ts.sigma_w_dash.numpy(), orc.sigma_w_dash,
+                                   rtol=5e-3, atol=1e-5)
+        np.testing.assert_allclose(float(ts.alpha), orc.alpha, rtol=5e-3)
+        np.testing.assert_allclose(ts.t_wj.numpy(), orc.t_wj)
+        np.testing.assert_allclose(ts.t_vj.numpy(), orc.t_vj)
+
+
+def test_k1_matches_jax_flat_factor_path(monkeypatch):
+    """K = 1: the JAX learner forced onto its F = 1 flat specialisation
+    (ovb_v_factor), which the port serves with the generic block at F = 1."""
+    monkeypatch.setenv("SVBFM_OVB_FLAT", "1")
+    assert jov._use_flat_dispatch(100, 10, 1)
+    jl, tl, _ = _pair(K=1, num_batches=3, factor_block=1)
+    tn, th, jn, jh = _run_both(jl, tl, 2)
+    _assert_states_close(tn, jn)
+    _assert_histories_close(th, jh)
+
+
+@pytest.mark.parametrize("K,factor_block", [(3, 2), (0, 1)])
+def test_factor_blocks_and_k0_match_jax(K, factor_block):
+    """(3, 2): the narrower last block against JAX's padded, masked one;
+    (0, 1): no factors, the w sweep alone."""
+    jl, tl, _ = _pair(K=K, num_batches=3, factor_block=factor_block)
+    tn, th, jn, jh = _run_both(jl, tl, 2)
+    _assert_states_close(tn, jn)
+    _assert_histories_close(th, jh)
+
+
+def test_nan_candidates_counted_as_jax_counts():
+    """A NaN natural (eta2 of one w column and of one v column) makes NaN
+    candidates: the port counts nan and inf apart, family by family, as
+    the JAX learner does, and keeps the primal finite."""
+    jl, tl, _ = _pair(num_batches=3)
+    js = jax.device_get(jl.init_state())
+    col = int(np.argmax(tl.col_count))  # a column present in every chunk
+    js = js.replace(n_sig_w=np.asarray(js.n_sig_w).copy(),
+                    n_sig_v=np.asarray(js.n_sig_v).copy())
+    js.n_sig_w[col] = np.nan
+    js.n_sig_v[1, col] = np.nan
+    ts = ovb_state_from_jax(js, "cpu")
+    js2, jh = jl.run(jax.device_put(js), num_iter=1, verbose=False)
+    ts2, th = tl.run(ts, num_iter=1, verbose=False)
+    _assert_histories_close(th, jh)
+    assert th[0]["nan_mu_w_dash"] > 0 and th[0]["nan_sigma_v_dash"] > 0
+    assert np.isfinite(ts2.mu_w.numpy()).all()
+    np.testing.assert_allclose(ts2.mu_w.numpy(), np.asarray(js2.mu_w),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_ovb_converges():
+    coo, tr, te = _data(3000, 30, 25, 2)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 30])
+    cfg = FMConfig(num_attributes=D, num_factor=4, num_groups=2, seed=7,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()), num_batches=5)
+    learner = tov.OVBLearner(cfg, SparseDataset.from_coo(tr, D),
+                             SparseDataset.from_coo(te, D), meta,
+                             device="cpu", write_files=False)
+    assert learner.cfg.factor_block == 1  # factor-sequential by default
+    _, history = learner.run(num_iter=12, verbose=False)
+    assert history[-1]["rmse"] < history[0]["rmse"]
+    assert history[-1]["rmse"] < 1.0
+
+
+def test_trajectory_files_first_and_last_chunk(tmp_path):
+    jl, tl, _ = _pair(num_batches=3)
+    tl.out_dir, tl.write_files = str(tmp_path), True
+    _, th = tl.run(num_iter=2, verbose=False)
+    tag = tl.cfg.dim_tag
+    fe = np.loadtxt(tmp_path / f"free_energy_{tag}_vb_online")
+    rm = np.loadtxt(tmp_path / f"test_rmse_{tag}_vb_online")
+    assert fe.shape == (4,)  # first and last chunk of each epoch
+    np.testing.assert_allclose(fe[1::2], [-h["free_energy"] for h in th],
+                               rtol=1e-6)
+    np.testing.assert_allclose(rm, [h["rmse"] for h in th], rtol=1e-6)
+
+
+def test_predict_test_scores_matches_jax():
+    jl, tl, _ = _pair()
+    js = jl.init_state()
+    ts = ovb_state_from_jax(jax.device_get(js), "cpu")
+    np.testing.assert_allclose(tl.predict_test_scores(ts),
+                               jl.predict_test_scores(js), rtol=1e-5,
+                               atol=1e-6)
