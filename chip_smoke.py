@@ -9,9 +9,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      source, all started together.
   2. kernels: each kernel against its plain PyTorch twin on the card, at the
      shapes the paths give it (ML-1M, K=20; batch VB fast mode, exact mode
-     at F=1 with the w patch, and an online-VB chunk of 1/20 of the rows
-     at F=1) and on a small ragged case with a NaN-producing column; time
-     both.
+     at F=1 with the w patch, an online-VB chunk of 1/20 of the rows at
+     F=1, Gibbs/ALS blocks at F=20 and F=1 in both draw modes, the gather
+     probe's shapes) and on small ragged cases with NaN-producing columns;
+     time both, and one PyTorch call where one computes the same function.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
      every kernel of the path must have been launched; the free energy must
      not fall and the test RMSE must drop.
@@ -33,10 +34,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
  12. cli: python -m svbfm_tpu_torch.cli -method vb_online -device cuda on
      small libFM files; it must exit 0 and write its files.
  13. ovb-profile: device time of one online-VB epoch by kernel.
+ 14. mcmc: Gibbs MCMC, factor_block=0 (F=20), 10 iterations from the
+     default device generator: kernels launched, no NaN/Inf counts,
+     posterior-mean RMSE falling; sec/iter and peak memory.
+ 15. mcmc gpu-vs-cpu: 2 Gibbs sweeps at full size from one host-made init
+     and one host-table draw source, on the card and on the CPU.
+ 16. als: ALS (-regular 5) at factor_block=1 and 0, 5 iterations each:
+     kernels launched, test RMSE of the last state falling; then 2 ALS
+     sweeps at F=1, card against CPU.
+ 17. mcmc-quality: 30 Gibbs iterations; the posterior-mean test RMSE at
+     iterations 10 and 30 beside the reference C++'s (information).
+ 18. mcmc-profile: device time per Gibbs sweep by kernel.
+ 19. gather-probe: ns per index of a 1-D gather of 2M indices from a 4 MB
+     table (the kernel and torch.take), the lane-local [S,128] form and
+     the depth sweep 8/32/1024 (the counterpart of
+     scripts/pallas_gather_probe.py).
 Then the nvidia-smi line again, a JSON line with each kernel's launches
-(summed over the runs of phases 3, 7 and 9, each read just after its run
-with the counts zeroed just before), error and times, and as the last line
-{"ok": true, "device": {...}}.
+(summed over the driven runs of phases 3, 7, 9, 14, 16 and 19, each read
+just after its run with the counts zeroed just before), error, times and
+bound, and as the last line {"ok": true, "device": {...}}.
 
 Imports only svbfm_tpu_torch, torch and numpy: never JAX.
 """
@@ -77,6 +93,16 @@ JAX_RMSE_30, JAX_FE_30 = 0.68206, -1093193.6
 # the reference C++ OVBFM on this recipe, -reshuffle 1, 20 chunks
 # (PARITY_RUNS.md:130): test RMSE by epoch; other init draws
 REF_OVB_RMSE = {10: 0.7012, 30: 0.6852}
+# the reference C++ MCMC on this recipe (PARITY_RUNS.md:11,15): posterior-
+# mean test RMSE by iteration; other draws
+REF_MCMC_RMSE = {10: 0.7377, 30: 0.7361}
+# ALS's -regular: unregularised ALS overfits this data (the test RMSE of
+# the 100k-row recipe rises over 5 sweeps at 0.1 and 1, falls at 5)
+ALS_REG = 5.0
+# the least time of a kernel's work (PERF.md): its bytes at the H100's HBM
+# rate, or its float32 operations at the peak outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 SOURCES = {
     "fm_scores": ("svbfm_tpu_torch/csrc/fm_forward.cu",
@@ -95,6 +121,16 @@ SOURCES = {
                      "svbfm_tpu/learners/vb.py:149"),
     "ovb_col_stats_update": ("svbfm_tpu_torch/csrc/ovb_sweep.cu",
                              "svbfm_tpu/learners/vb_online.py:476"),
+    "build_q": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
+                "svbfm_tpu/learners/mcmc.py:337"),
+    "mcmc_col_draw": ("svbfm_tpu_torch/csrc/mcmc_sweep.cu",
+                      "svbfm_tpu/learners/mcmc.py:371"),
+    "mcmc_patch_rows": ("svbfm_tpu_torch/csrc/mcmc_sweep.cu",
+                        "svbfm_tpu/learners/mcmc.py:468"),
+    "mcmc_w_draw": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                    "svbfm_tpu/learners/mcmc.py:620"),
+    "gather_probe": ("svbfm_tpu_torch/csrc/gather_probe.cu",
+                     "scripts/pallas_gather_probe.py:83"),
 }
 # the kernels each driven path must launch
 PATH_KERNELS = {
@@ -105,6 +141,11 @@ PATH_KERNELS = {
                  "w_patch_rows"),
     "ovb": ("fm_scores", "fm_t_terms", "vb_build_qt", "vb_patch_rows",
             "w_col_update", "w_patch_rows", "ovb_col_stats_update"),
+    "mcmc": ("fm_scores", "build_q", "mcmc_col_draw", "mcmc_patch_rows",
+             "mcmc_w_draw", "w_patch_rows"),
+    "als": ("fm_scores", "build_q", "mcmc_col_draw", "mcmc_patch_rows",
+            "mcmc_w_draw", "w_patch_rows"),
+    "gather-probe": ("gather_probe",),
 }
 
 
@@ -123,13 +164,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, graph: bool = True) -> float:
     """Mean device time of one call: ``reps`` calls captured in a CUDA graph
     and replayed between two CUDA events.  The replay launches them back to
     back, so a call's Python wrapper (tens of µs, more than a small
-    kernel's run time) is not in the number."""
+    kernel's run time) is not in the number.  ``graph=False`` (a call that
+    synchronises cannot be captured) times the calls themselves between
+    the events: host-paced."""
     fn()
     torch.cuda.synchronize()
+    if not graph:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
@@ -177,31 +229,76 @@ def _bad(device):
 
 
 # ---------------------------------------------------------------------------
-# Kernel cases.  A case is (label, prepare, call, timed): prepare() makes
+# Kernel cases.  A case is (label, prepare, call, cost): prepare() makes
 # fresh copies of the inputs an op updates in place; call(variant, inputs)
 # runs the CUDA op ("kernel") or its twin ("plain") once and returns the
-# outputs.  Timing repeats call() on one prepared input set, so it times
-# the op alone.  A tensor dict ``s`` holds one shape family; a case whose
-# inputs it lacks is skipped.
+# outputs.  ``cost`` is None for a case that is only checked, or, for one
+# that is timed too, a dict of the bytes the op must move (each input read
+# once, each output written once, as this case's data needs them), its
+# float32 operations, and ``library``: one PyTorch call that computes the
+# same function on the same inputs, or None.  Timing repeats call() on one
+# prepared input set, so it times the op alone.  A tensor dict ``s`` holds
+# one shape family; a case whose inputs it lacks is skipped.
 # ---------------------------------------------------------------------------
+
+def cost(nbytes: float, flops: float, library=None,
+         plain_graph: bool = True) -> dict:
+    """``plain_graph=False``: the twin synchronises (exact_block_draws tests
+    its solve on the host), so it is timed host-paced."""
+    return dict(bytes=float(nbytes), flops=float(flops), library=library,
+                plain_graph=plain_graph)
+
+
+def bound(c: dict):
+    """(least ms for the work, what bounds it): the bytes at the HBM rate
+    or the operations at the float32 peak, whichever takes longer."""
+    tb, tf = c["bytes"] / HBM_BYTES_PER_S, c["flops"] / F32_FLOPS_PER_S
+    return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
+
 
 def make_cases(s: dict):
     from svbfm_tpu_torch.kernels import fm_forward as k1
+    from svbfm_tpu_torch.kernels import gather_probe as kg
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
     from svbfm_tpu_torch.kernels import ovb_sweep as ko
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.kernels import w_sweep as kw
 
     cases = {name: [] for name in SOURCES}
     tag = s["tag"]
+    timed = s.get("timed", True)
+
+    def add(name, label, prepare, call, c):
+        cases[name].append((f"{tag} {label}", prepare, call,
+                            c if timed else None))
 
     def nothing():
         return ()
+
+    def rows_bytes(ids):  # the ids and values of the row layout
+        return ids.numel() * 8
+
+    def bucket_cost(b, per_entry_floats, per_col_floats, flops_per_entry,
+                    plain_graph=True):
+        # rows and x are read in every slot; the gathers and the arithmetic
+        # only at the real entries (a padding slot has x = 0, so h = 0, and
+        # points at one pad row)
+        C, L = b["rows"].shape
+        n = int(torch.count_nonzero(b["x"]))
+        return cost(C * L * 8 + n * 4 * per_entry_floats
+                    + C * 4 * per_col_floats, n * flops_per_entry,
+                    plain_graph=plain_graph)
 
     def k2(F, ptab, ids, vals):
         def call(variant, _):
             fn = kv.vb_build_qt if variant == "kernel" else kv.vb_build_qt_plain
             return list(fn(ptab, F, ids, vals))
         return call
+
+    def k2_cost(F, ids):
+        N, P = ids.shape
+        return cost(rows_bytes(ids) + s["D"] * 2 * F * 4 + 3 * N * F * 4,
+                    N * P * F * 6)
 
     def k4(F, merge_w, seq, ptab, ids, vals, keys):
         def prepare():
@@ -214,6 +311,11 @@ def make_cases(s: dict):
             return list(inp)
         return prepare, call
 
+    def k4_cost(F, ptab, ids):
+        N, P = ids.shape
+        return cost(rows_bytes(ids) + ptab.numel() * 4 + N * F * 24 + N * 16,
+                    N * P * F * 20)
+
     if "stab" in s:  # K1: scores (test eval, OVB chunk e) and T-terms
         def k1_scores(variant, _):
             fn = k1.fm_scores_op if variant == "kernel" else k1.fm_scores_plain
@@ -223,12 +325,15 @@ def make_cases(s: dict):
             fn = k1.fm_t_terms_op if variant == "kernel" else k1.fm_t_terms_plain
             return [fn(s["ttab"], s["s0"], s["ids"], s["vals"])]
 
-        cases["fm_scores"].append(
-            (f"{tag} scores N={s['eval_ids'].shape[0]}", nothing, k1_scores,
-             True))
-        cases["fm_t_terms"].append(
-            (f"{tag} t-terms N={s['ids'].shape[0]}", nothing, k1_tterms,
-             True))
+        Ne, Pe = s["eval_ids"].shape
+        K = s["stab"].shape[1] - 1
+        add("fm_scores", f"scores N={Ne}", nothing, k1_scores,
+            cost(rows_bytes(s["eval_ids"]) + s["stab"].numel() * 4 + Ne * 4,
+                 Ne * Pe * (4 * K + 2) + 2 * Ne * K))
+        N, P = s["ids"].shape
+        add("fm_t_terms", f"t-terms N={N}", nothing, k1_tterms,
+            cost(rows_bytes(s["ids"]) + s["ttab"].numel() * 4 + N * 4,
+                 N * P * (9 * K + 2) + 4 * N * K))
 
     if "buckets" in s:  # batch VB, fast mode (all K factors in one block)
         F = s["F"]
@@ -248,17 +353,17 @@ def make_cases(s: dict):
                 return [mu_t, sig_t, ptab, mu_w, sig_w, nans]
             return call
 
-        cases["vb_build_qt"].append(
-            (f"{tag} F={F}", nothing, k2(F, s["ptab"], s["ids"], s["vals"]),
-             True))
-        for i, b in enumerate(s["buckets"]):
-            cases["vb_col_stats_update"].append(
-                (f"{tag} F={F} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
-                 k3_prepare, k3(b, s["sv"], s["sigma_w"]), i == 0))
-        cases["vb_patch_rows"].append(
-            (f"{tag} F={F} seq",) + k4(F, True, True, s["ptab_patch"],
-                                       s["ids"], s["vals"],
-                                       ("q", "tq", "tz", "e", "t")) + (True,))
+        add("vb_build_qt", f"F={F}", nothing,
+            k2(F, s["ptab"], s["ids"], s["vals"]), k2_cost(F, s["ids"]))
+        for b in s["buckets"]:
+            add("vb_col_stats_update",
+                f"F={F} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
+                k3_prepare, k3(b, s["sv"], s["sigma_w"]),
+                bucket_cost(b, 1 + 2 * F, 2 * F + 5 * F + 6, 12 * F + 2))
+        add("vb_patch_rows", f"F={F} seq",
+            *k4(F, True, True, s["ptab_patch"], s["ids"], s["vals"],
+                ("q", "tq", "tz", "e", "t")),
+            k4_cost(F, s["ptab_patch"], s["ids"]))
 
     if "w_buckets" in s:  # the standalone linear-term sweep (K5, w patch)
         def k5_prepare(ovb):
@@ -295,12 +400,15 @@ def make_cases(s: dict):
 
         ovb = s["ovb"]
         mode = "ovb" if ovb else "vb"
-        for i, b in enumerate(s["w_buckets"]):
-            cases["w_col_update"].append(
-                (f"{tag} {mode} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
-                 k5_prepare(ovb), k5(b, ovb), i == 0))
-        cases["w_patch_rows"].append((f"{tag} N={s['ids'].shape[0]}",
-                                      wpatch_prepare, wpatch, True))
+        for b in s["w_buckets"]:
+            add("w_col_update",
+                f"{mode} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
+                k5_prepare(ovb), k5(b, ovb),
+                bucket_cost(b, 1, 16 if ovb else 10, 4 if ovb else 2))
+        N, P = s["ids"].shape
+        add("w_patch_rows", f"N={N}", wpatch_prepare, wpatch,
+            cost(rows_bytes(s["ids"]) + s["dtab"].numel() * 4 + N * 16,
+                 N * P * 4))
 
     if "v_buckets" in s:  # online VB factor block (K2, K6, K4 seq=False)
         F = s["vF"]
@@ -322,17 +430,17 @@ def make_cases(s: dict):
                 return [ptab, mu, sig, nmu, nsig, tv_add, bad]
             return call
 
-        cases["vb_build_qt"].append(
-            (f"{tag} F={F}", nothing,
-             k2(F, s["v_ptab"], s["ids"], s["vals"]), True))
-        for i, b in enumerate(s["v_buckets"]):
-            cases["ovb_col_stats_update"].append(
-                (f"{tag} F={F} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
-                 k6_prepare, k6(b), i == 0))
-        cases["vb_patch_rows"].append(
-            (f"{tag} F={F} simultaneous",) + k4(
-                F, False, False, s["v_ptab_patch"], s["ids"], s["vals"],
-                ("vq", "vtq", "vtz", "e", "t")) + (True,))
+        add("vb_build_qt", f"F={F}", nothing,
+            k2(F, s["v_ptab"], s["ids"], s["vals"]), k2_cost(F, s["ids"]))
+        for b in s["v_buckets"]:
+            add("ovb_col_stats_update",
+                f"F={F} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
+                k6_prepare, k6(b),
+                bucket_cost(b, 1 + 2 * F, 4 + 11 * F, 12 * F))
+        add("vb_patch_rows", f"F={F} simultaneous",
+            *k4(F, False, False, s["v_ptab_patch"], s["ids"], s["vals"],
+                ("vq", "vtq", "vtz", "e", "t")),
+            k4_cost(F, s["v_ptab_patch"], s["ids"]))
 
     if "exact_buckets" in s:  # batch VB exact mode: K2, K3, K4 at F = 1
         def k3x_prepare():
@@ -350,39 +458,155 @@ def make_cases(s: dict):
                 return [mu_t, sig_t, ptab, nans]
             return call
 
-        cases["vb_build_qt"].append(
-            (f"{tag} exact F=1", nothing,
-             k2(1, s["x_ptab"], s["ids"], s["vals"]), True))
+        add("vb_build_qt", "exact F=1", nothing,
+            k2(1, s["x_ptab"], s["ids"], s["vals"]), k2_cost(1, s["ids"]))
         for b in s["exact_buckets"]:
-            cases["vb_col_stats_update"].append(
-                (f"{tag} exact F=1 [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
-                 k3x_prepare, k3x(b), True))
-        cases["vb_patch_rows"].append(
-            (f"{tag} exact F=1 seq",) + k4(
-                1, False, True, s["x_ptab_patch"], s["ids"], s["vals"],
-                ("xq", "xtq", "xtz", "e", "t")) + (True,))
+            add("vb_col_stats_update",
+                f"exact F=1 [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
+                k3x_prepare, k3x(b), bucket_cost(b, 3, 8, 14))
+        add("vb_patch_rows", "exact F=1 seq",
+            *k4(1, False, True, s["x_ptab_patch"], s["ids"], s["vals"],
+                ("xq", "xtq", "xtz", "e", "t")),
+            k4_cost(1, s["x_ptab_patch"], s["ids"]))
+
+    def mcmc_block(F, m):
+        """Gibbs/ALS: X8d, X8a and X8b on a block of F factors; ``m`` holds
+        the block's tensors."""
+        ids, vals = s["ids"], s["vals"]
+        N, P = ids.shape
+
+        def x8d(variant, _):
+            fn = kv.build_q if variant == "kernel" else kv.build_q_plain
+            return [fn(m["ptab"], F, ids, vals)]
+
+        def x8d_library():
+            return torch.nn.functional.embedding_bag(
+                m["ids64"], m["vt"], per_sample_weights=vals, mode="sum")
+
+        add("build_q", f"F={F} N={N}", nothing, x8d,
+            cost(rows_bytes(ids) + s["D"] * F * 4 + N * F * 4, N * P * F * 2,
+                 x8d_library))
+
+        def x8a_prepare():
+            return (m["ptab"].clone(), m["vt"].clone(),
+                    torch.zeros(2, dtype=torch.int32, device=ids.device))
+
+        def x8a(blk, exact, z):
+            def call(variant, inp):
+                fn = (km.mcmc_col_draw if variant == "kernel"
+                      else km.mcmc_col_draw_plain)
+                ptab, vt, nans = inp
+                fn(blk["rows"], blk["x"], blk["cols"], blk["group"], m["e"],
+                   m["q"], ptab, vt, m["mu"], m["lam"], m["alpha"], z, exact,
+                   nans)
+                return [ptab, vt, nans]
+            return call
+
+        for b in m["buckets"]:
+            C, L = b["rows"].shape
+            for exact, z in ((True, m["z"]), (False, None)):
+                mode = ("exact" if exact else "jacobi") + (
+                    "+z" if z is not None else "")
+                add("mcmc_col_draw", f"F={F} {mode} [{C},{L}]", x8a_prepare,
+                    x8a(b, exact, z),
+                    bucket_cost(b, 1 + F,
+                                3 * F + (F if z is not None else 0),
+                                7 * F + (F * (F - 1) if exact else 0),
+                                plain_graph=not exact))
+
+        def x8b_prepare():
+            return m["q"].clone(), m["e"].clone()
+
+        def x8b(variant, inp):
+            fn = (km.mcmc_patch_rows if variant == "kernel"
+                  else km.mcmc_patch_rows_plain)
+            q, e = inp
+            fn(m["ptab_patch"], F, ids, vals, q, e)
+            return [q, e]
+
+        add("mcmc_patch_rows", f"F={F} N={N}", x8b_prepare, x8b,
+            cost(rows_bytes(ids) + s["D"] * 2 * F * 4 + N * F * 8 + N * 8,
+                 N * P * F * 6))
+
+    if "mF" in s:  # the block of F = mF factors (m_*) and F = 1 (m1_*)
+        for F, sfx in ((s["mF"], ""), (1, "1")):
+            mcmc_block(F, {k[len(f"m{sfx}_"):]: v for k, v in s.items()
+                           if k.startswith(f"m{sfx}_")})
+
+    if "mw_buckets" in s:  # X8c (K5's MCMC mode) and the w patch without t
+        def x8c_prepare():
+            return (s["mw_w"].clone(), torch.zeros_like(s["mw_dtab"]),
+                    _bad(s["ids"].device))
+
+        def x8c(blk, z):
+            def call(variant, inp):
+                fn = (kw.mcmc_w_draw if variant == "kernel"
+                      else kw.mcmc_w_draw_plain)
+                w, dtab, bad = inp
+                fn(blk["rows"], blk["x"], blk["cols"], blk["group"],
+                   blk["sx2"], s["mw_e"], w, s["mw_mu"], s["mw_lambda"],
+                   s["mw_alpha"], z, dtab, bad)
+                return [w, dtab, bad]
+            return call
+
+        for b in s["mw_buckets"]:
+            for z in (s.get("mw_z"), None):
+                add("mcmc_w_draw",
+                    f"{'gibbs' if z is not None else 'als'} "
+                    f"[{b['rows'].shape[0]},{b['rows'].shape[1]}]",
+                    x8c_prepare, x8c(b, z), bucket_cost(b, 1, 10, 2))
+
+        def wpatch_e(variant, inp):
+            fn = kv.w_patch_rows if variant == "kernel" else kv.w_patch_rows_plain
+            fn(s["mw_dtab"], s["ids"], s["vals"], *inp)
+            return list(inp)
+
+        N, P = s["ids"].shape
+        add("w_patch_rows", f"mcmc e only N={N}",
+            lambda: (s["mw_e"].clone(),), wpatch_e,
+            cost(rows_bytes(s["ids"]) + s["mw_dtab"].numel() * 4 + N * 8,
+                 N * P * 2))
+
+    for label, t, idx in s.get("gathers", ()):  # P1: o[r, l] = t[i[r, l], l]
+        def gcall(variant, _, t=t, idx=idx):
+            fn = kg.gather_rows if variant == "kernel" else kg.gather_rows_plain
+            return [fn(t, idx)]
+
+        i64 = idx.long()
+        if t.shape[1] == 1:
+            def library(t=t, i64=i64):
+                return torch.take(t.view(-1), i64.view(-1))
+        else:
+            def library(t=t, i64=i64):
+                return torch.take_along_dim(t, i64, dim=0)
+        add("gather_probe", label, nothing, gcall,
+            cost(idx.numel() * 8 + t.numel() * 4, 0, library))
     return cases
 
 
 def check_cases(s: dict, timed: bool) -> dict:
     """Hold every kernel against its twin on the cases ``s`` gives; with
-    ``timed``, also time both on the cases marked for it.  Returns per
-    kernel {max_abs_err, times: [(label, ms, plain_ms)]}."""
+    ``timed``, also time both, and the library call where there is one, on
+    the cases with a cost.  Returns per kernel {max_abs_err, times: [(label,
+    ms, plain_ms, library_ms, cost)]}."""
     out = {}
     for name, cases in make_cases(s).items():
         if not cases:
             continue
         r = out.setdefault(name, dict(max_abs_err=0.0, times=[]))
-        for label, prepare, call, want_time in cases:
+        for label, prepare, call, c in cases:
             ok, op = call("kernel", prepare()), call("plain", prepare())
             torch.cuda.synchronize()
             r["max_abs_err"] = max(r["max_abs_err"],
                                    compare(ok, op, f"{name} ({label})"))
-            if timed and want_time:
+            if timed and c is not None:
                 inp_k, inp_p = prepare(), prepare()
+                lib = c["library"]
                 r["times"].append((
                     label, cuda_ms(lambda: call("kernel", inp_k), 20),
-                    cuda_ms(lambda: call("plain", inp_p), 5)))
+                    cuda_ms(lambda: call("plain", inp_p), 5,
+                            graph=c["plain_graph"]),
+                    None if lib is None else cuda_ms(lib, 20), c))
     return out
 
 
@@ -417,7 +641,7 @@ def fast_tensors(learner, state) -> dict:
     row = learner.train_row
     q, tq, tz = kv.vb_build_qt_plain(ptab, F, row.ids, row.vals)
     s = dict(
-        tag="vb", F=F, w0=state.mu_0, s0=state.sigma_0_dash,
+        tag="vb", F=F, D=D, w0=state.mu_0, s0=state.sigma_0_dash,
         stab=torch.cat([state.mu_w[:, None], mu_t], 1).contiguous(),
         ttab=torch.cat([state.sigma_w_dash[:, None], mu_t, sig_t],
                        1).contiguous(),
@@ -486,7 +710,7 @@ def ovb_tensors(learner, state) -> dict:
     big = [max(bb, key=lambda b: b.rows.numel()) for bb in plan.blocks]
     mu_t = state.mu_v.T.contiguous()
     s = dict(
-        tag="ovb-chunk", ovb=True, ids=row.ids, vals=row.vals, e=e, t=t,
+        tag="ovb-chunk", D=D, ovb=True, ids=row.ids, vals=row.vals, e=e, t=t,
         w0=state.mu_0, s0=state.sigma_0_dash, eval_ids=row.ids,
         eval_vals=row.vals,
         stab=torch.cat([state.mu_w[:, None], mu_t], 1).contiguous(),
@@ -559,7 +783,7 @@ def ragged_tensors(device) -> list:
         return torch.tensor(v, dtype=torch.float32, device=device)
 
     s = dict(
-        tag="ragged", F=F, w0=scalar(0.3), s0=scalar(0.02),
+        tag="ragged", timed=False, F=F, D=D, w0=scalar(0.3), s0=scalar(0.02),
         stab=t(rng.normal(0, 0.3, size=(D, 1 + F)).astype(np.float32)),
         ttab=t(np.abs(rng.normal(0, 0.3, size=(D, 1 + 2 * F)))
                .astype(np.float32)),
@@ -582,8 +806,8 @@ def ragged_tensors(device) -> list:
                   cnt=t(np.array([5.0, 5.0, 0.0], np.float32)),
                   col_count=t(np.array([40.0, 12.0, 7.0], np.float32)))
     s["buckets"] = [bucket]
-    common = {k: s[k] for k in ("ids", "vals", "e", "t", "alpha", "mu_w",
-                                "sig_w")}
+    common = {k: s[k] for k in ("timed", "D", "ids", "vals", "e", "t",
+                                "alpha", "mu_w", "sig_w")}
     dtab = t(rng.normal(0, 0.1, size=(D, 2)).astype(np.float32))
     # K5 in batch-VB mode: group 1's sigma_w is NaN (columns 9 and 17)
     vb = dict(common, tag="ragged", ovb=False, w_buckets=[bucket], dtab=dtab,
@@ -603,7 +827,159 @@ def ragged_tensors(device) -> list:
               rho_v=t(rng.uniform(0.1, 1.0, size=D).astype(np.float32)),
               vq=s["q"], vtq=s["tq"], vtz=s["tz"], v_buckets=[bucket],
               v_ptab_patch=t(ptab[:, :5 * F]))
-    return [s, vb, ov]
+    return [s, vb, ov, ragged_mcmc_tensors(device)]
+
+
+def mcmc_tensors(learner, state) -> dict:
+    """Gibbs/ALS kernel inputs at the path's shapes, from a state one sweep
+    into a run (drawn priors and residual): X8d, X8a and X8b on the block of
+    all K factors (F = K) and on factor 0 alone (F = 1), X8a on the largest
+    bucket of each bin, with and without a noise table, in both draw modes;
+    X8c on the same buckets; the patch tables as bin 0 leaves them."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+
+    plan, row = learner.plan_data, learner.train_row
+    D, K = learner.cfg.num_attributes, learner.cfg.num_factor
+    dev = state.e.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    big = [_bucket_dict(max(bb, key=lambda b: b.rows.numel()))
+           for bb in plan.blocks]
+    s = dict(tag="mcmc", D=D, ids=row.ids, vals=row.vals, mF=K,
+             mw_buckets=big, mw_w=state.w.clone(), mw_mu=state.w_mu,
+             mw_lambda=state.w_lambda, mw_alpha=state.alpha, mw_e=state.e,
+             mw_z=torch.randn(D, generator=gen, device=dev))
+    dtab, w = torch.zeros(D, 2, device=dev), state.w.clone()
+    for blk in plan.blocks[0]:
+        kw.mcmc_w_draw_plain(blk.rows, blk.x, blk.cols, blk.group, blk.sx2,
+                             state.e, w, state.w_mu, state.w_lambda,
+                             state.alpha, s["mw_z"], dtab, _bad(dev))
+    s["mw_dtab"] = dtab
+    for F, sfx in ((K, ""), (1, "1")):
+        vt = state.v[:F].T.contiguous()
+        ptab = torch.cat([vt, torch.zeros_like(vt)], 1)
+        m = dict(vt=vt, ptab=ptab, ids64=row.ids.long(), e=state.e,
+                 q=kv.build_q_plain(ptab, F, row.ids, row.vals),
+                 mu=state.v_mu[:, :F].contiguous(),
+                 lam=state.v_lambda[:, :F].contiguous(), alpha=state.alpha,
+                 z=torch.randn(F, D, generator=gen, device=dev), buckets=big)
+        pt, v2 = ptab.clone(), vt.clone()
+        for blk in plan.blocks[0]:
+            km.mcmc_col_draw_plain(
+                blk.rows, blk.x, blk.cols, blk.group, m["e"], m["q"], pt, v2,
+                m["mu"], m["lam"], m["alpha"], m["z"], True,
+                torch.zeros(2, dtype=torch.int32, device=dev))
+        m["ptab_patch"] = pt
+        s.update({f"m{sfx}_{k}": v for k, v in m.items()})
+    return s
+
+
+def ragged_mcmc_tensors(device) -> dict:
+    """The X8a-X8d, X8c and P1 checks on small ragged inputs, at F = 6 and
+    17 columns as test_mcmc.py:247-292 draws them: column 3 sits in a group
+    whose lambda is NaN (its draws must come out 0, uncounted) and column 5
+    has an Inf noise number at factor 2 (its draw is counted and
+    reverted); X8c's bucket has a NaN-lambda group and an Inf noise number
+    at column 2; the patch rows have padding entries."""
+    rng = np.random.default_rng(0)
+    N, P, D, F, C, L = 40, 3, 30, 6, 17, 8
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
+
+    ids = rng.integers(0, D, size=(N, P))
+    vals = rng.uniform(0.5, 1.5, size=(N, P))
+    pad = np.arange(P)[None, :] >= rng.integers(1, P + 1, size=N)[:, None]
+    ids[pad], vals[pad] = 0, 0.0
+    cols = np.sort(rng.permutation(D)[:C])
+    rows = rng.integers(0, N, size=(C, L))
+    x = rng.uniform(0.5, 1.5, size=(C, L))
+    rows[::4, 5:], x[::4, 5:] = N - 1, 0.0  # padding entries
+    group = np.zeros(C)
+    group[3] = 1
+    bucket = dict(rows=t(rows, np.int32), x=t(x), cols=t(cols, np.int32),
+                  group=t(group, np.int32), sx2=t((x * x).sum(1)))
+    lam = np.abs(rng.standard_normal((2, F))) + 0.3
+    lam[1] = np.nan
+    z = rng.standard_normal((F, D))
+    z[2, cols[5]] = np.inf
+    v = rng.standard_normal((D, F))
+    dv = np.where(rng.uniform(size=(D, F)) < 0.5, rng.normal(0, 0.1, (D, F)),
+                  0.0)
+    e = rng.standard_normal(N)
+    q = rng.standard_normal((N, F))
+    mu = rng.standard_normal((2, F))
+    s = dict(tag="ragged-mcmc", timed=False, D=D, ids=t(ids, np.int32),
+             vals=t(vals), mF=F)
+    for sfx, fs in (("", slice(0, F)), ("1", slice(2, 3))):
+        Fs = fs.stop - fs.start
+        ptab = np.concatenate([v[:, fs], np.zeros((D, Fs))], 1)
+        s.update({f"m{sfx}_{k}": a for k, a in dict(
+            vt=t(v[:, fs]), ptab=t(ptab), ids64=t(ids, np.int64), e=t(e),
+            q=t(q[:, fs]), mu=t(mu[:, fs]), lam=t(lam[:, fs]),
+            alpha=torch.tensor(1.7, device=device), z=t(z[fs]),
+            buckets=[bucket],
+            ptab_patch=t(np.concatenate([v[:, fs], dv[:, fs]], 1))).items()})
+    w_lam = np.array([2.0, np.nan])
+    zw = rng.standard_normal(D)
+    zw[cols[2]] = np.inf
+    s.update(mw_buckets=[bucket], mw_w=t(rng.standard_normal(D)),
+             mw_mu=t(rng.standard_normal(2)), mw_lambda=t(w_lam),
+             mw_alpha=torch.tensor(1.3, device=device), mw_e=t(e),
+             mw_z=t(zw),
+             mw_dtab=t(np.stack([rng.normal(0, 0.1, D), np.zeros(D)], 1)))
+    s["gathers"] = [
+        ("ragged 1-D", t(rng.standard_normal((D, 1))),
+         t(rng.integers(0, D, size=(N, 1)), np.int32)),
+        ("ragged lanes", t(rng.standard_normal((7, 128))),
+         t(rng.integers(0, 7, size=(5, 128)), np.int32))]
+    return s
+
+
+def gather_sets(device) -> list:
+    """P1's shapes (scripts/pallas_gather_probe.py): a 1-D gather of 2M
+    indices from a 4 MB table, the lane-local [S, 128] form, and [depth,
+    128] tables at depth 8, 32 and 1024."""
+    N, M, W = 1_000_000, 2_000_000, 128
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def table(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    def index(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    sets = [(f"1-D N={N} M={M}", table(N, 1), index(N, M, 1)),
+            (f"lane-local [{N // W},{W}] M={M}", table(N // W, W),
+             index(N // W, M // W, W))]
+    sets += [(f"depth {d} [{d},{W}]", table(d, W), index(d, d, W))
+             for d in (8, 32, 1024)]
+    return sets
+
+
+def probe_gathers(sets) -> list:
+    """P1: ns per index of the kernel and of torch.take (1-D) or
+    take_along_dim (lane-local and the depth sweep) on each set."""
+    from svbfm_tpu_torch.kernels.gather_probe import gather_rows
+
+    lines = []
+    for label, t, idx in sets:
+        i64 = idx.long()
+        if t.shape[1] == 1:
+            lib, name = (lambda: torch.take(t.view(-1), i64.view(-1)),
+                         "torch.take")
+        else:
+            lib, name = (lambda: torch.take_along_dim(t, i64, dim=0),
+                         "take_along_dim")
+        n = idx.numel()
+        ms = cuda_ms(lambda: gather_rows(t, idx), 20)
+        lms = cuda_ms(lib, 20)
+        lines.append(f"  gather {label}: kernel {ms * 1e6 / n:.4f} ns/index "
+                     f"({n / ms / 1e6:.1f} G index/s), {name} "
+                     f"{lms * 1e6 / n:.4f} ns/index; lowers on sm_90a")
+    return lines
 
 
 def profile_run(fn, n: int, unit: str, phase: str) -> None:
@@ -670,6 +1046,26 @@ def check_history(hist, path: str, keys, fe_monotone: bool) -> None:
                 raise AssertionError(f"{path}: free energy fell: {a} -> {b}")
     if not hist[-1]["rmse"] < hist[0]["rmse"]:
         raise AssertionError(f"{path}: test RMSE did not drop over "
+                             f"{len(hist)} iterations")
+
+
+def check_mcmc_history(hist, path: str, key: str) -> None:
+    """Finite metrics and hyperparameters, no NaN/Inf counts, and ``key``
+    lower at the end than at the first iteration."""
+    for h in hist:
+        vals = [h[k] for k in ("rmse", "rmse_this", "rmse_all_but5", "mae",
+                               "alpha")]
+        vals += [np.asarray(h[k]).ravel() for k in ("w_mu", "w_lambda",
+                                                    "v_mu", "v_lambda")]
+        if not all(np.all(np.isfinite(v)) for v in vals):
+            raise AssertionError(f"{path}: non-finite metrics at iter "
+                                 f"{h['iter']}")
+        bad = {k: v for k, v in h.items()
+               if k.startswith(("nan_", "inf_")) and v}
+        if bad:
+            raise AssertionError(f"{path}: non-finite draws {bad}")
+    if not hist[-1][key] < hist[0][key]:
+        raise AssertionError(f"{path}: test {key} did not drop over "
                              f"{len(hist)} iterations")
 
 
@@ -757,8 +1153,11 @@ def main() -> int:
     from svbfm_tpu_torch.data.dataset import SweepPlan
     from svbfm_tpu_torch.kernels import build
     from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
     from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
     from svbfm_tpu_torch.learners.vb_online import OVBLearner, init_ovb_state
+    from svbfm_tpu_torch.models.fm import init_fm_params
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -783,6 +1182,8 @@ def main() -> int:
                         write_files=False)
     ovb = OVBLearner(FMConfig(num_batches=OVB_CHUNKS, **base_cfg), train,
                      test, meta, device=dev, write_files=False)
+    gibbs = MCMCLearner(cfg, train, test, meta, device=dev, plan=plan,
+                        write_files=False)
     shapes = [[tuple(b.rows.shape[1:]) for b in bb] for bb in plan.blocks]
     cshapes = [[tuple(b.rows.shape) for b in bb] for bb in ovb.chunks[0][1].blocks]
     say("data", t0, train_rows=tr.num_rows, test_rows=te.num_rows,
@@ -795,18 +1196,25 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     vb0 = learner.state_from_params(init_vb_params(gen, cfg, dev))
     ovb0 = ovb.init_state()
+    mc1, _ = gibbs.step(gibbs.init_state())
     report = merge_reports(
         check_cases(fast_tensors(learner, vb0), timed=True),
         check_cases(ovb_tensors(ovb, ovb0), timed=True),
+        check_cases(mcmc_tensors(gibbs, mc1), timed=True),
+        check_cases(dict(tag="probe", gathers=gather_sets(dev)), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
+    del mc1
     missing = sorted(set(SOURCES) - set(report))
     if missing:
         raise AssertionError(f"kernels with no case: {missing}")
     for name, r in report.items():
         print(f"  kernel {name}: max_abs_err={r['max_abs_err']:.3e} "
               f"(tol {KERNEL_TOL:g} x scale)", flush=True)
-        for label, ms, pms in r["times"]:
-            print(f"    {label}: ms={ms:.4f} plain_ms={pms:.4f}")
+        for label, ms, pms, lms, c in r["times"]:
+            lib = "null" if lms is None else f"{lms:.4f}"
+            print(f"    {label}: ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"library_ms={lib} bound_ms={bound(c)[0]:.4f} "
+                  f"({bound(c)[1]})")
     say("kernels", t0, compared=len(report), tol=KERNEL_TOL)
 
     # ---- 3. batch VB, fast mode, on the card ---------------------------------
@@ -935,13 +1343,108 @@ def main() -> int:
     profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False), 1,
                 "epoch", "ovb-profile")
 
-    launches = {n: sum(lp[n] for lp in (l_fast, l_exact, l_ovb))
-                for n in SOURCES}
-    kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
-                    replaces=SOURCES[n][1], launches=launches[n],
-                    max_abs_err=report[n]["max_abs_err"],
-                    ms=report[n]["times"][0][1],
-                    plain_ms=report[n]["times"][0][2]) for n in SOURCES]
+    # ---- 14. Gibbs MCMC, factor_block=0 (F = K), on the card --------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (mstate, hm), l_mcmc = drive(build, "mcmc", lambda: gibbs.run(
+        gibbs.init_state(), num_iter=10, verbose=False, chunk=1))
+    peak = torch.cuda.max_memory_allocated()
+    check_mcmc_history(hm, "mcmc", "rmse")
+    # host-bound or device-bound: the host time to enqueue one sweep, then
+    # the time the device still needs after it
+    split = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        mstate, _ = gibbs.step(mstate)
+        w1 = time.perf_counter()
+        torch.cuda.synchronize()
+        split.append(f"{1e3 * (w1 - w0):.3f}/{1e3 * (time.perf_counter() - w1):.3f}")
+    say("mcmc", t0, iterations=len(hm),
+        sec_per_iter=f"{statistics.median(h['time_learn'] for h in hm[1:]):.6f}",
+        ms_per_iter=",".join(f"{1e3 * h['time_learn']:.3f}" for h in hm),
+        enqueue_then_wait_ms=",".join(split),
+        rmse=",".join(f"{h['rmse']:.5f}" for h in hm),
+        rmse_this_last=f"{hm[-1]['rmse_this']:.5f}",
+        alpha_last=f"{hm[-1]['alpha']:.4f}", peak_mem_bytes=peak,
+        launches=json.dumps(l_mcmc, separators=(",", ":")), card=repr(card))
+
+    # ---- 15. Gibbs, GPU kernels vs CPU twins, full size ---------------------
+    t0 = time.perf_counter()
+    p0 = init_fm_params(torch.Generator().manual_seed(SEED), D, K,
+                        init_stdev=cfg.init_stdev, init_w_normal=True)
+    cpu = MCMCLearner(cfg, train, test, meta, device="cpu", plan=plan,
+                      write_files=False)
+    hists = [lr.run(lr.state_from_params(p0.w0, p0.w, p0.v,
+                                         host_draws(SEED, lr.device)),
+                    num_iter=2, verbose=False)[1] for lr in (gibbs, cpu)]
+    worst = compare_traj(*hists, ("rmse", "rmse_this", "mae", "alpha"),
+                         TRAJ_RTOL, "mcmc gpu vs cpu")
+    say("mcmc-gpu-vs-cpu", t0, sweeps=2, max_rel=f"{worst:.3e}",
+        rtol=TRAJ_RTOL)
+    del cpu
+
+    # ---- 16. ALS at factor_block 1 and 0; card vs CPU at F = 1 --------------
+    als_cfg = dict(base_cfg, reg0=ALS_REG, regw=ALS_REG, regv=ALS_REG)
+    l_als = []
+    for fb in (1, 0):
+        t0 = time.perf_counter()
+        al = ALSLearner(FMConfig(factor_block=fb, **als_cfg), train, test,
+                        meta, device=dev, plan=plan, write_files=False)
+        (_, ha), la = drive(build, "als", lambda: al.run(
+            al.init_state(), num_iter=5, verbose=False, chunk=1))
+        check_mcmc_history(ha, f"als factor_block={fb}", "rmse_this")
+        l_als.append(la)
+        say(f"als-fb{fb}", t0, iterations=len(ha),
+            sec_per_iter=f"{statistics.median(h['time_learn'] for h in ha[1:]):.6f}",
+            rmse_this=",".join(f"{h['rmse_this']:.5f}" for h in ha),
+            launches=json.dumps(la, separators=(",", ":")))
+    t0 = time.perf_counter()
+    hists = []
+    for d in (dev, "cpu"):
+        lr = ALSLearner(FMConfig(factor_block=1, **als_cfg), train, test,
+                        meta, device=d, plan=plan, write_files=False)
+        hists.append(lr.run(lr.state_from_params(
+            p0.w0, p0.w, p0.v, host_draws(SEED, d)), num_iter=2,
+            verbose=False)[1])
+    worst = compare_traj(*hists, ("rmse_this", "mae"), TRAJ_RTOL,
+                         "als gpu vs cpu")
+    say("als-gpu-vs-cpu", t0, sweeps=2, factor_block=1,
+        max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL)
+
+    # ---- 17. Gibbs quality after 30 iterations (information) ----------------
+    t0 = time.perf_counter()
+    _, hq = gibbs.run(num_iter=max(REF_MCMC_RMSE), verbose=False)
+    check_mcmc_history(hq, "mcmc-quality", "rmse")
+    say("mcmc-quality", t0, iterations=len(hq),
+        sec_per_iter=f"{statistics.median(h['time_learn'] for h in hq[1:]):.6f}",
+        **{f"test_rmse_iter{i}": f"{hq[i - 1]['rmse']:.5f}"
+           for i in REF_MCMC_RMSE},
+        reference_cpp=",".join(f"{i}:{v}" for i, v in REF_MCMC_RMSE.items()))
+
+    # ---- 18. where a Gibbs sweep's device time goes -------------------------
+    gibbs.run(mstate, num_iter=1, verbose=False)
+    profile_run(lambda: gibbs.run(mstate, num_iter=5, verbose=False), 5,
+                "sweep", "mcmc-profile")
+
+    # ---- 19. P1: the cost of a gather at data-dependent addresses ----------
+    t0 = time.perf_counter()
+    sets = gather_sets(dev)
+    lines, l_probe = drive(build, "gather-probe", lambda: probe_gathers(sets))
+    print("\n".join(lines))
+    say("gather-probe", t0, sets=len(sets), card=repr(card))
+
+    runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe)
+    launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}
+    kernels = []
+    for n in SOURCES:
+        _label, ms, pms, lms, c = report[n]["times"][0]
+        bms, by = bound(c)
+        kernels.append(dict(
+            name=n, route="cuda", source=SOURCES[n][0],
+            replaces=SOURCES[n][1], launches=launches[n],
+            max_abs_err=report[n]["max_abs_err"], ms=ms, plain_ms=pms,
+            bound_ms=bms, bound_by=by, library_ms=lms))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

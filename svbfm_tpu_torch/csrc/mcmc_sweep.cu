@@ -1,0 +1,345 @@
+// X8a and X8b: one factor block of the Gibbs MCMC / ALS v sweep.
+//
+// Replaces the per-bin body of svbfm_tpu/learners/mcmc.py:_v_block_pass
+// (mcmc.py:361-496) and its factor-sequential form v_factor_main_bins
+// (:681-718), whose XLA gather chains are
+//   X8a tile_stats (:371-391) + exact_block_draws (:137-200), or the
+//       factor-Jacobi draws (:449-459), or the F = 1 body (:684-705):
+//       per column c of a [C, L] degree bucket, with
+//         h_f  = x (q_f[row] - x v_f,c)                (per entry, factor)
+//         s0_f = sum h_f e,  sh2_f = sum h_f^2,  M_fg = sum h_f h_g,
+//       the exact sequential draw of the column's F factors,
+//         corr = 0; for f: new_f = draw(s0_f - corr_f, sh2_f, ...);
+//                          corr_g += (v_f - new_f) M_fg  (g > f);
+//   X8b patch_tile (:468-478), and :706-718 at F = 1: the per-bin row
+//       patch of the caches from the pre-bin q at every position,
+//         q_f -= sum_p x dv_f,  e -= sum_p sum_f h_f dv_f.
+// The draw: s2 = 1 / (lambda + alpha sh2),
+//   new = -s2 (alpha (she - v sh2) - mu lambda) [+ sqrt(s2) z];
+//   a non-finite s2 gives 0, uncounted; a non-finite draw is counted
+//   (nans[0] NaN, nans[1] Inf) and reverted to the old value
+//   (fm_learn_mcmc.h:686-712).  MCMC's e is yhat - y.
+//
+// The kernel computes the draw as the recurrence, the loop that JAX runs
+// when its batched triangular solve of the same recurrence is not finite.
+// The two agree up to rounding, and the loop handles non-finite values the
+// same way in every case, so no bucket-wide fallback is needed.
+//
+// Layouts: row cache q [N, F] row-major (the JAX package keeps [F, N]);
+// the factor table v_t [D, F]; the per-bin patch table ptab [D, 2F] with
+// channels (v_old, dv): v_old is the pre-bin snapshot that every bucket of
+// the bin and the patch read, so X8a writes the new values into v_t in
+// place and dv = v_old - v_new into ptab; the group priors mu/lam [G, F];
+// the noise table z [F, D] (the JAX draw's shape), nullptr for ALS.
+//
+// Bound: the random gathers of q and e at the bucket's rows (F + 1 floats
+// at a data-dependent address per entry) and of ptab at the row ids, as in
+// K3/K4; the cross-factor matrix M adds F(F-1)/2 FMAs per entry (190 at
+// F = 20), done from shared memory in float32, never TF32.
+//
+// X8a, F >= 2: one block per column.  The block stages a tile of kTile
+// entries of h in shared memory as [F, kTile + 1] (the +1 keeps threads on
+// different factors in different banks), then each thread owns some of the
+// 2F + F(F-1)/2 sums (s0, sh2, the strict upper triangle of M) and adds the
+// tile into them; the sums live in shared memory, owner-written, and a
+// thread finds the pair (f, g) of its sum in closed form, so the block needs
+// about (F^2/2 + 40 F) floats: F <= 303 fits sm_90's 227 KiB (the learner
+// picks F accordingly, learners/mcmc.py:factor_width).  The F-step draw runs
+// in shared memory: one thread draws factor f,
+// a barrier, the threads apply corr_g for g > f in parallel, a barrier.
+// kExact = false (-factor_jacobi, ALS only) drops M and draws every factor
+// from the pre-bin residual at once.
+// X8a, F = 1: one warp per column, lanes over the column's entries, as K5
+// and K6 at F = 1, so no lane idles on an absent factor.
+// X8b: kLanes threads per row: a warp at F >= 2 (lanes over factors), one
+// thread at F = 1.  Each row owns its cache slots: no races.
+#include "svbfm_common.cuh"
+
+namespace {
+
+constexpr int kTile = 32;
+constexpr int kColsPerBlock = 8;  // X8a at F = 1: one warp per column
+constexpr int kPatchThreads = 256;
+
+// One conditional draw (mcmc.py:177-186); counts into nan_c/inf_c.
+__device__ __forceinline__ float draw_one(float she, float sh2, float v_c,
+                                          float mu, float lam, float alpha,
+                                          const float* z, float zv,
+                                          int& nan_c, int& inf_c) {
+  const float s2 = 1.f / (lam + alpha * sh2);
+  const float mean = -s2 * (alpha * (she - v_c * sh2) - mu * lam);
+  float val = z != nullptr ? mean + sqrtf(s2) * zv : mean;
+  if (!isfinite(s2)) val = 0.f;  // uncounted
+  nan_c += isnan(val) ? 1 : 0;
+  inf_c += isinf(val) ? 1 : 0;
+  return isfinite(val) ? val : v_c;
+}
+
+// Offset of M_fg (f < g) in the packed strict upper triangle.
+__device__ __forceinline__ int pair_index(int f, int g, int F) {
+  return f * (2 * F - f - 1) / 2 + (g - f - 1);
+}
+
+// The pair (f, g), f < g, at offset p of the packed triangle, as f << 16 | g:
+// the float root of pair_index(f, f + 1, F) = p, then exact integer steps.
+__device__ __forceinline__ int pair_at(int p, int F) {
+  const float b = 2.f * F - 1.f;
+  int f = static_cast<int>(0.5f * (b - sqrtf(b * b - 8.f * p)));
+  f = max(0, min(f, F - 2));
+  while (f > 0 && pair_index(f, f + 1, F) > p) --f;
+  while (f < F - 2 && pair_index(f + 1, f + 2, F) <= p) ++f;
+  return (f << 16) | (f + 1 + p - pair_index(f, f + 1, F));
+}
+
+template <bool kExact>
+__global__ void col_draw_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int L,
+    const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q, int F,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t D, int* __restrict__ nans) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int c = blockIdx.x;
+  const int npair = kExact ? F * (F - 1) / 2 : 0;
+  const int nout = 2 * F + npair;
+  const int ld = kTile + 1;
+  float* acc = smem;             // [nout]: s0 | sh2 | M (packed)
+  float* hs = acc + nout;        // [F, kTile + 1]
+  float* es = hs + F * ld;       // [kTile]
+  float* vc = es + kTile;        // [F] pre-bin v of the column
+  float* corr = vc + F;          // [F]
+  float* prior = corr + F;       // [3, F]: mu, lambda, z
+  float* dsh = prior + 3 * F;    // [1]: the last factor's v_old - v_new
+
+  const int64_t col = cols[c];
+  const int g_c = group[c];
+  const int64_t ldp = 2 * F;
+  for (int f = tid; f < F; f += nt) {
+    vc[f] = ptab[col * ldp + f];
+    corr[f] = 0.f;
+    prior[f] = mu[g_c * F + f];
+    prior[F + f] = lam[g_c * F + f];
+    prior[2 * F + f] = z != nullptr ? z[f * D + col] : 0.f;
+  }
+  for (int o = tid; o < nout; o += nt) acc[o] = 0.f;
+  // the pair of this thread's first sum, found once (at F <= 21 a thread
+  // owns at most one sum); later ones are found per tile
+  const int fg0 = tid >= 2 * F && tid < nout ? pair_at(tid - 2 * F, F) : 0;
+  __syncthreads();
+
+  const int* crow = rows + static_cast<int64_t>(c) * L;
+  const float* cx = x + static_cast<int64_t>(c) * L;
+  for (int l0 = 0; l0 < L; l0 += kTile) {
+    const int nl = min(kTile, L - l0);
+    for (int i = tid; i < kTile * F; i += nt) {
+      const int l = i / F;
+      const int f = i - l * F;
+      float h = 0.f;
+      if (l < nl) {
+        const int64_t r = crow[l0 + l];
+        const float xv = cx[l0 + l];
+        h = xv * (q[r * F + f] - xv * vc[f]);
+        if (f == 0) es[l] = e[r];
+      } else if (f == 0) {
+        es[l] = 0.f;
+      }
+      hs[f * ld + l] = h;
+    }
+    __syncthreads();
+    for (int o = tid; o < nout; o += nt) {
+      float s = 0.f;
+      if (o < F) {
+        const float* hf = hs + o * ld;
+        for (int l = 0; l < kTile; ++l) s += hf[l] * es[l];
+      } else if (o < 2 * F) {
+        const float* hf = hs + (o - F) * ld;
+        for (int l = 0; l < kTile; ++l) s += hf[l] * hf[l];
+      } else {
+        const int fg = o == tid ? fg0 : pair_at(o - 2 * F, F);
+        const float* hf = hs + (fg >> 16) * ld;
+        const float* hg = hs + (fg & 0xffff) * ld;
+        for (int l = 0; l < kTile; ++l) s += hf[l] * hg[l];
+      }
+      acc[o] += s;
+    }
+    __syncthreads();
+  }
+
+  const float alpha = *alpha_p;
+  const float* zp = z;  // only its nullness is read by draw_one
+  int nan_c = 0, inf_c = 0;
+  if (!kExact) {
+    // factor-Jacobi (mcmc.py:449-459): every factor from the pre-bin e
+    for (int f = tid; f < F; f += nt) {
+      const float v_f = vc[f];
+      const float nv = draw_one(acc[f], acc[F + f], v_f, prior[f],
+                                prior[F + f], alpha, zp, prior[2 * F + f],
+                                nan_c, inf_c);
+      v_t[col * F + f] = nv;
+      ptab[col * ldp + F + f] = v_f - nv;
+    }
+  } else {
+    for (int f = 0; f < F; ++f) {
+      if (tid == 0) {
+        const float v_f = vc[f];
+        const float nv = draw_one(acc[f] - corr[f], acc[F + f], v_f, prior[f],
+                                  prior[F + f], alpha, zp, prior[2 * F + f],
+                                  nan_c, inf_c);
+        v_t[col * F + f] = nv;
+        ptab[col * ldp + F + f] = v_f - nv;
+        *dsh = v_f - nv;
+      }
+      __syncthreads();
+      const float d = *dsh;
+      for (int g = f + 1 + tid; g < F; g += nt)
+        corr[g] += d * acc[2 * F + pair_index(f, g, F)];
+      __syncthreads();
+    }
+  }
+  if (nan_c) atomicAdd(&nans[0], nan_c);
+  if (inf_c) atomicAdd(&nans[1], inf_c);
+}
+
+// X8a at F = 1: one warp per column (v_factor_main_bins, mcmc.py:684-705).
+__global__ void col_draw_f1_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int* __restrict__ nans) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
+  if (c >= C) return;  // the whole warp leaves together
+  const int64_t col = cols[c];
+  const float v_c = ptab[2 * col];
+  const int* crow = rows + static_cast<int64_t>(c) * L;
+  const float* cx = x + static_cast<int64_t>(c) * L;
+  float s0 = 0.f, sh2 = 0.f;
+  for (int l = lane; l < L; l += 32) {
+    const int64_t r = crow[l];
+    const float xv = cx[l];
+    const float h = xv * (q[r] - xv * v_c);
+    s0 += h * e[r];
+    sh2 += h * h;
+  }
+  s0 = svbfm::warp_sum(s0);
+  sh2 = svbfm::warp_sum(sh2);
+  if (lane != 0) return;
+  const int g_c = group[c];
+  int nan_c = 0, inf_c = 0;
+  const float nv = draw_one(s0, sh2, v_c, mu[g_c], lam[g_c], *alpha_p, z,
+                            z != nullptr ? z[col] : 0.f, nan_c, inf_c);
+  v_t[col] = nv;
+  ptab[2 * col + 1] = v_c - nv;
+  if (nan_c) atomicAdd(&nans[0], nan_c);
+  if (inf_c) atomicAdd(&nans[1], inf_c);
+}
+
+// X8b: every position reads the pre-bin q; dq is applied after the last.
+template <int kLanes>
+__global__ void patch_rows_kernel(const float* __restrict__ ptab, int F,
+                                  const int* __restrict__ ids,
+                                  const float* __restrict__ vals, int64_t N,
+                                  int P, float* __restrict__ q,
+                                  float* __restrict__ e) {
+  const int lane = threadIdx.x % kLanes;
+  const int64_t n = static_cast<int64_t>(blockIdx.x) *
+                        (kPatchThreads / kLanes) + threadIdx.x / kLanes;
+  if (n >= N) return;  // a row's lanes leave together
+  const int64_t ldp = 2 * F;
+  float de = 0.f;
+  for (int f = lane; f < F; f += kLanes) {
+    const int64_t o = n * F + f;
+    const float qv = q[o];
+    float dq = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const float* g = ptab + static_cast<int64_t>(ids[n * P + p]) * ldp;
+      const float xv = vals[n * P + p];
+      const float dv = g[F + f];
+      de += xv * (qv - xv * g[f]) * dv;
+      dq += xv * dv;
+    }
+    q[o] = qv - dq;
+  }
+  de = svbfm::row_sum<kLanes>(de);
+  if (lane == 0) e[n] -= de;
+}
+
+// Mirrored by kernels/mcmc_sweep.py:col_draw_smem.
+size_t col_draw_smem(int F, bool exact) {
+  const int npair = exact ? F * (F - 1) / 2 : 0;
+  return sizeof(float) * (2 * F + npair + F * (kTile + 1) + kTile + 5 * F + 1);
+}
+
+template <bool kExact>
+int launch_col_draw(const int* rows, const float* x, int C, int L,
+                    const int* cols, const int* group, const float* e,
+                    const float* q, int F, float* ptab, float* v_t,
+                    const float* mu, const float* lam, const float* alpha,
+                    const float* z, int64_t D, int* nans,
+                    cudaStream_t stream) {
+  const size_t smem = col_draw_smem(F, kExact);
+  const int nout = 2 * F + (kExact ? F * (F - 1) / 2 : 0);
+  const int threads = nout > 128 ? 256 : 128;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        col_draw_kernel<kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  col_draw_kernel<kExact><<<C, threads, smem, stream>>>(
+      rows, x, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D, nans);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// X8a on one [C, L] bucket of an F-factor block.  Writes v_t [D, F] at the
+// bucket's columns and ptab's dv channels (F..2F-1 of [D, 2F]); reads the
+// pre-bin v from ptab's channels 0..F-1; nans[0], nans[1] += the NaN, Inf
+// draws.  exact = 0 is factor-Jacobi; z (the [F, D] noise table) nullptr
+// draws the mean (ALS).
+SVBFM_EXPORT int svbfm_mcmc_col_draw(
+    const int* rows, const float* x, int C, int L, const int* cols,
+    const int* group, const float* e, const float* q, int F, float* ptab,
+    float* v_t, const float* mu, const float* lam, const float* alpha,
+    const float* z, int64_t D, int exact, int* nans, cudaStream_t stream) {
+  if (F == 1) {
+    const unsigned blocks =
+        static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
+    col_draw_f1_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
+        rows, x, C, L, cols, group, e, q, ptab, v_t, mu, lam, alpha, z, nans);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return exact ? launch_col_draw<true>(rows, x, C, L, cols, group, e, q, F,
+                                       ptab, v_t, mu, lam, alpha, z, D, nans,
+                                       stream)
+               : launch_col_draw<false>(rows, x, C, L, cols, group, e, q, F,
+                                        ptab, v_t, mu, lam, alpha, z, D, nans,
+                                        stream);
+}
+
+// X8b: patch q [N, F] and e [N] in place from ptab [D, 2F] = (v_old, dv).
+SVBFM_EXPORT int svbfm_mcmc_patch_rows(const float* ptab, int F,
+                                       const int* ids, const float* vals,
+                                       int64_t N, int P, float* q, float* e,
+                                       cudaStream_t stream) {
+  if (F == 1) {
+    const unsigned blocks =
+        static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
+    patch_rows_kernel<1><<<blocks, kPatchThreads, 0, stream>>>(
+        ptab, F, ids, vals, N, P, q, e);
+  } else {
+    const int64_t rows = kPatchThreads / 32;
+    const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
+    patch_rows_kernel<32><<<blocks, kPatchThreads, 0, stream>>>(
+        ptab, F, ids, vals, N, P, q, e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -21,6 +21,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Sum over the kLanes threads that share one row: a warp (32), or one
+// thread (1), where the sum is the value itself.
+template <int kLanes>
+__device__ __forceinline__ float row_sum(float v) {
+  static_assert(kLanes == 1 || kLanes == 32, "a thread or a warp per row");
+  return kLanes == 1 ? v : warp_sum(v);
+}
+
 }  // namespace svbfm
 
 SVBFM_EXPORT const char* svbfm_error_string(int code) {

@@ -2,7 +2,9 @@
 // (all K factors in one block, the linear-term update riding along) or
 // exact mode (blocks of factor_block factors).  K2 and K4 also serve the
 // online VB factor sweep (vb_online.py:444 _qtz_generic, :561-580), whose
-// column statistics are K6 (ovb_sweep.cu).
+// column statistics are K6 (ovb_sweep.cu).  K2's q channel alone is X8d,
+// the q cache of the MCMC/ALS sweep (mcmc_sweep.cu), and K4 at F = 0 is
+// also MCMC's w patch (with no t cache).
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_v_block_update, whose three XLA
 // gather chains are
@@ -32,7 +34,10 @@ namespace {
 
 // ---- K2: q = sum_p mu x, tq = sum_p sig x^2, tz = sum_p mu^2 x^2 ----------
 // One thread per (row, factor), factor fastest: the table reads of one row
-// and the cache writes are contiguous across a warp.
+// and the cache writes are contiguous across a warp.  kQOnly builds q alone
+// (X8d, the MCMC/ALS q cache, mcmc.py:337-359 and :824-826): tq and tz are
+// neither computed nor written.
+template <bool kQOnly>
 __global__ void build_qt_kernel(const float* __restrict__ ptab, int64_t ld,
                                 int F, const int* __restrict__ ids,
                                 const float* __restrict__ vals, int64_t N,
@@ -47,15 +52,19 @@ __global__ void build_qt_kernel(const float* __restrict__ ptab, int64_t ld,
   for (int p = 0; p < P; ++p) {
     const float* g = ptab + ids[n * P + p] * ld;
     const float x = vals[n * P + p];
-    const float x2 = x * x;
     const float mu = g[f];
     qa += mu * x;
-    tqa += g[F + f] * x2;
-    tza += mu * mu * x2;
+    if (!kQOnly) {
+      const float x2 = x * x;
+      tqa += g[F + f] * x2;
+      tza += mu * mu * x2;
+    }
   }
   q[i] = qa;
-  tq[i] = tqa;
-  tz[i] = tza;
+  if (!kQOnly) {
+    tq[i] = tqa;
+    tz[i] = tza;
+  }
 }
 
 // ---- K3: per-column statistics + closed-form update of one bucket --------
@@ -168,11 +177,6 @@ __global__ void col_stats_kernel(
 // so the in-place update has no races.
 constexpr int kPatchThreads = 256;
 
-template <int kLanes>
-__device__ __forceinline__ float row_sum(float v) {
-  return kLanes == 1 ? v : svbfm::warp_sum(v);
-}
-
 template <bool kSeq, int kLanes>
 __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
                                   int F, int merge_w,
@@ -183,13 +187,14 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
                                   float* __restrict__ tz,
                                   float* __restrict__ e,
                                   float* __restrict__ t) {
-  static_assert(kLanes == 1 || kLanes == 32, "a thread or a warp per row");
   const int lane = threadIdx.x % kLanes;
   const int64_t n = static_cast<int64_t>(blockIdx.x) *
                         (kPatchThreads / kLanes) + threadIdx.x / kLanes;
   if (n >= N) return;  // a row's lanes leave together
+  // the w patch of MCMC has no t cache: t == nullptr there (kLanes == 1)
+  const bool has_t = kLanes == 32 || t != nullptr;
   float ev = e[n];
-  float tv = t[n];
+  float tv = has_t ? t[n] : 0.f;
   for (int p = 0; p < P; ++p) {
     const float* g = ptab + static_cast<int64_t>(ids[n * P + p]) * CH;
     const float xv = vals[n * P + p];
@@ -214,8 +219,8 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
       esum += he * dmu;
       tsum += (h1e + h2e) * dsig + h1e * dmu2;
     }
-    ev = ev - row_sum<kLanes>(esum);
-    tv = tv + row_sum<kLanes>(tsum);
+    ev = ev - svbfm::row_sum<kLanes>(esum);
+    tv = tv + svbfm::row_sum<kLanes>(tsum);
     if (merge_w) {
       ev = ev + xv * g[5 * F];
       tv = tv + xv * xv * g[5 * F + 1];
@@ -240,7 +245,7 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
   }
   if (lane == 0) {
     e[n] = ev;
-    t[n] = tv;
+    if (has_t) t[n] = tv;
   }
 }
 
@@ -255,8 +260,20 @@ SVBFM_EXPORT int svbfm_vb_build_qt(const float* ptab, int64_t ld, int F,
   const int threads = 256;
   const unsigned blocks =
       static_cast<unsigned>((N * F + threads - 1) / threads);
-  build_qt_kernel<<<blocks, threads, 0, stream>>>(ptab, ld, F, ids, vals, N, P,
-                                                  q, tq, tz);
+  build_qt_kernel<false><<<blocks, threads, 0, stream>>>(ptab, ld, F, ids,
+                                                         vals, N, P, q, tq, tz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// X8d: q [N, F] alone from channels 0..F-1 of ptab [D, ld]
+SVBFM_EXPORT int svbfm_build_q(const float* ptab, int64_t ld, int F,
+                               const int* ids, const float* vals, int64_t N,
+                               int P, float* q, cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned blocks =
+      static_cast<unsigned>((N * F + threads - 1) / threads);
+  build_qt_kernel<true><<<blocks, threads, 0, stream>>>(
+      ptab, ld, F, ids, vals, N, P, q, nullptr, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,6 +318,8 @@ SVBFM_EXPORT int svbfm_vb_patch_rows(const float* ptab, int CH, int F,
 // The w patch of the standalone linear-term sweep: K4 at F = 0, one thread
 // per row, its table dtab [D, 2] being the two w channels (mu_old - mu_new,
 // sig_new - sig_old); e/t [N] += sum_p x dtab[id, 0], sum_p x^2 dtab[id, 1].
+// MCMC's w sweep passes t == nullptr and dtab[:, 0] = w_new - w_old (its
+// e = yhat - y has the opposite sign of VB's).
 SVBFM_EXPORT int svbfm_w_patch_rows(const float* dtab, const int* ids,
                                     const float* vals, int64_t N, int P,
                                     float* e, float* t, cudaStream_t stream) {

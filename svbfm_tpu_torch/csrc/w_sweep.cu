@@ -1,5 +1,5 @@
 // K5: the standalone linear-term column sweep, batch VB (exact mode, K = 0)
-// and online VB.
+// and online VB; and X8c, the w draw of Gibbs MCMC and ALS.
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_w_bin_update (vb.py:125-148) and its
 // OVB twin vb_online.py:230-269: per [C, L] degree bucket, the column
@@ -9,6 +9,15 @@
 // (mu_old - mu_new, sig_new - sig_old).  The w patch of the row caches from
 // that table (vb.py:149-157, vb_online.py:270-282) is K4 at F = 0
 // (svbfm_w_patch_rows in vb_sweep.cu).
+//
+// The MCMC mode (svbfm_mcmc_w_draw) replaces the bucket body of
+// svbfm_tpu/learners/mcmc.py:w_sweep_main (mcmc.py:632-652): the same
+// gather and sum sxe = sum x e (MCMC's e = yhat - y), then the conditional
+// draw w ~ N(-s2 (alpha (sxe - w sx2) - mu_g lambda_g), s2),
+// s2 = 1 / (lambda_g + alpha sx2), with the z table's number for the column
+// (none for ALS); a bad s2 gives 0 uncounted, a bad draw is counted and
+// reverted.  Its delta table is (w_new - w_old, 0), which the same w patch
+// adds to e with t == nullptr.
 //
 // Layouts: bucket rows/x [C, L] row-major, the JAX layout; parameter and
 // natural tables [D]; the delta table dtab [D, 2] row-major, K4's patch
@@ -25,23 +34,28 @@ namespace {
 
 constexpr int kColsPerBlock = 8;  // one warp per column
 
-// One column per warp.  ovb == 0: closed form (vb.py:141-148), counts of
-// the raw candidates.  ovb == 1: the natural-gradient blend with rate
+// One column per warp.  mode 0: closed form (vb.py:141-148), counts of
+// the raw candidates.  mode 1: the natural-gradient blend with rate
 // rho[col] (vb_online.py:245-269); a column with cnt == 0 keeps every
 // table and gets zero deltas; counts of where(active, cand, 0).  The
 // primal falls back to the old value where its candidate is not finite;
 // the naturals are written as they are.  bad[4] += (nan mu, inf mu,
-// nan sig, inf sig) candidates.
+// nan sig, inf sig) candidates.  mode 2: the MCMC draw (see the top);
+// mu_w is w, sigma_w the group lambdas, prior_mu the group means, z the
+// [D] noise table or nullptr; bad[0], bad[1] += nan, inf draws.
+constexpr int kModeVB = 0, kModeOVB = 1, kModeMCMC = 2;
+
 __global__ void w_col_update_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
     const float* __restrict__ sx2, const float* __restrict__ e,
     float* __restrict__ mu_w, float* __restrict__ sig_w,
     const float* __restrict__ sigma_w, const float* __restrict__ alpha_p,
-    float* __restrict__ dtab, int* __restrict__ bad, int ovb,
+    float* __restrict__ dtab, int* __restrict__ bad, int mode,
     const float* __restrict__ cnt, const float* __restrict__ col_count,
     float* __restrict__ nmu_w, float* __restrict__ nsig_w,
-    const float* __restrict__ rho_w, float* __restrict__ t_wj) {
+    const float* __restrict__ rho_w, float* __restrict__ t_wj,
+    const float* __restrict__ prior_mu, const float* __restrict__ z) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
   if (c >= C) return;  // the whole warp leaves together
@@ -53,16 +67,29 @@ __global__ void w_col_update_kernel(
   for (int l = lane; l < L; l += 32) {
     const float xv = cx[l];
     const float ev = e[crow[l]];
-    s += ovb ? xv * (ev + xv * mu_c) : xv * ev;
+    s += mode == kModeOVB ? xv * (ev + xv * mu_c) : xv * ev;
   }
   s = svbfm::warp_sum(s);
   if (lane != 0) return;
   const float alpha = *alpha_p;
-  const float sig_c = sig_w[col];
   const float sw = sigma_w[group[c]];
   const float sxx = sx2[c];
+  if (mode == kModeMCMC) {  // mcmc.py:641-652
+    const float s2 = 1.f / (sw + alpha * sxx);
+    const float mean = -s2 * (alpha * (s - mu_c * sxx) - prior_mu[group[c]] * sw);
+    float val = z != nullptr ? mean + sqrtf(s2) * z[col] : mean;
+    if (!isfinite(s2)) val = 0.f;  // uncounted, as the reference
+    if (isnan(val)) atomicAdd(&bad[0], 1);
+    if (isinf(val)) atomicAdd(&bad[1], 1);
+    const float w_new = isfinite(val) ? val : mu_c;
+    mu_w[col] = w_new;
+    dtab[2 * col] = w_new - mu_c;
+    dtab[2 * col + 1] = 0.f;
+    return;
+  }
+  const float sig_c = sig_w[col];
   float mu_cand, sig_cand, mu_new, sig_new;
-  if (!ovb) {
+  if (mode == kModeVB) {
     sig_cand = 1.f / (sw + alpha * sxx);
     sig_new = isfinite(sig_cand) ? sig_cand : sig_c;
     mu_cand = sig_new * alpha * (s + mu_c * sxx);
@@ -114,6 +141,25 @@ SVBFM_EXPORT int svbfm_w_col_update(
       static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
   w_col_update_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
       rows, x, C, L, cols, group, sx2, e, mu_w, sig_w, sigma_w, alpha, dtab,
-      bad, ovb, cnt, col_count, nmu_w, nsig_w, rho_w, t_wj);
+      bad, ovb ? kModeOVB : kModeVB, cnt, col_count, nmu_w, nsig_w, rho_w,
+      t_wj, nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// X8c, one [C, L] bucket of the MCMC/ALS w sweep.  Writes w [D] and dtab
+// [D, 2] at the bucket's columns; w_mu/w_lambda [G] are the group priors,
+// z the [D] noise table (nullptr: ALS, the mean); bad[0], bad[1] += the
+// nan, inf draws.
+SVBFM_EXPORT int svbfm_mcmc_w_draw(
+    const int* rows, const float* x, int C, int L, const int* cols,
+    const int* group, const float* sx2, const float* e, float* w,
+    const float* w_mu, const float* w_lambda, const float* alpha,
+    const float* z, float* dtab, int* bad, cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
+  w_col_update_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
+      rows, x, C, L, cols, group, sx2, e, w, nullptr, w_lambda, alpha, dtab,
+      bad, kModeMCMC, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      w_mu, z);
   return static_cast<int>(cudaGetLastError());
 }

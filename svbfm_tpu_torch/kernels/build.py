@@ -37,9 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARIES = {
     "fm_forward": ("fm_scores", "fm_t_terms"),
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
-                 "w_patch_rows"),
-    "w_sweep": ("w_col_update",),
+                 "w_patch_rows", "build_q"),
+    "w_sweep": ("w_col_update", "mcmc_w_draw"),
     "ovb_sweep": ("ovb_col_stats_update",),
+    "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows"),
+    "gather_probe": ("gather_probe",),
 }
 
 # C signatures of the exported launch functions (P: pointer or stream,
@@ -61,6 +63,13 @@ SIGNATURES = {
     "svbfm_ovb_col_stats_update": (
         _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P),
+    "svbfm_build_q": (_P, _L, _I, _P, _P, _L, _I, _P, _P),
+    "svbfm_mcmc_w_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P),
+    "svbfm_mcmc_col_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                            _P, _P, _P, _L, _I, _P, _P),
+    "svbfm_mcmc_patch_rows": (_P, _I, _P, _P, _L, _I, _P, _P, _P),
+    "svbfm_gather_probe": (_P, _P, _L, _I, _P, _P),
 }
 
 launch_counts: dict[str, int] = {

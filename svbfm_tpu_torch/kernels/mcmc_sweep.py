@@ -1,0 +1,223 @@
+"""X8a and X8b: the Gibbs MCMC / ALS factor-block sweep
+(``csrc/mcmc_sweep.cu``).
+
+``mcmc_col_draw`` (X8a) computes one degree bucket's per-column statistics
+(s0 = sum h e, sh2 = sum h^2 and the cross-factor matrix M = sum h h^T) and
+draws the bucket's F factors with exact sequential conditionals (or, with
+``exact_seq=False``, factor-Jacobi, ALS only); ``mcmc_patch_rows`` (X8b)
+patches the row caches q and e after a bin.  On CUDA tensors each op
+launches its hand-written kernel; on CPU tensors it runs the plain PyTorch
+twin beside it, the JAX arithmetic vectorised over the bucket or the rows:
+h as a [C, L, F] tensor, M by ``einsum`` in float32, and the draw by
+``exact_block_draws``, the batched unit-lower-triangular solve with the
+sequential loop when any result is not finite.  Both update their outputs
+in place, kernel and twin alike.
+
+Layouts (see ``csrc/mcmc_sweep.cu``): row cache q [N, F]; factor table
+v_t [D, F]; the per-bin patch table ptab [D, 2F] = (pre-bin v, dv =
+v_old - v_new), dv zeroed before each bin; group priors mu/lam [G, F]; the
+noise table z [F, D] or None (ALS); ``nans`` an int32 [2] counter of the NaN
+and Inf draws.  MCMC's e is yhat - y.
+
+Replaces ``svbfm_tpu/learners/mcmc.py:_v_block_pass`` → ``tile_stats``
+(:371-391) + ``exact_block_draws`` (:137-200) or the factor-Jacobi draws
+(:449-459), and ``patch_tile`` (:468-478); at F = 1 the bucket body and the
+patch of ``v_factor_main_bins`` (:684-718).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from svbfm_tpu_torch.kernels import build
+from svbfm_tpu_torch.learners.base import keep_finite
+
+_I32, _F32 = torch.int32, torch.float32
+
+#: the dynamic shared memory one block may take on sm_90 (227 KiB)
+MAX_BLOCK_SMEM = 227 * 1024
+_TILE = 32  # csrc/mcmc_sweep.cu kTile
+
+
+def col_draw_smem(F: int, exact_seq: bool) -> int:
+    """Bytes of shared memory X8a's block takes at F >= 2 (the
+    accumulators s0, sh2 and, in the exact mode, the packed M; the h tile;
+    the column's v, corrections and priors), as
+    ``csrc/mcmc_sweep.cu:col_draw_smem``."""
+    npair = F * (F - 1) // 2 if exact_seq else 0
+    return 4 * (2 * F + npair + F * (_TILE + 1) + _TILE + 5 * F + 1)
+
+
+def col_draw_fits(F: int, exact_seq: bool) -> bool:
+    """Whether X8a can run a block of F factors on the card."""
+    return F == 1 or col_draw_smem(F, exact_seq) <= MAX_BLOCK_SMEM
+
+
+def _draw_mean(she, sh2, v_c, mu_g, lam_g, alpha, z):
+    """The conditional draw with the bad-sigma guard (mcmc.py:177-183)."""
+    s2 = 1.0 / (lam_g + alpha * sh2)
+    val = -s2 * (alpha * (she - v_c * sh2) - mu_g * lam_g)
+    if z is not None:
+        val = val + torch.sqrt(s2) * z
+    return torch.where(torch.isfinite(s2), val, torch.zeros_like(val))
+
+
+def exact_block_draws(s0, sh2_all, m_x, v_c, mu_g, lam_g, alpha, zmat):
+    """Draw one bucket's F factors with exact sequential conditionals
+    (``svbfm_tpu/learners/mcmc.py:exact_block_draws``).
+
+    The recurrence new_v_f = base_f + s2_f alpha corr_f, corr_f =
+    sum_{g<f} (v_g - new_v_g) M[g, f], is, in d = v - new_v, one batched
+    unit-lower-triangular solve.  A non-finite result falls back to the
+    sequential loop, which applies the reference's guards factor by factor.
+
+    s0/sh2_all: [F, C]; m_x: [F, F, C]; v_c/mu_g/lam_g: [C, F]; zmat: [F, C]
+    noise or None (ALS).  Returns (new_v [C, F], nan_count, inf_count), the
+    counts int32 device scalars."""
+    F, C = s0.shape
+    s2m = 1.0 / (lam_g + alpha * sh2_all.T)  # [C, F]
+    base = -s2m * (alpha * (s0.T - v_c * sh2_all.T) - mu_g * lam_g)
+    if zmat is not None:
+        base = base + torch.sqrt(s2m) * zmat.T
+    tl = torch.tril(torch.ones(F, F, dtype=_F32, device=s0.device), -1)
+    tmat = (alpha * s2m)[:, :, None] * m_x.permute(2, 1, 0) * tl[None]
+    dsol = torch.linalg.solve_triangular(
+        tmat, (v_c - base)[:, :, None], upper=False, unitriangular=True)
+    val_solve = v_c - dsol[:, :, 0]
+    zero = torch.zeros((), dtype=_I32, device=s0.device)
+    if bool(torch.isfinite(val_solve).all() and torch.isfinite(s2m).all()):
+        return val_solve, zero, zero
+    corr = torch.zeros(F, C, dtype=_F32, device=s0.device)
+    nan_c, inf_c = zero, zero
+    new_cols = []
+    for f in range(F):
+        v_cf = v_c[:, f]
+        val = _draw_mean(s0[f] - corr[f], sh2_all[f], v_cf, mu_g[:, f],
+                         lam_g[:, f], alpha,
+                         None if zmat is None else zmat[f])
+        nan_c = nan_c + torch.isnan(val).sum(dtype=_I32)
+        inf_c = inf_c + torch.isinf(val).sum(dtype=_I32)
+        new_v = keep_finite(val, v_cf)
+        corr = corr + (v_cf - new_v)[None, :] * m_x[f]
+        new_cols.append(new_v)
+    return torch.stack(new_cols, dim=1), nan_c, inf_c
+
+
+# ---- X8a --------------------------------------------------------------------
+
+def mcmc_col_draw_plain(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
+                        z: Optional[torch.Tensor], exact_seq: bool,
+                        nans) -> None:
+    C, L = rows.shape
+    F = v_t.shape[1]
+    cl = cols.long()
+    v_c = ptab[cl, :F]  # [C, F] pre-bin
+    ridx = rows.reshape(-1)
+    e_g = e.index_select(0, ridx).reshape(C, L)
+    q_g = q.index_select(0, ridx).reshape(C, L, F)
+    xb = x[:, :, None]
+    h = xb * (q_g - xb * v_c[:, None, :])  # [C, L, F]
+    s0 = (h * e_g[:, :, None]).sum(1).T  # [F, C]
+    sh2 = (h * h).sum(1).T
+    mu_g = mu.index_select(0, group)
+    lam_g = lam.index_select(0, group)
+    zc = None if z is None else z.index_select(1, cols)  # [F, C]
+    if exact_seq:
+        m_x = torch.einsum("clf,clg->fgc", h, h)
+        new, nan_c, inf_c = exact_block_draws(s0, sh2, m_x, v_c, mu_g, lam_g,
+                                              alpha, zc)
+    else:
+        # factor-Jacobi (mcmc.py:449-459): all F from the pre-bin e
+        val = _draw_mean(s0.T, sh2.T, v_c, mu_g, lam_g, alpha,
+                         None if zc is None else zc.T)
+        nan_c = torch.isnan(val).sum(dtype=_I32)
+        inf_c = torch.isinf(val).sum(dtype=_I32)
+        new = keep_finite(val, v_c)
+    v_t[cl] = new
+    ptab[cl, F:] = v_c - new
+    nans[0] += nan_c
+    nans[1] += inf_c
+
+
+def mcmc_col_draw(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
+                  z: Optional[torch.Tensor], exact_seq: bool, nans) -> None:
+    if build.on_cpu(rows):
+        return mcmc_col_draw_plain(rows, x, cols, group, e, q, ptab, v_t, mu,
+                                   lam, alpha, z, exact_seq, nans)
+    C, L = rows.shape
+    D, F = v_t.shape
+    G = mu.shape[0]
+    dev = rows.device
+    req = build.require
+    req(rows, _I32, (C, L), dev, "mcmc_col_draw.rows")
+    req(x, _F32, (C, L), dev, "mcmc_col_draw.x")
+    req(cols, _I32, (C,), dev, "mcmc_col_draw.cols")
+    req(group, _I32, (C,), dev, "mcmc_col_draw.group")
+    req(e, _F32, (e.shape[0],), dev, "mcmc_col_draw.e")
+    req(q, _F32, (e.shape[0], F), dev, "mcmc_col_draw.q")
+    req(ptab, _F32, (D, 2 * F), dev, "mcmc_col_draw.ptab")
+    req(v_t, _F32, (D, F), dev, "mcmc_col_draw.v_t")
+    req(mu, _F32, (G, F), dev, "mcmc_col_draw.mu")
+    req(lam, _F32, (G, F), dev, "mcmc_col_draw.lam")
+    req(alpha, _F32, (), dev, "mcmc_col_draw.alpha")
+    if z is not None:
+        req(z, _F32, (F, D), dev, "mcmc_col_draw.z")
+    req(nans, _I32, (2,), dev, "mcmc_col_draw.nans")
+    if C == 0 or F == 0:
+        return
+    if not col_draw_fits(F, exact_seq):
+        raise ValueError(
+            f"mcmc_col_draw: a block of F = {F} factors needs "
+            f"{col_draw_smem(F, exact_seq)} bytes of shared memory, more than "
+            f"the {MAX_BLOCK_SMEM} one block may take; use a narrower "
+            f"factor_block")
+    lib = build.load_library("mcmc_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_mcmc_col_draw(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(group), build.ptr(e), build.ptr(q), F, build.ptr(ptab),
+            build.ptr(v_t), build.ptr(mu), build.ptr(lam), build.ptr(alpha),
+            None if z is None else build.ptr(z), D, int(exact_seq),
+            build.ptr(nans), build.stream_of(rows))
+    build.check_launch(lib, rc, "mcmc_col_draw")
+
+
+# ---- X8b --------------------------------------------------------------------
+
+def mcmc_patch_rows_plain(ptab, F: int, ids, vals, q, e) -> None:
+    """q [N, F] -= sum_p x dv, e [N] -= sum_p sum_f h dv with h from the
+    pre-bin q at every position (in place)."""
+    dq = torch.zeros_like(q)
+    de = torch.zeros_like(e)
+    for p in range(ids.shape[1]):
+        gg = ptab.index_select(0, ids[:, p])  # [N, 2F]
+        xp = vals[:, p, None]
+        v_e, dv_e = gg[:, :F], gg[:, F:]
+        h_e = xp * (q - xp * v_e)
+        dq += xp * dv_e
+        de += (h_e * dv_e).sum(1)
+    q -= dq
+    e -= de
+
+
+def mcmc_patch_rows(ptab, F: int, ids, vals, q, e) -> None:
+    if build.on_cpu(ids):
+        return mcmc_patch_rows_plain(ptab, F, ids, vals, q, e)
+    N, P = ids.shape
+    dev = ids.device
+    req = build.require
+    req(ptab, _F32, (ptab.shape[0], 2 * F), dev, "mcmc_patch_rows.ptab")
+    req(ids, _I32, (N, P), dev, "mcmc_patch_rows.ids")
+    req(vals, _F32, (N, P), dev, "mcmc_patch_rows.vals")
+    req(q, _F32, (N, F), dev, "mcmc_patch_rows.q")
+    req(e, _F32, (N,), dev, "mcmc_patch_rows.e")
+    if N == 0 or F == 0:
+        return
+    lib = build.load_library("mcmc_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_mcmc_patch_rows(
+            build.ptr(ptab), F, build.ptr(ids), build.ptr(vals), N, P,
+            build.ptr(q), build.ptr(e), build.stream_of(ids))
+    build.check_launch(lib, rc, "mcmc_patch_rows")

@@ -1,10 +1,11 @@
 """K2-K4: the batch VBFM factor-block sweep (``csrc/vb_sweep.cu``).
 
-``vb_build_qt`` (K2) builds the row caches q, tq, tz; ``vb_col_stats_update``
-(K3) computes one degree bucket's per-column statistics and applies the
-closed-form update; ``vb_patch_rows`` (K4) patches the row caches after a
-bin; ``w_patch_rows`` is K4 at F = 0, the w patch of the standalone
-linear-term sweep.  On CUDA tensors each op launches its hand-written kernel; on CPU
+``vb_build_qt`` (K2) builds the row caches q, tq, tz, and ``build_q`` (X8d,
+K2's q-only instantiation) the MCMC/ALS cache q alone;
+``vb_col_stats_update`` (K3) computes one degree bucket's per-column
+statistics and applies the closed-form update; ``vb_patch_rows`` (K4)
+patches the row caches after a bin; ``w_patch_rows`` is K4 at F = 0, the w
+patch of the standalone linear-term sweep (VB) and of the MCMC w sweep.  On CUDA tensors each op launches its hand-written kernel; on CPU
 tensors it runs the plain PyTorch twin beside it.  K3 and K4 update their
 outputs in place, kernel and twin alike.
 
@@ -15,7 +16,9 @@ Layouts (see ``csrc/vb_sweep.cu``): row caches [N, F]; mu/sigma tables
 Replaces ``svbfm_tpu/learners/vb.py:vb_v_block_update`` → ``build_qt``
 (:317), ``tile_stats`` + update (:382, :449-487), ``patch_tile`` (:508);
 the w patch of ``vb_w_bin_update`` (:149-157) and of the online w sweep
-(``svbfm_tpu/learners/vb_online.py``:270-282).
+(``svbfm_tpu/learners/vb_online.py``:270-282); the q builds of
+``svbfm_tpu/learners/mcmc.py`` (:337-359, :824-826) and its w patch
+(:653-656).
 K2 and K4 also serve the online VB factor sweep (``learners/vb_online.py``;
 ``vb_patch_rows(..., sequential=False)``).
 """
@@ -76,6 +79,39 @@ def vb_build_qt(ptab, F: int, ids, vals):
             build.stream_of(ids))
     build.check_launch(lib, rc, "vb_build_qt")
     return q, tq, tz
+
+
+# ---- X8d: K2's q channel alone ---------------------------------------------
+
+def build_q_plain(ptab, F: int, ids, vals):
+    """q [N, F] = sum_p ptab[id, f] x over channels 0..F-1 of ``ptab``."""
+    q = torch.zeros(ids.shape[0], F, dtype=_F32, device=ptab.device)
+    for p in range(ids.shape[1]):
+        q = q + ptab.index_select(0, ids[:, p])[:, :F] * vals[:, p, None]
+    return q
+
+
+def build_q(ptab, F: int, ids, vals):
+    if build.on_cpu(ids):
+        return build_q_plain(ptab, F, ids, vals)
+    N, P = ids.shape
+    dev = ids.device
+    if ptab.dim() != 2 or ptab.shape[1] < F:
+        raise ValueError(f"build_q.ptab: shape {tuple(ptab.shape)} has "
+                         f"fewer than F={F} channels")
+    build.require(ptab, _F32, ptab.shape, dev, "build_q.ptab")
+    build.require(ids, _I32, (N, P), dev, "build_q.ids")
+    build.require(vals, _F32, (N, P), dev, "build_q.vals")
+    q = torch.empty(N, F, dtype=_F32, device=dev)
+    if N * F == 0:
+        return q.zero_()
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_build_q(build.ptr(ptab), ptab.shape[1], F,
+                               build.ptr(ids), build.ptr(vals), N, P,
+                               build.ptr(q), build.stream_of(ids))
+    build.check_launch(lib, rc, "build_q")
+    return q
 
 
 # ---- K3 ---------------------------------------------------------------------
@@ -237,14 +273,19 @@ def vb_patch_rows(ptab, F: int, merge_w: bool, ids, vals, q, tq, tz, e,
 
 # ---- K4 at F = 0: the w patch ----------------------------------------------
 
-def w_patch_rows_plain(dtab, ids, vals, e, t) -> None:
+def w_patch_rows_plain(dtab, ids, vals, e, t=None) -> None:
     """e += sum_p x dtab[id, 0], t += sum_p x^2 dtab[id, 1] (in place):
-    K4's twin with no factor channels, ``dtab`` [D, 2] its w channels."""
-    none = e.new_empty(e.shape[0], 0)
-    vb_patch_rows_plain(dtab, 0, True, ids, vals, none, none, none, e, t)
+    K4's twin with no factor channels, ``dtab`` [D, 2] its w channels.
+    ``t`` None (MCMC) patches e alone."""
+    for p in range(ids.shape[1]):
+        gg = dtab.index_select(0, ids[:, p])
+        x = vals[:, p]
+        e += x * gg[:, 0]
+        if t is not None:
+            t += x * x * gg[:, 1]
 
 
-def w_patch_rows(dtab, ids, vals, e, t) -> None:
+def w_patch_rows(dtab, ids, vals, e, t=None) -> None:
     if build.on_cpu(ids):
         return w_patch_rows_plain(dtab, ids, vals, e, t)
     N, P = ids.shape
@@ -254,12 +295,14 @@ def w_patch_rows(dtab, ids, vals, e, t) -> None:
     req(ids, _I32, (N, P), dev, "w_patch_rows.ids")
     req(vals, _F32, (N, P), dev, "w_patch_rows.vals")
     req(e, _F32, (N,), dev, "w_patch_rows.e")
-    req(t, _F32, (N,), dev, "w_patch_rows.t")
+    if t is not None:
+        req(t, _F32, (N,), dev, "w_patch_rows.t")
     if N == 0:
         return
     lib = build.load_library("vb_sweep")
     with torch.cuda.device(dev):
         rc = lib.svbfm_w_patch_rows(
             build.ptr(dtab), build.ptr(ids), build.ptr(vals), N, P,
-            build.ptr(e), build.ptr(t), build.stream_of(ids))
+            build.ptr(e), None if t is None else build.ptr(t),
+            build.stream_of(ids))
     build.check_launch(lib, rc, "w_patch_rows")

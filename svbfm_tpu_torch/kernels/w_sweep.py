@@ -13,9 +13,15 @@ update their outputs in place, kernel and twin alike.
 ``bad`` is an int32 [4] counter: (nan mu, inf mu, nan sig, inf sig)
 candidates.
 
-Replaces ``svbfm_tpu/learners/vb.py:vb_w_bin_update`` (:125-148) and the w
+``mcmc_w_draw`` (X8c) is the same kernel's MCMC mode: the bucket's w draw
+of Gibbs MCMC (ALS: the conditional mean), with the delta table
+(w_new - w_old, 0) that ``vb_sweep.w_patch_rows`` adds to MCMC's e = yhat - y;
+``bad[0]``, ``bad[1]`` count the NaN and Inf draws.
+
+Replaces ``svbfm_tpu/learners/vb.py:vb_w_bin_update`` (:125-148), the w
 column updates of ``svbfm_tpu/learners/vb_online.py:ovb_chunk_update``
-(:230-269).
+(:230-269) and the bucket body of ``svbfm_tpu/learners/mcmc.py:w_sweep_main``
+(:632-652).
 """
 
 from __future__ import annotations
@@ -126,3 +132,64 @@ def w_col_update(rows, x, cols, group, sx2, e, mu_w, sig_w, sigma_w, alpha,
             build.stream_of(rows))
     build.check_launch(lib, rc, "w_col_update")
 
+
+
+# ---- X8c: K5's MCMC mode ----------------------------------------------------
+
+def mcmc_w_draw_plain(rows, x, cols, group, sx2, e, w, w_mu, w_lambda, alpha,
+                      z, dtab, bad) -> None:
+    """One [C, L] bucket of the MCMC/ALS w sweep (mcmc.py:636-652), in
+    place on w and dtab; ``z`` is the [D] noise table, or None (ALS)."""
+    cl = cols.long()
+    w_c = w[cl]
+    mu_g = w_mu.index_select(0, group)
+    lam_g = w_lambda.index_select(0, group)
+    e_g = e.index_select(0, rows.reshape(-1)).reshape(rows.shape)
+    sxe = (x * e_g).sum(1)
+    s2 = 1.0 / (lam_g + alpha * sx2)
+    val = -s2 * (alpha * (sxe - w_c * sx2) - mu_g * lam_g)
+    if z is not None:
+        val = val + torch.sqrt(s2) * z[cl]
+    val = torch.where(torch.isfinite(s2), val, torch.zeros_like(val))
+    bad[0] += torch.isnan(val).sum(dtype=_I32)
+    bad[1] += torch.isinf(val).sum(dtype=_I32)
+    w_new = keep_finite(val, w_c)
+    w[cl] = w_new
+    dtab[cl] = torch.stack([w_new - w_c, torch.zeros_like(w_c)], 1)
+
+
+def mcmc_w_draw(rows, x, cols, group, sx2, e, w, w_mu, w_lambda, alpha, z,
+                dtab, bad) -> None:
+    if build.on_cpu(rows):
+        return mcmc_w_draw_plain(rows, x, cols, group, sx2, e, w, w_mu,
+                                 w_lambda, alpha, z, dtab, bad)
+    C, L = rows.shape
+    D = w.shape[0]
+    G = w_mu.shape[0]
+    dev = rows.device
+    req = build.require
+    req(rows, _I32, (C, L), dev, "mcmc_w_draw.rows")
+    req(x, _F32, (C, L), dev, "mcmc_w_draw.x")
+    for name, a, dt in (("cols", cols, _I32), ("group", group, _I32),
+                        ("sx2", sx2, _F32)):
+        req(a, dt, (C,), dev, f"mcmc_w_draw.{name}")
+    req(e, _F32, (e.shape[0],), dev, "mcmc_w_draw.e")
+    req(w, _F32, (D,), dev, "mcmc_w_draw.w")
+    req(w_mu, _F32, (G,), dev, "mcmc_w_draw.w_mu")
+    req(w_lambda, _F32, (G,), dev, "mcmc_w_draw.w_lambda")
+    req(alpha, _F32, (), dev, "mcmc_w_draw.alpha")
+    if z is not None:
+        req(z, _F32, (D,), dev, "mcmc_w_draw.z")
+    req(dtab, _F32, (D, 2), dev, "mcmc_w_draw.dtab")
+    req(bad, _I32, (4,), dev, "mcmc_w_draw.bad")
+    if C == 0:
+        return
+    lib = build.load_library("w_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_mcmc_w_draw(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(group), build.ptr(sx2), build.ptr(e), build.ptr(w),
+            build.ptr(w_mu), build.ptr(w_lambda), build.ptr(alpha),
+            None if z is None else build.ptr(z), build.ptr(dtab),
+            build.ptr(bad), build.stream_of(rows))
+    build.check_launch(lib, rc, "mcmc_w_draw")

@@ -24,7 +24,8 @@ TASK_REGRESSION = 0
 @dataclass(frozen=True)
 class FMConfig:
     """Static learner configuration: the JAX package's FMConfig fields that
-    batch and online VBFM read (same names and defaults)."""
+    batch and online VBFM, Gibbs MCMC and ALS read (same names and
+    defaults)."""
 
     num_attributes: int
     num_factor: int
@@ -36,10 +37,21 @@ class FMConfig:
     num_groups: int = 1
     num_iter: int = 100
     seed: int = 0
-    # factors per block in the VB v sweep; 0 = all K in one block ("fast
-    # mode", the linear-term sweep riding inside it); 1 = the reference's
-    # factor-sequential order.  Online VB turns 0 into 1.
+    # MCMC/ALS: the init spread of w and v, the -regular prior precisions
+    # (their initial lambdas), and the two switches ALS turns off
+    init_stdev: float = 0.1
+    reg0: float = 0.0
+    regw: float = 0.0
+    regv: float = 0.0
+    do_sample: bool = True
+    do_multilevel: bool = True
+    # factors per block in the VB and MCMC v sweeps; 0 = all K in one block
+    # (VB "fast mode", the linear-term sweep riding inside it); 1 = the
+    # reference's factor-sequential order.  Online VB turns 0 into 1.
     factor_block: int = 0
+    # ALS only: all factors of a block from the pre-bin residual
+    # (-factor_jacobi), not a valid Gibbs kernel
+    mcmc_factor_jacobi: bool = False
     # online VB: chunks per epoch (-batch), and whether chunk membership is
     # re-drawn every epoch (-reshuffle) instead of fixed once
     num_batches: int = 50

@@ -1,0 +1,56 @@
+"""The random numbers of the Gibbs sampler.
+
+Every random number of an MCMC sweep comes from one draw source, an object
+with two methods:
+
+* ``normal(shape)``: standard normal draws of that shape;
+* ``gamma(a)``: standard Gamma(a, 1) draws, elementwise in the tensor ``a``.
+
+The learner calls them in the JAX package's order and with its shapes
+(``svbfm_tpu/learners/mcmc.py``, where each draw splits the key chain and
+uses the sub-key), including the few places where JAX splits a key whose
+numbers it does not use; so a source that replays that key chain, one
+sub-key a call, gives the port JAX's numbers.  The port itself never calls a
+global random number generator.
+
+``Draws`` draws on ``generator``'s device and moves the result to
+``device``: with a generator on the learner's device it is the default
+source (``device_draws``); with a CPU generator it is a host-table source
+(``host_draws``), which gives a card and the CPU the same numbers.  Gamma
+draws use ``torch._standard_gamma`` with the generator.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_F32 = torch.float32
+
+
+class Draws:
+    """Normal and Gamma draws from ``generator``, moved to ``device``."""
+
+    def __init__(self, generator: torch.Generator, device):
+        self.generator = generator
+        self.device = torch.device(device)
+
+    def normal(self, shape) -> torch.Tensor:
+        z = torch.randn(tuple(shape), generator=self.generator, dtype=_F32,
+                        device=self.generator.device)
+        return z.to(self.device)
+
+    def gamma(self, a: torch.Tensor) -> torch.Tensor:
+        a = torch.as_tensor(a, dtype=_F32).to(self.generator.device)
+        return torch._standard_gamma(a, generator=self.generator).to(
+            self.device)
+
+
+def device_draws(seed: int, device) -> Draws:
+    """The default source: a generator on ``device`` seeded with ``seed``."""
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return Draws(gen, device)
+
+
+def host_draws(seed: int, device) -> Draws:
+    """A host-table source: CPU draws from ``seed``, moved to ``device``."""
+    return Draws(torch.Generator().manual_seed(seed), device)

@@ -214,8 +214,10 @@ def vb_update_all(state: VBState, row: RowData, plan: PlanData, cfg: FMConfig,
     sigma_v_dash = state.sigma_v_dash.clone()
     w_state = (mu_w, sigma_w_dash, state.sigma_w) if merge_w else None
     for f0, f1 in factor_blocks(K, cfg.factor_block):
-        mu_t = state.mu_v[f0:f1].T.contiguous()  # [D, F]
-        sig_t = state.sigma_v_dash[f0:f1].T.contiguous()
+        # [D, F] from the copies: at F = 1 .contiguous() returns a view,
+        # which the kernels then write in place
+        mu_t = mu_v[f0:f1].T.contiguous()
+        sig_t = sigma_v_dash[f0:f1].T.contiguous()
         nans_vw = vb_v_block_update(
             e, t, mu_t, sig_t, state.sigma_v[:, f0:f1].contiguous(), alpha,
             plan, row, w_state)

@@ -25,6 +25,21 @@ class FMParams(nn.Module):
         self.register_buffer("v", v)
 
 
+def init_fm_params(generator: torch.Generator, D: int, K: int,
+                   init_stdev: float = 0.1,
+                   init_w_normal: bool = False) -> FMParams:
+    """``fm_model::init`` (svbfm_tpu/models/fm.py:33-48): v ~ init_stdev
+    N(0,1) of shape [K, D]; w drawn the same way with ``init_w_normal``
+    (MCMC re-draws it, libfm.cpp:298), else 0; w0 = 0.  The draws come from
+    ``generator``, on its device; move the result where it is needed."""
+    v = init_stdev * torch.randn(K, D, generator=generator,
+                                 device=generator.device)
+    w = (init_stdev * torch.randn(D, generator=generator,
+                                  device=generator.device)
+         if init_w_normal else torch.zeros(D, device=generator.device))
+    return FMParams(torch.zeros((), device=generator.device), w, v)
+
+
 def fm_predict(params: FMParams, ids: torch.Tensor, vals: torch.Tensor,
                min_target: Optional[float] = None,
                max_target: Optional[float] = None,

@@ -2,9 +2,9 @@
 
 ``jax.random`` bits cannot be reproduced in torch, so tests that hold the
 two packages to each other start both from the same parameters: the JAX
-learner's ``VBState`` (or ``OVBState``), fetched to numpy with
-``jax.device_get``, becomes the port's state of the same name.  Nothing
-here imports JAX.
+learner's ``VBState`` (or ``OVBState``, ``MCMCState``), fetched to numpy
+with ``jax.device_get``, becomes the port's state of the same name.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -15,18 +15,23 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from svbfm_tpu_torch.learners.draws import Draws
+from svbfm_tpu_torch.learners.mcmc import TENSOR_FIELDS, MCMCState
 from svbfm_tpu_torch.learners.vb import VBState
 from svbfm_tpu_torch.learners.vb_online import OVBState
 
 
-def _from_jax(cls, np_state: Any, device):
+def _tensors(np_state: Any, names, device) -> dict:
     if not isinstance(np_state, Mapping):
         np_state = {f.name: getattr(np_state, f.name)
                     for f in dataclasses.fields(np_state)}
-    return cls(**{
-        f.name: torch.from_numpy(
-            np.array(np_state[f.name], dtype=np.float32)).to(device)
-        for f in dataclasses.fields(cls)})
+    return {n: torch.from_numpy(np.array(np_state[n], dtype=np.float32)).to(
+        device) for n in names}
+
+
+def _from_jax(cls, np_state: Any, device):
+    return cls(**_tensors(np_state, [f.name for f in dataclasses.fields(cls)],
+                          device))
 
 
 def state_from_jax(np_state: Any, device) -> VBState:
@@ -39,3 +44,9 @@ def ovb_state_from_jax(np_state: Any, device) -> OVBState:
     """The same for the online learner's ``OVBState`` (naturals and
     Robbins-Monro counters included)."""
     return _from_jax(OVBState, np_state, device)
+
+
+def mcmc_state_from_jax(np_state: Any, device, draws: Draws) -> MCMCState:
+    """The Gibbs/ALS state; the JAX ``key`` is skipped and ``draws`` takes
+    its place."""
+    return MCMCState(**_tensors(np_state, TENSOR_FIELDS, device), draws=draws)

@@ -1,5 +1,6 @@
 """The port's CLI (``python -m svbfm_tpu_torch.cli``) on tiny libFM text
-files with ``-device cpu``: both methods run end to end and write what the
+files with ``-device cpu``: vb and vb_online run end to end (mcmc and als:
+tests/test_torch_mcmc.py) and write what the
 JAX CLI writes, under the same names; every flag or method the port does
 not run exits non-zero with a message that names its ROADMAP item."""
 
@@ -93,7 +94,7 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
     (["-learn_rate", "0.1"], {}, "not read"),
     (["-bogus", "1"], {}, "unknown parameter"),
     ([], dict(task="c"), "Next C"),
-    ([], dict(method="mcmc"), "item 7"),
+    ([], dict(method="exp_sgd"), "item 8"),
     ([], dict(method="sgd"), "item 8"),
     ([], dict(method="nonsense"), "unknown method"),
 ])
@@ -130,9 +131,9 @@ def test_module_exit_codes(data):
     d, _, _ = data
     env = dict(os.environ, PYTHONPATH=REPO)
     run = [sys.executable, "-m", "svbfm_tpu_torch.cli"]
-    r = subprocess.run(run + _args(d, "als", "-device", "cpu"), cwd=d,
+    r = subprocess.run(run + _args(d, "sgd", "-device", "cpu"), cwd=d,
                        env=env, capture_output=True, text=True, timeout=120)
-    assert r.returncode != 0 and "item 7" in r.stderr
+    assert r.returncode != 0 and "item 8" in r.stderr
     r = subprocess.run(run + ["-help"], cwd=d, env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0 and "-device" in r.stdout

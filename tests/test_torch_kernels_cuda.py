@@ -103,3 +103,95 @@ def test_ovb_learner_on_gpu_matches_cpu(cuda, reshuffle):
     for g, c in zip(*hists):
         for k in ("rmse", "mae", "free_energy"):
             np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("kernel", ["build_q", "mcmc_col_draw",
+                                    "mcmc_patch_rows", "mcmc_w_draw",
+                                    "w_patch_rows", "gather_probe"])
+def test_mcmc_kernels_match_twins_on_ragged_case(cuda, kernel):
+    """X8d, X8a (F = 6 and F = 1, both draw modes), X8b, X8c, the w patch
+    without t, and P1 on the ragged MCMC case: column 3's lambda is NaN
+    (0, uncounted) and one noise number is Inf (counted, reverted); the
+    kernel gives the twin's outputs, counters included."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_mcmc_tensors(cuda)
+    cases = chip_smoke.make_cases(s)[kernel]
+    assert cases
+    for label, prepare, call, _ in cases:
+        ok, op = call("kernel", prepare()), call("plain", prepare())
+        torch.cuda.synchronize()
+        chip_smoke.compare(ok, op, f"{kernel} ({label})")
+        if kernel in ("mcmc_col_draw", "mcmc_w_draw"):
+            assert torch.equal(ok[-1], op[-1])
+            assert int(ok[-1][1]) == (0 if ("jacobi" in label
+                                            or "als" in label) else 1)
+
+
+@pytest.mark.parametrize("als,factor_block", [(False, 0), (False, 1),
+                                              (True, 1), (True, 2)])
+def test_mcmc_learner_on_gpu_matches_cpu(cuda, als, factor_block):
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    tr, te, D, meta, cfg = _small(factor_block=factor_block, regw=0.5,
+                                  regv=0.5)
+    p = init_fm_params(torch.Generator().manual_seed(3), D, 5,
+                       init_w_normal=True)
+    hists = []
+    for dev in (cuda, "cpu"):
+        cls = ALSLearner if als else MCMCLearner
+        learner = cls(cfg, SparseDataset.from_coo(tr, D),
+                      SparseDataset.from_coo(te, D), meta, device=dev,
+                      write_files=False)
+        state = learner.state_from_params(p.w0, p.w, p.v, host_draws(4, dev))
+        hists.append(learner.run(state, num_iter=3, verbose=False)[1])
+    for g, c in zip(*hists):
+        for k in ("rmse", "rmse_this", "mae", "alpha"):
+            np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("F", [256, 303])
+def test_col_draw_wide_block_matches_twin(cuda, F):
+    """X8a in the exact mode at wide blocks: F = K = 256 (a default
+    -dim 1,1,256 run) and 303, the widest that fits 227 KiB of shared
+    memory; a wider block raises before the launch."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
+    g = torch.Generator().manual_seed(F)
+    N, D, C, L, G = 300, 40, 12, 20, 2
+    rows = torch.randint(0, N, (C, L), generator=g, dtype=torch.int32)
+    x = torch.rand(C, L, generator=g) + 0.5
+    x[-1, L // 2:] = 0.0  # padding entries
+    cols = torch.randperm(D, generator=g)[:C].to(torch.int32)
+    group = (cols % G).to(torch.int32)
+    e = torch.randn(N, generator=g)
+    q = 0.1 * torch.randn(N, F, generator=g)
+    v_t = 0.1 * torch.randn(D, F, generator=g)
+    ptab = torch.cat([v_t, torch.zeros(D, F)], 1)
+    mu = 0.1 * torch.randn(G, F, generator=g)
+    lam = torch.rand(G, F, generator=g) + 1.0
+    z = torch.randn(F, D, generator=g)
+    alpha = torch.tensor(1.3)
+    outs = []
+    for dev in (cuda, "cpu"):
+        a = [t.to(dev) for t in (rows, x, cols, group, e, q, ptab.clone(),
+                                 v_t.clone(), mu, lam, alpha, z)]
+        nans = torch.zeros(2, dtype=torch.int32, device=dev)
+        km.mcmc_col_draw(*a[:11], a[11], True, nans)
+        outs.append([a[6].cpu(), a[7].cpu(), nans.cpu()])
+    import chip_smoke
+
+    chip_smoke.compare(outs[0], outs[1], f"mcmc_col_draw F={F}")
+    assert outs[0][2].tolist() == outs[1][2].tolist() == [0, 0]
+    W = 304  # past the widest block that fits
+    assert not km.col_draw_fits(W, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        km.mcmc_col_draw(
+            rows.to(cuda), x.to(cuda), cols.to(cuda), group.to(cuda),
+            e.to(cuda), torch.zeros(N, W, device=cuda),
+            torch.zeros(D, 2 * W, device=cuda), torch.zeros(D, W, device=cuda),
+            torch.zeros(G, W, device=cuda), torch.ones(G, W, device=cuda),
+            alpha.to(cuda), None, True,
+            torch.zeros(2, dtype=torch.int32, device=cuda))

@@ -19,6 +19,7 @@ from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
 from svbfm_tpu_torch.learners.base import FMConfig
 from svbfm_tpu_torch.learners.vb import VBLearner
 from svbfm_tpu_torch.learners.vb_online import OVBLearner
+from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
 from svbfm_tpu_torch.utils import convert  # noqa: F401
 from svbfm_tpu_torch import cli  # noqa: F401
 
@@ -40,11 +41,17 @@ _, hx = exact.run(num_iter=1, verbose=False)
 ovb = OVBLearner(dataclasses.replace(cfg, num_batches=3), train, test, meta,
                  device="cpu", write_files=False)
 _, ho = ovb.run(num_iter=1, verbose=False)
+gibbs = MCMCLearner(cfg, train, test, meta, device="cpu", write_files=False)
+_, hm = gibbs.run(num_iter=2, verbose=False)
+als = ALSLearner(dataclasses.replace(cfg, factor_block=1), train, test, meta,
+                 device="cpu", write_files=False)
+_, ha = als.run(num_iter=2, verbose=False)
 loaded = [m for m, v in sys.modules.items() if v is not None and
           m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
 assert not loaded, loaded
 print("sweeps", len(hist), "rmse", hist[-1]["rmse"])
 print("exact", len(hx), "ovb", len(ho), ho[-1]["rmse"])
+print("mcmc", len(hm), "als", len(ha), hm[-1]["rmse"], ha[-1]["rmse_this"])
 """
 
 
@@ -54,6 +61,7 @@ def test_port_runs_two_sweeps_without_jax():
     assert r.returncode == 0, r.stderr[-3000:]
     assert "sweeps 2" in r.stdout
     assert "exact 1 ovb 1" in r.stdout
+    assert "mcmc 2 als 2" in r.stdout
 
 
 def test_no_jax_import_statement_in_port():

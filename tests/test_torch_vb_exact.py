@@ -182,3 +182,18 @@ def test_nan_w_record_matches_jax(factor_block):
     assert (th[0]["nan_w"] > 0) == (factor_block == 0)
     for k in ("rmse", "train_rmse", "free_energy"):
         np.testing.assert_allclose(th[0][k], jh[0][k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("K,factor_block", [(4, 1), (3, 2)])
+def test_exact_sweep_leaves_input_state_unchanged(K, factor_block):
+    """A block of one factor is a view of its [K, D] table; the sweep must
+    write the new state's copy, never the state it was given."""
+    _, tl = _pair(num_rows=200, num_users=12, num_items=9, K=K,
+                  factor_block=factor_block)
+    s0 = tl.init_state()
+    before = {k: getattr(s0, k).clone() for k in ("mu_v", "sigma_v_dash")}
+    s1, _, _ = tvb.vb_update_all(s0, tl.train_row, tl.plan_data, tl.cfg,
+                                 float(tl.train_n))
+    for k, v in before.items():
+        assert torch.equal(getattr(s0, k), v), k
+        assert not torch.equal(getattr(s1, k), v), k
