@@ -11,8 +11,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      shapes the paths give it (ML-1M, K=20; batch VB fast mode, exact mode
      at F=1 with the w patch, an online-VB chunk of 1/20 of the rows at
      F=1, Gibbs/ALS blocks at F=20 and F=1 in both draw modes, the gather
-     probe's shapes) and on small ragged cases with NaN-producing columns;
-     time both, and one PyTorch call where one computes the same function.
+     probe's shapes, the SGD family's batches in each step mode) and on
+     small ragged cases with NaN-producing columns or targets; time both,
+     and one PyTorch call where one computes the same function.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
      every kernel of the path must have been launched; the free energy must
      not fall and the test RMSE must drop.
@@ -31,8 +32,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      init on the card and on the CPU; the trajectories must agree.
  11. ovb quality: -reshuffle 1, 20 chunks, 30 epochs; test RMSE at epochs
      10 and 30 beside the reference C++ run's (information).
- 12. cli: python -m svbfm_tpu_torch.cli -method vb_online -device cuda on
-     small libFM files; it must exit 0 and write its files.
+ 12. cli: python -m svbfm_tpu_torch.cli -method vb_online, then -method
+     sgd, -device cuda on small libFM files; each must exit 0 and write its
+     files.
  13. ovb-profile: device time of one online-VB epoch by kernel.
  14. mcmc: Gibbs MCMC, factor_block=0 (F=20), 10 iterations from the
      default device generator: kernels launched, no NaN/Inf counts,
@@ -49,10 +51,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
      table (the kernel and torch.take), the lane-local [S,128] form and
      the depth sweep 8/32/1024 (the counterpart of
      scripts/pallas_gather_probe.py).
+ 20. sgd: minibatch SGD (batch 1024, 976 batches an epoch), 5 epochs:
+     X9a, X9b and K1 launched, test RMSE falling; sec/epoch, the host's
+     enqueue time and the device's wait after it, peak memory.
+ 21. sgd gpu-vs-cpu: one full epoch from one host-made init and host-drawn
+     permutation on the card and on the CPU.
+ 22. sgd-online: 50 chunks of the in-memory train set, 3 epochs.
+ 23. exp-sgd-stoc: 3 epochs of the exponential-family multiplier.
+ 24. sgda: a 90/10 train/validation split of the train rows, 5 iterations:
+     X9c launched, the regs finite and >= 0.
+ 25. bpr: the 4-5 star rows as positives, learn rate 0.01, 5 epochs: the
+     pair accuracy rises, above the init's too, and the pair loss falls.
+ 26. sgd-quality: SGD test RMSE at epochs 1/10/30 and SGDA (dim 1,1,8,
+     learn rate 0.01) at iterations 1-20 beside the reference C++'s
+     (information).
+ 27. sgd-profile: device time of one SGD epoch by kernel.
 Then the nvidia-smi line again, a JSON line with each kernel's launches
-(summed over the driven runs of phases 3, 7, 9, 14, 16 and 19, each read
-just after its run with the counts zeroed just before), error, times and
-bound, and as the last line {"ok": true, "device": {...}}.
+(summed over the driven runs of phases 3, 7, 9, 14, 16, 19 and 20-25, each
+read just after its run with the counts zeroed just before), error, times
+and bound, and as the last line {"ok": true, "device": {...}}.
 
 Imports only svbfm_tpu_torch, torch and numpy: never JAX.
 """
@@ -99,6 +116,28 @@ REF_MCMC_RMSE = {10: 0.7377, 30: 0.7361}
 # ALS's -regular: unregularised ALS overfits this data (the test RMSE of
 # the 100k-row recipe rises over 5 sweeps at 0.1 and 1, falls at 5)
 ALS_REG = 5.0
+# SGD, GPU (kernels) vs CPU (twins) over one full epoch (976 steps) from
+# one host-made init and one host-drawn permutation: relative on the test
+# RMSE and MAE, and absolute on the parameter table.  The H100 measured
+# 1.2e-8 relative and 4.2e-7 absolute at most (float atomics add each
+# batch's gradients in another order than index_add_); the sweeps' 1e-5
+# leaves a wide margin on both and still catches a wrong step.
+SGD_TRAJ_RTOL = 1e-5
+SGD_PARAM_ATOL = 1e-5
+# the reference C++ SGD on this recipe (PARITY_RUNS.md:5-15, its flags not
+# recorded): test RMSE by epoch
+REF_SGD_RMSE = {1: 0.7673, 10: 0.7375, 30: 0.7422}
+# the reference C++ SGDA (PARITY_RUNS.md:66-80): dim 1,1,8, -learn_rate
+# 0.01, a 90/10 train/validation split of the train rows, test RMSE by
+# iteration
+SGDA_LR, SGDA_K = 0.01, 8
+REF_SGDA_RMSE = {1: 0.7422, 5: 0.7424, 10: 0.7411, 15: 0.7253, 20: 0.7119}
+SGD_ONLINE_CHUNKS = 50
+# BPR's positives: the ratings of 4 and 5 stars; its learn rate: at the
+# CLI's 0.1 the pair accuracy on this data (items drawn uniformly) peaks
+# after the first epoch and falls, at 0.01 it rises over 5 epochs (both
+# measured on the H100)
+BPR_MIN_RATING, BPR_LR = 4.0, 0.01
 # the least time of a kernel's work (PERF.md): its bytes at the H100's HBM
 # rate, or its float32 operations at the peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -131,6 +170,12 @@ SOURCES = {
                     "svbfm_tpu/learners/mcmc.py:620"),
     "gather_probe": ("svbfm_tpu_torch/csrc/gather_probe.cu",
                      "scripts/pallas_gather_probe.py:83"),
+    "sgd_grad_scatter": ("svbfm_tpu_torch/csrc/sgd_step.cu",
+                         "svbfm_tpu/learners/sgd.py:103"),
+    "sgd_apply": ("svbfm_tpu_torch/csrc/sgd_step.cu",
+                  "svbfm_tpu/learners/sgd.py:124"),
+    "sgda_lambda": ("svbfm_tpu_torch/csrc/sgd_step.cu",
+                    "svbfm_tpu/learners/sgd.py:195"),
 }
 # the kernels each driven path must launch
 PATH_KERNELS = {
@@ -146,6 +191,11 @@ PATH_KERNELS = {
     "als": ("fm_scores", "build_q", "mcmc_col_draw", "mcmc_patch_rows",
             "mcmc_w_draw", "w_patch_rows"),
     "gather-probe": ("gather_probe",),
+    "sgd": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
+    "sgd-online": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
+    "exp-sgd-stoc": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
+    "sgda": ("fm_scores", "sgd_grad_scatter", "sgd_apply", "sgda_lambda"),
+    "bpr": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
 }
 
 
@@ -567,6 +617,10 @@ def make_cases(s: dict):
             cost(rows_bytes(s["ids"]) + s["mw_dtab"].numel() * 4 + N * 8,
                  N * P * 2))
 
+    if "sgd" in s:  # X9a, X9b and (SGDA) X9c, per step mode
+        for mode_case in s["sgd"]["modes"]:
+            sgd_cases(add, s["sgd"], *mode_case)
+
     for label, t, idx in s.get("gathers", ()):  # P1: o[r, l] = t[i[r, l], l]
         def gcall(variant, _, t=t, idx=idx):
             fn = kg.gather_rows if variant == "kernel" else kg.gather_rows_plain
@@ -582,6 +636,104 @@ def make_cases(s: dict):
         add("gather_probe", label, nothing, gcall,
             cost(idx.numel() * 8 + t.numel() * 4, 0, library))
     return cases
+
+
+def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
+    """X9a on one batch in step mode ``m`` (``kind``: "row", "sgda" with
+    the entry-gradient record, "pair" with the batch's negatives as its
+    fifth tensor), X9b on the accumulator the twin leaves, and for SGDA
+    X9c on the validation batch ``g["val"]``.  The bytes count the batch,
+    the table and accumulator rows it touches (X9a), the count column and
+    the rows the batch changed (X9b), the winners' cache rows (SGDA)."""
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    tab, w0 = g["tab"], g["w0"]
+    D, K = tab.shape[0], tab.shape[1] - 1
+    ids, vals, y, valid = batch[:4]
+    B, P = ids.shape
+    sgda = kind == "sgda"
+    pair = (batch[4], *g["range"]) if kind == "pair" else None
+    G = g["reg_w"].shape[0] if sgda else 0
+
+    def fresh_ws():
+        return ks.make_workspace(D, K, tab.device,
+                                 sgda_batch=(B, P) if sgda else None, G=G)
+
+    def ws_out(ws):
+        return [ws.acc, ws.acc0] + ([ws.gw_e, ws.gv_e, ws.winner]
+                                    if sgda else [])
+
+    def x9a(variant, inp):
+        (ws,) = inp
+        if variant == "kernel":
+            ks.sgd_grad_scatter(tab, w0, ids, vals, y, valid, ws, m, pair,
+                                record=sgda)
+        else:
+            ks.sgd_grad_scatter_plain(
+                tab, w0, ids, vals, y, valid, ws.acc, ws.acc0, m, pair,
+                (ws.gw_e, ws.gv_e, ws.winner) if sgda else None)
+        return ws_out(ws)
+
+    touched = ids if pair is None else torch.cat(
+        [ids, ks.negative_ids(ids, *pair)[0]])
+    n_u = int(torch.unique(touched).numel())
+    rec = B * P * (1 + K) * 4 + n_u * 4 if sgda else 0
+    add("sgd_grad_scatter", f"{label} B={B}", lambda: (fresh_ws(),), x9a,
+        cost(B * (P * 8 + 8) + (B * 4 if pair else 0)
+             + n_u * (3 + 2 * K) * 4 + 8 + rec,
+             B * (2 if pair else 1) * P * (6 * K + 4)))
+
+    filled = fresh_ws()
+    x9a("plain", (filled,))
+
+    def x9b_prepare():
+        ws = fresh_ws()
+        for a, b in zip(ws_out(ws), ws_out(filled)):
+            a.copy_(b)
+        return (tab.clone(), w0.clone(), ws) + (
+            (g["grad_tab"].clone(),) if sgda else ())
+
+    def x9b(variant, inp):
+        t, w, ws = inp[:3]
+        regs = (g["reg_w"], g["reg_v"], g["attr_group"])
+        if variant == "kernel":
+            ks.sgd_apply(t, w, ws, m, regs + (inp[3],) if sgda else None)
+        else:
+            ks.sgd_apply_plain(t, w, ws.acc, ws.acc0, m, regs + (
+                ws.winner, ws.gw_e, ws.gv_e, inp[3]) if sgda else None)
+        return [t, w, ws.acc, ws.acc0] + ([inp[3], ws.winner] if sgda else [])
+
+    # X9b must read the count column to find the rows the batch changed;
+    # every other row keeps its value (pow(base, 0) = 1, damp(0) = 0, and
+    # its accumulator row is zero already).  A changed row reads and
+    # writes its table row and reads its accumulator row; SGDA also reads
+    # its group and winner, and copies the winning entry's gradients.
+    n_t = int((filled.acc != 0).any(1).sum())
+    n_win = int((filled.winner >= 0).sum()) if sgda else 0
+    add("sgd_apply", f"{label} D={D}", x9b_prepare, x9b,
+        cost(D * 4 + n_t * ((1 + K) * 8 + (2 + K) * 4) + 16
+             + (n_t * 8 + n_win * (1 + K) * 8 if sgda else 0),
+             n_t * (1 + K) * 8))
+    if not sgda:
+        return
+    vids, vvals, vy, vvalid = g["val"]
+    Bv, Pv = vids.shape
+
+    def x9c(variant, inp):
+        rw, rv, ws = inp
+        args = (tab, g["grad_tab"], w0, rw, rv, g["attr_group"], vids, vvals,
+                vy, vvalid)
+        if variant == "kernel":
+            ks.sgda_lambda(*args, ws, m)
+        else:
+            ks.sgda_lambda_plain(*args, m)
+        return [rw, rv, ws.dreg, ws.done]
+
+    n_uv = int(torch.unique(vids).numel())
+    add("sgda_lambda", f"{label} Bv={Bv} G={G}",
+        lambda: (g["reg_w"].clone(), g["reg_v"].clone(), fresh_ws()), x9c,
+        cost(Bv * (Pv * 8 + 8) + n_uv * ((1 + K) * 8 + 4)
+             + G * (1 + K) * 8, Bv * Pv * K * 30))
 
 
 def check_cases(s: dict, timed: bool) -> dict:
@@ -827,7 +979,8 @@ def ragged_tensors(device) -> list:
               rho_v=t(rng.uniform(0.1, 1.0, size=D).astype(np.float32)),
               vq=s["q"], vtq=s["tq"], vtz=s["tz"], v_buckets=[bucket],
               v_ptab_patch=t(ptab[:, :5 * F]))
-    return [s, vb, ov, ragged_mcmc_tensors(device)]
+    return [s, vb, ov, ragged_mcmc_tensors(device),
+            *ragged_sgd_tensors(device)]
 
 
 def mcmc_tensors(learner, state) -> dict:
@@ -935,6 +1088,119 @@ def ragged_mcmc_tensors(device) -> dict:
         ("ragged lanes", t(rng.standard_normal((7, 128))),
          t(rng.integers(0, 7, size=(5, 128)), np.int32))]
     return s
+
+
+def sgd_tensors(sgd, exp, sgda, bpr, device) -> dict:
+    """X9a-X9c inputs at the paths' shapes: a batch of train rows as SGD
+    and exp-SGD take them (1024), SGDA's theta batch and validation batch,
+    a BPR pair batch with its negatives; a random table, SGDA regs and
+    caches."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    D, K = sgd.cfg.num_attributes, sgd.cfg.num_factor
+    G = sgda.cfg.num_groups
+
+    def randn(*shape):
+        return 0.1 * torch.randn(*shape, generator=gen, device=device)
+
+    def batch(learner, row):
+        n = row.ids.shape[0]
+        idx = torch.randperm(n, generator=gen, device=device)[
+            : n // learner.num_batches]
+        return tuple(t.index_select(0, idx) for t in (
+            row.ids, row.vals, row.target, row.valid))
+
+    rows = batch(sgd, sgd.train_row)
+    pairs = batch(bpr, bpr.train_row)
+    neg = torch.randint(bpr.neg_lo, bpr.neg_hi, (pairs[0].shape[0],),
+                        generator=gen, device=device, dtype=torch.int32)
+    g = dict(tab=randn(D, 1 + K), w0=torch.tensor(3.5, device=device),
+             range=(bpr.neg_lo, bpr.neg_hi),
+             reg_w=0.5 * torch.rand(G, generator=gen, device=device),
+             reg_v=0.5 * torch.rand(G, K, generator=gen, device=device),
+             grad_tab=randn(D, 1 + K), attr_group=sgda.attr_group,
+             val=batch(sgda, sgda.val_row),
+             modes=[("regression", sgd.mode, "row", rows),
+                    ("exp", exp.mode, "row", rows),
+                    ("sgda", sgda.mode, "sgda", batch(sgda, sgda.train_row)),
+                    ("pair", bpr.mode, "pair", pairs + (neg,))])
+    return dict(tag="sgd", sgd=g)
+
+
+def ragged_sgd_tensors(device) -> list:
+    """X9a-X9c on small ragged inputs at K = 1, 5 and 40 (more than a warp
+    of factors): 24 rows of a user (0-11), an item (12-29) and a third
+    entry that is padding (id 0, x = 0) in every other row; an x = 0 entry
+    at a real id; a padding row (valid 0); users repeated across rows
+    (duplicate ids in a batch); a pair whose negative is its own item.  At
+    K = 5 row 2's target is NaN (a non-finite multiplier) and so is one
+    validation target (every SGDA reg comes out NaN)."""
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    out = []
+    for K in (1, 5, 40):
+        rng = np.random.default_rng(K)
+        N, P, D, G = 24, 3, 30, 3
+
+        def t(a, dt=np.float32):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(
+                device)
+
+        def rows(n):
+            ids = np.stack([rng.integers(0, 12, n), rng.integers(12, 30, n),
+                            rng.integers(0, 12, n)], 1)
+            vals = rng.uniform(0.5, 1.5, (n, P))
+            ids[::2, 2], vals[::2, 2] = 0, 0.0
+            vals[1, 2] = 0.0
+            y = rng.uniform(1, 5, n)
+            valid = np.ones(n)
+            valid[-1] = 0.0
+            if K == 5:
+                y[2] = np.nan
+            return t(ids, np.int32), t(vals), t(y), t(valid)
+
+        batch = rows(N)
+        neg = rng.integers(12, 30, N)
+        neg[3] = batch[0][3, 1].item()
+        lr, reg = 0.05, 0.01
+        base = float(np.float32(1) - np.float32(lr) * np.float32(reg))
+        common = dict(K=K, lr=lr, min_target=1.0, max_target=5.0)
+        g = dict(tab=t(rng.normal(0, 0.3, (D, 1 + K))),
+                 w0=torch.tensor(0.3, device=device),
+                 range=(12, 30), reg_w=t(rng.uniform(0, 0.05, G)),
+                 reg_v=t(rng.uniform(0, 0.05, (G, K))),
+                 grad_tab=t(rng.normal(0, 0.1, (D, 1 + K))),
+                 attr_group=t(np.minimum(np.arange(D) // 10, G - 1),
+                              np.int32),
+                 val=rows(10), modes=[
+                     ("regression", ks.StepMode(
+                         ks.LOSS_REGRESSION, base_w=base, base_v=base,
+                         w0_base=1.0 - lr * 0.02, **common), "row", batch),
+                     ("exp", ks.StepMode(ks.LOSS_EXP, stdev=1.5,
+                                         base_w=base, base_v=base, **common),
+                      "row", batch),
+                     ("sgda", ks.StepMode(ks.LOSS_REGRESSION, mult_scale=2.0,
+                                          **common), "sgda", batch),
+                     ("pair", ks.StepMode(ks.LOSS_PAIR, base_w=base,
+                                          base_v=base, w0_base=0.98,
+                                          w0_grad=False, **common),
+                      "pair", batch + (t(neg, np.int32),))])
+        out.append(dict(tag=f"ragged-sgd K={K}", timed=False, sgd=g))
+    return out
+
+
+def positives(coo):
+    """The rows rated BPR_MIN_RATING or more, as implicit-feedback
+    positives (target 1)."""
+    from svbfm_tpu_torch.data.libfm_text import COOData
+
+    keep = coo.target >= BPR_MIN_RATING
+    n = int(keep.sum())
+    remap = np.full(coo.num_rows, -1, np.int64)
+    remap[keep] = np.arange(n)
+    m = remap[coo.row] >= 0
+    return COOData(row=remap[coo.row[m]].astype(np.int32), col=coo.col[m],
+                   val=coo.val[m], target=np.ones(n, np.float32), num_rows=n,
+                   num_features=coo.num_features)
 
 
 def gather_sets(device) -> list:
@@ -1101,8 +1367,10 @@ def compare_traj(hg, hc, keys, rtol: float, what: str) -> float:
     return worst
 
 
-def run_cli(dev_index: int) -> None:
-    """The port's CLI in a child process on small libFM files."""
+def run_cli(dev_index: int, method: str, extra: list, files: tuple) -> None:
+    """The port's CLI in a child process on small libFM files: ``-method
+    method`` with ``extra`` flags must exit 0 and write v_file.txt,
+    pred.txt, its test_rmse file and ``files``."""
     from svbfm_tpu_torch.data.libfm_text import save_libfm_text
     from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
 
@@ -1120,20 +1388,194 @@ def run_cli(dev_index: int) -> None:
                                                    str(dev_index)))
     cmd = [sys.executable, "-m", "svbfm_tpu_torch.cli", "-task", "r",
            "-train", "train.libfm", "-test", "test.libfm", "-dim", "1,1,8",
-           "-method", "vb_online", "-batch", "5", "-iter", "2", "-device",
-           "cuda", "-out", "pred.txt"]
+           "-method", method, *extra, "-iter", "2", "-device", "cuda",
+           "-out", "pred.txt"]
     r = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True,
                        timeout=300)
     if r.returncode != 0:
         raise AssertionError(f"cli exited {r.returncode}:\n{r.stderr[-2000:]}")
-    want = ("v_file.txt", "pred.txt", "test_rmse_118_vb_online",
-            "free_energy_118_vb_online")
+    want = ("v_file.txt", "pred.txt", f"test_rmse_118_{method}") + files
     missing = [f for f in want if not os.path.exists(os.path.join(work, f))]
     if missing or "Final\tTest=" not in r.stdout:
         raise AssertionError(f"cli output incomplete: missing {missing}")
     final = [ln for ln in r.stdout.splitlines() if ln.startswith("Final")][0]
     shutil.rmtree(work, ignore_errors=True)
-    say("cli", t0, rc=r.returncode, final=final.split("=")[1])
+    say("cli", t0, method=method, rc=r.returncode, final=final.split("=")[1])
+
+
+def enqueue_then_wait(step, state, n: int = 3):
+    """Host-bound or device-bound: for ``n`` steps, the host time to
+    enqueue one, then the time the device still needs after it (ms).
+    Returns (state, "enqueue/wait,...")."""
+    split = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        state = step(state)
+        w1 = time.perf_counter()
+        torch.cuda.synchronize()
+        split.append(f"{1e3 * (w1 - w0):.3f}/"
+                     f"{1e3 * (time.perf_counter() - w1):.3f}")
+    return state, ",".join(split)
+
+
+def check_sgd_history(hist, path: str, key: str = "rmse", first=None,
+                      rises: bool = False) -> None:
+    """Finite metrics, and ``key`` lower (``rises``: higher) at the end
+    than ``first`` (default: at the first epoch)."""
+    for h in hist:
+        vals = [v for k, v in h.items() if k != "iter"]
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError(f"{path}: non-finite metrics at epoch "
+                                 f"{h['iter']}: {h}")
+    first = hist[0][key] if first is None else first
+    last = hist[-1][key]
+    if not (last > first if rises else last < first):
+        raise AssertionError(f"{path}: {key} went {first} -> {last} over "
+                             f"{len(hist)} epochs")
+
+
+def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
+               base_cfg, sgda_split) -> tuple:
+    """Phases 20-27, the SGD family; ``sgda_split`` holds SGDA's train and
+    validation datasets.  Returns the launch counts of the driven runs of
+    sgd, sgd-online, exp-sgd-stoc, sgda and bpr."""
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.sgd import (SGDALearner, SGDLearner,
+                                              SGDOnlineLearner)
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    def med(hist):
+        return f"{statistics.median(h['time_learn'] for h in hist[1:]):.6f}"
+
+    def rmses(hist, key="rmse"):
+        return ",".join(f"{h[key]:.5f}" for h in hist)
+
+    # ---- 20. SGD, batch 1024, 5 epochs -------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (sstate, hs), l_sgd = drive(build, "sgd", lambda: sgd.run(
+        sgd.init_state(), num_iter=5, verbose=False))
+    peak = torch.cuda.max_memory_allocated()
+    check_sgd_history(hs, "sgd")
+    sstate, split = enqueue_then_wait(sgd.epoch, sstate)
+    say("sgd", t0, epochs=len(hs), batches_per_epoch=sgd.num_batches,
+        sec_per_epoch=med(hs),
+        ms_per_epoch=",".join(f"{1e3 * h['time_learn']:.3f}" for h in hs),
+        enqueue_then_wait_ms=split, rmse=rmses(hs), peak_mem_bytes=peak,
+        launches=json.dumps(l_sgd, separators=(",", ":")), card=repr(card))
+
+    # ---- 21. SGD, GPU kernels vs CPU twins, one full epoch -----------------
+    t0 = time.perf_counter()
+    cfg = sgd.cfg
+    p0 = init_fm_params(torch.Generator().manual_seed(SEED),
+                        cfg.num_attributes, cfg.num_factor,
+                        init_stdev=cfg.init_stdev)
+    cpu = SGDLearner(cfg, train, test, meta, device="cpu", write_files=False)
+    ends, hists = [], []
+    for lr in (sgd, cpu):
+        st, h = lr.run(lr.state_from_params(p0.w0, p0.w, p0.v,
+                                            host_draws(SEED, lr.device)),
+                       num_iter=1, verbose=False)
+        ends.append(st.tab.cpu())
+        hists.append(h)
+    worst = compare_traj(*hists, ("rmse", "mae"), SGD_TRAJ_RTOL,
+                         "sgd gpu vs cpu")
+    gap = (ends[0] - ends[1]).abs().max().item()
+    if not gap <= SGD_PARAM_ATOL:
+        raise AssertionError(f"sgd gpu vs cpu: parameters differ by {gap:.3e}"
+                             f", more than {SGD_PARAM_ATOL}")
+    say("sgd-gpu-vs-cpu", t0, epochs=1, batches=sgd.num_batches,
+        max_rel=f"{worst:.3e}", rtol=SGD_TRAJ_RTOL,
+        max_abs_param=f"{gap:.3e}", atol_param=SGD_PARAM_ATOL)
+    del cpu
+
+    # ---- 22. sgd_online, 50 chunks, 3 epochs --------------------------------
+    t0 = time.perf_counter()
+    online = SGDOnlineLearner(FMConfig(num_batches=SGD_ONLINE_CHUNKS,
+                                       **base_cfg), train, test, meta,
+                              device=dev, write_files=False)
+    (_, ho), l_online = drive(build, "sgd-online", lambda: online.run(
+        num_iter=3, verbose=False))
+    check_sgd_history(ho, "sgd-online")
+    say("sgd-online", t0, epochs=len(ho), chunks=SGD_ONLINE_CHUNKS,
+        sec_per_epoch=med(ho), rmse=rmses(ho),
+        launches=json.dumps(l_online, separators=(",", ":")))
+
+    # ---- 23. exp_sgd_stoc, 3 epochs -----------------------------------------
+    t0 = time.perf_counter()
+    (_, he), l_exp = drive(build, "exp-sgd-stoc", lambda: exp_sgd.run(
+        num_iter=3, verbose=False))
+    check_sgd_history(he, "exp-sgd-stoc")
+    say("exp-sgd-stoc", t0, epochs=len(he), sec_per_epoch=med(he),
+        rmse=rmses(he), launches=json.dumps(l_exp, separators=(",", ":")))
+
+    # ---- 24. SGDA, 90/10 train/validation split, 5 iterations ---------------
+    t0 = time.perf_counter()
+    (astate, ha), l_sgda = drive(build, "sgda", lambda: sgda.run(
+        num_iter=5, verbose=False))
+    check_sgd_history(ha, "sgda", "rmse_train")
+    regs = torch.cat([astate.reg_w, astate.reg_v.reshape(-1)])
+    if not (torch.isfinite(regs).all() and (regs >= 0).all()):
+        raise AssertionError(f"sgda: regs not finite and >= 0: {regs}")
+    say("sgda", t0, iterations=len(ha), batches=sgda.num_batches,
+        sec_per_iter=med(ha), rmse=rmses(ha), rmse_val=rmses(ha, "rmse_val"),
+        reg_w=",".join(f"{r:.5g}" for r in astate.reg_w.tolist()),
+        reg_v_mean=f"{astate.reg_v.mean().item():.5g}",
+        launches=json.dumps(l_sgda, separators=(",", ":")))
+
+    # ---- 25. BPR on the 4-5 star rows, 5 epochs -----------------------------
+    # the pair accuracy must rise over the epochs and above the init's, the
+    # pair loss fall
+    t0 = time.perf_counter()
+    binit = bpr.init_state()
+    acc_init = float(bpr.eval_pairs(binit, bpr.eval_negatives())[0])
+    (_, hb), l_bpr = drive(build, "bpr", lambda: bpr.run(
+        binit, num_iter=5, verbose=False))
+    check_sgd_history(hb, "bpr", "accuracy", rises=True)
+    check_sgd_history(hb, "bpr", "accuracy", first=acc_init, rises=True)
+    check_sgd_history(hb, "bpr", "pair_loss")
+    say("bpr", t0, epochs=len(hb), pairs_per_batch=bpr.train_n //
+        bpr.num_batches, sec_per_epoch=med(hb),
+        pair_accuracy_init=f"{acc_init:.5f}",
+        pair_accuracy=rmses(hb, "accuracy"),
+        pair_loss=rmses(hb, "pair_loss"),
+        launches=json.dumps(l_bpr, separators=(",", ":")))
+
+    # ---- 26. quality beside the reference C++ (information) -----------------
+    # SGD at the CLI's default learn rate (0.1) and at the 0.01 of the
+    # recorded SGDA and sgd_online runs: the reference SGD column's flags
+    # are not recorded
+    t0 = time.perf_counter()
+    _, hq = sgd.run(num_iter=max(REF_SGD_RMSE), verbose=False)
+    slow = SGDLearner(FMConfig(**dict(base_cfg, learn_rate=SGDA_LR)), train,
+                      test, meta, device=dev, write_files=False)
+    _, hq2 = slow.run(num_iter=max(REF_SGD_RMSE), verbose=False)
+    if not np.isfinite([h["rmse"] for h in hq + hq2]).all():
+        raise AssertionError("sgd-quality: non-finite test RMSE")
+    qcfg = dict(base_cfg, num_factor=SGDA_K, learn_rate=SGDA_LR)
+    sq = SGDALearner(FMConfig(**qcfg), sgda_split[0], test, sgda_split[1],
+                     meta, device=dev, write_files=False)
+    _, hqa = sq.run(num_iter=max(REF_SGDA_RMSE), verbose=False)
+    say("sgd-quality", t0, epochs=len(hq),
+        sec_per_epoch=med(hq),
+        **{f"sgd_test_rmse_epoch{e}": f"{hq[e - 1]['rmse']:.5f}"
+           for e in REF_SGD_RMSE},
+        **{f"sgd_lr{SGDA_LR}_test_rmse_epoch{e}": f"{hq2[e - 1]['rmse']:.5f}"
+           for e in REF_SGD_RMSE},
+        sgd_reference_cpp=",".join(f"{e}:{v}"
+                                   for e, v in REF_SGD_RMSE.items()),
+        **{f"sgda_test_rmse_iter{i}": f"{hqa[i - 1]['rmse']:.5f}"
+           for i in REF_SGDA_RMSE},
+        sgda_reference_cpp=",".join(f"{i}:{v}"
+                                    for i, v in REF_SGDA_RMSE.items()),
+        sgda_sec_per_iter=med(hqa))
+
+    # ---- 27. where an SGD epoch's device time goes --------------------------
+    profile_run(lambda: sgd.run(sstate, num_iter=1, verbose=False), 1,
+                "epoch", "sgd-profile")
+    return l_sgd, l_online, l_exp, l_sgda, l_bpr
 
 
 def main() -> int:
@@ -1152,8 +1594,14 @@ def main() -> int:
 
     from svbfm_tpu_torch.data.dataset import SweepPlan
     from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.synth import train_test_split
     from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.bpr import BPRLearner
     from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.exp_sgd import ExpSGDStocLearner
+    from svbfm_tpu_torch.learners.sgd import (SGDALearner, SGDLearner,
+                                              SGDOnlineLearner)
     from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
     from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
     from svbfm_tpu_torch.learners.vb_online import OVBLearner, init_ovb_state
@@ -1184,12 +1632,27 @@ def main() -> int:
                      test, meta, device=dev, write_files=False)
     gibbs = MCMCLearner(cfg, train, test, meta, device=dev, plan=plan,
                         write_files=False)
+    sgd = SGDLearner(cfg, train, test, meta, device=dev, write_files=False)
+    exp_sgd = ExpSGDStocLearner(cfg, train, test, meta, device=dev,
+                                write_files=False)
+    tr90, va10 = (SparseDataset.from_coo(c, D)
+                  for c in train_test_split(tr, 0.1, seed=SEED))
+    sgda = SGDALearner(FMConfig(learn_rate=SGDA_LR, **base_cfg), tr90, test,
+                       va10, meta, device=dev, write_files=False)
+    bpr = BPRLearner(FMConfig(learn_rate=BPR_LR, **base_cfg),
+                     SparseDataset.from_coo(positives(tr), D),
+                     SparseDataset.from_coo(positives(te), D), meta,
+                     device=dev, write_files=False)
     shapes = [[tuple(b.rows.shape[1:]) for b in bb] for bb in plan.blocks]
     cshapes = [[tuple(b.rows.shape) for b in bb] for bb in ovb.chunks[0][1].blocks]
     say("data", t0, train_rows=tr.num_rows, test_rows=te.num_rows,
         features=D, buckets=str(shapes).replace(" ", ""),
         ovb_chunk_rows=int(ovb.chunk_sizes[0]),
-        ovb_chunk0_buckets=str(cshapes).replace(" ", ""))
+        ovb_chunk0_buckets=str(cshapes).replace(" ", ""),
+        sgd_batches=sgd.num_batches,
+        sgda_train_val_rows=f"{sgda.train_n}/{sgda.val_n}",
+        bpr_positive_rows=f"{bpr.train_n}/{bpr.test_n}",
+        bpr_batches=bpr.num_batches)
 
     # ---- 2. each kernel against its twin -----------------------------------
     t0 = time.perf_counter()
@@ -1202,6 +1665,7 @@ def main() -> int:
         check_cases(ovb_tensors(ovb, ovb0), timed=True),
         check_cases(mcmc_tensors(gibbs, mc1), timed=True),
         check_cases(dict(tag="probe", gathers=gather_sets(dev)), timed=True),
+        check_cases(sgd_tensors(sgd, exp_sgd, sgda, bpr, dev), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
     del mc1
     missing = sorted(set(SOURCES) - set(report))
@@ -1337,7 +1801,9 @@ def main() -> int:
         reference_cpp=",".join(f"{e}:{v}" for e, v in REF_OVB_RMSE.items()))
 
     # ---- 12. the port's CLI -------------------------------------------------
-    run_cli(dev.index)
+    run_cli(dev.index, "vb_online", ["-batch", "5"],
+            ("free_energy_118_vb_online",))
+    run_cli(dev.index, "sgd", ["-learn_rate", "0.05"], ())
 
     # ---- 13. where an online-VB epoch's device time goes --------------------
     profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False), 1,
@@ -1350,20 +1816,11 @@ def main() -> int:
         gibbs.init_state(), num_iter=10, verbose=False, chunk=1))
     peak = torch.cuda.max_memory_allocated()
     check_mcmc_history(hm, "mcmc", "rmse")
-    # host-bound or device-bound: the host time to enqueue one sweep, then
-    # the time the device still needs after it
-    split = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        mstate, _ = gibbs.step(mstate)
-        w1 = time.perf_counter()
-        torch.cuda.synchronize()
-        split.append(f"{1e3 * (w1 - w0):.3f}/{1e3 * (time.perf_counter() - w1):.3f}")
+    mstate, split = enqueue_then_wait(lambda st: gibbs.step(st)[0], mstate)
     say("mcmc", t0, iterations=len(hm),
         sec_per_iter=f"{statistics.median(h['time_learn'] for h in hm[1:]):.6f}",
         ms_per_iter=",".join(f"{1e3 * h['time_learn']:.3f}" for h in hm),
-        enqueue_then_wait_ms=",".join(split),
+        enqueue_then_wait_ms=split,
         rmse=",".join(f"{h['rmse']:.5f}" for h in hm),
         rmse_this_last=f"{hm[-1]['rmse_this']:.5f}",
         alpha_last=f"{hm[-1]['alpha']:.4f}", peak_mem_bytes=peak,
@@ -1434,7 +1891,12 @@ def main() -> int:
     print("\n".join(lines))
     say("gather-probe", t0, sets=len(sets), card=repr(card))
 
-    runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe)
+    l_sgd, l_online, l_exp, l_sgda, l_bpr = sgd_phases(
+        build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
+        base_cfg, (tr90, va10))
+
+    runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
+            l_online, l_exp, l_sgda, l_bpr)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}
     kernels = []
     for n in SOURCES:

@@ -1,7 +1,10 @@
 """libFM-compatible command line of the PyTorch/CUDA port, for the methods
 it runs: Gibbs MCMC (``-method mcmc``, the default) and ALS (``-method
-als``), batch VBFM (``-method vb``, fast or exact mode) and in-memory online
-VBFM (``-method vb_online``), regression, one device.
+als``), batch VBFM (``-method vb``, fast or exact mode), in-memory online
+VBFM (``-method vb_online``), and the SGD family: minibatch SGD (``sgd``),
+in-memory streaming SGD (``sgd_online``), adaptive-regularisation SGD
+(``sgda``, with ``-validation``), exponential-family SGD (``exp_sgd_stoc``)
+and pairwise BPR (``bpr``); regression, one device.
 
     python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
         -dim '1,1,20' -method mcmc -iter 10 -device cuda
@@ -35,14 +38,23 @@ Flags (-name value):
   -out         filename for final test predictions
   -dim         'k0,k1,k2': bias,1-way,2-way dim; default=1,1,8
   -iter        number of iterations; default=100
-  -method      mcmc|als|vb|vb_online; default=mcmc
+  -method      mcmc|als|vb|vb_online|sgd|sgd_online|sgda|exp_sgd_stoc|bpr;
+               default=mcmc
   -regular     mcmc/als: 'r0,r1,r2' (or r, or r0 then one r1 and one r2 per
-               group) prior precisions; default=0,0,0
-  -init_stdev  mcmc/als: stdev of the initial w and v; default=0.1
+               group) prior precisions; sgd/sgd_online/exp_sgd_stoc/bpr:
+               'r0,r1,r2' (or r) regularisation; default=0,0,0
+  -init_stdev  mcmc/als and the SGD family: stdev of the initial w (mcmc,
+               als) and v; default=0.1
+  -learn_rate  the SGD family: the step size (1 or 3 values, the first
+               one used); default=0.1
+  -validation  sgda: filename of the validation data [MANDATORY for sgda]
+  -stdev       exp_sgd_stoc: the residual scale; default=1
+  -bpr_neg_field bpr: the field the negatives come from; default=-1 (last)
   -do_sampling mcmc: 0 = no sampling (conditional means); default=1
   -do_multilevel mcmc: 0 = fixed hyperparameters; default=1
   -factor_jacobi als: 1 = factor-Jacobi inside a factor block; default=0
-  -batch       number of chunks for vb_online; default=50
+  -batch       number of chunks for vb_online and sgd_online, of batches
+               for bpr; default=50
   -reshuffle   vb_online: 1 = re-partition chunk membership every epoch;
                default 0 keeps membership fixed with shuffled order
   -factor_block  factors per sweep block; 0=all (fast), 1=reference-exact
@@ -57,13 +69,23 @@ Flags (-name value):
 SUPPORTED = {"task", "train", "test", "meta", "out", "dim", "iter", "method",
              "batch", "reshuffle", "factor_block", "bins", "seed",
              "verbosity", "device", "help", "regular", "init_stdev",
-             "do_sampling", "do_multilevel", "factor_jacobi"}
-# flags only MCMC and ALS read
-MCMC_FLAGS = ("regular", "init_stdev", "do_sampling", "do_multilevel",
-              "factor_jacobi")
+             "do_sampling", "do_multilevel", "factor_jacobi", "learn_rate",
+             "validation", "stdev", "bpr_neg_field"}
+SGD_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd_stoc", "bpr")
+# the methods that read each method-specific flag
+FLAG_METHODS = {
+    "do_sampling": ("mcmc", "als"),
+    "do_multilevel": ("mcmc", "als"),
+    "factor_jacobi": ("mcmc", "als"),
+    "regular": ("mcmc", "als", "sgd", "sgd_online", "exp_sgd_stoc", "bpr"),
+    "init_stdev": ("mcmc", "als") + SGD_METHODS,
+    "learn_rate": SGD_METHODS,
+    "validation": ("sgda",),
+    "stdev": ("exp_sgd_stoc",),
+    "bpr_neg_field": ("bpr",),
+}
 
 _Q1 = "ROADMAP.md queue 1"
-_NOT_READ = "is not read by the ported methods"
 # flags of svbfm_tpu/cli.py that the port refuses, and why
 REFUSED = {
     "relation": f"block structure (relations) is not ported yet ({_Q1}, "
@@ -83,16 +105,11 @@ REFUSED = {
                    "item 13)",
     "num_eval_cases": f"held-back test rows are not ported yet ({_Q1}, "
                       "item 4)",
-    "validation": f"{_NOT_READ} (SGDA: {_Q1}, item 8)",
-    "stdev": f"{_NOT_READ} (exp-SGD: {_Q1}, item 8)",
-    "learn_rate": f"{_NOT_READ} (SGD: {_Q1}, item 8)",
-    "bpr_neg_field": f"{_NOT_READ} (BPR: {_Q1}, item 8)",
 }
 METHODS_LATER = {
-    "sgd": "item 8", "sgda": "item 8", "sgd_online": "item 8",
-    "exp_sgd": "item 8", "exp_sgd_stoc": "item 8", "bpr": "item 8",
+    "exp_sgd": "item 8: the full-batch sweep, kernel X9d, is the next slice",
 }
-METHODS = ("mcmc", "als", "vb", "vb_online")
+METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 
 
 class CmdLine:
@@ -184,10 +201,15 @@ def main(argv: Optional[list[str]] = None) -> int:
                          f"{', '.join(METHODS)}")
     if method not in METHODS:
         raise SystemExit(f"unknown method '{method}'")
-    for name in MCMC_FLAGS:
-        if cmd.has(name) and method not in ("mcmc", "als"):
+    for name, readers in FLAG_METHODS.items():
+        if cmd.has(name) and method not in readers:
             raise SystemExit(f"-{name} is not read by -method {method} "
-                             "(only by mcmc and als)")
+                             f"(only by {', '.join(readers)})")
+    if method == "sgda" and not cmd.get_str("validation"):
+        raise SystemExit("-validation is mandatory for SGDA")
+    lr = cmd.get_list("learn_rate") or [0.1]
+    if len(lr) not in (1, 3):
+        raise SystemExit("-learn_rate takes 1 or 3 values")
     do_sample = cmd.get_int("do_sampling", 1) != 0
     do_multilevel = cmd.get_int("do_multilevel", 1) != 0
     if method == "als":  # libfm.cpp:131-135
@@ -252,6 +274,9 @@ def main(argv: Optional[list[str]] = None) -> int:
         reg0 = regw = regv = reg[0]
     elif len(reg) == 3:
         reg0, regw, regv = reg
+    elif len(reg) == 1 + 2 * G and method in SGD_METHODS:
+        raise SystemExit("-regular with one r1 and one r2 per group is read "
+                         "by mcmc and als only")
     elif len(reg) == 1 + 2 * G:
         reg0 = reg[0]
         w_lambda = np.asarray(reg[1:1 + G], np.float32)
@@ -264,7 +289,8 @@ def main(argv: Optional[list[str]] = None) -> int:
         num_attributes=D, num_factor=K, k0=k0, k1=k1, task=TASK_REGRESSION,
         min_target=min_t, max_target=max_t, num_groups=G,
         num_iter=cmd.get_int("iter", 100), seed=cmd.get_int("seed", 0),
-        init_stdev=float(cmd.get_str("init_stdev") or 0.1), reg0=reg0,
+        init_stdev=float(cmd.get_str("init_stdev") or 0.1),
+        learn_rate=lr[0], stdev=float(cmd.get_str("stdev") or 1.0), reg0=reg0,
         regw=regw, regv=regv, do_sample=do_sample,
         do_multilevel=do_multilevel,
         factor_block=cmd.get_int("factor_block", 0),
@@ -282,15 +308,34 @@ def main(argv: Optional[list[str]] = None) -> int:
     elif method == "vb":
         from svbfm_tpu_torch.learners.vb import VBLearner
         learner = VBLearner(cfg, tr_ds, te_ds, meta, device=device, bins=bins)
-    else:
+    elif method == "vb_online":
         from svbfm_tpu_torch.learners.vb_online import OVBLearner
         learner = OVBLearner(cfg, tr_ds, te_ds, meta, device=device,
                              bins=bins)
+    elif method == "sgda":
+        from svbfm_tpu_torch.learners.sgd import SGDALearner
+        val = load_libfm_text(cmd.get_str("validation"))
+        if verbosity > 0:
+            _debug_data(val)
+        learner = SGDALearner(cfg, tr_ds, te_ds,
+                              SparseDataset.from_coo(val, D), meta,
+                              device=device)
+    elif method == "bpr":
+        from svbfm_tpu_torch.learners.bpr import BPRLearner
+        learner = BPRLearner(cfg, tr_ds, te_ds, meta, device=device,
+                             neg_field=cmd.get_int("bpr_neg_field", -1))
+    else:
+        from svbfm_tpu_torch.learners.exp_sgd import ExpSGDStocLearner
+        from svbfm_tpu_torch.learners.sgd import SGDLearner, SGDOnlineLearner
+        cls = {"sgd": SGDLearner, "sgd_online": SGDOnlineLearner,
+               "exp_sgd_stoc": ExpSGDStocLearner}[method]
+        learner = cls(cfg, tr_ds, te_ds, meta, device=device)
 
     # the initial factors (fm_model::init writes v_file.txt,
     # fm_model.h:92-101); the state is handed to run() below
     init_state = learner.init_state()
-    v0 = init_state.v if method in ("mcmc", "als") else init_state.mu_v
+    v0 = (init_state.mu_v if method in ("vb", "vb_online")
+          else init_state.v)
     np.savetxt("v_file.txt", v0.cpu().numpy(), fmt="%g")
     if verbosity > 0:
         print(f"num_attributes={D}")
@@ -301,6 +346,10 @@ def main(argv: Optional[list[str]] = None) -> int:
         print(f"reg_w={regw:g}")
         print(f"reg_v={regv:g}")
         print(f"init ~ N(0,{cfg.init_stdev:g})")
+        if method == "sgda":  # adapt_reg.h:346-349
+            print("method=sgda")
+        if method in SGD_METHODS and method != "bpr":
+            print(f"num_iter={cfg.num_iter}")  # fm_learn_sgd.h:66-69
         print(f"task={TASK_REGRESSION}")
         print(f"min_target={min_t:g}")
         print(f"max_target={max_t:g}")

@@ -42,11 +42,12 @@ LIBRARIES = {
     "ovb_sweep": ("ovb_col_stats_update",),
     "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows"),
     "gather_probe": ("gather_probe",),
+    "sgd_step": ("sgd_grad_scatter", "sgd_apply", "sgda_lambda"),
 }
 
 # C signatures of the exported launch functions (P: pointer or stream,
-# I: int, L: int64); every one returns cudaGetLastError() as an int
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# I: int, L: int64, F: float); every one returns cudaGetLastError() as an int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "svbfm_fm_scores": (_P, _I, _P, _P, _P, _L, _I, _P, _P),
     "svbfm_fm_t_terms": (_P, _I, _P, _P, _P, _L, _I, _P, _P),
@@ -70,6 +71,15 @@ SIGNATURES = {
                             _P, _P, _P, _L, _I, _P, _P),
     "svbfm_mcmc_patch_rows": (_P, _I, _P, _P, _L, _I, _P, _P, _P),
     "svbfm_gather_probe": (_P, _P, _L, _I, _P, _P),
+    "svbfm_sgd_grad_scatter": (
+        _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+        _I, _I, _P, _P, _P, _P, _P, _P),
+    "svbfm_sgd_apply": (
+        _P, _I, _L, _P, _F, _F, _F, _F, _F, _P, _P, _P, _I, _I, _P, _P, _F,
+        _I, _P, _P, _P, _P, _P),
+    "svbfm_sgda_lambda": (
+        _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _F, _F, _F,
+        _F, _F, _I, _I, _P, _P, _P),
 }
 
 launch_counts: dict[str, int] = {

@@ -24,8 +24,8 @@ TASK_REGRESSION = 0
 @dataclass(frozen=True)
 class FMConfig:
     """Static learner configuration: the JAX package's FMConfig fields that
-    batch and online VBFM, Gibbs MCMC and ALS read (same names and
-    defaults)."""
+    batch and online VBFM, Gibbs MCMC, ALS and the SGD family read (same
+    names and defaults)."""
 
     num_attributes: int
     num_factor: int
@@ -40,6 +40,8 @@ class FMConfig:
     # MCMC/ALS: the init spread of w and v, the -regular prior precisions
     # (their initial lambdas), and the two switches ALS turns off
     init_stdev: float = 0.1
+    # the SGD family: step size (-learn_rate)
+    learn_rate: float = 0.1
     reg0: float = 0.0
     regw: float = 0.0
     regv: float = 0.0
@@ -56,6 +58,11 @@ class FMConfig:
     # re-drawn every epoch (-reshuffle) instead of fixed once
     num_batches: int = 50
     reshuffle: bool = False
+    # SGD: the exponential-family multiplier (exp_sgd_stoc), the minibatch
+    # size (0: 1024) and the exp-family residual scale (-stdev)
+    exp_family: bool = False
+    batch_size: int = 0
+    stdev: float = 1.0
 
     @property
     def dim_tag(self) -> str:

@@ -1,17 +1,23 @@
-"""The random numbers of the Gibbs sampler.
+"""The random numbers of the Gibbs sampler and of the SGD family.
 
-Every random number of an MCMC sweep comes from one draw source, an object
-with two methods:
+Every random number of an MCMC sweep or an SGD epoch comes from one draw
+source, an object with these methods:
 
 * ``normal(shape)``: standard normal draws of that shape;
-* ``gamma(a)``: standard Gamma(a, 1) draws, elementwise in the tensor ``a``.
+* ``gamma(a)``: standard Gamma(a, 1) draws, elementwise in the tensor ``a``;
+* ``permutation(n)``: a random permutation of range(n) (int64);
+* ``randint(shape, lo, hi)``: uniform integers in [lo, hi) (int32).
 
 The learner calls them in the JAX package's order and with its shapes
 (``svbfm_tpu/learners/mcmc.py``, where each draw splits the key chain and
 uses the sub-key), including the few places where JAX splits a key whose
 numbers it does not use; so a source that replays that key chain, one
-sub-key a call, gives the port JAX's numbers.  The port itself never calls a
-global random number generator.
+sub-key a call, gives the port JAX's numbers.  The SGD learners draw one
+permutation an epoch (SGDA two: train, then validation), or per chunk
+(sgd_online), and BPR its negatives for a whole epoch, [nb, B], after the
+permutation; a test source replays each learner's chain
+(``svbfm_tpu/learners/sgd.py:163-177``, ``bpr.py:164-179``).  The port
+itself never calls a global random number generator.
 
 ``Draws`` draws on ``generator``'s device and moves the result to
 ``device``: with a generator on the learner's device it is the default
@@ -43,6 +49,15 @@ class Draws:
         a = torch.as_tensor(a, dtype=_F32).to(self.generator.device)
         return torch._standard_gamma(a, generator=self.generator).to(
             self.device)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        return torch.randperm(n, generator=self.generator,
+                              device=self.generator.device).to(self.device)
+
+    def randint(self, shape, lo: int, hi: int) -> torch.Tensor:
+        return torch.randint(lo, hi, tuple(shape), generator=self.generator,
+                             dtype=torch.int32,
+                             device=self.generator.device).to(self.device)
 
 
 def device_draws(seed: int, device) -> Draws:

@@ -2,8 +2,9 @@
 
 ``jax.random`` bits cannot be reproduced in torch, so tests that hold the
 two packages to each other start both from the same parameters: the JAX
-learner's ``VBState`` (or ``OVBState``, ``MCMCState``), fetched to numpy
-with ``jax.device_get``, becomes the port's state of the same name.
+learner's ``VBState`` (or ``OVBState``, ``MCMCState``, ``SGDState``,
+``SGDAState``, ``BPRState``), fetched to numpy with ``jax.device_get``,
+becomes the port's state of the same name.
 Nothing here imports JAX.
 """
 
@@ -15,8 +16,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from svbfm_tpu_torch.learners.bpr import BPRState
 from svbfm_tpu_torch.learners.draws import Draws
 from svbfm_tpu_torch.learners.mcmc import TENSOR_FIELDS, MCMCState
+from svbfm_tpu_torch.learners.sgd import SGDAState, SGDState, table
 from svbfm_tpu_torch.learners.vb import VBState
 from svbfm_tpu_torch.learners.vb_online import OVBState
 
@@ -50,3 +53,28 @@ def mcmc_state_from_jax(np_state: Any, device, draws: Draws) -> MCMCState:
     """The Gibbs/ALS state; the JAX ``key`` is skipped and ``draws`` takes
     its place."""
     return MCMCState(**_tensors(np_state, TENSOR_FIELDS, device), draws=draws)
+
+
+def _sgd_fields(np_state: Any, device) -> dict:
+    t = _tensors(np_state, ("w0", "w", "v"), device)
+    return dict(w0=t["w0"], tab=table(t["w"], t["v"]))
+
+
+def sgd_state_from_jax(np_state: Any, device, draws: Draws) -> SGDState:
+    """The SGD state (w0, w, v) as the port's table; the JAX ``key`` is
+    skipped and ``draws`` takes its place."""
+    return SGDState(**_sgd_fields(np_state, device), draws=draws)
+
+
+def sgda_state_from_jax(np_state: Any, device, draws: Draws) -> SGDAState:
+    """The SGDA state; the JAX package's per-shard gradient caches
+    grad_w [S, D] and grad_v [S, K, D] give shard 0's as the table
+    (grad_w | grad_v^T)."""
+    t = _tensors(np_state, ("reg_w", "reg_v", "grad_w", "grad_v"), device)
+    return SGDAState(**_sgd_fields(np_state, device), draws=draws,
+                     reg_w=t["reg_w"], reg_v=t["reg_v"],
+                     grad_tab=table(t["grad_w"][0], t["grad_v"][0]))
+
+
+def bpr_state_from_jax(np_state: Any, device, draws: Draws) -> BPRState:
+    return BPRState(**_sgd_fields(np_state, device), draws=draws)

@@ -1,8 +1,9 @@
 """The port's CLI (``python -m svbfm_tpu_torch.cli``) on tiny libFM text
-files with ``-device cpu``: vb and vb_online run end to end (mcmc and als:
-tests/test_torch_mcmc.py) and write what the
-JAX CLI writes, under the same names; every flag or method the port does
-not run exits non-zero with a message that names its ROADMAP item."""
+files with ``-device cpu``: vb, vb_online and the SGD family run end to end
+(mcmc and als: tests/test_torch_mcmc.py) and write what the JAX CLI
+writes, under the same names; every flag or method the port does not run
+exits non-zero with a message that names its ROADMAP item, and a flag the
+chosen method does not read is refused."""
 
 import os
 import subprocess
@@ -29,6 +30,8 @@ def data(tmp_path):
     tr, te = train_test_split(coo, 0.2, seed=2)
     save_libfm_text(str(tmp_path / "tr.libfm"), tr)
     save_libfm_text(str(tmp_path / "te.libfm"), te)
+    tr_part, va = train_test_split(tr, 0.1, seed=3)
+    save_libfm_text(str(tmp_path / "va.libfm"), va)
     return tmp_path, te, coo.num_features
 
 
@@ -95,7 +98,12 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
     (["-bogus", "1"], {}, "unknown parameter"),
     ([], dict(task="c"), "Next C"),
     ([], dict(method="exp_sgd"), "item 8"),
-    ([], dict(method="sgd"), "item 8"),
+    (["-validation", "va.libfm"], {}, "only by sgda"),
+    ([], dict(method="sgda"), "mandatory for SGDA"),
+    (["-stdev", "2"], dict(method="sgd"), "only by exp_sgd_stoc"),
+    (["-bpr_neg_field", "0"], dict(method="sgd"), "only by bpr"),
+    (["-learn_rate", "0.1,0.2"], dict(method="sgd"), "1 or 3 values"),
+    (["-regular", "0.1"], dict(method="sgda"), "not read by -method sgda"),
     ([], dict(method="nonsense"), "unknown method"),
 ])
 def test_refused_flags_and_methods(data, extra, kw, message):
@@ -131,9 +139,52 @@ def test_module_exit_codes(data):
     d, _, _ = data
     env = dict(os.environ, PYTHONPATH=REPO)
     run = [sys.executable, "-m", "svbfm_tpu_torch.cli"]
-    r = subprocess.run(run + _args(d, "sgd", "-device", "cpu"), cwd=d,
+    r = subprocess.run(run + _args(d, "exp_sgd", "-device", "cpu"), cwd=d,
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "item 8" in r.stderr
     r = subprocess.run(run + ["-help"], cwd=d, env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0 and "-device" in r.stdout
+
+
+SGD_ARGS = {
+    "sgd": ["-learn_rate", "0.05", "-regular", "0,0.01,0.01"],
+    "sgd_online": ["-learn_rate", "0.05", "-batch", "3"],
+    "sgda": ["-learn_rate", "0.05", "-validation", "va.libfm"],
+    "exp_sgd_stoc": ["-learn_rate", "0.02", "-stdev", "1.5"],
+    "bpr": ["-learn_rate", "0.05", "-batch", "4", "-bpr_neg_field", "-1"],
+}
+
+
+@pytest.mark.parametrize("method", list(SGD_ARGS))
+def test_cli_sgd_family_writes_the_jax_cli_files(data, method, monkeypatch,
+                                                 capsys):
+    """-method sgd|sgd_online|sgda|exp_sgd_stoc|bpr at -device cpu: the
+    JAX CLI's file names and shapes, 2 trajectory lines, the Final line
+    (the clipped test predictions' RMSE) and -out."""
+    d, te, D = data
+    extra = [a if a != "va.libfm" else str(d / "va.libfm")
+             for a in SGD_ARGS[method]]
+    ours = _run_in(d / "torch", cli.main,
+                   _args(d, method, *extra, "-device", "cpu", "-out",
+                         "pred.txt"), monkeypatch)
+    out = capsys.readouterr().out
+    theirs = _run_in(d / "jax", jax_main,
+                     _args(d, method, *extra, "-out", "pred.txt"),
+                     monkeypatch)
+    assert ours == theirs == sorted(["v_file.txt", "pred.txt",
+                                     f"test_rmse_114_{method}"])
+    for name in ours:
+        assert (np.loadtxt(d / "torch" / name).shape
+                == np.loadtxt(d / "jax" / name).shape), name
+    assert np.loadtxt(d / "torch" / "v_file.txt").shape == (4, D)
+    traj = np.loadtxt(d / "torch" / f"test_rmse_114_{method}")
+    assert traj.shape == (2,) and np.isfinite(traj).all()
+    pred = np.loadtxt(d / "torch" / "pred.txt")
+    final = float(out.split("Final\tTest=")[1].split()[0])
+    np.testing.assert_allclose(
+        final, np.sqrt(np.mean((pred - te.target) ** 2)), rtol=1e-4)
+    if method == "sgda":
+        assert "Train=" in out
+    if method == "bpr":
+        assert "PairAcc=" in out

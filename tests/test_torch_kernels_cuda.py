@@ -76,7 +76,7 @@ def _small(**cfg_kw):
 def test_learner_on_gpu_matches_cpu(cuda, factor_block):
     tr, te, D, meta, cfg = _small(factor_block=factor_block)
     params = init_vb_params(torch.Generator().manual_seed(3), cfg, "cpu")
-    hists = []
+    hists, ends = [], []
     for dev in (cuda, "cpu"):
         learner = VBLearner(cfg, SparseDataset.from_coo(tr, D),
                             SparseDataset.from_coo(te, D), meta, device=dev,
@@ -93,7 +93,7 @@ def test_learner_on_gpu_matches_cpu(cuda, factor_block):
 def test_ovb_learner_on_gpu_matches_cpu(cuda, reshuffle):
     tr, te, D, meta, cfg = _small(num_batches=4, reshuffle=reshuffle)
     init = init_ovb_state(torch.Generator().manual_seed(3), cfg, "cpu")
-    hists = []
+    hists, ends = [], []
     for dev in (cuda, "cpu"):
         learner = OVBLearner(cfg, SparseDataset.from_coo(tr, D),
                              SparseDataset.from_coo(te, D), meta, device=dev,
@@ -139,7 +139,7 @@ def test_mcmc_learner_on_gpu_matches_cpu(cuda, als, factor_block):
                                   regv=0.5)
     p = init_fm_params(torch.Generator().manual_seed(3), D, 5,
                        init_w_normal=True)
-    hists = []
+    hists, ends = [], []
     for dev in (cuda, "cpu"):
         cls = ALSLearner if als else MCMCLearner
         learner = cls(cfg, SparseDataset.from_coo(tr, D),
@@ -195,3 +195,70 @@ def test_col_draw_wide_block_matches_twin(cuda, F):
             torch.zeros(G, W, device=cuda), torch.ones(G, W, device=cuda),
             alpha.to(cuda), None, True,
             torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("kernel", ["sgd_grad_scatter", "sgd_apply",
+                                    "sgda_lambda"])
+def test_sgd_kernels_match_twins_on_ragged_case(cuda, kernel):
+    """X9a-X9c in every step mode at K = 1, 5 and 40 on chip_smoke.py's
+    ragged SGD cases (padding entries and rows, duplicate ids, a pair whose
+    negative is its own item; at K = 5 a NaN target): the kernel gives the
+    twin's outputs, NaN where the twin has NaN."""
+    import chip_smoke
+
+    for s in chip_smoke.ragged_sgd_tensors(cuda):
+        cases = chip_smoke.make_cases(s)[kernel]
+        assert cases
+        for label, prepare, call, _ in cases:
+            ok, op = call("kernel", prepare()), call("plain", prepare())
+            torch.cuda.synchronize()
+            chip_smoke.compare(ok, op, f"{kernel} ({label})")
+
+
+@pytest.mark.parametrize("method", ["sgd", "sgd_online", "sgda", "bpr"])
+def test_sgd_learners_on_gpu_match_cpu(cuda, method):
+    """3 epochs from one host-made init and host-drawn permutations and
+    negatives, on the card (kernels) and on the CPU (twins): the metrics
+    agree to chip_smoke.SGD_TRAJ_RTOL and the parameter tables (and SGDA's
+    regs) to chip_smoke.SGD_PARAM_ATOL; only X9a's atomics add in another
+    order."""
+    import chip_smoke
+
+    from svbfm_tpu_torch.learners.bpr import BPRLearner
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.sgd import (SGDALearner, SGDLearner,
+                                              SGDOnlineLearner)
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    tr, te, D, meta, cfg = _small(learn_rate=0.05, regw=0.01, regv=0.01,
+                                  batch_size=128, num_batches=4)
+    train, test = SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D)
+    p = init_fm_params(torch.Generator().manual_seed(3), D, 5)
+    hists, ends = [], []
+    for dev in (cuda, "cpu"):
+        if method == "sgda":
+            learner = SGDALearner(cfg, train, test, test, meta, device=dev,
+                                  write_files=False)
+        elif method == "bpr":
+            learner = BPRLearner(cfg, train, test, meta, device=dev,
+                                 write_files=False)
+        else:
+            cls = SGDLearner if method == "sgd" else SGDOnlineLearner
+            learner = cls(cfg, train, test, meta, device=dev,
+                          write_files=False)
+        state = learner.state_from_params(p.w0, p.w, p.v, host_draws(4, dev))
+        kw = dict(eval_draws=host_draws(5, dev)) if method == "bpr" else {}
+        state, hist = learner.run(state, num_iter=3, verbose=False, **kw)
+        hists.append(hist)
+        ends.append([state.tab.cpu()] + ([state.reg_w.cpu(), state.reg_v.cpu()]
+                                         if method == "sgda" else []))
+    keys = {"sgda": ("rmse", "rmse_train", "rmse_val"),
+            "bpr": ("pair_loss",)}.get(method, ("rmse", "mae"))
+    for g, c in zip(*hists):
+        for k in keys:
+            np.testing.assert_allclose(g[k], c[k],
+                                       rtol=chip_smoke.SGD_TRAJ_RTOL,
+                                       err_msg=k)
+    for g, c in zip(*ends):
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=0,
+                                   atol=chip_smoke.SGD_PARAM_ATOL)

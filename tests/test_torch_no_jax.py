@@ -20,6 +20,8 @@ from svbfm_tpu_torch.learners.base import FMConfig
 from svbfm_tpu_torch.learners.vb import VBLearner
 from svbfm_tpu_torch.learners.vb_online import OVBLearner
 from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+from svbfm_tpu_torch.learners.sgd import SGDALearner, SGDLearner
+from svbfm_tpu_torch.learners.bpr import BPRLearner
 from svbfm_tpu_torch.utils import convert  # noqa: F401
 from svbfm_tpu_torch import cli  # noqa: F401
 
@@ -46,12 +48,22 @@ _, hm = gibbs.run(num_iter=2, verbose=False)
 als = ALSLearner(dataclasses.replace(cfg, factor_block=1), train, test, meta,
                  device="cpu", write_files=False)
 _, ha = als.run(num_iter=2, verbose=False)
+sgd_cfg = dataclasses.replace(cfg, batch_size=16, learn_rate=0.05)
+_, hs = SGDLearner(sgd_cfg, train, test, meta, device="cpu",
+                   write_files=False).run(num_iter=1, verbose=False)
+_, hg = SGDALearner(sgd_cfg, train, test, test, meta, device="cpu",
+                    write_files=False).run(num_iter=1, verbose=False)
+_, hb = BPRLearner(dataclasses.replace(sgd_cfg, num_batches=4), train, test,
+                   meta, device="cpu", write_files=False).run(
+                       num_iter=1, verbose=False)
 loaded = [m for m, v in sys.modules.items() if v is not None and
           m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
 assert not loaded, loaded
 print("sweeps", len(hist), "rmse", hist[-1]["rmse"])
 print("exact", len(hx), "ovb", len(ho), ho[-1]["rmse"])
 print("mcmc", len(hm), "als", len(ha), hm[-1]["rmse"], ha[-1]["rmse_this"])
+print("sgd", len(hs), "sgda", len(hg), "bpr", len(hb), hs[-1]["rmse"],
+      hg[-1]["rmse_val"], hb[-1]["accuracy"])
 """
 
 
@@ -62,6 +74,7 @@ def test_port_runs_two_sweeps_without_jax():
     assert "sweeps 2" in r.stdout
     assert "exact 1 ovb 1" in r.stdout
     assert "mcmc 2 als 2" in r.stdout
+    assert "sgd 1 sgda 1 bpr 1" in r.stdout
 
 
 def test_no_jax_import_statement_in_port():

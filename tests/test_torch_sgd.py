@@ -1,0 +1,445 @@
+"""Minibatch SGD, sgd_online, exp_sgd_stoc and SGDA in the port (CPU twins of
+X9a-X9c and K1) against the JAX package's ``svbfm_tpu.learners.sgd`` and
+``exp_sgd``, and SGDA against the float64 ``SGDAOracle``.  Both packages
+start from the JAX learner's init (``utils.convert.sgd_state_from_jax``,
+``sgda_state_from_jax``) and use the same permutations: the test draw
+sources replay each JAX learner's key chain (sgd.py:163-177, :271-273), and
+the tests check that the chains end on the same key.
+
+Tolerances, set from what was measured on this data (float32 sums taken in
+another order; the worst is noted beside each):
+  * one minibatch step against JAX: rtol 1e-5 / atol 1e-6 (it passes at
+    rtol 1e-6 / atol 1e-7);
+  * 3 epochs of a learner against JAX: rtol 1e-4 / atol 1e-6 on w0, w, v
+    and SGDA's gradient caches, atol 1e-7 on the regs, rtol 1e-5 on the
+    per-epoch RMSEs (measured: at most 6e-7 absolute on w0, w, v, 2.4e-6
+    on the gradient caches, 1.5e-8 on the regs; 1.5e-7 relative on the
+    RMSEs);
+  * against SGDAOracle at batch size 1: test_sgd.py:162-166's own.
+"""
+
+import dataclasses
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from svbfm_tpu.data.dataset import SparseDataset as JDataset
+from svbfm_tpu.data.meta import DataMetaInfo as JMeta
+from svbfm_tpu.data.synth import make_movielens_like, train_test_split
+from svbfm_tpu.learners import exp_sgd as jx
+from svbfm_tpu.learners import sgd as js
+from svbfm_tpu.learners.base import FMConfig as JConfig
+from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm_tpu_torch.data.dataset import SparseDataset
+from svbfm_tpu_torch.data.meta import DataMetaInfo
+from svbfm_tpu_torch.kernels import sgd_step as ks
+from svbfm_tpu_torch.learners import exp_sgd as tx
+from svbfm_tpu_torch.learners import sgd as ts
+from svbfm_tpu_torch.learners.base import FMConfig
+from svbfm_tpu_torch.utils.convert import (sgd_state_from_jax,
+                                           sgda_state_from_jax)
+
+from oracle import SGDAOracle
+
+
+def _perm(key, n):
+    return torch.from_numpy(np.asarray(
+        jax.random.permutation(jax.random.fold_in(key, 0), n)).astype(
+            np.int64))
+
+
+class JaxSGDKeys:
+    """Replays SGD's chain: an epoch (or an sgd_online chunk) splits the
+    key and permutes with the sub-key folded with shard 0."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def permutation(self, n):
+        self.key, sub = jax.random.split(self.key)
+        return _perm(sub, n)
+
+
+class JaxSGDAKeys:
+    """Replays SGDA's chain: an epoch splits the key in three, the train
+    permutation takes the second, the validation one the third."""
+
+    def __init__(self, key):
+        self.key, self._val = key, None
+
+    def permutation(self, n):
+        if self._val is None:
+            self.key, k1, self._val = jax.random.split(self.key, 3)
+            return _perm(k1, n)
+        k2, self._val = self._val, None
+        return _perm(k2, n)
+
+
+def _data(num_rows=2000, num_users=30, num_items=25, seed=3):
+    coo = make_movielens_like(num_users=num_users, num_items=num_items,
+                              num_ratings=num_rows, rank=2, noise=0.4,
+                              seed=seed)
+    tr, te = train_test_split(coo, 0.2, seed=seed + 1)
+    return coo, tr, te
+
+
+def _cfgs(D, tr, K=4, **kw):
+    """test_sgd.py:_setup's config in both packages."""
+    base = dict(num_attributes=D, num_factor=K,
+                min_target=float(tr.target.min()),
+                max_target=float(tr.target.max()), num_groups=2, seed=7,
+                learn_rate=0.05, regw=0.01, regv=0.01, batch_size=128, **kw)
+    return JConfig(**base), FMConfig(**base)
+
+
+def _val_split(ds, n, cls):
+    return cls(ids=ds.ids[:n], vals=ds.vals[:n], target=ds.target[:n],
+               num_rows=n, num_features=ds.num_features,
+               min_target=ds.min_target, max_target=ds.max_target,
+               row_nnz=ds.row_nnz[:n])
+
+
+def _pair(which, K=4, **kw):
+    coo, tr, te = _data()
+    D = coo.num_features
+    jcfg, tcfg = _cfgs(D, tr, K, **kw)
+    jmeta = JMeta.from_field_offsets(D, [0, 30])
+    tmeta = DataMetaInfo.from_field_offsets(D, [0, 30])
+    jtr, jte = JDataset.from_coo(tr, D), JDataset.from_coo(te, D)
+    ttr, tte = SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D)
+    common = dict(write_files=False)
+    if which == "sgda":
+        jl = js.SGDALearner(jcfg, jtr, jte, _val_split(jtr, 400, JDataset),
+                            jmeta, mesh=make_mesh(1), **common)
+        tl = ts.SGDALearner(tcfg, ttr, tte, _val_split(ttr, 400,
+                                                       SparseDataset),
+                            tmeta, device="cpu", **common)
+        return jl, tl
+    jcls, tcls = {"sgd": (js.SGDLearner, ts.SGDLearner),
+                  "sgd_online": (js.SGDOnlineLearner, ts.SGDOnlineLearner),
+                  "exp_sgd_stoc": (jx.ExpSGDStocLearner,
+                                   tx.ExpSGDStocLearner)}[which]
+    jl = jcls(jcfg, jtr, jte, jmeta, mesh=make_mesh(1), **common)
+    tl = tcls(tcfg, ttr, tte, tmeta, device="cpu", **common)
+    return jl, tl
+
+
+PARAMS = ("w0", "w", "v")
+
+
+def _assert_params(tstate, jstate, names, rtol=1e-4, atol=1e-6):
+    for k in names:
+        ref = np.asarray(getattr(jstate, k))
+        if k in ("grad_w", "grad_v"):
+            ref = ref[0]
+        np.testing.assert_allclose(getattr(tstate, k).numpy(), ref,
+                                   rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("which,cfg_kw", [
+    ("sgd", {}), ("sgd", dict(K=0)), ("sgd", dict(k0=False, k1=False)),
+    ("sgd_online", dict(num_batches=4)), ("exp_sgd_stoc", dict(stdev=1.5))])
+def test_learner_epochs_match_jax(which, cfg_kw):
+    jl, tl = _pair(which, **cfg_kw)
+    jstate = jl.init_state()
+    tstate = sgd_state_from_jax(jax.device_get(jstate), "cpu",
+                                JaxSGDKeys(jstate.key))
+    jend, jh = jl.run(jstate, num_iter=3, verbose=False)
+    tend, th = tl.run(tstate, num_iter=3, verbose=False)
+    assert len(th) == 3
+    for a, b in zip(jh, th):
+        for k in ("rmse", "mae"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, err_msg=k)
+    _assert_params(tend, jend, PARAMS)
+    np.testing.assert_array_equal(np.asarray(tend.draws.key),
+                                  np.asarray(jend.key))
+    # run() started from a copy: the caller's state is unchanged
+    np.testing.assert_array_equal(tstate.v.numpy(), np.asarray(jstate.v))
+    assert th[-1]["rmse"] < th[0]["rmse"]
+
+
+def test_sgda_epochs_match_jax_with_duplicate_id_caches():
+    """3 SGDA iterations at batch 128 (iteration 0 without lambda steps):
+    the parameters, the adapted regs and the last-seen gradient caches,
+    where every batch holds many entries of one user (the batch's last
+    entry of an attribute is kept, as XLA's CPU scatter keeps it), and the
+    per-iteration train, validation and test RMSE."""
+    jl, tl = _pair("sgda")
+    jstate = jl.init_state()
+    tstate = sgda_state_from_jax(jax.device_get(jstate), "cpu",
+                                 JaxSGDAKeys(jstate.key))
+    jend, jh = jl.run(jstate, num_iter=3, verbose=False)
+    tend, th = tl.run(tstate, num_iter=3, verbose=False)
+    for a, b in zip(jh, th):
+        for k in ("rmse", "rmse_train", "rmse_val"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, err_msg=k)
+    _assert_params(tend, jend, PARAMS + ("grad_w", "grad_v"))
+    _assert_params(tend, jend, ("reg_w", "reg_v"), rtol=1e-4, atol=1e-7)
+    assert float(tend.reg_w.abs().sum() + tend.reg_v.abs().sum()) > 0
+    np.testing.assert_array_equal(np.asarray(tend.draws.key),
+                                  np.asarray(jend.key))
+
+
+def _batch(seed=0, B=128, K=4, num_users=30):
+    """A train batch of test_sgd.py's data with a padding row (valid 0) and
+    an x = 0 entry; random parameters, caches and regs."""
+    coo, tr, _ = _data()
+    D = coo.num_features
+    rng = np.random.default_rng(seed)
+    ds = SparseDataset.from_coo(tr, D)
+    ids, vals = ds.ids[:B].copy(), ds.vals[:B].copy()
+    y = ds.target[:B].copy()
+    valid = np.ones(B, np.float32)
+    valid[-1] = 0.0
+    vals[3, 1] = 0.0
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(
+        D=D, K=K, ids=ids.astype(np.int32), vals=f32(vals), y=f32(y),
+        valid=valid, w0=f32(0.3), w=f32(rng.normal(0, 0.1, D)),
+        v=f32(rng.normal(0, 0.1, (K, D))),
+        reg_w=f32(rng.uniform(0, 0.05, 2)),
+        reg_v=f32(rng.uniform(0, 0.05, (2, K))),
+        grad_w=f32(rng.normal(0, 0.1, D)),
+        grad_v=f32(rng.normal(0, 0.1, (K, D))),
+        attr_group=(np.arange(D) >= num_users).astype(np.int32),
+        min_t=float(tr.target.min()), max_t=float(tr.target.max()))
+
+
+CASES = {"regression": {}, "exp_family": dict(exp_family=True, stdev=1.7),
+         "k0k1_off": dict(k0=False, k1=False), "K=0": dict(K=0),
+         "sgda": dict(sgda=True)}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_minibatch_update_matches_jax(case):
+    """The port's sgd_minibatch_update (X9a + X9b twins) against JAX's
+    inside a 1-device shard_map; in SGDA mode (mult_scale 2, per-group
+    regs, reg0 = 0) also the cache scatter of duplicate ids and the lambda
+    step (X9c's twin) on a validation batch."""
+    kw = dict(CASES[case])
+    sgda = kw.pop("sgda", False)
+    b = _batch(K=kw.pop("K", 4))
+    D, K = b["D"], b["K"]
+    cfg_kw = dict(num_attributes=D, num_factor=K, min_target=b["min_t"],
+                  max_target=b["max_t"], num_groups=2, learn_rate=0.05,
+                  reg0=0.02, regw=0.01, regv=0.03, **kw)
+    jcfg, tcfg = JConfig(**cfg_kw), FMConfig(**cfg_kw)
+    lr = jcfg.learn_rate
+    ag = jnp.asarray(b["attr_group"])
+    rep = P()
+    mesh = make_mesh(1)
+    vb = _batch(seed=1, B=60)  # the validation batch
+    vb["ids"], vb["vals"], vb["y"] = (vb["ids"][::-1].copy(),
+                                      vb["vals"][::-1].copy(),
+                                      vb["y"][::-1].copy())
+
+    @jax.jit
+    @partial(jax.shard_map, mesh=mesh, in_specs=(rep,) * 15,
+             out_specs=(rep,) * 7)
+    def jstep(w0, w, v, reg_w, reg_v, grad_w, grad_v, ids, vals, y, valid,
+              vids, vvals, vy, vvalid):
+        if sgda:
+            regw_d = 2.0 * jnp.take(reg_w, ag)
+            regv_d = 2.0 * jnp.take(reg_v, ag, axis=0).T
+            w0, w, v, gw_e, gv_e = js.sgd_minibatch_update(
+                w0, w, v, ids, vals, y, valid, jcfg, lr, 0.0, regw_d, regv_d,
+                mult_scale=2.0)
+            mask = (vals != 0) & (valid[:, None] > 0)
+            ids_sc = jnp.where(mask, ids, D)
+            grad_w = grad_w.at[ids_sc].set(gw_e, mode="drop")
+            grad_v = grad_v.at[:, ids_sc].set(gv_e, mode="drop")
+            reg_w, reg_v = js.sgda_lambda_update(
+                w0, w, v, reg_w, reg_v, grad_w, grad_v, vids, vvals, vy,
+                vvalid, jcfg, ag)
+        else:
+            w0, w, v, _, _ = js.sgd_minibatch_update(
+                w0, w, v, ids, vals, y, valid, jcfg, lr, jcfg.reg0,
+                jnp.full_like(w, jcfg.regw), jnp.full_like(v, jcfg.regv))
+        return w0, w, v, reg_w, reg_v, grad_w, grad_v
+
+    names = ("w0", "w", "v", "reg_w", "reg_v", "grad_w", "grad_v")
+    want = jstep(*(jnp.asarray(b[k]) for k in names),
+                 *(jnp.asarray(b[k]) for k in ("ids", "vals", "y", "valid")),
+                 *(jnp.asarray(vb[k]) for k in ("ids", "vals", "y", "valid")))
+    want = dict(zip(names, (np.asarray(a) for a in want)))
+
+    t = {k: torch.from_numpy(np.array(b[k])) for k in b
+         if isinstance(b[k], np.ndarray)}
+    state = ts.SGDAState(w0=t["w0"], tab=ts.table(t["w"], t["v"]),
+                         draws=None, reg_w=t["reg_w"], reg_v=t["reg_v"],
+                         grad_tab=ts.table(t["grad_w"], t["grad_v"]))
+    B, Pn = b["ids"].shape
+    if sgda:
+        mode = ts.sgd_step_mode(tcfg, mult_scale=2.0, reg0=0.0)
+        ws = ks.make_workspace(D, K, "cpu", sgda_batch=(B, Pn), G=2)
+        ts.sgd_minibatch_update(state, t["ids"], t["vals"], t["y"],
+                                t["valid"], mode, ws,
+                                (state.reg_w, state.reg_v, t["attr_group"],
+                                 state.grad_tab))
+        vt = {k: torch.from_numpy(np.array(vb[k]))
+              for k in ("ids", "vals", "y", "valid")}
+        ts.sgda_lambda_update(state, t["attr_group"], vt["ids"], vt["vals"],
+                              vt["y"], vt["valid"], mode, ws)
+        assert (ws.winner == -1).all()
+    else:
+        mode = ts.sgd_step_mode(tcfg)
+        ws = ks.make_workspace(D, K, "cpu")
+        ts.sgd_minibatch_update(state, t["ids"], t["vals"], t["y"],
+                                t["valid"], mode, ws)
+    assert not ws.acc.any() and not ws.acc0.any()  # X9b zeroes them
+    for k in names:
+        np.testing.assert_allclose(getattr(state, k).numpy(), want[k],
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    if K:
+        assert not np.allclose(want["v"], b["v"])
+    if sgda:  # duplicates: 128 rows of 30 users
+        assert len(np.unique(b["ids"][:, 0])) < B
+        assert not np.allclose(want["reg_v"], b["reg_v"])
+
+
+def test_sgda_steps_match_oracle_at_batch_one():
+    """test_sgd.py:88-168 on the port: per-example theta and lambda steps
+    against the float64 SGDAOracle, with its data and tolerances."""
+    coo = make_movielens_like(num_users=8, num_items=6, num_ratings=80,
+                              rank=2, noise=0.4, seed=5)
+    tr, va = train_test_split(coo, 0.4, seed=6)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 8])
+    G, K, lr = meta.num_attr_groups, 3, 0.05
+    cfg = FMConfig(num_attributes=D, num_factor=K,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()), num_groups=G,
+                   learn_rate=lr)
+    rng = np.random.default_rng(1)
+    w0, w = 0.0, np.zeros(D, np.float32)
+    v = (0.1 * rng.standard_normal((K, D))).astype(np.float32)
+    orc = SGDAOracle(D, K, G, meta.attr_group, lr, cfg.min_target,
+                     cfg.max_target)
+    orc.init(w0, w, v)
+    state = ts.SGDAState(
+        w0=torch.tensor(w0), tab=ts.table(torch.from_numpy(w),
+                                          torch.from_numpy(v)),
+        draws=None, reg_w=torch.zeros(G), reg_v=torch.zeros(G, K),
+        grad_tab=torch.zeros(D, 1 + K))
+    ag = torch.from_numpy(meta.attr_group.astype(np.int32))
+    mode = ts.sgd_step_mode(cfg, mult_scale=2.0, reg0=0.0)
+    ws = ks.make_workspace(D, K, "cpu", sgda_batch=(1, 2), G=G)
+
+    def row_of(c, i):
+        sel = c.row == i
+        return c.col[sel].astype(np.int32), c.val[sel].astype(np.float32)
+
+    one = torch.ones(1)
+    for i in range(min(12, tr.num_rows, va.num_rows)):
+        ti, tx_ = row_of(tr, i)
+        vi, vx = row_of(va, i)
+        ts.sgd_minibatch_update(
+            state, torch.from_numpy(ti)[None], torch.from_numpy(tx_)[None],
+            torch.tensor(tr.target[i:i + 1]), one, mode, ws,
+            (state.reg_w, state.reg_v, ag, state.grad_tab))
+        ts.sgda_lambda_update(state, ag, torch.from_numpy(vi)[None],
+                              torch.from_numpy(vx)[None],
+                              torch.tensor(va.target[i:i + 1]), one, mode, ws)
+        orc.theta_step(ti, tx_, float(tr.target[i]))
+        orc.lambda_step(vi, vx, float(va.target[i]))
+    np.testing.assert_allclose(float(state.w0), orc.w0, rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(state.w.numpy(), orc.w, rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(state.v.numpy(), orc.v, rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(state.grad_w.numpy(), orc.grad_w, rtol=2e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(state.reg_w.numpy(), orc.reg_w, rtol=2e-3,
+                               atol=1e-7)
+    np.testing.assert_allclose(state.reg_v.numpy(), orc.reg_v, rtol=2e-3,
+                               atol=1e-7)
+    assert float(state.reg_v.abs().sum() + state.reg_w.abs().sum()) > 0
+
+
+def test_sgda_lambda_nonfinite_loss_poisons_every_group():
+    """JAX sums every group of every row (sgd.py:239-263): a row whose
+    grad_loss is NaN makes every reg NaN, not only its own groups'."""
+    b = _batch(B=4)
+    D, K = b["D"], b["K"]
+    cfg = FMConfig(num_attributes=D, num_factor=K, num_groups=3,
+                   learn_rate=0.05)
+    t = {k: torch.from_numpy(np.array(b[k])) for k in b
+         if isinstance(b[k], np.ndarray)}
+    y = t["y"].clone()
+    y[0] = float("nan")
+    reg_w, reg_v = torch.full((3,), 0.01), torch.full((3, K), 0.01)
+    ks.sgda_lambda_plain(ts.table(t["w"], t["v"]),
+                         ts.table(t["grad_w"], t["grad_v"]), t["w0"], reg_w,
+                         reg_v, t["attr_group"], t["ids"], t["vals"], y,
+                         t["valid"], ts.sgd_step_mode(cfg))
+    assert torch.isnan(reg_w).all() and torch.isnan(reg_v).all()
+
+
+def test_classification_and_poisson_refused():
+    cfg = FMConfig(num_attributes=5, num_factor=2, task=1)
+    with pytest.raises(NotImplementedError, match="Next C"):
+        ts.sgd_step_mode(cfg)
+    with pytest.raises(NotImplementedError, match="Next C"):
+        ts.sgd_step_mode(dataclasses.replace(cfg, task=2))
+
+
+def test_exp_sgd_and_from_reader_refused():
+    with pytest.raises(NotImplementedError, match="X9d"):
+        tx.ExpSGDLearner()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ts.SGDOnlineLearner.from_reader(None, None, None)
+
+
+def test_shuffled_batches_drop_the_remainder():
+    """n = 13 rows into 4 batches: 3 rows each, the last row of the order
+    dropped, as sgd.py:165-167."""
+    from svbfm_tpu_torch.learners.base import RowData
+
+    n = 13
+    row = RowData(ids=torch.arange(2 * n, dtype=torch.int32).view(n, 2),
+                  vals=torch.ones(n, 2), target=torch.arange(n * 1.0),
+                  valid=torch.ones(n))
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(0))
+    ids, vals, y, valid = ts._shuffled_batches(row, order, 4)
+    assert ids.shape == (4, 3, 2) and y.shape == (4, 3)
+    np.testing.assert_array_equal(y.reshape(-1).numpy(),
+                                  order[:12].numpy().astype(np.float32))
+
+
+@pytest.mark.parametrize("K", [1, 5, 40])
+def test_ragged_sgd_kernel_cases_on_cpu(K):
+    """chip_smoke.py's ragged SGD cases, which hold X9a-X9c against their
+    twins on the card, exercise what they claim: every step mode has a
+    case; at K = 5 the NaN target reaches the accumulator, the table and
+    every SGDA reg; at K = 1 and 40 all is finite; the X9a record keeps the
+    last entry of each attribute."""
+    import chip_smoke
+
+    (s,) = [c for c in chip_smoke.ragged_sgd_tensors("cpu")
+            if c["sgd"]["tab"].shape[1] == 1 + K]
+    cases = chip_smoke.make_cases(s)
+    labels = {n: [c[0] for c in cases[n]] for n in
+              ("sgd_grad_scatter", "sgd_apply", "sgda_lambda")}
+    assert len(labels["sgd_grad_scatter"]) == len(labels["sgd_apply"]) == 4
+    assert len(labels["sgda_lambda"]) == 1
+    for name in labels:
+        for label, prepare, call, _ in cases[name]:
+            outs = call("plain", prepare())
+            finite = all(torch.isfinite(o.float()).all() for o in outs)
+            nan_row = K == 5 and "pair" not in label
+            assert finite != nan_row, (name, label)
+            if name == "sgda_lambda" and K == 5:
+                assert torch.isnan(outs[0]).all() and torch.isnan(
+                    outs[1]).all()
+            if name == "sgd_grad_scatter" and "sgda" in label:
+                ids, vals, _, valid = s["sgd"]["modes"][2][3]
+                keep = ((vals != 0) & (valid[:, None] > 0)).reshape(-1)
+                want = torch.full((ids.max() + 1,), -1, dtype=torch.int64)
+                for i, d in enumerate(ids.reshape(-1).tolist()):
+                    if keep[i]:
+                        want[d] = i  # the last kept entry of d
+                assert (want >= 0).sum() > 0
+                assert outs[-1][: len(want)].tolist() == want.tolist()
