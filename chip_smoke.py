@@ -11,9 +11,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      shapes the paths give it (ML-1M, K=20; batch VB fast mode, exact mode
      at F=1 with the w patch, an online-VB chunk of 1/20 of the rows at
      F=1, Gibbs/ALS blocks at F=20 and F=1 in both draw modes, the gather
-     probe's shapes, the SGD family's batches in each step mode) and on
-     small ragged cases with NaN-producing columns or targets; time both,
-     and one PyTorch call where one computes the same function.
+     probe's shapes, the SGD family's batches in each step mode, the
+     full-batch exp_sgd's w and v steps at F=20 and F=1, the block-structure
+     sampler's relation kernels on the 1M-rating relational recipe at F=20,
+     F=1 and the w sweep) and on small ragged cases with NaN-producing
+     columns or targets, Inf noise, L=1 buckets and columns split over
+     blocks; time both, and one PyTorch call where one computes the same
+     function.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
      every kernel of the path must have been launched; the free energy must
      not fall and the test RMSE must drop.
@@ -32,9 +36,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      init on the card and on the CPU; the trajectories must agree.
  11. ovb quality: -reshuffle 1, 20 chunks, 30 epochs; test RMSE at epochs
      10 and 30 beside the reference C++ run's (information).
- 12. cli: python -m svbfm_tpu_torch.cli -method vb_online, then -method
-     sgd, -device cuda on small libFM files; each must exit 0 and write its
-     files.
+ 12. cli: python -m svbfm_tpu_torch.cli -method vb_online, -method sgd,
+     -method exp_sgd and -method als -relation items, -device cuda on small
+     libFM files; each must exit 0 and write its files.
  13. ovb-profile: device time of one online-VB epoch by kernel.
  14. mcmc: Gibbs MCMC, factor_block=0 (F=20), 10 iterations from the
      default device generator: kernels launched, no NaN/Inf counts,
@@ -66,10 +70,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      learn rate 0.01) at iterations 1-20 beside the reference C++'s
      (information).
  27. sgd-profile: device time of one SGD epoch by kernel.
+ 28. exp-sgd: the full-batch exponential-family sweep (-method exp_sgd,
+     learn rate 0.5), factor_block 0, 5 sweeps: X9d's two modes, X8b, X8d,
+     the w patch and K1 launched, test RMSE falling; sec/iter, peak memory.
+ 29. exp-sgd gpu-vs-cpu: 2 sweeps from one host-made init, card and CPU.
+ 30. bs-mcmc: block-structure Gibbs on the relational recipe
+     (scripts/bench_bs.py: 1M ratings, K=20, 20+20 attribute slots, 42
+     joined entries a row that are never materialised), F=K, 5 iterations:
+     X10a-X10d launched, no NaN/Inf counts, RMSE falling; sec/iter, peak
+     memory, the main row layout's width beside the join's.
+ 31. bs-als: the same with ALS, 5 iterations; then bs-seq, Gibbs at
+     factor_block=1 (the factor-sequential path), 2 iterations.
+ 32. bs-gpu-vs-cpu: 2 Gibbs sweeps of the 100k-row recipe (4+4 slots, K=8)
+     from one host-made init and host-table draw source, card and CPU.
+ 33. bs-quality: the PARITY_RUNS.md:166-183 recipe, 30 iterations of
+     Gibbs and of ALS (-regular 10), beside the reference C++ (information).
+ 34. bs-profile: device time of one blocked BS Gibbs sweep by kernel.
 Then the nvidia-smi line again, a JSON line with each kernel's launches
-(summed over the driven runs of phases 3, 7, 9, 14, 16, 19 and 20-25, each
-read just after its run with the counts zeroed just before), error, times
-and bound, and as the last line {"ok": true, "device": {...}}.
+(summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28, 30
+and 31, each read just after its run with the counts zeroed just before),
+error, times and bound, and as the last line {"ok": true, "device": {...}}.
 
 Imports only svbfm_tpu_torch, torch and numpy: never JAX.
 """
@@ -133,6 +153,19 @@ REF_SGD_RMSE = {1: 0.7673, 10: 0.7375, 30: 0.7422}
 SGDA_LR, SGDA_K = 0.01, 8
 REF_SGDA_RMSE = {1: 0.7422, 5: 0.7424, 10: 0.7411, 15: 0.7253, 20: 0.7119}
 SGD_ONLINE_CHUNKS = 50
+# full-batch exp_sgd: a step divides the gradient by N, so only w0's step
+# (lr times the mean residual) is large; at 0.5, test_exp_sgd.py's rate, the
+# test RMSE falls over the first sweeps, and w0 converges (lr < 2)
+EXP_SGD_LR = 0.5
+# the relational recipe (scripts/bench_bs.py:52-74 and :97-99): 1M ratings,
+# 20 attribute slots a user and an item row, -regular-style regs 0.05
+BS_ROWS, BS_SLOTS, BS_REG = 1_000_000, 20, 0.05
+# the reference C++ on the PARITY_RUNS.md:166-183 recipe (100k rows, 4+4
+# slots, the first 10% held out, dim 1,1,8): MCMC posterior-mean and ALS
+# (-regular 10) test RMSE by iteration; other draws and inits
+BS_Q_ROWS, BS_Q_SLOTS, BS_Q_K, BS_Q_ALS_REG = 100_000, 4, 8, 10.0
+REF_BS_MCMC_RMSE = {1: 0.7747, 10: 0.6887, 30: 0.6586}
+REF_BS_ALS_RMSE = {1: 0.6562, 10: 0.6618, 30: 0.7184}
 # BPR's positives: the ratings of 4 and 5 stars; its learn rate: at the
 # CLI's 0.1 the pair accuracy on this data (items drawn uniformly) peaks
 # after the first epoch and falls, at 0.01 it rises over 5 epochs (both
@@ -176,7 +209,31 @@ SOURCES = {
                   "svbfm_tpu/learners/sgd.py:124"),
     "sgda_lambda": ("svbfm_tpu_torch/csrc/sgd_step.cu",
                     "svbfm_tpu/learners/sgd.py:195"),
+    "w_grad_step": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                    "svbfm_tpu/learners/exp_sgd.py:78"),
+    "mcmc_col_grad": ("svbfm_tpu_torch/csrc/mcmc_sweep.cu",
+                      "svbfm_tpu/learners/exp_sgd.py:120"),
+    "bs_join_agg": ("svbfm_tpu_torch/csrc/bs_sweep.cu",
+                    "svbfm_tpu/learners/mcmc_bs.py:554"),
+    "bs_rel_draw": ("svbfm_tpu_torch/csrc/bs_sweep.cu",
+                    "svbfm_tpu/learners/mcmc_bs.py:379"),
+    "bs_rel_w_draw": ("svbfm_tpu_torch/csrc/bs_sweep.cu",
+                      "svbfm_tpu/learners/mcmc_bs.py:650"),
+    "bs_rel_patch": ("svbfm_tpu_torch/csrc/bs_sweep.cu",
+                     "svbfm_tpu/learners/mcmc_bs.py:439"),
+    "bs_rel_w_patch": ("svbfm_tpu_torch/csrc/bs_sweep.cu",
+                       "svbfm_tpu/learners/mcmc_bs.py:670"),
+    "bs_rel_moments": ("svbfm_tpu_torch/csrc/bs_forward.cu",
+                       "svbfm_tpu/learners/mcmc_bs.py:251"),
+    "bs_scores": ("svbfm_tpu_torch/csrc/bs_forward.cu",
+                  "svbfm_tpu/learners/mcmc_bs.py:215"),
+    "bs_resync": ("svbfm_tpu_torch/csrc/bs_forward.cu",
+                  "svbfm_tpu/learners/mcmc_bs.py:463"),
 }
+# the relation kernels of the block-structure sampler, every path of it
+BS_KERNELS = ("bs_rel_moments", "bs_scores", "bs_resync", "bs_join_agg",
+              "bs_rel_draw", "bs_rel_w_draw", "bs_rel_patch",
+              "bs_rel_w_patch")
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "vb-fast": ("fm_scores", "fm_t_terms", "vb_build_qt",
@@ -196,6 +253,12 @@ PATH_KERNELS = {
     "exp-sgd-stoc": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
     "sgda": ("fm_scores", "sgd_grad_scatter", "sgd_apply", "sgda_lambda"),
     "bpr": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
+    "exp-sgd": ("fm_scores", "w_grad_step", "w_patch_rows", "build_q",
+                "mcmc_col_grad", "mcmc_patch_rows"),
+    # the card's recipe has an empty main block: no main-block kernel runs
+    "bs-mcmc": BS_KERNELS,
+    "bs-als": BS_KERNELS,
+    "bs-seq": BS_KERNELS + ("build_q",),
 }
 
 
@@ -617,6 +680,44 @@ def make_cases(s: dict):
             cost(rows_bytes(s["ids"]) + s["mw_dtab"].numel() * 4 + N * 8,
                  N * P * 2))
 
+    if "xw_buckets" in s:  # X9d: K5's gradient mode, the exp_sgd w step
+        def x9dw(blk):
+            def call(variant, inp):
+                fn = (kw.w_grad_step if variant == "kernel"
+                      else kw.w_grad_step_plain)
+                w, dtab = inp
+                fn(blk["rows"], blk["x"], blk["cols"], s["x_e"], w, dtab,
+                   *s["x_step"])
+                return [w, dtab]
+            return call
+
+        for b in s["xw_buckets"]:
+            add("w_grad_step",
+                f"[{b['rows'].shape[0]},{b['rows'].shape[1]}]",
+                lambda: (s["x_w"].clone(),
+                         torch.zeros(s["D"], 2, device=s["x_w"].device)),
+                x9dw(b), bucket_cost(b, 1, 4, 2))
+
+    for F, m in s.get("xg", ()):  # X9d: X8a's gradient mode, the v step
+        def x9dv(blk, m=m):
+            def call(variant, inp):
+                fn = (km.mcmc_col_grad if variant == "kernel"
+                      else km.mcmc_col_grad_plain)
+                ptab, vt = inp
+                fn(blk["rows"], blk["x"], blk["cols"], s["x_e"], m["q"], ptab,
+                   vt, *s["x_vstep"])
+                return [ptab, vt]
+            return call
+
+        for b in m["buckets"]:
+            add("mcmc_col_grad",
+                f"F={F} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
+                lambda m=m: (m["ptab"].clone(), m["vt"].clone()), x9dv(b),
+                bucket_cost(b, 1 + F, 3 * F, 5 * F))
+
+    for r in s.get("bs", ()):  # X10a-X10d on one relation
+        bs_cases(add, r)
+
     if "sgd" in s:  # X9a, X9b and (SGDA) X9c, per step mode
         for mode_case in s["sgd"]["modes"]:
             sgd_cases(add, s["sgd"], *mode_case)
@@ -636,6 +737,151 @@ def make_cases(s: dict):
         add("gather_probe", label, nothing, gcall,
             cost(idx.numel() * 8 + t.numel() * 4, 0, library))
     return cases
+
+
+def bs_cases(add, r: dict) -> None:
+    """X10a-X10d on one relation ``r`` (see ``bs_tensors``): per width F
+    (0 is the w sweep) the join aggregation over every bucket of the join
+    plan, the relation draw of each picked bucket with and without a noise
+    table, the patch after each picked bin, the resync; then the moments
+    and (with ``r["scores"]``) the joined scores.  The twins that take
+    host-side indices or synchronise are timed host-paced."""
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    rd, name = r["rd"], r["name"]
+    R, Pr = rd.rrow_ids.shape
+    N = rd.join_tr.shape[0]
+    Dr = r["Dr"]
+    for F, w in r["widths"]:
+        lay = ks.rel_layout(F)
+        Fo = max(F, 1)
+        CH = ks.agg_channels(F)
+
+        def x10a(variant, inp, F=F, w=w):
+            fn = ks.bs_join_agg if variant == "kernel" else ks.bs_join_agg_plain
+            (rtab,) = inp
+            for jb in rd.jplan:
+                fn(jb.rows, jb.x, jb.cols, r["e"], w["q"], F, rtab)
+            return [rtab]
+
+        def x10a_library(w=w):
+            return torch.zeros(R, device=r["e"].device).index_add_(
+                0, rd.join_tr, r["e"])
+
+        njs = sum(jb.rows.numel() for jb in rd.jplan)
+        # the join plan's slots, e and q at each data row, qB0 and wn read,
+        # the CH channel sums written; per entry: qO (F), e qO (F), the
+        # products (P), x times each channel and its sum (2 CH)
+        add("bs_join_agg", f"{name} F={F} N={N} R={R}",
+            lambda w=w: (w["rtab0"].clone(),), x10a,
+            cost(njs * 8 + N * (1 + F) * 4 + R * (F + 1) * 4 + R * CH * 4,
+                 N * (2 * F + lay["P"] + 2 * CH),
+                 x10a_library if F == 0 else None, plain_graph=False))
+
+        for b_i, b in w["picks"]:
+            C, L = b.rows.shape
+            n = int(torch.count_nonzero(b.x))
+            for z in (w["z"], None):
+                def x10b(variant, inp, b=b, z=z, F=F, w=w):
+                    ptab, vt, nans = inp
+                    if F == 0:
+                        fn = (ks.bs_rel_w_draw if variant == "kernel"
+                              else ks.bs_rel_w_draw_plain)
+                        fn(b.rows, b.x, b.cols, b.group, w["rtab"], ptab, vt,
+                           w["mu"], w["lam"], r["alpha"], z, nans)
+                    else:
+                        fn = (ks.bs_rel_draw if variant == "kernel"
+                              else ks.bs_rel_draw_plain)
+                        fn(b.rows, b.x, b.cols, b.group, w["rtab"], F, ptab,
+                           vt, w["mu"], w["lam"], r["alpha"], z, nans)
+                    return [ptab, vt, nans]
+
+                # per entry the relation row's ld channels; per column v,
+                # dv, the priors (and z); per entry h, she, sh2 and the
+                # F(F-1)/2 cross sums of M; the F-step draw per column
+                npair = F * (F - 1) // 2
+                add("bs_rel_w_draw" if F == 0 else "bs_rel_draw",
+                    f"{name} F={F} bin {b_i} [{C},{L}]"
+                    + (" +z" if z is not None else ""),
+                    lambda w=w: (w["ptab"].clone(), w["vt"].clone(),
+                                 torch.zeros(2, dtype=torch.int32,
+                                             device=w["vt"].device)),
+                    x10b,
+                    cost(C * L * 8 + n * lay["ld"] * 4
+                         + C * Fo * (5 + (1 if z is not None else 0)) * 4,
+                         n * (12 * Fo + 8 * npair) + C * Fo * Fo * 2,
+                         plain_graph=F <= 1))
+
+        for b_i, ptab_b in w["patched"]:
+            pos = rd.patch_pos[b_i]
+            npos = int(pos.numel())
+
+            def x10c(variant, inp, F=F, pos=pos, ptab_b=ptab_b):
+                rtab, dy = inp
+                if F == 0:
+                    fn = (ks.bs_rel_w_patch if variant == "kernel"
+                          else ks.bs_rel_w_patch_plain)
+                    fn(rd.rrow_ids, rd.rrow_vals, pos, ptab_b, rtab, dy)
+                else:
+                    fn = (ks.bs_rel_patch if variant == "kernel"
+                          else ks.bs_rel_patch_plain)
+                    fn(rd.rrow_ids, rd.rrow_vals, pos, ptab_b, F, rtab, dy)
+                return [rtab, dy]
+
+            # per position the row's id and x and its ptab row (2 Fo); the
+            # row's table read and qB, we, weq written; dy read and written;
+            # the wcc matvec F^2 per position
+            add("bs_rel_w_patch" if F == 0 else "bs_rel_patch",
+                f"{name} F={F} bin {b_i} positions={npos} R={R}",
+                lambda w=w, Fo=Fo: (w["rtab"].clone(), torch.zeros(
+                    R, Fo, device=w["rtab"].device)), x10c,
+                cost(R * npos * (8 + 2 * Fo * 4) + R * lay["ld"] * 4
+                     + R * (2 * F + 1) * 4 + R * Fo * 8,
+                     R * npos * (2 * F * F + 12 * Fo), plain_graph=False))
+
+        def x10d(variant, inp, F=F, w=w):
+            fn = kf.bs_resync if variant == "kernel" else kf.bs_resync_plain
+            q, e = inp
+            if F == 0:
+                fn(rd.join_tr, 1, w["dy"], None, None, None, e)
+            else:
+                fn(rd.join_tr, F, w["dy"], w["qB1"], w["qB0"], q, e)
+            return [q, e]
+
+        # the join, dy (and qB1, qB0) at each relation row, q and e read
+        # and written
+        add("bs_resync", f"{name} F={F} N={N}",
+            lambda w=w: (w["q"].clone() if w["q"] is not None
+                         else torch.zeros(1, device=r["e"].device),
+                         r["e"].clone()), x10d,
+            cost(N * 4 + R * Fo * 4 * (3 if F else 1) + N * (F * 8 + 8),
+                 N * Fo * 5))
+
+    def moments(variant, _):
+        fn = (kf.bs_rel_moments if variant == "kernel"
+              else kf.bs_rel_moments_plain)
+        return [fn(rd.rrow_ids, rd.rrow_vals, r["stab"], r["off"])]
+
+    K1 = r["stab"].shape[1]
+    add("bs_rel_moments", f"{name} K={K1 - 1} R={R} Pr={Pr}", lambda: (),
+        moments, cost(R * Pr * 8 + Dr * K1 * 4 + R * (2 * K1 - 1) * 4,
+                      R * Pr * (3 * K1)))
+    if "scores" in r:
+        sc = r["scores"]
+        ids, vals = sc["ids"], sc["vals"]
+
+        def scores(variant, _):
+            fn = kf.bs_scores if variant == "kernel" else kf.bs_scores_plain
+            return [fn(r["stab"], sc["w0"], ids, vals, sc["joins"],
+                       sc["moms"])]
+
+        Ns, Ps = ids.shape
+        Km = K1 - 1
+        add("bs_scores", f"N={Ns} relations={len(sc['joins'])}", lambda: (),
+            scores, cost(Ns * Ps * 8 + Ns * 4 * (1 + len(sc["joins"]))
+                         + sum(m.numel() for m in sc["moms"]) * 4,
+                         Ns * (len(sc["joins"]) * (2 * Km + 1) + 3 * Km)))
 
 
 def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
@@ -980,7 +1226,7 @@ def ragged_tensors(device) -> list:
               vq=s["q"], vtq=s["tq"], vtz=s["tz"], v_buckets=[bucket],
               v_ptab_patch=t(ptab[:, :5 * F]))
     return [s, vb, ov, ragged_mcmc_tensors(device),
-            *ragged_sgd_tensors(device)]
+            *ragged_sgd_tensors(device), ragged_bs_tensors(device)]
 
 
 def mcmc_tensors(learner, state) -> dict:
@@ -1026,6 +1272,188 @@ def mcmc_tensors(learner, state) -> dict:
         m["ptab_patch"] = pt
         s.update({f"m{sfx}_{k}": v for k, v in m.items()})
     return s
+
+
+def exp_sgd_tensors(learner, state) -> dict:
+    """X9d's inputs at the exp_sgd path's shapes, from a state: e = stdev
+    yhat - y, K5's gradient mode on the largest bucket of each bin, X8a's
+    gradient mode on the same buckets at F = K and F = 1."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.ops.forward import fm_scores
+
+    cfg, plan, row = learner.cfg, learner.plan_data, learner.train_row
+    D, K = cfg.num_attributes, cfg.num_factor
+    e = (cfg.stdev * fm_scores(state.w0, state.w, state.v, row.ids, row.vals)
+         - row.target) * row.valid
+    big = [_bucket_dict(max(bb, key=lambda b: b.rows.numel()))
+           for bb in plan.blocks]
+    xg = []
+    for F in (K, 1):
+        vt = state.v[:F].T.contiguous()
+        ptab = torch.cat([vt, torch.zeros_like(vt)], 1)
+        xg.append((F, dict(vt=vt, ptab=ptab, buckets=big,
+                           q=kv.build_q_plain(ptab, F, row.ids, row.vals))))
+    n = float(learner.train_n)
+    return dict(tag="exp-sgd", D=D, x_e=e, x_w=state.w.clone(),
+                x_step=(cfg.learn_rate, cfg.regw, n),
+                x_vstep=(cfg.learn_rate, cfg.regv, n), xw_buckets=big, xg=xg)
+
+
+def bs_tensors(learner, state, tag: str, timed: bool, widths,
+               poison: bool = False) -> dict:
+    """X10a-X10d inputs from a block-structure learner and a state, per
+    relation and per width F in ``widths`` (0: the w sweep): the relation
+    table as X10a starts it (qB0 of the first F factors, wn) and as it
+    leaves it, the buckets to draw (timed: the one-hot bin's largest and the
+    longest of the other bins; else every bucket), the patch tables as
+    each picked bin leaves them, the resync's dy and qB; the moments and,
+    with the first relation, the joined scores.  ``poison`` (the ragged
+    case): the last bucket's first column is moved to an extra group whose
+    lambda is NaN (its draws come out 0, uncounted), the first pick's first
+    column has an Inf noise number (counted, reverted), and the one-hot
+    bucket is also drawn cut to L = 1."""
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+    from svbfm_tpu_torch.learners.mcmc_bs import param_table
+
+    dev = state.e.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rels, rstats = learner.rels, learner.rstats
+    stab = param_table(state.w, state.v, True)
+    moms = [kf.bs_rel_moments_plain(rd.rrow_ids, rd.rrow_vals, stab,
+                                    rs.attr_offset)
+            for rd, rs in zip(rels, rstats)]
+    e, row = state.e, learner.train_row
+    N = e.shape[0]
+    out = []
+    for i, (rd, rs, mom) in enumerate(zip(rels, rstats, moms)):
+        R, Dr, off = rs.num_rows, rs.num_attrs, rs.attr_offset
+        bins = [(b_i, bb) for b_i, bb in enumerate(rd.rplan) if bb]
+        if timed:
+            rest = [(b_i, b) for b_i, bb in bins[1:] for b in bb]
+            picks = [(bins[0][0], max(bins[0][1],
+                                      key=lambda b: b.rows.numel()))]
+            if rest:
+                picks.append(max(rest, key=lambda t: t[1].rows.shape[1]))
+        else:
+            picks = [(b_i, b) for b_i, bb in bins for b in bb]
+        G = state.w_mu.shape[0]
+        if poison:
+            b_l, last = picks[-1]
+            bad = last.group.clone()
+            bad[0] = G
+            b_0, first = picks[0]
+            picks[-1] = (b_l, dataclasses.replace(last, group=bad))
+            picks.append((b_0, dataclasses.replace(
+                first, rows=first.rows[:, :1].contiguous(),
+                x=first.x[:, :1].contiguous())))
+        r = dict(name=f"rel{i}", rd=rd, Dr=Dr, off=off, e=e,
+                 alpha=state.alpha, stab=stab, widths=[])
+        for F in widths:
+            Fo = max(F, 1)
+            lay = ks.rel_layout(F)
+            rtab0 = torch.zeros(R, lay["ld"], device=dev)
+            rtab0[:, lay["wn"]] = rd.wnum
+            if F == 0:
+                q = qB0 = None
+                vt = state.w[off:off + Dr].clone()
+                mu, lam = state.w_mu.clone(), state.w_lambda.clone()
+                z = torch.randn(Dr, generator=gen, device=dev)
+            else:
+                qB0 = mom[:, 1:1 + F].contiguous()
+                rtab0[:, :F] = qB0
+                q = torch.zeros(N, F, device=dev)
+                for rd2, mom2 in zip(rels, moms):
+                    kf.bs_resync_plain(rd2.join_tr, F, None,
+                                       mom2[:, 1:1 + F].contiguous(), None,
+                                       q, None)
+                vt = state.v[:F, off:off + Dr].T.contiguous()
+                mu = state.v_mu[:, :F].contiguous()
+                lam = state.v_lambda[:, :F].contiguous()
+                z = torch.randn(F, Dr, generator=gen, device=dev)
+            if poison:
+                mu = torch.cat([mu, mu[:1]])
+                lam = torch.cat([lam, torch.full_like(lam[:1], float("nan"))])
+                z.view(Fo, Dr)[:, picks[0][1].cols[0].long()] = float("inf")
+            rtab = rtab0.clone()
+            for jb in rd.jplan:
+                ks.bs_join_agg_plain(jb.rows, jb.x, jb.cols, e, q, F, rtab)
+            ptab = torch.cat([vt.view(Dr, Fo), torch.zeros(Dr, Fo,
+                                                           device=dev)], 1)
+            patched = []
+            for b_i in sorted({b_i for b_i, _ in picks}):
+                pt, v2 = ptab.clone(), vt.clone()
+                nans = torch.zeros(2, dtype=torch.int32, device=dev)
+                for b in rd.rplan[b_i]:
+                    if F == 0:
+                        ks.bs_rel_w_draw_plain(b.rows, b.x, b.cols, b.group,
+                                               rtab, pt, v2, mu, lam,
+                                               state.alpha, z, nans)
+                    else:
+                        ks.bs_rel_draw_plain(b.rows, b.x, b.cols, b.group,
+                                             rtab, F, pt, v2, mu, lam,
+                                             state.alpha, z, nans)
+                patched.append((b_i, pt))
+            b_i, pt = patched[0]
+            rt, dy = rtab.clone(), torch.zeros(R, Fo, device=dev)
+            if F == 0:
+                ks.bs_rel_w_patch_plain(rd.rrow_ids, rd.rrow_vals,
+                                        rd.patch_pos[b_i], pt, rt, dy)
+            else:
+                ks.bs_rel_patch_plain(rd.rrow_ids, rd.rrow_vals,
+                                      rd.patch_pos[b_i], pt, F, rt, dy)
+            r["widths"].append((F, dict(
+                q=q, qB0=qB0, qB1=rt[:, :F] if F else None, dy=dy,
+                rtab0=rtab0, rtab=rtab, picks=picks, z=z, mu=mu, lam=lam,
+                vt=vt, ptab=ptab, patched=patched)))
+        if i == 0:
+            r["scores"] = dict(ids=row.ids, vals=row.vals, w0=state.w0,
+                               joins=[rd2.join_tr for rd2 in rels],
+                               moms=moms)
+        out.append(r)
+    return dict(tag=tag, timed=timed, D=state.w.shape[0], bs=out)
+
+
+def small_bs_learner(device, K: int = 20, factor_block: int = 0,
+                     als: bool = False):
+    """A small relational problem for the ragged checks: 3000 ratings, a
+    user relation of 1200 rows (its two attribute slots hold columns of
+    about 600 rows, long enough for X10b to split them over blocks) and an
+    item relation of 50 rows, both with 2 slots; an empty main block."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.libfm_text import COOData
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.relation import build_joined_meta
+    from svbfm_tpu_torch.data.synth import make_relation
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.mcmc_bs import ALSBSLearner, MCMCBSLearner
+
+    rng = np.random.default_rng(11)
+    n, nu, ni = 3000, 1200, 50
+    users, items = rng.integers(0, nu, n), rng.integers(0, ni, n)
+    y = (3.5 + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    rels = [make_relation(nu, nu, 2, seed=1), make_relation(ni, ni, 2, seed=2)]
+    meta = build_joined_meta(DataMetaInfo(0), rels)
+    D = meta.num_attributes
+    main = SparseDataset.from_coo(COOData(
+        row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
+        val=np.zeros(0, np.float32), target=y, num_rows=n, num_features=0), D)
+    cfg = FMConfig(num_attributes=D, num_factor=K, num_groups=meta.num_attr_groups,
+                   min_target=float(y.min()), max_target=float(y.max()),
+                   seed=SEED, regw=0.5, regv=0.5, factor_block=factor_block)
+    cls = ALSBSLearner if als else MCMCBSLearner
+    return cls(cfg, main, main, rels, [users, items], [users, items], meta, 0,
+               device=device, write_files=False)
+
+
+def ragged_bs_tensors(device) -> dict:
+    """X10a-X10d on the small relational problem at F = 20, 5, 1 and the w
+    sweep: every bucket (L = 1 one-hot buckets, split slot columns), a NaN
+    group lambda and an Inf noise number (``bs_tensors``' poison)."""
+    learner = small_bs_learner(device)
+    state, _ = learner.step(learner.init_state())
+    return bs_tensors(learner, state, "ragged-bs", False, (20, 5, 1, 0),
+                      poison=True)
 
 
 def ragged_mcmc_tensors(device) -> dict:
@@ -1087,6 +1515,20 @@ def ragged_mcmc_tensors(device) -> dict:
          t(rng.integers(0, D, size=(N, 1)), np.int32)),
         ("ragged lanes", t(rng.standard_normal((7, 128))),
          t(rng.integers(0, 7, size=(5, 128)), np.int32))]
+    # X9d, K5's and X8a's gradient modes, on the same bucket at F = 1, 5 and
+    # 20: e is NaN at a row of column 6 (its w step reverts), q Inf at a row
+    # of column 4 (its v steps revert)
+    xe = e.copy()
+    xe[rows[6, 1]] = np.nan
+    v20, q20 = rng.standard_normal((D, 20)), rng.standard_normal((N, 20))
+    q20[rows[4, 0]] = np.inf
+    step = (0.4, 0.05, float(N))
+    s.update(x_e=t(xe), x_w=t(rng.standard_normal(D)), x_step=step,
+             x_vstep=step, xw_buckets=[bucket], xg=[
+                 (Fx, dict(vt=t(v20[:, :Fx]), q=t(q20[:, :Fx]),
+                           ptab=t(np.concatenate([v20[:, :Fx],
+                                                  np.zeros((D, Fx))], 1)),
+                           buckets=[bucket])) for Fx in (1, 5, 20)])
     return s
 
 
@@ -1367,10 +1809,34 @@ def compare_traj(hg, hc, keys, rtol: float, what: str) -> float:
     return worst
 
 
-def run_cli(dev_index: int, method: str, extra: list, files: tuple) -> None:
+def write_relation_files(work: str, tr, te, num_users: int) -> None:
+    """Move the items of the train/test rows into a relation ``items``
+    (one-hot + one attribute slot of two columns, with groups): the main
+    files keep the user entries, items.train/items.test hold the joins."""
+    from svbfm_tpu_torch.data.libfm_text import COOData, save_libfm_text
+
+    for name, coo in (("train", tr), ("test", te)):
+        keep = coo.col < num_users
+        item = np.zeros(coo.num_rows, np.int64)
+        item[coo.row[~keep]] = coo.col[~keep] - num_users
+        save_libfm_text(os.path.join(work, f"{name}.libfm"), COOData(
+            row=coo.row[keep], col=coo.col[keep], val=coo.val[keep],
+            target=coo.target, num_rows=coo.num_rows,
+            num_features=num_users))
+        np.savetxt(os.path.join(work, f"items.{name}"), item, fmt="%d")
+    ni = tr.num_features - num_users
+    with open(os.path.join(work, "items"), "w") as f:
+        f.writelines(f"0 {i}:1 {ni + i % 2}:0.5\n" for i in range(ni))
+    with open(os.path.join(work, "items.groups"), "w") as f:
+        f.writelines(["0\n"] * ni + ["1\n", "1\n"])
+
+
+def run_cli(dev_index: int, method: str, extra: list, files: tuple,
+            relation: bool = False) -> None:
     """The port's CLI in a child process on small libFM files: ``-method
     method`` with ``extra`` flags must exit 0 and write v_file.txt,
-    pred.txt, its test_rmse file and ``files``."""
+    pred.txt, its test_rmse file and ``files``; ``relation`` moves the
+    items into a relation (``-relation items``)."""
     from svbfm_tpu_torch.data.libfm_text import save_libfm_text
     from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
 
@@ -1381,8 +1847,12 @@ def run_cli(dev_index: int, method: str, extra: list, files: tuple) -> None:
     os.makedirs(work)
     coo = make_movielens_like(200, 150, 5000, seed=3)
     tr, te = train_test_split(coo, 0.2, seed=4)
-    save_libfm_text(os.path.join(work, "train.libfm"), tr)
-    save_libfm_text(os.path.join(work, "test.libfm"), te)
+    if relation:
+        write_relation_files(work, tr, te, 200)
+        extra = [*extra, "-relation", "items"]
+    else:
+        save_libfm_text(os.path.join(work, "train.libfm"), tr)
+        save_libfm_text(os.path.join(work, "test.libfm"), te)
     env = dict(os.environ, PYTHONPATH=repo,
                CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES",
                                                    str(dev_index)))
@@ -1394,13 +1864,16 @@ def run_cli(dev_index: int, method: str, extra: list, files: tuple) -> None:
                        timeout=300)
     if r.returncode != 0:
         raise AssertionError(f"cli exited {r.returncode}:\n{r.stderr[-2000:]}")
-    want = ("v_file.txt", "pred.txt", f"test_rmse_118_{method}") + files
+    # the reference rewrites als to mcmc before it names the file
+    traj = "mcmc" if method == "als" else method
+    want = ("v_file.txt", "pred.txt", f"test_rmse_118_{traj}") + files
     missing = [f for f in want if not os.path.exists(os.path.join(work, f))]
     if missing or "Final\tTest=" not in r.stdout:
         raise AssertionError(f"cli output incomplete: missing {missing}")
     final = [ln for ln in r.stdout.splitlines() if ln.startswith("Final")][0]
     shutil.rmtree(work, ignore_errors=True)
-    say("cli", t0, method=method, rc=r.returncode, final=final.split("=")[1])
+    say("cli", t0, method=method, relation=relation, rc=r.returncode,
+        final=final.split("=")[1])
 
 
 def enqueue_then_wait(step, state, n: int = 3):
@@ -1578,6 +2051,153 @@ def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
     return l_sgd, l_online, l_exp, l_sgda, l_bpr
 
 
+def bs_problem(rows: int, slots: int, holdout: bool) -> dict:
+    """The relational recipe (``make_bs_problem``): the joined meta, the two
+    relations, the train and test main blocks (empty designs) and their
+    joins.  The test rows are the first tenth; ``holdout`` keeps them out of
+    the train rows (PARITY_RUNS.md:166-183), else the train set is every row
+    (scripts/bench_bs.py:100-104)."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.libfm_text import COOData
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.relation import build_joined_meta
+    from svbfm_tpu_torch.data.synth import make_bs_problem
+
+    _, ru, ri, users, items, y = make_bs_problem(rows, slots, slots)
+    meta = build_joined_meta(DataMetaInfo(0), [ru, ri])
+    D = meta.num_attributes
+    te_n = min(rows // 10, 1_000_000)
+    lo = te_n if holdout else 0
+
+    def block(a, b):
+        return SparseDataset.from_coo(COOData(
+            row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
+            val=np.zeros(0, np.float32), target=y[a:b], num_rows=b - a,
+            num_features=0), D)
+
+    return dict(meta=meta, rels=[ru, ri], train=block(lo, rows),
+                test=block(0, te_n), joins_tr=[users[lo:], items[lo:]],
+                joins_te=[users[:te_n], items[:te_n]],
+                expanded=rows * (2 + 2 * slots),
+                cfg=dict(num_attributes=D, num_groups=meta.num_attr_groups,
+                         min_target=float(y[lo:].min()),
+                         max_target=float(y[lo:].max()), seed=SEED))
+
+
+def bs_learner(p: dict, device, als: bool = False, **cfg_kw):
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.mcmc_bs import ALSBSLearner, MCMCBSLearner
+
+    cls = ALSBSLearner if als else MCMCBSLearner
+    return cls(FMConfig(**dict(p["cfg"], **cfg_kw)), p["train"], p["test"],
+               p["rels"], p["joins_tr"], p["joins_te"], p["meta"], 0,
+               device=device, write_files=False)
+
+
+def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
+    """The block-structure sampler on the relational recipe (1M ratings,
+    42 joined entries a row, the join never materialised): Gibbs and ALS at
+    F = K, the factor-sequential path, card against CPU, quality beside the
+    reference C++, the profile.  Returns the driven runs' launch counts."""
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    def med(hist):
+        return f"{statistics.median(h['time_learn'] for h in hist[1:]):.6f}"
+
+    def row_width(learner):
+        return int(learner.train_row.ids.shape[1])
+
+    # ---- 30. BS Gibbs, F = K, 5 iterations -------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (bstate, hb), l_bs = drive(build, "bs-mcmc", lambda: bs_mcmc.run(
+        bs_mcmc.init_state(), num_iter=5, verbose=False, chunk=1))
+    peak = torch.cuda.max_memory_allocated()
+    check_mcmc_history(hb, "bs-mcmc", "rmse")
+    bstate, split = enqueue_then_wait(lambda st: bs_mcmc.step(st)[0], bstate,
+                                      n=2)
+    say("bs-mcmc", t0, rows=bs_mcmc.train_n, K=K,
+        factor_block=bs_mcmc.factor_width, sec_per_iter=med(hb),
+        ms_per_iter=",".join(f"{1e3 * h['time_learn']:.3f}" for h in hb),
+        enqueue_then_wait_ms=split,
+        rmse_first=f"{hb[0]['rmse']:.5f}", rmse_last=f"{hb[-1]['rmse']:.5f}",
+        main_row_entries=row_width(bs_mcmc), joined_row_entries=2 + 2 * BS_SLOTS,
+        expanded_entries=bsp["expanded"], peak_mem_bytes=peak,
+        launches=json.dumps(l_bs, separators=(",", ":")), card=repr(card))
+
+    # ---- 31. BS ALS, F = K, 5 iterations; the factor-sequential path -----
+    t0 = time.perf_counter()
+    als = bs_learner(bsp, dev, als=True, num_factor=K, regw=BS_REG,
+                     regv=BS_REG)
+    torch.cuda.reset_peak_memory_stats()
+    (_, ha), l_als = drive(build, "bs-als", lambda: als.run(
+        als.init_state(), num_iter=5, verbose=False, chunk=1))
+    check_mcmc_history(ha, "bs-als", "rmse_this")
+    say("bs-als", t0, rows=als.train_n, K=K, factor_block=als.factor_width,
+        sec_per_iter=med(ha),
+        rmse_this_first=f"{ha[0]['rmse_this']:.5f}",
+        rmse_this_last=f"{ha[-1]['rmse_this']:.5f}",
+        main_row_entries=row_width(als),
+        joined_row_entries=2 + 2 * BS_SLOTS,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches=json.dumps(l_als, separators=(",", ":")))
+    del als
+    t0 = time.perf_counter()
+    seq = bs_learner(bsp, dev, num_factor=K, regw=BS_REG, regv=BS_REG,
+                     factor_block=1)
+    (_, hs), l_seq = drive(build, "bs-seq", lambda: seq.run(
+        seq.init_state(), num_iter=2, verbose=False, chunk=1))
+    check_mcmc_history(hs, "bs-seq", "rmse")
+    say("bs-seq", t0, rows=seq.train_n, factor_block=seq.factor_width,
+        iterations=len(hs), sec_per_iter=f"{hs[-1]['time_learn']:.6f}",
+        rmse=",".join(f"{h['rmse']:.5f}" for h in hs),
+        launches=json.dumps(l_seq, separators=(",", ":")))
+    del seq
+
+    # ---- 32. BS Gibbs, card against CPU (100k-row recipe) ----------------
+    t0 = time.perf_counter()
+    qp = bs_problem(BS_Q_ROWS, BS_Q_SLOTS, holdout=True)
+    p0 = init_fm_params(torch.Generator().manual_seed(SEED),
+                        qp["cfg"]["num_attributes"], BS_Q_K,
+                        init_w_normal=True)
+    hists = []
+    for d in (dev, "cpu"):
+        lr = bs_learner(qp, d, num_factor=BS_Q_K, regw=BS_REG, regv=BS_REG)
+        hists.append(lr.run(lr.state_from_params(
+            p0.w0, p0.w, p0.v, host_draws(SEED, d)), num_iter=2,
+            verbose=False)[1])
+    keys = ("rmse", "rmse_this", "mae", "alpha")
+    worst = compare_traj(*hists, keys, TRAJ_RTOL, "bs gpu vs cpu")
+    say("bs-gpu-vs-cpu", t0, rows=BS_Q_ROWS, K=BS_Q_K, sweeps=2,
+        metrics=",".join(keys), max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL)
+
+    # ---- 33. quality beside the reference C++ (information) --------------
+    t0 = time.perf_counter()
+    n_q = max(REF_BS_MCMC_RMSE)
+    qm = bs_learner(qp, dev, num_factor=BS_Q_K)
+    _, hqm = qm.run(num_iter=n_q, verbose=False)
+    qa = bs_learner(qp, dev, als=True, num_factor=BS_Q_K, reg0=BS_Q_ALS_REG,
+                    regw=BS_Q_ALS_REG, regv=BS_Q_ALS_REG)
+    _, hqa = qa.run(num_iter=n_q, verbose=False)
+    check_mcmc_history(hqm, "bs-quality mcmc", "rmse")
+    say("bs-quality", t0, rows=BS_Q_ROWS, K=BS_Q_K, iterations=n_q,
+        **{f"mcmc_test_rmse_iter{i}": f"{hqm[i - 1]['rmse']:.5f}"
+           for i in REF_BS_MCMC_RMSE},
+        mcmc_reference_cpp=",".join(f"{i}:{v}"
+                                    for i, v in REF_BS_MCMC_RMSE.items()),
+        **{f"als_test_rmse_iter{i}": f"{hqa[i - 1]['rmse_this']:.5f}"
+           for i in REF_BS_ALS_RMSE},
+        als_reference_cpp=",".join(f"{i}:{v}"
+                                   for i, v in REF_BS_ALS_RMSE.items()),
+        mcmc_sec_per_iter=med(hqm), als_sec_per_iter=med(hqa))
+
+    # ---- 34. where a blocked BS Gibbs sweep's device time goes -----------
+    profile_run(lambda: bs_mcmc.run(bstate, num_iter=1, verbose=False), 1,
+                "sweep", "bs-profile")
+    return l_bs, l_als, l_seq
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1599,7 +2219,8 @@ def main() -> int:
     from svbfm_tpu_torch.learners.base import FMConfig
     from svbfm_tpu_torch.learners.bpr import BPRLearner
     from svbfm_tpu_torch.learners.draws import host_draws
-    from svbfm_tpu_torch.learners.exp_sgd import ExpSGDStocLearner
+    from svbfm_tpu_torch.learners.exp_sgd import (ExpSGDLearner,
+                                                  ExpSGDStocLearner)
     from svbfm_tpu_torch.learners.sgd import (SGDALearner, SGDLearner,
                                               SGDOnlineLearner)
     from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
@@ -1643,6 +2264,11 @@ def main() -> int:
                      SparseDataset.from_coo(positives(tr), D),
                      SparseDataset.from_coo(positives(te), D), meta,
                      device=dev, write_files=False)
+    exp_full = ExpSGDLearner(FMConfig(learn_rate=EXP_SGD_LR, **base_cfg),
+                             train, test, meta, device=dev,
+                             write_files=False)
+    bsp = bs_problem(BS_ROWS, BS_SLOTS, holdout=False)
+    bs_mcmc = bs_learner(bsp, dev, num_factor=K, regw=BS_REG, regv=BS_REG)
     shapes = [[tuple(b.rows.shape[1:]) for b in bb] for bb in plan.blocks]
     cshapes = [[tuple(b.rows.shape) for b in bb] for bb in ovb.chunks[0][1].blocks]
     say("data", t0, train_rows=tr.num_rows, test_rows=te.num_rows,
@@ -1652,7 +2278,10 @@ def main() -> int:
         sgd_batches=sgd.num_batches,
         sgda_train_val_rows=f"{sgda.train_n}/{sgda.val_n}",
         bpr_positive_rows=f"{bpr.train_n}/{bpr.test_n}",
-        bpr_batches=bpr.num_batches)
+        bpr_batches=bpr.num_batches, bs_rows=bs_mcmc.train_n,
+        bs_relation_rows="/".join(str(r.num_rows) for r in bs_mcmc.rstats),
+        bs_relation_bins="/".join(str(len(rd.rplan)) for rd in bs_mcmc.rels),
+        bs_join_buckets="/".join(str(len(rd.jplan)) for rd in bs_mcmc.rels))
 
     # ---- 2. each kernel against its twin -----------------------------------
     t0 = time.perf_counter()
@@ -1660,14 +2289,19 @@ def main() -> int:
     vb0 = learner.state_from_params(init_vb_params(gen, cfg, dev))
     ovb0 = ovb.init_state()
     mc1, _ = gibbs.step(gibbs.init_state())
+    bs1, _ = bs_mcmc.step(bs_mcmc.init_state())
     report = merge_reports(
         check_cases(fast_tensors(learner, vb0), timed=True),
         check_cases(ovb_tensors(ovb, ovb0), timed=True),
         check_cases(mcmc_tensors(gibbs, mc1), timed=True),
         check_cases(dict(tag="probe", gathers=gather_sets(dev)), timed=True),
         check_cases(sgd_tensors(sgd, exp_sgd, sgda, bpr, dev), timed=True),
+        check_cases(exp_sgd_tensors(exp_full, exp_full.init_state()),
+                    timed=True),
+        check_cases(bs_tensors(bs_mcmc, bs1, "bs", True, (K, 0, 1)),
+                    timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
-    del mc1
+    del mc1, bs1
     missing = sorted(set(SOURCES) - set(report))
     if missing:
         raise AssertionError(f"kernels with no case: {missing}")
@@ -1804,6 +2438,8 @@ def main() -> int:
     run_cli(dev.index, "vb_online", ["-batch", "5"],
             ("free_energy_118_vb_online",))
     run_cli(dev.index, "sgd", ["-learn_rate", "0.05"], ())
+    run_cli(dev.index, "exp_sgd", ["-learn_rate", str(EXP_SGD_LR)], ())
+    run_cli(dev.index, "als", ["-regular", "1"], (), relation=True)
 
     # ---- 13. where an online-VB epoch's device time goes --------------------
     profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False), 1,
@@ -1895,8 +2531,37 @@ def main() -> int:
         build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
         base_cfg, (tr90, va10))
 
+    # ---- 28. full-batch exp_sgd, factor_block 0, 5 sweeps ------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (xstate, hx), l_xsgd = drive(build, "exp-sgd", lambda: exp_full.run(
+        exp_full.init_state(), num_iter=5, verbose=False))
+    check_sgd_history(hx, "exp-sgd")
+    _, split = enqueue_then_wait(lambda st: exp_full.step(st)[0], xstate)
+    say("exp-sgd", t0, sweeps=len(hx), learn_rate=EXP_SGD_LR,
+        sec_per_iter=f"{statistics.median(h['time_learn'] for h in hx[1:]):.6f}",
+        enqueue_then_wait_ms=split,
+        rmse=",".join(f"{h['rmse']:.5f}" for h in hx),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches=json.dumps(l_xsgd, separators=(",", ":")), card=repr(card))
+
+    # ---- 29. exp_sgd, GPU kernels vs CPU twins, full size -------------------
+    t0 = time.perf_counter()
+    p0 = init_fm_params(torch.Generator().manual_seed(SEED), D, K,
+                        init_stdev=cfg.init_stdev)
+    cpu = ExpSGDLearner(exp_full.cfg, train, test, meta, device="cpu",
+                        write_files=False)
+    hists = [lr.run(lr.state_from_params(p0.w0, p0.w, p0.v), num_iter=2,
+                    verbose=False)[1] for lr in (exp_full, cpu)]
+    worst = compare_traj(*hists, ("rmse",), TRAJ_RTOL, "exp-sgd gpu vs cpu")
+    say("exp-sgd-gpu-vs-cpu", t0, sweeps=2, max_rel=f"{worst:.3e}",
+        rtol=TRAJ_RTOL)
+    del cpu
+
+    l_bs, l_bs_als, l_bs_seq = bs_phases(build, card, dev, bs_mcmc, bsp)
+
     runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
-            l_online, l_exp, l_sgda, l_bpr)
+            l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}
     kernels = []
     for n in SOURCES:

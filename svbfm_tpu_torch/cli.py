@@ -3,8 +3,11 @@ it runs: Gibbs MCMC (``-method mcmc``, the default) and ALS (``-method
 als``), batch VBFM (``-method vb``, fast or exact mode), in-memory online
 VBFM (``-method vb_online``), and the SGD family: minibatch SGD (``sgd``),
 in-memory streaming SGD (``sgd_online``), adaptive-regularisation SGD
-(``sgda``, with ``-validation``), exponential-family SGD (``exp_sgd_stoc``)
-and pairwise BPR (``bpr``); regression, one device.
+(``sgda``, with ``-validation``), the full-batch and the stochastic
+exponential-family SGD (``exp_sgd``, ``exp_sgd_stoc``) and pairwise BPR
+(``bpr``); regression, one device.  ``-relation`` (block structure) runs
+natively for mcmc and als, and as the materialised join for every other
+method, as ``svbfm_tpu/cli.py`` does.
 
     python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
         -dim '1,1,20' -method mcmc -iter 10 -device cuda
@@ -38,17 +41,20 @@ Flags (-name value):
   -out         filename for final test predictions
   -dim         'k0,k1,k2': bias,1-way,2-way dim; default=1,1,8
   -iter        number of iterations; default=100
-  -method      mcmc|als|vb|vb_online|sgd|sgd_online|sgda|exp_sgd_stoc|bpr;
-               default=mcmc
+  -method      mcmc|als|vb|vb_online|sgd|sgd_online|sgda|exp_sgd|
+               exp_sgd_stoc|bpr; default=mcmc
+  -relation    block-structure relation prefixes (comma separated): each
+               prefix (libFM text), prefix.groups, prefix.train and
+               prefix.test (the joins); native for mcmc/als
   -regular     mcmc/als: 'r0,r1,r2' (or r, or r0 then one r1 and one r2 per
-               group) prior precisions; sgd/sgd_online/exp_sgd_stoc/bpr:
-               'r0,r1,r2' (or r) regularisation; default=0,0,0
+               group) prior precisions; sgd/sgd_online/exp_sgd/exp_sgd_stoc/
+               bpr: 'r0,r1,r2' (or r) regularisation; default=0,0,0
   -init_stdev  mcmc/als and the SGD family: stdev of the initial w (mcmc,
                als) and v; default=0.1
   -learn_rate  the SGD family: the step size (1 or 3 values, the first
                one used); default=0.1
   -validation  sgda: filename of the validation data [MANDATORY for sgda]
-  -stdev       exp_sgd_stoc: the residual scale; default=1
+  -stdev       exp_sgd/exp_sgd_stoc: the residual scale; default=1
   -bpr_neg_field bpr: the field the negatives come from; default=-1 (last)
   -do_sampling mcmc: 0 = no sampling (conditional means); default=1
   -do_multilevel mcmc: 0 = fixed hyperparameters; default=1
@@ -70,26 +76,25 @@ SUPPORTED = {"task", "train", "test", "meta", "out", "dim", "iter", "method",
              "batch", "reshuffle", "factor_block", "bins", "seed",
              "verbosity", "device", "help", "regular", "init_stdev",
              "do_sampling", "do_multilevel", "factor_jacobi", "learn_rate",
-             "validation", "stdev", "bpr_neg_field"}
-SGD_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd_stoc", "bpr")
+             "validation", "stdev", "bpr_neg_field", "relation"}
+SGD_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd", "exp_sgd_stoc", "bpr")
 # the methods that read each method-specific flag
 FLAG_METHODS = {
     "do_sampling": ("mcmc", "als"),
     "do_multilevel": ("mcmc", "als"),
     "factor_jacobi": ("mcmc", "als"),
-    "regular": ("mcmc", "als", "sgd", "sgd_online", "exp_sgd_stoc", "bpr"),
+    "regular": ("mcmc", "als", "sgd", "sgd_online", "exp_sgd",
+                "exp_sgd_stoc", "bpr"),
     "init_stdev": ("mcmc", "als") + SGD_METHODS,
     "learn_rate": SGD_METHODS,
     "validation": ("sgda",),
-    "stdev": ("exp_sgd_stoc",),
+    "stdev": ("exp_sgd", "exp_sgd_stoc"),
     "bpr_neg_field": ("bpr",),
 }
 
 _Q1 = "ROADMAP.md queue 1"
 # flags of svbfm_tpu/cli.py that the port refuses, and why
 REFUSED = {
-    "relation": f"block structure (relations) is not ported yet ({_Q1}, "
-                "item 11)",
     "cache_size": f"out-of-core windowed training is not ported yet ({_Q1}, "
                   "item 10)",
     "checkpoint": f"checkpoints are not ported yet ({_Q1}, item 12)",
@@ -105,9 +110,6 @@ REFUSED = {
                    "item 13)",
     "num_eval_cases": f"held-back test rows are not ported yet ({_Q1}, "
                       "item 4)",
-}
-METHODS_LATER = {
-    "exp_sgd": "item 8: the full-batch sweep, kernel X9d, is the next slice",
 }
 METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 
@@ -195,10 +197,6 @@ def main(argv: Optional[list[str]] = None) -> int:
     if task_s != "r":
         raise SystemExit("unknown task (use r)")
     method = cmd.get_str("method", "mcmc").lower()
-    if method in METHODS_LATER:
-        raise SystemExit(f"-method {method} is not ported yet ({_Q1}, "
-                         f"{METHODS_LATER[method]}); the port runs "
-                         f"{', '.join(METHODS)}")
     if method not in METHODS:
         raise SystemExit(f"unknown method '{method}'")
     for name, readers in FLAG_METHODS.items():
@@ -215,6 +213,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     if method == "als":  # libfm.cpp:131-135
         do_sample = do_multilevel = False
     factor_jacobi = cmd.get_int("factor_jacobi", 0) == 1
+    if factor_jacobi and cmd.has("relation"):
+        raise SystemExit("-factor_jacobi is not read by the block-structure "
+                         "sampler (-relation): its draws are exact")
     if factor_jacobi and do_sample:
         raise SystemExit("-factor_jacobi 1 is not a valid Gibbs kernel: it "
                          "applies only without sampling (-method als or "
@@ -260,6 +261,29 @@ def main(argv: Optional[list[str]] = None) -> int:
     meta = DataMetaInfo(D)
     if cmd.has("meta"):
         meta.load_groups_from_file(cmd.get_str("meta"))
+
+    # relational block structure (libfm.cpp:188-256, svbfm_tpu/cli.py:
+    # 273-292): mcmc/als keep the relations factored; every other method
+    # trains on the materialised join
+    bs_native = None
+    if cmd.has("relation"):
+        from svbfm_tpu_torch.data.relation import (RelationData,
+                                                   build_joined_meta,
+                                                   join_relations, load_join)
+        prefixes = [r for r in cmd.get_str("relation").replace(
+            ";", ",").split(",") if r]
+        rels = [RelationData.load(pfx) for pfx in prefixes]
+        tr_joins = [load_join(pfx + ".train", train.num_rows)
+                    for pfx in prefixes]
+        te_joins = [load_join(pfx + ".test", test.num_rows)
+                    for pfx in prefixes]
+        meta = build_joined_meta(meta, rels)
+        if method in ("mcmc", "als"):
+            bs_native = (rels, tr_joins, te_joins, D)
+        else:
+            train = join_relations(train, rels, tr_joins, D)
+            test = join_relations(test, rels, te_joins, D)
+        D = meta.num_attributes
     G = meta.num_attr_groups
     if verbosity > 0:
         print(f"#attr={meta.num_attributes}\t#groups={G}")
@@ -300,7 +324,15 @@ def main(argv: Optional[list[str]] = None) -> int:
     bins = cmd.get_str("bins", "auto")
     tr_ds = SparseDataset.from_coo(train, D)
     te_ds = SparseDataset.from_coo(test, D)
-    if method in ("mcmc", "als"):
+    if method in ("mcmc", "als") and bs_native is not None:
+        from svbfm_tpu_torch.learners.mcmc_bs import (ALSBSLearner,
+                                                      MCMCBSLearner)
+        cls = ALSBSLearner if method == "als" else MCMCBSLearner
+        rels, tr_joins, te_joins, d_main = bs_native
+        learner = cls(cfg, tr_ds, te_ds, rels, tr_joins, te_joins, meta,
+                      d_main, device=device, bins=bins,
+                      w_lambda_init=w_lambda, v_lambda_init=v_lambda)
+    elif method in ("mcmc", "als"):
         from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
         cls = ALSLearner if method == "als" else MCMCLearner
         learner = cls(cfg, tr_ds, te_ds, meta, device=device, bins=bins,
@@ -325,9 +357,11 @@ def main(argv: Optional[list[str]] = None) -> int:
         learner = BPRLearner(cfg, tr_ds, te_ds, meta, device=device,
                              neg_field=cmd.get_int("bpr_neg_field", -1))
     else:
-        from svbfm_tpu_torch.learners.exp_sgd import ExpSGDStocLearner
+        from svbfm_tpu_torch.learners.exp_sgd import (ExpSGDLearner,
+                                                      ExpSGDStocLearner)
         from svbfm_tpu_torch.learners.sgd import SGDLearner, SGDOnlineLearner
         cls = {"sgd": SGDLearner, "sgd_online": SGDOnlineLearner,
+               "exp_sgd": ExpSGDLearner,
                "exp_sgd_stoc": ExpSGDStocLearner}[method]
         learner = cls(cfg, tr_ds, te_ds, meta, device=device)
 

@@ -1,4 +1,5 @@
-// X8a and X8b: one factor block of the Gibbs MCMC / ALS v sweep.
+// X8a and X8b: one factor block of the Gibbs MCMC / ALS v sweep; X8a's
+// gradient mode is the v column step of the full-batch exp_sgd (X9d).
 //
 // Replaces the per-bin body of svbfm_tpu/learners/mcmc.py:_v_block_pass
 // (mcmc.py:361-496) and its factor-sequential form v_factor_main_bins
@@ -45,53 +46,44 @@
 // thread finds the pair (f, g) of its sum in closed form, so the block needs
 // about (F^2/2 + 40 F) floats: F <= 303 fits sm_90's 227 KiB (the learner
 // picks F accordingly, learners/mcmc.py:factor_width).  The F-step draw runs
-// in shared memory: one thread draws factor f,
-// a barrier, the threads apply corr_g for g > f in parallel, a barrier.
-// kExact = false (-factor_jacobi, ALS only) drops M and draws every factor
-// from the pre-bin residual at once.
+// in shared memory (svbfm::sequential_draws, mcmc_draw.cuh, which X10b
+// shares): one thread draws factor f, a barrier, the threads apply corr_g
+// for g > f in parallel, a barrier.
+// kMode = kJacobi (-factor_jacobi, ALS only) drops M and draws every factor
+// from the pre-bin residual at once.  kMode = kGrad (X9d, the v columns of
+// svbfm_tpu/learners/exp_sgd.py:exp_sgd_sweep, :120-136) keeps only
+// s0 = sum h e, with e = stdev yhat - y, and steps every factor at once:
+//   v' = keep_finite(v - lr (s0 + regv v) / N, v);
+// no sh2, no M, no draw, no counters.  It fills ptab's dv channels as the
+// draw modes do, so X8b patches q and e after the bin unchanged.
 // X8a, F = 1: one warp per column, lanes over the column's entries, as K5
 // and K6 at F = 1, so no lane idles on an absent factor.
 // X8b: kLanes threads per row: a warp at F >= 2 (lanes over factors), one
 // thread at F = 1.  Each row owns its cache slots: no races.
-#include "svbfm_common.cuh"
+#include "mcmc_draw.cuh"
 
 namespace {
 
 constexpr int kTile = 32;
 constexpr int kColsPerBlock = 8;  // X8a at F = 1: one warp per column
 constexpr int kPatchThreads = 256;
+constexpr int kExact = 0, kJacobi = 1, kGrad = 2;
 
-// One conditional draw (mcmc.py:177-186); counts into nan_c/inf_c.
-__device__ __forceinline__ float draw_one(float she, float sh2, float v_c,
-                                          float mu, float lam, float alpha,
-                                          const float* z, float zv,
-                                          int& nan_c, int& inf_c) {
-  const float s2 = 1.f / (lam + alpha * sh2);
-  const float mean = -s2 * (alpha * (she - v_c * sh2) - mu * lam);
-  float val = z != nullptr ? mean + sqrtf(s2) * zv : mean;
-  if (!isfinite(s2)) val = 0.f;  // uncounted
-  nan_c += isnan(val) ? 1 : 0;
-  inf_c += isinf(val) ? 1 : 0;
-  return isfinite(val) ? val : v_c;
+// The gradient step of X9d (exp_sgd.py:131-132).
+__device__ __forceinline__ float grad_step(float v, float s, float lr,
+                                           float reg, float n) {
+  const float nv = v - lr * (s + reg * v) / n;
+  return isfinite(nv) ? nv : v;
 }
 
-// Offset of M_fg (f < g) in the packed strict upper triangle.
-__device__ __forceinline__ int pair_index(int f, int g, int F) {
-  return f * (2 * F - f - 1) / 2 + (g - f - 1);
+// Sums a column owns: s0 [F], then sh2 [F] (draw modes), then the packed M
+// (exact mode).
+__host__ __device__ __forceinline__ int col_outputs(int mode, int F) {
+  return mode == kGrad ? F
+                       : 2 * F + (mode == kExact ? F * (F - 1) / 2 : 0);
 }
 
-// The pair (f, g), f < g, at offset p of the packed triangle, as f << 16 | g:
-// the float root of pair_index(f, f + 1, F) = p, then exact integer steps.
-__device__ __forceinline__ int pair_at(int p, int F) {
-  const float b = 2.f * F - 1.f;
-  int f = static_cast<int>(0.5f * (b - sqrtf(b * b - 8.f * p)));
-  f = max(0, min(f, F - 2));
-  while (f > 0 && pair_index(f, f + 1, F) > p) --f;
-  while (f < F - 2 && pair_index(f + 1, f + 2, F) <= p) ++f;
-  return (f << 16) | (f + 1 + p - pair_index(f, f + 1, F));
-}
-
-template <bool kExact>
+template <int kMode>
 __global__ void col_draw_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
@@ -99,13 +91,12 @@ __global__ void col_draw_kernel(
     float* __restrict__ ptab, float* __restrict__ v_t,
     const float* __restrict__ mu, const float* __restrict__ lam,
     const float* __restrict__ alpha_p, const float* __restrict__ z,
-    int64_t D, int* __restrict__ nans) {
+    int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int c = blockIdx.x;
-  const int npair = kExact ? F * (F - 1) / 2 : 0;
-  const int nout = 2 * F + npair;
+  const int nout = col_outputs(kMode, F);
   const int ld = kTile + 1;
   float* acc = smem;             // [nout]: s0 | sh2 | M (packed)
   float* hs = acc + nout;        // [F, kTile + 1]
@@ -116,19 +107,22 @@ __global__ void col_draw_kernel(
   float* dsh = prior + 3 * F;    // [1]: the last factor's v_old - v_new
 
   const int64_t col = cols[c];
-  const int g_c = group[c];
   const int64_t ldp = 2 * F;
   for (int f = tid; f < F; f += nt) {
     vc[f] = ptab[col * ldp + f];
     corr[f] = 0.f;
-    prior[f] = mu[g_c * F + f];
-    prior[F + f] = lam[g_c * F + f];
-    prior[2 * F + f] = z != nullptr ? z[f * D + col] : 0.f;
+    if (kMode != kGrad) {
+      const int g_c = group[c];
+      prior[f] = mu[g_c * F + f];
+      prior[F + f] = lam[g_c * F + f];
+      prior[2 * F + f] = z != nullptr ? z[f * D + col] : 0.f;
+    }
   }
   for (int o = tid; o < nout; o += nt) acc[o] = 0.f;
   // the pair of this thread's first sum, found once (at F <= 21 a thread
   // owns at most one sum); later ones are found per tile
-  const int fg0 = tid >= 2 * F && tid < nout ? pair_at(tid - 2 * F, F) : 0;
+  const int fg0 = kMode == kExact && tid >= 2 * F && tid < nout
+                      ? svbfm::pair_at(tid - 2 * F, F) : 0;
   __syncthreads();
 
   const int* crow = rows + static_cast<int64_t>(c) * L;
@@ -159,7 +153,7 @@ __global__ void col_draw_kernel(
         const float* hf = hs + (o - F) * ld;
         for (int l = 0; l < kTile; ++l) s += hf[l] * hf[l];
       } else {
-        const int fg = o == tid ? fg0 : pair_at(o - 2 * F, F);
+        const int fg = o == tid ? fg0 : svbfm::pair_at(o - 2 * F, F);
         const float* hf = hs + (fg >> 16) * ld;
         const float* hg = hs + (fg & 0xffff) * ld;
         for (int l = 0; l < kTile; ++l) s += hf[l] * hg[l];
@@ -169,42 +163,40 @@ __global__ void col_draw_kernel(
     __syncthreads();
   }
 
+  if (kMode == kGrad) {  // exp_sgd.py:129-136: every factor at once
+    for (int f = tid; f < F; f += nt) {
+      const float v_f = vc[f];
+      const float nv = grad_step(v_f, acc[f], lr, reg, n_cases);
+      v_t[col * F + f] = nv;
+      ptab[col * ldp + F + f] = v_f - nv;
+    }
+    return;
+  }
   const float alpha = *alpha_p;
-  const float* zp = z;  // only its nullness is read by draw_one
+  const bool has_z = z != nullptr;
   int nan_c = 0, inf_c = 0;
-  if (!kExact) {
+  if (kMode == kJacobi) {
     // factor-Jacobi (mcmc.py:449-459): every factor from the pre-bin e
     for (int f = tid; f < F; f += nt) {
       const float v_f = vc[f];
-      const float nv = draw_one(acc[f], acc[F + f], v_f, prior[f],
-                                prior[F + f], alpha, zp, prior[2 * F + f],
-                                nan_c, inf_c);
+      const float nv = svbfm::draw_one(acc[f], acc[F + f], v_f, prior[f],
+                                       prior[F + f], alpha, has_z,
+                                       prior[2 * F + f], nan_c, inf_c);
       v_t[col * F + f] = nv;
       ptab[col * ldp + F + f] = v_f - nv;
     }
   } else {
-    for (int f = 0; f < F; ++f) {
-      if (tid == 0) {
-        const float v_f = vc[f];
-        const float nv = draw_one(acc[f] - corr[f], acc[F + f], v_f, prior[f],
-                                  prior[F + f], alpha, zp, prior[2 * F + f],
-                                  nan_c, inf_c);
-        v_t[col * F + f] = nv;
-        ptab[col * ldp + F + f] = v_f - nv;
-        *dsh = v_f - nv;
-      }
-      __syncthreads();
-      const float d = *dsh;
-      for (int g = f + 1 + tid; g < F; g += nt)
-        corr[g] += d * acc[2 * F + pair_index(f, g, F)];
-      __syncthreads();
-    }
+    svbfm::sequential_draws(acc, F, vc, corr, prior, alpha, has_z, dsh,
+                            v_t + col * F, ptab + col * ldp + F, nan_c,
+                            inf_c);
   }
   if (nan_c) atomicAdd(&nans[0], nan_c);
   if (inf_c) atomicAdd(&nans[1], inf_c);
 }
 
-// X8a at F = 1: one warp per column (v_factor_main_bins, mcmc.py:684-705).
+// X8a at F = 1: one warp per column (v_factor_main_bins, mcmc.py:684-705);
+// with kGradF1 the exp_sgd step of one factor (exp_sgd.py:129-136 at F = 1).
+template <bool kGradF1>
 __global__ void col_draw_f1_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
@@ -212,7 +204,7 @@ __global__ void col_draw_f1_kernel(
     float* __restrict__ ptab, float* __restrict__ v_t,
     const float* __restrict__ mu, const float* __restrict__ lam,
     const float* __restrict__ alpha_p, const float* __restrict__ z,
-    int* __restrict__ nans) {
+    int* __restrict__ nans, float lr, float reg, float n_cases) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
   if (c >= C) return;  // the whole warp leaves together
@@ -226,15 +218,22 @@ __global__ void col_draw_f1_kernel(
     const float xv = cx[l];
     const float h = xv * (q[r] - xv * v_c);
     s0 += h * e[r];
-    sh2 += h * h;
+    if (!kGradF1) sh2 += h * h;
   }
   s0 = svbfm::warp_sum(s0);
-  sh2 = svbfm::warp_sum(sh2);
+  if (!kGradF1) sh2 = svbfm::warp_sum(sh2);
   if (lane != 0) return;
+  if (kGradF1) {
+    const float nv = grad_step(v_c, s0, lr, reg, n_cases);
+    v_t[col] = nv;
+    ptab[2 * col + 1] = v_c - nv;
+    return;
+  }
   const int g_c = group[c];
   int nan_c = 0, inf_c = 0;
-  const float nv = draw_one(s0, sh2, v_c, mu[g_c], lam[g_c], *alpha_p, z,
-                            z != nullptr ? z[col] : 0.f, nan_c, inf_c);
+  const float nv = svbfm::draw_one(s0, sh2, v_c, mu[g_c], lam[g_c], *alpha_p,
+                                   z != nullptr, z != nullptr ? z[col] : 0.f,
+                                   nan_c, inf_c);
   v_t[col] = nv;
   ptab[2 * col + 1] = v_c - nv;
   if (nan_c) atomicAdd(&nans[0], nan_c);
@@ -272,30 +271,34 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int F,
 }
 
 // Mirrored by kernels/mcmc_sweep.py:col_draw_smem.
-size_t col_draw_smem(int F, bool exact) {
-  const int npair = exact ? F * (F - 1) / 2 : 0;
-  return sizeof(float) * (2 * F + npair + F * (kTile + 1) + kTile + 5 * F + 1);
+size_t col_draw_smem(int F, int mode) {
+  return sizeof(float) *
+         (col_outputs(mode, F) + F * (kTile + 1) + kTile + 5 * F + 1);
 }
 
-template <bool kExact>
+template <int kMode>
 int launch_col_draw(const int* rows, const float* x, int C, int L,
                     const int* cols, const int* group, const float* e,
                     const float* q, int F, float* ptab, float* v_t,
                     const float* mu, const float* lam, const float* alpha,
-                    const float* z, int64_t D, int* nans,
-                    cudaStream_t stream) {
-  const size_t smem = col_draw_smem(F, kExact);
-  const int nout = 2 * F + (kExact ? F * (F - 1) / 2 : 0);
-  const int threads = nout > 128 ? 256 : 128;
+                    const float* z, int64_t D, int* nans, float lr, float reg,
+                    float n_cases, cudaStream_t stream) {
+  const size_t smem = col_draw_smem(F, kMode);
+  const int threads = col_outputs(kMode, F) > 128 ? 256 : 128;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        col_draw_kernel<kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        col_draw_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  col_draw_kernel<kExact><<<C, threads, smem, stream>>>(
-      rows, x, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D, nans);
+  col_draw_kernel<kMode><<<C, threads, smem, stream>>>(
+      rows, x, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D, nans,
+      lr, reg, n_cases);
   return static_cast<int>(cudaGetLastError());
+}
+
+inline unsigned f1_blocks(int C) {
+  return static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
 }
 
 }  // namespace
@@ -311,18 +314,35 @@ SVBFM_EXPORT int svbfm_mcmc_col_draw(
     float* v_t, const float* mu, const float* lam, const float* alpha,
     const float* z, int64_t D, int exact, int* nans, cudaStream_t stream) {
   if (F == 1) {
-    const unsigned blocks =
-        static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
-    col_draw_f1_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
-        rows, x, C, L, cols, group, e, q, ptab, v_t, mu, lam, alpha, z, nans);
+    col_draw_f1_kernel<false><<<f1_blocks(C), 32 * kColsPerBlock, 0, stream>>>(
+        rows, x, C, L, cols, group, e, q, ptab, v_t, mu, lam, alpha, z, nans,
+        0.f, 0.f, 1.f);
     return static_cast<int>(cudaGetLastError());
   }
-  return exact ? launch_col_draw<true>(rows, x, C, L, cols, group, e, q, F,
-                                       ptab, v_t, mu, lam, alpha, z, D, nans,
-                                       stream)
-               : launch_col_draw<false>(rows, x, C, L, cols, group, e, q, F,
-                                        ptab, v_t, mu, lam, alpha, z, D, nans,
-                                        stream);
+  return exact ? launch_col_draw<kExact>(rows, x, C, L, cols, group, e, q, F,
+                                         ptab, v_t, mu, lam, alpha, z, D, nans,
+                                         0.f, 0.f, 1.f, stream)
+               : launch_col_draw<kJacobi>(rows, x, C, L, cols, group, e, q, F,
+                                          ptab, v_t, mu, lam, alpha, z, D,
+                                          nans, 0.f, 0.f, 1.f, stream);
+}
+
+// X8a's gradient mode (X9d) on one [C, L] bucket: v_t [D, F] and ptab's dv
+// channels at the bucket's columns, v' = keep_finite(v - lr (sum h e +
+// reg v) / n_cases, v), from the pre-bin v in ptab's channels 0..F-1.
+SVBFM_EXPORT int svbfm_mcmc_col_grad(
+    const int* rows, const float* x, int C, int L, const int* cols,
+    const float* e, const float* q, int F, float* ptab, float* v_t,
+    float lr, float reg, float n_cases, cudaStream_t stream) {
+  if (F == 1) {
+    col_draw_f1_kernel<true><<<f1_blocks(C), 32 * kColsPerBlock, 0, stream>>>(
+        rows, x, C, L, cols, nullptr, e, q, ptab, v_t, nullptr, nullptr,
+        nullptr, nullptr, nullptr, lr, reg, n_cases);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return launch_col_draw<kGrad>(rows, x, C, L, cols, nullptr, e, q, F, ptab,
+                                v_t, nullptr, nullptr, nullptr, nullptr, 0,
+                                nullptr, lr, reg, n_cases, stream);
 }
 
 // X8b: patch q [N, F] and e [N] in place from ptab [D, 2F] = (v_old, dv).

@@ -1,5 +1,6 @@
 // K5: the standalone linear-term column sweep, batch VB (exact mode, K = 0)
-// and online VB; and X8c, the w draw of Gibbs MCMC and ALS.
+// and online VB; X8c, the w draw of Gibbs MCMC and ALS; and K5's gradient
+// mode, the w column step of the full-batch exp_sgd (X9d).
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_w_bin_update (vb.py:125-148) and its
 // OVB twin vb_online.py:230-269: per [C, L] degree bucket, the column
@@ -18,6 +19,13 @@
 // (none for ALS); a bad s2 gives 0 uncounted, a bad draw is counted and
 // reverted.  Its delta table is (w_new - w_old, 0), which the same w patch
 // adds to e with t == nullptr.
+//
+// The gradient mode (svbfm_w_grad_step) replaces the bucket body of the w
+// bins of svbfm_tpu/learners/exp_sgd.py:exp_sgd_sweep (:77-87): the same
+// sum sxe = sum x e, with e = stdev yhat - y, then the coordinate step
+// w' = keep_finite(w - lr (sxe + regw w) / N, w).  Its delta table is
+// (w_new - w_old, 0) as in the MCMC mode, so the w patch adds
+// sum x (w_new - w_old) to e: exp_sgd.py:88-91's e -= sum x (w_old - w_new).
 //
 // Layouts: bucket rows/x [C, L] row-major, the JAX layout; parameter and
 // natural tables [D]; the delta table dtab [D, 2] row-major, K4's patch
@@ -43,7 +51,9 @@ constexpr int kColsPerBlock = 8;  // one warp per column
 // nan sig, inf sig) candidates.  mode 2: the MCMC draw (see the top);
 // mu_w is w, sigma_w the group lambdas, prior_mu the group means, z the
 // [D] noise table or nullptr; bad[0], bad[1] += nan, inf draws.
-constexpr int kModeVB = 0, kModeOVB = 1, kModeMCMC = 2;
+// mode 3: the exp_sgd gradient step (see the top); mu_w is w, and lr, reg,
+// n_cases its step size, regw and N.
+constexpr int kModeVB = 0, kModeOVB = 1, kModeMCMC = 2, kModeGrad = 3;
 
 __global__ void w_col_update_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
@@ -55,7 +65,8 @@ __global__ void w_col_update_kernel(
     const float* __restrict__ cnt, const float* __restrict__ col_count,
     float* __restrict__ nmu_w, float* __restrict__ nsig_w,
     const float* __restrict__ rho_w, float* __restrict__ t_wj,
-    const float* __restrict__ prior_mu, const float* __restrict__ z) {
+    const float* __restrict__ prior_mu, const float* __restrict__ z,
+    float lr, float reg, float n_cases) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
   if (c >= C) return;  // the whole warp leaves together
@@ -71,6 +82,14 @@ __global__ void w_col_update_kernel(
   }
   s = svbfm::warp_sum(s);
   if (lane != 0) return;
+  if (mode == kModeGrad) {  // exp_sgd.py:84-87
+    float w_new = mu_c - lr * (s + reg * mu_c) / n_cases;
+    if (!isfinite(w_new)) w_new = mu_c;
+    mu_w[col] = w_new;
+    dtab[2 * col] = w_new - mu_c;
+    dtab[2 * col + 1] = 0.f;
+    return;
+  }
   const float alpha = *alpha_p;
   const float sw = sigma_w[group[c]];
   const float sxx = sx2[c];
@@ -142,7 +161,7 @@ SVBFM_EXPORT int svbfm_w_col_update(
   w_col_update_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
       rows, x, C, L, cols, group, sx2, e, mu_w, sig_w, sigma_w, alpha, dtab,
       bad, ovb ? kModeOVB : kModeVB, cnt, col_count, nmu_w, nsig_w, rho_w,
-      t_wj, nullptr, nullptr);
+      t_wj, nullptr, nullptr, 0.f, 0.f, 1.f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -160,6 +179,21 @@ SVBFM_EXPORT int svbfm_mcmc_w_draw(
   w_col_update_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
       rows, x, C, L, cols, group, sx2, e, w, nullptr, w_lambda, alpha, dtab,
       bad, kModeMCMC, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      w_mu, z);
+      w_mu, z, 0.f, 0.f, 1.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's gradient mode (X9d), one [C, L] bucket of the exp_sgd w sweep.
+// Writes w [D] and dtab [D, 2] = (w_new - w_old, 0) at the bucket's columns.
+SVBFM_EXPORT int svbfm_w_grad_step(const int* rows, const float* x, int C,
+                                   int L, const int* cols, const float* e,
+                                   float* w, float* dtab, float lr, float reg,
+                                   float n_cases, cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
+  w_col_update_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
+      rows, x, C, L, cols, nullptr, nullptr, e, w, nullptr, nullptr, nullptr,
+      dtab, nullptr, kModeGrad, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, lr, reg, n_cases);
   return static_cast<int>(cudaGetLastError());
 }

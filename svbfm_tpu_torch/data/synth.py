@@ -67,6 +67,52 @@ def train_test_split(coo: COOData, test_frac: float = 0.1, seed: int = 1):
     return subset(~test_mask_rows), subset(test_mask_rows)
 
 
+def make_relation(num_rows, num_onehot, num_attrs, seed):
+    """One-hot id + ``num_attrs`` shared attributes per relation row, each
+    attribute slot with 2 possible columns (conflict-free pairs); a copy of
+    ``scripts/bench_bs.py:make_relation``."""
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.relation import RelationData
+
+    rng = np.random.default_rng(seed)
+    D = num_onehot + 2 * max(num_attrs, 1)
+    rows = [np.arange(num_rows, dtype=np.int32)]
+    cols = [np.arange(num_rows, dtype=np.int32) % num_onehot]
+    vals = [np.ones(num_rows, np.float32)]
+    for a in range(num_attrs):
+        rows.append(np.arange(num_rows, dtype=np.int32))
+        cols.append(num_onehot + 2 * a
+                    + rng.integers(0, 2, num_rows).astype(np.int32))
+        vals.append(rng.uniform(0.2, 1.0, num_rows).astype(np.float32))
+    order = np.argsort(np.concatenate(rows), kind="stable")
+    return RelationData(
+        row=np.concatenate(rows)[order], col=np.concatenate(cols)[order],
+        val=np.concatenate(vals)[order], num_rows=num_rows, num_features=D,
+        meta=DataMetaInfo(D))
+
+
+def make_bs_problem(rows, ua, ia):
+    """The relational (VLDB'13) recipe of ``scripts/bench_bs.py:
+    make_bs_problem``: ML/Netflix-shaped ratings whose features live entirely
+    in a user relation (one-hot + ``ua`` attribute slots) and an item
+    relation (one-hot + ``ia`` slots); the main design block is empty.
+    Returns (main, rel_u, rel_i, users, items, y)."""
+    nu, ni = (71567, 10681) if rows <= 20_000_000 else (480189, 17770)
+    rng = np.random.default_rng(5)
+    users = rng.integers(0, nu, rows)
+    items = rng.integers(0, ni, rows)
+    bu = 0.4 * rng.standard_normal(nu)
+    bi = 0.4 * rng.standard_normal(ni)
+    y = (3.6 + bu[users] + bi[items]
+         + 0.5 * rng.standard_normal(rows)).astype(np.float32)
+    main = COOData(row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
+                   val=np.zeros(0, np.float32), target=y,
+                   num_rows=rows, num_features=0)
+    rel_u = make_relation(nu, nu, ua, seed=7)
+    rel_i = make_relation(ni, ni, ia, seed=8)
+    return main, rel_u, rel_i, users, items, y
+
+
 def make_tiny(seed: int = 0, num_rows: int = 64, num_users: int = 8, num_items: int = 6) -> COOData:
     """Small deterministic dataset for unit tests."""
     return make_movielens_like(

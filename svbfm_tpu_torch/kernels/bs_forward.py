@@ -1,0 +1,198 @@
+"""X10d: the block-structure forward pass and the data-row resync
+(``csrc/bs_forward.cu``).
+
+``bs_rel_moments`` builds a relation's row moments (lin | qB | sB) [R, 1+2K]
+from the parameter table; ``bs_scores`` scores data rows from their main
+row layout and each relation's moments at the joined row, never
+materialising the join; ``bs_resync`` carries a relation sweep's per-row
+deltas back to the data rows (e += sum dy[j] + sum qO dqB[j], q += dqB[j]),
+and with no e builds the q cache (q += qB[j]).  On CUDA tensors each op
+launches its hand-written kernel; on CPU tensors it runs the plain PyTorch
+twin beside it, the JAX arithmetic.
+
+Layouts (see ``csrc/bs_forward.cu``): stab [D_all, 1+K] = (w | v^T), as
+kernel K1 reads it; rids/rvals [R, Pr] a relation's row layout in its local
+attribute ids, which sit at stab rows off .. off + Dr - 1.
+
+Replaces ``svbfm_tpu/learners/mcmc_bs.py:bs_scores`` (:215-268), the qB
+build at the v sweep's entry (:700-708) and the resyncs (:463-468,
+:490-497, :689-690, :820-824).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from svbfm_tpu_torch.kernels import build
+
+_I32, _F32 = torch.int32, torch.float32
+MAX_RELATIONS = 8  # csrc/bs_forward.cu kMaxRel
+
+
+# ---- the relation-row moments -------------------------------------------------
+
+def bs_rel_moments_plain(rids, rvals, stab, off: int, k1: bool = True):
+    """[R, 1+2K] = (lin | qB | sB) over the relation's positions in order
+    (mcmc_bs.py:230-234, :251-258); lin is 0 without k1."""
+    R = rids.shape[0]
+    K = stab.shape[1] - 1
+    lin = torch.zeros(R, dtype=_F32, device=stab.device)
+    qB = torch.zeros(R, K, dtype=_F32, device=stab.device)
+    sB = torch.zeros_like(qB)
+    for p in range(rids.shape[1]):
+        g = stab.index_select(0, rids[:, p] + off)
+        xp = rvals[:, p]
+        if k1:
+            lin = lin + g[:, 0] * xp
+        d = g[:, 1:] * xp[:, None]
+        qB = qB + d
+        sB = sB + d * d
+    return torch.cat([lin[:, None], qB, sB], 1)
+
+
+def bs_rel_moments(rids, rvals, stab, off: int, k1: bool = True):
+    if build.on_cpu(rids):
+        return bs_rel_moments_plain(rids, rvals, stab, off, k1)
+    R, Pr = rids.shape
+    K = stab.shape[1] - 1
+    dev = rids.device
+    build.require(rids, _I32, (R, Pr), dev, "bs_rel_moments.rids")
+    build.require(rvals, _F32, (R, Pr), dev, "bs_rel_moments.rvals")
+    build.require(stab, _F32, (stab.shape[0], K + 1), dev,
+                  "bs_rel_moments.stab")
+    out = torch.empty(R, 1 + 2 * K, dtype=_F32, device=dev)
+    if R == 0:
+        return out
+    lib = build.load_library("bs_forward")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_bs_rel_moments(
+            build.ptr(rids), build.ptr(rvals), R, Pr, build.ptr(stab), off, K,
+            int(k1), build.ptr(out), build.stream_of(rids))
+    build.check_launch(lib, rc, "bs_rel_moments")
+    return out
+
+
+# ---- the joined scores --------------------------------------------------------
+
+def bs_scores_plain(stab, w0, ids, vals, joins, moms):
+    """Scores [N] (mcmc_bs.py:224-268): the main row layout, then each
+    relation's moments at the joined row."""
+    K = stab.shape[1] - 1
+    acc = w0 + torch.zeros(ids.shape[0], dtype=_F32, device=stab.device)
+    s = s2 = 0.0
+    for p in range(ids.shape[1]):
+        g = stab.index_select(0, ids[:, p])
+        xp = vals[:, p]
+        acc = acc + g[:, 0] * xp
+        d = g[:, 1:] * xp[:, None]
+        s = s + d
+        s2 = s2 + d * d
+    for j, m in zip(joins, moms):
+        acc = acc + m[:, 0].index_select(0, j)
+    if K == 0:
+        return acc
+    for j, m in zip(joins, moms):
+        g = m.index_select(0, j)
+        s = s + g[:, 1:1 + K]
+        s2 = s2 + g[:, 1 + K:]
+    return acc + 0.5 * (s * s - s2).sum(1)
+
+
+def bs_scores(stab, w0, ids, vals, joins, moms):
+    if build.on_cpu(ids):
+        return bs_scores_plain(stab, w0, ids, vals, joins, moms)
+    N, P = ids.shape
+    K = stab.shape[1] - 1
+    dev = ids.device
+    req = build.require
+    req(stab, _F32, (stab.shape[0], K + 1), dev, "bs_scores.stab")
+    req(w0, _F32, (), dev, "bs_scores.w0")
+    req(ids, _I32, (N, P), dev, "bs_scores.ids")
+    req(vals, _F32, (N, P), dev, "bs_scores.vals")
+    if len(joins) != len(moms) or len(joins) > MAX_RELATIONS:
+        raise ValueError(f"bs_scores: {len(joins)} joins, {len(moms)} "
+                         f"moment tables; at most {MAX_RELATIONS}")
+    for r, (j, m) in enumerate(zip(joins, moms)):
+        req(j, _I32, (N,), dev, f"bs_scores.joins[{r}]")
+        req(m, _F32, (m.shape[0], 1 + 2 * K), dev, f"bs_scores.moms[{r}]")
+    out = torch.empty(N, dtype=_F32, device=dev)
+    if N == 0:
+        return out
+    n = len(joins)
+    jp = (ctypes.c_void_p * max(n, 1))(*[j.data_ptr() for j in joins])
+    mp = (ctypes.c_void_p * max(n, 1))(*[m.data_ptr() for m in moms])
+    lib = build.load_library("bs_forward")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_bs_scores(
+            build.ptr(stab), K, build.ptr(w0), build.ptr(ids),
+            build.ptr(vals), N, P, n, ctypes.cast(jp, ctypes.c_void_p),
+            ctypes.cast(mp, ctypes.c_void_p), build.ptr(out),
+            build.stream_of(ids))
+    build.check_launch(lib, rc, "bs_scores")
+    return out
+
+
+# ---- the resync ---------------------------------------------------------------
+
+def bs_resync_plain(join, F: int, dy, qB1, qB0, q, e) -> None:
+    """In place on q [N, F] and e [N] (either may be None): e += sum_f
+    dy[j] + sum_f (q - qB0[j]) (qB1 - qB0)[j], then q += (qB1 - qB0)[j]
+    (mcmc_bs.py:463-468, :820-824; the w resync :689-690 has dy alone, the
+    q build :490-497 qB1 alone)."""
+    de = None
+    if dy is not None:
+        de = dy.index_select(0, join).sum(1)
+    if qB1 is not None:
+        dq = qB1 - qB0 if qB0 is not None else qB1
+        gq = dq.index_select(0, join)
+        if e is not None:
+            t = ((q - qB0.index_select(0, join)) * gq).sum(1)
+            de = t if de is None else de + t
+        q += gq
+    if e is not None and de is not None:
+        e += de
+
+
+def _rows(t, shape, dev, name) -> int:
+    """A [R, F] view with unit column stride; returns its row stride."""
+    if t.device != dev or t.dtype != _F32:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: columns must be adjacent")
+    return t.stride(0)
+
+
+def bs_resync(join, F: int, dy, qB1, qB0, q, e) -> None:
+    if build.on_cpu(join):
+        return bs_resync_plain(join, F, dy, qB1, qB0, q, e)
+    N = join.shape[0]
+    dev = join.device
+    req = build.require
+    req(join, _I32, (N,), dev, "bs_resync.join")
+    ld1 = 0
+    if dy is not None:
+        req(dy, _F32, (dy.shape[0], F), dev, "bs_resync.dy")
+    if qB1 is not None:
+        ld1 = _rows(qB1, (qB1.shape[0], F), dev, "bs_resync.qB1")
+    if qB0 is not None:
+        req(qB0, _F32, (qB0.shape[0], F), dev, "bs_resync.qB0")
+    if q is not None:
+        req(q, _F32, (N, F), dev, "bs_resync.q")
+    if e is not None:
+        req(e, _F32, (N,), dev, "bs_resync.e")
+    if N == 0 or F == 0:
+        return
+    lib = build.load_library("bs_forward")
+
+    def p(t):
+        return None if t is None else build.ptr(t)
+
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_bs_resync(build.ptr(join), N, F, p(dy), p(qB1), ld1,
+                                 p(qB0), p(q), p(e), build.stream_of(join))
+    build.check_launch(lib, rc, "bs_resync")

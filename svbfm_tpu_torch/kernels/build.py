@@ -28,7 +28,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "svbfm_tpu_torch")
-HEADERS = ("svbfm_common.cuh",)
+HEADERS = ("svbfm_common.cuh", "mcmc_draw.cuh")
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit puts it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,11 +38,14 @@ LIBRARIES = {
     "fm_forward": ("fm_scores", "fm_t_terms"),
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
                  "w_patch_rows", "build_q"),
-    "w_sweep": ("w_col_update", "mcmc_w_draw"),
+    "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step"),
     "ovb_sweep": ("ovb_col_stats_update",),
-    "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows"),
+    "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows", "mcmc_col_grad"),
     "gather_probe": ("gather_probe",),
     "sgd_step": ("sgd_grad_scatter", "sgd_apply", "sgda_lambda"),
+    "bs_sweep": ("bs_join_agg", "bs_rel_draw", "bs_rel_w_draw",
+                 "bs_rel_patch", "bs_rel_w_patch"),
+    "bs_forward": ("bs_rel_moments", "bs_scores", "bs_resync"),
 }
 
 # C signatures of the exported launch functions (P: pointer or stream,
@@ -70,6 +73,19 @@ SIGNATURES = {
     "svbfm_mcmc_col_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                             _P, _P, _P, _L, _I, _P, _P),
     "svbfm_mcmc_patch_rows": (_P, _I, _P, _P, _L, _I, _P, _P, _P),
+    "svbfm_w_grad_step": (_P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F, _P),
+    "svbfm_mcmc_col_grad": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _F,
+                            _F, _P),
+    "svbfm_bs_join_agg": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P),
+    "svbfm_bs_rel_draw": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
+                          _P, _P, _P, _L, _P, _P, _P, _P),
+    "svbfm_bs_rel_w_draw": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _L, _P, _P, _P, _P),
+    "svbfm_bs_rel_patch": (_P, _P, _L, _I, _P, _I, _P, _I, _P, _P, _P),
+    "svbfm_bs_rel_w_patch": (_P, _P, _L, _I, _P, _I, _P, _P, _P, _P),
+    "svbfm_bs_rel_moments": (_P, _P, _L, _I, _P, _L, _I, _I, _P, _P),
+    "svbfm_bs_scores": (_P, _I, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P),
+    "svbfm_bs_resync": (_P, _L, _I, _P, _P, _L, _P, _P, _P, _P),
     "svbfm_gather_probe": (_P, _P, _L, _I, _P, _P),
     "svbfm_sgd_grad_scatter": (
         _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _P,

@@ -19,6 +19,13 @@ v_old - v_new), dv zeroed before each bin; group priors mu/lam [G, F]; the
 noise table z [F, D] or None (ALS); ``nans`` an int32 [2] counter of the NaN
 and Inf draws.  MCMC's e is yhat - y.
 
+``mcmc_col_grad`` (X9d's v half) is X8a's gradient mode, the v columns of
+the full-batch exp_sgd: the same s0 = sum h e from the pre-bin e (here
+stdev yhat - y) and the step v' = keep_finite(v - lr (s0 + regv v) / N, v)
+for all F factors at once; it fills ``ptab``'s dv channels, so X8b patches
+q and e as after a draw (``svbfm_tpu/learners/exp_sgd.py:exp_sgd_sweep``,
+:120-143).
+
 Replaces ``svbfm_tpu/learners/mcmc.py:_v_block_pass`` → ``tile_stats``
 (:371-391) + ``exact_block_draws`` (:137-200) or the factor-Jacobi draws
 (:449-459), and ``patch_tile`` (:468-478); at F = 1 the bucket body and the
@@ -41,13 +48,14 @@ MAX_BLOCK_SMEM = 227 * 1024
 _TILE = 32  # csrc/mcmc_sweep.cu kTile
 
 
-def col_draw_smem(F: int, exact_seq: bool) -> int:
+def col_draw_smem(F: int, exact_seq: bool, grad: bool = False) -> int:
     """Bytes of shared memory X8a's block takes at F >= 2 (the
-    accumulators s0, sh2 and, in the exact mode, the packed M; the h tile;
-    the column's v, corrections and priors), as
+    accumulators s0, sh2 and, in the exact mode, the packed M; the gradient
+    mode s0 alone; the h tile; the column's v, corrections and priors), as
     ``csrc/mcmc_sweep.cu:col_draw_smem``."""
     npair = F * (F - 1) // 2 if exact_seq else 0
-    return 4 * (2 * F + npair + F * (_TILE + 1) + _TILE + 5 * F + 1)
+    nout = F if grad else 2 * F + npair
+    return 4 * (nout + F * (_TILE + 1) + _TILE + 5 * F + 1)
 
 
 def col_draw_fits(F: int, exact_seq: bool) -> bool:
@@ -182,6 +190,61 @@ def mcmc_col_draw(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
             None if z is None else build.ptr(z), D, int(exact_seq),
             build.ptr(nans), build.stream_of(rows))
     build.check_launch(lib, rc, "mcmc_col_draw")
+
+
+# ---- X9d: X8a's gradient mode ----------------------------------------------
+
+def mcmc_col_grad_plain(rows, x, cols, e, q, ptab, v_t, lr: float, reg: float,
+                        n_cases: float) -> None:
+    """One [C, L] bucket of the exp_sgd v sweep (exp_sgd.py:125-136), in
+    place on v_t and ptab's dv channels at the bucket's columns."""
+    C, L = rows.shape
+    F = v_t.shape[1]
+    cl = cols.long()
+    v_c = ptab[cl, :F]  # [C, F] pre-bin
+    ridx = rows.reshape(-1)
+    e_g = e.index_select(0, ridx).reshape(C, L, 1)
+    q_g = q.index_select(0, ridx).reshape(C, L, F)
+    xb = x[:, :, None]
+    h = xb * (q_g - xb * v_c[:, None, :])
+    v_sum = (h * e_g).sum(1)  # [C, F]
+    n = torch.full((), n_cases, dtype=_F32, device=v_t.device)
+    new = keep_finite(v_c - lr * (v_sum + reg * v_c) / n, v_c)
+    v_t[cl] = new
+    ptab[cl, F:] = v_c - new
+
+
+def mcmc_col_grad(rows, x, cols, e, q, ptab, v_t, lr: float, reg: float,
+                  n_cases: float) -> None:
+    if build.on_cpu(rows):
+        return mcmc_col_grad_plain(rows, x, cols, e, q, ptab, v_t, lr, reg,
+                                   n_cases)
+    C, L = rows.shape
+    D, F = v_t.shape
+    dev = rows.device
+    req = build.require
+    req(rows, _I32, (C, L), dev, "mcmc_col_grad.rows")
+    req(x, _F32, (C, L), dev, "mcmc_col_grad.x")
+    req(cols, _I32, (C,), dev, "mcmc_col_grad.cols")
+    req(e, _F32, (e.shape[0],), dev, "mcmc_col_grad.e")
+    req(q, _F32, (e.shape[0], F), dev, "mcmc_col_grad.q")
+    req(ptab, _F32, (D, 2 * F), dev, "mcmc_col_grad.ptab")
+    req(v_t, _F32, (D, F), dev, "mcmc_col_grad.v_t")
+    if C == 0 or F == 0:
+        return
+    if F > 1 and col_draw_smem(F, False, grad=True) > MAX_BLOCK_SMEM:
+        raise ValueError(
+            f"mcmc_col_grad: a block of F = {F} factors needs "
+            f"{col_draw_smem(F, False, grad=True)} bytes of shared memory, "
+            f"more than the {MAX_BLOCK_SMEM} one block may take; use a "
+            f"narrower factor_block")
+    lib = build.load_library("mcmc_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_mcmc_col_grad(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(e), build.ptr(q), F, build.ptr(ptab), build.ptr(v_t),
+            lr, reg, n_cases, build.stream_of(rows))
+    build.check_launch(lib, rc, "mcmc_col_grad")
 
 
 # ---- X8b --------------------------------------------------------------------

@@ -18,10 +18,15 @@ of Gibbs MCMC (ALS: the conditional mean), with the delta table
 (w_new - w_old, 0) that ``vb_sweep.w_patch_rows`` adds to MCMC's e = yhat - y;
 ``bad[0]``, ``bad[1]`` count the NaN and Inf draws.
 
+``w_grad_step`` (X9d's w half) is its gradient mode: the bucket's step of
+the full-batch exp_sgd, w' = keep_finite(w - lr (sum x e + regw w) / N, w),
+with the same delta table (w_new - w_old, 0) for the w patch.
+
 Replaces ``svbfm_tpu/learners/vb.py:vb_w_bin_update`` (:125-148), the w
 column updates of ``svbfm_tpu/learners/vb_online.py:ovb_chunk_update``
-(:230-269) and the bucket body of ``svbfm_tpu/learners/mcmc.py:w_sweep_main``
-(:632-652).
+(:230-269), the bucket body of ``svbfm_tpu/learners/mcmc.py:w_sweep_main``
+(:632-652) and the w buckets of
+``svbfm_tpu/learners/exp_sgd.py:exp_sgd_sweep`` (:78-87).
 """
 
 from __future__ import annotations
@@ -133,7 +138,6 @@ def w_col_update(rows, x, cols, group, sx2, e, mu_w, sig_w, sigma_w, alpha,
     build.check_launch(lib, rc, "w_col_update")
 
 
-
 # ---- X8c: K5's MCMC mode ----------------------------------------------------
 
 def mcmc_w_draw_plain(rows, x, cols, group, sx2, e, w, w_mu, w_lambda, alpha,
@@ -193,3 +197,46 @@ def mcmc_w_draw(rows, x, cols, group, sx2, e, w, w_mu, w_lambda, alpha, z,
             None if z is None else build.ptr(z), build.ptr(dtab),
             build.ptr(bad), build.stream_of(rows))
     build.check_launch(lib, rc, "mcmc_w_draw")
+
+
+# ---- X9d: K5's gradient mode ------------------------------------------------
+
+def w_grad_step_plain(rows, x, cols, e, w, dtab, lr: float, reg: float,
+                      n_cases: float) -> None:
+    """One [C, L] bucket of the exp_sgd w sweep (exp_sgd.py:81-87), in place
+    on w and dtab = (w_new - w_old, 0) at the bucket's columns; e is
+    stdev yhat - y.  ``lr``, ``reg`` and ``n_cases`` are float32 numbers, as
+    the JAX step takes them."""
+    cl = cols.long()
+    w_c = w[cl]
+    e_g = e.index_select(0, rows.reshape(-1)).reshape(rows.shape)
+    w_sum = (x * e_g).sum(1)
+    n = torch.full((), n_cases, dtype=_F32, device=w.device)
+    w_new = keep_finite(w_c - lr * (w_sum + reg * w_c) / n, w_c)
+    w[cl] = w_new
+    dtab[cl] = torch.stack([w_new - w_c, torch.zeros_like(w_c)], 1)
+
+
+def w_grad_step(rows, x, cols, e, w, dtab, lr: float, reg: float,
+                n_cases: float) -> None:
+    if build.on_cpu(rows):
+        return w_grad_step_plain(rows, x, cols, e, w, dtab, lr, reg, n_cases)
+    C, L = rows.shape
+    D = w.shape[0]
+    dev = rows.device
+    req = build.require
+    req(rows, _I32, (C, L), dev, "w_grad_step.rows")
+    req(x, _F32, (C, L), dev, "w_grad_step.x")
+    req(cols, _I32, (C,), dev, "w_grad_step.cols")
+    req(e, _F32, (e.shape[0],), dev, "w_grad_step.e")
+    req(w, _F32, (D,), dev, "w_grad_step.w")
+    req(dtab, _F32, (D, 2), dev, "w_grad_step.dtab")
+    if C == 0:
+        return
+    lib = build.load_library("w_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_w_grad_step(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(e), build.ptr(w), build.ptr(dtab), lr, reg, n_cases,
+            build.stream_of(rows))
+    build.check_launch(lib, rc, "w_grad_step")

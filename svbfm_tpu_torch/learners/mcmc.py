@@ -259,12 +259,15 @@ def w_sweep_main(e, w, w_mu, w_lambda, alpha, plan: PlanData, row: RowData,
 
 def _v_block_pass(e, v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
                   row: RowData, cfg: FMConfig, alpha, exact_seq: bool,
-                  counters) -> None:
+                  counters, q_extra: Optional[torch.Tensor] = None):
     """One factor block's bin sweep (mcmc.py:304-497), in place on e and
     v_t [D, F]; ``mu_gf``/``lam_gf`` [G, F] are the block's group priors.
     Per bin: the patch table ``ptab`` [D, 2F] takes the pre-bin v and
     zeroed dv channels; X8a draws each bucket's columns into v_t and fills
-    their dv; X8b patches q and e from ``ptab``."""
+    their dv; X8b patches q and e from ``ptab``.  ``q_extra`` [N, F] adds
+    the non-main part of the q cache (the block-structure learner's
+    relation qB gathers, mcmc.py:344-348).  Returns the q cache after the
+    sweep (None when the plan has no bin)."""
     D, F = v_t.shape
     dev = v_t.device
     # one [F, D] table per block step: each column is drawn once
@@ -277,12 +280,15 @@ def _v_block_pass(e, v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
         ptab[:, F:].zero_()
         if bi == 0:
             q = build_q(ptab, F, row.ids, row.vals)
+            if q_extra is not None:
+                q += q_extra
         for blk in bin_blocks:
             mcmc_col_draw(blk.rows, blk.x, blk.cols, blk.group, e, q, ptab,
                           v_t, mu_gf, lam_gf, alpha, z, exact_seq, nans)
         mcmc_patch_rows(ptab, F, row.ids, row.vals, q, e)
     counters["nan_v"] = counters["nan_v"] + nans[0]
     counters["inf_v"] = counters["inf_v"] + nans[1]
+    return q
 
 
 def _v_blocked_sweep(e, v, v_mu, v_lambda, alpha, plan: PlanData,
@@ -473,10 +479,12 @@ class MCMCLearner:
                            init_stdev=cfg.init_stdev, init_w_normal=True)
         return self.state_from_params(p.w0, p.w, p.v, draws)
 
+    def _test_scores(self, state: MCMCState) -> torch.Tensor:
+        return fm_scores(state.w0, state.w, state.v, self.test_row.ids,
+                         self.test_row.vals, k0=self.cfg.k0, k1=self.cfg.k1)
+
     def predict_test_scores(self, state: MCMCState) -> np.ndarray:
-        s = fm_scores(state.w0, state.w, state.v, self.test_row.ids,
-                      self.test_row.vals, k0=self.cfg.k0, k1=self.cfg.k1)
-        return s.cpu().numpy()[: self.test_n]
+        return self._test_scores(state).cpu().numpy()[: self.test_n]
 
     def final_test_predictions(self, state: MCMCState) -> np.ndarray:
         """The reference's predict() (fm_learn_mcmc.h:355-379): the
@@ -504,8 +512,7 @@ class MCMCLearner:
         w_mu [G], w_lambda [G], v_mu [G*K], v_lambda [G*K]."""
         cfg, trow = self.cfg, self.test_row
         lo, hi = cfg.min_target, cfg.max_target
-        scores = fm_scores(state.w0, state.w, state.v, trow.ids, trow.vals,
-                           k0=cfg.k0, k1=cfg.k1)
+        scores = self._test_scores(state)
         nt = float(self.test_n)
         p = torch.clamp(scores, lo, hi)
         psum_all += p

@@ -3,8 +3,9 @@
 ``jax.random`` bits cannot be reproduced in torch, so tests that hold the
 two packages to each other start both from the same parameters: the JAX
 learner's ``VBState`` (or ``OVBState``, ``MCMCState``, ``SGDState``,
-``SGDAState``, ``BPRState``), fetched to numpy with ``jax.device_get``,
-becomes the port's state of the same name.
+``SGDAState``, ``BPRState``, or exp_sgd's tuple (w0, w, v)), fetched to
+numpy with ``jax.device_get``, becomes the port's state of the same name.
+A block-structure state is an ``MCMCState`` over the joined attributes.
 Nothing here imports JAX.
 """
 
@@ -18,6 +19,7 @@ import torch
 
 from svbfm_tpu_torch.learners.bpr import BPRState
 from svbfm_tpu_torch.learners.draws import Draws
+from svbfm_tpu_torch.learners.exp_sgd import ExpSGDState
 from svbfm_tpu_torch.learners.mcmc import TENSOR_FIELDS, MCMCState
 from svbfm_tpu_torch.learners.sgd import SGDAState, SGDState, table
 from svbfm_tpu_torch.learners.vb import VBState
@@ -78,3 +80,10 @@ def sgda_state_from_jax(np_state: Any, device, draws: Draws) -> SGDAState:
 
 def bpr_state_from_jax(np_state: Any, device, draws: Draws) -> BPRState:
     return BPRState(**_sgd_fields(np_state, device), draws=draws)
+
+
+def exp_sgd_state_from_jax(np_state: Any, device) -> ExpSGDState:
+    """The full-batch exp_sgd state: the JAX learner's tuple (w0, w, v)."""
+    w0, w, v = (torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+                for a in np_state)
+    return ExpSGDState(w0=w0, w=w, v=v)

@@ -1,0 +1,461 @@
+"""Native relational block structure (BS) in the port: ``data/relation.py``
+array for array against ``svbfm_tpu.data.relation``; the CPU twins of
+X10a-X10d inside ``learners/mcmc_bs.py`` against the JAX package's
+``MCMCBSLearner``/``ALSBSLearner`` (test_bs.py:_setup sizes), both packages
+started from the JAX learner's init (``mcmc_state_from_jax``: a BS state is
+an ``MCMCState`` over the joined attributes); against the float64
+``BinOrderALSOracle``/``BSBlockedALSOracle``; and against the port's own
+``ALSLearner`` on the materialised join.  Gibbs replays the JAX key chain
+(``JaxKeyDraws``), so a sweep that drew in another order or shape would
+leave the two chains apart, which the tests check.
+
+Tolerances, with their reasons:
+  * sweeps against JAX: rtol 1e-4 / atol 1e-5 on w0, w, v and e (the
+    issue's bound; float32 sums of the relation aggregates taken in another
+    order), rtol 1e-5 / atol 1e-6 on alpha and the hyperparameters;
+    counters equal;
+  * scores against JAX: rtol 1e-5 / atol 1e-6 (one float32 sum per row in
+    another order);
+  * against the float64 oracles and the materialised join: test_bs.py's own.
+"""
+
+import dataclasses
+import struct
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from svbfm_tpu.data import relation as jrel
+from svbfm_tpu.data.dataset import SparseDataset as JDataset
+from svbfm_tpu.data.dataset import SweepPlan as JSweepPlan
+from svbfm_tpu.data.libfm_text import COOData as JCOO
+from svbfm_tpu.data.meta import DataMetaInfo as JMeta
+from svbfm_tpu.learners import mcmc_bs as jbs
+from svbfm_tpu.learners.base import FMConfig as JConfig
+from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm_tpu_torch.data import relation as trel
+from svbfm_tpu_torch.data.dataset import SparseDataset
+from svbfm_tpu_torch.data.libfm_text import COOData
+from svbfm_tpu_torch.data.meta import DataMetaInfo
+from svbfm_tpu_torch.data.synth import make_bs_problem
+from svbfm_tpu_torch.learners import mcmc as tm
+from svbfm_tpu_torch.learners import mcmc_bs as tbs
+from svbfm_tpu_torch.learners.base import FMConfig
+from svbfm_tpu_torch.utils.convert import mcmc_state_from_jax
+
+from oracle import BinOrderALSOracle, BSBlockedALSOracle
+from test_torch_mcmc import HYPER, PARAMS, JaxKeyDraws
+
+# ---------------------------------------------------------------------------
+# The problem: test_bs.py:_setup, optionally with the users in a relation too
+# ---------------------------------------------------------------------------
+
+
+def _rel_arrays(n_rows, wide):
+    """One-hot id + ``wide - 1`` two-column attribute slots per row."""
+    per = [np.arange(n_rows, dtype=np.int32)]
+    cols = [np.arange(n_rows, dtype=np.int32)]
+    vals = [np.ones(n_rows, np.float32)]
+    for wi in range(wide - 1):
+        per.append(np.arange(n_rows, dtype=np.int32))
+        cols.append(n_rows + wi * 2 + (np.arange(n_rows, dtype=np.int32) % 2))
+        vals.append(np.full(n_rows, 0.5 + 0.5 * wi, np.float32))
+    order = np.argsort(np.concatenate(per), kind="stable")
+    return dict(row=np.concatenate(per)[order],
+                col=np.concatenate(cols)[order],
+                val=np.concatenate(vals)[order], num_rows=n_rows,
+                num_features=n_rows + 2 * (wide - 1))
+
+
+def _problem(n=240, n_users=9, n_items=5, seed=0, wide=2, users_rel=False):
+    """Numpy pieces: the main block (user one-hots, or empty when the users
+    are a relation of their own), the relations and their joins."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, n_users, n)
+    items = rng.integers(0, n_items, n)
+    y = (2.0 + 0.3 * users - 0.2 * items
+         + 0.4 * rng.standard_normal(n)).astype(np.float32)
+    rels = [_rel_arrays(n_items, wide)]
+    joins = [items]
+    if users_rel:
+        main = dict(row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
+                    val=np.zeros(0, np.float32), target=y, num_rows=n,
+                    num_features=0)
+        rels = [_rel_arrays(n_users, 2)] + rels
+        joins = [users] + joins
+    else:
+        main = dict(row=np.arange(n, dtype=np.int32),
+                    col=users.astype(np.int32), val=np.ones(n, np.float32),
+                    target=y, num_rows=n, num_features=n_users)
+    return main, rels, joins, y
+
+
+def _build(pkg, main, rels, joins, K, **cfg_kw):
+    """(cfg, train dataset, relations, joined meta, d_main) in one package."""
+    coo_cls, meta_cls, rel_mod, ds_cls, cfg_cls = pkg
+    coo = coo_cls(**main)
+    rel_objs = [rel_mod.RelationData(meta=meta_cls(r["num_features"]), **r)
+                for r in rels]
+    d_main = main["num_features"]
+    meta = rel_mod.build_joined_meta(meta_cls(d_main), rel_objs)
+    y = main["target"]
+    cfg = cfg_cls(num_attributes=meta.num_attributes, num_factor=K,
+                  num_groups=meta.num_attr_groups, min_target=float(y.min()),
+                  max_target=float(y.max()), regw=0.05, regv=0.05, seed=3,
+                  **cfg_kw)
+    return cfg, ds_cls.from_coo(coo, meta.num_attributes), rel_objs, meta, \
+        d_main
+
+
+JPKG = (JCOO, JMeta, jrel, JDataset, JConfig)
+TPKG = (COOData, DataMetaInfo, trel, SparseDataset, FMConfig)
+
+
+def _pair(als, K=3, factor_block=0, n=240, **prob_kw):
+    """The JAX learner and the port's on the same problem; train = test."""
+    main, rels, joins, _ = _problem(n=n, **prob_kw)
+    out = []
+    for pkg, jax_side in ((JPKG, True), (TPKG, False)):
+        cfg, ds, robjs, meta, d_main = _build(pkg, main, rels, joins, K,
+                                              factor_block=factor_block)
+        if jax_side:
+            cls = jbs.ALSBSLearner if als else jbs.MCMCBSLearner
+            out.append(cls(cfg, ds, ds, robjs, joins, joins, meta, d_main,
+                           mesh=make_mesh(1), write_files=False))
+        else:
+            cls = tbs.ALSBSLearner if als else tbs.MCMCBSLearner
+            out.append(cls(cfg, ds, ds, robjs, joins, joins, meta, d_main,
+                           device="cpu", write_files=False))
+    return out
+
+
+def _start(jl):
+    js = jl.init_state()
+    return js, mcmc_state_from_jax(jax.device_get(js), "cpu",
+                                   JaxKeyDraws(js.key))
+
+
+# ---------------------------------------------------------------------------
+# data/relation.py
+# ---------------------------------------------------------------------------
+
+
+def _write_relation(d, name, arrs, groups):
+    rows = [[] for _ in range(arrs["num_rows"])]
+    for r, c, v in zip(arrs["row"], arrs["col"], arrs["val"]):
+        rows[r].append(f"{c}:{v:g}")
+    (d / name).write_text("".join("0 " + " ".join(e) + "\n" for e in rows))
+    (d / (name + ".groups")).write_text("".join(f"{g}\n" for g in groups))
+    return str(d / name)
+
+
+def _assert_same(a, b):
+    for k in ("row", "col", "val", "target"):
+        if hasattr(a, k):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k),
+                                          err_msg=k)
+    for k in ("num_rows", "num_features", "attr_offset"):
+        if hasattr(a, k):
+            assert getattr(a, k) == getattr(b, k), k
+
+
+def test_relation_load_and_join_match_jax(tmp_path):
+    """RelationData.load (text + .groups), build_joined_meta and
+    join_relations give the JAX package's arrays."""
+    main, rels, joins, _ = _problem(users_rel=False, wide=3)
+    groups = np.r_[np.zeros(5, int), np.ones(4, int)]
+    path = _write_relation(tmp_path, "items.libfm", rels[0], groups)
+    tr, jr = trel.RelationData.load(path), jrel.RelationData.load(path)
+    _assert_same(tr, jr)
+    np.testing.assert_array_equal(tr.meta.attr_group, jr.meta.attr_group)
+    tmeta = trel.build_joined_meta(DataMetaInfo(9), [tr])
+    jmeta = jrel.build_joined_meta(JMeta(9), [jr])
+    np.testing.assert_array_equal(tmeta.attr_group, jmeta.attr_group)
+    assert tmeta.num_attr_groups == jmeta.num_attr_groups == 3
+    _assert_same(tr, jr)  # attr_offset
+    tj = trel.join_relations(COOData(**main), [tr], joins, 9)
+    jj = jrel.join_relations(JCOO(**main), [jr], joins, 9)
+    _assert_same(tj, jj)
+    assert tj.row.dtype == jj.row.dtype and tj.val.dtype == jj.val.dtype
+
+
+@pytest.mark.parametrize("form", ["text", "dvector"])
+def test_load_join_matches_jax(tmp_path, form):
+    idx = np.random.default_rng(0).integers(0, 50, 37)
+    f = tmp_path / "rel.train"
+    if form == "text":
+        f.write_text("".join(f"{i}\n" for i in idx))
+    else:  # the reference's DVector<uint>: file id, value size, count, data
+        f.write_bytes(struct.pack("<III", trel.DVECTOR_FILE_ID, 4, len(idx))
+                      + idx.astype("<u4").tobytes())
+    got = trel.load_join(str(f), len(idx))
+    want = jrel.load_join(str(f), len(idx))
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype == np.int64
+    with pytest.raises(ValueError, match="join entries"):
+        trel.load_join(str(f), len(idx) + 1)
+
+
+def test_binary_relation_is_refused(tmp_path):
+    (tmp_path / "rel.x").write_bytes(b"\0" * 16)
+    with pytest.raises(SystemExit, match="not ported"):
+        trel.RelationData.load(str(tmp_path / "rel"))
+
+
+def test_make_bs_problem_shape():
+    """The card's recipe (scripts/bench_bs.py:make_bs_problem), at 2000
+    rows: an empty main block, two relations of 1 + ua / 1 + ia entries a
+    row, and 42 joined entries a data row at ua = ia = 20."""
+    main, ru, ri, users, items, y = make_bs_problem(2000, 20, 20)
+    assert main.num_features == 0 and main.num_rows == 2000 == len(y)
+    assert (ru.num_rows, ri.num_rows) == (71567, 10681)
+    assert len(ru.row) == 21 * ru.num_rows and len(ri.row) == 21 * ri.num_rows
+    assert users.max() < ru.num_rows and items.max() < ri.num_rows
+    meta = trel.build_joined_meta(DataMetaInfo(0), [ru, ri])
+    joined = trel.join_relations(main, [ru, ri], [users, items], 0)
+    assert len(joined.row) == 42 * 2000
+    assert meta.num_attributes == ru.num_features + ri.num_features
+
+
+# ---------------------------------------------------------------------------
+# X10d: the scores
+# ---------------------------------------------------------------------------
+
+SCORE_CASES = {
+    "wide=2": dict(wide=2),
+    "wide=6": dict(wide=6),
+    "empty main, two relations": dict(wide=3, users_rel=True),
+}
+
+
+@pytest.mark.parametrize("case", list(SCORE_CASES))
+def test_bs_scores_match_jax(case):
+    jl, tl = _pair(True, K=3, **SCORE_CASES[case])
+    rng = np.random.default_rng(4)
+    D = tl.cfg.num_attributes
+    w0 = np.float32(0.3)
+    w = rng.standard_normal(D).astype(np.float32)
+    v = rng.standard_normal((3, D)).astype(np.float32)
+    joins = tuple(rd.join_tr for rd in jl.rels)
+    want = np.asarray(jl._bs_scores_tr(w0, w, v, jl.train_row.ids,
+                                       jl.train_row.vals, jl.rels, joins))
+    got = tl.bs_scores(torch.tensor(w0), torch.from_numpy(w),
+                       torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), want[: tl.train_n], rtol=1e-5,
+                               atol=1e-6)
+    # and against the materialised join's plain FM scores
+    from svbfm_tpu_torch.ops.forward import fm_scores
+    main, rels, joins_np, _ = _problem(**SCORE_CASES[case])
+    _, _, robjs, meta, d_main = _build(TPKG, main, rels, joins_np, 3)
+    jn = trel.join_relations(COOData(**main), robjs, joins_np, d_main)
+    ds = SparseDataset.from_coo(jn, meta.num_attributes)
+    flat = fm_scores(torch.tensor(w0), torch.from_numpy(w),
+                     torch.from_numpy(v), torch.from_numpy(ds.ids),
+                     torch.from_numpy(ds.vals))
+    np.testing.assert_allclose(got.numpy(), flat.numpy()[: tl.train_n],
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Sweeps against JAX
+# ---------------------------------------------------------------------------
+
+
+def _assert_state_close(js, jnans, ts, tnans, n):
+    for k in PARAMS + HYPER:
+        got, ref = getattr(ts, k).numpy(), np.asarray(getattr(js, k))
+        if k == "e":
+            ref = ref[:n]
+        tol = dict(rtol=1e-4, atol=1e-5) if k in PARAMS else dict(
+            rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, ref, err_msg=k, **tol)
+    assert {k: int(v) for k, v in tnans.items()} == {
+        k: int(v) for k, v in jnans.items()}
+    np.testing.assert_array_equal(np.asarray(ts.draws.key),
+                                  np.asarray(js.key))
+
+
+def _sweeps_match(jl, tl, n_sweeps):
+    js, ts = _start(jl)
+    np.testing.assert_allclose(
+        tl.bs_scores(ts.w0, ts.w, ts.v).numpy() - tl.train_row.target.numpy(),
+        np.asarray(js.e)[: tl.train_n], rtol=1e-5, atol=1e-5)
+    for _ in range(n_sweeps):
+        js, jnans = jl._step(js, jl.train_row, jl.plan_data, jl.rels)
+        ts, tnans = tl.step(ts)
+        _assert_state_close(js, jnans, ts, tnans, tl.train_n)
+
+
+BS_CASES = {
+    "factor_block=1": dict(factor_block=1),
+    "factor_block=K": dict(factor_block=0),
+    "two relations, empty main, factor_block=K": dict(factor_block=0,
+                                                      users_rel=True),
+}
+
+
+@pytest.mark.parametrize("case", list(BS_CASES))
+def test_bs_als_sweeps_match_jax(case):
+    jl, tl = _pair(True, **BS_CASES[case])
+    fb = BS_CASES[case]["factor_block"]
+    assert tl.factor_width == (1 if fb == 1 else 3) == (
+        jl.cfg.factor_block if fb else 3)
+    _sweeps_match(jl, tl, 3)
+
+
+@pytest.mark.parametrize("case", list(BS_CASES))
+def test_bs_gibbs_sweeps_match_jax_with_replayed_draws(case):
+    jl, tl = _pair(False, n=400, **BS_CASES[case])
+    _sweeps_match(jl, tl, 2)
+
+
+# ---------------------------------------------------------------------------
+# Against the float64 oracles and the materialised join
+# ---------------------------------------------------------------------------
+
+
+def _joined(tl, main, rels, joins):
+    _, _, robjs, meta, d_main = _build(TPKG, main, rels, joins, 3)
+    return trel.join_relations(COOData(**main), robjs, joins, d_main), d_main
+
+
+def _rel_color(rel):
+    coo = JCOO(target=np.zeros(rel["num_rows"], np.float32), **rel)
+    return JSweepPlan.build(coo, rel["num_features"], bins="auto",
+                            n_shards=1).color
+
+
+@pytest.mark.parametrize("factor_block", [1, 0])
+def test_bs_als_matches_float64_oracle(factor_block):
+    """factor_block=1: BinOrderALSOracle over the combined colouring (main
+    bins, then the relation's); factor_block=K: BSBlockedALSOracle
+    (test_bs.py:85-127, 189-234)."""
+    main, rels, joins, _ = _problem()
+    _, tl = _pair(True, factor_block=factor_block)
+    joined, d_main = _joined(tl, main, rels, joins)
+    D, K = tl.cfg.num_attributes, tl.cfg.num_factor
+    rcolor = _rel_color(rels[0])
+    common = (joined.row, joined.col, joined.val, joined.target, D, K)
+    kw = dict(groups=tl.meta.attr_group, regw=0.05, regv=0.05)
+    if factor_block == 1:
+        color = np.zeros(D, np.int32)
+        color[:d_main] = tl.plan.color[:d_main]
+        color[d_main:] = rcolor + tl.plan.num_bins
+        orc = BinOrderALSOracle(*common, color=color, factor_block=1, **kw)
+    else:
+        main_bins = [np.flatnonzero(tl.plan.color[:d_main] == b)
+                     for b in range(tl.plan.num_bins)]
+        rel_bins = [[d_main + np.flatnonzero(rcolor == b)
+                     for b in range(int(rcolor.max()) + 1)]]
+        orc = BSBlockedALSOracle(*common, main_bins=main_bins,
+                                 rel_bins=rel_bins, factor_block=K, **kw)
+    ts = tl.init_state()
+    orc.init(float(ts.w0), ts.w.numpy(), ts.v.numpy())
+    for _ in range(3):
+        ts, _nans = tl.step(ts)
+        orc.iterate()
+        np.testing.assert_allclose(float(ts.w0), orc.w0, rtol=2e-3,
+                                   atol=1e-5)
+        np.testing.assert_allclose(ts.w.numpy(), orc.w, rtol=5e-3, atol=5e-4)
+        np.testing.assert_allclose(ts.v.numpy(), orc.v, rtol=5e-3, atol=5e-4)
+        np.testing.assert_allclose(ts.e.numpy(), orc.e, rtol=5e-3, atol=5e-3)
+
+
+def test_bs_als_matches_materialised_join():
+    """The port's BS ALS reproduces the port's ALSLearner on the
+    materialised join (test_bs.py:60-82): same coordinate order at
+    factor_block = 1, same conditionals."""
+    main, rels, joins, _ = _problem()
+    _, tl = _pair(True, factor_block=1)
+    s_bs, h_bs = tl.run(num_iter=4, verbose=False)
+    joined, _ = _joined(tl, main, rels, joins)
+    D = tl.cfg.num_attributes
+    trj = SparseDataset.from_coo(joined, D)
+    mat = tm.ALSLearner(tl.cfg, trj, trj, tl.meta, device="cpu",
+                        write_files=False)
+    s_m, h_m = mat.run(num_iter=4, verbose=False)
+    for hb, hm in zip(h_bs, h_m):
+        assert abs(hb["rmse"] - hm["rmse"]) < 1e-5
+    np.testing.assert_allclose(s_bs.w.numpy(), s_m.w.numpy(), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(s_bs.v.numpy(), s_m.v.numpy(), rtol=2e-3,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("factor_block", [1, 3])
+def test_bs_nan_counters_zero(factor_block):
+    """Both factor paths surface the counters, all zero on a healthy run
+    (test_bs.py:255-271), and the posterior-mean RMSE falls."""
+    _, tl = _pair(False, factor_block=factor_block)
+    _, hist = tl.run(num_iter=3, verbose=False)
+    for rec in hist:
+        for fam in tm.NAN_FAMILIES:
+            assert rec[f"nan_{fam}"] == rec[f"inf_{fam}"] == 0
+    assert np.isfinite(hist[-1]["rmse"])
+
+
+def test_bs_never_materialises_the_join():
+    """The main row layout stays one entry a row though the joined design
+    has seven (test_bs.py:154-171)."""
+    _, tl = _pair(True, wide=6)
+    assert tl.train_row.ids.shape[1] == 1
+    assert tuple(tl.rels[0].rrow_ids.shape) == (5, 6)
+    _, h = tl.run(num_iter=2, verbose=False)
+    assert np.isfinite(h[-1]["rmse_this"])
+
+
+def test_bs_factor_width():
+    cfg = FMConfig(num_attributes=5, num_factor=20)
+    widths = [tbs.bs_factor_width(dataclasses.replace(cfg, factor_block=fb))
+              for fb in (0, 1, 4, 30)]
+    assert widths == [20, 1, 4, 20]
+    # past what X10b's shared memory holds, the widest divisor that fits
+    big = tbs.bs_factor_width(dataclasses.replace(cfg, num_factor=300))
+    assert big == 150 and tbs.rel_draw_fits(150)
+    assert not tbs.rel_draw_fits(300)
+
+
+def test_classification_is_refused():
+    main, rels, joins, _ = _problem()
+    cfg, ds, robjs, meta, d_main = _build(TPKG, main, rels, joins, 3, task=1)
+    with pytest.raises(NotImplementedError, match="classification"):
+        tbs.MCMCBSLearner(cfg, ds, ds, robjs, joins, joins, meta, d_main,
+                          device="cpu", write_files=False)
+
+
+
+def test_ragged_bs_case_twins_on_cpu():
+    """chip_smoke.py's ragged relational case, which holds X10a-X10d against
+    their twins on the card, exercises what it claims: the Inf noise number
+    is counted once a factor (then reverted), the NaN-lambda column comes
+    out 0 uncounted, the one-hot bucket is also drawn at L = 1, and every
+    kernel has cases at F = 20, 5, 1 and the w sweep."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_bs_tensors("cpu")
+    cases = chip_smoke.make_cases(s)
+    for name in chip_smoke.BS_KERNELS:
+        assert cases[name], name
+    widths = {label.split()[2] for label, *_ in cases["bs_rel_draw"]}
+    assert widths == {"F=20", "F=5", "F=1"}
+    assert any(",1]" in label for label, *_ in cases["bs_rel_draw"])
+    r = s["bs"][0]
+    for label, prepare, call, _ in cases["bs_rel_draw"] + cases[
+            "bs_rel_w_draw"]:
+        ptab, vt, nans = call("plain", prepare())
+        F = 1 if "F=0" in label else int(label.split()[2][2:])
+        first = label.split()[3:5] == ["bin", "0"] and "+z" in label
+        assert nans.tolist() == ([0, F] if first else [0, 0]), label
+        assert torch.isfinite(vt).all()
+    # the bucket with the NaN-lambda group: its first column comes out 0
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+    F, w = r["widths"][0]
+    _, b = w["picks"][-2]
+    ptab, vt = w["ptab"].clone(), w["vt"].clone()
+    nans = torch.zeros(2, dtype=torch.int32)
+    ks.bs_rel_draw_plain(b.rows, b.x, b.cols, b.group, w["rtab"], F, ptab,
+                         vt, w["mu"], w["lam"], r["alpha"], w["z"], nans)
+    assert (vt[b.cols[0].long()] == 0).all() and nans.tolist() == [0, 0]
+    assert (vt[b.cols[1].long()] != 0).all()

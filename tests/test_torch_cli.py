@@ -1,9 +1,10 @@
 """The port's CLI (``python -m svbfm_tpu_torch.cli``) on tiny libFM text
-files with ``-device cpu``: vb, vb_online and the SGD family run end to end
-(mcmc and als: tests/test_torch_mcmc.py) and write what the JAX CLI
-writes, under the same names; every flag or method the port does not run
-exits non-zero with a message that names its ROADMAP item, and a flag the
-chosen method does not read is refused."""
+files with ``-device cpu``: vb, vb_online and the SGD family (exp_sgd
+included) run end to end (mcmc and als: tests/test_torch_mcmc.py), and so
+does ``-relation``, natively for mcmc/als and as the materialised join for
+vb; each writes what the JAX CLI writes, under the same names; every flag
+or method the port does not run exits non-zero with a message that names
+its ROADMAP item, and a flag the chosen method does not read is refused."""
 
 import os
 import subprocess
@@ -88,7 +89,7 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra,kw,message", [
-    (["-relation", "rel"], {}, "item 11"),
+    (["-relation", "rel"], dict(task="c"), "Next C"),
     (["-cache_size", "1000"], {}, "item 10"),
     (["-checkpoint", "ck"], {}, "item 12"),
     (["-rlog", "log.tsv"], {}, "item 12"),
@@ -97,14 +98,17 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
     (["-learn_rate", "0.1"], {}, "not read"),
     (["-bogus", "1"], {}, "unknown parameter"),
     ([], dict(task="c"), "Next C"),
-    ([], dict(method="exp_sgd"), "item 8"),
+    (["-factor_jacobi", "1"], dict(method="exp_sgd"),
+     "not read by -method exp_sgd"),
     (["-validation", "va.libfm"], {}, "only by sgda"),
     ([], dict(method="sgda"), "mandatory for SGDA"),
-    (["-stdev", "2"], dict(method="sgd"), "only by exp_sgd_stoc"),
+    (["-stdev", "2"], dict(method="sgd"), "only by exp_sgd, exp_sgd_stoc"),
     (["-bpr_neg_field", "0"], dict(method="sgd"), "only by bpr"),
     (["-learn_rate", "0.1,0.2"], dict(method="sgd"), "1 or 3 values"),
     (["-regular", "0.1"], dict(method="sgda"), "not read by -method sgda"),
     ([], dict(method="nonsense"), "unknown method"),
+    (["-relation", "rel", "-factor_jacobi", "1"], dict(method="als"),
+     "not read by the block-structure sampler"),
 ])
 def test_refused_flags_and_methods(data, extra, kw, message):
     d, _, _ = data
@@ -139,9 +143,10 @@ def test_module_exit_codes(data):
     d, _, _ = data
     env = dict(os.environ, PYTHONPATH=REPO)
     run = [sys.executable, "-m", "svbfm_tpu_torch.cli"]
-    r = subprocess.run(run + _args(d, "exp_sgd", "-device", "cpu"), cwd=d,
-                       env=env, capture_output=True, text=True, timeout=120)
-    assert r.returncode != 0 and "item 8" in r.stderr
+    r = subprocess.run(run + _args(d, "vb", "-cache_size", "10", "-device",
+                                   "cpu"), cwd=d, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "item 10" in r.stderr
     r = subprocess.run(run + ["-help"], cwd=d, env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0 and "-device" in r.stdout
@@ -151,6 +156,7 @@ SGD_ARGS = {
     "sgd": ["-learn_rate", "0.05", "-regular", "0,0.01,0.01"],
     "sgd_online": ["-learn_rate", "0.05", "-batch", "3"],
     "sgda": ["-learn_rate", "0.05", "-validation", "va.libfm"],
+    "exp_sgd": ["-learn_rate", "0.5", "-stdev", "1.5", "-regular", "0.01"],
     "exp_sgd_stoc": ["-learn_rate", "0.02", "-stdev", "1.5"],
     "bpr": ["-learn_rate", "0.05", "-batch", "4", "-bpr_neg_field", "-1"],
 }
@@ -159,7 +165,7 @@ SGD_ARGS = {
 @pytest.mark.parametrize("method", list(SGD_ARGS))
 def test_cli_sgd_family_writes_the_jax_cli_files(data, method, monkeypatch,
                                                  capsys):
-    """-method sgd|sgd_online|sgda|exp_sgd_stoc|bpr at -device cpu: the
+    """-method sgd|sgd_online|sgda|exp_sgd|exp_sgd_stoc|bpr at -device cpu: the
     JAX CLI's file names and shapes, 2 trajectory lines, the Final line
     (the clipped test predictions' RMSE) and -out."""
     d, te, D = data
@@ -188,3 +194,56 @@ def test_cli_sgd_family_writes_the_jax_cli_files(data, method, monkeypatch,
         assert "Train=" in out
     if method == "bpr":
         assert "PairAcc=" in out
+
+
+@pytest.fixture
+def rel_data(tmp_path):
+    """A main block of user one-hots and an item relation (one-hot + two
+    attribute slots, with groups) joined through items.train/items.test."""
+    rng = np.random.default_rng(5)
+    n_users, n_items = 12, 8
+    for split, n in (("tr", 300), ("te", 60)):
+        users = rng.integers(0, n_users, n)
+        items = rng.integers(0, n_items, n)
+        y = np.clip(np.round(3 + 0.1 * users - 0.2 * items
+                             + rng.standard_normal(n)), 1, 5)
+        (tmp_path / f"{split}.libfm").write_text("".join(
+            f"{t:g} {u}:1\n" for t, u in zip(y, users)))
+        (tmp_path / f"items.{'train' if split == 'tr' else 'test'}"
+         ).write_text("".join(f"{i}\n" for i in items))
+    (tmp_path / "items").write_text("".join(
+        f"0 {i}:1 {n_items + i % 2}:0.5 {n_items + 2 + i % 2}:1.5\n"
+        for i in range(n_items)))
+    (tmp_path / "items.groups").write_text(
+        "".join("0\n" for _ in range(n_items)) + "1\n1\n2\n2\n")
+    return tmp_path, n_users + n_items + 4
+
+
+@pytest.mark.parametrize("method", ["mcmc", "als", "vb"])
+def test_cli_relation_runs_like_the_jax_cli(rel_data, method, monkeypatch,
+                                            capsys):
+    """-relation: native block structure for mcmc/als, the materialised
+    join for vb; the JAX CLI's file names and shapes, v_file over the
+    joined attributes, finite trajectories and the Final line."""
+    d, D = rel_data
+    args = ["-task", "r", "-train", str(d / "tr.libfm"), "-test",
+            str(d / "te.libfm"), "-dim", "1,1,3", "-iter", "3", "-method",
+            method, "-relation", str(d / "items"), "-out", "pred.txt"]
+    if method != "vb":
+        args += ["-regular", "0.1"]
+    ours = _run_in(d / "torch", cli.main, args + ["-device", "cpu"],
+                   monkeypatch)
+    out = capsys.readouterr().out
+    theirs = _run_in(d / "jax", jax_main, args, monkeypatch)
+    assert ours == theirs
+    for name in ours:
+        assert (np.loadtxt(d / "torch" / name).shape
+                == np.loadtxt(d / "jax" / name).shape), name
+    assert np.loadtxt(d / "torch" / "v_file.txt").shape == (3, D)
+    # the reference rewrites als to mcmc before it names the file
+    traj = np.loadtxt(d / "torch" / ("test_rmse_113_"
+                                     + ("vb" if method == "vb" else "mcmc")))
+    assert traj.shape == (3,) and np.isfinite(traj).all()
+    pred = np.loadtxt(d / "torch" / "pred.txt")
+    assert pred.shape == (60,) and ((pred >= 1) & (pred <= 5)).all()
+    assert "Final\tTest=" in out

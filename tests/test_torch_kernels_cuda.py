@@ -1,7 +1,9 @@
-"""The hand-written CUDA kernels against their plain twins, on the card.
+"""The hand-written CUDA kernels against their plain twins, on the card, and
+the learners on the card against the CPU.
 
 These need an NVIDIA GPU and nvcc (a CUDA kernel has no CPU mode); without
-a GPU they skip.  On the card:  python -m pytest -m cuda tests/
+a GPU they skip.  On the card:
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
 import numpy as np
@@ -262,3 +264,99 @@ def test_sgd_learners_on_gpu_match_cpu(cuda, method):
     for g, c in zip(*ends):
         np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=0,
                                    atol=chip_smoke.SGD_PARAM_ATOL)
+
+
+@pytest.mark.parametrize("kernel", ["w_grad_step", "mcmc_col_grad"])
+def test_exp_sgd_kernels_match_twins_on_ragged_case(cuda, kernel):
+    """X9d, K5's and X8a's gradient modes, on the ragged MCMC bucket at
+    F = 1, 5 and 20, with a NaN residual (column 6's w step reverts) and an
+    Inf q entry (column 4's v steps revert)."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_mcmc_tensors(cuda)
+    cases = chip_smoke.make_cases(s)[kernel]
+    assert len(cases) == (1 if kernel == "w_grad_step" else 3)
+    for label, prepare, call, _ in cases:
+        ok, op = call("kernel", prepare()), call("plain", prepare())
+        torch.cuda.synchronize()
+        chip_smoke.compare(ok, op, f"{kernel} ({label})")
+        assert all(torch.isfinite(t).all() for t in ok)
+
+
+@pytest.mark.parametrize("kernel", ["bs_join_agg", "bs_rel_draw",
+                                    "bs_rel_w_draw", "bs_rel_patch",
+                                    "bs_rel_w_patch", "bs_rel_moments",
+                                    "bs_scores", "bs_resync"])
+def test_bs_kernels_match_twins_on_ragged_case(cuda, kernel):
+    """X10a-X10d on chip_smoke.py's small relational problem at F = 20, 5,
+    1 and the w sweep: every bucket, the one-hot bucket also at L = 1, the
+    attribute-slot columns split over blocks, a NaN group lambda (0,
+    uncounted) and an Inf noise number (counted, reverted); the kernel
+    gives the twin's outputs, counters included."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_bs_tensors(cuda)
+    cases = chip_smoke.make_cases(s)[kernel]
+    assert cases
+    for label, prepare, call, _ in cases:
+        ok, op = call("kernel", prepare()), call("plain", prepare())
+        torch.cuda.synchronize()
+        chip_smoke.compare(ok, op, f"{kernel} ({label})")
+        if kernel in ("bs_rel_draw", "bs_rel_w_draw"):
+            assert torch.equal(ok[-1], op[-1])
+
+
+def test_bs_draw_splits_long_columns(cuda):
+    """The attribute-slot buckets of the ragged problem are split over
+    several blocks per column (the last block adds the partials)."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    learner = chip_smoke.small_bs_learner(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = [ks.draw_splits(*b.rows.shape, sms)[0]
+              for bb in learner.rels[0].rplan for b in bb]
+    assert max(splits) > 1 and min(splits) == 1
+
+
+@pytest.mark.parametrize("factor_block", [0, 1, 2])
+def test_exp_sgd_learner_on_gpu_matches_cpu(cuda, factor_block):
+    from svbfm_tpu_torch.learners.exp_sgd import ExpSGDLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    tr, te, D, meta, cfg = _small(factor_block=factor_block, learn_rate=0.5,
+                                  regw=0.01, regv=0.01)
+    p = init_fm_params(torch.Generator().manual_seed(3), D, 5)
+    hists = []
+    for dev in (cuda, "cpu"):
+        learner = ExpSGDLearner(cfg, SparseDataset.from_coo(tr, D),
+                                SparseDataset.from_coo(te, D), meta,
+                                device=dev, write_files=False)
+        hists.append(learner.run(learner.state_from_params(p.w0, p.w, p.v),
+                                 num_iter=3, verbose=False)[1])
+    for g, c in zip(*hists):
+        np.testing.assert_allclose(g["rmse"], c["rmse"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("als,factor_block", [(False, 0), (False, 1),
+                                              (True, 0), (True, 1)])
+def test_bs_learner_on_gpu_matches_cpu(cuda, als, factor_block):
+    """The block-structure sampler on chip_smoke.py's small relational
+    problem (K = 5), card against CPU from one init and one host-table draw
+    source, 3 sweeps."""
+    import chip_smoke
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    hists = []
+    for dev in (cuda, "cpu"):
+        learner = chip_smoke.small_bs_learner(dev, K=5, als=als,
+                                              factor_block=factor_block)
+        D = learner.cfg.num_attributes
+        p = init_fm_params(torch.Generator().manual_seed(3), D, 5,
+                           init_w_normal=True)
+        state = learner.state_from_params(p.w0, p.w, p.v, host_draws(4, dev))
+        hists.append(learner.run(state, num_iter=3, verbose=False)[1])
+    for g, c in zip(*hists):
+        for k in ("rmse", "rmse_this", "mae", "alpha"):
+            np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)

@@ -22,6 +22,10 @@ from svbfm_tpu_torch.learners.vb_online import OVBLearner
 from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
 from svbfm_tpu_torch.learners.sgd import SGDALearner, SGDLearner
 from svbfm_tpu_torch.learners.bpr import BPRLearner
+from svbfm_tpu_torch.learners.exp_sgd import ExpSGDLearner
+from svbfm_tpu_torch.learners.mcmc_bs import ALSBSLearner, MCMCBSLearner
+from svbfm_tpu_torch.data.relation import build_joined_meta
+from svbfm_tpu_torch.data.synth import make_bs_problem
 from svbfm_tpu_torch.utils import convert  # noqa: F401
 from svbfm_tpu_torch import cli  # noqa: F401
 
@@ -56,6 +60,22 @@ _, hg = SGDALearner(sgd_cfg, train, test, test, meta, device="cpu",
 _, hb = BPRLearner(dataclasses.replace(sgd_cfg, num_batches=4), train, test,
                    meta, device="cpu", write_files=False).run(
                        num_iter=1, verbose=False)
+_, he = ExpSGDLearner(dataclasses.replace(cfg, learn_rate=0.3), train, test,
+                      meta, device="cpu", write_files=False).run(
+                          num_iter=2, verbose=False)
+main, ru, ri, users, items, y = make_bs_problem(300, 2, 2)
+jmeta = build_joined_meta(DataMetaInfo(0), [ru, ri])
+bcfg = dataclasses.replace(cfg, num_attributes=jmeta.num_attributes,
+                           num_groups=jmeta.num_attr_groups,
+                           min_target=float(y.min()),
+                           max_target=float(y.max()))
+mds = SparseDataset.from_coo(main, jmeta.num_attributes)
+bs_args = (mds, mds, [ru, ri], [users, items], [users, items], jmeta, 0)
+_, hbm = MCMCBSLearner(bcfg, *bs_args, device="cpu",
+                       write_files=False).run(num_iter=2, verbose=False)
+_, hba = ALSBSLearner(dataclasses.replace(bcfg, factor_block=1), *bs_args,
+                      device="cpu", write_files=False).run(num_iter=1,
+                                                           verbose=False)
 loaded = [m for m, v in sys.modules.items() if v is not None and
           m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
 assert not loaded, loaded
@@ -64,6 +84,8 @@ print("exact", len(hx), "ovb", len(ho), ho[-1]["rmse"])
 print("mcmc", len(hm), "als", len(ha), hm[-1]["rmse"], ha[-1]["rmse_this"])
 print("sgd", len(hs), "sgda", len(hg), "bpr", len(hb), hs[-1]["rmse"],
       hg[-1]["rmse_val"], hb[-1]["accuracy"])
+print("exp_sgd", len(he), "bs", len(hbm), len(hba), he[-1]["rmse"],
+      hbm[-1]["rmse"])
 """
 
 
@@ -75,6 +97,7 @@ def test_port_runs_two_sweeps_without_jax():
     assert "exact 1 ovb 1" in r.stdout
     assert "mcmc 2 als 2" in r.stdout
     assert "sgd 1 sgda 1 bpr 1" in r.stdout
+    assert "exp_sgd 2 bs 2 1" in r.stdout
 
 
 def test_no_jax_import_statement_in_port():

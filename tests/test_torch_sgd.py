@@ -387,8 +387,12 @@ def test_classification_and_poisson_refused():
 
 
 def test_exp_sgd_and_from_reader_refused():
-    with pytest.raises(NotImplementedError, match="X9d"):
-        tx.ExpSGDLearner()
+    """The full-batch exp_sgd runs (tests/test_torch_exp_sgd.py) but refuses
+    classification, as every SGD learner of the port does; the out-of-core
+    sgd_online waits for item 10."""
+    cfg = FMConfig(num_attributes=4, num_factor=2, task=1)
+    with pytest.raises(NotImplementedError, match="Next C"):
+        tx.ExpSGDLearner(cfg, None, None, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         ts.SGDOnlineLearner.from_reader(None, None, None)
 
