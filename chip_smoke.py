@@ -14,7 +14,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      probe's shapes, the SGD family's batches in each step mode, the
      full-batch exp_sgd's w and v steps at F=20 and F=1, the block-structure
      sampler's relation kernels on the 1M-rating relational recipe at F=20,
-     F=1 and the w sweep) and on small ragged cases with NaN-producing
+     F=1 and the w sweep, the joined scores also over nine relations) and
+     on small ragged cases with NaN-producing
      columns or targets, Inf noise, L=1 buckets and columns split over
      blocks; time both, and one PyTorch call where one computes the same
      function.
@@ -27,7 +28,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      beside the JAX package's record on the same recipe (information).
   6. profile: device time per fast-mode sweep by kernel (torch.profiler).
   7. vb-exact: batch VBFM with factor_block=1 (the reference's order),
-     5 sweeps: kernels launched, free energy non-decreasing, RMSE falling.
+     5 sweeps: kernels launched, free energy non-decreasing, RMSE falling;
+     then one sweep under the profiler, its device time printed beside
+     sec/iter.
   8. vb-exact gpu-vs-cpu: 2 exact-mode sweeps at full size from one
      host-made init on the card and on the CPU; the trajectories must agree.
   9. ovb: online VBFM, 20 chunks of fixed membership, 5 epochs: kernels
@@ -80,15 +83,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
      X10a-X10d launched, no NaN/Inf counts, RMSE falling; sec/iter, peak
      memory, the main row layout's width beside the join's.
  31. bs-als: the same with ALS, 5 iterations; then bs-seq, Gibbs at
-     factor_block=1 (the factor-sequential path), 2 iterations.
+     factor_block=1 (the factor-sequential path), 2 iterations, and one
+     more under the profiler, its device time beside sec/iter.
  32. bs-gpu-vs-cpu: 2 Gibbs sweeps of the 100k-row recipe (4+4 slots, K=8)
-     from one host-made init and host-table draw source, card and CPU.
+     from one host-made init and host-table draw source, card and CPU;
+     bs-nine-gpu-vs-cpu: the same, 3 sweeps, on the small relational
+     problem with nine relations (the port takes any number).
  33. bs-quality: the PARITY_RUNS.md:166-183 recipe, 30 iterations of
      Gibbs and of ALS (-regular 10), beside the reference C++ (information).
  34. bs-profile: device time of one blocked BS Gibbs sweep by kernel.
 Then the nvidia-smi line again, a JSON line with each kernel's launches
-(summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28, 30
-and 31, each read just after its run with the counts zeroed just before),
+(summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28,
+30-32, each read just after its run with the counts zeroed just before),
 error, times and bound, and as the last line {"ok": true, "device": {...}}.
 
 Imports only svbfm_tpu_torch, torch and numpy: never JAX.
@@ -157,6 +163,9 @@ SGD_ONLINE_CHUNKS = 50
 # (lr times the mean residual) is large; at 0.5, test_exp_sgd.py's rate, the
 # test RMSE falls over the first sweeps, and w0 converges (lr < 2)
 EXP_SGD_LR = 0.5
+# relations in the nine-relation bs_scores case and in the small learner
+# driven on the card against the CPU: any number must work
+NINE_RELATIONS = 9
 # the relational recipe (scripts/bench_bs.py:52-74 and :97-99): 1M ratings,
 # 20 attribute slots a user and an item row, -regular-style regs 0.05
 BS_ROWS, BS_SLOTS, BS_REG = 1_000_000, 20, 0.05
@@ -259,6 +268,7 @@ PATH_KERNELS = {
     "bs-mcmc": BS_KERNELS,
     "bs-als": BS_KERNELS,
     "bs-seq": BS_KERNELS + ("build_q",),
+    "bs-nine": BS_KERNELS,
 }
 
 
@@ -761,8 +771,7 @@ def bs_cases(add, r: dict) -> None:
         def x10a(variant, inp, F=F, w=w):
             fn = ks.bs_join_agg if variant == "kernel" else ks.bs_join_agg_plain
             (rtab,) = inp
-            for jb in rd.jplan:
-                fn(jb.rows, jb.x, jb.cols, r["e"], w["q"], F, rtab)
+            fn(rd.jplan, r["e"], w["q"], F, rtab)
             return [rtab]
 
         def x10a_library(w=w):
@@ -867,14 +876,13 @@ def bs_cases(add, r: dict) -> None:
     add("bs_rel_moments", f"{name} K={K1 - 1} R={R} Pr={Pr}", lambda: (),
         moments, cost(R * Pr * 8 + Dr * K1 * 4 + R * (2 * K1 - 1) * 4,
                       R * Pr * (3 * K1)))
-    if "scores" in r:
-        sc = r["scores"]
+    for sc in r.get("scores", ()):
         ids, vals = sc["ids"], sc["vals"]
 
-        def scores(variant, _):
+        def scores(variant, _, sc=sc):
             fn = kf.bs_scores if variant == "kernel" else kf.bs_scores_plain
-            return [fn(r["stab"], sc["w0"], ids, vals, sc["joins"],
-                       sc["moms"])]
+            return [fn(r["stab"], sc["w0"], sc["ids"], sc["vals"],
+                       sc["joins"], sc["moms"])]
 
         Ns, Ps = ids.shape
         Km = K1 - 1
@@ -1376,8 +1384,7 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
                 lam = torch.cat([lam, torch.full_like(lam[:1], float("nan"))])
                 z.view(Fo, Dr)[:, picks[0][1].cols[0].long()] = float("inf")
             rtab = rtab0.clone()
-            for jb in rd.jplan:
-                ks.bs_join_agg_plain(jb.rows, jb.x, jb.cols, e, q, F, rtab)
+            ks.bs_join_agg_plain(rd.jplan, e, q, F, rtab)
             ptab = torch.cat([vt.view(Dr, Fo), torch.zeros(Dr, Fo,
                                                            device=dev)], 1)
             patched = []
@@ -1407,19 +1414,29 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
                 rtab0=rtab0, rtab=rtab, picks=picks, z=z, mu=mu, lam=lam,
                 vt=vt, ptab=ptab, patched=patched)))
         if i == 0:
-            r["scores"] = dict(ids=row.ids, vals=row.vals, w0=state.w0,
-                               joins=[rd2.join_tr for rd2 in rels],
-                               moms=moms)
+            # the learner's relations, and nine made from them (each
+            # join rolled, each table scaled)
+            joins = [rd2.join_tr for rd2 in rels]
+            nr = len(rels)
+            r["scores"] = [dict(ids=row.ids, vals=row.vals, w0=state.w0,
+                                joins=joins, moms=moms),
+                           dict(ids=row.ids, vals=row.vals, w0=state.w0,
+                                joins=[joins[k % nr].roll(k)
+                                       for k in range(NINE_RELATIONS)],
+                                moms=[moms[k % nr] * (1.0 + 0.05 * k)
+                                      for k in range(NINE_RELATIONS)])]
         out.append(r)
     return dict(tag=tag, timed=timed, D=state.w.shape[0], bs=out)
 
 
 def small_bs_learner(device, K: int = 20, factor_block: int = 0,
-                     als: bool = False):
+                     als: bool = False, n_rel: int = 2):
     """A small relational problem for the ragged checks: 3000 ratings, a
     user relation of 1200 rows (its two attribute slots hold columns of
     about 600 rows, long enough for X10b to split them over blocks) and an
-    item relation of 50 rows, both with 2 slots; an empty main block."""
+    item relation of 50 rows, both with 2 slots; an empty main block.
+    ``n_rel`` > 2 adds relations of 8, 13, 18, ... rows (one-hot + 1 slot),
+    each with its own join."""
     from svbfm_tpu_torch.data.dataset import SparseDataset
     from svbfm_tpu_torch.data.libfm_text import COOData
     from svbfm_tpu_torch.data.meta import DataMetaInfo
@@ -1433,6 +1450,11 @@ def small_bs_learner(device, K: int = 20, factor_block: int = 0,
     users, items = rng.integers(0, nu, n), rng.integers(0, ni, n)
     y = (3.5 + 0.5 * rng.standard_normal(n)).astype(np.float32)
     rels = [make_relation(nu, nu, 2, seed=1), make_relation(ni, ni, 2, seed=2)]
+    joins = [users, items]
+    for r in range(n_rel - 2):
+        size = 8 + 5 * r
+        rels.append(make_relation(size, size, 1, seed=3 + r))
+        joins.append(rng.integers(0, size, n))
     meta = build_joined_meta(DataMetaInfo(0), rels)
     D = meta.num_attributes
     main = SparseDataset.from_coo(COOData(
@@ -1442,8 +1464,8 @@ def small_bs_learner(device, K: int = 20, factor_block: int = 0,
                    min_target=float(y.min()), max_target=float(y.max()),
                    seed=SEED, regw=0.5, regv=0.5, factor_block=factor_block)
     cls = ALSBSLearner if als else MCMCBSLearner
-    return cls(cfg, main, main, rels, [users, items], [users, items], meta, 0,
-               device=device, write_files=False)
+    return cls(cfg, main, main, rels, joins, joins, meta, 0, device=device,
+               write_files=False)
 
 
 def ragged_bs_tensors(device) -> dict:
@@ -1690,10 +1712,10 @@ def probe_gathers(sets) -> list:
     return lines
 
 
-def profile_run(fn, n: int, unit: str, phase: str) -> None:
+def profile_run(fn, n: int, unit: str, phase: str) -> float:
     """Device time by kernel over ``n`` units of ``fn`` (one call), and the
     device's busy share of the wall time under the profiler (which slows
-    the host, so the share reads low)."""
+    the host, so the share reads low).  Returns the device µs a unit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1720,6 +1742,7 @@ def profile_run(fn, n: int, unit: str, phase: str) -> None:
                       f"device_us_per_{unit}": f"{busy / n:.1f}",
                       "device_busy_share": f"{busy / wall_us:.3f}",
                       f"device_ops_per_{unit}": sum(r[1] for r in rows) // n})
+    return busy / n
 
 
 def drive(build, path: str, fn):
@@ -2097,8 +2120,9 @@ def bs_learner(p: dict, device, als: bool = False, **cfg_kw):
 def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
     """The block-structure sampler on the relational recipe (1M ratings,
     42 joined entries a row, the join never materialised): Gibbs and ALS at
-    F = K, the factor-sequential path, card against CPU, quality beside the
-    reference C++, the profile.  Returns the driven runs' launch counts."""
+    F = K, the factor-sequential path, card against CPU, nine relations
+    card against CPU, quality beside the reference C++, the profile.
+    Returns the driven runs' launch counts."""
     from svbfm_tpu_torch.learners.draws import host_draws
     from svbfm_tpu_torch.models.fm import init_fm_params
 
@@ -2146,11 +2170,17 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
     t0 = time.perf_counter()
     seq = bs_learner(bsp, dev, num_factor=K, regw=BS_REG, regv=BS_REG,
                      factor_block=1)
-    (_, hs), l_seq = drive(build, "bs-seq", lambda: seq.run(
+    (sstate, hs), l_seq = drive(build, "bs-seq", lambda: seq.run(
         seq.init_state(), num_iter=2, verbose=False, chunk=1))
     check_mcmc_history(hs, "bs-seq", "rmse")
+    # its wall time swings with the host; the device time of one more
+    # iteration shows X10a at F <= 1 (42 launches an iteration)
+    s_dev_us = profile_run(lambda: seq.run(sstate, num_iter=1,
+                                           verbose=False),
+                           1, "sweep", "bs-seq-profile")
     say("bs-seq", t0, rows=seq.train_n, factor_block=seq.factor_width,
         iterations=len(hs), sec_per_iter=f"{hs[-1]['time_learn']:.6f}",
+        device_ms_per_iter=f"{s_dev_us / 1e3:.3f}",
         rmse=",".join(f"{h['rmse']:.5f}" for h in hs),
         launches=json.dumps(l_seq, separators=(",", ":")))
     del seq
@@ -2171,6 +2201,26 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
     worst = compare_traj(*hists, keys, TRAJ_RTOL, "bs gpu vs cpu")
     say("bs-gpu-vs-cpu", t0, rows=BS_Q_ROWS, K=BS_Q_K, sweeps=2,
         metrics=",".join(keys), max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL)
+
+    # ---- 32b. nine relations (the small problem), card against CPU -------
+    t0 = time.perf_counter()
+    hists = []
+    for d in (dev, "cpu"):
+        lr = small_bs_learner(d, K=BS_Q_K, n_rel=NINE_RELATIONS)
+        p9 = init_fm_params(torch.Generator().manual_seed(SEED),
+                            lr.cfg.num_attributes, BS_Q_K, init_w_normal=True)
+        st = lr.state_from_params(p9.w0, p9.w, p9.v, host_draws(SEED, d))
+        if d is dev:
+            (_, h), l_nine = drive(build, "bs-nine", lambda: lr.run(
+                st, num_iter=3, verbose=False))
+        else:
+            h = lr.run(st, num_iter=3, verbose=False)[1]
+        hists.append(h)
+    worst = compare_traj(*hists, keys, TRAJ_RTOL, "bs nine relations gpu "
+                         "vs cpu")
+    say("bs-nine-gpu-vs-cpu", t0, relations=len(lr.rels), K=BS_Q_K,
+        sweeps=3, metrics=",".join(keys), max_rel=f"{worst:.3e}",
+        rtol=TRAJ_RTOL, launches=json.dumps(l_nine, separators=(",", ":")))
 
     # ---- 33. quality beside the reference C++ (information) --------------
     t0 = time.perf_counter()
@@ -2195,7 +2245,7 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
     # ---- 34. where a blocked BS Gibbs sweep's device time goes -----------
     profile_run(lambda: bs_mcmc.run(bstate, num_iter=1, verbose=False), 1,
                 "sweep", "bs-profile")
-    return l_bs, l_als, l_seq
+    return l_bs, l_als, l_seq, l_nine
 
 
 def main() -> int:
@@ -2358,15 +2408,21 @@ def main() -> int:
     exact = VBLearner(FMConfig(factor_block=1, **base_cfg), train, test, meta,
                       device=dev, plan=plan, write_files=False)
     torch.cuda.reset_peak_memory_stats()
-    (_, hx), l_exact = drive(build, "vb-exact", lambda: exact.run(
+    (xstate, hx), l_exact = drive(build, "vb-exact", lambda: exact.run(
         exact.init_state(), num_iter=5, verbose=False, chunk=1))
     check_history(hx, "vb-exact", ("rmse", "mae", "train_rmse",
                                    "free_energy", "alpha"), True)
+    peak = torch.cuda.max_memory_allocated()
+    # one more sweep under the profiler: its device time, where K4 at F = 1
+    # (40 launches a sweep) shows end to end
+    x_dev_us = profile_run(lambda: exact.run(xstate, num_iter=1,
+                                             verbose=False),
+                           1, "sweep", "vb-exact-profile")
     say("vb-exact", t0, sweeps=len(hx),
         sec_per_iter=f"{statistics.median(h['time_learn'] for h in hx[1:]):.6f}",
+        device_ms_per_iter=f"{x_dev_us / 1e3:.3f}",
         rmse_first=f"{hx[0]['rmse']:.6f}", rmse_last=f"{hx[-1]['rmse']:.6f}",
-        fe_last=f"{hx[-1]['free_energy']:.2f}",
-        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        fe_last=f"{hx[-1]['free_energy']:.2f}", peak_mem_bytes=peak,
         launches=json.dumps(l_exact, separators=(",", ":")))
 
     # ---- 8. exact mode, GPU kernels vs CPU twins, full size -----------------
@@ -2558,10 +2614,12 @@ def main() -> int:
         rtol=TRAJ_RTOL)
     del cpu
 
-    l_bs, l_bs_als, l_bs_seq = bs_phases(build, card, dev, bs_mcmc, bsp)
+    l_bs, l_bs_als, l_bs_seq, l_bs_nine = bs_phases(build, card, dev,
+                                                    bs_mcmc, bsp)
 
     runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
-            l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq)
+            l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
+            l_bs_nine)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}
     kernels = []
     for n in SOURCES:

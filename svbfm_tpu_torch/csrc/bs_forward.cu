@@ -21,8 +21,10 @@
 // relation's row layout rids/rvals [R, Pr] in its local attribute ids,
 // which sit at rows off .. off + Dr - 1 of stab; moments [R, 1+2K] =
 // (lin | qB | sB); q [N, F] row-major; dy, qB0 [R, F]; qB1 rows of
-// stride ld1 (the qB channels of X10b's relation table).  Up to kMaxRel
-// relations per bs_scores launch.
+// stride ld1 (the qB channels of X10b's relation table).  bs_scores takes
+// any number of relations: their joins and moment tables arrive as two
+// device arrays of nrel pointers, which the wrapper builds once per set of
+// tensors, and every relation's qB adds into one s_f before it is squared.
 //
 // Bound: bytes.  bs_scores reads each data row's ids, values and table
 // rows and one moments row per relation at a data-dependent address
@@ -33,13 +35,7 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxRel = 8;
 constexpr int kResyncThreads = 256;
-
-struct Relations {
-  const int* join[kMaxRel];
-  const float* mom[kMaxRel];
-};
 
 __global__ void rel_moments_kernel(const int* __restrict__ rids,
                                    const float* __restrict__ rvals,
@@ -77,7 +73,9 @@ __global__ void bs_scores_kernel(const float* __restrict__ stab, int K,
                                  const float* __restrict__ w0,
                                  const int* __restrict__ ids,
                                  const float* __restrict__ vals, int64_t N,
-                                 int P, int nrel, Relations rel,
+                                 int P, int nrel,
+                                 const int* const* __restrict__ joins,
+                                 const float* const* __restrict__ moms,
                                  float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int64_t n =
@@ -96,7 +94,7 @@ __global__ void bs_scores_kernel(const float* __restrict__ stab, int K,
       s2 += d * d;
     }
     for (int r = 0; r < nrel; ++r) {
-      const float* m = rel.mom[r] + static_cast<int64_t>(rel.join[r][n]) * ldm;
+      const float* m = moms[r] + static_cast<int64_t>(joins[r][n]) * ldm;
       s += m[1 + f];
       s2 += m[1 + K + f];
     }
@@ -107,7 +105,7 @@ __global__ void bs_scores_kernel(const float* __restrict__ stab, int K,
     float acc = *w0;
     for (int p = 0; p < P; ++p) acc += stab[rid[p] * ld] * rx[p];
     for (int r = 0; r < nrel; ++r)
-      acc += rel.mom[r][static_cast<int64_t>(rel.join[r][n]) * ldm];
+      acc += moms[r][static_cast<int64_t>(joins[r][n]) * ldm];
     out[n] = acc + 0.5f * part;
   }
 }
@@ -154,21 +152,16 @@ SVBFM_EXPORT int svbfm_bs_rel_moments(const int* rids, const float* rvals,
 }
 
 // scores [N] from the main rows ids/vals [N, P] and nrel relations: joins
-// (host array of nrel device pointers to int [N]) and moments (host array of
-// nrel device pointers to [R_r, 1+2K]).
+// (a device array of nrel pointers to int [N]) and moms (a device array of
+// nrel pointers to [R_r, 1+2K]).
 SVBFM_EXPORT int svbfm_bs_scores(const float* stab, int K, const float* w0,
                                  const int* ids, const float* vals, int64_t N,
                                  int P, int nrel, const int* const* joins,
                                  const float* const* moms, float* out,
                                  cudaStream_t stream) {
-  if (nrel < 0 || nrel > kMaxRel) return static_cast<int>(cudaErrorInvalidValue);
-  Relations rel{};
-  for (int r = 0; r < nrel; ++r) {
-    rel.join[r] = joins[r];
-    rel.mom[r] = moms[r];
-  }
+  if (nrel < 0) return static_cast<int>(cudaErrorInvalidValue);
   bs_scores_kernel<<<warp_blocks(N), 32 * kWarpsPerBlock, 0, stream>>>(
-      stab, K, w0, ids, vals, N, P, nrel, rel, out);
+      stab, K, w0, ids, vals, N, P, nrel, joins, moms, out);
   return static_cast<int>(cudaGetLastError());
 }
 

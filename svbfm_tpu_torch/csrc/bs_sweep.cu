@@ -37,16 +37,28 @@
 // table v_t [Dr, Fo] are X8a's.  Group priors mu/lam [G, Fo]; the noise table
 // z [Fo, Dr] (nullptr for ALS).
 //
-// Bound: bytes.  X10a reads e and q at each joined data row (1 + F floats at
-// a data-dependent address) and writes [R, 1 + 2F + P] (251 channels at
-// F = 20); its products are formed in registers and shared memory, never as
-// JAX's [CH, N] stack (1 GB at 1M rows).  X10b gathers the row's
+// Bound: bytes.  X10a reads the bucket's rows and x, e and q at each joined
+// data row (1 + F floats at a data-dependent address) and writes
+// [R, 1 + 2F + P] (251 channels at F = 20, 4 at F = 1, 1 at F = 0); its
+// products are formed in registers and shared memory, never as JAX's
+// [CH, N] stack (1 GB at 1M rows).  X10b gathers the row's
 // 3F + 2 + P channels (about 1 KB at F = 20) per entry; X10c reads wcc
 // ([R, 210] at F = 20) for the weq matvec in every bin.
 //
-// Design.  X10a: one block per relation row; the block stages a tile of
-// kTile entries of e and qO in shared memory, and each thread owns some of
-// the channel sums (X8a's pattern); a padding entry (x = 0) adds nothing.
+// Design.  X10a runs a whole join plan in one launch: its buckets' blocks
+// are laid end to end, and each block finds its bucket in the plan table
+// (kPlanCols int64 a bucket, built once per plan by the wrapper), so a
+// relation pays one launch, not one a bucket.  Two forms, chosen by F.
+// F >= 2 (1 + 2F + P channels): one block per relation row; the block
+// stages a tile of kTile entries of e and qO in shared memory, and each
+// thread owns some of the channel sums (X8a's pattern).  F <= 1 (1 or 4
+// channels, the relation w sweep and the factor-sequential path), where a
+// block a row would leave all but one thread idle: G lanes a relation row, G the next power of two >= L capped at 32, many
+// rows a block; the lanes stride over the row's entries (coalesced reads
+// of rows and x), keep the channel sums in registers and end with a
+// butterfly of __shfl_xor_sync over the G lanes: no shared memory, no
+// barrier, and a fixed order of the sums, so the result is deterministic.
+// In both a padding entry (x = 0) adds nothing and gathers no e or q.
 // X10b: one block per (column, split).  The attribute-slot bins of a
 // relation hold two columns of tens of thousands of entries each, so a
 // column's entries are split over S blocks; each writes its partial sums,
@@ -61,6 +73,34 @@ namespace {
 
 constexpr int kTile = 32;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kNarrowThreads = 256;  // X10a at F <= 1
+// X10a's plan table, int64 [nb, kPlanCols], a row a bucket of the join
+// plan: rows, x and cols pointers, C, L, G (the F <= 1 form's lanes a
+// relation row) and the bucket's first block (mirrored by
+// kernels/bs_sweep.py:join_plan_rows)
+constexpr int kPlanCols = 7;
+
+struct Bucket {
+  const int* rows;   // [C, L]
+  const float* x;    // [C, L]
+  const int* cols;   // [C]
+  int C, L, G;
+  int64_t first;     // the bucket's first block
+};
+
+// The bucket whose blocks hold this block: the last one whose first block
+// is <= blockIdx.x (a bucket with no blocks shares its first block with
+// the next, so it is stepped over).
+__device__ inline Bucket find_bucket(const int64_t* __restrict__ plan,
+                                     int nb) {
+  int b = 0;
+  while (b + 1 < nb && plan[(b + 1) * kPlanCols + 6] <= blockIdx.x) ++b;
+  const int64_t* p = plan + b * kPlanCols;
+  return Bucket{reinterpret_cast<const int*>(p[0]),
+                reinterpret_cast<const float*>(p[1]),
+                reinterpret_cast<const int*>(p[2]), static_cast<int>(p[3]),
+                static_cast<int>(p[4]), static_cast<int>(p[5]), p[6]};
+}
 
 // Channel offsets of rtab for F factors (F = 0: the w sweep's table).
 struct RelLayout {
@@ -79,17 +119,18 @@ __host__ __device__ inline int agg_channels(int F) {
   return 1 + 2 * F + F * (F + 1) / 2;
 }
 
-// X10a: one block per relation row (a column of the join plan's bucket).
-__global__ void join_agg_kernel(const int* __restrict__ rows,
-                                const float* __restrict__ x, int L,
-                                const int* __restrict__ cols,
+// X10a at F >= 2: one block per relation row (a column of one of the join
+// plan's buckets).
+__global__ void join_agg_kernel(const int64_t* __restrict__ plan, int nb,
                                 const float* __restrict__ e,
                                 const float* __restrict__ q, int F,
                                 float* __restrict__ rtab) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int c = blockIdx.x;
+  const Bucket bk = find_bucket(plan, nb);
+  const int64_t c = blockIdx.x - bk.first;
+  const int L = bk.L;
   const RelLayout lay(F);
   const int CH = agg_channels(F);
   const int ldt = kTile + 1;
@@ -98,21 +139,20 @@ __global__ void join_agg_kernel(const int* __restrict__ rows,
   float* xs = es + kTile;     // [kTile]
   float* qs = xs + kTile;     // [F, kTile + 1] qO
   float* qb = qs + F * ldt;   // [F] qB0 of the row
-  const int64_t rho = cols[c];
+  const int64_t rho = bk.cols[c];
   for (int f = tid; f < F; f += nt) qb[f] = rtab[rho * lay.ld + f];
   for (int o = tid; o < CH; o += nt) acc[o] = 0.f;
   __syncthreads();
-  const int* crow = rows + static_cast<int64_t>(c) * L;
-  const float* cx = x + static_cast<int64_t>(c) * L;
-  const int Fs = max(F, 1);
+  const int* crow = bk.rows + c * L;
+  const float* cx = bk.x + c * L;
   for (int l0 = 0; l0 < L; l0 += kTile) {
     const int nl = min(kTile, L - l0);
-    for (int i = tid; i < kTile * Fs; i += nt) {
-      const int l = i / Fs;
-      const int f = i - l * Fs;
+    for (int i = tid; i < kTile * F; i += nt) {
+      const int l = i / F;
+      const int f = i - l * F;
       const float xv = l < nl ? cx[l0 + l] : 0.f;
       const int64_t r = xv != 0.f ? crow[l0 + l] : -1;
-      if (f < F) qs[f * ldt + l] = r >= 0 ? q[r * F + f] - qb[f] : 0.f;
+      qs[f * ldt + l] = r >= 0 ? q[r * F + f] - qb[f] : 0.f;
       if (f == 0) {
         xs[l] = xv;
         es[l] = r >= 0 ? e[r] : 0.f;
@@ -140,6 +180,59 @@ __global__ void join_agg_kernel(const int* __restrict__ rows,
     __syncthreads();
   }
   for (int o = tid; o < CH; o += nt) rtab[rho * lay.ld + F + o] = acc[o];
+}
+
+// X10a at F <= 1 (kCH = 1: e; kCH = 4: e, e qO, qO, qO^2 with qO = q - qB0):
+// G lanes per relation row (a column c of a bucket), G a power of two
+// <= 32, so a row's lanes sit in one warp.  No thread leaves early: every
+// lane of a warp takes part in the shuffles.
+template <int kCH>
+__global__ void join_agg_narrow_kernel(const int64_t* __restrict__ plan,
+                                       int nb, const float* __restrict__ e,
+                                       const float* __restrict__ q,
+                                       float* __restrict__ rtab, int ld) {
+  constexpr int F = kCH == 4 ? 1 : 0;
+  const Bucket bk = find_bucket(plan, nb);
+  const int G = bk.G, L = bk.L;
+  const int64_t c =
+      ((blockIdx.x - bk.first) * blockDim.x + threadIdx.x) / G;
+  const int lane = threadIdx.x & (G - 1);
+  const bool live = c < bk.C;
+  float s[kCH];
+#pragma unroll
+  for (int i = 0; i < kCH; ++i) s[i] = 0.f;
+  int64_t rho = 0;
+  if (live) {
+    rho = bk.cols[c];
+    const float qb = kCH == 4 ? rtab[rho * ld] : 0.f;
+    const int* __restrict__ crow = bk.rows + c * L;
+    const float* __restrict__ cx = bk.x + c * L;
+#pragma unroll 4
+    for (int l = lane; l < L; l += G) {
+      // the row id is read beside x, from sectors the lanes read anyway,
+      // so that the gather waits on one load, not two
+      const float xv = cx[l];
+      const int64_t r = crow[l];
+      if (xv == 0.f) continue;  // a padding entry gathers nothing
+      const float ev = e[r];
+      s[0] += ev * xv;
+      if constexpr (kCH == 4) {
+        const float qo = q[r] - qb;
+        s[1] += ev * qo * xv;
+        s[2] += qo * xv;
+        s[3] += qo * qo * xv;
+      }
+    }
+  }
+  for (int o = G >> 1; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < kCH; ++i)
+      s[i] += __shfl_xor_sync(svbfm::kFullMask, s[i], o);
+  }
+  if (live && lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kCH; ++i) rtab[rho * ld + F + i] = s[i];
+  }
 }
 
 // Sums a relation column owns: she [Fo], sh2 [Fo], then the packed M.
@@ -371,13 +464,28 @@ static size_t rel_draw_smem(int F) {
 
 static int block_threads(int n) { return n > 128 ? 256 : (n > 32 ? 128 : 64); }
 
-// X10a on one [C, L] bucket of the join plan (rows: data rows; cols:
-// relation rows): writes rtab [R, 3F + 2 + P] channels F .. 3F + P (F = 0:
-// rtab [R, 2], channel 0) at the bucket's relation rows.
-SVBFM_EXPORT int svbfm_bs_join_agg(const int* rows, const float* x, int C,
-                                   int L, const int* cols, const float* e,
+// X10a over the nb buckets of a join plan (each [C, L]; rows: data rows,
+// cols: relation rows): writes rtab [R, 3F + 2 + P] channels F .. 3F + P
+// (F = 0: rtab [R, 2], channel 0) at the buckets' relation rows.  plan is
+// the device table [nb, kPlanCols], blocks the buckets' blocks in all: C
+// a bucket at F >= 2, ceil(C G / kNarrowThreads) at F <= 1.
+SVBFM_EXPORT int svbfm_bs_join_agg(const int64_t* plan, int nb,
+                                   int64_t blocks, const float* e,
                                    const float* q, int F, float* rtab,
                                    cudaStream_t stream) {
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (F <= 1) {
+    const int ld = RelLayout(F).ld;
+    if (F == 0) {
+      join_agg_narrow_kernel<1><<<grid, kNarrowThreads, 0, stream>>>(
+          plan, nb, e, q, rtab, ld);
+    } else {
+      join_agg_narrow_kernel<4><<<grid, kNarrowThreads, 0, stream>>>(
+          plan, nb, e, q, rtab, ld);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = join_agg_smem(F);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -385,8 +493,8 @@ SVBFM_EXPORT int svbfm_bs_join_agg(const int* rows, const float* x, int C,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  join_agg_kernel<<<C, block_threads(agg_channels(F)), smem, stream>>>(
-      rows, x, L, cols, e, q, F, rtab);
+  join_agg_kernel<<<grid, block_threads(agg_channels(F)), smem, stream>>>(
+      plan, nb, e, q, F, rtab);
   return static_cast<int>(cudaGetLastError());
 }
 

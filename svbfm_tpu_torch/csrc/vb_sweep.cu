@@ -165,9 +165,11 @@ __global__ void col_stats_kernel(
 }
 
 // ---- K4: per-bin row-cache patch ------------------------------------------
-// kLanes threads per row, lanes over factors: a warp (32) wherever there
-// are factors; one thread (1) at F = 0, the w patch, where a warp would
-// idle 31 lanes.  kSeq (batch VB): positions are walked in order
+// kLanes threads per row, lanes over factors: a warp (32) at F >= 2; one
+// thread (1) at F = 1 (exact-mode VB, the online-VB chunks) and at F = 0,
+// the w patch, where a warp would idle 31 lanes and pay two 5-step shuffle
+// sums a position for one product.  The launch picks kLanes by F.  kSeq
+// (batch VB): positions are walked in order
 // p = 0..P-1 and q/tq/tz change between positions (vb.py:523-549).  !kSeq
 // (online VB, vb_online.py:561-580): every position reads the caches from
 // before the patch and the cache increments are applied after the last
@@ -191,7 +193,9 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
   const int64_t n = static_cast<int64_t>(blockIdx.x) *
                         (kPatchThreads / kLanes) + threadIdx.x / kLanes;
   if (n >= N) return;  // a row's lanes leave together
-  // the w patch of MCMC has no t cache: t == nullptr there (kLanes == 1)
+  // only the w patch of MCMC has no t cache (t == nullptr); K4 at F >= 1
+  // always patches t: its wrapper requires one, so at kLanes == 1 the test
+  // below is true for F = 1, and at kLanes == 32 it is known at compile time
   const bool has_t = kLanes == 32 || t != nullptr;
   float ev = e[n];
   float tv = has_t ? t[n] : 0.f;
@@ -296,13 +300,26 @@ SVBFM_EXPORT int svbfm_vb_col_stats_update(
 }
 
 // Patch q/tq/tz [N, F] and e/t [N] in place from ptab [D, CH]; seq
-// selects the batch-VB (1) or online-VB (0) position order; a warp per row.
-// The w patch (F = 0) has its own launch below, a thread per row.
+// selects the batch-VB (1) or online-VB (0) position order; a thread per
+// row at F = 1, a warp per row at F >= 2.  The w patch (F = 0) has its own
+// launch below, a thread per row.
 SVBFM_EXPORT int svbfm_vb_patch_rows(const float* ptab, int CH, int F,
                                      int merge_w, int seq, const int* ids,
                                      const float* vals, int64_t N, int P,
                                      float* q, float* tq, float* tz, float* e,
                                      float* t, cudaStream_t stream) {
+  if (F == 1) {
+    const unsigned blocks =
+        static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
+    if (seq) {
+      patch_rows_kernel<true, 1><<<blocks, kPatchThreads, 0, stream>>>(
+          ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
+    } else {
+      patch_rows_kernel<false, 1><<<blocks, kPatchThreads, 0, stream>>>(
+          ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const int64_t rows = kPatchThreads / 32;
   const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
   if (seq) {

@@ -8,7 +8,10 @@ materialising the join; ``bs_resync`` carries a relation sweep's per-row
 deltas back to the data rows (e += sum dy[j] + sum qO dqB[j], q += dqB[j]),
 and with no e builds the q cache (q += qB[j]).  On CUDA tensors each op
 launches its hand-written kernel; on CPU tensors it runs the plain PyTorch
-twin beside it, the JAX arithmetic.
+twin beside it, the JAX arithmetic.  ``bs_scores`` takes any number of
+relations: the kernel reads their joins and moment tables through two
+device arrays of pointers (``pointer_table``), built once per set of
+tensors.
 
 Layouts (see ``csrc/bs_forward.cu``): stab [D_all, 1+K] = (w | v^T), as
 kernel K1 reads it; rids/rvals [R, Pr] a relation's row layout in its local
@@ -21,14 +24,11 @@ build at the v sweep's entry (:700-708) and the resyncs (:463-468,
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from svbfm_tpu_torch.kernels import build
 
 _I32, _F32 = torch.int32, torch.float32
-MAX_RELATIONS = 8  # csrc/bs_forward.cu kMaxRel
 
 
 # ---- the relation-row moments -------------------------------------------------
@@ -52,9 +52,13 @@ def bs_rel_moments_plain(rids, rvals, stab, off: int, k1: bool = True):
     return torch.cat([lin[:, None], qB, sB], 1)
 
 
-def bs_rel_moments(rids, rvals, stab, off: int, k1: bool = True):
+def bs_rel_moments(rids, rvals, stab, off: int, k1: bool = True, out=None):
+    """The moments [R, 1+2K]; written into ``out`` when one is given (a
+    table whose address stays fixed, so that ``bs_scores`` finds its
+    pointer table built)."""
     if build.on_cpu(rids):
-        return bs_rel_moments_plain(rids, rvals, stab, off, k1)
+        m = bs_rel_moments_plain(rids, rvals, stab, off, k1)
+        return m if out is None else out.copy_(m)
     R, Pr = rids.shape
     K = stab.shape[1] - 1
     dev = rids.device
@@ -62,7 +66,9 @@ def bs_rel_moments(rids, rvals, stab, off: int, k1: bool = True):
     build.require(rvals, _F32, (R, Pr), dev, "bs_rel_moments.rvals")
     build.require(stab, _F32, (stab.shape[0], K + 1), dev,
                   "bs_rel_moments.stab")
-    out = torch.empty(R, 1 + 2 * K, dtype=_F32, device=dev)
+    if out is None:
+        out = torch.empty(R, 1 + 2 * K, dtype=_F32, device=dev)
+    build.require(out, _F32, (R, 1 + 2 * K), dev, "bs_rel_moments.out")
     if R == 0:
         return out
     lib = build.load_library("bs_forward")
@@ -100,6 +106,14 @@ def bs_scores_plain(stab, w0, ids, vals, joins, moms):
     return acc + 0.5 * (s * s - s2).sum(1)
 
 
+def pointer_table(tensors, dev) -> torch.Tensor:
+    """int64 [n] of the tensors' ``data_ptr()``s on ``dev``
+    (``build.device_table``): the device array through which
+    ``bs_scores_kernel`` reads any number of relations."""
+    return build.device_table(tuple(t.data_ptr() for t in tensors) or (0,),
+                              dev)
+
+
 def bs_scores(stab, w0, ids, vals, joins, moms):
     if build.on_cpu(ids):
         return bs_scores_plain(stab, w0, ids, vals, joins, moms)
@@ -111,25 +125,22 @@ def bs_scores(stab, w0, ids, vals, joins, moms):
     req(w0, _F32, (), dev, "bs_scores.w0")
     req(ids, _I32, (N, P), dev, "bs_scores.ids")
     req(vals, _F32, (N, P), dev, "bs_scores.vals")
-    if len(joins) != len(moms) or len(joins) > MAX_RELATIONS:
+    if len(joins) != len(moms):
         raise ValueError(f"bs_scores: {len(joins)} joins, {len(moms)} "
-                         f"moment tables; at most {MAX_RELATIONS}")
+                         "moment tables")
     for r, (j, m) in enumerate(zip(joins, moms)):
         req(j, _I32, (N,), dev, f"bs_scores.joins[{r}]")
         req(m, _F32, (m.shape[0], 1 + 2 * K), dev, f"bs_scores.moms[{r}]")
     out = torch.empty(N, dtype=_F32, device=dev)
     if N == 0:
         return out
-    n = len(joins)
-    jp = (ctypes.c_void_p * max(n, 1))(*[j.data_ptr() for j in joins])
-    mp = (ctypes.c_void_p * max(n, 1))(*[m.data_ptr() for m in moms])
+    jp, mp = pointer_table(joins, dev), pointer_table(moms, dev)
     lib = build.load_library("bs_forward")
     with torch.cuda.device(dev):
         rc = lib.svbfm_bs_scores(
             build.ptr(stab), K, build.ptr(w0), build.ptr(ids),
-            build.ptr(vals), N, P, n, ctypes.cast(jp, ctypes.c_void_p),
-            ctypes.cast(mp, ctypes.c_void_p), build.ptr(out),
-            build.stream_of(ids))
+            build.ptr(vals), N, P, len(joins), build.ptr(jp), build.ptr(mp),
+            build.ptr(out), build.stream_of(ids))
     build.check_launch(lib, rc, "bs_scores")
     return out
 

@@ -2,8 +2,9 @@
 (``csrc/bs_sweep.cu``).
 
 ``bs_join_agg`` (X10a) sums, per relation row, the channels built from e and
-qO = q - qB0 over the data rows joined to it (one degree bucket of the join
-plan); ``bs_rel_draw`` (X10b) computes one relation bucket's she, sh2 and
+qO = q - qB0 over the data rows joined to it (all degree buckets of a join
+plan in one launch; a block a relation row at F >= 2, a group of up to 32
+lanes a relation row at F <= 1); ``bs_rel_draw`` (X10b) computes one relation bucket's she, sh2 and
 cross-factor matrix M from the relation-row table and draws the bucket's
 factors with exact sequential conditionals (F = 1: the factor-sequential
 path's draw); ``bs_rel_patch`` (X10c) patches the relation-row table and dy
@@ -40,6 +41,7 @@ from svbfm_tpu_torch.learners.base import keep_finite
 
 _I32, _F32 = torch.int32, torch.float32
 _TILE = 32  # csrc/bs_sweep.cu kTile
+_NARROW_THREADS = 256  # csrc/bs_sweep.cu kNarrowThreads
 # the least entries one block of X10b takes when a column is split
 _SPLIT_MIN = 256
 
@@ -67,8 +69,8 @@ def _sym(F: int):
 
 
 def join_agg_smem(F: int) -> int:
-    """Bytes of shared memory X10a's block takes
-    (``csrc/bs_sweep.cu:join_agg_smem``)."""
+    """Bytes of shared memory X10a's block takes at F >= 2
+    (``csrc/bs_sweep.cu:join_agg_smem``); the F <= 1 form takes none."""
     return 4 * (agg_channels(F) + 2 * _TILE + F * (_TILE + 1) + F)
 
 
@@ -105,50 +107,80 @@ def _sms(dev) -> int:
 
 # ---- X10a -------------------------------------------------------------------
 
-def bs_join_agg_plain(rows, x, cols, e, q, F: int, rtab) -> None:
-    """One [C, L] bucket of the join plan: rtab[rho, F:F+CH] = the channel
-    sums at the bucket's relation rows (``q`` is None at F = 0)."""
-    C, L = rows.shape
-    rho = cols.long()
-    ridx = rows.reshape(-1)
-    e_g = e.index_select(0, ridx).reshape(1, C, L)
-    if F == 0:
-        ch = e_g
-    else:
-        qO = (q.index_select(0, ridx).reshape(C, L, F)
-              - rtab[rho, :F][:, None, :]).permute(2, 0, 1)  # [F, C, L]
-        iu0, iu1, _, _ = _sym(F)
-        ch = torch.cat([e_g, e_g * qO, qO, qO[iu0] * qO[iu1]], 0)
-    part = (ch * x[None]).sum(-1)  # [CH, C]
-    rtab[rho, F:F + part.shape[0]] = part.T
+def narrow_lanes(L: int) -> int:
+    """G, the lanes X10a's F <= 1 form gives each relation row of a bucket
+    of L slots: the next power of two >= L, at most 32, so that a row's
+    lanes sit in one warp (``csrc/bs_sweep.cu:svbfm_bs_join_agg``)."""
+    G = 1
+    while G < L and G < 32:
+        G *= 2
+    return G
 
 
-def bs_join_agg(rows, x, cols, e, q, F: int, rtab) -> None:
-    if build.on_cpu(rows):
-        return bs_join_agg_plain(rows, x, cols, e, q, F, rtab)
-    C, L = rows.shape
+def join_plan_rows(buckets, F: int) -> tuple[tuple, int]:
+    """X10a's plan table (``csrc/bs_sweep.cu`` kPlanCols): a row a bucket,
+    (rows, x, cols pointers, C, L, G, the bucket's first block), the
+    buckets' blocks laid end to end (C a bucket at F >= 2, a block a
+    relation row; ceil(C G / 256) at F <= 1); and the blocks in all."""
+    out, first = [], 0
+    for b in buckets:
+        C, L = b.rows.shape
+        G = narrow_lanes(L)
+        out.append((b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(), C,
+                    L, G, first))
+        first += C if F >= 2 else -(-C * G // _NARROW_THREADS)
+    return tuple(out), first
+
+
+def bs_join_agg_plain(buckets, e, q, F: int, rtab) -> None:
+    """The buckets of a join plan (each with its [C, L] ``rows``, ``x`` and
+    [C] ``cols``): rtab[rho, F:F+CH] = the channel sums at each bucket's
+    relation rows (``q`` is None at F = 0)."""
+    for b in buckets:
+        C, L = b.rows.shape
+        rho = b.cols.long()
+        ridx = b.rows.reshape(-1)
+        e_g = e.index_select(0, ridx).reshape(1, C, L)
+        if F == 0:
+            ch = e_g
+        else:
+            qO = (q.index_select(0, ridx).reshape(C, L, F)
+                  - rtab[rho, :F][:, None, :]).permute(2, 0, 1)  # [F, C, L]
+            iu0, iu1, _, _ = _sym(F)
+            ch = torch.cat([e_g, e_g * qO, qO, qO[iu0] * qO[iu1]], 0)
+        part = (ch * b.x[None]).sum(-1)  # [CH, C]
+        rtab[rho, F:F + part.shape[0]] = part.T
+
+
+def bs_join_agg(buckets, e, q, F: int, rtab) -> None:
+    if build.on_cpu(e):
+        return bs_join_agg_plain(buckets, e, q, F, rtab)
     N = e.shape[0]
-    dev = rows.device
+    dev = e.device
     lay = rel_layout(F)
     req = build.require
-    req(rows, _I32, (C, L), dev, "bs_join_agg.rows")
-    req(x, _F32, (C, L), dev, "bs_join_agg.x")
-    req(cols, _I32, (C,), dev, "bs_join_agg.cols")
     req(e, _F32, (N,), dev, "bs_join_agg.e")
     if F > 0:
         req(q, _F32, (N, F), dev, "bs_join_agg.q")
     req(rtab, _F32, (rtab.shape[0], lay["ld"]), dev, "bs_join_agg.rtab")
-    if C == 0:
+    for i, b in enumerate(buckets):
+        C, L = b.rows.shape
+        req(b.rows, _I32, (C, L), dev, f"bs_join_agg.rows[{i}]")
+        req(b.x, _F32, (C, L), dev, f"bs_join_agg.x[{i}]")
+        req(b.cols, _I32, (C,), dev, f"bs_join_agg.cols[{i}]")
+    rows, blocks = join_plan_rows(buckets, F)
+    if blocks == 0:
         return
     if join_agg_smem(F) > MAX_BLOCK_SMEM:
         raise ValueError(f"bs_join_agg: F = {F} needs more shared memory "
                          f"than one block may take")
+    plan = build.device_table(rows, dev)
     lib = build.load_library("bs_sweep")
     with torch.cuda.device(dev):
         rc = lib.svbfm_bs_join_agg(
-            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
-            build.ptr(e), None if F == 0 else build.ptr(q), F,
-            build.ptr(rtab), build.stream_of(rows))
+            build.ptr(plan), len(rows), blocks, build.ptr(e),
+            None if F == 0 else build.ptr(q), F, build.ptr(rtab),
+            build.stream_of(e))
     build.check_launch(lib, rc, "bs_join_agg")
 
 

@@ -76,7 +76,7 @@ SIGNATURES = {
     "svbfm_w_grad_step": (_P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F, _P),
     "svbfm_mcmc_col_grad": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _F,
                             _F, _P),
-    "svbfm_bs_join_agg": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P),
+    "svbfm_bs_join_agg": (_P, _I, _L, _P, _P, _I, _P, _P),
     "svbfm_bs_rel_draw": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
                           _P, _P, _P, _L, _P, _P, _P, _P),
     "svbfm_bs_rel_w_draw": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
@@ -103,6 +103,11 @@ launch_counts: dict[str, int] = {
 # ptxas resource report (registers, spills) of each library's last build
 build_logs: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+# device_table's tables by (device, values), the oldest dropped past
+# _TABLES_KEPT; a table holds only numbers (pointers, shapes), so it is
+# right for whatever tensors sit at those addresses
+_tables: dict = {}
+_TABLES_KEPT = 64
 
 
 def reset_launch_counts() -> None:
@@ -209,6 +214,23 @@ def check_launch(lib: ctypes.CDLL, rc: int, name: str) -> None:
 
 
 # -- argument helpers shared by the wrappers --------------------------------
+
+def device_table(values: tuple, device) -> torch.Tensor:
+    """An int64 tensor of ``values`` (ints, or equal-length tuples of ints
+    for a 2-D table) on ``device``: the device arrays of pointers and shapes
+    that a kernel reads in place of a fixed-size argument list.  Built by
+    one host-to-device copy the first time ``values`` is seen, then found
+    again; the learners keep the tensors a table describes at fixed
+    addresses, so each of their tables is built once."""
+    key = (device, values)
+    table = _tables.get(key)
+    if table is None:
+        table = torch.tensor(values, dtype=torch.int64).to(device)
+        _tables[key] = table
+        while len(_tables) > _TABLES_KEPT:
+            del _tables[next(iter(_tables))]
+    return table
+
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())

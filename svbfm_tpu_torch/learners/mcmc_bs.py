@@ -50,8 +50,7 @@ from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
 from svbfm_tpu_torch.data.libfm_text import COOData
 from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.data.relation import RelationData
-from svbfm_tpu_torch.kernels.bs_forward import (MAX_RELATIONS,
-                                                bs_rel_moments, bs_resync,
+from svbfm_tpu_torch.kernels.bs_forward import (bs_rel_moments, bs_resync,
                                                 bs_scores)
 from svbfm_tpu_torch.kernels.bs_sweep import (bs_join_agg, bs_rel_draw,
                                               bs_rel_patch, bs_rel_w_draw,
@@ -209,12 +208,16 @@ def param_table(w, v, k1: bool) -> torch.Tensor:
 
 
 def bs_score_rows(w0, w, v, ids, vals, rels, rstats, joins,
-                  k0: bool = True, k1: bool = True) -> torch.Tensor:
+                  k0: bool = True, k1: bool = True,
+                  moms_out=None) -> torch.Tensor:
     """FM scores of data rows from their main row layout and each
-    relation's moments at its joined row (mcmc_bs.py:215-268)."""
+    relation's moments at its joined row (mcmc_bs.py:215-268), any number
+    of relations.  ``moms_out``: one [R, 1+2K] table a relation to build
+    the moments in (the learner's, at fixed addresses), or None."""
     stab = param_table(w, v, k1)
+    outs = moms_out if moms_out is not None else [None] * len(rels)
     moms = [bs_rel_moments(rd.rrow_ids, rd.rrow_vals, stab, rs.attr_offset,
-                           k1) for rd, rs in zip(rels, rstats)]
+                           k1, out=o) for rd, rs, o in zip(rels, rstats, outs)]
     w0 = w0 if k0 else torch.zeros_like(w0)
     return bs_scores(stab, w0, ids, vals, list(joins), moms)
 
@@ -245,8 +248,7 @@ def rel_w_sweep(e, w, w_mu, w_lambda, alpha, rd: RelDevice, rs: RelStatic,
     dev = e.device
     rtab = torch.zeros(R, 2, dtype=_F32, device=dev)
     rtab[:, 1] = rd.wnum
-    for jb in rd.jplan:
-        bs_join_agg(jb.rows, jb.x, jb.cols, e, None, 0, rtab)
+    bs_join_agg(rd.jplan, e, None, 0, rtab)
     wr = w[off:off + Dr]  # a view: the draws land in w
     dy = torch.zeros(R, 1, dtype=_F32, device=dev)
     zr = draws.normal((Dr,)) if cfg.do_sample else None
@@ -283,8 +285,7 @@ def rel_v_sweep(e, q, vr, qB0, rd: RelDevice, rs: RelStatic, mu_gf, lam_gf,
     rtab = torch.zeros(R, lay["ld"], dtype=_F32, device=dev)
     rtab[:, :F] = qB0
     rtab[:, lay["wn"]] = rd.wnum
-    for jb in rd.jplan:
-        bs_join_agg(jb.rows, jb.x, jb.cols, e, q, F, rtab)
+    bs_join_agg(rd.jplan, e, q, F, rtab)
     dy = torch.zeros(R, F, dtype=_F32, device=dev)
     ptab = torch.empty(Dr, 2 * F, dtype=_F32, device=dev)
     nans = torch.zeros(2, dtype=_I32, device=dev)
@@ -373,10 +374,11 @@ def _bs_v_sequential(e, v, v_mu, v_lambda, alpha, plan: PlanData,
 
 
 def bs_draw_all(state: MCMCState, row: RowData, plan: PlanData, rels, rstats,
-                cfg: FMConfig, num_cases: float, F: int):
+                cfg: FMConfig, num_cases: float, F: int, score_moms=None):
     """One block-structure Gibbs (or ALS) sweep + the full re-predict of the
     train residual (mcmc_bs.py:576-844).  Returns (new_state, counters);
-    ``state``'s tensors are not modified (its draw source advances)."""
+    ``state``'s tensors are not modified (its draw source advances).
+    ``score_moms``: the re-predict's moment tables (``bs_score_rows``)."""
     check_slice(cfg)
     dev = state.e.device
     G, K = cfg.num_groups, cfg.num_factor
@@ -420,7 +422,8 @@ def bs_draw_all(state: MCMCState, row: RowData, plan: PlanData, rels, rstats,
                              rstats, cfg, qB_pre, draws, counters)
     # full re-predict: e := yhat - y
     e = bs_score_rows(w0, w, v, row.ids, row.vals, rels, rstats,
-                      [rd.join_tr for rd in rels], cfg.k0, cfg.k1) - row.target
+                      [rd.join_tr for rd in rels], cfg.k0, cfg.k1,
+                      score_moms) - row.target
     new_state = MCMCState(w0=w0, w=w, v=v, alpha=alpha, w_mu=w_mu,
                           w_lambda=w_lambda, v_mu=v_mu, v_lambda=v_lambda,
                           e=e, draws=draws)
@@ -463,9 +466,6 @@ class MCMCBSLearner(MCMCLearner):
                          w_lambda_init=w_lambda_init,
                          v_lambda_init=v_lambda_init, plan=plan)
         self.num_main_attributes = num_main_attributes
-        if len(relations) > MAX_RELATIONS:
-            raise ValueError(f"at most {MAX_RELATIONS} relations "
-                             "(csrc/bs_forward.cu)")
         devs, stats = [], []
         min_off = num_main_attributes
         for rel, jt, je in zip(relations, joins_train, joins_test):
@@ -482,13 +482,19 @@ class MCMCBSLearner(MCMCLearner):
         self.rels = tuple(devs)
         self.rstats = tuple(stats)
         self.factor_width = bs_factor_width(cfg)
+        # the scores' moment tables stay at one address, so bs_scores
+        # builds its device arrays of pointers to them once
+        self.score_moms = tuple(
+            torch.empty(s.num_rows, 1 + 2 * cfg.num_factor, dtype=_F32,
+                        device=self.device) for s in stats)
 
     def bs_scores(self, w0, w, v, test: bool = False) -> torch.Tensor:
         """Scores of the train (or test) rows (JAX: ``_bs_scores_tr``)."""
         row = self.test_row if test else self.train_row
         joins = [rd.join_te if test else rd.join_tr for rd in self.rels]
         return bs_score_rows(w0, w, v, row.ids, row.vals, self.rels,
-                             self.rstats, joins, self.cfg.k0, self.cfg.k1)
+                             self.rstats, joins, self.cfg.k0, self.cfg.k1,
+                             self.score_moms)
 
     def state_from_params(self, w0, w, v, draws) -> MCMCState:
         dev = self.device
@@ -508,7 +514,7 @@ class MCMCBSLearner(MCMCLearner):
     def step(self, state: MCMCState):
         return bs_draw_all(state, self.train_row, self.plan_data, self.rels,
                            self.rstats, self.cfg, float(self.train_n),
-                           self.factor_width)
+                           self.factor_width, self.score_moms)
 
 
 class ALSBSLearner(MCMCBSLearner):

@@ -69,9 +69,12 @@ def _rel_arrays(n_rows, wide):
                 num_features=n_rows + 2 * (wide - 1))
 
 
-def _problem(n=240, n_users=9, n_items=5, seed=0, wide=2, users_rel=False):
+def _problem(n=240, n_users=9, n_items=5, seed=0, wide=2, users_rel=False,
+             n_extra=0):
     """Numpy pieces: the main block (user one-hots, or empty when the users
-    are a relation of their own), the relations and their joins."""
+    are a relation of their own), the relations and their joins.
+    ``n_extra`` more categorical relations (one-hot ids of 2-5 rows), each
+    with its own join, follow the items."""
     rng = np.random.default_rng(seed)
     users = rng.integers(0, n_users, n)
     items = rng.integers(0, n_items, n)
@@ -89,6 +92,12 @@ def _problem(n=240, n_users=9, n_items=5, seed=0, wide=2, users_rel=False):
         main = dict(row=np.arange(n, dtype=np.int32),
                     col=users.astype(np.int32), val=np.ones(n, np.float32),
                     target=y, num_rows=n, num_features=n_users)
+    for r in range(n_extra):
+        size = 2 + r % 4
+        j = rng.integers(0, size, n)
+        rels.append(_rel_arrays(size, 1))
+        joins.append(j)
+        y += (0.1 * (r % 3 - 1) * j).astype(np.float32)
     return main, rels, joins, y
 
 
@@ -223,10 +232,13 @@ def test_make_bs_problem_shape():
 # X10d: the scores
 # ---------------------------------------------------------------------------
 
+# nine relations: the scores kernel takes any number
+NINE = dict(n_extra=8)
 SCORE_CASES = {
     "wide=2": dict(wide=2),
     "wide=6": dict(wide=6),
     "empty main, two relations": dict(wide=3, users_rel=True),
+    "empty main, nine relations": dict(wide=3, users_rel=True, n_extra=7),
 }
 
 
@@ -293,6 +305,7 @@ BS_CASES = {
     "factor_block=K": dict(factor_block=0),
     "two relations, empty main, factor_block=K": dict(factor_block=0,
                                                       users_rel=True),
+    "nine relations, factor_block=K": dict(factor_block=0, **NINE),
 }
 
 
@@ -363,12 +376,14 @@ def test_bs_als_matches_float64_oracle(factor_block):
         np.testing.assert_allclose(ts.e.numpy(), orc.e, rtol=5e-3, atol=5e-3)
 
 
-def test_bs_als_matches_materialised_join():
+@pytest.mark.parametrize("prob", [{}, NINE], ids=["one relation",
+                                                 "nine relations"])
+def test_bs_als_matches_materialised_join(prob):
     """The port's BS ALS reproduces the port's ALSLearner on the
     materialised join (test_bs.py:60-82): same coordinate order at
     factor_block = 1, same conditionals."""
-    main, rels, joins, _ = _problem()
-    _, tl = _pair(True, factor_block=1)
+    main, rels, joins, _ = _problem(**prob)
+    _, tl = _pair(True, factor_block=1, **prob)
     s_bs, h_bs = tl.run(num_iter=4, verbose=False)
     joined, _ = _joined(tl, main, rels, joins)
     D = tl.cfg.num_attributes
@@ -459,3 +474,52 @@ def test_ragged_bs_case_twins_on_cpu():
                          vt, w["mu"], w["lam"], r["alpha"], w["z"], nans)
     assert (vt[b.cols[0].long()] == 0).all() and nans.tolist() == [0, 0]
     assert (vt[b.cols[1].long()] != 0).all()
+
+
+def test_pointer_table_holds_the_pointers_once():
+    """bs_scores' device arrays of pointers (build.device_table): the
+    tensors' data_ptr()s in order, built once per set of pointers and found
+    again, the oldest table dropped past the cache's size."""
+    from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    cpu = torch.device("cpu")
+    ts = [torch.zeros(3 + k) for k in range(9)]
+    a = kf.pointer_table(ts, cpu)
+    assert a.dtype == torch.int64
+    assert a.tolist() == [t.data_ptr() for t in ts]
+    assert kf.pointer_table(ts, cpu) is a
+    assert kf.pointer_table([], cpu).tolist() == [0]
+    for k in range(build._TABLES_KEPT + 1):
+        build.device_table((-1, k), cpu)
+    assert len(build._tables) == build._TABLES_KEPT
+    assert kf.pointer_table(ts, cpu) is not a
+
+
+@pytest.mark.parametrize("L,G", [(1, 1), (2, 2), (7, 8), (8, 8), (9, 16),
+                                 (32, 32), (33, 32), (300, 32)])
+def test_narrow_lanes_is_the_cu_formula(L, G):
+    """X10a's lanes a relation row at F <= 1, as csrc/bs_sweep.cu documents
+    them: the next power of two >= L, at most 32."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    assert ks.narrow_lanes(L) == G == min(32, 1 << max(L - 1, 0).bit_length())
+
+
+def test_join_plan_rows_lay_the_buckets_end_to_end():
+    """X10a's plan table: a row a bucket (pointers, C, L, G, first block),
+    C blocks a bucket at F >= 2, ceil(C G / 256) at F <= 1, an empty bucket
+    taking none; and the blocks in all."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    bs = [tbs.JoinBlock(rows=torch.zeros(C, L, dtype=torch.int32),
+                        x=torch.zeros(C, L), cols=torch.zeros(C,
+                                                              dtype=torch.int32))
+          for C, L in ((100, 8), (0, 16), (50, 33), (3, 300))]
+    rows, blocks = ks.join_plan_rows(bs, 1)
+    assert [r[3:] for r in rows] == [(100, 8, 8, 0), (0, 16, 16, 4),
+                                     (50, 33, 32, 4), (3, 300, 32, 11)]
+    assert blocks == 12 and rows[0][:3] == (
+        bs[0].rows.data_ptr(), bs[0].x.data_ptr(), bs[0].cols.data_ptr())
+    rows, blocks = ks.join_plan_rows(bs, 20)
+    assert [r[6] for r in rows] == [0, 100, 100, 150] and blocks == 153

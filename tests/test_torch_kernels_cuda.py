@@ -360,3 +360,174 @@ def test_bs_learner_on_gpu_matches_cpu(cuda, als, factor_block):
     for g, c in zip(*hists):
         for k in ("rmse", "rmse_this", "mae", "alpha"):
             np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("nrel", [9, 12])
+def test_bs_scores_many_relations_match_twin(cuda, nrel):
+    """X10d's scores over 9 and 12 relations, read through device arrays
+    of pointers: every relation's qB adds into one s_f before it is
+    squared."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    rng = np.random.default_rng(nrel)
+    N, P, D, K = 333, 3, 20, 5
+    ids = rng.integers(0, D, (N, P))
+    vals = rng.uniform(0.5, 1.5, (N, P))
+    ids[::3, 2], vals[::3, 2] = 0, 0.0  # padding entries
+    sizes = [3 + r for r in range(nrel)]
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+
+    stab = t(rng.normal(0, 0.3, (D, 1 + K)))
+    w0 = torch.tensor(0.2, device=cuda)
+    joins = [t(rng.integers(0, R, N), np.int32) for R in sizes]
+    moms = [t(rng.normal(0, 0.3, (R, 1 + 2 * K))) for R in sizes]
+    before = build.launch_counts["bs_scores"]
+    got = kf.bs_scores(stab, w0, t(ids, np.int32), t(vals), joins, moms)
+    want = kf.bs_scores_plain(stab, w0, t(ids, np.int32), t(vals), joins,
+                              moms)
+    torch.cuda.synchronize()
+    assert build.launch_counts["bs_scores"] == before + 1
+    chip_smoke.compare([got], [want], f"bs_scores relations={nrel}")
+
+
+def _join_bucket(rng, C, L, N, cols, dev):
+    """A [C, L] join bucket at relation rows ``cols`` with ragged padding
+    (pad row N - 1, x = 0) and, past 5 columns, column 3 padding only."""
+    from svbfm_tpu_torch.learners.mcmc_bs import JoinBlock
+
+    rows = rng.integers(0, N - 1, (C, L))
+    x = rng.uniform(0.5, 1.5, (C, L))
+    cnt = rng.integers(1, L + 1, C)
+    if C > 5:
+        cnt[3] = 0
+    pad = np.arange(L)[None, :] >= cnt[:, None]
+    rows[pad], x[pad] = N - 1, 0.0
+    return JoinBlock(rows=torch.from_numpy(rows.astype(np.int32)).to(dev),
+                     x=torch.from_numpy(x.astype(np.float32)).to(dev),
+                     cols=torch.from_numpy(cols.astype(np.int32)).to(dev))
+
+
+def _join_agg_case(cuda, F, shapes, seed):
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    rng = np.random.default_rng(seed)
+    N, R = 2000, 400
+    # the buckets of one plan hold disjoint relation rows, as a join plan's
+    order = rng.permutation(R)
+    buckets, start = [], 0
+    for C, L in shapes:
+        buckets.append(_join_bucket(rng, C, L, N, order[start:start + C],
+                                    cuda))
+        start += C
+    # a NaN residual at a real entry of each bucket's column 5
+    e = rng.standard_normal(N)
+    for b in buckets:
+        if b.rows.shape[0] > 5:
+            e[int(b.rows[5, 0])] = np.nan
+    lay = ks.rel_layout(F)
+    rtab = torch.from_numpy(rng.normal(0, 1, (R, lay["ld"])).astype(
+        np.float32)).to(cuda)
+    e_t = torch.from_numpy(e.astype(np.float32)).to(cuda)
+    q = (torch.from_numpy(rng.standard_normal((N, F)).astype(np.float32))
+         .to(cuda) if F else None)
+    got, want = rtab.clone(), rtab.clone()
+    before = build.launch_counts["bs_join_agg"]
+    ks.bs_join_agg(buckets, e_t, q, F, got)
+    ks.bs_join_agg_plain(buckets, e_t, q, F, want)
+    torch.cuda.synchronize()
+    live = any(b.rows.shape[0] for b in buckets)
+    assert build.launch_counts["bs_join_agg"] == before + int(live)
+    chip_smoke.compare([got], [want], f"bs_join_agg F={F} {shapes}")
+    for b in buckets:
+        if b.rows.shape[0] > 5:
+            assert torch.isnan(got[int(b.cols[5]), F]).item()
+            assert (got[int(b.cols[3]), F:F + ks.agg_channels(F)] == 0).all()
+
+
+@pytest.mark.parametrize("F", [0, 1])
+@pytest.mark.parametrize("C,L", [(23, 1), (23, 7), (23, 33), (23, 300),
+                                 (0, 8)])
+def test_join_agg_narrow_matches_twin(cuda, F, C, L):
+    """X10a's F <= 1 form (G lanes a relation row) on one ragged bucket:
+    L = 1, 7, 33, 300 (one to ten entries a lane), an empty bucket, a column
+    of padding only, a NaN residual at a real entry; rtab written only at
+    the bucket's relation rows."""
+    _join_agg_case(cuda, F, [(C, L)], 10 * L + F)
+
+
+@pytest.mark.parametrize("F", [0, 1, 2, 20])
+def test_join_agg_plan_in_one_launch_matches_twin(cuda, F):
+    """X10a over a whole join plan in one launch, both forms: buckets of
+    L = 1, 7, 33 and 300 with an empty one between them, each block
+    finding its bucket in the plan table."""
+    _join_agg_case(cuda, F, [(23, 1), (40, 7), (0, 8), (31, 33), (9, 300)],
+                   F)
+
+
+@pytest.mark.parametrize("merge_w", [False, True])
+@pytest.mark.parametrize("N,P", [(1, 1), (1, 3), (257, 1), (257, 3)])
+@pytest.mark.parametrize("sequential", [True, False])
+def test_patch_rows_f1_matches_twin(cuda, sequential, N, P, merge_w):
+    """K4 at F = 1 (a thread a row) in both position orders: one row and a
+    ragged block (N not a multiple of 256), one and three positions with
+    padding entries, the w channels merged or not, a NaN delta at one
+    attribute."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+
+    rng = np.random.default_rng(N + 10 * P + 100 * merge_w + 1000 * sequential)
+    D, F = 30, 1
+    ids = rng.integers(1, D, (N, P))
+    vals = rng.uniform(0.5, 1.5, (N, P))
+    if P > 1:
+        ids[1::2, -1], vals[1::2, -1] = 0, 0.0  # padding entries
+    ids[0, 0] = 7
+    CH = 5 * F + (2 if merge_w else 0)
+    ptab = rng.normal(0, 0.3, (D, CH))
+    ptab[:, F:2 * F] = rng.uniform(0.01, 0.1, (D, F))
+    ptab[7, 2 * F] = np.nan  # dmu of attribute 7
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+            cuda)
+
+    caches = [rng.normal(0, 1, (N, F)), rng.uniform(0, 1, (N, F)),
+              rng.uniform(0, 1, (N, F)), rng.normal(0, 1, N),
+              rng.uniform(0, 1, N)]
+    ids_t = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    outs = []
+    for fn in (kv.vb_patch_rows, kv.vb_patch_rows_plain):
+        c = [t(a) for a in caches]
+        fn(t(ptab), F, merge_w, ids_t, t(vals), *c, sequential=sequential)
+        outs.append(c)
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs[0], outs[1], f"vb_patch_rows F=1 N={N} P={P}")
+    assert torch.isnan(outs[0][3][0]).item()
+
+
+@pytest.mark.parametrize("factor_block", [0, 1])
+def test_bs_nine_relations_on_gpu_matches_cpu(cuda, factor_block):
+    """chip_smoke.py's small relational problem with nine relations (K = 5),
+    card against CPU from one init and one host-table draw source, 3
+    sweeps."""
+    import chip_smoke
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    hists = []
+    for dev in (cuda, "cpu"):
+        learner = chip_smoke.small_bs_learner(
+            dev, K=5, factor_block=factor_block,
+            n_rel=chip_smoke.NINE_RELATIONS)
+        assert len(learner.rels) == 9
+        p = init_fm_params(torch.Generator().manual_seed(3),
+                           learner.cfg.num_attributes, 5, init_w_normal=True)
+        state = learner.state_from_params(p.w0, p.w, p.v, host_draws(4, dev))
+        hists.append(learner.run(state, num_iter=3, verbose=False)[1])
+    for g, c in zip(*hists):
+        for k in ("rmse", "rmse_this", "mae", "alpha"):
+            np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)
