@@ -1057,10 +1057,14 @@ def fast_tensors(learner, state) -> dict:
         sigma_w=state.sigma_w, w_sigma_w=state.sigma_w,
         sv=state.sigma_v.contiguous(), alpha=state.alpha, e=state.e.clone(),
         t=state.t.clone(), q=q, tq=tq, tz=tz, ovb=False)
-    # the largest bucket of each bin ([6026,256] and [1613,512] here)
+    # K3: every bucket of a sweep, the largest first ([6026,256], [1613,512],
+    # [2339,256], [14,128] here; the first is the JSON line's); K5: the
+    # largest bucket of each bin
+    every = sorted((b for bb in plan.blocks for b in bb),
+                   key=lambda b: -b.rows.numel())
+    s["buckets"] = [_bucket_dict(b) for b in every]
     big = [max(bb, key=lambda b: b.rows.numel()) for bb in plan.blocks]
-    s["buckets"] = [_bucket_dict(b) for b in big]
-    s["w_buckets"] = s["buckets"]
+    s["w_buckets"] = [_bucket_dict(b) for b in big]
     # a patch table as bin 0 leaves it: deltas at bin 0's columns
     pt = ptab.clone()
     mt, st, mw, sw = (a.clone() for a in (mu_t, sig_t, s["mu_w"], s["sig_w"]))
@@ -2282,9 +2286,12 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build.build_all()
     for name, log in build.build_logs.items():
+        fn = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {fn}: {line.strip()}")
     say("build", t0, libraries=len(build.LIBRARIES), build_s=f"{secs:.2f}")
 
     # ---- data (bench.py's recipe) ------------------------------------------

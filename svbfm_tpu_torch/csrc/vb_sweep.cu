@@ -18,19 +18,77 @@
 //
 // Layouts.  Row caches q/tq/tz are [N, F] row-major (the JAX package keeps
 // [F, N] for the TPU's (8,128) tiling): one row's F factors are one
-// contiguous run, which a warp reads in one transaction.  mu/sigma tables
-// are [D, F].  The per-bin patch table ptab is [D, CH], CH = 5F (+2 with
-// the w rider), channels (mu_old, sig_old, dmu, dsig, dmu2 [, wdmu, wdsig]);
-// mu_old/sig_old are the PRE-BIN snapshot every bucket of the bin and the
-// patch read, so K3 may write the new values into mu/sigma in place.
+// contiguous run, and rows n..n+R of a cache are one contiguous run of R*F
+// floats.  mu/sigma tables are [D, F].  The per-bin patch table ptab is
+// [D, CH], CH = 5F (+2 with the w rider), channels (mu_old, sig_old, dmu,
+// dsig, dmu2 [, wdmu, wdsig]); mu_old/sig_old are the PRE-BIN snapshot
+// every bucket of the bin and the patch read, so K3 may write the new
+// values into mu/sigma in place.
 //
-// Bound: memory latency of the random row gathers (each row cache read is
-// F floats at a data-dependent address); FLOPs are negligible.  The design
-// keeps every gather one contiguous run per row and uses 64-bit offsets for
-// row * channel arithmetic.
+// What bounds them on an H100: bytes, and the latency of the loads that
+// fetch them.  FLOPs are negligible (a few per byte moved).
+//   K3 at F = 20 gathers an 80-byte q and tq row at a data-dependent row
+//   per entry: random 32-byte HBM sectors (3 for 80 bytes), behind a
+//   dependent row-id load.  At F = 1, q, tq and e (4 MB each at ML-1M) stay
+//   in L2, and every 4-byte gather moves a 32-byte sector out of it.
+//   K4 streams the [N, F] caches in and out of HBM and gathers a ptab row
+//   (4 MB at ML-1M: it stays in L2) per row and position.
+// So every lane keeps wide loads in flight: lanes map to (entry or row,
+// factor chunk) pairs, a chunk being V = 4 factors (16-byte loads) where F
+// and the pointers allow; the next loads are issued before the arithmetic
+// that waits on the current ones; and the sums over a chunk's lanes are
+// taken in shared memory in a fixed order (no float atomics: a run repeats
+// bit for bit).  64-bit offsets for row * channel arithmetic.
 #include "svbfm_common.cuh"
 
 namespace {
+
+// V contiguous floats at p, read as V / W loads of W floats (W = 4, 2, 1:
+// p must be 4 W bytes aligned).
+template <int V, int W>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  static_assert(V % W == 0, "a whole number of loads");
+#pragma unroll
+  for (int i = 0; i < V; i += W) {
+    if constexpr (W == 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i);
+      v[i] = a.x, v[i + 1] = a.y, v[i + 2] = a.z, v[i + 3] = a.w;
+    } else if constexpr (W == 2) {
+      const float2 a = *reinterpret_cast<const float2*>(p + i);
+      v[i] = a.x, v[i + 1] = a.y;
+    } else {
+      v[i] = p[i];
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+bool aligned(const void* p, int floats) {
+  return reinterpret_cast<uintptr_t>(p) % (4u * floats) == 0;
+}
+
+// the widest chunk (4, 2 or 1 floats) that divides F and at which every
+// pointer given is aligned
+template <typename... Ptrs>
+int chunk_width(int F, Ptrs... ptrs) {
+  int v = F % 4 == 0 ? 4 : F % 2 == 0 ? 2 : 1;
+  while (v > 1 && !(aligned(ptrs, v) && ...)) v /= 2;
+  return v;
+}
 
 // ---- K2: q = sum_p mu x, tq = sum_p sig x^2, tz = sum_p mu^2 x^2 ----------
 // One thread per (row, factor), factor fastest: the table reads of one row
@@ -68,90 +126,194 @@ __global__ void build_qt_kernel(const float* __restrict__ ptab, int64_t ld,
 }
 
 // ---- K3: per-column statistics + closed-form update of one bucket --------
-// One block per column c of the [C, L] bucket; threadIdx.x = factor lane
-// (32 factors per blockIdx.y), threadIdx.y strides over the L entries.
-// The bucket's padding entries carry x = 0 (at a real row), so they add
-// exactly zero, as in the JAX code: no mask.
-constexpr int kStatRows = 8;
+// One block per column c of the [C, L] bucket (blockIdx.y over groups of GT
+// <= kStatChunks factor chunks of V factors).  Lanes map to (entry slot,
+// chunk) pairs inside each warp: a warp holds SW = 32 / GT slots of GT
+// lanes (6 slots of 5 at F = 20, 2 lanes idle; 32 slots of one lane at
+// F = 1), so a slot's lanes read one entry's q/tq chunks, 16 bytes each at
+// F % 4 == 0.  The column's row ids and x are staged in shared memory (a
+// tile of at most kStatTile entries, one barrier), so a round of
+// stat_batch entries a slot waits on one latency: a slot's first lane
+// loads the entry's e (once an entry) while every lane gathers its q/tq
+// chunks, and the e reaches the other lanes by shuffle.  The rounds are
+// the same for the whole block, so no shuffle diverges.  At F = 20 a
+// round's 16 gathered floats fit the cap of 64 registers (4 blocks of 256
+// threads an SM).  Sums over the slots: a fixed-order
+// two-level tree in shared memory; sum x e (the w rider): warp butterflies,
+// then the warps in order.  Slot 0's lanes then update their chunks'
+// factors.  The bucket's padding entries carry x = 0 (at a real row), so
+// they add exactly zero, as in the JAX code: no mask.
+constexpr int kStatChunks = 8;
+constexpr int kStatWarps = 8;
+constexpr int kStatTile = 512;
 
-__global__ void col_stats_kernel(
+// entries a slot a round: 4 gathers of 16 bytes a lane at V = 4, 8 below
+template <int V>
+__host__ __device__ constexpr int stat_batch() { return V == 4 ? 2 : 4; }
+
+template <int V>
+__global__ void __launch_bounds__(32 * kStatWarps, 4)
+col_stats_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
     const float* __restrict__ sx2, const float* __restrict__ e,
-    const float* __restrict__ q, const float* __restrict__ tq, int F,
+    const float* __restrict__ q, const float* __restrict__ tq, int F, int GT,
     float* __restrict__ ptab, int CH, float* __restrict__ mu_t,
     float* __restrict__ sig_t, const float* __restrict__ sv,
     const float* __restrict__ alpha_p, float* __restrict__ mu_w,
     float* __restrict__ sig_w, const float* __restrict__ sigma_w,
     int* __restrict__ nans) {
-  __shared__ float s_vm[kStatRows][32];
-  __shared__ float s_vs[kStatRows][32];
-  __shared__ float s_sxe[kStatRows];
+  constexpr int kNV = 2 * V;  // vm, vs of a chunk
+  constexpr int kB = stat_batch<V>();
+  extern __shared__ float smem[];
+  const int nthreads = blockDim.x;
+  const int SW = 32 / GT;                 // slots a warp
+  const int TS = (nthreads / 32) * SW;    // slots a block
+  const int NU = GT * kNV;                // values a slot sums
+  const int T = min(L, kStatTile);
+  // [T] row ids, [T] x of the tile; [TS NU] the slots' sums; [nthreads]
+  // the tree's partials; [32] the warps' sum x e
+  int* s_r = reinterpret_cast<int*>(smem);
+  float* s_x = smem + T;
+  float* red = smem + 2 * T;
+  float* part = red + TS * NU;
+  float* s_sxe = part + nthreads;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int sw = lane / GT;
+  const int j = lane - sw * GT;
+  const bool on = sw < SW;
+  const int lead = sw * GT;  // the slot's first lane
+  const int slot = warp * SW + sw;
   const int c = blockIdx.x;
-  const int fx = threadIdx.x;
-  const int ly = threadIdx.y;
-  const int f = blockIdx.y * 32 + fx;
-  const bool active = f < F;
+  const int f0 = (blockIdx.y * GT + j) * V;
+  const bool active = on && f0 < F;  // F % V == 0: a chunk is in or out
   const int64_t col = cols[c];
+  const int g = group[c];
   float* prow = ptab + col * CH;
-  float mu_c = 0.f, sig_c = 0.f;
-  if (active) {
-    mu_c = prow[f];
-    sig_c = prow[F + f];
+  float mu_c[V], sig_c[V], vm[V], vs[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    mu_c[k] = active ? prow[f0 + k] : 0.f;
+    sig_c[k] = active ? prow[F + f0 + k] : 0.f;
+    vm[k] = vs[k] = 0.f;
   }
   const int* crow = rows + static_cast<int64_t>(c) * L;
   const float* cx = x + static_cast<int64_t>(c) * L;
-  float vm = 0.f, vs = 0.f, sxe = 0.f;
-  for (int l = ly; l < L; l += kStatRows) {
-    const int64_t r = crow[l];
-    const float xv = cx[l];
-    const float ev = e[r];
-    sxe += xv * ev;
-    if (active) {
-      const float h = q[r * F + f] - xv * mu_c;
-      const float h1 = tq[r * F + f] - xv * xv * sig_c;
-      vm += xv * h * (ev + xv * mu_c * h);
-      vs += xv * xv * (h * h + h1);
+  float sxe = 0.f;
+  for (int t0 = 0; t0 < L; t0 += T) {
+    const int n = min(T, L - t0);
+    for (int i = tid; i < n; i += nthreads) {
+      s_r[i] = crow[t0 + i];
+      s_x[i] = cx[t0 + i];
+    }
+    __syncthreads();
+    for (int l0 = 0; l0 < n; l0 += kB * TS) {
+      bool ok[kB];
+      float ev[kB], qv[kB][V], tqv[kB][V];
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        const int i = l0 + b * TS + slot;
+        ok[b] = on && i < n;
+        const int rb = ok[b] ? s_r[i] : 0;
+        ev[b] = ok[b] && j == 0 ? e[rb] : 0.f;
+        if (ok[b] && active) {
+          const int64_t o = static_cast<int64_t>(rb) * F + f0;
+          load_vec<V, V>(q + o, qv[b]);
+          load_vec<V, V>(tq + o, tqv[b]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        const float eb = __shfl_sync(svbfm::kFullMask, ev[b], lead);
+        if (!ok[b]) continue;
+        const float xb = s_x[l0 + b * TS + slot];
+        if (j == 0) sxe += xb * eb;
+        if (active) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const float h = qv[b][k] - xb * mu_c[k];
+            const float h1 = tqv[b][k] - xb * xb * sig_c[k];
+            vm[k] += xb * h * (eb + xb * mu_c[k] * h);
+            vs[k] += xb * xb * (h * h + h1);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites the staging
+  }
+
+  // the update's operands, loaded under the reduction's barriers
+  const bool updates = warp == 0 && sw == 0 && active;
+  const bool rider = mu_w != nullptr && blockIdx.y == 0 && tid == 0;
+  float svv[V];
+  float alpha = 0.f, wmu_c = 0.f, wsig_c = 0.f, sxx = 0.f, wprior = 0.f;
+  if (updates) {
+    alpha = *alpha_p;
+#pragma unroll
+    for (int k = 0; k < V; ++k) svv[k] = sv[g * F + f0 + k];
+  }
+  if (rider) {
+    wmu_c = mu_w[col];
+    wsig_c = sig_w[col];
+    sxx = sx2[c];
+    wprior = sigma_w[g];
+  }
+  // sums over the slots: value u = j kNV + k of slot s sits at red[s NU + u]
+  if (on) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      red[slot * NU + j * kNV + k] = vm[k];
+      red[slot * NU + j * kNV + V + k] = vs[k];
     }
   }
-  s_vm[ly][fx] = vm;
-  s_vs[ly][fx] = vs;
-  if (fx == 0) s_sxe[ly] = sxe;
+  sxe = svbfm::warp_sum(sxe);
+  if (lane == 0) s_sxe[warp] = sxe;
   __syncthreads();
-  if (ly != 0) return;  // no barrier follows
-  vm = 0.f;
-  vs = 0.f;
-  for (int j = 0; j < kStatRows; ++j) {
-    vm += s_vm[j][fx];
-    vs += s_vs[j][fx];
+  const int nst = nthreads / NU;  // stripes of slots
+  if (tid < nst * NU) {
+    const int u = tid % NU;
+    const int st = tid / NU;
+    float acc = 0.f;
+    for (int sl = st; sl < TS; sl += nst) acc += red[sl * NU + u];
+    part[st * NU + u] = acc;
   }
-  const float alpha = *alpha_p;
-  const int g = group[c];
-  if (active) {
-    // vb.py:449-469: sigma' candidate -> count -> keep-finite,
-    // mu' = sigma'_kept alpha vm -> count -> keep-finite
-    const float sig_cand = 1.f / (sv[g * F + f] + alpha * vs);
-    int bad = isfinite(sig_cand) ? 0 : 1;
-    const float sig_new = isfinite(sig_cand) ? sig_cand : sig_c;
-    const float mu_cand = sig_new * alpha * vm;
-    bad += isfinite(mu_cand) ? 0 : 1;
-    const float mu_new = isfinite(mu_cand) ? mu_cand : mu_c;
-    mu_t[col * F + f] = mu_new;
-    sig_t[col * F + f] = sig_new;
-    prow[2 * F + f] = mu_new - mu_c;
-    prow[3 * F + f] = sig_new - sig_c;
-    prow[4 * F + f] = mu_new * mu_new - mu_c * mu_c;
+  __syncthreads();
+  if (updates) {
+    int bad = 0;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int u = j * kNV + k;
+      float vmt = 0.f, vst = 0.f;
+      for (int st = 0; st < nst; ++st) {
+        vmt += part[st * NU + u];
+        vst += part[st * NU + u + V];
+      }
+      // vb.py:449-469: sigma' candidate -> count -> keep-finite,
+      // mu' = sigma'_kept alpha vm -> count -> keep-finite
+      const int f = f0 + k;
+      const float sig_cand = 1.f / (svv[k] + alpha * vst);
+      bad += isfinite(sig_cand) ? 0 : 1;
+      const float sig_new = isfinite(sig_cand) ? sig_cand : sig_c[k];
+      const float mu_cand = sig_new * alpha * vmt;
+      bad += isfinite(mu_cand) ? 0 : 1;
+      const float mu_new = isfinite(mu_cand) ? mu_cand : mu_c[k];
+      mu_t[col * F + f] = mu_new;
+      sig_t[col * F + f] = sig_new;
+      prow[2 * F + f] = mu_new - mu_c[k];
+      prow[3 * F + f] = sig_new - sig_c[k];
+      prow[4 * F + f] = mu_new * mu_new - mu_c[k] * mu_c[k];
+    }
     if (bad) atomicAdd(&nans[0], bad);
   }
-  if (mu_w != nullptr && blockIdx.y == 0 && fx == 0) {
+  if (rider) {
     // merged linear-term update (vb.py:471-487): the mu candidate uses the
     // kept sigma, the nan count the raw candidates; wdmu = old - new
     float sxe_t = 0.f;
-    for (int j = 0; j < kStatRows; ++j) sxe_t += s_sxe[j];
-    const float wmu_c = mu_w[col];
-    const float wsig_c = sig_w[col];
-    const float sxx = sx2[c];
-    const float wsig_cand = 1.f / (sigma_w[g] + alpha * sxx);
+    for (int w = 0; w < nthreads / 32; ++w) sxe_t += s_sxe[w];
+    const float wsig_cand = 1.f / (wprior + alpha * sxx);
     const float wsig_new = isfinite(wsig_cand) ? wsig_cand : wsig_c;
     const float wmu_cand = wsig_new * alpha * (sxe_t + wmu_c * sxx);
     const int bad = (isfinite(wsig_cand) ? 0 : 1) + (isfinite(wmu_cand) ? 0 : 1);
@@ -164,22 +326,48 @@ __global__ void col_stats_kernel(
   }
 }
 
+template <int V>
+int launch_col_stats(int C, int L, int F, int G, const int* rows,
+                     const float* x, const int* cols, const int* group,
+                     const float* sx2, const float* e, const float* q,
+                     const float* tq, float* ptab, int CH, float* mu_t,
+                     float* sig_t, const float* sv, const float* alpha,
+                     float* mu_w, float* sig_w, const float* sigma_w,
+                     int* nans, cudaStream_t stream) {
+  const int ny = ceil_div(G, kStatChunks);
+  const int GT = ceil_div(G, ny);
+  const int SW = 32 / GT;
+  // enough warps for one round of entries, at most kStatWarps; at least a
+  // thread for each value a slot sums (the tree)
+  const int least = ceil_div(GT * 2 * V, 32);
+  int warps = ceil_div(L, stat_batch<V>() * SW);
+  warps = warps < least ? least : warps > kStatWarps ? kStatWarps : warps;
+  const int threads = 32 * warps;
+  const int T = L < kStatTile ? L : kStatTile;
+  const size_t smem =
+      sizeof(float) * (2 * T + warps * SW * GT * 2 * V + threads + 32);
+  const dim3 grid(static_cast<unsigned>(C), static_cast<unsigned>(ny));
+  col_stats_kernel<V><<<grid, threads, smem, stream>>>(
+      rows, x, L, cols, group, sx2, e, q, tq, F, GT, ptab, CH, mu_t, sig_t,
+      sv, alpha, mu_w, sig_w, sigma_w, nans);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- K4: per-bin row-cache patch ------------------------------------------
-// kLanes threads per row, lanes over factors: a warp (32) at F >= 2; one
-// thread (1) at F = 1 (exact-mode VB, the online-VB chunks) and at F = 0,
-// the w patch, where a warp would idle 31 lanes and pay two 5-step shuffle
-// sums a position for one product.  The launch picks kLanes by F.  kSeq
-// (batch VB): positions are walked in order
-// p = 0..P-1 and q/tq/tz change between positions (vb.py:523-549).  !kSeq
-// (online VB, vb_online.py:561-580): every position reads the caches from
-// before the patch and the cache increments are applied after the last
-// position.  The two agree wherever a row has at most one entry in the bin
-// (conflict-free bins).  Template parameters and not runtime flags, so the
-// batch-VB loop compiles as it did alone.  Each row owns its cache slots,
-// so the in-place update has no races.
+// kSeq (batch VB): positions are walked in order p = 0..P-1 and q/tq/tz
+// change between positions (vb.py:523-549).  !kSeq (online VB,
+// vb_online.py:561-580): every position reads the caches from before the
+// patch.  The two agree
+// wherever a row has at most one entry in the bin (conflict-free bins).
+// Template parameters and not runtime flags, so the batch-VB loop compiles
+// as it would alone.  Each row owns its cache slots, so the in-place
+// update has no races.
 constexpr int kPatchThreads = 256;
 
-template <bool kSeq, int kLanes>
+// A thread a row: F = 1 (exact-mode VB, the online-VB chunks) and F = 0,
+// the w patch, where lanes over factors would idle.  Only the w patch of
+// MCMC has no t cache (t == nullptr); at F = 1 the wrapper always passes t.
+template <bool kSeq>
 __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
                                   int F, int merge_w,
                                   const int* __restrict__ ids,
@@ -189,14 +377,10 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
                                   float* __restrict__ tz,
                                   float* __restrict__ e,
                                   float* __restrict__ t) {
-  const int lane = threadIdx.x % kLanes;
-  const int64_t n = static_cast<int64_t>(blockIdx.x) *
-                        (kPatchThreads / kLanes) + threadIdx.x / kLanes;
-  if (n >= N) return;  // a row's lanes leave together
-  // only the w patch of MCMC has no t cache (t == nullptr); K4 at F >= 1
-  // always patches t: its wrapper requires one, so at kLanes == 1 the test
-  // below is true for F = 1, and at kLanes == 32 it is known at compile time
-  const bool has_t = kLanes == 32 || t != nullptr;
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * kPatchThreads +
+                    threadIdx.x;
+  if (n >= N) return;
+  const bool has_t = t != nullptr;
   float ev = e[n];
   float tv = has_t ? t[n] : 0.f;
   for (int p = 0; p < P; ++p) {
@@ -204,7 +388,7 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
     const float xv = vals[n * P + p];
     const float x2 = xv * xv;
     float esum = 0.f, tsum = 0.f;
-    for (int f = lane; f < F; f += kLanes) {
+    for (int f = 0; f < F; ++f) {
       const float mu_e = g[f];
       const float sig_e = g[F + f];
       const float dmu = g[2 * F + f];
@@ -223,15 +407,15 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
       esum += he * dmu;
       tsum += (h1e + h2e) * dsig + h1e * dmu2;
     }
-    ev = ev - svbfm::row_sum<kLanes>(esum);
-    tv = tv + svbfm::row_sum<kLanes>(tsum);
+    ev = ev - esum;
+    tv = tv + tsum;
     if (merge_w) {
       ev = ev + xv * g[5 * F];
       tv = tv + xv * xv * g[5 * F + 1];
     }
   }
   if (!kSeq) {
-    for (int f = lane; f < F; f += kLanes) {
+    for (int f = 0; f < F; ++f) {
       const int64_t o = n * F + f;
       float dq = 0.f, dtq = 0.f, dtz = 0.f;
       for (int p = 0; p < P; ++p) {
@@ -247,10 +431,150 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int CH,
       tz[o] += dtz;
     }
   }
-  if (lane == 0) {
-    e[n] = ev;
-    if (has_t) t[n] = tv;
+  e[n] = ev;
+  if (has_t) t[n] = tv;
+}
+
+// F >= 2: TPR threads a row, thread j of a row owning the V-factor chunks
+// j, j + TPR, ... (at F = 20: 5 threads of 4 factors, 51 rows a block, 255
+// of 256 threads busy).  Consecutive threads hold consecutive chunks of
+// consecutive rows, so the cache reads and writes are 16-byte loads that
+// cover a contiguous run of the [N, F] cache; the ptab row of each position
+// is gathered in W-float pieces (W = 4 where CH % 4 == 0, else 2: with the
+// w rider CH = 5F + 2), the next position's piece loaded before this one's
+// arithmetic.  A chunk's caches stay in registers across the positions (so
+// kSeq's order costs nothing); the chunk sums of e and t meet in shared
+// memory and the row's first thread adds them in chunk order.
+template <bool kSeq, int V, int W>
+__global__ void __launch_bounds__(kPatchThreads)
+patch_rows_wide_kernel(const float* __restrict__ ptab, int CH, int F,
+                       int merge_w, const int* __restrict__ ids,
+                       const float* __restrict__ vals, int64_t N, int P,
+                       int TPR, float* __restrict__ q, float* __restrict__ tq,
+                       float* __restrict__ tz, float* __restrict__ e,
+                       float* __restrict__ t) {
+  __shared__ float s_es[kPatchThreads];
+  __shared__ float s_ts[kPatchThreads];
+  const int G = F / V;
+  const int rr = threadIdx.x / TPR;
+  const int j = threadIdx.x - rr * TPR;
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * (blockDim.x / TPR) + rr;
+  const bool valid = n < N;
+  float es = 0.f, ts = 0.f;
+  if (valid) {
+    const int* nid = ids + n * P;
+    const float* nx = vals + n * P;
+    for (int ch = j; ch < G; ch += TPR) {
+      const int f0 = ch * V;
+      const int64_t o = n * F + f0;
+      float qv[V], tqv[V], tzv[V], q0[V], tq0[V], tz0[V];
+      load_vec<V, V>(q + o, qv);
+      load_vec<V, V>(tq + o, tqv);
+      load_vec<V, V>(tz + o, tzv);
+      if (!kSeq) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) q0[k] = qv[k], tq0[k] = tqv[k], tz0[k] = tzv[k];
+      }
+      // g[c] = channel c (mu_old, sig_old, dmu, dsig, dmu2) of this chunk
+      float g[5][V], gn[5][V];
+      float xv = nx[0];
+      {
+        const float* row = ptab + static_cast<int64_t>(nid[0]) * CH + f0;
+#pragma unroll
+        for (int c = 0; c < 5; ++c) load_vec<V, W>(row + c * F, g[c]);
+      }
+      for (int p = 0; p < P; ++p) {
+        const bool more = p + 1 < P;
+        float xn = 0.f;
+        if (more) {
+          xn = nx[p + 1];
+          const float* row = ptab + static_cast<int64_t>(nid[p + 1]) * CH + f0;
+#pragma unroll
+          for (int c = 0; c < 5; ++c) load_vec<V, W>(row + c * F, gn[c]);
+        }
+        const float x2 = xv * xv;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float qc = kSeq ? qv[k] : q0[k];
+          const float tqc = kSeq ? tqv[k] : tq0[k];
+          const float tzc = kSeq ? tzv[k] : tz0[k];
+          const float mu_e = g[0][k];
+          const float he = xv * (qc - xv * mu_e);
+          const float h1e = x2 * (tqc - x2 * g[1][k]);
+          const float h2e = x2 * (tzc - x2 * mu_e * mu_e);
+          qv[k] += xv * g[2][k];
+          tqv[k] += x2 * g[3][k];
+          tzv[k] += x2 * g[4][k];
+          es += he * g[2][k];
+          ts += (h1e + h2e) * g[3][k] + h1e * g[4][k];
+        }
+        if (more) {
+          xv = xn;
+#pragma unroll
+          for (int c = 0; c < 5; ++c)
+#pragma unroll
+            for (int k = 0; k < V; ++k) g[c][k] = gn[c][k];
+        }
+      }
+      store_vec<V>(q + o, qv);
+      store_vec<V>(tq + o, tqv);
+      store_vec<V>(tz + o, tzv);
+    }
   }
+  s_es[threadIdx.x] = es;
+  s_ts[threadIdx.x] = ts;
+  __syncthreads();
+  if (valid && j == 0) {
+    float esum = 0.f, tsum = 0.f;
+    for (int k = 0; k < TPR; ++k) {
+      esum += s_es[rr * TPR + k];
+      tsum += s_ts[rr * TPR + k];
+    }
+    float ev = e[n] - esum;
+    float tv = t[n] + tsum;
+    if (merge_w) {
+      for (int p = 0; p < P; ++p) {
+        const float* g = ptab + static_cast<int64_t>(ids[n * P + p]) * CH;
+        const float xv = vals[n * P + p];
+        ev = ev + xv * g[5 * F];
+        tv = tv + xv * xv * g[5 * F + 1];
+      }
+    }
+    e[n] = ev;
+    t[n] = tv;
+  }
+}
+
+template <bool kSeq, int V, int W>
+void launch_patch_wide(unsigned blocks, int threads, int TPR,
+                       const float* ptab, int CH, int F, int merge_w,
+                       const int* ids, const float* vals, int64_t N, int P,
+                       float* q, float* tq, float* tz, float* e, float* t,
+                       cudaStream_t stream) {
+  patch_rows_wide_kernel<kSeq, V, W><<<blocks, threads, 0, stream>>>(
+      ptab, CH, F, merge_w, ids, vals, N, P, TPR, q, tq, tz, e, t);
+}
+
+template <bool kSeq>
+void patch_wide(const float* ptab, int CH, int F, int merge_w,
+                const int* ids, const float* vals, int64_t N, int P,
+                float* q, float* tq, float* tz, float* e, float* t,
+                cudaStream_t stream) {
+  int V = chunk_width(F, q, tq, tz);
+  int W = V;
+  while (W > 1 && (CH % W != 0 || !aligned(ptab, W))) W /= 2;
+  if (W == 1) V = 1;  // chunks of 4 or 2 read in single floats: not built
+  const int G = F / V;
+  const int TPR = ceil_div(G, ceil_div(G, 32));
+  const int rows = kPatchThreads / TPR;
+  const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
+  const int threads = rows * TPR;
+  auto go = V == 4 ? (W == 4 ? &launch_patch_wide<kSeq, 4, 4>
+                             : &launch_patch_wide<kSeq, 4, 2>)
+          : V == 2 ? &launch_patch_wide<kSeq, 2, 2>
+                   : &launch_patch_wide<kSeq, 1, 1>;
+  go(blocks, threads, TPR, ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz,
+     e, t, stream);
 }
 
 }  // namespace
@@ -291,18 +615,17 @@ SVBFM_EXPORT int svbfm_vb_col_stats_update(
     const float* tq, int F, float* ptab, int CH, float* mu_t, float* sig_t,
     const float* sv, const float* alpha, float* mu_w, float* sig_w,
     const float* sigma_w, int* nans, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(C), static_cast<unsigned>((F + 31) / 32));
-  const dim3 block(32, kStatRows);
-  col_stats_kernel<<<grid, block, 0, stream>>>(
-      rows, x, L, cols, group, sx2, e, q, tq, F, ptab, CH, mu_t, sig_t, sv,
-      alpha, mu_w, sig_w, sigma_w, nans);
-  return static_cast<int>(cudaGetLastError());
+  const int V = chunk_width(F, q, tq);
+  auto go = V == 4 ? &launch_col_stats<4>
+          : V == 2 ? &launch_col_stats<2> : &launch_col_stats<1>;
+  return go(C, L, F, F / V, rows, x, cols, group, sx2, e, q, tq, ptab, CH,
+            mu_t, sig_t, sv, alpha, mu_w, sig_w, sigma_w, nans, stream);
 }
 
 // Patch q/tq/tz [N, F] and e/t [N] in place from ptab [D, CH]; seq
 // selects the batch-VB (1) or online-VB (0) position order; a thread per
-// row at F = 1, a warp per row at F >= 2.  The w patch (F = 0) has its own
-// launch below, a thread per row.
+// row at F = 1, chunks of a row over threads at F >= 2.  The w patch
+// (F = 0) has its own launch below, a thread per row.
 SVBFM_EXPORT int svbfm_vb_patch_rows(const float* ptab, int CH, int F,
                                      int merge_w, int seq, const int* ids,
                                      const float* vals, int64_t N, int P,
@@ -312,22 +635,20 @@ SVBFM_EXPORT int svbfm_vb_patch_rows(const float* ptab, int CH, int F,
     const unsigned blocks =
         static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
     if (seq) {
-      patch_rows_kernel<true, 1><<<blocks, kPatchThreads, 0, stream>>>(
+      patch_rows_kernel<true><<<blocks, kPatchThreads, 0, stream>>>(
           ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
     } else {
-      patch_rows_kernel<false, 1><<<blocks, kPatchThreads, 0, stream>>>(
+      patch_rows_kernel<false><<<blocks, kPatchThreads, 0, stream>>>(
           ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const int64_t rows = kPatchThreads / 32;
-  const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
   if (seq) {
-    patch_rows_kernel<true, 32><<<blocks, kPatchThreads, 0, stream>>>(
-        ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
+    patch_wide<true>(ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t,
+                     stream);
   } else {
-    patch_rows_kernel<false, 32><<<blocks, kPatchThreads, 0, stream>>>(
-        ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t);
+    patch_wide<false>(ptab, CH, F, merge_w, ids, vals, N, P, q, tq, tz, e, t,
+                      stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -342,7 +663,7 @@ SVBFM_EXPORT int svbfm_w_patch_rows(const float* dtab, const int* ids,
                                     float* e, float* t, cudaStream_t stream) {
   const unsigned blocks =
       static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
-  patch_rows_kernel<true, 1><<<blocks, kPatchThreads, 0, stream>>>(
+  patch_rows_kernel<true><<<blocks, kPatchThreads, 0, stream>>>(
       dtab, 2, 0, 1, ids, vals, N, P, nullptr, nullptr, nullptr, e, t);
   return static_cast<int>(cudaGetLastError());
 }

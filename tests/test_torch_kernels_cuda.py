@@ -62,21 +62,24 @@ def test_new_kernels_match_twins_with_nan_column(cuda, kernel, which):
                 bad, op[-1] if kernel == "ovb_col_stats_update" else op[3])
 
 
-def _small(**cfg_kw):
+def _small(K=5, **cfg_kw):
     coo = make_movielens_like(num_users=60, num_items=40, num_ratings=5000,
                               rank=2, seed=1)
     tr, te = train_test_split(coo, 0.2, seed=2)
     D = coo.num_features
     meta = DataMetaInfo.from_field_offsets(D, [0, 60])
-    cfg = FMConfig(num_attributes=D, num_factor=5, num_groups=2, seed=3,
+    cfg = FMConfig(num_attributes=D, num_factor=K, num_groups=2, seed=3,
                    min_target=float(tr.target.min()),
                    max_target=float(tr.target.max()), **cfg_kw)
     return tr, te, D, meta, cfg
 
 
-@pytest.mark.parametrize("factor_block", [0, 1, 2])
-def test_learner_on_gpu_matches_cpu(cuda, factor_block):
-    tr, te, D, meta, cfg = _small(factor_block=factor_block)
+@pytest.mark.parametrize("factor_block,K", [(0, 5), (1, 5), (2, 5), (0, 20),
+                                            (1, 20)])
+def test_learner_on_gpu_matches_cpu(cuda, factor_block, K):
+    """Batch VB, 3 sweeps from one init on the card and on the CPU: fast
+    mode (factor_block 0: K3 and K4 at F = K) and exact mode (F = 1, 2)."""
+    tr, te, D, meta, cfg = _small(K=K, factor_block=factor_block)
     params = init_vb_params(torch.Generator().manual_seed(3), cfg, "cpu")
     hists, ends = [], []
     for dev in (cuda, "cpu"):
@@ -476,11 +479,30 @@ def test_patch_rows_f1_matches_twin(cuda, sequential, N, P, merge_w):
     ragged block (N not a multiple of 256), one and three positions with
     padding entries, the w channels merged or not, a NaN delta at one
     attribute."""
+    _patch_case(cuda, 1, N, P, sequential, merge_w)
+
+
+@pytest.mark.parametrize("merge_w", [False, True])
+@pytest.mark.parametrize("sequential", [True, False])
+@pytest.mark.parametrize("N,P", [(1, 1), (1, 3), (257, 1), (257, 3),
+                                 (1000, 2)])
+@pytest.mark.parametrize("F", [2, 3, 5, 20, 33, 64])
+def test_patch_rows_wide_matches_twin(cuda, F, N, P, sequential, merge_w):
+    """K4 at F >= 2 (a row's factor chunks over threads): chunks of 4
+    floats (F = 20, 64; ptab read 2 floats wide with the w channels, whose
+    CH = 5F + 2), of 2 (F = 2) and of 1 (F = 3, 5, 33: 33 over two rounds
+    of 17 threads); rows that straddle warps and blocks; the same padding
+    entries and NaN delta as the F = 1 test."""
+    _patch_case(cuda, F, N, P, sequential, merge_w)
+
+
+def _patch_case(cuda, F, N, P, sequential, merge_w):
     import chip_smoke
     from svbfm_tpu_torch.kernels import vb_sweep as kv
 
-    rng = np.random.default_rng(N + 10 * P + 100 * merge_w + 1000 * sequential)
-    D, F = 30, 1
+    rng = np.random.default_rng(N + 10 * P + 100 * merge_w + 1000 * sequential
+                                + 10000 * (F - 1))
+    D = 30
     ids = rng.integers(1, D, (N, P))
     vals = rng.uniform(0.5, 1.5, (N, P))
     if P > 1:
@@ -499,14 +521,101 @@ def test_patch_rows_f1_matches_twin(cuda, sequential, N, P, merge_w):
               rng.uniform(0, 1, (N, F)), rng.normal(0, 1, N),
               rng.uniform(0, 1, N)]
     ids_t = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    before = build.launch_counts["vb_patch_rows"]
     outs = []
     for fn in (kv.vb_patch_rows, kv.vb_patch_rows_plain):
         c = [t(a) for a in caches]
         fn(t(ptab), F, merge_w, ids_t, t(vals), *c, sequential=sequential)
         outs.append(c)
     torch.cuda.synchronize()
-    chip_smoke.compare(outs[0], outs[1], f"vb_patch_rows F=1 N={N} P={P}")
+    assert build.launch_counts["vb_patch_rows"] == before + 1
+    chip_smoke.compare(outs[0], outs[1], f"vb_patch_rows F={F} N={N} P={P}")
     assert torch.isnan(outs[0][3][0]).item()
+
+
+@pytest.mark.parametrize("C,L", [(1, 1), (23, 7), (23, 33), (23, 300),
+                                 (3, 8)])
+@pytest.mark.parametrize("w_rider", [False, True])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 5, 20, 33, 64])
+def test_col_stats_matches_twin(cuda, F, w_rider, C, L):
+    """K3 with lanes over (entry, factor chunk): chunks of 4, 2 and 1
+    floats, blocks over more than one group of chunks (F = 33, 64), one
+    entry to 300, padding entries (x = 0 at the pad row) in every column;
+    past 2 columns, column 1's group has a NaN prior (sigma_v, and with the
+    rider sigma_w), so its candidates are counted and reverted.  Both NaN
+    counters match the twin's, and two launches give the same bits."""
+    nans = _col_stats_case(cuda, F, w_rider, C, L)
+    assert (nans[0] > 0) == (C > 2)
+    assert (nans[1] > 0) == (C > 2 and w_rider)
+
+
+@pytest.mark.parametrize("poison", ["pad_row", "zero_x", "pad_row_real"])
+@pytest.mark.parametrize("C,L", [(23, 7), (23, 300), (5, 1100)])
+@pytest.mark.parametrize("F", [1, 5, 20])
+def test_col_stats_padding_matches_twin(cuda, F, C, L, poison):
+    """K3 where an x = 0 entry is not plain zero: a NaN cache at the pad
+    row (pad_row) reaches every padded column's candidates, as in the
+    twin; a real x = 0 entry at a row whose e is NaN (zero_x); real x != 0
+    entries at the pad row (pad_row_real); L = 1100 stages two tiles."""
+    nans = _col_stats_case(cuda, F, True, C, L, poison)
+    assert nans[0] > 0
+
+
+def _col_stats_case(cuda, F, w_rider, C, L, poison=None):
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+
+    rng = np.random.default_rng(1000 * F + 10 * C + L + 7 * w_rider)
+    N, D, G = 400, 60, 2
+    rows = rng.integers(0, N - 1, (C, L))
+    x = rng.uniform(0.5, 1.5, (C, L))
+    cnt = rng.integers(1, L + 1, C)
+    pad = np.arange(L)[None, :] >= cnt[:, None]
+    rows[pad], x[pad] = N - 1, 0.0  # padding entries
+    cols = rng.permutation(D)[:C]
+    group = rng.integers(0, G, C)
+    CH = 5 * F + (2 if w_rider else 0)
+    ptab = np.zeros((D, CH))
+    ptab[:, :F] = rng.normal(0, 0.3, (D, F))
+    ptab[:, F:2 * F] = rng.uniform(0.01, 0.1, (D, F))
+    sv = rng.uniform(0.5, 2.0, (G, F))
+    sigma_w = np.array([1.0, 2.0])
+    if C > 2:
+        sv[group[1]] = sigma_w[group[1]] = np.nan
+    e, q = rng.normal(0, 1, N), rng.normal(0, 1, (N, F))
+    if poison == "pad_row":
+        q[N - 1, 0] = np.nan
+    elif poison == "zero_x":
+        x[0, 0] = 0.0
+        e[rows[0, 0]] = np.nan
+    elif poison == "pad_row_real":
+        rows[:, 0] = N - 1
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+
+    ins = (t(rows, np.int32), t(x), t(cols, np.int32), t(group, np.int32),
+           t((x * x).sum(1)), t(e), t(q), t(rng.uniform(0, 1, (N, F))))
+    before = build.launch_counts["vb_col_stats_update"]
+    outs = []
+    for fn in (kv.vb_col_stats_update, kv.vb_col_stats_update,
+               kv.vb_col_stats_update_plain):
+        tab = t(ptab)
+        out = [tab, tab[:, :F].contiguous(), tab[:, F:2 * F].contiguous(),
+               t(np.linspace(-0.1, 0.1, D)), t(np.full(D, 0.02)),
+               torch.zeros(2, dtype=torch.int32, device=cuda)]
+        w = (out[3], out[4], t(sigma_w)) if w_rider else None
+        fn(*ins, out[0], out[1], out[2], t(sv),
+           torch.tensor(1.3, device=cuda), w, out[5])
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert build.launch_counts["vb_col_stats_update"] == before + 2
+    what = f"vb_col_stats_update F={F} [{C},{L}] w={w_rider} {poison}"
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    chip_smoke.compare(outs[0], outs[2], what)
+    assert torch.equal(outs[0][5], outs[2][5]), what
+    return outs[0][5].tolist()
 
 
 @pytest.mark.parametrize("factor_block", [0, 1])

@@ -115,10 +115,13 @@ def test_one_sweep_matches_jax(variant):
     np.testing.assert_array_equal(ts.e.numpy(), np.asarray(js.e))
 
 
-def test_block_update_matches_jax_kernel_chain():
+@pytest.mark.parametrize("K", [1, 4, 20, 33])
+def test_block_update_matches_jax_kernel_chain(K):
     """vb_v_block_update alone (K2-K4 twins) against the JAX function of
-    the same name, run under shard_map on a one-device mesh."""
-    jl, tl = _pair(num_rows=300, num_users=14, num_items=11, K=4, seed=4)
+    the same name, run under shard_map on a one-device mesh, at the widths
+    K3's and K4's lane layouts care about: one factor, chunks of 4 (4, 20)
+    and an odd width past 32 (33)."""
+    jl, tl = _pair(num_rows=300, num_users=14, num_items=11, K=K, seed=4)
     js = jax.device_get(jl.init_state())
     ts = state_from_jax(js, "cpu")
     sv_t = np.asarray(js.sigma_v)[np.asarray(jl.meta.attr_group)]  # [D, K]
