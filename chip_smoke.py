@@ -365,11 +365,32 @@ def _bad(device):
 # ---------------------------------------------------------------------------
 
 def cost(nbytes: float, flops: float, library=None,
-         plain_graph: bool = True) -> dict:
+         plain_graph: bool = True, note: str = "") -> dict:
     """``plain_graph=False``: the twin synchronises (exact_block_draws tests
-    its solve on the host), so it is timed host-paced."""
+    its solve on the host), so it is timed host-paced; ``note``: what the
+    timed line also prints (X10b's form and split)."""
     return dict(bytes=float(nbytes), flops=float(flops), library=library,
-                plain_graph=plain_graph)
+                plain_graph=plain_graph, note=note)
+
+
+def draw_plan_of(F: int, b):
+    """X10b's plan for relation bucket ``b`` on its card (None on the
+    CPU)."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    if b.rows.device.type != "cuda":
+        return None
+    C, L = b.rows.shape
+    sms = torch.cuda.get_device_properties(b.rows.device).multi_processor_count
+    return ks.draw_plan(F, C, L, b.real.lo, b.real.hi, sms)
+
+
+def draw_note(F: int, b) -> str:
+    """X10b's form, k and splits for relation bucket ``b``."""
+    p = draw_plan_of(F, b)
+    if p is None:
+        return ""
+    return f"form={p.form} k={p.k} S={p.S} real={b.real.lo}-{b.real.hi}"
 
 
 def bound(c: dict):
@@ -791,19 +812,24 @@ def bs_cases(add, r: dict) -> None:
         for b_i, b in w["picks"]:
             C, L = b.rows.shape
             n = int(torch.count_nonzero(b.x))
+            # the slots whose x and row ids X10b's form reads: the narrow
+            # forms a column's L slots, the block forms its real entries
+            slots = (C * L if ks.draw_form(F, L) in ("group", "warp")
+                     else int(b.real.n.sum()))
             for z in (w["z"], None):
                 def x10b(variant, inp, b=b, z=z, F=F, w=w):
                     ptab, vt, nans = inp
-                    if F == 0:
-                        fn = (ks.bs_rel_w_draw if variant == "kernel"
-                              else ks.bs_rel_w_draw_plain)
-                        fn(b.rows, b.x, b.cols, b.group, w["rtab"], ptab, vt,
-                           w["mu"], w["lam"], r["alpha"], z, nans)
+                    args = (b.rows, b.x, b.cols, b.group, w["rtab"])
+                    if F:
+                        args += (F,)
+                    args += (ptab, vt, w["mu"], w["lam"], r["alpha"], z,
+                             nans)
+                    if variant == "kernel":
+                        (ks.bs_rel_draw if F else ks.bs_rel_w_draw)(
+                            *args, b.real)
                     else:
-                        fn = (ks.bs_rel_draw if variant == "kernel"
-                              else ks.bs_rel_draw_plain)
-                        fn(b.rows, b.x, b.cols, b.group, w["rtab"], F, ptab,
-                           vt, w["mu"], w["lam"], r["alpha"], z, nans)
+                        (ks.bs_rel_draw_plain if F
+                         else ks.bs_rel_w_draw_plain)(*args)
                     return [ptab, vt, nans]
 
                 # per entry the relation row's ld channels; per column v,
@@ -817,10 +843,11 @@ def bs_cases(add, r: dict) -> None:
                                  torch.zeros(2, dtype=torch.int32,
                                              device=w["vt"].device)),
                     x10b,
-                    cost(C * L * 8 + n * lay["ld"] * 4
+                    cost(slots * 8 + n * lay["ld"] * 4
                          + C * Fo * (5 + (1 if z is not None else 0)) * 4,
                          n * (12 * Fo + 8 * npair) + C * Fo * Fo * 2,
-                         plain_graph=F <= 1))
+                         plain_graph=F <= 1,
+                         note=draw_note(F, b)))
 
         for b_i, ptab_b in w["patched"]:
             pos = rd.patch_pos[b_i]
@@ -1311,6 +1338,15 @@ def exp_sgd_tensors(learner, state) -> dict:
                 x_vstep=(cfg.learn_rate, cfg.regv, n), xw_buckets=big, xg=xg)
 
 
+def _rebucket(b, rows, x):
+    """Relation bucket ``b`` with other slots, its real counts recounted."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    x = x.contiguous()
+    return dataclasses.replace(b, rows=rows.contiguous(), x=x,
+                               real=ks.real_counts(x))
+
+
 def bs_tensors(learner, state, tag: str, timed: bool, widths,
                poison: bool = False) -> dict:
     """X10a-X10d inputs from a block-structure learner and a state, per
@@ -1322,8 +1358,10 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
     with the first relation, the joined scores.  ``poison`` (the ragged
     case): the last bucket's first column is moved to an extra group whose
     lambda is NaN (its draws come out 0, uncounted), the first pick's first
-    column has an Inf noise number (counted, reverted), and the one-hot
-    bucket is also drawn cut to L = 1."""
+    column has an Inf noise number (counted, reverted), the one-hot
+    bucket is also drawn cut to L = 1 and widened to L = 32 (one real
+    entry), and the longest bucket cut to its first 32 slots and with its
+    first column all padding."""
     from svbfm_tpu_torch.kernels import bs_forward as kf
     from svbfm_tpu_torch.kernels import bs_sweep as ks
     from svbfm_tpu_torch.learners.mcmc_bs import param_table
@@ -1355,10 +1393,21 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
             bad = last.group.clone()
             bad[0] = G
             b_0, first = picks[0]
+            b_w, wide = max(picks, key=lambda t: t[1].rows.shape[1])
+            blank = wide.x.clone()
+            blank[0] = 0.0
+            widen = (0, 32 - first.rows.shape[1])
+            # X10b's edge cases: one real entry in 32 slots, 32 real
+            # entries in 32 slots, a long bucket with an all-padding column
+            picks[1:1] = [
+                (b_0, _rebucket(first, torch.nn.functional.pad(first.rows,
+                                                               widen),
+                                torch.nn.functional.pad(first.x, widen))),
+                (b_w, _rebucket(wide, wide.rows[:, :32], wide.x[:, :32])),
+                (b_w, _rebucket(wide, wide.rows, blank))]
             picks[-1] = (b_l, dataclasses.replace(last, group=bad))
-            picks.append((b_0, dataclasses.replace(
-                first, rows=first.rows[:, :1].contiguous(),
-                x=first.x[:, :1].contiguous())))
+            picks.append((b_0, _rebucket(first, first.rows[:, :1],
+                                         first.x[:, :1])))
         r = dict(name=f"rel{i}", rd=rd, Dr=Dr, off=off, e=e,
                  alpha=state.alpha, stab=stab, widths=[])
         for F in widths:
@@ -2369,7 +2418,7 @@ def main() -> int:
             lib = "null" if lms is None else f"{lms:.4f}"
             print(f"    {label}: ms={ms:.4f} plain_ms={pms:.4f} "
                   f"library_ms={lib} bound_ms={bound(c)[0]:.4f} "
-                  f"({bound(c)[1]})")
+                  f"({bound(c)[1]}) {c['note']}".rstrip())
     say("kernels", t0, compared=len(report), tol=KERNEL_TOL)
 
     # ---- 3. batch VB, fast mode, on the card ---------------------------------

@@ -17,7 +17,7 @@
 //          sh2_f = sum h_f^2 wn + 2 wc_f x h_f + x^2 wcc_ff
 //          M_fg  = sum h_f h_g wn + h_f x wc_g + x h_g wc_f + x^2 wcc_fg
 //        then the exact sequential draw of the F factors through M
-//        (svbfm::sequential_draws, the code X8a runs).
+//        (svbfm::warp_sequential_draws, the code X8a runs).
 //   X10c the relation-row patch after a bin (:439-453, :798-810, :670-676),
 //        over the row-layout positions that hold the bin's columns
 //        (patch_pos): with h from the pre-patch qB of the row,
@@ -42,8 +42,8 @@
 // [R, 1 + 2F + P] (251 channels at F = 20, 4 at F = 1, 1 at F = 0); its
 // products are formed in registers and shared memory, never as JAX's
 // [CH, N] stack (1 GB at 1M rows).  X10b gathers the row's
-// 3F + 2 + P channels (about 1 KB at F = 20) per entry; X10c reads wcc
-// ([R, 210] at F = 20) for the weq matvec in every bin.
+// 3F + 2 + P channels (1,088 bytes at F = 20) per real entry; X10c reads
+// wcc ([R, 210] at F = 20) for the weq matvec in every bin.
 //
 // Design.  X10a runs a whole join plan in one launch: its buckets' blocks
 // are laid end to end, and each block finds its bucket in the plan table
@@ -59,14 +59,29 @@
 // butterfly of __shfl_xor_sync over the G lanes: no shared memory, no
 // barrier, and a fixed order of the sums, so the result is deterministic.
 // In both a padding entry (x = 0) adds nothing and gathers no e or q.
-// X10b: one block per (column, split).  The attribute-slot bins of a
-// relation hold two columns of tens of thousands of entries each, so a
-// column's entries are split over S blocks; each writes its partial sums,
-// and the last block to finish a column (a done-counter, as X9c) adds the
-// S partials in a fixed order (deterministic) and draws.  The she/sh2/M
-// sums are owner-written in shared memory as in X8a; wcc is read by the
-// owner threads straight from rtab (neighbouring threads, neighbouring
-// addresses).  X10c: one warp per relation row, lanes over factors.
+// X10b: its form is a function of F and the bucket's L
+// (kernels/bs_sweep.py:draw_form); the sums' order is fixed in each, so
+// two launches give the same bits, and each ends in the exact draw by one
+// warp (svbfm::warp_sequential_draws: corrections in registers, a shuffle
+// a factor, no barrier; 1, 2, 4 or 10 factors a lane by F).  L <= 32 (the
+// one-hot buckets, 8 slots and one real entry): at F >= 2 a warp a column,
+// or 8 lanes a column where L <= 8 and F <= 24, several columns a block;
+// the lanes hold the column's slots, stage its real entries' rows E at a
+// time in the warp's slice of shared memory with 16-byte cp.async copies,
+// add them into the sums each lane owns and draw.  At F <= 1 (the w sweep and
+// the factor-sequential path) G lanes a column, G the next power of two
+// >= L, and a butterfly.  L > 32 (the attribute-slot buckets: two columns
+// of ~36k real entries in 64k slots): a block per (column, split), each
+// column's real entries (known on the host when the plan is built, never
+// read back at launch) split S ways, so no block reads padding.  At F >= 2
+// the block stages T whole relation rows a tile (wcc included; T = 25 at
+// F = 20, so that four blocks share an SM) with cp.async, double-buffered, so the next tile's
+// gathers are in flight while the owner threads add this one from shared
+// memory; past the widths where two tiles of whole rows fit, the rows go
+// without wcc and the owners read it from L2.  At F <= 1 the threads
+// stride over the entries.  With S > 1 the last block of a column to
+// finish (a done-counter, as X9c) adds the S partials in a fixed order and
+// draws.  X10c: one warp per relation row, lanes over factors.
 #include "mcmc_draw.cuh"
 
 namespace {
@@ -235,127 +250,390 @@ __global__ void join_agg_narrow_kernel(const int64_t* __restrict__ plan,
   }
 }
 
+// ---- X10b -------------------------------------------------------------------
+
+// X10b's forms (chosen by kernels/bs_sweep.py:draw_form from F and L):
+// F <= 1: G lanes a column (L <= 32), or a block per (column, split) with
+// the threads over the split's entries; F >= 2: a warp a column (L <= 32),
+// or a block per (column, split) over staged tiles of relation rows, whole
+// (kFormTiles) or, where two tiles of whole rows do not fit the block,
+// without wcc, which the owner threads then read from L2 (kFormTilesL2).
+constexpr int kFormGroup = 0, kFormBlock = 1, kFormWarp = 2, kFormTiles = 3,
+              kFormTilesL2 = 4;
+constexpr int kDrawThreads = 256;
+constexpr int kDrawWarps = kDrawThreads / 32;
+constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
 // Sums a relation column owns: she [Fo], sh2 [Fo], then the packed M.
 __host__ __device__ inline int draw_outputs(int F) {
   const int Fo = F > 1 ? F : 1;
   return 2 * Fo + (F > 1 ? F * (F - 1) / 2 : 0);
 }
 
-// X10b: one block per (column, split).  kW: the w mode (F = 0, h = x).
-template <bool kW>
-__global__ void rel_draw_kernel(
-    const int* __restrict__ rows, const float* __restrict__ x, int L, int Ls,
-    int S, const int* __restrict__ cols, const int* __restrict__ group,
+// Block s's share [b, e) of a column's n real entries split S ways: every
+// share is at least one entry when S <= n, and the shares cover [0, n)
+// (mirrored by kernels/bs_sweep.py:split_bounds).
+__device__ __forceinline__ void split_range(int n, int S, int s, int& b,
+                                            int& e) {
+  b = static_cast<int>(static_cast<int64_t>(s) * n / S);
+  e = static_cast<int>(static_cast<int64_t>(s + 1) * n / S);
+}
+
+// cp.async: a kBytes copy from device memory to shared memory that does not
+// wait in registers; visible after cp_async_wait_all() and a barrier.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// n floats of a relation row into shared memory by `lanes` lanes of a
+// warp, vec floats a copy (4, 2 or 1: what n and the row's address allow).
+__device__ __forceinline__ void row_copy_async(float* dst, const float* src,
+                                               int n, int vec, int lane,
+                                               int lanes) {
+  if (vec == 4) {
+    for (int k = lane; k < n / 4; k += lanes)
+      cp_async<16>(dst + 4 * k, src + 4 * k);
+  } else if (vec == 2) {
+    for (int k = lane; k < n / 2; k += lanes)
+      cp_async<8>(dst + 2 * k, src + 2 * k);
+  } else {
+    for (int k = lane; k < n; k += lanes) cp_async<4>(dst + k, src + k);
+  }
+}
+
+// One entry's terms of the three kinds of sums (mcmc_bs.py:392-412), with
+// h_f = x (qB_f - x v_f) from the entry's relation row:
+__device__ __forceinline__ float she_term(float h, float xv, float we,
+                                          float weq) {
+  return h * we + xv * weq;
+}
+
+__device__ __forceinline__ float sh2_term(float h, float xv, float wn,
+                                          float wc, float wcc) {
+  return h * h * wn + 2.f * wc * xv * h + xv * xv * wcc;
+}
+
+__device__ __forceinline__ float m_term(float hf, float hg, float xv,
+                                        float wn, float wcf, float wcg,
+                                        float wcc) {
+  return hf * hg * wn + hf * xv * wcg + xv * hg * wcf + xv * xv * wcc;
+}
+
+// The pair (f, g) of the first M sum among o = first, first + step, ...
+__device__ __forceinline__ void first_pair(int first, int step, int F,
+                                           int nout, int& f, int& g) {
+  int o = first;
+  if (o < 2 * F) o += (2 * F - o + step - 1) / step * step;
+  f = 0;
+  g = 1;
+  if (o < nout) {
+    const int fg = svbfm::pair_at(o - 2 * F, F);
+    f = fg >> 16;
+    g = fg & 0xffff;
+  }
+}
+
+// Adds the entries l < nl of a staged set of relation rows (row l at
+// rowbuf + l ldr; wn at wn_s of a row; xs[l] its x, 0: skipped; wcc from
+// the staged row or, kWccL2, from rtab at row rs[l]) into the sums
+// o = first, first + step, ... < nout of acc; (f, g) the pair of the first
+// M sum.  The order of the additions is fixed: the result is the same bits
+// on every launch.
+template <bool kWccL2>
+__device__ __forceinline__ void add_rows(
+    float* acc, int first, int step, int nout, int f, int g,
+    const float* rowbuf, int ldr, int wn_s, const float* xs, const int* rs,
+    int nl, const float* vc, const RelLayout& lay,
+    const float* __restrict__ rtab) {
+  const int F = lay.F;
+  for (int o = first; o < nout; o += step) {
+    float s = 0.f;
+    if (o < 2 * F) {
+      const int fo = o < F ? o : o - F;
+      const float vf = vc[fo];
+      const int off = lay.wcc_at(fo, fo);
+      for (int l = 0; l < nl; ++l) {
+        const float xv = xs[l];
+        if (xv == 0.f) continue;
+        const float* row = rowbuf + l * ldr;
+        const float h = xv * (row[fo] - xv * vf);
+        if (o < F) {
+          s += she_term(h, xv, row[lay.we], row[lay.weq + fo]);
+        } else {
+          const float wcc =
+              kWccL2 ? rtab[static_cast<int64_t>(rs[l]) * lay.ld + off]
+                     : row[off];
+          s += sh2_term(h, xv, row[wn_s], row[lay.wc + fo], wcc);
+        }
+      }
+    } else {
+      const float vf = vc[f], vg = vc[g];
+      const int off = lay.wcc_at(f, g);
+      for (int l = 0; l < nl; ++l) {
+        const float xv = xs[l];
+        if (xv == 0.f) continue;
+        const float* row = rowbuf + l * ldr;
+        const float wcc =
+            kWccL2 ? rtab[static_cast<int64_t>(rs[l]) * lay.ld + off]
+                   : row[off];
+        s += m_term(xv * (row[f] - xv * vf), xv * (row[g] - xv * vg), xv,
+                    row[wn_s], row[lay.wc + f], row[lay.wc + g], wcc);
+      }
+      svbfm::pair_step(f, g, step, F);
+    }
+    acc[o] += s;
+  }
+}
+
+// The column's pre-bin v and priors (mu, lambda, z) into shared memory, by
+// the threads first, first + step, ...
+__device__ __forceinline__ void load_column(
+    int first, int step, int F, int64_t col, int g_c,
+    const float* __restrict__ ptab, const float* __restrict__ mu,
+    const float* __restrict__ lam, const float* __restrict__ z, int64_t Dr,
+    float* vc, float* prior) {
+  for (int f = first; f < F; f += step) {
+    vc[f] = ptab[col * 2 * F + f];
+    prior[f] = mu[g_c * F + f];
+    prior[F + f] = lam[g_c * F + f];
+    prior[2 * F + f] = z != nullptr ? z[f * Dr + col] : 0.f;
+  }
+}
+
+// Adds the warp's NaN/Inf draws to the counters.
+__device__ __forceinline__ void count_bad(int nan_c, int inf_c,
+                                          int* __restrict__ nans) {
+  nan_c = __reduce_add_sync(svbfm::kFullMask, nan_c);
+  inf_c = __reduce_add_sync(svbfm::kFullMask, inf_c);
+  if ((threadIdx.x & 31) == 0) {
+    if (nan_c) atomicAdd(&nans[0], nan_c);
+    if (inf_c) atomicAdd(&nans[1], inf_c);
+  }
+}
+
+// Floats of a column's slice in the warp form at F >= 2 with E rows a
+// round: sums, rows, v and priors, the round's x and row ids (mirrored by
+// kernels/bs_sweep.py:warp_slice).
+__host__ __device__ inline int warp_slice(int F, int E) {
+  return round4(round4(draw_outputs(F)) + E * round4(RelLayout(F).ld) +
+                4 * F + 2 * E);
+}
+
+// E, the rows a round of the warp form with G lanes a column: one at G = 8
+// (four slices a warp), else as many as 1,536 floats hold, one to four
+// (mirrored by kernels/bs_sweep.py:warp_rows).
+__host__ __device__ inline int warp_rows(int F, int G) {
+  const int n = 1536 / round4(RelLayout(F).ld);
+  return G < 32 || n < 1 ? 1 : (n > 4 ? 4 : n);
+}
+
+// X10b, F >= 2, a bucket of L <= kW slots: kW lanes a column (a warp, or
+// at kW = 8 four columns a warp), a slice of shared memory a column, no
+// block barrier.  The lanes hold the column's slots; each round stages
+// the next E real entries' relation rows (16-byte copies where the layout
+// allows), the lanes add them into the sums they own, and the group draws
+// (svbfm::group_sequential_draws).  A warp's groups run the same number
+// of rounds and steps, so that every lane takes part in each shuffle; a
+// group past the last column works on the last one and writes nothing.
+template <int kW, int kSlots>
+__global__ void __launch_bounds__(kDrawThreads, kSlots * kW <= 32 ? 4 : 1)
+    rel_draw_warp_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    int E, int vec, const int* __restrict__ cols,
+    const int* __restrict__ group, const float* __restrict__ rtab, int F,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t Dr, int* __restrict__ nans) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (kW - 1);        // the lane in its column's group
+  const int slot = threadIdx.x / kW;     // the column's slice
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kW);
+  if (c0 + (threadIdx.x & ~31) / kW >= C) return;  // the whole warp leaves
+  const bool live = c0 + slot < C;
+  const int64_t c = live ? c0 + slot : C - 1;
+  const RelLayout lay(F);
+  const int nout = draw_outputs(F);
+  const int ldr = round4(lay.ld);
+  float* acc = smem + slot * warp_slice(F, E);  // [nout]
+  float* rowbuf = acc + round4(nout);           // [E, ldr]
+  float* vc = rowbuf + E * ldr;                 // [F]
+  float* prior = vc + F;                        // [3, F]: mu, lambda, z
+  float* xs = prior + 3 * F;                    // [E]
+  int* rs = reinterpret_cast<int*>(xs + E);     // [E]
+  const int64_t col = cols[c];
+  const int g_c = group[c];
+  const float xl = gl < L ? x[c * L + gl] : 0.f;
+  const int rl = gl < L ? rows[c * L + gl] : 0;
+  const unsigned gmask = kW == 32 ? svbfm::kFullMask : (1u << kW) - 1u;
+  const unsigned real =
+      (__ballot_sync(svbfm::kFullMask, xl != 0.f) >> (lane & ~(kW - 1))) &
+      gmask;
+  const int nreal = __popc(real);
+  const int rank = __popc(real & ((1u << gl) - 1u));
+  const int rounds =
+      __reduce_max_sync(svbfm::kFullMask, (nreal + E - 1) / E);
+  // the real entries e0 .. e0 + E - 1: their x and row ids, then their rows
+  auto stage = [&](int e0) {
+    if (xl != 0.f && rank >= e0 && rank < e0 + E) {
+      xs[rank - e0] = xl;
+      rs[rank - e0] = rl;
+    }
+    __syncwarp();
+    for (int e = 0; e < min(E, nreal - e0); ++e)
+      row_copy_async(rowbuf + e * ldr,
+                     rtab + static_cast<int64_t>(rs[e]) * lay.ld, lay.ld, vec,
+                     gl, kW);
+  };
+  stage(0);  // in flight while the column's v and priors load
+  load_column(gl, kW, F, col, g_c, ptab, mu, lam, z, Dr, vc, prior);
+  for (int o = gl; o < nout; o += kW) acc[o] = 0.f;
+  int f0, g0;
+  first_pair(gl, kW, F, nout, f0, g0);
+  for (int r = 0; r < rounds; ++r) {
+    cp_async_wait_all();
+    __syncwarp();
+    add_rows<false>(acc, gl, kW, nout, f0, g0, rowbuf, ldr, lay.wn, xs, rs,
+                    max(0, min(E, nreal - r * E)), vc, lay, rtab);
+    __syncwarp();
+    if (r + 1 < rounds) stage((r + 1) * E);
+  }
+  __syncwarp();  // the sums, v and priors, for a column with no real entry
+  int nan_c = 0, inf_c = 0;
+  svbfm::group_sequential_draws<kW, kSlots>(
+      acc, F, vc, prior, *alpha_p, z != nullptr, live, v_t + col * F,
+      ptab + col * 2 * F + F, nan_c, inf_c);
+  count_bad(live ? nan_c : 0, live ? inf_c : 0, nans);
+}
+
+// Bytes of shared memory of the tiled form: two tiles of T staged rows
+// (whole, or without wcc), the sums, three slots of the tiles' x and row
+// ids, v and priors, one flag (mirrored by kernels/bs_sweep.py:tiles_smem).
+__host__ __device__ inline int tiles_smem(int F, int T, bool whole) {
+  const RelLayout lay(F);
+  const int lds = whole ? lay.ld : lay.wcc + 1;
+  return static_cast<int>(sizeof(float)) *
+         (2 * T * round4(lds) + round4(draw_outputs(F)) + 6 * T + 4 * F + 1);
+}
+
+// X10b, F >= 2, a block per (column, split) over the split's real entries
+// in tiles of T relation rows, double-buffered: while the block adds tile
+// t from shared memory, the cp.async copies of tile t + 1's rows and of
+// tile t + 2's x and row ids are in flight; one barrier a tile.  Each
+// thread owns the sums o = tid, tid + 256, ...  With S > 1 the last block
+// of the column to finish adds the S partials in a fixed order; warp 0
+// draws.  kWccL2: the rows are staged without wcc (qB | we | weq | wc,
+// then wn), and the owners read wcc from rtab.
+template <bool kWccL2, int kSlots>
+__global__ void rel_draw_tiles_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int L, int S,
+    int T, int vec, const int* __restrict__ nreal,
+    const int* __restrict__ cols, const int* __restrict__ group,
     const float* __restrict__ rtab, int F, float* __restrict__ ptab,
     float* __restrict__ v_t, const float* __restrict__ mu,
     const float* __restrict__ lam, const float* __restrict__ alpha_p,
     const float* __restrict__ z, int64_t Dr, int* __restrict__ nans,
     float* __restrict__ part, int* __restrict__ done) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
   const int c = blockIdx.x;
   const int s_i = blockIdx.y;
   const RelLayout lay(F);
-  const int Fo = max(F, 1);
   const int nout = draw_outputs(F);
-  const int ldt = kTile + 1;
-  float* acc = smem;                // [nout]: she | sh2 | M (packed)
-  float* hs = acc + nout;           // [Fo, kTile + 1]
-  float* xs = hs + Fo * ldt;        // [kTile]
-  float* ws = xs + kTile;           // [kTile] we
-  float* ns = ws + kTile;           // [kTile] wn
-  float* wqs = ns + kTile;          // [F, kTile + 1] weq
-  float* wcs = wqs + F * ldt;       // [F, kTile + 1] wc
-  int* rs = reinterpret_cast<int*>(wcs + F * ldt);  // [kTile] rho
-  float* vc = reinterpret_cast<float*>(rs + kTile);  // [Fo] pre-bin v
-  float* corr = vc + Fo;            // [Fo]
-  float* prior = corr + Fo;         // [3, Fo]: mu, lambda, z
-  float* dsh = prior + 3 * Fo;      // [1]
-  float* last = dsh + 1;            // [1]: this block adds the partials
-
+  const int lds = kWccL2 ? lay.wcc + 1 : lay.ld;  // staged floats a row
+  const int wn_s = kWccL2 ? lay.wcc : lay.wn;     // wn in a staged row
+  const int ldr = round4(lds);
+  float* rowbuf = smem;                                  // [2, T, ldr]
+  float* acc = rowbuf + 2 * T * ldr;                     // [nout]
+  float* xs = acc + round4(nout);                        // [3, T]
+  int* rs = reinterpret_cast<int*>(xs + 3 * T);          // [3, T]
+  float* vc = reinterpret_cast<float*>(rs + 3 * T);      // [F]
+  float* prior = vc + F;                                 // [3, F]
+  float* last = prior + 3 * F;                           // [1]
   const int64_t col = cols[c];
-  const int64_t ldp = 2 * Fo;
-  const int g_c = group[c];
-  for (int f = tid; f < Fo; f += nt) {
-    vc[f] = ptab[col * ldp + f];
-    corr[f] = 0.f;
-    prior[f] = mu[g_c * Fo + f];
-    prior[Fo + f] = lam[g_c * Fo + f];
-    prior[2 * Fo + f] = z != nullptr ? z[f * Dr + col] : 0.f;
-  }
-  for (int o = tid; o < nout; o += nt) acc[o] = 0.f;
-  __syncthreads();
+  int b, e;
+  split_range(nreal[c], S, s_i, b, e);
+  const int n = e - b;
+  const int ntiles = (n + T - 1) / T;
+  const int* crow = rows + static_cast<int64_t>(c) * L + b;
+  const float* cx = x + static_cast<int64_t>(c) * L + b;
+  int f0, g0;
+  first_pair(tid, nt, F, nout, f0, g0);
 
-  const int* crow = rows + static_cast<int64_t>(c) * L;
-  const float* cx = x + static_cast<int64_t>(c) * L;
-  const int l_end = min(L, (s_i + 1) * Ls);
-  for (int l0 = s_i * Ls; l0 < l_end; l0 += kTile) {
-    const int nl = min(kTile, l_end - l0);
-    for (int i = tid; i < kTile * Fo; i += nt) {
-      const int l = i / Fo;
-      const int f = i - l * Fo;
-      const float xv = l < nl ? cx[l0 + l] : 0.f;
-      const int64_t r = xv != 0.f ? crow[l0 + l] : -1;
-      const float* g = rtab + (r >= 0 ? r : 0) * lay.ld;
-      float h = 0.f;
-      if (r >= 0) h = kW ? xv : xv * (g[f] - xv * vc[f]);
-      hs[f * ldt + l] = h;
-      if (!kW) {
-        wqs[f * ldt + l] = r >= 0 ? g[lay.weq + f] : 0.f;
-        wcs[f * ldt + l] = r >= 0 ? g[lay.wc + f] : 0.f;
-      }
-      if (f == 0) {
-        xs[l] = xv;
-        ws[l] = r >= 0 ? g[lay.we] : 0.f;
-        ns[l] = r >= 0 ? g[lay.wn] : 0.f;
-        rs[l] = static_cast<int>(r);
-      }
+  // tile t's x and row ids into slot t % 3 (zeros past the split)
+  auto stage_ids = [&](int t) {
+    const int l = t * T + tid;
+    float* xd = xs + (t % 3) * T + tid;
+    int* rd = rs + (t % 3) * T + tid;
+    if (tid >= T) return;
+    if (l < n) {
+      cp_async<4>(xd, cx + l);
+      cp_async<4>(rd, crow + l);
+    } else {
+      *xd = 0.f;
+      *rd = 0;
     }
-    __syncthreads();
-    for (int o = tid; o < nout; o += nt) {
-      float s = 0.f;
-      if (o < Fo) {
-        const float* hf = hs + o * ldt;
-        if (kW) {
-          for (int l = 0; l < kTile; ++l) s += hf[l] * ws[l];
-        } else {
-          const float* qf = wqs + o * ldt;
-          for (int l = 0; l < kTile; ++l) s += hf[l] * ws[l] + xs[l] * qf[l];
-        }
-      } else if (o < 2 * Fo) {
-        const int f = o - Fo;
-        const float* hf = hs + f * ldt;
-        if (kW) {
-          for (int l = 0; l < kTile; ++l) s += hf[l] * hf[l] * ns[l];
-        } else {
-          const float* cf = wcs + f * ldt;
-          const int off = lay.wcc_at(f, f);
-          for (int l = 0; l < kTile; ++l) {
-            if (rs[l] < 0) continue;
-            const float xv = xs[l];
-            s += hf[l] * hf[l] * ns[l] + 2.f * cf[l] * xv * hf[l]
-                 + xv * xv * rtab[static_cast<int64_t>(rs[l]) * lay.ld + off];
-          }
-        }
+  };
+  // tile t's relation rows into buffer t % 2, a warp a row
+  auto stage_rows = [&](int t) {
+    const int nl = min(T, n - t * T);
+    const int* rt = rs + (t % 3) * T;
+    float* buf = rowbuf + (t & 1) * T * ldr;
+    for (int l = wid; l < nl; l += nw) {
+      const float* src = rtab + static_cast<int64_t>(rt[l]) * lay.ld;
+      float* dst = buf + l * ldr;
+      if (kWccL2) {
+        row_copy_async(dst, src, lay.wcc, 1, lane, 32);
+        if (lane == 0) cp_async<4>(dst + lay.wcc, src + lay.wn);
       } else {
-        const int fg = svbfm::pair_at(o - 2 * Fo, F);
-        const int f = fg >> 16, g = fg & 0xffff;
-        const float* hf = hs + f * ldt;
-        const float* hg = hs + g * ldt;
-        const float* cf = wcs + f * ldt;
-        const float* cg = wcs + g * ldt;
-        const int off = lay.wcc_at(f, g);
-        for (int l = 0; l < kTile; ++l) {
-          if (rs[l] < 0) continue;
-          const float xv = xs[l];
-          s += hf[l] * hg[l] * ns[l] + hf[l] * xv * cg[l] + xv * hg[l] * cf[l]
-               + xv * xv * rtab[static_cast<int64_t>(rs[l]) * lay.ld + off];
-        }
+        row_copy_async(dst, src, lay.ld, vec, lane, 32);
       }
-      acc[o] += s;
     }
-    __syncthreads();
+  };
+
+  stage_ids(0);
+  cp_async_commit();
+  load_column(tid, nt, F, col, group[c], ptab, mu, lam, z, Dr, vc, prior);
+  for (int o = tid; o < nout; o += nt) acc[o] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+  if (ntiles > 0) {
+    stage_rows(0);
+    stage_ids(1);
+    cp_async_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; tile t - 1's buffers are free
+    if (t + 1 < ntiles) {
+      stage_rows(t + 1);
+      stage_ids(t + 2);
+      cp_async_commit();
+    }
+    add_rows<kWccL2>(acc, tid, nt, nout, f0, g0, rowbuf + (t & 1) * T * ldr,
+                     ldr, wn_s, xs + (t % 3) * T, rs + (t % 3) * T,
+                     min(T, n - t * T), vc, lay, rtab);
   }
 
   if (S > 1) {  // the last block of the column adds the partials
@@ -370,20 +648,171 @@ __global__ void rel_draw_kernel(
     const float* all = part + static_cast<int64_t>(c) * S * nout;
     for (int o = tid; o < nout; o += nt) {
       float t = 0.f;
+#pragma unroll 8
       for (int k = 0; k < S; ++k) t += __ldcg(all + k * nout + o);
       acc[o] = t;
     }
     if (tid == 0) done[c] = 0;  // ready for the next launch
-    __syncthreads();
   }
+  __syncthreads();  // the sums are complete
+  if (tid >= 32) return;
   int nan_c = 0, inf_c = 0;
-  svbfm::sequential_draws(acc, Fo, vc, corr, prior, *alpha_p, z != nullptr,
-                          dsh, v_t + col * Fo, ptab + col * ldp + Fo, nan_c,
-                          inf_c);
+  svbfm::warp_sequential_draws<kSlots>(
+      acc, F, vc, prior, *alpha_p, z != nullptr, v_t + col * F,
+      ptab + col * 2 * F + F, nan_c, inf_c);
+  count_bad(nan_c, inf_c, nans);
+}
+
+// One entry's she and sh2 terms at F <= 1: kW the w sweep (rtab [R, 2] =
+// we | wn, h = x), else F = 1 (qB | we | weq | wc | wcc | wn, 8-byte
+// aligned rows); the terms of the F = 1 sums (mcmc_bs.py:781-787) and the
+// w sums (:657-660).
+template <bool kW>
+__device__ __forceinline__ void entry_sums1(const float* __restrict__ g,
+                                            float xv, float v_c, float& she,
+                                            float& sh2) {
+  const float2* g2 = reinterpret_cast<const float2*>(g);
+  if constexpr (kW) {
+    const float2 p = g2[0];
+    she += xv * p.x;
+    sh2 += xv * xv * p.y;
+  } else {
+    const float2 a = g2[0], b = g2[1], d = g2[2];
+    const float h = xv * (a.x - xv * v_c);
+    she += she_term(h, xv, a.y, b.x);
+    sh2 += sh2_term(h, xv, d.y, b.y, d.x);
+  }
+}
+
+// The one draw of a column at F <= 1: v_t [Dr] (w or v), ptab [Dr, 2].
+__device__ __forceinline__ void draw_one_column(
+    float she, float sh2, float v_c, int64_t col, int g_c,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int* __restrict__ nans) {
+  int nan_c = 0, inf_c = 0;
+  const float nv = svbfm::draw_one(she, sh2, v_c, mu[g_c], lam[g_c],
+                                   *alpha_p, z != nullptr,
+                                   z != nullptr ? z[col] : 0.f, nan_c, inf_c);
+  v_t[col] = nv;
+  ptab[2 * col + 1] = v_c - nv;
   if (nan_c) atomicAdd(&nans[0], nan_c);
   if (inf_c) atomicAdd(&nans[1], inf_c);
 }
 
+// X10b, F <= 1, a bucket of L <= 32 slots: G lanes a column (G a power of
+// two <= 32, so a column's lanes sit in one warp), many columns a block;
+// the lanes read the column's slots side by side, gather the real ones'
+// rows and end with a butterfly over the G lanes; lane 0 draws.  No lane
+// leaves before the shuffles.
+template <bool kW>
+__global__ void rel_draw_group_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    int G, const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ rtab, float* __restrict__ ptab,
+    float* __restrict__ v_t, const float* __restrict__ mu,
+    const float* __restrict__ lam, const float* __restrict__ alpha_p,
+    const float* __restrict__ z, int* __restrict__ nans) {
+  constexpr int ld = kW ? 2 : 6;
+  const int64_t c =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const int lane = threadIdx.x & (G - 1);
+  const bool live = c < C;
+  float she = 0.f, sh2 = 0.f, v_c = 0.f;
+  int64_t col = 0;
+  if (live) {
+    col = cols[c];
+    v_c = ptab[2 * col];
+    for (int l = lane; l < L; l += G) {
+      const float xv = x[c * L + l];
+      const int64_t r = rows[c * L + l];
+      if (xv == 0.f) continue;  // a padding slot gathers nothing
+      entry_sums1<kW>(rtab + r * ld, xv, v_c, she, sh2);
+    }
+  }
+  for (int o = G >> 1; o > 0; o >>= 1) {
+    she += __shfl_xor_sync(svbfm::kFullMask, she, o);
+    sh2 += __shfl_xor_sync(svbfm::kFullMask, sh2, o);
+  }
+  if (live && lane == 0)
+    draw_one_column(she, sh2, v_c, col, group[c], ptab, v_t, mu, lam,
+                    alpha_p, z, nans);
+}
+
+// X10b, F <= 1, a bucket of L > 32 slots: a block per (column, split), the
+// threads over the split's real entries, butterflies over the lanes and
+// the warps; with S > 1 the last block of the column adds the S partials,
+// its lanes over them and a butterfly (a fixed order); lane 0 draws.
+template <bool kW>
+__global__ void rel_draw_block_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int L, int S,
+    const int* __restrict__ nreal, const int* __restrict__ cols,
+    const int* __restrict__ group, const float* __restrict__ rtab,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int* __restrict__ nans, float* __restrict__ part,
+    int* __restrict__ done) {
+  constexpr int ld = kW ? 2 : 6;
+  __shared__ float red[2 * kDrawWarps];
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x;
+  const int s_i = blockIdx.y;
+  const int64_t col = cols[c];
+  const float v_c = ptab[2 * col];
+  int b, e;
+  split_range(nreal[c], S, s_i, b, e);
+  const int* crow = rows + static_cast<int64_t>(c) * L;
+  const float* cx = x + static_cast<int64_t>(c) * L;
+  float she = 0.f, sh2 = 0.f;
+  for (int l = b + tid; l < e; l += kDrawThreads) {
+    const float xv = cx[l];
+    const int64_t r = crow[l];
+    if (xv == 0.f) continue;
+    entry_sums1<kW>(rtab + r * ld, xv, v_c, she, sh2);
+  }
+  she = svbfm::warp_sum(she);
+  sh2 = svbfm::warp_sum(sh2);
+  const int lane = tid & 31;
+  if (lane == 0) {
+    red[tid >> 5] = she;
+    red[kDrawWarps + (tid >> 5)] = sh2;
+  }
+  __syncthreads();
+  if (tid >= 32) return;  // warp 0 goes on
+  she = lane < kDrawWarps ? red[lane] : 0.f;
+  sh2 = lane < kDrawWarps ? red[kDrawWarps + lane] : 0.f;
+  she = svbfm::warp_sum(she);
+  sh2 = svbfm::warp_sum(sh2);
+  if (S > 1) {  // the last block of the column adds the partials
+    float* mine = part + (static_cast<int64_t>(c) * S + s_i) * 2;
+    if (lane == 0) {
+      mine[0] = she;
+      mine[1] = sh2;
+      __threadfence();
+      last = atomicAdd(&done[c], 1) == S - 1;
+    }
+    __syncwarp();
+    if (!last) return;  // the whole warp leaves together
+    __threadfence();
+    // the lanes over the partials, then a butterfly: a fixed order
+    const float* all = part + static_cast<int64_t>(c) * S * 2;
+    she = 0.f;
+    sh2 = 0.f;
+    for (int k = lane; k < S; k += 32) {
+      she += __ldcg(all + 2 * k);
+      sh2 += __ldcg(all + 2 * k + 1);
+    }
+    she = svbfm::warp_sum(she);
+    sh2 = svbfm::warp_sum(sh2);
+    if (lane == 0) done[c] = 0;  // ready for the next launch
+  }
+  if (lane == 0)
+    draw_one_column(she, sh2, v_c, col, group[c], ptab, v_t, mu, lam,
+                    alpha_p, z, nans);
+}
 // X10c: one warp per relation row, the positions in order.
 __global__ void rel_patch_kernel(const int* __restrict__ rids,
                                  const float* __restrict__ rvals, int64_t R,
@@ -451,15 +880,25 @@ __global__ void rel_patch_kernel(const int* __restrict__ rids,
 
 }  // namespace
 
-// Mirrored by kernels/bs_sweep.py:join_agg_smem and rel_draw_smem.
+// Mirrored by kernels/bs_sweep.py:join_agg_smem.
 static size_t join_agg_smem(int F) {
   return sizeof(float) * (agg_channels(F) + 2 * kTile + F * (kTile + 1) + F);
 }
 
-static size_t rel_draw_smem(int F) {
-  const int Fo = F > 1 ? F : 1;
-  return sizeof(float) * (draw_outputs(F) + Fo * (kTile + 1) + 3 * kTile +
-                          2 * F * (kTile + 1) + kTile + 5 * Fo + 2);
+// The widest copy (4, 2 or 1 floats) that a row of ld floats at rtab allows.
+static int row_vec(int ld, const float* rtab) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(rtab);
+  if (ld % 4 == 0 && p % 16 == 0) return 4;
+  if (ld % 2 == 0 && p % 8 == 0) return 2;
+  return 1;
+}
+
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 static int block_threads(int n) { return n > 128 ? 256 : (n > 32 ? 128 : 64); }
@@ -499,34 +938,89 @@ SVBFM_EXPORT int svbfm_bs_join_agg(const int64_t* plan, int nb,
 }
 
 // X10b on one [C, L] bucket of a relation bin (rows: relation rows; cols:
-// relation attributes), F factors (F = 0: the w draw).  Each column's
-// entries are split into S runs of Ls; with S > 1, part [C, S, nout] is
-// scratch and done [C] zeroed counters (left zeroed).  Writes v_t [Dr, Fo]
-// and ptab's dv channels at the bucket's columns; nans += NaN, Inf draws.
+// relation attributes), F factors (F = 0: the w draw), in the form `form`
+// (kForm*) with k its lanes a column (kFormGroup; kFormWarp, 8 or 32) or
+// rows a tile (kFormTiles, kFormTilesL2); the block forms split each
+// column's nreal[c] real entries (its slots up to its last non-zero x) S
+// ways, and with S > 1 take part [C, S, nout] as scratch and done [C] as
+// zeroed counters (left zeroed).  Writes v_t [Dr, Fo] and ptab's dv
+// channels at the bucket's columns; nans += NaN, Inf draws.
 SVBFM_EXPORT int svbfm_bs_rel_draw(
-    const int* rows, const float* x, int C, int L, int Ls, int S,
-    const int* cols, const int* group, const float* rtab, int F, float* ptab,
-    float* v_t, const float* mu, const float* lam, const float* alpha,
-    const float* z, int64_t Dr, int* nans, float* part, int* done,
-    cudaStream_t stream) {
-  const size_t smem = rel_draw_smem(F);
-  const int threads = block_threads(draw_outputs(F));
-  const dim3 grid(static_cast<unsigned>(C), static_cast<unsigned>(S));
-  if (F == 0) {
-    rel_draw_kernel<true><<<grid, threads, smem, stream>>>(
-        rows, x, L, Ls, S, cols, group, rtab, F, ptab, v_t, mu, lam, alpha, z,
-        Dr, nans, part, done);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rel_draw_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const int* rows, const float* x, int C, int L, int form, int k, int S,
+    const int* nreal, const int* cols, const int* group, const float* rtab,
+    int F, float* ptab, float* v_t, const float* mu, const float* lam,
+    const float* alpha, const float* z, int64_t Dr, int* nans, float* part,
+    int* done, cudaStream_t stream) {
+  if (C == 0) return static_cast<int>(cudaSuccess);
+  const bool w = F == 0;
+  const dim3 split(static_cast<unsigned>(C), static_cast<unsigned>(S));
+  if (form == kFormGroup && F <= 1) {
+    const unsigned blocks = static_cast<unsigned>(
+        (static_cast<int64_t>(C) * k + kDrawThreads - 1) / kDrawThreads);
+    if (w) {
+      rel_draw_group_kernel<true><<<blocks, kDrawThreads, 0, stream>>>(
+          rows, x, C, L, k, cols, group, rtab, ptab, v_t, mu, lam, alpha, z,
+          nans);
+    } else {
+      rel_draw_group_kernel<false><<<blocks, kDrawThreads, 0, stream>>>(
+          rows, x, C, L, k, cols, group, rtab, ptab, v_t, mu, lam, alpha, z,
+          nans);
+    }
+  } else if (form == kFormBlock && F <= 1) {
+    if (w) {
+      rel_draw_block_kernel<true><<<split, kDrawThreads, 0, stream>>>(
+          rows, x, L, S, nreal, cols, group, rtab, ptab, v_t, mu, lam, alpha,
+          z, nans, part, done);
+    } else {
+      rel_draw_block_kernel<false><<<split, kDrawThreads, 0, stream>>>(
+          rows, x, L, S, nreal, cols, group, rtab, ptab, v_t, mu, lam, alpha,
+          z, nans, part, done);
+    }
+  } else if (form == kFormWarp && F >= 2 &&
+             ((k == 8 && F <= 24 && L <= 8) ||
+              (k == 32 && F <= 32 * svbfm::kDrawSlots && L <= 32))) {
+    const int E = warp_rows(F, k);
+    const size_t warp_smem = sizeof(float) * warp_slice(F, E) * (32 / k);
+    const int warps = static_cast<int>(kMaxSmem / warp_smem < kDrawWarps
+                                           ? kMaxSmem / warp_smem
+                                           : kDrawWarps);
+    if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = warps * warp_smem;
+    const int per_block = warps * (32 / k);  // columns a block
+    const unsigned blocks =
+        static_cast<unsigned>((C + per_block - 1) / per_block);
+    const int vec = row_vec(RelLayout(F).ld, rtab);
+    auto kernel = k == 8 ? rel_draw_warp_kernel<8, 3>
+                         : svbfm::with_draw_slots(F, [](auto slots) {
+                             return rel_draw_warp_kernel<
+                                 32, decltype(slots)::value>;
+                           });
+    const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, 32 * warps, smem, stream>>>(
+        rows, x, C, L, E, vec, cols, group, rtab, F, ptab, v_t, mu, lam,
+        alpha, z, Dr, nans);
+  } else if ((form == kFormTiles || form == kFormTilesL2) && F >= 2 &&
+             F <= 32 * svbfm::kDrawSlots) {
+    const bool l2 = form == kFormTilesL2;
+    const size_t smem = tiles_smem(F, k, !l2);
+    if (k < 1 || smem > static_cast<size_t>(kMaxSmem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int vec = row_vec(RelLayout(F).ld, rtab);
+    // rows without wcc are staged past F = 192 only: ten factors a lane
+    auto kernel = l2 ? rel_draw_tiles_kernel<true, svbfm::kDrawSlots>
+                     : svbfm::with_draw_slots(F, [](auto slots) {
+                         return rel_draw_tiles_kernel<
+                             false, decltype(slots)::value>;
+                       });
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<split, kDrawThreads, smem, stream>>>(
+        rows, x, L, S, k, vec, nreal, cols, group, rtab, F, ptab, v_t, mu,
+        lam, alpha, z, Dr, nans, part, done);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  rel_draw_kernel<false><<<grid, threads, smem, stream>>>(
-      rows, x, L, Ls, S, cols, group, rtab, F, ptab, v_t, mu, lam, alpha, z,
-      Dr, nans, part, done);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -547,15 +1041,17 @@ SVBFM_EXPORT int svbfm_bs_rel_patch(const int* rids, const float* rvals,
 
 // X10b's w mode (mcmc_bs.py:650-669): the F = 0 layout rtab [R, 2] =
 // (we, wn); w [Dr] and ptab [Dr, 2] = (w_old, dw) as v_t and ptab at Fo = 1;
-// mu/lam [G] the w group priors; z [Dr] or nullptr.
+// mu/lam [G] the w group priors; z [Dr] or nullptr; form kFormGroup or
+// kFormBlock.
 SVBFM_EXPORT int svbfm_bs_rel_w_draw(
-    const int* rows, const float* x, int C, int L, int Ls, int S,
-    const int* cols, const int* group, const float* rtab, float* ptab,
-    float* w, const float* mu, const float* lam, const float* alpha,
-    const float* z, int64_t Dr, int* bad, float* part, int* done,
-    cudaStream_t stream) {
-  return svbfm_bs_rel_draw(rows, x, C, L, Ls, S, cols, group, rtab, 0, ptab,
-                           w, mu, lam, alpha, z, Dr, bad, part, done, stream);
+    const int* rows, const float* x, int C, int L, int form, int k, int S,
+    const int* nreal, const int* cols, const int* group, const float* rtab,
+    float* ptab, float* w, const float* mu, const float* lam,
+    const float* alpha, const float* z, int64_t Dr, int* bad, float* part,
+    int* done, cudaStream_t stream) {
+  return svbfm_bs_rel_draw(rows, x, C, L, form, k, S, nreal, cols, group,
+                           rtab, 0, ptab, w, mu, lam, alpha, z, Dr, bad,
+                           part, done, stream);
 }
 
 // X10c's w mode (mcmc_bs.py:672-676): we -= x dw wn, dy -= x dw.

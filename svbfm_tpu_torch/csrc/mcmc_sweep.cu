@@ -44,11 +44,16 @@
 // 2F + F(F-1)/2 sums (s0, sh2, the strict upper triangle of M) and adds the
 // tile into them; the sums live in shared memory, owner-written, and a
 // thread finds the pair (f, g) of its sum in closed form, so the block needs
-// about (F^2/2 + 40 F) floats: F <= 303 fits sm_90's 227 KiB (the learner
-// picks F accordingly, learners/mcmc.py:factor_width).  The F-step draw runs
-// in shared memory (svbfm::sequential_draws, mcmc_draw.cuh, which X10b
-// shares): one thread draws factor f, a barrier, the threads apply corr_g
-// for g > f in parallel, a barrier.
+// about (F^2/2 + 39 F) floats (the learner takes F <= 303 in the exact
+// mode, learners/mcmc.py:factor_width).  After the last tile's barrier,
+// warp 0 runs the F-step draw (svbfm::warp_sequential_draws,
+// mcmc_draw.cuh, which X10b shares): the corrections in registers (kSlots
+// factors a lane: 1 up to F = 32, 2 up to 64, 4 up to 128, 10 beyond),
+// the owner lane's v_f - new_f broadcast by a shuffle, no barrier inside
+// the F steps; the other warps leave.  Its arithmetic is pinned
+// (mcmc_draw.cuh), so the draws' bits do not depend on how the kernel is
+// compiled around it.  The draw does not bound the kernel; the M sums
+// over each tile do.
 // kMode = kJacobi (-factor_jacobi, ALS only) drops M and draws every factor
 // from the pre-bin residual at once.  kMode = kGrad (X9d, the v columns of
 // svbfm_tpu/learners/exp_sgd.py:exp_sgd_sweep, :120-136) keeps only
@@ -83,8 +88,10 @@ __host__ __device__ __forceinline__ int col_outputs(int mode, int F) {
                        : 2 * F + (mode == kExact ? F * (F - 1) / 2 : 0);
 }
 
-template <int kMode>
-__global__ void col_draw_kernel(
+// One column's block (the kernels below); kSlots: the factors a lane of
+// the exact draw holds (svbfm::with_draw_slots).
+template <int kMode, int kSlots>
+__device__ __forceinline__ void col_draw_block(
     const int* __restrict__ rows, const float* __restrict__ x, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
     const float* __restrict__ e, const float* __restrict__ q, int F,
@@ -102,15 +109,12 @@ __global__ void col_draw_kernel(
   float* hs = acc + nout;        // [F, kTile + 1]
   float* es = hs + F * ld;       // [kTile]
   float* vc = es + kTile;        // [F] pre-bin v of the column
-  float* corr = vc + F;          // [F]
-  float* prior = corr + F;       // [3, F]: mu, lambda, z
-  float* dsh = prior + 3 * F;    // [1]: the last factor's v_old - v_new
+  float* prior = vc + F;         // [3, F]: mu, lambda, z
 
   const int64_t col = cols[c];
   const int64_t ldp = 2 * F;
   for (int f = tid; f < F; f += nt) {
     vc[f] = ptab[col * ldp + f];
-    corr[f] = 0.f;
     if (kMode != kGrad) {
       const int g_c = group[c];
       prior[f] = mu[g_c * F + f];
@@ -179,19 +183,54 @@ __global__ void col_draw_kernel(
     // factor-Jacobi (mcmc.py:449-459): every factor from the pre-bin e
     for (int f = tid; f < F; f += nt) {
       const float v_f = vc[f];
-      const float nv = svbfm::draw_one(acc[f], acc[F + f], v_f, prior[f],
-                                       prior[F + f], alpha, has_z,
-                                       prior[2 * F + f], nan_c, inf_c);
+      const float nv = svbfm::draw_one<true>(
+          acc[f], acc[F + f], v_f, prior[f], prior[F + f], alpha, has_z,
+          prior[2 * F + f], nan_c, inf_c);
       v_t[col * F + f] = nv;
       ptab[col * ldp + F + f] = v_f - nv;
     }
   } else {
-    svbfm::sequential_draws(acc, F, vc, corr, prior, alpha, has_z, dsh,
-                            v_t + col * F, ptab + col * ldp + F, nan_c,
-                            inf_c);
+    // the sums are complete (the tile loop ends on a barrier): warp 0
+    // draws, the other warps are done
+    if (tid >= 32) return;
+    svbfm::warp_sequential_draws<kSlots>(acc, F, vc, prior, alpha, has_z,
+                                 v_t + col * F, ptab + col * ldp + F, nan_c,
+                                 inf_c);
   }
   if (nan_c) atomicAdd(&nans[0], nan_c);
   if (inf_c) atomicAdd(&nans[1], inf_c);
+}
+
+template <int kMode, int kSlots>
+__global__ void col_draw_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int L,
+    const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q, int F,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases) {
+  col_draw_block<kMode, kSlots>(rows, x, L, cols, group, e, q, F, ptab, v_t,
+                                mu, lam, alpha_p, z, D, nans, lr, reg,
+                                n_cases);
+}
+
+// The exact mode at F <= 32 (one factor a lane in the draw), held to 42
+// registers a thread so that six blocks of 256 share an SM: at F = 20 on
+// the H100 it runs 10 % faster than with the 48 registers ptxas picks
+// unbounded (five blocks), a 4-byte spill included.  The other modes and
+// widths keep ptxas's own choice: bounds raised their registers and slowed
+// them.
+__global__ void __launch_bounds__(256, 6) col_draw_exact32_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int L,
+    const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q, int F,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases) {
+  col_draw_block<kExact, 1>(rows, x, L, cols, group, e, q, F, ptab, v_t, mu,
+                            lam, alpha_p, z, D, nans, lr, reg, n_cases);
 }
 
 // X8a at F = 1: one warp per column (v_factor_main_bins, mcmc.py:684-705);
@@ -272,11 +311,21 @@ __global__ void patch_rows_kernel(const float* __restrict__ ptab, int F,
 
 // Mirrored by kernels/mcmc_sweep.py:col_draw_smem.
 size_t col_draw_smem(int F, int mode) {
-  return sizeof(float) *
-         (col_outputs(mode, F) + F * (kTile + 1) + kTile + 5 * F + 1);
+  return sizeof(float) * (col_outputs(mode, F) + F * (kTile + 1) + kTile +
+                          4 * F);
 }
 
-template <int kMode>
+// X8a's kernel for a mode and a draw's slots.
+template <int kMode, int kSlots>
+auto col_draw_entry() {
+  if constexpr (kMode == kExact && kSlots == 1) {
+    return col_draw_exact32_kernel;
+  } else {
+    return col_draw_kernel<kMode, kSlots>;
+  }
+}
+
+template <int kMode, int kSlots>
 int launch_col_draw(const int* rows, const float* x, int C, int L,
                     const int* cols, const int* group, const float* e,
                     const float* q, int F, float* ptab, float* v_t,
@@ -285,15 +334,18 @@ int launch_col_draw(const int* rows, const float* x, int C, int L,
                     float n_cases, cudaStream_t stream) {
   const size_t smem = col_draw_smem(F, kMode);
   const int threads = col_outputs(kMode, F) > 128 ? 256 : 128;
+  if (kMode == kExact && F > 32 * kSlots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = col_draw_entry<kMode, kSlots>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        col_draw_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  col_draw_kernel<kMode><<<C, threads, smem, stream>>>(
-      rows, x, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D, nans,
-      lr, reg, n_cases);
+  kernel<<<C, threads, smem, stream>>>(rows, x, L, cols, group, e, q, F,
+                                       ptab, v_t, mu, lam, alpha, z, D, nans,
+                                       lr, reg, n_cases);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -319,12 +371,15 @@ SVBFM_EXPORT int svbfm_mcmc_col_draw(
         0.f, 0.f, 1.f);
     return static_cast<int>(cudaGetLastError());
   }
-  return exact ? launch_col_draw<kExact>(rows, x, C, L, cols, group, e, q, F,
-                                         ptab, v_t, mu, lam, alpha, z, D, nans,
-                                         0.f, 0.f, 1.f, stream)
-               : launch_col_draw<kJacobi>(rows, x, C, L, cols, group, e, q, F,
-                                          ptab, v_t, mu, lam, alpha, z, D,
-                                          nans, 0.f, 0.f, 1.f, stream);
+  if (!exact)
+    return launch_col_draw<kJacobi, 1>(rows, x, C, L, cols, group, e, q, F,
+                                       ptab, v_t, mu, lam, alpha, z, D, nans,
+                                       0.f, 0.f, 1.f, stream);
+  return svbfm::with_draw_slots(F, [&](auto slots) {
+    return launch_col_draw<kExact, decltype(slots)::value>(
+        rows, x, C, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D,
+        nans, 0.f, 0.f, 1.f, stream);
+  });
 }
 
 // X8a's gradient mode (X9d) on one [C, L] bucket: v_t [D, F] and ptab's dv
@@ -340,9 +395,10 @@ SVBFM_EXPORT int svbfm_mcmc_col_grad(
         nullptr, nullptr, nullptr, lr, reg, n_cases);
     return static_cast<int>(cudaGetLastError());
   }
-  return launch_col_draw<kGrad>(rows, x, C, L, cols, nullptr, e, q, F, ptab,
-                                v_t, nullptr, nullptr, nullptr, nullptr, 0,
-                                nullptr, lr, reg, n_cases, stream);
+  return launch_col_draw<kGrad, 1>(rows, x, C, L, cols, nullptr, e, q, F,
+                                   ptab, v_t, nullptr, nullptr, nullptr,
+                                   nullptr, 0, nullptr, lr, reg, n_cases,
+                                   stream);
 }
 
 // X8b: patch q [N, F] and e [N] in place from ptab [D, 2F] = (v_old, dv).

@@ -4,12 +4,16 @@
 ``bs_join_agg`` (X10a) sums, per relation row, the channels built from e and
 qO = q - qB0 over the data rows joined to it (all degree buckets of a join
 plan in one launch; a block a relation row at F >= 2, a group of up to 32
-lanes a relation row at F <= 1); ``bs_rel_draw`` (X10b) computes one relation bucket's she, sh2 and
-cross-factor matrix M from the relation-row table and draws the bucket's
-factors with exact sequential conditionals (F = 1: the factor-sequential
-path's draw); ``bs_rel_patch`` (X10c) patches the relation-row table and dy
-after a bin.  ``bs_rel_w_draw`` and ``bs_rel_w_patch`` are X10b's and
-X10c's w modes, the relation w sweep; X10a's w mode is ``F = 0`` (e alone).
+lanes a relation row at F <= 1); ``bs_rel_draw`` (X10b) computes one
+relation bucket's she, sh2 and cross-factor matrix M from the relation-row
+table and draws the bucket's factors with exact sequential conditionals
+(F = 1: the factor-sequential path's draw), in the form ``draw_plan``
+picks from F and the bucket's shape, its columns' real entries split over
+blocks where they are long (the counts, ``RealCounts``, ride on the
+learner's ``RelBlock``); ``bs_rel_patch`` (X10c) patches the relation-row
+table and dy after a bin.  ``bs_rel_w_draw`` and ``bs_rel_w_patch`` are
+X10b's and X10c's w modes, the relation w sweep; X10a's w mode is
+``F = 0`` (e alone).
 On CUDA tensors each op launches its hand-written kernel; on CPU tensors it
 runs the plain PyTorch twin beside it, the JAX arithmetic vectorised over
 the bucket or the relation rows (``einsum`` in float32, the draw by
@@ -29,7 +33,7 @@ relation-row patches (:439-453, :670-676, :798-810).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,8 +46,13 @@ from svbfm_tpu_torch.learners.base import keep_finite
 _I32, _F32 = torch.int32, torch.float32
 _TILE = 32  # csrc/bs_sweep.cu kTile
 _NARROW_THREADS = 256  # csrc/bs_sweep.cu kNarrowThreads
-# the least entries one block of X10b takes when a column is split
-_SPLIT_MIN = 256
+# the least real entries a block of X10b takes when a column is split
+_SPLIT_MIN = 128
+# the blocks of X10b's block forms an SM should hold at once: the loads of
+# one block's tile, its sums and a column's closing draw overlap the
+# others' (the 1M-rating slot bucket at F = 20 on an H100: tiles of 32
+# rows at two blocks an SM 0.083 ms, of 25 rows at four 0.070)
+_BLOCKS_PER_SM = 4
 
 
 def rel_layout(F: int) -> dict:
@@ -79,26 +88,158 @@ def draw_outputs(F: int) -> int:
     return 2 * Fo + (F * (F - 1) // 2 if F > 1 else 0)
 
 
-def rel_draw_smem(F: int) -> int:
-    """Bytes of shared memory X10b's block takes
-    (``csrc/bs_sweep.cu:rel_draw_smem``)."""
-    Fo = max(F, 1)
-    return 4 * (draw_outputs(F) + Fo * (_TILE + 1) + 3 * _TILE
-                + 2 * F * (_TILE + 1) + _TILE + 5 * Fo + 2)
+# The widest blocks the learners give X10a and X10b: the widths
+# learners/mcmc_bs.py:bs_factor_width has always picked
+MAX_REL_F = 251
 
 
 def rel_draw_fits(F: int) -> bool:
-    """Whether X10a and X10b can run a block of F factors on the card."""
-    return max(rel_draw_smem(F), join_agg_smem(F)) <= MAX_BLOCK_SMEM
+    """Whether the learners give X10a and X10b blocks of F factors: F up to
+    MAX_REL_F, where X10a's block and the X10b form draw_form picks (at
+    F >= 2 the tiled form without wcc the widest) fit the card."""
+    return (F <= MAX_REL_F and join_agg_smem(F) <= MAX_BLOCK_SMEM
+            and (F <= 1 or tile_rows(F, False) > 0))
 
 
-def draw_splits(C: int, L: int, sms: int) -> tuple[int, int]:
-    """(S, Ls): X10b splits each column of a [C, L] bucket into S runs of
-    Ls entries, enough for about two blocks per SM when the bucket has few
-    columns, never runs shorter than _SPLIT_MIN entries."""
-    S = max(1, min(-(-L // _SPLIT_MIN), -(-2 * sms // max(C, 1))))
-    Ls = -(-(-(-L // S)) // _TILE) * _TILE
-    return -(-L // Ls), Ls
+# X10b's forms, in the order of their codes (csrc/bs_sweep.cu kForm*): at
+# F <= 1 G lanes a column (L <= 32) or a block per (column, split) with the
+# threads over the entries; at F >= 2 a warp a column (L <= 32) or a block
+# per (column, split) over staged tiles of whole relation rows, or of rows
+# without wcc where two tiles of whole rows do not fit
+FORMS = ("group", "block", "warp", "tiles", "tiles_l2wcc")
+_NARROW_L = 32  # the widest bucket the narrow forms take
+_WARP_ROW_FLOATS = 1536  # a warp form's staged rows a round, at most
+_MAX_TILE = 32  # rows a tile, at most
+
+
+class DrawPlan(NamedTuple):
+    """How X10b runs one bucket: its form; k, the lanes a column (group,
+    warp) or the rows a tile (tiles); S, the splits of a column (the block
+    forms; else 1)."""
+
+    form: str
+    k: int
+    S: int
+
+
+class RealCounts(NamedTuple):
+    """A bucket's real entries a column: its slots up to its last non-zero
+    x (the plan lays a column's entries first, its padding after).  ``n``
+    int32 [C] on the bucket's device; ``lo`` and ``hi`` the least and the
+    most, host integers, so that a launch reads nothing back."""
+
+    n: torch.Tensor
+    lo: int
+    hi: int
+
+
+def real_counts(x, device=None) -> RealCounts:
+    """The real counts of a [C, L] x: a numpy array (a plan's, as it goes
+    to the device) or a tensor (read back to the host: for checks, never
+    at a launch)."""
+    if torch.is_tensor(x):
+        device = x.device if device is None else device
+        x = x.detach().cpu().numpy()
+    nz = np.asarray(x) != 0
+    n = np.where(nz.any(1), nz.shape[1] - np.argmax(nz[:, ::-1], axis=1),
+                 0).astype(np.int32)
+    lo, hi = (int(n.min()), int(n.max())) if len(n) else (0, 0)
+    return RealCounts(torch.from_numpy(n).to(device or "cpu"), lo, hi)
+
+
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def warp_slice(F: int, E: int) -> int:
+    """Floats of a column's slice in the warp form with E rows a round
+    (``csrc/bs_sweep.cu:warp_slice``)."""
+    return _r4(_r4(draw_outputs(F)) + E * _r4(rel_layout(F)["ld"]) + 4 * F
+               + 2 * E)
+
+
+def warp_rows(F: int, G: int = 32) -> int:
+    """E, the real entries' rows the warp form with G lanes a column stages
+    a round: one at G = 8, else as many as _WARP_ROW_FLOATS floats hold,
+    one to four (``csrc/bs_sweep.cu:warp_rows``)."""
+    n = _WARP_ROW_FLOATS // _r4(rel_layout(F)["ld"])
+    return 1 if G < 32 else max(1, min(4, n))
+
+
+def warp_lanes(F: int, L: int) -> int:
+    """G, the lanes a column of the warp form: 8 (four columns a warp, each
+    lane drawing up to three factors) where the bucket has at most 8 slots
+    and F <= 24, so that a warp's 20-step draw serves four columns; else a
+    warp."""
+    return 8 if L <= 8 and F <= 24 else 32
+
+
+def tiles_smem(F: int, T: int, whole: bool) -> int:
+    """Bytes of shared memory of the tiled form's block, tiles of T rows,
+    whole or without wcc (``csrc/bs_sweep.cu:tiles_smem``)."""
+    lay = rel_layout(F)
+    lds = lay["ld"] if whole else lay["wcc"] + 1
+    return 4 * (2 * T * _r4(lds) + _r4(draw_outputs(F)) + 6 * T + 4 * F + 1)
+
+
+def tile_rows(F: int, whole: bool) -> int:
+    """T, the most rows (at most 32) a tile of the tiled form holds while
+    _BLOCKS_PER_SM blocks share an SM's shared memory (F <= 32, where the
+    kernel's draw holds one factor a lane and 56 registers a thread let
+    four blocks in), else while one block fits (F > 32, where a row is
+    2.6 KB or more); 0 if not even one row fits."""
+    caps = (MAX_BLOCK_SMEM // _BLOCKS_PER_SM,) if F <= 32 else ()
+    for cap in caps + (MAX_BLOCK_SMEM,):
+        T = max((T for T in range(1, _MAX_TILE + 1)
+                 if tiles_smem(F, T, whole) <= cap), default=0)
+        if T:
+            return T
+    return 0
+
+
+def draw_form(F: int, L: int) -> str:
+    """X10b's form for a bucket of L slots a column at F factors (F = 0:
+    the w sweep): narrow buckets (L <= 32, the one-hot ones) a group of
+    lanes a column (F <= 1) or the warp form (F >= 2: a warp, or 8 lanes,
+    a column, see warp_lanes); wide ones a block per
+    (column, split), at F >= 2 over staged tiles of whole rows where two
+    tiles of them fit, else of rows without wcc."""
+    if F <= 1:
+        return "group" if L <= _NARROW_L else "block"
+    if L <= _NARROW_L and 4 * warp_slice(F, warp_rows(F)) <= MAX_BLOCK_SMEM:
+        return "warp"
+    return "tiles" if tile_rows(F, True) else "tiles_l2wcc"
+
+
+def draw_splits(C: int, lo: int, hi: int, sms: int) -> int:
+    """S, the ways the block forms split each column of a bucket of C
+    columns whose real entries run from lo to hi a column: about
+    _BLOCKS_PER_SM blocks an SM when the bucket has few columns, shares of
+    at least _SPLIT_MIN entries in the longest column, and no more than the
+    shortest column has entries, so that every block gets one (a column
+    with none, lo = 0, takes S = 1)."""
+    return max(1, min(hi // _SPLIT_MIN,
+                      -(-_BLOCKS_PER_SM * sms // max(C, 1)), lo))
+
+
+def split_bounds(n: int, S: int) -> list:
+    """The S shares [b, e) of a column's n real entries, as each block of
+    the column computes its own (``csrc/bs_sweep.cu:split_range``)."""
+    return [(s * n // S, (s + 1) * n // S) for s in range(S)]
+
+
+def draw_plan(F: int, C: int, L: int, lo: int, hi: int,
+              sms: int) -> DrawPlan:
+    """The form, its k and the splits X10b takes for a [C, L] bucket at F
+    factors whose columns hold lo to hi real entries, on a card of sms
+    SMs."""
+    form = draw_form(F, L)
+    if form == "group":
+        return DrawPlan(form, narrow_lanes(L), 1)
+    if form == "warp":
+        return DrawPlan(form, warp_lanes(F, L), 1)
+    k = tile_rows(F, form == "tiles") if form != "block" else 0
+    return DrawPlan(form, k, draw_splits(C, lo, hi, sms))
 
 
 def _sms(dev) -> int:
@@ -271,7 +412,7 @@ def bs_rel_w_draw_plain(rows, x, cols, group, rtab, ptab, w, mu, lam, alpha,
 
 
 def _launch_draw(kname, rows, x, cols, group, rtab, F, ptab, v_t, mu, lam,
-                 alpha, z, nans):
+                 alpha, z, nans, real: Optional[RealCounts]):
     C, L = rows.shape
     Dr = v_t.shape[0]
     Fo = max(F, 1)
@@ -292,18 +433,25 @@ def _launch_draw(kname, rows, x, cols, group, rtab, F, ptab, v_t, mu, lam,
     if z is not None:
         req(z, _F32, (Fo, Dr) if F else (Dr,), dev, f"{kname}.z")
     req(nans, _I32, (nans.shape[0],), dev, f"{kname}.nans")
+    if real is None:
+        raise ValueError(f"{kname}: the bucket's real counts (RelBlock.real, "
+                         "real_counts) are needed on the card")
+    req(real.n, _I32, (C,), dev, f"{kname}.real")
     if C == 0:
         return
-    if rel_draw_smem(F) > MAX_BLOCK_SMEM:
-        raise ValueError(f"{kname}: F = {F} needs more shared memory than "
-                         "one block may take; use a narrower factor_block")
-    S, Ls = draw_splits(C, L, _sms(dev))
+    if not rel_draw_fits(F):
+        raise ValueError(f"{kname}: F = {F} is wider than the {MAX_REL_F} "
+                         "factors a block takes (X10a's shared memory); use "
+                         "a narrower factor_block")
+    plan = draw_plan(F, C, L, real.lo, real.hi, _sms(dev))
     part = done = None
-    if S > 1:
-        part = torch.empty(C * S * draw_outputs(F), dtype=_F32, device=dev)
+    if plan.S > 1:
+        part = torch.empty(C * plan.S * draw_outputs(F), dtype=_F32,
+                           device=dev)
         done = torch.zeros(C, dtype=_I32, device=dev)
     lib = build.load_library("bs_sweep")
-    args = [build.ptr(rows), build.ptr(x), C, L, Ls, S, build.ptr(cols),
+    args = [build.ptr(rows), build.ptr(x), C, L, FORMS.index(plan.form),
+            plan.k, plan.S, build.ptr(real.n), build.ptr(cols),
             build.ptr(group), build.ptr(rtab)]
     if F:
         args.append(F)
@@ -317,23 +465,27 @@ def _launch_draw(kname, rows, x, cols, group, rtab, F, ptab, v_t, mu, lam,
 
 
 def bs_rel_draw(rows, x, cols, group, rtab, F: int, ptab, v_t, mu, lam,
-                alpha, z: Optional[torch.Tensor], nans) -> None:
+                alpha, z: Optional[torch.Tensor], nans,
+                real: Optional[RealCounts] = None) -> None:
+    """X10b on CUDA tensors, in draw_plan's form (``real``: the bucket's
+    RealCounts, needed there), the twin on CPU tensors."""
     if build.on_cpu(rows):
         return bs_rel_draw_plain(rows, x, cols, group, rtab, F, ptab, v_t, mu,
                                  lam, alpha, z, nans)
     if F < 1:
         raise ValueError("bs_rel_draw: F >= 1 (the w sweep is bs_rel_w_draw)")
     _launch_draw("bs_rel_draw", rows, x, cols, group, rtab, F, ptab, v_t, mu,
-                 lam, alpha, z, nans)
+                 lam, alpha, z, nans, real)
 
 
 def bs_rel_w_draw(rows, x, cols, group, rtab, ptab, w, mu, lam, alpha,
-                  z: Optional[torch.Tensor], bad) -> None:
+                  z: Optional[torch.Tensor], bad,
+                  real: Optional[RealCounts] = None) -> None:
     if build.on_cpu(rows):
         return bs_rel_w_draw_plain(rows, x, cols, group, rtab, ptab, w, mu,
                                    lam, alpha, z, bad)
     _launch_draw("bs_rel_w_draw", rows, x, cols, group, rtab, 0, ptab, w, mu,
-                 lam, alpha, z, bad)
+                 lam, alpha, z, bad, real)
 
 
 # ---- X10c -------------------------------------------------------------------

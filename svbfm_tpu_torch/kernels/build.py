@@ -77,10 +77,10 @@ SIGNATURES = {
     "svbfm_mcmc_col_grad": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _F,
                             _F, _P),
     "svbfm_bs_join_agg": (_P, _I, _L, _P, _P, _I, _P, _P),
-    "svbfm_bs_rel_draw": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
-                          _P, _P, _P, _L, _P, _P, _P, _P),
-    "svbfm_bs_rel_w_draw": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _L, _P, _P, _P, _P),
+    "svbfm_bs_rel_draw": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                          _P, _P, _P, _P, _P, _L, _P, _P, _P, _P),
+    "svbfm_bs_rel_w_draw": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _L, _P, _P, _P, _P),
     "svbfm_bs_rel_patch": (_P, _P, _L, _I, _P, _I, _P, _I, _P, _P, _P),
     "svbfm_bs_rel_w_patch": (_P, _P, _L, _I, _P, _I, _P, _P, _P, _P),
     "svbfm_bs_rel_moments": (_P, _P, _L, _I, _P, _L, _I, _I, _P, _P),

@@ -51,16 +51,23 @@ _TILE = 32  # csrc/mcmc_sweep.cu kTile
 def col_draw_smem(F: int, exact_seq: bool, grad: bool = False) -> int:
     """Bytes of shared memory X8a's block takes at F >= 2 (the
     accumulators s0, sh2 and, in the exact mode, the packed M; the gradient
-    mode s0 alone; the h tile; the column's v, corrections and priors), as
+    mode s0 alone; the h tile; the column's v and priors), as
     ``csrc/mcmc_sweep.cu:col_draw_smem``."""
     npair = F * (F - 1) // 2 if exact_seq else 0
     nout = F if grad else 2 * F + npair
-    return 4 * (nout + F * (_TILE + 1) + _TILE + 5 * F + 1)
+    return 4 * (nout + F * (_TILE + 1) + _TILE + 4 * F)
+
+
+# The widest blocks the learners give X8a, by mode (exact sequential
+# draw, Jacobi): the widths learners/mcmc.py:factor_width has always picked
+MAX_COL_F = {True: 303, False: 1451}
 
 
 def col_draw_fits(F: int, exact_seq: bool) -> bool:
-    """Whether X8a can run a block of F factors on the card."""
-    return F == 1 or col_draw_smem(F, exact_seq) <= MAX_BLOCK_SMEM
+    """Whether the learners give X8a a block of F factors: F = 1, or F up
+    to MAX_COL_F of the mode, where its block fits the card."""
+    return F == 1 or (F <= MAX_COL_F[exact_seq]
+                      and col_draw_smem(F, exact_seq) <= MAX_BLOCK_SMEM)
 
 
 def _draw_mean(she, sh2, v_c, mu_g, lam_g, alpha, z):
@@ -177,9 +184,10 @@ def mcmc_col_draw(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
         return
     if not col_draw_fits(F, exact_seq):
         raise ValueError(
-            f"mcmc_col_draw: a block of F = {F} factors needs "
-            f"{col_draw_smem(F, exact_seq)} bytes of shared memory, more than "
-            f"the {MAX_BLOCK_SMEM} one block may take; use a narrower "
+            f"mcmc_col_draw: F = {F} is wider than the {MAX_COL_F[exact_seq]} "
+            f"factors a block of this mode takes (it needs "
+            f"{col_draw_smem(F, exact_seq)} bytes of shared memory of the "
+            f"{MAX_BLOCK_SMEM} one block may take); use a narrower "
             f"factor_block")
     lib = build.load_library("mcmc_sweep")
     with torch.cuda.device(dev):

@@ -52,9 +52,10 @@ from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.data.relation import RelationData
 from svbfm_tpu_torch.kernels.bs_forward import (bs_rel_moments, bs_resync,
                                                 bs_scores)
-from svbfm_tpu_torch.kernels.bs_sweep import (bs_join_agg, bs_rel_draw,
-                                              bs_rel_patch, bs_rel_w_draw,
-                                              bs_rel_w_patch, rel_draw_fits,
+from svbfm_tpu_torch.kernels.bs_sweep import (RealCounts, bs_join_agg,
+                                              bs_rel_draw, bs_rel_patch,
+                                              bs_rel_w_draw, bs_rel_w_patch,
+                                              real_counts, rel_draw_fits,
                                               rel_layout)
 from svbfm_tpu_torch.kernels.mcmc_sweep import col_draw_fits
 from svbfm_tpu_torch.kernels.vb_sweep import build_q
@@ -93,6 +94,7 @@ class RelBlock:
     x: torch.Tensor  # f32 [C, L]
     cols: torch.Tensor  # int32 [C] relation-local attribute ids
     group: torch.Tensor  # int32 [C] JOINED-global group ids
+    real: RealCounts  # each column's real entries, counted on the host
 
 
 @dataclass
@@ -175,7 +177,8 @@ def build_rel_device(rel: RelationData, join_tr: np.ndarray,
         rplan=tuple(tuple(RelBlock(rows=_put(blk.rows[0], device),
                                    x=_put(blk.x[0], device),
                                    cols=_put(blk.cols, device),
-                                   group=_put(blk.group, device))
+                                   group=_put(blk.group, device),
+                                   real=real_counts(blk.x[0], device))
                           for blk in bin_blocks)
                     for bin_blocks in rplan.blocks),
         unobserved=_put(rplan.unobserved, device),
@@ -261,7 +264,7 @@ def rel_w_sweep(e, w, w_mu, w_lambda, alpha, rd: RelDevice, rs: RelStatic,
         ptab[:, 1].zero_()
         for blk in bin_blocks:
             bs_rel_w_draw(blk.rows, blk.x, blk.cols, blk.group, rtab, ptab,
-                          wr, w_mu, w_lambda, alpha, zr, bad)
+                          wr, w_mu, w_lambda, alpha, zr, bad, blk.real)
         bs_rel_w_patch(rd.rrow_ids, rd.rrow_vals, rd.patch_pos[b_i], ptab,
                        rtab, dy)
     counters["nan_w"] = counters["nan_w"] + bad[0]
@@ -296,7 +299,7 @@ def rel_v_sweep(e, q, vr, qB0, rd: RelDevice, rs: RelStatic, mu_gf, lam_gf,
         ptab[:, F:].zero_()
         for blk in bin_blocks:
             bs_rel_draw(blk.rows, blk.x, blk.cols, blk.group, rtab, F, ptab,
-                        vr, mu_gf, lam_gf, alpha, z, nans)
+                        vr, mu_gf, lam_gf, alpha, z, nans, blk.real)
         bs_rel_patch(rd.rrow_ids, rd.rrow_vals, rd.patch_pos[b_i], ptab, F,
                      rtab, dy)
     counters["nan_v"] = counters["nan_v"] + nans[0]

@@ -523,3 +523,102 @@ def test_join_plan_rows_lay_the_buckets_end_to_end():
         bs[0].rows.data_ptr(), bs[0].x.data_ptr(), bs[0].cols.data_ptr())
     rows, blocks = ks.join_plan_rows(bs, 20)
     assert [r[6] for r in rows] == [0, 100, 100, 150] and blocks == 153
+
+
+@pytest.mark.parametrize("F,L,form", [
+    (0, 1, "group"), (0, 32, "group"), (0, 33, "block"), (1, 8, "group"),
+    (1, 65536, "block"), (2, 8, "warp"), (20, 8, "warp"), (20, 32, "warp"),
+    (20, 33, "tiles"), (20, 65536, "tiles"), (192, 64, "tiles"),
+    (193, 64, "tiles_l2wcc"), (236, 8, "warp"), (237, 8, "tiles_l2wcc"),
+    (251, 65536, "tiles_l2wcc")])
+def test_rel_draw_form_is_a_function_of_f_and_l(F, L, form):
+    """X10b's form: narrow buckets (L <= 32) a group of lanes (F <= 1) or a
+    warp (F >= 2) a column while a warp's slice fits; wide ones a block per
+    (column, split), at F >= 2 over tiles of whole rows while two of them
+    fit, past that of rows without wcc; the plan's k fits the block."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+    from svbfm_tpu_torch.kernels.mcmc_sweep import MAX_BLOCK_SMEM
+
+    assert ks.draw_form(F, L) == form
+    p = ks.draw_plan(F, 3, L, 1, L, 132)
+    assert p.form == form and p.k >= (0 if form == "block" else 1)
+    if form == "group":
+        assert p.k == ks.narrow_lanes(L) and p.S == 1
+    if form == "warp":
+        assert p.S == 1 and p.k == ks.warp_lanes(F, L) in (8, 32)
+        E = ks.warp_rows(F, p.k)
+        assert 4 * ks.warp_slice(F, E) * (32 // p.k) <= MAX_BLOCK_SMEM
+    if form.startswith("tiles"):
+        # the most rows (<= 32) that let four blocks share an SM where the
+        # draw holds one factor a lane (F <= 32), else that fit one block
+        cap = MAX_BLOCK_SMEM // 4 if F <= 32 else MAX_BLOCK_SMEM
+        assert ks.tiles_smem(F, p.k, form == "tiles") <= cap
+        assert p.k == 32 or ks.tiles_smem(F, p.k + 1, form == "tiles") > cap
+
+
+@pytest.mark.parametrize("C,lo,hi", [(2, 35500, 36100), (2, 589, 611),
+                                     (2, 1024, 1024), (1, 3, 300),
+                                     (7, 257, 512), (500, 33, 64),
+                                     (3, 0, 299), (1, 1, 1)])
+def test_rel_draw_splits_cover_the_real_entries(C, lo, hi):
+    """The block forms' split of a column's real entries: every share of
+    every column from lo to hi entries holds at least one real entry (a
+    column with none takes one share), the shares tile [0, n) in order,
+    the longest column's shares hold at least 128 where it is split, and
+    a bucket of few columns gets about four blocks an SM."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    S = ks.draw_splits(C, lo, hi, 132)
+    assert 1 <= S <= max(lo, 1)
+    assert S == 1 or hi // S >= 128
+    assert C * S <= 4 * 132 + C
+    for n in sorted({lo, (lo + hi) // 2, hi}):
+        shares = ks.split_bounds(n, S)
+        assert shares[0][0] == 0 and shares[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+        assert n == 0 or all(e > b for b, e in shares)
+    if (C, lo, hi) == (2, 35500, 36100):
+        assert S == 264  # the card's 132 SMs, four blocks each
+
+
+def test_rel_block_real_counts_are_the_plans():
+    """RelBlock.real on chip_smoke.py's small relational problem: each
+    column's real entries are numpy's count of its non-zero x (the plan
+    puts them first), with their least and most on the host."""
+    import chip_smoke
+
+    learner = chip_smoke.small_bs_learner("cpu")
+    for rd in learner.rels:
+        for bb in rd.rplan:
+            for b in bb:
+                x = b.x.numpy()
+                n = np.count_nonzero(x, axis=1)
+                assert b.real.n.dtype == torch.int32
+                np.testing.assert_array_equal(b.real.n.numpy(), n)
+                assert (b.real.lo, b.real.hi) == (n.min(), n.max())
+                assert all((x[c, :k] != 0).all() for c, k in enumerate(n))
+
+
+def test_draw_widths_the_learners_admit_are_unchanged():
+    """The widths the learners give X8a and X10b, F = 1 ... 320, are the
+    ones the block-wide draws admitted (their shared-memory footprints,
+    written out here), so factor_width and bs_factor_width pick the same
+    F: X8a's exact mode up to 303, its Jacobi mode beyond 320, X10a and
+    X10b up to 251."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
+    cap = 227 * 1024
+    for F in range(1, 321):
+        nout = 2 * F + F * (F - 1) // 2
+        col = {True: 4 * (nout + 33 * F + 32 + 5 * F + 1),
+               False: 4 * (2 * F + 33 * F + 32 + 5 * F + 1)}
+        for exact in (True, False):
+            assert km.col_draw_fits(F, exact) == (F == 1 or col[exact] <= cap)
+        Fo = max(F, 1)
+        draw = 4 * (ks.draw_outputs(F) + Fo * 33 + 96 + 2 * F * 33 + 32
+                    + 5 * Fo + 2)
+        agg = 4 * (1 + 2 * F + F * (F + 1) // 2 + 64 + 33 * F + F)
+        assert ks.rel_draw_fits(F) == (max(draw, agg) <= cap)
+    assert [F for F in range(1, 321) if km.col_draw_fits(F, True)][-1] == 303
+    assert [F for F in range(1, 321) if ks.rel_draw_fits(F)][-1] == 251

@@ -311,13 +311,14 @@ def test_bs_kernels_match_twins_on_ragged_case(cuda, kernel):
 
 def test_bs_draw_splits_long_columns(cuda):
     """The attribute-slot buckets of the ragged problem are split over
-    several blocks per column (the last block adds the partials)."""
+    several blocks per column by their real entries (the last block adds
+    the partials); the one-hot bucket is not split."""
     import chip_smoke
     from svbfm_tpu_torch.kernels import bs_sweep as ks
 
     learner = chip_smoke.small_bs_learner(cuda)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    splits = [ks.draw_splits(*b.rows.shape, sms)[0]
+    splits = [ks.draw_plan(20, *b.rows.shape, b.real.lo, b.real.hi, sms).S
               for bb in learner.rels[0].rplan for b in bb]
     assert max(splits) > 1 and min(splits) == 1
 
@@ -640,3 +641,245 @@ def test_bs_nine_relations_on_gpu_matches_cpu(cuda, factor_block):
     for g, c in zip(*hists):
         for k in ("rmse", "rmse_this", "mae", "alpha"):
             np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)
+
+
+def _rel_table(g, F, R):
+    """A relation-row table [R, 3F + 2 + P] whose aggregates come from 1-4
+    joined rows each (wn, we, weq, wc, wcc summed over them, qB drawn), so
+    that every sh2 and M is a sum of squares, as in a sweep; F = 0 the w
+    sweep's [R, 2] = we | wn."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    lay = ks.rel_layout(F)
+    k = torch.randint(1, 5, (R,), generator=g)
+    live = torch.arange(4)[None, :] < k[:, None]  # [R, 4] joined rows
+    e = torch.randn(R, 4, generator=g) * live
+    rtab = torch.zeros(R, lay["ld"])
+    rtab[:, lay["we"]] = e.sum(1)
+    rtab[:, lay["wn"]] = k.float()
+    if F:
+        qo = 0.5 * torch.randn(R, 4, F, generator=g) * live[:, :, None]
+        iu0, iu1 = np.triu_indices(F)
+        rtab[:, :F] = 0.5 * torch.randn(R, F, generator=g)
+        rtab[:, lay["weq"]:lay["weq"] + F] = (e[:, :, None] * qo).sum(1)
+        rtab[:, lay["wc"]:lay["wc"] + F] = qo.sum(1)
+        rtab[:, lay["wcc"]:lay["wcc"] + lay["P"]] = (
+            qo[:, :, iu0] * qo[:, :, iu1]).sum(1)
+    return rtab
+
+
+def _rel_bucket(F, C, L, nreal, seed, z, poison, cuda):
+    """One relation bucket of C columns of L slots, nreal[c] real entries
+    first in each (random rows of a 300-row relation, x in [0.5, 1.5]), and
+    its draw's inputs; ``poison``: the columns of group 2 have a NaN
+    lambda (drawn 0, uncounted) and column 0 an Inf noise number (counted,
+    reverted)."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    g = torch.Generator().manual_seed(seed)
+    R, Dr, G, Fo = 300, C + 7, 3, max(F, 1)
+    rows = torch.randint(0, R - 1, (C, L), generator=g, dtype=torch.int32)
+    x = torch.rand(C, L, generator=g) + 0.5
+    for c, n in enumerate(nreal):
+        x[c, n:] = 0.0
+        rows[c, n:] = R - 1
+    cols = torch.randperm(Dr, generator=g)[:C].to(torch.int32)
+    group = (torch.arange(C) % G).to(torch.int32)
+    v = 0.1 * torch.randn(Dr, Fo, generator=g)
+    mu = 0.1 * torch.randn(G, Fo, generator=g)
+    lam = torch.rand(G, Fo, generator=g) + 1.0
+    zt = torch.randn(Fo, Dr, generator=g) if z else None
+    if poison:
+        lam[2] = float("nan")
+        if z:
+            zt[:, cols[0].long()] = float("inf")
+    t = dict(rows=rows, x=x, cols=cols, group=group, rtab=_rel_table(g, F, R),
+             ptab=torch.cat([v, torch.zeros(Dr, Fo)], 1),
+             v=v if F else v[:, 0].contiguous(),
+             mu=mu if F else mu[:, 0].contiguous(),
+             lam=lam if F else lam[:, 0].contiguous(),
+             z=None if zt is None else (zt if F else zt[0].contiguous()),
+             alpha=torch.tensor(1.7))
+    t = {k: None if a is None else a.to(cuda) for k, a in t.items()}
+    t["real"] = ks.real_counts(t["x"])
+    return t
+
+
+def _rel_draw_runs(F, t):
+    """X10b twice on the card and its twin on the CPU, from the same
+    inputs: [(ptab, v, nans)] each."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    outs = []
+    for dev in ("kernel", "kernel", "cpu"):
+        a = {k: (v.cpu() if dev == "cpu" else v) if torch.is_tensor(v) else v
+             for k, v in t.items()}
+        ptab, v = a["ptab"].clone(), a["v"].clone()
+        nans = torch.zeros(2, dtype=torch.int32, device=ptab.device)
+        args = (a["rows"], a["x"], a["cols"], a["group"], a["rtab"])
+        args += (F,) if F else ()
+        args += (ptab, v, a["mu"], a["lam"], a["alpha"], a["z"], nans)
+        if F:
+            ks.bs_rel_draw(*args, a["real"])
+        else:
+            ks.bs_rel_w_draw(*args, a["real"])
+        outs.append([ptab.cpu(), v.cpu(), nans.cpu()])
+    torch.cuda.synchronize()
+    return outs
+
+
+def _check_rel_draw(F, t, what):
+    import chip_smoke
+
+    k1, k2, twin = _rel_draw_runs(F, t)
+    for a, b in zip(k1, k2):  # two launches, the same bits
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    chip_smoke.compare(k1, twin, what)
+    assert torch.equal(k1[2], twin[2]), what
+    assert all(torch.isfinite(a).all() for a in k1[:2]), what
+    return k1[2].tolist()
+
+
+# (C, L, real entries a column, the form at F >= 2 and at F <= 1)
+_REL_SHAPES = {
+    "L=1": (600, 1, [1] * 600, "warp", "group"),
+    "L=8 one real": (600, 8, [1] * 600, "warp", "group"),
+    "L=32": (300, 32, [1 + (7 * c) % 32 for c in range(300)], "warp",
+             "group"),
+    "mid-tile": (2, 1024, [589, 611], "tiles", "block"),
+    "all padding": (3, 300, [0, 150, 299], "tiles", "block"),
+    "splits on the real count": (2, 2048, [1024, 1024], "tiles", "block"),
+}
+
+
+@pytest.mark.parametrize("z,poison", [(True, False), (False, False),
+                                      (True, True), (False, True)])
+@pytest.mark.parametrize("F", [20, 5, 1, 0])
+@pytest.mark.parametrize("shape", list(_REL_SHAPES))
+def test_rel_draw_forms_match_twin(cuda, shape, F, z, poison):
+    """X10b in each form against its twin: the narrow forms at L = 1, at
+    L = 8 with one real entry, at L = 32 with 1-32 real; the block forms
+    with real entries ending mid-tile, with an all-padding column (the
+    bucket is not split), and with splits that fall on tile boundaries;
+    with and without noise, with a NaN group lambda and an Inf noise
+    number.  Two launches give the same bits and counters, the twin's."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    C, L, nreal, wide_f, narrow_f = _REL_SHAPES[shape]
+    t = _rel_bucket(F, C, L, nreal, 100 * F + L, z, poison, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ks.draw_plan(F, C, L, t["real"].lo, t["real"].hi, sms)
+    assert plan.form == (wide_f if F >= 2 else narrow_f)
+    if shape == "all padding":
+        assert plan.S == 1
+    if shape == "splits on the real count":
+        assert plan.S == 8 and ks.split_bounds(1024, 8)[-1] == (896, 1024)
+    if shape == "mid-tile":
+        assert plan.S == 4
+    nans = _check_rel_draw(F, t, f"X10b {shape} F={F} z={z} {poison}")
+    assert nans == [0, max(F, 1) if z and poison else 0]
+
+
+@pytest.mark.parametrize("F,L,nreal", [(150, 64, [40, 64]),
+                                       (200, 64, [40, 64]),
+                                       (200, 8, [1, 3, 8]),
+                                       (251, 40, [33, 40])])
+def test_rel_draw_wide_blocks_match_twin(cuda, F, L, nreal):
+    """X10b at the widest blocks the learners give it: F = 150 (tiles of one
+    whole row), F = 200 and 251 (rows staged without wcc, read from L2),
+    and a narrow bucket at F = 200 (a warp a column, one row a round)."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    t = _rel_bucket(F, len(nreal), L, nreal, F, True, True, cuda)
+    form = ks.draw_form(F, L)
+    assert form == ("tiles" if F == 150 else
+                    "warp" if L <= 32 else "tiles_l2wcc")
+    _check_rel_draw(F, t, f"X10b F={F} [{len(nreal)},{L}] {form}")
+
+
+@pytest.mark.parametrize("F", [5, 20, 33, 64, 100, 150])
+def test_rel_draw_tiles_match_twin_at_their_rows(cuda, F):
+    """X10b's tiled form of whole rows at the rows a tile draw_plan gives
+    it, from 32 (F = 5) down to one (F = 150), and with one, two, four and
+    ten factors a lane in its draw; real entries ending mid-tile and the
+    column split."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    t = _rel_bucket(F, 2, 1024, [589, 611], F, True, True, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ks.draw_plan(F, 2, 1024, 589, 611, sms)
+    assert plan.form == "tiles" and plan.k == ks.tile_rows(F, True)
+    assert plan.S > 1 and (F != 5 or plan.k == 32)
+    _check_rel_draw(F, t, f"X10b tiles T={plan.k} F={F}")
+
+
+@pytest.mark.parametrize("F,L,G", [(5, 1, 8), (20, 8, 8), (24, 8, 8),
+                                   (25, 8, 32), (33, 8, 32), (20, 16, 32),
+                                   (100, 8, 32)])
+def test_rel_draw_warp_lanes_match_twin(cuda, F, L, G):
+    """X10b's warp form at F >= 2: 8 lanes a column (four columns a warp,
+    up to three factors a lane) on buckets of at most 8 slots at F <= 24,
+    else a warp a column; 301 columns (a warp's last groups past the
+    bucket's end) of 1 to L real entries."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    t = _rel_bucket(F, 301, L, [1 + c % L for c in range(301)], F + L, True,
+                    True, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ks.draw_plan(F, 301, L, 1, L, sms) == ("warp", G, 1)
+    _check_rel_draw(F, t, f"X10b warp G={G} L={L} F={F}")
+
+
+@pytest.mark.parametrize("F", [1, 0])
+@pytest.mark.parametrize("L", [1, 2, 8, 16, 32])
+def test_rel_draw_narrow_lanes_match_twin(cuda, F, L):
+    """X10b's F <= 1 narrow form, G lanes a column, G the next power of two
+    >= L (one to 32)."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    t = _rel_bucket(F, 300, L, [1 + c % L for c in range(300)], L, True,
+                    True, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    G = ks.narrow_lanes(L)
+    assert ks.draw_plan(F, 300, L, 1, L, sms) == ("group", G, 1)
+    _check_rel_draw(F, t, f"X10b group G={G} L={L} F={F}")
+
+
+@pytest.mark.parametrize("F", [20, 33, 64, 100, 256, 303])
+def test_col_draw_exact_warp_draw_matches_twin(cuda, F):
+    """X8a's exact mode, its draw by one warp: F = 20, 33 and 64 (a lane
+    owns two factors), 100 (four slots a lane), 256 and 303 (ten slots a
+    lane); a NaN group lambda (drawn 0,
+    uncounted) and an Inf noise number (counted, reverted); two launches
+    give the same bits and counters, the twin's."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
+    g = torch.Generator().manual_seed(F)
+    N, D, C, L, G = 300, 40, 12, 20, 3
+    rows = torch.randint(0, N, (C, L), generator=g, dtype=torch.int32)
+    x = torch.rand(C, L, generator=g) + 0.5
+    x[-1, L // 2:] = 0.0  # padding entries
+    cols = torch.randperm(D, generator=g)[:C].to(torch.int32)
+    group = (torch.arange(C) % G).to(torch.int32)
+    e = torch.randn(N, generator=g)
+    q = 0.1 * torch.randn(N, F, generator=g)
+    v_t = 0.1 * torch.randn(D, F, generator=g)
+    ptab = torch.cat([v_t, torch.zeros(D, F)], 1)
+    mu = 0.1 * torch.randn(G, F, generator=g)
+    lam = torch.rand(G, F, generator=g) + 1.0
+    lam[2] = float("nan")
+    z = torch.randn(F, D, generator=g)
+    z[F // 2, cols[0].long()] = float("inf")
+    alpha = torch.tensor(1.3)
+    outs = []
+    for dev in (cuda, cuda, "cpu"):
+        a = [t.to(dev) for t in (rows, x, cols, group, e, q, ptab.clone(),
+                                 v_t.clone(), mu, lam, alpha, z)]
+        nans = torch.zeros(2, dtype=torch.int32, device=dev)
+        km.mcmc_col_draw(*a[:11], a[11], True, nans)
+        outs.append([a[6].cpu(), a[7].cpu(), nans.cpu()])
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), F
+    chip_smoke.compare(outs[0], outs[2], f"mcmc_col_draw exact F={F}")
+    assert outs[0][2].tolist() == outs[2][2].tolist() == [0, 1]
