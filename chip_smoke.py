@@ -10,15 +10,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. kernels: each kernel against its plain PyTorch twin on the card, at the
      shapes the paths give it (ML-1M, K=20; batch VB fast mode, exact mode
      at F=1 with the w patch, an online-VB chunk of 1/20 of the rows at
-     F=1, Gibbs/ALS blocks at F=20 and F=1 in both draw modes, the gather
-     probe's shapes, the SGD family's batches in each step mode, the
-     full-batch exp_sgd's w and v steps at F=20 and F=1, the block-structure
-     sampler's relation kernels on the 1M-rating relational recipe at F=20,
-     F=1 and the w sweep, the joined scores also over nine relations) and
-     on small ragged cases with NaN-producing
-     columns or targets, Inf noise, L=1 buckets and columns split over
-     blocks; time both, and one PyTorch call where one computes the same
-     function.
+     F=1 with K6 on each of its bins in one launch, Gibbs/ALS blocks at
+     F=20 and F=1 in both draw modes, the gather probe's shapes, the SGD
+     family's batches in each step mode and X9b also on a table of
+     ML-10M's width, the full-batch exp_sgd's w and v steps at F=20 and
+     F=1, the block-structure sampler's relation kernels on the 1M-rating
+     relational recipe at F=20, F=1 and the w sweep, the joined scores
+     also over nine relations) and on small ragged cases with
+     NaN-producing columns or targets, Inf noise, L=1 buckets and columns
+     split over blocks; time both, and one PyTorch call where one computes
+     the same function.  Then x9b-digest: sha256 of X9b's outputs on
+     seeded inputs.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
      every kernel of the path must have been launched; the free energy must
      not fall and the test RMSE must drop.
@@ -159,6 +161,9 @@ REF_SGD_RMSE = {1: 0.7673, 10: 0.7375, 30: 0.7422}
 SGDA_LR, SGDA_K = 0.01, 8
 REF_SGDA_RMSE = {1: 0.7422, 5: 0.7424, 10: 0.7411, 15: 0.7253, 20: 0.7119}
 SGD_ONLINE_CHUNKS = 50
+# ML-10M's feature count (bench.py:190: 71,567 users + 10,681 items): X9b
+# is timed on a table this wide too
+ML10M_FEATURES = 82_248
 # full-batch exp_sgd: a step divides the gradient by N, so only w0's step
 # (lr times the mean residual) is large; at 0.5, test_exp_sgd.py's rate, the
 # test RMSE falls over the first sweeps, and w0 converges (lr < 2)
@@ -554,7 +559,7 @@ def make_cases(s: dict):
             cost(rows_bytes(s["ids"]) + s["dtab"].numel() * 4 + N * 16,
                  N * P * 4))
 
-    if "v_buckets" in s:  # online VB factor block (K2, K6, K4 seq=False)
+    if "v_bins" in s:  # online VB factor block (K2, K6, K4 seq=False)
         F = s["vF"]
 
         def k6_prepare():
@@ -562,25 +567,25 @@ def make_cases(s: dict):
                            "v_nsig") + (torch.zeros_like(s["rho_v"]),
                                         _bad(s["e"].device))
 
-        def k6(blk):
+        def k6(plan):  # every bucket of a bin: one launch, or each twin
             def call(variant, inp):
                 fn = (ko.ovb_col_stats_update if variant == "kernel"
-                      else ko.ovb_col_stats_update_plain)
+                      else ko.ovb_bin_update_plain)
                 ptab, mu, sig, nmu, nsig, tv_add, bad = inp
-                fn(blk["rows"], blk["x"], blk["cols"], blk["group"],
-                   blk["cnt"], blk["col_count"], s["e"], s["vq"], s["vtq"],
-                   ptab, mu, sig, nmu, nsig, s["v_sv"], s["alpha"],
-                   s["rho_v"], tv_add, bad)
+                fn(plan, s["e"], s["vq"], s["vtq"], ptab, mu, sig, nmu, nsig,
+                   s["v_sv"], s["alpha"], s["rho_v"], tv_add, bad)
                 return [ptab, mu, sig, nmu, nsig, tv_add, bad]
             return call
 
         add("vb_build_qt", f"F={F}", nothing,
             k2(F, s["v_ptab"], s["ids"], s["vals"]), k2_cost(F, s["ids"]))
-        for b in s["v_buckets"]:
-            add("ovb_col_stats_update",
-                f"F={F} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
-                k6_prepare, k6(b),
-                bucket_cost(b, 1 + 2 * F, 4 + 11 * F, 12 * F))
+        for plan in s["v_bins"]:
+            parts = [bucket_cost(_bucket_dict(b), 1 + 2 * F, 4 + 11 * F,
+                                 12 * F) for b in plan.buckets]
+            shapes = "+".join(f"[{C},{L}]" for *_, C, L in plan.rows)
+            add("ovb_col_stats_update", f"F={F} bin {shapes}", k6_prepare,
+                k6(plan), cost(sum(c["bytes"] for c in parts),
+                               sum(c["flops"] for c in parts)))
         add("vb_patch_rows", f"F={F} simultaneous",
             *k4(F, False, False, s["v_ptab_patch"], s["ids"], s["vals"],
                 ("vq", "vtq", "vtz", "e", "t")),
@@ -749,9 +754,9 @@ def make_cases(s: dict):
     for r in s.get("bs", ()):  # X10a-X10d on one relation
         bs_cases(add, r)
 
-    if "sgd" in s:  # X9a, X9b and (SGDA) X9c, per step mode
-        for mode_case in s["sgd"]["modes"]:
-            sgd_cases(add, s["sgd"], *mode_case)
+    for key in ("sgd", "sgd_wide"):  # X9a, X9b and (SGDA) X9c, per mode
+        for mode_case in s.get(key, {}).get("modes", ()):
+            sgd_cases(add, s[key], *mode_case)
 
     for label, t, idx in s.get("gathers", ()):  # P1: o[r, l] = t[i[r, l], l]
         def gcall(variant, _, t=t, idx=idx):
@@ -923,8 +928,10 @@ def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
     """X9a on one batch in step mode ``m`` (``kind``: "row", "sgda" with
     the entry-gradient record, "pair" with the batch's negatives as its
     fifth tensor), X9b on the accumulator the twin leaves, and for SGDA
-    X9c on the validation batch ``g["val"]``.  The bytes count the batch,
-    the table and accumulator rows it touches (X9a), the count column and
+    X9c on the validation batch ``g["val"]``.  The bytes count the batch
+    and the table and accumulator rows it touches (X9a, the JAX function's
+    own), the batch's entries, the accumulator rows they name and their
+    owner record (X9a's write and X9b's read), or the count column, and
     the rows the batch changed (X9b), the winners' cache rows (SGDA)."""
     from svbfm_tpu_torch.kernels import sgd_step as ks
 
@@ -934,6 +941,7 @@ def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
     B, P = ids.shape
     sgda = kind == "sgda"
     pair = (batch[4], *g["range"]) if kind == "pair" else None
+    neg = batch[4] if kind == "pair" else None
     G = g["reg_w"].shape[0] if sgda else 0
 
     def fresh_ws():
@@ -951,8 +959,8 @@ def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
                                 record=sgda)
         else:
             ks.sgd_grad_scatter_plain(
-                tab, w0, ids, vals, y, valid, ws.acc, ws.acc0, m, pair,
-                (ws.gw_e, ws.gv_e, ws.winner) if sgda else None)
+                tab, w0, ids, vals, y, valid, ws.acc, ws.acc0, ws.owner, m,
+                pair, (ws.gw_e, ws.gv_e, ws.winner) if sgda else None)
         return ws_out(ws)
 
     touched = ids if pair is None else torch.cat(
@@ -969,30 +977,38 @@ def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
 
     def x9b_prepare():
         ws = fresh_ws()
-        for a, b in zip(ws_out(ws), ws_out(filled)):
+        for a, b in zip(ws_out(ws) + [ws.owner],
+                        ws_out(filled) + [filled.owner]):
             a.copy_(b)
         return (tab.clone(), w0.clone(), ws) + (
             (g["grad_tab"].clone(),) if sgda else ())
 
     def x9b(variant, inp):
         t, w, ws = inp[:3]
-        regs = (g["reg_w"], g["reg_v"], g["attr_group"])
+        regs = (g["reg_w"], g["reg_v"], g["attr_group"]) if sgda else ()
         if variant == "kernel":
-            ks.sgd_apply(t, w, ws, m, regs + (inp[3],) if sgda else None)
+            ks.sgd_apply(t, w, ws, m, ids, neg,
+                         regs + (inp[3],) if sgda else None)
         else:
             ks.sgd_apply_plain(t, w, ws.acc, ws.acc0, m, regs + (
                 ws.winner, ws.gw_e, ws.gv_e, inp[3]) if sgda else None)
         return [t, w, ws.acc, ws.acc0] + ([inp[3], ws.winner] if sgda else [])
 
-    # X9b must read the count column to find the rows the batch changed;
-    # every other row keeps its value (pow(base, 0) = 1, damp(0) = 0, and
-    # its accumulator row is zero already).  A changed row reads and
-    # writes its table row and reads its accumulator row; SGDA also reads
-    # its group and winner, and copies the winning entry's gradients.
+    # X9b finds the rows the batch changed from the batch's entries, the
+    # accumulator rows they name and the owner record of them (written by
+    # X9a for X9b alone, so charged here), or from the count column,
+    # whichever moves less; every other row keeps its value (pow(base, 0) = 1,
+    # damp(0) = 0, and its accumulator row is zero already).  A changed
+    # row reads and writes its table row and zeroes its accumulator row;
+    # SGDA also reads its group and winner, and copies the winning entry's
+    # gradients.
+    entries = ks.apply_entries(ids, neg)
+    n_named = int(torch.unique(entries).numel())
     n_t = int((filled.acc != 0).any(1).sum())
     n_win = int((filled.winner >= 0).sum()) if sgda else 0
     add("sgd_apply", f"{label} D={D}", x9b_prepare, x9b,
-        cost(D * 4 + n_t * ((1 + K) * 8 + (2 + K) * 4) + 16
+        cost(min(D * 4, entries.numel() * 4 + n_named * (4 + K) * 4)
+             + n_t * ((1 + K) * 8 + (2 + K) * 4) + 16
              + (n_t * 8 + n_win * (1 + K) * 8 if sgda else 0),
              n_t * (1 + K) * 8))
     if not sgda:
@@ -1130,21 +1146,23 @@ def fast_tensors(learner, state) -> dict:
 def ovb_tensors(learner, state) -> dict:
     """Online-VB kernel inputs at the path's shapes: chunk 0 of the
     learner's fixed membership, factor 0 (F = 1), from a real init; K1 on
-    the chunk's rows, as each chunk's e/t caches take it."""
+    the chunk's rows, as each chunk's e/t caches take it; K6 on each of
+    the chunk's bins (its ``BinPlan``s)."""
     from svbfm_tpu_torch.kernels import ovb_sweep as ko
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.kernels import w_sweep as kw
     from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
 
     cfg = learner.cfg
-    row, plan = learner.chunks[0]
+    row, bins = learner.chunks[0]
+    blocks = [b.buckets for b in bins]
     D = cfg.num_attributes
     dev = row.ids.device
     e = row.target - fm_scores(state.mu_0, state.mu_w, state.mu_v, row.ids,
                                row.vals)
     t = fm_t_terms(state.sigma_0_dash, state.sigma_w_dash, state.mu_v,
                    state.sigma_v_dash, row.ids, row.vals)
-    big = [max(bb, key=lambda b: b.rows.numel()) for bb in plan.blocks]
+    big = [max(bb, key=lambda b: b.rows.numel()) for bb in blocks]
     mu_t = state.mu_v.T.contiguous()
     s = dict(
         tag="ovb-chunk", D=D, ovb=True, ids=row.ids, vals=row.vals, e=e, t=t,
@@ -1160,7 +1178,7 @@ def ovb_tensors(learner, state) -> dict:
         w_buckets=[_bucket_dict(b) for b in big], vF=1)
     dtab = torch.zeros(D, 2, device=dev)
     tw = s["t_wj"].clone()
-    for blk in plan.blocks[0]:
+    for blk in blocks[0]:
         kw.w_col_update_plain(
             blk.rows, blk.x, blk.cols, blk.group, blk.sx2, e,
             s["mu_w"].clone(), s["sig_w"].clone(), s["w_sigma_w"],
@@ -1177,14 +1195,12 @@ def ovb_tensors(learner, state) -> dict:
              v_nsig=state.n_sig_v[:1].T.contiguous(),
              v_sv=state.sigma_v[:, :1].contiguous(),
              rho_v=(1.0 + state.t_vj) ** -0.5, vq=vq, vtq=vtq, vtz=vtz,
-             v_buckets=[_bucket_dict(b) for b in big])
+             v_bins=bins)
     pt = ptab.clone()
     tmp = (mu.clone(), sig.clone(), s["v_nmu"].clone(), s["v_nsig"].clone())
-    for blk in plan.blocks[0]:
-        ko.ovb_col_stats_update_plain(
-            blk.rows, blk.x, blk.cols, blk.group, blk.cnt, blk.col_count, e,
-            vq, vtq, pt, *tmp, s["v_sv"], s["alpha"], s["rho_v"],
-            torch.zeros(D, device=dev), _bad(dev))
+    ko.ovb_bin_update_plain(bins[0], e, vq, vtq, pt, *tmp, s["v_sv"],
+                            s["alpha"], s["rho_v"], torch.zeros(D, device=dev),
+                            _bad(dev))
     s["v_ptab_patch"] = pt
     return s
 
@@ -1195,6 +1211,9 @@ def ragged_tensors(device) -> list:
     column 9 produces NaN candidates (its eta2, and in batch-VB mode its
     group's sigma_w, are NaN) and column 17 has no entries in the chunk
     (cnt = 0)."""
+    from svbfm_tpu_torch.kernels import ovb_sweep as ko
+    from svbfm_tpu_torch.learners.base import BlockData
+
     rng = np.random.default_rng(11)
     N, P, D, F, G = 40, 3, 30, 5, 2
     ids = rng.integers(0, D, size=(N, P)).astype(np.int32)
@@ -1262,7 +1281,8 @@ def ragged_tensors(device) -> list:
               v_nmu=t(rng.normal(0, 5, size=(D, F)).astype(np.float32)),
               v_nsig=t(nsig), v_sv=s["sv"],
               rho_v=t(rng.uniform(0.1, 1.0, size=D).astype(np.float32)),
-              vq=s["q"], vtq=s["tq"], vtz=s["tz"], v_buckets=[bucket],
+              vq=s["q"], vtq=s["tq"], vtz=s["tz"],
+              v_bins=[ko.BinPlan([BlockData(**bucket)])],
               v_ptab_patch=t(ptab[:, :5 * F]))
     return [s, vb, ov, ragged_mcmc_tensors(device),
             *ragged_sgd_tensors(device), ragged_bs_tensors(device)]
@@ -1611,7 +1631,8 @@ def sgd_tensors(sgd, exp, sgda, bpr, device) -> dict:
     """X9a-X9c inputs at the paths' shapes: a batch of train rows as SGD
     and exp-SGD take them (1024), SGDA's theta batch and validation batch,
     a BPR pair batch with its negatives; a random table, SGDA regs and
-    caches."""
+    caches.  Also the SGD batch on a table of ML-10M's width, D = 82,248
+    (``sgd_wide``), where X9b's time must not grow with D."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     D, K = sgd.cfg.num_attributes, sgd.cfg.num_factor
     G = sgda.cfg.num_groups
@@ -1640,7 +1661,95 @@ def sgd_tensors(sgd, exp, sgda, bpr, device) -> dict:
                     ("exp", exp.mode, "row", rows),
                     ("sgda", sgda.mode, "sgda", batch(sgda, sgda.train_row)),
                     ("pair", bpr.mode, "pair", pairs + (neg,))])
-    return dict(tag="sgd", sgd=g)
+    wide = dict(tab=randn(ML10M_FEATURES, 1 + K), w0=g["w0"],
+                modes=[("regression-wide", sgd.mode, "row", rows)])
+    return dict(tag="sgd", sgd=g, sgd_wide=wide)
+
+
+# X9b's seeded cases: (label, D, B); the SGD path's shape at ML-1M's width,
+# the regression mode at ML-10M's, and BPR's batch of 11,063 pairs, which
+# names more entries than there are attributes
+X9B_SEEDED = (("regression", NUM_USERS + NUM_ITEMS, 1024),
+              ("sgda", NUM_USERS + NUM_ITEMS, 1024),
+              ("pair", NUM_USERS + NUM_ITEMS, 1024),
+              ("regression-wide", ML10M_FEATURES, 1024),
+              ("pair-bpr", NUM_USERS + NUM_ITEMS, 11063))
+
+
+def x9b_inputs(device, label: str, D: int, B: int):
+    """X9b's inputs on a seeded batch of B rows of a user and an item
+    (K = 20) on a table of D rows, in the mode ``label`` names: (tab, w0,
+    ws, m, ids, neg, sgda, outs), ``outs`` the tensors X9b writes.  The
+    accumulator and owners are made, not scattered by X9a (whose float
+    atomics add in a run's own order): counts of 0-3 and
+    gradients at the attributes the batch names, zero elsewhere, a tenth
+    of the named rows with no count, a twentieth all zero."""
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    users, P, Kd, G = NUM_USERS, 2, K, 2
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=device)
+
+    ids = torch.stack([
+        torch.randint(0, users, (B,), generator=gen, device=device),
+        torch.randint(users, D, (B,), generator=gen, device=device)],
+        1).to(torch.int32)
+    neg = (torch.randint(users, D, (B,), generator=gen, device=device,
+                         dtype=torch.int32) if label.startswith("pair")
+           else None)
+    entries = (ids.reshape(-1) if neg is None else
+               torch.cat([ids.reshape(-1), neg])).long()
+    named = torch.unique(entries)
+    sgda = label == "sgda"
+    ws = ks.make_workspace(D, Kd, device, sgda_batch=(B, P) if sgda
+                           else None, G=G)
+    ws.owner[entries] = torch.arange(entries.numel(), dtype=torch.int32,
+                                     device=device)  # X9a's record
+    n = named.numel()
+    grads = 0.1 * (2 * rand(n, 1 + Kd) - 1)
+    grads *= (rand(n, 1) > 0.05).float()
+    ws.acc[named, 0] = torch.floor(4 * rand(n)) * (rand(n) > 0.1).float()
+    ws.acc[named, 1:] = grads
+    ws.acc0.copy_(torch.tensor([float(B), 3.0], device=device))
+    tab = 0.1 * (2 * rand(D, 1 + Kd) - 1)
+    w0 = torch.tensor(3.5, device=device)
+    m = ks.StepMode(ks.LOSS_PAIR if neg is not None else
+                    ks.LOSS_REGRESSION, K=Kd, lr=0.1,
+                    mult_scale=2.0 if sgda else 1.0, base_w=0.999,
+                    base_v=0.998, w0_base=0.9999, w0_grad=neg is None)
+    extra, outs = None, [tab, w0, ws.acc, ws.acc0]
+    if sgda:
+        flat = torch.arange(B * P, dtype=torch.int32, device=device)
+        ws.winner.scatter_reduce_(0, ids.reshape(-1).long(), flat, "amax")
+        ws.gw_e.copy_(0.1 * rand(B, P))
+        ws.gv_e.copy_(0.1 * rand(B, P, Kd))
+        grad_tab = 0.1 * rand(D, 1 + Kd)
+        attr_group = (torch.arange(D, device=device) >= users).to(
+            torch.int32)
+        extra = (0.5 * rand(G), 0.5 * rand(G, Kd), attr_group, grad_tab)
+        outs += [grad_tab, ws.winner]
+    return tab, w0, ws, m, ids, neg, extra, outs
+
+
+def x9b_digests(device) -> dict:
+    """sha256 (16 hex digits) of X9b's outputs after one call on each of
+    ``X9B_SEEDED``'s inputs (``x9b_inputs``): a later run or a change to
+    X9b is held to these bits."""
+    import hashlib
+
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    out = {}
+    for label, D, B in X9B_SEEDED:
+        *args, outs = x9b_inputs(device, label, D, B)
+        ks.sgd_apply(*args)
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.cpu().numpy().tobytes())
+        out[label] = h.hexdigest()[:16]
+    return out
 
 
 def ragged_sgd_tensors(device) -> list:
@@ -2376,7 +2485,8 @@ def main() -> int:
     bsp = bs_problem(BS_ROWS, BS_SLOTS, holdout=False)
     bs_mcmc = bs_learner(bsp, dev, num_factor=K, regw=BS_REG, regv=BS_REG)
     shapes = [[tuple(b.rows.shape[1:]) for b in bb] for bb in plan.blocks]
-    cshapes = [[tuple(b.rows.shape) for b in bb] for bb in ovb.chunks[0][1].blocks]
+    cshapes = [[tuple(b.rows.shape) for b in p.buckets]
+               for p in ovb.chunks[0][1]]
     say("data", t0, train_rows=tr.num_rows, test_rows=te.num_rows,
         features=D, buckets=str(shapes).replace(" ", ""),
         ovb_chunk_rows=int(ovb.chunk_sizes[0]),
@@ -2420,6 +2530,8 @@ def main() -> int:
                   f"library_ms={lib} bound_ms={bound(c)[0]:.4f} "
                   f"({bound(c)[1]}) {c['note']}".rstrip())
     say("kernels", t0, compared=len(report), tol=KERNEL_TOL)
+    t0 = time.perf_counter()
+    say("x9b-digest", t0, **x9b_digests(dev))
 
     # ---- 3. batch VB, fast mode, on the card ---------------------------------
     t0 = time.perf_counter()

@@ -25,14 +25,38 @@
 //   row's sampled negative; mult = -sigmoid(-(p_pos - p_neg)); the negative
 //   row adds -mult times its gradients, and its count only where its id
 //   differs).  Adding a zero is skipped: it cannot change a sum that starts
-//   at +0.
-// X9b sgd_apply: one warp per attribute, lanes over its 1+K channels:
+//   at +0.  A row's warp also writes the owner of each attribute the row
+//   names for X9b, a lane an entry: owner[id] = the flat index of one of
+//   the batch's entries naming id (b P + p; B P + b for the row's sampled
+//   item in pair mode), whichever store lands last.
+// X9b sgd_apply: over the batch's own entries, not over all D attributes:
+//   the B P entries of the batch and, in pair mode, the B sampled items, G
+//   lanes an entry (G the next power of two >= 1+K, at most 32, so an
+//   entry's lanes sit in one warp).  The entry that X9a recorded as the
+//   owner of its attribute (owner[id] == its index: exactly one entry of
+//   the batch) takes the row's step, lanes over its 1+K channels:
 //   theta <- theta * max(1 - lr reg, 0)^cnt - damp(cnt) g / max(cnt, 1),
 //   damp(c) = (1 - (1 - rate)^c) / mult_scale; reg a scalar (its base
-//   precomputed on the host) or 2 reg[attr_group[d]] (SGDA).  Thread 0 of
-//   block 0 updates w0 from (n_eff, sum mult) and zeroes acc0; in SGDA mode
-//   each attribute copies its winning entry's gradients into the last-seen
-//   caches grad_tab [D, 1+K] and resets winner to -1.
+//   precomputed on the host) or 2 reg[attr_group[d]] (SGDA).  The owner
+//   zeroes the row's accumulator; in SGDA mode it first copies its winning
+//   entry's gradients into the last-seen caches grad_tab [D, 1+K] and
+//   resets winner to -1.  Thread 0 of block 0 updates w0 from (n_eff, sum
+//   mult) and zeroes acc0.  The owner table is read, never reset: the next
+//   batch's X9a writes its own entries' owners, so a graph of launches, or
+//   X9b run again on one accumulator, finds the same owners.  Where a
+//   batch names at least D entries (BPR's 11,063 pairs: 33,189 entries
+//   over 9,992 attributes), the wrapper passes no ids and a second kernel
+//   steps every attribute instead, a warp each: the same rows' steps
+//   (step_row) in fewer threads.
+//   Why the rows no entry names can be left alone: X9a writes acc only at
+//   the ids of the batch's entries (the positive rows' ids and, in pair
+//   mode, the negative rows', whose ids are the positive ones or the
+//   row's sampled item) and never adds a zero, so every other accumulator
+//   row holds +0, and the dense step there is t pow(base, 0) - 0 0 / 1 = t,
+//   for NaN and +-inf too (pow(x, 0) = 1 for every x, damp(0) = 0); its
+//   winner is -1.  Entries with x = 0, rows with valid = 0 and negatives
+//   equal to the positive item are in the list, so whatever they add is
+//   applied.
 // X9c sgda_lambda: one warp per validation row: the forecast
 //   theta' = theta - lr (grad + 2 reg theta) at the row's entries, the
 //   clamped prediction, grad_loss = 2 (p - y) valid, and the per-group
@@ -42,11 +66,12 @@
 //   zeroes the sums and the counter.
 //
 // Bound: memory and launches.  At the ML-1M shape (B = 1024 rows, P = 2,
-// K = 20, D = 9,992) X9a moves ~0.3 MB and X9b ~3.4 MB (it reads and
-// writes the whole table and accumulator), a few microseconds at HBM rate
-// and less from L2; an epoch is ~2,000 launches, so the host's launch rate
-// sets its pace.  The TPU design avoided scatters (they serialise there);
-// here float atomics into L2-resident tables take their place.
+// K = 20) X9a moves ~0.3 MB, X9b the ~2,000 rows the batch names (~0.35
+// MB), whatever D is: a few microseconds at HBM rate and less from L2,
+// set by the latency of three reads in a row (the entry's id, its owner,
+// the row); an epoch is ~2,000 launches, so the host's launch rate sets
+// its pace.  The TPU design avoided scatters (they serialise there); here
+// float atomics into L2-resident tables take their place.
 #include "svbfm_common.cuh"
 
 namespace {
@@ -66,6 +91,12 @@ __device__ __forceinline__ float quiet_nan() {
 
 // jnp.maximum(x, 0): a NaN stays NaN
 __device__ __forceinline__ float max0_nan(float x) { return x < 0.f ? 0.f : x; }
+
+// a store that may race with stores of other values to the same word (one
+// of them lands), without waiting on anything
+__device__ __forceinline__ void store_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v));
+}
 
 struct Scatter {
   const float* tab;
@@ -92,6 +123,7 @@ struct Scatter {
   float* gw_e;  // SGDA only (else null)
   float* gv_e;
   int* winner;
+  int* owner;  // [D]: an entry of the batch naming each attribute
 };
 
 // the entry's id in the positive row, or in the negative row of a pair
@@ -170,6 +202,10 @@ __global__ void sgd_grad_scatter_kernel(Scatter a) {
     const float* rx = a.vals + b * a.P;
     const float valid = a.valid[b];
     const int negb = a.loss == kLossPair ? a.neg[b] : 0;
+    // X9b's owners, a lane an entry (the sampled item's after the pair's
+    // scatter, when neg[b] has long arrived)
+    for (int p = lane; p < a.P; p += 32)
+      store_relaxed(&a.owner[rid[p]], static_cast<int>(b * a.P + p));
     const float p = row_score(a, rid, rx, false, 0, lane);
     float mult;
     if (a.loss == kLossPair) {
@@ -181,8 +217,11 @@ __global__ void sgd_grad_scatter_kernel(Scatter a) {
       mult = a.mult_scale * (clip_nan(p, a.min_t, a.max_t) - a.y[b]) * valid;
     }
     scatter_row(a, rid, rx, false, negb, mult, valid, b, lane);
-    if (a.loss == kLossPair)
+    if (a.loss == kLossPair) {
       scatter_row(a, rid, rx, true, negb, -mult, valid, b, lane);
+      if (lane == 0)
+        store_relaxed(&a.owner[negb], static_cast<int>(a.B * a.P + b));
+    }
     n_eff = valid;
     msum = mult;
   }
@@ -201,7 +240,6 @@ __global__ void sgd_grad_scatter_kernel(Scatter a) {
 struct Apply {
   float* tab;
   int K;
-  int64_t D;
   float* acc;
   float lr;
   float decay;  // 1 - min(lr mult_scale, 1)
@@ -221,27 +259,35 @@ struct Apply {
   const float* gw_e;
   const float* gv_e;
   float* grad_tab;
+  const int* ids;  // the batch's entries [n_pos]; null: every attribute
+  int64_t n_pos;
+  const int* neg;  // pair mode: the rows' sampled items [n_neg] (else null)
+  int64_t n_neg;
+  const int* owner;  // [D], from X9a
+  int lanes;         // G, lanes an entry
 };
 
 __device__ __forceinline__ float damp(const Apply& a, float c) {
   return (1.f - powf(a.decay, c)) / a.mult_scale;
 }
 
-__global__ void sgd_apply_kernel(Apply a) {
-  const int lane = threadIdx.x & 31;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const float n = a.acc0[0], g0 = a.acc0[1];
-    if (a.k0) {
-      float w0 = *a.w0 * powf(a.w0_base, n);
-      if (a.w0_grad) w0 = w0 - damp(a, n) * g0 / fmaxf(n, 1.f);
-      *a.w0 = w0;
-    }
-    a.acc0[0] = 0.f;
-    a.acc0[1] = 0.f;
+// w0's step from (n_eff, sum mult), and acc0 zeroed: thread 0 of block 0
+__device__ __forceinline__ void w0_step(const Apply& a) {
+  const float n = a.acc0[0], g0 = a.acc0[1];
+  if (a.k0) {
+    float w0 = *a.w0 * powf(a.w0_base, n);
+    if (a.w0_grad) w0 = w0 - damp(a, n) * g0 / fmaxf(n, 1.f);
+    *a.w0 = w0;
   }
-  const int64_t d =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (d >= a.D) return;  // the whole warp leaves together
+  a.acc0[0] = 0.f;
+  a.acc0[1] = 0.f;
+}
+
+// Attribute d's step, by the G lanes of `group` (lane the caller's among
+// them) over the row's 1+K channels; its accumulator row zeroed, and in
+// SGDA mode its winner's gradients copied into the caches.
+__device__ __forceinline__ void step_row(const Apply& a, int64_t d, int lane,
+                                         int G, unsigned group) {
   const int ld = a.K + 1;
   float* acc_d = a.acc + d * (a.K + 2);
   float* t = a.tab + d * ld;
@@ -249,7 +295,7 @@ __global__ void sgd_apply_kernel(Apply a) {
   const float cnt1 = fmaxf(cnt, 1.f);
   const float dc = damp(a, cnt);
   const int g = a.attr_group != nullptr ? a.attr_group[d] : 0;
-  for (int c = lane; c < ld; c += 32) {
+  for (int c = lane; c < ld; c += G) {
     if (c == 0 && !a.k1) continue;
     float base;
     if (a.attr_group != nullptr) {
@@ -264,17 +310,43 @@ __global__ void sgd_apply_kernel(Apply a) {
   if (a.winner != nullptr) {
     const int wi = a.winner[d];
     if (wi >= 0) {
-      for (int c = lane; c < ld; c += 32)
+      for (int c = lane; c < ld; c += G)
         a.grad_tab[d * ld + c] =
             c == 0 ? a.gw_e[wi]
                    : a.gv_e[static_cast<int64_t>(wi) * a.K + c - 1];
     }
   }
-  __syncwarp();  // every lane has read cnt and winner
+  __syncwarp(group);  // every lane has read cnt and winner
   if (lane == 0) {
     acc_d[0] = 0.f;
     if (a.winner != nullptr) a.winner[d] = -1;
   }
+}
+
+// X9b over the batch's entries: G lanes an entry, the owner steps its row.
+__global__ void sgd_apply_kernel(Apply a) {
+  const int G = a.lanes;
+  const int wl = threadIdx.x & 31;
+  const int lead = wl & ~(G - 1);  // the entry's first lane in the warp
+  if (blockIdx.x == 0 && threadIdx.x == 0) w0_step(a);
+  // G is a power of two: a shift, not a 64-bit division
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >>
+      (__ffs(G) - 1);
+  if (i >= a.n_pos + a.n_neg) return;  // an entry's lanes leave together
+  const int id = i < a.n_pos ? a.ids[i] : a.neg[i - a.n_pos];
+  if (a.owner[id] != i) return;
+  step_row(a, id, wl - lead, G,
+           G == 32 ? svbfm::kFullMask : ((1u << G) - 1u) << lead);
+}
+
+// X9b over every attribute (a batch of D entries or more): a warp each.
+__global__ void sgd_apply_dense_kernel(Apply a) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) w0_step(a);
+  const int64_t d =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (d >= a.n_pos) return;  // the whole warp leaves together
+  step_row(a, d, threadIdx.x & 31, 32, svbfm::kFullMask);
 }
 
 struct Lambda {
@@ -439,34 +511,52 @@ inline unsigned warp_blocks(int64_t n) {
 }  // namespace
 
 // X9a.  neg/lo/hi are read in pair mode only; gw_e, gv_e and winner are
-// null unless SGDA's caches are kept.
+// null unless SGDA's caches are kept; owner [D] is X9b's.
 SVBFM_EXPORT int svbfm_sgd_grad_scatter(
     const float* tab, int K, const float* w0, const int* ids, const float* vals,
     const float* y, const float* valid, int64_t B, int P, int loss, int k0,
     int k1, float mult_scale, float min_t, float max_t, float stdev,
     const int* neg, int lo, int hi, float* acc, float* acc0, float* gw_e,
-    float* gv_e, int* winner, cudaStream_t stream) {
+    float* gv_e, int* winner, int* owner, cudaStream_t stream) {
   Scatter a{tab, K, w0, ids, vals, y, valid, B, P, loss, k0, k1, mult_scale,
-            min_t, max_t, stdev, neg, lo, hi, acc, acc0, gw_e, gv_e, winner};
+            min_t, max_t, stdev, neg, lo, hi, acc, acc0, gw_e, gv_e, winner,
+            owner};
   const unsigned blocks = warp_blocks(B);
   if (blocks == 0) return 0;
   sgd_grad_scatter_kernel<<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// X9b.  reg_w/reg_v/attr_group are null in the scalar-reg modes; winner,
-// gw_e, gv_e and grad_tab are null unless SGDA's caches are kept.
+// X9b over the batch's n_pos entries ids and, in pair mode, its n_neg
+// sampled items neg (else null), after X9a on the same batch wrote owner;
+// with ids null, over every attribute, n_pos = D (n_neg = 0).
+// reg_w/reg_v/attr_group are null in the scalar-reg modes; winner, gw_e,
+// gv_e and grad_tab are null unless SGDA's caches are kept.
 SVBFM_EXPORT int svbfm_sgd_apply(
-    float* tab, int K, int64_t D, float* acc, float lr, float decay,
-    float mult_scale, float base_w, float base_v, const float* reg_w,
-    const float* reg_v, const int* attr_group, int k0, int k1, float* w0,
-    float* acc0, float w0_base, int w0_grad, int* winner, const float* gw_e,
-    const float* gv_e, float* grad_tab, cudaStream_t stream) {
-  Apply a{tab, K, D, acc, lr, decay, mult_scale, base_w, base_v, reg_w, reg_v,
+    float* tab, int K, float* acc, float lr, float decay, float mult_scale,
+    float base_w, float base_v, const float* reg_w, const float* reg_v,
+    const int* attr_group, int k0, int k1, float* w0, float* acc0,
+    float w0_base, int w0_grad, int* winner, const float* gw_e,
+    const float* gv_e, float* grad_tab, const int* ids, int64_t n_pos,
+    const int* neg, int64_t n_neg, const int* owner, cudaStream_t stream) {
+  int G = 1;
+  while (G < K + 1 && G < 32) G <<= 1;
+  Apply a{tab, K, acc, lr, decay, mult_scale, base_w, base_v, reg_w, reg_v,
           attr_group, k0, k1, w0, acc0, w0_base, w0_grad, winner, gw_e, gv_e,
-          grad_tab};
-  const unsigned blocks = warp_blocks(D > 0 ? D : 1);
-  sgd_apply_kernel<<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(a);
+          grad_tab, ids, n_pos, neg, n_neg, owner, G};
+  // at least one block: w0's step happens on an empty batch
+  const int per_block = 32 * kWarpsPerBlock;
+  if (ids == nullptr) {
+    sgd_apply_dense_kernel<<<n_pos > 0 ? warp_blocks(n_pos) : 1, per_block,
+                             0, stream>>>(a);
+  } else {
+    const int64_t threads = (n_pos + n_neg) * G;
+    const unsigned blocks =
+        threads > 0
+            ? static_cast<unsigned>((threads + per_block - 1) / per_block)
+            : 1;
+    sgd_apply_kernel<<<blocks, per_block, 0, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -65,8 +65,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P),
     "svbfm_w_patch_rows": (_P, _P, _P, _L, _I, _P, _P, _P),
     "svbfm_ovb_col_stats_update": (
-        _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _P),
+        _P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P),
     "svbfm_build_q": (_P, _L, _I, _P, _P, _L, _I, _P, _P),
     "svbfm_mcmc_w_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P),
@@ -89,10 +89,10 @@ SIGNATURES = {
     "svbfm_gather_probe": (_P, _P, _L, _I, _P, _P),
     "svbfm_sgd_grad_scatter": (
         _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _P,
-        _I, _I, _P, _P, _P, _P, _P, _P),
+        _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "svbfm_sgd_apply": (
-        _P, _I, _L, _P, _F, _F, _F, _F, _F, _P, _P, _P, _I, _I, _P, _P, _F,
-        _I, _P, _P, _P, _P, _P),
+        _P, _I, _P, _F, _F, _F, _F, _F, _P, _P, _P, _I, _I, _P, _P, _F, _I,
+        _P, _P, _P, _P, _P, _L, _P, _L, _P, _P),
     "svbfm_sgda_lambda": (
         _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _F, _F, _F,
         _F, _F, _I, _I, _P, _P, _P),

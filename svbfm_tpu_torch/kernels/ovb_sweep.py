@@ -1,16 +1,19 @@
 """K6: online VB v column statistics + natural-gradient blend
 (``csrc/ovb_sweep.cu``).
 
-``ovb_col_stats_update`` takes one degree bucket of one factor block: the
-per-column, per-factor statistics v_mean and v_sig from the row caches
-(e [N], q/tq [N, F]) and the PRE-BIN mu/sig in channels 0..2F-1 of the
-bin's patch table ``ptab`` [D, 5F]; the blend of the naturals with the
-per-column rate ``rho_v`` [D]; and its writes, in place: mu/sig/eta1/eta2
-[D, F] at the bucket's columns, ptab's delta channels (dmu, dsig, dmu2),
-``tv_add[col] += cnt`` and the int32 [4] counter ``bad`` (nan mu, inf mu,
-nan sig, inf sig candidates).  A column with cnt == 0 leaves all four
-tables untouched and gets zero deltas.  On CUDA tensors the op launches the
-hand-written kernel; on CPU tensors it runs the plain PyTorch twin.
+``ovb_col_stats_update`` takes every degree bucket of one bin of one
+factor block in one launch, from the bin's ``BinPlan`` (built once per
+chunk membership): the per-column, per-factor statistics v_mean and v_sig
+from the row caches (e [N], q/tq [N, F]) and the PRE-BIN mu/sig in
+channels 0..2F-1 of the bin's patch table ``ptab`` [D, 5F]; the blend of
+the naturals with the per-column rate ``rho_v`` [D]; and its writes, in
+place: mu/sig/eta1/eta2 [D, F] at the bin's columns, ptab's delta channels
+(dmu, dsig, dmu2), ``tv_add[col] += cnt`` and the int32 [4] counter
+``bad`` (nan mu, inf mu, nan sig, inf sig candidates).  A column with
+cnt == 0 leaves all four tables untouched and gets zero deltas.  On CUDA
+tensors the op launches the hand-written kernel; on CPU tensors it runs
+the plain PyTorch twin of each bucket, ``ovb_col_stats_update_plain``, in
+the plan's order.
 
 Replaces the bucket body of ``svbfm_tpu/learners/vb_online.py:ovb_v_block``
 (:512-559) and of its F = 1 flat form ``ovb_v_factor`` (:598).
@@ -70,23 +73,91 @@ def ovb_col_stats_update_plain(rows, x, cols, group, cnt, col_count, e, q, tq,
     tv_add.index_add_(0, cols, torch.where(active[:, 0], cnt, zero))
 
 
-def ovb_col_stats_update(rows, x, cols, group, cnt, col_count, e, q, tq, ptab,
-                         mu_t, sig_t, nmu_t, nsig_t, sv, alpha, rho_v, tv_add,
-                         bad) -> None:
-    if build.on_cpu(rows):
-        return ovb_col_stats_update_plain(
-            rows, x, cols, group, cnt, col_count, e, q, tq, ptab, mu_t, sig_t,
-            nmu_t, nsig_t, sv, alpha, rho_v, tv_add, bad)
-    C, L = rows.shape
+# the kernel's threads a block and plan columns (csrc/ovb_sweep.cu)
+_THREADS = 256
+
+
+def _pow2_at_least(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def col_lanes(F: int, L: int) -> int:
+    """U, the lanes K6 gives a column of a bucket of L slots at F factors:
+    FL factor lanes (the next power of two >= F, at most 32) times S entry
+    slots (the next power of two >= L), at most 32
+    (``csrc/ovb_sweep.cu:col_lanes``)."""
+    fl = _pow2_at_least(min(F, 32))
+    return min(32, fl * _pow2_at_least(min(max(L, 1), 32)))
+
+
+def bucket_blocks(C: int, F: int, L: int) -> int:
+    """The blocks of a [C, L] bucket in K6's launch at F factors."""
+    return -(-C * col_lanes(F, L) // _THREADS)
+
+
+class BinPlan:
+    """K6's plan of one bin: its buckets (each with ``rows``, ``x`` [C, L],
+    ``cols``, ``group``, ``cnt``, ``col_count`` [C]) and the int64 table
+    [nb, 8] the kernel reads, a row a bucket: the six tensors' addresses,
+    C and L, on the buckets' device (an empty bin's, never launched, on
+    the CPU).  Built once per set of buckets (an OVB chunk's membership),
+    which it keeps alive; the buckets' checks run here, once."""
+
+    def __init__(self, buckets):
+        self.buckets = tuple(buckets)
+        dev = self.buckets[0].rows.device if self.buckets else "cpu"
+        for i, b in enumerate(self.buckets):
+            C, L = b.rows.shape
+            req = build.require
+            req(b.rows, _I32, (C, L), dev, f"bin_plan.rows[{i}]")
+            req(b.x, _F32, (C, L), dev, f"bin_plan.x[{i}]")
+            for name, dt in (("cols", _I32), ("group", _I32), ("cnt", _F32),
+                             ("col_count", _F32)):
+                req(getattr(b, name), dt, (C,), dev, f"bin_plan.{name}[{i}]")
+        self.rows = tuple(
+            (b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(),
+             b.group.data_ptr(), b.cnt.data_ptr(), b.col_count.data_ptr())
+            + tuple(b.rows.shape) for b in self.buckets)
+        self.table = torch.tensor(self.rows, dtype=torch.int64).reshape(
+            len(self.rows), 8).to(dev)
+        self._blocks = {}
+
+    def blocks(self, F: int) -> int:
+        """The launch's blocks at F factors: the buckets' laid end to
+        end."""
+        n = self._blocks.get(F)
+        if n is None:
+            n = sum(bucket_blocks(C, F, L) for *_, C, L in self.rows)
+            self._blocks[F] = n
+        return n
+
+
+def ovb_bin_update_plain(plan: BinPlan, e, q, tq, ptab, mu_t, sig_t, nmu_t,
+                         nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
+    """The twin of one bin: each bucket's, in the plan's order."""
+    for b in plan.buckets:
+        ovb_col_stats_update_plain(
+            b.rows, b.x, b.cols, b.group, b.cnt, b.col_count, e, q, tq, ptab,
+            mu_t, sig_t, nmu_t, nsig_t, sv, alpha, rho_v, tv_add, bad)
+
+
+def ovb_col_stats_update(plan: BinPlan, e, q, tq, ptab, mu_t, sig_t, nmu_t,
+                         nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
+    """Every bucket of the bin ``plan`` in one launch."""
+    if build.on_cpu(e):
+        return ovb_bin_update_plain(plan, e, q, tq, ptab, mu_t, sig_t, nmu_t,
+                                    nsig_t, sv, alpha, rho_v, tv_add, bad)
     D, F = mu_t.shape
     N = e.shape[0]
-    dev = rows.device
+    dev = e.device
     req = build.require
-    req(rows, _I32, (C, L), dev, "ovb_col_stats_update.rows")
-    req(x, _F32, (C, L), dev, "ovb_col_stats_update.x")
-    for name, a, dt in (("cols", cols, _I32), ("group", group, _I32),
-                        ("cnt", cnt, _F32), ("col_count", col_count, _F32)):
-        req(a, dt, (C,), dev, f"ovb_col_stats_update.{name}")
+    blocks = plan.blocks(F) if F > 0 else 0
+    if blocks and plan.table.device != dev:
+        raise ValueError(f"ovb_col_stats_update.plan: on {plan.table.device}"
+                         f", expected {dev}")
     req(e, _F32, (N,), dev, "ovb_col_stats_update.e")
     req(q, _F32, (N, F), dev, "ovb_col_stats_update.q")
     req(tq, _F32, (N, F), dev, "ovb_col_stats_update.tq")
@@ -99,16 +170,14 @@ def ovb_col_stats_update(rows, x, cols, group, cnt, col_count, e, q, tq, ptab,
     req(rho_v, _F32, (D,), dev, "ovb_col_stats_update.rho_v")
     req(tv_add, _F32, (D,), dev, "ovb_col_stats_update.tv_add")
     req(bad, _I32, (4,), dev, "ovb_col_stats_update.bad")
-    if C == 0 or F == 0:
+    if blocks == 0:
         return
     lib = build.load_library("ovb_sweep")
     with torch.cuda.device(dev):
         rc = lib.svbfm_ovb_col_stats_update(
-            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
-            build.ptr(group), build.ptr(cnt), build.ptr(col_count),
-            build.ptr(e), build.ptr(q), build.ptr(tq), F, build.ptr(ptab),
-            build.ptr(mu_t), build.ptr(sig_t), build.ptr(nmu_t),
-            build.ptr(nsig_t), build.ptr(sv), build.ptr(alpha),
-            build.ptr(rho_v), build.ptr(tv_add), build.ptr(bad),
-            build.stream_of(rows))
+            build.ptr(plan.table), len(plan.rows), blocks, build.ptr(e),
+            build.ptr(q), build.ptr(tq), F, build.ptr(ptab), build.ptr(mu_t),
+            build.ptr(sig_t), build.ptr(nmu_t), build.ptr(nsig_t),
+            build.ptr(sv), build.ptr(alpha), build.ptr(rho_v),
+            build.ptr(tv_add), build.ptr(bad), build.stream_of(e))
     build.check_launch(lib, rc, "ovb_col_stats_update")

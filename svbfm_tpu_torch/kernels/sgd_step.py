@@ -5,10 +5,15 @@ adds each entry's count and gradients into the accumulator ``acc`` [D, 2+K]
 = (cnt | gw | gv) and ``acc0`` [2] = (n_eff, sum mult); ``sgd_apply`` (X9b)
 takes the count-damped step on the table ``tab`` [D, 1+K] = (w | v^T) and
 w0 and zeroes ``acc``/``acc0``; ``sgda_lambda`` (X9c) is SGDA's validation
-step on the group regularisers.  On CUDA tensors each op launches its
-hand-written kernel; on CPU tensors it runs the plain PyTorch twin beside
-it, the JAX arithmetic in the same order (``index_add_`` for the
-scatters).  All three update their outputs in place, kernel and twin alike.
+step on the group regularisers.  X9b's kernel visits only the attributes
+the batch names (``apply_entries``), since every other row's step is the
+identity, each by the one entry that X9a recorded as its owner in the
+workspace, unless the batch names at least D entries, where a second
+kernel steps every attribute; its twin steps every row, as the JAX code
+does.  On CUDA tensors each op launches its hand-written kernel; on CPU
+tensors it runs the plain PyTorch twin beside it, the JAX arithmetic in
+the same order (``index_add_`` for the scatters).  All three update their
+outputs in place, kernel and twin alike.
 
 ``run_batches`` drives an epoch's batches: it validates the tensors once
 and then launches (or runs the twins) batch after batch, so the per-batch
@@ -76,10 +81,12 @@ class Workspace:
     """Scratch that X9a-X9c keep zero (``winner`` at -1) between batches:
     the accumulators, and with SGDA the per-entry gradients of a batch of
     ``B`` rows, the winner per attribute, the lambda sums and the
-    done-counter."""
+    done-counter; and ``owner``, which X9a writes for X9b at the
+    attributes its batch names (one of the batch's entries naming each)."""
 
     acc: torch.Tensor  # [D, 2+K]
     acc0: torch.Tensor  # [2]
+    owner: torch.Tensor  # int32 [D]
     gw_e: Optional[torch.Tensor] = None  # [B, P]
     gv_e: Optional[torch.Tensor] = None  # [B, P, K]
     winner: Optional[torch.Tensor] = None  # int32 [D]
@@ -92,7 +99,8 @@ def make_workspace(D: int, K: int, device, sgda_batch=None,
     """``sgda_batch``: (B, P) of the batches whose entry gradients SGDA
     caches; None for the other learners."""
     ws = Workspace(acc=torch.zeros(D, 2 + K, dtype=_F32, device=device),
-                   acc0=torch.zeros(2, dtype=_F32, device=device))
+                   acc0=torch.zeros(2, dtype=_F32, device=device),
+                   owner=torch.zeros(D, dtype=_I32, device=device))
     if sgda_batch is not None:
         B, P = sgda_batch
         ws.gw_e = torch.zeros(B, P, dtype=_F32, device=device)
@@ -104,6 +112,16 @@ def make_workspace(D: int, K: int, device, sgda_batch=None,
 
 
 # ---- plain twins ------------------------------------------------------------
+
+def apply_entries(ids, neg=None):
+    """The attributes X9b's kernel visits for a batch of fewer entries
+    than attributes, in its order (the entries' flat indices, which X9a
+    records as owners): the batch's B P entries, then, in pair mode, its
+    B sampled items ``neg``.  Every row X9a can write is among them (a
+    negative row's ids are the positive row's or its sampled item)."""
+    flat = ids.reshape(-1)
+    return flat if neg is None else torch.cat([flat, neg.reshape(-1)])
+
 
 def negative_ids(ids, neg, lo: int, hi: int):
     """BPR's negative rows (bpr.py:156-161): the item-field id of each row
@@ -152,10 +170,13 @@ def _add_entries(acc, ids, cnt, gw, gv, m: StepMode):
     acc.index_add_(0, ids.reshape(-1).long(), torch.cat(cols, 1))
 
 
-def sgd_grad_scatter_plain(tab, w0, ids, vals, y, valid, acc, acc0,
+def sgd_grad_scatter_plain(tab, w0, ids, vals, y, valid, acc, acc0, owner,
                            m: StepMode, pair=None, sgda=None) -> None:
-    """``pair`` = (neg [B] int32, lo, hi) for BPR; ``sgda`` = (gw_e [B, P],
-    gv_e [B, P, K], winner [D]) to record SGDA's entry gradients."""
+    """``owner`` [D] takes, at each attribute the batch names, the index of
+    one entry naming it (``apply_entries``), as the kernel records it for
+    X9b; ``pair`` = (neg [B] int32, lo, hi) for BPR; ``sgda`` = (gw_e
+    [B, P], gv_e [B, P, K], winner [D]) to record SGDA's entry
+    gradients."""
     p, s, vg = _scores_sums(tab, w0, ids, vals, m)
     if pair is not None:
         neg, lo, hi = pair
@@ -172,6 +193,9 @@ def sgd_grad_scatter_plain(tab, w0, ids, vals, y, valid, acc, acc0,
         gw_n, gv_n = _entry_grads(-mult, s_n, vg_n, vals, m)
         _add_entries(acc, ids_n, diff, gw_n, gv_n, m)
     acc0 += torch.stack([valid.sum(), mult.sum()])
+    entries = apply_entries(ids, None if pair is None else pair[0])
+    owner[entries.long()] = torch.arange(entries.numel(), dtype=_I32,
+                                         device=ids.device)
     if sgda is not None:
         gw_e, gv_e, winner = sgda
         gw_e.copy_(gw)
@@ -186,7 +210,8 @@ def sgd_grad_scatter_plain(tab, w0, ids, vals, y, valid, acc, acc0,
 def sgd_apply_plain(tab, w0, acc, acc0, m: StepMode, sgda=None) -> None:
     """``sgda`` = (reg_w [G], reg_v [G, K], attr_group [D], winner, gw_e,
     gv_e, grad_tab [D, 1+K]): the per-group regs and the last-seen
-    caches."""
+    caches.  Steps every row: a row whose accumulator is zero keeps its
+    value (pow(base, 0) = 1, damp(0) = 0)."""
     cnt = acc[:, 0]
     cnt1 = torch.clamp(cnt, min=1.0)
     damp = (1.0 - torch.pow(m.decay, cnt)) / m.mult_scale
@@ -300,26 +325,36 @@ class _Steps:
     sampled items in ``pair_range``; ``sgda`` = (reg_w, reg_v, attr_group,
     grad_tab) are SGDA's group regs and last-seen caches, and need the
     workspace's SGDA scratch; ``record`` makes X9a write SGDA's entry
-    gradients and winners into it."""
+    gradients and winners into it.  ``ids`` [nb, B, P]: the batches X9b
+    applies, where ``batches`` is not given."""
 
     def __init__(self, tab, w0, ws: Workspace, m: StepMode, batches=None,
                  negs=None, pair_range=None, sgda=None, record=False,
-                 val_batches=None):
+                 val_batches=None, ids=None):
         dev, D = tab.device, tab.shape[0]
         req = build.require
         req(tab, _F32, (D, 1 + m.K), dev, "sgd_step.tab")
         req(w0, _F32, (), dev, "sgd_step.w0")
         req(ws.acc, _F32, (D, 2 + m.K), dev, "workspace.acc")
         req(ws.acc0, _F32, (2,), dev, "workspace.acc0")
-        self.rows = self.val = self.negs = None
+        req(ws.owner, _I32, (D,), dev, "workspace.owner")
+        self.rows = self.val = self.negs = self.ids = None
+        self.dense = False
         if batches is not None:
             self.rows = _rows_at(batches, dev, "sgd_step")
+            ids = batches[0]
+        if ids is not None:
+            nb, B, P = ids.shape
+            req(ids, _I32, (nb, B, P), dev, "sgd_step.ids")
+            self.ids = (ids.data_ptr(), B * P)
+            # a batch of at least D entries: every attribute, in fewer
+            # threads than its entries (X9b's kernel takes no ids)
+            self.dense = B * P + (B if negs is not None else 0) >= D
         if val_batches is not None:
             self.val = _rows_at(val_batches, dev, "sgd_step.val")
         if negs is not None:
-            B = self.rows[0]
-            req(negs, _I32, (batches[0].shape[0], B), dev, "sgd_step.negs")
-            self.negs = (negs.data_ptr(), B * 4)
+            req(negs, _I32, (nb, B), dev, "sgd_step.negs")
+            self.negs = (negs.data_ptr(), B)
         if record or sgda is not None:
             if ws.gw_e is None:
                 raise ValueError("SGDA's steps need the workspace's SGDA "
@@ -353,7 +388,7 @@ class _Steps:
         """X9a on batch b."""
         m, ws, rec = self.m, self.ws, self.record
         B, P, at = self.rows
-        neg = None if self.negs is None else self.negs[0] + b * self.negs[1]
+        neg = self._neg(b)
         rc = self.lib.svbfm_sgd_grad_scatter(
             build.ptr(self.tab), m.K, build.ptr(self.w0),
             *(base + b * step for base, step in at), B, P,
@@ -361,15 +396,27 @@ class _Steps:
             m.mult_scale, m.min_target, m.max_target, m.stdev, neg, self.lo,
             self.hi, build.ptr(ws.acc), build.ptr(ws.acc0),
             _p(ws.gw_e) if rec else None, _p(ws.gv_e) if rec else None,
-            _p(ws.winner) if rec else None, self.stream)
+            _p(ws.winner) if rec else None, build.ptr(ws.owner), self.stream)
         build.check_launch(self.lib, rc, "sgd_grad_scatter")
 
-    def apply(self) -> None:
-        """X9b on the accumulated batch."""
+    def _neg(self, b: int):
+        """Batch b's sampled items (address), or None."""
+        if self.negs is None:
+            return None
+        return self.negs[0] + 4 * b * self.negs[1]
+
+    def apply(self, b: int) -> None:
+        """X9b on the accumulated batch b: its entries' attributes."""
         m, ws, sg = self.m, self.ws, self.sgda
+        ids, n_pos = self.ids
+        if self.dense:
+            entries = (None, self.tab.shape[0], None, 0)
+        else:
+            entries = (ids + 4 * b * n_pos, n_pos, self._neg(b),
+                       0 if self.negs is None else self.negs[1])
         rc = self.lib.svbfm_sgd_apply(
-            build.ptr(self.tab), m.K, self.tab.shape[0], build.ptr(ws.acc),
-            m.lr, m.decay, m.mult_scale, m.base_w, m.base_v,
+            build.ptr(self.tab), m.K, build.ptr(ws.acc), m.lr, m.decay,
+            m.mult_scale, m.base_w, m.base_v,
             *((build.ptr(sg[0]), build.ptr(sg[1]), build.ptr(sg[2]))
               if sg is not None else (None, None, None)),
             int(m.k0), int(m.k1), build.ptr(self.w0), build.ptr(ws.acc0),
@@ -377,7 +424,7 @@ class _Steps:
             *((build.ptr(ws.winner), build.ptr(ws.gw_e), build.ptr(ws.gv_e),
                build.ptr(sg[3])) if sg is not None
               else (None, None, None, None)),
-            self.stream)
+            *entries, build.ptr(ws.owner), self.stream)
         build.check_launch(self.lib, rc, "sgd_apply")
 
     def lambda_step(self, b: int) -> None:
@@ -411,17 +458,21 @@ def sgd_grad_scatter(tab, w0, ids, vals, y, valid, ws: Workspace,
     sgda = (ws.gw_e, ws.gv_e, ws.winner) if record else None
     if build.on_cpu(ids):
         return sgd_grad_scatter_plain(tab, w0, ids, vals, y, valid, ws.acc,
-                                      ws.acc0, m, pair, sgda)
+                                      ws.acc0, ws.owner, m, pair, sgda)
     with torch.cuda.device(ids.device):
         _Steps(tab, w0, ws, m, _one(ids, vals, y, valid),
                None if pair is None else pair[0][None],
                None if pair is None else pair[1:], record=record).scatter(0)
 
 
-def sgd_apply(tab, w0, ws: Workspace, m: StepMode, sgda=None) -> None:
-    """X9b: ``sgda`` = (reg_w, reg_v, attr_group, grad_tab) for SGDA's
-    per-group regs and last-seen caches (the entry gradients and winners
-    in ``ws``)."""
+def sgd_apply(tab, w0, ws: Workspace, m: StepMode, ids, neg=None,
+              sgda=None) -> None:
+    """X9b after X9a on the batch ``ids`` [B, P] (and, in pair mode, its
+    sampled items ``neg`` [B]): the kernel visits those attributes alone
+    (``apply_entries``), each by the owner X9a recorded in ``ws``, or,
+    where they are D or more, every attribute.  ``sgda`` = (reg_w, reg_v, attr_group, grad_tab)
+    for SGDA's per-group regs and last-seen caches (the entry gradients
+    and winners in ``ws``)."""
     if build.on_cpu(tab):
         extra = None
         if sgda is not None:
@@ -430,7 +481,8 @@ def sgd_apply(tab, w0, ws: Workspace, m: StepMode, sgda=None) -> None:
                      grad_tab)
         return sgd_apply_plain(tab, w0, ws.acc, ws.acc0, m, extra)
     with torch.cuda.device(tab.device):
-        _Steps(tab, w0, ws, m, sgda=sgda).apply()
+        _Steps(tab, w0, ws, m, sgda=sgda, ids=ids[None],
+               negs=None if neg is None else neg[None]).apply(0)
 
 
 def sgda_lambda(tab, grad_tab, w0, reg_w, reg_v, attr_group, ids, vals, y,
@@ -459,7 +511,8 @@ def run_batches(tab, w0, batches, ws: Workspace, m: StepMode, negs=None,
             pair = None if negs is None else (negs[b], *pair_range)
             sgd_grad_scatter(tab, w0, *(t[b] for t in batches), ws, m, pair,
                              sgda is not None)
-            sgd_apply(tab, w0, ws, m, sgda)
+            sgd_apply(tab, w0, ws, m, batches[0][b],
+                      None if negs is None else negs[b], sgda)
             if val_batches is not None:
                 sgda_lambda(tab, sgda[3], w0, *sgda[:3],
                             *(t[b] for t in val_batches), ws, m)
@@ -469,6 +522,6 @@ def run_batches(tab, w0, batches, ws: Workspace, m: StepMode, negs=None,
                        sgda is not None, val_batches)
         for b in range(nb):
             steps.scatter(b)
-            steps.apply()
+            steps.apply(b)
             if val_batches is not None:
                 steps.lambda_step(b)

@@ -62,7 +62,7 @@ def bpr_pair_update(state: BPRState, ids, vals, valid, neg, lo: int, hi: int,
     then X9b.  ``neg`` [B] are the rows' sampled items in [lo, hi)."""
     sgd_grad_scatter(state.tab, state.w0, ids, vals, torch.zeros_like(valid),
                      valid, ws, m, pair=(neg, lo, hi))
-    sgd_apply(state.tab, state.w0, ws, m)
+    sgd_apply(state.tab, state.w0, ws, m, ids, neg)
 
 
 class BPRLearner:

@@ -134,7 +134,7 @@ def sgd_minibatch_update(state: SGDState, ids, vals, y, valid, m: StepMode,
     attribute wins, as XLA's scatter keeps it)."""
     sgd_grad_scatter(state.tab, state.w0, ids, vals, y, valid, ws, m,
                      record=sgda is not None)
-    sgd_apply(state.tab, state.w0, ws, m, sgda)
+    sgd_apply(state.tab, state.w0, ws, m, ids, sgda=sgda)
 
 
 def sgda_lambda_update(state: SGDAState, attr_group, vids, vvals, vy, vvalid,

@@ -883,3 +883,178 @@ def test_col_draw_exact_warp_draw_matches_twin(cuda, F):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), F
     chip_smoke.compare(outs[0], outs[2], f"mcmc_col_draw exact F={F}")
     assert outs[0][2].tolist() == outs[2][2].tolist() == [0, 1]
+
+
+# K6's bin: L = 1, 7, 16 (two columns a warp at F = 1), 33, 300 and an
+# empty bucket, laid end to end in one launch
+_K6_BIN = ((5, 1), (9, 7), (0, 16), (40, 16), (3, 33), (2, 300))
+
+
+@pytest.mark.parametrize("F", [1, 2, 5, 20, 33])
+def test_ovb_bin_launch_matches_twin(cuda, F):
+    """K6 on every bucket of a bin in one launch against the twin bucket by
+    bucket: padding entries (x = 0) in every column, a tenth of the columns
+    with cnt = 0 (zero deltas, tables kept), a NaN residual at one row (its
+    columns' candidates NaN, counted and reverted); the counters, tv_add
+    and every table match, and two launches give the same bits."""
+    _ovb_bin_case(cuda, F, _K6_BIN)
+
+
+@pytest.mark.parametrize("F", [1, 3])
+def test_ovb_bin_of_forty_buckets_matches_twin(cuda, F):
+    """A bin of more buckets than a warp has lanes: the kernel finds a
+    block's bucket 32 buckets a pass, and the second pass holds the
+    last eight (L = 1 to 40)."""
+    _ovb_bin_case(cuda, F, tuple((3 + b % 4, 1 + b) for b in range(40)))
+
+
+def _ovb_bin_case(cuda, F, widths):
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import ovb_sweep as ko
+    from svbfm_tpu_torch.learners.base import BlockData
+
+    rng = np.random.default_rng(F)
+    N, G = 700, 2
+    D = sum(C for C, _ in widths) + 7
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+
+    cols = rng.permutation(D)
+    buckets, at = [], 0
+    for C, L in widths:
+        rows = rng.integers(0, N - 1, (C, L))
+        x = rng.uniform(0.5, 1.5, (C, L))
+        n = rng.integers(1, L + 1, C)
+        pad = np.arange(L)[None, :] >= n[:, None]
+        rows[pad], x[pad] = N - 1, 0.0
+        cnt = n * (rng.random(C) > 0.1)
+        buckets.append(BlockData(
+            rows=t(rows, np.int32), x=t(x), cols=t(cols[at:at + C], np.int32),
+            group=t(rng.integers(0, G, C), np.int32), sx2=t((x * x).sum(1)),
+            cnt=t(cnt), col_count=t(cnt * rng.uniform(5, 20, C))))
+        at += C
+    plan = ko.BinPlan(buckets)
+    e = rng.normal(0, 1, N)
+    e[int(buckets[3].rows[0, 0])] = np.nan
+    ptab = np.zeros((D, 5 * F))
+    ptab[:, :F] = rng.normal(0, 0.3, (D, F))
+    ptab[:, F:2 * F] = rng.uniform(0.01, 0.1, (D, F))
+    fixed = (t(e), t(rng.normal(0, 1, (N, F))), t(rng.uniform(0, 1, (N, F))))
+    tail = (t(rng.uniform(0.5, 2.0, (G, F))),
+            torch.tensor(1.3, device=cuda), t(rng.uniform(0.1, 1.0, D)))
+
+    def state():
+        return [t(ptab), t(ptab[:, :F]), t(ptab[:, F:2 * F]),
+                t(rng.normal(0, 5, (D, F))), t(rng.uniform(20, 60, (D, F))),
+                torch.zeros(D, device=cuda),
+                torch.zeros(4, dtype=torch.int32, device=cuda)]
+
+    base = state()
+    outs = []
+    for fn in (ko.ovb_col_stats_update, ko.ovb_bin_update_plain,
+               ko.ovb_col_stats_update):
+        s = [a.clone() for a in base]
+        fn(plan, *fixed, *s[:5], *tail, *s[5:])
+        outs.append(s)
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs[0], outs[1], f"ovb bin F={F}")
+    for a, b in zip(outs[0], outs[2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bad = outs[0][-1]
+    assert bad[0] > 0 and torch.equal(bad, outs[1][-1])
+    zero = torch.cat([b.cols[b.cnt == 0] for b in buckets]).long()
+    assert zero.numel() > 0
+    assert not outs[0][0][zero, 2 * F:].any()
+    assert torch.equal(outs[0][1][zero], base[1][zero])
+
+
+@pytest.mark.parametrize("mode", ["regression", "sgda", "pair"])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("B", [1, 1024, 4096])
+@pytest.mark.parametrize("D", [9992, 82248])
+@pytest.mark.parametrize("K", [1, 5, 20, 40])
+def test_sgd_apply_matches_twin(cuda, K, D, B, P, mode):
+    """X9b over the batch's own attributes against the dense twin, after
+    X9a's kernel, whose owner record X9b reads: each attribute the batch
+    names (BPR's sampled items too) is owned by an entry naming it.  K = 1
+    and 5 give an entry a group of 2 or 8 lanes, K = 40 loops over its
+    channels.  Duplicate ids, x = 0 entries, valid = 0 rows, an inf target
+    in a valid row and an inf in one accumulator row (inf and NaN
+    gradients), SGDA's winners, BPR's negatives (one equal to its row's
+    item); NaN, +inf, -inf and -0 in table rows no entry names, which keep
+    their bits (their values, NaN for NaN, where the batch names D entries
+    or more and the kernel steps every attribute: B = 4096 at D = 9,992
+    with P = 3, or P = 2 and pairs; pairs of B = 1024 at D = 9,992 name
+    fewer); two launches the same bits; the owners read, not changed."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    rng = np.random.default_rng(D + 10 * B + P + 100_000 * K)
+    G, lo = 2, D // 2
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+
+    ids = np.concatenate([rng.integers(0, 2000, (B, 1)),
+                          rng.integers(lo, lo + 2000, (B, P - 1))], 1)
+    vals = rng.uniform(0.5, 1.5, (B, P)) * (rng.random((B, P)) > 0.1)
+    valid = (rng.random(B) > 0.1).astype(np.float32)
+    y = rng.uniform(1, 5, B)
+    if B > 1:
+        valid[1] = 1.0
+        y[1] = np.inf
+    neg = rng.integers(lo, D - 4, B)
+    neg[0] = ids[0, -1]
+    tab = rng.normal(0, 0.1, (D, 1 + K))
+    tab[[D - 1, D - 2, D - 3, D - 4]] = np.array(
+        [np.nan, np.inf, -np.inf, -0.0])[:, None]
+    bt = (t(ids, np.int32), t(vals), t(y), t(valid))
+    m = ks.StepMode(ks.LOSS_PAIR if mode == "pair" else ks.LOSS_REGRESSION,
+                    K=K, lr=0.05, mult_scale=2.0 if mode == "sgda" else 1.0,
+                    min_target=1.0, max_target=5.0, base_w=0.999,
+                    base_v=0.998, w0_base=0.9999, w0_grad=mode != "pair")
+    sgda = mode == "sgda"
+    ws = ks.make_workspace(D, K, cuda, sgda_batch=(B, P) if sgda else None,
+                           G=G)
+    pair = (t(neg, np.int32), lo, D) if mode == "pair" else None
+    ks.sgd_grad_scatter(t(tab), torch.tensor(3.5, device=cuda), *bt, ws, m,
+                        pair, record=sgda)
+    entries = ks.apply_entries(bt[0], pair and pair[0]).long()
+    assert torch.equal(entries[ws.owner[entries].long()], entries)
+    ws.acc[int(ids[0, 0]), 2] = np.inf  # an inf gradient, in every mode
+    regs = (t(rng.uniform(0, 0.5, G)), t(rng.uniform(0, 0.5, (G, K))),
+            t(np.arange(D) >= lo, np.int32))
+    grad_tab = rng.normal(0, 0.1, (D, 1 + K))
+
+    def run(kernel):
+        w = ks.Workspace(**{k: None if v is None else v.clone()
+                            for k, v in vars(ws).items()})
+        tb, w0, gt = t(tab), torch.tensor(3.5, device=cuda), t(grad_tab)
+        if kernel:
+            ks.sgd_apply(tb, w0, w, m, bt[0], pair and pair[0],
+                         regs + (gt,) if sgda else None)
+        else:
+            ks.sgd_apply_plain(tb, w0, w.acc, w.acc0, m, regs + (
+                w.winner, w.gw_e, w.gv_e, gt) if sgda else None)
+        return [tb, w0, w.acc, w.acc0, gt] + (
+            [w.winner] if sgda else []), w.owner
+
+    (ok, owner), (op, _), (ok2, _) = run(True), run(False), run(True)
+    torch.cuda.synchronize()
+    chip_smoke.compare(ok, op, f"sgd_apply {mode} K={K} D={D} B={B} P={P}")
+    for a, b in zip(ok, ok2):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(owner, ws.owner)
+    assert not ok[2].any() and not ok[3].any()
+    named = torch.zeros(D, dtype=torch.bool, device=cuda)
+    named[entries] = True
+    free = ~named
+    assert free[-4:].all()
+    if ids.size + (B if mode == "pair" else 0) < D:
+        assert torch.equal(ok[0][free].view(torch.int32),
+                           t(tab)[free].view(torch.int32))
+    else:
+        assert torch.equal(ok[0][free].nan_to_num(), t(tab)[free].nan_to_num())
+        assert torch.equal(ok[0][free].isnan(), t(tab)[free].isnan())
+    assert not torch.isfinite(ok[0][named]).all()

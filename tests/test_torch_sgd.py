@@ -447,3 +447,95 @@ def test_ragged_sgd_kernel_cases_on_cpu(K):
                         want[d] = i  # the last kept entry of d
                 assert (want >= 0).sum() > 0
                 assert outs[-1][: len(want)].tolist() == want.tolist()
+
+
+def _modes_of(K):
+    import chip_smoke
+
+    (s,) = [c for c in chip_smoke.ragged_sgd_tensors("cpu")
+            if c["sgd"]["tab"].shape[1] == 1 + K]
+    return s["sgd"]
+
+
+def _scattered(g, m, kind, batch):
+    """The workspace X9a's twin leaves after ``batch`` in ``kind``'s mode,
+    and the batch's sampled items (pair mode) or None."""
+    ids, vals, y, valid = batch[:4]
+    tab = g["tab"]
+    D, K = tab.shape[0], tab.shape[1] - 1
+    sgda = kind == "sgda"
+    neg = batch[4] if kind == "pair" else None
+    ws = ks.make_workspace(D, K, "cpu", sgda_batch=ids.shape if sgda else
+                           None, G=g["reg_w"].shape[0])
+    ks.sgd_grad_scatter_plain(
+        tab, g["w0"], ids, vals, y, valid, ws.acc, ws.acc0, ws.owner, m,
+        None if neg is None else (neg, *g["range"]),
+        (ws.gw_e, ws.gv_e, ws.winner) if sgda else None)
+    return ws, neg
+
+
+@pytest.mark.parametrize("K", [1, 5, 40])
+def test_apply_entries_name_every_row_x9a_writes(K):
+    """X9b's kernel visits the attributes ``apply_entries`` lists: the
+    batch's B P entries, then in pair mode its B sampled items.  Every row
+    X9a's twin writes (a nonzero or NaN count or gradient, a winner) is
+    among them, in each step mode of chip_smoke.py's ragged cases: x = 0
+    entries, a valid = 0 row, a NaN target at K = 5, duplicate ids, and a
+    pair whose negative is its own item.  The owner X9a records for each
+    named attribute is an entry naming it."""
+    g = _modes_of(K)
+    for label, m, kind, batch in g["modes"]:
+        ws, neg = _scattered(g, m, kind, batch)
+        ids = batch[0]
+        entries = ks.apply_entries(ids, neg)
+        B, P = ids.shape
+        assert entries.tolist() == ids.reshape(-1).tolist() + (
+            [] if neg is None else neg.tolist())
+        written = ((ws.acc != 0) | torch.isnan(ws.acc)).any(1)
+        if kind == "sgda":
+            written |= ws.winner >= 0
+        named = torch.zeros_like(written)
+        named[entries.long()] = True
+        assert written.any() and not (written & ~named).any(), label
+        assert torch.equal(entries[ws.owner[entries.long()].long()], entries)
+        if neg is not None:
+            # the negatives write rows the positive entries do not name
+            pos = torch.zeros_like(written)
+            pos[ids.reshape(-1).long()] = True
+            assert (written & ~pos).any()
+            assert set(neg.tolist()) <= set(entries[B * P:].tolist())
+
+
+@pytest.mark.parametrize("K", [1, 5, 40])
+def test_dense_twin_keeps_unnamed_rows_bit_identical(K):
+    """The invariant X9b's kernel relies on to skip the rows no entry
+    names: the dense twin, stepping every row, leaves such a row's table
+    bits as they were, NaN, +inf, -inf and -0 included, and its
+    accumulator at +0, in every step mode (SGDA's per-group regs too)."""
+    g = dict(_modes_of(K))
+    D = g["tab"].shape[0]
+    # four more attributes, which no batch names
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                            -0.0])[:, None].expand(4, 1 + K)
+    g["tab"] = torch.cat([g["tab"], special])
+    g["grad_tab"] = torch.cat([g["grad_tab"], torch.zeros(4, 1 + K)])
+    g["attr_group"] = torch.cat([g["attr_group"],
+                                 torch.zeros(4, dtype=torch.int32)])
+    for label, m, kind, batch in g["modes"]:
+        ws, neg = _scattered(g, m, kind, batch)
+        tab = g["tab"].clone()
+        named = torch.zeros(tab.shape[0], dtype=torch.bool)
+        named[ks.apply_entries(batch[0], neg).long()] = True
+        free = torch.nonzero(~named)[:, 0]
+        assert free[-4:].tolist() == list(range(D, D + 4))
+        before = tab.clone()
+        assert not ws.acc[free].any() and not torch.signbit(
+            ws.acc[free]).any()
+        extra = None
+        if kind == "sgda":
+            extra = (g["reg_w"], g["reg_v"], g["attr_group"], ws.winner,
+                     ws.gw_e, ws.gv_e, g["grad_tab"].clone())
+        ks.sgd_apply_plain(tab, g["w0"].clone(), ws.acc, ws.acc0, m, extra)
+        assert torch.equal(tab[free].view(torch.int32),
+                           before[free].view(torch.int32)), label
+        assert not torch.equal(tab[named], before[named]), label

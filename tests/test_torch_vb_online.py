@@ -30,6 +30,7 @@ from svbfm_tpu.learners.base import FMConfig as JConfig
 from svbfm_tpu.parallel.mesh import make_mesh
 from svbfm_tpu_torch.data.dataset import SparseDataset
 from svbfm_tpu_torch.data.meta import DataMetaInfo
+from svbfm_tpu_torch.kernels import ovb_sweep as ko
 from svbfm_tpu_torch.learners import vb_online as tov
 from svbfm_tpu_torch.learners.base import FMConfig
 from svbfm_tpu_torch.utils.convert import ovb_state_from_jax
@@ -160,6 +161,113 @@ def test_chunk_membership_and_order_match_jax():
     same_chunks()
 
 
+def _bin(widths, seed=0):
+    """A bin of buckets [C, L] for (C, L) in ``widths``, its columns
+    numbered in order."""
+    from svbfm_tpu_torch.learners.base import BlockData
+
+    rng = np.random.default_rng(seed)
+    out, col = [], 0
+    for C, L in widths:
+        out.append(BlockData(
+            rows=torch.from_numpy(rng.integers(0, 50, (C, L)).astype(
+                np.int32)),
+            x=torch.ones(C, L), cols=torch.arange(col, col + C,
+                                                  dtype=torch.int32),
+            group=torch.zeros(C, dtype=torch.int32), sx2=torch.ones(C) * L,
+            cnt=torch.ones(C) * L, col_count=torch.ones(C) * L))
+        col += C
+    return out
+
+
+def _kernel_cover(plan, F):
+    """The (bucket, column, factor) each thread of K6's launch takes its
+    ending step on, as csrc/ovb_sweep.cu maps blocks and lanes: a block's
+    bucket from the plan's C and L, U lanes a column, FL factor lanes
+    times S entry slots, slot 0 ending each factor of a chunk of FL."""
+    from svbfm_tpu_torch.kernels.ovb_sweep import _THREADS, col_lanes
+
+    CL = [(r[6], r[7]) for r in plan.table.tolist()]
+    FL = col_lanes(F, 1)
+    seen = []
+    for blk in range(plan.blocks(F)):
+        first, b = 0, 0
+        while b + 1 < len(CL):
+            n = ko.bucket_blocks(CL[b][0], F, CL[b][1])
+            if blk < first + n:
+                break
+            first, b = first + n, b + 1
+        C, L = CL[b]
+        U = col_lanes(F, L)
+        for th in range(_THREADS):
+            c = ((blk - first) * _THREADS + th) // U
+            lane = th % U
+            if c >= C or lane // FL:
+                continue
+            for f0 in range(0, F, FL):
+                if f0 + lane % FL < F:
+                    seen.append((b, c, f0 + lane % FL))
+    return seen
+
+
+@pytest.mark.parametrize("F", [1, 2, 5, 20, 33])
+def test_bin_plan_covers_every_column_once(F):
+    """K6's plan of a bin whose buckets have L = 1, 7, 16, 33 and 300 and
+    one is empty: the table holds each bucket's tensors, C and L in the
+    bin's order, and the launch the kernel makes from it takes the ending
+    step of every (column, factor) of every bucket exactly once."""
+    widths = [(5, 1), (9, 7), (0, 16), (40, 16), (3, 33), (2, 300)]
+    buckets = _bin(widths)
+    plan = ko.BinPlan(buckets)
+    assert plan.buckets == tuple(buckets)
+    assert plan.table.dtype == torch.int64 and plan.table.shape == (6, 8)
+    for row, b in zip(plan.table.tolist(), buckets):
+        assert row == [b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(),
+                       b.group.data_ptr(), b.cnt.data_ptr(),
+                       b.col_count.data_ptr(), *b.rows.shape]
+    assert torch.equal(ko.BinPlan(buckets).table, plan.table)
+    seen = _kernel_cover(plan, F)
+    want = [(b, c, f) for b, (C, _) in enumerate(widths) for c in range(C)
+            for f in range(F)]
+    assert sorted(seen) == want  # each once
+    assert plan.blocks(F) == sum(ko.bucket_blocks(C, F, L)
+                                 for C, L in widths)
+    assert ko.BinPlan([]).blocks(F) == 0
+
+
+def test_bin_plans_rebuilt_with_membership():
+    """The learner keeps a BinPlan for each bin of each chunk, built from
+    that chunk's own buckets (their counts are the chunk's), and builds
+    them anew when reshuffle re-draws the membership."""
+    _, tl, _ = _pair(num_rows=400, num_users=17, num_items=13,
+                     num_batches=3, reshuffle=True)
+    D = tl.cfg.num_attributes
+
+    def check():
+        assert len(tl.chunks) == tl.num_chunks
+        for row, bins in tl.chunks:
+            cnt = np.zeros(D)
+            for plan in bins:
+                assert isinstance(plan, ko.BinPlan)
+                assert plan.table.tolist() == [
+                    [b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(),
+                     b.group.data_ptr(), b.cnt.data_ptr(),
+                     b.col_count.data_ptr(), *b.rows.shape]
+                    for b in plan.buckets]
+                for b in plan.buckets:
+                    cnt[b.cols.numpy()] += b.cnt.numpy()
+            ids, vals = row.ids.numpy(), row.vals.numpy()
+            np.testing.assert_array_equal(
+                cnt, np.bincount(ids[vals != 0], minlength=D))
+        return [plan for _, bins in tl.chunks for plan in bins]
+
+    before, perm = check(), tl.member_perm.copy()
+    tl._reshuffle_membership()
+    after = check()
+    assert not np.array_equal(perm, tl.member_perm)
+    assert not any(a is b for a in after for b in before)
+
+
 def test_ovb_matches_serial_oracle():
     """As test_vb_online.py:33-67 holds the JAX learner (its tolerances)."""
     jl, tl, tr = _pair(factor_block=1)
@@ -203,11 +311,22 @@ def test_k1_matches_jax_flat_factor_path(monkeypatch):
     _assert_histories_close(th, jh)
 
 
-@pytest.mark.parametrize("K,factor_block", [(3, 2), (0, 1)])
-def test_factor_blocks_and_k0_match_jax(K, factor_block):
+# test_vb_online.py:175's shape: 400 rows, 17 users, 13 items
+JAX_TEST_SHAPE = dict(num_rows=400, num_users=17, num_items=13)
+
+
+@pytest.mark.parametrize("K,factor_block,shape", [
+    (3, 2, {}), (0, 1, {}), (1, 1, JAX_TEST_SHAPE), (3, 3, JAX_TEST_SHAPE)])
+def test_factor_blocks_and_k0_match_jax(K, factor_block, shape):
     """(3, 2): the narrower last block against JAX's padded, masked one;
-    (0, 1): no factors, the w sweep alone."""
-    jl, tl, _ = _pair(K=K, num_batches=3, factor_block=factor_block)
+    (0, 1): no factors, the w sweep alone; K = 1 and 3 on the JAX tests'
+    shape, whose bins hold several buckets each: K6 runs a bin at a time
+    from its BinPlan (on the CPU its twin, bucket by bucket)."""
+    jl, tl, _ = _pair(K=K, num_batches=3, factor_block=factor_block,
+                      **shape)
+    if shape:
+        bins = [plan for _, bb in tl.chunks for plan in bb]
+        assert sum(len(plan.buckets) for plan in bins) > len(bins)
     tn, th, jn, jh = _run_both(jl, tl, 2)
     _assert_states_close(tn, jn)
     _assert_histories_close(th, jh)
