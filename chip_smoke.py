@@ -74,7 +74,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
  26. sgd-quality: SGD test RMSE at epochs 1/10/30 and SGDA (dim 1,1,8,
      learn rate 0.01) at iterations 1-20 beside the reference C++'s
      (information).
- 27. sgd-profile: device time of one SGD epoch by kernel.
+ 27. sgd-profile: device time of one SGD epoch by kernel; sgda-profile:
+     of one SGDA iteration with its lambda steps, and X9c's share.
  28. exp-sgd: the full-batch exponential-family sweep (-method exp_sgd,
      learn rate 0.5), factor_block 0, 5 sweeps: X9d's two modes, X8b, X8d,
      the w patch and K1 launched, test RMSE falling; sec/iter, peak memory.
@@ -942,11 +943,10 @@ def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
     sgda = kind == "sgda"
     pair = (batch[4], *g["range"]) if kind == "pair" else None
     neg = batch[4] if kind == "pair" else None
-    G = g["reg_w"].shape[0] if sgda else 0
 
     def fresh_ws():
         return ks.make_workspace(D, K, tab.device,
-                                 sgda_batch=(B, P) if sgda else None, G=G)
+                                 sgda_batch=(B, P) if sgda else None)
 
     def ws_out(ws):
         return [ws.acc, ws.acc0] + ([ws.gw_e, ws.gv_e, ws.winner]
@@ -1013,22 +1013,39 @@ def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
              n_t * (1 + K) * 8))
     if not sgda:
         return
-    vids, vvals, vy, vvalid = g["val"]
+    for tab_v, grad_tab, reg_v, val, mv in [
+            (tab, g["grad_tab"], g["reg_v"], g["val"], m),
+            *g.get("lambda_more", ())]:
+        x9c_case(add, label, tab_v, grad_tab, w0, g["reg_w"], reg_v,
+                 g["attr_group"], val, mv)
+
+
+def x9c_case(add, label: str, tab, grad_tab, w0, reg_w, reg_v, attr_group,
+             val, m) -> None:
+    """X9c on the validation batch ``val`` in step mode ``m``.  The bytes
+    count the batch, the table and cache rows it names with their groups,
+    and the regs read and written."""
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    D, K = tab.shape[0], tab.shape[1] - 1
+    G = reg_w.shape[0]
+    vids, vvals, vy, vvalid = val
     Bv, Pv = vids.shape
+    ws = ks.make_workspace(D, K, tab.device)
 
     def x9c(variant, inp):
-        rw, rv, ws = inp
-        args = (tab, g["grad_tab"], w0, rw, rv, g["attr_group"], vids, vvals,
-                vy, vvalid)
+        rw, rv = inp
+        args = (tab, grad_tab, w0, rw, rv, attr_group, vids, vvals, vy,
+                vvalid)
         if variant == "kernel":
             ks.sgda_lambda(*args, ws, m)
         else:
             ks.sgda_lambda_plain(*args, m)
-        return [rw, rv, ws.dreg, ws.done]
+        return [rw, rv]
 
     n_uv = int(torch.unique(vids).numel())
-    add("sgda_lambda", f"{label} Bv={Bv} G={G}",
-        lambda: (g["reg_w"].clone(), g["reg_v"].clone(), fresh_ws()), x9c,
+    add("sgda_lambda", f"{label} Bv={Bv} G={G} K={K}",
+        lambda: (reg_w.clone(), reg_v.clone()), x9c,
         cost(Bv * (Pv * 8 + 8) + n_uv * ((1 + K) * 8 + 4)
              + G * (1 + K) * 8, Bv * Pv * K * 30))
 
@@ -1663,6 +1680,18 @@ def sgd_tensors(sgd, exp, sgda, bpr, device) -> dict:
                     ("pair", bpr.mode, "pair", pairs + (neg,))])
     wide = dict(tab=randn(ML10M_FEATURES, 1 + K), w0=g["w0"],
                 modes=[("regression-wide", sgd.mode, "row", rows)])
+    # X9c also at the [sgd-quality] SGDA's width, K = 8, and on 1,000
+    # validation rows, several a warp
+    n_val = sgda.val_row.ids.shape[0]
+    wide_val = torch.randperm(n_val, generator=gen, device=device)[:1000]
+    g["lambda_more"] = [
+        (randn(D, 1 + SGDA_K), randn(D, 1 + SGDA_K),
+         0.5 * torch.rand(G, SGDA_K, generator=gen, device=device), g["val"],
+         dataclasses.replace(sgda.mode, K=SGDA_K)),
+        (g["tab"], g["grad_tab"], g["reg_v"],
+         tuple(t.index_select(0, wide_val) for t in (
+             sgda.val_row.ids, sgda.val_row.vals, sgda.val_row.target,
+             sgda.val_row.valid)), sgda.mode)]
     return dict(tag="sgd", sgd=g, sgd_wide=wide)
 
 
@@ -1704,7 +1733,7 @@ def x9b_inputs(device, label: str, D: int, B: int):
     named = torch.unique(entries)
     sgda = label == "sgda"
     ws = ks.make_workspace(D, Kd, device, sgda_batch=(B, P) if sgda
-                           else None, G=G)
+                           else None)
     ws.owner[entries] = torch.arange(entries.numel(), dtype=torch.int32,
                                      device=device)  # X9a's record
     n = named.numel()
@@ -1874,10 +1903,12 @@ def probe_gathers(sets) -> list:
     return lines
 
 
-def profile_run(fn, n: int, unit: str, phase: str) -> float:
+def profile_run(fn, n: int, unit: str, phase: str, focus: str = "") -> float:
     """Device time by kernel over ``n`` units of ``fn`` (one call), and the
     device's busy share of the wall time under the profiler (which slows
-    the host, so the share reads low).  Returns the device µs a unit."""
+    the host, so the share reads low); with ``focus``, also the time and
+    share of the kernels whose names hold it.  Returns the device µs a
+    unit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1899,11 +1930,15 @@ def profile_run(fn, n: int, unit: str, phase: str) -> float:
     for us, count, key in rows[:15]:
         print(f"  profile {us / n:10.1f} us/{unit} {count // n:6d}x/{unit} "
               f"{100 * us / busy:5.1f}% {key[:90]}")
-    say(phase, t0, **{f"{unit}s": n,
-                      f"wall_us_per_{unit}": f"{wall_us / n:.1f}",
-                      f"device_us_per_{unit}": f"{busy / n:.1f}",
-                      "device_busy_share": f"{busy / wall_us:.3f}",
-                      f"device_ops_per_{unit}": sum(r[1] for r in rows) // n})
+    kv = {f"{unit}s": n, f"wall_us_per_{unit}": f"{wall_us / n:.1f}",
+          f"device_us_per_{unit}": f"{busy / n:.1f}",
+          "device_busy_share": f"{busy / wall_us:.3f}",
+          f"device_ops_per_{unit}": sum(r[1] for r in rows) // n}
+    if focus:
+        us = sum(r[0] for r in rows if focus in r[2])
+        kv.update({f"{focus}_us_per_{unit}": f"{us / n:.1f}",
+                   f"{focus}_share": f"{us / busy:.3f}"})
+    say(phase, t0, **kv)
     return busy / n
 
 
@@ -2230,9 +2265,11 @@ def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
                                     for i, v in REF_SGDA_RMSE.items()),
         sgda_sec_per_iter=med(hqa))
 
-    # ---- 27. where an SGD epoch's device time goes --------------------------
+    # ---- 27. where an SGD epoch's and an SGDA iteration's device time goes -
     profile_run(lambda: sgd.run(sstate, num_iter=1, verbose=False), 1,
                 "epoch", "sgd-profile")
+    profile_run(lambda: sgda.epoch(astate, 1), 1, "iteration",
+                "sgda-profile", focus="sgda_lambda")
     return l_sgd, l_online, l_exp, l_sgda, l_bpr
 
 
@@ -2521,13 +2558,18 @@ def main() -> int:
     missing = sorted(set(SOURCES) - set(report))
     if missing:
         raise AssertionError(f"kernels with no case: {missing}")
+    # the launch floor: what a kernel that does nothing costs in a graph
+    # replay (a reference for the latency-bound kernels, not a kernel)
+    one = torch.zeros(1, device=dev)
+    print(f"  launch floor: ms={cuda_ms(one.zero_, 20):.4f} (graph replay "
+          "of a one-element zero_())", flush=True)
     for name, r in report.items():
         print(f"  kernel {name}: max_abs_err={r['max_abs_err']:.3e} "
               f"(tol {KERNEL_TOL:g} x scale)", flush=True)
         for label, ms, pms, lms, c in r["times"]:
             lib = "null" if lms is None else f"{lms:.4f}"
             print(f"    {label}: ms={ms:.4f} plain_ms={pms:.4f} "
-                  f"library_ms={lib} bound_ms={bound(c)[0]:.4f} "
+                  f"library_ms={lib} bound_ms={bound(c)[0]:.6f} "
                   f"({bound(c)[1]}) {c['note']}".rstrip())
     say("kernels", t0, compared=len(report), tol=KERNEL_TOL)
     t0 = time.perf_counter()

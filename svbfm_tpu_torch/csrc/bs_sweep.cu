@@ -80,7 +80,7 @@
 // memory; past the widths where two tiles of whole rows fit, the rows go
 // without wcc and the owners read it from L2.  At F <= 1 the threads
 // stride over the entries.  With S > 1 the last block of a column to
-// finish (a done-counter, as X9c) adds the S partials in a fixed order and
+// finish (a done-counter) adds the S partials in a fixed order and
 // draws.  X10c: one warp per relation row, lanes over factors.
 #include "mcmc_draw.cuh"
 

@@ -78,11 +78,12 @@ def f32_sub(a: float, b: float) -> float:
 
 @dataclass
 class Workspace:
-    """Scratch that X9a-X9c keep zero (``winner`` at -1) between batches:
-    the accumulators, and with SGDA the per-entry gradients of a batch of
-    ``B`` rows, the winner per attribute, the lambda sums and the
-    done-counter; and ``owner``, which X9a writes for X9b at the
-    attributes its batch names (one of the batch's entries naming each)."""
+    """Scratch that X9a and X9b keep zero (``winner`` at -1) between
+    batches: the accumulators, and with SGDA the per-entry gradients of a
+    batch of ``B`` rows and the winner per attribute; and ``owner``, which
+    X9a writes for X9b at the attributes its batch names (one of the
+    batch's entries naming each).  X9c needs no scratch: its sums stay in
+    the shared memory of its one cluster."""
 
     acc: torch.Tensor  # [D, 2+K]
     acc0: torch.Tensor  # [2]
@@ -90,12 +91,9 @@ class Workspace:
     gw_e: Optional[torch.Tensor] = None  # [B, P]
     gv_e: Optional[torch.Tensor] = None  # [B, P, K]
     winner: Optional[torch.Tensor] = None  # int32 [D]
-    dreg: Optional[torch.Tensor] = None  # [G (1+K) + 1]
-    done: Optional[torch.Tensor] = None  # int32 [1]
 
 
-def make_workspace(D: int, K: int, device, sgda_batch=None,
-                   G: int = 0) -> Workspace:
+def make_workspace(D: int, K: int, device, sgda_batch=None) -> Workspace:
     """``sgda_batch``: (B, P) of the batches whose entry gradients SGDA
     caches; None for the other learners."""
     ws = Workspace(acc=torch.zeros(D, 2 + K, dtype=_F32, device=device),
@@ -106,8 +104,6 @@ def make_workspace(D: int, K: int, device, sgda_batch=None,
         ws.gw_e = torch.zeros(B, P, dtype=_F32, device=device)
         ws.gv_e = torch.zeros(B, P, K, dtype=_F32, device=device)
         ws.winner = torch.full((D,), -1, dtype=_I32, device=device)
-        ws.dreg = torch.zeros(G * (1 + K) + 1, dtype=_F32, device=device)
-        ws.done = torch.zeros(1, dtype=_I32, device=device)
     return ws
 
 
@@ -355,7 +351,7 @@ class _Steps:
         if negs is not None:
             req(negs, _I32, (nb, B), dev, "sgd_step.negs")
             self.negs = (negs.data_ptr(), B)
-        if record or sgda is not None:
+        if record or (sgda is not None and self.ids is not None):
             if ws.gw_e is None:
                 raise ValueError("SGDA's steps need the workspace's SGDA "
                                  "scratch: make_workspace(sgda_batch=...)")
@@ -370,8 +366,6 @@ class _Steps:
             req(reg_v, _F32, (G, m.K), dev, "sgda.reg_v")
             req(attr_group, _I32, (D,), dev, "sgda.attr_group")
             req(grad_tab, _F32, (D, 1 + m.K), dev, "sgda.grad_tab")
-            req(ws.dreg, _F32, (G * (1 + m.K) + 1,), dev, "workspace.dreg")
-            req(ws.done, _I32, (1,), dev, "workspace.done")
             smem = 4 * (G * (1 + m.K) + 1)
             if smem > MAX_BLOCK_SMEM:
                 raise ValueError(
@@ -429,7 +423,7 @@ class _Steps:
 
     def lambda_step(self, b: int) -> None:
         """X9c on validation batch b."""
-        m, ws = self.m, self.ws
+        m = self.m
         reg_w, reg_v, attr_group, grad_tab = self.sgda
         Bv, Pv, at = self.val
         rc = self.lib.svbfm_sgda_lambda(
@@ -437,8 +431,7 @@ class _Steps:
             build.ptr(reg_w), build.ptr(reg_v), build.ptr(attr_group),
             reg_w.shape[0], *(base + b * step for base, step in at), Bv, Pv,
             m.lr, -2.0 * m.lr, f32_sub(1.0, min(m.lr, 1.0)), m.min_target,
-            m.max_target, int(m.k0), int(m.k1), build.ptr(ws.dreg),
-            build.ptr(ws.done), self.stream)
+            m.max_target, int(m.k0), int(m.k1), self.stream)
         build.check_launch(self.lib, rc, "sgda_lambda")
 
 

@@ -322,8 +322,7 @@ class SGDALearner(SGDLearner):
         B = self.train_row.ids.shape[0] // self.num_batches
         self.ws = make_workspace(cfg.num_attributes, cfg.num_factor,
                                  self.device,
-                                 sgda_batch=(B, self.train_row.ids.shape[1]),
-                                 G=cfg.num_groups)
+                                 sgda_batch=(B, self.train_row.ids.shape[1]))
 
     def _step_mode(self) -> StepMode:
         # mult = 2 (p - y), reg factor 2 reg, reg0 = 0 (adapt_reg.h:123-157)

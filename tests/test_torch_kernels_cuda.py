@@ -1015,8 +1015,7 @@ def test_sgd_apply_matches_twin(cuda, K, D, B, P, mode):
                     min_target=1.0, max_target=5.0, base_w=0.999,
                     base_v=0.998, w0_base=0.9999, w0_grad=mode != "pair")
     sgda = mode == "sgda"
-    ws = ks.make_workspace(D, K, cuda, sgda_batch=(B, P) if sgda else None,
-                           G=G)
+    ws = ks.make_workspace(D, K, cuda, sgda_batch=(B, P) if sgda else None)
     pair = (t(neg, np.int32), lo, D) if mode == "pair" else None
     ks.sgd_grad_scatter(t(tab), torch.tensor(3.5, device=cuda), *bt, ws, m,
                         pair, record=sgda)
@@ -1058,3 +1057,163 @@ def test_sgd_apply_matches_twin(cuda, K, D, B, P, mode):
         assert torch.equal(ok[0][free].nan_to_num(), t(tab)[free].nan_to_num())
         assert torch.equal(ok[0][free].isnan(), t(tab)[free].isnan())
     assert not torch.isfinite(ok[0][named]).all()
+
+
+def _lambda_case(cuda, Bv, G, K, P, nan_target=False, seed=0):
+    """X9c's inputs: Bv validation rows of P entries over D = 60
+    attributes in G groups (attribute d in group d % G, so a row's entries
+    share groups), duplicate ids, an x = 0 entry in every third row, a
+    valid-0 row; a NaN target in row Bv // 2 on request."""
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    rng = np.random.default_rng(seed + 1000 * Bv + 100 * K + 10 * G + P)
+    D = 60
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+
+    ids = rng.integers(0, D, (Bv, P))
+    vals = rng.uniform(0.5, 1.5, (Bv, P))
+    vals[::3, P - 1] = 0.0
+    y = rng.uniform(1, 5, Bv)
+    valid = np.ones(Bv)
+    if Bv > 1:
+        valid[1] = 0.0
+    if nan_target:
+        y[Bv // 2] = np.nan
+    m = ks.StepMode(ks.LOSS_REGRESSION, K=K, lr=0.05, mult_scale=2.0,
+                    min_target=1.0, max_target=5.0)
+    fixed = (t(rng.normal(0, 0.3, (D, 1 + K))),
+             t(rng.normal(0, 0.1, (D, 1 + K))), torch.tensor(3.0, device=cuda))
+    regs = (t(rng.uniform(0, 0.05, G)), t(rng.uniform(0, 0.05, (G, K))))
+    rest = (t(np.arange(D) % G, np.int32), t(ids, np.int32), t(vals), t(y),
+            t(valid))
+    return fixed, regs, rest, ks.make_workspace(D, K, cuda), m
+
+
+@pytest.mark.parametrize("G,P", [(1, 1), (3, 3), (7, 6)])
+@pytest.mark.parametrize("K", [1, 5, 20, 40])
+@pytest.mark.parametrize("Bv", [0, 1, 10, 113, 256, 257, 1000, 3000])
+def test_sgda_lambda_cluster_matches_twin(cuda, Bv, G, K, P):
+    """X9c's one cluster against the twin: 1 to 8 blocks of 32 warps (a
+    row a warp up to Bv = 256, several rows a warp past it), one to seven
+    groups, one factor to more than a warp's lanes of channels (K = 40),
+    one to six entries a row (past the four a lane holds at P = 6), two
+    entries of one group in a row, x = 0 entries, a valid-0 row and the
+    empty batch (the regs still step); two launches give the same bits
+    (the warps' and blocks' sums fold in a fixed order)."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    fixed, regs, rest, ws, m = _lambda_case(cuda, Bv, G, K, P)
+    outs = []
+    for kernel in (True, False, True):
+        rw, rv = (r.clone() for r in regs)
+        if kernel:
+            ks.sgda_lambda(*fixed[:3], rw, rv, *rest, ws, m)
+        else:
+            ks.sgda_lambda_plain(*fixed[:3], rw, rv, *rest, m)
+        outs.append([rw, rv])
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs[0], outs[1], f"sgda_lambda Bv={Bv} G={G} K={K} "
+                       f"P={P}")
+    for a, b in zip(outs[0], outs[2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if Bv > 1:  # (a lone entry has no pair terms: reg_v's gradient is
+        # 0 at P = 1, up to rounding)
+        assert not torch.equal(outs[0][0], regs[0])
+        assert P == 1 or not torch.equal(outs[0][1], regs[1])
+
+
+@pytest.mark.parametrize("Bv", [10, 300])
+def test_sgda_lambda_nan_target_poisons_every_reg(cuda, Bv):
+    """A NaN target makes grad_loss NaN, which JAX's dense segment sums
+    carry into every group: every reg of the kernel is NaN, as the
+    twin's."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    fixed, regs, rest, ws, m = _lambda_case(cuda, Bv, 3, 5, 3,
+                                            nan_target=True)
+    outs = []
+    for kernel in (True, False):
+        rw, rv = (r.clone() for r in regs)
+        if kernel:
+            ks.sgda_lambda(*fixed[:3], rw, rv, *rest, ws, m)
+        else:
+            ks.sgda_lambda_plain(*fixed[:3], rw, rv, *rest, m)
+        outs.append([rw, rv])
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs[0], outs[1], f"sgda_lambda NaN Bv={Bv}")
+    assert all(torch.isnan(o).all() for o in outs[0])
+
+
+@pytest.mark.parametrize("P", [2, 3, 40])
+@pytest.mark.parametrize("K", [1, 5, 20, 40])
+@pytest.mark.parametrize("mode", ["regression", "exp", "sgda", "pair"])
+def test_sgd_grad_scatter_matches_twin(cuda, mode, K, P):
+    """X9a from one gather a row against its twin in every mode: a user,
+    an item and P - 2 attribute entries a row (P = 40: more entries than
+    a warp has lanes, and than the four a lane holds), x = 0 entries,
+    valid-0 rows, duplicate ids, a pair whose negative equals its own
+    item.  acc, acc0 and SGDA's record match; the owner record names, at
+    every attribute of the batch (the pairs' sampled items too), an entry
+    naming it; X9b's kernel on that record gives the twin's step."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    rng = np.random.default_rng(1000 * K + P + {"regression": 0, "exp": 1,
+                                                "sgda": 2, "pair": 3}[mode])
+    B, U, I, D = 600, 300, 200, 700
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+
+    ids = np.concatenate([rng.integers(0, U, (B, 1)),
+                          rng.integers(U, U + I, (B, 1)),
+                          rng.integers(U + I, D, (B, P - 2))], 1)[:, :P]
+    vals = rng.uniform(0.5, 1.5, (B, P)) * (rng.random((B, P)) > 0.1)
+    valid = (rng.random(B) > 0.1).astype(np.float32)
+    neg = rng.integers(U, U + I, B)
+    neg[0] = ids[0, 1] if P > 1 else neg[0]
+    m = ks.StepMode({"exp": ks.LOSS_EXP, "pair": ks.LOSS_PAIR}.get(
+        mode, ks.LOSS_REGRESSION), K=K, lr=0.05, stdev=1.5,
+        mult_scale=2.0 if mode == "sgda" else 1.0, min_target=1.0,
+        max_target=5.0, base_w=0.999, base_v=0.998, w0_base=0.9999,
+        w0_grad=mode != "pair")
+    bt = (t(ids, np.int32), t(vals), t(rng.uniform(1, 5, B)), t(valid))
+    tab, w0 = t(rng.normal(0, 0.1, (D, 1 + K))), torch.tensor(3.0,
+                                                             device=cuda)
+    sgda = mode == "sgda"
+    pair = (t(neg, np.int32), U, U + I) if mode == "pair" else None
+    wss = [ks.make_workspace(D, K, cuda, sgda_batch=(B, P) if sgda else None)
+           for _ in range(2)]
+    ks.sgd_grad_scatter(tab, w0, *bt, wss[0], m, pair, record=sgda)
+    ks.sgd_grad_scatter_plain(tab, w0, *bt, wss[1].acc, wss[1].acc0,
+                              wss[1].owner, m, pair,
+                              (wss[1].gw_e, wss[1].gv_e, wss[1].winner)
+                              if sgda else None)
+    torch.cuda.synchronize()
+    chip_smoke.compare(
+        *([w.acc, w.acc0] + ([w.gw_e, w.gv_e, w.winner] if sgda else [])
+          for w in wss), f"sgd_grad_scatter {mode} K={K} P={P}")
+    assert wss[0].acc.any()
+    entries = ks.apply_entries(bt[0], pair and pair[0]).long()
+    assert torch.equal(entries[wss[0].owner[entries].long()], entries)
+    # X9b on each accumulator: the kernel on X9a's kernel's, the twin on
+    # the twin's
+    regs = ((t(rng.uniform(0, 0.5, 2)), t(rng.uniform(0, 0.5, (2, K))),
+             t(np.arange(D) >= U, np.int32)) if sgda else ())
+    steps = []
+    for w, kernel in zip(wss, (True, False)):
+        tb, w0s = tab.clone(), w0.clone()
+        gt = torch.zeros(D, 1 + K, device=cuda)
+        if kernel:
+            ks.sgd_apply(tb, w0s, w, m, bt[0], pair and pair[0],
+                         regs + (gt,) if sgda else None)
+        else:
+            ks.sgd_apply_plain(tb, w0s, w.acc, w.acc0, m, regs + (
+                w.winner, w.gw_e, w.gv_e, gt) if sgda else None)
+        steps.append([tb, w0s, w.acc, w.acc0, gt])
+    torch.cuda.synchronize()
+    chip_smoke.compare(*steps, f"sgd_apply after X9a {mode} K={K} P={P}")

@@ -276,7 +276,7 @@ def test_minibatch_update_matches_jax(case):
     B, Pn = b["ids"].shape
     if sgda:
         mode = ts.sgd_step_mode(tcfg, mult_scale=2.0, reg0=0.0)
-        ws = ks.make_workspace(D, K, "cpu", sgda_batch=(B, Pn), G=2)
+        ws = ks.make_workspace(D, K, "cpu", sgda_batch=(B, Pn))
         ts.sgd_minibatch_update(state, t["ids"], t["vals"], t["y"],
                                 t["valid"], mode, ws,
                                 (state.reg_w, state.reg_v, t["attr_group"],
@@ -300,6 +300,70 @@ def test_minibatch_update_matches_jax(case):
     if sgda:  # duplicates: 128 rows of 30 users
         assert len(np.unique(b["ids"][:, 0])) < B
         assert not np.allclose(want["reg_v"], b["reg_v"])
+
+
+@pytest.mark.parametrize("G,Pn,Bv,K", [(1, 1, 1, 1), (3, 4, 37, 8),
+                                      (5, 6, 300, 20)])
+def test_sgda_lambda_matches_jax(G, Pn, Bv, K):
+    """X9c's twin against JAX's sgda_lambda_update inside a one-device
+    shard_map, at one to five groups, one to six entries a row (several of
+    one group in a row where P > G), one to 300 validation rows (the
+    kernel's one-block, several-block and several-rows-a-warp regimes) and
+    K = 1, 8, 20; x = 0 entries and a valid-0 row where a batch has more
+    than one row.  Held with test_minibatch_update_matches_jax's
+    tolerances."""
+    rng = np.random.default_rng(10 * G + Pn)
+    D, lr = 40, 0.05
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    attr_group = (np.arange(D) % G).astype(np.int32)
+    ids = rng.integers(0, D, (Bv, Pn)).astype(np.int32)
+    vals = f32(rng.uniform(0.5, 1.5, (Bv, Pn)))
+    y = f32(rng.uniform(1, 5, Bv))
+    valid = np.ones(Bv, np.float32)
+    if Bv > 1:
+        vals[::3, -1] = 0.0
+        valid[1] = 0.0
+    if Pn > G:
+        groups = attr_group[ids]
+        assert all(len(set(r)) < Pn for r in groups.tolist())
+    b = dict(w0=f32(0.3), w=f32(rng.normal(0, 0.1, D)),
+             v=f32(rng.normal(0, 0.1, (K, D))),
+             reg_w=f32(rng.uniform(0, 0.05, G)),
+             reg_v=f32(rng.uniform(0, 0.05, (G, K))),
+             grad_w=f32(rng.normal(0, 0.1, D)),
+             grad_v=f32(rng.normal(0, 0.1, (K, D))))
+    cfg_kw = dict(num_attributes=D, num_factor=K, min_target=1.0,
+                  max_target=5.0, num_groups=G, learn_rate=lr)
+    jcfg, tcfg = JConfig(**cfg_kw), FMConfig(**cfg_kw)
+    ag = jnp.asarray(attr_group)
+    rep = P()
+
+    @jax.jit
+    @partial(jax.shard_map, mesh=make_mesh(1), in_specs=(rep,) * 11,
+             out_specs=(rep, rep))
+    def jlambda(w0, w, v, reg_w, reg_v, grad_w, grad_v, vids, vvals, vy,
+                vvalid):
+        return js.sgda_lambda_update(w0, w, v, reg_w, reg_v, grad_w, grad_v,
+                                     vids, vvals, vy, vvalid, jcfg, ag)
+
+    names = ("w0", "w", "v", "reg_w", "reg_v", "grad_w", "grad_v")
+    want = [np.asarray(a) for a in jlambda(
+        *(jnp.asarray(b[k]) for k in names),
+        *(jnp.asarray(a) for a in (ids, vals, y, valid)))]
+    t = {k: torch.from_numpy(np.array(a)) for k, a in b.items()}
+    reg_w, reg_v = t["reg_w"].clone(), t["reg_v"].clone()
+    ks.sgda_lambda_plain(ts.table(t["w"], t["v"]),
+                         ts.table(t["grad_w"], t["grad_v"]), t["w0"], reg_w,
+                         reg_v, torch.from_numpy(attr_group),
+                         torch.from_numpy(ids), torch.from_numpy(vals),
+                         torch.from_numpy(y), torch.from_numpy(valid),
+                         ts.sgd_step_mode(tcfg, mult_scale=2.0, reg0=0.0))
+    for got, ref, k in ((reg_w, want[0], "reg_w"), (reg_v, want[1], "reg_v")):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    # (a lone entry has no pair terms: reg_v's gradient is 0 at P = 1)
+    assert not np.allclose(want[0], b["reg_w"], rtol=0, atol=1e-9)
+    assert (Pn == 1) == np.allclose(want[1], b["reg_v"], rtol=0, atol=1e-9)
 
 
 def test_sgda_steps_match_oracle_at_batch_one():
@@ -328,7 +392,7 @@ def test_sgda_steps_match_oracle_at_batch_one():
         grad_tab=torch.zeros(D, 1 + K))
     ag = torch.from_numpy(meta.attr_group.astype(np.int32))
     mode = ts.sgd_step_mode(cfg, mult_scale=2.0, reg0=0.0)
-    ws = ks.make_workspace(D, K, "cpu", sgda_batch=(1, 2), G=G)
+    ws = ks.make_workspace(D, K, "cpu", sgda_batch=(1, 2))
 
     def row_of(c, i):
         sel = c.row == i
@@ -466,7 +530,7 @@ def _scattered(g, m, kind, batch):
     sgda = kind == "sgda"
     neg = batch[4] if kind == "pair" else None
     ws = ks.make_workspace(D, K, "cpu", sgda_batch=ids.shape if sgda else
-                           None, G=g["reg_w"].shape[0])
+                           None)
     ks.sgd_grad_scatter_plain(
         tab, g["w0"], ids, vals, y, valid, ws.acc, ws.acc0, ws.owner, m,
         None if neg is None else (neg, *g["range"]),
