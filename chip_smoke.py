@@ -15,8 +15,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      family's batches in each step mode and X9b also on a table of
      ML-10M's width, the full-batch exp_sgd's w and v steps at F=20 and
      F=1, the block-structure sampler's relation kernels on the 1M-rating
-     relational recipe at F=20, F=1 and the w sweep, the joined scores
-     also over nine relations) and on small ragged cases with
+     relational recipe at F=20, F=1 and the w sweep, X10c's form and
+     the resync's full, q-build and w forms printed beside each, the
+     joined scores also over nine relations) and on small ragged cases with
      NaN-producing columns or targets, Inf noise, L=1 buckets and columns
      split over blocks; time both, and one PyTorch call where one computes
      the same function.  Then x9b-digest: sha256 of X9b's outputs on
@@ -94,7 +95,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      problem with nine relations (the port takes any number).
  33. bs-quality: the PARITY_RUNS.md:166-183 recipe, 30 iterations of
      Gibbs and of ALS (-regular 10), beside the reference C++ (information).
- 34. bs-profile: device time of one blocked BS Gibbs sweep by kernel.
+ 34. bs-profile: device time of one blocked BS Gibbs sweep by kernel
+     (bs-profile and bs-seq-profile also give X10c's and the resync's).
 Then the nvidia-smi line again, a JSON line with each kernel's launches
 (summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28,
 30-32, each read just after its run with the counts zeroed just before),
@@ -246,6 +248,9 @@ SOURCES = {
                   "svbfm_tpu/learners/mcmc_bs.py:463"),
 }
 # the relation kernels of the block-structure sampler, every path of it
+# the kernel names whose device time the BS profiles report apart: X10c
+# (rel_patch_*_kernel) and X10d's resync (resync_*_kernel)
+BS_FOCUS = ("rel_patch", "resync")
 BS_KERNELS = ("bs_rel_moments", "bs_scores", "bs_resync", "bs_join_agg",
               "bs_rel_draw", "bs_rel_w_draw", "bs_rel_patch",
               "bs_rel_w_patch")
@@ -377,6 +382,17 @@ def cost(nbytes: float, flops: float, library=None,
     timed line also prints (X10b's form and split)."""
     return dict(bytes=float(nbytes), flops=float(flops), library=library,
                 plain_graph=plain_graph, note=note)
+
+
+def plan_note(mod, plan: str, args: tuple, fields: tuple) -> str:
+    """The ``fields`` of ``mod.<plan>(*args)``, a kernel's form as the
+    timed line prints it; ``form=?`` for a checkout without the plan (an
+    older tree timed beside this one by ``kernel_times.py``)."""
+    fn = getattr(mod, plan, None)
+    if fn is None:
+        return "form=?"
+    p = fn(*args)
+    return " ".join(f"{k}={getattr(p, k)}" for k in fields)
 
 
 def draw_plan_of(F: int, b):
@@ -871,34 +887,58 @@ def bs_cases(add, r: dict) -> None:
                     fn(rd.rrow_ids, rd.rrow_vals, pos, ptab_b, F, rtab, dy)
                 return [rtab, dy]
 
-            # per position the row's id and x and its ptab row (2 Fo); the
-            # row's table read and qB, we, weq written; dy read and written;
-            # the wcc matvec F^2 per position
+            # per position the row's id and x; each ptab row (2 Fo) the
+            # bin's rows name at its positions once (a slot bin's rows name
+            # a few); the row's table read and qB, we, weq written; dy read
+            # and written; the wcc matvec F^2 per position
+            named = int(torch.unique(rd.rrow_ids[:, pos.long()]).numel())
             add("bs_rel_w_patch" if F == 0 else "bs_rel_patch",
-                f"{name} F={F} bin {b_i} positions={npos} R={R}",
+                f"{name} F={F} bin {b_i} positions={npos} R={R} "
+                f"ptab rows={named}",
                 lambda w=w, Fo=Fo: (w["rtab"].clone(), torch.zeros(
                     R, Fo, device=w["rtab"].device)), x10c,
-                cost(R * npos * (8 + 2 * Fo * 4) + R * lay["ld"] * 4
+                cost(R * npos * 8 + named * 2 * Fo * 4 + R * lay["ld"] * 4
                      + R * (2 * F + 1) * 4 + R * Fo * 8,
-                     R * npos * (2 * F * F + 12 * Fo), plain_graph=False))
+                     R * npos * (2 * F * F + 12 * Fo), plain_graph=False,
+                     note=plan_note(ks, "patch_plan", (F,),
+                                    ("form", "lanes"))))
 
-        def x10d(variant, inp, F=F, w=w):
-            fn = kf.bs_resync if variant == "kernel" else kf.bs_resync_plain
-            q, e = inp
-            if F == 0:
-                fn(rd.join_tr, 1, w["dy"], None, None, None, e)
-            else:
-                fn(rd.join_tr, F, w["dy"], w["qB1"], w["qB0"], q, e)
-            return [q, e]
+        # the resync's three forms (learners/mcmc_bs.py): the w resync (F = 0
+        # here: dy alone at F = 1), the full one after a v sweep, and the q
+        # build from a relation's contiguous qB (qB1 alone, no e)
+        forms = [("w", (w["dy"], None, None))] if F == 0 else [
+            ("full", (w["dy"], w["qB1"], w["qB0"])),
+            ("q-build", (None, w["qB0"], None))]
+        for form, (dy_r, qb1, qb0) in forms:
+            Fr = max(F, 1)
+            with_e = form != "q-build"
 
-        # the join, dy (and qB1, qB0) at each relation row, q and e read
-        # and written
-        add("bs_resync", f"{name} F={F} N={N}",
-            lambda w=w: (w["q"].clone() if w["q"] is not None
-                         else torch.zeros(1, device=r["e"].device),
-                         r["e"].clone()), x10d,
-            cost(N * 4 + R * Fo * 4 * (3 if F else 1) + N * (F * 8 + 8),
-                 N * Fo * 5))
+            def x10d(variant, inp, Fr=Fr, dy_r=dy_r, qb1=qb1, qb0=qb0,
+                     with_e=with_e):
+                fn = (kf.bs_resync if variant == "kernel"
+                      else kf.bs_resync_plain)
+                q, e = inp
+                fn(rd.join_tr, Fr, dy_r, qb1, qb0,
+                   None if qb1 is None else q, e if with_e else None)
+                return [q, e]
+
+            q0 = w["q"] if w["q"] is not None else torch.zeros(
+                1, device=r["e"].device)
+            # the join, each gathered table's row at each relation row
+            # (dy, qB1, qB0: F floats), q and e read and written; per
+            # factor dq, the e term and the update
+            tabs = sum(t is not None for t in (dy_r, qb1, qb0))
+            add("bs_resync", f"{name} {form} F={Fr} N={N}",
+                lambda q0=q0: (q0.clone(), r["e"].clone()), x10d,
+                cost(N * 4 + R * Fr * 4 * tabs
+                     + N * 8 * (Fr * (qb1 is not None) + with_e),
+                     N * Fr * (5 if with_e and qb1 is not None else 1),
+                     note=plan_note(
+                         kf, "resync_plan_of",
+                         (rd.join_tr, Fr, dy_r, qb1, qb0,
+                          None if qb1 is None else q0,
+                          r["e"] if with_e else None),
+                         ("form", "vec", "lanes", "rows"))))
 
     def moments(variant, _):
         fn = (kf.bs_rel_moments if variant == "kernel"
@@ -1903,12 +1943,12 @@ def probe_gathers(sets) -> list:
     return lines
 
 
-def profile_run(fn, n: int, unit: str, phase: str, focus: str = "") -> float:
+def profile_run(fn, n: int, unit: str, phase: str, focus=()) -> float:
     """Device time by kernel over ``n`` units of ``fn`` (one call), and the
     device's busy share of the wall time under the profiler (which slows
-    the host, so the share reads low); with ``focus``, also the time and
-    share of the kernels whose names hold it.  Returns the device µs a
-    unit."""
+    the host, so the share reads low); for each name in ``focus``, also
+    the time and share of the kernels whose names hold it.  Returns the
+    device µs a unit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1934,10 +1974,10 @@ def profile_run(fn, n: int, unit: str, phase: str, focus: str = "") -> float:
           f"device_us_per_{unit}": f"{busy / n:.1f}",
           "device_busy_share": f"{busy / wall_us:.3f}",
           f"device_ops_per_{unit}": sum(r[1] for r in rows) // n}
-    if focus:
-        us = sum(r[0] for r in rows if focus in r[2])
-        kv.update({f"{focus}_us_per_{unit}": f"{us / n:.1f}",
-                   f"{focus}_share": f"{us / busy:.3f}"})
+    for name in focus:
+        us = sum(r[0] for r in rows if name in r[2])
+        kv.update({f"{name}_us_per_{unit}": f"{us / n:.1f}",
+                   f"{name}_share": f"{us / busy:.3f}"})
     say(phase, t0, **kv)
     return busy / n
 
@@ -2269,7 +2309,7 @@ def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
     profile_run(lambda: sgd.run(sstate, num_iter=1, verbose=False), 1,
                 "epoch", "sgd-profile")
     profile_run(lambda: sgda.epoch(astate, 1), 1, "iteration",
-                "sgda-profile", focus="sgda_lambda")
+                "sgda-profile", focus=("sgda_lambda",))
     return l_sgd, l_online, l_exp, l_sgda, l_bpr
 
 
@@ -2376,7 +2416,7 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
     # iteration shows X10a at F <= 1 (42 launches an iteration)
     s_dev_us = profile_run(lambda: seq.run(sstate, num_iter=1,
                                            verbose=False),
-                           1, "sweep", "bs-seq-profile")
+                           1, "sweep", "bs-seq-profile", focus=BS_FOCUS)
     say("bs-seq", t0, rows=seq.train_n, factor_block=seq.factor_width,
         iterations=len(hs), sec_per_iter=f"{hs[-1]['time_learn']:.6f}",
         device_ms_per_iter=f"{s_dev_us / 1e3:.3f}",
@@ -2443,7 +2483,7 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
 
     # ---- 34. where a blocked BS Gibbs sweep's device time goes -----------
     profile_run(lambda: bs_mcmc.run(bstate, num_iter=1, verbose=False), 1,
-                "sweep", "bs-profile")
+                "sweep", "bs-profile", focus=BS_FOCUS)
     return l_bs, l_als, l_seq, l_nine
 
 

@@ -1,0 +1,186 @@
+"""Time one family of the port's kernels on the card and profile the paths
+that launch them, for one checkout.
+
+    python3 kernel_times.py {bs,sgd} [--tree DIR] [--label NAME]
+
+Runs the kernels and learners of the checkout at ``--tree`` (default: the
+one holding this script) on the inputs ``chip_smoke.py`` (of this script's
+checkout) gives them, K = 20.  The data comes from seeded generators, so
+two checkouts get the same inputs.  Prints the card, the launch floor (a
+graph replay of a one-element ``zero_()``), the ptxas lines of the timed
+kernels, for each case the least and the most of three means of a CUDA
+graph replay of 20 calls, then the family's profiles:
+
+- ``bs``: the block-structure sampler's relation-row patch X10c (F = 20,
+  F = 1 and the w mode, after each timed bin) and its data-row resync
+  (X10d: full, q-build and w forms) on the 1M-rating relational recipe
+  (``scripts/bench_bs.py``), for the users and the items relation, each
+  with its form; their launches in one sweep of each BS path; and
+  ``chip_smoke.profile_run`` of one blocked Gibbs sweep and of one
+  factor-sequential sweep (factor_block 1), twice each, with X10c's and
+  the resync's device time.
+- ``sgd``: X9a on a batch of 1,024 rows of the ML-1M recipe in the
+  regression, exponential-family and SGDA modes and on BPR's batch of
+  11,063 pairs; X9c on SGDA's validation batch of 113 rows (G = 2), at
+  K = 8, and on 1,000 rows; ``profile_run`` of one SGD epoch (X9a's share)
+  and one SGDA iteration with its lambda steps (X9c's share).
+
+To hold a change against its parent, run it on both in one call, in turns
+(parent, change, change, parent), the parent unpacked with ``git archive``
+into a git-ignored directory.  Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# each family's libraries and the kernels of them whose ptxas lines are
+# printed (a part of their names)
+FAMILIES = {
+    "bs": (("bs_sweep", "bs_forward"), ("patch", "resync")),
+    "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
+}
+# the bs family's timed kernels, by their wrappers' launch-count names
+BS_TIMED = ("bs_rel_patch", "bs_rel_w_patch", "bs_resync")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("family", choices=sorted(FAMILIES))
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--label", default="")
+    a = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(a.tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs an NVIDIA GPU")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from svbfm_tpu_torch.kernels import build
+
+    tag = a.label or os.path.basename(os.path.abspath(a.tree))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    print(f"[{tag}] {cs.card_line()} tree={os.path.abspath(a.tree)}",
+          flush=True)
+    build.build_all()
+    libs, fns = FAMILIES[a.family]
+    for name in libs:
+        fn = "?"
+        for ln in build.build_logs.get(name, "").splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1]
+            elif ("registers" in ln or "spill" in ln) and any(
+                    k in fn for k in fns):
+                print(f"[{tag}] ptxas {name} {fn}: {ln.strip()}")
+
+    def line(label, fn):
+        times = [cs.cuda_ms(fn, 20) for _ in range(3)]
+        print(f"[{tag}] {label}: ms={min(times):.4f}-{max(times):.4f}",
+              flush=True)
+
+    one = torch.zeros(1, device=dev)
+    line("launch floor (zero_ of one element)", one.zero_)
+    (bs_family if a.family == "bs" else sgd_family)(cs, build, dev, tag,
+                                                     line)
+    return 0
+
+
+def bs_family(cs, build, dev, tag, line) -> None:
+    import torch
+
+    bsp = cs.bs_problem(cs.BS_ROWS, cs.BS_SLOTS, holdout=False)
+    bs = cs.bs_learner(bsp, dev, num_factor=cs.K, regw=cs.BS_REG,
+                       regv=cs.BS_REG)
+    st, _ = bs.step(bs.init_state())
+    s = cs.bs_tensors(bs, st, "bs", True, (cs.K, 0, 1))
+    cases = cs.make_cases(s)
+    for name in BS_TIMED:
+        for label, prepare, call, c in cases[name]:
+            inp = prepare()
+            line(f"{name} {label} {c['note']}".rstrip(),
+                 lambda: call("kernel", inp))
+    del s, cases
+
+    seq = cs.bs_learner(bsp, dev, num_factor=cs.K, regw=cs.BS_REG,
+                        regv=cs.BS_REG, factor_block=1)
+    for path, lr in (("bs", bs), ("bs-seq", seq)):
+        state, _ = lr.run(num_iter=1, verbose=False)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        lr.run(state, num_iter=1, verbose=False)
+        torch.cuda.synchronize()
+        counts = {k: build.launch_counts[k] for k in BS_TIMED}
+        print(f"[{tag}] {path} launches a sweep: "
+              f"{json.dumps(counts, separators=(',', ':'))}", flush=True)
+        for _ in range(2):
+            cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
+                           1, "sweep", f"{tag} {path}-profile",
+                           focus=cs.BS_FOCUS)
+
+
+def sgd_family(cs, build, dev, tag, line) -> None:
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.synth import train_test_split
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.bpr import BPRLearner
+    from svbfm_tpu_torch.learners.exp_sgd import ExpSGDStocLearner
+    from svbfm_tpu_torch.learners.sgd import SGDALearner, SGDLearner
+
+    tr, te, train, test, meta = cs.ml_data(cs.NUM_TRAIN)
+    D = tr.num_features
+    base = dict(num_attributes=D, num_factor=cs.K,
+                min_target=float(tr.target.min()),
+                max_target=float(tr.target.max()),
+                num_groups=meta.num_attr_groups, seed=cs.SEED)
+    cfg = FMConfig(factor_block=0, **base)
+    sgd = SGDLearner(cfg, train, test, meta, device=dev, write_files=False)
+    exp = ExpSGDStocLearner(cfg, train, test, meta, device=dev,
+                            write_files=False)
+    tr90, va10 = (SparseDataset.from_coo(c, D)
+                  for c in train_test_split(tr, 0.1, seed=cs.SEED))
+    sgda = SGDALearner(FMConfig(learn_rate=cs.SGDA_LR, **base), tr90, test,
+                       va10, meta, device=dev, write_files=False)
+    bpr = BPRLearner(FMConfig(learn_rate=cs.BPR_LR, **base),
+                     SparseDataset.from_coo(cs.positives(tr), D),
+                     SparseDataset.from_coo(cs.positives(te), D), meta,
+                     device=dev, write_files=False)
+    g = cs.sgd_tensors(sgd, exp, sgda, bpr, dev)["sgd"]
+    G = g["reg_w"].shape[0]
+    tab, w0 = g["tab"], g["w0"]
+    for label, m, kind, batch in g["modes"]:
+        ids, vals, y, valid = batch[:4]
+        ws = ks.make_workspace(D, cs.K, dev, G=G, sgda_batch=(
+            ids.shape if kind == "sgda" else None))
+        pair = (batch[4], *g["range"]) if kind == "pair" else None
+        line(f"X9a {label} B={ids.shape[0]}", lambda: ks.sgd_grad_scatter(
+            tab, w0, ids, vals, y, valid, ws, m, pair,
+            record=kind == "sgda"))
+    sgda_mode = g["modes"][2][1]
+    for tab_v, grad_tab, reg_v, val, m in [
+            (tab, g["grad_tab"], g["reg_v"], g["val"], sgda_mode),
+            *g["lambda_more"]]:
+        ws = ks.make_workspace(D, m.K, dev, G=G, sgda_batch=(1, 1))
+        rw, rv = g["reg_w"].clone(), reg_v.clone()
+        line(f"X9c Bv={val[0].shape[0]} G={G} K={m.K}", lambda: ks.sgda_lambda(
+            tab_v, grad_tab, w0, rw, rv, g["attr_group"], *val, ws, m))
+
+    sstate, _ = sgd.run(num_iter=1, verbose=False)
+    cs.profile_run(lambda: sgd.run(sstate, num_iter=1, verbose=False), 1,
+                   "epoch", f"{tag} sgd-profile", focus=("sgd_grad_scatter",))
+    astate, _ = sgda.run(num_iter=2, verbose=False)
+    sgda.epoch(astate, 1)
+    cs.profile_run(lambda: sgda.epoch(astate, 1), 1, "iteration",
+                   f"{tag} sgda-profile", focus=("sgda_lambda",))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

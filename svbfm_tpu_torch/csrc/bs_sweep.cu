@@ -43,7 +43,8 @@
 // products are formed in registers and shared memory, never as JAX's
 // [CH, N] stack (1 GB at 1M rows).  X10b gathers the row's
 // 3F + 2 + P channels (1,088 bytes at F = 20) per real entry; X10c reads
-// wcc ([R, 210] at F = 20) for the weq matvec in every bin.
+// each relation row whole (wcc, [R, 210] at F = 20, for the weq matvec)
+// and its positions' ptab rows, and writes qB, we, weq and dy, in every bin.
 //
 // Design.  X10a runs a whole join plan in one launch: its buckets' blocks
 // are laid end to end, and each block finds its bucket in the plan table
@@ -81,13 +82,26 @@
 // without wcc and the owners read it from L2.  At F <= 1 the threads
 // stride over the entries.  With S > 1 the last block of a column to
 // finish (a done-counter) adds the S partials in a fixed order and
-// draws.  X10c: one warp per relation row, lanes over factors.
+// draws.  X10c: its form is a function of F (kernels/bs_sweep.py:
+// patch_plan).  At F <= 1 (the w sweep and the factor-sequential path) a
+// thread a relation row, the row (2 or 6 floats) in registers.  At F >= 2
+// the row's lanes stage it whole in shared memory with 16-byte copies
+// (coalesced, where ld and the base allow), so that the wcc matvec reads
+// the triangle from there, not in partial sectors from device memory:
+// G lanes a row, G the next power of two >= F, 32 / G rows a warp
+// (F <= 32, a kernel built for each F, so that the matvec's offsets are
+// constants; at F = 20 all 32 lanes copy the row, the 20 factor lanes
+// compute and write), the blocks the card holds at once each walking rows
+// with the next row's copies in flight;
+// or a block a row past F = 32, where a row outgrows a warp's share
+// (32,381 floats at F = 251).  The positions' ids, x and ptab rows are
+// read before the arithmetic; the positions run in order, the sums in a
+// fixed order.
 #include "mcmc_draw.cuh"
 
 namespace {
 
 constexpr int kTile = 32;
-constexpr int kWarpsPerBlock = 8;
 constexpr int kNarrowThreads = 256;  // X10a at F <= 1
 // X10a's plan table, int64 [nb, kPlanCols], a row a bucket of the join
 // plan: rows, x and cols pointers, C, L, G (the F <= 1 form's lanes a
@@ -283,10 +297,12 @@ __device__ __forceinline__ void split_range(int n, int S, int s, int& b,
 
 // cp.async: a kBytes copy from device memory to shared memory that does not
 // wait in registers; visible after cp_async_wait_all() and a barrier.
-template <int kBytes>
+// 16-byte copies bypass L1 (.cg) unless kL1: rows many blocks read at
+// once (X10c's ptab rows of a bin's few columns) are kept in L1 (.ca).
+template <int kBytes, bool kL1 = false>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16) {
+  if constexpr (kBytes == 16 && !kL1) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                  "l"(src));
   } else {
@@ -305,12 +321,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // n floats of a relation row into shared memory by `lanes` lanes of a
 // warp, vec floats a copy (4, 2 or 1: what n and the row's address allow).
+template <bool kL1 = false>
 __device__ __forceinline__ void row_copy_async(float* dst, const float* src,
                                                int n, int vec, int lane,
                                                int lanes) {
   if (vec == 4) {
     for (int k = lane; k < n / 4; k += lanes)
-      cp_async<16>(dst + 4 * k, src + 4 * k);
+      cp_async<16, kL1>(dst + 4 * k, src + 4 * k);
   } else if (vec == 2) {
     for (int k = lane; k < n / 2; k += lanes)
       cp_async<8>(dst + 2 * k, src + 2 * k);
@@ -813,69 +830,403 @@ __global__ void rel_draw_block_kernel(
     draw_one_column(she, sh2, v_c, col, group[c], ptab, v_t, mu, lam,
                     alpha_p, z, nans);
 }
-// X10c: one warp per relation row, the positions in order.
-__global__ void rel_patch_kernel(const int* __restrict__ rids,
-                                 const float* __restrict__ rvals, int64_t R,
-                                 int Pr, const int* __restrict__ pos,
-                                 int npos, const float* __restrict__ ptab,
-                                 int F, float* __restrict__ rtab,
-                                 float* __restrict__ dy) {
-  const int lane = threadIdx.x & 31;
-  const int64_t rho =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (rho >= R) return;  // the whole warp leaves together
-  const RelLayout lay(F);
-  const int Fo = max(F, 1);
-  float* row = rtab + rho * lay.ld;
-  float* dyr = dy + rho * Fo;
-  for (int k = 0; k < npos; ++k) {
-    const int p = pos[k];
-    const int64_t id = rids[rho * Pr + p];
-    const float xp = rvals[rho * Pr + p];
-    const float* g = ptab + id * 2 * Fo;
-    if (F == 0) {  // mcmc_bs.py:672-676
-      if (lane == 0) {
-        const float dv = g[1];
-        row[lay.we] -= xp * dv * row[lay.wn];
-        dyr[0] -= xp * dv;
-      }
-      continue;
-    }
-    if (F == 1) {  // mcmc_bs.py:802-810
-      if (lane == 0) {
-        const float dv = g[1];
-        const float h = xp * (row[0] - xp * g[0]);
-        const float wn = row[lay.wn], wc = row[lay.wc];
-        row[lay.we] -= dv * (h * wn + xp * wc);
-        row[lay.weq] -= dv * (h * wc + xp * row[lay.wcc]);
-        dyr[0] -= dv * h;
-        row[0] -= xp * dv;
-      }
-      continue;
-    }
-    // mcmc_bs.py:442-453
-    float s1 = 0.f, t = 0.f;
-    for (int f = lane; f < F; f += 32) {
-      const float dv = g[F + f];
-      s1 += dv * (xp * (row[f] - xp * g[f]));
-      t += dv * row[lay.wc + f];
-    }
-    s1 = svbfm::warp_sum(s1);
-    t = svbfm::warp_sum(t);
-    for (int f = lane; f < F; f += 32) {
-      float m = 0.f;
-      for (int gi = 0; gi < F; ++gi)
-        m += g[F + gi] * row[gi <= f ? lay.wcc_at(gi, f) : lay.wcc_at(f, gi)];
-      const float dv = g[F + f];
-      const float h = xp * (row[f] - xp * g[f]);
-      row[lay.weq + f] -= s1 * row[lay.wc + f] + xp * m;
-      dyr[f] -= dv * h;
-      row[f] -= xp * dv;
-    }
-    __syncwarp();
-    if (lane == 0) row[lay.we] -= s1 * row[lay.wn] + xp * t;
+// ---- X10c -------------------------------------------------------------------
+
+// X10c's forms, a function of F (mirrored by kernels/bs_sweep.py:
+// patch_plan): F <= 1 a thread a relation row; 2 <= F <= 32 G lanes a row,
+// G the next power of two >= F, 32 / G rows a warp; F > 32 a block of
+// round32(F) threads a row.
+constexpr int kPatchThreads = 256;  // the thread and lanes forms' blocks
+constexpr int kPatchPos = 2;        // positions staged at once
+
+__host__ __device__ inline int patch_lanes(int F) {
+  int G = 1;
+  while (G < F) G *= 2;
+  return G;
+}
+
+// Floats of a row's slice of shared memory in the lanes and block forms:
+// the row, then kPatchPos ptab rows, each v_old and dv at 16-byte
+// boundaries (mirrored by kernels/bs_sweep.py:patch_slice).
+__host__ __device__ inline int patch_slice(int F) {
+  return round4(RelLayout(F).ld) + kPatchPos * 2 * round4(F);
+}
+
+template <bool kBlock>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (kBlock) {
+    __syncthreads();
+  } else {
     __syncwarp();
   }
+}
+
+// a and b summed over a row's G lanes (a power of two <= 32; every lane of
+// the warp calls) or, kBlock, over the block through red [2 warps] of
+// shared memory, its warps' partials in a fixed order: every thread gets
+// the same totals, the same bits on every launch.
+template <bool kBlock>
+__device__ __forceinline__ void group_sums(float& a, float& b, int G,
+                                           float* red) {
+  if constexpr (!kBlock) {
+    for (int o = G >> 1; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(svbfm::kFullMask, a, o);
+      b += __shfl_xor_sync(svbfm::kFullMask, b, o);
+    }
+  } else {
+    a = svbfm::warp_sum(a);
+    b = svbfm::warp_sum(b);
+    const int nw = blockDim.x >> 5, w = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      red[w] = a;
+      red[nw + w] = b;
+    }
+    __syncthreads();
+    a = 0.f;
+    b = 0.f;
+    for (int i = 0; i < nw; ++i) {
+      a += red[i];
+      b += red[nw + i];
+    }
+    __syncthreads();  // red is free for the next sums
+  }
+}
+
+// The ids and x of up to kPatchPos positions k0 .. k0 + nk - 1 of a
+// relation row (rid, rx: its row of rids, rvals), into registers.
+struct PatchIds {
+  int id[kPatchPos];
+  float x[kPatchPos];
+};
+
+__device__ __forceinline__ void patch_ids(const int* __restrict__ rid,
+                                          const float* __restrict__ rx,
+                                          const int* __restrict__ pos, int k0,
+                                          int nk, PatchIds& p) {
+#pragma unroll
+  for (int k = 0; k < kPatchPos; ++k) {
+    p.id[k] = 0;
+    p.x[k] = 0.f;
+    if (k < nk) {
+      const int q = pos[k0 + k];
+      p.id[k] = rid[q];
+      p.x[k] = rx[q];
+    }
+  }
+}
+
+// Their ptab rows (v_old | dv, 2F floats each) into spt [kPatchPos, 2,
+// F4], F4 = round4(F), by the group's G threads: v_old and dv each at a
+// 16-byte boundary, copied pvec floats at a time through L1 (a slot bin's
+// rows all read the same two or so ptab rows).
+__device__ __forceinline__ void patch_stage_ptab(
+    float* spt, int F4, const float* __restrict__ ptab, int F,
+    const PatchIds& p, int nk, int pvec, int gl, int G) {
+#pragma unroll
+  for (int k = 0; k < kPatchPos; ++k) {
+    if (k < nk) {
+      const float* src = ptab + static_cast<int64_t>(p.id[k]) * 2 * F;
+      row_copy_async<true>(spt + 2 * k * F4, src, F, pvec, gl, G);
+      row_copy_async<true>(spt + (2 * k + 1) * F4, src + F, F, pvec, gl, G);
+    }
+  }
+}
+
+// m_f = sum_g dv_g wcc_gf for lane f from the staged row b (wcc at
+// b[wcc]) and dv [F] at a 16-byte boundary: lane f walks column f of the
+// packed triangle while g < f (wcc_gf at cb(g) + f, cb(g) = wcc + g(2F -
+// g + 1)/2 - g; neighbouring lanes on neighbouring words), then its row
+// f (wcc_fg at cr + g); four g a step (dv by one 16-byte load), four sums
+// added in a fixed order.  kF > 0: F is kF, the walk unrolled whole.
+template <int kF>
+__device__ __forceinline__ float patch_matvec(const float* b, int wcc,
+                                              const float* dv, int F, int f) {
+  if constexpr (kF > 0) {
+    // F known at compile time: every offset below but f's is a constant,
+    // so each g is a compare, a load and an add
+    const float* col = b + wcc + f;                         // + cb(g)
+    const float* row = b + wcc + f * (2 * kF - f + 1) / 2 - f;  // + g
+    float m[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int g4 = 0; g4 < kF; g4 += 4) {
+      float d[4];
+      if (g4 + 4 <= kF) {
+        const float4 t = *reinterpret_cast<const float4*>(dv + g4);
+        d[0] = t.x;
+        d[1] = t.y;
+        d[2] = t.z;
+        d[3] = t.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[j] = g4 + j < kF ? dv[g4 + j] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int g = g4 + j;
+        if (g < kF)
+          m[j] += d[j] * (g < f ? col[g * (2 * kF - g + 1) / 2 - g] : row[g]);
+      }
+    }
+    return (m[0] + m[1]) + (m[2] + m[3]);
+  }
+  const int cr = wcc + f * (2 * F - f + 1) / 2 - f;
+  int cb = wcc;
+  float m0 = 0.f, m1 = 0.f, m2 = 0.f, m3 = 0.f;
+  int g = 0;
+  for (; g + 4 <= F; g += 4) {
+    const float4 d = *reinterpret_cast<const float4*>(dv + g);
+    const int c1 = cb + F - g - 1, c2 = c1 + F - g - 2, c3 = c2 + F - g - 3;
+    m0 += d.x * b[g < f ? cb + f : cr + g];
+    m1 += d.y * b[g + 1 < f ? c1 + f : cr + g + 1];
+    m2 += d.z * b[g + 2 < f ? c2 + f : cr + g + 2];
+    m3 += d.w * b[g + 3 < f ? c3 + f : cr + g + 3];
+    cb = c3 + F - g - 4;
+  }
+  for (; g < F; ++g) {
+    m0 += dv[g] * b[g < f ? cb + f : cr + g];
+    cb += F - g - 1;
+  }
+  return (m0 + m1) + (m2 + m3);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// X10c at F >= 2 (mcmc_bs.py:442-453): G lanes a relation row (kBlock: the
+// block's threads), lane f owning factor f; the lanes form is built for
+// each F it takes (kF = F), the block form takes F at run time (kF = 0).  Each group walks its rows
+// (one at kBlock; in the lanes form rows gridDim.x * rows-a-block apart,
+// the grid the blocks the card holds at once) through two slices of
+// shared memory, in a pipeline: while it works on row i, row i + 1's
+// copies are in flight (the row whole, 16-byte cp.async where ld and the
+// base allow, and its positions' ptab rows v_old | dv, their ids read a
+// row earlier) and row i + 2's position ids and x are on their way to
+// registers.  A row's work: position by position in order, s1 and t by a
+// butterfly over the group, m_f = sum_g dv_g wcc_gf from the staged
+// triangle (patch_matvec), and lane f's qB, weq and dy updated in
+// registers; only qB, we, weq and dy are written.  Positions past the
+// first kPatchPos are staged in turn.  Every lane of a warp takes each
+// row (a group past the last row works on the last one and writes
+// nothing), so the shuffles see the whole warp.  No row is skipped where
+// its dv is 0: 0 inf gives the twin's NaN.
+// At most 64 registers a thread: four blocks of the lanes form an SM
+// (built for its F, the form takes ~80 otherwise, and three blocks leave
+// too few rows in flight: 0.054 against 0.050 ms at F = 20 on an NVIDIA
+// H100 80GB HBM3 at 700 W).  Lanes F .. G - 1 idle through the sums, the
+// matvec and the writes (12 of 32 at F = 20): the matvec's F^2 products
+// spread evenly over all G lanes instead (12 or 13 a lane at F = 20, each
+// lane's partials for at most two factors folded by shuffles, F at run
+// time) took 0.1056-0.1117 ms on the same card, against 0.0502-0.0573 for
+// this form: a warp issues the products of its busiest lane, and the
+// split's per-lane bounds and offsets cost more than the idle lanes.
+template <bool kBlock, int kF>
+__global__ void __launch_bounds__(kPatchThreads, 4)
+    rel_patch_group_kernel(const int* __restrict__ rids,
+                           const float* __restrict__ rvals, int64_t R,
+                           int Pr, const int* __restrict__ pos, int npos,
+                           const float* __restrict__ ptab, int F_arg, int G,
+                           int vec, int pvec, float* __restrict__ rtab,
+                           float* __restrict__ dy) {
+  extern __shared__ __align__(16) float smem[];
+  const int F = kF > 0 ? kF : F_arg;
+  const RelLayout lay(F);
+  const int gl = kBlock ? threadIdx.x : threadIdx.x & (G - 1);
+  const int slot = kBlock ? 0 : threadIdx.x / G;
+  const int per = kBlock ? 1 : blockDim.x / G;  // rows a block a round
+  const int nr = static_cast<int>(R);            // < 2^31 (the launch)
+  const int stride = gridDim.x * per;
+  // the warp's first row and the group's
+  const int w0 = blockIdx.x * per + (kBlock ? 0 : (threadIdx.x & ~31) / G);
+  const int g0 = blockIdx.x * per + slot;
+  const int slice = patch_slice(F);
+  const int ldr = round4(lay.ld);
+  const int F4 = round4(F);
+  // the group's slices (two, one at kBlock: a block takes one row), each a
+  // row and its positions' ptab rows; then, at kBlock, the sums' partials
+  float* sbuf = smem + (kBlock ? 0 : 2 * slot * slice);
+  float* red = smem + (kBlock ? slice : 2 * per * slice);
+  const int f = gl;
+  const bool own = f < F;
+  const int nk0 = min(kPatchPos, npos);
+  // a row past R: the last row
+  auto clamp = [&](int r) -> int64_t { return r < nr ? r : nr - 1; };
+  // a row's first positions' ids and x
+  auto row_ids = [&](int r, PatchIds& ids) {
+    const int64_t rc = clamp(r);
+    patch_ids(rids + rc * Pr, rvals + rc * Pr, pos, 0, nk0, ids);
+  };
+  // a row's copies into slice b: the row and its positions' ptab rows
+  auto stage = [&](int r, float* b, const PatchIds& ids) {
+    row_copy_async(b, rtab + clamp(r) * lay.ld, lay.ld, vec, gl, G);
+    patch_stage_ptab(b + ldr, F4, ptab, F, ids, nk0, pvec, gl, G);
+    cp_async_commit();
+  };
+
+  PatchIds ids, next;  // this row's, the next row's
+  row_ids(g0, ids);
+  stage(g0, sbuf, ids);
+  row_ids(g0 + stride, next);
+  float xs[kPatchPos];
+#pragma unroll
+  for (int k = 0; k < kPatchPos; ++k) xs[k] = ids.x[k];
+  float dyf = own ? dy[clamp(g0) * F + f] : 0.f;
+  int cur = 0;
+  for (int w = w0, rho = g0; w < nr; w += stride, rho += stride) {
+    float* b = sbuf + (kBlock ? 0 : cur * slice);
+    float* nb = sbuf + (kBlock ? 0 : (cur ^ 1) * slice);
+    const bool more = w < nr - stride;  // the same in every lane of a warp
+    float ndy = 0.f;
+    group_sync<kBlock>();  // the group is done with nb's last row
+    if (more) {
+      stage(rho + stride, nb, next);
+      ndy = own ? dy[clamp(rho + stride) * F + f] : 0.f;
+      row_ids(rho + stride < nr - stride ? rho + 2 * stride : nr - 1,
+              ids);  // the row after: in by its turn
+      cp_async_wait_group<1>();        // this row's copies
+    } else {
+      cp_async_wait_group<0>();
+    }
+    group_sync<kBlock>();
+    float qb = 0.f, weq = 0.f, wc = 0.f;
+    if (own) {
+      qb = b[f];
+      weq = b[lay.weq + f];
+      wc = b[lay.wc + f];
+    }
+    float we = b[lay.we];
+    const float wn = b[lay.wn];
+    for (int k0 = 0; k0 < npos; k0 += kPatchPos) {
+      const int nk = min(kPatchPos, npos - k0);
+      if (k0 > 0) {  // the next chunk of positions, staged in turn
+        PatchIds more_ids;
+        const int64_t rc = clamp(rho);
+        patch_ids(rids + rc * Pr, rvals + rc * Pr, pos, k0, nk, more_ids);
+        group_sync<kBlock>();  // the last chunk's ptab rows are read
+        patch_stage_ptab(b + ldr, F4, ptab, F, more_ids, nk, pvec, gl, G);
+        cp_async_commit();
+        cp_async_wait_group<0>();
+        group_sync<kBlock>();
+#pragma unroll
+        for (int k = 0; k < kPatchPos; ++k) xs[k] = more_ids.x[k];
+      }
+#pragma unroll
+      for (int k = 0; k < kPatchPos; ++k) {
+        if (k >= nk) break;
+        const float* pv = b + ldr + 2 * k * F4;  // v_old
+        const float* dv = pv + F4;
+        const float x = xs[k];
+        const float d = own ? dv[f] : 0.f;
+        const float h = own ? x * (qb - x * pv[f]) : 0.f;
+        float s1 = d * h, t = d * wc;
+        group_sums<kBlock>(s1, t, G, red);
+        const float m = own ? patch_matvec<kF>(b, lay.wcc, dv, F, f) : 0.f;
+        weq -= s1 * wc + x * m;
+        dyf -= d * h;
+        qb -= x * d;
+        we -= s1 * wn + x * t;
+      }
+    }
+    if (rho < nr) {
+      float* row = rtab + static_cast<int64_t>(rho) * lay.ld;
+      if (own) {
+        row[f] = qb;
+        row[lay.weq + f] = weq;
+        dy[static_cast<int64_t>(rho) * F + f] = dyf;
+      }
+      if (gl == 0) row[lay.we] = we;
+    }
+    if (more) {  // the next row's x, then the ids of the row after it
+#pragma unroll
+      for (int k = 0; k < kPatchPos; ++k) xs[k] = next.x[k];
+      next = ids;
+      dyf = ndy;
+    }
+    cur ^= 1;
+  }
+}
+
+// X10c at F <= 1 (kW: the w mode, mcmc_bs.py:672-676, rows we | wn; else
+// F = 1, :802-810, in the reference's grouping, rows qB | we | weq | wc |
+// wcc | wn): a thread a relation row, held in registers (8-byte loads
+// where the base allows, vec = 2); each chunk of up to kPatchPos
+// positions' ids, x and (v_old, dv) is read before its arithmetic, the
+// positions in order; we (qB, we, weq) and dy written once.
+template <bool kW>
+__global__ void __launch_bounds__(kPatchThreads)
+    rel_patch_row_kernel(const int* __restrict__ rids,
+                         const float* __restrict__ rvals, int64_t R, int Pr,
+                         const int* __restrict__ pos, int npos,
+                         const float* __restrict__ ptab, int vec, int pvec,
+                         float* __restrict__ rtab, float* __restrict__ dy) {
+  constexpr int ld = kW ? 2 : 6;
+  const int64_t rho =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (rho >= R) return;
+  float* row = rtab + rho * ld;
+  float r[ld];
+  if (vec >= 2) {
+#pragma unroll
+    for (int i = 0; i < ld / 2; ++i) {
+      const float2 v = reinterpret_cast<const float2*>(row)[i];
+      r[2 * i] = v.x;
+      r[2 * i + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < ld; ++i) r[i] = row[i];
+  }
+  float dyr = dy[rho];
+  const int* rid = rids + rho * Pr;
+  const float* rx = rvals + rho * Pr;
+  for (int k0 = 0; k0 < npos; k0 += kPatchPos) {
+    const int nk = min(kPatchPos, npos - k0);
+    float xp[kPatchPos], pv[kPatchPos], pd[kPatchPos];
+#pragma unroll
+    for (int k = 0; k < kPatchPos; ++k) {
+      xp[k] = pv[k] = pd[k] = 0.f;
+      if (k < nk) {
+        const int p = pos[k0 + k];
+        const float* g = ptab + 2 * static_cast<int64_t>(rid[p]);
+        xp[k] = rx[p];
+        if (pvec >= 2) {
+          const float2 t = *reinterpret_cast<const float2*>(g);
+          pv[k] = t.x;
+          pd[k] = t.y;
+        } else {
+          pv[k] = g[0];
+          pd[k] = g[1];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPatchPos; ++k) {
+      if (k >= nk) break;
+      const float x = xp[k], d = pd[k];
+      if constexpr (kW) {
+        r[0] -= x * d * r[1];
+        dyr -= x * d;
+      } else {
+        const float h = x * (r[0] - x * pv[k]);
+        r[1] -= d * (h * r[5] + x * r[3]);
+        r[2] -= d * (h * r[3] + x * r[4]);
+        dyr -= d * h;
+        r[0] -= x * d;
+      }
+    }
+  }
+  if constexpr (kW) {
+    row[0] = r[0];
+  } else if (vec >= 2) {
+    *reinterpret_cast<float2*>(row) = make_float2(r[0], r[1]);
+    row[2] = r[2];
+  } else {
+    row[0] = r[0];
+    row[1] = r[1];
+    row[2] = r[2];
+  }
+  dy[rho] = dyr;
 }
 
 }  // namespace
@@ -1024,18 +1375,83 @@ SVBFM_EXPORT int svbfm_bs_rel_draw(
   return static_cast<int>(cudaGetLastError());
 }
 
+// X10c's lanes form at 2 <= F <= 32, built for each F (kF = F): a
+// persistent grid, the blocks the card holds, each group walking rows.
+template <int kF>
+static cudaError_t launch_patch_lanes(const int* rids, const float* rvals,
+                                      int64_t R, int Pr, const int* pos,
+                                      int npos, const float* ptab, int F,
+                                      int vec, int pvec, float* rtab,
+                                      float* dy, cudaStream_t stream) {
+  if constexpr (kF > 32) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (F != kF)
+      return launch_patch_lanes<kF + 1>(rids, rvals, R, Pr, pos, npos, ptab,
+                                        F, vec, pvec, rtab, dy, stream);
+    const int G = patch_lanes(kF);
+    const int per = kPatchThreads / G;
+    const size_t smem = sizeof(float) * 2 * per * patch_slice(kF);
+    auto kernel = rel_patch_group_kernel<false, kF>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0, fit = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel,
+                                                          kPatchThreads, smem);
+    if (err != cudaSuccess) return err;
+    const int64_t need = (R + per - 1) / per;
+    const int64_t most = static_cast<int64_t>(sms) * (fit > 0 ? fit : 1);
+    kernel<<<static_cast<unsigned>(need < most ? need : most), kPatchThreads,
+             smem, stream>>>(rids, rvals, R, Pr, pos, npos, ptab, kF, G, vec,
+                             pvec, rtab, dy);
+    return cudaGetLastError();
+  }
+}
+
 // X10c: patch rtab's qB, we, weq (F = 0: we) and dy [R, Fo] in place over
 // the row-layout positions pos [npos] of rids/rvals [R, Pr], from ptab
-// [Dr, 2Fo] = (v_old, dv).
+// [Dr, 2Fo] = (v_old, dv), in the form patch_plan gives F (see above).
 SVBFM_EXPORT int svbfm_bs_rel_patch(const int* rids, const float* rvals,
                                     int64_t R, int Pr, const int* pos,
                                     int npos, const float* ptab, int F,
                                     float* rtab, float* dy,
                                     cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((R + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  rel_patch_kernel<<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
-      rids, rvals, R, Pr, pos, npos, ptab, F, rtab, dy);
+  if (R == 0 || npos == 0) return static_cast<int>(cudaSuccess);
+  if (R > INT32_MAX / 2) return static_cast<int>(cudaErrorInvalidValue);
+  const RelLayout lay(F);
+  const int vec = row_vec(lay.ld, rtab);
+  // ptab rows: 2 floats at F <= 1; at F >= 2 v_old and dv, F floats each
+  const int pvec = row_vec(F > 1 ? F : 2, ptab);
+  if (F <= 1) {
+    const unsigned blocks =
+        static_cast<unsigned>((R + kPatchThreads - 1) / kPatchThreads);
+    if (F == 0) {
+      rel_patch_row_kernel<true><<<blocks, kPatchThreads, 0, stream>>>(
+          rids, rvals, R, Pr, pos, npos, ptab, vec, pvec, rtab, dy);
+    } else {
+      rel_patch_row_kernel<false><<<blocks, kPatchThreads, 0, stream>>>(
+          rids, rvals, R, Pr, pos, npos, ptab, vec, pvec, rtab, dy);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (F <= 32)
+    return static_cast<int>(launch_patch_lanes<2>(rids, rvals, R, Pr, pos,
+                                                  npos, ptab, F, vec, pvec,
+                                                  rtab, dy, stream));
+  const int threads = (F + 31) / 32 * 32;
+  const size_t smem = sizeof(float) * (patch_slice(F) + 2 * (threads / 32));
+  if (threads > kPatchThreads || smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(rel_patch_group_kernel<true, 0>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rel_patch_group_kernel<true, 0><<<static_cast<unsigned>(R), threads, smem,
+                                    stream>>>(rids, rvals, R, Pr, pos, npos,
+                                              ptab, F, threads, vec, pvec,
+                                              rtab, dy);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,10 +8,12 @@ materialising the join; ``bs_resync`` carries a relation sweep's per-row
 deltas back to the data rows (e += sum dy[j] + sum qO dqB[j], q += dqB[j]),
 and with no e builds the q cache (q += qB[j]).  On CUDA tensors each op
 launches its hand-written kernel; on CPU tensors it runs the plain PyTorch
-twin beside it, the JAX arithmetic.  ``bs_scores`` takes any number of
-relations: the kernel reads their joins and moment tables through two
-device arrays of pointers (``pointer_table``), built once per set of
-tensors.
+twin beside it, the JAX arithmetic.  The resync's form (``resync_plan``)
+follows F and its operands' alignment: four data rows a thread at F = 1,
+lanes over 16-byte (else 8- or 4-byte) chunks of a row at F >= 2.
+``bs_scores`` takes any number of relations: the kernel reads their joins
+and moment tables through two device arrays of pointers
+(``pointer_table``), built once per set of tensors.
 
 Layouts (see ``csrc/bs_forward.cu``): stab [D_all, 1+K] = (w | v^T), as
 kernel K1 reads it; rids/rvals [R, Pr] a relation's row layout in its local
@@ -23,6 +25,8 @@ build at the v sweep's entry (:700-708) and the resyncs (:463-468,
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -147,6 +151,47 @@ def bs_scores(stab, w0, ids, vals, joins, moms):
 
 # ---- the resync ---------------------------------------------------------------
 
+_RESYNC_ROWS = 4  # csrc/bs_forward.cu kResyncRows: data rows a thread, F = 1
+
+
+class ResyncPlan(NamedTuple):
+    """How the resync runs: its form ("rows": F = 1, ``rows`` data rows a
+    thread; "chunks": F >= 2, ``lanes`` lanes a data row over chunks of
+    ``vec`` floats, ``rows`` data rows a warp); vec, the floats a load
+    (at F = 1: 4 where join, q and e take 16-byte loads, else 1)."""
+
+    form: str
+    vec: int
+    lanes: int
+    rows: int
+
+
+def resync_plan(F: int, ld1: int, addrs: dict) -> ResyncPlan:
+    """The resync's form at F >= 1 factors, qB1's row stride ld1 and the
+    operands' device addresses ``addrs`` (join, dy, qB1, qB0, q, e; 0 or
+    absent for one not given), a function of F and of alignment
+    (``csrc/bs_forward.cu:svbfm_bs_resync``, ``resync_vec``)."""
+    a = {k: addrs.get(k, 0) for k in ("join", "dy", "qB1", "qB0", "q", "e")}
+    if F == 1:
+        v4 = (a["join"] % 16 == 0 and (not a["qB1"] or a["q"] % 16 == 0)
+              and a["e"] % 16 == 0)
+        return ResyncPlan("rows", 4 if v4 else 1, 1, _RESYNC_ROWS)
+    vec = next((v for v in (4, 2) if F % v == 0
+                and (not a["qB1"] or ld1 % v == 0)
+                and all(a[k] % (4 * v) == 0
+                        for k in ("dy", "qB1", "qB0", "q"))), 1)
+    G = min(F // vec, 32)
+    return ResyncPlan("chunks", vec, G, 32 // G)
+
+
+def resync_plan_of(join, F: int, dy, qB1, qB0, q, e) -> ResyncPlan:
+    """``resync_plan`` for the tensors of one ``bs_resync`` call."""
+    ts = dict(join=join, dy=dy, qB1=qB1, qB0=qB0, q=q, e=e)
+    return resync_plan(F, 0 if qB1 is None else qB1.stride(0),
+                       {k: t.data_ptr() for k, t in ts.items()
+                        if t is not None})
+
+
 def bs_resync_plain(join, F: int, dy, qB1, qB0, q, e) -> None:
     """In place on q [N, F] and e [N] (either may be None): e += sum_f
     dy[j] + sum_f (q - qB0[j]) (qB1 - qB0)[j], then q += (qB1 - qB0)[j]
@@ -196,6 +241,8 @@ def bs_resync(join, F: int, dy, qB1, qB0, q, e) -> None:
         req(q, _F32, (N, F), dev, "bs_resync.q")
     if e is not None:
         req(e, _F32, (N,), dev, "bs_resync.e")
+    if qB1 is not None and q is None:
+        raise ValueError("bs_resync: qB1 needs the q it updates")
     if N == 0 or F == 0:
         return
     lib = build.load_library("bs_forward")

@@ -18,6 +18,9 @@ On CUDA tensors each op launches its hand-written kernel; on CPU tensors it
 runs the plain PyTorch twin beside it, the JAX arithmetic vectorised over
 the bucket or the relation rows (``einsum`` in float32, the draw by
 ``mcmc_sweep.exact_block_draws``).  All update their outputs in place.
+X10c's form (``patch_plan``) is a function of F: a thread a relation row
+at F <= 1, a group of lanes (F <= 32) or a block a row that stages the
+row whole in shared memory at F >= 2.
 
 Layouts (see ``csrc/bs_sweep.cu``): the relation-row table ``rtab``
 [R, 3F + 2 + P], P = F(F+1)/2, channels qB | we | weq | wc | wcc | wn
@@ -490,6 +493,54 @@ def bs_rel_w_draw(rows, x, cols, group, rtab, ptab, w, mu, lam, alpha,
 
 # ---- X10c -------------------------------------------------------------------
 
+# X10c's forms (csrc/bs_sweep.cu): a thread a relation row at F <= 1; G
+# lanes a row, G the next power of two >= F, at 2 <= F <= 32; a block of
+# round32(F) threads a row past F = 32
+_PATCH_THREADS = 256  # csrc/bs_sweep.cu kPatchThreads
+_PATCH_POS = 2  # csrc/bs_sweep.cu kPatchPos: positions staged at once
+
+
+class PatchPlan(NamedTuple):
+    """How X10c runs at F factors: its form; lanes, the threads a relation
+    row; rows, the rows a block takes at once (the lanes form's blocks walk
+    the rows, two slices of shared memory a row's group); smem, a block's
+    bytes of shared memory."""
+
+    form: str
+    lanes: int
+    rows: int
+    smem: int
+
+
+def patch_slice(F: int) -> int:
+    """Floats of a row's slice of shared memory in the lanes and block
+    forms: the row, then _PATCH_POS ptab rows, v_old and dv each at a
+    16-byte boundary (``csrc/bs_sweep.cu:patch_slice``)."""
+    return _r4(rel_layout(F)["ld"]) + _PATCH_POS * 2 * _r4(F)
+
+
+def patch_plan(F: int) -> PatchPlan:
+    """X10c's form at F factors (0: the w sweep), a function of F alone
+    (``csrc/bs_sweep.cu:svbfm_bs_rel_patch``)."""
+    if F <= 1:
+        return PatchPlan("thread", 1, _PATCH_THREADS, 0)
+    if F <= 32:
+        G = narrow_lanes(F)
+        rows = _PATCH_THREADS // G
+        return PatchPlan("lanes", G, rows, 8 * rows * patch_slice(F))
+    threads = -(-F // 32) * 32
+    return PatchPlan("block", threads, 1,
+                     4 * (patch_slice(F) + 2 * (threads // 32)))
+
+
+def patch_fits(F: int) -> bool:
+    """Whether X10c's block takes a row of F factors: at most
+    _PATCH_THREADS factors and a row that fits the block's shared memory
+    (every F up to MAX_REL_F does)."""
+    p = patch_plan(F)
+    return p.lanes <= _PATCH_THREADS and p.smem <= MAX_BLOCK_SMEM
+
+
 def bs_rel_patch_plain(rids, rvals, pos, ptab, F: int, rtab, dy) -> None:
     """Patch rtab (qB, we, weq) and dy [R, F] over the positions ``pos`` (an
     int32 tensor) in order: the blocked grouping (mcmc_bs.py:442-453) at
@@ -549,6 +600,10 @@ def _launch_patch(kname, rids, rvals, pos, ptab, F, rtab, dy):
     req(dy, _F32, (R, Fo), dev, f"{kname}.dy")
     if R == 0 or pos.shape[0] == 0:
         return
+    if not patch_fits(F):
+        raise ValueError(f"{kname}: F = {F} is wider than the row a block "
+                         f"of X10c takes (up to {_PATCH_THREADS} factors "
+                         "whose row fits its shared memory)")
     lib = build.load_library("bs_sweep")
     args = [build.ptr(rids), build.ptr(rvals), R, Pr, build.ptr(pos),
             pos.shape[0], build.ptr(ptab)]

@@ -238,7 +238,7 @@ def sgd_apply_plain(tab, w0, acc, acc0, m: StepMode, sgda=None) -> None:
         won = winner >= 0
         idx = torch.clamp(winner, min=0).long()
         flat_w = gw_e.reshape(-1)
-        flat_v = gv_e.reshape(-1, m.K)
+        flat_v = gv_e.reshape(flat_w.shape[0], m.K)  # K = 0: no columns
         if flat_w.numel():
             grad_tab[:, 0] = torch.where(won, flat_w[idx], grad_tab[:, 0])
             grad_tab[:, 1:] = torch.where(won[:, None], flat_v[idx],

@@ -622,3 +622,99 @@ def test_draw_widths_the_learners_admit_are_unchanged():
         assert ks.rel_draw_fits(F) == (max(draw, agg) <= cap)
     assert [F for F in range(1, 321) if km.col_draw_fits(F, True)][-1] == 303
     assert [F for F in range(1, 321) if ks.rel_draw_fits(F)][-1] == 251
+
+
+@pytest.mark.parametrize("F,form,lanes", [
+    (0, "thread", 1), (1, "thread", 1), (2, "lanes", 2), (3, "lanes", 4),
+    (4, "lanes", 4), (5, "lanes", 8), (8, "lanes", 8), (9, "lanes", 16),
+    (16, "lanes", 16), (17, "lanes", 32), (20, "lanes", 32),
+    (32, "lanes", 32), (33, "block", 64), (64, "block", 64),
+    (65, "block", 96), (251, "block", 256), (256, "block", 256)])
+def test_rel_patch_form_is_a_function_of_f(F, form, lanes):
+    """X10c's form: a thread a relation row at F <= 1; at 2 <= F <= 32 the
+    next power of two >= F lanes a row, the rows of a 256-thread block in
+    two slices of shared memory each (the row and two positions' ptab rows,
+    v_old and dv at 16-byte boundaries); past F = 32 a block of round32(F)
+    threads a row, one slice and the block's sum partials; every plan fits
+    a block (csrc/bs_sweep.cu:svbfm_bs_rel_patch)."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+    from svbfm_tpu_torch.kernels.mcmc_sweep import MAX_BLOCK_SMEM
+
+    p = ks.patch_plan(F)
+    assert (p.form, p.lanes) == (form, lanes)
+    ld = ks.rel_layout(F)["ld"]
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    assert ks.patch_slice(F) == r4(ld) + 2 * 2 * r4(F)
+    if form == "thread":
+        assert (p.rows, p.smem) == (256, 0)
+    elif form == "lanes":
+        assert lanes >= F > lanes // 2 and p.rows == 256 // lanes
+        assert p.smem == 4 * 2 * p.rows * ks.patch_slice(F)
+    else:
+        assert p.rows == 1 and lanes == -(-F // 32) * 32
+        assert p.smem == 4 * (ks.patch_slice(F) + 2 * lanes // 32)
+    assert p.smem <= MAX_BLOCK_SMEM and ks.patch_fits(F)
+
+
+def test_rel_patch_fits_every_width_the_learners_give():
+    """Every width the BS learners give X10c (to MAX_REL_F) fits its form;
+    past 256 factors a block's threads no longer cover the factors."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    assert all(ks.patch_fits(F) for F in range(ks.MAX_REL_F + 1))
+    assert ks.patch_fits(256) and not ks.patch_fits(257)
+
+
+_A = dict(join=0x1000, dy=0x2000, qB1=0x3000, qB0=0x4000, q=0x5000,
+          e=0x6000)
+
+
+@pytest.mark.parametrize("F,ld1,addrs,plan", [
+    (1, 6, _A, ("rows", 4, 1, 4)),
+    (1, 6, dict(_A, e=0x6004), ("rows", 1, 1, 4)),
+    (1, 6, dict(_A, join=0x1008), ("rows", 1, 1, 4)),
+    (1, 1, dict(join=0x1000, qB1=0x3004, q=0x5000), ("rows", 4, 1, 4)),
+    (1, 0, dict(join=0x1000, dy=0x2004, e=0x6000), ("rows", 4, 1, 4)),
+    (20, 272, _A, ("chunks", 4, 5, 6)),
+    (20, 20, dict(join=0x1000, qB1=0x3000, q=0x5000), ("chunks", 4, 5, 6)),
+    (20, 272, dict(_A, q=0x5008), ("chunks", 2, 10, 3)),
+    (20, 272, dict(_A, qB0=0x4004), ("chunks", 1, 20, 1)),
+    (20, 21, _A, ("chunks", 1, 20, 1)),
+    (2, 11, _A, ("chunks", 1, 2, 16)),
+    (3, 17, _A, ("chunks", 1, 3, 10)),
+    (8, 62, _A, ("chunks", 2, 4, 8)),
+    (64, 64, dict(join=0x1000, qB1=0x3000, q=0x5000), ("chunks", 4, 16, 2)),
+    (64, 2274, _A, ("chunks", 2, 32, 1)),
+    (33, 33, _A, ("chunks", 1, 32, 1)),
+    (251, 251, _A, ("chunks", 1, 32, 1))])
+def test_resync_plan_is_a_function_of_f_and_alignment(F, ld1, addrs, plan):
+    """X10d's resync form: at F = 1 four data rows a thread, 16-byte loads
+    of join, q and e where all three allow them; at F >= 2 lanes over
+    chunks of a row of the widest of 4, 2, 1 floats that divides F (and
+    ld1, where qB1 is given) and to whose size dy, qB1, qB0 and q are
+    aligned, min(F / vec, 32) lanes a row, 32 // lanes rows a warp
+    (csrc/bs_forward.cu:svbfm_bs_resync, resync_vec)."""
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    assert tuple(kf.resync_plan(F, ld1, addrs)) == plan
+
+
+def test_resync_plan_of_reads_the_tensors():
+    """resync_plan_of takes qB1's row stride and the operands' addresses
+    from the tensors of a call: a column slice of the relation table at
+    F = 20 (ld1 = 272) and at F = 3 (ld1 = 17)."""
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    N, R = 10, 4
+    join = torch.zeros(N, dtype=torch.int32)
+    for F, vec in ((20, 4), (3, 1)):
+        rtab = torch.zeros(R, ks.rel_layout(F)["ld"])
+        t = [torch.zeros(R, F), rtab[:, :F], torch.zeros(R, F),
+             torch.zeros(N, F), torch.zeros(N)]
+        assert all(a.data_ptr() % 16 == 0 for a in t)  # the CPU allocator
+        p = kf.resync_plan_of(join, F, *t)
+        assert p.form == "chunks" and p.vec == vec
+        assert p == kf.resync_plan(F, rtab.stride(0), dict(
+            join=join.data_ptr(), dy=t[0].data_ptr(), qB1=t[1].data_ptr(),
+            qB0=t[2].data_ptr(), q=t[3].data_ptr(), e=t[4].data_ptr()))

@@ -269,6 +269,39 @@ def test_sgd_learners_on_gpu_match_cpu(cuda, method):
                                    atol=chip_smoke.SGD_PARAM_ATOL)
 
 
+def test_sgda_k0_on_gpu_matches_cpu(cuda):
+    """SGDA at K = 0 (dim '1,1,0', the linear model alone), 3 epochs from
+    one host-made init and host-drawn permutations on the card and on the
+    CPU: the metrics agree to chip_smoke.SGD_TRAJ_RTOL, the tables and
+    regs to chip_smoke.SGD_PARAM_ATOL."""
+    import chip_smoke
+
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.sgd import SGDALearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    tr, te, D, meta, cfg = _small(K=0, learn_rate=0.05, regw=0.01,
+                                  regv=0.01, batch_size=128, num_batches=4)
+    train, test = SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D)
+    p = init_fm_params(torch.Generator().manual_seed(3), D, 0)
+    hists, ends = [], []
+    for dev in (cuda, "cpu"):
+        learner = SGDALearner(cfg, train, test, test, meta, device=dev,
+                              write_files=False)
+        state = learner.state_from_params(p.w0, p.w, p.v, host_draws(4, dev))
+        state, hist = learner.run(state, num_iter=3, verbose=False)
+        hists.append(hist)
+        ends.append([state.tab.cpu(), state.reg_w.cpu(), state.reg_v.cpu()])
+    for g, c in zip(*hists):
+        for k in ("rmse", "rmse_train", "rmse_val"):
+            np.testing.assert_allclose(g[k], c[k],
+                                       rtol=chip_smoke.SGD_TRAJ_RTOL,
+                                       err_msg=k)
+    for g, c in zip(*ends):
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=0,
+                                   atol=chip_smoke.SGD_PARAM_ATOL)
+
+
 @pytest.mark.parametrize("kernel", ["w_grad_step", "mcmc_col_grad"])
 def test_exp_sgd_kernels_match_twins_on_ragged_case(cuda, kernel):
     """X9d, K5's and X8a's gradient modes, on the ragged MCMC bucket at
@@ -1217,3 +1250,135 @@ def test_sgd_grad_scatter_matches_twin(cuda, mode, K, P):
         steps.append([tb, w0s, w.acc, w.acc0, gt])
     torch.cuda.synchronize()
     chip_smoke.compare(*steps, f"sgd_apply after X9a {mode} K={K} P={P}")
+
+
+def _offset_view(a, aligned, dev):
+    """``a`` on ``dev``, contiguous, at a 16-byte-aligned address or, not
+    ``aligned``, 4 bytes past one (a view one element into a flat
+    buffer), so that the kernels' vector loads must give way."""
+    if aligned:
+        return a.to(dev).contiguous()
+    buf = torch.zeros(a.numel() + 1, dtype=a.dtype, device=dev)
+    v = buf[1:].view(a.shape)
+    v.copy_(a)
+    assert v.is_contiguous() and v.data_ptr() % 16 != 0
+    return v
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("npos", [1, 6])
+@pytest.mark.parametrize("R", [1, 301])
+@pytest.mark.parametrize("F", [0, 1, 2, 3, 4, 5, 8, 16, 20, 31, 32, 33, 64,
+                               128, 251])
+def test_rel_patch_forms_match_twin(cuda, F, R, npos, aligned):
+    """X10c in each form (a thread a row at F <= 1, G lanes a row to
+    F = 32, a block a row past it) against its twin: R = 1 and R = 301 (no
+    multiple of any form's rows a block), one position and six (two
+    chunks of staged positions, out of order), the relation table and ptab
+    at aligned and unaligned bases; row 0 holds an Inf (wcc, at F = 0 wn)
+    and ptab some zero dv, so that 0 inf makes NaN where the twin does;
+    two launches give the same bits."""
+    _rel_patch_case(cuda, F, R, npos, aligned)
+
+
+@pytest.mark.parametrize("npos", [1, 6])
+@pytest.mark.parametrize("rounds", [None, 2])
+@pytest.mark.parametrize("F", [2, 8, 20, 32])
+def test_rel_patch_persistent_walk_matches_twin(cuda, F, rounds, npos):
+    """X10c's lanes form on more rows than its persistent grid holds at
+    once, so that each group walks several rows: R = 70,001 and, from the
+    card's SM count, two rounds of the most blocks an SM holds (four, at
+    the kernel's 64 registers a thread) plus 13 rows (the last rows past R
+    inside a warp of several rows at G < 32); one position and six (the
+    k0 > 0 restage of ptab while the next row's copies are in flight);
+    against the twin, two launches the same bits."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    p = ks.patch_plan(F)
+    assert p.form == "lanes"
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    R = 70_001 if rounds is None else rounds * sms * 4 * p.rows + 13
+    _rel_patch_case(cuda, F, R, npos, True)
+
+
+def _rel_patch_case(cuda, F, R, npos, aligned):
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    g = torch.Generator().manual_seed(100 * F + R + npos)
+    Fo, Pr, Dr = max(F, 1), 7, 40
+    lay = ks.rel_layout(F)
+    rids = torch.randint(0, Dr, (R, Pr), generator=g, dtype=torch.int32)
+    rvals = torch.rand(R, Pr, generator=g) + 0.5
+    rvals[::5, 3] = 0.0  # padding entries
+    pos = torch.tensor([3, 0, 6, 2, 5, 1][:npos], dtype=torch.int32)
+    ptab = torch.cat([0.1 * torch.randn(Dr, Fo, generator=g),
+                      0.05 * torch.randn(Dr, Fo, generator=g)], 1)
+    ptab[:5, Fo:] = 0.0  # columns the bin left as they were
+    rids[0, :] = torch.arange(Pr, dtype=torch.int32) % 5
+    rtab = _rel_table(g, F, R)
+    rtab[0, lay["wcc"] if F else lay["wn"]] = float("inf")
+    dy = 0.1 * torch.randn(R, Fo, generator=g)
+    outs = []
+    for run in ("kernel", "kernel", "cpu"):
+        dev = "cpu" if run == "cpu" else cuda
+        rt = _offset_view(rtab, aligned or run == "cpu", dev)
+        pt = _offset_view(ptab, aligned or run == "cpu", dev)
+        d = dy.to(dev)
+        args = (rids.to(dev), rvals.to(dev), pos.to(dev), pt)
+        if F:
+            ks.bs_rel_patch(*args, F, rt, d)
+        else:
+            ks.bs_rel_w_patch(*args, rt, d)
+        outs.append([rt.cpu(), d.cpu()])
+    torch.cuda.synchronize()
+    what = f"bs_rel_patch F={F} R={R} npos={npos} aligned={aligned}"
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    assert not torch.isfinite(outs[2][0][0]).all(), what
+    chip_smoke.compare(outs[0], outs[2], what)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("N", [1, 1001])
+@pytest.mark.parametrize("form", ["full", "q-build", "dy"])
+@pytest.mark.parametrize("F", [1, 2, 3, 5, 8, 20, 33, 64, 251])
+def test_resync_forms_match_twin(cuda, F, form, N, aligned):
+    """X10d's resync in its three forms (after a v sweep: dy, qB1, qB0, q
+    and e; the q build: qB1 and q alone; the w resync: dy and e) against
+    its twin: qB1 a strided view of a wider table at an aligned row stride
+    (a multiple of 4) and at an odd one, q and e at aligned and unaligned
+    bases, a join with repeats over 37 relation rows, N = 1 and 1,001 (no
+    multiple of the rows a warp or a thread); two launches give the same
+    bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    g = torch.Generator().manual_seed(10 * F + N)
+    R = 37
+    ld1 = (F + 4) // 4 * 4 if aligned else F + 1 + F % 2
+    join = torch.randint(0, R, (N,), generator=g, dtype=torch.int32)
+    big = torch.randn(R, ld1, generator=g)
+    qb0 = 0.5 * torch.randn(R, F, generator=g)
+    dy = 0.1 * torch.randn(R, F, generator=g)
+    q = torch.randn(N, F, generator=g)
+    e = torch.randn(N, generator=g)
+    use = dict(full=(True, True, True, True), dy=(True, False, False, True),
+               **{"q-build": (False, True, False, False)})[form]
+    outs = []
+    for run in ("kernel", "kernel", "cpu"):
+        dev = "cpu" if run == "cpu" else cuda
+        qb1 = big.to(dev)[:, :F]
+        assert qb1.stride(0) == ld1
+        qr = _offset_view(q, aligned or run == "cpu", dev)
+        er = _offset_view(e, aligned or run == "cpu", dev)
+        args = [a.to(dev) if u else None
+                for a, u in zip((dy, qb1, qb0), use)]
+        kf.bs_resync(join.to(dev), F, *args, qr if use[1] else None,
+                     er if use[3] else None)
+        outs.append([qr.cpu(), er.cpu()])
+    torch.cuda.synchronize()
+    what = f"bs_resync {form} F={F} N={N} aligned={aligned}"
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    chip_smoke.compare(outs[0], outs[2], what)
