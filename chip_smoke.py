@@ -14,10 +14,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      F=20 and F=1 in both draw modes, the gather probe's shapes, the SGD
      family's batches in each step mode and X9b also on a table of
      ML-10M's width, the full-batch exp_sgd's w and v steps at F=20 and
-     F=1, the block-structure sampler's relation kernels on the 1M-rating
-     relational recipe at F=20, F=1 and the w sweep, X10c's form and
-     the resync's full, q-build and w forms printed beside each, the
-     joined scores also over nine relations) and on small ragged cases with
+     F=1 (X8a at F=1 in both modes on every degree bucket, its lanes a
+     column and load width printed beside each), the block-structure
+     sampler's relation kernels on the 1M-rating relational recipe at
+     F=20, F=1 and the w sweep (X10a also at F=33, its block form), X10a's,
+     X10c's and the resync's forms printed beside each, the joined scores
+     also over nine relations, X9c also cut to the 8 blocks it falls back
+     to where the card holds no cluster of 16) and on small ragged cases with
      NaN-producing columns or targets, Inf noise, L=1 buckets and columns
      split over blocks; time both, and one PyTorch call where one computes
      the same function.  Then x9b-digest: sha256 of X9b's outputs on
@@ -52,8 +55,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
  15. mcmc gpu-vs-cpu: 2 Gibbs sweeps at full size from one host-made init
      and one host-table draw source, on the card and on the CPU.
  16. als: ALS (-regular 5) at factor_block=1 and 0, 5 iterations each:
-     kernels launched, test RMSE of the last state falling; then 2 ALS
-     sweeps at F=1, card against CPU.
+     kernels launched, test RMSE of the last state falling; then
+     mcmc-seq-profile: device time of one Gibbs sweep at factor_block=1
+     by kernel, X8a's (col_draw) apart; then 2 ALS sweeps at F=1, card
+     against CPU.
  17. mcmc-quality: 30 Gibbs iterations; the posterior-mean test RMSE at
      iterations 10 and 30 beside the reference C++'s (information).
  18. mcmc-profile: device time per Gibbs sweep by kernel.
@@ -96,7 +101,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
  33. bs-quality: the PARITY_RUNS.md:166-183 recipe, 30 iterations of
      Gibbs and of ALS (-regular 10), beside the reference C++ (information).
  34. bs-profile: device time of one blocked BS Gibbs sweep by kernel
-     (bs-profile and bs-seq-profile also give X10c's and the resync's).
+     (bs-profile and bs-seq-profile also give X10a's, X10c's and the
+     resync's).
 Then the nvidia-smi line again, a JSON line with each kernel's launches
 (summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28,
 30-32, each read just after its run with the counts zeroed just before),
@@ -177,6 +183,9 @@ NINE_RELATIONS = 9
 # the relational recipe (scripts/bench_bs.py:52-74 and :97-99): 1M ratings,
 # 20 attribute slots a user and an item row, -regular-style regs 0.05
 BS_ROWS, BS_SLOTS, BS_REG = 1_000_000, 20, 0.05
+# X10a is also timed past the widths of its warp form (F <= 32), in its
+# block form, on the same join plans
+BS_AGG_BLOCK_F = 33
 # the reference C++ on the PARITY_RUNS.md:166-183 recipe (100k rows, 4+4
 # slots, the first 10% held out, dim 1,1,8): MCMC posterior-mean and ALS
 # (-regular 10) test RMSE by iteration; other draws and inits
@@ -249,8 +258,11 @@ SOURCES = {
 }
 # the relation kernels of the block-structure sampler, every path of it
 # the kernel names whose device time the BS profiles report apart: X10c
-# (rel_patch_*_kernel) and X10d's resync (resync_*_kernel)
-BS_FOCUS = ("rel_patch", "resync")
+# (rel_patch_*_kernel), X10d's resync (resync_*_kernel) and X10a
+# (join_agg_*_kernel)
+BS_FOCUS = ("rel_patch", "resync", "join_agg")
+# the same for the factor-sequential Gibbs profile: X8a (col_draw_*)
+MCMC_FOCUS = ("col_draw",)
 BS_KERNELS = ("bs_rel_moments", "bs_scores", "bs_resync", "bs_join_agg",
               "bs_rel_draw", "bs_rel_w_draw", "bs_rel_patch",
               "bs_rel_w_patch")
@@ -413,6 +425,15 @@ def draw_note(F: int, b) -> str:
     if p is None:
         return ""
     return f"form={p.form} k={p.k} S={p.S} real={b.real.lo}-{b.real.hi}"
+
+
+def f1_note(b: dict) -> str:
+    """X8a's form at F = 1 for bucket ``b`` (lanes a column, slots a
+    load)."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
+    return plan_note(km, "col_draw_f1_plan", (b["rows"], b["x"]),
+                     ("lanes", "vec"))
 
 
 def bound(c: dict):
@@ -673,12 +694,13 @@ def make_cases(s: dict):
             for exact, z in ((True, m["z"]), (False, None)):
                 mode = ("exact" if exact else "jacobi") + (
                     "+z" if z is not None else "")
-                add("mcmc_col_draw", f"F={F} {mode} [{C},{L}]", x8a_prepare,
-                    x8a(b, exact, z),
-                    bucket_cost(b, 1 + F,
+                c = bucket_cost(b, 1 + F,
                                 3 * F + (F if z is not None else 0),
                                 7 * F + (F * (F - 1) if exact else 0),
-                                plain_graph=not exact))
+                                plain_graph=not exact)
+                c["note"] = f1_note(b) if F == 1 else ""
+                add("mcmc_col_draw", f"F={F} {mode} [{C},{L}]", x8a_prepare,
+                    x8a(b, exact, z), c)
 
         def x8b_prepare():
             return m["q"].clone(), m["e"].clone()
@@ -763,10 +785,11 @@ def make_cases(s: dict):
             return call
 
         for b in m["buckets"]:
+            c = bucket_cost(b, 1 + F, 3 * F, 5 * F)
+            c["note"] = f1_note(b) if F == 1 else ""
             add("mcmc_col_grad",
                 f"F={F} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
-                lambda m=m: (m["ptab"].clone(), m["vt"].clone()), x9dv(b),
-                bucket_cost(b, 1 + F, 3 * F, 5 * F))
+                lambda m=m: (m["ptab"].clone(), m["vt"].clone()), x9dv(b), c)
 
     for r in s.get("bs", ()):  # X10a-X10d on one relation
         bs_cases(add, r)
@@ -806,30 +829,37 @@ def bs_cases(add, r: dict) -> None:
     R, Pr = rd.rrow_ids.shape
     N = rd.join_tr.shape[0]
     Dr = r["Dr"]
-    for F, w in r["widths"]:
+    njs = sum(jb.rows.numel() for jb in rd.jplan)
+
+    def x10a_case(F, w):
         lay = ks.rel_layout(F)
-        Fo = max(F, 1)
         CH = ks.agg_channels(F)
 
-        def x10a(variant, inp, F=F, w=w):
+        def x10a(variant, inp):
             fn = ks.bs_join_agg if variant == "kernel" else ks.bs_join_agg_plain
             (rtab,) = inp
             fn(rd.jplan, r["e"], w["q"], F, rtab)
             return [rtab]
 
-        def x10a_library(w=w):
+        def x10a_library():
             return torch.zeros(R, device=r["e"].device).index_add_(
                 0, rd.join_tr, r["e"])
 
-        njs = sum(jb.rows.numel() for jb in rd.jplan)
+        form = getattr(ks, "join_form", None)
         # the join plan's slots, e and q at each data row, qB0 and wn read,
         # the CH channel sums written; per entry: qO (F), e qO (F), the
         # products (P), x times each channel and its sum (2 CH)
         add("bs_join_agg", f"{name} F={F} N={N} R={R}",
-            lambda w=w: (w["rtab0"].clone(),), x10a,
+            lambda: (w["rtab0"].clone(),), x10a,
             cost(njs * 8 + N * (1 + F) * 4 + R * (F + 1) * 4 + R * CH * 4,
                  N * (2 * F + lay["P"] + 2 * CH),
-                 x10a_library if F == 0 else None, plain_graph=False))
+                 x10a_library if F == 0 else None, plain_graph=False,
+                 note=f"form={form(F) if form else '?'}"))
+
+    for F, w in r["widths"]:
+        lay = ks.rel_layout(F)
+        Fo = max(F, 1)
+        x10a_case(F, w)
 
         for b_i, b in w["picks"]:
             C, L = b.rows.shape
@@ -939,6 +969,9 @@ def bs_cases(add, r: dict) -> None:
                           None if qb1 is None else q0,
                           r["e"] if with_e else None),
                          ("form", "vec", "lanes", "rows"))))
+
+    for F, w in r["agg_widths"]:  # X10a alone (its block form)
+        x10a_case(F, w)
 
     def moments(variant, _):
         fn = (kf.bs_rel_moments if variant == "kernel"
@@ -1053,18 +1086,19 @@ def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
              n_t * (1 + K) * 8))
     if not sgda:
         return
-    for tab_v, grad_tab, reg_v, val, mv in [
-            (tab, g["grad_tab"], g["reg_v"], g["val"], m),
+    for tab_v, grad_tab, reg_v, val, mv, cap in [
+            (tab, g["grad_tab"], g["reg_v"], g["val"], m, 0),
             *g.get("lambda_more", ())]:
         x9c_case(add, label, tab_v, grad_tab, w0, g["reg_w"], reg_v,
-                 g["attr_group"], val, mv)
+                 g["attr_group"], val, mv, cap)
 
 
 def x9c_case(add, label: str, tab, grad_tab, w0, reg_w, reg_v, attr_group,
-             val, m) -> None:
-    """X9c on the validation batch ``val`` in step mode ``m``.  The bytes
-    count the batch, the table and cache rows it names with their groups,
-    and the regs read and written."""
+             val, m, max_blocks: int = 0) -> None:
+    """X9c on the validation batch ``val`` in step mode ``m``, its cluster
+    cut to ``max_blocks`` where that is > 0.  The bytes count the batch,
+    the table and cache rows it names with their groups, and the regs read
+    and written."""
     from svbfm_tpu_torch.kernels import sgd_step as ks
 
     D, K = tab.shape[0], tab.shape[1] - 1
@@ -1078,13 +1112,14 @@ def x9c_case(add, label: str, tab, grad_tab, w0, reg_w, reg_v, attr_group,
         args = (tab, grad_tab, w0, rw, rv, attr_group, vids, vvals, vy,
                 vvalid)
         if variant == "kernel":
-            ks.sgda_lambda(*args, ws, m)
+            ks.sgda_lambda(*args, ws, m, max_blocks=max_blocks)
         else:
             ks.sgda_lambda_plain(*args, m)
         return [rw, rv]
 
     n_uv = int(torch.unique(vids).numel())
-    add("sgda_lambda", f"{label} Bv={Bv} G={G} K={K}",
+    cut = f" blocks<={max_blocks}" if max_blocks else ""
+    add("sgda_lambda", f"{label} Bv={Bv} G={G} K={K}{cut}",
         lambda: (reg_w.clone(), reg_v.clone()), x9c,
         cost(Bv * (Pv * 8 + 8) + n_uv * ((1 + K) * 8 + 4)
              + G * (1 + K) * 8, Bv * Pv * K * 30))
@@ -1349,8 +1384,9 @@ def mcmc_tensors(learner, state) -> dict:
     """Gibbs/ALS kernel inputs at the path's shapes, from a state one sweep
     into a run (drawn priors and residual): X8d, X8a and X8b on the block of
     all K factors (F = K) and on factor 0 alone (F = 1), X8a on the largest
-    bucket of each bin, with and without a noise table, in both draw modes;
-    X8c on the same buckets; the patch tables as bin 0 leaves them."""
+    bucket of each bin at F = K and on every bucket at F = 1, with and
+    without a noise table, in both draw modes; X8c on the largest buckets;
+    the patch tables as bin 0 leaves them."""
     from svbfm_tpu_torch.kernels import mcmc_sweep as km
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.kernels import w_sweep as kw
@@ -1371,6 +1407,7 @@ def mcmc_tensors(learner, state) -> dict:
                              state.e, w, state.w_mu, state.w_lambda,
                              state.alpha, s["mw_z"], dtab, _bad(dev))
     s["mw_dtab"] = dtab
+    every = [_bucket_dict(b) for bb in plan.blocks for b in bb]
     for F, sfx in ((K, ""), (1, "1")):
         vt = state.v[:F].T.contiguous()
         ptab = torch.cat([vt, torch.zeros_like(vt)], 1)
@@ -1378,7 +1415,8 @@ def mcmc_tensors(learner, state) -> dict:
                  q=kv.build_q_plain(ptab, F, row.ids, row.vals),
                  mu=state.v_mu[:, :F].contiguous(),
                  lam=state.v_lambda[:, :F].contiguous(), alpha=state.alpha,
-                 z=torch.randn(F, D, generator=gen, device=dev), buckets=big)
+                 z=torch.randn(F, D, generator=gen, device=dev),
+                 buckets=every if F == 1 else big)
         pt, v2 = ptab.clone(), vt.clone()
         for blk in plan.blocks[0]:
             km.mcmc_col_draw_plain(
@@ -1393,7 +1431,8 @@ def mcmc_tensors(learner, state) -> dict:
 def exp_sgd_tensors(learner, state) -> dict:
     """X9d's inputs at the exp_sgd path's shapes, from a state: e = stdev
     yhat - y, K5's gradient mode on the largest bucket of each bin, X8a's
-    gradient mode on the same buckets at F = K and F = 1."""
+    gradient mode on the same buckets at F = K and on every bucket at
+    F = 1."""
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.ops.forward import fm_scores
 
@@ -1403,11 +1442,13 @@ def exp_sgd_tensors(learner, state) -> dict:
          - row.target) * row.valid
     big = [_bucket_dict(max(bb, key=lambda b: b.rows.numel()))
            for bb in plan.blocks]
+    every = [_bucket_dict(b) for bb in plan.blocks for b in bb]
     xg = []
     for F in (K, 1):
         vt = state.v[:F].T.contiguous()
         ptab = torch.cat([vt, torch.zeros_like(vt)], 1)
-        xg.append((F, dict(vt=vt, ptab=ptab, buckets=big,
+        xg.append((F, dict(vt=vt, ptab=ptab,
+                           buckets=every if F == 1 else big,
                            q=kv.build_q_plain(ptab, F, row.ids, row.vals))))
     n = float(learner.train_n)
     return dict(tag="exp-sgd", D=D, x_e=e, x_w=state.w.clone(),
@@ -1425,7 +1466,7 @@ def _rebucket(b, rows, x):
 
 
 def bs_tensors(learner, state, tag: str, timed: bool, widths,
-               poison: bool = False) -> dict:
+               poison: bool = False, agg_widths=()) -> dict:
     """X10a-X10d inputs from a block-structure learner and a state, per
     relation and per width F in ``widths`` (0: the w sweep): the relation
     table as X10a starts it (qB0 of the first F factors, wn) and as it
@@ -1438,7 +1479,8 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
     column has an Inf noise number (counted, reverted), the one-hot
     bucket is also drawn cut to L = 1 and widened to L = 32 (one real
     entry), and the longest bucket cut to its first 32 slots and with its
-    first column all padding."""
+    first column all padding.  ``agg_widths``: widths past K at which X10a
+    alone runs, from seeded q and qB0 (its block form, F > 32)."""
     from svbfm_tpu_torch.kernels import bs_forward as kf
     from svbfm_tpu_torch.kernels import bs_sweep as ks
     from svbfm_tpu_torch.learners.mcmc_bs import param_table
@@ -1486,7 +1528,14 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
             picks.append((b_0, _rebucket(first, first.rows[:, :1],
                                          first.x[:, :1])))
         r = dict(name=f"rel{i}", rd=rd, Dr=Dr, off=off, e=e,
-                 alpha=state.alpha, stab=stab, widths=[])
+                 alpha=state.alpha, stab=stab, widths=[], agg_widths=[])
+        for F in agg_widths:
+            lay = ks.rel_layout(F)
+            rtab0 = torch.zeros(R, lay["ld"], device=dev)
+            rtab0[:, :F] = torch.randn(R, F, generator=gen, device=dev)
+            r["agg_widths"].append((F, dict(
+                rtab0=rtab0,
+                q=torch.randn(N, F, generator=gen, device=dev))))
         for F in widths:
             Fo = max(F, 1)
             lay = ks.rel_layout(F)
@@ -1721,17 +1770,20 @@ def sgd_tensors(sgd, exp, sgda, bpr, device) -> dict:
     wide = dict(tab=randn(ML10M_FEATURES, 1 + K), w0=g["w0"],
                 modes=[("regression-wide", sgd.mode, "row", rows)])
     # X9c also at the [sgd-quality] SGDA's width, K = 8, and on 1,000
-    # validation rows, several a warp
+    # validation rows, several a warp, also cut to the 8 blocks it falls
+    # back to where the card holds no cluster of 16 (the last entry: the
+    # cap; 0 is none)
     n_val = sgda.val_row.ids.shape[0]
     wide_val = torch.randperm(n_val, generator=gen, device=device)[:1000]
+    rows1000 = tuple(t.index_select(0, wide_val) for t in (
+        sgda.val_row.ids, sgda.val_row.vals, sgda.val_row.target,
+        sgda.val_row.valid))
     g["lambda_more"] = [
         (randn(D, 1 + SGDA_K), randn(D, 1 + SGDA_K),
          0.5 * torch.rand(G, SGDA_K, generator=gen, device=device), g["val"],
-         dataclasses.replace(sgda.mode, K=SGDA_K)),
-        (g["tab"], g["grad_tab"], g["reg_v"],
-         tuple(t.index_select(0, wide_val) for t in (
-             sgda.val_row.ids, sgda.val_row.vals, sgda.val_row.target,
-             sgda.val_row.valid)), sgda.mode)]
+         dataclasses.replace(sgda.mode, K=SGDA_K), 0),
+        (g["tab"], g["grad_tab"], g["reg_v"], rows1000, sgda.mode, 0),
+        (g["tab"], g["grad_tab"], g["reg_v"], rows1000, sgda.mode, 8)]
     return dict(tag="sgd", sgd=g, sgd_wide=wide)
 
 
@@ -2591,8 +2643,8 @@ def main() -> int:
         check_cases(sgd_tensors(sgd, exp_sgd, sgda, bpr, dev), timed=True),
         check_cases(exp_sgd_tensors(exp_full, exp_full.init_state()),
                     timed=True),
-        check_cases(bs_tensors(bs_mcmc, bs1, "bs", True, (K, 0, 1)),
-                    timed=True),
+        check_cases(bs_tensors(bs_mcmc, bs1, "bs", True, (K, 0, 1),
+                               agg_widths=(BS_AGG_BLOCK_F,)), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
     del mc1, bs1
     missing = sorted(set(SOURCES) - set(report))
@@ -2798,6 +2850,14 @@ def main() -> int:
             sec_per_iter=f"{statistics.median(h['time_learn'] for h in ha[1:]):.6f}",
             rmse_this=",".join(f"{h['rmse_this']:.5f}" for h in ha),
             launches=json.dumps(la, separators=(",", ":")))
+    # ---- 16b. where a factor-sequential Gibbs sweep's device time goes ------
+    seq = MCMCLearner(FMConfig(factor_block=1, **base_cfg), train, test,
+                      meta, device=dev, plan=plan, write_files=False)
+    sstate, _ = seq.run(num_iter=1, verbose=False)
+    profile_run(lambda: seq.run(sstate, num_iter=1, verbose=False), 1,
+                "sweep", "mcmc-seq-profile", focus=MCMC_FOCUS)
+    del seq, sstate
+
     t0 = time.perf_counter()
     hists = []
     for d in (dev, "cpu"):

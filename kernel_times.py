@@ -1,7 +1,7 @@
 """Time one family of the port's kernels on the card and profile the paths
 that launch them, for one checkout.
 
-    python3 kernel_times.py {bs,sgd} [--tree DIR] [--label NAME]
+    python3 kernel_times.py {bs,mcmc,sgd} [--tree DIR] [--label NAME]
 
 Runs the kernels and learners of the checkout at ``--tree`` (default: the
 one holding this script) on the inputs ``chip_smoke.py`` (of this script's
@@ -11,14 +11,19 @@ graph replay of a one-element ``zero_()``), the ptxas lines of the timed
 kernels, for each case the least and the most of three means of a CUDA
 graph replay of 20 calls, then the family's profiles:
 
-- ``bs``: the block-structure sampler's relation-row patch X10c (F = 20,
-  F = 1 and the w mode, after each timed bin) and its data-row resync
-  (X10d: full, q-build and w forms) on the 1M-rating relational recipe
-  (``scripts/bench_bs.py``), for the users and the items relation, each
-  with its form; their launches in one sweep of each BS path; and
-  ``chip_smoke.profile_run`` of one blocked Gibbs sweep and of one
-  factor-sequential sweep (factor_block 1), twice each, with X10c's and
-  the resync's device time.
+- ``bs``: the block-structure sampler's join aggregation X10a (F = 20,
+  the w sweep's F = 0, F = 1 and, in its block form, F = 33), its
+  relation-row patch X10c (F = 20, F = 1 and the w mode, after each timed
+  bin) and its data-row resync (X10d: full, q-build and w forms) on the
+  1M-rating relational recipe (``scripts/bench_bs.py``), for the users
+  and the items relation, each with its form; their launches in one
+  sweep of each BS path; and ``chip_smoke.profile_run`` of one blocked
+  Gibbs sweep and of one factor-sequential sweep (factor_block 1), twice
+  each, with X10a's, X10c's and the resync's device time.
+- ``mcmc``: X8a at F = 1 on every degree bucket of the ML-1M recipe
+  (``bench.py``), in the Gibbs draw mode (with a noise table) and in
+  exp_sgd's gradient mode, each with its form; and ``profile_run`` of one
+  Gibbs sweep at factor_block 1, twice, with X8a's device time.
 - ``sgd``: X9a on a batch of 1,024 rows of the ML-1M recipe in the
   regression, exponential-family and SGDA modes and on BPR's batch of
   11,063 pairs; X9c on SGDA's validation batch of 113 rows (G = 2), at
@@ -42,11 +47,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # each family's libraries and the kernels of them whose ptxas lines are
 # printed (a part of their names)
 FAMILIES = {
-    "bs": (("bs_sweep", "bs_forward"), ("patch", "resync")),
+    "bs": (("bs_sweep", "bs_forward"), ("join_agg", "patch", "resync")),
+    "mcmc": (("mcmc_sweep",), ("col_draw_f1",)),
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
 }
 # the bs family's timed kernels, by their wrappers' launch-count names
-BS_TIMED = ("bs_rel_patch", "bs_rel_w_patch", "bs_resync")
+BS_TIMED = ("bs_join_agg", "bs_rel_patch", "bs_rel_w_patch", "bs_resync")
 
 
 def main() -> int:
@@ -88,8 +94,8 @@ def main() -> int:
 
     one = torch.zeros(1, device=dev)
     line("launch floor (zero_ of one element)", one.zero_)
-    (bs_family if a.family == "bs" else sgd_family)(cs, build, dev, tag,
-                                                     line)
+    family = {"bs": bs_family, "mcmc": mcmc_family, "sgd": sgd_family}
+    family[a.family](cs, build, dev, tag, line)
     return 0
 
 
@@ -100,7 +106,8 @@ def bs_family(cs, build, dev, tag, line) -> None:
     bs = cs.bs_learner(bsp, dev, num_factor=cs.K, regw=cs.BS_REG,
                        regv=cs.BS_REG)
     st, _ = bs.step(bs.init_state())
-    s = cs.bs_tensors(bs, st, "bs", True, (cs.K, 0, 1))
+    s = cs.bs_tensors(bs, st, "bs", True, (cs.K, 0, 1),
+                      agg_widths=(cs.BS_AGG_BLOCK_F,))
     cases = cs.make_cases(s)
     for name in BS_TIMED:
         for label, prepare, call, c in cases[name]:
@@ -124,6 +131,40 @@ def bs_family(cs, build, dev, tag, line) -> None:
             cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
                            1, "sweep", f"{tag} {path}-profile",
                            focus=cs.BS_FOCUS)
+
+
+def mcmc_family(cs, build, dev, tag, line) -> None:
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.exp_sgd import ExpSGDLearner
+    from svbfm_tpu_torch.learners.mcmc import MCMCLearner
+
+    tr, te, train, test, meta = cs.ml_data(cs.NUM_TRAIN)
+    base = dict(num_attributes=tr.num_features, num_factor=cs.K,
+                min_target=float(tr.target.min()),
+                max_target=float(tr.target.max()),
+                num_groups=meta.num_attr_groups, seed=cs.SEED)
+    gibbs = MCMCLearner(FMConfig(factor_block=0, **base), train, test, meta,
+                        device=dev, write_files=False)
+    exp = ExpSGDLearner(FMConfig(learn_rate=cs.EXP_SGD_LR, **base), train,
+                        test, meta, device=dev, write_files=False)
+    mc1, _ = gibbs.step(gibbs.init_state())
+    for s, name, mode in (
+            (cs.mcmc_tensors(gibbs, mc1), "mcmc_col_draw", "exact+z"),
+            (cs.exp_sgd_tensors(exp, exp.init_state()), "mcmc_col_grad", "")):
+        for label, prepare, call, c in cs.make_cases(s)[name]:
+            if " F=1 " in f"{label} " and mode in label:
+                inp = prepare()
+                line(f"{name} {label} {c['note']}".rstrip(),
+                     lambda: call("kernel", inp))
+    del mc1
+
+    seq = MCMCLearner(FMConfig(factor_block=1, **base), train, test, meta,
+                      device=dev, write_files=False)
+    state, _ = seq.run(num_iter=1, verbose=False)
+    for _ in range(2):
+        cs.profile_run(lambda: seq.run(state, num_iter=1, verbose=False), 1,
+                       "sweep", f"{tag} mcmc-seq-profile",
+                       focus=cs.MCMC_FOCUS)
 
 
 def sgd_family(cs, build, dev, tag, line) -> None:
@@ -165,13 +206,16 @@ def sgd_family(cs, build, dev, tag, line) -> None:
             tab, w0, ids, vals, y, valid, ws, m, pair,
             record=kind == "sgda"))
     sgda_mode = g["modes"][2][1]
-    for tab_v, grad_tab, reg_v, val, m in [
-            (tab, g["grad_tab"], g["reg_v"], g["val"], sgda_mode),
+    for tab_v, grad_tab, reg_v, val, m, cap in [
+            (tab, g["grad_tab"], g["reg_v"], g["val"], sgda_mode, 0),
             *g["lambda_more"]]:
         ws = ks.make_workspace(D, m.K, dev, G=G, sgda_batch=(1, 1))
         rw, rv = g["reg_w"].clone(), reg_v.clone()
-        line(f"X9c Bv={val[0].shape[0]} G={G} K={m.K}", lambda: ks.sgda_lambda(
-            tab_v, grad_tab, w0, rw, rv, g["attr_group"], *val, ws, m))
+        kw = dict(max_blocks=cap) if cap else {}
+        line(f"X9c Bv={val[0].shape[0]} G={G} K={m.K}"
+             + (f" blocks<={cap}" if cap else ""), lambda: ks.sgda_lambda(
+                 tab_v, grad_tab, w0, rw, rv, g["attr_group"], *val, ws, m,
+                 **kw))
 
     sstate, _ = sgd.run(num_iter=1, verbose=False)
     cs.profile_run(lambda: sgd.run(sstate, num_iter=1, verbose=False), 1,

@@ -49,17 +49,25 @@
 // Design.  X10a runs a whole join plan in one launch: its buckets' blocks
 // are laid end to end, and each block finds its bucket in the plan table
 // (kPlanCols int64 a bucket, built once per plan by the wrapper), so a
-// relation pays one launch, not one a bucket.  Two forms, chosen by F.
-// F >= 2 (1 + 2F + P channels): one block per relation row; the block
-// stages a tile of kTile entries of e and qO in shared memory, and each
-// thread owns some of the channel sums (X8a's pattern).  F <= 1 (1 or 4
-// channels, the relation w sweep and the factor-sequential path), where a
-// block a row would leave all but one thread idle: G lanes a relation row, G the next power of two >= L capped at 32, many
-// rows a block; the lanes stride over the row's entries (coalesced reads
-// of rows and x), keep the channel sums in registers and end with a
-// butterfly of __shfl_xor_sync over the G lanes: no shared memory, no
-// barrier, and a fixed order of the sums, so the result is deterministic.
-// In both a padding entry (x = 0) adds nothing and gathers no e or q.
+// relation pays one launch, not one a bucket.  Three forms, chosen by F
+// (kernels/bs_sweep.py:join_form).  2 <= F <= 32 (1 + 2F + P channels,
+// 251 at F = 20): a warp a relation row, the warps of a persistent grid
+// walking the plan's rows; the warp stages only a row's gathered entries,
+// their q rows by cp.async, the next round's in flight while it sums this
+// one, and each lane adds them into the channel sums it owns in registers
+// (join_agg_warp_kernel).  F > 32: one
+// block per relation row; the block stages a tile of kTile entries of e
+// and qO in shared memory, and each thread owns some of the channel sums
+// (X8a's pattern).  F <= 1 (1 or 4 channels, the relation w sweep and the
+// factor-sequential path), where a block a row would leave all but one
+// thread idle: G lanes a relation row, G the next power of two >= L capped
+// at 32, many rows a block; the lanes stride over the row's entries
+// (coalesced reads of rows and x), keep the channel sums in registers and
+// end with a butterfly of __shfl_xor_sync over the G lanes: no shared
+// memory, no barrier, and a fixed order of the sums, so the result is
+// deterministic.  In all three a padding slot (x = 0) is gathered only
+// where svbfm::PadRow says, so a non-finite e or q at the pad row gives
+// the twin's NaN.
 // X10b: its form is a function of F and the bucket's L
 // (kernels/bs_sweep.py:draw_form); the sums' order is fixed in each, so
 // two launches give the same bits, and each ends in the exact draw by one
@@ -97,6 +105,8 @@
 // (32,381 floats at F = 251).  The positions' ids, x and ptab rows are
 // read before the arithmetic; the positions run in order, the sums in a
 // fixed order.
+#include <algorithm>
+
 #include "mcmc_draw.cuh"
 
 namespace {
@@ -174,13 +184,15 @@ __global__ void join_agg_kernel(const int64_t* __restrict__ plan, int nb,
   __syncthreads();
   const int* crow = bk.rows + c * L;
   const float* cx = bk.x + c * L;
+  const svbfm::PadRow pr(crow, cx, L);
   for (int l0 = 0; l0 < L; l0 += kTile) {
     const int nl = min(kTile, L - l0);
     for (int i = tid; i < kTile * F; i += nt) {
       const int l = i / F;
       const int f = i - l * F;
       const float xv = l < nl ? cx[l0 + l] : 0.f;
-      const int64_t r = xv != 0.f ? crow[l0 + l] : -1;
+      const int rl = l < nl ? crow[l0 + l] : 0;
+      const int64_t r = l < nl && pr.gathers(l0 + l, rl, xv) ? rl : -1;
       qs[f * ldt + l] = r >= 0 ? q[r * F + f] - qb[f] : 0.f;
       if (f == 0) {
         xs[l] = xv;
@@ -236,13 +248,14 @@ __global__ void join_agg_narrow_kernel(const int64_t* __restrict__ plan,
     const float qb = kCH == 4 ? rtab[rho * ld] : 0.f;
     const int* __restrict__ crow = bk.rows + c * L;
     const float* __restrict__ cx = bk.x + c * L;
+    const svbfm::PadRow pr(crow, cx, L);
 #pragma unroll 4
     for (int l = lane; l < L; l += G) {
       // the row id is read beside x, from sectors the lanes read anyway,
       // so that the gather waits on one load, not two
       const float xv = cx[l];
-      const int64_t r = crow[l];
-      if (xv == 0.f) continue;  // a padding entry gathers nothing
+      const int r = crow[l];
+      if (!pr.gathers(l, r, xv)) continue;
       const float ev = e[r];
       s[0] += ev * xv;
       if constexpr (kCH == 4) {
@@ -262,6 +275,354 @@ __global__ void join_agg_narrow_kernel(const int64_t* __restrict__ plan,
 #pragma unroll
     for (int i = 0; i < kCH; ++i) rtab[rho * ld + F + i] = s[i];
   }
+}
+
+// cp.async: a kBytes copy from device memory to shared memory that does not
+// wait in registers; visible after cp_async_wait_all() and a barrier.
+// 16-byte copies bypass L1 (.cg) unless kL1: rows many blocks read at
+// once (X10c's ptab rows of a bin's few columns) are kept in L1 (.ca).
+template <int kBytes, bool kL1 = false>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16 && !kL1) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// X10a at 2 <= F <= kAggMaxF: a warp a relation row, the warps the card
+// holds at once (a persistent grid), warp w taking rows w, w + warps, ...
+// of the plan's buckets laid end to end, each row in rounds of kAggRound
+// slots.  A round: the warp reads its slots (coalesced), keeps the
+// gathered ones (svbfm::PadRow) by a ballot and stages them, compacted,
+// in one of its kAggBufs shared-memory buffers: entry i holds
+//   t = q_0 .. q_{F-1} | e | 1   (kS floats, F + 2 <= kS, kS % 8 == 0)
+// and its x beside it, q by cp.async (16-, 8- or 4-byte copies, as F and
+// q's base allow), e and the row's qB0 by 4-byte ones.  The rounds are
+// pipelined: each round's gathers are issued kAggBufs - 1 rounds before
+// it is summed, the slots of the round after those are on their way, so
+// a warp waits on neither the row ids nor the gathers of the round it
+// sums (the gathers, of 80-byte q rows at random, not their bytes, bound
+// the kernel: with one round in flight it ran at the latency of each).
+// At its turn a round becomes qO = q - qB0 in place, and every channel is
+// a cell (i <= j) of the Gram matrix sum t_i (t_j x) over the entries
+// (e x = t_F t_{F+1} x, e qO_f x = t_f t_F x, qO_f x = t_f t_{F+1} x,
+// qO_f qO_g x = t_f t_g x); lane l owns 4 x 4 tiles of its upper triangle
+// (tiles l and l + 32: 21 tiles at F = 20), so an entry is two 16-byte
+// shared-memory loads, four products by x and 16 FMAs into registers a
+// tile, where a sum a lane would take two loads an FMA.  The entries are
+// added four a step (zero-padded to a multiple of four), in slot order, so
+// two launches give the same bits.  After a row's last round each lane
+// puts its cells at their channels in the buffer just summed, and the
+// warp writes the row's CH sums out in consecutive 16-byte streaming
+// stores where the row allows (4-byte stores straight from the tiles, to
+// scattered channels, ran 30-35 us slower at F = 20 on the H100).  No barrier: a warp shares nothing with
+// the others.
+constexpr int kAggWarps = 4;
+constexpr int kAggRound = 32;
+constexpr int kAggBufs = 3;
+constexpr int kAggMaxF = 32;
+
+// Floats of one of a warp's buffers: kAggRound entries of kS floats, their
+// x and row ids, the row's qB0 (kS floats) and a header (the entries, -1
+// past the warp's last round; whether the round ends its row; the row's
+// id, two ints) (mirrored by kernels/bs_sweep.py:join_agg_smem).
+__host__ __device__ constexpr int agg_buf(int kS) {
+  return kAggRound * (kS + 2) + kS + 4;
+}
+
+// The channel of Gram cell (i, j), i <= j, of the warp form's staged
+// indices (qO_0 .. qO_{F-1} | e | 1), or -1 where it is none (e e x, x,
+// the padding past F + 1).
+__device__ inline int agg_cell_channel(int i, int j, int F) {
+  if (j < F) return 1 + 2 * F + i * F - i * (i - 1) / 2 + (j - i);
+  if (j == F) return i < F ? 1 + i : -1;
+  if (j == F + 1) return i < F ? 1 + F + i : (i == F ? 0 : -1);
+  return -1;
+}
+
+// Waits until at most kPending of this thread's cp.async groups are
+// pending.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The bucket of relation row g of a plan whose buckets' rows are laid end
+// to end (column 6: the bucket's first row); g never decreases, so the
+// walk only goes forward.
+struct AggBuckets {
+  const int64_t* plan;
+  int nb, b = -1;
+  int64_t first = 0, end = 0;
+  const int* rows = nullptr;
+  const float* x = nullptr;
+  const int* cols = nullptr;
+  int L = 0;
+  __device__ void seek(int64_t g) {
+    while (g >= end && b + 1 < nb) {
+      const int64_t* p = plan + ++b * kPlanCols;
+      first = p[6];
+      end = first + p[3];
+      rows = reinterpret_cast<const int*>(p[0]);
+      x = reinterpret_cast<const float*>(p[1]);
+      cols = reinterpret_cast<const int*>(p[2]);
+      L = static_cast<int>(p[4]);
+    }
+  }
+};
+
+// One round as the warp reads it: this lane's slot (l, r, x), the row's
+// relation row id and pad row, and where the round sits in the row.
+struct AggRound {
+  bool valid = false, last = false, pad = false;
+  int L = 0, l = 0, r = 0, rl = 0;
+  float x = 0.f;
+  int64_t rho = 0;
+};
+
+template <int kS, int kT>
+__global__ void __launch_bounds__(32 * kAggWarps) join_agg_warp_kernel(
+    const int64_t* __restrict__ plan, int nb, int64_t nrows,
+    const float* __restrict__ e, const float* __restrict__ q, int F, int vec,
+    float* __restrict__ rtab) {
+  constexpr int kB = kS / 4;  // 4-blocks a side of the Gram matrix
+  constexpr int kTiles = kB * (kB + 1) / 2;
+  constexpr int kBuf = agg_buf(kS);
+  extern __shared__ float4 agg_smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * kAggWarps;
+  float* const slice =
+      reinterpret_cast<float*>(agg_smem4) + warp * kAggBufs * kBuf;
+  const int64_t ld = RelLayout(F).ld;
+  const int CH = agg_channels(F);  // <= kAggRound kS: an entries area
+  // this lane's tiles (row block bi, column block bj >= bi, numbered
+  // row-major over the upper triangle); a lane without one sums tile 0
+  // and writes nothing
+  int bi[kT], bj[kT];
+  float acc[kT][16];
+#pragma unroll
+  for (int s = 0; s < kT; ++s) {
+    int tile = lane + 32 * s;
+    bi[s] = bj[s] = 0;
+    if (tile < kTiles) {
+      int r = 0;
+      while (tile >= kB - r) tile -= kB - r++;
+      bi[s] = r;
+      bj[s] = r + tile;
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc[s][k] = 0.f;
+  }
+  // the qO pass: lane (bo, bc) takes chunk bc of entries bo, bo + per, ...
+  const int nv = F / vec;
+  const int per = 32 / nv;
+  const int bo = lane / nv;
+  const int bc = lane - bo * nv;
+
+  // the warp's stream of rounds: rows g, g + nwarps, ...; l0 the next
+  // round's first slot
+  AggBuckets bks{plan, nb};
+  int64_t g = static_cast<int64_t>(blockIdx.x) * kAggWarps + warp;
+  int l0 = 0;
+  AggRound row;  // the row being read: its rho and pad row
+  auto read = [&](AggRound& rd) {  // the next round's slots, in flight
+    rd.valid = g < nrows;
+    if (!rd.valid) return;
+    bks.seek(g);
+    const int64_t c = g - bks.first;
+    const int L = bks.L;
+    const int* crow = bks.rows + c * L;
+    const float* cx = bks.x + c * L;
+    rd.L = L;
+    rd.l = l0 + lane;
+    rd.r = rd.l < L ? crow[rd.l] : 0;
+    rd.x = rd.l < L ? cx[rd.l] : 0.f;
+    if (l0 == 0) {
+      row.rho = bks.cols[c];
+      row.rl = L > 0 ? crow[L - 1] : 0;
+      row.pad = L > 0 && cx[L - 1] == 0.f;
+    }
+    rd.rho = row.rho;
+    rd.rl = row.rl;
+    rd.pad = row.pad;
+    l0 += kAggRound;
+    rd.last = l0 >= L;
+    if (rd.last) {
+      g += nwarps;
+      l0 = 0;
+    }
+  };
+  // stage round rd into buffer buf: its gathered entries compacted, x, the
+  // header, and e, qB0 and q by cp.async (one commit group)
+  auto stage = [&](const AggRound& rd, float* buf) {
+    float* xs = buf + kAggRound * kS;
+    int* s_r = reinterpret_cast<int*>(xs + kAggRound);
+    float* qbs = reinterpret_cast<float*>(s_r + kAggRound);
+    int* hdr = reinterpret_cast<int*>(qbs + kS);
+    const bool keep = rd.valid && rd.l < rd.L &&
+                      svbfm::PadRow(rd.rl, rd.L, rd.pad).gathers(rd.l, rd.r,
+                                                                 rd.x);
+    const unsigned m = __ballot_sync(svbfm::kFullMask, keep);
+    const int n = __popc(m);
+    if (keep) {
+      const int i = __popc(m & ((1u << lane) - 1));
+      float* t = buf + i * kS;
+      s_r[i] = rd.r;
+      xs[i] = rd.x;
+      cp_async<4>(t + F, e + rd.r);
+      t[F + 1] = 1.f;
+    }
+    const int n4 = (n + 3) & ~3;
+    for (int i = n * kS + lane; i < n4 * kS; i += 32) buf[i] = 0.f;
+    if (lane >= n && lane < n4) xs[lane] = 0.f;
+    if (rd.valid && lane < F) cp_async<4>(qbs + lane, rtab + rd.rho * ld + lane);
+    if (lane == 0) {
+      hdr[0] = rd.valid ? n : -1;
+      hdr[1] = rd.last;
+      hdr[2] = static_cast<int>(rd.rho);
+      hdr[3] = static_cast<int>(rd.rho >> 32);
+    }
+    __syncwarp();
+    for (int i = lane; i < n * nv; i += 32) {
+      const int k = i / nv;
+      const int ch = i - k * nv;
+      const float* src = q + static_cast<int64_t>(s_r[k]) * F + ch * vec;
+      float* dst = buf + k * kS + ch * vec;
+      if (vec == 4) {
+        cp_async<16>(dst, src);
+      } else if (vec == 2) {
+        cp_async<8>(dst, src);
+      } else {
+        cp_async<4>(dst, src);
+      }
+    }
+    cp_async_commit();
+  };
+
+  AggRound nxt;
+  read(nxt);
+#pragma unroll
+  for (int d = 0; d < kAggBufs - 1; ++d) {
+    const AggRound stg = nxt;
+    read(nxt);
+    stage(stg, slice + d * kBuf);
+  }
+  for (int i = 0;; ++i) {
+    // stage the round kAggBufs - 1 ahead into the buffer summed last, then
+    // sum this one
+    {
+      const AggRound stg = nxt;
+      read(nxt);
+      __syncwarp();
+      stage(stg, slice + (i + kAggBufs - 1) % kAggBufs * kBuf);
+    }
+    cp_async_wait<kAggBufs - 1>();
+    __syncwarp();
+    float* const cb = slice + i % kAggBufs * kBuf;
+    const float* xs = cb + kAggRound * kS;
+    const float* qbs = xs + 2 * kAggRound;
+    const int* hdr = reinterpret_cast<const int*>(qbs + kS);
+    const int n = hdr[0];
+    if (n < 0) break;  // past the warp's last round
+    if (bo < per) {
+      float qb[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) qb[v] = v < vec ? qbs[bc * vec + v] : 0.f;
+      for (int k = bo; k < n; k += per) {
+        float* t = cb + k * kS + bc * vec;
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (v < vec) t[v] -= qb[v];
+      }
+    }
+    __syncwarp();
+    for (int k = 0; k < n; k += 4) {
+      const float4* t4 = reinterpret_cast<const float4*>(cb + k * kS);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float xk = xs[k + u];
+#pragma unroll
+        for (int s = 0; s < kT; ++s) {
+          const float4 a = t4[u * kB + bi[s]];
+          const float4 b = t4[u * kB + bj[s]];
+          const float av[4] = {a.x, a.y, a.z, a.w};
+          const float bx[4] = {b.x * xk, b.y * xk, b.z * xk, b.w * xk};
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              acc[s][4 * ii + jj] =
+                  fmaf(av[ii], bx[jj], acc[s][4 * ii + jj]);
+          }
+        }
+      }
+    }
+    if (hdr[1]) {  // the row's last round: its cells to their channels in
+                   // this buffer's entries, then the CH sums out
+      const int64_t rho = static_cast<int64_t>(
+          (static_cast<uint64_t>(static_cast<unsigned>(hdr[3])) << 32) |
+          static_cast<unsigned>(hdr[2]));
+      __syncwarp();
+#pragma unroll
+      for (int s = 0; s < kT; ++s) {
+        const bool mine = lane + 32 * s < kTiles;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int i = 4 * bi[s] + ii, j = 4 * bj[s] + jj;
+            const int o = agg_cell_channel(i, j, F);
+            if (mine && i <= j && o >= 0) cb[o] = acc[s][4 * ii + jj];
+            acc[s][4 * ii + jj] = 0.f;
+          }
+        }
+      }
+      __syncwarp();
+      float* out = rtab + rho * ld + F;  // streaming: no sum is read back
+      if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+        const int c4 = CH / 4;
+        for (int o = lane; o < c4; o += 32)
+          __stcs(reinterpret_cast<float4*>(out) + o,
+                 reinterpret_cast<const float4*>(cb)[o]);
+        for (int o = 4 * c4 + lane; o < CH; o += 32) __stcs(out + o, cb[o]);
+      } else {
+        for (int o = lane; o < CH; o += 32) __stcs(out + o, cb[o]);
+      }
+    }
+  }
+  cp_async_wait_all();
+}
+
+// Calls fn(integral_constant kS, integral_constant kT) with X10a's warp
+// form for F (2 <= F <= kAggMaxF): kS the floats of half an entry (the
+// next multiple of 8 >= F + 2, mirrored by kernels/bs_sweep.py:
+// agg_stride), kT the 4 x 4 tiles of the Gram matrix's upper triangle a
+// lane owns (2 past 32 tiles, kS = 40).
+template <typename Fn>
+decltype(auto) with_agg_form(int F, Fn&& fn) {
+  using std::integral_constant;
+  if (F <= 6)
+    return fn(integral_constant<int, 8>{}, integral_constant<int, 1>{});
+  if (F <= 14)
+    return fn(integral_constant<int, 16>{}, integral_constant<int, 1>{});
+  if (F <= 22)
+    return fn(integral_constant<int, 24>{}, integral_constant<int, 1>{});
+  if (F <= 30)
+    return fn(integral_constant<int, 32>{}, integral_constant<int, 2>{});
+  return fn(integral_constant<int, 40>{}, integral_constant<int, 2>{});
 }
 
 // ---- X10b -------------------------------------------------------------------
@@ -293,30 +654,6 @@ __device__ __forceinline__ void split_range(int n, int S, int s, int& b,
                                             int& e) {
   b = static_cast<int>(static_cast<int64_t>(s) * n / S);
   e = static_cast<int>(static_cast<int64_t>(s + 1) * n / S);
-}
-
-// cp.async: a kBytes copy from device memory to shared memory that does not
-// wait in registers; visible after cp_async_wait_all() and a barrier.
-// 16-byte copies bypass L1 (.cg) unless kL1: rows many blocks read at
-// once (X10c's ptab rows of a bin's few columns) are kept in L1 (.ca).
-template <int kBytes, bool kL1 = false>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16 && !kL1) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-                 "l"(src), "n"(kBytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // n floats of a relation row into shared memory by `lanes` lanes of a
@@ -1258,7 +1595,9 @@ static int block_threads(int n) { return n > 128 ? 256 : (n > 32 ? 128 : 64); }
 // cols: relation rows): writes rtab [R, 3F + 2 + P] channels F .. 3F + P
 // (F = 0: rtab [R, 2], channel 0) at the buckets' relation rows.  plan is
 // the device table [nb, kPlanCols], blocks the buckets' blocks in all: C
-// a bucket at F >= 2, ceil(C G / kNarrowThreads) at F <= 1.
+// a bucket at F > 32, ceil(C G / kNarrowThreads) at F <= 1; at
+// 2 <= F <= 32 the relation rows in all (C a bucket), which the warps of
+// a persistent grid walk.
 SVBFM_EXPORT int svbfm_bs_join_agg(const int64_t* plan, int nb,
                                    int64_t blocks, const float* e,
                                    const float* q, int F, float* rtab,
@@ -1276,13 +1615,34 @@ SVBFM_EXPORT int svbfm_bs_join_agg(const int64_t* plan, int nb,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = join_agg_smem(F);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        join_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (F <= kAggMaxF) {  // blocks: the plan's relation rows
+    const int vec = row_vec(F, q);
+    return with_agg_form(F, [&](auto s, auto j) {
+      auto kernel = join_agg_warp_kernel<decltype(s)::value,
+                                         decltype(j)::value>;
+      const size_t smem =
+          sizeof(float) * kAggWarps * kAggBufs * agg_buf(decltype(s)::value);
+      cudaError_t err = allow_smem(kernel, smem);
+      int dev = 0, sms = 0, per_sm = 0;
+      if (err == cudaSuccess) err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, 32 * kAggWarps, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int64_t held = static_cast<int64_t>(std::max(per_sm, 1)) * sms;
+      const unsigned warp_grid = static_cast<unsigned>(std::min<int64_t>(
+          held, (blocks + kAggWarps - 1) / kAggWarps));
+      kernel<<<warp_grid, 32 * kAggWarps, smem, stream>>>(
+          plan, nb, blocks, e, q, F, vec, rtab);
+      return static_cast<int>(cudaGetLastError());
+    });
   }
+  const size_t smem = join_agg_smem(F);
+  const cudaError_t err = allow_smem(join_agg_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   join_agg_kernel<<<grid, block_threads(agg_channels(F)), smem, stream>>>(
       plan, nb, e, q, F, rtab);
   return static_cast<int>(cudaGetLastError());

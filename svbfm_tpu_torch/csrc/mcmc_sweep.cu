@@ -61,16 +61,28 @@
 //   v' = keep_finite(v - lr (s0 + regv v) / N, v);
 // no sh2, no M, no draw, no counters.  It fills ptab's dv channels as the
 // draw modes do, so X8b patches q and e after the bin unchanged.
-// X8a, F = 1: one warp per column, lanes over the column's entries, as K5
-// and K6 at F = 1, so no lane idles on an absent factor.
+// X8a, F = 1: lanes over a column's slots, no lane idle on an absent
+// factor.  Bound by the rate at which the card serves random 4-byte
+// gathers (two a real entry, q and e at its row, each its own 32-byte
+// sector: P1's 2M random indices take 17.8 us on the H100), not by their
+// latency: each lane loads its slots' ids and x with vector loads and
+// issues all their gathers before its first FMA, a warp a column (2-4 on
+// long columns, a few lanes on short ones); see col_draw_f1_kernel.
 // X8b: kLanes threads per row: a warp at F >= 2 (lanes over factors), one
 // thread at F = 1.  Each row owns its cache slots: no races.
+#include <algorithm>
+
 #include "mcmc_draw.cuh"
 
 namespace {
 
 constexpr int kTile = 32;
-constexpr int kColsPerBlock = 8;  // X8a at F = 1: one warp per column
+// X8a at F = 1: threads a block, and the slots a lane loads a round
+// before its first FMA (8 gathers in flight a lane; 8 slots, 16 gathers,
+// ran no faster on the H100: the card's rate of random 4-byte gathers
+// bounds the kernel, not their latency)
+constexpr int kF1Threads = 256;
+constexpr int kF1Slots = 4;
 constexpr int kPatchThreads = 256;
 constexpr int kExact = 0, kJacobi = 1, kGrad = 2;
 
@@ -79,6 +91,34 @@ __device__ __forceinline__ float grad_step(float v, float s, float lr,
                                            float reg, float n) {
   const float nv = v - lr * (s + reg * v) / n;
   return isfinite(nv) ? nv : v;
+}
+
+// V consecutive ints or floats from a V-aligned address: one 16-, 8- or
+// 4-byte load.
+template <int V>
+__device__ __forceinline__ void load_vec(const int* p, int (&out)[V]) {
+  if constexpr (V == 4) {
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+  } else if constexpr (V == 2) {
+    const int2 v = *reinterpret_cast<const int2*>(p);
+    out[0] = v.x, out[1] = v.y;
+  } else {
+    out[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[V]) {
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x, out[1] = v.y;
+  } else {
+    out[0] = *p;
+  }
 }
 
 // Sums a column owns: s0 [F], then sh2 [F] (draw modes), then the packed M
@@ -233,46 +273,126 @@ __global__ void __launch_bounds__(256, 6) col_draw_exact32_kernel(
                             lam, alpha_p, z, D, nans, lr, reg, n_cases);
 }
 
-// X8a at F = 1: one warp per column (v_factor_main_bins, mcmc.py:684-705);
-// with kGradF1 the exp_sgd step of one factor (exp_sgd.py:129-136 at F = 1).
-template <bool kGradF1>
-__global__ void col_draw_f1_kernel(
+// X8a at F = 1 (v_factor_main_bins, mcmc.py:684-705), with kGradF1 the
+// exp_sgd step of one factor (exp_sgd.py:129-136 at F = 1): G lanes a
+// column of a [C, L] bucket (f1_lanes), kF1Threads / G columns a block.
+// A lane takes V consecutive slots a load (16-, 8- or 4-byte loads of
+// rows and x, as L and the bases allow), kF1Slots slots a round, and
+// issues all of their q and e gathers before its first FMA.  The lanes'
+// sums close by a butterfly (G <= 32) or, where G is 2-4 warps, by the
+// warps' butterflies and then their partials in warp order through
+// shared memory; either way a fixed order, so two launches give the same
+// bits.  The column's first lane loads the draw's operands at the start
+// and draws.
+// Padding (svbfm::PadRow): of the x = 0 slots at the pad row only the last
+// slot is gathered, so a non-finite q or e there still makes the sums NaN,
+// as in the twin.
+template <bool kGradF1, int V>
+__global__ void __launch_bounds__(kF1Threads) col_draw_f1_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
-    const int* __restrict__ cols, const int* __restrict__ group,
+    int G, const int* __restrict__ cols, const int* __restrict__ group,
     const float* __restrict__ e, const float* __restrict__ q,
     float* __restrict__ ptab, float* __restrict__ v_t,
     const float* __restrict__ mu, const float* __restrict__ lam,
     const float* __restrict__ alpha_p, const float* __restrict__ z,
     int* __restrict__ nans, float lr, float reg, float n_cases) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
-  if (c >= C) return;  // the whole warp leaves together
-  const int64_t col = cols[c];
-  const float v_c = ptab[2 * col];
-  const int* crow = rows + static_cast<int64_t>(c) * L;
-  const float* cx = x + static_cast<int64_t>(c) * L;
+  constexpr int kR = kF1Slots / V;  // loads of V slots a lane a round
+  __shared__ float part[2][kF1Threads / 32];
+  const int tid = threadIdx.x;
+  const int64_t c =
+      static_cast<int64_t>(blockIdx.x) * (kF1Threads / G) + tid / G;
+  const int li = tid & (G - 1);
+  const bool live = c < C;
   float s0 = 0.f, sh2 = 0.f;
-  for (int l = lane; l < L; l += 32) {
-    const int64_t r = crow[l];
-    const float xv = cx[l];
-    const float h = xv * (q[r] - xv * v_c);
-    s0 += h * e[r];
-    if (!kGradF1) sh2 += h * h;
+  int64_t col = 0;
+  float v_c = 0.f, mu_c = 0.f, lam_c = 0.f, alpha = 0.f, zc = 0.f;
+  if (live) {
+    col = cols[c];
+    v_c = ptab[2 * col];
+    if (!kGradF1 && li == 0) {
+      const int g_c = group[c];
+      mu_c = mu[g_c];
+      lam_c = lam[g_c];
+      alpha = *alpha_p;
+      if (z != nullptr) zc = z[col];
+    }
+    const int* crow = rows + c * L;
+    const float* cx = x + c * L;
+    const svbfm::PadRow pr(crow, cx, L);
+    const int nch = L / V;
+    for (int j0 = li; j0 < nch; j0 += G * kR) {
+      int r[kR][V];
+      float xv[kR][V];
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const int j = j0 + i * G;
+        if (j < nch) {
+          load_vec<V>(crow + j * V, r[i]);
+          load_vec<V>(cx + j * V, xv[i]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            r[i][k] = 0;
+            xv[i][k] = 0.f;
+          }
+        }
+      }
+      bool keep[kR][V];
+      float qv[kR][V], ev[kR][V];
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const int l = (j0 + i * G) * V + k;
+          keep[i][k] = l < L && pr.gathers(l, r[i][k], xv[i][k]);
+          qv[i][k] = keep[i][k] ? q[r[i][k]] : 0.f;
+          ev[i][k] = keep[i][k] ? e[r[i][k]] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          if (!keep[i][k]) continue;
+          const float xk = xv[i][k];
+          const float h = xk * (qv[i][k] - xk * v_c);
+          s0 += h * ev[i][k];
+          if (!kGradF1) sh2 += h * h;
+        }
+      }
+    }
   }
-  s0 = svbfm::warp_sum(s0);
-  if (!kGradF1) sh2 = svbfm::warp_sum(sh2);
-  if (lane != 0) return;
+  if (G <= 32) {
+    for (int o = G >> 1; o > 0; o >>= 1) {
+      s0 += __shfl_xor_sync(svbfm::kFullMask, s0, o);
+      if (!kGradF1) sh2 += __shfl_xor_sync(svbfm::kFullMask, sh2, o);
+    }
+  } else {  // G / 32 warps a column: every warp of the block gets here
+    s0 = svbfm::warp_sum(s0);
+    if (!kGradF1) sh2 = svbfm::warp_sum(sh2);
+    const int warp = tid >> 5;
+    if ((tid & 31) == 0) {
+      part[0][warp] = s0;
+      part[1][warp] = sh2;
+    }
+    __syncthreads();
+    if (li == 0) {
+      for (int w = 1; w < G / 32; ++w) {
+        s0 += part[0][warp + w];
+        sh2 += part[1][warp + w];
+      }
+    }
+  }
+  if (!live || li != 0) return;
   if (kGradF1) {
     const float nv = grad_step(v_c, s0, lr, reg, n_cases);
     v_t[col] = nv;
     ptab[2 * col + 1] = v_c - nv;
     return;
   }
-  const int g_c = group[c];
   int nan_c = 0, inf_c = 0;
-  const float nv = svbfm::draw_one(s0, sh2, v_c, mu[g_c], lam[g_c], *alpha_p,
-                                   z != nullptr, z != nullptr ? z[col] : 0.f,
-                                   nan_c, inf_c);
+  const float nv = svbfm::draw_one(s0, sh2, v_c, mu_c, lam_c, alpha,
+                                   z != nullptr, zc, nan_c, inf_c);
   v_t[col] = nv;
   ptab[2 * col + 1] = v_c - nv;
   if (nan_c) atomicAdd(&nans[0], nan_c);
@@ -349,8 +469,56 @@ int launch_col_draw(const int* rows, const float* x, int C, int L,
   return static_cast<int>(cudaGetLastError());
 }
 
-inline unsigned f1_blocks(int C) {
-  return static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
+// X8a at F = 1's lanes a column of a [C, L] bucket (mirrored by
+// kernels/mcmc_sweep.py:col_draw_f1_lanes): where L <= 16 (real data's
+// small degree buckets) the next power of two >= L, a slot a lane, several
+// columns a warp; past it a warp, 8 slots a lane, or 2-4 warps where L is
+// long (more than 256 slots, or 128 in a bucket of fewer than 2,048
+// columns, which would leave the SMs few warps).
+int f1_lanes(int C, int L) {
+  if (L <= 16) {
+    int G = 1;
+    while (G < L) G <<= 1;
+    return G;
+  }
+  const int per = C < 2048 ? 128 : 256;
+  return 32 * std::min(4, (L + per - 1) / per);
+}
+
+// The slots a lane loads at once: 4 or 2 where L and the bases of rows and
+// x allow 16- or 8-byte loads, else 1 (mirrored by kernels/mcmc_sweep.py:
+// col_draw_f1_plan).
+int f1_vec(const int* rows, const float* x, int L, int G) {
+  if (G < 32) return 1;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(rows) |
+                      reinterpret_cast<uintptr_t>(x);
+  if (L % 4 == 0 && a % 16 == 0) return 4;
+  if (L % 2 == 0 && a % 8 == 0) return 2;
+  return 1;
+}
+
+template <bool kGradF1>
+int launch_col_f1(const int* rows, const float* x, int C, int L,
+                  const int* cols, const int* group, const float* e,
+                  const float* q, float* ptab, float* v_t, const float* mu,
+                  const float* lam, const float* alpha, const float* z,
+                  int* nans, float lr, float reg, float n_cases,
+                  cudaStream_t stream) {
+  const int G = f1_lanes(C, L);
+  const unsigned blocks = static_cast<unsigned>(
+      (static_cast<int64_t>(C) * G + kF1Threads - 1) / kF1Threads);
+  auto go = [&](auto kernel) {
+    kernel<<<blocks, kF1Threads, 0, stream>>>(rows, x, C, L, G, cols, group,
+                                              e, q, ptab, v_t, mu, lam,
+                                              alpha, z, nans, lr, reg,
+                                              n_cases);
+  };
+  switch (f1_vec(rows, x, L, G)) {
+    case 4: go(col_draw_f1_kernel<kGradF1, 4>); break;
+    case 2: go(col_draw_f1_kernel<kGradF1, 2>); break;
+    default: go(col_draw_f1_kernel<kGradF1, 1>); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -365,12 +533,10 @@ SVBFM_EXPORT int svbfm_mcmc_col_draw(
     const int* group, const float* e, const float* q, int F, float* ptab,
     float* v_t, const float* mu, const float* lam, const float* alpha,
     const float* z, int64_t D, int exact, int* nans, cudaStream_t stream) {
-  if (F == 1) {
-    col_draw_f1_kernel<false><<<f1_blocks(C), 32 * kColsPerBlock, 0, stream>>>(
-        rows, x, C, L, cols, group, e, q, ptab, v_t, mu, lam, alpha, z, nans,
-        0.f, 0.f, 1.f);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (F == 1)
+    return launch_col_f1<false>(rows, x, C, L, cols, group, e, q, ptab, v_t,
+                                mu, lam, alpha, z, nans, 0.f, 0.f, 1.f,
+                                stream);
   if (!exact)
     return launch_col_draw<kJacobi, 1>(rows, x, C, L, cols, group, e, q, F,
                                        ptab, v_t, mu, lam, alpha, z, D, nans,
@@ -389,12 +555,10 @@ SVBFM_EXPORT int svbfm_mcmc_col_grad(
     const int* rows, const float* x, int C, int L, const int* cols,
     const float* e, const float* q, int F, float* ptab, float* v_t,
     float lr, float reg, float n_cases, cudaStream_t stream) {
-  if (F == 1) {
-    col_draw_f1_kernel<true><<<f1_blocks(C), 32 * kColsPerBlock, 0, stream>>>(
-        rows, x, C, L, cols, nullptr, e, q, ptab, v_t, nullptr, nullptr,
-        nullptr, nullptr, nullptr, lr, reg, n_cases);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (F == 1)
+    return launch_col_f1<true>(rows, x, C, L, cols, nullptr, e, q, ptab,
+                               v_t, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, lr, reg, n_cases, stream);
   return launch_col_draw<kGrad, 1>(rows, x, C, L, cols, nullptr, e, q, F,
                                    ptab, v_t, nullptr, nullptr, nullptr,
                                    nullptr, 0, nullptr, lr, reg, n_cases,

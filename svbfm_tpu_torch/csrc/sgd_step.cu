@@ -880,15 +880,18 @@ SVBFM_EXPORT int svbfm_sgd_apply(
   return static_cast<int>(cudaGetLastError());
 }
 
-// X9c: one cluster of min(8, ceil(B / warps)) blocks (one block for an
-// empty batch, so the reg step happens), as many warps a block as the
-// warps' slots and the staged regs let fit in shared memory, at most 32.
+// X9c: one cluster of min(kLambdaBlocks, ceil(B / warps)) blocks (one
+// block for an empty batch, so the reg step happens), cut to the 8 blocks
+// of the portable size where the card holds no cluster of more, or to
+// max_blocks where that is > 0 (a test pins that fallback with it), as
+// many warps a block as the warps' slots and the staged regs let fit in
+// shared memory, at most kLambdaWarps.
 SVBFM_EXPORT int svbfm_sgda_lambda(
     const float* tab, const float* grad_tab, int K, const float* w0,
     float* reg_w, float* reg_v, const int* attr_group, int G, const int* ids,
     const float* vals, const float* y, const float* valid, int64_t B, int P,
     float lr, float m2lr, float decay1, float min_t, float max_t, int k0, int k1,
-    cudaStream_t stream) {
+    int max_blocks, cudaStream_t stream) {
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -908,8 +911,10 @@ SVBFM_EXPORT int svbfm_sgda_lambda(
     const int64_t nsum4 = (nsum + 3) / 4 * 4;
     return (staged ? (nreg + 3) / 4 * 4 : 0) + (nw + nb - 1) * nsum4 + 4;
   };
-  int64_t blocks =
-      B > 0 ? std::min<int64_t>(kLambdaBlocks, (B + nw - 1) / nw) : 1;
+  const int64_t cap = max_blocks > 0
+                          ? std::min(max_blocks, kLambdaBlocks)
+                          : kLambdaBlocks;
+  int64_t blocks = B > 0 ? std::min<int64_t>(cap, (B + nw - 1) / nw) : 1;
   while (floats(blocks) > room) --blocks;
   Lambda a{tab, grad_tab, K, w0, reg_w, reg_v, attr_group, G, ids, vals, y,
            valid, B, P, lr, m2lr, decay1, min_t, max_t, k0, k1, staged};

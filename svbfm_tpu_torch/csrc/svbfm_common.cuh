@@ -29,6 +29,29 @@ __device__ __forceinline__ float row_sum(float v) {
   return kLanes == 1 ? v : warp_sum(v);
 }
 
+// The padding rule of the column and relation-row sums (X8a at F = 1,
+// X10a): a degree bucket's padding slots have x = 0 and point at one pad
+// row, and the JAX code adds x times the gathered values at every slot, so
+// a non-finite e or q at the pad row makes a padded column's sums NaN.  A
+// slot with x = 0 at the row of the column's last slot, where that slot is
+// padding too, adds what the last slot adds: it gathers nothing.  The last
+// slot and every other slot are gathered and added, so the sums keep the
+// NaN/Inf pattern of the plain sum over all slots.
+struct PadRow {
+  int r_last, L;
+  bool pad;
+  __device__ PadRow(const int* crow, const float* cx, int len)
+      : r_last(len > 0 ? crow[len - 1] : 0), L(len),
+        pad(len > 0 && cx[len - 1] == 0.f) {}
+  // from the last slot's row id and whether its x is 0, read before
+  __device__ PadRow(int last_row, int len, bool last_pad)
+      : r_last(last_row), L(len), pad(last_pad) {}
+  // whether slot l (row r, value xv) is gathered and added
+  __device__ bool gathers(int l, int r, float xv) const {
+    return xv != 0.f || l == L - 1 || !pad || r != r_last;
+  }
+};
+
 }  // namespace svbfm
 
 SVBFM_EXPORT const char* svbfm_error_string(int code) {

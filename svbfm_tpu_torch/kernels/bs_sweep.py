@@ -3,8 +3,9 @@
 
 ``bs_join_agg`` (X10a) sums, per relation row, the channels built from e and
 qO = q - qB0 over the data rows joined to it (all degree buckets of a join
-plan in one launch; a block a relation row at F >= 2, a group of up to 32
-lanes a relation row at F <= 1); ``bs_rel_draw`` (X10b) computes one
+plan in one launch; ``join_form``: a group of up to 32 lanes a relation row
+at F <= 1, a warp a row to F = 32, a block a row past it);
+``bs_rel_draw`` (X10b) computes one
 relation bucket's she, sh2 and cross-factor matrix M from the relation-row
 table and draws the bucket's factors with exact sequential conditionals
 (F = 1: the factor-sequential path's draw), in the form ``draw_plan``
@@ -80,9 +81,35 @@ def _sym(F: int):
     return iu0, iu1, sym.reshape(-1), sym.diagonal().copy()
 
 
+_AGG_WARPS = 4  # csrc/bs_sweep.cu kAggWarps: X10a's warp form, a block
+_AGG_ROUND = 32  # kAggRound: the slots a warp reads a round
+_AGG_BUFS = 3  # kAggBufs: a warp's buffers, the rounds staged at once
+_AGG_MAX_F = 32  # kAggMaxF: the widest F of the warp form
+
+
+def join_form(F: int) -> str:
+    """X10a's form at F factors (``csrc/bs_sweep.cu:svbfm_bs_join_agg``):
+    ``narrow`` (G lanes a relation row) at F <= 1, ``warp`` (a warp a row,
+    the warps of a persistent grid walking the rows, the channel sums in
+    registers) to F = 32, ``block`` (a block a row) past it."""
+    if F <= 1:
+        return "narrow"
+    return "warp" if F <= _AGG_MAX_F else "block"
+
+
+def agg_stride(F: int) -> int:
+    """kS, the floats of half an entry the warp form stages at F: the next
+    multiple of 8 >= F + 2 (``csrc/bs_sweep.cu:with_agg_form``)."""
+    return -(-(F + 2) // 8) * 8
+
+
 def join_agg_smem(F: int) -> int:
     """Bytes of shared memory X10a's block takes at F >= 2
-    (``csrc/bs_sweep.cu:join_agg_smem``); the F <= 1 form takes none."""
+    (``csrc/bs_sweep.cu:join_agg_smem`` for the block form, kAggBufs
+    ``agg_buf`` a warp for the warp form); the F <= 1 form takes none."""
+    if join_form(F) == "warp":  # kAggBufs buffers a warp
+        kS = agg_stride(F)
+        return 4 * _AGG_WARPS * _AGG_BUFS * (_AGG_ROUND * (kS + 2) + kS + 4)
     return 4 * (agg_channels(F) + 2 * _TILE + F * (_TILE + 1) + F)
 
 
@@ -263,16 +290,24 @@ def narrow_lanes(L: int) -> int:
 
 def join_plan_rows(buckets, F: int) -> tuple[tuple, int]:
     """X10a's plan table (``csrc/bs_sweep.cu`` kPlanCols): a row a bucket,
-    (rows, x, cols pointers, C, L, G, the bucket's first block), the
-    buckets' blocks laid end to end (C a bucket at F >= 2, a block a
-    relation row; ceil(C G / 256) at F <= 1); and the blocks in all."""
+    (rows, x, cols pointers, C, L, G, first), the buckets laid end to end,
+    and their total.  By ``join_form``: narrow, G the lanes a relation row
+    (``narrow_lanes``), first the bucket's first block, ceil(C G / 256)
+    blocks a bucket, the total the blocks; warp, G = 32, first the
+    bucket's first relation row, the total the rows (the kernel sizes its
+    persistent grid itself); block, G unread, C blocks a bucket."""
+    form = join_form(F)
     out, first = [], 0
     for b in buckets:
         C, L = b.rows.shape
-        G = narrow_lanes(L)
+        if form == "narrow":
+            G = narrow_lanes(L)
+            size = -(-C * G // _NARROW_THREADS)
+        else:
+            G, size = (32 if form == "warp" else narrow_lanes(L)), C
         out.append((b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(), C,
                     L, G, first))
-        first += C if F >= 2 else -(-C * G // _NARROW_THREADS)
+        first += size
     return tuple(out), first
 
 

@@ -95,7 +95,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _L, _P, _L, _P, _P),
     "svbfm_sgda_lambda": (
         _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _F, _F, _F,
-        _F, _F, _I, _I, _P),
+        _F, _F, _I, _I, _I, _P),
 }
 
 launch_counts: dict[str, int] = {

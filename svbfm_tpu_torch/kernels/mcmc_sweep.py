@@ -19,6 +19,9 @@ v_old - v_new), dv zeroed before each bin; group priors mu/lam [G, F]; the
 noise table z [F, D] or None (ALS); ``nans`` an int32 [2] counter of the NaN
 and Inf draws.  MCMC's e is yhat - y.
 
+At F = 1 X8a's form (lanes a column, the width of its loads) is a
+function of the bucket's shape and alignment, ``col_draw_f1_plan``.
+
 ``mcmc_col_grad`` (X9d's v half) is X8a's gradient mode, the v columns of
 the full-batch exp_sgd: the same s0 = sum h e from the pre-bin e (here
 stdev yhat - y) and the step v' = keep_finite(v - lr (s0 + regv v) / N, v)
@@ -34,7 +37,7 @@ patch of ``v_factor_main_bins`` (:684-718).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,6 +71,45 @@ def col_draw_fits(F: int, exact_seq: bool) -> bool:
     to MAX_COL_F of the mode, where its block fits the card."""
     return F == 1 or (F <= MAX_COL_F[exact_seq]
                       and col_draw_smem(F, exact_seq) <= MAX_BLOCK_SMEM)
+
+
+class F1Plan(NamedTuple):
+    """X8a's form at F = 1 for a [C, L] bucket: ``lanes`` a column (a power
+    of two; past 32, 2-4 warps) and ``vec`` the slots a lane loads at once
+    (16-, 8- or 4-byte loads of rows and x)."""
+    lanes: int
+    vec: int
+
+
+def col_draw_f1_lanes(C: int, L: int) -> int:
+    """X8a's lanes a column at F = 1 (``csrc/mcmc_sweep.cu:f1_lanes``): the
+    next power of two >= L where L <= 16, else a warp, 8 slots a lane, or
+    2-4 warps on long columns (more than 256 slots, or 128 in a bucket of
+    fewer than 2,048 columns)."""
+    if L <= 16:
+        G = 1
+        while G < L:
+            G *= 2
+        return G
+    per = 128 if C < 2048 else 256
+    return 32 * min(4, -(-L // per))
+
+
+def col_draw_f1_plan(rows, x) -> F1Plan:
+    """X8a's form at F = 1 for the bucket ``rows``/``x`` [C, L]
+    (``csrc/mcmc_sweep.cu:f1_lanes`` and ``f1_vec``)."""
+    C, L = rows.shape
+    G = col_draw_f1_lanes(C, L)
+    a = rows.data_ptr() | x.data_ptr()
+    if G < 32:
+        vec = 1
+    elif L % 4 == 0 and a % 16 == 0:
+        vec = 4
+    elif L % 2 == 0 and a % 8 == 0:
+        vec = 2
+    else:
+        vec = 1
+    return F1Plan(G, vec)
 
 
 def _draw_mean(she, sh2, v_c, mu_g, lam_g, alpha, z):

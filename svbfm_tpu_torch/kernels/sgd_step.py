@@ -421,8 +421,10 @@ class _Steps:
             *entries, build.ptr(ws.owner), self.stream)
         build.check_launch(self.lib, rc, "sgd_apply")
 
-    def lambda_step(self, b: int) -> None:
-        """X9c on validation batch b."""
+    def lambda_step(self, b: int, max_blocks: int = 0) -> None:
+        """X9c on validation batch b; ``max_blocks`` > 0 caps its cluster's
+        blocks (a test pins the 8-block launch the kernel falls back to
+        where the card holds no cluster of 16)."""
         m = self.m
         reg_w, reg_v, attr_group, grad_tab = self.sgda
         Bv, Pv, at = self.val
@@ -431,7 +433,7 @@ class _Steps:
             build.ptr(reg_w), build.ptr(reg_v), build.ptr(attr_group),
             reg_w.shape[0], *(base + b * step for base, step in at), Bv, Pv,
             m.lr, -2.0 * m.lr, f32_sub(1.0, min(m.lr, 1.0)), m.min_target,
-            m.max_target, int(m.k0), int(m.k1), self.stream)
+            m.max_target, int(m.k0), int(m.k1), max_blocks, self.stream)
         build.check_launch(self.lib, rc, "sgda_lambda")
 
 
@@ -479,14 +481,17 @@ def sgd_apply(tab, w0, ws: Workspace, m: StepMode, ids, neg=None,
 
 
 def sgda_lambda(tab, grad_tab, w0, reg_w, reg_v, attr_group, ids, vals, y,
-                valid, ws: Workspace, m: StepMode) -> None:
-    """X9c on one validation batch."""
+                valid, ws: Workspace, m: StepMode,
+                max_blocks: int = 0) -> None:
+    """X9c on one validation batch (``max_blocks``: see
+    ``_Steps.lambda_step``)."""
     if build.on_cpu(ids):
         return sgda_lambda_plain(tab, grad_tab, w0, reg_w, reg_v, attr_group,
                                  ids, vals, y, valid, m)
     with torch.cuda.device(ids.device):
         _Steps(tab, w0, ws, m, sgda=(reg_w, reg_v, attr_group, grad_tab),
-               val_batches=_one(ids, vals, y, valid)).lambda_step(0)
+               val_batches=_one(ids, vals, y, valid)).lambda_step(
+                   0, max_blocks)
 
 
 def run_batches(tab, w0, batches, ws: Workspace, m: StepMode, negs=None,

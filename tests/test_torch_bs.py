@@ -507,9 +507,11 @@ def test_narrow_lanes_is_the_cu_formula(L, G):
 
 
 def test_join_plan_rows_lay_the_buckets_end_to_end():
-    """X10a's plan table: a row a bucket (pointers, C, L, G, first block),
-    C blocks a bucket at F >= 2, ceil(C G / 256) at F <= 1, an empty bucket
-    taking none; and the blocks in all."""
+    """X10a's plan table: a row a bucket (pointers, C, L, G, first), the
+    buckets end to end: ceil(C G / 256) blocks a bucket at F <= 1, C
+    blocks (a block a relation row) at F > 32, C relation rows at
+    2 <= F <= 32 (G = 32 lanes a row; a persistent grid walks them), an
+    empty bucket taking none; and the blocks or rows in all."""
     from svbfm_tpu_torch.kernels import bs_sweep as ks
 
     bs = [tbs.JoinBlock(rows=torch.zeros(C, L, dtype=torch.int32),
@@ -522,7 +524,76 @@ def test_join_plan_rows_lay_the_buckets_end_to_end():
     assert blocks == 12 and rows[0][:3] == (
         bs[0].rows.data_ptr(), bs[0].x.data_ptr(), bs[0].cols.data_ptr())
     rows, blocks = ks.join_plan_rows(bs, 20)
+    assert [r[5:] for r in rows] == [(32, 0), (32, 100), (32, 100),
+                                     (32, 150)]
+    assert blocks == 153
+    rows, blocks = ks.join_plan_rows(bs, 33)
     assert [r[6] for r in rows] == [0, 100, 100, 150] and blocks == 153
+
+
+def _join_plan_walk(rows, total, F, nwarps=None):
+    """Emulate X10a's launch over a plan table (csrc/bs_sweep.cu), each
+    form with its own mapping: narrow and block, each block finds its
+    bucket (find_bucket) and its threads their relation rows; warp,
+    ``nwarps`` warps of a persistent grid walk the rows laid end to end,
+    warp w rows w, w + nwarps, ..., each in rounds of 32 slots.  Returns
+    {(bucket, row): [slots read]}."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    form = ks.join_form(F)
+    seen = {}
+    if form == "warp":
+        for w in range(nwarps):
+            for g in range(w, total, nwarps):
+                b = max(i for i, r in enumerate(rows)
+                        if r[6] <= g and r[3] > 0)
+                _, _, _, C, L, G, first = rows[b]
+                assert G == 32 and first <= g < first + C
+                for l0 in range(0, max(L, 1), 32):
+                    seen.setdefault((b, g - first), []).extend(
+                        range(l0, min(l0 + 32, L)))
+        return seen
+    for blk in range(total):
+        b = 0
+        while b + 1 < len(rows) and rows[b + 1][6] <= blk:
+            b += 1
+        _, _, _, C, L, G, first = rows[b]
+        if form == "narrow":  # G lanes a row, 256 threads a block
+            for tid in range(256):
+                c = ((blk - first) * 256 + tid) // G
+                if c < C:
+                    seen.setdefault((b, c), []).extend(
+                        range(tid % G, L, G))
+        else:  # a block a row, its threads over tiles of 32 slots
+            c = blk - first
+            assert c < C
+            seen.setdefault((b, c), []).extend(range(L))
+    return seen
+
+
+@pytest.mark.parametrize("F", [0, 1, 2, 5, 20, 32, 33])
+def test_join_plan_covers_every_relation_row_once(F):
+    """X10a's plan in each form reaches every relation row of every
+    bucket (empty buckets among them, L = 1-4,096) once and reads each of
+    its slots exactly once; in the warp form whatever the persistent
+    grid's size (1, 3 and 1,000 warps: a warp walking many rows across
+    buckets, or fewer rows than warps)."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    shapes = ((0, 8), (37, 1), (100, 8), (0, 16), (50, 33), (9, 128),
+              (7, 129), (3, 300), (5, 1000), (2, 4096), (0, 64))
+    bs = [tbs.JoinBlock(rows=torch.zeros(C, L, dtype=torch.int32),
+                        x=torch.zeros(C, L),
+                        cols=torch.zeros(C, dtype=torch.int32))
+          for C, L in shapes]
+    rows, total = ks.join_plan_rows(bs, F)
+    grids = (1, 3, 1000) if ks.join_form(F) == "warp" else (None,)
+    for nwarps in grids:
+        seen = _join_plan_walk(rows, total, F, nwarps)
+        assert sorted(seen) == [(b, c) for b, (C, _) in enumerate(shapes)
+                                for c in range(C)]
+        for (b, c), slots in seen.items():
+            assert sorted(slots) == list(range(shapes[b][1])), (b, c)
 
 
 @pytest.mark.parametrize("F,L,form", [

@@ -447,7 +447,10 @@ def _join_bucket(rng, C, L, N, cols, dev):
                      cols=torch.from_numpy(cols.astype(np.int32)).to(dev))
 
 
-def _join_agg_case(cuda, F, shapes, seed):
+def _join_agg_case(cuda, F, shapes, seed, poison=None, twice=False):
+    """X10a against its twin on a plan of ``shapes``; ``poison`` "e" (a NaN
+    residual) or "q" (an Inf cache) at the pad row N - 1; ``twice``: a
+    second launch must give the same bits."""
     import chip_smoke
     from svbfm_tpu_torch.kernels import bs_sweep as ks
 
@@ -468,21 +471,38 @@ def _join_agg_case(cuda, F, shapes, seed):
     lay = ks.rel_layout(F)
     rtab = torch.from_numpy(rng.normal(0, 1, (R, lay["ld"])).astype(
         np.float32)).to(cuda)
+    qn = rng.standard_normal((N, F))
+    if poison == "e":
+        e[N - 1] = np.nan
+    elif poison == "q":
+        qn[N - 1, F - 1] = np.inf
     e_t = torch.from_numpy(e.astype(np.float32)).to(cuda)
-    q = (torch.from_numpy(rng.standard_normal((N, F)).astype(np.float32))
-         .to(cuda) if F else None)
+    q = torch.from_numpy(qn.astype(np.float32)).to(cuda) if F else None
     got, want = rtab.clone(), rtab.clone()
     before = build.launch_counts["bs_join_agg"]
     ks.bs_join_agg(buckets, e_t, q, F, got)
     ks.bs_join_agg_plain(buckets, e_t, q, F, want)
+    if twice:
+        again = rtab.clone()
+        ks.bs_join_agg(buckets, e_t, q, F, again)
     torch.cuda.synchronize()
     live = any(b.rows.shape[0] for b in buckets)
-    assert build.launch_counts["bs_join_agg"] == before + int(live)
-    chip_smoke.compare([got], [want], f"bs_join_agg F={F} {shapes}")
+    assert build.launch_counts["bs_join_agg"] == before + int(live) * (
+        1 + twice)
+    what = f"bs_join_agg F={F} {shapes} poison={poison}"
+    chip_smoke.compare([got], [want], what)
+    if twice:
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
+            what
+    CH = ks.agg_channels(F)
     for b in buckets:
         if b.rows.shape[0] > 5:
             assert torch.isnan(got[int(b.cols[5]), F]).item()
-            assert (got[int(b.cols[3]), F:F + ks.agg_channels(F)] == 0).all()
+            pad_only = got[int(b.cols[3]), F:F + CH]
+            if poison is None:
+                assert (pad_only == 0).all()
+            else:  # the twin's x = 0 products of the poisoned pad row
+                assert torch.isnan(pad_only).any()
 
 
 @pytest.mark.parametrize("F", [0, 1])
@@ -503,6 +523,128 @@ def test_join_agg_plan_in_one_launch_matches_twin(cuda, F):
     finding its bucket in the plan table."""
     _join_agg_case(cuda, F, [(23, 1), (40, 7), (0, 8), (31, 33), (9, 300)],
                    F)
+
+
+@pytest.mark.parametrize("F,poison", [
+    (0, None), (0, "e"), (1, None), (1, "e"), (1, "q"),
+    *((F, p) for F in (2, 5, 20, 32, 33) for p in (None, "e", "q"))])
+def test_join_agg_forms_match_twin(cuda, F, poison):
+    """X10a in each form (``join_form``): G lanes a relation row at F <= 1,
+    a warp a row at F = 2, 5, 20, 32 (rows of 1 to 32 rounds of 32 slots,
+    L = 300 and 1,000 among them), a block a row at F = 33; buckets of
+    L = 1-1,000 with an empty one, ragged padding and a column of padding
+    only; with ``poison`` a NaN e or an Inf q at the pad row, which the
+    twin's x = 0 products carry into every padded relation row's sums;
+    two launches give the same bits."""
+    _join_agg_case(cuda, F, [(23, 1), (40, 7), (0, 8), (31, 33), (9, 300),
+                             (3, 1000)], 100 + F, poison, twice=True)
+
+
+def _col_f1_case(cuda, C, L, mode, shift, poison):
+    """X8a at F = 1 (``mode`` "draw": Gibbs, or "grad": exp_sgd's step) on
+    one [C, L] bucket with ragged padding (pad row N - 1, x = 0), past 5
+    columns column 3 padding only, a group whose lambda is NaN (its draws
+    give 0, uncounted), an Inf noise number at column 0 (counted,
+    reverted); rows and x ``shift`` elements past a 16-byte boundary;
+    ``poison``: a NaN q or an Inf e at the pad row.  Two launches, then the
+    twin; returns the kernel's outputs."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
+    rng = np.random.default_rng(1000 * C + 10 * L + shift)
+    N, G = 2000, 3
+    D = C + 7
+    rows = rng.integers(0, N - 1, (C, L))
+    x = rng.uniform(0.5, 1.5, (C, L))
+    cnt = rng.integers(1, L + 1, C)
+    if C > 5:
+        cnt[3] = 0
+    pad = np.arange(L)[None, :] >= cnt[:, None]
+    rows[pad], x[pad] = N - 1, 0.0
+    cols = rng.permutation(D)[:C]
+    group = rng.integers(0, 2, C)
+    if C > 2:
+        group[1] = 2  # the NaN-lambda group, alone
+    e, q = rng.normal(0, 1, N), rng.normal(0, 1, (N, 1))
+    if poison == "q":
+        q[N - 1, 0] = np.nan
+    elif poison == "e":
+        e[N - 1] = np.inf
+    v = rng.normal(0, 0.3, (D, 1))
+    mu = rng.normal(0, 0.1, (G, 1))
+    lam = rng.uniform(0.5, 2.0, (G, 1))
+    lam[2] = np.nan
+    z = rng.normal(0, 1, (1, D))
+    if C:
+        z[0, cols[0]] = np.inf
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+
+    r_t = _offset_view(torch.from_numpy(rows.astype(np.int32)), shift == 0,
+                       cuda, shift)
+    x_t = _offset_view(torch.from_numpy(x.astype(np.float32)), shift == 0,
+                       cuda, shift)
+    plan = km.col_draw_f1_plan(r_t, x_t)
+    assert plan.lanes == km.col_draw_f1_lanes(C, L)
+    if C:  # (an empty view's address is not the buffer's)
+        assert plan.vec == (1 if plan.lanes < 32 or L % 2 or shift == 1
+                            else 2 if L % 4 or shift == 2 else 4)
+    name = "mcmc_col_draw" if mode == "draw" else "mcmc_col_grad"
+    before = build.launch_counts[name]
+    outs = []
+    for fn in ((km.mcmc_col_draw, km.mcmc_col_draw, km.mcmc_col_draw_plain)
+               if mode == "draw" else
+               (km.mcmc_col_grad, km.mcmc_col_grad, km.mcmc_col_grad_plain)):
+        ptab = t(np.concatenate([v, np.zeros_like(v)], 1))
+        vt, nans = t(v), torch.zeros(2, dtype=torch.int32, device=cuda)
+        if mode == "draw":
+            fn(r_t, x_t, t(cols, np.int32), t(group, np.int32), t(e), t(q),
+               ptab, vt, t(mu), t(lam),
+               torch.tensor(1.3, device=cuda), t(z), True, nans)
+        else:
+            fn(r_t, x_t, t(cols, np.int32), t(e), t(q), ptab, vt, 0.3, 0.05,
+               float(N))
+        outs.append([ptab, vt, nans])
+    torch.cuda.synchronize()
+    assert build.launch_counts[name] == before + 2 * (C > 0)
+    what = f"{name} F=1 [{C},{L}] shift={shift} poison={poison} {plan}"
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    chip_smoke.compare(outs[0], outs[2], what)
+    assert torch.equal(outs[0][2], outs[2][2]), what
+    return outs[0]
+
+
+@pytest.mark.parametrize("poison", [None, "q", "e"])
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("L", [1, 7, 16, 33, 256, 512, 1000])
+@pytest.mark.parametrize("C", [0, 1, 300])
+@pytest.mark.parametrize("mode", ["draw", "grad"])
+def test_col_draw_f1_matches_twin(cuda, mode, C, L, shift, poison):
+    """X8a at F = 1 in the Gibbs draw and exp_sgd gradient modes against
+    the twin: L = 1, 7, 16 (a few lanes a column, several columns a warp),
+    33 and 256 (a warp), 512 and 1,000 (2-4 warps a column); C = 0, 1 and
+    300; rows and x at 16-, 4- and 8-byte alignment (16-, 4- and 8-byte
+    loads); a padding-only column, a NaN-lambda group, an Inf noise
+    number; a NaN q or an Inf e at the pad row turns the padded columns'
+    sums NaN, as in the twin (a NaN sh2 gives a draw of 0, uncounted; a
+    NaN s0 a NaN draw, counted and reverted; a step kept from moving); two
+    launches give the same bits."""
+    out = _col_f1_case(cuda, C, L, mode, shift, poison)
+    if mode == "draw" and C > 1 and poison is None:
+        assert out[2][1] >= 1  # the Inf noise number
+    if mode == "draw" and C > 5 and poison == "e":
+        assert out[2][0] >= 1  # column 3, padding only
+
+
+@pytest.mark.parametrize("L", [256, 512])
+@pytest.mark.parametrize("mode", ["draw", "grad"])
+def test_col_draw_f1_many_columns_match_twin(cuda, mode, L):
+    """X8a at F = 1 on buckets of 2,500 columns, where a long column keeps
+    one warp (L = 256) or takes two (L = 512), as ML-1M's `[6026,256]`
+    and `[1613,512]` buckets do at their own widths."""
+    _col_f1_case(cuda, 2500, L, mode, 0, None)
 
 
 @pytest.mark.parametrize("merge_w", [False, True])
@@ -1158,6 +1300,32 @@ def test_sgda_lambda_cluster_matches_twin(cuda, Bv, G, K, P):
         assert P == 1 or not torch.equal(outs[0][1], regs[1])
 
 
+@pytest.mark.parametrize("K", [5, 20])
+@pytest.mark.parametrize("Bv", [1000, 3000])
+def test_sgda_lambda_eight_block_fallback_matches_twin(cuda, Bv, K):
+    """X9c's cluster cut to 8 blocks, the launch the kernel falls back to
+    where the card holds no cluster of 16 (forced here by its block cap):
+    against the twin at Bv = 1,000 and 3,000, several rows a warp; two
+    launches give the same bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    fixed, regs, rest, ws, m = _lambda_case(cuda, Bv, 3, K, 3)
+    outs = []
+    for kernel in (True, False, True):
+        rw, rv = (r.clone() for r in regs)
+        if kernel:
+            ks.sgda_lambda(*fixed[:3], rw, rv, *rest, ws, m, max_blocks=8)
+        else:
+            ks.sgda_lambda_plain(*fixed[:3], rw, rv, *rest, m)
+        outs.append([rw, rv])
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs[0], outs[1], f"sgda_lambda 8 blocks Bv={Bv} "
+                       f"K={K}")
+    for a, b in zip(outs[0], outs[2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.parametrize("Bv", [10, 300])
 def test_sgda_lambda_nan_target_poisons_every_reg(cuda, Bv):
     """A NaN target makes grad_loss NaN, which JAX's dense segment sums
@@ -1252,16 +1420,17 @@ def test_sgd_grad_scatter_matches_twin(cuda, mode, K, P):
     chip_smoke.compare(*steps, f"sgd_apply after X9a {mode} K={K} P={P}")
 
 
-def _offset_view(a, aligned, dev):
+def _offset_view(a, aligned, dev, shift=1):
     """``a`` on ``dev``, contiguous, at a 16-byte-aligned address or, not
-    ``aligned``, 4 bytes past one (a view one element into a flat
-    buffer), so that the kernels' vector loads must give way."""
+    ``aligned``, ``shift`` elements past one (a view into a flat buffer:
+    4 bytes past it, or 8 with shift 2), so that the kernels' vector
+    loads must give way."""
     if aligned:
         return a.to(dev).contiguous()
-    buf = torch.zeros(a.numel() + 1, dtype=a.dtype, device=dev)
-    v = buf[1:].view(a.shape)
+    buf = torch.zeros(a.numel() + shift, dtype=a.dtype, device=dev)
+    v = buf[shift:].view(a.shape)
     v.copy_(a)
-    assert v.is_contiguous() and v.data_ptr() % 16 != 0
+    assert v.is_contiguous() and (v.numel() == 0 or v.data_ptr() % 16 != 0)
     return v
 
 

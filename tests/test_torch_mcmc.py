@@ -521,3 +521,54 @@ def test_ragged_kernel_case_twins_on_cpu():
     for _, prepare, call, _ in cases["gather_probe"]:
         (o,) = call("plain", prepare())
         assert torch.isfinite(o).all()
+
+
+@pytest.mark.parametrize("C,L,G", [
+    (1, 1, 1), (9, 2, 2), (9, 7, 8), (9, 16, 16), (9, 17, 32), (14, 128, 32),
+    (6026, 256, 32), (2339, 256, 32), (2047, 256, 64), (2048, 257, 64),
+    (1613, 512, 128), (2048, 512, 64), (5000, 1024, 128), (3, 5000, 128)])
+def test_col_draw_f1_form_is_a_function_of_c_and_l(C, L, G):
+    """X8a's lanes a column at F = 1 (csrc/mcmc_sweep.cu:f1_lanes): the
+    next power of two >= L up to L = 16, else a warp, 8 slots a lane, or
+    2-4 warps on long columns (past 256 slots, or 128 where the bucket has
+    fewer than 2,048 columns).  With each load width L allows, the
+    launch's threads (256 a block, G a column) reach every column once
+    and read each of its slots once."""
+    G_got = km.col_draw_f1_lanes(C, L)
+    assert G_got == G
+    blocks = -(-C * G // 256)
+    owners = {}
+    for blk in range(blocks):
+        for tid in range(256):
+            c = blk * (256 // G) + tid // G
+            if c < C:
+                owners.setdefault(c, []).append(tid % G)
+    assert sorted(owners) == list(range(C))
+    assert all(sorted(v) == list(range(G)) for v in owners.values())
+    for V in (1, 2, 4):
+        if (G < 32 and V > 1) or L % V:
+            continue
+        kR, nch, slots = 4 // V, L // V, []  # kF1Slots = 4
+        for li in range(G):
+            for j0 in range(li, nch, G * kR):
+                for i in range(kR):
+                    j = j0 + i * G
+                    if j < nch:
+                        slots.extend(range(j * V, j * V + V))
+        assert sorted(slots) == list(range(L)), V
+
+
+@pytest.mark.parametrize("shift,L,vec", [
+    (0, 256, 4), (1, 256, 1), (2, 256, 2), (0, 258, 2), (0, 33, 1),
+    (2, 33, 1), (0, 16, 1), (0, 1000, 4)])
+def test_col_draw_f1_plan_reads_the_alignment(shift, L, vec):
+    """X8a's load width at F = 1 (csrc/mcmc_sweep.cu:f1_vec): 16-byte loads
+    of rows and x where L is a multiple of 4 and both bases are 16-byte
+    aligned, 8-byte ones where L is even and they are 8-byte aligned, else
+    4-byte; always 4-byte where a column has fewer than 32 lanes."""
+    C = 5
+    buf = torch.zeros(C * L + shift, dtype=torch.int32)
+    rows = buf[shift:].view(C, L)
+    x = torch.zeros(C, L)
+    assert x.data_ptr() % 16 == 0 and buf.data_ptr() % 16 == 0
+    assert km.col_draw_f1_plan(rows, x) == (km.col_draw_f1_lanes(C, L), vec)
