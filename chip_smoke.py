@@ -57,11 +57,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
  16. als: ALS (-regular 5) at factor_block=1 and 0, 5 iterations each:
      kernels launched, test RMSE of the last state falling; then
      mcmc-seq-profile: device time of one Gibbs sweep at factor_block=1
-     by kernel, X8a's (col_draw) apart; then 2 ALS sweeps at F=1, card
-     against CPU.
+     by kernel, X8a's (col_draw) and X8b's (row_patch) apart; then 2
+     ALS sweeps at F=1, card against CPU.
  17. mcmc-quality: 30 Gibbs iterations; the posterior-mean test RMSE at
      iterations 10 and 30 beside the reference C++'s (information).
- 18. mcmc-profile: device time per Gibbs sweep by kernel.
+ 18. mcmc-profile: device time per Gibbs sweep by kernel, X8a's and
+     X8b's apart.
  19. gather-probe: ns per index of a 1-D gather of 2M indices from a 4 MB
      table (the kernel and torch.take), the lane-local [S,128] form and
      the depth sweep 8/32/1024 (the counterpart of
@@ -101,8 +102,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
  33. bs-quality: the PARITY_RUNS.md:166-183 recipe, 30 iterations of
      Gibbs and of ALS (-regular 10), beside the reference C++ (information).
  34. bs-profile: device time of one blocked BS Gibbs sweep by kernel
-     (bs-profile and bs-seq-profile also give X10a's, X10c's and the
-     resync's).
+     (bs-profile and bs-seq-profile also give X10a's, X10c's, the
+     resync's and the moments').
 Then the nvidia-smi line again, a JSON line with each kernel's launches
 (summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28,
 30-32, each read just after its run with the counts zeroed just before),
@@ -256,13 +257,13 @@ SOURCES = {
     "bs_resync": ("svbfm_tpu_torch/csrc/bs_forward.cu",
                   "svbfm_tpu/learners/mcmc_bs.py:463"),
 }
-# the relation kernels of the block-structure sampler, every path of it
 # the kernel names whose device time the BS profiles report apart: X10c
-# (rel_patch_*_kernel), X10d's resync (resync_*_kernel) and X10a
-# (join_agg_*_kernel)
-BS_FOCUS = ("rel_patch", "resync", "join_agg")
-# the same for the factor-sequential Gibbs profile: X8a (col_draw_*)
-MCMC_FOCUS = ("col_draw",)
+# (rel_patch_*_kernel), X10d's resync (resync_*_kernel) and moments
+# (rel_moments_kernel) and X10a (join_agg_*_kernel)
+BS_FOCUS = ("rel_patch", "resync", "rel_moments", "join_agg")
+# the same for the Gibbs profiles: X8a (col_draw_*) and X8b (row_patch_*)
+MCMC_FOCUS = ("col_draw", "row_patch")
+# the relation kernels of the block-structure sampler, every path of it
 BS_KERNELS = ("bs_rel_moments", "bs_scores", "bs_resync", "bs_join_agg",
               "bs_rel_draw", "bs_rel_w_draw", "bs_rel_patch",
               "bs_rel_w_patch")
@@ -705,16 +706,20 @@ def make_cases(s: dict):
         def x8b_prepare():
             return m["q"].clone(), m["e"].clone()
 
-        def x8b(variant, inp):
-            fn = (km.mcmc_patch_rows if variant == "kernel"
-                  else km.mcmc_patch_rows_plain)
-            q, e = inp
-            fn(m["ptab_patch"], F, ids, vals, q, e)
-            return [q, e]
+        for b_i, pt in enumerate(m["ptab_patch"]):  # as each bin leaves it
+            def x8b(variant, inp, pt=pt):
+                fn = (km.mcmc_patch_rows if variant == "kernel"
+                      else km.mcmc_patch_rows_plain)
+                q, e = inp
+                fn(pt, F, ids, vals, q, e)
+                return [q, e]
 
-        add("mcmc_patch_rows", f"F={F} N={N}", x8b_prepare, x8b,
-            cost(rows_bytes(ids) + s["D"] * 2 * F * 4 + N * F * 8 + N * 8,
-                 N * P * F * 6))
+            add("mcmc_patch_rows", f"F={F} N={N} bin {b_i}", x8b_prepare,
+                x8b,
+                cost(rows_bytes(ids) + s["D"] * 2 * F * 4 + N * F * 8
+                     + N * 8, N * P * F * 6,
+                     note=plan_note(km, "patch_plan", (pt, F, m["q"]),
+                                    ("form", "vec", "lanes", "rows"))))
 
     if "mF" in s:  # the block of F = mF factors (m_*) and F = 1 (m1_*)
         for F, sfx in ((s["mF"], ""), (1, "1")):
@@ -978,10 +983,18 @@ def bs_cases(add, r: dict) -> None:
               else kf.bs_rel_moments_plain)
         return [fn(rd.rrow_ids, rd.rrow_vals, r["stab"], r["off"])]
 
+    ids64 = rd.rrow_ids.long() + r["off"]
+
+    def moments_library():  # (lin | qB) alone, no sB
+        return torch.nn.functional.embedding_bag(
+            ids64, r["stab"], per_sample_weights=rd.rrow_vals, mode="sum")
+
     K1 = r["stab"].shape[1]
     add("bs_rel_moments", f"{name} K={K1 - 1} R={R} Pr={Pr}", lambda: (),
         moments, cost(R * Pr * 8 + Dr * K1 * 4 + R * (2 * K1 - 1) * 4,
-                      R * Pr * (3 * K1)))
+                      R * Pr * (3 * K1), moments_library,
+                      note=plan_note(kf, "moments_plan", (K1 - 1,),
+                                     ("lanes", "channels", "rows"))))
     for sc in r.get("scores", ()):
         ids, vals = sc["ids"], sc["vals"]
 
@@ -1386,7 +1399,8 @@ def mcmc_tensors(learner, state) -> dict:
     all K factors (F = K) and on factor 0 alone (F = 1), X8a on the largest
     bucket of each bin at F = K and on every bucket at F = 1, with and
     without a noise table, in both draw modes; X8c on the largest buckets;
-    the patch tables as bin 0 leaves them."""
+    the patch tables as each bin leaves them (X8b's, from the pre-sweep
+    v), the w patch's as bin 0 leaves it."""
     from svbfm_tpu_torch.kernels import mcmc_sweep as km
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.kernels import w_sweep as kw
@@ -1417,13 +1431,15 @@ def mcmc_tensors(learner, state) -> dict:
                  lam=state.v_lambda[:, :F].contiguous(), alpha=state.alpha,
                  z=torch.randn(F, D, generator=gen, device=dev),
                  buckets=every if F == 1 else big)
-        pt, v2 = ptab.clone(), vt.clone()
-        for blk in plan.blocks[0]:
-            km.mcmc_col_draw_plain(
-                blk.rows, blk.x, blk.cols, blk.group, m["e"], m["q"], pt, v2,
-                m["mu"], m["lam"], m["alpha"], m["z"], True,
-                torch.zeros(2, dtype=torch.int32, device=dev))
-        m["ptab_patch"] = pt
+        m["ptab_patch"] = []
+        for bin_blocks in plan.blocks:
+            pt, v2 = ptab.clone(), vt.clone()
+            for blk in bin_blocks:
+                km.mcmc_col_draw_plain(
+                    blk.rows, blk.x, blk.cols, blk.group, m["e"], m["q"], pt,
+                    v2, m["mu"], m["lam"], m["alpha"], m["z"], True,
+                    torch.zeros(2, dtype=torch.int32, device=dev))
+            m["ptab_patch"].append(pt)
         s.update({f"m{sfx}_{k}": v for k, v in m.items()})
     return s
 
@@ -1702,7 +1718,7 @@ def ragged_mcmc_tensors(device) -> dict:
             q=t(q[:, fs]), mu=t(mu[:, fs]), lam=t(lam[:, fs]),
             alpha=torch.tensor(1.7, device=device), z=t(z[fs]),
             buckets=[bucket],
-            ptab_patch=t(np.concatenate([v[:, fs], dv[:, fs]], 1))).items()})
+            ptab_patch=[t(np.concatenate([v[:, fs], dv[:, fs]], 1))]).items()})
     w_lam = np.array([2.0, np.nan])
     zw = rng.standard_normal(D)
     zw[cols[2]] = np.inf
@@ -2884,7 +2900,7 @@ def main() -> int:
     # ---- 18. where a Gibbs sweep's device time goes -------------------------
     gibbs.run(mstate, num_iter=1, verbose=False)
     profile_run(lambda: gibbs.run(mstate, num_iter=5, verbose=False), 5,
-                "sweep", "mcmc-profile")
+                "sweep", "mcmc-profile", focus=MCMC_FOCUS)
 
     # ---- 19. P1: the cost of a gather at data-dependent addresses ----------
     t0 = time.perf_counter()

@@ -14,16 +14,19 @@ graph replay of 20 calls, then the family's profiles:
 - ``bs``: the block-structure sampler's join aggregation X10a (F = 20,
   the w sweep's F = 0, F = 1 and, in its block form, F = 33), its
   relation-row patch X10c (F = 20, F = 1 and the w mode, after each timed
-  bin) and its data-row resync (X10d: full, q-build and w forms) on the
-  1M-rating relational recipe (``scripts/bench_bs.py``), for the users
-  and the items relation, each with its form; their launches in one
-  sweep of each BS path; and ``chip_smoke.profile_run`` of one blocked
-  Gibbs sweep and of one factor-sequential sweep (factor_block 1), twice
-  each, with X10a's, X10c's and the resync's device time.
+  bin), its data-row resync (X10d: full, q-build and w forms) and its
+  relation-row moments (X10d, K = 20) on the 1M-rating relational recipe
+  (``scripts/bench_bs.py``), for the users and the items relation, each
+  with its form; their launches in one sweep of each BS path; and
+  ``chip_smoke.profile_run`` of one blocked Gibbs sweep and of one
+  factor-sequential sweep (factor_block 1), twice each, with X10a's,
+  X10c's, the resync's and the moments' device time.
 - ``mcmc``: X8a at F = 1 on every degree bucket of the ML-1M recipe
   (``bench.py``), in the Gibbs draw mode (with a noise table) and in
-  exp_sgd's gradient mode, each with its form; and ``profile_run`` of one
-  Gibbs sweep at factor_block 1, twice, with X8a's device time.
+  exp_sgd's gradient mode, each with its form; X8b at F = 20 on the
+  patch table as each of the two bins leaves it, with its form; and
+  ``profile_run`` of one Gibbs sweep at factor_block 0 (X8a's and X8b's
+  device time) and one at factor_block 1 (X8a's), twice each.
 - ``sgd``: X9a on a batch of 1,024 rows of the ML-1M recipe in the
   regression, exponential-family and SGDA modes and on BPR's batch of
   11,063 pairs; X9c on SGDA's validation batch of 113 rows (G = 2), at
@@ -47,12 +50,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # each family's libraries and the kernels of them whose ptxas lines are
 # printed (a part of their names)
 FAMILIES = {
-    "bs": (("bs_sweep", "bs_forward"), ("join_agg", "patch", "resync")),
-    "mcmc": (("mcmc_sweep",), ("col_draw_f1",)),
+    "bs": (("bs_sweep", "bs_forward"),
+           ("join_agg", "patch", "resync", "moments")),
+    "mcmc": (("mcmc_sweep",), ("col_draw_f1", "row_patch")),
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
 }
 # the bs family's timed kernels, by their wrappers' launch-count names
-BS_TIMED = ("bs_join_agg", "bs_rel_patch", "bs_rel_w_patch", "bs_resync")
+BS_TIMED = ("bs_join_agg", "bs_rel_patch", "bs_rel_w_patch", "bs_resync",
+            "bs_rel_moments")
+# a part of the names of X8a's kernels and of X8b's (in an older tree
+# patch_rows_kernel<32> at F >= 2, patch_rows_kernel<1> at F = 1)
+GIBBS_FOCUS = ("col_draw", "row_patch", "patch_rows_kernel<32>",
+               "patch_rows_kernel<1>")
 
 
 def main() -> int:
@@ -148,23 +157,29 @@ def mcmc_family(cs, build, dev, tag, line) -> None:
     exp = ExpSGDLearner(FMConfig(learn_rate=cs.EXP_SGD_LR, **base), train,
                         test, meta, device=dev, write_files=False)
     mc1, _ = gibbs.step(gibbs.init_state())
-    for s, name, mode in (
-            (cs.mcmc_tensors(gibbs, mc1), "mcmc_col_draw", "exact+z"),
-            (cs.exp_sgd_tensors(exp, exp.init_state()), "mcmc_col_grad", "")):
-        for label, prepare, call, c in cs.make_cases(s)[name]:
-            if " F=1 " in f"{label} " and mode in label:
+    ms = cs.make_cases(cs.mcmc_tensors(gibbs, mc1))
+    xs = cs.make_cases(cs.exp_sgd_tensors(exp, exp.init_state()))
+    for cases, name, key in ((ms, "mcmc_col_draw", " F=1 exact+z "),
+                             (xs, "mcmc_col_grad", " F=1 "),
+                             (ms, "mcmc_patch_rows", f" F={cs.K} ")):
+        for label, prepare, call, c in cases[name]:
+            if key in f" {label} ":
                 inp = prepare()
                 line(f"{name} {label} {c['note']}".rstrip(),
                      lambda: call("kernel", inp))
-    del mc1
+    del mc1, ms, xs
+
+    state, _ = gibbs.run(num_iter=1, verbose=False)
+    for _ in range(2):
+        cs.profile_run(lambda: gibbs.run(state, num_iter=1, verbose=False), 1,
+                       "sweep", f"{tag} mcmc-profile", focus=GIBBS_FOCUS)
 
     seq = MCMCLearner(FMConfig(factor_block=1, **base), train, test, meta,
                       device=dev, write_files=False)
     state, _ = seq.run(num_iter=1, verbose=False)
     for _ in range(2):
         cs.profile_run(lambda: seq.run(state, num_iter=1, verbose=False), 1,
-                       "sweep", f"{tag} mcmc-seq-profile",
-                       focus=cs.MCMC_FOCUS)
+                       "sweep", f"{tag} mcmc-seq-profile", focus=GIBBS_FOCUS)
 
 
 def sgd_family(cs, build, dev, tag, line) -> None:

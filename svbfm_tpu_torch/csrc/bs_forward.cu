@@ -26,8 +26,17 @@
 // device arrays of nrel pointers, which the wrapper builds once per set of
 // tensors, and every relation's qB adds into one s_f before it is squared.
 //
-// Bound: bytes.  bs_scores reads each data row's ids, values and table
-// rows and one moments row per relation at a data-dependent address
+// Bound: bytes.  bs_rel_moments reads each relation row's ids and values
+// and writes its 1+2K moments (30 MB for the users of the BS recipe at
+// K = 20: 8.9 us); the stab rows it gathers (a row's own one-hot
+// attribute, then a few shared attribute rows) sit in L2 or L1.  What
+// holds it is what a row costs in instructions and latency: lanes take
+// the channels of (w | v), lin among them, three a lane, so that
+// several rows share a warp and each shuffle that hands a position's id
+// or x to the lanes serves them all; a row's ids come in coalesced loads,
+// and a batch of gathers is issued before its sums.  bs_scores reads each
+// data row's ids, values and table rows and one moments row per relation
+// at a data-dependent address
 // (1+2K floats); one warp per row, lanes over factors, as K1.  bs_resync
 // reads each data row's join and q (and e) and gathers the joined dy, qB1
 // and qB0 rows from tables that L2 holds: its byte bound is q's read and
@@ -38,6 +47,8 @@
 // where F, ld1 and the bases allow, 8- or 4-byte ones where not, several
 // rows a warp (resync_chunks_kernel), or at F = 1 over four rows a thread
 // with 16-byte loads of join, q and e (resync_rows_kernel).
+#include <type_traits>
+
 #include "svbfm_common.cuh"
 
 namespace {
@@ -45,36 +56,126 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kResyncThreads = 256;
 constexpr int kResyncRows = 4;  // data rows a thread at F = 1
+constexpr int kMomBatch = 8;    // positions a moments lane gathers at once
+constexpr int kMomCh = 3;       // channels a moments lane takes a pass
 
-__global__ void rel_moments_kernel(const int* __restrict__ rids,
-                                   const float* __restrict__ rvals,
-                                   int64_t R, int Pr,
-                                   const float* __restrict__ stab,
-                                   int64_t off, int K, int k1,
-                                   float* __restrict__ out) {
+using svbfm::aligned;
+using svbfm::load_vec;
+using svbfm::store_vec;
+
+// The moments' lanes a relation row at K factors (mirrored by
+// kernels/bs_forward.py:moments_plan): the next power of two >= (K + 1) /
+// kMomCh channels, at most 32.
+int moments_lanes(int K) {
+  const int need = (K + 1 + kMomCh - 1) / kMomCh;
+  int G = 1;
+  while (G < need && G < 32) G <<= 1;
+  return G;
+}
+
+// The moments: G lanes a relation row (moments_lanes), 32 / G rows a
+// warp, lane l of a row owning channels l, l + G, ... (kMomCh of them
+// a pass; past G kMomCh channels, further passes) of its stab rows
+// (w | v^T):
+// channel 0 is the lin sum, channel c >= 1 qB and sB of factor c - 1, so
+// lin takes the same pass as the factors (at K = 20: 8 lanes of 3
+// channels, 4 rows a warp).  A row's ids and x come kHold a lane, lane l
+// taking positions l, l + G, ... of a round (coalesced loads), and are
+// handed to the row's lanes by shuffles, one shuffle serving every row of
+// the warp; kMomBatch positions' gathers are issued before their sums.
+// Each channel adds its positions in ascending p, as the twin does.  (A
+// warp a row, a lane a channel, is bound by its shuffles on the H100: two
+// a position for one row, where here two serve 32 / G rows; four
+// channels a lane, at K = 20 also 8 lanes and 4 rows a warp, took more
+// registers and ran about 1.2x slower.)
+template <int G>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    rel_moments_kernel(const int* __restrict__ rids,
+                       const float* __restrict__ rvals, int64_t R, int Pr,
+                       const float* __restrict__ stab, int64_t off, int K,
+                       int k1, float* __restrict__ out) {
+  constexpr int kRows = 32 / G;  // rows a warp
+  constexpr int kHold = kRows < 8 ? kRows : 8;  // positions a lane holds
+  constexpr int kRound = G * kHold;  // positions a round
   const int lane = threadIdx.x & 31;
-  const int64_t rho =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (rho >= R) return;
+  const int slot = lane / G;
+  const int gl = lane % G;
+  const int64_t rho0 =
+      ((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) *
+      kRows;
+  if (rho0 >= R) return;  // the whole warp leaves
+  const int64_t rho = rho0 + slot;
+  const bool live = rho < R;
   const int64_t ld = K + 1;
+  const int C = K + 1;
+  const float* tab = stab + off * ld;
   const int* rid = rids + rho * Pr;
   const float* rx = rvals + rho * Pr;
   float* o = out + rho * (1 + 2 * K);
-  for (int f = lane; f < K; f += 32) {
-    float qb = 0.f, sb = 0.f;
-    for (int p = 0; p < Pr; ++p) {
-      const float d = stab[(off + rid[p]) * ld + 1 + f] * rx[p];
-      qb += d;
-      sb += d * d;
+  for (int c0 = 0; c0 < C; c0 += G * kMomCh) {
+    // the same warp-wide
+    const int nch = min(kMomCh, (C - c0 + G - 1) / G);
+    int cs[kMomCh];
+    bool on[kMomCh];
+    float s[kMomCh], s2[kMomCh];
+#pragma unroll
+    for (int i = 0; i < kMomCh; ++i) {
+      cs[i] = c0 + gl + G * i;
+      on[i] = live && cs[i] < C && (cs[i] > 0 || k1);
+      s[i] = s2[i] = 0.f;
     }
-    o[1 + f] = qb;
-    o[1 + K + f] = sb;
-  }
-  if (lane == 0) {
-    float lin = 0.f;
-    if (k1)
-      for (int p = 0; p < Pr; ++p) lin += stab[(off + rid[p]) * ld] * rx[p];
-    o[0] = lin;
+    for (int p0 = 0; p0 < Pr; p0 += kRound) {
+      int hid[kHold];
+      float hx[kHold];
+#pragma unroll
+      for (int h = 0; h < kHold; ++h) {
+        const int p = p0 + gl + G * h;
+        const bool in = live && p < Pr;
+        hid[h] = in ? rid[p] : 0;
+        hx[h] = in ? rx[p] : 0.f;
+      }
+#pragma unroll
+      for (int b0 = 0; b0 < kRound; b0 += kMomBatch) {
+        if (p0 + b0 < Pr) {
+          float gv[kMomBatch][kMomCh];
+#pragma unroll
+          for (int k = 0; k < kMomBatch; ++k) {
+            const int p = b0 + k;
+            const int64_t id =
+                __shfl_sync(svbfm::kFullMask, hid[p / G], slot * G + p % G);
+#pragma unroll
+            for (int i = 0; i < kMomCh; ++i) {
+              gv[k][i] = 0.f;
+              if (i < nch && on[i] && p0 + p < Pr)
+                gv[k][i] = tab[id * ld + cs[i]];
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < kMomBatch; ++k) {
+            const int p = b0 + k;
+            const float x =
+                __shfl_sync(svbfm::kFullMask, hx[p / G], slot * G + p % G);
+            if (p0 + p < Pr) {
+#pragma unroll
+              for (int i = 0; i < kMomCh; ++i) {
+                if (i < nch) {
+                  const float d = gv[k][i] * x;
+                  s[i] += d;
+                  s2[i] += d * d;
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMomCh; ++i) {
+      if (live && cs[i] < C) {  // lin | qB at c, sB at K + c
+        o[cs[i]] = s[i];
+        if (cs[i] > 0) o[K + cs[i]] = s2[i];
+      }
+    }
   }
 }
 
@@ -116,36 +217,6 @@ __global__ void bs_scores_kernel(const float* __restrict__ stab, int K,
     for (int r = 0; r < nrel; ++r)
       acc += moms[r][static_cast<int64_t>(joins[r][n]) * ldm];
     out[n] = acc + 0.5f * part;
-  }
-}
-
-// kVec floats from p into o (kVec = 4, 2, 1: a 16-, 8- or 4-byte load; p
-// aligned to it), and back.
-template <int kVec>
-__device__ __forceinline__ void load_vec(const float* p, float* o) {
-  if constexpr (kVec == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x;
-    o[1] = v.y;
-    o[2] = v.z;
-    o[3] = v.w;
-  } else if constexpr (kVec == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    o[0] = v.x;
-    o[1] = v.y;
-  } else {
-    o[0] = *p;
-  }
-}
-
-template <int kVec>
-__device__ __forceinline__ void store_vec(float* p, const float* o) {
-  if constexpr (kVec == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-  } else if constexpr (kVec == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
-  } else {
-    *p = o[0];
   }
 }
 
@@ -307,8 +378,22 @@ SVBFM_EXPORT int svbfm_bs_rel_moments(const int* rids, const float* rvals,
                                       int64_t R, int Pr, const float* stab,
                                       int64_t off, int K, int k1, float* out,
                                       cudaStream_t stream) {
-  rel_moments_kernel<<<warp_blocks(R), 32 * kWarpsPerBlock, 0, stream>>>(
-      rids, rvals, R, Pr, stab, off, K, k1, out);
+  const int G = moments_lanes(K);
+  const int64_t warps = (R + 32 / G - 1) / (32 / G);
+  auto go = [&](auto g) {
+    constexpr int kG = decltype(g)::value;
+    rel_moments_kernel<kG>
+        <<<warp_blocks(warps), 32 * kWarpsPerBlock, 0, stream>>>(
+            rids, rvals, R, Pr, stab, off, K, k1, out);
+  };
+  switch (G) {
+    case 1: go(std::integral_constant<int, 1>()); break;
+    case 2: go(std::integral_constant<int, 2>()); break;
+    case 4: go(std::integral_constant<int, 4>()); break;
+    case 8: go(std::integral_constant<int, 8>()); break;
+    case 16: go(std::integral_constant<int, 16>()); break;
+    default: go(std::integral_constant<int, 32>()); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,10 +409,6 @@ SVBFM_EXPORT int svbfm_bs_scores(const float* stab, int K, const float* w0,
   bs_scores_kernel<<<warp_blocks(N), 32 * kWarpsPerBlock, 0, stream>>>(
       stab, K, w0, ids, vals, N, P, nrel, joins, moms, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-static bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;  // nullptr: aligned
 }
 
 // The resync's chunk width at F >= 2: the widest of 4, 2, 1 floats that

@@ -68,8 +68,14 @@
 // latency: each lane loads its slots' ids and x with vector loads and
 // issues all their gathers before its first FMA, a warp a column (2-4 on
 // long columns, a few lanes on short ones); see col_draw_f1_kernel.
-// X8b: kLanes threads per row: a warp at F >= 2 (lanes over factors), one
-// thread at F = 1.  Each row owns its cache slots: no races.
+// X8b: bound by bytes, the [N, F] cache read and written once and each
+// row's ids, x and e (186 MB at ML-1M, F = 20: 55 us at 3.35 TB/s); its
+// ptab rows (2F floats an attribute) stay in L2.  A warp a row, lanes
+// over factors, would leave 12 of 32 lanes idle at F = 20 and cover one
+// row with each latency chain ids -> ptab -> FMA -> shuffle -> e (4.5x the
+// bound on the H100).  So at F >= 2 a row's V-float factor chunks lie
+// over TPR lanes, several rows a warp, and at F = 1 a thread takes a row.
+// Each row owns its cache slots: no races.
 #include <algorithm>
 
 #include "mcmc_draw.cuh"
@@ -84,41 +90,18 @@ constexpr int kTile = 32;
 constexpr int kF1Threads = 256;
 constexpr int kF1Slots = 4;
 constexpr int kPatchThreads = 256;
+constexpr int kPatchPos = 2;  // X8b's positions whose loads go out together
 constexpr int kExact = 0, kJacobi = 1, kGrad = 2;
+
+using svbfm::chunk_width;
+using svbfm::load_vec;
+using svbfm::store_vec;
 
 // The gradient step of X9d (exp_sgd.py:131-132).
 __device__ __forceinline__ float grad_step(float v, float s, float lr,
                                            float reg, float n) {
   const float nv = v - lr * (s + reg * v) / n;
   return isfinite(nv) ? nv : v;
-}
-
-// V consecutive ints or floats from a V-aligned address: one 16-, 8- or
-// 4-byte load.
-template <int V>
-__device__ __forceinline__ void load_vec(const int* p, int (&out)[V]) {
-  if constexpr (V == 4) {
-    const int4 v = *reinterpret_cast<const int4*>(p);
-    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
-  } else if constexpr (V == 2) {
-    const int2 v = *reinterpret_cast<const int2*>(p);
-    out[0] = v.x, out[1] = v.y;
-  } else {
-    out[0] = *p;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[V]) {
-  if constexpr (V == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
-  } else if constexpr (V == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x, out[1] = v.y;
-  } else {
-    out[0] = *p;
-  }
 }
 
 // Sums a column owns: s0 [F], then sh2 [F] (draw modes), then the packed M
@@ -399,34 +382,118 @@ __global__ void __launch_bounds__(kF1Threads) col_draw_f1_kernel(
   if (inf_c) atomicAdd(&nans[1], inf_c);
 }
 
-// X8b: every position reads the pre-bin q; dq is applied after the last.
-template <int kLanes>
-__global__ void patch_rows_kernel(const float* __restrict__ ptab, int F,
-                                  const int* __restrict__ ids,
-                                  const float* __restrict__ vals, int64_t N,
-                                  int P, float* __restrict__ q,
-                                  float* __restrict__ e) {
-  const int lane = threadIdx.x % kLanes;
-  const int64_t n = static_cast<int64_t>(blockIdx.x) *
-                        (kPatchThreads / kLanes) + threadIdx.x / kLanes;
-  if (n >= N) return;  // a row's lanes leave together
-  const int64_t ldp = 2 * F;
-  float de = 0.f;
-  for (int f = lane; f < F; f += kLanes) {
-    const int64_t o = n * F + f;
-    const float qv = q[o];
-    float dq = 0.f;
-    for (int p = 0; p < P; ++p) {
-      const float* g = ptab + static_cast<int64_t>(ids[n * P + p]) * ldp;
-      const float xv = vals[n * P + p];
-      const float dv = g[F + f];
-      de += xv * (qv - xv * g[f]) * dv;
-      dq += xv * dv;
-    }
-    q[o] = qv - dq;
+// X8b at F = 1: a thread a row.  Every position reads the pre-bin q; dq
+// is applied after the last.
+__global__ void row_patch_f1_kernel(const float* __restrict__ ptab,
+                                    const int* __restrict__ ids,
+                                    const float* __restrict__ vals, int64_t N,
+                                    int P, float* __restrict__ q,
+                                    float* __restrict__ e) {
+  const int64_t n =
+      static_cast<int64_t>(blockIdx.x) * kPatchThreads + threadIdx.x;
+  if (n >= N) return;
+  const float qv = q[n];
+  float de = 0.f, dq = 0.f;
+  for (int p = 0; p < P; ++p) {
+    const float* g = ptab + static_cast<int64_t>(ids[n * P + p]) * 2;
+    const float xv = vals[n * P + p];
+    const float dv = g[1];
+    de += xv * (qv - xv * g[0]) * dv;
+    dq += xv * dv;
   }
-  de = svbfm::row_sum<kLanes>(de);
-  if (lane == 0) e[n] -= de;
+  q[n] = qv - dq;
+  e[n] -= de;
+}
+
+// X8b at F >= 2: TPR = min(F / V, 32) lanes a row, 32 / TPR rows a warp
+// (the resync's layout, bs_forward.cu:resync_chunks_kernel), lane j of a
+// row owning the V-factor chunks j, j + TPR, ... (at F = 20: 5 lanes of 4
+// factors, 6 rows a warp).  Consecutive lanes hold consecutive chunks of
+// consecutive rows, so q is read and written in V-float loads over a
+// contiguous run of the [N, F] cache.  A chunk's pre-bin q and its dq stay
+// in registers across the positions, which come kPatchPos at a time: their
+// ids and x, then their ptab pieces (v_old at f, dv at F + f), then their
+// sums in position order.  The row's first lane loads e[n] before its
+// chunks; the chunk sums of de meet by a segmented shuffle over the row's
+// lanes (a fixed order), with no barrier.  kP = 2 builds the kernel for
+// rows of two positions (ML-1M's rows hold a user and an item): its loops
+// unroll whole and it takes fewer registers, so that more blocks share an
+// SM; kP = 0 takes any P.  The bound is the bytes of q; what costs is the
+// rows an SM holds in flight (K4's form, rows over the threads of a block
+// with the sums met in shared memory behind a barrier and the next
+// position's pieces loaded ahead, needs more registers and ran about 1.4x
+// slower on the H100).
+template <int V, int kP>
+__global__ void __launch_bounds__(kPatchThreads)
+    row_patch_wide_kernel(const float* __restrict__ ptab, int F,
+                          const int* __restrict__ ids,
+                          const float* __restrict__ vals, int64_t N,
+                          int P_any, int TPR, float* __restrict__ q,
+                          float* __restrict__ e) {
+  const int P = kP > 0 ? kP : P_any;
+  const int lane = threadIdx.x & 31;
+  const int rpw = 32 / TPR;  // rows a warp
+  const int slot = lane / TPR;
+  const int j = lane - slot * TPR;
+  const int64_t n0 =
+      ((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) *
+      rpw;
+  if (n0 >= N) return;  // the whole warp leaves
+  const int64_t n = n0 + slot;
+  const bool valid = slot < rpw && n < N;
+  const int G = F / V;
+  const int64_t ldp = 2 * F;
+  float de = 0.f, ev = 0.f;
+  if (valid) {
+    if (j == 0) ev = e[n];
+    const int* nid = ids + n * P;
+    const float* nx = vals + n * P;
+    for (int ch = j; ch < G; ch += 32) {  // TPR = G where G <= 32
+      const int f0 = ch * V;
+      const int64_t o = n * F + f0;
+      float q0[V], dq[V];
+      load_vec<V>(q + o, q0);
+#pragma unroll
+      for (int k = 0; k < V; ++k) dq[k] = 0.f;
+      for (int p0 = 0; p0 < P; p0 += kPatchPos) {
+        int id[kPatchPos];
+        float xv[kPatchPos], g[kPatchPos][2][V];
+#pragma unroll
+        for (int b = 0; b < kPatchPos; ++b) {
+          const bool in = p0 + b < P;
+          id[b] = in ? nid[p0 + b] : 0;
+          xv[b] = in ? nx[p0 + b] : 0.f;
+        }
+#pragma unroll
+        for (int b = 0; b < kPatchPos; ++b) {
+          if (p0 + b < P) {
+            const float* row = ptab + static_cast<int64_t>(id[b]) * ldp + f0;
+            load_vec<V>(row, g[b][0]);
+            load_vec<V>(row + F, g[b][1]);
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kPatchPos; ++b) {
+          if (p0 + b < P) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              const float dv = g[b][1][k];
+              de += xv[b] * (q0[k] - xv[b] * g[b][0][k]) * dv;
+              dq[k] += xv[b] * dv;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) q0[k] -= dq[k];
+      store_vec<V>(q + o, q0);
+    }
+  }
+  for (int d = 1; d < TPR; d <<= 1) {
+    const float t = __shfl_down_sync(svbfm::kFullMask, de, d);
+    if (j + d < TPR) de += t;
+  }
+  if (valid && j == 0) e[n] = ev - de;
 }
 
 // Mirrored by kernels/mcmc_sweep.py:col_draw_smem.
@@ -565,7 +632,10 @@ SVBFM_EXPORT int svbfm_mcmc_col_grad(
                                    stream);
 }
 
-// X8b: patch q [N, F] and e [N] in place from ptab [D, 2F] = (v_old, dv).
+// X8b: patch q [N, F] and e [N] in place from ptab [D, 2F] = (v_old, dv):
+// a thread a row at F = 1, else the wide form with V = 4, 2 or 1 factors a
+// chunk as F and the bases of q and ptab allow, min(F / V, 32) lanes a row
+// (mirrored by kernels/mcmc_sweep.py:patch_plan).
 SVBFM_EXPORT int svbfm_mcmc_patch_rows(const float* ptab, int F,
                                        const int* ids, const float* vals,
                                        int64_t N, int P, float* q, float* e,
@@ -573,13 +643,28 @@ SVBFM_EXPORT int svbfm_mcmc_patch_rows(const float* ptab, int F,
   if (F == 1) {
     const unsigned blocks =
         static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
-    patch_rows_kernel<1><<<blocks, kPatchThreads, 0, stream>>>(
-        ptab, F, ids, vals, N, P, q, e);
+    row_patch_f1_kernel<<<blocks, kPatchThreads, 0, stream>>>(
+        ptab, ids, vals, N, P, q, e);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int V = chunk_width(F, q, ptab);
+  const int TPR = std::min(F / V, 32);
+  const int64_t warps = (N + 32 / TPR - 1) / (32 / TPR);
+  const unsigned blocks = static_cast<unsigned>(
+      (warps * 32 + kPatchThreads - 1) / kPatchThreads);
+  auto go = [&](auto v) {
+    constexpr int kV = decltype(v)::value;
+    auto kernel = P == 2 ? row_patch_wide_kernel<kV, 2>
+                         : row_patch_wide_kernel<kV, 0>;
+    kernel<<<blocks, kPatchThreads, 0, stream>>>(ptab, F, ids, vals, N, P,
+                                                 TPR, q, e);
+  };
+  if (V == 4) {
+    go(std::integral_constant<int, 4>());
+  } else if (V == 2) {
+    go(std::integral_constant<int, 2>());
   } else {
-    const int64_t rows = kPatchThreads / 32;
-    const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
-    patch_rows_kernel<32><<<blocks, kPatchThreads, 0, stream>>>(
-        ptab, F, ids, vals, N, P, q, e);
+    go(std::integral_constant<int, 1>());
   }
   return static_cast<int>(cudaGetLastError());
 }

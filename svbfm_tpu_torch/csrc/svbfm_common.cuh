@@ -21,12 +21,67 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum over the kLanes threads that share one row: a warp (32), or one
-// thread (1), where the sum is the value itself.
-template <int kLanes>
-__device__ __forceinline__ float row_sum(float v) {
-  static_assert(kLanes == 1 || kLanes == 32, "a thread or a warp per row");
-  return kLanes == 1 ? v : warp_sum(v);
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// The 8- and 16-byte vector types of float and int.
+template <typename T, int W>
+struct VecOf;
+template <>
+struct VecOf<float, 4> { using type = float4; };
+template <>
+struct VecOf<float, 2> { using type = float2; };
+template <>
+struct VecOf<int, 4> { using type = int4; };
+template <>
+struct VecOf<int, 2> { using type = int2; };
+
+// V consecutive floats or ints at p, read as V / W loads of W (W = 4, 2,
+// 1: 16-, 8- or 4-byte loads; p aligned to 4 W bytes).
+template <int V, int W = V, typename T>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
+  static_assert(V % W == 0, "a whole number of loads");
+#pragma unroll
+  for (int i = 0; i < V; i += W) {
+    if constexpr (W == 4) {
+      const auto a = *reinterpret_cast<const typename VecOf<T, 4>::type*>(
+          p + i);
+      v[i] = a.x, v[i + 1] = a.y, v[i + 2] = a.z, v[i + 3] = a.w;
+    } else if constexpr (W == 2) {
+      const auto a = *reinterpret_cast<const typename VecOf<T, 2>::type*>(
+          p + i);
+      v[i] = a.x, v[i + 1] = a.y;
+    } else {
+      v[i] = p[i];
+    }
+  }
+}
+
+// V consecutive floats to p in one store (p aligned to 4 V bytes).
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// Whether p is a multiple of ``bytes`` (nullptr is).
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The widest chunk (4, 2 or 1 floats) that divides F and at which every
+// pointer given is aligned.
+template <typename... Ptrs>
+int chunk_width(int F, Ptrs... ptrs) {
+  int v = F % 4 == 0 ? 4 : F % 2 == 0 ? 2 : 1;
+  while (v > 1 && !(aligned(ptrs, 4u * v) && ...)) v /= 2;
+  return v;
 }
 
 // The padding rule of the column and relation-row sums (X8a at F = 1,

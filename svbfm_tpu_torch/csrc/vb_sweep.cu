@@ -43,52 +43,11 @@
 
 namespace {
 
-// V contiguous floats at p, read as V / W loads of W floats (W = 4, 2, 1:
-// p must be 4 W bytes aligned).
-template <int V, int W>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
-  static_assert(V % W == 0, "a whole number of loads");
-#pragma unroll
-  for (int i = 0; i < V; i += W) {
-    if constexpr (W == 4) {
-      const float4 a = *reinterpret_cast<const float4*>(p + i);
-      v[i] = a.x, v[i + 1] = a.y, v[i + 2] = a.z, v[i + 3] = a.w;
-    } else if constexpr (W == 2) {
-      const float2 a = *reinterpret_cast<const float2*>(p + i);
-      v[i] = a.x, v[i + 1] = a.y;
-    } else {
-      v[i] = p[i];
-    }
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
-
-__host__ __device__ constexpr int ceil_div(int a, int b) {
-  return (a + b - 1) / b;
-}
-
-bool aligned(const void* p, int floats) {
-  return reinterpret_cast<uintptr_t>(p) % (4u * floats) == 0;
-}
-
-// the widest chunk (4, 2 or 1 floats) that divides F and at which every
-// pointer given is aligned
-template <typename... Ptrs>
-int chunk_width(int F, Ptrs... ptrs) {
-  int v = F % 4 == 0 ? 4 : F % 2 == 0 ? 2 : 1;
-  while (v > 1 && !(aligned(ptrs, v) && ...)) v /= 2;
-  return v;
-}
+using svbfm::aligned;
+using svbfm::ceil_div;
+using svbfm::chunk_width;
+using svbfm::load_vec;
+using svbfm::store_vec;
 
 // ---- K2: q = sum_p mu x, tq = sum_p sig x^2, tz = sum_p mu^2 x^2 ----------
 // One thread per (row, factor), factor fastest: the table reads of one row
@@ -562,7 +521,7 @@ void patch_wide(const float* ptab, int CH, int F, int merge_w,
                 cudaStream_t stream) {
   int V = chunk_width(F, q, tq, tz);
   int W = V;
-  while (W > 1 && (CH % W != 0 || !aligned(ptab, W))) W /= 2;
+  while (W > 1 && (CH % W != 0 || !aligned(ptab, 4u * W))) W /= 2;
   if (W == 1) V = 1;  // chunks of 4 or 2 read in single floats: not built
   const int G = F / V;
   const int TPR = ceil_div(G, ceil_div(G, 32));

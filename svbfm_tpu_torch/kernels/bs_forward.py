@@ -2,7 +2,8 @@
 (``csrc/bs_forward.cu``).
 
 ``bs_rel_moments`` builds a relation's row moments (lin | qB | sB) [R, 1+2K]
-from the parameter table; ``bs_scores`` scores data rows from their main
+from the parameter table, lanes over the channels of a row
+(``moments_plan``); ``bs_scores`` scores data rows from their main
 row layout and each relation's moments at the joined row, never
 materialising the join; ``bs_resync`` carries a relation sweep's per-row
 deltas back to the data rows (e += sum dy[j] + sum qO dqB[j], q += dqB[j]),
@@ -36,6 +37,28 @@ _I32, _F32 = torch.int32, torch.float32
 
 
 # ---- the relation-row moments -------------------------------------------------
+
+class MomentsPlan(NamedTuple):
+    """How the moments kernel lays a relation's rows over a warp:
+    ``lanes`` lanes a row, lane l taking ``channels`` of its channels
+    (w | v) a pass, l, l + lanes, ...; ``rows`` rows a warp."""
+
+    lanes: int
+    channels: int
+    rows: int
+
+
+def moments_plan(K: int) -> MomentsPlan:
+    """The moments kernel's form at K factors
+    (``csrc/bs_forward.cu:moments_lanes``, ``svbfm_bs_rel_moments``): 3
+    channels a lane a pass, the next power of two >= (K + 1) / 3 lanes a
+    row, at most 32 (8 lanes and 4 rows a warp at K = 20)."""
+    need = -(-(K + 1) // 3)
+    G = 1
+    while G < need and G < 32:
+        G *= 2
+    return MomentsPlan(G, 3, 32 // G)
+
 
 def bs_rel_moments_plain(rids, rvals, stab, off: int, k1: bool = True):
     """[R, 1+2K] = (lin | qB | sB) over the relation's positions in order

@@ -20,7 +20,9 @@ noise table z [F, D] or None (ALS); ``nans`` an int32 [2] counter of the NaN
 and Inf draws.  MCMC's e is yhat - y.
 
 At F = 1 X8a's form (lanes a column, the width of its loads) is a
-function of the bucket's shape and alignment, ``col_draw_f1_plan``.
+function of the bucket's shape and alignment, ``col_draw_f1_plan``; X8b's
+(a thread a row at F = 1, else a row's factor chunks over lanes, several
+rows a warp) of F and the alignment of q and ptab, ``patch_plan``.
 
 ``mcmc_col_grad`` (X9d's v half) is X8a's gradient mode, the v columns of
 the full-batch exp_sgd: the same s0 = sum h e from the pre-bin e (here
@@ -110,6 +112,32 @@ def col_draw_f1_plan(rows, x) -> F1Plan:
     else:
         vec = 1
     return F1Plan(G, vec)
+
+
+class PatchPlan(NamedTuple):
+    """X8b's form: "rows" (F = 1, a thread a row) or "chunks" (F >= 2:
+    ``lanes`` lanes a row over chunks of ``vec`` factors, 16-, 8- or
+    4-byte loads of q and ptab); ``rows`` rows a warp."""
+    form: str
+    vec: int
+    lanes: int
+    rows: int
+
+
+def patch_plan(ptab, F: int, q) -> PatchPlan:
+    """X8b's form for its ptab [D, 2F] and q [N, F]
+    (``csrc/mcmc_sweep.cu:svbfm_mcmc_patch_rows``): at F >= 2 the widest
+    of 4, 2, 1 factors a chunk that divides F and to whose size both bases
+    are aligned, min(F / vec, 32) lanes a row and 32 // lanes rows a warp
+    (5 lanes and 6 rows at F = 20)."""
+    if F == 1:
+        return PatchPlan("rows", 1, 1, 32)
+    vec = 4 if F % 4 == 0 else 2 if F % 2 == 0 else 1
+    a = q.data_ptr() | ptab.data_ptr()
+    while vec > 1 and a % (4 * vec):
+        vec //= 2
+    lanes = min(F // vec, 32)
+    return PatchPlan("chunks", vec, lanes, 32 // lanes)
 
 
 def _draw_mean(she, sh2, v_c, mu_g, lam_g, alpha, z):
@@ -326,7 +354,7 @@ def mcmc_patch_rows(ptab, F: int, ids, vals, q, e) -> None:
     req(vals, _F32, (N, P), dev, "mcmc_patch_rows.vals")
     req(q, _F32, (N, F), dev, "mcmc_patch_rows.q")
     req(e, _F32, (N,), dev, "mcmc_patch_rows.e")
-    if N == 0 or F == 0:
+    if N == 0 or F == 0 or P == 0:
         return
     lib = build.load_library("mcmc_sweep")
     with torch.cuda.device(dev):

@@ -789,3 +789,90 @@ def test_resync_plan_of_reads_the_tensors():
         assert p == kf.resync_plan(F, rtab.stride(0), dict(
             join=join.data_ptr(), dy=t[0].data_ptr(), qB1=t[1].data_ptr(),
             qB0=t[2].data_ptr(), q=t[3].data_ptr(), e=t[4].data_ptr()))
+
+
+# ---------------------------------------------------------------------------
+# The relation-row moments (X10d)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K,G,ch", [
+    (0, 1, 3), (2, 1, 3), (3, 2, 3), (5, 2, 3), (7, 4, 3), (15, 8, 3),
+    (16, 8, 3), (20, 8, 3), (33, 16, 3), (64, 32, 3), (127, 32, 3),
+    (200, 32, 3)])
+def test_moments_plan_covers_every_channel_once(K, G, ch):
+    """The moments kernel's form (csrc/bs_forward.cu:moments_lanes,
+    svbfm_bs_rel_moments): 3 channels a lane a pass, the next power of two
+    >= (K + 1) / 3 lanes a row, at most 32.  Walking its launch (32 / G
+    rows a warp, lane l of a row on channels l, l + G, ..., ch a pass) over
+    a ragged R reaches every (row, channel) once."""
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    assert tuple(kf.moments_plan(K)) == (G, ch, 32 // G)
+    R, C = 37, K + 1
+    rpw = 32 // G
+    seen = []
+    for w in range(-(-R // rpw)):
+        for lane in range(32):
+            slot, gl = divmod(lane, G)
+            rho = w * rpw + slot
+            if rho < R:
+                for c0 in range(0, C, ch * G):
+                    seen += [(rho, c) for i in range(ch)
+                             if (c := c0 + gl + G * i) < C]
+    assert sorted(seen) == [(r, c) for r in range(R) for c in range(C)]
+
+
+@pytest.mark.parametrize("k1", [True, False])
+@pytest.mark.parametrize("K,Pr", [(0, 3), (1, 1), (5, 21), (20, 21),
+                                  (33, 40)])
+def test_moments_twin_is_the_float64_sum(K, Pr, k1):
+    """bs_rel_moments_plain, the moments kernel's twin: (lin | qB | sB) of
+    each relation row over its positions, padding entries (x = 0) among
+    them, equal to a float64 numpy sum; lin is 0 without k1."""
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    rng = np.random.default_rng(10 * K + Pr)
+    R, Dr, off = 13, 17, 4
+    stab = rng.normal(0, 1, (off + Dr + 2, K + 1)).astype(np.float32)
+    rids = rng.integers(0, Dr, (R, Pr)).astype(np.int32)
+    rvals = rng.uniform(-1, 2, (R, Pr)).astype(np.float32)
+    rvals[::3, -1] = 0.0
+    got = kf.bs_rel_moments_plain(torch.from_numpy(rids),
+                                  torch.from_numpy(rvals),
+                                  torch.from_numpy(stab), off, k1).numpy()
+    d = stab.astype(np.float64)[off + rids] * rvals[..., None]  # [R, Pr, C]
+    lin = d[..., 0].sum(1) if k1 else np.zeros(R)
+    want = np.concatenate([lin[:, None], d[..., 1:].sum(1),
+                           (d[..., 1:] ** 2).sum(1)], 1)
+    assert got.shape == (R, 1 + 2 * K)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if not k1:
+        assert (got[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["wide=6", "empty main, two relations"])
+def test_moments_qb_matches_jax_qb_pre(case):
+    """The moments' qB channels, which the port's v sweep takes as qB_pre
+    (learners/mcmc_bs.py), against the JAX sweep's qB_pre loop
+    (svbfm_tpu/learners/mcmc_bs.py:700-708) from the JAX learner's
+    initial state, relation by relation."""
+    import jax.numpy as jnp
+
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    K = 3
+    jl, tl = _pair(False, K=K, **SCORE_CASES[case])
+    js, ts = _start(jl)
+    stab = tbs.param_table(ts.w, ts.v, True)
+    for jrd, jrs, rd, rs in zip(jl.rels, jl.rstats, tl.rels, tl.rstats):
+        v_r = jax.lax.dynamic_slice_in_dim(js.v, jrs.attr_offset,
+                                           jrs.num_attrs, axis=1)
+        qB = jnp.zeros((K, jrs.num_rows), js.v.dtype)
+        for p in range(jrd.rrow_ids.shape[1]):
+            qB = qB + (jnp.take(v_r, jrd.rrow_ids[:, p], axis=-1)
+                       * jrd.rrow_vals[:, p][None])
+        got = kf.bs_rel_moments_plain(rd.rrow_ids, rd.rrow_vals, stab,
+                                      rs.attr_offset)[:, 1:1 + K]
+        np.testing.assert_allclose(got.numpy().T, np.asarray(qB), rtol=1e-6,
+                                   atol=1e-7)

@@ -672,6 +672,97 @@ def test_patch_rows_wide_matches_twin(cuda, F, N, P, sequential, merge_w):
     _patch_case(cuda, F, N, P, sequential, merge_w)
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("N", [1, 257, 1000])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("F", [2, 3, 5, 20, 33, 64])
+def test_mcmc_patch_rows_wide_matches_twin(cuda, F, P, N, aligned):
+    """X8b at F >= 2 (a row's factor chunks over lanes, several rows a
+    warp), in both its builds (P = 2 unrolled, P = 1 and 3 at any P):
+    chunks of 4 factors (F = 20, 64), 2 (F = 2) and 1 (F = 3, 5,
+    33: 32 lanes, the first taking chunks 0 and 32), and with q one float
+    past a 16-byte boundary, where the 4- and 2-wide forms must give way;
+    one row and a ragged last warp and block; padding entries (id 0, x 0)
+    and a NaN dv at attribute 7, which row 0 holds.  Against the twin, the
+    launch counted, two launches the same bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
+    rng = np.random.default_rng(1000 * F + 10 * N + P)
+    D = 30
+    ids = rng.integers(1, D, (N, P))
+    vals = rng.uniform(0.5, 1.5, (N, P))
+    if P > 1:
+        ids[1::2, -1], vals[1::2, -1] = 0, 0.0
+    ids[0, 0] = 7
+    ptab = rng.normal(0, 0.3, (D, 2 * F))
+    ptab[7, F] = np.nan
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(cuda)
+
+    ids_t, vals_t, ptab_t = t(ids, torch.int32), t(vals), t(ptab)
+    q = torch.from_numpy(rng.normal(0, 1, (N, F)).astype(np.float32))
+    e = torch.from_numpy(rng.normal(0, 1, N).astype(np.float32))
+    before = build.launch_counts["mcmc_patch_rows"]
+    outs = []
+    for fn in (km.mcmc_patch_rows, km.mcmc_patch_rows,
+               km.mcmc_patch_rows_plain):
+        qr, er = _offset_view(q, aligned, cuda), e.to(cuda)
+        fn(ptab_t, F, ids_t, vals_t, qr, er)
+        outs.append([qr, er])
+    torch.cuda.synchronize()
+    assert build.launch_counts["mcmc_patch_rows"] == before + 2
+    p = km.patch_plan(ptab_t, F, outs[0][0])
+    assert p.form == "chunks" and (aligned or p.vec == 1)
+    what = f"mcmc_patch_rows F={F} N={N} P={P} aligned={aligned} {p}"
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    chip_smoke.compare(outs[0], outs[2], what)
+    assert torch.isnan(outs[0][1][0]).item()
+
+
+@pytest.mark.parametrize("k1", [True, False])
+@pytest.mark.parametrize("R", [1, 301])
+@pytest.mark.parametrize("Pr", [1, 21, 40])
+@pytest.mark.parametrize("K", [0, 1, 5, 15, 20, 33, 130])
+def test_rel_moments_match_twin(cuda, K, Pr, R, k1):
+    """X10d's moments (lanes over the channels of (w | v), lin in the same
+    pass, three channels a lane: 1 lane a row at K <= 2, 2 at K = 5, 8 at
+    K = 15 and 20, 16 at K = 33, 32 in two passes at K = 130)
+    against their twin: R = 1 and a ragged R, one position, 21 and 40
+    (several rounds of positions), padding entries (x = 0), k1 on and off
+    (lin 0), a NaN stab row that row 0 holds; the launch counted, a second
+    launch into a NaN-filled ``out`` gives the same bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    g = torch.Generator().manual_seed(100 * K + 10 * Pr + R)
+    Dr, off = 45, 6
+    stab = torch.randn(off + Dr + 3, K + 1, generator=g)
+    stab[off + 5] = float("nan")
+    rids = torch.randint(0, Dr, (R, Pr), generator=g, dtype=torch.int32)
+    rvals = torch.rand(R, Pr, generator=g) + 0.5
+    if Pr > 1:
+        rvals[::4, -1] = 0.0
+    rids[0, 0] = 5
+    args = (rids.to(cuda), rvals.to(cuda), stab.to(cuda), off, k1)
+    before = build.launch_counts["bs_rel_moments"]
+    first = kf.bs_rel_moments(*args)
+    out = torch.full_like(first, float("nan"))
+    again = kf.bs_rel_moments(*args, out=out)
+    plain = kf.bs_rel_moments_plain(*args)
+    torch.cuda.synchronize()
+    assert again is out
+    assert build.launch_counts["bs_rel_moments"] == before + 2
+    what = f"bs_rel_moments K={K} Pr={Pr} R={R} k1={k1}"
+    assert torch.equal(first.view(torch.int32), out.view(torch.int32)), what
+    chip_smoke.compare([first], [plain], what)
+    assert torch.isnan(first[0, 1:]).all()
+    if not k1:
+        assert (first[:, 0] == 0).all()
+
+
 def _patch_case(cuda, F, N, P, sequential, merge_w):
     import chip_smoke
     from svbfm_tpu_torch.kernels import vb_sweep as kv

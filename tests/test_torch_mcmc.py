@@ -572,3 +572,46 @@ def test_col_draw_f1_plan_reads_the_alignment(shift, L, vec):
     x = torch.zeros(C, L)
     assert x.data_ptr() % 16 == 0 and buf.data_ptr() % 16 == 0
     assert km.col_draw_f1_plan(rows, x) == (km.col_draw_f1_lanes(C, L), vec)
+
+
+@pytest.mark.parametrize("F,q_shift,p_shift,plan", [
+    (1, 0, 0, ("rows", 1, 1, 32)),
+    (20, 0, 0, ("chunks", 4, 5, 6)),
+    (20, 1, 0, ("chunks", 1, 20, 1)),
+    (20, 2, 0, ("chunks", 2, 10, 3)),
+    (20, 0, 2, ("chunks", 2, 10, 3)),
+    (20, 0, 1, ("chunks", 1, 20, 1)),
+    (2, 0, 0, ("chunks", 2, 1, 32)),
+    (3, 0, 0, ("chunks", 1, 3, 10)),
+    (5, 0, 0, ("chunks", 1, 5, 6)),
+    (33, 0, 0, ("chunks", 1, 32, 1)),
+    (64, 0, 0, ("chunks", 4, 16, 2)),
+    (64, 1, 0, ("chunks", 1, 32, 1)),
+    (136, 0, 0, ("chunks", 4, 32, 1))])
+def test_patch_plan_is_the_cu_rule(F, q_shift, p_shift, plan):
+    """X8b's form (csrc/mcmc_sweep.cu:svbfm_mcmc_patch_rows): a thread a
+    row at F = 1; at F >= 2 chunks of the widest of 4, 2, 1 factors that
+    divides F and to whose size the bases of q and ptab are aligned (q or
+    ptab one or two floats past a 16-byte boundary narrows them),
+    min(F / vec, 32) lanes a row, 32 // lanes rows a warp.  Walking the
+    launch over a ragged N reaches every (row, chunk) once."""
+    N, D = 53, 7
+
+    def view(shape, shift):
+        buf = torch.zeros(shape[0] * shape[1] + shift)
+        assert buf.data_ptr() % 16 == 0
+        return buf[shift:].view(shape)
+
+    p = km.patch_plan(view((D, 2 * F), p_shift), F, view((N, F), q_shift))
+    assert tuple(p) == plan
+    if p.form == "rows":
+        return
+    G = F // p.vec
+    seen = []
+    for w in range(-(-N // p.rows)):
+        for lane in range(32):
+            slot, j = divmod(lane, p.lanes)
+            n = w * p.rows + slot
+            if slot < p.rows and n < N:
+                seen += [(n, ch) for ch in range(j, G, p.lanes)]
+    assert sorted(seen) == [(n, ch) for n in range(N) for ch in range(G)]
