@@ -504,24 +504,48 @@ def make_cases(s: dict):
         return cost(rows_bytes(ids) + ptab.numel() * 4 + N * F * 24 + N * 16,
                     N * P * F * 20)
 
-    if "stab" in s:  # K1: scores (test eval, OVB chunk e) and T-terms
-        def k1_scores(variant, _):
-            fn = k1.fm_scores_op if variant == "kernel" else k1.fm_scores_plain
-            return [fn(s["stab"], s["w0"], s["eval_ids"], s["eval_vals"])]
+    if "stab" in s:  # K1: scores (test eval, train rows, OVB chunk e;
+        # SGD's own table) and T-terms, on the tables ops/forward.py builds
+        def table_bytes(tab):  # the channels read, not the row's padding
+            return tab.shape[0] * tab.shape[1] * 4
 
-        def k1_tterms(variant, _):
-            fn = k1.fm_t_terms_op if variant == "kernel" else k1.fm_t_terms_plain
-            return [fn(s["ttab"], s["s0"], s["ids"], s["vals"])]
+        def k1_call(kernel, plain, tab, scalar, ids, vals):
+            def call(variant, _):
+                fn = kernel if variant == "kernel" else plain
+                return [fn(tab, scalar, ids, vals)]
+            return call
 
-        Ne, Pe = s["eval_ids"].shape
+        def k1_library(tab, ids, vals):  # sum x (w | v) alone, no pairs
+            ids64, dense = ids.long(), tab.contiguous()
+            return lambda: torch.nn.functional.embedding_bag(
+                ids64, dense, per_sample_weights=vals, mode="sum")
+
+        def k1_note(tab, K, ids):
+            return plan_note(k1, "fm_plan", (tab, K, ids.shape[1]),
+                             ("vec", "lanes", "rows", "build"))
+
         K = s["stab"].shape[1] - 1
-        add("fm_scores", f"scores N={Ne}", nothing, k1_scores,
-            cost(rows_bytes(s["eval_ids"]) + s["stab"].numel() * 4 + Ne * 4,
-                 Ne * Pe * (4 * K + 2) + 2 * Ne * K))
+        scores = [("scores", s["stab"], s["eval_ids"], s["eval_vals"])]
+        if s.get("train_scores"):  # Gibbs/ALS/exp_sgd's re-score
+            scores.append(("scores train", s["stab"], s["ids"], s["vals"]))
+        if "sgd_stab" in s:  # the SGD family's [D, 1+K] parameter table
+            scores.append(("scores sgd-table", s["sgd_stab"], s["eval_ids"],
+                           s["eval_vals"]))
+        for label, tab, ids, vals in scores:
+            N, P = ids.shape
+            add("fm_scores", f"{label} N={N}", nothing,
+                k1_call(k1.fm_scores_op, k1.fm_scores_plain, tab, s["w0"],
+                        ids, vals),
+                cost(rows_bytes(ids) + table_bytes(tab) + N * 4,
+                     N * P * (4 * K + 2) + 2 * N * K,
+                     k1_library(tab, ids, vals), note=k1_note(tab, K, ids)))
         N, P = s["ids"].shape
-        add("fm_t_terms", f"t-terms N={N}", nothing, k1_tterms,
-            cost(rows_bytes(s["ids"]) + s["ttab"].numel() * 4 + N * 4,
-                 N * P * (9 * K + 2) + 4 * N * K))
+        add("fm_t_terms", f"t-terms N={N}", nothing,
+            k1_call(k1.fm_t_terms_op, k1.fm_t_terms_plain, s["ttab"],
+                    s["s0"], s["ids"], s["vals"]),
+            cost(rows_bytes(s["ids"]) + table_bytes(s["ttab"]) + N * 4,
+                 N * P * (9 * K + 2) + 4 * N * K,
+                 note=k1_note(s["ttab"], K, s["ids"])))
 
     if "buckets" in s:  # batch VB, fast mode (all K factors in one block)
         F = s["F"]
@@ -1184,6 +1208,7 @@ def fast_tensors(learner, state) -> dict:
     and K4 at F = 1."""
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.kernels import w_sweep as kw
+    from svbfm_tpu_torch.ops.forward import score_table, t_term_table
 
     plan = learner.plan_data
     D, F = learner.cfg.num_attributes, learner.cfg.num_factor
@@ -1194,12 +1219,13 @@ def fast_tensors(learner, state) -> dict:
     ptab[:, :F], ptab[:, F:2 * F] = mu_t, sig_t
     row = learner.train_row
     q, tq, tz = kv.vb_build_qt_plain(ptab, F, row.ids, row.vals)
+    stab = score_table(state.mu_w, state.mu_v)
     s = dict(
-        tag="vb", F=F, D=D, w0=state.mu_0, s0=state.sigma_0_dash,
-        stab=torch.cat([state.mu_w[:, None], mu_t], 1).contiguous(),
-        ttab=torch.cat([state.sigma_w_dash[:, None], mu_t, sig_t],
-                       1).contiguous(),
-        ids=row.ids, vals=row.vals, eval_ids=learner.test_row.ids,
+        tag="vb", F=F, D=D, w0=state.mu_0, s0=state.sigma_0_dash, stab=stab,
+        ttab=t_term_table(state.sigma_w_dash, state.mu_v,
+                          state.sigma_v_dash),
+        train_scores=True, sgd_stab=stab.contiguous(), ids=row.ids,
+        vals=row.vals, eval_ids=learner.test_row.ids,
         eval_vals=learner.test_row.vals, mu_t=mu_t, sig_t=sig_t, ptab=ptab,
         mu_w=state.mu_w.clone(), sig_w=state.sigma_w_dash.clone(),
         sigma_w=state.sigma_w, w_sigma_w=state.sigma_w,
@@ -1256,7 +1282,8 @@ def ovb_tensors(learner, state) -> dict:
     from svbfm_tpu_torch.kernels import ovb_sweep as ko
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.kernels import w_sweep as kw
-    from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
+    from svbfm_tpu_torch.ops.forward import (fm_scores, fm_t_terms,
+                                             score_table, t_term_table)
 
     cfg = learner.cfg
     row, bins = learner.chunks[0]
@@ -1268,14 +1295,12 @@ def ovb_tensors(learner, state) -> dict:
     t = fm_t_terms(state.sigma_0_dash, state.sigma_w_dash, state.mu_v,
                    state.sigma_v_dash, row.ids, row.vals)
     big = [max(bb, key=lambda b: b.rows.numel()) for bb in blocks]
-    mu_t = state.mu_v.T.contiguous()
     s = dict(
         tag="ovb-chunk", D=D, ovb=True, ids=row.ids, vals=row.vals, e=e, t=t,
         w0=state.mu_0, s0=state.sigma_0_dash, eval_ids=row.ids,
-        eval_vals=row.vals,
-        stab=torch.cat([state.mu_w[:, None], mu_t], 1).contiguous(),
-        ttab=torch.cat([state.sigma_w_dash[:, None], mu_t,
-                        state.sigma_v_dash.T], 1).contiguous(),
+        eval_vals=row.vals, stab=score_table(state.mu_w, state.mu_v),
+        ttab=t_term_table(state.sigma_w_dash, state.mu_v,
+                          state.sigma_v_dash),
         alpha=state.alpha, mu_w=state.mu_w.clone(),
         sig_w=state.sigma_w_dash.clone(), n_mu_w=state.n_mu_w.clone(),
         n_sig_w=state.n_sig_w.clone(), t_wj=state.t_wj.clone(),

@@ -1,7 +1,7 @@
 """Time one family of the port's kernels on the card and profile the paths
 that launch them, for one checkout.
 
-    python3 kernel_times.py {bs,mcmc,sgd} [--tree DIR] [--label NAME]
+    python3 kernel_times.py {bs,forward,mcmc,sgd} [--tree DIR] [--label NAME]
 
 Runs the kernels and learners of the checkout at ``--tree`` (default: the
 one holding this script) on the inputs ``chip_smoke.py`` (of this script's
@@ -21,6 +21,14 @@ graph replay of 20 calls, then the family's profiles:
   ``chip_smoke.profile_run`` of one blocked Gibbs sweep and of one
   factor-sequential sweep (factor_block 1), twice each, with X10a's,
   X10c's, the resync's and the moments' device time.
+- ``forward``: K1a (the FM score) on the 1,000,022 train rows of the
+  ML-1M recipe (``bench.py``; the Gibbs/ALS/exp_sgd re-score), the 99,978
+  test rows (every path's eval), OVB's first chunk of 50,002 rows, and the
+  test rows on the SGD family's own [D, 1+K] table; K1b (the T-terms) on
+  the train rows (VB's init) and the OVB chunk; each on the tables the
+  checkout's ``ops/forward.py`` builds from seeded parameters, with its
+  form; and ``profile_run`` of one Gibbs sweep, one VB fast-mode sweep
+  and one OVB epoch, twice each, with K1's device time and share.
 - ``mcmc``: X8a at F = 1 on every degree bucket of the ML-1M recipe
   (``bench.py``), in the Gibbs draw mode (with a noise table) and in
   exp_sgd's gradient mode, each with its form; X8b at F = 20 on the
@@ -52,6 +60,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FAMILIES = {
     "bs": (("bs_sweep", "bs_forward"),
            ("join_agg", "patch", "resync", "moments")),
+    "forward": (("fm_forward",), ("fm_",)),
     "mcmc": (("mcmc_sweep",), ("col_draw_f1", "row_patch")),
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
 }
@@ -103,7 +112,8 @@ def main() -> int:
 
     one = torch.zeros(1, device=dev)
     line("launch floor (zero_ of one element)", one.zero_)
-    family = {"bs": bs_family, "mcmc": mcmc_family, "sgd": sgd_family}
+    family = {"bs": bs_family, "forward": forward_family,
+              "mcmc": mcmc_family, "sgd": sgd_family}
     family[a.family](cs, build, dev, tag, line)
     return 0
 
@@ -140,6 +150,68 @@ def bs_family(cs, build, dev, tag, line) -> None:
             cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
                            1, "sweep", f"{tag} {path}-profile",
                            focus=cs.BS_FOCUS)
+
+
+def forward_family(cs, build, dev, tag, line) -> None:
+    import numpy as np
+    import torch
+
+    from svbfm_tpu_torch.kernels import fm_forward as k1
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.mcmc import MCMCLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+    from svbfm_tpu_torch.ops import forward as fwd
+
+    tr, te, train, test, meta = cs.ml_data(cs.NUM_TRAIN)
+    D, K = tr.num_features, cs.K
+    base = dict(num_attributes=D, num_factor=K,
+                min_target=float(tr.target.min()),
+                max_target=float(tr.target.max()),
+                num_groups=meta.num_attr_groups, seed=cs.SEED)
+    gibbs = MCMCLearner(FMConfig(factor_block=0, **base), train, test, meta,
+                        device=dev, write_files=False)
+    vb = VBLearner(FMConfig(factor_block=0, **base), train, test, meta,
+                   device=dev, write_files=False)
+    ovb = OVBLearner(FMConfig(num_batches=cs.OVB_CHUNKS, **base), train,
+                     test, meta, device=dev, write_files=False)
+    rng = np.random.default_rng(cs.SEED)
+
+    def t(*shape, lo=None):
+        a = (rng.uniform(lo, 2 * lo, shape) if lo else
+             rng.normal(0, 0.3, shape))
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    w, v, sw, sv = t(D), t(K, D), t(D, lo=0.01), t(K, D, lo=0.01)
+    if hasattr(fwd, "score_table"):  # the padded tables
+        stab, ttab = fwd.score_table(w, v), fwd.t_term_table(sw, v, sv)
+    else:
+        stab = torch.cat([w[:, None], v.T], 1).contiguous()
+        ttab = torch.cat([sw[:, None], v.T, sv.T], 1).contiguous()
+    sgd_tab = torch.cat([w[:, None], v.T], 1).contiguous()
+    w0 = torch.tensor(0.3, device=dev)
+    s0 = torch.tensor(0.02, device=dev)
+    chunk = ovb.chunks[0][0]
+    for name, op, tab, scalar, label, row in (
+            ("K1a", k1.fm_scores_op, stab, w0, "train", gibbs.train_row),
+            ("K1a", k1.fm_scores_op, stab, w0, "eval", gibbs.test_row),
+            ("K1a", k1.fm_scores_op, stab, w0, "ovb-chunk", chunk),
+            ("K1a", k1.fm_scores_op, sgd_tab, w0, "sgd-table eval",
+             gibbs.test_row),
+            ("K1b", k1.fm_t_terms_op, ttab, s0, "train", gibbs.train_row),
+            ("K1b", k1.fm_t_terms_op, ttab, s0, "ovb-chunk", chunk)):
+        N, P = row.ids.shape
+        note = cs.plan_note(k1, "fm_plan", (tab, K, P),
+                            ("vec", "lanes", "rows", "build"))
+        line(f"{name} {label} N={N} stride={tab.stride(0)} {note}",
+             lambda: op(tab, scalar, row.ids, row.vals))
+
+    for path, lr, unit in (("mcmc", gibbs, "sweep"), ("vb", vb, "sweep"),
+                           ("ovb", ovb, "epoch")):
+        state, _ = lr.run(num_iter=1, verbose=False)
+        for _ in range(2):
+            cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
+                           1, unit, f"{tag} {path}-profile", focus=("fm_",))
 
 
 def mcmc_family(cs, build, dev, tag, line) -> None:

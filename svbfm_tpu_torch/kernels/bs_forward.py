@@ -234,18 +234,6 @@ def bs_resync_plain(join, F: int, dy, qB1, qB0, q, e) -> None:
         e += de
 
 
-def _rows(t, shape, dev, name) -> int:
-    """A [R, F] view with unit column stride; returns its row stride."""
-    if t.device != dev or t.dtype != _F32:
-        raise ValueError(f"{name}: {t.dtype} on {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if shape[1] > 1 and t.stride(1) != 1:
-        raise ValueError(f"{name}: columns must be adjacent")
-    return t.stride(0)
-
-
 def bs_resync(join, F: int, dy, qB1, qB0, q, e) -> None:
     if build.on_cpu(join):
         return bs_resync_plain(join, F, dy, qB1, qB0, q, e)
@@ -257,7 +245,8 @@ def bs_resync(join, F: int, dy, qB1, qB0, q, e) -> None:
     if dy is not None:
         req(dy, _F32, (dy.shape[0], F), dev, "bs_resync.dy")
     if qB1 is not None:
-        ld1 = _rows(qB1, (qB1.shape[0], F), dev, "bs_resync.qB1")
+        ld1 = build.require_rows(qB1, _F32, (qB1.shape[0], F), dev,
+                                 "bs_resync.qB1")
     if qB0 is not None:
         req(qB0, _F32, (qB0.shape[0], F), dev, "bs_resync.qB0")
     if q is not None:

@@ -52,8 +52,8 @@ LIBRARIES = {
 # I: int, L: int64, F: float); every one returns cudaGetLastError() as an int
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
-    "svbfm_fm_scores": (_P, _I, _P, _P, _P, _L, _I, _P, _P),
-    "svbfm_fm_t_terms": (_P, _I, _P, _P, _P, _L, _I, _P, _P),
+    "svbfm_fm_scores": (_P, _L, _I, _P, _P, _P, _L, _I, _P, _P),
+    "svbfm_fm_t_terms": (_P, _L, _I, _P, _P, _P, _L, _I, _P, _P),
     "svbfm_vb_build_qt": (_P, _L, _I, _P, _P, _L, _I, _P, _P, _P, _P),
     "svbfm_vb_col_stats_update": (
         _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
@@ -240,8 +240,7 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def require(t, dtype, shape, device, name: str) -> None:
-    """Validate a tensor handed to a kernel: device, dtype, shape, layout."""
+def _require_kind(t, dtype, shape, device, name: str) -> None:
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -249,8 +248,25 @@ def require(t, dtype, shape, device, name: str) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+
+
+def require(t, dtype, shape, device, name: str) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, shape, layout."""
+    _require_kind(t, dtype, shape, device, name)
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def require_rows(t, dtype, shape, device, name: str) -> int:
+    """Validate a [R, C] table handed to a kernel as rows at a row stride
+    (a view of a wider table): device, dtype, shape, adjacent columns, a
+    row stride of at least C.  Returns the row stride."""
+    _require_kind(t, dtype, shape, device, name)
+    R, C = shape
+    if (C > 1 and t.stride(1) != 1) or (R > 1 and t.stride(0) < C):
+        raise ValueError(f"{name}: rows must be contiguous, at a stride of "
+                         f"at least {C} (got {t.stride()})")
+    return t.stride(0)
 
 
 def on_cpu(t) -> bool:

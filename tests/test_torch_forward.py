@@ -102,3 +102,117 @@ def test_other_devices_raise():
     meta = _t(ids).to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         k1.fm_scores_op(_t(p["w"]), _t(p["w0"]), meta, _t(vals))
+
+
+@pytest.mark.parametrize("k0,k1", [(True, True), (False, True),
+                                   (True, False), (False, False)])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("K", [0, 1, 4, 5, 20])
+def test_padded_tables_match_jax(K, P, k0, k1):
+    """The tables ops/forward.py builds for K1 (three pad floats ahead of
+    each row, the stride a multiple of 4 floats, the factor channels at
+    16-byte addresses) hold the channels and
+    zeros elsewhere, and the twins read at that stride give
+    svbfm_tpu.ops.forward's scores and T-terms on seeded inputs (rtol
+    1e-5, atol 1e-6, as above)."""
+    ids, vals, _, p = _inputs(seed=10 * K + P, N=50, P=P, D=23, K=K)
+    stab = tfwd.score_table(_t(p["w"]), _t(p["v"]), k1)
+    ttab = tfwd.t_term_table(_t(p["sw"]), _t(p["v"]), _t(p["sv"]), k1)
+    zero_w = np.zeros_like(p["w"])
+    want_s = np.concatenate([(p["w"] if k1 else zero_w)[:, None], p["v"].T],
+                            1)
+    want_t = np.concatenate([(p["sw"] if k1 else zero_w)[:, None], p["v"].T,
+                             p["sv"].T], 1)
+    for tab, want in ((stab, want_s), (ttab, want_t)):
+        np.testing.assert_array_equal(tab.numpy(), want)
+        ld = tab.stride(0)
+        assert ld % 4 == 0 and (tab.data_ptr() + 4) % 16 == 0
+        assert ld == -(-(3 + tab.shape[1]) // 4) * 4
+        buf = torch.as_strided(tab, (tab.shape[0], ld), (ld, 1),
+                               tab.storage_offset() - 3)
+        pad = torch.ones(ld, dtype=torch.bool)
+        pad[3:3 + tab.shape[1]] = False
+        assert not buf[:, pad].any()
+    got_s = tfwd.fm_scores(_t(p["w0"]), _t(p["w"]), _t(p["v"]), _t(ids),
+                           _t(vals), k0=k0, k1=k1).numpy()
+    got_t = tfwd.fm_t_terms(_t(p["s0"]), _t(p["sw"]), _t(p["v"]), _t(p["sv"]),
+                            _t(ids), _t(vals), k0=k0, k1=k1).numpy()
+    ref_s = np.asarray(jfwd.fm_scores(p["w0"], p["w"], p["v"], jnp.asarray(ids),
+                                      jnp.asarray(vals), k0=k0, k1=k1))
+    ref_t = np.asarray(jfwd.fm_t_terms(p["s0"], p["sw"], p["v"], p["sv"],
+                                       jnp.asarray(ids), jnp.asarray(vals),
+                                       k0=k0, k1=k1))
+    np.testing.assert_allclose(got_s, ref_s, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got_t, ref_t, rtol=RTOL, atol=ATOL)
+    # the twins give the same at the padded stride as on a contiguous copy
+    from svbfm_tpu_torch.kernels.fm_forward import (fm_scores_plain,
+                                                    fm_t_terms_plain)
+
+    w0 = _t(np.float32(p["w0"] if k0 else 0.0))
+    for plain, tab in ((fm_scores_plain, stab), (fm_t_terms_plain, ttab)):
+        torch.testing.assert_close(plain(tab, w0, _t(ids), _t(vals)),
+                                   plain(tab.contiguous(), w0, _t(ids),
+                                         _t(vals)), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("K,width,shift,P,plan", [
+    (20, "padded", 0, 2, (4, 5, 6, "p2")),
+    (20, "padded", 0, 3, (4, 5, 6, "any")),
+    (20, "sgd", 0, 2, (1, 5, 6, "p2")),      # stride 21, base + 1 at 4 bytes
+    (20, "padded", 1, 2, (1, 5, 6, "p2")),   # the view one float on
+    (20, "padded", 2, 2, (1, 5, 6, "p2")),
+    (0, "sgd", 0, 1, (1, 1, 32, "any")),
+    (1, "padded", 0, 2, (1, 1, 32, "p2")),
+    (2, "padded", 0, 2, (1, 1, 32, "p2")),
+    (4, "padded", 0, 7, (4, 1, 32, "any")),
+    (5, "padded", 0, 2, (1, 2, 16, "p2")),
+    (8, "sgd", 0, 2, (1, 2, 16, "p2")),
+    (21, "padded", 0, 2, (1, 6, 5, "p2")),
+    (33, "padded", 0, 2, (1, 9, 3, "p2")),
+    (64, "padded", 0, 1, (4, 16, 2, "any")),
+    (128, "padded", 0, 2, (4, 32, 1, "p2")),
+    (130, "padded", 0, 2, (1, 32, 1, "p2"))])
+@pytest.mark.parametrize("tterms", [False, True])
+def test_fm_plan_is_the_cu_rule(K, width, shift, P, plan, tterms):
+    """K1's form (csrc/fm_forward.cu:load_width, row_lanes): 16-byte
+    loads where K and the row stride are multiples of 4 and tab + 1 is
+    16-byte aligned, else 4-byte loads; min(ceil(K / 4), 32) lanes a row
+    (1 at K = 0), 32 // lanes rows a warp, the P = 2 build for rows of two
+    positions.  The padded table one or two floats on (``shift``), K not a
+    multiple of 4 and SGD's contiguous [D, 1+K] take 4-byte loads.
+    Walking the launch over a ragged N reaches every (row, chunk) once,
+    and the linear channel of each row on one lane."""
+    D, N = 7, 53
+    C = 1 + (2 if tterms else 1) * K
+    if width == "sgd":
+        buf = torch.zeros(D * C + 4)
+        assert buf.data_ptr() % 16 == 0
+        tab = buf[:D * C].view(D, C)
+    else:
+        ld = -(-(3 + C) // 4) * 4
+        buf = torch.zeros(D * ld + 8)
+        assert buf.data_ptr() % 16 == 0
+        tab = buf[shift:shift + D * ld].view(D, ld)[:, 3:3 + C]
+    p = k1.fm_plan(tab, K, P)
+    assert tuple(p) == plan
+    G = -(-K // 4)
+    warps = -(-N // p.rows)
+    blocks = -(-warps * 32 // 128)  # csrc/fm_forward.cu kThreads
+    seen, lin = [], []
+    for w in range(blocks * 4):
+        if w * p.rows >= N:
+            continue
+        for lane in range(32):
+            slot, j = divmod(lane, p.lanes)
+            n = w * p.rows + slot
+            if slot >= p.rows or n >= N:
+                continue
+            ch = j
+            while ch < G or ch == 0:
+                if ch < G:
+                    seen.append((n, ch))
+                if ch == 0:
+                    lin.append(n)
+                ch += 32
+    assert sorted(seen) == [(n, c) for n in range(N) for c in range(G)]
+    assert sorted(lin) == list(range(N))

@@ -133,16 +133,20 @@ def test_mcmc_kernels_match_twins_on_ragged_case(cuda, kernel):
                                             or "als" in label) else 1)
 
 
+@pytest.mark.parametrize("K", [5, 20], ids=lambda K: f"K{K}")
 @pytest.mark.parametrize("als,factor_block", [(False, 0), (False, 1),
                                               (True, 1), (True, 2)])
-def test_mcmc_learner_on_gpu_matches_cpu(cuda, als, factor_block):
+def test_mcmc_learner_on_gpu_matches_cpu(cuda, als, factor_block, K):
+    """Gibbs and ALS, 3 sweeps from one host-made init and host-drawn
+    numbers on the card and on the CPU, at K = 5 and at K = 20 (where K1a
+    reads the padded table in 16-byte loads): the metrics agree to 1e-5."""
     from svbfm_tpu_torch.learners.draws import host_draws
     from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
     from svbfm_tpu_torch.models.fm import init_fm_params
 
-    tr, te, D, meta, cfg = _small(factor_block=factor_block, regw=0.5,
+    tr, te, D, meta, cfg = _small(K=K, factor_block=factor_block, regw=0.5,
                                   regv=0.5)
-    p = init_fm_params(torch.Generator().manual_seed(3), D, 5,
+    p = init_fm_params(torch.Generator().manual_seed(3), D, K,
                        init_w_normal=True)
     hists, ends = [], []
     for dev in (cuda, "cpu"):
@@ -220,10 +224,12 @@ def test_sgd_kernels_match_twins_on_ragged_case(cuda, kernel):
             chip_smoke.compare(ok, op, f"{kernel} ({label})")
 
 
+@pytest.mark.parametrize("K", [5, 20], ids=lambda K: f"K{K}")
 @pytest.mark.parametrize("method", ["sgd", "sgd_online", "sgda", "bpr"])
-def test_sgd_learners_on_gpu_match_cpu(cuda, method):
+def test_sgd_learners_on_gpu_match_cpu(cuda, method, K):
     """3 epochs from one host-made init and host-drawn permutations and
-    negatives, on the card (kernels) and on the CPU (twins): the metrics
+    negatives, on the card (kernels) and on the CPU (twins), at K = 5 and
+    at K = 20 (where K1a reads the family's stride-21 table): the metrics
     agree to chip_smoke.SGD_TRAJ_RTOL and the parameter tables (and SGDA's
     regs) to chip_smoke.SGD_PARAM_ATOL; only X9a's atomics add in another
     order."""
@@ -235,10 +241,10 @@ def test_sgd_learners_on_gpu_match_cpu(cuda, method):
                                               SGDOnlineLearner)
     from svbfm_tpu_torch.models.fm import init_fm_params
 
-    tr, te, D, meta, cfg = _small(learn_rate=0.05, regw=0.01, regv=0.01,
-                                  batch_size=128, num_batches=4)
+    tr, te, D, meta, cfg = _small(K=K, learn_rate=0.05, regw=0.01,
+                                  regv=0.01, batch_size=128, num_batches=4)
     train, test = SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D)
-    p = init_fm_params(torch.Generator().manual_seed(3), D, 5)
+    p = init_fm_params(torch.Generator().manual_seed(3), D, K)
     hists, ends = [], []
     for dev in (cuda, "cpu"):
         if method == "sgda":
@@ -1642,3 +1648,112 @@ def test_resync_forms_match_twin(cuda, F, form, N, aligned):
     for a, b in zip(outs[0], outs[1]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
     chip_smoke.compare(outs[0], outs[2], what)
+
+
+_K1_K = [0, 1, 3, 4, 5, 8, 20, 21, 32, 33, 64, 130]
+_K1_LAYOUTS = ["padded", "sgd", "sliced"]
+_K1_POISONS = [None, "nan_row", "inf_row", "nan_x", "inf_pad"]
+
+
+def _k1_case(cuda, tterms, K, P, N, layout, poison):
+    """K1a (``tterms`` False) or K1b on a seeded case, on the card, against
+    its twin on the same view; returns the plan."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import fm_forward as k1
+    from svbfm_tpu_torch.ops import forward as fwd
+
+    rng = np.random.default_rng([K, P, N, _K1_LAYOUTS.index(layout),
+                                 _K1_POISONS.index(poison), int(tterms)])
+    D = 40
+    ids = rng.integers(0, D - 1, (N, P))
+    vals = rng.uniform(0.5, 1.5, (N, P))
+    # padding entries: x = 0 at the pad row D - 1 (at P = 1, empty rows)
+    ids[1::3, -1], vals[1::3, -1] = D - 1, 0.0
+    w = rng.normal(0, 0.3, D)
+    sw = rng.uniform(0.01, 0.1, D)
+    v = rng.normal(0, 0.3, (K, D))
+    sv = rng.uniform(0.01, 0.1, (K, D))
+    lin, fac = (sw, sv) if tterms else (w, v)
+    if N > 3:
+        ids[0, 0], ids[3, 0] = 5, 7
+    if poison == "nan_row":  # a factor channel of row 5 (w at K = 0)
+        if K:
+            fac[K - 1, 5] = np.nan
+        else:
+            lin[5] = np.nan
+    elif poison == "inf_row":  # the linear channel of row 7
+        lin[7] = np.inf
+    elif poison == "nan_x" and N > 2:
+        vals[2, 0] = np.nan
+    elif poison == "inf_pad":  # x = 0 there: the twin's Inf * 0
+        lin[D - 1] = np.inf
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(cuda)
+
+    if tterms:
+        dense = np.concatenate([sw[:, None], v.T, sv.T], 1)
+    else:
+        dense = np.concatenate([w[:, None], v.T], 1)
+    if layout == "padded":  # as ops/forward.py builds it
+        tab = (fwd.t_term_table(t(sw), t(v), t(sv)) if tterms
+               else fwd.score_table(t(w), t(v)))
+    elif layout == "sgd":  # contiguous [D, 1+K]: the SGD family's
+        tab = t(dense)
+    else:  # one float into a wider table: base and stride unaligned
+        buf = torch.zeros(D, dense.shape[1] + 1, device=cuda)
+        buf[:, 1:] = t(dense)
+        tab = buf[:, 1:]
+    ids_t, vals_t = t(ids, torch.int32), t(vals)
+    scalar = torch.tensor(0.02 if tterms else 0.3, device=cuda)
+    name = "fm_t_terms" if tterms else "fm_scores"
+    op = k1.fm_t_terms_op if tterms else k1.fm_scores_op
+    plain = k1.fm_t_terms_plain if tterms else k1.fm_scores_plain
+    before = build.launch_counts[name]
+    outs = [op(tab, scalar, ids_t, vals_t), op(tab, scalar, ids_t, vals_t),
+            plain(tab, scalar, ids_t, vals_t)]
+    torch.cuda.synchronize()
+    assert build.launch_counts[name] == before + (2 if N else 0)
+    p = k1.fm_plan(tab, K, P)
+    what = f"{name} K={K} P={P} N={N} {layout} {poison} {p}"
+    assert outs[0].shape == (N,), what
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    chip_smoke.compare(outs[:1], outs[2:], what)
+    if poison and N > 3:
+        assert not torch.isfinite(outs[0]).all(), what
+    return p
+
+
+@pytest.mark.parametrize("poison", _K1_POISONS)
+@pytest.mark.parametrize("layout", _K1_LAYOUTS)
+@pytest.mark.parametrize("N", [0, 1001])
+@pytest.mark.parametrize("P", [1, 2, 3, 7])
+@pytest.mark.parametrize("K", _K1_K)
+def test_fm_scores_forms_match_twin(cuda, K, P, N, layout, poison):
+    """K1a in its chunked form (min(ceil(K / 4), 32) lanes a row, several
+    rows a warp, lanes looping past K = 128), in its P = 2 build and at any
+    P, on the padded table ops/forward.py builds (16-byte loads where K
+    allows), on the SGD family's contiguous [D, 1+K] and on a table one
+    float into a wider one (loads narrowed); N = 1,001 (a ragged last
+    warp) and 0; padding entries at the pad row; a NaN in a table row, an
+    Inf in w, a NaN x and an Inf at the pad row (x = 0): the twin's values,
+    NaN and Inf where it has them; two launches the same bits."""
+    p = _k1_case(cuda, False, K, P, N, layout, poison)
+    assert p.lanes == max(1, min(-(-K // 4), 32)) and p.rows == 32 // p.lanes
+    if layout == "padded" and K % 4 == 0 and K:
+        assert p.vec == 4
+    if layout != "padded":
+        assert p.vec == 1
+
+
+@pytest.mark.parametrize("poison", _K1_POISONS)
+@pytest.mark.parametrize("layout", _K1_LAYOUTS)
+@pytest.mark.parametrize("N", [0, 1001])
+@pytest.mark.parametrize("P", [1, 2, 3, 7])
+@pytest.mark.parametrize("K", _K1_K)
+def test_fm_t_terms_forms_match_twin(cuda, K, P, N, layout, poison):
+    """K1b in the same forms, cases and poisons as K1a's test (the NaN in
+    a row is in its s channel, the Inf in its sw)."""
+    p = _k1_case(cuda, True, K, P, N, layout, poison)
+    if layout == "padded" and K % 4 == 0 and K:
+        assert p.vec == 4
