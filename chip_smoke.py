@@ -19,8 +19,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      sampler's relation kernels on the 1M-rating relational recipe at
      F=20, F=1 and the w sweep (X10a also at F=33, its block form), X10a's,
      X10c's and the resync's forms printed beside each, the joined scores
-     also over nine relations, X9c also cut to the 8 blocks it falls back
-     to where the card holds no cluster of 16) and on small ragged cases with
+     on the train and the test rows and over nine relations, with their
+     form (K1a's kernel in its relations mode), K2 and X8d with theirs,
+     X9c also cut to the 8 blocks it falls back to where the card holds
+     no cluster of 16) and on small ragged cases with
      NaN-producing columns or targets, Inf noise, L=1 buckets and columns
      split over blocks; time both, and one PyTorch call where one computes
      the same function.  Then x9b-digest: sha256 of X9b's outputs on
@@ -252,15 +254,17 @@ SOURCES = {
                        "svbfm_tpu/learners/mcmc_bs.py:670"),
     "bs_rel_moments": ("svbfm_tpu_torch/csrc/bs_forward.cu",
                        "svbfm_tpu/learners/mcmc_bs.py:251"),
-    "bs_scores": ("svbfm_tpu_torch/csrc/bs_forward.cu",
+    "bs_scores": ("svbfm_tpu_torch/csrc/fm_forward.cu",
                   "svbfm_tpu/learners/mcmc_bs.py:215"),
     "bs_resync": ("svbfm_tpu_torch/csrc/bs_forward.cu",
                   "svbfm_tpu/learners/mcmc_bs.py:463"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
-# (rel_patch_*_kernel), X10d's resync (resync_*_kernel) and moments
-# (rel_moments_kernel) and X10a (join_agg_*_kernel)
-BS_FOCUS = ("rel_patch", "resync", "rel_moments", "join_agg")
+# (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
+# (rel_moments_kernel) and scores (fm_rows_kernel, K1a's kernel in its
+# relations mode: no other K1 launch runs in a BS sweep) and X10a
+# (join_agg_*_kernel)
+BS_FOCUS = ("rel_patch", "resync", "rel_moments", "fm_rows", "join_agg")
 # the same for the Gibbs profiles: X8a (col_draw_*) and X8b (row_patch_*)
 MCMC_FOCUS = ("col_draw", "row_patch")
 # the relation kernels of the block-structure sampler, every path of it
@@ -483,10 +487,14 @@ def make_cases(s: dict):
             return list(fn(ptab, F, ids, vals))
         return call
 
-    def k2_cost(F, ids):
+    def qt_note(ptab, F, ids, vals):  # K2's and X8d's form
+        return plan_note(kv, "qt_plan_of", (ptab, F, ids, vals),
+                         ("form", "vec", "lanes", "rows", "build"))
+
+    def k2_cost(F, ptab, ids, vals):
         N, P = ids.shape
         return cost(rows_bytes(ids) + s["D"] * 2 * F * 4 + 3 * N * F * 4,
-                    N * P * F * 6)
+                    N * P * F * 6, note=qt_note(ptab, F, ids, vals))
 
     def k4(F, merge_w, seq, ptab, ids, vals, keys):
         def prepare():
@@ -566,7 +574,8 @@ def make_cases(s: dict):
             return call
 
         add("vb_build_qt", f"F={F}", nothing,
-            k2(F, s["ptab"], s["ids"], s["vals"]), k2_cost(F, s["ids"]))
+            k2(F, s["ptab"], s["ids"], s["vals"]),
+            k2_cost(F, s["ptab"], s["ids"], s["vals"]))
         for b in s["buckets"]:
             add("vb_col_stats_update",
                 f"F={F} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
@@ -641,7 +650,8 @@ def make_cases(s: dict):
             return call
 
         add("vb_build_qt", f"F={F}", nothing,
-            k2(F, s["v_ptab"], s["ids"], s["vals"]), k2_cost(F, s["ids"]))
+            k2(F, s["v_ptab"], s["ids"], s["vals"]),
+            k2_cost(F, s["v_ptab"], s["ids"], s["vals"]))
         for plan in s["v_bins"]:
             parts = [bucket_cost(_bucket_dict(b), 1 + 2 * F, 4 + 11 * F,
                                  12 * F) for b in plan.buckets]
@@ -671,7 +681,8 @@ def make_cases(s: dict):
             return call
 
         add("vb_build_qt", "exact F=1", nothing,
-            k2(1, s["x_ptab"], s["ids"], s["vals"]), k2_cost(1, s["ids"]))
+            k2(1, s["x_ptab"], s["ids"], s["vals"]),
+            k2_cost(1, s["x_ptab"], s["ids"], s["vals"]))
         for b in s["exact_buckets"]:
             add("vb_col_stats_update",
                 f"exact F=1 [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
@@ -697,7 +708,7 @@ def make_cases(s: dict):
 
         add("build_q", f"F={F} N={N}", nothing, x8d,
             cost(rows_bytes(ids) + s["D"] * F * 4 + N * F * 4, N * P * F * 2,
-                 x8d_library))
+                 x8d_library, note=qt_note(m["ptab"], F, ids, vals)))
 
         def x8a_prepare():
             return (m["ptab"].clone(), m["vt"].clone(),
@@ -1014,8 +1025,9 @@ def bs_cases(add, r: dict) -> None:
             ids64, r["stab"], per_sample_weights=rd.rrow_vals, mode="sum")
 
     K1 = r["stab"].shape[1]
+    # the channels written: (qB | lin | sumsB), K + 2 a row
     add("bs_rel_moments", f"{name} K={K1 - 1} R={R} Pr={Pr}", lambda: (),
-        moments, cost(R * Pr * 8 + Dr * K1 * 4 + R * (2 * K1 - 1) * 4,
+        moments, cost(R * Pr * 8 + Dr * K1 * 4 + R * (K1 + 1) * 4,
                       R * Pr * (3 * K1), moments_library,
                       note=plan_note(kf, "moments_plan", (K1 - 1,),
                                      ("lanes", "channels", "rows"))))
@@ -1028,11 +1040,16 @@ def bs_cases(add, r: dict) -> None:
                        sc["joins"], sc["moms"])]
 
         Ns, Ps = ids.shape
-        Km = K1 - 1
-        add("bs_scores", f"N={Ns} relations={len(sc['joins'])}", lambda: (),
-            scores, cost(Ns * Ps * 8 + Ns * 4 * (1 + len(sc["joins"]))
-                         + sum(m.numel() for m in sc["moms"]) * 4,
-                         Ns * (len(sc["joins"]) * (2 * Km + 1) + 3 * Km)))
+        Km, nr = K1 - 1, len(sc["joins"])
+        # the moments rows the joins reach, K + 2 channels each
+        add("bs_scores", f"{sc['label']} N={Ns} relations={nr}", lambda: (),
+            scores, cost(Ns * Ps * 8 + Ns * 4 * (1 + nr)
+                         + sc["rows_read"] * (Km + 2) * 4,
+                         Ns * (nr * (Km + 2) + 3 * Km),
+                         note=plan_note(kf, "scores_plan_of",
+                                        (r["stab"], ids, sc["moms"]),
+                                        ("vec", "lanes", "rows", "build",
+                                         "stride"))))
 
 
 def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
@@ -1588,12 +1605,12 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
                 mu, lam = state.w_mu.clone(), state.w_lambda.clone()
                 z = torch.randn(Dr, generator=gen, device=dev)
             else:
-                qB0 = mom[:, 1:1 + F].contiguous()
+                qB0 = mom[:, :F].contiguous()
                 rtab0[:, :F] = qB0
                 q = torch.zeros(N, F, device=dev)
                 for rd2, mom2 in zip(rels, moms):
                     kf.bs_resync_plain(rd2.join_tr, F, None,
-                                       mom2[:, 1:1 + F].contiguous(), None,
+                                       mom2[:, :F].contiguous(), None,
                                        q, None)
                 vt = state.v[:F, off:off + Dr].T.contiguous()
                 mu = state.v_mu[:, :F].contiguous()
@@ -1634,29 +1651,45 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
                 rtab0=rtab0, rtab=rtab, picks=picks, z=z, mu=mu, lam=lam,
                 vt=vt, ptab=ptab, patched=patched)))
         if i == 0:
-            # the learner's relations, and nine made from them (each
-            # join rolled, each table scaled)
+            # the learner's relations on the train and the test rows, and
+            # nine made from them (each join rolled, each table scaled)
             joins = [rd2.join_tr for rd2 in rels]
             nr = len(rels)
-            r["scores"] = [dict(ids=row.ids, vals=row.vals, w0=state.w0,
-                                joins=joins, moms=moms),
-                           dict(ids=row.ids, vals=row.vals, w0=state.w0,
+            nine = []
+            for k in range(NINE_RELATIONS):
+                m = moms[k % nr]
+                nine.append(kf.moments_table(m.shape[0], m.shape[1] - 2, dev)
+                            .copy_(m * (1.0 + 0.05 * k)))
+            test = learner.test_row
+            r["scores"] = [dict(label="train", ids=row.ids, vals=row.vals,
+                                w0=state.w0, joins=joins, moms=moms),
+                           dict(label="test", ids=test.ids, vals=test.vals,
+                                w0=state.w0,
+                                joins=[rd2.join_te for rd2 in rels],
+                                moms=moms),
+                           dict(label="nine", ids=row.ids, vals=row.vals,
+                                w0=state.w0,
                                 joins=[joins[k % nr].roll(k)
                                        for k in range(NINE_RELATIONS)],
-                                moms=[moms[k % nr] * (1.0 + 0.05 * k)
-                                      for k in range(NINE_RELATIONS)])]
+                                moms=nine)]
+            for sc in r["scores"]:  # the moments rows the bound charges
+                sc["rows_read"] = sum(int(j.unique().numel())
+                                      for j in sc["joins"])
         out.append(r)
     return dict(tag=tag, timed=timed, D=state.w.shape[0], bs=out)
 
 
 def small_bs_learner(device, K: int = 20, factor_block: int = 0,
-                     als: bool = False, n_rel: int = 2):
+                     als: bool = False, n_rel: int = 2,
+                     main_users: bool = False):
     """A small relational problem for the ragged checks: 3000 ratings, a
     user relation of 1200 rows (its two attribute slots hold columns of
     about 600 rows, long enough for X10b to split them over blocks) and an
     item relation of 50 rows, both with 2 slots; an empty main block.
     ``n_rel`` > 2 adds relations of 8, 13, 18, ... rows (one-hot + 1 slot),
-    each with its own join."""
+    each with its own join.  ``main_users``: the users are one-hot columns
+    of the main block instead of a relation (the Gibbs/ALS main-block pass
+    then runs beside the relations)."""
     from svbfm_tpu_torch.data.dataset import SparseDataset
     from svbfm_tpu_torch.data.libfm_text import COOData
     from svbfm_tpu_torch.data.meta import DataMetaInfo
@@ -1675,17 +1708,25 @@ def small_bs_learner(device, K: int = 20, factor_block: int = 0,
         size = 8 + 5 * r
         rels.append(make_relation(size, size, 1, seed=3 + r))
         joins.append(rng.integers(0, size, n))
-    meta = build_joined_meta(DataMetaInfo(0), rels)
+    d_main = nu if main_users else 0
+    if main_users:
+        rels, joins = rels[1:], joins[1:]
+        coo = COOData(row=np.arange(n, dtype=np.int32),
+                      col=users.astype(np.int32), val=np.ones(n, np.float32),
+                      target=y, num_rows=n, num_features=nu)
+    else:
+        coo = COOData(row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
+                      val=np.zeros(0, np.float32), target=y, num_rows=n,
+                      num_features=0)
+    meta = build_joined_meta(DataMetaInfo(d_main), rels)
     D = meta.num_attributes
-    main = SparseDataset.from_coo(COOData(
-        row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
-        val=np.zeros(0, np.float32), target=y, num_rows=n, num_features=0), D)
+    main = SparseDataset.from_coo(coo, D)
     cfg = FMConfig(num_attributes=D, num_factor=K, num_groups=meta.num_attr_groups,
                    min_target=float(y.min()), max_target=float(y.max()),
                    seed=SEED, regw=0.5, regv=0.5, factor_block=factor_block)
     cls = ALSBSLearner if als else MCMCBSLearner
-    return cls(cfg, main, main, rels, joins, joins, meta, 0, device=device,
-               write_files=False)
+    return cls(cfg, main, main, rels, joins, joins, meta, d_main,
+               device=device, write_files=False)
 
 
 def ragged_bs_tensors(device) -> dict:

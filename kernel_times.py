@@ -14,21 +14,29 @@ graph replay of 20 calls, then the family's profiles:
 - ``bs``: the block-structure sampler's join aggregation X10a (F = 20,
   the w sweep's F = 0, F = 1 and, in its block form, F = 33), its
   relation-row patch X10c (F = 20, F = 1 and the w mode, after each timed
-  bin), its data-row resync (X10d: full, q-build and w forms) and its
-  relation-row moments (X10d, K = 20) on the 1M-rating relational recipe
+  bin), its data-row resync (X10d: full, q-build and w forms), its
+  relation-row moments (X10d, K = 20) and its joined scores (X10d,
+  ``bs_scores``: the 1M train rows and the 100k test rows with two
+  relations, and nine relations) on the 1M-rating relational recipe
   (``scripts/bench_bs.py``), for the users and the items relation, each
-  with its form; their launches in one sweep of each BS path; and
-  ``chip_smoke.profile_run`` of one blocked Gibbs sweep and of one
-  factor-sequential sweep (factor_block 1), twice each, with X10a's,
-  X10c's, the resync's and the moments' device time.
+  with its form (the scores' moments stride among it); their launches in
+  one sweep of each BS path; and ``chip_smoke.profile_run`` of one blocked
+  Gibbs sweep and of one factor-sequential sweep (factor_block 1), twice
+  each, with X10a's, X10c's, the resync's, the moments' and
+  ``bs_scores``' device time and share (``fm_rows``: K1a's kernel in its
+  relations mode).
 - ``forward``: K1a (the FM score) on the 1,000,022 train rows of the
   ML-1M recipe (``bench.py``; the Gibbs/ALS/exp_sgd re-score), the 99,978
   test rows (every path's eval), OVB's first chunk of 50,002 rows, and the
   test rows on the SGD family's own [D, 1+K] table; K1b (the T-terms) on
   the train rows (VB's init) and the OVB chunk; each on the tables the
   checkout's ``ops/forward.py`` builds from seeded parameters, with its
-  form; and ``profile_run`` of one Gibbs sweep, one VB fast-mode sweep
-  and one OVB epoch, twice each, with K1's device time and share.
+  form; K2 (``vb_build_qt``) at F = 20 on VB's fast-mode table, at F = 1
+  on exact mode's over the train rows and over OVB's first chunk, and X8d
+  (``build_q``) at F = 20 on the Gibbs table and at F = 1 (factor_block
+  1), each with its form; and ``profile_run`` of one Gibbs sweep, one VB
+  fast-mode sweep and one OVB epoch, twice each, with K1's and K2's (or
+  X8d's) device time and share.
 - ``mcmc``: X8a at F = 1 on every degree bucket of the ML-1M recipe
   (``bench.py``), in the Gibbs draw mode (with a noise table) and in
   exp_sgd's gradient mode, each with its form; X8b at F = 20 on the
@@ -43,7 +51,10 @@ graph replay of 20 calls, then the family's profiles:
 
 To hold a change against its parent, run it on both in one call, in turns
 (parent, change, change, parent), the parent unpacked with ``git archive``
-into a git-ignored directory.  Exits non-zero without a card.
+into a git-ignored directory.  The inputs and bounds are this script's
+``chip_smoke.py``'s, so the other tree must share their layouts (for
+``bs``, the (qB | lin | sumsB) moments rows).  Exits non-zero without a
+card.
 """
 
 from __future__ import annotations
@@ -58,15 +69,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # each family's libraries and the kernels of them whose ptxas lines are
 # printed (a part of their names)
 FAMILIES = {
-    "bs": (("bs_sweep", "bs_forward"),
-           ("join_agg", "patch", "resync", "moments")),
-    "forward": (("fm_forward",), ("fm_",)),
+    "bs": (("bs_sweep", "bs_forward", "fm_forward"),
+           ("join_agg", "patch", "resync", "moments", "fm_rows",
+            "bs_scores")),
+    "forward": (("fm_forward", "vb_sweep"), ("fm_", "build_qt")),
     "mcmc": (("mcmc_sweep",), ("col_draw_f1", "row_patch")),
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
 }
 # the bs family's timed kernels, by their wrappers' launch-count names
 BS_TIMED = ("bs_join_agg", "bs_rel_patch", "bs_rel_w_patch", "bs_resync",
-            "bs_rel_moments")
+            "bs_rel_moments", "bs_scores")
 # a part of the names of X8a's kernels and of X8b's (in an older tree
 # patch_rows_kernel<32> at F >= 2, patch_rows_kernel<1> at F = 1)
 GIBBS_FOCUS = ("col_draw", "row_patch", "patch_rows_kernel<32>",
@@ -157,6 +169,7 @@ def forward_family(cs, build, dev, tag, line) -> None:
     import torch
 
     from svbfm_tpu_torch.kernels import fm_forward as k1
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.learners.base import FMConfig
     from svbfm_tpu_torch.learners.mcmc import MCMCLearner
     from svbfm_tpu_torch.learners.vb import VBLearner
@@ -206,12 +219,36 @@ def forward_family(cs, build, dev, tag, line) -> None:
         line(f"{name} {label} N={N} stride={tab.stride(0)} {note}",
              lambda: op(tab, scalar, row.ids, row.vals))
 
+    # K2 on VB's fast-mode table [D, 5F + 2], on exact mode's [D, 5] over
+    # the train rows and over OVB's first chunk; X8d on the Gibbs table
+    # [D, 2F] and at factor_block 1 on v_f [D, 1]
+    mu, sig = t(D, K), t(D, K, lo=0.01)
+    fast = torch.zeros(D, 5 * K + 2, device=dev)
+    fast[:, :K], fast[:, K:2 * K] = mu, sig
+    exact = torch.zeros(D, 5, device=dev)
+    exact[:, 0], exact[:, 1] = mu[:, 0], sig[:, 0]
+    gtab = torch.cat([mu, torch.zeros_like(mu)], 1)
+    vf = mu[:, :1].contiguous()
+    train = gibbs.train_row
+    for name, fn, ptab, F, label, row in (
+            ("K2", kv.vb_build_qt, fast, K, "vb-fast", train),
+            ("K2", kv.vb_build_qt, exact, 1, "exact", train),
+            ("K2", kv.vb_build_qt, exact, 1, "ovb-chunk", chunk),
+            ("X8d", kv.build_q, gtab, K, "gibbs", train),
+            ("X8d", kv.build_q, vf, 1, "factor_block 1", train)):
+        N = row.ids.shape[0]
+        note = cs.plan_note(kv, "qt_plan_of", (ptab, F, row.ids, row.vals),
+                            ("form", "vec", "lanes", "rows", "build"))
+        line(f"{name} {label} F={F} N={N} stride={ptab.stride(0)} {note}",
+             lambda: fn(ptab, F, row.ids, row.vals))
+
     for path, lr, unit in (("mcmc", gibbs, "sweep"), ("vb", vb, "sweep"),
                            ("ovb", ovb, "epoch")):
         state, _ = lr.run(num_iter=1, verbose=False)
         for _ in range(2):
             cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
-                           1, unit, f"{tag} {path}-profile", focus=("fm_",))
+                           1, unit, f"{tag} {path}-profile",
+                           focus=("fm_", "build_qt"))
 
 
 def mcmc_family(cs, build, dev, tag, line) -> None:

@@ -1,16 +1,15 @@
-// X10d: the block-structure (BS) forward pass and the data-row resync of
-// the native relational Gibbs/ALS sampler.
+// X10d: the block-structure (BS) relation-row moments and the data-row
+// resync of the native relational Gibbs/ALS sampler.  (X10d's joined
+// scores, bs_scores, are K1a's kernel in its relations mode:
+// fm_forward.cu.)
 //
 // Replaces the XLA gather chains of svbfm_tpu/learners/mcmc_bs.py:
 //   bs_rel_moments: the relation-row moments of bs_scores (:230-234,
 //     :251-258) and the qB of every factor at the v sweep's entry
 //     (:700-708): per relation row rho, over its row-layout positions,
-//       lin = sum w x,  qB_f = sum v_f x,  sB_f = sum (v_f x)^2;
-//   bs_scores: the joined score of each data row (:215-268),
-//       y = w0 + sum_p w x + sum_r lin_r[j_r]
-//           + 1/2 sum_f [(s_f)^2 - s2_f],
-//       s_f  = sum_p v_f x + sum_r qB_r,f[j_r],
-//       s2_f = sum_p (v_f x)^2 + sum_r sB_r,f[j_r];
+//       qB_f = sum v_f x,  lin = sum w x,  sumsB = sum_f sum (v_f x)^2;
+//     the scores use sB only through its sum over f, since
+//     1/2 sum_f (s_f^2 - s2_f) = 1/2 (sum_f s_f^2 - sum_f s2_f);
 //   bs_resync: the data-row resync after a relation sweep (:463-468,
 //     :820-824, :689-690), with j = join[n] and qO = q - qB0[j],
 //       e += sum_f dy_f[j] + sum_f qO_f (qB1_f[j] - qB0_f[j]),
@@ -19,41 +18,39 @@
 //
 // Layouts: the parameter table stab [D_all, 1+K] = (w | v^T) of K1; a
 // relation's row layout rids/rvals [R, Pr] in its local attribute ids,
-// which sit at rows off .. off + Dr - 1 of stab; moments [R, 1+2K] =
-// (lin | qB | sB); q [N, F] row-major; dy, qB0 [R, F]; qB1 rows of
-// stride ld1 (the qB channels of X10b's relation table).  bs_scores takes
-// any number of relations: their joins and moment tables arrive as two
-// device arrays of nrel pointers, which the wrapper builds once per set of
-// tensors, and every relation's qB adds into one s_f before it is squared.
+// which sit at rows off .. off + Dr - 1 of stab; moments rows
+// (qB | lin | sumsB), K + 2 channels at a row stride ldm that the wrapper
+// makes a multiple of 8 floats (24 at K = 20: 96 bytes, three 32-byte
+// sectors, for the scores' gathers), the padding never written or read;
+// q [N, F] row-major; dy, qB0 [R, F]; qB1 rows of stride ld1 (the qB
+// channels of X10b's relation table, or of the moments).
 //
 // Bound: bytes.  bs_rel_moments reads each relation row's ids and values
-// and writes its 1+2K moments (30 MB for the users of the BS recipe at
-// K = 20: 8.9 us); the stab rows it gathers (a row's own one-hot
-// attribute, then a few shared attribute rows) sit in L2 or L1.  What
-// holds it is what a row costs in instructions and latency: lanes take
-// the channels of (w | v), lin among them, three a lane, so that
-// several rows share a warp and each shuffle that hands a position's id
-// or x to the lanes serves them all; a row's ids come in coalesced loads,
-// and a batch of gathers is issued before its sums.  bs_scores reads each
-// data row's ids, values and table rows and one moments row per relation
-// at a data-dependent address
-// (1+2K floats); one warp per row, lanes over factors, as K1.  bs_resync
-// reads each data row's join and q (and e) and gathers the joined dy, qB1
-// and qB0 rows from tables that L2 holds: its byte bound is q's read and
-// write (160 MB at 1M rows, F = 20), but the gathers' L2 sectors (three
-// a table a row at F = 20, one at F = 1, at random rows) take as long on
-// the H100 (the q build, one table, runs near the byte bound; the full
-// resync, three, does not).  Its lanes go over 16-byte chunks of a row
-// where F, ld1 and the bases allow, 8- or 4-byte ones where not, several
-// rows a warp (resync_chunks_kernel), or at F = 1 over four rows a thread
-// with 16-byte loads of join, q and e (resync_rows_kernel).
+// and writes its K + 2 moments (20 MB for the users of the BS recipe at
+// K = 20); the stab rows it gathers (a row's own one-hot attribute, then a
+// few shared attribute rows) sit in L2 or L1.  What holds it is what a row
+// costs in instructions and latency: lanes take the channels of (w | v),
+// lin among them, three a lane, so that several rows share a warp and
+// each shuffle that hands a position's id or x to the lanes serves them
+// all; a row's ids come in coalesced loads, a batch of gathers is issued
+// before its sums, and sumsB is one segmented shuffle over the row's
+// lanes.  bs_resync reads each data row's join and q (and e) and gathers
+// the joined dy, qB1 and qB0 rows from tables that L2 holds: its byte
+// bound is q's read and write (160 MB at 1M rows, F = 20), but the
+// gathers' L2 sectors (three a table a row at F = 20, one at F = 1, at
+// random rows) take as long on the H100 (the q build, one table, runs near
+// the byte bound; the full resync, three, does not).  Its lanes go over
+// 16-byte chunks of a row where F, ld1 and the bases allow, 8- or 4-byte
+// ones where not, several rows a warp (resync_chunks_kernel), or at F = 1
+// over four rows a thread with 16-byte loads of join, q and e
+// (resync_rows_kernel).
 #include <type_traits>
 
 #include "svbfm_common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 8;  // the moments' blocks
 constexpr int kResyncThreads = 256;
 constexpr int kResyncRows = 4;  // data rows a thread at F = 1
 constexpr int kMomBatch = 8;    // positions a moments lane gathers at once
@@ -79,7 +76,11 @@ int moments_lanes(int K) {
 // (w | v^T):
 // channel 0 is the lin sum, channel c >= 1 qB and sB of factor c - 1, so
 // lin takes the same pass as the factors (at K = 20: 8 lanes of 3
-// channels, 4 rows a warp).  A row's ids and x come kHold a lane, lane l
+// channels, 4 rows a warp).  A row writes qB_f at f, lin at K and, from
+// its first lane, sumsB at K + 1 of its row of stride ldm: each lane sums
+// the sB of its channels in ascending c, then the lanes' sums meet by a
+// segmented shuffle (lane l adds lane l + d for d = 1, 2, 4, ...), the
+// order bs_rel_moments_plain takes too.  A row's ids and x come kHold a lane, lane l
 // taking positions l, l + G, ... of a round (coalesced loads), and are
 // handed to the row's lanes by shuffles, one shuffle serving every row of
 // the warp; kMomBatch positions' gathers are issued before their sums.
@@ -93,7 +94,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
     rel_moments_kernel(const int* __restrict__ rids,
                        const float* __restrict__ rvals, int64_t R, int Pr,
                        const float* __restrict__ stab, int64_t off, int K,
-                       int k1, float* __restrict__ out) {
+                       int k1, float* __restrict__ out, int64_t ldm) {
   constexpr int kRows = 32 / G;  // rows a warp
   constexpr int kHold = kRows < 8 ? kRows : 8;  // positions a lane holds
   constexpr int kRound = G * kHold;  // positions a round
@@ -111,7 +112,8 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
   const float* tab = stab + off * ld;
   const int* rid = rids + rho * Pr;
   const float* rx = rvals + rho * Pr;
-  float* o = out + rho * (1 + 2 * K);
+  float* o = out + rho * ldm;
+  float sb = 0.f;  // this lane's share of sumsB
   for (int c0 = 0; c0 < C; c0 += G * kMomCh) {
     // the same warp-wide
     const int nch = min(kMomCh, (C - c0 + G - 1) / G);
@@ -171,53 +173,21 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
     }
 #pragma unroll
     for (int i = 0; i < kMomCh; ++i) {
-      if (live && cs[i] < C) {  // lin | qB at c, sB at K + c
-        o[cs[i]] = s[i];
-        if (cs[i] > 0) o[K + cs[i]] = s2[i];
+      if (live && cs[i] < C) {  // qB at c - 1, lin at K
+        if (cs[i] > 0) {
+          o[cs[i] - 1] = s[i];
+          sb += s2[i];
+        } else {
+          o[K] = s[i];
+        }
       }
     }
   }
-}
-
-__global__ void bs_scores_kernel(const float* __restrict__ stab, int K,
-                                 const float* __restrict__ w0,
-                                 const int* __restrict__ ids,
-                                 const float* __restrict__ vals, int64_t N,
-                                 int P, int nrel,
-                                 const int* const* __restrict__ joins,
-                                 const float* const* __restrict__ moms,
-                                 float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t n =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int64_t ld = K + 1;
-  const int64_t ldm = 1 + 2 * K;
-  const int* rid = ids + n * P;
-  const float* rx = vals + n * P;
-  float part = 0.f;
-  for (int f = lane; f < K; f += 32) {
-    float s = 0.f, s2 = 0.f;
-    for (int p = 0; p < P; ++p) {
-      const float d = stab[rid[p] * ld + 1 + f] * rx[p];
-      s += d;
-      s2 += d * d;
-    }
-    for (int r = 0; r < nrel; ++r) {
-      const float* m = moms[r] + static_cast<int64_t>(joins[r][n]) * ldm;
-      s += m[1 + f];
-      s2 += m[1 + K + f];
-    }
-    part += s * s - s2;
+  for (int d = 1; d < G; d <<= 1) {
+    const float t = __shfl_down_sync(svbfm::kFullMask, sb, d);
+    if (gl + d < G) sb += t;
   }
-  part = svbfm::warp_sum(part);
-  if (lane == 0) {
-    float acc = *w0;
-    for (int p = 0; p < P; ++p) acc += stab[rid[p] * ld] * rx[p];
-    for (int r = 0; r < nrel; ++r)
-      acc += moms[r][static_cast<int64_t>(joins[r][n]) * ldm];
-    out[n] = acc + 0.5f * part;
-  }
+  if (live && gl == 0) o[K + 1] = sb;
 }
 
 // One kVec-float chunk of the resync at factor f of data row n joined to
@@ -373,18 +343,20 @@ inline unsigned warp_blocks(int64_t n) {
 
 }  // namespace
 
-// moments [R, 1+2K] of one relation from stab [D_all, 1+K] rows off + id.
+// moments rows (qB | lin | sumsB) [R, K+2] at row stride ldm of one
+// relation from stab [D_all, 1+K] rows off + id.
 SVBFM_EXPORT int svbfm_bs_rel_moments(const int* rids, const float* rvals,
                                       int64_t R, int Pr, const float* stab,
                                       int64_t off, int K, int k1, float* out,
-                                      cudaStream_t stream) {
+                                      int64_t ldm, cudaStream_t stream) {
+  if (ldm < K + 2) return static_cast<int>(cudaErrorInvalidValue);
   const int G = moments_lanes(K);
   const int64_t warps = (R + 32 / G - 1) / (32 / G);
   auto go = [&](auto g) {
     constexpr int kG = decltype(g)::value;
     rel_moments_kernel<kG>
         <<<warp_blocks(warps), 32 * kWarpsPerBlock, 0, stream>>>(
-            rids, rvals, R, Pr, stab, off, K, k1, out);
+            rids, rvals, R, Pr, stab, off, K, k1, out, ldm);
   };
   switch (G) {
     case 1: go(std::integral_constant<int, 1>()); break;
@@ -394,20 +366,6 @@ SVBFM_EXPORT int svbfm_bs_rel_moments(const int* rids, const float* rvals,
     case 16: go(std::integral_constant<int, 16>()); break;
     default: go(std::integral_constant<int, 32>()); break;
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// scores [N] from the main rows ids/vals [N, P] and nrel relations: joins
-// (a device array of nrel pointers to int [N]) and moms (a device array of
-// nrel pointers to [R_r, 1+2K]).
-SVBFM_EXPORT int svbfm_bs_scores(const float* stab, int K, const float* w0,
-                                 const int* ids, const float* vals, int64_t N,
-                                 int P, int nrel, const int* const* joins,
-                                 const float* const* moms, float* out,
-                                 cudaStream_t stream) {
-  if (nrel < 0) return static_cast<int>(cudaErrorInvalidValue);
-  bs_scores_kernel<<<warp_blocks(N), 32 * kWarpsPerBlock, 0, stream>>>(
-      stab, K, w0, ids, vals, N, P, nrel, joins, moms, out);
   return static_cast<int>(cudaGetLastError());
 }
 

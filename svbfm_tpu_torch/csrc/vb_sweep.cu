@@ -39,6 +39,8 @@
 // that waits on the current ones; and the sums over a chunk's lanes are
 // taken in shared memory in a fixed order (no float atomics: a run repeats
 // bit for bit).  64-bit offsets for row * channel arithmetic.
+#include <type_traits>
+
 #include "svbfm_common.cuh"
 
 namespace {
@@ -49,39 +51,247 @@ using svbfm::chunk_width;
 using svbfm::load_vec;
 using svbfm::store_vec;
 
-// ---- K2: q = sum_p mu x, tq = sum_p sig x^2, tz = sum_p mu^2 x^2 ----------
-// One thread per (row, factor), factor fastest: the table reads of one row
-// and the cache writes are contiguous across a warp.  kQOnly builds q alone
-// (X8d, the MCMC/ALS q cache, mcmc.py:337-359 and :824-826): tq and tz are
-// neither computed nor written.
-template <bool kQOnly>
-__global__ void build_qt_kernel(const float* __restrict__ ptab, int64_t ld,
-                                int F, const int* __restrict__ ids,
-                                const float* __restrict__ vals, int64_t N,
-                                int P, float* __restrict__ q,
-                                float* __restrict__ tq,
-                                float* __restrict__ tz) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= N * F) return;
-  const int64_t n = i / F;
-  const int f = static_cast<int>(i - n * F);
-  float qa = 0.f, tqa = 0.f, tza = 0.f;
-  for (int p = 0; p < P; ++p) {
-    const float* g = ptab + ids[n * P + p] * ld;
-    const float x = vals[n * P + p];
-    const float mu = g[f];
-    qa += mu * x;
-    if (!kQOnly) {
-      const float x2 = x * x;
-      tqa += g[F + f] * x2;
-      tza += mu * mu * x2;
+// ---- K2: q = q0 + sum_p mu x, tq = sum_p sig x^2, tz = sum_p mu^2 x^2 ----
+// kQOnly builds q alone (X8d, the MCMC/ALS q cache, mcmc.py:337-359 and
+// :824-826): tq and tz are neither computed nor written; q0, where given,
+// is q's starting value (the block-structure learner's relation part of
+// the cache, mcmc.py:344-348: JAX adds the positions onto it).
+//
+// Bound: bytes (the caches written, 80 MB a cache at N = 1M, F = 20) and
+// the gathers' L2 sectors (the patch table, 0.8-4 MB, stays in L2).  The
+// form at F >= 2 is X8b's (mcmc_sweep.cu:row_patch_wide_kernel): TPR =
+// min(F / V, 32) lanes a row over its chunks of V factors, 32 / TPR rows
+// a warp (5 lanes, 6 rows at F = 20 on X8d's [D, 2F] table; 10 lanes, 3
+// rows on K2's fast-mode [D, 5F + 2], whose stride admits V = 2); a row's
+// ids and x are loaded once, a position a lane, and handed on by shuffle
+// (row_share); every position's mu (and sig) chunk is loaded before
+// the first FMA; q, tq and tz are stored as V-float vectors.  kP = 2
+// builds it for rows of two positions (ML-1M's), kP = 0 for any P,
+// kQtPos positions at a time.  At F = 1 a thread takes a row
+// (build_qt_f1_kernel).  (The earlier form, a thread a (row, factor),
+// reloaded a row's ids and x in every thread, gathered 4 bytes a channel
+// and waited on each position's loads in turn: 0.1195 ms for X8d at N =
+// 1M, F = 20; 0.0033 ms for K2 on an OVB chunk of 50,002 rows at F = 1.
+// Measured on the H100: each lane loading the row's ids and x itself, in
+// place of the shuffles, ran X8d at F = 20 5 % and K2 2 % slower; two
+// rows a thread at F = 1, with 16-byte loads of their ids and x, ran K2
+// on the train rows 14 % slower and no faster on an OVB chunk; on rows of
+// two positions the any-P builds ran X8d and K2 at F = 20 about twice as
+// long as the kP = 2 builds, X8d and K2 at F = 1 on 1M rows 6-9 % longer,
+// and K2 on an OVB chunk the same.)
+constexpr int kQtThreads = 128;    // F >= 2 (256 ran 2 % slower)
+constexpr int kQtF1Threads = 256;  // F = 1 (128 ran X8d 15 % slower)
+constexpr int kQtPos = 4;  // positions whose loads go out together (any P)
+
+// kB values of one row loaded once and handed to every lane of the row: the
+// row's TPR lanes start at lane slot * TPR of the warp, lane j loads items
+// j, j + TPR, ... through load(b) (one load instruction serves the first
+// TPR items of every row of the warp), and item b comes by shuffle from
+// lane b % TPR of the row.  Every lane of the warp must call it.
+template <int kB, typename T, typename Load>
+__device__ __forceinline__ void row_share(int j, int TPR, int slot,
+                                          T (&out)[kB], Load load) {
+  T hold[kB];
+#pragma unroll
+  for (int h = 0; h < kB; ++h) {
+    const int b = j + h * TPR;
+    hold[h] = b < kB ? load(b) : T(0);
+  }
+#pragma unroll
+  for (int b = 0; b < kB; ++b) {
+    int h = 0;  // b / TPR, the same in every lane
+#pragma unroll
+    for (int i = 1; i < kB; ++i) h += b >= i * TPR;
+    T v = hold[0];
+#pragma unroll
+    for (int i = 1; i < kB; ++i) v = i == h ? hold[i] : v;
+    out[b] = __shfl_sync(svbfm::kFullMask, v, slot * TPR + b - h * TPR);
+  }
+}
+
+template <int V, int kP, bool kQOnly>
+__global__ void __launch_bounds__(kQtThreads)
+    build_qt_rows_kernel(const float* __restrict__ ptab, int64_t ld, int F,
+                         const int* __restrict__ ids,
+                         const float* __restrict__ vals, int64_t N,
+                         int P_any, int TPR, const float* __restrict__ q0,
+                         float* __restrict__ q, float* __restrict__ tq,
+                         float* __restrict__ tz) {
+  constexpr int kB = kP > 0 ? kP : kQtPos;  // positions a batch
+  const int P = kP > 0 ? kP : P_any;
+  const int lane = threadIdx.x & 31;
+  const int rpw = 32 / TPR;  // rows a warp
+  const int slot = lane / TPR;
+  const int j = lane - slot * TPR;
+  const int64_t n0 =
+      ((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) *
+      rpw;
+  if (n0 >= N) return;  // the whole warp leaves
+  const int64_t n = n0 + slot;
+  const bool valid = slot < rpw && n < N;
+  const int C = F / V;  // chunks a row
+  const int* nid = ids + n * P;
+  const float* nx = vals + n * P;
+  // lane j's chunks j, j + 32, ... in passes that are the same across the
+  // warp (the shuffles need every lane)
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    const int ch = c0 + j;
+    const bool on = valid && ch < C;
+    const int64_t o = n * F + ch * V;
+    float qa[V], tqa[V], tza[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) qa[k] = tqa[k] = tza[k] = 0.f;
+    if (on && q0 != nullptr) load_vec<V>(q0 + o, qa);
+    for (int p0 = 0; p0 < P; p0 += kB) {
+      int id[kB];
+      float xv[kB];
+      row_share<kB>(j, TPR, slot, id, [&](int b) {
+        return valid && p0 + b < P ? nid[p0 + b] : 0;
+      });
+      row_share<kB>(j, TPR, slot, xv, [&](int b) {
+        return valid && p0 + b < P ? nx[p0 + b] : 0.f;
+      });
+      float mu[kB][V], sg[kB][kQOnly ? 1 : V];
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        if (on && (kP > 0 || p0 + b < P)) {
+          const float* row =
+              ptab + static_cast<int64_t>(id[b]) * ld + ch * V;
+          load_vec<V>(row, mu[b]);
+          if constexpr (!kQOnly) load_vec<V>(row + F, sg[b]);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        if (on && (kP > 0 || p0 + b < P)) {
+          const float x = xv[b];
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            qa[k] += mu[b][k] * x;
+            if constexpr (!kQOnly) {
+              const float x2 = x * x;
+              tqa[k] += sg[b][k] * x2;
+              tza[k] += mu[b][k] * mu[b][k] * x2;
+            }
+          }
+        }
+      }
+    }
+    if (on) {
+      store_vec<V>(q + o, qa);
+      if constexpr (!kQOnly) {
+        store_vec<V>(tq + o, tqa);
+        store_vec<V>(tz + o, tza);
+      }
     }
   }
-  q[i] = qa;
-  if (!kQOnly) {
-    tq[i] = tqa;
-    tz[i] = tza;
+}
+
+// K2 at F = 1: a thread a row, mu at channel 0 and sig at channel 1 of its
+// ptab rows.  kP = 2: the row's two ids and two x in one 8-byte load each
+// (ids and vals 8-byte aligned), both positions' gathers issued together.
+template <int kP, bool kQOnly>
+__global__ void __launch_bounds__(kQtF1Threads)
+    build_qt_f1_kernel(const float* __restrict__ ptab, int64_t ld,
+                       const int* __restrict__ ids,
+                       const float* __restrict__ vals, int64_t N, int P_any,
+                       const float* __restrict__ q0, float* __restrict__ q,
+                       float* __restrict__ tq, float* __restrict__ tz) {
+  constexpr int kB = kP > 0 ? kP : kQtPos;  // positions a batch
+  const int P = kP > 0 ? kP : P_any;
+  const int64_t n =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float qa = q0 != nullptr ? q0[n] : 0.f, tqa = 0.f, tza = 0.f;
+  for (int p0 = 0; p0 < P; p0 += kB) {
+    int id[kB];
+    float xv[kB];
+    if constexpr (kP == 2) {
+      load_vec<2>(ids + n * 2, id);
+      load_vec<2>(vals + n * 2, xv);
+    } else {
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        const bool in = p0 + b < P;
+        id[b] = in ? ids[n * P + p0 + b] : 0;
+        xv[b] = in ? vals[n * P + p0 + b] : 0.f;
+      }
+    }
+    float mu[kB], sg[kB];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      if (kP > 0 || p0 + b < P) {
+        const float* g = ptab + static_cast<int64_t>(id[b]) * ld;
+        mu[b] = g[0];
+        if constexpr (!kQOnly) sg[b] = g[1];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      if (kP > 0 || p0 + b < P) {
+        const float x = xv[b];
+        qa += mu[b] * x;
+        if constexpr (!kQOnly) {
+          const float x2 = x * x;
+          tqa += sg[b] * x2;
+          tza += mu[b] * mu[b] * x2;
+        }
+      }
+    }
   }
+  q[n] = qa;
+  if constexpr (!kQOnly) {
+    tq[n] = tqa;
+    tz[n] = tza;
+  }
+}
+
+// K2's chunk width at F >= 2 (mirrored by kernels/vb_sweep.py:qt_plan):
+// the widest of 4, 2, 1 factors that divides F and ptab's row stride ld
+// and to whose size ptab, q0 and the caches are aligned.
+int qt_width(int F, int64_t ld, const float* ptab, const float* q0,
+             const float* q, const float* tq, const float* tz) {
+  int v = chunk_width(F, ptab, q0, q, tq, tz);
+  while (v > 1 && ld % v != 0) v /= 2;
+  return v;
+}
+
+// K2 (kQOnly: X8d) in its form for F, ptab and the caches (see above).
+template <bool kQOnly>
+int launch_qt(const float* ptab, int64_t ld, int F, const int* ids,
+              const float* vals, int64_t N, int P, const float* q0, float* q,
+              float* tq, float* tz, cudaStream_t stream) {
+  if (N == 0 || F == 0) return static_cast<int>(cudaSuccess);
+  if (F == 1) {
+    const unsigned blocks =
+        static_cast<unsigned>((N + kQtF1Threads - 1) / kQtF1Threads);
+    const bool p2 = P == 2 && aligned(ids, 8) && aligned(vals, 8);
+    auto kernel = p2 ? build_qt_f1_kernel<2, kQOnly>
+                     : build_qt_f1_kernel<0, kQOnly>;
+    kernel<<<blocks, kQtF1Threads, 0, stream>>>(ptab, ld, ids, vals, N, P,
+                                                q0, q, tq, tz);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int V = qt_width(F, ld, ptab, q0, q, tq, tz);
+  const int TPR = F / V < 32 ? F / V : 32;
+  const int64_t warps = (N + 32 / TPR - 1) / (32 / TPR);
+  const unsigned blocks =
+      static_cast<unsigned>((warps * 32 + kQtThreads - 1) / kQtThreads);
+  auto go = [&](auto v) {
+    constexpr int kV = decltype(v)::value;
+    auto kernel = P == 2 ? build_qt_rows_kernel<kV, 2, kQOnly>
+                         : build_qt_rows_kernel<kV, 0, kQOnly>;
+    kernel<<<blocks, kQtThreads, 0, stream>>>(ptab, ld, F, ids, vals, N, P,
+                                              TPR, q0, q, tq, tz);
+  };
+  if (V == 4) {
+    go(std::integral_constant<int, 4>());
+  } else if (V == 2) {
+    go(std::integral_constant<int, 2>());
+  } else {
+    go(std::integral_constant<int, 1>());
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- K3: per-column statistics + closed-form update of one bucket --------
@@ -544,24 +754,18 @@ SVBFM_EXPORT int svbfm_vb_build_qt(const float* ptab, int64_t ld, int F,
                                    const int* ids, const float* vals,
                                    int64_t N, int P, float* q, float* tq,
                                    float* tz, cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned blocks =
-      static_cast<unsigned>((N * F + threads - 1) / threads);
-  build_qt_kernel<false><<<blocks, threads, 0, stream>>>(ptab, ld, F, ids,
-                                                         vals, N, P, q, tq, tz);
-  return static_cast<int>(cudaGetLastError());
+  return launch_qt<false>(ptab, ld, F, ids, vals, N, P, nullptr, q, tq, tz,
+                          stream);
 }
 
-// X8d: q [N, F] alone from channels 0..F-1 of ptab [D, ld]
+// X8d: q [N, F] = q0 + sum_p ptab[id, f] x over channels 0..F-1 of ptab
+// [D, ld]; q0 [N, F] may be nullptr (0)
 SVBFM_EXPORT int svbfm_build_q(const float* ptab, int64_t ld, int F,
                                const int* ids, const float* vals, int64_t N,
-                               int P, float* q, cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned blocks =
-      static_cast<unsigned>((N * F + threads - 1) / threads);
-  build_qt_kernel<true><<<blocks, threads, 0, stream>>>(
-      ptab, ld, F, ids, vals, N, P, q, nullptr, nullptr);
-  return static_cast<int>(cudaGetLastError());
+                               int P, const float* q0, float* q,
+                               cudaStream_t stream) {
+  return launch_qt<true>(ptab, ld, F, ids, vals, N, P, q0, q, nullptr,
+                         nullptr, stream);
 }
 
 // One [C, L] bucket.  Writes mu_t/sig_t [D, F] and mu_w/sig_w [D] in place

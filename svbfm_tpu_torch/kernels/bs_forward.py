@@ -1,20 +1,27 @@
 """X10d: the block-structure forward pass and the data-row resync
-(``csrc/bs_forward.cu``).
+(``csrc/bs_forward.cu``; the joined scores in ``csrc/fm_forward.cu``).
 
-``bs_rel_moments`` builds a relation's row moments (lin | qB | sB) [R, 1+2K]
-from the parameter table, lanes over the channels of a row
-(``moments_plan``); ``bs_scores`` scores data rows from their main
+``bs_rel_moments`` builds a relation's moments rows (qB | lin | sumsB),
+K + 2 channels at a row stride of a multiple of 8 floats
+(``moments_table``), from the parameter table, lanes over the channels of
+a row (``moments_plan``); ``bs_scores`` scores data rows from their main
 row layout and each relation's moments at the joined row, never
-materialising the join; ``bs_resync`` carries a relation sweep's per-row
-deltas back to the data rows (e += sum dy[j] + sum qO dqB[j], q += dqB[j]),
-and with no e builds the q cache (q += qB[j]).  On CUDA tensors each op
-launches its hand-written kernel; on CPU tensors it runs the plain PyTorch
-twin beside it, the JAX arithmetic.  The resync's form (``resync_plan``)
-follows F and its operands' alignment: four data rows a thread at F = 1,
-lanes over 16-byte (else 8- or 4-byte) chunks of a row at F >= 2.
-``bs_scores`` takes any number of relations: the kernel reads their joins
-and moment tables through two device arrays of pointers
-(``pointer_table``), built once per set of tensors.
+materialising the join: K1a's kernel in its relations mode
+(``scores_plan``), which reads any number of relations through two device
+arrays of pointers (``pointer_table``), built once per set of tensors;
+``bs_resync`` carries a relation sweep's per-row deltas back to the data
+rows (e += sum dy[j] + sum qO dqB[j], q += dqB[j]), and with no e builds
+the q cache (q += qB[j]).  On CUDA tensors each op launches its
+hand-written kernel; on CPU tensors it runs the plain PyTorch twin beside
+it, the JAX arithmetic.  The resync's form (``resync_plan``) follows F and
+its operands' alignment: four data rows a thread at F = 1, lanes over
+16-byte (else 8- or 4-byte) chunks of a row at F >= 2.
+
+The scores use a relation row's sB only through its sum over the factors
+(1/2 sum_f (s_f^2 - s2_f), s2_f = sum_p (v_f x)^2 + sum_r sB_r,f), so a
+moments row holds that sum alone: 24 floats at K = 20, three 32-byte
+sectors for the scores' gathers, where (lin | qB | sB) took 41 at no
+alignment, six or seven.
 
 Layouts (see ``csrc/bs_forward.cu``): stab [D_all, 1+K] = (w | v^T), as
 kernel K1 reads it; rids/rvals [R, Pr] a relation's row layout in its local
@@ -32,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from svbfm_tpu_torch.kernels import build
+from svbfm_tpu_torch.kernels.fm_forward import fm_lanes
 
 _I32, _F32 = torch.int32, torch.float32
 
@@ -60,29 +68,66 @@ def moments_plan(K: int) -> MomentsPlan:
     return MomentsPlan(G, 3, 32 // G)
 
 
+def moments_stride(K: int) -> int:
+    """A moments row's stride: K + 2 channels rounded up to 8 floats, so
+    that every row starts on a 32-byte sector (24 at K = 20)."""
+    return -(-(K + 2) // 8) * 8
+
+
+def moments_table(R: int, K: int, device) -> torch.Tensor:
+    """A moments table to write into: the [R, K+2] view of the channels of
+    an [R, moments_stride(K)] buffer.  Its padding is never written or
+    read."""
+    return torch.empty(R, moments_stride(K), dtype=_F32,
+                       device=device)[:, :K + 2]
+
+
+def lane_tree_sum(c, lanes: int):
+    """The moments kernel's sum of ``c`` [R, C] over its channels 1..C-1
+    in its order: lane l sums channels l, l + lanes, ... in ascending
+    order (channel 0, lin, adds nothing), then lane l adds lane l + d for
+    d = 1, 2, 4, ... below ``lanes`` (the segmented shuffle); lane 0's
+    sum."""
+    R, C = c.shape
+    M = -(-C // lanes)
+    t = torch.zeros(R, M * lanes, dtype=c.dtype, device=c.device)
+    t[:, 1:C] = c[:, 1:]
+    t = t.view(R, M, lanes)
+    part = t[:, 0]
+    for m in range(1, M):
+        part = part + t[:, m]
+    d = 1
+    while d < lanes:
+        part = torch.cat([part[:, :lanes - d] + part[:, d:],
+                          part[:, lanes - d:]], 1)
+        d *= 2
+    return part[:, 0]
+
+
 def bs_rel_moments_plain(rids, rvals, stab, off: int, k1: bool = True):
-    """[R, 1+2K] = (lin | qB | sB) over the relation's positions in order
-    (mcmc_bs.py:230-234, :251-258); lin is 0 without k1."""
+    """(qB | lin | sumsB) [R, K+2] over the relation's positions in order
+    (mcmc_bs.py:230-234, :251-258), at ``moments_table``'s stride; lin is 0
+    without k1; sumsB = sum_f sB_f in the kernel's order
+    (``lane_tree_sum``)."""
     R = rids.shape[0]
     K = stab.shape[1] - 1
-    lin = torch.zeros(R, dtype=_F32, device=stab.device)
-    qB = torch.zeros(R, K, dtype=_F32, device=stab.device)
-    sB = torch.zeros_like(qB)
+    s = torch.zeros(R, K + 1, dtype=_F32, device=stab.device)
+    s2 = torch.zeros_like(s)
     for p in range(rids.shape[1]):
-        g = stab.index_select(0, rids[:, p] + off)
-        xp = rvals[:, p]
-        if k1:
-            lin = lin + g[:, 0] * xp
-        d = g[:, 1:] * xp[:, None]
-        qB = qB + d
-        sB = sB + d * d
-    return torch.cat([lin[:, None], qB, sB], 1)
+        d = stab.index_select(0, rids[:, p] + off) * rvals[:, p, None]
+        s = s + d
+        s2 = s2 + d * d
+    out = moments_table(R, K, stab.device)
+    out[:, :K] = s[:, 1:]
+    out[:, K] = s[:, 0] if k1 else 0.0
+    out[:, K + 1] = lane_tree_sum(s2, moments_plan(K).lanes)
+    return out
 
 
 def bs_rel_moments(rids, rvals, stab, off: int, k1: bool = True, out=None):
-    """The moments [R, 1+2K]; written into ``out`` when one is given (a
-    table whose address stays fixed, so that ``bs_scores`` finds its
-    pointer table built)."""
+    """The moments [R, K+2]; written into ``out`` when one is given (a
+    ``moments_table`` whose address stays fixed, so that ``bs_scores``
+    finds its pointer table built)."""
     if build.on_cpu(rids):
         m = bs_rel_moments_plain(rids, rvals, stab, off, k1)
         return m if out is None else out.copy_(m)
@@ -94,24 +139,55 @@ def bs_rel_moments(rids, rvals, stab, off: int, k1: bool = True, out=None):
     build.require(stab, _F32, (stab.shape[0], K + 1), dev,
                   "bs_rel_moments.stab")
     if out is None:
-        out = torch.empty(R, 1 + 2 * K, dtype=_F32, device=dev)
-    build.require(out, _F32, (R, 1 + 2 * K), dev, "bs_rel_moments.out")
+        out = moments_table(R, K, dev)
+    ldm = build.require_rows(out, _F32, (R, K + 2), dev, "bs_rel_moments.out")
     if R == 0:
         return out
     lib = build.load_library("bs_forward")
     with torch.cuda.device(dev):
         rc = lib.svbfm_bs_rel_moments(
             build.ptr(rids), build.ptr(rvals), R, Pr, build.ptr(stab), off, K,
-            int(k1), build.ptr(out), build.stream_of(rids))
+            int(k1), build.ptr(out), ldm, build.stream_of(rids))
     build.check_launch(lib, rc, "bs_rel_moments")
     return out
 
 
 # ---- the joined scores --------------------------------------------------------
 
+class ScoresPlan(NamedTuple):
+    vec: int     # floats a moments-row load (4 or 1)
+    lanes: int   # lanes a data row (4-factor chunks)
+    rows: int    # data rows a warp
+    build: str   # "p1": the kernel built for rows of one position; "any"
+    stride: int  # the moments rows' stride
+
+
+def scores_plan(K: int, P: int, ldm: int, aligned: bool) -> ScoresPlan:
+    """``bs_scores``' form (``csrc/fm_forward.cu:svbfm_bs_scores``,
+    ``moments_width``, ``row_lanes``): K1a's lanes and rows at K, its
+    build for rows of one position, and moments rows read in
+    16-byte loads where K and their stride ``ldm`` are multiples of 4 and
+    every table's base is 16-byte aligned (``aligned``), else 4-byte
+    loads."""
+    vec = 4 if K > 0 and K % 4 == 0 and ldm % 4 == 0 and aligned else 1
+    lanes = fm_lanes(K)
+    return ScoresPlan(vec, lanes, 32 // lanes,
+                      "p1" if P == 1 else "any", ldm)
+
+
+def scores_plan_of(stab, ids, moms) -> ScoresPlan:
+    """``scores_plan`` for the tensors of one ``bs_scores`` call."""
+    K = stab.shape[1] - 1
+    ldm = moms[0].stride(0) if moms else moments_stride(K)
+    return scores_plan(K, ids.shape[1], ldm,
+                       all(m.data_ptr() % 16 == 0 for m in moms))
+
+
 def bs_scores_plain(stab, w0, ids, vals, joins, moms):
     """Scores [N] (mcmc_bs.py:224-268): the main row layout, then each
-    relation's moments at the joined row."""
+    relation's moments row at the joined row,
+    w0 + sum w x + sum_r lin_r + 1/2 [sum_f (s_f^2 - s2_f) - sum_r sumsB_r]
+    with s_f = sum_p v_f x + sum_r qB_r,f and s2_f = sum_p (v_f x)^2."""
     K = stab.shape[1] - 1
     acc = w0 + torch.zeros(ids.shape[0], dtype=_F32, device=stab.device)
     s = s2 = 0.0
@@ -123,20 +199,21 @@ def bs_scores_plain(stab, w0, ids, vals, joins, moms):
         s = s + d
         s2 = s2 + d * d
     for j, m in zip(joins, moms):
-        acc = acc + m[:, 0].index_select(0, j)
+        acc = acc + m[:, K].index_select(0, j)
     if K == 0:
         return acc
+    sb = 0.0
     for j, m in zip(joins, moms):
         g = m.index_select(0, j)
-        s = s + g[:, 1:1 + K]
-        s2 = s2 + g[:, 1 + K:]
-    return acc + 0.5 * (s * s - s2).sum(1)
+        s = s + g[:, :K]
+        sb = sb + g[:, K + 1]
+    return acc + 0.5 * ((s * s - s2).sum(1) - sb)
 
 
 def pointer_table(tensors, dev) -> torch.Tensor:
     """int64 [n] of the tensors' ``data_ptr()``s on ``dev``
-    (``build.device_table``): the device array through which
-    ``bs_scores_kernel`` reads any number of relations."""
+    (``build.device_table``): the device arrays through which
+    ``bs_scores`` reads any number of relations."""
     return build.device_table(tuple(t.data_ptr() for t in tensors) or (0,),
                               dev)
 
@@ -148,26 +225,34 @@ def bs_scores(stab, w0, ids, vals, joins, moms):
     K = stab.shape[1] - 1
     dev = ids.device
     req = build.require
-    req(stab, _F32, (stab.shape[0], K + 1), dev, "bs_scores.stab")
+    ld = build.require_rows(stab, _F32, (stab.shape[0], K + 1), dev,
+                            "bs_scores.stab")
     req(w0, _F32, (), dev, "bs_scores.w0")
     req(ids, _I32, (N, P), dev, "bs_scores.ids")
     req(vals, _F32, (N, P), dev, "bs_scores.vals")
     if len(joins) != len(moms):
         raise ValueError(f"bs_scores: {len(joins)} joins, {len(moms)} "
                          "moment tables")
+    strides = set()
     for r, (j, m) in enumerate(zip(joins, moms)):
         req(j, _I32, (N,), dev, f"bs_scores.joins[{r}]")
-        req(m, _F32, (m.shape[0], 1 + 2 * K), dev, f"bs_scores.moms[{r}]")
+        strides.add(build.require_rows(m, _F32, (m.shape[0], K + 2), dev,
+                                       f"bs_scores.moms[{r}]"))
+    if len(strides) > 1:
+        raise ValueError(f"bs_scores: the moments tables' row strides "
+                         f"differ ({sorted(strides)})")
+    ldm = strides.pop() if strides else moments_stride(K)
     out = torch.empty(N, dtype=_F32, device=dev)
     if N == 0:
         return out
+    aligned = all(m.data_ptr() % 16 == 0 for m in moms)
     jp, mp = pointer_table(joins, dev), pointer_table(moms, dev)
-    lib = build.load_library("bs_forward")
+    lib = build.load_library("fm_forward")
     with torch.cuda.device(dev):
         rc = lib.svbfm_bs_scores(
-            build.ptr(stab), K, build.ptr(w0), build.ptr(ids),
+            build.ptr(stab), ld, K, build.ptr(w0), build.ptr(ids),
             build.ptr(vals), N, P, len(joins), build.ptr(jp), build.ptr(mp),
-            build.ptr(out), build.stream_of(ids))
+            ldm, int(aligned), build.ptr(out), build.stream_of(ids))
     build.check_launch(lib, rc, "bs_scores")
     return out
 

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # one source file per library; the kernels each library holds
 LIBRARIES = {
-    "fm_forward": ("fm_scores", "fm_t_terms"),
+    "fm_forward": ("fm_scores", "fm_t_terms", "bs_scores"),
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
                  "w_patch_rows", "build_q"),
     "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step"),
@@ -45,7 +45,7 @@ LIBRARIES = {
     "sgd_step": ("sgd_grad_scatter", "sgd_apply", "sgda_lambda"),
     "bs_sweep": ("bs_join_agg", "bs_rel_draw", "bs_rel_w_draw",
                  "bs_rel_patch", "bs_rel_w_patch"),
-    "bs_forward": ("bs_rel_moments", "bs_scores", "bs_resync"),
+    "bs_forward": ("bs_rel_moments", "bs_resync"),
 }
 
 # C signatures of the exported launch functions (P: pointer or stream,
@@ -67,7 +67,7 @@ SIGNATURES = {
     "svbfm_ovb_col_stats_update": (
         _P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P),
-    "svbfm_build_q": (_P, _L, _I, _P, _P, _L, _I, _P, _P),
+    "svbfm_build_q": (_P, _L, _I, _P, _P, _L, _I, _P, _P, _P),
     "svbfm_mcmc_w_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P),
     "svbfm_mcmc_col_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
@@ -83,8 +83,9 @@ SIGNATURES = {
                             _P, _P, _P, _P, _P, _L, _P, _P, _P, _P),
     "svbfm_bs_rel_patch": (_P, _P, _L, _I, _P, _I, _P, _I, _P, _P, _P),
     "svbfm_bs_rel_w_patch": (_P, _P, _L, _I, _P, _I, _P, _P, _P, _P),
-    "svbfm_bs_rel_moments": (_P, _P, _L, _I, _P, _L, _I, _I, _P, _P),
-    "svbfm_bs_scores": (_P, _I, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P),
+    "svbfm_bs_rel_moments": (_P, _P, _L, _I, _P, _L, _I, _I, _P, _L, _P),
+    "svbfm_bs_scores": (_P, _L, _I, _P, _P, _P, _L, _I, _I, _P, _P, _L, _I,
+                        _P, _P),
     "svbfm_bs_resync": (_P, _L, _I, _P, _P, _L, _P, _P, _P, _P),
     "svbfm_gather_probe": (_P, _P, _L, _I, _P, _P),
     "svbfm_sgd_grad_scatter": (

@@ -30,6 +30,12 @@ class FMPlan(NamedTuple):
     build: str  # "p2": the kernel built for rows of two positions; "any"
 
 
+def fm_lanes(K: int) -> int:
+    """Lanes a row (``csrc/fm_forward.cu:row_lanes``): min(ceil(K / 4),
+    32), 1 at K = 0."""
+    return max(1, min(-(-K // _CHUNK), 32))
+
+
 def fm_plan(tab: torch.Tensor, K: int, P: int) -> FMPlan:
     """K1's form for its table ``tab`` (a [D, 1+K] or [D, 1+2K] view at row
     stride ``tab.stride(0)``) and rows of P positions
@@ -40,7 +46,7 @@ def fm_plan(tab: torch.Tensor, K: int, P: int) -> FMPlan:
     warp (5 lanes, 6 rows at K = 20)."""
     wide = (K > 0 and K % 4 == 0 and tab.stride(0) % 4 == 0
             and (tab.data_ptr() + 4) % 16 == 0)
-    lanes = max(1, min(-(-K // _CHUNK), 32))
+    lanes = fm_lanes(K)
     return FMPlan(4 if wide else 1, lanes, 32 // lanes,
                   "p2" if P == 2 else "any")
 

@@ -1,7 +1,9 @@
 """K2-K4: the batch VBFM factor-block sweep (``csrc/vb_sweep.cu``).
 
 ``vb_build_qt`` (K2) builds the row caches q, tq, tz, and ``build_q`` (X8d,
-K2's q-only instantiation) the MCMC/ALS cache q alone;
+K2's q-only instantiation) the MCMC/ALS cache q alone, from a starting q
+where one is given (``qt_plan``: the form, a thread a row at F = 1, lanes
+over a row's chunks at F >= 2);
 ``vb_col_stats_update`` (K3) computes one degree bucket's per-column
 statistics and applies the closed-form update; ``vb_patch_rows`` (K4)
 patches the row caches after a bin; ``w_patch_rows`` is K4 at F = 0, the w
@@ -25,7 +27,7 @@ K2 and K4 also serve the online VB factor sweep (``learners/vb_online.py``;
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,6 +38,50 @@ _I32, _F32 = torch.int32, torch.float32
 
 
 # ---- K2 ---------------------------------------------------------------------
+
+class QtPlan(NamedTuple):
+    """K2's (and X8d's) form: "rows" (F = 1: a thread a row) or "chunks"
+    (F >= 2: ``lanes`` lanes a row over chunks of ``vec`` factors, ``rows``
+    rows a warp); ``build`` "p2" (rows of two positions) or "any"."""
+
+    form: str
+    vec: int
+    lanes: int
+    rows: int
+    build: str
+
+
+def qt_plan(F: int, P: int, ld: int, addrs: dict) -> QtPlan:
+    """K2's form at F factors, rows of P positions, ptab's row stride ld and
+    the operands' device addresses ``addrs`` (ptab, ids, vals, q0, q, tq,
+    tz; 0 or absent for one not given), a function of F, P, ld and of
+    alignment (``csrc/vb_sweep.cu:launch_qt``, ``qt_width``): at F = 1 a
+    thread a row, the P = 2 build where ids and vals are 8-byte aligned; at
+    F >= 2 the widest of 4, 2, 1 factors a chunk that divides F and ld and
+    to whose size ptab, q0 and the caches are aligned, min(F / vec, 32)
+    lanes a row (5 at F = 20 on a [D, 2F] table, 10 on K2's fast-mode
+    [D, 5F + 2])."""
+    a = {k: addrs.get(k, 0) for k in ("ptab", "ids", "vals", "q0", "q", "tq",
+                                      "tz")}
+    if F == 1:
+        p2 = P == 2 and a["ids"] % 8 == 0 and a["vals"] % 8 == 0
+        return QtPlan("rows", 1, 1, 32, "p2" if p2 else "any")
+    vec = next((v for v in (4, 2) if F % v == 0 and ld % v == 0
+                and all(a[k] % (4 * v) == 0
+                        for k in ("ptab", "q0", "q", "tq", "tz"))), 1)
+    lanes = min(F // vec, 32)
+    return QtPlan("chunks", vec, lanes, 32 // lanes,
+                  "p2" if P == 2 else "any")
+
+
+def qt_plan_of(ptab, F: int, ids, vals, q0=None, caches=()) -> QtPlan:
+    """``qt_plan`` for the tensors of one call; ``caches``: the q (tq, tz)
+    it writes, whose addresses the wrapper allocates."""
+    ts = dict(ptab=ptab, ids=ids, vals=vals, q0=q0,
+              **dict(zip(("q", "tq", "tz"), caches)))
+    return qt_plan(F, ids.shape[1], ptab.stride(0),
+                   {k: t.data_ptr() for k, t in ts.items() if t is not None})
+
 
 def vb_build_qt_plain(ptab, F: int, ids, vals):
     """q = sum_p mu x, tq = sum_p sig x^2, tz = sum_p mu^2 x^2, each [N, F],
@@ -83,17 +129,21 @@ def vb_build_qt(ptab, F: int, ids, vals):
 
 # ---- X8d: K2's q channel alone ---------------------------------------------
 
-def build_q_plain(ptab, F: int, ids, vals):
-    """q [N, F] = sum_p ptab[id, f] x over channels 0..F-1 of ``ptab``."""
-    q = torch.zeros(ids.shape[0], F, dtype=_F32, device=ptab.device)
+def build_q_plain(ptab, F: int, ids, vals, q0=None):
+    """q [N, F] = q0 + sum_p ptab[id, f] x over channels 0..F-1 of
+    ``ptab``, the positions added onto q0 (0 where None) in order, as JAX
+    adds them onto its ``q_extra`` (svbfm_tpu/learners/mcmc.py:337-347)."""
+    q = (torch.zeros(ids.shape[0], F, dtype=_F32, device=ptab.device)
+         if q0 is None else q0.clone())
     for p in range(ids.shape[1]):
         q = q + ptab.index_select(0, ids[:, p])[:, :F] * vals[:, p, None]
     return q
 
 
-def build_q(ptab, F: int, ids, vals):
+def build_q(ptab, F: int, ids, vals, q0=None):
+    """X8d: q [N, F] from its starting value q0 [N, F] (None: 0)."""
     if build.on_cpu(ids):
-        return build_q_plain(ptab, F, ids, vals)
+        return build_q_plain(ptab, F, ids, vals, q0)
     N, P = ids.shape
     dev = ids.device
     if ptab.dim() != 2 or ptab.shape[1] < F:
@@ -102,6 +152,8 @@ def build_q(ptab, F: int, ids, vals):
     build.require(ptab, _F32, ptab.shape, dev, "build_q.ptab")
     build.require(ids, _I32, (N, P), dev, "build_q.ids")
     build.require(vals, _F32, (N, P), dev, "build_q.vals")
+    if q0 is not None:
+        build.require(q0, _F32, (N, F), dev, "build_q.q0")
     q = torch.empty(N, F, dtype=_F32, device=dev)
     if N * F == 0:
         return q.zero_()
@@ -109,6 +161,7 @@ def build_q(ptab, F: int, ids, vals):
     with torch.cuda.device(dev):
         rc = lib.svbfm_build_q(build.ptr(ptab), ptab.shape[1], F,
                                build.ptr(ids), build.ptr(vals), N, P,
+                               None if q0 is None else build.ptr(q0),
                                build.ptr(q), build.stream_of(ids))
     build.check_launch(lib, rc, "build_q")
     return q

@@ -264,9 +264,10 @@ def _v_block_pass(e, v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
     v_t [D, F]; ``mu_gf``/``lam_gf`` [G, F] are the block's group priors.
     Per bin: the patch table ``ptab`` [D, 2F] takes the pre-bin v and
     zeroed dv channels; X8a draws each bucket's columns into v_t and fills
-    their dv; X8b patches q and e from ``ptab``.  ``q_extra`` [N, F] adds
-    the non-main part of the q cache (the block-structure learner's
-    relation qB gathers, mcmc.py:344-348).  Returns the q cache after the
+    their dv; X8b patches q and e from ``ptab``.  ``q_extra`` [N, F] is the
+    non-main part of the q cache (the block-structure learner's relation
+    qB gathers, mcmc.py:344-348), X8d's starting q: the positions add onto
+    it, in JAX's order.  Returns the q cache after the
     sweep (None when the plan has no bin)."""
     D, F = v_t.shape
     dev = v_t.device
@@ -279,9 +280,7 @@ def _v_block_pass(e, v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
         ptab[:, :F] = v_t
         ptab[:, F:].zero_()
         if bi == 0:
-            q = build_q(ptab, F, row.ids, row.vals)
-            if q_extra is not None:
-                q += q_extra
+            q = build_q(ptab, F, row.ids, row.vals, q_extra)
         for blk in bin_blocks:
             mcmc_col_draw(blk.rows, blk.x, blk.cols, blk.group, e, q, ptab,
                           v_t, mu_gf, lam_gf, alpha, z, exact_seq, nans)

@@ -51,7 +51,7 @@ from svbfm_tpu_torch.data.libfm_text import COOData
 from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.data.relation import RelationData
 from svbfm_tpu_torch.kernels.bs_forward import (bs_rel_moments, bs_resync,
-                                                bs_scores)
+                                                bs_scores, moments_table)
 from svbfm_tpu_torch.kernels.bs_sweep import (RealCounts, bs_join_agg,
                                               bs_rel_draw, bs_rel_patch,
                                               bs_rel_w_draw, bs_rel_w_patch,
@@ -215,7 +215,7 @@ def bs_score_rows(w0, w, v, ids, vals, rels, rstats, joins,
                   moms_out=None) -> torch.Tensor:
     """FM scores of data rows from their main row layout and each
     relation's moments at its joined row (mcmc_bs.py:215-268), any number
-    of relations.  ``moms_out``: one [R, 1+2K] table a relation to build
+    of relations.  ``moms_out``: one [R, K+2] table a relation to build
     the moments in (the learner's, at fixed addresses), or None."""
     stab = param_table(w, v, k1)
     outs = moms_out if moms_out is not None else [None] * len(rels)
@@ -415,7 +415,7 @@ def bs_draw_all(state: MCMCState, row: RowData, plan: PlanData, rels, rstats,
         # every factor's qB from the pre-sweep v, in one pass a relation
         stab = param_table(w, v, cfg.k1)
         qB_pre = [bs_rel_moments(rd.rrow_ids, rd.rrow_vals, stab,
-                                 rs.attr_offset, cfg.k1)[:, 1:1 + K]
+                                 rs.attr_offset, cfg.k1)[:, :K]
                   for rd, rs in zip(rels, rstats)]
         if F > 1 and K % F == 0:
             _bs_v_blocked(e, v, v_mu, v_lambda, alpha, plan, row, rels,
@@ -488,8 +488,8 @@ class MCMCBSLearner(MCMCLearner):
         # the scores' moment tables stay at one address, so bs_scores
         # builds its device arrays of pointers to them once
         self.score_moms = tuple(
-            torch.empty(s.num_rows, 1 + 2 * cfg.num_factor, dtype=_F32,
-                        device=self.device) for s in stats)
+            moments_table(s.num_rows, cfg.num_factor, self.device)
+            for s in stats)
 
     def bs_scores(self, w0, w, v, test: bool = False) -> torch.Tensor:
         """Scores of the train (or test) rows (JAX: ``_bs_scores_tr``)."""

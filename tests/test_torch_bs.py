@@ -827,9 +827,11 @@ def test_moments_plan_covers_every_channel_once(K, G, ch):
 @pytest.mark.parametrize("K,Pr", [(0, 3), (1, 1), (5, 21), (20, 21),
                                   (33, 40)])
 def test_moments_twin_is_the_float64_sum(K, Pr, k1):
-    """bs_rel_moments_plain, the moments kernel's twin: (lin | qB | sB) of
-    each relation row over its positions, padding entries (x = 0) among
-    them, equal to a float64 numpy sum; lin is 0 without k1."""
+    """bs_rel_moments_plain, the moments kernel's twin: (qB | lin | sumsB)
+    of each relation row over its positions, padding entries (x = 0) among
+    them, sumsB = sum_f sB_f, equal to a float64 numpy sum, at the
+    moments table's stride (a multiple of 8 floats); lin is 0 without
+    k1."""
     from svbfm_tpu_torch.kernels import bs_forward as kf
 
     rng = np.random.default_rng(10 * K + Pr)
@@ -843,12 +845,16 @@ def test_moments_twin_is_the_float64_sum(K, Pr, k1):
                                   torch.from_numpy(stab), off, k1).numpy()
     d = stab.astype(np.float64)[off + rids] * rvals[..., None]  # [R, Pr, C]
     lin = d[..., 0].sum(1) if k1 else np.zeros(R)
-    want = np.concatenate([lin[:, None], d[..., 1:].sum(1),
-                           (d[..., 1:] ** 2).sum(1)], 1)
-    assert got.shape == (R, 1 + 2 * K)
+    want = np.concatenate([d[..., 1:].sum(1), lin[:, None],
+                           (d[..., 1:] ** 2).sum((1, 2))[:, None]], 1)
+    m = kf.bs_rel_moments_plain(torch.from_numpy(rids),
+                                torch.from_numpy(rvals),
+                                torch.from_numpy(stab), off, k1)
+    assert got.shape == (R, K + 2)
+    assert m.stride(0) == kf.moments_stride(K) and m.stride(0) % 8 == 0
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     if not k1:
-        assert (got[:, 0] == 0).all()
+        assert (got[:, K] == 0).all()
 
 
 @pytest.mark.parametrize("case", ["wide=6", "empty main, two relations"])
@@ -873,6 +879,187 @@ def test_moments_qb_matches_jax_qb_pre(case):
             qB = qB + (jnp.take(v_r, jrd.rrow_ids[:, p], axis=-1)
                        * jrd.rrow_vals[:, p][None])
         got = kf.bs_rel_moments_plain(rd.rrow_ids, rd.rrow_vals, stab,
-                                      rs.attr_offset)[:, 1:1 + K]
+                                      rs.attr_offset)[:, :K]
         np.testing.assert_allclose(got.numpy().T, np.asarray(qB), rtol=1e-6,
                                    atol=1e-7)
+
+
+def test_lane_tree_sum_is_the_kernel_order():
+    """lane_tree_sum, the twin's sumsB, walks the moments kernel's order
+    (csrc/bs_forward.cu:rel_moments_kernel): each lane's channels in
+    ascending c from 0, then the segmented shuffle, lane l adding lane
+    l + d for d = 1, 2, 4, ...; replayed here in float32, bit for bit, at
+    every lane count the kernel takes."""
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    rng = np.random.default_rng(5)
+    for K in (0, 1, 3, 8, 20, 33, 130):
+        G = kf.moments_plan(K).lanes
+        c = rng.normal(0, 1, (6, K + 1)).astype(np.float32)
+        want = np.zeros(6, np.float32)
+        for r in range(6):
+            lane = [np.float32(0)] * G
+            for ch in range(1, K + 1):
+                lane[ch % G] = np.float32(lane[ch % G] + c[r, ch])
+            d = 1
+            while d < G:
+                lane = [np.float32(lane[i] + lane[i + d]) if i + d < G
+                        else lane[i] for i in range(G)]
+                d *= 2
+            want[r] = lane[0]
+        got = kf.lane_tree_sum(torch.from_numpy(c), G).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"K={K}")
+
+
+@pytest.mark.parametrize("K,P,ldm,aligned,plan", [
+    (20, 1, 24, True, (4, 5, 6, "p1", 24)),
+    (20, 2, 24, True, (4, 5, 6, "any", 24)),
+    (20, 1, 24, False, (1, 5, 6, "p1", 24)),
+    (20, 3, 22, True, (1, 5, 6, "any", 22)),  # a contiguous [R, K+2]
+    (0, 1, 8, True, (1, 1, 32, "p1", 8)),
+    (1, 3, 8, True, (1, 1, 32, "any", 8)),
+    (3, 2, 8, True, (1, 1, 32, "any", 8)),
+    (8, 1, 16, True, (4, 2, 16, "p1", 16)),
+    (33, 1, 40, True, (1, 9, 3, "p1", 40)),
+    (128, 4, 136, True, (4, 32, 1, "any", 136)),
+    (130, 2, 136, True, (1, 32, 1, "any", 136))])
+def test_scores_plan_is_the_cu_rule(K, P, ldm, aligned, plan):
+    """bs_scores' form (csrc/fm_forward.cu:svbfm_bs_scores,
+    moments_width, row_lanes): K1a's lanes and rows, its P = 1 build
+    (rows of two positions take the any-P build), 16-byte moments loads where K and the rows' stride are multiples of 4
+    and the tables' bases 16-byte aligned, else 4-byte loads; the
+    stride moments_table gives is K + 2 rounded up to 8.  Walking the
+    launch over a ragged N reaches every (row, chunk) once, and each
+    row's relation rider (lin, sumsB) on one lane, its last chunk's."""
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    p = kf.scores_plan(K, P, ldm, aligned)
+    assert tuple(p) == plan
+    if ldm % 8 == 0:
+        assert kf.moments_stride(K) == ldm
+    N, G = 53, -(-K // 4)
+    warps = -(-N // p.rows)
+    seen, rider = [], []
+    for w in range(warps):
+        for lane in range(32):
+            slot, j = divmod(lane, p.lanes)
+            n = w * p.rows + slot
+            if slot >= p.rows or n >= N:
+                continue
+            for c0 in range(0, max(G, 1), 32):  # the warp's passes
+                ch = c0 + j
+                if ch < G:
+                    seen.append((n, ch))
+                if ch == max(G - 1, 0):
+                    rider.append(n)
+    assert sorted(seen) == [(n, c) for n in range(N) for c in range(G)]
+    assert sorted(rider) == list(range(N))
+
+
+def _rel_case(rng, K, nrel, N=41, Dm=7, P=2):
+    """A main block of Dm attributes over P positions (padding entries at
+    attribute 0, x = 0), ``nrel`` relations of 3 + 2r rows over 5
+    attributes in 3 positions each (padding among them), their joins, and
+    parameters: numpy arrays."""
+    ids = rng.integers(0, Dm, (N, P)).astype(np.int32)
+    vals = rng.uniform(-1, 2, (N, P)).astype(np.float32)
+    ids[::4, -1], vals[::4, -1] = 0, 0.0
+    rels, off = [], Dm
+    for r in range(nrel):
+        R, Dr = 3 + 2 * r, 5
+        rid = rng.integers(0, Dr, (R, 3)).astype(np.int32)
+        rx = rng.uniform(-1, 2, (R, 3)).astype(np.float32)
+        rx[::2, -1] = 0.0
+        rels.append(dict(ids=rid, vals=rx, off=off, R=R, Dr=Dr,
+                         join=rng.integers(0, R, N).astype(np.int32)))
+        off += Dr
+    w = rng.normal(0, 0.5, off).astype(np.float32)
+    v = rng.normal(0, 0.3, (K, off)).astype(np.float32)
+    return ids, vals, rels, np.float32(0.3), w, v
+
+
+def _joined_positions(ids, vals, rels):
+    """Each data row's positions in the materialised join: (attribute, x)
+    pairs of its main row and of each relation's joined row, padding
+    entries among them (a repeated attribute stays two positions, as in
+    the row layout)."""
+    out = []
+    for n in range(ids.shape[0]):
+        pos = list(zip(ids[n], vals[n]))
+        for r in rels:
+            j = r["join"][n]
+            pos += [(r["off"] + i, x) for i, x in zip(r["ids"][j],
+                                                     r["vals"][j])]
+        out.append(pos)
+    return out
+
+
+@pytest.mark.parametrize("k0k1", [(True, True), (False, False)])
+@pytest.mark.parametrize("nrel", [0, 1, 2, 9])
+@pytest.mark.parametrize("K", [0, 1, 3, 8, 20, 33])
+def test_bs_scores_match_jax_and_float64(K, nrel, k0k1):
+    """The moments twin's row (qB | lin | sumsB), bs_scores_plain and
+    bs_score_rows (the learners' scores) against svbfm_tpu's bs_scores
+    (the function the JAX learner's _bs_scores_tr runs) and against a
+    float64 sum over the materialised join, at K = 0-33, with 0, 1, 2 and
+    9 relations and k0/k1 on and off.  Scores: rtol 1e-5 / atol 1e-5 (one
+    float32 sum a row in another order, sumsB among it); the moments: the
+    same against float64."""
+    import types
+
+    import jax.numpy as jnp
+
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    k0, k1 = k0k1
+    rng = np.random.default_rng(100 * K + 10 * nrel + k0)
+    ids, vals, rels, w0, w, v = _rel_case(rng, K, nrel)
+    stab = tbs.param_table(torch.from_numpy(w), torch.from_numpy(v), k1)
+    for r in rels:
+        m = kf.bs_rel_moments_plain(torch.from_numpy(r["ids"]),
+                                    torch.from_numpy(r["vals"]), stab,
+                                    r["off"], k1).numpy()
+        d = (np.concatenate([w[:, None], v.T], 1).astype(np.float64)
+             [r["off"] + r["ids"]] * r["vals"][..., None])
+        want = np.concatenate([d[..., 1:].sum(1), (d[..., 0].sum(1) if k1
+                                                   else np.zeros(r["R"]))[:, None],
+                               (d[..., 1:] ** 2).sum((1, 2))[:, None]], 1)
+        np.testing.assert_allclose(m, want, rtol=1e-5, atol=1e-5)
+
+    want64 = np.zeros(ids.shape[0])
+    for n, pos in enumerate(_joined_positions(ids, vals, rels)):
+        a = np.array([i for i, _ in pos])
+        x = np.array([x for _, x in pos], np.float64)
+        d = v.astype(np.float64)[:, a] * x  # [K, positions]
+        want64[n] = ((w0 if k0 else 0.0)
+                     + (w.astype(np.float64)[a] @ x if k1 else 0.0)
+                     + 0.5 * ((d.sum(1) ** 2).sum() - (d ** 2).sum()))
+
+    jrels = [types.SimpleNamespace(rrow_ids=jnp.asarray(r["ids"]),
+                                   rrow_vals=jnp.asarray(r["vals"]))
+             for r in rels]
+    jstats = [jbs.RelStatic(attr_offset=r["off"], num_attrs=r["Dr"],
+                            num_rows=r["R"]) for r in rels]
+    want = np.asarray(jbs.bs_scores(
+        jnp.float32(w0), jnp.asarray(w), jnp.asarray(v), jnp.asarray(ids),
+        jnp.asarray(vals), jrels, jstats,
+        [jnp.asarray(r["join"]) for r in rels], k0, k1))
+
+    trels = [types.SimpleNamespace(rrow_ids=torch.from_numpy(r["ids"]),
+                                   rrow_vals=torch.from_numpy(r["vals"]))
+             for r in rels]
+    tstats = [types.SimpleNamespace(attr_offset=r["off"]) for r in rels]
+    joins = [torch.from_numpy(r["join"]) for r in rels]
+    got = tbs.bs_score_rows(torch.tensor(w0), torch.from_numpy(w),
+                            torch.from_numpy(v), torch.from_numpy(ids),
+                            torch.from_numpy(vals), trels, tstats, joins, k0,
+                            k1).numpy()
+    moms = [kf.bs_rel_moments_plain(rd.rrow_ids, rd.rrow_vals, stab,
+                                    rs.attr_offset, k1)
+            for rd, rs in zip(trels, tstats)]
+    plain = kf.bs_scores_plain(
+        stab, torch.tensor(w0 if k0 else 0.0), torch.from_numpy(ids),
+        torch.from_numpy(vals), joins, moms).numpy()
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want64, rtol=1e-5, atol=1e-5)

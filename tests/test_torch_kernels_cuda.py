@@ -407,9 +407,9 @@ def test_bs_learner_on_gpu_matches_cpu(cuda, als, factor_block):
 
 @pytest.mark.parametrize("nrel", [9, 12])
 def test_bs_scores_many_relations_match_twin(cuda, nrel):
-    """X10d's scores over 9 and 12 relations, read through device arrays
-    of pointers: every relation's qB adds into one s_f before it is
-    squared."""
+    """X10d's scores over 9 and 12 relations (five and six batches of two),
+    read through device arrays of pointers: every relation's qB adds into
+    one s_f before it is squared."""
     import chip_smoke
     from svbfm_tpu_torch.kernels import bs_forward as kf
 
@@ -426,7 +426,9 @@ def test_bs_scores_many_relations_match_twin(cuda, nrel):
     stab = t(rng.normal(0, 0.3, (D, 1 + K)))
     w0 = torch.tensor(0.2, device=cuda)
     joins = [t(rng.integers(0, R, N), np.int32) for R in sizes]
-    moms = [t(rng.normal(0, 0.3, (R, 1 + 2 * K))) for R in sizes]
+    moms = [kf.moments_table(R, K, cuda).copy_(t(rng.normal(0, 0.3,
+                                                          (R, K + 2))))
+            for R in sizes]
     before = build.launch_counts["bs_scores"]
     got = kf.bs_scores(stab, w0, t(ids, np.int32), t(vals), joins, moms)
     want = kf.bs_scores_plain(stab, w0, t(ids, np.int32), t(vals), joins,
@@ -735,11 +737,12 @@ def test_mcmc_patch_rows_wide_matches_twin(cuda, F, P, N, aligned):
 def test_rel_moments_match_twin(cuda, K, Pr, R, k1):
     """X10d's moments (lanes over the channels of (w | v), lin in the same
     pass, three channels a lane: 1 lane a row at K <= 2, 2 at K = 5, 8 at
-    K = 15 and 20, 16 at K = 33, 32 in two passes at K = 130)
-    against their twin: R = 1 and a ragged R, one position, 21 and 40
-    (several rounds of positions), padding entries (x = 0), k1 on and off
-    (lin 0), a NaN stab row that row 0 holds; the launch counted, a second
-    launch into a NaN-filled ``out`` gives the same bits."""
+    K = 15 and 20, 16 at K = 33, 32 in two passes at K = 130; rows
+    (qB | lin | sumsB), sumsB by a segmented shuffle) against their twin:
+    R = 1 and a ragged R, one position, 21 and 40 (several rounds of
+    positions), padding entries (x = 0), k1 on and off (lin 0), a NaN stab
+    row that row 0 holds; the launch counted, a second launch into a
+    NaN-filled contiguous ``out`` gives the same bits."""
     import chip_smoke
     from svbfm_tpu_torch.kernels import bs_forward as kf
 
@@ -755,18 +758,20 @@ def test_rel_moments_match_twin(cuda, K, Pr, R, k1):
     args = (rids.to(cuda), rvals.to(cuda), stab.to(cuda), off, k1)
     before = build.launch_counts["bs_rel_moments"]
     first = kf.bs_rel_moments(*args)
-    out = torch.full_like(first, float("nan"))
+    out = torch.full((R, K + 2), float("nan"), device=cuda)
     again = kf.bs_rel_moments(*args, out=out)
     plain = kf.bs_rel_moments_plain(*args)
     torch.cuda.synchronize()
     assert again is out
     assert build.launch_counts["bs_rel_moments"] == before + 2
     what = f"bs_rel_moments K={K} Pr={Pr} R={R} k1={k1}"
+    assert first.stride(0) == kf.moments_stride(K)
     assert torch.equal(first.view(torch.int32), out.view(torch.int32)), what
     chip_smoke.compare([first], [plain], what)
-    assert torch.isnan(first[0, 1:]).all()
+    assert torch.isnan(first[0, :K]).all()
+    assert K == 0 or torch.isnan(first[0, K + 1]).item()
     if not k1:
-        assert (first[:, 0] == 0).all()
+        assert (first[:, K] == 0).all()
 
 
 def _patch_case(cuda, F, N, P, sequential, merge_w):
@@ -1757,3 +1762,163 @@ def test_fm_t_terms_forms_match_twin(cuda, K, P, N, layout, poison):
     p = _k1_case(cuda, True, K, P, N, layout, poison)
     if layout == "padded" and K % 4 == 0 and K:
         assert p.vec == 4
+
+
+_BS_K = [0, 1, 3, 8, 20, 33, 130]
+
+
+@pytest.mark.parametrize("poison", [None, "nan", "inf"])
+@pytest.mark.parametrize("layout", ["table", "sliced"])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("nrel", [0, 1, 2, 9])
+@pytest.mark.parametrize("K", _BS_K)
+def test_bs_scores_forms_match_twin(cuda, K, nrel, P, layout, poison):
+    """bs_scores, K1a's kernel in its relations mode: K1a's lanes (1 at
+    K <= 4, 5 at K = 20, 32 looping at K = 130), its P = 1 build and any
+    P, 0-9 relations (five batches of two at 9), on moments tables at
+    the stride moments_table gives (16-byte loads where K allows) and on
+    rows one float into a wider buffer (4-byte loads); a ragged last warp;
+    padding entries; a NaN or an Inf in a moments row's qB and in another
+    row's sumsB: the twin's values, NaN and Inf where it has them; two
+    launches the same bits, the launch counted."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import bs_forward as kf
+
+    rng = np.random.default_rng(1000 * K + 100 * nrel + 10 * P)
+    N, D = 1001, 30
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(cuda)
+
+    ids = rng.integers(1, D, (N, P))
+    vals = rng.uniform(-1, 2, (N, P))
+    if P > 1:
+        ids[1::2, -1], vals[1::2, -1] = 0, 0.0
+    stab = t(rng.normal(0, 0.3, (D, 1 + K)))
+    joins, moms = [], []
+    for r in range(nrel):
+        R = 5 + 3 * r
+        m = rng.normal(0, 0.3, (R, K + 2))
+        m[:, K + 1] = np.abs(m[:, K + 1])
+        if poison and r == 0:
+            m[2, min(1, K)] = np.nan if poison == "nan" else np.inf
+            m[3, K + 1] = np.nan if poison == "nan" else np.inf
+        if layout == "table":
+            tab = kf.moments_table(R, K, cuda)
+        else:
+            tab = torch.zeros(R, K + 3, device=cuda)[:, 1:]
+        moms.append(tab.copy_(t(m)))
+        j = rng.integers(0, R, N)
+        j[:4] = [2, 3, 2, 3]
+        joins.append(t(j, np.int32))
+    args = (stab, torch.tensor(0.2, device=cuda), t(ids, np.int32), t(vals),
+            joins, moms)
+    before = build.launch_counts["bs_scores"]
+    outs = [kf.bs_scores(*args), kf.bs_scores(*args),
+            kf.bs_scores_plain(*args)]
+    torch.cuda.synchronize()
+    assert build.launch_counts["bs_scores"] == before + 2
+    p = kf.scores_plan_of(stab, args[2], moms)
+    what = f"bs_scores K={K} relations={nrel} P={P} {layout} {poison} {p}"
+    assert p.vec == (4 if K and K % 4 == 0 and (layout == "table" or not nrel)
+                     else 1), what
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    chip_smoke.compare(outs[:1], outs[2:], what)
+    if poison and nrel:  # rows 0-3 join the poisoned rows 2 and 3 (at
+        # K = 0 sumsB is not read: row 3's poison shows only where K > 0)
+        bad = outs[0][:4] if K else outs[0][0:4:2]
+        assert not torch.isfinite(bad).any(), what
+
+
+@pytest.mark.parametrize("mode", ["qt", "q", "q0"])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("stride", ["2F", "5F+2"])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("F", [1, 2, 3, 20, 33])
+def test_build_qt_forms_match_twin(cuda, F, P, stride, aligned, mode):
+    """K2 (mode "qt": q, tq, tz) and X8d (q alone, from 0 or from a
+    starting q0) in their forms: a thread a row at F = 1 (its P = 2 build
+    on 8-byte aligned ids and x), lanes over a row's chunks of 4, 2 or 1
+    factors at F >= 2 (32 lanes looping at F = 33), on patch tables of
+    stride 2F (X8d's) and 5F + 2 (K2's fast mode); not ``aligned``: ptab,
+    ids, vals and q0 one element past a 16-byte boundary, where the
+    vector loads must give way; padding entries; a NaN mu and an Inf sig
+    in the row of attribute 7, which row 0 holds: the twin's values, NaN
+    and Inf where it has them; two launches the same bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+
+    rng = np.random.default_rng(1000 * F + 100 * P + 10 * aligned
+                                + (stride == "2F"))
+    N, D = 1001, 30
+    CH = 2 * F if stride == "2F" else 5 * F + 2
+    ids = rng.integers(1, D, (N, P))
+    vals = rng.uniform(-1, 2, (N, P))
+    if P > 1:
+        ids[1::2, -1], vals[1::2, -1] = 0, 0.0
+    ids[0, 0] = 7
+    ptab = rng.normal(0, 0.3, (D, CH))
+    ptab[:, F:2 * F] = rng.uniform(0.01, 0.1, (D, F))
+    ptab[7, 0], ptab[7, 2 * F - 1] = np.nan, np.inf
+    ptab_t = _offset_view(torch.from_numpy(ptab.astype(np.float32)),
+                          aligned, cuda)
+    ids_t = _offset_view(torch.from_numpy(ids.astype(np.int32)), aligned,
+                         cuda)
+    vals_t = _offset_view(torch.from_numpy(vals.astype(np.float32)),
+                          aligned, cuda)
+    q0 = None
+    if mode == "q0":
+        q0 = _offset_view(torch.from_numpy(
+            rng.normal(0, 1, (N, F)).astype(np.float32)), aligned, cuda)
+    name = "vb_build_qt" if mode == "qt" else "build_q"
+    before = build.launch_counts[name]
+    if mode == "qt":
+        fns = (kv.vb_build_qt, kv.vb_build_qt, kv.vb_build_qt_plain)
+        outs = [list(fn(ptab_t, F, ids_t, vals_t)) for fn in fns]
+    else:
+        fns = (kv.build_q, kv.build_q, kv.build_q_plain)
+        outs = [[fn(ptab_t, F, ids_t, vals_t, q0)] for fn in fns]
+    torch.cuda.synchronize()
+    assert build.launch_counts[name] == before + 2
+    p = kv.qt_plan_of(ptab_t, F, ids_t, vals_t, q0)
+    what = f"{name} F={F} P={P} CH={CH} aligned={aligned} {mode} {p}"
+    if F == 1:
+        assert p.build == ("p2" if P == 2 and aligned else "any"), what
+    elif not aligned:
+        assert p.vec == 1, what
+    else:
+        assert p.vec == (4 if F % 4 == 0 and CH % 4 == 0 else
+                         2 if F % 2 == 0 else 1), what
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    chip_smoke.compare(outs[0], outs[2], what)
+    assert not torch.isfinite(outs[0][0][0]).all(), what
+
+
+@pytest.mark.parametrize("als", [False, True])
+def test_bs_main_block_on_gpu_matches_cpu(cuda, als):
+    """The block-structure sampler with a main block that is not empty
+    (chip_smoke.py's small problem with the users as one-hot main columns,
+    the items a relation, K = 5, factor_block 0): the blocked main-block
+    pass starts X8d from the relations' part of the q cache (q_extra),
+    card against CPU from one init and one host-table draw source, 3
+    sweeps."""
+    import chip_smoke
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    hists = []
+    for dev in (cuda, "cpu"):
+        learner = chip_smoke.small_bs_learner(dev, K=5, als=als,
+                                              main_users=True)
+        assert learner.train_row.ids.shape[1] == 1
+        p = init_fm_params(torch.Generator().manual_seed(3),
+                           learner.cfg.num_attributes, 5, init_w_normal=True)
+        state = learner.state_from_params(p.w0, p.w, p.v, host_draws(4, dev))
+        before = build.launch_counts["build_q"]
+        hists.append(learner.run(state, num_iter=3, verbose=False)[1])
+        if dev == cuda:
+            assert build.launch_counts["build_q"] > before
+    for g, c in zip(*hists):
+        for k in ("rmse", "rmse_this", "mae", "alpha"):
+            np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)

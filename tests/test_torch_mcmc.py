@@ -615,3 +615,32 @@ def test_patch_plan_is_the_cu_rule(F, q_shift, p_shift, plan):
             if slot < p.rows and n < N:
                 seen += [(n, ch) for ch in range(j, G, p.lanes)]
     assert sorted(seen) == [(n, ch) for n in range(N) for ch in range(G)]
+
+
+def test_build_q_starts_from_q_extra_in_jax_order():
+    """X8d's starting q (the block-structure learner's relation part of the
+    cache): build_q_plain adds the positions onto q0 in order, as JAX's
+    build_q adds them onto q_extra (svbfm_tpu/learners/mcmc.py:337-347,
+    replayed here in jnp on the [F, N] layout), bit for bit; a q0 of 1e8
+    against a first position of -1e8 and a second of 1 shows the order:
+    (1e8 - 1e8) + 1 = 1 there, where adding q0 last gives 0."""
+    rng = np.random.default_rng(8)
+    N, P, D, F = 37, 3, 11, 5
+    ids = rng.integers(0, D, (N, P)).astype(np.int32)
+    vals = rng.uniform(-1, 2, (N, P)).astype(np.float32)
+    v_t = rng.normal(0, 1, (D, F)).astype(np.float32)
+    q0 = rng.normal(0, 3, (N, F)).astype(np.float32)
+    ids[0], vals[0] = (1, 2, 0), (1.0, 1.0, 0.0)
+    v_t[1, 0], v_t[2, 0], q0[0, 0] = -1e8, 1.0, 1e8
+    ptab = np.concatenate([v_t, np.zeros_like(v_t)], 1)  # [D, 2F]
+    qj = jnp.asarray(q0.T)
+    for p in range(P):
+        qj = qj + (jnp.take(jnp.asarray(v_t.T), jnp.asarray(ids[:, p]),
+                            axis=-1) * jnp.asarray(vals[:, p])[None])
+    got = kv.build_q_plain(torch.from_numpy(ptab), F, torch.from_numpy(ids),
+                           torch.from_numpy(vals), torch.from_numpy(q0))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(qj).T)
+    assert got[0, 0].item() == 1.0
+    late = kv.build_q_plain(torch.from_numpy(ptab), F, torch.from_numpy(ids),
+                            torch.from_numpy(vals)) + torch.from_numpy(q0)
+    assert late[0, 0].item() == 0.0

@@ -240,3 +240,52 @@ def test_num_eval_cases_raises():
     ds, cfg = _tiny_port_data()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tvb.VBLearner(cfg, ds, ds, device="cpu", num_eval_cases=5)
+
+
+@pytest.mark.parametrize("F,P,ld,shift,plan", [
+    (20, 2, 40, 0, ("chunks", 4, 5, 6, "p2")),     # X8d's [D, 2F]
+    (20, 2, 102, 0, ("chunks", 2, 10, 3, "p2")),   # K2's fast mode
+    (20, 3, 100, 0, ("chunks", 4, 5, 6, "any")),   # K2 without the rider
+    (20, 2, 40, 1, ("chunks", 1, 20, 1, "p2")),    # ptab one float on
+    (20, 2, 40, 2, ("chunks", 2, 10, 3, "p2")),
+    (2, 1, 4, 0, ("chunks", 2, 1, 32, "any")),
+    (3, 2, 6, 0, ("chunks", 1, 3, 10, "p2")),
+    (33, 2, 66, 0, ("chunks", 1, 32, 1, "p2")),
+    (136, 1, 272, 0, ("chunks", 4, 32, 1, "any")),
+    (1, 2, 5, 0, ("rows", 1, 1, 32, "p2")),        # K2 exact, OVB chunk
+    (1, 2, 1, 0, ("rows", 1, 1, 32, "p2")),        # X8d at factor_block 1
+    (1, 2, 5, 1, ("rows", 1, 1, 32, "any")),       # ids one int on
+    (1, 3, 5, 0, ("rows", 1, 1, 32, "any"))])
+def test_qt_plan_is_the_cu_rule(F, P, ld, shift, plan):
+    """K2's and X8d's form (csrc/vb_sweep.cu:launch_qt, qt_width): a thread
+    a row at F = 1, the P = 2 build where ids and vals are 8-byte aligned;
+    at F >= 2 chunks of the widest of 4, 2, 1 factors that divides F and
+    ptab's row stride and to whose size ptab and the caches are aligned,
+    min(F / vec, 32) lanes a row, 32 // lanes rows a warp.  Walking the
+    launch over a ragged N reaches every (row, chunk) once."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+
+    N, D = 53, 7
+
+    def view(shape, sh, dtype=torch.float32):
+        buf = torch.zeros(shape[0] * shape[1] + sh, dtype=dtype)
+        assert buf.data_ptr() % 16 == 0
+        return buf[sh:].view(shape)
+
+    ids = view((N, P), shift if F == 1 else 0, torch.int32)
+    ptab = view((D, ld), shift if F > 1 else 0)
+    q = torch.zeros(N, F)
+    p = kv.qt_plan_of(ptab, F, ids, view((N, P), 0), caches=(q, q, q))
+    assert tuple(p) == plan
+    if p.form == "rows":
+        return
+    G = F // p.vec
+    seen = []
+    for w in range(-(-N // p.rows)):
+        for lane in range(32):
+            slot, j = divmod(lane, p.lanes)
+            n = w * p.rows + slot
+            if slot < p.rows and n < N:
+                seen += [(n, ch) for c0 in range(0, G, 32)
+                         if (ch := c0 + j) < G]
+    assert sorted(seen) == [(n, ch) for n in range(N) for ch in range(G)]
