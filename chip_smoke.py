@@ -10,7 +10,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. kernels: each kernel against its plain PyTorch twin on the card, at the
      shapes the paths give it (ML-1M, K=20; batch VB fast mode, exact mode
      at F=1 with the w patch, an online-VB chunk of 1/20 of the rows at
-     F=1 with K6 on each of its bins in one launch, Gibbs/ALS blocks at
+     F=1 with K6 on each of its bins in one launch, K5 in each of its
+     four modes on each bin in one launch, its lanes a column printed
+     beside each bucket, Gibbs/ALS blocks at
      F=20 and F=1 in both draw modes, the gather probe's shapes, the SGD
      family's batches in each step mode and X9b also on a table of
      ML-10M's width, the full-batch exp_sgd's w and v steps at F=20 and
@@ -24,8 +26,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      X9c also cut to the 8 blocks it falls back to where the card holds
      no cluster of 16) and on small ragged cases with
      NaN-producing columns or targets, Inf noise, L=1 buckets and columns
-     split over blocks; time both, and one PyTorch call where one computes
-     the same function.  Then x9b-digest: sha256 of X9b's outputs on
+     split over blocks, K5 on bins of L = 1-512 with an empty bucket and
+     on one of 40 buckets, P1 on index counts that are not a multiple of
+     4 and on bases one element past a 16-byte boundary; time both, and
+     one PyTorch call where one computes the same function.  Then x9b-digest: sha256 of X9b's outputs on
      seeded inputs.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
      every kernel of the path must have been launched; the free energy must
@@ -50,7 +54,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
  12. cli: python -m svbfm_tpu_torch.cli -method vb_online, -method sgd,
      -method exp_sgd and -method als -relation items, -device cuda on small
      libFM files; each must exit 0 and write its files.
- 13. ovb-profile: device time of one online-VB epoch by kernel.
+ 13. ovb-profile: device time of one online-VB epoch by kernel, K5's
+     (w_bin_kernel) apart.
  14. mcmc: Gibbs MCMC, factor_block=0 (F=20), 10 iterations from the
      default device generator: kernels launched, no NaN/Inf counts,
      posterior-mean RMSE falling; sec/iter and peak memory.
@@ -441,6 +446,13 @@ def f1_note(b: dict) -> str:
                      ("lanes", "vec"))
 
 
+def w_note(bins) -> str:
+    """K5's form on each bucket of a bin: U lanes a column."""
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+
+    return "U=" + "+".join(str(kw.col_lanes(b.rows.shape[1])) for b in bins)
+
+
 def bound(c: dict):
     """(least ms for the work, what bounds it): the bytes at the HBM rate
     or the operations at the float32 peak, whichever takes longer."""
@@ -586,7 +598,21 @@ def make_cases(s: dict):
                 ("q", "tq", "tz", "e", "t")),
             k4_cost(F, s["ptab_patch"], s["ids"]))
 
-    if "w_buckets" in s:  # the standalone linear-term sweep (K5, w patch)
+    def bin_cost(bins, per_col_floats, flops_per_entry):
+        # K5 on a bin: rows, x and e gathered once, the column's tables,
+        # the dtab rows written, summed over the bin's buckets
+        parts = [bucket_cost(_bucket_dict(b), 1, per_col_floats,
+                             flops_per_entry) for b in bins]
+        return cost(sum(c["bytes"] for c in parts),
+                    sum(c["flops"] for c in parts), note=w_note(bins))
+
+    def bin_label(bins):
+        if len(bins) > 8:
+            return f"bin of {len(bins)} buckets"
+        return "bin " + "+".join(f"[{b.rows.shape[0]},{b.rows.shape[1]}]"
+                                 for b in bins)
+
+    if "w_bins" in s:  # the standalone linear-term sweep (K5, w patch)
         def k5_prepare(ovb):
             def prepare():
                 base = _clones(s, "mu_w", "sig_w") + (
@@ -595,19 +621,17 @@ def make_cases(s: dict):
                                if ovb else ())
             return prepare
 
-        def k5(blk, ovb):
+        def k5(bins, ovb):  # every bucket of a bin: one launch, or each twin
             def call(variant, inp):
-                fn = (kw.w_col_update if variant == "kernel"
-                      else kw.w_col_update_plain)
+                fn = (kw.w_bin_update if variant == "kernel"
+                      else kw.w_bin_update_plain)
                 mu_w, sig_w, dtab, bad = inp[:4]
                 extra = None
                 if ovb:
                     n_mu, n_sig, t_wj = inp[4:]
-                    extra = (blk["cnt"], blk["col_count"], n_mu, n_sig,
-                             s["rho_w"], t_wj)
-                fn(blk["rows"], blk["x"], blk["cols"], blk["group"],
-                   blk["sx2"], s["e"], mu_w, sig_w, s["w_sigma_w"],
-                   s["alpha"], dtab, bad, ovb=extra)
+                    extra = (n_mu, n_sig, s["rho_w"], t_wj)
+                fn(bins, s["e"], mu_w, sig_w, s["w_sigma_w"], s["alpha"],
+                   dtab, bad, ovb=extra)
                 return list(inp)
             return call
 
@@ -621,11 +645,10 @@ def make_cases(s: dict):
 
         ovb = s["ovb"]
         mode = "ovb" if ovb else "vb"
-        for b in s["w_buckets"]:
-            add("w_col_update",
-                f"{mode} [{b['rows'].shape[0]},{b['rows'].shape[1]}]",
-                k5_prepare(ovb), k5(b, ovb),
-                bucket_cost(b, 1, 16 if ovb else 10, 4 if ovb else 2))
+        for bins in s["w_bins"]:
+            add("w_col_update", f"{mode} {bin_label(bins)}", k5_prepare(ovb),
+                k5(bins, ovb), bin_cost(bins, 16 if ovb else 10,
+                                        4 if ovb else 2))
         N, P = s["ids"].shape
         add("w_patch_rows", f"N={N}", wpatch_prepare, wpatch,
             cost(rows_bytes(s["ids"]) + s["dtab"].numel() * 4 + N * 16,
@@ -761,28 +784,27 @@ def make_cases(s: dict):
             mcmc_block(F, {k[len(f"m{sfx}_"):]: v for k, v in s.items()
                            if k.startswith(f"m{sfx}_")})
 
-    if "mw_buckets" in s:  # X8c (K5's MCMC mode) and the w patch without t
+    if "mw_bins" in s:  # X8c (K5's MCMC mode) and the w patch without t
         def x8c_prepare():
             return (s["mw_w"].clone(), torch.zeros_like(s["mw_dtab"]),
                     _bad(s["ids"].device))
 
-        def x8c(blk, z):
+        def x8c(bins, z):
             def call(variant, inp):
-                fn = (kw.mcmc_w_draw if variant == "kernel"
-                      else kw.mcmc_w_draw_plain)
+                fn = (kw.mcmc_w_bin_draw if variant == "kernel"
+                      else kw.mcmc_w_bin_draw_plain)
                 w, dtab, bad = inp
-                fn(blk["rows"], blk["x"], blk["cols"], blk["group"],
-                   blk["sx2"], s["mw_e"], w, s["mw_mu"], s["mw_lambda"],
+                fn(bins, s["mw_e"], w, s["mw_mu"], s["mw_lambda"],
                    s["mw_alpha"], z, dtab, bad)
                 return [w, dtab, bad]
             return call
 
-        for b in s["mw_buckets"]:
+        for bins in s["mw_bins"]:
             for z in (s.get("mw_z"), None):
                 add("mcmc_w_draw",
                     f"{'gibbs' if z is not None else 'als'} "
-                    f"[{b['rows'].shape[0]},{b['rows'].shape[1]}]",
-                    x8c_prepare, x8c(b, z), bucket_cost(b, 1, 10, 2))
+                    f"{bin_label(bins)}", x8c_prepare, x8c(bins, z),
+                    bin_cost(bins, 10, 2))
 
         def wpatch_e(variant, inp):
             fn = kv.w_patch_rows if variant == "kernel" else kv.w_patch_rows_plain
@@ -795,23 +817,21 @@ def make_cases(s: dict):
             cost(rows_bytes(s["ids"]) + s["mw_dtab"].numel() * 4 + N * 8,
                  N * P * 2))
 
-    if "xw_buckets" in s:  # X9d: K5's gradient mode, the exp_sgd w step
-        def x9dw(blk):
+    if "xw_bins" in s:  # X9d: K5's gradient mode, the exp_sgd w step
+        def x9dw(bins):
             def call(variant, inp):
-                fn = (kw.w_grad_step if variant == "kernel"
-                      else kw.w_grad_step_plain)
+                fn = (kw.w_bin_grad_step if variant == "kernel"
+                      else kw.w_bin_grad_step_plain)
                 w, dtab = inp
-                fn(blk["rows"], blk["x"], blk["cols"], s["x_e"], w, dtab,
-                   *s["x_step"])
+                fn(bins, s["x_e"], w, dtab, *s["x_step"])
                 return [w, dtab]
             return call
 
-        for b in s["xw_buckets"]:
-            add("w_grad_step",
-                f"[{b['rows'].shape[0]},{b['rows'].shape[1]}]",
+        for bins in s["xw_bins"]:
+            add("w_grad_step", bin_label(bins),
                 lambda: (s["x_w"].clone(),
                          torch.zeros(s["D"], 2, device=s["x_w"].device)),
-                x9dw(b), bucket_cost(b, 1, 4, 2))
+                x9dw(bins), bin_cost(bins, 4, 2))
 
     for F, m in s.get("xg", ()):  # X9d: X8a's gradient mode, the v step
         def x9dv(blk, m=m):
@@ -1249,13 +1269,12 @@ def fast_tensors(learner, state) -> dict:
         sv=state.sigma_v.contiguous(), alpha=state.alpha, e=state.e.clone(),
         t=state.t.clone(), q=q, tq=tq, tz=tz, ovb=False)
     # K3: every bucket of a sweep, the largest first ([6026,256], [1613,512],
-    # [2339,256], [14,128] here; the first is the JSON line's); K5: the
-    # largest bucket of each bin
+    # [2339,256], [14,128] here; the first is the JSON line's); K5: each
+    # bin, bin 0 first
     every = sorted((b for bb in plan.blocks for b in bb),
                    key=lambda b: -b.rows.numel())
     s["buckets"] = [_bucket_dict(b) for b in every]
-    big = [max(bb, key=lambda b: b.rows.numel()) for bb in plan.blocks]
-    s["w_buckets"] = [_bucket_dict(b) for b in big]
+    s["w_bins"] = list(plan.blocks)
     # a patch table as bin 0 leaves it: deltas at bin 0's columns
     pt = ptab.clone()
     mt, st, mw, sw = (a.clone() for a in (mu_t, sig_t, s["mu_w"], s["sig_w"]))
@@ -1268,11 +1287,9 @@ def fast_tensors(learner, state) -> dict:
     # exact mode: the w patch table as bin 0 of K5 leaves it; factor 0 alone
     # for K2, K3 and K4 at F = 1, the K4 table as bin 0 of K3 leaves it
     dtab = torch.zeros(D, 2, device=dev)
-    mw, sw = s["mu_w"].clone(), s["sig_w"].clone()
-    for blk in plan.blocks[0]:
-        kw.w_col_update_plain(blk.rows, blk.x, blk.cols, blk.group, blk.sx2,
-                              s["e"], mw, sw, s["sigma_w"], s["alpha"], dtab,
-                              _bad(dev))
+    kw.w_bin_update_plain(plan.blocks[0], s["e"], s["mu_w"].clone(),
+                          s["sig_w"].clone(), s["sigma_w"], s["alpha"], dtab,
+                          _bad(dev))
     s["dtab"] = dtab
     s["x_ptab"] = torch.zeros(D, 5, device=dev)
     s["x_ptab"][:, 0], s["x_ptab"][:, 1] = mu_t[:, 0], sig_t[:, 0]
@@ -1311,7 +1328,6 @@ def ovb_tensors(learner, state) -> dict:
                                row.vals)
     t = fm_t_terms(state.sigma_0_dash, state.sigma_w_dash, state.mu_v,
                    state.sigma_v_dash, row.ids, row.vals)
-    big = [max(bb, key=lambda b: b.rows.numel()) for bb in blocks]
     s = dict(
         tag="ovb-chunk", D=D, ovb=True, ids=row.ids, vals=row.vals, e=e, t=t,
         w0=state.mu_0, s0=state.sigma_0_dash, eval_ids=row.ids,
@@ -1322,16 +1338,13 @@ def ovb_tensors(learner, state) -> dict:
         sig_w=state.sigma_w_dash.clone(), n_mu_w=state.n_mu_w.clone(),
         n_sig_w=state.n_sig_w.clone(), t_wj=state.t_wj.clone(),
         w_sigma_w=state.sigma_w, rho_w=(1.0 + state.t_wj) ** -0.5,
-        w_buckets=[_bucket_dict(b) for b in big], vF=1)
+        w_bins=blocks, vF=1)
     dtab = torch.zeros(D, 2, device=dev)
-    tw = s["t_wj"].clone()
-    for blk in blocks[0]:
-        kw.w_col_update_plain(
-            blk.rows, blk.x, blk.cols, blk.group, blk.sx2, e,
-            s["mu_w"].clone(), s["sig_w"].clone(), s["w_sigma_w"],
-            s["alpha"], dtab, _bad(dev),
-            ovb=(blk.cnt, blk.col_count, s["n_mu_w"].clone(),
-                 s["n_sig_w"].clone(), s["rho_w"], tw))
+    kw.w_bin_update_plain(
+        blocks[0], e, s["mu_w"].clone(), s["sig_w"].clone(), s["w_sigma_w"],
+        s["alpha"], dtab, _bad(dev),
+        ovb=(s["n_mu_w"].clone(), s["n_sig_w"].clone(), s["rho_w"],
+             s["t_wj"].clone()))
     s["dtab"] = dtab
     mu, sig = state.mu_v[:1].T.contiguous(), state.sigma_v_dash[:1].T.contiguous()
     ptab = torch.zeros(D, 5, device=dev)
@@ -1413,11 +1426,12 @@ def ragged_tensors(device) -> list:
                                 "alpha", "mu_w", "sig_w")}
     dtab = t(rng.normal(0, 0.1, size=(D, 2)).astype(np.float32))
     # K5 in batch-VB mode: group 1's sigma_w is NaN (columns 9 and 17)
-    vb = dict(common, tag="ragged", ovb=False, w_buckets=[bucket], dtab=dtab,
+    wbin = [BlockData(**bucket)]
+    vb = dict(common, tag="ragged", ovb=False, w_bins=[wbin], dtab=dtab,
               w_sigma_w=t(np.array([1.0, np.nan], np.float32)))
     # K5 in online mode, K6 (F = 5: three idle factor lanes) and K4 with
     # every position reading the pre-patch caches
-    ov = dict(common, tag="ragged", ovb=True, w_buckets=[bucket], dtab=dtab,
+    ov = dict(common, tag="ragged", ovb=True, w_bins=[wbin], dtab=dtab,
               w_sigma_w=s["sigma_w"],
               n_mu_w=t(rng.normal(0, 5, size=D).astype(np.float32)),
               n_sig_w=t(n_sig_w),
@@ -1432,7 +1446,84 @@ def ragged_tensors(device) -> list:
               v_bins=[ko.BinPlan([BlockData(**bucket)])],
               v_ptab_patch=t(ptab[:, :5 * F]))
     return [s, vb, ov, ragged_mcmc_tensors(device),
-            *ragged_sgd_tensors(device), ragged_bs_tensors(device)]
+            *ragged_sgd_tensors(device), ragged_bs_tensors(device),
+            *ragged_w_tensors(device)]
+
+
+def ragged_w_tensors(device) -> list:
+    """K5's bin launch in its four modes on two ragged bins: one of buckets
+    of L = 1, 8 (one of them empty), 16, 33 and 512 beside a [3, 8] bucket
+    with padding entries at the last row, and one of 40 small buckets, so
+    that a block looks past the plan's first 32 rows for its bucket.  e is
+    NaN at one row, so the columns that gather it get NaN sums: counted
+    candidates in the VB, OVB and MCMC modes, reverted steps in the
+    gradient mode.  Group 1's sigma_w is NaN in the VB mode and its lambda
+    in the MCMC mode (non-finite candidates; MCMC's draws come out 0,
+    uncounted); in the OVB mode one column's eta2 is NaN and one has
+    cnt = 0; one noise number is Inf (a counted, reverted draw).  Returns
+    the VB, the OVB, and the MCMC + gradient tensor sets."""
+    from svbfm_tpu_torch.learners.base import BlockData
+
+    rng = np.random.default_rng(5)
+    N, P, D = 64, 3, 200
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
+
+    def make_bin(widths, cols):
+        out = []
+        for C, L in widths:
+            rows = rng.integers(0, N - 1, size=(C, L))
+            x = rng.uniform(0.5, 1.5, size=(C, L))
+            if L == 512:
+                rows[0, 400:], x[0, 400:] = N - 1, 0.0
+            cnt = (x != 0).sum(1).astype(np.float32)
+            group = (rng.uniform(size=C) < 0.2).astype(np.int32)
+            out.append(BlockData(
+                rows=t(rows, np.int32), x=t(x), cols=t(cols[:C], np.int32),
+                group=t(group, np.int32), sx2=t((x * x).sum(1)), cnt=t(cnt),
+                col_count=t(cnt + rng.integers(0, 9, size=C))))
+            cols = cols[C:]
+        return out, cols
+
+    cols = rng.permutation(D)
+    first, cols = make_bin(((7, 1), (0, 8), (5, 8), (4, 16), (3, 33),
+                            (2, 512), (3, 8)), cols)
+    first[-1].rows[:, 5:], first[-1].x[:, 5:] = N - 1, 0.0  # padding
+    first[-1].sx2.copy_((first[-1].x ** 2).sum(1))
+    first[-1].cnt.fill_(5.0)
+    first[2].cnt[1] = 0.0
+    many, cols = make_bin([(int(rng.integers(0, 3)), int(rng.choice(
+        [1, 2, 3, 5]))) for _ in range(40)], cols)
+    e = rng.standard_normal(N)
+    e[int(first[0].rows[0, 0])] = np.nan
+    ids = rng.integers(0, D, size=(N, P))
+    vals = rng.uniform(0.5, 1.5, size=(N, P))
+    n_sig_w = rng.uniform(20.0, 60.0, size=D)
+    n_sig_w[int(first[3].cols[2])] = np.nan
+    zw = rng.standard_normal(D)
+    zw[int(first[2].cols[3])] = np.inf
+    bins = [first, many]
+    vb = dict(tag="ragged-w", timed=False, D=D, ids=t(ids, np.int32),
+              vals=t(vals), e=t(e), t=t(rng.uniform(0, 1, size=N)),
+              alpha=torch.tensor(1.3, device=device),
+              mu_w=t(rng.normal(0, 0.1, size=D)),
+              sig_w=t(np.full(D, 0.02)), ovb=False, w_bins=bins,
+              w_sigma_w=t(np.array([1.0, np.nan])),
+              dtab=t(rng.normal(0, 0.1, size=(D, 2))))
+    ov = dict(vb, ovb=True, w_sigma_w=t(np.array([1.0, 2.0])),
+              n_mu_w=t(rng.normal(0, 5, size=D)), n_sig_w=t(n_sig_w),
+              t_wj=t(rng.integers(0, 30, size=D)),
+              rho_w=t(rng.uniform(0.1, 1.0, size=D)))
+    mw = dict(tag="ragged-w", timed=False, D=D, ids=vb["ids"],
+              vals=vb["vals"], mw_bins=bins, mw_w=t(rng.standard_normal(D)),
+              mw_mu=t(rng.standard_normal(2)),
+              mw_lambda=t(np.array([2.0, np.nan])),
+              mw_alpha=torch.tensor(1.7, device=device), mw_e=vb["e"],
+              mw_z=t(zw), mw_dtab=vb["dtab"], x_e=vb["e"],
+              x_w=t(rng.standard_normal(D)), x_step=(0.4, 0.05, float(N)),
+              xw_bins=bins)
+    return [vb, ov, mw]
 
 
 def mcmc_tensors(learner, state) -> dict:
@@ -1454,14 +1545,14 @@ def mcmc_tensors(learner, state) -> dict:
     big = [_bucket_dict(max(bb, key=lambda b: b.rows.numel()))
            for bb in plan.blocks]
     s = dict(tag="mcmc", D=D, ids=row.ids, vals=row.vals, mF=K,
-             mw_buckets=big, mw_w=state.w.clone(), mw_mu=state.w_mu,
-             mw_lambda=state.w_lambda, mw_alpha=state.alpha, mw_e=state.e,
+             mw_bins=list(plan.blocks), mw_w=state.w.clone(),
+             mw_mu=state.w_mu, mw_lambda=state.w_lambda,
+             mw_alpha=state.alpha, mw_e=state.e,
              mw_z=torch.randn(D, generator=gen, device=dev))
-    dtab, w = torch.zeros(D, 2, device=dev), state.w.clone()
-    for blk in plan.blocks[0]:
-        kw.mcmc_w_draw_plain(blk.rows, blk.x, blk.cols, blk.group, blk.sx2,
-                             state.e, w, state.w_mu, state.w_lambda,
-                             state.alpha, s["mw_z"], dtab, _bad(dev))
+    dtab = torch.zeros(D, 2, device=dev)
+    kw.mcmc_w_bin_draw_plain(plan.blocks[0], state.e, state.w.clone(),
+                             state.w_mu, state.w_lambda, state.alpha,
+                             s["mw_z"], dtab, _bad(dev))
     s["mw_dtab"] = dtab
     every = [_bucket_dict(b) for bb in plan.blocks for b in bb]
     for F, sfx in ((K, ""), (1, "1")):
@@ -1511,7 +1602,8 @@ def exp_sgd_tensors(learner, state) -> dict:
     n = float(learner.train_n)
     return dict(tag="exp-sgd", D=D, x_e=e, x_w=state.w.clone(),
                 x_step=(cfg.learn_rate, cfg.regw, n),
-                x_vstep=(cfg.learn_rate, cfg.regv, n), xw_buckets=big, xg=xg)
+                x_vstep=(cfg.learn_rate, cfg.regv, n),
+                xw_bins=list(plan.blocks), xg=xg)
 
 
 def _rebucket(b, rows, x):
@@ -1746,6 +1838,8 @@ def ragged_mcmc_tensors(device) -> dict:
     has an Inf noise number at factor 2 (its draw is counted and
     reverted); X8c's bucket has a NaN-lambda group and an Inf noise number
     at column 2; the patch rows have padding entries."""
+    from svbfm_tpu_torch.learners.base import BlockData
+
     rng = np.random.default_rng(0)
     N, P, D, F, C, L = 40, 3, 30, 6, 17, 8
 
@@ -1788,16 +1882,24 @@ def ragged_mcmc_tensors(device) -> dict:
     w_lam = np.array([2.0, np.nan])
     zw = rng.standard_normal(D)
     zw[cols[2]] = np.inf
-    s.update(mw_buckets=[bucket], mw_w=t(rng.standard_normal(D)),
+    wbin = [BlockData(**bucket, cnt=t(np.full(C, L)),
+                      col_count=t(np.full(C, L)))]
+    s.update(mw_bins=[wbin], mw_w=t(rng.standard_normal(D)),
              mw_mu=t(rng.standard_normal(2)), mw_lambda=t(w_lam),
              mw_alpha=torch.tensor(1.3, device=device), mw_e=t(e),
              mw_z=t(zw),
              mw_dtab=t(np.stack([rng.normal(0, 0.1, D), np.zeros(D)], 1)))
+    # P1: N = 40 and 37 indices (37 not a multiple of 4), and indices
+    # whose base is one element past a 16-byte boundary
+    i1 = t(rng.integers(0, D, size=N + 1), np.int32)
+    il = t(rng.integers(0, 7, size=5 * 128 + 1), np.int32)
+    t1, tl = t(rng.standard_normal((D, 1))), t(rng.standard_normal((7, 128)))
     s["gathers"] = [
-        ("ragged 1-D", t(rng.standard_normal((D, 1))),
-         t(rng.integers(0, D, size=(N, 1)), np.int32)),
-        ("ragged lanes", t(rng.standard_normal((7, 128))),
-         t(rng.integers(0, 7, size=(5, 128)), np.int32))]
+        ("ragged 1-D", t1, i1[:N].view(N, 1)),
+        ("ragged 1-D n=37", t1, i1[:37].view(37, 1)),
+        ("ragged 1-D n=37 base+1", t1, i1[1:38].view(37, 1)),
+        ("ragged lanes", tl, il[:640].view(5, 128)),
+        ("ragged lanes base+1", tl, il[1:].view(5, 128))]
     # X9d, K5's and X8a's gradient modes, on the same bucket at F = 1, 5 and
     # 20: e is NaN at a row of column 6 (its w step reverts), q Inf at a row
     # of column 4 (its v steps revert)
@@ -1807,7 +1909,7 @@ def ragged_mcmc_tensors(device) -> dict:
     q20[rows[4, 0]] = np.inf
     step = (0.4, 0.05, float(N))
     s.update(x_e=t(xe), x_w=t(rng.standard_normal(D)), x_step=step,
-             x_vstep=step, xw_buckets=[bucket], xg=[
+             x_vstep=step, xw_bins=[wbin], xg=[
                  (Fx, dict(vt=t(v20[:, :Fx]), q=t(q20[:, :Fx]),
                            ptab=t(np.concatenate([v20[:, :Fx],
                                                   np.zeros((D, Fx))], 1)),
@@ -2883,7 +2985,7 @@ def main() -> int:
 
     # ---- 13. where an online-VB epoch's device time goes --------------------
     profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False), 1,
-                "epoch", "ovb-profile")
+                "epoch", "ovb-profile", focus=("w_bin_kernel",))
 
     # ---- 14. Gibbs MCMC, factor_block=0 (F = K), on the card --------------
     t0 = time.perf_counter()

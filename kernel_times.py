@@ -1,7 +1,7 @@
 """Time one family of the port's kernels on the card and profile the paths
 that launch them, for one checkout.
 
-    python3 kernel_times.py {bs,forward,mcmc,sgd} [--tree DIR] [--label NAME]
+    python3 kernel_times.py {bs,forward,mcmc,sgd,w} [--tree DIR] [--label NAME]
 
 Runs the kernels and learners of the checkout at ``--tree`` (default: the
 one holding this script) on the inputs ``chip_smoke.py`` (of this script's
@@ -48,6 +48,16 @@ graph replay of 20 calls, then the family's profiles:
   11,063 pairs; X9c on SGDA's validation batch of 113 rows (G = 2), at
   K = 8, and on 1,000 rows; ``profile_run`` of one SGD epoch (X9a's share)
   and one SGDA iteration with its lambda steps (X9c's share).
+- ``w``: K5 on each bin of the ML-1M recipe in each of its modes (batch
+  VB, the Gibbs draw with a noise table, ALS's mean, exp_sgd's gradient
+  step), and in the online mode on both bins of OVB's first chunk, each
+  bin in one launch and each bucket alone, with its form (lanes a column
+  a bucket); an older tree, which launches K5 once a
+  bucket, runs its per-bucket launches in turn for a bin.  P1 on
+  ``chip_smoke.gather_sets`` with ``torch.take`` or ``take_along_dim``
+  beside it.  Then K5's launches in one sweep of exact VB, Gibbs and
+  exp_sgd and one OVB epoch, and ``profile_run`` of each, twice, with
+  K5's device time and share.
 
 To hold a change against its parent, run it on both in one call, in turns
 (parent, change, change, parent), the parent unpacked with ``git archive``
@@ -75,7 +85,11 @@ FAMILIES = {
     "forward": (("fm_forward", "vb_sweep"), ("fm_", "build_qt")),
     "mcmc": (("mcmc_sweep",), ("col_draw_f1", "row_patch")),
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
+    "w": (("w_sweep", "gather_probe"), ("w_", "gather")),
 }
+# K5's kernel, by its name in this tree and in one that launches it once a
+# bucket
+W_FOCUS = ("w_bin_kernel", "w_col_update_kernel")
 # the bs family's timed kernels, by their wrappers' launch-count names
 BS_TIMED = ("bs_join_agg", "bs_rel_patch", "bs_rel_w_patch", "bs_resync",
             "bs_rel_moments", "bs_scores")
@@ -125,7 +139,7 @@ def main() -> int:
     one = torch.zeros(1, device=dev)
     line("launch floor (zero_ of one element)", one.zero_)
     family = {"bs": bs_family, "forward": forward_family,
-              "mcmc": mcmc_family, "sgd": sgd_family}
+              "mcmc": mcmc_family, "sgd": sgd_family, "w": w_family}
     family[a.family](cs, build, dev, tag, line)
     return 0
 
@@ -348,6 +362,96 @@ def sgd_family(cs, build, dev, tag, line) -> None:
     sgda.epoch(astate, 1)
     cs.profile_run(lambda: sgda.epoch(astate, 1), 1, "iteration",
                    f"{tag} sgda-profile", focus=("sgda_lambda",))
+
+
+def bucket_launches(kw) -> None:
+    """Give an older tree's ``w_sweep``, which launches K5 once a bucket,
+    the bin-level names ``chip_smoke`` calls: each runs the tree's
+    per-bucket op (kernel or twin) on the bin's buckets in turn."""
+    kw.col_lanes = lambda L: 32  # a warp a column
+    for sfx in ("", "_plain"):
+        col, draw, step = (getattr(kw, n + sfx) for n in (
+            "w_col_update", "mcmc_w_draw", "w_grad_step"))
+
+        def update(bins, e, *a, ovb=None, col=col):
+            for b in bins:
+                col(b.rows, b.x, b.cols, b.group, b.sx2, e, *a,
+                    ovb=None if ovb is None else (b.cnt, b.col_count, *ovb))
+
+        def mcmc(bins, e, *a, draw=draw):
+            for b in bins:
+                draw(b.rows, b.x, b.cols, b.group, b.sx2, e, *a)
+
+        def grad(bins, e, *a, step=step):
+            for b in bins:
+                step(b.rows, b.x, b.cols, e, *a)
+
+        setattr(kw, "w_bin_update" + sfx, update)
+        setattr(kw, "mcmc_w_bin_draw" + sfx, mcmc)
+        setattr(kw, "w_bin_grad_step" + sfx, grad)
+
+
+def w_family(cs, build, dev, tag, line) -> None:
+    import torch
+
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.exp_sgd import ExpSGDLearner
+    from svbfm_tpu_torch.learners.mcmc import MCMCLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+
+    if not hasattr(kw, "w_bin_update"):
+        bucket_launches(kw)
+    tr, te, train, test, meta = cs.ml_data(cs.NUM_TRAIN)
+    base = dict(num_attributes=tr.num_features, num_factor=cs.K,
+                min_target=float(tr.target.min()),
+                max_target=float(tr.target.max()),
+                num_groups=meta.num_attr_groups, seed=cs.SEED)
+    args = (train, test, meta)
+    kw_ = dict(device=dev, write_files=False)
+    vb = VBLearner(FMConfig(factor_block=1, **base), *args, **kw_)
+    ovb = OVBLearner(FMConfig(num_batches=cs.OVB_CHUNKS, **base), *args,
+                     **kw_)
+    gibbs = MCMCLearner(FMConfig(factor_block=0, **base), *args, **kw_)
+    exp = ExpSGDLearner(FMConfig(learn_rate=cs.EXP_SGD_LR, **base), *args,
+                        **kw_)
+    vb0 = vb.state_from_params(init_vb_params(
+        torch.Generator().manual_seed(cs.SEED), vb.cfg, dev))
+    sets = [(cs.fast_tensors(vb, vb0), "w_col_update", "w_bins"),
+            (cs.ovb_tensors(ovb, ovb.init_state()), "w_col_update",
+             "w_bins"),
+            (cs.mcmc_tensors(gibbs, gibbs.step(gibbs.init_state())[0]),
+             "mcmc_w_draw", "mw_bins"),
+            (cs.exp_sgd_tensors(exp, exp.init_state()), "w_grad_step",
+             "xw_bins")]
+    for s, name, key in sets:  # each bin, then each of its buckets alone
+        for bins in (s[key], [[b] for bb in s[key] for b in bb]):
+            for label, prepare, call, c in cs.make_cases(
+                    dict(s, **{key: bins}))[name]:
+                inp = prepare()
+                line(f"{name} {label} {c['note']}".rstrip(),
+                     lambda: call("kernel", inp))
+    del sets
+    for label, prepare, call, c in cs.make_cases(dict(
+            tag="probe", gathers=cs.gather_sets(dev)))["gather_probe"]:
+        line(f"gather_probe {label}", lambda: call("kernel", ()))
+        line(f"gather_probe {label} library", c["library"])
+
+    names = ("w_col_update", "mcmc_w_draw", "w_grad_step")
+    for path, lr, unit in (("vb-exact", vb, "sweep"), ("mcmc", gibbs, "sweep"),
+                           ("exp-sgd", exp, "sweep"), ("ovb", ovb, "epoch")):
+        state, _ = lr.run(num_iter=1, verbose=False)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        lr.run(state, num_iter=1, verbose=False)
+        torch.cuda.synchronize()
+        counts = {k: build.launch_counts[k] for k in names}
+        print(f"[{tag}] {path} K5 launches a {unit}: "
+              f"{json.dumps(counts, separators=(',', ':'))}", flush=True)
+        for _ in range(2):
+            cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
+                           1, unit, f"{tag} {path}-profile", focus=W_FOCUS)
 
 
 if __name__ == "__main__":

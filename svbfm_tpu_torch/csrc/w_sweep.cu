@@ -1,6 +1,7 @@
 // K5: the standalone linear-term column sweep, batch VB (exact mode, K = 0)
 // and online VB; X8c, the w draw of Gibbs MCMC and ALS; and K5's gradient
-// mode, the w column step of the full-batch exp_sgd (X9d).
+// mode, the w column step of the full-batch exp_sgd (X9d).  Every degree
+// bucket of one conflict-free bin in one launch.
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_w_bin_update (vb.py:125-148) and its
 // OVB twin vb_online.py:230-269: per [C, L] degree bucket, the column
@@ -29,171 +30,302 @@
 //
 // Layouts: bucket rows/x [C, L] row-major, the JAX layout; parameter and
 // natural tables [D]; the delta table dtab [D, 2] row-major, K4's patch
-// table at F = 0 (its two w channels).
+// table at F = 0 (its two w channels).  The bin's plan, int64 [nb,
+// kPlanCols] in host memory, a row a bucket: rows, x, cols, group, sx2,
+// cnt and col_count pointers, C, L and the bucket's first block (mirrored
+// by kernels/w_sweep.py:w_plan_rows; a mode reads only the pointers it
+// needs), at most kMaxBuckets rows a launch.
 //
-// Bound: memory latency of the random e[row] gathers (one float per entry
-// at a data-dependent address); the arithmetic is a few FLOPs per float
-// read.  Each column gets one warp, lanes strided over its entries and a
-// shuffle sum, so a bucket of short columns (L = 8 at an OVB chunk) still
-// keeps whole warps busy.
+// Bound: the random e[row] gathers, a float a slot at a data-dependent
+// address, each its own 32-byte sector of the [N] residual that L2 holds,
+// beside the rows and x streamed once: the card's rate of L2 sectors, not
+// HBM bytes; a few FLOPs a gather.  Design: a column sits in exactly one
+// bucket of one bin and every bucket reads e from before the bin, so the
+// bin's buckets go in one launch, their blocks laid end to end.  The plan
+// is a kernel parameter: a block finds its bucket in the parameter bank,
+// with no global load ahead of its own (a device table cost two dependent
+// reads a block, 3 % on the [6026,256] bucket).  A bucket of L slots
+// gives a column U lanes, U = the next power of two >= L, at most 32
+// (K6's col_lanes at F = 1): 256 / U columns a block, so an OVB chunk's
+// L = 8 bucket keeps four columns a warp.  Lane li sums slots li, li + U,
+// ..., a plain strided loop: on the H100 the long buckets are held by L2
+// sectors, so 16-byte loads of rows and x and rounds of 8 slots with
+// every gather issued first gained nothing over it.  Where U = 32 the
+// stride is a constant of the build, so ptxas unrolls the loop and keeps
+// several gathers in flight (a stride read at run time cost 5-25 % on the
+// long buckets).  The column's closing operands are loaded before the
+// loop, so that their latency overlaps the gathers (after the sum, an
+// OVB bin took 10 % longer).  The lanes close with a butterfly of
+// __shfl_xor_sync in a fixed order: no shared memory, and two launches
+// give the same bits.  The mode is a template parameter: one body, four
+// builds.
 #include "svbfm_common.cuh"
 
 namespace {
 
-constexpr int kColsPerBlock = 8;  // one warp per column
+constexpr int kThreads = 256;
+constexpr int kPlanCols = 10;
+constexpr int kMaxBuckets = 32;  // buckets a launch
 
-// One column per warp.  mode 0: closed form (vb.py:141-148), counts of
-// the raw candidates.  mode 1: the natural-gradient blend with rate
-// rho[col] (vb_online.py:245-269); a column with cnt == 0 keeps every
-// table and gets zero deltas; counts of where(active, cand, 0).  The
-// primal falls back to the old value where its candidate is not finite;
-// the naturals are written as they are.  bad[4] += (nan mu, inf mu,
-// nan sig, inf sig) candidates.  mode 2: the MCMC draw (see the top);
-// mu_w is w, sigma_w the group lambdas, prior_mu the group means, z the
-// [D] noise table or nullptr; bad[0], bad[1] += nan, inf draws.
-// mode 3: the exp_sgd gradient step (see the top); mu_w is w, and lr, reg,
-// n_cases its step size, regw and N.
-constexpr int kModeVB = 0, kModeOVB = 1, kModeMCMC = 2, kModeGrad = 3;
+// mode VB: the closed form (vb.py:141-148), counts of the raw candidates.
+// OVB: the natural-gradient blend with rate rho_w[col]
+// (vb_online.py:245-269); a column with cnt == 0 keeps every table and
+// gets zero deltas; counts of where(active, cand, 0).  The primal falls
+// back to the old value where its candidate is not finite; the naturals
+// are written as they are.  bad[4] += (nan mu, inf mu, nan sig, inf sig)
+// candidates.  MCMC: the draw (see the top); mu_w is w, sigma_w the group
+// lambdas, prior_mu the group means, z the [D] noise table or nullptr;
+// bad[0], bad[1] += nan, inf draws.  Grad: the exp_sgd step (see the top);
+// mu_w is w, and lr, reg, n_cases its step size, regw and N.
+enum Mode { kVB, kOVB, kMCMC, kGrad };
 
-__global__ void w_col_update_kernel(
-    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
-    const int* __restrict__ cols, const int* __restrict__ group,
-    const float* __restrict__ sx2, const float* __restrict__ e,
-    float* __restrict__ mu_w, float* __restrict__ sig_w,
-    const float* __restrict__ sigma_w, const float* __restrict__ alpha_p,
-    float* __restrict__ dtab, int* __restrict__ bad, int mode,
-    const float* __restrict__ cnt, const float* __restrict__ col_count,
-    float* __restrict__ nmu_w, float* __restrict__ nsig_w,
-    const float* __restrict__ rho_w, float* __restrict__ t_wj,
-    const float* __restrict__ prior_mu, const float* __restrict__ z,
-    float lr, float reg, float n_cases) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
-  if (c >= C) return;  // the whole warp leaves together
-  const int64_t col = cols[c];
-  const float mu_c = mu_w[col];
-  const int* crow = rows + static_cast<int64_t>(c) * L;
-  const float* cx = x + static_cast<int64_t>(c) * L;
-  float s = 0.f;
-  for (int l = lane; l < L; l += 32) {
-    const float xv = cx[l];
-    const float ev = e[crow[l]];
-    s += mode == kModeOVB ? xv * (ev + xv * mu_c) : xv * ev;
+struct Bucket {
+  const int* rows;         // [C, L]
+  const float* x;          // [C, L]
+  const int* cols;         // [C]
+  const int* group;        // [C]
+  const float* sx2;        // [C]
+  const float* cnt;        // [C]
+  const float* col_count;  // [C]
+  int C, L;
+  int64_t first;  // the bucket's first block
+};
+
+// The bin's tables, the same for every bucket.
+struct WArgs {
+  const float* e;         // [N]
+  float* mu_w;            // [D] (w in the MCMC and gradient modes)
+  float* sig_w;           // [D]
+  const float* sigma_w;   // [G] group precisions, or MCMC's lambdas
+  const float* prior_mu;  // [G] MCMC's group means
+  const float* alpha;     // device scalar
+  const float* z;         // [D] MCMC's noise, or nullptr
+  float* nmu_w;           // [D] OVB's naturals, rate and counts
+  float* nsig_w;
+  const float* rho_w;
+  float* t_wj;
+  float* dtab;  // [D, 2]
+  int* bad;     // [4]
+  float lr, reg, n_cases;
+};
+
+// U, the lanes of a column of a bucket of L slots (mirrored by
+// kernels/w_sweep.py:col_lanes)
+__host__ __device__ inline int col_lanes(int L) {
+  int u = 1;
+  while (u < L && u < 32) u <<= 1;
+  return u;
+}
+
+// The plan of a launch, passed by value: the kernel reads it from the
+// parameter bank, so a block finds its bucket without a global load.
+struct Plan {
+  Bucket b[kMaxBuckets];
+  int nb;
+};
+
+// Column c of bucket bk on its U lanes (li the lane's place among them),
+// kU = U where the build fixes it, else 0.  The plan's arrays are read
+// through __ldg: nothing tells the compiler that the plan's pointers are
+// global, so it would read them with generic loads.  Every lane of the
+// warp reaches the butterfly.
+template <int kMode, int kU>
+__device__ __forceinline__ void column(const Bucket& bk, int64_t c, int li,
+                                       int U, const WArgs& a) {
+  const int stride = kU ? kU : U;
+  const bool live = c < bk.C;
+  const bool head = live && li == 0;  // the lane that closes the column
+  int64_t col = 0;
+  int g = 0;
+  float mu_c = 0.f, sig_c = 0.f, sw = 0.f, pm = 0.f, sxx = 0.f, zc = 0.f;
+  float alpha = 0.f, n = 0.f, cc = 0.f, rho = 0.f, nmu = 0.f, nsig = 0.f;
+  float tw = 0.f, s = 0.f;
+  if (live) {
+    col = __ldg(bk.cols + c);
+    if (head && kMode != kGrad) {
+      g = __ldg(bk.group + c);
+      sxx = __ldg(bk.sx2 + c);
+      alpha = *a.alpha;
+      if (kMode == kOVB) {
+        n = __ldg(bk.cnt + c);
+        cc = __ldg(bk.col_count + c);
+      }
+    }
+    if (kMode == kOVB || head) mu_c = a.mu_w[col];  // OVB: every slot's term
+    if (head && kMode != kGrad) {
+      sw = a.sigma_w[g];
+      if (kMode == kMCMC) {
+        pm = a.prior_mu[g];
+        if (a.z != nullptr) zc = a.z[col];
+      } else {
+        sig_c = a.sig_w[col];
+      }
+      if (kMode == kOVB) {
+        rho = a.rho_w[col];
+        nmu = a.nmu_w[col];
+        nsig = a.nsig_w[col];
+        tw = a.t_wj[col];
+      }
+    }
+    const int L = bk.L;
+    const int* __restrict__ crow = bk.rows + c * L;
+    const float* __restrict__ cx = bk.x + c * L;
+    for (int l = li; l < L; l += stride) {
+      const float xv = __ldg(cx + l);
+      const float ev = __ldg(a.e + __ldg(crow + l));
+      s += kMode == kOVB ? xv * (ev + xv * mu_c) : xv * ev;
+    }
   }
-  s = svbfm::warp_sum(s);
-  if (lane != 0) return;
-  if (mode == kModeGrad) {  // exp_sgd.py:84-87
-    float w_new = mu_c - lr * (s + reg * mu_c) / n_cases;
+  for (int o = stride >> 1; o > 0; o >>= 1)
+    s += __shfl_xor_sync(svbfm::kFullMask, s, o);
+  if (!head) return;
+  float* drow = a.dtab + 2 * col;
+  if (kMode == kGrad) {  // exp_sgd.py:84-87
+    float w_new = mu_c - a.lr * (s + a.reg * mu_c) / a.n_cases;
     if (!isfinite(w_new)) w_new = mu_c;
-    mu_w[col] = w_new;
-    dtab[2 * col] = w_new - mu_c;
-    dtab[2 * col + 1] = 0.f;
+    a.mu_w[col] = w_new;
+    drow[0] = w_new - mu_c;
+    drow[1] = 0.f;
     return;
   }
-  const float alpha = *alpha_p;
-  const float sw = sigma_w[group[c]];
-  const float sxx = sx2[c];
-  if (mode == kModeMCMC) {  // mcmc.py:641-652
+  if (kMode == kMCMC) {  // mcmc.py:641-652
     const float s2 = 1.f / (sw + alpha * sxx);
-    const float mean = -s2 * (alpha * (s - mu_c * sxx) - prior_mu[group[c]] * sw);
-    float val = z != nullptr ? mean + sqrtf(s2) * z[col] : mean;
+    const float mean = -s2 * (alpha * (s - mu_c * sxx) - pm * sw);
+    float val = a.z != nullptr ? mean + sqrtf(s2) * zc : mean;
     if (!isfinite(s2)) val = 0.f;  // uncounted, as the reference
-    if (isnan(val)) atomicAdd(&bad[0], 1);
-    if (isinf(val)) atomicAdd(&bad[1], 1);
+    if (isnan(val)) atomicAdd(&a.bad[0], 1);
+    if (isinf(val)) atomicAdd(&a.bad[1], 1);
     const float w_new = isfinite(val) ? val : mu_c;
-    mu_w[col] = w_new;
-    dtab[2 * col] = w_new - mu_c;
-    dtab[2 * col + 1] = 0.f;
+    a.mu_w[col] = w_new;
+    drow[0] = w_new - mu_c;
+    drow[1] = 0.f;
     return;
   }
-  const float sig_c = sig_w[col];
   float mu_cand, sig_cand, mu_new, sig_new;
-  if (mode == kModeVB) {
+  if (kMode == kVB) {
     sig_cand = 1.f / (sw + alpha * sxx);
     sig_new = isfinite(sig_cand) ? sig_cand : sig_c;
     mu_cand = sig_new * alpha * (s + mu_c * sxx);
     mu_new = isfinite(mu_cand) ? mu_cand : mu_c;
   } else {
-    const float n = cnt[c];
     if (!(n > 0.f)) {
-      dtab[2 * col] = 0.f;
-      dtab[2 * col + 1] = 0.f;
+      drow[0] = 0.f;
+      drow[1] = 0.f;
       return;
     }
     const float cnt1 = fmaxf(n, 1.f);
-    const float rho = rho_w[col];
-    const float cc = col_count[c];
     const float nsig_new =
-        (1.f - rho) * nsig_w[col] + rho * (sw + alpha * cc * (sxx / cnt1));
-    const float nmu_new = (1.f - rho) * nmu_w[col] + rho * cc * alpha * (s / cnt1);
+        (1.f - rho) * nsig + rho * (sw + alpha * cc * (sxx / cnt1));
+    const float nmu_new = (1.f - rho) * nmu + rho * cc * alpha * (s / cnt1);
     mu_cand = nmu_new / nsig_new;
     sig_cand = 1.f / nsig_new;
     mu_new = isfinite(mu_cand) ? mu_cand : mu_c;
     sig_new = isfinite(sig_cand) ? sig_cand : sig_c;
-    nmu_w[col] = nmu_new;
-    nsig_w[col] = nsig_new;
-    t_wj[col] += n;
+    a.nmu_w[col] = nmu_new;
+    a.nsig_w[col] = nsig_new;
+    a.t_wj[col] = tw + n;
   }
-  mu_w[col] = mu_new;
-  sig_w[col] = sig_new;
-  dtab[2 * col] = mu_c - mu_new;
-  dtab[2 * col + 1] = sig_new - sig_c;
-  if (isnan(mu_cand)) atomicAdd(&bad[0], 1);
-  if (isinf(mu_cand)) atomicAdd(&bad[1], 1);
-  if (isnan(sig_cand)) atomicAdd(&bad[2], 1);
-  if (isinf(sig_cand)) atomicAdd(&bad[3], 1);
+  a.mu_w[col] = mu_new;
+  a.sig_w[col] = sig_new;
+  drow[0] = mu_c - mu_new;
+  drow[1] = sig_new - sig_c;
+  if (isnan(mu_cand)) atomicAdd(&a.bad[0], 1);
+  if (isinf(mu_cand)) atomicAdd(&a.bad[1], 1);
+  if (isnan(sig_cand)) atomicAdd(&a.bad[2], 1);
+  if (isinf(sig_cand)) atomicAdd(&a.bad[3], 1);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    w_bin_kernel(const __grid_constant__ Plan p,
+                 const __grid_constant__ WArgs a) {
+  // the block's bucket: the last one whose first block is <= blockIdx.x (a
+  // bucket with no blocks shares its first block with the next, so it is
+  // stepped over); every thread reads the same words of the bank
+  int b = 0;
+  while (b + 1 < p.nb &&
+         p.b[b + 1].first <= static_cast<int64_t>(blockIdx.x))
+    ++b;
+  const Bucket& bk = p.b[b];
+  const int U = col_lanes(bk.L);
+  const int64_t c =
+      ((static_cast<int64_t>(blockIdx.x) - bk.first) * kThreads +
+       threadIdx.x) / U;
+  if (U == 32)
+    column<kMode, 32>(bk, c, threadIdx.x & 31, U, a);
+  else
+    column<kMode, 0>(bk, c, threadIdx.x & (U - 1), U, a);
+}
+
+template <int kMode>
+int launch(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
+           cudaStream_t stream) {
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
+  Plan p{};
+  p.nb = nb;
+  for (int i = 0; i < nb; ++i) {
+    const int64_t* r = plan + i * kPlanCols;
+    p.b[i] = Bucket{reinterpret_cast<const int*>(r[0]),
+                    reinterpret_cast<const float*>(r[1]),
+                    reinterpret_cast<const int*>(r[2]),
+                    reinterpret_cast<const int*>(r[3]),
+                    reinterpret_cast<const float*>(r[4]),
+                    reinterpret_cast<const float*>(r[5]),
+                    reinterpret_cast<const float*>(r[6]),
+                    static_cast<int>(r[7]), static_cast<int>(r[8]), r[9]};
+  }
+  w_bin_kernel<kMode><<<static_cast<unsigned>(blocks), kThreads, 0,
+                        stream>>>(p, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One [C, L] bucket.  Writes mu_w/sig_w [D] and dtab [D, 2] at the
-// bucket's columns; with ovb != 0 also nmu_w/nsig_w [D] and t_wj [D]
-// (+= cnt), reading cnt/col_count [C] and the rate table rho_w [D] (those
-// five pointers are not read when ovb == 0).
-SVBFM_EXPORT int svbfm_w_col_update(
-    const int* rows, const float* x, int C, int L, const int* cols,
-    const int* group, const float* sx2, const float* e, float* mu_w,
-    float* sig_w, const float* sigma_w, const float* alpha, float* dtab,
-    int* bad, int ovb, const float* cnt, const float* col_count, float* nmu_w,
-    float* nsig_w, const float* rho_w, float* t_wj, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
-  w_col_update_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
-      rows, x, C, L, cols, group, sx2, e, mu_w, sig_w, sigma_w, alpha, dtab,
-      bad, ovb ? kModeOVB : kModeVB, cnt, col_count, nmu_w, nsig_w, rho_w,
-      t_wj, nullptr, nullptr, 0.f, 0.f, 1.f);
-  return static_cast<int>(cudaGetLastError());
+// Every bucket of one bin (plan: nb rows of kPlanCols, `blocks` the sum of
+// their ceil(C U / 256), from the wrapper).  Writes mu_w/sig_w [D] and dtab
+// [D, 2] at the bin's columns; with ovb != 0 also nmu_w/nsig_w [D] and
+// t_wj [D] (+= cnt), reading the plan's cnt/col_count and the rate table
+// rho_w [D] (those four pointers are not read when ovb == 0).
+SVBFM_EXPORT int svbfm_w_col_update(const int64_t* plan, int nb,
+                                    int64_t blocks, const float* e,
+                                    float* mu_w, float* sig_w,
+                                    const float* sigma_w, const float* alpha,
+                                    float* dtab, int* bad, int ovb,
+                                    float* nmu_w, float* nsig_w,
+                                    const float* rho_w, float* t_wj,
+                                    cudaStream_t stream) {
+  const WArgs a{e,     mu_w,  sig_w,  sigma_w, nullptr, alpha, nullptr, nmu_w,
+                nsig_w, rho_w, t_wj, dtab,    bad,     0.f,   0.f,     1.f};
+  return ovb ? launch<kOVB>(plan, nb, blocks, a, stream)
+             : launch<kVB>(plan, nb, blocks, a, stream);
 }
 
-// X8c, one [C, L] bucket of the MCMC/ALS w sweep.  Writes w [D] and dtab
-// [D, 2] at the bucket's columns; w_mu/w_lambda [G] are the group priors,
-// z the [D] noise table (nullptr: ALS, the mean); bad[0], bad[1] += the
-// nan, inf draws.
-SVBFM_EXPORT int svbfm_mcmc_w_draw(
-    const int* rows, const float* x, int C, int L, const int* cols,
-    const int* group, const float* sx2, const float* e, float* w,
-    const float* w_mu, const float* w_lambda, const float* alpha,
-    const float* z, float* dtab, int* bad, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
-  w_col_update_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
-      rows, x, C, L, cols, group, sx2, e, w, nullptr, w_lambda, alpha, dtab,
-      bad, kModeMCMC, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      w_mu, z, 0.f, 0.f, 1.f);
-  return static_cast<int>(cudaGetLastError());
+// X8c, every bucket of one bin of the MCMC/ALS w sweep.  Writes w [D] and
+// dtab [D, 2] at the bin's columns; w_mu/w_lambda [G] are the group
+// priors, z the [D] noise table (nullptr: ALS, the mean); bad[0], bad[1]
+// += the nan, inf draws.
+SVBFM_EXPORT int svbfm_mcmc_w_draw(const int64_t* plan, int nb,
+                                   int64_t blocks, const float* e, float* w,
+                                   const float* w_mu, const float* w_lambda,
+                                   const float* alpha, const float* z,
+                                   float* dtab, int* bad,
+                                   cudaStream_t stream) {
+  const WArgs a{e,       w,       nullptr, w_lambda, w_mu, alpha,
+                z,       nullptr, nullptr, nullptr,  nullptr, dtab,
+                bad,     0.f,     0.f,     1.f};
+  return launch<kMCMC>(plan, nb, blocks, a, stream);
 }
 
-// K5's gradient mode (X9d), one [C, L] bucket of the exp_sgd w sweep.
-// Writes w [D] and dtab [D, 2] = (w_new - w_old, 0) at the bucket's columns.
-SVBFM_EXPORT int svbfm_w_grad_step(const int* rows, const float* x, int C,
-                                   int L, const int* cols, const float* e,
-                                   float* w, float* dtab, float lr, float reg,
+// K5's gradient mode (X9d), every bucket of one bin of the exp_sgd w
+// sweep.  Writes w [D] and dtab [D, 2] = (w_new - w_old, 0) at the bin's
+// columns.
+SVBFM_EXPORT int svbfm_w_grad_step(const int64_t* plan, int nb,
+                                   int64_t blocks, const float* e, float* w,
+                                   float* dtab, float lr, float reg,
                                    float n_cases, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((C + kColsPerBlock - 1) / kColsPerBlock);
-  w_col_update_kernel<<<blocks, 32 * kColsPerBlock, 0, stream>>>(
-      rows, x, C, L, cols, nullptr, nullptr, e, w, nullptr, nullptr, nullptr,
-      dtab, nullptr, kModeGrad, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, nullptr, nullptr, lr, reg, n_cases);
-  return static_cast<int>(cudaGetLastError());
+  const WArgs a{e,       w,       nullptr, nullptr, nullptr, nullptr,
+                nullptr, nullptr, nullptr, nullptr, nullptr, dtab,
+                nullptr, lr,      reg,     n_cases};
+  return launch<kGrad>(plan, nb, blocks, a, stream);
 }

@@ -60,20 +60,18 @@ SIGNATURES = {
         _P, _P, _P, _P, _P),
     "svbfm_vb_patch_rows": (_P, _I, _I, _I, _I, _P, _P, _L, _I, _P, _P, _P,
                             _P, _P, _P),
-    "svbfm_w_col_update": (
-        _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-        _P, _P, _P, _P, _P),
+    "svbfm_w_col_update": (_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                           _P, _P, _P, _P),
     "svbfm_w_patch_rows": (_P, _P, _P, _L, _I, _P, _P, _P),
     "svbfm_ovb_col_stats_update": (
         _P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P),
     "svbfm_build_q": (_P, _L, _I, _P, _P, _L, _I, _P, _P, _P),
-    "svbfm_mcmc_w_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P),
+    "svbfm_mcmc_w_draw": (_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "svbfm_mcmc_col_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                             _P, _P, _P, _L, _I, _P, _P),
     "svbfm_mcmc_patch_rows": (_P, _I, _P, _P, _L, _I, _P, _P, _P),
-    "svbfm_w_grad_step": (_P, _P, _I, _I, _P, _P, _P, _P, _F, _F, _F, _P),
+    "svbfm_w_grad_step": (_P, _I, _L, _P, _P, _P, _F, _F, _F, _P),
     "svbfm_mcmc_col_grad": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _F,
                             _F, _P),
     "svbfm_bs_join_agg": (_P, _I, _L, _P, _P, _I, _P, _P),
@@ -108,6 +106,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 # _TABLES_KEPT; a table holds only numbers (pointers, shapes), so it is
 # right for whatever tensors sit at those addresses
 _tables: dict = {}
+_host_tables: dict = {}  # host_table's, the same way
 _TABLES_KEPT = 64
 
 
@@ -216,6 +215,17 @@ def check_launch(lib: ctypes.CDLL, rc: int, name: str) -> None:
 
 # -- argument helpers shared by the wrappers --------------------------------
 
+def _kept(cache: dict, key, make):
+    """``cache[key]``, made by ``make()`` the first time ``key`` is seen;
+    the oldest entry is dropped past ``_TABLES_KEPT``."""
+    table = cache.get(key)
+    if table is None:
+        table = cache[key] = make()
+        while len(cache) > _TABLES_KEPT:
+            del cache[next(iter(cache))]
+    return table
+
+
 def device_table(values: tuple, device) -> torch.Tensor:
     """An int64 tensor of ``values`` (ints, or equal-length tuples of ints
     for a 2-D table) on ``device``: the device arrays of pointers and shapes
@@ -223,14 +233,19 @@ def device_table(values: tuple, device) -> torch.Tensor:
     one host-to-device copy the first time ``values`` is seen, then found
     again; the learners keep the tensors a table describes at fixed
     addresses, so each of their tables is built once."""
-    key = (device, values)
-    table = _tables.get(key)
-    if table is None:
-        table = torch.tensor(values, dtype=torch.int64).to(device)
-        _tables[key] = table
-        while len(_tables) > _TABLES_KEPT:
-            del _tables[next(iter(_tables))]
-    return table
+    return _kept(_tables, (device, values), lambda: torch.tensor(
+        values, dtype=torch.int64).to(device))
+
+
+def host_table(values: tuple) -> ctypes.Array:
+    """An int64 ctypes array of ``values`` (equal-length tuples of ints),
+    row-major: a table of pointers and shapes that a launch function copies
+    into its kernel's parameters.  Built the first time ``values`` is seen,
+    then found again, as ``device_table``'s tables are."""
+    def make():
+        flat = [v for row in values for v in row]
+        return (ctypes.c_int64 * len(flat))(*flat)
+    return _kept(_host_tables, values, make)
 
 
 def ptr(t) -> ctypes.c_void_p:

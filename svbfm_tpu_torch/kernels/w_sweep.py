@@ -1,24 +1,30 @@
-"""K5: the standalone linear-term sweep (``csrc/w_sweep.cu``).
+"""K5: the standalone linear-term sweep (``csrc/w_sweep.cu``), every degree
+bucket of one conflict-free bin in one launch.
 
-``w_col_update`` (K5) computes one degree bucket's per-column statistic and
-updates the linear term at its columns: the closed form of batch VB, or
-with ``ovb=`` the natural-gradient blend of online VB.  It writes the
-bucket's rows of the ``[D, 2]`` delta table ``dtab`` (mu_old - mu_new,
-sig_new - sig_old), which the caller zeroes before each bin;
-``vb_sweep.w_patch_rows`` (K4 at F = 0) then adds the bin's deltas to the
-row caches e and t.  On CUDA tensors the op launches its hand-written
-kernel; on CPU tensors it runs the plain PyTorch twin beside it.  Both
-update their outputs in place, kernel and twin alike.
+``w_bin_update`` (K5) computes the per-column statistic of every bucket of
+a bin (each a ``BlockData``: ``rows``/``x`` [C, L], ``cols``, ``group``,
+``sx2``, ``cnt``, ``col_count`` [C]) and updates the linear term at its
+columns: the closed form of batch VB, or with ``ovb=`` the
+natural-gradient blend of online VB.  It writes the bin's rows of the
+``[D, 2]`` delta table ``dtab`` (mu_old - mu_new, sig_new - sig_old),
+which the caller zeroes before each bin; ``vb_sweep.w_patch_rows`` (K4 at
+F = 0) then adds the bin's deltas to the row caches e and t.  On CUDA
+tensors the op launches its hand-written kernel once, with the bin's plan
+table (``w_plan_rows``, built in host memory the first time the bin's
+buckets are seen) as the kernel's parameter (a launch for each
+``MAX_BUCKETS`` buckets of a longer bin); on CPU tensors it runs the plain
+PyTorch twin of each bucket, ``w_col_update_plain``, in the bin's order.
+Both update their outputs in place, kernel and twin alike.
 
 ``bad`` is an int32 [4] counter: (nan mu, inf mu, nan sig, inf sig)
 candidates.
 
-``mcmc_w_draw`` (X8c) is the same kernel's MCMC mode: the bucket's w draw
+``mcmc_w_bin_draw`` (X8c) is the same kernel's MCMC mode: the bin's w draw
 of Gibbs MCMC (ALS: the conditional mean), with the delta table
 (w_new - w_old, 0) that ``vb_sweep.w_patch_rows`` adds to MCMC's e = yhat - y;
 ``bad[0]``, ``bad[1]`` count the NaN and Inf draws.
 
-``w_grad_step`` (X9d's w half) is its gradient mode: the bucket's step of
+``w_bin_grad_step`` (X9d's w half) is its gradient mode: the bin's step of
 the full-batch exp_sgd, w' = keep_finite(w - lr (sum x e + regw w) / N, w),
 with the same delta table (w_new - w_old, 0) for the w patch.
 
@@ -39,6 +45,9 @@ from svbfm_tpu_torch.kernels import build
 from svbfm_tpu_torch.learners.base import keep_finite
 
 _I32, _F32 = torch.int32, torch.float32
+# the kernel's threads a block and buckets a launch (csrc/w_sweep.cu)
+_THREADS = 256
+MAX_BUCKETS = 32
 
 
 def count_candidates(bad, mu_cand, sig_cand) -> None:
@@ -94,50 +103,6 @@ def w_col_update_plain(rows, x, cols, group, sx2, e, mu_w, sig_w, sigma_w,
     dtab[cl, 1] = sig_new - sig_c
 
 
-def w_col_update(rows, x, cols, group, sx2, e, mu_w, sig_w, sigma_w, alpha,
-                 dtab, bad, ovb: Optional[tuple] = None) -> None:
-    if build.on_cpu(rows):
-        return w_col_update_plain(rows, x, cols, group, sx2, e, mu_w, sig_w,
-                                  sigma_w, alpha, dtab, bad, ovb)
-    C, L = rows.shape
-    D = mu_w.shape[0]
-    dev = rows.device
-    req = build.require
-    req(rows, _I32, (C, L), dev, "w_col_update.rows")
-    req(x, _F32, (C, L), dev, "w_col_update.x")
-    for name, a, dt in (("cols", cols, _I32), ("group", group, _I32),
-                        ("sx2", sx2, _F32)):
-        req(a, dt, (C,), dev, f"w_col_update.{name}")
-    req(e, _F32, (e.shape[0],), dev, "w_col_update.e")
-    req(mu_w, _F32, (D,), dev, "w_col_update.mu_w")
-    req(sig_w, _F32, (D,), dev, "w_col_update.sig_w")
-    req(sigma_w, _F32, (sigma_w.shape[0],), dev, "w_col_update.sigma_w")
-    req(alpha, _F32, (), dev, "w_col_update.alpha")
-    req(dtab, _F32, (D, 2), dev, "w_col_update.dtab")
-    req(bad, _I32, (4,), dev, "w_col_update.bad")
-    if ovb is not None:
-        cnt, col_count, n_mu, n_sig, rho_w, t_wj = ovb
-        req(cnt, _F32, (C,), dev, "w_col_update.cnt")
-        req(col_count, _F32, (C,), dev, "w_col_update.col_count")
-        for name, a in (("n_mu_w", n_mu), ("n_sig_w", n_sig),
-                        ("rho_w", rho_w), ("t_wj", t_wj)):
-            req(a, _F32, (D,), dev, f"w_col_update.{name}")
-        op = tuple(build.ptr(a) for a in ovb)
-    else:
-        op = (None,) * 6
-    if C == 0:
-        return
-    lib = build.load_library("w_sweep")
-    with torch.cuda.device(dev):
-        rc = lib.svbfm_w_col_update(
-            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
-            build.ptr(group), build.ptr(sx2), build.ptr(e), build.ptr(mu_w),
-            build.ptr(sig_w), build.ptr(sigma_w), build.ptr(alpha),
-            build.ptr(dtab), build.ptr(bad), int(ovb is not None), *op,
-            build.stream_of(rows))
-    build.check_launch(lib, rc, "w_col_update")
-
-
 # ---- X8c: K5's MCMC mode ----------------------------------------------------
 
 def mcmc_w_draw_plain(rows, x, cols, group, sx2, e, w, w_mu, w_lambda, alpha,
@@ -162,43 +127,6 @@ def mcmc_w_draw_plain(rows, x, cols, group, sx2, e, w, w_mu, w_lambda, alpha,
     dtab[cl] = torch.stack([w_new - w_c, torch.zeros_like(w_c)], 1)
 
 
-def mcmc_w_draw(rows, x, cols, group, sx2, e, w, w_mu, w_lambda, alpha, z,
-                dtab, bad) -> None:
-    if build.on_cpu(rows):
-        return mcmc_w_draw_plain(rows, x, cols, group, sx2, e, w, w_mu,
-                                 w_lambda, alpha, z, dtab, bad)
-    C, L = rows.shape
-    D = w.shape[0]
-    G = w_mu.shape[0]
-    dev = rows.device
-    req = build.require
-    req(rows, _I32, (C, L), dev, "mcmc_w_draw.rows")
-    req(x, _F32, (C, L), dev, "mcmc_w_draw.x")
-    for name, a, dt in (("cols", cols, _I32), ("group", group, _I32),
-                        ("sx2", sx2, _F32)):
-        req(a, dt, (C,), dev, f"mcmc_w_draw.{name}")
-    req(e, _F32, (e.shape[0],), dev, "mcmc_w_draw.e")
-    req(w, _F32, (D,), dev, "mcmc_w_draw.w")
-    req(w_mu, _F32, (G,), dev, "mcmc_w_draw.w_mu")
-    req(w_lambda, _F32, (G,), dev, "mcmc_w_draw.w_lambda")
-    req(alpha, _F32, (), dev, "mcmc_w_draw.alpha")
-    if z is not None:
-        req(z, _F32, (D,), dev, "mcmc_w_draw.z")
-    req(dtab, _F32, (D, 2), dev, "mcmc_w_draw.dtab")
-    req(bad, _I32, (4,), dev, "mcmc_w_draw.bad")
-    if C == 0:
-        return
-    lib = build.load_library("w_sweep")
-    with torch.cuda.device(dev):
-        rc = lib.svbfm_mcmc_w_draw(
-            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
-            build.ptr(group), build.ptr(sx2), build.ptr(e), build.ptr(w),
-            build.ptr(w_mu), build.ptr(w_lambda), build.ptr(alpha),
-            None if z is None else build.ptr(z), build.ptr(dtab),
-            build.ptr(bad), build.stream_of(rows))
-    build.check_launch(lib, rc, "mcmc_w_draw")
-
-
 # ---- X9d: K5's gradient mode ------------------------------------------------
 
 def w_grad_step_plain(rows, x, cols, e, w, dtab, lr: float, reg: float,
@@ -217,26 +145,162 @@ def w_grad_step_plain(rows, x, cols, e, w, dtab, lr: float, reg: float,
     dtab[cl] = torch.stack([w_new - w_c, torch.zeros_like(w_c)], 1)
 
 
-def w_grad_step(rows, x, cols, e, w, dtab, lr: float, reg: float,
-                n_cases: float) -> None:
-    if build.on_cpu(rows):
-        return w_grad_step_plain(rows, x, cols, e, w, dtab, lr, reg, n_cases)
-    C, L = rows.shape
-    D = w.shape[0]
-    dev = rows.device
+# ---- the bin launch ---------------------------------------------------------
+
+def col_lanes(L: int) -> int:
+    """U, the lanes K5 gives a column of a bucket of L slots: the next power
+    of two >= L, at most 32 (``csrc/w_sweep.cu:col_lanes``)."""
+    U = 1
+    while U < L and U < 32:
+        U *= 2
+    return U
+
+
+def w_plan_rows(buckets) -> tuple[tuple, int]:
+    """K5's plan table of one bin (``csrc/w_sweep.cu`` kPlanCols): a row a
+    bucket, (rows, x, cols, group, sx2, cnt, col_count pointers, C, L,
+    first), the buckets' blocks laid end to end, ceil(C U / 256) a bucket,
+    first the bucket's first block; and the blocks in all."""
+    out, first = [], 0
+    for b in buckets:
+        C, L = b.rows.shape
+        out.append((b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(),
+                    b.group.data_ptr(), b.sx2.data_ptr(), b.cnt.data_ptr(),
+                    b.col_count.data_ptr(), C, L, first))
+        first += -(-C * col_lanes(L) // _THREADS)
+    return tuple(out), first
+
+
+def _bin_launches(buckets, e, fields: tuple, name: str) -> list:
+    """Check the bin's buckets (rows, x, cols and ``fields``) and return its
+    launches, each (host plan table, buckets, blocks): one, or one for each
+    ``MAX_BUCKETS`` buckets of a longer bin, its first blocks counted from
+    its own first; none where the bin has no blocks."""
+    dev = e.device
+    for i, b in enumerate(buckets):
+        C, L = b.rows.shape
+        build.require(b.rows, _I32, (C, L), dev, f"{name}.rows[{i}]")
+        build.require(b.x, _F32, (C, L), dev, f"{name}.x[{i}]")
+        for f in ("cols",) + fields:
+            build.require(getattr(b, f), _I32 if f in ("cols", "group")
+                          else _F32, (C,), dev, f"{name}.{f}[{i}]")
+    build.require(e, _F32, (e.shape[0],), dev, f"{name}.e")
+    out = []
+    for i in range(0, len(buckets), MAX_BUCKETS):
+        rows, blocks = w_plan_rows(buckets[i:i + MAX_BUCKETS])
+        if blocks:
+            out.append((build.host_table(rows), len(rows), blocks))
+    return out
+
+
+def w_bin_update_plain(buckets, e, mu_w, sig_w, sigma_w, alpha, dtab, bad,
+                       ovb: Optional[tuple] = None) -> None:
+    """The twin of one bin: each bucket's, in the bin's order.  ``ovb`` is
+    (n_mu_w, n_sig_w, rho_w, t_wj) for online VB, the buckets' cnt and
+    col_count beside them, or None for batch VB."""
+    for b in buckets:
+        w_col_update_plain(b.rows, b.x, b.cols, b.group, b.sx2, e, mu_w,
+                           sig_w, sigma_w, alpha, dtab, bad,
+                           None if ovb is None else (b.cnt, b.col_count,
+                                                     *ovb))
+
+
+def w_bin_update(buckets, e, mu_w, sig_w, sigma_w, alpha, dtab, bad,
+                 ovb: Optional[tuple] = None) -> None:
+    """K5 on every bucket of a bin in one launch."""
+    if build.on_cpu(e):
+        return w_bin_update_plain(buckets, e, mu_w, sig_w, sigma_w, alpha,
+                                  dtab, bad, ovb)
+    D = mu_w.shape[0]
+    dev = e.device
     req = build.require
-    req(rows, _I32, (C, L), dev, "w_grad_step.rows")
-    req(x, _F32, (C, L), dev, "w_grad_step.x")
-    req(cols, _I32, (C,), dev, "w_grad_step.cols")
-    req(e, _F32, (e.shape[0],), dev, "w_grad_step.e")
-    req(w, _F32, (D,), dev, "w_grad_step.w")
-    req(dtab, _F32, (D, 2), dev, "w_grad_step.dtab")
-    if C == 0:
-        return
+    launches = _bin_launches(buckets, e, ("group", "sx2") + (
+        ("cnt", "col_count") if ovb is not None else ()), "w_bin_update")
+    req(mu_w, _F32, (D,), dev, "w_bin_update.mu_w")
+    req(sig_w, _F32, (D,), dev, "w_bin_update.sig_w")
+    req(sigma_w, _F32, (sigma_w.shape[0],), dev, "w_bin_update.sigma_w")
+    req(alpha, _F32, (), dev, "w_bin_update.alpha")
+    req(dtab, _F32, (D, 2), dev, "w_bin_update.dtab")
+    req(bad, _I32, (4,), dev, "w_bin_update.bad")
+    if ovb is not None:
+        for a, name in zip(ovb, ("n_mu_w", "n_sig_w", "rho_w", "t_wj")):
+            req(a, _F32, (D,), dev, f"w_bin_update.{name}")
+        op = tuple(build.ptr(a) for a in ovb)
+    else:
+        op = (None,) * 4
     lib = build.load_library("w_sweep")
-    with torch.cuda.device(dev):
-        rc = lib.svbfm_w_grad_step(
-            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
-            build.ptr(e), build.ptr(w), build.ptr(dtab), lr, reg, n_cases,
-            build.stream_of(rows))
-    build.check_launch(lib, rc, "w_grad_step")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(dev):
+            rc = lib.svbfm_w_col_update(
+                table, nb, blocks, build.ptr(e), build.ptr(mu_w),
+                build.ptr(sig_w), build.ptr(sigma_w), build.ptr(alpha),
+                build.ptr(dtab), build.ptr(bad), int(ovb is not None), *op,
+                build.stream_of(e))
+        build.check_launch(lib, rc, "w_col_update")
+
+
+def mcmc_w_bin_draw_plain(buckets, e, w, w_mu, w_lambda, alpha, z, dtab,
+                          bad) -> None:
+    """The twin of one bin of the MCMC/ALS w sweep: each bucket's, in the
+    bin's order."""
+    for b in buckets:
+        mcmc_w_draw_plain(b.rows, b.x, b.cols, b.group, b.sx2, e, w, w_mu,
+                          w_lambda, alpha, z, dtab, bad)
+
+
+def mcmc_w_bin_draw(buckets, e, w, w_mu, w_lambda, alpha, z, dtab,
+                    bad) -> None:
+    """X8c on every bucket of a bin in one launch; ``z`` is the [D] noise
+    table, or None (ALS)."""
+    if build.on_cpu(e):
+        return mcmc_w_bin_draw_plain(buckets, e, w, w_mu, w_lambda, alpha, z,
+                                     dtab, bad)
+    D = w.shape[0]
+    G = w_mu.shape[0]
+    dev = e.device
+    req = build.require
+    launches = _bin_launches(buckets, e, ("group", "sx2"), "mcmc_w_bin_draw")
+    req(w, _F32, (D,), dev, "mcmc_w_bin_draw.w")
+    req(w_mu, _F32, (G,), dev, "mcmc_w_bin_draw.w_mu")
+    req(w_lambda, _F32, (G,), dev, "mcmc_w_bin_draw.w_lambda")
+    req(alpha, _F32, (), dev, "mcmc_w_bin_draw.alpha")
+    if z is not None:
+        req(z, _F32, (D,), dev, "mcmc_w_bin_draw.z")
+    req(dtab, _F32, (D, 2), dev, "mcmc_w_bin_draw.dtab")
+    req(bad, _I32, (4,), dev, "mcmc_w_bin_draw.bad")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(dev):
+            rc = lib.svbfm_mcmc_w_draw(
+                table, nb, blocks, build.ptr(e), build.ptr(w),
+                build.ptr(w_mu), build.ptr(w_lambda), build.ptr(alpha),
+                None if z is None else build.ptr(z), build.ptr(dtab),
+                build.ptr(bad), build.stream_of(e))
+        build.check_launch(lib, rc, "mcmc_w_draw")
+
+
+def w_bin_grad_step_plain(buckets, e, w, dtab, lr: float, reg: float,
+                          n_cases: float) -> None:
+    """The twin of one bin of the exp_sgd w sweep: each bucket's, in the
+    bin's order."""
+    for b in buckets:
+        w_grad_step_plain(b.rows, b.x, b.cols, e, w, dtab, lr, reg, n_cases)
+
+
+def w_bin_grad_step(buckets, e, w, dtab, lr: float, reg: float,
+                    n_cases: float) -> None:
+    """K5's gradient mode on every bucket of a bin in one launch."""
+    if build.on_cpu(e):
+        return w_bin_grad_step_plain(buckets, e, w, dtab, lr, reg, n_cases)
+    D = w.shape[0]
+    dev = e.device
+    launches = _bin_launches(buckets, e, (), "w_bin_grad_step")
+    build.require(w, _F32, (D,), dev, "w_bin_grad_step.w")
+    build.require(dtab, _F32, (D, 2), dev, "w_bin_grad_step.dtab")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(dev):
+            rc = lib.svbfm_w_grad_step(
+                table, nb, blocks, build.ptr(e), build.ptr(w),
+                build.ptr(dtab), lr, reg, n_cases, build.stream_of(e))
+        build.check_launch(lib, rc, "w_grad_step")

@@ -17,9 +17,9 @@ and a full re-predict each iteration.  The patches are NOT scaled by stdev
 oracle copies, is kept.  Inside a factor block the order is bin-major and
 factor-Jacobi (every factor of a bin from the pre-bin e); the last block is
 narrower where JAX pads and masks.  The kernels: K1 (scores and the test
-eval), K5's gradient mode ``w_grad_step`` with the w patch (K4 at F = 0),
-X8d ``build_q``, X8a's gradient mode ``mcmc_col_grad`` and X8b
-``mcmc_patch_rows``.
+eval), K5's gradient mode ``w_bin_grad_step`` (one launch a bin) with the
+w patch (K4 at F = 0), X8d ``build_q``, X8a's gradient mode
+``mcmc_col_grad`` and X8b ``mcmc_patch_rows``.
 
 ``ExpSGDStocLearner`` (``exp_sgd.py:264-273``) is ``SGDLearner`` with the
 exponential-family multiplier p / stdev - y, unclamped
@@ -40,7 +40,7 @@ from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
 from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.kernels.mcmc_sweep import mcmc_col_grad, mcmc_patch_rows
 from svbfm_tpu_torch.kernels.vb_sweep import build_q, w_patch_rows
-from svbfm_tpu_torch.kernels.w_sweep import w_grad_step
+from svbfm_tpu_torch.kernels.w_sweep import w_bin_grad_step
 from svbfm_tpu_torch.learners.base import (FMConfig, PlanData, RowData,
                                            TrajectoryFile, build_plan_data,
                                            build_row_data, keep_finite)
@@ -88,9 +88,7 @@ def exp_sgd_sweep(w0, w, v, e, row: RowData, plan: PlanData, cfg: FMConfig,
         dtab = torch.empty(D, 2, dtype=_F32, device=dev)
         for bin_blocks in plan.blocks:
             dtab.zero_()
-            for blk in bin_blocks:
-                w_grad_step(blk.rows, blk.x, blk.cols, e, w, dtab, lr,
-                            cfg.regw, n_cases)
+            w_bin_grad_step(bin_blocks, e, w, dtab, lr, cfg.regw, n_cases)
             w_patch_rows(dtab, row.ids, row.vals, e)
     for f0, Fb in factor_blocks(cfg):
         v_t = v[f0:f0 + Fb].T.contiguous()  # [D, Fb]

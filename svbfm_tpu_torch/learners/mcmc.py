@@ -10,8 +10,8 @@ runs on the CPU:
 
 * K1 ``fm_scores``: the init residual, the full re-predict of every sweep
   and the test eval;
-* X8c ``mcmc_w_draw`` (K5's MCMC mode) + ``w_patch_rows`` (K4 at F = 0): the
-  w sweep;
+* X8c ``mcmc_w_bin_draw`` (K5's MCMC mode, one launch a bin) +
+  ``w_patch_rows`` (K4 at F = 0): the w sweep;
 * X8d ``build_q`` (K2's q channel): the q cache at block entry;
 * X8a ``mcmc_col_draw``: per-bucket column statistics and the exact
   sequential draw of a block's factors;
@@ -57,7 +57,7 @@ from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.kernels.mcmc_sweep import (col_draw_fits, mcmc_col_draw,
                                                 mcmc_patch_rows)
 from svbfm_tpu_torch.kernels.vb_sweep import build_q, w_patch_rows
-from svbfm_tpu_torch.kernels.w_sweep import mcmc_w_draw
+from svbfm_tpu_torch.kernels.w_sweep import mcmc_w_bin_draw
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, PlanData,
                                            RowData, TrajectoryFile,
                                            build_plan_data, build_row_data,
@@ -232,8 +232,8 @@ def draw_v_hyperpriors(v, v_mu, v_lambda, attr_group, napg, cfg: FMConfig,
 def w_sweep_main(e, w, w_mu, w_lambda, alpha, plan: PlanData, row: RowData,
                  cfg: FMConfig, draws: Draws, counters) -> None:
     """Binned w sweep + unobserved prior draws (fm_learn_mcmc.h:671-718),
-    in place on e and w: X8c per bucket into the zeroed [D, 2] delta table,
-    then the w patch of e per bin."""
+    in place on e and w: X8c on every bucket of a bin at once into the
+    zeroed [D, 2] delta table, then the w patch of e per bin."""
     D = w.shape[0]
     dev = w.device
     # one [D] table per sweep: each column is drawn once
@@ -242,9 +242,7 @@ def w_sweep_main(e, w, w_mu, w_lambda, alpha, plan: PlanData, row: RowData,
     bad = torch.zeros(4, dtype=torch.int32, device=dev)
     for bin_blocks in plan.blocks:
         dtab.zero_()
-        for blk in bin_blocks:
-            mcmc_w_draw(blk.rows, blk.x, blk.cols, blk.group, blk.sx2, e, w,
-                        w_mu, w_lambda, alpha, zw, dtab, bad)
+        mcmc_w_bin_draw(bin_blocks, e, w, w_mu, w_lambda, alpha, zw, dtab, bad)
         w_patch_rows(dtab, row.ids, row.vals, e)
     counters["nan_w"] = counters["nan_w"] + bad[0]
     counters["inf_w"] = counters["inf_w"] + bad[1]

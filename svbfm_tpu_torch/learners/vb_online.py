@@ -15,8 +15,8 @@ same order.
 Execution is eager PyTorch around the hand-written kernels:
 
 * K1 ``fm_scores`` / ``fm_t_terms``: each chunk's e/t caches, the test eval;
-* K5 ``w_col_update`` (online mode) + ``w_patch_rows`` (K4 at F = 0):
-  the w sweep;
+* K5 ``w_bin_update`` (online mode, one launch a bin) + ``w_patch_rows``
+  (K4 at F = 0): the w sweep;
 * K2 ``vb_build_qt``: q/tq/tz at each factor block's entry;
 * K6 ``ovb_col_stats_update``: v statistics + blend, one launch a bin
   (the bin's ``BinPlan``, built with the chunk's membership);
@@ -51,7 +51,7 @@ from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.kernels.ovb_sweep import BinPlan, ovb_col_stats_update
 from svbfm_tpu_torch.kernels.vb_sweep import (vb_build_qt, vb_patch_rows,
                                               w_patch_rows)
-from svbfm_tpu_torch.kernels.w_sweep import w_col_update
+from svbfm_tpu_torch.kernels.w_sweep import w_bin_update
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, RowData,
                                            TrajectoryFile, build_plan_data,
                                            build_row_data, count_bad,
@@ -223,11 +223,8 @@ def ovb_chunk_update(state: OVBState, row: RowData, bins, cfg: FMConfig,
         bad = torch.zeros(4, dtype=_I32, device=dev)
         for plan in bins:
             dtab.zero_()
-            for blk in plan.buckets:
-                w_col_update(blk.rows, blk.x, blk.cols, blk.group, blk.sx2, e,
-                             mu_w, sigma_w_dash, state.sigma_w, alpha, dtab,
-                             bad, ovb=(blk.cnt, blk.col_count, n_mu_w,
-                                       n_sig_w, rho_w, t_wj))
+            w_bin_update(plan.buckets, e, mu_w, sigma_w_dash, state.sigma_w,
+                         alpha, dtab, bad, ovb=(n_mu_w, n_sig_w, rho_w, t_wj))
             w_patch_rows(dtab, row.ids, row.vals, e, t)
         _add_family(counters, "w", bad)
 

@@ -6,6 +6,8 @@ a GPU they skip.  On the card:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -323,6 +325,93 @@ def test_exp_sgd_kernels_match_twins_on_ragged_case(cuda, kernel):
         torch.cuda.synchronize()
         chip_smoke.compare(ok, op, f"{kernel} ({label})")
         assert all(torch.isfinite(t).all() for t in ok)
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        a.nan_to_num(), b.nan_to_num())
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["vb", "ovb", "mcmc-grad"])
+def test_w_bin_matches_twin_in_every_mode(cuda, which):
+    """K5's bin launch in its four modes on chip_smoke's ragged bins (L = 1,
+    8 with an empty bucket, 16, 33, 512 and a padded [3, 8]; a bin of 40
+    small buckets), e NaN at one row, NaN priors, a cnt = 0 column, a NaN
+    eta2 and an Inf noise number: the kernel gives the twin's outputs,
+    NaN/Inf pattern and bad counts included, and two launches give the
+    same bits."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_w_tensors(cuda)[which]
+    cases = chip_smoke.make_cases(s)
+    names = ("w_col_update",) if which < 2 else ("mcmc_w_draw",
+                                                 "w_grad_step")
+    for name in names:
+        assert len(cases[name]) == (4 if name == "mcmc_w_draw" else 2)
+        for label, prepare, call, _ in cases[name]:
+            ok, ok2 = call("kernel", prepare()), call("kernel", prepare())
+            op = call("plain", prepare())
+            torch.cuda.synchronize()
+            chip_smoke.compare(ok, op, f"{name} ({label})")
+            assert all(_same_bits(a, b) for a, b in zip(ok, ok2))
+            if name == "w_grad_step":
+                assert all(torch.isfinite(t).all() for t in ok)
+                continue
+            i = 3 if name == "w_col_update" else 2
+            assert torch.equal(ok[i], op[i])
+            if "of 40" not in label:
+                assert int(ok[i].sum()) > 0
+
+
+@pytest.mark.parametrize("n,offset,W", [
+    (2_000_003, 0, 1), (37, 0, 1), (37, 1, 1), (1, 3, 1),
+    (15_625 * 128, 0, 128), (640, 1, 128), (12, 1, 6), (12, 0, 3)])
+def test_gather_probe_forms_match_twin(cuda, n, offset, W):
+    """P1 at W = 1 and 128, and at 6 and 3 (rows narrower than a 16-byte
+    vector): n not a multiple of 4, the index base ``offset`` elements
+    past a 16-byte boundary, 2M indices over many blocks; a gather is
+    exact, so the bits equal the twin's."""
+    from svbfm_tpu_torch.kernels import gather_probe as kg
+
+    gen = torch.Generator(device=cuda).manual_seed(n + offset)
+    S = 1_000_000 // W if n > 1000 else 9
+    t = torch.randn(S, W, generator=gen, device=cuda)
+    buf = torch.randint(0, S, (n + offset,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx = buf[offset:].view(n // W, W)
+    before = build.launch_counts["gather_probe"]
+    o = kg.gather_rows(t, idx)
+    torch.cuda.synchronize()
+    assert build.launch_counts["gather_probe"] == before + 1
+    assert torch.equal(o, kg.gather_rows_plain(t, idx))
+
+
+def test_learners_launch_k5_once_a_bin(cuda):
+    """Exact VB, Gibbs, ALS, exp_sgd and OVB on the card launch K5 once a
+    bin: a sweep's launches are the plan's bins (an OVB epoch's, each
+    chunk's bins)."""
+    from svbfm_tpu_torch.learners.exp_sgd import ExpSGDLearner
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+
+    tr, te, D, meta, cfg = _small()
+    data = (SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta)
+    rep = dataclasses.replace
+    for cls, c, name in (
+            (VBLearner, rep(cfg, factor_block=1), "w_col_update"),
+            (MCMCLearner, cfg, "mcmc_w_draw"),
+            (ALSLearner, rep(cfg, regv=1.0, regw=1.0), "mcmc_w_draw"),
+            (ExpSGDLearner, rep(cfg, learn_rate=0.5), "w_grad_step"),
+            (OVBLearner, rep(cfg, num_batches=3), "w_col_update")):
+        learner = cls(c, *data, device=cuda, write_files=False)
+        state, _ = learner.run(num_iter=1, verbose=False)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        learner.run(state, num_iter=1, verbose=False)
+        torch.cuda.synchronize()
+        bins = (sum(len(b) for _, b in learner.chunks)
+                if cls is OVBLearner else len(learner.plan_data.blocks))
+        assert bins >= 2 and build.launch_counts[name] == bins, cls
 
 
 @pytest.mark.parametrize("kernel", ["bs_join_agg", "bs_rel_draw",
