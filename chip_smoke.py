@@ -14,7 +14,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      four modes on each bin in one launch, its lanes a column printed
      beside each bucket, Gibbs/ALS blocks at
      F=20 and F=1 in both draw modes, the gather probe's shapes, the SGD
-     family's batches in each step mode and X9b also on a table of
+     family's batches in each step mode (classification and Poisson
+     too; SGDA's lambda step also in its classification mode), X12a in
+     its three modes on the train rows and X12b on the test rows (VB's
+     eval and Gibbs's), and X9b also on a table of
      ML-10M's width, the full-batch exp_sgd's w and v steps at F=20 and
      F=1 (X8a at F=1 in both modes on every degree bucket, its lanes a
      column and load width printed beside each), the block-structure
@@ -52,8 +55,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
  11. ovb quality: -reshuffle 1, 20 chunks, 30 epochs; test RMSE at epochs
      10 and 30 beside the reference C++ run's (information).
  12. cli: python -m svbfm_tpu_torch.cli -method vb_online, -method sgd,
-     -method exp_sgd and -method als -relation items, -device cuda on small
-     libFM files; each must exit 0 and write its files.
+     -method exp_sgd and -method als -relation items, and -task c with
+     -method mcmc and -method sgd (-out must hold probabilities), -device
+     cuda on small libFM files; each must exit 0 and write its files.
  13. ovb-profile: device time of one online-VB epoch by kernel, K5's
      (w_bin_kernel) apart.
  14. mcmc: Gibbs MCMC, factor_block=0 (F=20), 10 iterations from the
@@ -111,9 +115,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
  34. bs-profile: device time of one blocked BS Gibbs sweep by kernel
      (bs-profile and bs-seq-profile also give X10a's, X10c's, the
      resync's and the moments').
+ 35. classification (-task c) on ML-1M with its targets binarised at 3.5:
+     vb-class (10 exact-mode sweeps; vb-class-fast, 5 fast-mode sweeps,
+     prints where its free energy turns NaN, as the JAX package's does on
+     this recipe), mcmc-class (10 Gibbs iterations from
+     the device generator), als-class (3), ovb-class (3 epochs), bs-class
+     (3 BS Gibbs iterations on the relational recipe binarised at its
+     median), sgd-class, sgda-class and sgd-poisson (the Poisson task on
+     the stars above 3 as counts), 3 epochs each: X12a and X12b launched
+     where the path runs them, the test accuracy above 0.5 and not
+     falling; each path's device time under the profiler; VB (3 exact
+     sweeps) and Gibbs (2, host-table draws) card against CPU;
+     class-quality:
+     Gibbs and VB at dim 1,1,8 on the 100k-row recipe beside the
+     reference C++'s accuracies (information).
 Then the nvidia-smi line again, a JSON line with each kernel's launches
 (summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28,
-30-32, each read just after its run with the counts zeroed just before),
+30-32 and 35, each read just after its run with the counts zeroed just
+before),
 error, times and bound, and as the last line {"ok": true, "device": {...}}.
 
 Imports only svbfm_tpu_torch, torch and numpy: never JAX.
@@ -205,6 +224,19 @@ REF_BS_ALS_RMSE = {1: 0.6562, 10: 0.6618, 30: 0.7184}
 # after the first epoch and falls, at 0.01 it rises over 5 epochs (both
 # measured on the H100)
 BPR_MIN_RATING, BPR_LR = 4.0, 0.01
+# classification: the ratings binarised at 3.5 (PARITY_RUNS.md:84), and the
+# reference C++'s test accuracy (MCMC posterior mean, VB) and VB's Test(ll)
+# on the 100k-row recipe at dim 1,1,8 (PARITY_RUNS.md:90-96), by iteration;
+# other draws and inits
+CLASS_THRESHOLD = 3.5
+CLASS_Q_ROWS, CLASS_Q_K = 100_000, 8
+REF_CLASS_MCMC_ACC = {10: 0.6249, 20: 0.6392}
+REF_CLASS_VB_ACC = {10: 0.6435, 15: 0.6421}
+REF_CLASS_VB_LL = {10: 0.4601, 15: 0.5767}
+# "not falling": the last iteration's test accuracy at most this far below
+# the first's, three standard deviations of an accuracy near 0.65 measured
+# on 99,978 test rows (sqrt(0.65 * 0.35 / 99,978) = 0.0015)
+CLASS_ACC_SLACK = 0.005
 # the least time of a kernel's work (PERF.md): its bytes at the H100's HBM
 # rate, or its float32 operations at the peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -263,6 +295,11 @@ SOURCES = {
                   "svbfm_tpu/learners/mcmc_bs.py:215"),
     "bs_resync": ("svbfm_tpu_torch/csrc/bs_forward.cu",
                   "svbfm_tpu/learners/mcmc_bs.py:463"),
+    # the probit task's XLA chains, counted as kernels as the others are
+    "probit_latent": ("svbfm_tpu_torch/csrc/probit.cu",
+                      "svbfm_tpu/learners/mcmc.py:1072"),
+    "probit_eval": ("svbfm_tpu_torch/csrc/probit.cu",
+                    "svbfm_tpu/learners/mcmc.py:1046"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
 # (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
@@ -302,6 +339,25 @@ PATH_KERNELS = {
     "bs-als": BS_KERNELS,
     "bs-seq": BS_KERNELS + ("build_q",),
     "bs-nine": BS_KERNELS,
+    # classification: X12b's eval, and X12a's latent update where the
+    # method has one (OVB has none)
+    "vb-class": ("fm_scores", "fm_t_terms", "vb_build_qt",
+                 "vb_col_stats_update", "vb_patch_rows", "probit_latent",
+                 "probit_eval"),
+    "mcmc-class": ("fm_scores", "build_q", "mcmc_col_draw", "mcmc_patch_rows",
+                   "mcmc_w_draw", "w_patch_rows", "probit_latent",
+                   "probit_eval"),
+    "als-class": ("fm_scores", "build_q", "mcmc_col_draw", "mcmc_patch_rows",
+                  "mcmc_w_draw", "w_patch_rows", "probit_latent",
+                  "probit_eval"),
+    "ovb-class": ("fm_scores", "fm_t_terms", "vb_build_qt", "vb_patch_rows",
+                  "w_col_update", "w_patch_rows", "ovb_col_stats_update",
+                  "probit_eval"),
+    "bs-class": BS_KERNELS + ("probit_latent", "probit_eval"),
+    "sgd-class": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
+    "sgda-class": ("fm_scores", "sgd_grad_scatter", "sgd_apply",
+                   "sgda_lambda"),
+    "sgd-poisson": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
 }
 
 
@@ -854,9 +910,12 @@ def make_cases(s: dict):
     for r in s.get("bs", ()):  # X10a-X10d on one relation
         bs_cases(add, r)
 
-    for key in ("sgd", "sgd_wide"):  # X9a, X9b and (SGDA) X9c, per mode
+    # X9a, X9b and (SGDA) X9c, per mode
+    for key in ("sgd", "sgd_wide", "sgd_tasks"):
         for mode_case in s.get(key, {}).get("modes", ()):
             sgd_cases(add, s[key], *mode_case)
+
+    probit_cases(add, s)
 
     for label, t, idx in s.get("gathers", ()):  # P1: o[r, l] = t[i[r, l], l]
         def gcall(variant, _, t=t, idx=idx):
@@ -1070,6 +1129,75 @@ def bs_cases(add, r: dict) -> None:
                                         (r["stab"], ids, sc["moms"]),
                                         ("vec", "lanes", "rows", "build",
                                          "stride"))))
+
+
+def probit_cases(add, s: dict) -> None:
+    """X12a on the train rows in each of its modes and X12b on the test
+    rows, VB's eval and Gibbs's (its accumulators updated in place).  The
+    bytes: X12a reads e, y (and the Gibbs draw's u) and writes e; X12b
+    reads the scores, targets and valid flags, and Gibbs's accumulators
+    (psum_but5 from iteration 5) read and written.  The operations are
+    counted a row, a transcendental function as one: ~30 in X12a's mean
+    modes, ~55 in its Gibbs mode (the erf, then Giles' erfinv), ~50 in
+    X12b.  X12b's library call is torch.special.ndtr on the scores, the
+    exact Phi (not the reference's A&S erf) and no sums: a yardstick."""
+    from svbfm_tpu_torch.kernels import probit as kp
+
+    for label, e, y, u, mode in s.get("probit_latent", ()):
+        def call(variant, inp, y=y, u=u, mode=mode):
+            (t,) = inp
+            fn = (kp.probit_latent if variant == "kernel"
+                  else kp.probit_latent_plain)
+            fn(t, y, u, mode)
+            return [t]
+
+        n = e.shape[0]
+        add("probit_latent", f"{label} N={n}", lambda e=e: (e.clone(),),
+            call, cost(n * (12 + (4 if u is not None else 0)),
+                       n * (55 if u is not None else 30)))
+    for label, sc, y, valid, nt, acc, it in s.get("probit_eval", ()):
+        def prepare(acc=acc):
+            return () if acc is None else (acc.clone(), acc.clone())
+
+        def call(variant, inp, sc=sc, y=y, valid=valid, nt=nt, it=it):
+            fn = (kp.probit_eval if variant == "kernel"
+                  else kp.probit_eval_plain)
+            return [fn(sc, y, valid, nt, *inp, it=it)] + list(inp)
+
+        n = sc.shape[0]
+        rw = 0 if acc is None else n * (8 + (8 if it >= 5 else 0))
+        add("probit_eval", f"{label} N={n}", prepare, call,
+            cost(n * 12 + rw + 16, n * 50,
+                 library=lambda sc=sc: torch.special.ndtr(sc),
+                 note="library_ms: torch.special.ndtr, the exact Phi"))
+
+
+def probit_tensors(gibbs, state) -> dict:
+    """X12a's and X12b's inputs at the classification paths' shapes: the
+    ML-1M train rows' scores (the Gibbs state's e + y, e = yhat - y) as
+    the residual e = yhat that the latent update reads, the targets
+    binarised at 3.5, uniforms from a host generator; the test rows'
+    scores, targets and valid flags, and accumulators at Gibbs's 7th
+    iteration."""
+    from svbfm_tpu_torch.kernels import probit as kp
+
+    row, trow = gibbs.train_row, gibbs.test_row
+    dev = row.target.device
+    yhat = (state.e + row.target).contiguous()
+    y = torch.where(row.target > CLASS_THRESHOLD, 1.0, -1.0).contiguous()
+    g = torch.Generator().manual_seed(SEED)
+    u = (torch.rand(yhat.shape[0], generator=g) * (1 - 2 * kp.CDF_EPS)
+         + kp.CDF_EPS).to(dev)
+    scores = gibbs._test_scores(state).contiguous()
+    yt = torch.where(trow.target > CLASS_THRESHOLD, 1.0, -1.0).contiguous()
+    acc = (6.0 * torch.rand(scores.shape[0], generator=g)).to(dev)
+    nt = float(gibbs.test_n)
+    return dict(tag="probit", probit_latent=[
+        ("vb", yhat, y, None, kp.PROBIT_VB),
+        ("als", yhat, y, None, kp.PROBIT_ALS),
+        ("gibbs", yhat, y, u, kp.PROBIT_GIBBS)], probit_eval=[
+        ("vb", scores, yt, trow.valid, nt, None, 0),
+        ("gibbs it=6", scores, yt, trow.valid, nt, acc, 6)])
 
 
 def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
@@ -1953,6 +2081,27 @@ def sgd_tensors(sgd, exp, sgda, bpr, device) -> dict:
                     ("pair", bpr.mode, "pair", pairs + (neg,))])
     wide = dict(tab=randn(ML10M_FEATURES, 1 + K), w0=g["w0"],
                 modes=[("regression-wide", sgd.mode, "row", rows)])
+    # X9a's classification and Poisson modes on the same rows, their
+    # targets binarised at 3.5 and the stars above 3 as counts; X9a, X9b
+    # and X9c in SGDA's classification mode on its batches, binarised
+    from svbfm_tpu_torch.learners.sgd import sgd_step_mode
+
+    def binary(b):
+        return b[:2] + (torch.where(b[2] > CLASS_THRESHOLD, 1.0, -1.0),
+                        b[3])
+
+    def task_mode(cfg, task, lo, hi, **kw):
+        return sgd_step_mode(dataclasses.replace(
+            cfg, task=task, min_target=lo, max_target=hi), **kw)
+
+    counts = rows[:2] + (torch.clamp(rows[2] - 3.0, min=0.0), rows[3])
+    tasks = dict(g, val=binary(g["val"]), lambda_more=(), modes=[
+        ("classification", task_mode(sgd.cfg, 1, -1.0, 1.0), "row",
+         binary(rows)),
+        ("poisson", task_mode(sgd.cfg, 2, 0.0, 2.0), "row", counts),
+        ("sgda-classification",
+         task_mode(sgda.cfg, 1, -1.0, 1.0, mult_scale=2.0, reg0=0.0),
+         "sgda", binary(batch(sgda, sgda.train_row)))])
     # X9c also at the [sgd-quality] SGDA's width, K = 8, and on 1,000
     # validation rows, several a warp, also cut to the 8 blocks it falls
     # back to where the card holds no cluster of 16 (the last entry: the
@@ -1968,7 +2117,7 @@ def sgd_tensors(sgd, exp, sgda, bpr, device) -> dict:
          dataclasses.replace(sgda.mode, K=SGDA_K), 0),
         (g["tab"], g["grad_tab"], g["reg_v"], rows1000, sgda.mode, 0),
         (g["tab"], g["grad_tab"], g["reg_v"], rows1000, sgda.mode, 8)]
-    return dict(tag="sgd", sgd=g, sgd_wide=wide)
+    return dict(tag="sgd", sgd=g, sgd_wide=wide, sgd_tasks=tasks)
 
 
 # X9b's seeded cases: (label, D, B); the SGD path's shape at ML-1M's width,
@@ -2328,11 +2477,13 @@ def write_relation_files(work: str, tr, te, num_users: int) -> None:
 
 
 def run_cli(dev_index: int, method: str, extra: list, files: tuple,
-            relation: bool = False) -> None:
+            relation: bool = False, task: str = "r") -> None:
     """The port's CLI in a child process on small libFM files: ``-method
     method`` with ``extra`` flags must exit 0 and write v_file.txt,
     pred.txt, its test_rmse file and ``files``; ``relation`` moves the
-    items into a relation (``-relation items``)."""
+    items into a relation (``-relation items``).  ``task`` "c" runs
+    classification on the stars less 3.5 (the CLI's positive class: > 0):
+    pred.txt must hold probabilities."""
     from svbfm_tpu_torch.data.libfm_text import save_libfm_text
     from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
 
@@ -2342,6 +2493,8 @@ def run_cli(dev_index: int, method: str, extra: list, files: tuple,
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     coo = make_movielens_like(200, 150, 5000, seed=3)
+    if task == "c":
+        coo.target = (coo.target - CLASS_THRESHOLD).astype(np.float32)
     tr, te = train_test_split(coo, 0.2, seed=4)
     if relation:
         write_relation_files(work, tr, te, 200)
@@ -2352,7 +2505,7 @@ def run_cli(dev_index: int, method: str, extra: list, files: tuple,
     env = dict(os.environ, PYTHONPATH=repo,
                CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES",
                                                    str(dev_index)))
-    cmd = [sys.executable, "-m", "svbfm_tpu_torch.cli", "-task", "r",
+    cmd = [sys.executable, "-m", "svbfm_tpu_torch.cli", "-task", task,
            "-train", "train.libfm", "-test", "test.libfm", "-dim", "1,1,8",
            "-method", method, *extra, "-iter", "2", "-device", "cuda",
            "-out", "pred.txt"]
@@ -2367,9 +2520,12 @@ def run_cli(dev_index: int, method: str, extra: list, files: tuple,
     if missing or "Final\tTest=" not in r.stdout:
         raise AssertionError(f"cli output incomplete: missing {missing}")
     final = [ln for ln in r.stdout.splitlines() if ln.startswith("Final")][0]
+    pred = np.loadtxt(os.path.join(work, "pred.txt"))
+    if task == "c" and not ((pred >= 0) & (pred <= 1)).all():
+        raise AssertionError("cli -task c: -out holds values outside [0, 1]")
     shutil.rmtree(work, ignore_errors=True)
-    say("cli", t0, method=method, relation=relation, rc=r.returncode,
-        final=final.split("=")[1])
+    say("cli", t0, method=method, task=task, relation=relation,
+        rc=r.returncode, final=final.split("=")[1])
 
 
 def enqueue_then_wait(step, state, n: int = 3):
@@ -2402,6 +2558,261 @@ def check_sgd_history(hist, path: str, key: str = "rmse", first=None,
     if not (last > first if rises else last < first):
         raise AssertionError(f"{path}: {key} went {first} -> {last} over "
                              f"{len(hist)} epochs")
+
+
+def binarised(ds, threshold: float):
+    """``ds`` with the classification targets: +1 above ``threshold``, else
+    -1 (the CLI binarises at 0; here the stars at 3.5)."""
+    return dataclasses.replace(
+        ds, target=np.where(ds.target > threshold, 1.0, -1.0).astype(
+            np.float32), min_target=-1.0, max_target=1.0)
+
+
+def check_class_history(hist, path: str, key: str = "accuracy",
+                        learns: bool = True, rises: bool = True) -> None:
+    """Finite metrics and no non-finite candidates; with ``learns``, the
+    test accuracy above 0.5 at every iteration and, with ``rises``, not
+    falling: the last at most CLASS_ACC_SLACK below the first."""
+    for h in hist:
+        vals = [v for k, v in h.items() if isinstance(v, float)]
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError(f"{path}: non-finite metrics at iter "
+                                 f"{h['iter']}: {h}")
+        if learns and not h[key] > 0.5:
+            raise AssertionError(f"{path}: {key} {h[key]} at iter "
+                                 f"{h['iter']}")
+        bad = {k: v for k, v in h.items()
+               if k.startswith(("nan_", "inf_")) and v}
+        if bad:
+            raise AssertionError(f"{path}: non-finite candidates {bad}")
+    if learns and rises and hist[-1][key] < hist[0][key] - CLASS_ACC_SLACK:
+        raise AssertionError(f"{path}: {key} fell {hist[0][key]} -> "
+                             f"{hist[-1][key]}")
+
+
+def class_phases(build, card, dev, train, test, meta, base_cfg, plan,
+                 bsp: dict, sgda_split) -> list:
+    """Classification (``-task c``) through every learner on ML-1M with its
+    targets binarised at 3.5 (K = 20), and the Poisson task through SGD:
+    vb-class and vb-class-gpu-vs-cpu (exact mode), vb-class-fast (fast
+    mode, information), mcmc-class, mcmc-class-gpu-vs-cpu,
+    als-class, ovb-class, bs-class (the 1M-row relational recipe,
+    binarised at its median), sgd-class, sgda-class, sgd-poisson, each
+    path's device time a sweep under the profiler (``<path>-profile``),
+    then class-quality (Gibbs and VB at dim 1,1,8 on the 100k-row recipe
+    beside the reference C++).  Returns the driven runs' launch counts."""
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.learners.sgd import SGDALearner, SGDLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    def med(hist):
+        return f"{statistics.median(h['time_learn'] for h in hist[1:]):.6f}"
+
+    def accs(hist, key="accuracy"):
+        return ",".join(f"{h[key]:.5f}" for h in hist)
+
+    def launches(counts):
+        return json.dumps(counts, separators=(",", ":"))
+
+    ctr, cte = (binarised(d, CLASS_THRESHOLD) for d in (train, test))
+    ccfg = dict(base_cfg, task=1, min_target=-1.0, max_target=1.0)
+    runs = []
+
+    # ---- vb-class: batch VB, exact mode (the reference's order), 10 sweeps -
+    # (fast mode's Jacobi block of all K factors lets the latent update's
+    # A&S Phi(-mu) reach 0 here, and e turn infinite, in the JAX package
+    # as in the port: vb-class-fast below)
+    t0 = time.perf_counter()
+    cfg = FMConfig(factor_block=1, **ccfg)
+    vb = VBLearner(cfg, ctr, cte, meta, device=dev, plan=plan,
+                   write_files=False)
+    (vstate, hv), lv = drive(build, "vb-class", lambda: vb.run(
+        vb.init_state(), num_iter=10, verbose=False, chunk=1))
+    check_class_history(hv, "vb-class")
+    runs.append(lv)
+    say("vb-class", t0, sweeps=len(hv), factor_block=1, sec_per_iter=med(hv),
+        accuracy=accs(hv), loglik=accs(hv, "loglik"),
+        fe_last=f"{hv[-1]['free_energy']:.2f}", launches=launches(lv),
+        card=repr(card))
+    profile_run(lambda: vb.run(vstate, num_iter=1, verbose=False), 1,
+                "sweep", "vb-class-profile", focus=("probit",))
+
+    # ---- vb-class-gpu-vs-cpu: 3 exact-mode sweeps, full size ----------------
+    t0 = time.perf_counter()
+    params = init_vb_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    cpu = VBLearner(cfg, ctr, cte, meta, device="cpu", plan=plan,
+                    write_files=False)
+    hists = [lr.run(lr.state_from_params(params), num_iter=3,
+                    verbose=False)[1] for lr in (vb, cpu)]
+    worst = compare_traj(*hists, ("accuracy", "loglik", "free_energy"),
+                         TRAJ_RTOL, "vb-class gpu vs cpu")
+    say("vb-class-gpu-vs-cpu", t0, sweeps=3, factor_block=1,
+        max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL)
+    del cpu, vb, vstate
+
+    # ---- vb-class-fast: fast mode, 5 sweeps (information) -------------------
+    # The sweep at which the free energy turns NaN, if one does: the
+    # truncated mean's Phi(-mu) underflows to 0 for |mu| past ~5.7 in
+    # float32 (tests/test_torch_classification.py pins the helpers' inf)
+    t0 = time.perf_counter()
+    fast = VBLearner(FMConfig(factor_block=0, **ccfg), ctr, cte, meta,
+                     device=dev, plan=plan, write_files=False)
+    (_, hf), lf = drive(build, "vb-class", lambda: fast.run(
+        fast.init_state(), num_iter=5, verbose=False, chunk=1))
+    runs.append(lf)
+    first_nan = next((h["iter"] for h in hf
+                      if not np.isfinite(h["free_energy"])), None)
+    say("vb-class-fast", t0, sweeps=len(hf), sec_per_iter=med(hf),
+        accuracy=accs(hf), free_energy=",".join(
+            f"{h['free_energy']:.1f}" for h in hf),
+        first_nan_iter=first_nan, launches=launches(lf))
+    del fast
+
+    # ---- mcmc-class: Gibbs, 10 iterations from the device generator -------
+    t0 = time.perf_counter()
+    cfg = FMConfig(factor_block=0, **ccfg)  # F = K, as [mcmc]
+    gibbs = MCMCLearner(cfg, ctr, cte, meta, device=dev, plan=plan,
+                        write_files=False)
+    (mstate, hm), lm = drive(build, "mcmc-class", lambda: gibbs.run(
+        gibbs.init_state(), num_iter=10, verbose=False, chunk=1))
+    check_class_history(hm, "mcmc-class")
+    runs.append(lm)
+    say("mcmc-class", t0, iterations=len(hm), sec_per_iter=med(hm),
+        accuracy=accs(hm), acc_this=accs(hm, "acc_this"),
+        loglik_last=f"{hm[-1]['loglik']:.5f}",
+        alpha_last=f"{hm[-1]['alpha']:.4f}", launches=launches(lm),
+        card=repr(card))
+    profile_run(lambda: gibbs.run(mstate, num_iter=1, verbose=False), 1,
+                "sweep", "mcmc-class-profile", focus=("probit",))
+
+    # ---- mcmc-class-gpu-vs-cpu: 2 sweeps, host-table draws -----------------
+    t0 = time.perf_counter()
+    p0 = init_fm_params(torch.Generator().manual_seed(SEED),
+                        cfg.num_attributes, K, init_stdev=cfg.init_stdev,
+                        init_w_normal=True)
+    cpu = MCMCLearner(cfg, ctr, cte, meta, device="cpu", plan=plan,
+                      write_files=False)
+    hists = [lr.run(lr.state_from_params(p0.w0, p0.w, p0.v,
+                                         host_draws(SEED, lr.device)),
+                    num_iter=2, verbose=False)[1] for lr in (gibbs, cpu)]
+    worst = compare_traj(*hists, ("accuracy", "loglik", "acc_this",
+                                  "ll_this", "alpha"), TRAJ_RTOL,
+                         "mcmc-class gpu vs cpu")
+    say("mcmc-class-gpu-vs-cpu", t0, sweeps=2, max_rel=f"{worst:.3e}",
+        rtol=TRAJ_RTOL)
+    del cpu, gibbs, mstate
+
+    # ---- als-class: ALS (-regular 5), 3 iterations --------------------------
+    t0 = time.perf_counter()
+    als = ALSLearner(FMConfig(factor_block=0, **dict(
+        ccfg, reg0=ALS_REG, regw=ALS_REG, regv=ALS_REG)), ctr, cte, meta,
+        device=dev, plan=plan, write_files=False)
+    (astate, ha), la = drive(build, "als-class", lambda: als.run(
+        als.init_state(), num_iter=3, verbose=False, chunk=1))
+    check_class_history(ha, "als-class")
+    runs.append(la)
+    say("als-class", t0, iterations=len(ha), sec_per_iter=med(ha),
+        accuracy=accs(ha), acc_this=accs(ha, "acc_this"),
+        launches=launches(la))
+    profile_run(lambda: als.run(astate, num_iter=1, verbose=False), 1,
+                "sweep", "als-class-profile", focus=("probit",))
+    del als, astate
+
+    # ---- ovb-class: online VB, 20 chunks, 3 epochs --------------------------
+    t0 = time.perf_counter()
+    ovb = OVBLearner(FMConfig(num_batches=OVB_CHUNKS, **ccfg), ctr, cte,
+                     meta, device=dev, write_files=False)
+    (ostate, ho), lo = drive(build, "ovb-class", lambda: ovb.run(
+        ovb.init_state(), num_iter=3, verbose=False))
+    check_class_history(ho, "ovb-class")
+    runs.append(lo)
+    say("ovb-class", t0, epochs=len(ho), chunks=OVB_CHUNKS,
+        sec_per_epoch=med(ho), accuracy=accs(ho), loglik=accs(ho, "loglik"),
+        launches=launches(lo))
+    profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False), 1,
+                "epoch", "ovb-class-profile", focus=("probit",))
+    del ovb, ostate
+
+    # ---- bs-class: block-structure Gibbs, 3 iterations ---------------------
+    t0 = time.perf_counter()
+    thr = float(np.median(bsp["train"].target[: bsp["train"].num_rows]))
+    bspc = dict(bsp, train=binarised(bsp["train"], thr),
+                test=binarised(bsp["test"], thr))
+    bs = bs_learner(bspc, dev, num_factor=K, regw=BS_REG, regv=BS_REG,
+                    task=1, min_target=-1.0, max_target=1.0)
+    (bstate, hb), lb = drive(build, "bs-class", lambda: bs.run(
+        bs.init_state(), num_iter=3, verbose=False, chunk=1))
+    check_class_history(hb, "bs-class")
+    runs.append(lb)
+    say("bs-class", t0, iterations=len(hb), threshold=f"{thr:.4f}",
+        sec_per_iter=med(hb), accuracy=accs(hb), launches=launches(lb))
+    profile_run(lambda: bs.run(bstate, num_iter=1, verbose=False), 1,
+                "sweep", "bs-class-profile", focus=("probit",))
+    del bs, bstate
+
+    # ---- sgd-class, sgda-class, sgd-poisson: 3 epochs each -----------------
+    scfg = FMConfig(**ccfg)
+    tr90, va10 = (binarised(d, CLASS_THRESHOLD) for d in sgda_split)
+    counts = [dataclasses.replace(
+        d, target=np.maximum(d.target - 3.0, 0.0).astype(np.float32))
+        for d in (train, test)]
+    for path, make in (
+            ("sgd-class", lambda: SGDLearner(scfg, ctr, cte, meta, device=dev,
+                                             write_files=False)),
+            ("sgda-class", lambda: SGDALearner(
+                dataclasses.replace(scfg, learn_rate=SGDA_LR), tr90, cte,
+                va10, meta, device=dev, write_files=False)),
+            ("sgd-poisson", lambda: SGDLearner(FMConfig(**dict(
+                base_cfg, task=2, min_target=0.0, max_target=2.0)),
+                *counts, meta, device=dev, write_files=False))):
+        t0 = time.perf_counter()
+        learner = make()
+        (_, hs), ls = drive(build, path, lambda: learner.run(
+            num_iter=3, verbose=False))
+        # the Poisson task's "accuracy" (a score >= 0 against a count > 0,
+        # sgd.py:398-404) measures no fit: its run is held to finite
+        # metrics alone.  The SGD family overfits this recipe from its
+        # first epoch at these rates (its regression phases show it: the
+        # test RMSE of [sgd-quality] rises after epoch 1), so its accuracy
+        # is held above 0.5, not to rise
+        check_class_history(hs, path, learns=path != "sgd-poisson",
+                            rises=False)
+        runs.append(ls)
+        say(path, t0, epochs=len(hs), sec_per_epoch=med(hs),
+            accuracy=accs(hs), launches=launches(ls))
+
+    # ---- class-quality: the 100k-row recipe, dim 1,1,8 (information) -------
+    t0 = time.perf_counter()
+    tr1, _, train1, test1, meta1 = ml_data(CLASS_Q_ROWS)
+    qcfg = FMConfig(num_attributes=tr1.num_features, num_factor=CLASS_Q_K,
+                    task=1, min_target=-1.0, max_target=1.0,
+                    num_groups=meta1.num_attr_groups, seed=SEED)
+    qtr, qte = (binarised(d, CLASS_THRESHOLD) for d in (train1, test1))
+    _, hq = MCMCLearner(qcfg, qtr, qte, meta1, device=dev,
+                        write_files=False).run(
+        num_iter=max(REF_CLASS_MCMC_ACC), verbose=False)
+    _, hvq = VBLearner(qcfg, qtr, qte, meta1, device=dev,
+                       write_files=False).run(
+        num_iter=max(REF_CLASS_VB_ACC), verbose=False)
+    check_class_history(hq, "class-quality mcmc")
+    say("class-quality", t0, train_rows=tr1.num_rows, dim="1,1,8",
+        **{f"mcmc_acc_iter{i}": f"{hq[i - 1]['accuracy']:.4f}"
+           for i in REF_CLASS_MCMC_ACC},
+        **{f"vb_acc_iter{i}": f"{hvq[i - 1]['accuracy']:.4f}"
+           for i in REF_CLASS_VB_ACC},
+        **{f"vb_ll_iter{i}": f"{hvq[i - 1]['loglik']:.4f}"
+           for i in REF_CLASS_VB_LL},
+        reference_cpp_mcmc_acc=",".join(
+            f"{i}:{v}" for i, v in REF_CLASS_MCMC_ACC.items()),
+        reference_cpp_vb_acc=",".join(
+            f"{i}:{v}" for i, v in REF_CLASS_VB_ACC.items()),
+        reference_cpp_vb_ll=",".join(
+            f"{i}:{v}" for i, v in REF_CLASS_VB_LL.items()))
+    return runs
 
 
 def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
@@ -2827,6 +3238,7 @@ def main() -> int:
         check_cases(sgd_tensors(sgd, exp_sgd, sgda, bpr, dev), timed=True),
         check_cases(exp_sgd_tensors(exp_full, exp_full.init_state()),
                     timed=True),
+        check_cases(probit_tensors(gibbs, mc1), timed=True),
         check_cases(bs_tensors(bs_mcmc, bs1, "bs", True, (K, 0, 1),
                                agg_widths=(BS_AGG_BLOCK_F,)), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
@@ -2982,6 +3394,8 @@ def main() -> int:
     run_cli(dev.index, "sgd", ["-learn_rate", "0.05"], ())
     run_cli(dev.index, "exp_sgd", ["-learn_rate", str(EXP_SGD_LR)], ())
     run_cli(dev.index, "als", ["-regular", "1"], (), relation=True)
+    run_cli(dev.index, "mcmc", [], (), task="c")
+    run_cli(dev.index, "sgd", ["-learn_rate", "0.05"], (), task="c")
 
     # ---- 13. where an online-VB epoch's device time goes --------------------
     profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False), 1,
@@ -3110,10 +3524,13 @@ def main() -> int:
 
     l_bs, l_bs_als, l_bs_seq, l_bs_nine = bs_phases(build, card, dev,
                                                     bs_mcmc, bsp)
+    del bs_mcmc
+    l_class = class_phases(build, card, dev, train, test, meta, base_cfg,
+                           plan, bsp, (tr90, va10))
 
     runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
-            l_bs_nine)
+            l_bs_nine, *l_class)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}
     kernels = []
     for n in SOURCES:

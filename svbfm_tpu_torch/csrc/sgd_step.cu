@@ -23,7 +23,9 @@
 //   again only where P > 4 or K > 32).  Then a lane an entry adds its count
 //   and w-gradient mult*x.  n_eff and sum mult are reduced per block by a
 //   shuffle and added once a block.  Modes: regression (clamped p - y), the
-//   exponential family (p/stdev - y), mult_scale 2 (SGDA, which also writes
+//   exponential family (p/stdev - y), classification (y (sigmoid(y p) - 1))
+//   and Poisson (exp(clamped p) - y), each times mult_scale and valid
+//   (svbfm_tpu/learners/sgd.py:87-100), mult_scale 2 (SGDA, which also writes
 //   each entry's gradients gw_e [B, P], gv_e [B, P, K] and the atomicMax of
 //   the flat entry index per attribute into winner [D], so the last entry
 //   of the batch wins, as XLA's scatter keeps it), and pair (BPR: the
@@ -74,7 +76,9 @@
 //   at P <= 2, 2 at P <= 4) issued before the regs are staged in shared
 //   memory and every later group's before its first row is summed; the
 //   forecast theta' = theta - lr (grad + 2 reg theta) is formed once for
-//   the clamped prediction, grad_loss gl = 2 (p - y) valid and the lambda
+//   the clamped prediction, grad_loss gl = 2 (p - y) valid (classification
+//   and Poisson: y (sigmoid(y p) - 1) valid, p not clamped, sgd.py:226-229)
+//   and the lambda
 //   gradients, which each lane adds an entry at a time into its warp's own
 //   slots [G (1+K) + 1] in shared memory (no atomics; the sums over a
 //   group are linear in its entries).  A block folds its warps' slots by a
@@ -111,6 +115,8 @@ constexpr int kLambdaWarps = 16;   // X9c: the most warps a cluster block
 constexpr int kLambdaBlocks = 16;  // X9c: the most blocks a cluster
 constexpr int kLossExp = 1;  // 0: regression
 constexpr int kLossPair = 2;
+constexpr int kLossClass = 3;
+constexpr int kLossPoisson = 4;
 
 // jnp.clip: a NaN stays NaN
 __device__ __forceinline__ float clip_nan(float p, float lo, float hi) {
@@ -269,6 +275,10 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
       mult = -(1.f / (1.f + expf(d))) * valid;  // -sigmoid(-d)
     } else if (a.loss == kLossExp) {
       mult = a.mult_scale * (p / a.stdev - yb) * valid;
+    } else if (a.loss == kLossClass) {
+      mult = a.mult_scale * yb * (1.f / (1.f + expf(-(yb * p))) - 1.f) * valid;
+    } else if (a.loss == kLossPoisson) {
+      mult = a.mult_scale * (expf(clip_nan(p, a.min_t, a.max_t)) - yb) * valid;
     } else {
       mult = a.mult_scale * (clip_nan(p, a.min_t, a.max_t) - yb) * valid;
     }
@@ -484,6 +494,7 @@ struct Lambda {
   float decay1;  // 1 - min(lr, 1)
   float min_t;
   float max_t;
+  int class_loss;  // the classification (and Poisson) grad_loss
   int k0;
   int k1;
   int staged;  // the regs are staged in shared memory
@@ -556,7 +567,8 @@ __device__ __forceinline__ void add_sums(const Lambda& a,
   }
 }
 
-// grad_loss gl = 2 (clip(p) - y) valid of a row (every lane gets it):
+// grad_loss gl = 2 (clip(p) - y) valid of a row, or y (sigmoid(y p) - 1)
+// valid under the classification loss (every lane gets it):
 // p = w0 (read at launch) + sw, the w channel's sum (lane 0's), + the sum
 // over the factors of (s_f^2 - s2_f) / 2, this lane's share in ``quad``
 __device__ __forceinline__ float row_gl(const Lambda& a, float w0, float quad,
@@ -566,6 +578,7 @@ __device__ __forceinline__ float row_gl(const Lambda& a, float w0, float quad,
   float pr = a.k0 ? w0 : 0.f;
   if (a.k1) pr += sw;
   pr += quad;
+  if (a.class_loss) return y * (1.f / (1.f + expf(-(y * pr))) - 1.f) * valid;
   return 2.f * (clip_nan(pr, a.min_t, a.max_t) - y) * valid;
 }
 
@@ -890,8 +903,8 @@ SVBFM_EXPORT int svbfm_sgda_lambda(
     const float* tab, const float* grad_tab, int K, const float* w0,
     float* reg_w, float* reg_v, const int* attr_group, int G, const int* ids,
     const float* vals, const float* y, const float* valid, int64_t B, int P,
-    float lr, float m2lr, float decay1, float min_t, float max_t, int k0, int k1,
-    int max_blocks, cudaStream_t stream) {
+    float lr, float m2lr, float decay1, float min_t, float max_t,
+    int class_loss, int k0, int k1, int max_blocks, cudaStream_t stream) {
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -916,8 +929,10 @@ SVBFM_EXPORT int svbfm_sgda_lambda(
                           : kLambdaBlocks;
   int64_t blocks = B > 0 ? std::min<int64_t>(cap, (B + nw - 1) / nw) : 1;
   while (floats(blocks) > room) --blocks;
-  Lambda a{tab, grad_tab, K, w0, reg_w, reg_v, attr_group, G, ids, vals, y,
-           valid, B, P, lr, m2lr, decay1, min_t, max_t, k0, k1, staged};
+  Lambda a{tab,   grad_tab, K,      w0,    reg_w, reg_v,      attr_group,
+           G,     ids,      vals,   y,     valid, B,          P,
+           lr,    m2lr,     decay1, min_t, max_t, class_loss, k0,
+           k1,    staged};
   auto kernel = P <= 2 ? sgda_lambda_kernel<2, 4> : sgda_lambda_kernel<4, 2>;
   const size_t smem = sizeof(float) * floats(blocks);
   if (smem > 48 * 1024) {

@@ -46,7 +46,11 @@ LIBRARIES = {
     "bs_sweep": ("bs_join_agg", "bs_rel_draw", "bs_rel_w_draw",
                  "bs_rel_patch", "bs_rel_w_patch"),
     "bs_forward": ("bs_rel_moments", "bs_resync"),
+    "probit": ("probit_latent", "probit_eval"),
 }
+# flags a library adds to NVCC_FLAGS: probit.cu rounds every operation as
+# its plain twin does, so no multiply-add is contracted
+EXTRA_FLAGS = {"probit": ("-fmad=false",)}
 
 # C signatures of the exported launch functions (P: pointer or stream,
 # I: int, L: int64, F: float); every one returns cudaGetLastError() as an int
@@ -94,7 +98,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _L, _P, _L, _P, _P),
     "svbfm_sgda_lambda": (
         _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _F, _F, _F,
-        _F, _F, _I, _I, _I, _P),
+        _F, _F, _I, _I, _I, _I, _P),
+    "svbfm_probit_latent": (_P, _P, _P, _L, _I, _P),
+    "svbfm_probit_eval": (_P, _P, _P, _L, _P, _P, _I, _F, _I, _P, _P, _P,
+                          _P),
 }
 
 launch_counts: dict[str, int] = {
@@ -135,8 +142,12 @@ def library_path(name: str) -> str:
     for fn in (f"{name}.cu",) + HEADERS:
         with open(os.path.join(CSRC_DIR, fn), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def _start_build(name: str):
@@ -148,7 +159,8 @@ def _start_build(name: str):
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+    cmd = [nvcc, *_flags(name), "-o", tmp,
+           os.path.join(CSRC_DIR, f"{name}.cu")]
     return so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True)
 

@@ -38,7 +38,8 @@ from svbfm_tpu_torch.kernels.mcmc_sweep import MAX_BLOCK_SMEM
 
 _I32, _F32 = torch.int32, torch.float32
 
-LOSS_REGRESSION, LOSS_EXP, LOSS_PAIR = 0, 1, 2
+LOSS_REGRESSION, LOSS_EXP, LOSS_PAIR, LOSS_CLASSIFICATION, LOSS_POISSON = (
+    0, 1, 2, 3, 4)
 
 
 @dataclass(frozen=True)
@@ -143,11 +144,23 @@ def _scores_sums(tab, w0, ids, vals, m: StepMode):
 def multiplier_plain(p, y, valid, m: StepMode):
     """The loss multiplier times valid (sgd.py:87-100): regression clamps
     the score to the target range, the exponential family scales it by
-    1/stdev and does not clamp."""
+    1/stdev and does not clamp; classification is y (sigmoid(y p) - 1),
+    Poisson exp(clamped p) - y."""
     if m.loss == LOSS_EXP:
         return m.mult_scale * (p / m.stdev - y) * valid
-    return m.mult_scale * (torch.clamp(p, m.min_target, m.max_target)
-                           - y) * valid
+    if m.loss == LOSS_CLASSIFICATION:
+        return m.mult_scale * y * (torch.sigmoid(y * p) - 1.0) * valid
+    p = torch.clamp(p, m.min_target, m.max_target)
+    if m.loss == LOSS_POISSON:
+        return m.mult_scale * (torch.exp(p) - y) * valid
+    return m.mult_scale * (p - y) * valid
+
+
+def lambda_class_loss(m: StepMode) -> bool:
+    """SGDA's lambda step takes the classification grad_loss
+    y (sigmoid(y p) - 1) for every task but regression (sgd.py:226-229:
+    the Poisson task falls in that branch too)."""
+    return m.loss in (LOSS_CLASSIFICATION, LOSS_POISSON)
 
 
 def _entry_grads(mult, s, vg, vals, m: StepMode):
@@ -267,7 +280,10 @@ def sgda_lambda_plain(tab, grad_tab, w0, reg_w, reg_v, attr_group, ids,
         p = p + (w_dash * vals * vmask).sum(-1)
     d = v_dash * vals[:, :, None] * vmask[:, :, None]
     p = p + 0.5 * ((d.sum(1)) ** 2 - (d * d).sum(1)).sum(-1)
-    grad_loss = 2.0 * (torch.clamp(p, m.min_target, m.max_target) - y)
+    if lambda_class_loss(m):
+        grad_loss = y * (torch.sigmoid(y * p) - 1.0)
+    else:
+        grad_loss = 2.0 * (torch.clamp(p, m.min_target, m.max_target) - y)
     grad_loss = grad_loss * valid
     n_v = valid.sum()
     scale_l = (1.0 - torch.pow(f32_sub(1.0, min(lr, 1.0)), n_v)) / (
@@ -433,7 +449,8 @@ class _Steps:
             build.ptr(reg_w), build.ptr(reg_v), build.ptr(attr_group),
             reg_w.shape[0], *(base + b * step for base, step in at), Bv, Pv,
             m.lr, -2.0 * m.lr, f32_sub(1.0, min(m.lr, 1.0)), m.min_target,
-            m.max_target, int(m.k0), int(m.k1), max_blocks, self.stream)
+            m.max_target, int(lambda_class_loss(m)), int(m.k0), int(m.k1),
+            max_blocks, self.stream)
         build.check_launch(self.lib, rc, "sgda_lambda")
 
 

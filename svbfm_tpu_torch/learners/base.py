@@ -19,6 +19,8 @@ from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
 from svbfm_tpu_torch.data.meta import DataMetaInfo
 
 TASK_REGRESSION = 0
+TASK_CLASSIFICATION = 1  # binary probit / logistic, targets +-1
+TASK_POISSON = 2  # the SGD family's exp multiplier (svbfm_tpu sgd.py:98)
 
 
 @dataclass(frozen=True)
@@ -178,6 +180,73 @@ def print_nonzero_nans(rec: dict, verbose: bool = True) -> None:
     if bad:
         print("\t".join(f"#{k.split('_', 1)[0]}s in {k.split('_', 1)[1]}: {v}"
                         for k, v in bad.items()))
+
+
+def check_task_r_or_c(cfg: FMConfig) -> None:
+    """For the learners that run regression and classification alone (VB,
+    OVB, MCMC and block structure, the full-batch exp_sgd).  The Poisson
+    task is the SGD family's: the JAX package sends it down the probit
+    learners' classification branch on targets it does not binarise,
+    which the reference does not document, and the full-batch exp_sgd
+    has no task branch; the port refuses it."""
+    if cfg.task == TASK_POISSON:
+        raise NotImplementedError(
+            "task p (Poisson) is read by the SGD family alone (sgd, "
+            "sgd_online, sgda, exp_sgd_stoc); for this method it is not "
+            "ported (ROADMAP.md queue 1, item 15)")
+    if cfg.task not in (TASK_REGRESSION, TASK_CLASSIFICATION):
+        raise ValueError(f"unknown task {cfg.task}")
+
+
+# ---------------------------------------------------------------------------
+# The reference's probit helpers (svbfm_tpu/learners/base.py:201-225), in
+# float32 and in its order of operations; csrc/probit.cu computes the same
+# ---------------------------------------------------------------------------
+
+# sqrt(3.141 * 2) in float32, the reference's 3.141 kept
+SQRT_2PI_REF = float(np.sqrt(np.float32(3.141 * 2)))
+
+
+def ref_erf(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz-Stegun 7.1.26 polynomial erf, the reference's ``erf``
+    (``src/util/random.h:47-62``)."""
+    t = 1.0 / (1.0 + 0.3275911 * torch.abs(x))
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    r = 1.0 - poly * torch.exp(-x * x)
+    return torch.where(x >= 0, r, -r)
+
+
+def ref_cdf_gaussian(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 + 0.5 * ref_erf(0.707106781 * x)
+
+
+def truncnorm_mean_positive(mu: torch.Tensor) -> torch.Tensor:
+    """E[z | z > 0], z ~ N(mu, 1), with the reference's constants
+    (``fm_learn_vb_simultaneous.h:184-188``)."""
+    phi = torch.exp(-mu * mu / 2.0) / SQRT_2PI_REF
+    return mu + phi / (1 - ref_cdf_gaussian(-mu))
+
+
+def truncnorm_mean_negative(mu: torch.Tensor) -> torch.Tensor:
+    phi = torch.exp(-mu * mu / 2.0) / SQRT_2PI_REF
+    return mu - phi / ref_cdf_gaussian(-mu)
+
+
+def evaluate_classification(prob, target, normalizer=1.0,
+                            num_eval_cases: Optional[int] = None):
+    """Accuracy and the negative mean log10 likelihood
+    (fm_learn_*_simultaneous), on the host in float64."""
+    prob = np.asarray(prob, dtype=np.float64)
+    target = np.asarray(target, dtype=np.float64)
+    if num_eval_cases is not None:
+        prob, target = prob[:num_eval_cases], target[:num_eval_cases]
+    p = prob * normalizer
+    acc = np.mean(((p >= 0.5) & (target > 0)) | ((p < 0.5) & (target < 0)))
+    m = (target + 1.0) * 0.5
+    pll = np.clip(p, 0.01, 0.99)
+    ll = -np.mean(m * np.log10(pll) + (1 - m) * np.log10(1 - pll))
+    return float(acc), float(ll)
 
 
 def regression_metrics(scores: torch.Tensor, row: RowData, num_rows: int,

@@ -6,7 +6,11 @@ source, an object with these methods:
 * ``normal(shape)``: standard normal draws of that shape;
 * ``gamma(a)``: standard Gamma(a, 1) draws, elementwise in the tensor ``a``;
 * ``permutation(n)``: a random permutation of range(n) (int64);
-* ``randint(shape, lo, hi)``: uniform integers in [lo, hi) (int32).
+* ``randint(shape, lo, hi)``: uniform integers in [lo, hi) (int32);
+* ``uniform(shape, lo, hi)``: uniform floats in [lo, hi) (float32), the
+  Gibbs probit draw's (``mcmc.py:1079-1082``, which also splits its key
+  under ALS and uses no number: the port then asks for a zero-length
+  draw).
 
 The learner calls them in the JAX package's order and with its shapes
 (``svbfm_tpu/learners/mcmc.py``, where each draw splits the key chain and
@@ -58,6 +62,12 @@ class Draws:
         return torch.randint(lo, hi, tuple(shape), generator=self.generator,
                              dtype=torch.int32,
                              device=self.generator.device).to(self.device)
+
+
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        u = torch.rand(tuple(shape), generator=self.generator, dtype=_F32,
+                       device=self.generator.device)
+        return (u * (hi - lo) + lo).to(self.device)
 
 
 def device_draws(seed: int, device) -> Draws:

@@ -2,7 +2,9 @@
 exp_sgd``) and the stochastic learner (``-method exp_sgd_stoc``).
 
 ``exp_sgd_sweep``/``ExpSGDLearner`` are the counterpart of
-``svbfm_tpu/learners/exp_sgd.py`` (:62-261), regression: full-batch
+``svbfm_tpu/learners/exp_sgd.py`` (:62-261), which takes no task branch
+(under ``-task c`` it runs on the +-1 targets, the eval a clamped RMSE;
+the Poisson task is refused): full-batch
 coordinate gradient steps over conflict-free bins with e/q caches
 (exp_fm_learn_sgd.h:267-455),
 
@@ -22,7 +24,8 @@ w patch (K4 at F = 0), X8d ``build_q``, X8a's gradient mode
 ``mcmc_col_grad`` and X8b ``mcmc_patch_rows``.
 
 ``ExpSGDStocLearner`` (``exp_sgd.py:264-273``) is ``SGDLearner`` with the
-exponential-family multiplier p / stdev - y, unclamped
+exponential-family multiplier p / stdev - y, unclamped, under regression,
+and SGD's own classification and Poisson multipliers under those tasks
 (exp_fm_learn_sgd_stoc_element.h:29-43), on X9a and X9b.
 """
 
@@ -43,8 +46,9 @@ from svbfm_tpu_torch.kernels.vb_sweep import build_q, w_patch_rows
 from svbfm_tpu_torch.kernels.w_sweep import w_bin_grad_step
 from svbfm_tpu_torch.learners.base import (FMConfig, PlanData, RowData,
                                            TrajectoryFile, build_plan_data,
-                                           build_row_data, keep_finite)
-from svbfm_tpu_torch.learners.sgd import SGDLearner, check_task
+                                           build_row_data, check_task_r_or_c,
+                                           keep_finite)
+from svbfm_tpu_torch.learners.sgd import SGDLearner
 from svbfm_tpu_torch.models.fm import init_fm_params
 from svbfm_tpu_torch.ops.forward import fm_scores
 
@@ -117,7 +121,7 @@ class ExpSGDLearner:
                  test: SparseDataset, meta: Optional[DataMetaInfo] = None, *,
                  device, bins: str = "auto", out_dir: str = ".",
                  write_files: bool = True):
-        check_task(cfg)
+        check_task_r_or_c(cfg)
         if cfg.factor_block < 0 or cfg.num_factor < 0:
             raise ValueError("factor_block and num_factor must be >= 0")
         self.cfg = cfg

@@ -1,7 +1,9 @@
 """Native relational block structure (BS) for Gibbs MCMC and ALS, on one
 device.
 
-Counterpart of ``svbfm_tpu/learners/mcmc_bs.py``, regression: libFM's
+Counterpart of ``svbfm_tpu/learners/mcmc_bs.py``, regression and probit
+classification (the re-predict leaves e = yhat there, and the learner's
+eval, inherited from ``MCMCLearner``, runs X12b and X12a): libFM's
 VLDB'13 path ("Scaling Factorization Machines to Relational Data",
 ``fm_learn_mcmc.h:134-220, 459-620, 722-899``).  The relations stay
 factored on the device: memory and work per sweep scale with N + the
@@ -67,7 +69,8 @@ from svbfm_tpu_torch.learners.mcmc import (NAN_FAMILIES, MCMCLearner,
                                            _v_block_pass, check_slice,
                                            draw_alpha, draw_v_hyperpriors,
                                            draw_w0, draw_w_hyperpriors,
-                                           v_factor_main_bins, w_sweep_main)
+                                           repredicted, v_factor_main_bins,
+                                           w_sweep_main)
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -423,10 +426,11 @@ def bs_draw_all(state: MCMCState, row: RowData, plan: PlanData, rels, rstats,
         else:
             _bs_v_sequential(e, v, v_mu, v_lambda, alpha, plan, row, rels,
                              rstats, cfg, qB_pre, draws, counters)
-    # full re-predict: e := yhat - y
-    e = bs_score_rows(w0, w, v, row.ids, row.vals, rels, rstats,
-                      [rd.join_tr for rd in rels], cfg.k0, cfg.k1,
-                      score_moms) - row.target
+    # full re-predict (mcmc_bs.py:837-840): e := yhat - y, or yhat under
+    # classification
+    e = repredicted(bs_score_rows(w0, w, v, row.ids, row.vals, rels, rstats,
+                                  [rd.join_tr for rd in rels], cfg.k0,
+                                  cfg.k1, score_moms), row, cfg)
     new_state = MCMCState(w0=w0, w=w, v=v, alpha=alpha, w_mu=w_mu,
                           w_lambda=w_lambda, v_mu=v_mu, v_lambda=v_lambda,
                           e=e, draws=draws)

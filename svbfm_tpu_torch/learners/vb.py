@@ -1,8 +1,11 @@
 """VBFM — batch coordinate-ascent variational Bayes, on one device.
 
-Counterpart of ``svbfm_tpu/learners/vb.py``, regression, in both of its
-modes: fast (``factor_block=0``: all K factors form one block and the
-linear-term update rides in its bin passes) and exact (``factor_block=F``
+Counterpart of ``svbfm_tpu/learners/vb.py``, regression and probit
+classification (``task=1``: each sweep ends with the test accuracy and
+log-likelihood, X12b, and the truncated-mean update of the train
+residual, X12a), in both of its modes: fast (``factor_block=0``: all K
+factors form one block and the linear-term update rides in its bin
+passes) and exact (``factor_block=F``
 > 0, or K = 0: the linear-term sweep runs standalone first, then blocks of
 F factors, the last block narrower when F does not divide K; F = 1 is the
 reference's own order).  The math and its order are the JAX package's; the
@@ -14,7 +17,8 @@ each with a plain twin that runs on the CPU:
 * K3 ``vb_col_stats_update``: per-bucket column statistics + closed form;
 * K4 ``vb_patch_rows``: the per-bin row-cache patch;
 * K5 ``w_bin_update`` (one launch a bin) + ``w_patch_rows`` (K4 at
-  F = 0): the standalone linear-term sweep.
+  F = 0): the standalone linear-term sweep;
+* X12a ``probit_latent`` and X12b ``probit_eval`` under classification.
 
 Sweep semantics (see the JAX module's docstring): bins in order, exact
 Gauss-Seidel over conflict-free columns; factors within the block Jacobi;
@@ -39,12 +43,14 @@ from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.kernels.vb_sweep import (vb_build_qt,
                                               vb_col_stats_update,
                                               vb_patch_rows, w_patch_rows)
+from svbfm_tpu_torch.kernels.probit import (PROBIT_VB, probit_eval,
+                                            probit_latent)
 from svbfm_tpu_torch.kernels.w_sweep import w_bin_update
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, PlanData,
                                            RowData, TrajectoryFile,
                                            build_plan_data, build_row_data,
-                                           keep_finite, nonfinite,
-                                           regression_metrics)
+                                           check_task_r_or_c, keep_finite,
+                                           nonfinite, regression_metrics)
 from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
 
 _F32 = torch.float32
@@ -101,10 +107,7 @@ def check_slice(cfg: FMConfig) -> None:
     """Raise for what the port does not run yet; nothing falls back."""
     if cfg.factor_block < 0 or cfg.num_factor < 0:
         raise ValueError("factor_block and num_factor must be >= 0")
-    if cfg.task != TASK_REGRESSION:
-        raise NotImplementedError(
-            f"classification (probit e-resampling) is not ported yet; "
-            f"{_ROADMAP}")
+    check_task_r_or_c(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +296,9 @@ def vb_finalize(e, t, mu_0, sigma_0_dash, mu_w, sigma_w_dash, mu_v,
 # per-iteration scalar metrics, in the order they are packed on the device
 _SCALARS = ("free_energy", "rmse", "mae", "train_rmse", "alpha", "nan_w",
             "nan_v", "nan_alpha")
+# the same under classification (vb.py:1002-1014)
+_SCALARS_CLASS = ("free_energy", "accuracy", "loglik", "alpha", "nan_w",
+                  "nan_v", "nan_alpha")
 
 
 class VBLearner:
@@ -365,27 +371,41 @@ class VBLearner:
         return state, self._eval(state, fe, nans)
 
     def _eval(self, state: VBState, fe, nans) -> torch.Tensor:
-        """Regression branch of the JAX learner's _eval_and_resample
-        (vb.py:976-1001), including its clip of e before train_rmse."""
+        """The JAX learner's _eval_and_resample (vb.py:976-1019): regression
+        takes the test RMSE/MAE and the train RMSE of the clipped e;
+        classification the test accuracy and log-likelihood (X12b), then
+        the probit update of the train residual, in place on ``state.e``
+        (X12a)."""
         cfg, trow = self.cfg, self.test_row
         scores = fm_scores(state.mu_0, state.mu_w, state.mu_v, trow.ids,
                            trow.vals, k0=cfg.k0, k1=cfg.k1)
-        rmse, mae = regression_metrics(scores, trow, self.test_n,
-                                       cfg.min_target, cfg.max_target)
-        e_c = torch.clamp(state.e, cfg.min_target, cfg.max_target)
-        train_rmse = torch.sqrt(torch.sum(e_c * e_c * self.train_row.valid)
-                                / float(self.train_n))
-        scalars = torch.stack([
-            fe, rmse, mae, train_rmse, state.alpha,
-            nans["nan_w"].to(_F32), nans["nan_v"].to(_F32),
+        if cfg.task == TASK_REGRESSION:
+            rmse, mae = regression_metrics(scores, trow, self.test_n,
+                                           cfg.min_target, cfg.max_target)
+            e_c = torch.clamp(state.e, cfg.min_target, cfg.max_target)
+            train_rmse = torch.sqrt(
+                torch.sum(e_c * e_c * self.train_row.valid)
+                / float(self.train_n))
+            head = [fe, rmse, mae, train_rmse]
+        else:
+            m = probit_eval(scores, trow.target, trow.valid, self.test_n)
+            head = [fe, m[0], m[1]]
+            probit_latent(state.e, self.train_row.target, None, PROBIT_VB)
+        scalars = torch.stack(head + [
+            state.alpha, nans["nan_w"].to(_F32), nans["nan_v"].to(_F32),
             nans["nan_alpha"].to(_F32)])
         return torch.cat([scalars, state.sigma_w.reshape(-1),
                           state.sigma_v.reshape(-1)])
 
+    def _scalars(self) -> tuple:
+        return (_SCALARS if self.cfg.task == TASK_REGRESSION
+                else _SCALARS_CLASS)
+
     def _unpack(self, m: np.ndarray) -> dict:
         G, K = self.cfg.num_groups, self.cfg.num_factor
-        n = len(_SCALARS)
-        rec = {k: float(m[i]) for i, k in enumerate(_SCALARS)}
+        names = self._scalars()
+        n = len(names)
+        rec = {k: float(m[i]) for i, k in enumerate(names)}
         rec["sigma_w"] = m[n:n + G].copy()
         rec["sigma_v"] = m[n + G:n + G + G * K].reshape(G, K).copy()
         return rec
@@ -428,11 +448,19 @@ class VBLearner:
                     rec["conflict_free"] = False  # Jacobi-bin approximation
                 rec.update(self._unpack(metrics[j]))
                 fe_file.append(-rec["free_energy"])
-                rmse_file.append(rec["rmse"])
+                if cfg.task != TASK_REGRESSION:
+                    rmse_file.append(rec["accuracy"])
+                    if verbose:
+                        print(f"#Iter={rec['iter']:3d}\t"
+                              f"Test={rec['accuracy']:.6g}"
+                              f"\tTest(ll)={rec['loglik']:.6g}")
+                else:
+                    rmse_file.append(rec["rmse"])
+                    if verbose:
+                        print(f"#Iter={rec['iter']:3d}\t"
+                              f"Train={rec['train_rmse']:.6g}"
+                              f"\tTest={rec['rmse']:.6g}")
                 if verbose:
-                    print(f"#Iter={rec['iter']:3d}\t"
-                          f"Train={rec['train_rmse']:.6g}"
-                          f"\tTest={rec['rmse']:.6g}")
                     nw, nv = int(rec["nan_w"]), int(rec["nan_v"])
                     if nw or nv or int(rec["nan_alpha"]):
                         print(f"#nans in w: {nw}\t#nans in v: {nv}\t"

@@ -1,5 +1,7 @@
 """OVBFM — online variational Bayes FM (natural-gradient chunk updates with
-Robbins-Monro rates), regression, in-memory data, one device.
+Robbins-Monro rates), regression and probit classification (the chunk
+updates are the same; the epoch's eval is X12b's accuracy and
+log-likelihood), in-memory data, one device.
 
 Counterpart of ``svbfm_tpu/learners/vb_online.py``: the math, its order and
 the reference's quirks are the JAX package's (see that module's docstring):
@@ -20,7 +22,8 @@ Execution is eager PyTorch around the hand-written kernels:
 * K2 ``vb_build_qt``: q/tq/tz at each factor block's entry;
 * K6 ``ovb_col_stats_update``: v statistics + blend, one launch a bin
   (the bin's ``BinPlan``, built with the chunk's membership);
-* K4 ``vb_patch_rows`` (``sequential=False``): the per-bin cache patch.
+* K4 ``vb_patch_rows`` (``sequential=False``): the per-bin cache patch;
+* X12b ``probit_eval``: the classification eval of an epoch.
 
 The v sweep is factor-sequential: ``factor_block`` 0 becomes 1, because
 Jacobi blocks of factors diverge online (``svbfm_tpu`` ``OVBLearner``).
@@ -33,7 +36,10 @@ Not carried over from the JAX learner, each for its reason:
   pass): same values, a later performance candidate;
 * the alignment of all chunk plans to one padded shape (one compiled XLA
   program): each chunk runs its own plan here;
-* the ``lax.scan`` epoch program: a Python loop over chunks.
+* the ``lax.scan`` epoch program: a Python loop over chunks;
+* MAP@k under classification (``map_eval``, ROADMAP.md queue 1, item 12)
+  and the streaming binarisation of out-of-core chunks (item 10): the
+  port has neither feature yet.
 """
 
 from __future__ import annotations
@@ -49,19 +55,20 @@ import torch
 from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
 from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.kernels.ovb_sweep import BinPlan, ovb_col_stats_update
+from svbfm_tpu_torch.kernels.probit import probit_eval
 from svbfm_tpu_torch.kernels.vb_sweep import (vb_build_qt, vb_patch_rows,
                                               w_patch_rows)
 from svbfm_tpu_torch.kernels.w_sweep import w_bin_update
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, RowData,
                                            TrajectoryFile, build_plan_data,
-                                           build_row_data, count_bad,
-                                           keep_finite, print_nonzero_nans,
+                                           build_row_data, check_task_r_or_c,
+                                           count_bad, keep_finite,
+                                           print_nonzero_nans,
                                            regression_metrics, zero_counters)
 from svbfm_tpu_torch.learners.vb import factor_blocks, init_vb_params
 from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
 
 _F32, _I32 = torch.float32, torch.int32
-_ROADMAP = "see ROADMAP.md queue 1"
 
 LAMBDA = 0.5
 T0_W0 = 1.0
@@ -124,9 +131,7 @@ def init_ovb_state(generator: torch.Generator, cfg: FMConfig,
 
 
 def check_slice(cfg: FMConfig) -> None:
-    if cfg.task != TASK_REGRESSION:
-        raise NotImplementedError(
-            f"online VB classification is not ported yet; {_ROADMAP}")
+    check_task_r_or_c(cfg)
     if cfg.factor_block < 0 or cfg.num_factor < 0:
         raise ValueError("factor_block and num_factor must be >= 0")
 
@@ -386,7 +391,8 @@ class OVBLearner:
     def epoch(self, state: OVBState, order: np.ndarray):
         """Every chunk once, in ``order``, then the test eval.  Returns
         (state, packed): a float32 device vector of the first and last
-        chunk's free energy, rmse, mae and the counters in
+        chunk's free energy, rmse and mae (classification: accuracy and
+        loglik, vb_online.py:1062-1068) and the counters in
         ``COUNTER_KEYS`` order, summed over the chunks."""
         cfg = self.cfg
         fes = []
@@ -403,9 +409,13 @@ class OVBLearner:
         scores = fm_scores(state.mu_0, state.mu_w, state.mu_v,
                            self.test_row.ids, self.test_row.vals,
                            k0=cfg.k0, k1=cfg.k1)
-        rmse, mae = regression_metrics(scores, self.test_row, self.test_n,
-                                       cfg.min_target, cfg.max_target)
-        packed = torch.stack([fes[0], fes[-1], rmse, mae] +
+        if cfg.task == TASK_REGRESSION:
+            m1, m2 = regression_metrics(scores, self.test_row, self.test_n,
+                                        cfg.min_target, cfg.max_target)
+        else:
+            m1, m2 = probit_eval(scores, self.test_row.target,
+                                 self.test_row.valid, self.test_n)[:2]
+        packed = torch.stack([fes[0], fes[-1], m1, m2] +
                              [total[k].to(_F32) for k in COUNTER_KEYS])
         return state, packed
 
@@ -439,13 +449,15 @@ class OVBLearner:
             # reference: free energy appended for the first and last chunk
             fe_file.append(-float(m[0]))
             fe_file.append(-float(m[1]))
+            names = (("rmse", "mae") if cfg.task == TASK_REGRESSION
+                     else ("accuracy", "loglik"))
             rec = {"iter": it, "free_energy": float(m[1]),
-                   "rmse": float(m[2]), "mae": float(m[3]),
+                   names[0]: float(m[2]), names[1]: float(m[3]),
                    "time_pred": now - t_pred, "time_learn": now - t0,
                    **{k: int(v) for k, v in zip(COUNTER_KEYS, m[4:])}}
-            rmse_file.append(rec["rmse"])
+            rmse_file.append(rec[names[0]])
             if verbose:
-                print(f"#Iter={it:3d}\tTest={rec['rmse']:.6g}")
+                print(f"#Iter={it:3d}\tTest={rec[names[0]]:.6g}")
             print_nonzero_nans(rec, verbose)
             history.append(rec)
         return state, history

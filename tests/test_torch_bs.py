@@ -433,12 +433,49 @@ def test_bs_factor_width():
 
 
 def test_classification_is_refused():
-    main, rels, joins, _ = _problem()
-    cfg, ds, robjs, meta, d_main = _build(TPKG, main, rels, joins, 3, task=1)
-    with pytest.raises(NotImplementedError, match="classification"):
-        tbs.MCMCBSLearner(cfg, ds, ds, robjs, joins, joins, meta, d_main,
-                          device="cpu", write_files=False)
-
+    """Classification through block structure is no longer refused: 2 BS
+    Gibbs iterations on the +-1 targets (test_bs.py:174's binarisation at
+    the median) held to svbfm_tpu with the replayed key chain, the
+    re-predict leaving e = yhat for the latent draw (mcmc_bs.py:722, :839);
+    the Poisson task, which the probit learners do not read, is refused."""
+    main, rels, joins, y = _problem(n=400)
+    main["target"] = np.where(y > np.median(y), 1.0, -1.0).astype(np.float32)
+    out = []
+    for pkg, jax_side in ((JPKG, True), (TPKG, False)):
+        cfg, ds, robjs, meta, d_main = _build(pkg, main, rels, joins, 3,
+                                              task=1)
+        if jax_side:
+            out.append(jbs.MCMCBSLearner(cfg, ds, ds, robjs, joins, joins,
+                                         meta, d_main, mesh=make_mesh(1),
+                                         write_files=False))
+        else:
+            out.append(tbs.MCMCBSLearner(cfg, ds, ds, robjs, joins, joins,
+                                         meta, d_main, device="cpu",
+                                         write_files=False))
+    jl, tl = out
+    assert tl.cfg.min_target == -1.0 and tl.cfg.max_target == 1.0
+    js, ts = _start(jl)
+    jend, jh = jl.run(js, num_iter=2, verbose=False)
+    tend, th = tl.run(ts, num_iter=2, verbose=False)
+    np.testing.assert_array_equal(np.asarray(tend.draws.key),
+                                  np.asarray(jend.key))
+    for k in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(tend, k).numpy(),
+                                   np.asarray(getattr(jend, k)), rtol=1e-4,
+                                   atol=5e-5, err_msg=k)
+    np.testing.assert_allclose(tend.e.numpy(),
+                               np.asarray(jend.e)[: tl.train_n], rtol=1e-4,
+                               atol=2e-3)
+    for a, b in zip(jh, th):
+        assert abs(b["accuracy"] - a["accuracy"]) * tl.test_n < 1.5
+        np.testing.assert_allclose(b["loglik"], a["loglik"], rtol=2e-3)
+    np.testing.assert_allclose(tl.final_test_predictions(tend),
+                               jl.final_test_predictions(jend), rtol=1e-4,
+                               atol=1e-5)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tbs.MCMCBSLearner(dataclasses.replace(tl.cfg, task=2), ds, ds, robjs,
+                          joins, joins, meta, d_main, device="cpu",
+                          write_files=False)
 
 
 def test_ragged_bs_case_twins_on_cpu():

@@ -89,7 +89,7 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("extra,kw,message", [
-    (["-relation", "rel"], dict(task="c"), "Next C"),
+    (["-relation", "rel"], dict(task="p"), "item 15"),
     (["-cache_size", "1000"], {}, "item 10"),
     (["-checkpoint", "ck"], {}, "item 12"),
     (["-rlog", "log.tsv"], {}, "item 12"),
@@ -97,7 +97,7 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
     (["-num_eval_cases", "5"], {}, "item 4"),
     (["-learn_rate", "0.1"], {}, "not read"),
     (["-bogus", "1"], {}, "unknown parameter"),
-    ([], dict(task="c"), "Next C"),
+    ([], dict(task="p"), "item 15"),
     (["-factor_jacobi", "1"], dict(method="exp_sgd"),
      "not read by -method exp_sgd"),
     (["-validation", "va.libfm"], {}, "only by sgda"),
@@ -247,3 +247,108 @@ def test_cli_relation_runs_like_the_jax_cli(rel_data, method, monkeypatch,
     pred = np.loadtxt(d / "torch" / "pred.txt")
     assert pred.shape == (60,) and ((pred >= 1) & (pred <= 5)).all()
     assert "Final\tTest=" in out
+
+
+def _start_from_jax_inits(monkeypatch):
+    """The port's learners start, as the JAX CLI's do, from the JAX init
+    of the same config (and Gibbs and SGD with the JAX key chain
+    replayed), and the JAX CLI's learners run on a one-device mesh, as the
+    port does (shards fold their index into their draws), so that the two
+    CLIs run the same computation."""
+    import dataclasses
+
+    import jax
+
+    from svbfm_tpu.learners import mcmc as jm
+    from svbfm_tpu.learners import sgd as js
+    from svbfm_tpu.parallel import mesh as jmesh
+
+    from svbfm_tpu.learners import vb as jvb
+    from svbfm_tpu.learners import vb_online as jov
+    from svbfm_tpu.learners.base import FMConfig as JConfig
+    from svbfm_tpu.models.fm import init_fm_params as jinit
+    from svbfm_tpu_torch.learners import mcmc as tm
+    from svbfm_tpu_torch.learners import sgd as ts
+    from svbfm_tpu_torch.learners import vb as tvb
+    from svbfm_tpu_torch.learners import vb_online as tov
+    from svbfm_tpu_torch.utils.convert import ovb_state_from_jax
+    from test_torch_mcmc import JaxKeyDraws
+    from test_torch_sgd import JaxSGDKeys
+
+    def jcfg(cfg):
+        return JConfig(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(cfg)})
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    def vb_init(self, generator=None):
+        p = jvb.init_vb_params(jax.random.PRNGKey(self.cfg.seed),
+                               jcfg(self.cfg))
+        return self.state_from_params({k: t(v) for k, v in p.items()})
+
+    def ovb_init(self, generator=None):
+        return ovb_state_from_jax(jax.device_get(jov.init_ovb_state(
+            jax.random.PRNGKey(self.cfg.seed), jcfg(self.cfg),
+            self.col_count)), "cpu")
+
+    def fm_init(draws_cls, normal_w):
+        def init(self, generator=None, draws=None):
+            key, kinit = jax.random.split(jax.random.PRNGKey(self.cfg.seed))
+            p = jinit(kinit, self.cfg.num_attributes, self.cfg.num_factor,
+                      init_stdev=self.cfg.init_stdev,
+                      **(dict(init_w_normal=True) if normal_w else {}))
+            return self.state_from_params(t(p.w0), t(p.w), t(p.v),
+                                          draws_cls(key))
+        return init
+
+    for mod in (jvb, jov, jm, js):
+        monkeypatch.setattr(mod, "make_mesh",
+                            lambda *a, **k: jmesh.make_mesh(1))
+    monkeypatch.setattr(tvb.VBLearner, "init_state", vb_init)
+    monkeypatch.setattr(tov.OVBLearner, "init_state", ovb_init)
+    monkeypatch.setattr(tm.MCMCLearner, "init_state",
+                        fm_init(JaxKeyDraws, True))
+    monkeypatch.setattr(ts.SGDLearner, "init_state",
+                        fm_init(JaxSGDKeys, False))
+
+
+@pytest.mark.parametrize("method,task", [
+    ("vb", "c"), ("mcmc", "c"), ("als", "c"), ("vb_online", "c"),
+    ("sgd", "c"), ("sgd", "p")])
+def test_cli_tasks_match_the_jax_cli(data, method, task, monkeypatch, capsys):
+    """-task c (the targets binarised at 0, min/max = -1/1; here the stars
+    less 3.5) and -task p (the stars above 3, a count of 0-2): exit 0, the
+    JAX CLI's files, -out probabilities in [0, 1] (Phi for vb and
+    vb_online, the posterior mean of Phi for mcmc, Phi of the last scores
+    for als, the sigmoid for sgd) equal to the JAX CLI's on the same
+    files, and the Final line the accuracy of -out."""
+    d, _, _ = data
+    coo = make_movielens_like(num_users=30, num_items=20, num_ratings=600,
+                              seed=1)
+    coo.target = (coo.target - 3.5 if task == "c"
+                  else np.maximum(coo.target - 3.0, 0.0)).astype(np.float32)
+    tr, te = train_test_split(coo, 0.2, seed=2)
+    save_libfm_text(str(d / "tr.libfm"), tr)
+    save_libfm_text(str(d / "te.libfm"), te)
+    assert (te.target > 0).any() and (te.target <= 0).any()
+    _start_from_jax_inits(monkeypatch)
+    extra = (["-learn_rate", "0.05", "-regular", "0,0.01,0.01"]
+             if method == "sgd" else ["-regular", "0.1"]
+             if method in ("mcmc", "als") else [])
+    argv = _args(d, method, *extra, "-out", "pred.txt", task=task)
+    ours = _run_in(d / "torch", cli.main, argv + ["-device", "cpu"],
+                   monkeypatch)
+    out = capsys.readouterr().out
+    theirs = _run_in(d / "jax", jax_main, argv, monkeypatch)
+    jout = capsys.readouterr().out
+    assert ours == theirs
+    pred = np.loadtxt(d / "torch" / "pred.txt")
+    assert pred.shape == (te.num_rows,)
+    assert ((pred >= 0) & (pred <= 1)).all()
+    np.testing.assert_allclose(pred, np.loadtxt(d / "jax" / "pred.txt"),
+                               rtol=1e-4, atol=1e-6)
+    final = float(out.split("Final\tTest=")[1].split()[0])
+    assert final == float(jout.split("Final\tTest=")[1].split()[0])
+    np.testing.assert_allclose(
+        final, np.mean((pred >= 0.5) == (te.target > 0)), atol=1e-6)

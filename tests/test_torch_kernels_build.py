@@ -82,3 +82,15 @@ def test_build_all_stops_the_other_compilers_on_a_failure(tmp_path,
         build.build_all()
     assert time.monotonic() - t0 < 30
     assert not any(n.endswith(".so") for n in os.listdir(build.BUILD_DIR))
+
+
+def test_probit_library_builds_without_contraction(monkeypatch):
+    """csrc/probit.cu is compiled with -fmad=false, so that no multiply-add
+    is contracted and each operation rounds as its plain twin's; the flag
+    keys its library, and no other library takes it."""
+    assert "-fmad=false" in build._flags("probit")
+    assert all("-fmad=false" not in build._flags(n)
+               for n in build.LIBRARIES if n != "probit")
+    p = build.library_path("probit")
+    monkeypatch.setattr(build, "EXTRA_FLAGS", {})
+    assert build.library_path("probit") != p

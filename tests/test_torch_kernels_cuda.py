@@ -1425,11 +1425,13 @@ def test_sgd_apply_matches_twin(cuda, K, D, B, P, mode):
     assert not torch.isfinite(ok[0][named]).all()
 
 
-def _lambda_case(cuda, Bv, G, K, P, nan_target=False, seed=0):
+def _lambda_case(cuda, Bv, G, K, P, nan_target=False, seed=0,
+                 loss=None):
     """X9c's inputs: Bv validation rows of P entries over D = 60
     attributes in G groups (attribute d in group d % G, so a row's entries
     share groups), duplicate ids, an x = 0 entry in every third row, a
-    valid-0 row; a NaN target in row Bv // 2 on request."""
+    valid-0 row; a NaN target in row Bv // 2 on request; ``loss``
+    LOSS_CLASSIFICATION: +-1 targets and the classification grad_loss."""
     from svbfm_tpu_torch.kernels import sgd_step as ks
 
     rng = np.random.default_rng(seed + 1000 * Bv + 100 * K + 10 * G + P)
@@ -1441,14 +1443,15 @@ def _lambda_case(cuda, Bv, G, K, P, nan_target=False, seed=0):
     ids = rng.integers(0, D, (Bv, P))
     vals = rng.uniform(0.5, 1.5, (Bv, P))
     vals[::3, P - 1] = 0.0
-    y = rng.uniform(1, 5, Bv)
+    y = (np.where(rng.random(Bv) < 0.5, 1.0, -1.0)
+         if loss == ks.LOSS_CLASSIFICATION else rng.uniform(1, 5, Bv))
     valid = np.ones(Bv)
     if Bv > 1:
         valid[1] = 0.0
     if nan_target:
         y[Bv // 2] = np.nan
-    m = ks.StepMode(ks.LOSS_REGRESSION, K=K, lr=0.05, mult_scale=2.0,
-                    min_target=1.0, max_target=5.0)
+    m = ks.StepMode(loss if loss is not None else ks.LOSS_REGRESSION, K=K,
+                    lr=0.05, mult_scale=2.0, min_target=1.0, max_target=5.0)
     fixed = (t(rng.normal(0, 0.3, (D, 1 + K))),
              t(rng.normal(0, 0.1, (D, 1 + K))), torch.tensor(3.0, device=cuda))
     regs = (t(rng.uniform(0, 0.05, G)), t(rng.uniform(0, 0.05, (G, K))))
@@ -1542,7 +1545,8 @@ def test_sgda_lambda_nan_target_poisons_every_reg(cuda, Bv):
 
 @pytest.mark.parametrize("P", [2, 3, 40])
 @pytest.mark.parametrize("K", [1, 5, 20, 40])
-@pytest.mark.parametrize("mode", ["regression", "exp", "sgda", "pair"])
+@pytest.mark.parametrize("mode", ["regression", "exp", "sgda", "pair",
+                                  "classification", "poisson"])
 def test_sgd_grad_scatter_matches_twin(cuda, mode, K, P):
     """X9a from one gather a row against its twin in every mode: a user,
     an item and P - 2 attribute entries a row (P = 40: more entries than
@@ -1554,8 +1558,9 @@ def test_sgd_grad_scatter_matches_twin(cuda, mode, K, P):
     import chip_smoke
     from svbfm_tpu_torch.kernels import sgd_step as ks
 
-    rng = np.random.default_rng(1000 * K + P + {"regression": 0, "exp": 1,
-                                                "sgda": 2, "pair": 3}[mode])
+    rng = np.random.default_rng(1000 * K + P + {
+        "regression": 0, "exp": 1, "sgda": 2, "pair": 3, "classification": 4,
+        "poisson": 5}[mode])
     B, U, I, D = 600, 300, 200, 700
 
     def t(a, dt=np.float32):
@@ -1568,12 +1573,16 @@ def test_sgd_grad_scatter_matches_twin(cuda, mode, K, P):
     valid = (rng.random(B) > 0.1).astype(np.float32)
     neg = rng.integers(U, U + I, B)
     neg[0] = ids[0, 1] if P > 1 else neg[0]
-    m = ks.StepMode({"exp": ks.LOSS_EXP, "pair": ks.LOSS_PAIR}.get(
+    m = ks.StepMode({"exp": ks.LOSS_EXP, "pair": ks.LOSS_PAIR,
+                     "classification": ks.LOSS_CLASSIFICATION,
+                     "poisson": ks.LOSS_POISSON}.get(
         mode, ks.LOSS_REGRESSION), K=K, lr=0.05, stdev=1.5,
         mult_scale=2.0 if mode == "sgda" else 1.0, min_target=1.0,
         max_target=5.0, base_w=0.999, base_v=0.998, w0_base=0.9999,
         w0_grad=mode != "pair")
-    bt = (t(ids, np.int32), t(vals), t(rng.uniform(1, 5, B)), t(valid))
+    y = (np.where(rng.random(B) < 0.5, 1.0, -1.0) if mode == "classification"
+         else rng.uniform(1, 5, B))
+    bt = (t(ids, np.int32), t(vals), t(y), t(valid))
     tab, w0 = t(rng.normal(0, 0.1, (D, 1 + K))), torch.tensor(3.0,
                                                              device=cuda)
     sgda = mode == "sgda"
@@ -2010,4 +2019,156 @@ def test_bs_main_block_on_gpu_matches_cpu(cuda, als):
             assert build.launch_counts["build_q"] > before
     for g, c in zip(*hists):
         for k in ("rmse", "rmse_this", "mae", "alpha"):
+            np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("K", [1, 5, 20, 40])
+@pytest.mark.parametrize("Bv", [1, 113, 1000])
+def test_sgda_lambda_classification_matches_twin(cuda, Bv, K):
+    """X9c's classification grad_loss y (sigmoid(y p) - 1), p not clamped
+    (sgd.py:226-229; the Poisson task takes it too) against the twin on
+    +-1 targets; two launches give the same bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    fixed, regs, rest, ws, m = _lambda_case(cuda, Bv, 3, K, 3,
+                                            loss=ks.LOSS_CLASSIFICATION)
+    assert ks.lambda_class_loss(m)
+    outs = []
+    for kernel in (True, False, True):
+        rw, rv = (r.clone() for r in regs)
+        if kernel:
+            ks.sgda_lambda(*fixed[:3], rw, rv, *rest, ws, m)
+        else:
+            ks.sgda_lambda_plain(*fixed[:3], rw, rv, *rest, m)
+        outs.append([rw, rv])
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs[0], outs[1], f"sgda_lambda classification "
+                       f"Bv={Bv} K={K}")
+    for a, b in zip(outs[0], outs[2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert not torch.equal(outs[0][0], regs[0])
+
+
+def _probit_rows(cuda, n, seed):
+    """X12a/X12b inputs of n rows: e and scores N(0, 2.5) with NaN, +-Inf
+    and large values, y +-1 with y = 0 rows, u at both clip ends."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(cuda)
+
+    e = rng.normal(0, 2.5, n)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    u = rng.uniform(1e-7, 1 - 1e-7, n)
+    for i, (ev, yv, uv) in enumerate([(np.nan, 1, 0.3), (np.inf, -1, 0.5),
+                                      (-np.inf, 1, 0.5), (9.0, 0, 1e-7),
+                                      (-9.0, 1, 1 - 1e-7), (0.0, 0, 0.5),
+                                      (30.0, -1, 0.2)]):
+        j = (i * 37) % n
+        e[j], y[j], u[j] = ev, yv, uv
+    u[::11] = 1e-7
+    u[5::11] = 1 - 1e-7
+    return t(e), t(y), t(u), t(rng.uniform(0, 4, n))
+
+
+@pytest.mark.parametrize("n", [1, 7, 300, 1_000_022])
+@pytest.mark.parametrize("mode", [0, 1, 2], ids=["vb", "als", "gibbs"])
+def test_probit_latent_matches_twin(cuda, mode, n):
+    """X12a in its three modes against its twin on the card: NaN and Inf
+    in e (the same non-finite pattern), y = 0 rows (the positive branch),
+    u at both clip ends, 1M rows; two launches give the same bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import probit as kp
+
+    e, y, u, _ = _probit_rows(cuda, n, 11 + mode)
+    u = u if mode == kp.PROBIT_GIBBS else None
+    outs = []
+    for kernel in (True, False, True):
+        t = e.clone()
+        if kernel:
+            kp.probit_latent(t, y, u, mode)
+        else:
+            kp.probit_latent_plain(t, y, u, mode)
+        outs.append(t)
+    torch.cuda.synchronize()
+    chip_smoke.compare([outs[0]], [outs[1]], f"probit_latent {mode} n={n}")
+    assert torch.equal(outs[0].view(torch.int32), outs[2].view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 7, 300, 99_978, 1_000_022])
+@pytest.mark.parametrize("gibbs_it", [None, 3, 7])
+def test_probit_eval_matches_twin(cuda, gibbs_it, n):
+    """X12b against its twin: VB's eval (no accumulators) and Gibbs's at
+    iterations 3 and 7 (all_but5 added to from 5 on), padding rows, a NaN
+    and an Inf score (the sums NaN, as the twin's), then finite scores;
+    two launches on the same inputs give the same bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import probit as kp
+
+    s, y, _, acc = _probit_rows(cuda, n, 5)
+    valid = (torch.arange(n, device=cuda) < max(1, n - 5)).float()
+    for scores in (s, torch.nan_to_num(s, nan=0.3, posinf=4.0,
+                                       neginf=-4.0)):
+        outs, sums = [], []
+        for kernel in (True, False, True):
+            pa = pb = None
+            if gibbs_it is not None:
+                pa, pb = acc.clone(), acc.clone() * 0.5
+            fn = kp.probit_eval if kernel else kp.probit_eval_plain
+            outs.append(fn(scores, y, valid, float(n), pa, pb,
+                           gibbs_it or 0))
+            sums.append([] if pa is None else [pa, pb])
+        torch.cuda.synchronize()
+        chip_smoke.compare([outs[0]] + sums[0], [outs[1]] + sums[1],
+                           f"probit_eval it={gibbs_it} n={n}")
+        assert torch.equal(outs[0].view(torch.int32),
+                           outs[2].view(torch.int32))
+
+
+@pytest.mark.parametrize("method", ["vb", "vb_exact", "mcmc", "als", "ovb"])
+def test_classification_learners_on_gpu_match_cpu(cuda, method):
+    """Classification, 3 sweeps (OVB: epochs) from one host-made init (and
+    host-drawn numbers for Gibbs and ALS) on the card and on the CPU: the
+    accuracy and log-likelihood agree to 1e-5, and the card's run launched
+    X12b (and X12a where the method updates the latent targets), never a
+    twin."""
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    tr, te, D, meta, cfg = _small(K=5, task=1, regw=0.5, regv=0.5,
+                                  num_batches=4,
+                                  factor_block=1 if method == "vb_exact"
+                                  else 0)
+    for c in (tr, te):
+        c.target = np.where(c.target > 3.5, 1.0, -1.0).astype(np.float32)
+    cfg = dataclasses.replace(cfg, min_target=-1.0, max_target=1.0)
+    vbp = init_vb_params(torch.Generator().manual_seed(3), cfg, "cpu")
+    fmp = init_fm_params(torch.Generator().manual_seed(3), D, 5,
+                         init_w_normal=True)
+    ovb0 = init_ovb_state(torch.Generator().manual_seed(3), cfg, "cpu")
+    hists = []
+    for dev in (cuda, "cpu"):
+        args = (cfg, SparseDataset.from_coo(tr, D),
+                SparseDataset.from_coo(te, D), meta)
+        if method.startswith("vb"):
+            learner = VBLearner(*args, device=dev, write_files=False)
+            state = learner.state_from_params(vbp)
+        elif method == "ovb":
+            learner = OVBLearner(*args, device=dev, write_files=False)
+            state = type(ovb0)(**{k: v.to(dev) for k, v in vars(ovb0).items()})
+        else:
+            cls = ALSLearner if method == "als" else MCMCLearner
+            learner = cls(*args, device=dev, write_files=False)
+            state = learner.state_from_params(fmp.w0, fmp.w, fmp.v,
+                                              host_draws(4, dev))
+        build.reset_launch_counts()
+        hists.append(learner.run(state, num_iter=3, verbose=False)[1])
+        if dev != "cpu":
+            assert build.launch_counts["probit_eval"] == 3
+            assert build.launch_counts["probit_latent"] == (
+                0 if method == "ovb" else 3)
+    for g, c in zip(*hists):
+        for k in ("accuracy", "loglik"):
             np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)

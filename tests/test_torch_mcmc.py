@@ -77,6 +77,14 @@ class JaxKeyDraws:
         return torch.tensor(np.asarray(
             jax.random.gamma(self._sub(), a, dtype=jnp.float32)))
 
+    def uniform(self, shape, lo, hi):
+        """The probit draw's chain (mcmc.py:1079-1082): split, fold in
+        shard 0, uniform in [lo, hi).  A zero-length draw (ALS) still
+        splits, as JAX does."""
+        sub = jax.random.fold_in(self._sub(), 0)
+        return torch.tensor(np.asarray(jax.random.uniform(
+            sub, tuple(shape), jnp.float32, lo, hi)))
+
 
 def _data(num_rows=96, num_users=9, num_items=7, seed=2):
     coo = make_movielens_like(num_users=num_users, num_items=num_items,

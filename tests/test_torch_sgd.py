@@ -212,7 +212,14 @@ def _batch(seed=0, B=128, K=4, num_users=30):
 
 CASES = {"regression": {}, "exp_family": dict(exp_family=True, stdev=1.7),
          "k0k1_off": dict(k0=False, k1=False), "K=0": dict(K=0),
-         "sgda": dict(sgda=True)}
+         "sgda": dict(sgda=True),
+         # X9a's classification and Poisson multipliers (the exponential
+         # family changes neither), and X9c's classification grad_loss
+         # under both tasks (sgd.py:87-100, :226-229)
+         "classification": dict(task=1, exp_family=True),
+         "poisson": dict(task=2),
+         "sgda_classification": dict(sgda=True, task=1),
+         "sgda_poisson": dict(sgda=True, task=2)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -225,6 +232,11 @@ def test_minibatch_update_matches_jax(case):
     sgda = kw.pop("sgda", False)
     b = _batch(K=kw.pop("K", 4))
     D, K = b["D"], b["K"]
+    vb = _batch(seed=1, B=60)  # the validation batch
+    if kw.get("task") == 1:  # +-1 targets, as the CLI binarises them
+        for bt in (b, vb):
+            bt["y"] = np.where(bt["y"] > 3, 1.0, -1.0).astype(np.float32)
+            bt["min_t"], bt["max_t"] = -1.0, 1.0
     cfg_kw = dict(num_attributes=D, num_factor=K, min_target=b["min_t"],
                   max_target=b["max_t"], num_groups=2, learn_rate=0.05,
                   reg0=0.02, regw=0.01, regv=0.03, **kw)
@@ -233,7 +245,6 @@ def test_minibatch_update_matches_jax(case):
     ag = jnp.asarray(b["attr_group"])
     rep = P()
     mesh = make_mesh(1)
-    vb = _batch(seed=1, B=60)  # the validation batch
     vb["ids"], vb["vals"], vb["y"] = (vb["ids"][::-1].copy(),
                                       vb["vals"][::-1].copy(),
                                       vb["y"][::-1].copy())
@@ -443,20 +454,43 @@ def test_sgda_lambda_nonfinite_loss_poisons_every_group():
 
 
 def test_classification_and_poisson_refused():
+    """The tasks choose X9a's loss (sgd.py:87-100): the exponential family
+    changes regression alone; SGDA's lambda step (X9c) takes the
+    classification grad_loss under both other tasks (sgd.py:226-229).  No
+    task is refused any more; an unknown one raises."""
     cfg = FMConfig(num_attributes=5, num_factor=2, task=1)
-    with pytest.raises(NotImplementedError, match="Next C"):
-        ts.sgd_step_mode(cfg)
-    with pytest.raises(NotImplementedError, match="Next C"):
-        ts.sgd_step_mode(dataclasses.replace(cfg, task=2))
+    for task, exp, loss in ((0, False, ks.LOSS_REGRESSION),
+                            (0, True, ks.LOSS_EXP),
+                            (1, False, ks.LOSS_CLASSIFICATION),
+                            (1, True, ks.LOSS_CLASSIFICATION),
+                            (2, False, ks.LOSS_POISSON),
+                            (2, True, ks.LOSS_POISSON)):
+        m = ts.sgd_step_mode(dataclasses.replace(cfg, task=task,
+                                                 exp_family=exp))
+        assert m.loss == loss
+        assert ks.lambda_class_loss(m) == (task != 0)
+    with pytest.raises(ValueError, match="unknown task"):
+        ts.sgd_step_mode(dataclasses.replace(cfg, task=3))
 
 
 def test_exp_sgd_and_from_reader_refused():
-    """The full-batch exp_sgd runs (tests/test_torch_exp_sgd.py) but refuses
-    classification, as every SGD learner of the port does; the out-of-core
+    """The full-batch exp_sgd runs classification as JAX does, with no task
+    branch (tests/test_torch_classification.py holds it to JAX), and
+    refuses the Poisson task, naming its ROADMAP item; the out-of-core
     sgd_online waits for item 10."""
-    cfg = FMConfig(num_attributes=4, num_factor=2, task=1)
-    with pytest.raises(NotImplementedError, match="Next C"):
+    cfg = FMConfig(num_attributes=4, num_factor=2, task=2)
+    with pytest.raises(NotImplementedError, match="item 15"):
         tx.ExpSGDLearner(cfg, None, None, device="cpu")
+    coo, tr, te = _data(num_rows=200, num_users=8, num_items=6)
+    D = coo.num_features
+    tr.target = np.where(tr.target > 3, 1.0, -1.0).astype(np.float32)
+    learner = tx.ExpSGDLearner(
+        dataclasses.replace(cfg, num_attributes=D, task=1, min_target=-1.0,
+                            max_target=1.0, learn_rate=0.5),
+        SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+        device="cpu", write_files=False)
+    _, h = learner.run(num_iter=1, verbose=False)
+    assert np.isfinite(h[0]["rmse"])
     with pytest.raises(NotImplementedError, match="item 10"):
         ts.SGDOnlineLearner.from_reader(None, None, None)
 

@@ -227,13 +227,38 @@ def _tiny_port_data():
                                     dict(task=1, factor_block=1),
                                     dict(task=1, num_factor=0)])
 def test_out_of_slice_raises(change):
-    """Classification raises in every mode, batch and online alike."""
+    """Classification runs in every mode, batch and online alike, and the
+    Poisson task, which these learners do not read, raises (its ROADMAP
+    item named).  A sweep (an epoch) on +-1 targets gives the JAX
+    learner's accuracy (tests/test_torch_classification.py holds the
+    states)."""
+    from svbfm_tpu.learners import vb_online as jov
     from svbfm_tpu_torch.learners.vb_online import OVBLearner
+    from svbfm_tpu_torch.utils.convert import ovb_state_from_jax
 
     ds, cfg = _tiny_port_data()
-    for cls in (tvb.VBLearner, OVBLearner):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(dataclasses.replace(cfg, **change), ds, ds, device="cpu")
+    ds.target = np.where(ds.target > 3, 1.0, -1.0).astype(np.float32)
+    cfg = dataclasses.replace(cfg, min_target=-1.0, max_target=1.0, seed=7,
+                              num_batches=2, **change)
+    jds = JDataset(ids=ds.ids, vals=ds.vals, target=ds.target,
+                   num_rows=ds.num_rows, num_features=ds.num_features,
+                   min_target=-1.0, max_target=1.0, row_nnz=ds.row_nnz)
+    jcfg = JConfig(**{f.name: getattr(cfg, f.name)
+                      for f in dataclasses.fields(cfg)})
+    for jcls, tcls, conv in ((jvb.VBLearner, tvb.VBLearner, state_from_jax),
+                             (jov.OVBLearner, OVBLearner,
+                              ovb_state_from_jax)):
+        jl = jcls(jcfg, jds, jds, mesh=make_mesh(1), write_files=False)
+        tl = tcls(cfg, ds, ds, device="cpu", write_files=False)
+        js = jl.init_state()
+        ts = conv(jax.device_get(js), "cpu")
+        _, jh = jl.run(js, num_iter=1, verbose=False)
+        _, th = tl.run(ts, num_iter=1, verbose=False)
+        assert abs(th[0]["accuracy"] - jh[0]["accuracy"]) * tl.test_n < 1.5
+        np.testing.assert_allclose(th[0]["loglik"], jh[0]["loglik"],
+                                   rtol=2e-3)
+        with pytest.raises(NotImplementedError, match="item 15"):
+            tcls(dataclasses.replace(cfg, task=2), ds, ds, device="cpu")
 
 
 def test_num_eval_cases_raises():
