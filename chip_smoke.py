@@ -31,7 +31,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      NaN-producing columns or targets, Inf noise, L=1 buckets and columns
      split over blocks, K5 on bins of L = 1-512 with an empty bucket and
      on one of 40 buckets, P1 on index counts that are not a multiple of
-     4 and on bases one element past a 16-byte boundary; time both, and
+     4 and on bases one element past a 16-byte boundary, X13a and X13b
+     (K3's and K5's window-accumulating modes) over the 4 windows of the
+     windowed batch VB at F = 4 and on small ragged windows; time both, and
      one PyTorch call where one computes the same function.  Then x9b-digest: sha256 of X9b's outputs on
      seeded inputs.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
@@ -52,9 +54,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      launched, RMSE falling; sec/epoch and peak memory.
  10. ovb gpu-vs-cpu: 2 epochs of the 100k-row recipe from one host-made
      init on the card and on the CPU; the trajectories must agree.
- 11. ovb quality: -reshuffle 1, 20 chunks, 30 epochs; test RMSE at epochs
-     10 and 30 beside the reference C++ run's (information).
- 12. cli: python -m svbfm_tpu_torch.cli -method vb_online, -method sgd,
+ 11. ovb quality: -reshuffle 1, 20 chunks, 10 epochs (not 30, to keep
+     the run's time); test RMSE at epoch 10 beside the reference C++
+     run's (information).
+ 12. cli (ten child processes started together): python -m
+     svbfm_tpu_torch.cli -method vb_online, -method sgd,
      -method exp_sgd and -method als -relation items, and -task c with
      -method mcmc and -method sgd (-out must hold probabilities), -device
      cuda on small libFM files; each must exit 0 and write its files.
@@ -129,10 +133,32 @@ Phases (each prints one line; any failure raises and exits non-zero):
      class-quality:
      Gibbs and VB at dim 1,1,8 on the 100k-row recipe beside the
      reference C++'s accuracies (information).
+ 36. binary: the ML-1M recipe written as the reference's binary .x/.y and
+     read back (the arrays must equal the text's), each timed, and the
+     chunk reader's index scan.
+ 37. ovb-stream: OVB with the 20 chunks streamed from that file, 5 epochs,
+     sec/epoch and peak memory beside [ovb]'s, then one epoch under the
+     profiler (its device busy share and the copies' share).
+ 38. ovb-stream-gpu-vs-cpu: the 100k-row recipe streamed, 2 epochs.
+ 39. sgd-online-stream: sgd_online's 50 chunks streamed, 3 epochs, and one
+     epoch card against CPU from one host-made init and draw source.
+ 40. num-eval: VB and Gibbs at -num_eval_cases 50,000 of the 99,978 test
+     rows: nec rmse^2 + (N - nec) rmse_test2^2 = N rmse^2 of the unsplit
+     run of the same sweep.
+ 41. vb-windowed (a child process, the card's memory its own): batch VB,
+     factor_block 4, the rows in 4 windows (-cache_size 8,388,608), 5
+     sweeps beside resident exact VB at factor_block 4 from the same init
+     (trajectory within 2e-4, sec/iter, peak memory, which must be lower),
+     a profiled sweep (X13a's, X13b's and the copies' shares), and
+     vb-windowed-gpu-vs-cpu on the 100k-row recipe, 2 sweeps.
+ 42. ovb-stream-10m (the same child): OVB on 10M rows of ML-10M's shape
+     (71,567 x 10,681) streamed in 100 chunks, 1 epoch: sec/epoch, peak
+     memory beside the bytes the train rows would take resident, which it
+     must stay below.
 Then the nvidia-smi line again, a JSON line with each kernel's launches
 (summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28,
-30-32 and 35, each read just after its run with the counts zeroed just
-before),
+30-32, 35, 37, 39, 41 and 42, each read just after its run with the
+counts zeroed just before),
 error, times and bound, and as the last line {"ok": true, "device": {...}}.
 
 Imports only svbfm_tpu_torch, torch and numpy: never JAX.
@@ -174,6 +200,7 @@ JAX_RMSE_30, JAX_FE_30 = 0.68206, -1093193.6
 # the reference C++ OVBFM on this recipe, -reshuffle 1, 20 chunks
 # (PARITY_RUNS.md:130): test RMSE by epoch; other init draws
 REF_OVB_RMSE = {10: 0.7012, 30: 0.6852}
+OVB_QUALITY_EPOCHS = 10
 # the reference C++ MCMC on this recipe (PARITY_RUNS.md:11,15): posterior-
 # mean test RMSE by iteration; other draws
 REF_MCMC_RMSE = {10: 0.7377, 30: 0.7361}
@@ -233,6 +260,16 @@ CLASS_Q_ROWS, CLASS_Q_K = 100_000, 8
 REF_CLASS_MCMC_ACC = {10: 0.6249, 20: 0.6392}
 REF_CLASS_VB_ACC = {10: 0.6435, 15: 0.6421}
 REF_CLASS_VB_LL = {10: 0.4601, 15: 0.5767}
+# out of core: the windowed batch VB's device budget (-cache_size) on the
+# ML-1M rows, 2 x 8 x 2,000,044 bytes of nnz over 8 MiB -> 4 windows of
+# 250,880 rows, and its trajectory held to resident exact VB at the JAX
+# test's own bound (test_vb_windowed.py:53-58: the window axis splits each
+# column's sum); ML-10M's shape (bench.py:190) streamed in 100 chunks;
+# -num_eval_cases on half the test rows, the split identity to float32
+# rounding of sums of 10^5 squares
+WIN_CACHE_BYTES, WIN_SHAPE, WIN_TRAJ_RTOL = 8_388_608, (4, 250_880), 2e-4
+ML10M_SHAPE, STREAM_10M_CHUNKS = (71_567, 10_681, 10_000_000), 100
+NEC, NEC_RTOL = 50_000, 1e-5
 # "not falling": the last iteration's test accuracy at most this far below
 # the first's, three standard deviations of an accuracy near 0.65 measured
 # on 99,978 test rows (sqrt(0.65 * 0.35 / 99,978) = 0.0015)
@@ -300,6 +337,12 @@ SOURCES = {
                       "svbfm_tpu/learners/mcmc.py:1072"),
     "probit_eval": ("svbfm_tpu_torch/csrc/probit.cu",
                     "svbfm_tpu/learners/mcmc.py:1046"),
+    # K3's and K5's window-accumulating modes (X13a, X13b), the windowed
+    # batch VB's v and w statistics and updates
+    "vb_col_stats_window": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
+                            "svbfm_tpu/learners/vb_windowed.py:447"),
+    "w_col_window": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                     "svbfm_tpu/learners/vb_windowed.py:550"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
 # (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
@@ -358,6 +401,17 @@ PATH_KERNELS = {
     "sgda-class": ("fm_scores", "sgd_grad_scatter", "sgd_apply",
                    "sgda_lambda"),
     "sgd-poisson": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
+    # out of core: the streamed paths run the in-memory kernels, the
+    # windowed batch VB X13a and X13b with K2 and K4 on its windows
+    "ovb-stream": ("fm_scores", "fm_t_terms", "vb_build_qt", "vb_patch_rows",
+                   "w_col_update", "w_patch_rows", "ovb_col_stats_update"),
+    "ovb-stream-10m": ("fm_scores", "fm_t_terms", "vb_build_qt",
+                       "vb_patch_rows", "w_col_update", "w_patch_rows",
+                       "ovb_col_stats_update"),
+    "sgd-online-stream": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
+    "vb-windowed": ("fm_scores", "fm_t_terms", "vb_build_qt",
+                    "vb_col_stats_window", "vb_patch_rows", "w_col_window",
+                    "w_patch_rows"),
 }
 
 
@@ -910,6 +964,9 @@ def make_cases(s: dict):
     for r in s.get("bs", ()):  # X10a-X10d on one relation
         bs_cases(add, r)
 
+    if "win" in s:  # X13a, X13b: the windows of one bin, factor block 0
+        win_cases(add, s["win"], bucket_cost, bin_cost)
+
     # X9a, X9b and (SGDA) X9c, per mode
     for key in ("sgd", "sgd_wide", "sgd_tasks"):
         for mode_case in s.get(key, {}).get("modes", ()):
@@ -932,6 +989,176 @@ def make_cases(s: dict):
         add("gather_probe", label, nothing, gcall,
             cost(idx.numel() * 8 + t.numel() * 4, 0, library))
     return cases
+
+
+def win_cases(add, W: dict, bucket_cost, bin_cost) -> None:
+    """X13a on each bucket of the bin ``W`` holds, and X13b on the bin:
+    every window in order (first writes the accumulator, the last applies
+    the update), checked against the twin's chain; then, timed, one launch
+    of the last window (the update) and of the first (the writes to the
+    accumulator alone) on the largest bucket, and of the bin."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+
+    F, nw = W["F"], len(W["e"])
+    last = nw - 1
+    dev = W["ptab"].device
+
+    def a_prepare(C):
+        def prepare():
+            return (W["mu_t"].clone(), W["sig_t"].clone(), W["ptab"].clone(),
+                    torch.zeros(2, dtype=torch.int32, device=dev),
+                    torch.zeros(C, 2 * F, device=dev))
+        return prepare
+
+    def x13a(b, ws):
+        def call(variant, inp):
+            fn = (kv.vb_col_stats_window if variant == "kernel"
+                  else kv.vb_col_stats_window_plain)
+            mu, sig, ptab, nans, acc = inp
+            for w in ws:
+                fn(b["rows"][w], b["x"][w], b["cols"], b["group"], W["e"][w],
+                   W["q"][w], W["tq"][w], ptab, mu, sig, W["sv"], W["alpha"],
+                   nans, acc, w == 0, w == last)
+            return [mu, sig, ptab, nans, acc]
+        return call
+
+    def a_cost(b, w):
+        # rows and x of the window; e, q, tq at its real entries; the
+        # pre-bin mu and sig, the accumulator read (after the first) and
+        # written (before the last), the update's writes (the last)
+        per_col = 2 * F + (2 * F if w else 0) + (
+            2 * F if w < last else 5 * F)
+        return bucket_cost(dict(rows=b["rows"][w], x=b["x"][w]), 1 + 2 * F,
+                           per_col, 12 * F)
+
+    def shape(b, w=0):
+        return f"[{b['rows'][w].shape[0]},{b['rows'][w].shape[1]}]"
+
+    for b in W["buckets"]:  # the chains, checked
+        C = b["rows"][0].shape[0]
+        add("vb_col_stats_window", f"F={F} {shape(b)} windows 0-{last}",
+            a_prepare(C), x13a(b, range(nw)), None)
+    big = W["buckets"][0]
+    for w in dict.fromkeys((last, 0)):  # timed: the last window first
+        add("vb_col_stats_window",
+            f"F={F} {shape(big, w)} window {w} of {nw}",
+            a_prepare(big["rows"][0].shape[0]), x13a(big, [w]),
+            a_cost(big, w))
+
+    def b_prepare():
+        return (W["mu_w"].clone(), W["sig_w"].clone(),
+                torch.zeros(W["mu_w"].shape[0], 2, device=dev),
+                _bad(dev), torch.zeros_like(W["mu_w"]))
+
+    def x13b(ws):
+        def call(variant, inp):
+            fn = (kw.w_bin_update_window if variant == "kernel"
+                  else kw.w_bin_update_window_plain)
+            mu_w, sig_w, dtab, bad, acc = inp
+            for w in ws:
+                fn(W["w_bins"][w], W["e"][w], mu_w, sig_w, W["sigma_w"],
+                   W["alpha"], dtab, bad, acc, w == 0, w == last)
+            return [mu_w, sig_w, dtab, bad, acc]
+        return call
+
+    label = "+".join(shape(b) for b in W["buckets"])
+    add("w_col_window", f"bin {label} windows 0-{last}", b_prepare,
+        x13b(range(nw)), None)
+    for w in dict.fromkeys((last, 0)):
+        add("w_col_window", f"bin {label} window {w} of {nw}", b_prepare,
+            x13b([w]), bin_cost(W["w_bins"][w], (1 if w else 0) + (
+                1 if w < last else 9), 2))
+
+
+def win_tensors(learner, state, tag: str, timed: bool = True) -> dict:
+    """X13a's and X13b's inputs at the windowed path's shapes: every
+    window of ``learner`` (a WindowedVBLearner on the card) from
+    ``state``, factor block 0, the bin of the most columns (its buckets
+    the largest first), and the caches e, q, tq of each window."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.learners.vb_windowed import WindowBlock
+
+    F, Wl, nw = learner.F, learner.wlen, learner.num_windows
+    D = learner.cfg.num_attributes
+    dev = state.e.device
+    mu_t = state.mu_v[:F].T.contiguous()
+    sig_t = state.sigma_v_dash[:F].T.contiguous()
+    ptab = torch.zeros(D, 5 * F, device=dev)
+    ptab[:, :F], ptab[:, F:2 * F] = mu_t, sig_t
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    plan = learner.plan
+    caches = [kv.vb_build_qt_plain(ptab, F, t(plan.ids[w]), t(plan.vals[w]))
+              for w in range(nw)]
+    b = max(range(len(plan.bins)),
+            key=lambda i: sum(len(bu.cols) for bu in plan.bins[i]))
+    buckets = sorted(
+        (dict(rows=[t(bu.rows[w]) for w in range(nw)],
+              x=[t(bu.x[w]) for w in range(nw)], cols=cols, group=group,
+              sx2=sx2)
+         for bu, (cols, group, sx2) in zip(plan.bins[b],
+                                           learner._bins_dev[b])),
+        key=lambda d: -d["rows"][0].numel())
+    w_bins = [[WindowBlock(d["rows"][w], d["x"][w], d["cols"], d["group"],
+                           d["sx2"]) for d in buckets] for w in range(nw)]
+    return dict(tag=tag, timed=timed, D=D, win=dict(
+        F=F, e=[state.e[w * Wl:(w + 1) * Wl] for w in range(nw)],
+        q=[c[0] for c in caches], tq=[c[1] for c in caches], ptab=ptab,
+        mu_t=mu_t, sig_t=sig_t, sv=state.sigma_v[:, :F].contiguous(),
+        alpha=state.alpha, buckets=buckets, w_bins=w_bins,
+        mu_w=state.mu_w.clone(), sig_w=state.sigma_w_dash.clone(),
+        sigma_w=state.sigma_w))
+
+
+def ragged_win_tensors(device) -> list:
+    """X13a and X13b on three windows of a small problem whose rows are
+    sorted by user, so that most user columns have no entries in most
+    windows (their window sums are 0; the case fails if none does), the
+    last window padded (rows at wlen - 1 with x = 0), at F = 3 (single
+    floats) and F = 2 (pairs): e is NaN at one row of window 1, group 1's
+    prior precisions (sigma_v, sigma_w) are NaN, so candidates are
+    counted and reverted."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import make_movielens_like
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.vb_windowed import WindowedVBLearner
+
+    coo = make_movielens_like(40, 30, 2600, seed=9)
+    users = np.bincount(coo.row, weights=coo.col * (coo.col < 40),
+                        minlength=coo.num_rows)
+    by_user = np.argsort(users, kind="stable")  # rows sorted by user
+    inv = np.empty_like(by_user)
+    inv[by_user] = np.arange(len(by_user))
+    coo.row = inv[coo.row].astype(np.int32)
+    coo.target = coo.target[by_user]
+    D = coo.num_features
+    out = []
+    for K, fb in ((6, 3), (4, 2)):
+        meta = DataMetaInfo.from_field_offsets(D, [0, 40])
+        cfg = FMConfig(num_attributes=D, num_factor=K, factor_block=fb,
+                       num_groups=2, min_target=1.0, max_target=5.0, seed=3)
+        lr = WindowedVBLearner(cfg, SparseDataset.from_coo(coo, D),
+                               SparseDataset.from_coo(coo, D), meta,
+                               device=device, num_windows=3,
+                               write_files=False)
+        st = lr.init_state()
+        st.e[lr.wlen + 5] = float("nan")
+        st.sigma_v[1] = float("nan")
+        st.sigma_w[1] = float("nan")
+        s = win_tensors(lr, st, f"ragged-win F={fb}", timed=False)
+        W = s["win"]
+        if len(W["e"]) != 3:
+            raise AssertionError("ragged-win: not three windows")
+        if not any(bool(((b["x"][w] == 0).all(1)).any())
+                   for b in W["buckets"] for w in range(3)):
+            raise AssertionError("ragged-win: no column with an empty "
+                                 "window")
+        out.append(s)
+    return out
 
 
 def bs_cases(add, r: dict) -> None:
@@ -1198,6 +1425,33 @@ def probit_tensors(gibbs, state) -> dict:
         ("gibbs", yhat, y, u, kp.PROBIT_GIBBS)], probit_eval=[
         ("vb", scores, yt, trow.valid, nt, None, 0),
         ("gibbs it=6", scores, yt, trow.valid, nt, acc, 6)])
+
+
+def ragged_probit_tensors(device) -> dict:
+    """X12a in its three modes and X12b (VB's eval and Gibbs's at iteration
+    6) on 37 rows: e and the scores NaN, +-Inf and +-8 at a few rows, y = 0
+    at one (the positive side, as y >= 0), the uniforms at both clip ends,
+    a row outside the valid mask."""
+    from svbfm_tpu_torch.kernels import probit as kp
+
+    g = torch.Generator().manual_seed(5)
+    n = 37
+    e = torch.randn(n, generator=g) * 2
+    e[[3, 7, 11, 15, 20]] = torch.tensor([float("nan"), float("inf"),
+                                          -float("inf"), 8.0, -8.0])
+    y = torch.where(torch.rand(n, generator=g) < 0.5, 1.0, -1.0)
+    y[5] = 0.0
+    u = torch.rand(n, generator=g) * (1 - 2 * kp.CDF_EPS) + kp.CDF_EPS
+    u[[0, 1]] = torch.tensor([kp.CDF_EPS, 1 - kp.CDF_EPS])
+    valid = torch.ones(n)
+    valid[-1] = 0.0
+    acc = 6.0 * torch.rand(n, generator=g)
+    e, y, u, valid, acc = (t.to(device) for t in (e, y, u, valid, acc))
+    return dict(tag="ragged-probit", timed=False, probit_latent=[
+        ("vb", e, y, None, kp.PROBIT_VB), ("als", e, y, None, kp.PROBIT_ALS),
+        ("gibbs", e, y, u, kp.PROBIT_GIBBS)], probit_eval=[
+        ("vb", e, y, valid, float(n - 1), None, 0),
+        ("gibbs it=6", e, y, valid, float(n - 1), acc, 6)])
 
 
 def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
@@ -1575,7 +1829,8 @@ def ragged_tensors(device) -> list:
               v_ptab_patch=t(ptab[:, :5 * F]))
     return [s, vb, ov, ragged_mcmc_tensors(device),
             *ragged_sgd_tensors(device), ragged_bs_tensors(device),
-            *ragged_w_tensors(device)]
+            *ragged_w_tensors(device), *ragged_win_tensors(device),
+            ragged_probit_tensors(device)]
 
 
 def ragged_w_tensors(device) -> list:
@@ -2476,56 +2731,84 @@ def write_relation_files(work: str, tr, te, num_users: int) -> None:
         f.writelines(["0\n"] * ni + ["1\n", "1\n"])
 
 
-def run_cli(dev_index: int, method: str, extra: list, files: tuple,
-            relation: bool = False, task: str = "r") -> None:
-    """The port's CLI in a child process on small libFM files: ``-method
-    method`` with ``extra`` flags must exit 0 and write v_file.txt,
-    pred.txt, its test_rmse file and ``files``; ``relation`` moves the
-    items into a relation (``-relation items``).  ``task`` "c" runs
-    classification on the stars less 3.5 (the CLI's positive class: > 0):
-    pred.txt must hold probabilities."""
+def run_clis(dev_index: int, specs: list) -> None:
+    """The port's CLI in child processes on small libFM files, all started
+    together and each waited for: every spec is (method, extra flags,
+    files, options) with options ``relation`` (move the items into a
+    relation, ``-relation items``), ``task`` "c" (classification on the
+    stars less 3.5, the CLI's positive class > 0: pred.txt must hold
+    probabilities) and ``binary`` (the files are the reference's binary
+    .x/.y alone, no text).  Each must exit 0 and write v_file.txt,
+    pred.txt, its test_rmse file and ``files``."""
+    from svbfm_tpu_torch.data.binary import save_coo_binary
     from svbfm_tpu_torch.data.libfm_text import save_libfm_text
     from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
 
     t0 = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(repo, "build", "chip_smoke_cli")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    coo = make_movielens_like(200, 150, 5000, seed=3)
-    if task == "c":
-        coo.target = (coo.target - CLASS_THRESHOLD).astype(np.float32)
-    tr, te = train_test_split(coo, 0.2, seed=4)
-    if relation:
-        write_relation_files(work, tr, te, 200)
-        extra = [*extra, "-relation", "items"]
-    else:
-        save_libfm_text(os.path.join(work, "train.libfm"), tr)
-        save_libfm_text(os.path.join(work, "test.libfm"), te)
+    root = os.path.join(repo, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=repo,
                CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES",
                                                    str(dev_index)))
-    cmd = [sys.executable, "-m", "svbfm_tpu_torch.cli", "-task", task,
-           "-train", "train.libfm", "-test", "test.libfm", "-dim", "1,1,8",
-           "-method", method, *extra, "-iter", "2", "-device", "cuda",
-           "-out", "pred.txt"]
-    r = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True,
-                       timeout=300)
-    if r.returncode != 0:
-        raise AssertionError(f"cli exited {r.returncode}:\n{r.stderr[-2000:]}")
-    # the reference rewrites als to mcmc before it names the file
-    traj = "mcmc" if method == "als" else method
-    want = ("v_file.txt", "pred.txt", f"test_rmse_118_{traj}") + files
-    missing = [f for f in want if not os.path.exists(os.path.join(work, f))]
-    if missing or "Final\tTest=" not in r.stdout:
-        raise AssertionError(f"cli output incomplete: missing {missing}")
-    final = [ln for ln in r.stdout.splitlines() if ln.startswith("Final")][0]
-    pred = np.loadtxt(os.path.join(work, "pred.txt"))
-    if task == "c" and not ((pred >= 0) & (pred <= 1)).all():
-        raise AssertionError("cli -task c: -out holds values outside [0, 1]")
-    shutil.rmtree(work, ignore_errors=True)
-    say("cli", t0, method=method, task=task, relation=relation,
-        rc=r.returncode, final=final.split("=")[1])
+    runs = []
+    try:
+        for i, (method, extra, files, opt) in enumerate(specs):
+            task = opt.get("task", "r")
+            work = os.path.join(root, str(i))
+            os.makedirs(work)
+            coo = make_movielens_like(200, 150, 5000, seed=3)
+            if task == "c":
+                coo.target = (coo.target - CLASS_THRESHOLD).astype(
+                    np.float32)
+            tr, te = train_test_split(coo, 0.2, seed=4)
+            if opt.get("relation"):
+                write_relation_files(work, tr, te, 200)
+                extra = [*extra, "-relation", "items"]
+            elif opt.get("binary"):
+                save_coo_binary(os.path.join(work, "train.libfm"), tr)
+                save_coo_binary(os.path.join(work, "test.libfm"), te)
+            else:
+                save_libfm_text(os.path.join(work, "train.libfm"), tr)
+                save_libfm_text(os.path.join(work, "test.libfm"), te)
+            cmd = [sys.executable, "-m", "svbfm_tpu_torch.cli", "-task",
+                   task, "-train", "train.libfm", "-test", "test.libfm",
+                   "-dim", "1,1,8", "-method", method, *extra, "-iter", "2",
+                   "-device", "cuda", "-out", "pred.txt"]
+            runs.append((method, extra, files, opt, work, subprocess.Popen(
+                cmd, cwd=work, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for method, extra, files, opt, work, proc in runs:
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli -method {method} exited "
+                                     f"{proc.returncode}:\n{err[-2000:]}")
+            # the reference rewrites als to mcmc before it names the file
+            traj = "mcmc" if method == "als" else method
+            want = ("v_file.txt", "pred.txt", f"test_rmse_118_{traj}") + files
+            missing = [f for f in want
+                       if not os.path.exists(os.path.join(work, f))]
+            if missing or "Final\tTest=" not in out:
+                raise AssertionError(f"cli -method {method} output "
+                                     f"incomplete: missing {missing}")
+            final = [ln for ln in out.splitlines()
+                     if ln.startswith("Final")][0]
+            pred = np.loadtxt(os.path.join(work, "pred.txt"))
+            if opt.get("task") == "c" and not ((pred >= 0)
+                                               & (pred <= 1)).all():
+                raise AssertionError("cli -task c: -out holds values "
+                                     "outside [0, 1]")
+            say("cli", t0, method=method, task=opt.get("task", "r"),
+                relation=bool(opt.get("relation")),
+                binary=bool(opt.get("binary")),
+                flags=",".join(extra) or "-", rc=proc.returncode,
+                final=final.split("=")[1])
+    finally:
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def enqueue_then_wait(step, state, n: int = 3):
@@ -2957,7 +3240,7 @@ def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
                 "epoch", "sgd-profile")
     profile_run(lambda: sgda.epoch(astate, 1), 1, "iteration",
                 "sgda-profile", focus=("sgda_lambda",))
-    return l_sgd, l_online, l_exp, l_sgda, l_bpr
+    return l_sgd, l_online, l_exp, l_sgda, l_bpr, f"{med(ho)}"
 
 
 def bs_problem(rows: int, slots: int, holdout: bool) -> dict:
@@ -3134,6 +3417,386 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
     return l_bs, l_als, l_seq, l_nine
 
 
+# ---------------------------------------------------------------------------
+# Out of core (phases 36-43): binary input, streamed OVB and sgd_online,
+# the windowed batch VB, -num_eval_cases
+# ---------------------------------------------------------------------------
+
+def ooc_work(name: str) -> str:
+    """A fresh folder under the git-ignored build/ for a phase's files."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "build", name)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    return work
+
+
+def binary_reader(prefix: str):
+    from svbfm_tpu_torch.data.stream import BinaryChunkReader
+
+    return BinaryChunkReader(prefix + ".x", prefix + ".y")
+
+
+def ooc_phases(build, card, dev, tr, te, train, test, meta, base_cfg, plan,
+               ovb_ref: dict, sgd_online_sec: str) -> tuple:
+    """Phases 36-40 in this process: [binary], [ovb-stream] (and its
+    profile), [ovb-stream-gpu-vs-cpu], [sgd-online-stream] (and its
+    GPU-vs-CPU check), [num-eval]; then [vb-windowed] and
+    [ovb-stream-10m] in a child process of their own,
+    whose peak device memory is theirs alone.  Returns the launch counts
+    of the driven runs."""
+    from svbfm_tpu_torch.data.binary import load_coo_binary, save_coo_binary
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import MCMCLearner
+    from svbfm_tpu_torch.learners.sgd import SGDOnlineLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner, init_ovb_state
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    def med(hist):
+        return statistics.median(h["time_learn"] for h in hist[1:])
+
+    # ---- 36. the ML-1M recipe as the reference's binary .x/.y --------------
+    t0 = time.perf_counter()
+    work = ooc_work("chip_smoke_ooc")
+    prefix = os.path.join(work, "ml1m_train")
+    w0 = time.perf_counter()
+    save_coo_binary(prefix, tr)
+    save_coo_binary(os.path.join(work, "ml1m_test"), te)
+    write_s = time.perf_counter() - w0
+    w0 = time.perf_counter()
+    back = load_coo_binary(prefix)
+    load_s = time.perf_counter() - w0
+    w0 = time.perf_counter()
+    reader = binary_reader(prefix)
+    index_s = time.perf_counter() - w0
+    again = SparseDataset.from_coo(back, tr.num_features)
+    for k in ("ids", "vals", "target"):
+        if not np.array_equal(getattr(again, k), getattr(train, k)):
+            raise AssertionError(f"binary: {k} read back differs")
+    if reader.num_rows != tr.num_rows or reader.num_cols != tr.num_features:
+        raise AssertionError("binary: the reader's header differs")
+    native = os.path.exists(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools", "libfm_parse.so"))
+    say("binary", t0, rows=tr.num_rows, nnz=tr.nnz,
+        file_bytes=os.path.getsize(prefix + ".x"), write_s=f"{write_s:.3f}",
+        load_s=f"{load_s:.3f}", reader_index_s=f"{index_s:.3f}",
+        index_scan="native" if native else "numpy")
+
+    # ---- 37. OVB streamed from the file, 20 chunks, 5 epochs ---------------
+    t0 = time.perf_counter()
+    w0 = time.perf_counter()
+    so = OVBLearner.from_reader(FMConfig(num_batches=OVB_CHUNKS, **base_cfg),
+                                reader, test, meta, device=dev,
+                                write_files=False)
+    setup_s = time.perf_counter() - w0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (ost, hs), l_ostream = drive(build, "ovb-stream", lambda: so.run(
+        so.init_state(), num_iter=5, verbose=False))
+    peak = torch.cuda.max_memory_allocated() - base
+    check_history(hs, "ovb-stream", ("rmse", "mae", "free_energy"), False)
+    bad = {k: v for h in hs for k, v in h.items()
+           if k.startswith(("nan_", "inf_")) and v}
+    if bad:
+        raise AssertionError(f"ovb-stream: non-finite candidates {bad}")
+    say("ovb-stream", t0, epochs=len(hs), chunks=OVB_CHUNKS,
+        setup_s=f"{setup_s:.3f}", sec_per_epoch=f"{med(hs):.6f}",
+        in_memory_sec_per_epoch=ovb_ref["sec"],
+        rmse=",".join(f"{h['rmse']:.5f}" for h in hs),
+        peak_mem_over_base_bytes=peak,
+        in_memory_peak_over_base_bytes=ovb_ref["peak"],
+        launches=json.dumps(l_ostream, separators=(",", ":")),
+        card=repr(card))
+    profile_run(lambda: so.run(ost, num_iter=1, verbose=False), 1, "epoch",
+                "ovb-stream-profile", focus=("Memcpy HtoD",))
+    del so, ost
+
+    # ---- 38. streamed OVB, GPU kernels vs CPU twins (100k rows) ------------
+    t0 = time.perf_counter()
+    tr1, _, _, test1, meta1 = ml_data(100_000)
+    p1 = os.path.join(work, "ml100k_train")
+    save_coo_binary(p1, tr1)
+    cfg1 = FMConfig(num_attributes=tr1.num_features, num_factor=8,
+                    min_target=float(tr1.target.min()),
+                    max_target=float(tr1.target.max()),
+                    num_groups=meta1.num_attr_groups, seed=SEED,
+                    num_batches=10)
+    init1 = init_ovb_state(torch.Generator().manual_seed(SEED), cfg1, "cpu")
+    hists = [OVBLearner.from_reader(cfg1, binary_reader(p1), test1, meta1,
+                                    device=d, write_files=False).run(
+        to_device(init1, d), num_iter=2, verbose=False)[1]
+        for d in (dev, "cpu")]
+    worst = compare_traj(*hists, ("rmse", "mae", "free_energy"),
+                         OVB_TRAJ_RTOL, "ovb-stream gpu vs cpu")
+    say("ovb-stream-gpu-vs-cpu", t0, train_rows=tr1.num_rows, epochs=2,
+        chunks=10, max_rel=f"{worst:.3e}", rtol=OVB_TRAJ_RTOL)
+
+    # ---- 39. sgd_online streamed from the file, 50 chunks, 3 epochs --------
+    t0 = time.perf_counter()
+    scfg = FMConfig(num_batches=SGD_ONLINE_CHUNKS, **base_cfg)
+    ss = SGDOnlineLearner.from_reader(scfg, reader, test, meta, device=dev,
+                                      write_files=False)
+    (_, hg), l_sstream = drive(build, "sgd-online-stream", lambda: ss.run(
+        num_iter=3, verbose=False))
+    check_sgd_history(hg, "sgd-online-stream")
+    p0 = init_fm_params(torch.Generator().manual_seed(SEED), tr.num_features,
+                        K, init_stdev=scfg.init_stdev)
+    ends, hists = [], []
+    for d in (dev, "cpu"):
+        lr = SGDOnlineLearner.from_reader(scfg, reader, test, meta, device=d,
+                                          write_files=False)
+        st, h = lr.run(lr.state_from_params(p0.w0, p0.w, p0.v,
+                                            host_draws(SEED, d)),
+                       num_iter=1, verbose=False)
+        ends.append(st.tab.cpu())
+        hists.append(h)
+    worst = compare_traj(*hists, ("rmse", "mae"), SGD_TRAJ_RTOL,
+                         "sgd-online-stream gpu vs cpu")
+    gap = (ends[0] - ends[1]).abs().max().item()
+    if not gap <= SGD_PARAM_ATOL:
+        raise AssertionError(f"sgd-online-stream gpu vs cpu: parameters "
+                             f"differ by {gap:.3e}")
+    say("sgd-online-stream", t0, epochs=len(hg), chunks=SGD_ONLINE_CHUNKS,
+        sec_per_epoch=f"{med(hg):.6f}",
+        in_memory_sec_per_epoch=sgd_online_sec,
+        rmse=",".join(f"{h['rmse']:.5f}" for h in hg),
+        gpu_vs_cpu_max_rel=f"{worst:.3e}", max_abs_param=f"{gap:.3e}",
+        launches=json.dumps(l_sstream, separators=(",", ":")))
+    del ss
+
+    # ---- 40. -num_eval_cases: the split of the test rows -------------------
+    t0 = time.perf_counter()
+    N = test.num_rows
+    cfg = FMConfig(factor_block=0, **base_cfg)
+    params = init_vb_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    (hs_vb,), (hf_vb,) = (
+        lr.run(lr.state_from_params(params), num_iter=1, verbose=False)[1]
+        for lr in (VBLearner(cfg, train, test, meta, device=dev, plan=plan,
+                             write_files=False, num_eval_cases=NEC),
+                   VBLearner(cfg, train, test, meta, device=dev, plan=plan,
+                             write_files=False)))
+    g0 = init_fm_params(torch.Generator().manual_seed(SEED), tr.num_features,
+                        K, init_stdev=cfg.init_stdev, init_w_normal=True)
+    (hs_mc,), (hf_mc,) = (
+        lr.run(lr.state_from_params(g0.w0, g0.w, g0.v,
+                                    host_draws(SEED, dev)),
+               num_iter=1, verbose=False)[1]
+        for lr in (MCMCLearner(cfg, train, test, meta, device=dev, plan=plan,
+                               write_files=False, num_eval_cases=NEC),
+                   MCMCLearner(cfg, train, test, meta, device=dev, plan=plan,
+                               write_files=False)))
+    worst = 0.0
+    for split, full, first, rest in (
+            (hs_vb, hf_vb, "rmse", "rmse_test2_this"),
+            (hs_mc, hf_mc, "rmse_this", "rmse_test2_this"),
+            (hs_mc, hf_mc, "rmse", "rmse_test2_all")):
+        lhs = NEC * split[first] ** 2 + (N - NEC) * split[rest] ** 2
+        rhs = N * full[first] ** 2
+        worst = max(worst, abs(lhs - rhs) / rhs)
+    if not worst <= NEC_RTOL:
+        raise AssertionError(f"num-eval: nec rmse^2 + (N - nec) "
+                             f"rmse_test2^2 is {worst:.3e} from N rmse^2")
+    say("num-eval", t0, num_eval_cases=NEC, test_rows=N,
+        vb=f"{hs_vb['rmse']:.6f}/{hs_vb['rmse_test2_this']:.6f}/"
+           f"{hf_vb['rmse']:.6f}",
+        gibbs=f"{hs_mc['rmse_this']:.6f}/{hs_mc['rmse_test2_this']:.6f}/"
+              f"{hf_mc['rmse_this']:.6f}",
+        identity_max_rel=f"{worst:.3e}", rtol=NEC_RTOL)
+
+    # ---- 41-42. [vb-windowed] and [ovb-stream-10m], a process of their own --
+    runs = memory_phases_in_child(dev, prefix, os.path.join(work,
+                                                            "ml1m_test"))
+    shutil.rmtree(work, ignore_errors=True)
+    return (l_ostream, l_sstream) + runs
+
+
+def memory_phases_in_child(dev, train_prefix: str, test_prefix: str) -> tuple:
+    """Run ``memory_phases`` in a child python on the same card and pass
+    its lines on; returns the launch counts it reports on its last line."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo,
+               CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES",
+                                                   str(dev.index)))
+    code = ("import sys, chip_smoke; sys.exit(chip_smoke.memory_phases("
+            f"{train_prefix!r}, {test_prefix!r}))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                       capture_output=True, text=True, timeout=900)
+    lines = r.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"memory phases exited {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    return tuple(json.loads(lines[-1])["launches"])
+
+
+def memory_phases(train_prefix: str, test_prefix: str) -> int:
+    """Phases 41-42, each with the card to itself: [vb-windowed], batch VB
+    at factor_block 4 with the ML-1M rows streamed in 4 windows
+    (-cache_size 8,388,608), 5 sweeps beside resident exact VB at the same
+    factor_block from the same init (trajectory, sec/iter, peak memory over
+    what was allocated before the learner), its profile and
+    [vb-windowed-gpu-vs-cpu] (100k rows, 2 sweeps); then [ovb-stream-10m]:
+    OVB on 10M rows of ML-10M's shape streamed in 100 chunks, 1 epoch,
+    its peak beside the bytes its train rows would take resident.  The last
+    line is the JSON of the driven runs' launch counts."""
+    from svbfm_tpu_torch.data.binary import load_coo_binary, save_coo_binary
+    from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
+    from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+    from svbfm_tpu_torch.learners.vb_windowed import WindowedVBLearner
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    build.build_all()
+    card = card_line()
+
+    def med(hist):
+        return statistics.median(h["time_learn"] for h in hist[1:])
+
+    # ---- 41. batch VB windowed, 4 windows, factor_block 4 -------------------
+    t0 = time.perf_counter()
+    reader = binary_reader(train_prefix)
+    te = load_coo_binary(test_prefix)
+    D = reader.num_cols
+    meta = DataMetaInfo.from_field_offsets(D, [0, NUM_USERS])
+    test = SparseDataset.from_coo(te, D)
+    cfg = FMConfig(num_attributes=D, num_factor=K, factor_block=4,
+                   min_target=float(reader.targets.min()),
+                   max_target=float(reader.targets.max()),
+                   num_groups=meta.num_attr_groups, seed=SEED)
+    params = init_vb_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    w0 = time.perf_counter()
+    win = WindowedVBLearner(cfg, reader, test, meta, device=dev,
+                            cache_bytes=WIN_CACHE_BYTES, write_files=False)
+    setup_s = time.perf_counter() - w0
+    if (win.num_windows, win.wlen) != WIN_SHAPE:
+        raise AssertionError(f"vb-windowed: {win.num_windows} windows of "
+                             f"{win.wlen} rows, not {WIN_SHAPE}")
+    (wst, hw), l_win = drive(build, "vb-windowed", lambda: win.run(
+        win.state_from_params(params), num_iter=5, verbose=False, chunk=1))
+    wpeak = torch.cuda.max_memory_allocated() - base
+    check_history(hw, "vb-windowed", ("rmse", "mae", "train_rmse",
+                                      "free_energy", "alpha"), True)
+    w_dev_us = profile_run(lambda: win.run(wst, num_iter=1, verbose=False),
+                           1, "sweep", "vb-windowed-profile",
+                           focus=("col_stats_kernel", "w_bin_win_kernel",
+                                  "Memcpy HtoD"))
+    del win, wst
+    # resident exact VB at the same factor_block, from the same init
+    train = SparseDataset.from_coo(load_coo_binary(train_prefix), D)
+    rplan = SweepPlan.build(train.to_coo(), D, meta_groups=meta.attr_group)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = VBLearner(cfg, train, test, meta, device=dev, plan=rplan,
+                    write_files=False)
+    _, hr = res.run(res.state_from_params(params), num_iter=5, verbose=False,
+                    chunk=1)
+    rpeak = torch.cuda.max_memory_allocated() - base
+    del res
+    worst = compare_traj(hw, hr, ("rmse", "train_rmse", "free_energy"),
+                         WIN_TRAJ_RTOL, "vb-windowed vs resident")
+    if not wpeak < rpeak:
+        raise AssertionError(f"vb-windowed: peak {wpeak} not below the "
+                             f"resident learner's {rpeak}")
+    say("vb-windowed", t0, sweeps=len(hw), windows=WIN_SHAPE[0],
+        window_rows=WIN_SHAPE[1], cache_bytes=WIN_CACHE_BYTES,
+        setup_s=f"{setup_s:.3f}", sec_per_iter=f"{med(hw):.6f}",
+        device_ms_per_iter=f"{w_dev_us / 1e3:.3f}",
+        resident_sec_per_iter=f"{med(hr):.6f}",
+        rmse=",".join(f"{h['rmse']:.5f}" for h in hw),
+        vs_resident_max_rel=f"{worst:.3e}", rtol=WIN_TRAJ_RTOL,
+        peak_mem_over_base_bytes=wpeak,
+        resident_peak_mem_over_base_bytes=rpeak,
+        launches=json.dumps(l_win, separators=(",", ":")), card=repr(card))
+    del train, rplan
+
+    # ---- 41b. windowed, GPU kernels vs CPU twins (100k rows) ---------------
+    t0 = time.perf_counter()
+    tr1, _, _, test1, meta1 = ml_data(100_000)
+    work = ooc_work("chip_smoke_memory")
+    p1 = os.path.join(work, "ml100k_train")
+    save_coo_binary(p1, tr1)
+    cfg1 = FMConfig(num_attributes=tr1.num_features, num_factor=8,
+                    factor_block=2, min_target=float(tr1.target.min()),
+                    max_target=float(tr1.target.max()),
+                    num_groups=meta1.num_attr_groups, seed=SEED)
+    prm1 = init_vb_params(torch.Generator().manual_seed(SEED), cfg1, "cpu")
+    hists = []
+    for d in (dev, "cpu"):
+        lr = WindowedVBLearner(cfg1, binary_reader(p1), test1, meta1,
+                               device=d, num_windows=4, write_files=False)
+        hists.append(lr.run(lr.state_from_params(prm1), num_iter=2,
+                            verbose=False)[1])
+    worst = compare_traj(*hists, ("rmse", "train_rmse", "free_energy"),
+                         TRAJ_RTOL, "vb-windowed gpu vs cpu")
+    say("vb-windowed-gpu-vs-cpu", t0, train_rows=tr1.num_rows, windows=4,
+        sweeps=2, max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL)
+
+    # ---- 42. OVB on 10M rows of ML-10M's shape, 100 chunks, 1 epoch ---------
+    t0 = time.perf_counter()
+    w0 = time.perf_counter()
+    users, items, rows = ML10M_SHAPE
+    coo = make_movielens_like(users, items, rows + rows // 100, rank=8,
+                              noise=0.6, seed=SEED)
+    tr10, te10 = train_test_split(coo, 1.0 / 101.0, seed=SEED + 1)
+    del coo
+    gen_s = time.perf_counter() - w0
+    p10 = os.path.join(work, "ml10m_train")
+    w0 = time.perf_counter()
+    save_coo_binary(p10, tr10)
+    write_s = time.perf_counter() - w0
+    D10 = tr10.num_features
+    del tr10
+    w0 = time.perf_counter()
+    reader10 = binary_reader(p10)
+    index_s = time.perf_counter() - w0
+    P = int(reader10.row_sizes.max())
+    resident = reader10.num_rows * (8 * P + 4)
+    meta10 = DataMetaInfo.from_field_offsets(D10, [0, users])
+    cfg10 = FMConfig(num_attributes=D10, num_factor=K,
+                     min_target=float(reader10.targets.min()),
+                     max_target=float(reader10.targets.max()),
+                     num_groups=meta10.num_attr_groups, seed=SEED,
+                     num_batches=STREAM_10M_CHUNKS)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    w0 = time.perf_counter()
+    o10 = OVBLearner.from_reader(cfg10, reader10,
+                                 SparseDataset.from_coo(te10, D10), meta10,
+                                 device=dev, write_files=False)
+    setup_s = time.perf_counter() - w0
+    (_, h10), l_10m = drive(build, "ovb-stream-10m", lambda: o10.run(
+        o10.init_state(), num_iter=1, verbose=False))
+    peak = torch.cuda.max_memory_allocated() - base
+    h = h10[0]
+    if not (np.isfinite(h["rmse"]) and np.isfinite(h["free_energy"])
+            and h["rmse"] < 1.5):
+        raise AssertionError(f"ovb-stream-10m: epoch metrics {h}")
+    if not peak < resident:
+        raise AssertionError(f"ovb-stream-10m: peak {peak} not below the "
+                             f"resident rows' {resident}")
+    say("ovb-stream-10m", t0, train_rows=reader10.num_rows,
+        test_rows=te10.num_rows, features=D10, chunks=STREAM_10M_CHUNKS,
+        generate_s=f"{gen_s:.3f}", write_s=f"{write_s:.3f}",
+        reader_index_s=f"{index_s:.3f}", setup_s=f"{setup_s:.3f}",
+        sec_per_epoch=f"{h['time_learn']:.6f}", rmse=f"{h['rmse']:.5f}",
+        peak_mem_over_base_bytes=peak, resident_row_bytes=resident,
+        peak_below_resident=peak < resident,
+        launches=json.dumps(l_10m, separators=(",", ":")), card=repr(card))
+    del o10, reader10
+    shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"launches": [l_win, l_10m]}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3162,6 +3825,7 @@ def main() -> int:
     from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
     from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
     from svbfm_tpu_torch.learners.vb_online import OVBLearner, init_ovb_state
+    from svbfm_tpu_torch.learners.vb_windowed import WindowedVBLearner
     from svbfm_tpu_torch.models.fm import init_fm_params
 
     # ---- 1. build --------------------------------------------------------
@@ -3230,6 +3894,11 @@ def main() -> int:
     ovb0 = ovb.init_state()
     mc1, _ = gibbs.step(gibbs.init_state())
     bs1, _ = bs_mcmc.step(bs_mcmc.init_state())
+    wcfg = FMConfig(factor_block=4, **base_cfg)
+    win = WindowedVBLearner(wcfg, train, test, meta, device=dev,
+                            cache_bytes=WIN_CACHE_BYTES, write_files=False)
+    win0 = win.state_from_params(init_vb_params(
+        torch.Generator().manual_seed(SEED), wcfg, dev))
     report = merge_reports(
         check_cases(fast_tensors(learner, vb0), timed=True),
         check_cases(ovb_tensors(ovb, ovb0), timed=True),
@@ -3241,8 +3910,9 @@ def main() -> int:
         check_cases(probit_tensors(gibbs, mc1), timed=True),
         check_cases(bs_tensors(bs_mcmc, bs1, "bs", True, (K, 0, 1),
                                agg_widths=(BS_AGG_BLOCK_F,)), timed=True),
+        check_cases(win_tensors(win, win0, "vb-windowed"), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
-    del mc1, bs1
+    del mc1, bs1, win, win0
     missing = sorted(set(SOURCES) - set(report))
     if missing:
         raise AssertionError(f"kernels with no case: {missing}")
@@ -3340,6 +4010,7 @@ def main() -> int:
 
     # ---- 9. online VB, 20 chunks of fixed membership -------------------------
     t0 = time.perf_counter()
+    ovb_base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     (ostate, ho), l_ovb = drive(build, "ovb", lambda: ovb.run(
         ovb.init_state(), num_iter=5, verbose=False))
@@ -3348,6 +4019,15 @@ def main() -> int:
            if k.startswith(("nan_", "inf_")) and v}
     if bad:
         raise AssertionError(f"ovb: non-finite candidates {bad}")
+    # the in-memory learner's chunks stay on the card from its construction
+    chunk_bytes = sum(
+        t.numel() * t.element_size() for row, bins in ovb.chunks
+        for t in [row.ids, row.vals, row.target, row.valid] + [
+            getattr(b, f.name) for p in bins for b in p.buckets
+            for f in dataclasses.fields(b)])
+    ovb_ref = dict(
+        sec=f"{statistics.median(h['time_learn'] for h in ho[1:]):.6f}",
+        peak=torch.cuda.max_memory_allocated() - ovb_base + chunk_bytes)
     say("ovb", t0, epochs=len(ho), chunks=OVB_CHUNKS,
         sec_per_epoch=f"{statistics.median(h['time_learn'] for h in ho[1:]):.6f}",
         rmse=",".join(f"{h['rmse']:.5f}" for h in ho),
@@ -3380,22 +4060,31 @@ def main() -> int:
     qual = OVBLearner(FMConfig(num_batches=OVB_CHUNKS, reshuffle=True,
                                **base_cfg), train, test, meta, device=dev,
                       write_files=False)
-    _, hq = qual.run(num_iter=max(REF_OVB_RMSE), verbose=False)
+    _, hq = qual.run(num_iter=OVB_QUALITY_EPOCHS, verbose=False)
     check_history(hq, "ovb-quality", ("rmse", "mae", "free_energy"), False)
     say("ovb-quality", t0, epochs=len(hq),
         sec_per_epoch=f"{statistics.median(h['time_learn'] for h in hq[1:]):.6f}",
         **{f"test_rmse_epoch{e}": f"{hq[e - 1]['rmse']:.5f}"
-           for e in REF_OVB_RMSE},
+           for e in REF_OVB_RMSE if e <= OVB_QUALITY_EPOCHS},
         reference_cpp=",".join(f"{e}:{v}" for e, v in REF_OVB_RMSE.items()))
 
     # ---- 12. the port's CLI -------------------------------------------------
-    run_cli(dev.index, "vb_online", ["-batch", "5"],
-            ("free_energy_118_vb_online",))
-    run_cli(dev.index, "sgd", ["-learn_rate", "0.05"], ())
-    run_cli(dev.index, "exp_sgd", ["-learn_rate", str(EXP_SGD_LR)], ())
-    run_cli(dev.index, "als", ["-regular", "1"], (), relation=True)
-    run_cli(dev.index, "mcmc", [], (), task="c")
-    run_cli(dev.index, "sgd", ["-learn_rate", "0.05"], (), task="c")
+    # (and out of core: binary files streamed, -cache_size,
+    # -num_eval_cases)
+    run_clis(dev.index, [
+        ("vb_online", ["-batch", "5"], ("free_energy_118_vb_online",), {}),
+        ("sgd", ["-learn_rate", "0.05"], (), {}),
+        ("exp_sgd", ["-learn_rate", str(EXP_SGD_LR)], (), {}),
+        ("als", ["-regular", "1"], (), dict(relation=True)),
+        ("mcmc", [], (), dict(task="c")),
+        ("sgd", ["-learn_rate", "0.05"], (), dict(task="c")),
+        ("vb_online", ["-batch", "5"], ("free_energy_118_vb_online",),
+         dict(binary=True)),
+        ("sgd_online", ["-batch", "5", "-learn_rate", "0.05"], (),
+         dict(binary=True)),
+        ("vb", ["-cache_size", "40000"], ("free_energy_118_vb",),
+         dict(binary=True)),
+        ("mcmc", ["-num_eval_cases", "500"], (), {})])
 
     # ---- 13. where an online-VB epoch's device time goes --------------------
     profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False), 1,
@@ -3491,7 +4180,7 @@ def main() -> int:
     print("\n".join(lines))
     say("gather-probe", t0, sets=len(sets), card=repr(card))
 
-    l_sgd, l_online, l_exp, l_sgda, l_bpr = sgd_phases(
+    l_sgd, l_online, l_exp, l_sgda, l_bpr, online_sec = sgd_phases(
         build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
         base_cfg, (tr90, va10))
 
@@ -3527,10 +4216,12 @@ def main() -> int:
     del bs_mcmc
     l_class = class_phases(build, card, dev, train, test, meta, base_cfg,
                            plan, bsp, (tr90, va10))
+    l_ooc = ooc_phases(build, card, dev, tr, te, train, test, meta, base_cfg,
+                       plan, ovb_ref, online_sec)
 
     runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
-            l_bs_nine, *l_class)
+            l_bs_nine, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}
     kernels = []
     for n in SOURCES:

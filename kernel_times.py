@@ -1,7 +1,7 @@
 """Time one family of the port's kernels on the card and profile the paths
 that launch them, for one checkout.
 
-    python3 kernel_times.py {bs,forward,mcmc,sgd,w} [--tree DIR] [--label NAME]
+    python3 kernel_times.py {bs,forward,mcmc,sgd,stream,w} [--tree DIR] [--label NAME]
 
 Runs the kernels and learners of the checkout at ``--tree`` (default: the
 one holding this script) on the inputs ``chip_smoke.py`` (of this script's
@@ -59,6 +59,12 @@ graph replay of 20 calls, then the family's profiles:
   exp_sgd and one OVB epoch, and ``profile_run`` of each, twice, with
   K5's device time and share.
 
+- ``stream``: the out-of-core learners' host side: OVB (20 chunks) and
+  sgd_online (50 chunks) on the ML-1M recipe written as binary files,
+  four epochs each (the first is a warm-up) in memory and streamed from
+  the file with 0 (the reads inline), 1 and 2 reader threads; and the
+  serial cost of reading the 20 OVB chunks (rows and cached plans).
+
 To hold a change against its parent, run it on both in one call, in turns
 (parent, change, change, parent), the parent unpacked with ``git archive``
 into a git-ignored directory.  The inputs and bounds are this script's
@@ -86,6 +92,7 @@ FAMILIES = {
     "mcmc": (("mcmc_sweep",), ("col_draw_f1", "row_patch")),
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
     "w": (("w_sweep", "gather_probe"), ("w_", "gather")),
+    "stream": ((), ()),
 }
 # K5's kernel, by its name in this tree and in one that launches it once a
 # bucket
@@ -139,7 +146,8 @@ def main() -> int:
     one = torch.zeros(1, device=dev)
     line("launch floor (zero_ of one element)", one.zero_)
     family = {"bs": bs_family, "forward": forward_family,
-              "mcmc": mcmc_family, "sgd": sgd_family, "w": w_family}
+              "mcmc": mcmc_family, "sgd": sgd_family, "w": w_family,
+              "stream": stream_family}
     family[a.family](cs, build, dev, tag, line)
     return 0
 
@@ -452,6 +460,60 @@ def w_family(cs, build, dev, tag, line) -> None:
         for _ in range(2):
             cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
                            1, unit, f"{tag} {path}-profile", focus=W_FOCUS)
+
+
+def stream_family(cs, build, dev, tag, line) -> None:
+    import time
+
+    import torch
+
+    from svbfm_tpu_torch.data.binary import save_coo_binary
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.sgd import SGDOnlineLearner
+    from svbfm_tpu_torch.learners.streaming import DeviceFeed
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+
+    tr, te, train, test, meta = cs.ml_data(cs.NUM_TRAIN)
+    work = cs.ooc_work("kernel_times_stream")
+    save_coo_binary(os.path.join(work, "tr"), tr)
+    reader = cs.binary_reader(os.path.join(work, "tr"))
+    base = dict(num_attributes=tr.num_features, num_factor=cs.K,
+                min_target=float(tr.target.min()),
+                max_target=float(tr.target.max()),
+                num_groups=meta.num_attr_groups, seed=cs.SEED)
+    kw_ = dict(device=dev, write_files=False)
+
+    def epochs(lr, label, n=4):
+        state, ts = lr.init_state(), []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, _ = lr.run(state, num_iter=1, verbose=False)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        print(f"[{tag}] {label}: s/epoch {' '.join(f'{t:.3f}' for t in ts)}"
+              f" (median of the last {n - 1}: "
+              f"{sorted(ts[1:])[(n - 1) // 2]:.3f})", flush=True)
+
+    ocfg = FMConfig(num_batches=cs.OVB_CHUNKS, **base)
+    epochs(OVBLearner(ocfg, train, test, meta, **kw_), "ovb in memory")
+    so = OVBLearner.from_reader(ocfg, reader, test, meta, **kw_)
+    t = time.perf_counter()
+    for ci in range(so.num_chunks):
+        so._read_chunk(ci)
+    print(f"[{tag}] ovb: reading the {so.num_chunks} chunks serially: "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    for w in (0, 1, 2):
+        so.feed = DeviceFeed(dev, min(3, so.num_chunks), workers=w,
+                             staged=True)
+        epochs(so, f"ovb streamed, {w} reader threads")
+    scfg = FMConfig(num_batches=cs.SGD_ONLINE_CHUNKS, **base)
+    epochs(SGDOnlineLearner(scfg, train, test, meta, **kw_),
+           "sgd_online in memory")
+    ss = SGDOnlineLearner.from_reader(scfg, reader, test, meta, **kw_)
+    for w in (0, 1):
+        ss.feed = DeviceFeed(dev, 2, workers=w, staged=True)
+        epochs(ss, f"sgd_online streamed, {w} reader threads")
 
 
 if __name__ == "__main__":

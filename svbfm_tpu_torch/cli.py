@@ -9,7 +9,15 @@ exponential-family SGD (``exp_sgd``, ``exp_sgd_stoc``) and pairwise BPR
 method, the Poisson task (``-task p``) for sgd, sgd_online, sgda and
 exp_sgd_stoc; one device.  ``-relation`` (block structure) runs
 natively for mcmc and als, and as the materialised join for every other
-method, as ``svbfm_tpu/cli.py`` does.
+method, as ``svbfm_tpu/cli.py`` does.  Train and test files are libFM text
+or the reference's binary ``.x``/``.y`` (``.data``/``.target``) beside
+the name, which wins where present; with a binary train file and no
+``-relation``, vb_online, sgd_online and ``-method vb -cache_size N``
+stream it from disk and never load it whole (``-cache_size``: batch VB
+with device-windowed rows, ``learners/vb_windowed.py``).
+``-num_eval_cases n`` evaluates the first n test rows (vb, mcmc and als
+also report the rest as ``rmse_test2_*``); the final ``Test=`` is over
+them for every method.
 
     python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
         -dim '1,1,20' -method mcmc -iter 10 -device cuda
@@ -31,7 +39,6 @@ is refused rather than run on the CPU.
 
 from __future__ import annotations
 
-import os
 import sys
 from typing import Optional
 
@@ -42,8 +49,9 @@ Flags (-name value):
   -task        r=regression, c=binary classification (targets > 0 are
                the positive class), p=Poisson (sgd, sgd_online, sgda,
                exp_sgd_stoc) [MANDATORY]
-  -train       filename for training data (libFM text) [MANDATORY]
-  -test        filename for test data (libFM text) [MANDATORY]
+  -train       filename for training data (libFM text, or binary
+               <name>.x/.y or .data/.target) [MANDATORY]
+  -test        filename for test data (the same forms) [MANDATORY]
   -meta        filename with one group id per attribute line
   -out         filename for final test predictions
   -dim         'k0,k1,k2': bias,1-way,2-way dim; default=1,1,8
@@ -70,6 +78,11 @@ Flags (-name value):
                for bpr; default=50
   -reshuffle   vb_online: 1 = re-partition chunk membership every epoch;
                default 0 keeps membership fixed with shuffled order
+  -cache_size  vb: device bytes for the row windows of out-of-core batch VB
+               (0 = all rows resident); a binary train file is streamed
+               from disk; default=0
+  -num_eval_cases  evaluate the first n test rows (the rest: rmse_test2_*
+               for vb, mcmc, als); default=all
   -factor_block  factors per sweep block; 0=all (fast), 1=reference-exact
   -bins        column-bin mode: auto|fields|greedy|jacobi
   -seed        RNG seed
@@ -83,7 +96,8 @@ SUPPORTED = {"task", "train", "test", "meta", "out", "dim", "iter", "method",
              "batch", "reshuffle", "factor_block", "bins", "seed",
              "verbosity", "device", "help", "regular", "init_stdev",
              "do_sampling", "do_multilevel", "factor_jacobi", "learn_rate",
-             "validation", "stdev", "bpr_neg_field", "relation"}
+             "validation", "stdev", "bpr_neg_field", "relation",
+             "cache_size", "num_eval_cases"}
 SGD_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd", "exp_sgd_stoc", "bpr")
 # the methods that read each method-specific flag
 FLAG_METHODS = {
@@ -97,13 +111,12 @@ FLAG_METHODS = {
     "validation": ("sgda",),
     "stdev": ("exp_sgd", "exp_sgd_stoc"),
     "bpr_neg_field": ("bpr",),
+    "cache_size": ("vb", "mcmc", "als"),
 }
 
 _Q1 = "ROADMAP.md queue 1"
 # flags of svbfm_tpu/cli.py that the port refuses, and why
 REFUSED = {
-    "cache_size": f"out-of-core windowed training is not ported yet ({_Q1}, "
-                  "item 10)",
     "checkpoint": f"checkpoints are not ported yet ({_Q1}, item 12)",
     "checkpoint_every": f"checkpoints are not ported yet ({_Q1}, item 12)",
     "rlog": f"the RLog metrics file is not ported yet ({_Q1}, item 12)",
@@ -115,8 +128,6 @@ REFUSED = {
                       f"({_Q1}, item 13)",
     "distributed": f"multi-process training is not ported yet ({_Q1}, "
                    "item 13)",
-    "num_eval_cases": f"held-back test rows are not ported yet ({_Q1}, "
-                      "item 4)",
 }
 METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 # the methods that read -task p (svbfm_tpu/learners/sgd.py:87-100)
@@ -168,14 +179,6 @@ def _is_number(s: str) -> bool:
         return True
     except ValueError:
         return False
-
-
-def _has_binary(prefix: str) -> bool:
-    """The reference's binary input (.x/.y or .data/.target beside the
-    name), which ``svbfm_tpu/cli.py`` would load instead of the text."""
-    return ((os.path.exists(prefix + ".x") or os.path.exists(prefix + ".data"))
-            and (os.path.exists(prefix + ".y")
-                 or os.path.exists(prefix + ".target")))
 
 
 def _debug_data(coo) -> None:
@@ -236,6 +239,18 @@ def main(argv: Optional[list[str]] = None) -> int:
         raise SystemExit("-factor_jacobi 1 is not a valid Gibbs kernel: it "
                          "applies only without sampling (-method als or "
                          "-do_sampling 0)")
+    cache_bytes = cmd.get_int("cache_size", 0)
+    nec = cmd.get_int("num_eval_cases", 0) or None
+    if cache_bytes > 0 and method in ("mcmc", "als"):
+        raise SystemExit(f"-cache_size with -method {method}: out-of-core "
+                         f"windowed Gibbs/ALS is not ported yet ({_Q1}, "
+                         "item 10); -method vb runs windowed")
+    if cache_bytes > 0 and nec:  # svbfm_tpu/cli.py:385-390, :408-413
+        raise SystemExit("-num_eval_cases is not supported with "
+                         "-cache_size")
+    if cache_bytes > 0 and cmd.has("bins"):
+        raise SystemExit("-bins is not read with -cache_size: the windowed "
+                         "plan colours the columns by field structure")
 
     import torch
 
@@ -255,12 +270,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     test_file = cmd.get_str("test")
     if not train_file or not test_file:
         raise SystemExit("-train and -test are mandatory")
-    for path in (train_file, test_file):
-        if _has_binary(path):
-            raise SystemExit(f"{path}: binary input (.x/.y) is not ported "
-                             f"yet ({_Q1}, item 10); pass libFM text")
     verbosity = cmd.get_int("verbosity", 0)
 
+    from svbfm_tpu_torch.data.binary import (binary_paths, has_binary,
+                                             load_coo_binary)
     from svbfm_tpu_torch.data.dataset import SparseDataset
     from svbfm_tpu_torch.data.libfm_text import load_libfm_text
     from svbfm_tpu_torch.data.meta import DataMetaInfo
@@ -270,19 +283,44 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     task = {"r": TASK_REGRESSION, "c": TASK_CLASSIFICATION,
             "p": TASK_POISSON}[task_s]
-    train = load_libfm_text(train_file)
-    if verbosity > 0:
-        _debug_data(train)
-    test = load_libfm_text(test_file)
+
+    def _load(path):
+        # Data::load takes the binary .x/.y (or .data/.target) where they
+        # exist, else the text (Data.h:106-171, svbfm_tpu/cli.py:215-221)
+        return (load_coo_binary(path) if has_binary(path)
+                else load_libfm_text(path))
+
+    # the online methods never load the train file (libfm.cpp:149-171),
+    # nor does windowed batch VB: a binary train file streams from disk
+    # (svbfm_tpu/cli.py:222-243)
+    defer_train = ((method in ("vb_online", "sgd_online")
+                    or (method == "vb" and cache_bytes > 0))
+                   and has_binary(train_file) and not cmd.has("relation"))
+    reader = train = None
+    if defer_train:
+        from svbfm_tpu_torch.data.stream import BinaryChunkReader
+        reader = BinaryChunkReader(*binary_paths(train_file))
+        if reader.targets is None:
+            raise SystemExit(f"{train_file}: no binary targets")
+    else:
+        train = _load(train_file)
+        if verbosity > 0:
+            _debug_data(train)
+    test = _load(test_file)
     if verbosity > 0:
         _debug_data(test)
-    D = max(train.num_features, test.num_features)
+    D = max(reader.num_cols if defer_train else train.num_features,
+            test.num_features)
     if task == TASK_CLASSIFICATION:  # libfm.cpp:337-350
         for coo in (train, test):
-            coo.target = _binarised(coo.target)
+            if coo is not None:
+                coo.target = _binarised(coo.target)
+        if reader is not None:  # each chunk reads its targets from here
+            reader.targets = _binarised(reader.targets)
         min_t, max_t = -1.0, 1.0
     else:
-        min_t, max_t = float(train.target.min()), float(train.target.max())
+        y = reader.targets if defer_train else train.target
+        min_t, max_t = float(y.min()), float(y.max())
     meta = DataMetaInfo(D)
     if cmd.has("meta"):
         meta.load_groups_from_file(cmd.get_str("meta"))
@@ -347,7 +385,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         num_batches=cmd.get_int("batch", 50),
         reshuffle=cmd.get_int("reshuffle", 0) == 1)
     bins = cmd.get_str("bins", "auto")
-    tr_ds = SparseDataset.from_coo(train, D)
+    tr_ds = SparseDataset.from_coo(train, D) if train is not None else None
     te_ds = SparseDataset.from_coo(test, D)
     if method in ("mcmc", "als") and bs_native is not None:
         from svbfm_tpu_torch.learners.mcmc_bs import (ALSBSLearner,
@@ -361,14 +399,25 @@ def main(argv: Optional[list[str]] = None) -> int:
         from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
         cls = ALSLearner if method == "als" else MCMCLearner
         learner = cls(cfg, tr_ds, te_ds, meta, device=device, bins=bins,
-                      w_lambda_init=w_lambda, v_lambda_init=v_lambda)
+                      w_lambda_init=w_lambda, v_lambda_init=v_lambda,
+                      num_eval_cases=nec)
+    elif method == "vb" and cache_bytes > 0:
+        from svbfm_tpu_torch.learners.vb_windowed import WindowedVBLearner
+        learner = WindowedVBLearner(cfg, reader if defer_train else tr_ds,
+                                    te_ds, meta, device=device,
+                                    cache_bytes=cache_bytes)
     elif method == "vb":
         from svbfm_tpu_torch.learners.vb import VBLearner
-        learner = VBLearner(cfg, tr_ds, te_ds, meta, device=device, bins=bins)
+        learner = VBLearner(cfg, tr_ds, te_ds, meta, device=device, bins=bins,
+                            num_eval_cases=nec)
     elif method == "vb_online":
         from svbfm_tpu_torch.learners.vb_online import OVBLearner
-        learner = OVBLearner(cfg, tr_ds, te_ds, meta, device=device,
-                             bins=bins)
+        if defer_train:
+            learner = OVBLearner.from_reader(cfg, reader, te_ds, meta,
+                                             device=device, bins=bins)
+        else:
+            learner = OVBLearner(cfg, tr_ds, te_ds, meta, device=device,
+                                 bins=bins)
     elif method == "sgda":
         from svbfm_tpu_torch.learners.sgd import SGDALearner
         val = load_libfm_text(cmd.get_str("validation"))
@@ -390,7 +439,11 @@ def main(argv: Optional[list[str]] = None) -> int:
         cls = {"sgd": SGDLearner, "sgd_online": SGDOnlineLearner,
                "exp_sgd": ExpSGDLearner,
                "exp_sgd_stoc": ExpSGDStocLearner}[method]
-        learner = cls(cfg, tr_ds, te_ds, meta, device=device)
+        if defer_train:
+            learner = SGDOnlineLearner.from_reader(cfg, reader, te_ds, meta,
+                                                   device=device)
+        else:
+            learner = cls(cfg, tr_ds, te_ds, meta, device=device)
 
     # the initial factors (fm_model::init writes v_file.txt,
     # fm_model.h:92-101); the state is handed to run() below
@@ -417,7 +470,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         if method in ("mcmc", "als"):
             print(f"do_multilevel={int(cfg.do_multilevel)}")
             print(f"do_sampling={int(cfg.do_sample)}")
-            print(f"num_eval_cases={te_ds.num_rows}")
+            print(f"num_eval_cases={nec or te_ds.num_rows}")
         print(f"device={device}")
 
     state, _history = learner.run(state=init_state, num_iter=cfg.num_iter,
@@ -437,11 +490,14 @@ def main(argv: Optional[list[str]] = None) -> int:
     else:
         out_vals = 1.0 / (1.0 + np.exp(-np.asarray(
             learner.predict_test_scores(state), np.float64)))
+    # over the first -num_eval_cases rows (svbfm_tpu/cli.py:565-583)
+    vals_eval = out_vals[:nec] if nec else out_vals
+    target_eval = test.target[:nec] if nec else test.target
     if task == TASK_REGRESSION:
-        rmse = float(np.sqrt(np.mean((out_vals - test.target) ** 2)))
+        rmse = float(np.sqrt(np.mean((vals_eval - target_eval) ** 2)))
         print(f"Final\tTest={rmse:.6g}")
     else:
-        acc = float(np.mean((out_vals >= 0.5) == (test.target > 0)))
+        acc = float(np.mean((vals_eval >= 0.5) == (target_eval > 0)))
         print(f"Final\tTest={acc:.6g}")
     if cmd.has("out"):
         with open(cmd.get_str("out"), "w") as f:

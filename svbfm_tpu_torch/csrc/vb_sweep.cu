@@ -312,6 +312,19 @@ int launch_qt(const float* ptab, int64_t ld, int F, const int* ids,
 // then the warps in order.  Slot 0's lanes then update their chunks'
 // factors.  The bucket's padding entries carry x = 0 (at a real row), so
 // they add exactly zero, as in the JAX code: no mask.
+//
+// X13a, the window-accumulating mode (kWin, the out-of-core batch VB of
+// svbfm_tpu/learners/vb_windowed.py:447-518): the bucket is one window's
+// [C, L] view of a global column bucket, its rows local to the window, and
+// e, q, tq the window's rows of the resident caches (base pointers at the
+// window's first row).  Slot 0's lanes take the column's window sums vm,
+// vs from the same tree and add them to the [C, 2F] accumulator acc in
+// window order: the first window writes them, every later one adds its
+// sums to what is there (acc + part, JAX's a + x at :797-798).  Only the
+// last window's launch applies the closed form, to the accumulated sums,
+// and writes mu/sig and the deltas; the earlier ones write acc alone.  One
+// thread writes each (column, factor) of acc: no atomics.  The w rider is
+// off in this mode (the windowed learner sweeps w on its own, K5's X13b).
 constexpr int kStatChunks = 8;
 constexpr int kStatWarps = 8;
 constexpr int kStatTile = 512;
@@ -320,7 +333,7 @@ constexpr int kStatTile = 512;
 template <int V>
 __host__ __device__ constexpr int stat_batch() { return V == 4 ? 2 : 4; }
 
-template <int V>
+template <int V, bool kWin>
 __global__ void __launch_bounds__(32 * kStatWarps, 4)
 col_stats_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int L,
@@ -331,7 +344,7 @@ col_stats_kernel(
     float* __restrict__ sig_t, const float* __restrict__ sv,
     const float* __restrict__ alpha_p, float* __restrict__ mu_w,
     float* __restrict__ sig_w, const float* __restrict__ sigma_w,
-    int* __restrict__ nans) {
+    int* __restrict__ nans, float* __restrict__ acc, int win) {
   constexpr int kNV = 2 * V;  // vm, vs of a chunk
   constexpr int kB = stat_batch<V>();
   extern __shared__ float smem[];
@@ -460,9 +473,21 @@ col_stats_kernel(
         vmt += part[st * NU + u];
         vst += part[st * NU + u + V];
       }
+      const int f = f0 + k;
+      if (kWin) {  // win bit 0: the first window; bit 1: the last
+        float* arow = acc + static_cast<int64_t>(c) * 2 * F;
+        if (!(win & 1)) {
+          vmt = arow[f] + vmt;
+          vst = arow[F + f] + vst;
+        }
+        if (!(win & 2)) {
+          arow[f] = vmt;
+          arow[F + f] = vst;
+          continue;
+        }
+      }
       // vb.py:449-469: sigma' candidate -> count -> keep-finite,
       // mu' = sigma'_kept alpha vm -> count -> keep-finite
-      const int f = f0 + k;
       const float sig_cand = 1.f / (svv[k] + alpha * vst);
       bad += isfinite(sig_cand) ? 0 : 1;
       const float sig_new = isfinite(sig_cand) ? sig_cand : sig_c[k];
@@ -495,14 +520,14 @@ col_stats_kernel(
   }
 }
 
-template <int V>
+template <int V, bool kWin>
 int launch_col_stats(int C, int L, int F, int G, const int* rows,
                      const float* x, const int* cols, const int* group,
                      const float* sx2, const float* e, const float* q,
                      const float* tq, float* ptab, int CH, float* mu_t,
                      float* sig_t, const float* sv, const float* alpha,
                      float* mu_w, float* sig_w, const float* sigma_w,
-                     int* nans, cudaStream_t stream) {
+                     int* nans, float* acc, int win, cudaStream_t stream) {
   const int ny = ceil_div(G, kStatChunks);
   const int GT = ceil_div(G, ny);
   const int SW = 32 / GT;
@@ -516,9 +541,9 @@ int launch_col_stats(int C, int L, int F, int G, const int* rows,
   const size_t smem =
       sizeof(float) * (2 * T + warps * SW * GT * 2 * V + threads + 32);
   const dim3 grid(static_cast<unsigned>(C), static_cast<unsigned>(ny));
-  col_stats_kernel<V><<<grid, threads, smem, stream>>>(
+  col_stats_kernel<V, kWin><<<grid, threads, smem, stream>>>(
       rows, x, L, cols, group, sx2, e, q, tq, F, GT, ptab, CH, mu_t, sig_t,
-      sv, alpha, mu_w, sig_w, sigma_w, nans);
+      sv, alpha, mu_w, sig_w, sigma_w, nans, acc, win);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -779,10 +804,32 @@ SVBFM_EXPORT int svbfm_vb_col_stats_update(
     const float* sv, const float* alpha, float* mu_w, float* sig_w,
     const float* sigma_w, int* nans, cudaStream_t stream) {
   const int V = chunk_width(F, q, tq);
-  auto go = V == 4 ? &launch_col_stats<4>
-          : V == 2 ? &launch_col_stats<2> : &launch_col_stats<1>;
+  auto go = V == 4 ? &launch_col_stats<4, false>
+          : V == 2 ? &launch_col_stats<2, false>
+                   : &launch_col_stats<1, false>;
   return go(C, L, F, F / V, rows, x, cols, group, sx2, e, q, tq, ptab, CH,
-            mu_t, sig_t, sv, alpha, mu_w, sig_w, sigma_w, nans, stream);
+            mu_t, sig_t, sv, alpha, mu_w, sig_w, sigma_w, nans, nullptr, 0,
+            stream);
+}
+
+// X13a: one window's [C, L] view of a bucket, its rows local to the
+// window's caches e [Wlen], q/tq [Wlen, F]; the window sums go into acc
+// [C, 2F] (vm | vs) in window order, win bit 0 marking the first window
+// and bit 1 the last, whose launch also applies the update from acc and
+// writes mu_t/sig_t and ptab's delta channels (CH = 5F) as the resident
+// mode does; nans[0] += the v candidates that were not finite.
+SVBFM_EXPORT int svbfm_vb_col_stats_window(
+    const int* rows, const float* x, int C, int L, const int* cols,
+    const int* group, const float* e, const float* q, const float* tq, int F,
+    float* ptab, float* mu_t, float* sig_t, const float* sv,
+    const float* alpha, int* nans, float* acc, int win, cudaStream_t stream) {
+  const int V = chunk_width(F, q, tq);
+  auto go = V == 4 ? &launch_col_stats<4, true>
+          : V == 2 ? &launch_col_stats<2, true>
+                   : &launch_col_stats<1, true>;
+  return go(C, L, F, F / V, rows, x, cols, group, nullptr, e, q, tq, ptab,
+            5 * F, mu_t, sig_t, sv, alpha, nullptr, nullptr, nullptr, nans,
+            acc, win, stream);
 }
 
 // Patch q/tq/tz [N, F] and e/t [N] in place from ptab [D, CH]; seq

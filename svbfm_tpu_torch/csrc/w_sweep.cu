@@ -57,8 +57,19 @@
 // loop, so that their latency overlaps the gathers (after the sum, an
 // OVB bin took 10 % longer).  The lanes close with a butterfly of
 // __shfl_xor_sync in a fixed order: no shared memory, and two launches
-// give the same bits.  The mode is a template parameter: one body, four
+// give the same bits.  The mode is a template parameter: one body, five
 // builds.
+//
+// X13b, the window-accumulating mode (kVBWin, the out-of-core batch VB of
+// svbfm_tpu/learners/vb_windowed.py:550-599): the bin's buckets are one
+// window's [C, L] views of global column buckets, their rows local to the
+// window, and e the window's rows of the resident residual (a base pointer
+// at the window's first row).  The column's head lane adds its window sum
+// sum x e to the [D] accumulator acc at the column in window order (the
+// first window writes it, later ones add to it: JAX's a + q at :768);
+// only the last window's launch applies batch VB's closed form to the
+// accumulated sum with the bucket's GLOBAL sx2 and writes w, the delta
+// table and the counts, as mode VB does.  One lane writes each column.
 #include "svbfm_common.cuh"
 
 namespace {
@@ -77,7 +88,7 @@ constexpr int kMaxBuckets = 32;  // buckets a launch
 // lambdas, prior_mu the group means, z the [D] noise table or nullptr;
 // bad[0], bad[1] += nan, inf draws.  Grad: the exp_sgd step (see the top);
 // mu_w is w, and lr, reg, n_cases its step size, regw and N.
-enum Mode { kVB, kOVB, kMCMC, kGrad };
+enum Mode { kVB, kOVB, kMCMC, kGrad, kVBWin };
 
 struct Bucket {
   const int* rows;         // [C, L]
@@ -117,6 +128,13 @@ __host__ __device__ inline int col_lanes(int L) {
   return u;
 }
 
+// X13b's accumulator and the window's place: bit 0 of win marks the first
+// window, bit 1 the last.
+struct WinArgs {
+  float* acc;  // [D]
+  int win;
+};
+
 // The plan of a launch, passed by value: the kernel reads it from the
 // parameter bank, so a block finds its bucket without a global load.
 struct Plan {
@@ -131,7 +149,8 @@ struct Plan {
 // warp reaches the butterfly.
 template <int kMode, int kU>
 __device__ __forceinline__ void column(const Bucket& bk, int64_t c, int li,
-                                       int U, const WArgs& a) {
+                                       int U, const WArgs& a,
+                                       const WinArgs& wa = WinArgs{}) {
   const int stride = kU ? kU : U;
   const bool live = c < bk.C;
   const bool head = live && li == 0;  // the lane that closes the column
@@ -179,6 +198,14 @@ __device__ __forceinline__ void column(const Bucket& bk, int64_t c, int li,
   for (int o = stride >> 1; o > 0; o >>= 1)
     s += __shfl_xor_sync(svbfm::kFullMask, s, o);
   if (!head) return;
+  if (kMode == kVBWin) {
+    const float tot = (wa.win & 1) ? s : wa.acc[col] + s;
+    if (!(wa.win & 2)) {
+      wa.acc[col] = tot;
+      return;
+    }
+    s = tot;
+  }
   float* drow = a.dtab + 2 * col;
   if (kMode == kGrad) {  // exp_sgd.py:84-87
     float w_new = mu_c - a.lr * (s + a.reg * mu_c) / a.n_cases;
@@ -202,7 +229,7 @@ __device__ __forceinline__ void column(const Bucket& bk, int64_t c, int li,
     return;
   }
   float mu_cand, sig_cand, mu_new, sig_new;
-  if (kMode == kVB) {
+  if (kMode == kVB || kMode == kVBWin) {
     sig_cand = 1.f / (sw + alpha * sxx);
     sig_new = isfinite(sig_cand) ? sig_cand : sig_c;
     mu_cand = sig_new * alpha * (s + mu_c * sxx);
@@ -257,11 +284,28 @@ __global__ void __launch_bounds__(kThreads)
     column<kMode, 0>(bk, c, threadIdx.x & (U - 1), U, a);
 }
 
-template <int kMode>
-int launch(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
-           cudaStream_t stream) {
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
-  if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
+// X13b: the same block-to-bucket walk; mode VB's body with the window
+// accumulator.
+__global__ void __launch_bounds__(kThreads)
+    w_bin_win_kernel(const __grid_constant__ Plan p,
+                     const __grid_constant__ WArgs a,
+                     const __grid_constant__ WinArgs wa) {
+  int b = 0;
+  while (b + 1 < p.nb &&
+         p.b[b + 1].first <= static_cast<int64_t>(blockIdx.x))
+    ++b;
+  const Bucket& bk = p.b[b];
+  const int U = col_lanes(bk.L);
+  const int64_t c =
+      ((static_cast<int64_t>(blockIdx.x) - bk.first) * kThreads +
+       threadIdx.x) / U;
+  if (U == 32)
+    column<kVBWin, 32>(bk, c, threadIdx.x & 31, U, a, wa);
+  else
+    column<kVBWin, 0>(bk, c, threadIdx.x & (U - 1), U, a, wa);
+}
+
+Plan make_plan(const int64_t* plan, int nb) {
   Plan p{};
   p.nb = nb;
   for (int i = 0; i < nb; ++i) {
@@ -275,8 +319,16 @@ int launch(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
                     reinterpret_cast<const float*>(r[6]),
                     static_cast<int>(r[7]), static_cast<int>(r[8]), r[9]};
   }
+  return p;
+}
+
+template <int kMode>
+int launch(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
+           cudaStream_t stream) {
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
   w_bin_kernel<kMode><<<static_cast<unsigned>(blocks), kThreads, 0,
-                        stream>>>(p, a);
+                        stream>>>(make_plan(plan, nb), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -328,4 +380,25 @@ SVBFM_EXPORT int svbfm_w_grad_step(const int64_t* plan, int nb,
                 nullptr, nullptr, nullptr, nullptr, nullptr, dtab,
                 nullptr, lr,      reg,     n_cases};
   return launch<kGrad>(plan, nb, blocks, a, stream);
+}
+
+// X13b, every bucket of one window of one bin of the out-of-core VB w
+// sweep: the window sums go into acc [D] at the bin's columns in window
+// order (win bit 0: the first window, bit 1: the last); the last window's
+// launch also writes mu_w/sig_w [D], dtab [D, 2] and the counts bad[4]
+// as mode VB does.
+SVBFM_EXPORT int svbfm_w_col_window(const int64_t* plan, int nb,
+                                    int64_t blocks, const float* e,
+                                    float* mu_w, float* sig_w,
+                                    const float* sigma_w, const float* alpha,
+                                    float* dtab, int* bad, float* acc,
+                                    int win, cudaStream_t stream) {
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
+  const WArgs a{e,       mu_w,    sig_w,   sigma_w, nullptr, alpha,
+                nullptr, nullptr, nullptr, nullptr, nullptr, dtab,
+                bad,     0.f,     0.f,     1.f};
+  w_bin_win_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      make_plan(plan, nb), a, WinArgs{acc, win});
+  return static_cast<int>(cudaGetLastError());
 }

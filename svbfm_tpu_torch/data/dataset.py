@@ -32,6 +32,7 @@ segment-sums followed by ``psum`` over the data axis.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -284,39 +285,67 @@ class SweepPlan:
                 return int(blk.rows.shape[0])
         return 1
 
+    _FIELDS = ("rows", "x", "cols", "group", "sx2", "cnt", "col_count")
+    _MAGIC = b"SVBFMPLN"
+
     def save(self, path: str) -> None:
-        """Persist the plan to one .npz (host preprocessing at 10M+ rows
-        costs minutes; reuse across runs/processes)."""
-        payload = dict(
-            num_bins=self.num_bins, num_features=self.num_features,
-            rows_per_shard=self.rows_per_shard, unobserved=self.unobserved,
-            color=self.color, conflict_free=self.conflict_free,
-            bin_sizes=np.asarray([len(b) for b in self.blocks]))
+        """Persist the plan to one file (host preprocessing at 10M+ rows
+        costs minutes; reuse across runs/processes): a JSON header of the
+        scalars and of each array's dtype, shape and offset, then the
+        arrays' bytes, each at a multiple of 64, so that ``load`` reads the
+        file in one call and makes no more than a view an array (the JAX
+        package's ``np.savez`` parses a zip member an array, 0.7 ms each,
+        the most of a streamed chunk's read)."""
+        arrays = [("unobserved", self.unobserved), ("color", self.color)]
         for b, bin_blocks in enumerate(self.blocks):
             for j, blk in enumerate(bin_blocks):
-                for f in ("rows", "x", "cols", "group", "sx2", "cnt",
-                          "col_count"):
-                    payload[f"blk_{b}_{j}_{f}"] = getattr(blk, f)
-        np.savez(path, **payload)
+                arrays += [(f"blk_{b}_{j}_{f}", getattr(blk, f))
+                           for f in self._FIELDS]
+        table, off = [], 0
+        for name, a in arrays:
+            a = np.ascontiguousarray(a)
+            table.append((name, a.dtype.str, list(a.shape), off))
+            off += -(-a.nbytes // 64) * 64
+        head = json.dumps(dict(
+            num_bins=int(self.num_bins), num_features=int(self.num_features),
+            rows_per_shard=int(self.rows_per_shard),
+            conflict_free=bool(self.conflict_free),
+            bin_sizes=[len(b) for b in self.blocks],
+            arrays=table)).encode()
+        start = -(-(len(self._MAGIC) + 8 + len(head)) // 64) * 64
+        buf = bytearray(start + off)
+        buf[:8] = self._MAGIC
+        buf[8:16] = len(head).to_bytes(8, "little")
+        buf[16:16 + len(head)] = head
+        for (name, a), (_n, _d, _s, at) in zip(arrays, table):
+            a = np.ascontiguousarray(a)
+            buf[start + at:start + at + a.nbytes] = a.tobytes()
+        with open(path, "wb") as f:
+            f.write(buf)
 
     @staticmethod
     def load(path: str) -> "SweepPlan":
-        with np.load(path) as z:
-            bin_sizes = z["bin_sizes"]
-            blocks = []
-            for b, nb in enumerate(bin_sizes):
-                blocks.append([
-                    ColumnBlock(**{f: z[f"blk_{b}_{j}_{f}"]
-                                   for f in ("rows", "x", "cols", "group",
-                                             "sx2", "cnt", "col_count")})
-                    for j in range(int(nb))
-                ])
-            return SweepPlan(
-                blocks=blocks, num_bins=int(z["num_bins"]),
-                num_features=int(z["num_features"]),
-                rows_per_shard=int(z["rows_per_shard"]),
-                unobserved=z["unobserved"], color=z["color"],
-                conflict_free=bool(z["conflict_free"]))
+        with open(path, "rb") as f:
+            buf = bytearray(f.read())
+        if bytes(buf[:8]) != SweepPlan._MAGIC:
+            raise ValueError(f"{path}: not a saved SweepPlan")
+        n = int.from_bytes(buf[8:16], "little")
+        head = json.loads(bytes(buf[16:16 + n]))
+        start = -(-(16 + n) // 64) * 64
+        z = {name: np.frombuffer(buf, dtype=np.dtype(dt),
+                                 count=int(np.prod(shape)),
+                                 offset=start + at).reshape(shape)
+             for name, dt, shape, at in head["arrays"]}
+        blocks = [[ColumnBlock(**{f: z[f"blk_{b}_{j}_{f}"]
+                                  for f in SweepPlan._FIELDS})
+                   for j in range(nb)]
+                  for b, nb in enumerate(head["bin_sizes"])]
+        return SweepPlan(
+            blocks=blocks, num_bins=head["num_bins"],
+            num_features=head["num_features"],
+            rows_per_shard=head["rows_per_shard"],
+            unobserved=z["unobserved"], color=z["color"],
+            conflict_free=head["conflict_free"])
 
     @staticmethod
     def build(

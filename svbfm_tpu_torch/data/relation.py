@@ -10,9 +10,8 @@ attribute space, and relation groups are appended after the main groups
 
 The native BS learner (``learners/mcmc_bs.py``) keeps the relations
 factored; ``join_relations`` materialises the join into the flat design
-matrix for every other learner.  The binary relation form (``prefix.x``)
-is not ported yet: the DVector reader and the sparse binary reader come
-with ROADMAP queue 1, item 10.
+matrix for every other learner.  A relation reads from the reference's
+binary ``prefix.x`` where it exists, else from libFM text.
 """
 
 from __future__ import annotations
@@ -24,11 +23,9 @@ from typing import Optional
 
 import numpy as np
 
+from svbfm_tpu_torch.data.binary import DVECTOR_FILE_ID, load_sparse_binary
 from svbfm_tpu_torch.data.libfm_text import COOData, load_libfm_text
 from svbfm_tpu_torch.data.meta import DataMetaInfo
-
-#: the file id of the reference's DVector binary (``svbfm_tpu/data/binary.py``)
-DVECTOR_FILE_ID = 1
 
 
 @dataclass
@@ -45,22 +42,21 @@ class RelationData:
 
     @staticmethod
     def load(prefix: str) -> "RelationData":
-        """Load ``prefix`` or ``prefix.libfm`` (text, targets ignored);
-        ``prefix.groups`` supplies the relation's groups."""
+        """Load ``prefix.x`` (binary) or ``prefix``/``prefix.libfm`` (text,
+        targets ignored); ``prefix.groups`` supplies the relation's groups."""
         if os.path.exists(prefix + ".x"):
-            raise SystemExit(f"{prefix}.x: binary input (.x/.y) is not ported "
-                             "yet (ROADMAP.md queue 1, item 10); pass libFM "
-                             "text")
-        tf = prefix if os.path.exists(prefix) else prefix + ".libfm"
-        coo = load_libfm_text(tf)
-        meta = DataMetaInfo(coo.num_features)
+            row, col, val, nr, nc = load_sparse_binary(prefix + ".x")
+        else:
+            tf = prefix if os.path.exists(prefix) else prefix + ".libfm"
+            coo = load_libfm_text(tf)
+            row, col, val = coo.row, coo.col, coo.val
+            nr, nc = coo.num_rows, coo.num_features
+        meta = DataMetaInfo(nc)
         if os.path.exists(prefix + ".groups"):
             meta.load_groups_from_file(prefix + ".groups")
-        return RelationData(row=coo.row.astype(np.int32),
-                            col=coo.col.astype(np.int32),
-                            val=coo.val.astype(np.float32),
-                            num_rows=coo.num_rows,
-                            num_features=coo.num_features, meta=meta)
+        return RelationData(row=row.astype(np.int32), col=col.astype(np.int32),
+                            val=val.astype(np.float32), num_rows=nr,
+                            num_features=nc, meta=meta)
 
 
 def load_join(filename: str, expected_rows: int) -> np.ndarray:

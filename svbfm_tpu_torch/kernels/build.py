@@ -37,8 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIBRARIES = {
     "fm_forward": ("fm_scores", "fm_t_terms", "bs_scores"),
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
-                 "w_patch_rows", "build_q"),
-    "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step"),
+                 "w_patch_rows", "build_q", "vb_col_stats_window"),
+    "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step",
+                "w_col_window"),
     "ovb_sweep": ("ovb_col_stats_update",),
     "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows", "mcmc_col_grad"),
     "gather_probe": ("gather_probe",),
@@ -62,6 +63,11 @@ SIGNATURES = {
     "svbfm_vb_col_stats_update": (
         _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
         _P, _P, _P, _P, _P),
+    "svbfm_vb_col_stats_window": (
+        _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+        _I, _P),
+    "svbfm_w_col_window": (_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _P),
     "svbfm_vb_patch_rows": (_P, _I, _I, _I, _I, _P, _P, _L, _I, _P, _P, _P,
                             _P, _P, _P),
     "svbfm_w_col_update": (_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P,

@@ -104,9 +104,11 @@ class BinPlan:
     [nb, 8] the kernel reads, a row a bucket: the six tensors' addresses,
     C and L, on the buckets' device (an empty bin's, never launched, on
     the CPU).  Built once per set of buckets (an OVB chunk's membership),
-    which it keeps alive; the buckets' checks run here, once."""
+    which it keeps alive; the buckets' checks run here, once.  ``put``
+    copies the table to the buckets' device (a streamed chunk's side-stream
+    upload); by default it is copied at once."""
 
-    def __init__(self, buckets):
+    def __init__(self, buckets, put=None):
         self.buckets = tuple(buckets)
         dev = self.buckets[0].rows.device if self.buckets else "cpu"
         for i, b in enumerate(self.buckets):
@@ -121,8 +123,14 @@ class BinPlan:
             (b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(),
              b.group.data_ptr(), b.cnt.data_ptr(), b.col_count.data_ptr())
             + tuple(b.rows.shape) for b in self.buckets)
-        self.table = torch.tensor(self.rows, dtype=torch.int64).reshape(
-            len(self.rows), 8).to(dev)
+        table = torch.tensor(self.rows, dtype=torch.int64).reshape(
+            len(self.rows), 8)
+        # ``put``: a streamed chunk's upload (learners/streaming.py), which
+        # stages the table with the chunk's arrays, without waiting for the
+        # card
+        on_card = torch.device(dev).type == "cuda"
+        self.table = (put(table) if put is not None and on_card
+                      else table.to(dev))
         self._blocks = {}
 
     def blocks(self, F: int) -> int:

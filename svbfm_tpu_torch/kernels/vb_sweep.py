@@ -5,7 +5,11 @@ K2's q-only instantiation) the MCMC/ALS cache q alone, from a starting q
 where one is given (``qt_plan``: the form, a thread a row at F = 1, lanes
 over a row's chunks at F >= 2);
 ``vb_col_stats_update`` (K3) computes one degree bucket's per-column
-statistics and applies the closed-form update; ``vb_patch_rows`` (K4)
+statistics and applies the closed-form update, and
+``vb_col_stats_window`` (X13a, K3's window-accumulating mode) the same
+over the windows of the out-of-core batch VB (``learners/vb_windowed.py``):
+each window's sums added to an accumulator in window order, the update
+applied at the last window; ``vb_patch_rows`` (K4)
 patches the row caches after a bin; ``w_patch_rows`` is K4 at F = 0, the w
 patch of the standalone linear-term sweep (VB) and of the MCMC w sweep.  On CUDA tensors each op launches its hand-written kernel; on CPU
 tensors it runs the plain PyTorch twin beside it.  K3 and K4 update their
@@ -22,7 +26,10 @@ the w patch of ``vb_w_bin_update`` (:149-157) and of the online w sweep
 ``svbfm_tpu/learners/mcmc.py`` (:337-359, :824-826) and its w patch
 (:653-656).
 K2 and K4 also serve the online VB factor sweep (``learners/vb_online.py``;
-``vb_patch_rows(..., sequential=False)``).
+``vb_patch_rows(..., sequential=False)``), and the windowed batch VB on a
+window's rows of the resident caches (views: ``vb_build_qt(..., out=)``).
+X13a replaces ``svbfm_tpu/learners/vb_windowed.py``'s ``make_stats``
+(:447-481) and ``make_draw`` (:483-518).
 """
 
 from __future__ import annotations
@@ -101,9 +108,16 @@ def vb_build_qt_plain(ptab, F: int, ids, vals):
     return q, tq, tz
 
 
-def vb_build_qt(ptab, F: int, ids, vals):
+def vb_build_qt(ptab, F: int, ids, vals, out: Optional[tuple] = None):
+    """K2; ``out``: the (q, tq, tz) [N, F] tensors to write (the windowed
+    learner's views of its resident caches), else new ones."""
     if build.on_cpu(ids):
-        return vb_build_qt_plain(ptab, F, ids, vals)
+        caches = vb_build_qt_plain(ptab, F, ids, vals)
+        if out is None:
+            return caches
+        for o, c in zip(out, caches):
+            o.copy_(c)
+        return out
     N, P = ids.shape
     dev = ids.device
     if ptab.dim() != 2 or ptab.shape[1] < 2 * F:
@@ -112,9 +126,14 @@ def vb_build_qt(ptab, F: int, ids, vals):
     build.require(ptab, _F32, ptab.shape, dev, "vb_build_qt.ptab")
     build.require(ids, _I32, (N, P), dev, "vb_build_qt.ids")
     build.require(vals, _F32, (N, P), dev, "vb_build_qt.vals")
-    q = torch.empty(N, F, dtype=_F32, device=dev)
-    tq = torch.empty_like(q)
-    tz = torch.empty_like(q)
+    if out is None:
+        q = torch.empty(N, F, dtype=_F32, device=dev)
+        tq = torch.empty_like(q)
+        tz = torch.empty_like(q)
+    else:
+        q, tq, tz = out
+        for name, a in zip(("q", "tq", "tz"), out):
+            build.require(a, _F32, (N, F), dev, f"vb_build_qt.{name}")
     if N * F == 0:
         return q.zero_(), tq.zero_(), tz.zero_()
     lib = build.load_library("vb_sweep")
@@ -169,14 +188,10 @@ def build_q(ptab, F: int, ids, vals, q0=None):
 
 # ---- K3 ---------------------------------------------------------------------
 
-def vb_col_stats_update_plain(rows, x, cols, group, sx2, e, q, tq, ptab,
-                              mu_t, sig_t, sv, alpha, w, nans) -> None:
-    """One [C, L] bucket: per-column statistics, the closed-form update,
-    and its writes (in place).  ``w`` is (mu_w, sig_w_dash, sigma_w) for
-    the merged linear-term rider, or None."""
+def _col_sums(rows, x, cols, e, q, tq, ptab, F: int):
+    """One [C, L] bucket's per-column sums (vm, vs [C, F], sum x e [C]) from
+    the row caches and the PRE-BIN mu/sig of ``ptab``."""
     C, L = rows.shape
-    F = mu_t.shape[1]
-    cl = cols.long()
     prow = ptab.index_select(0, cols)
     mu_c, sig_c = prow[:, :F], prow[:, F:2 * F]
     ridx = rows.reshape(-1)
@@ -190,7 +205,18 @@ def vb_col_stats_update_plain(rows, x, cols, group, sx2, e, q, tq, ptab,
     vm = (xb * h * (e_g[:, :, None] + xb * mu_b * h)).sum(1)  # [C, F]
     vs = (xb * xb * (h * h + h1)).sum(1)
     sxe = (x * e_g).sum(1)  # [C]
+    return vm, vs, sxe
 
+
+def _col_update(vm, vs, cols, group, ptab, mu_t, sig_t, sv, alpha,
+                nans) -> None:
+    """K3's closed form (vb.py:449-469) from the column sums, in place on
+    mu_t/sig_t and ptab's delta channels; nans[0] += the candidates that
+    were not finite."""
+    F = mu_t.shape[1]
+    cl = cols.long()
+    prow = ptab.index_select(0, cols)
+    mu_c, sig_c = prow[:, :F], prow[:, F:2 * F]
     sig_cand = 1.0 / (sv.index_select(0, group) + alpha * vs)
     nan_v = nonfinite(sig_cand)
     sig_new = keep_finite(sig_cand, sig_c)
@@ -203,6 +229,17 @@ def vb_col_stats_update_plain(rows, x, cols, group, sx2, e, q, tq, ptab,
     ptab[cl, 3 * F:4 * F] = sig_new - sig_c
     ptab[cl, 4 * F:5 * F] = mu_new * mu_new - mu_c * mu_c
     nans[0] += nan_v
+
+
+def vb_col_stats_update_plain(rows, x, cols, group, sx2, e, q, tq, ptab,
+                              mu_t, sig_t, sv, alpha, w, nans) -> None:
+    """One [C, L] bucket: per-column statistics, the closed-form update,
+    and its writes (in place).  ``w`` is (mu_w, sig_w_dash, sigma_w) for
+    the merged linear-term rider, or None."""
+    F = mu_t.shape[1]
+    cl = cols.long()
+    vm, vs, sxe = _col_sums(rows, x, cols, e, q, tq, ptab, F)
+    _col_update(vm, vs, cols, group, ptab, mu_t, sig_t, sv, alpha, nans)
 
     if w is not None:
         mu_w, sig_w, sigma_w = w
@@ -263,6 +300,66 @@ def vb_col_stats_update(rows, x, cols, group, sx2, e, q, tq, ptab, mu_t,
             build.ptr(sig_t), build.ptr(sv), build.ptr(alpha), *wp,
             build.ptr(nans), build.stream_of(rows))
     build.check_launch(lib, rc, "vb_col_stats_update")
+
+
+# ---- X13a: K3 over the windows of the out-of-core batch VB -----------------
+
+def vb_col_stats_window_plain(rows, x, cols, group, e, q, tq, ptab, mu_t,
+                              sig_t, sv, alpha, nans, acc, first: bool,
+                              last: bool) -> None:
+    """One window's [C, L] view of a bucket (rows local to the window's
+    caches e, q, tq): its column sums go into ``acc`` [C, 2F] (vm | vs),
+    written at the first window and added to (acc + part) at the later
+    ones; the last window applies K3's closed form to the accumulated
+    sums.  One window (first and last) is K3 without the w rider."""
+    F = mu_t.shape[1]
+    vm, vs, _ = _col_sums(rows, x, cols, e, q, tq, ptab, F)
+    if not first:
+        vm, vs = acc[:, :F] + vm, acc[:, F:] + vs
+    if not last:
+        acc[:, :F] = vm
+        acc[:, F:] = vs
+        return
+    _col_update(vm, vs, cols, group, ptab, mu_t, sig_t, sv, alpha, nans)
+
+
+def vb_col_stats_window(rows, x, cols, group, e, q, tq, ptab, mu_t, sig_t,
+                        sv, alpha, nans, acc, first: bool,
+                        last: bool) -> None:
+    if build.on_cpu(rows):
+        return vb_col_stats_window_plain(rows, x, cols, group, e, q, tq,
+                                         ptab, mu_t, sig_t, sv, alpha, nans,
+                                         acc, first, last)
+    C, L = rows.shape
+    D, F = mu_t.shape
+    N = e.shape[0]
+    dev = rows.device
+    req = build.require
+    req(rows, _I32, (C, L), dev, "vb_col_stats_window.rows")
+    req(x, _F32, (C, L), dev, "vb_col_stats_window.x")
+    req(cols, _I32, (C,), dev, "vb_col_stats_window.cols")
+    req(group, _I32, (C,), dev, "vb_col_stats_window.group")
+    req(e, _F32, (N,), dev, "vb_col_stats_window.e")
+    req(q, _F32, (N, F), dev, "vb_col_stats_window.q")
+    req(tq, _F32, (N, F), dev, "vb_col_stats_window.tq")
+    req(ptab, _F32, (D, 5 * F), dev, "vb_col_stats_window.ptab")
+    req(mu_t, _F32, (D, F), dev, "vb_col_stats_window.mu_t")
+    req(sig_t, _F32, (D, F), dev, "vb_col_stats_window.sig_t")
+    req(sv, _F32, (sv.shape[0], F), dev, "vb_col_stats_window.sv")
+    req(alpha, _F32, (), dev, "vb_col_stats_window.alpha")
+    req(nans, _I32, (2,), dev, "vb_col_stats_window.nans")
+    req(acc, _F32, (C, 2 * F), dev, "vb_col_stats_window.acc")
+    if C == 0 or F == 0:
+        return
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_vb_col_stats_window(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(group), build.ptr(e), build.ptr(q), build.ptr(tq), F,
+            build.ptr(ptab), build.ptr(mu_t), build.ptr(sig_t),
+            build.ptr(sv), build.ptr(alpha), build.ptr(nans), build.ptr(acc),
+            int(first) | 2 * int(last), build.stream_of(rows))
+    build.check_launch(lib, rc, "vb_col_stats_window")
 
 
 # ---- K4 ---------------------------------------------------------------------

@@ -24,6 +24,13 @@ of Gibbs MCMC (ALS: the conditional mean), with the delta table
 (w_new - w_old, 0) that ``vb_sweep.w_patch_rows`` adds to MCMC's e = yhat - y;
 ``bad[0]``, ``bad[1]`` count the NaN and Inf draws.
 
+``w_bin_update_window`` (X13b) is its window-accumulating mode, the w
+sweep of the out-of-core batch VB (``learners/vb_windowed.py``): a bin's
+buckets are one window's views, each column's sum x e goes into a [D]
+accumulator in window order, and the last window applies the closed form
+with the bucket's global sx2 (replaces ``svbfm_tpu/learners/vb_windowed.py``'s
+``make_wstats`` :583-599 and ``make_wdraw`` :550-581).
+
 ``w_bin_grad_step`` (X9d's w half) is its gradient mode: the bin's step of
 the full-batch exp_sgd, w' = keep_finite(w - lr (sum x e + regw w) / N, w),
 with the same delta table (w_new - w_old, 0) for the w patch.
@@ -64,38 +71,51 @@ def w_col_update_plain(rows, x, cols, group, sx2, e, mu_w, sig_w, sigma_w,
                        alpha, dtab, bad, ovb: Optional[tuple] = None) -> None:
     """One [C, L] bucket.  ``ovb`` is (cnt, col_count, n_mu_w, n_sig_w,
     rho_w, t_wj) for online VB, or None for batch VB."""
+    e_g = e.index_select(0, rows.reshape(-1)).reshape(rows.shape)
+    if ovb is None:
+        _vb_w_close((x * e_g).sum(1), cols, group, sx2, mu_w, sig_w,
+                    sigma_w, alpha, dtab, bad)
+        return
     cl = cols.long()
     mu_c, sig_c = mu_w[cl], sig_w[cl]
     sw = sigma_w.index_select(0, group)
-    e_g = e.index_select(0, rows.reshape(-1)).reshape(rows.shape)
-    if ovb is None:
-        # vb.py:140-144
-        sxe = (x * e_g).sum(1)
-        sig_cand = 1.0 / (sw + alpha * sx2)
-        sig_new = keep_finite(sig_cand, sig_c)
-        mu_cand = sig_new * alpha * (sxe + mu_c * sx2)
-        mu_new = keep_finite(mu_cand, mu_c)
-    else:
-        # vb_online.py:236-269
-        cnt, col_count, n_mu, n_sig, rho_w, t_wj = ovb
-        active = cnt > 0
-        cnt1 = torch.clamp(cnt, min=1.0)
-        rho = rho_w[cl]
-        s1 = (x * (e_g + x * mu_c[:, None])).sum(1) / cnt1
-        msx2 = sx2 / cnt1
-        nmu_c, nsig_c = n_mu[cl], n_sig[cl]
-        nsig_new = (1.0 - rho) * nsig_c + rho * (sw + alpha * col_count * msx2)
-        nmu_new = (1.0 - rho) * nmu_c + rho * col_count * alpha * s1
-        zero = torch.zeros((), dtype=_F32, device=e.device)
-        mu_cand = torch.where(active, nmu_new / nsig_new, zero)
-        sig_cand = torch.where(active, 1.0 / nsig_new, zero)
-        mu_new = torch.where(active, keep_finite(nmu_new / nsig_new, mu_c),
-                             mu_c)
-        sig_new = torch.where(active, keep_finite(1.0 / nsig_new, sig_c),
-                              sig_c)
-        n_mu[cl] = torch.where(active, nmu_new, nmu_c)
-        n_sig[cl] = torch.where(active, nsig_new, nsig_c)
-        t_wj.index_add_(0, cols, torch.where(active, cnt, zero))
+    # vb_online.py:236-269
+    cnt, col_count, n_mu, n_sig, rho_w, t_wj = ovb
+    active = cnt > 0
+    cnt1 = torch.clamp(cnt, min=1.0)
+    rho = rho_w[cl]
+    s1 = (x * (e_g + x * mu_c[:, None])).sum(1) / cnt1
+    msx2 = sx2 / cnt1
+    nmu_c, nsig_c = n_mu[cl], n_sig[cl]
+    nsig_new = (1.0 - rho) * nsig_c + rho * (sw + alpha * col_count * msx2)
+    nmu_new = (1.0 - rho) * nmu_c + rho * col_count * alpha * s1
+    zero = torch.zeros((), dtype=_F32, device=e.device)
+    mu_cand = torch.where(active, nmu_new / nsig_new, zero)
+    sig_cand = torch.where(active, 1.0 / nsig_new, zero)
+    mu_new = torch.where(active, keep_finite(nmu_new / nsig_new, mu_c),
+                         mu_c)
+    sig_new = torch.where(active, keep_finite(1.0 / nsig_new, sig_c),
+                          sig_c)
+    n_mu[cl] = torch.where(active, nmu_new, nmu_c)
+    n_sig[cl] = torch.where(active, nsig_new, nsig_c)
+    t_wj.index_add_(0, cols, torch.where(active, cnt, zero))
+    count_candidates(bad, mu_cand, sig_cand)
+    mu_w[cl] = mu_new
+    sig_w[cl] = sig_new
+    dtab[cl, 0] = mu_c - mu_new
+    dtab[cl, 1] = sig_new - sig_c
+
+
+def _vb_w_close(sxe, cols, group, sx2, mu_w, sig_w, sigma_w, alpha, dtab,
+                bad) -> None:
+    """Batch VB's closed form of the linear term (vb.py:140-148) at
+    ``cols`` from their sums ``sxe`` = sum x e, in place."""
+    cl = cols.long()
+    mu_c, sig_c = mu_w[cl], sig_w[cl]
+    sig_cand = 1.0 / (sigma_w.index_select(0, group) + alpha * sx2)
+    sig_new = keep_finite(sig_cand, sig_c)
+    mu_cand = sig_new * alpha * (sxe + mu_c * sx2)
+    mu_new = keep_finite(mu_cand, mu_c)
     count_candidates(bad, mu_cand, sig_cand)
     mu_w[cl] = mu_new
     sig_w[cl] = sig_new
@@ -164,9 +184,14 @@ def w_plan_rows(buckets) -> tuple[tuple, int]:
     out, first = [], 0
     for b in buckets:
         C, L = b.rows.shape
+        # a windowed bucket (WindowBlock) has no cnt or col_count, which
+        # only the OVB mode reads
+        cnt = getattr(b, "cnt", None)
+        cc = getattr(b, "col_count", None)
         out.append((b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(),
-                    b.group.data_ptr(), b.sx2.data_ptr(), b.cnt.data_ptr(),
-                    b.col_count.data_ptr(), C, L, first))
+                    b.group.data_ptr(), b.sx2.data_ptr(),
+                    0 if cnt is None else cnt.data_ptr(),
+                    0 if cc is None else cc.data_ptr(), C, L, first))
         first += -(-C * col_lanes(L) // _THREADS)
     return tuple(out), first
 
@@ -237,6 +262,55 @@ def w_bin_update(buckets, e, mu_w, sig_w, sigma_w, alpha, dtab, bad,
                 build.ptr(dtab), build.ptr(bad), int(ovb is not None), *op,
                 build.stream_of(e))
         build.check_launch(lib, rc, "w_col_update")
+
+
+def w_bin_update_window_plain(buckets, e, mu_w, sig_w, sigma_w, alpha, dtab,
+                              bad, acc, first: bool, last: bool) -> None:
+    """The twin of X13b on one window of a bin: each bucket's sum x e
+    (rows local to the window's residual ``e``) goes into ``acc`` [D] at its
+    columns, written at the first window and added to (acc + part) at the
+    later ones; the last window applies the closed form with the bucket's
+    global sx2.  One window (first and last) is the VB mode's twin."""
+    for b in buckets:
+        e_g = e.index_select(0, b.rows.reshape(-1)).reshape(b.rows.shape)
+        part = (b.x * e_g).sum(1)
+        cl = b.cols.long()
+        tot = part if first else acc[cl] + part
+        if not last:
+            acc[cl] = tot
+            continue
+        _vb_w_close(tot, b.cols, b.group, b.sx2, mu_w, sig_w, sigma_w, alpha,
+                    dtab, bad)
+
+
+def w_bin_update_window(buckets, e, mu_w, sig_w, sigma_w, alpha, dtab, bad,
+                        acc, first: bool, last: bool) -> None:
+    """X13b on every bucket of one window of a bin in one launch."""
+    if build.on_cpu(e):
+        return w_bin_update_window_plain(buckets, e, mu_w, sig_w, sigma_w,
+                                         alpha, dtab, bad, acc, first, last)
+    D = mu_w.shape[0]
+    dev = e.device
+    req = build.require
+    launches = _bin_launches(buckets, e, ("group", "sx2"),
+                             "w_bin_update_window")
+    req(mu_w, _F32, (D,), dev, "w_bin_update_window.mu_w")
+    req(sig_w, _F32, (D,), dev, "w_bin_update_window.sig_w")
+    req(sigma_w, _F32, (sigma_w.shape[0],), dev,
+        "w_bin_update_window.sigma_w")
+    req(alpha, _F32, (), dev, "w_bin_update_window.alpha")
+    req(dtab, _F32, (D, 2), dev, "w_bin_update_window.dtab")
+    req(bad, _I32, (4,), dev, "w_bin_update_window.bad")
+    req(acc, _F32, (D,), dev, "w_bin_update_window.acc")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(dev):
+            rc = lib.svbfm_w_col_window(
+                table, nb, blocks, build.ptr(e), build.ptr(mu_w),
+                build.ptr(sig_w), build.ptr(sigma_w), build.ptr(alpha),
+                build.ptr(dtab), build.ptr(bad), build.ptr(acc),
+                int(first) | 2 * int(last), build.stream_of(e))
+        build.check_launch(lib, rc, "w_col_window")
 
 
 def mcmc_w_bin_draw_plain(buckets, e, w, w_mu, w_lambda, alpha, z, dtab,

@@ -142,6 +142,29 @@ def build_plan_data(plan: SweepPlan, meta: DataMetaInfo, device) -> PlanData:
     )
 
 
+def held_back(row: RowData, num_rows: int, num_eval_cases: Optional[int]):
+    """The test eval over the first ``num_eval_cases`` rows (libFM's
+    -num_eval_cases, fm_learn_mcmc_simultaneous.h:240-256,
+    fm_learn_vb_simultaneous.h:220-232): returns (row, rest, eval_n), the
+    row data with its ``valid`` mask REPLACED by the first rows' mask (the
+    metric and its normaliser both use it), the held-back rows' mask
+    ``rest`` (None when every row is evaluated) and the rows evaluated."""
+    if num_eval_cases is None or not 0 < num_eval_cases < num_rows:
+        return row, None, num_rows
+    idx = torch.arange(row.valid.shape[0], device=row.valid.device)
+    emask = (idx < num_eval_cases).to(torch.float32)
+    rest = ((idx >= num_eval_cases) & (idx < num_rows)).to(torch.float32)
+    return (RowData(ids=row.ids, vals=row.vals, target=row.target,
+                    valid=emask), rest, int(num_eval_cases))
+
+
+def rmse_over(p: torch.Tensor, row: RowData, mask: torch.Tensor,
+              n: int) -> torch.Tensor:
+    """sqrt(sum(((p - target) mask)^2) / n), a device scalar."""
+    err = (p - row.target) * mask
+    return torch.sqrt(torch.sum(err * err) / float(n))
+
+
 def keep_finite(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     """The reference's NaN/Inf revert guard (e.g. fm_learn_vb.h:545-565)."""
     return torch.where(torch.isfinite(new), new, old)

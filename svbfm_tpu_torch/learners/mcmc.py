@@ -71,8 +71,10 @@ from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, PlanData,
                                            RowData, TrajectoryFile,
                                            build_plan_data, build_row_data,
                                            check_task_r_or_c, count_bad,
-                                           keep_finite, print_nonzero_nans,
-                                           ref_cdf_gaussian, zero_counters)
+                                           held_back, keep_finite,
+                                           print_nonzero_nans,
+                                           ref_cdf_gaussian, rmse_over,
+                                           zero_counters)
 from svbfm_tpu_torch.learners.draws import Draws, device_draws
 from svbfm_tpu_torch.models.fm import init_fm_params
 from svbfm_tpu_torch.ops.forward import fm_scores
@@ -448,7 +450,8 @@ class MCMCLearner:
                  write_files: bool = True,
                  w_lambda_init: Optional[np.ndarray] = None,
                  v_lambda_init: Optional[np.ndarray] = None,
-                 plan: Optional[SweepPlan] = None):
+                 plan: Optional[SweepPlan] = None,
+                 num_eval_cases: Optional[int] = None):
         check_slice(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -463,6 +466,11 @@ class MCMCLearner:
         self.plan_data = build_plan_data(plan, meta, self.device)
         self.train_row, self.train_n = build_row_data(train, self.device)
         self.test_row, self.test_n = build_row_data(test, self.device)
+        # -num_eval_cases: the eval over the first rows (its mask replaces
+        # the test valid mask), rmse_test2_this/_all over the rest
+        # (mcmc.py:905-923)
+        self.test_row, self._rest_valid, self._eval_n = held_back(
+            self.test_row, self.test_n, num_eval_cases)
         self.out_dir = out_dir
         self.write_files = write_files
         G, K = cfg.num_groups, cfg.num_factor
@@ -545,11 +553,14 @@ class MCMCLearner:
         metrics, a float32 device vector laid out as ``_SCALARS`` (or
         ``_SCALARS_CLASS``) then w_mu [G], w_lambda [G], v_mu [G*K],
         v_lambda [G*K].  Classification then updates the train rows'
-        latent targets, in place on ``state.e``."""
+        latent targets, in place on ``state.e``.  Under -num_eval_cases
+        the metrics are over the first rows, and rmse_test2_this/_all
+        (this iteration's and the posterior mean's RMSE over the held-back
+        rows, mcmc.py:1036-1045) follow the counters."""
         cfg, trow = self.cfg, self.test_row
         lo, hi = cfg.min_target, cfg.max_target
         scores = self._test_scores(state)
-        nt = float(self.test_n)
+        nt = float(self._eval_n)
         if cfg.task != TASK_REGRESSION:
             m = probit_eval(scores, trow.target, trow.valid, nt, psum_all,
                             psum_but5, it)
@@ -572,18 +583,29 @@ class MCMCLearner:
         err_all = (torch.clamp(psum_all / (it + 1.0), lo, hi)
                    - trow.target) * trow.valid
         mae = torch.sum(torch.abs(err_all)) / nt
+        tail = []
+        if self._rest_valid is not None:
+            n2 = self.test_n - self._eval_n
+            tail = [torch.stack([
+                rmse_over(p, trow, self._rest_valid, n2),
+                rmse_over(torch.clamp(psum_all / (it + 1.0), lo, hi), trow,
+                          self._rest_valid, n2)])]
         return self._packed([torch.stack(
-            [rmse_all, rmse_this, rmse_but5, mae, state.alpha])], nans, state)
+            [rmse_all, rmse_this, rmse_but5, mae, state.alpha])], nans, state,
+            tail)
 
-    def _packed(self, head: list, nans: dict, state: MCMCState):
+    def _packed(self, head: list, nans: dict, state: MCMCState,
+                tail: list = ()):
         counts = torch.stack([nans[k].to(_F32) for k in _SCALARS[5:]])
-        return torch.cat(head + [counts, state.w_mu, state.w_lambda,
-                                 state.v_mu.reshape(-1),
-                                 state.v_lambda.reshape(-1)])
+        return torch.cat(head + [counts] + list(tail) + [
+            state.w_mu, state.w_lambda, state.v_mu.reshape(-1),
+            state.v_lambda.reshape(-1)])
 
     def _scalars(self) -> tuple:
-        return (_SCALARS if self.cfg.task == TASK_REGRESSION
-                else _SCALARS_CLASS)
+        if self.cfg.task != TASK_REGRESSION:
+            return _SCALARS_CLASS
+        return _SCALARS + (("rmse_test2_this", "rmse_test2_all")
+                           if self._rest_valid is not None else ())
 
     def _unpack(self, m: np.ndarray) -> dict:
         G, K = self.cfg.num_groups, self.cfg.num_factor

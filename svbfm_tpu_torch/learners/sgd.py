@@ -5,7 +5,7 @@ Counterpart of ``svbfm_tpu/learners/sgd.py``, for regression, classification
 Poisson task (exp(clamped p) - y, the same eval): ``SGDLearner``
 (``-method sgd``), ``SGDALearner`` (adaptive regularisation, ``-method
 sgda``) and ``SGDOnlineLearner`` (``-method sgd_online``, chunks of the
-in-memory train set).  The math and its order are the JAX package's: every
+in-memory train set, or streamed from a binary file).  The math and its order are the JAX package's: every
 row of a minibatch is scored with the parameters from before the batch, and
 a parameter touched c times takes the net of c per-example steps, the
 regularisation shrink max(1 - lr reg, 0)^c and the summed gradient damped
@@ -40,6 +40,7 @@ import torch
 
 from svbfm_tpu_torch.data.dataset import SparseDataset
 from svbfm_tpu_torch.data.meta import DataMetaInfo
+from svbfm_tpu_torch.data.stream import chunk_bounds, read_window
 from svbfm_tpu_torch.kernels.fm_forward import fm_scores_op
 from svbfm_tpu_torch.kernels.sgd_step import (LOSS_CLASSIFICATION, LOSS_EXP,
                                               LOSS_POISSON, LOSS_REGRESSION,
@@ -52,11 +53,11 @@ from svbfm_tpu_torch.learners.base import (TASK_CLASSIFICATION, TASK_POISSON,
                                            TrajectoryFile, build_row_data,
                                            evaluate_regression)
 from svbfm_tpu_torch.learners.draws import Draws, device_draws
+from svbfm_tpu_torch.learners.streaming import DeviceFeed
 from svbfm_tpu_torch.models.fm import init_fm_params
 from svbfm_tpu_torch.ops.forward import fm_scores
 
 _F32 = torch.float32
-_Q1 = "ROADMAP.md queue 1"
 
 
 @dataclass
@@ -384,9 +385,15 @@ class SGDOnlineLearner(SGDLearner):
     ``np.random.default_rng(cfg.seed)`` (the JAX learner's numbers) is cut
     into ``cfg.num_batches`` chunks, and each chunk takes one
     ``sgd_epoch`` of rows // (batch_size or 1024) batches
-    (sgd.py:576-667)."""
+    (sgd.py:576-667).  Out of core (``from_reader``), the chunks are the
+    row windows of a binary file in the order of a permutation of
+    min(num_batches, rows) from the same generator (sgd.py:576-590), each
+    read by a reader thread and copied to the device while the chunk
+    before it runs; at most two chunks live on the
+    device (sgd.py:610-641)."""
 
     method = "sgd_online"
+    reader = None  # the BinaryChunkReader of an out-of-core learner
 
     def __init__(self, cfg: FMConfig, train: SparseDataset,
                  test: SparseDataset, meta: Optional[DataMetaInfo] = None, *,
@@ -396,13 +403,58 @@ class SGDOnlineLearner(SGDLearner):
         self.rng = np.random.default_rng(cfg.seed)
 
     @classmethod
-    def from_reader(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "out-of-core sgd_online (a binary chunk reader) is not ported "
-            f"yet ({_Q1}, item 10)")
+    def from_reader(cls, cfg: FMConfig, reader, test: SparseDataset,
+                    meta: Optional[DataMetaInfo] = None, *, device,
+                    out_dir: str = ".", write_files: bool = True
+                    ) -> "SGDOnlineLearner":
+        """Out-of-core construction from a ``BinaryChunkReader``
+        (sgd.py:560-574): no train rows are held, in host memory or on the
+        device, beyond the chunks in flight."""
+        self = cls.__new__(cls)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.meta = meta if meta is not None else DataMetaInfo(
+            cfg.num_attributes)
+        self.reader = reader
+        self.train_n = reader.num_rows
+        self.test_row, self.test_n = build_row_data(test, self.device)
+        self.test_target_np = np.asarray(test.target[: test.num_rows])
+        self.out_dir = out_dir
+        self.write_files = write_files
+        self.mode = self._step_mode()
+        self.ws = make_workspace(cfg.num_attributes, cfg.num_factor,
+                                 self.device)
+        self.rng = np.random.default_rng(cfg.seed)
+        self.feed = DeviceFeed(self.device, 2, workers=1, staged=True)
+        return self
+
+    def _read_chunk(self, bounds, ci: int):
+        """Row window ``ci``'s host arrays (a reader thread), the targets
+        binarised under classification (sgd.py:582-584)."""
+        ds = read_window(self.reader, bounds[ci], bounds[ci + 1],
+                         self.reader.num_cols)
+        if self.cfg.task == TASK_CLASSIFICATION:  # libfm.cpp:337-350
+            ds.target = np.where(ds.target > 0, 1.0, -1.0).astype(np.float32)
+        return (ds.ids, ds.vals, ds.target, np.ones(ds.num_rows, np.float32))
+
+    def _stream_epoch(self, state: SGDState) -> SGDState:
+        cfg = self.cfg
+        order = self.rng.permutation(min(max(1, cfg.num_batches),
+                                         self.reader.num_rows))
+        bounds = chunk_bounds(self.reader.num_rows, len(order))
+        bs = max(1, cfg.batch_size or 1024)
+        for row in self.feed(
+                [int(c) for c in order],
+                lambda ci: self._read_chunk(bounds, ci),
+                lambda host, put: RowData(*(put(a) for a in host))):
+            sgd_epoch(state, row, max(1, row.ids.shape[0] // bs), self.mode,
+                      self.ws)
+        return state
 
     def epoch(self, state: SGDState, it: int = 0) -> SGDState:
         cfg = self.cfg
+        if self.reader is not None:
+            return self._stream_epoch(state)
         n = self.train_n
         perm = torch.from_numpy(self.rng.permutation(n)).to(self.device)
         bs = max(1, cfg.batch_size or 1024)

@@ -49,12 +49,12 @@ from svbfm_tpu_torch.kernels.w_sweep import w_bin_update
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, PlanData,
                                            RowData, TrajectoryFile,
                                            build_plan_data, build_row_data,
-                                           check_task_r_or_c, keep_finite,
-                                           nonfinite, regression_metrics)
+                                           check_task_r_or_c, held_back,
+                                           keep_finite, nonfinite,
+                                           regression_metrics, rmse_over)
 from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
 
 _F32 = torch.float32
-_ROADMAP = "see ROADMAP.md queue 1"
 
 
 @dataclass
@@ -314,10 +314,6 @@ class VBLearner:
                  num_eval_cases: Optional[int] = None,
                  plan: Optional[SweepPlan] = None):
         check_slice(cfg)
-        if num_eval_cases is not None:
-            raise NotImplementedError(
-                f"num_eval_cases (held-back test rows) is not ported yet; "
-                f"{_ROADMAP}")
         self.cfg = cfg
         self.device = torch.device(device)
         meta = meta if meta is not None else DataMetaInfo(cfg.num_attributes)
@@ -331,6 +327,10 @@ class VBLearner:
         self.plan_data = build_plan_data(plan, meta, self.device)
         self.train_row, self.train_n = build_row_data(train, self.device)
         self.test_row, self.test_n = build_row_data(test, self.device)
+        # -num_eval_cases: the eval over the first rows, rmse_test2_this
+        # over the rest (vb.py:896-908)
+        self.test_row, self._rest_valid, self._eval_n = held_back(
+            self.test_row, self.test_n, num_eval_cases)
         self.out_dir = out_dir
         self.write_files = write_files
 
@@ -372,15 +372,17 @@ class VBLearner:
 
     def _eval(self, state: VBState, fe, nans) -> torch.Tensor:
         """The JAX learner's _eval_and_resample (vb.py:976-1019): regression
-        takes the test RMSE/MAE and the train RMSE of the clipped e;
-        classification the test accuracy and log-likelihood (X12b), then
-        the probit update of the train residual, in place on ``state.e``
+        takes the test RMSE/MAE and the train RMSE of the clipped e (and,
+        under -num_eval_cases, rmse_test2_this over the held-back rows,
+        vb.py:990-1001); classification the test accuracy and
+        log-likelihood (X12b, the held-back rows masked out), then the
+        probit update of the train residual, in place on ``state.e``
         (X12a)."""
         cfg, trow = self.cfg, self.test_row
         scores = fm_scores(state.mu_0, state.mu_w, state.mu_v, trow.ids,
                            trow.vals, k0=cfg.k0, k1=cfg.k1)
         if cfg.task == TASK_REGRESSION:
-            rmse, mae = regression_metrics(scores, trow, self.test_n,
+            rmse, mae = regression_metrics(scores, trow, self._eval_n,
                                            cfg.min_target, cfg.max_target)
             e_c = torch.clamp(state.e, cfg.min_target, cfg.max_target)
             train_rmse = torch.sqrt(
@@ -388,18 +390,25 @@ class VBLearner:
                 / float(self.train_n))
             head = [fe, rmse, mae, train_rmse]
         else:
-            m = probit_eval(scores, trow.target, trow.valid, self.test_n)
+            m = probit_eval(scores, trow.target, trow.valid, self._eval_n)
             head = [fe, m[0], m[1]]
             probit_latent(state.e, self.train_row.target, None, PROBIT_VB)
+        tail = []
+        if self._rest_valid is not None and cfg.task == TASK_REGRESSION:
+            p = torch.clamp(scores, cfg.min_target, cfg.max_target)
+            tail = [rmse_over(p, trow, self._rest_valid,
+                              self.test_n - self._eval_n)]
         scalars = torch.stack(head + [
             state.alpha, nans["nan_w"].to(_F32), nans["nan_v"].to(_F32),
-            nans["nan_alpha"].to(_F32)])
+            nans["nan_alpha"].to(_F32)] + tail)
         return torch.cat([scalars, state.sigma_w.reshape(-1),
                           state.sigma_v.reshape(-1)])
 
     def _scalars(self) -> tuple:
-        return (_SCALARS if self.cfg.task == TASK_REGRESSION
-                else _SCALARS_CLASS)
+        if self.cfg.task != TASK_REGRESSION:
+            return _SCALARS_CLASS
+        return _SCALARS + (("rmse_test2_this",)
+                           if self._rest_valid is not None else ())
 
     def _unpack(self, m: np.ndarray) -> dict:
         G, K = self.cfg.num_groups, self.cfg.num_factor

@@ -208,9 +208,21 @@ def test_load_join_matches_jax(tmp_path, form):
 
 
 def test_binary_relation_is_refused(tmp_path):
-    (tmp_path / "rel.x").write_bytes(b"\0" * 16)
-    with pytest.raises(SystemExit, match="not ported"):
-        trel.RelationData.load(str(tmp_path / "rel"))
+    """A relation's binary prefix.x is read as the JAX package reads it
+    (tests/test_torch_binary.py holds the arrays to JAX's), in place of
+    the text beside it."""
+    from svbfm_tpu_torch.data.binary import save_sparse_binary
+
+    row = np.array([0, 0, 2], np.int32)
+    col = np.array([3, 1, 0], np.int32)
+    val = np.array([1.0, 0.5, 2.0], np.float32)
+    save_sparse_binary(str(tmp_path / "rel.x"), row, col, val, 3, 5)
+    (tmp_path / "rel").write_text("not libFM text\n")
+    got = trel.RelationData.load(str(tmp_path / "rel"))
+    want = jrel.RelationData.load(str(tmp_path / "rel"))
+    assert (got.num_rows, got.num_features) == (3, 5)
+    for k in ("row", "col", "val"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
 
 
 def test_make_bs_problem_shape():

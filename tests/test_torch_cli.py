@@ -90,11 +90,12 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra,kw,message", [
     (["-relation", "rel"], dict(task="p"), "item 15"),
-    (["-cache_size", "1000"], {}, "item 10"),
+    (["-cache_size", "1000"], dict(method="mcmc"), "item 10"),
     (["-checkpoint", "ck"], {}, "item 12"),
     (["-rlog", "log.tsv"], {}, "item 12"),
     (["-feature_shards", "2"], {}, "item 13"),
-    (["-num_eval_cases", "5"], {}, "item 4"),
+    pytest.param(["-num_eval_cases", "5", "-cache_size", "1000"], {},
+                 "not supported with -cache_size", id="extra5-kw5-item 4"),
     (["-learn_rate", "0.1"], {}, "not read"),
     (["-bogus", "1"], {}, "unknown parameter"),
     ([], dict(task="p"), "item 15"),
@@ -119,14 +120,20 @@ def test_refused_flags_and_methods(data, extra, kw, message):
     assert message in str(ei.value.code)
 
 
-def test_binary_input_refused(data):
-    d, _, _ = data
-    for suffix in (".x", ".y"):
-        (d / f"tr.libfm{suffix}").write_bytes(b"")
-    with pytest.raises(SystemExit) as ei:
-        cli.main(_args(d, "vb", "-device", "cpu"))
-    assert "binary input" in str(ei.value.code) and "item 10" in str(
-        ei.value.code)
+def test_binary_input_refused(data, monkeypatch, capsys):
+    """The reference's binary .x/.y beside a file's name is read in place
+    of its text, as the JAX CLI reads it: here the text is not libFM at
+    all, and the run takes the binary."""
+    from svbfm_tpu_torch.data.binary import save_coo_binary
+    from svbfm_tpu_torch.data.libfm_text import load_libfm_text
+
+    d, te, _ = data
+    save_coo_binary(str(d / "tr.libfm"), load_libfm_text(str(d / "tr.libfm")))
+    (d / "tr.libfm").write_text("not libFM text\n")
+    _run_in(d / "torch", cli.main,
+            _args(d, "vb", "-device", "cpu", "-out", "pred.txt"), monkeypatch)
+    assert "Final\tTest=" in capsys.readouterr().out
+    assert np.loadtxt(d / "torch" / "pred.txt").shape == (te.num_rows,)
 
 
 def test_device_cuda_without_gpu_refused(data):
@@ -143,7 +150,7 @@ def test_module_exit_codes(data):
     d, _, _ = data
     env = dict(os.environ, PYTHONPATH=REPO)
     run = [sys.executable, "-m", "svbfm_tpu_torch.cli"]
-    r = subprocess.run(run + _args(d, "vb", "-cache_size", "10", "-device",
+    r = subprocess.run(run + _args(d, "mcmc", "-cache_size", "10", "-device",
                                    "cpu"), cwd=d, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "item 10" in r.stderr
@@ -352,3 +359,128 @@ def test_cli_tasks_match_the_jax_cli(data, method, task, monkeypatch, capsys):
     assert final == float(jout.split("Final\tTest=")[1].split()[0])
     np.testing.assert_allclose(
         final, np.mean((pred >= 0.5) == (te.target > 0)), atol=1e-6)
+
+
+# ---- binary input, streaming and -cache_size ------------------------------
+
+BINARY_ARGS = dict(SGD_ARGS, mcmc=["-regular", "0.1"],
+                   als=["-regular", "0.1"], vb=[], vb_online=[])
+
+
+def _binary_files(d, tr_name="tr.libfm", te_name="te.libfm"):
+    """The data fixture's train and test files also as binary .x/.y, with
+    the text's feature count (max id + 1), so that both forms load the
+    same arrays."""
+    from svbfm_tpu_torch.data.binary import save_coo_binary
+    from svbfm_tpu_torch.data.libfm_text import load_libfm_text
+
+    for name in (tr_name, te_name):
+        save_coo_binary(str(d / name), load_libfm_text(str(d / name)))
+
+
+@pytest.mark.parametrize("method", ["mcmc", "als", "vb", "vb_online", "sgd",
+                                    "sgd_online", "sgda", "exp_sgd",
+                                    "exp_sgd_stoc", "bpr"])
+def test_cli_binary_input_matches_text(data, method, monkeypatch, capsys):
+    """Every method on binary train and test files gives what it gives on
+    the same data as libFM text, bit for bit (vb_online and sgd_online
+    here read the train text and the test binary: with a binary train file
+    they stream it, test_cli_streams_binary_train_like_the_jax_cli)."""
+    d, te, _ = data
+    extra = [a if a != "va.libfm" else str(d / "va.libfm")
+             for a in BINARY_ARGS[method]]
+    argv = _args(d, method, *extra, "-device", "cpu", "-out", "pred.txt")
+    _run_in(d / "text", cli.main, argv, monkeypatch)
+    text_out = capsys.readouterr().out
+    _binary_files(d, te_name="te.libfm")
+    if method in ("vb_online", "sgd_online"):
+        for ext in (".x", ".y"):
+            os.remove(d / f"tr.libfm{ext}")
+    else:  # the text must not be read
+        (d / "tr.libfm").rename(d / "tr.text")
+        (d / "tr.libfm").write_text("not libFM text\n")
+    (d / "te.libfm").write_text("not libFM text\n")
+    _run_in(d / "binary", cli.main, argv, monkeypatch)
+    bin_out = capsys.readouterr().out
+    np.testing.assert_array_equal(np.loadtxt(d / "binary" / "pred.txt"),
+                                  np.loadtxt(d / "text" / "pred.txt"))
+    assert (bin_out.split("Final\tTest=")[1].split()[0]
+            == text_out.split("Final\tTest=")[1].split()[0])
+
+
+@pytest.mark.parametrize("method,extra", [
+    ("vb_online", []), ("sgd_online", ["-learn_rate", "0.05", "-batch", "3"]),
+    ("vb", ["-cache_size", "4000"]),
+    ("vb_online", ["-task", "c"])])
+def test_cli_streams_binary_train_like_the_jax_cli(data, method, extra,
+                                                   monkeypatch, capsys):
+    """vb_online, sgd_online and -method vb -cache_size with a binary train
+    file: the file streams from disk (the port never loads it whole) and
+    the -out predictions equal the JAX CLI's on the same files, both from
+    the JAX init."""
+    from svbfm_tpu_torch.data import binary as tbin
+    from svbfm_tpu_torch.learners import vb_windowed as tvw
+
+    d, te, _ = data
+    _binary_files(d)
+    _start_from_jax_inits(monkeypatch)
+    from svbfm_tpu_torch.learners import vb as tvb
+    monkeypatch.setattr(tvw.WindowedVBLearner, "init_state",
+                        tvb.VBLearner.init_state)
+    loaded = []
+    real = tbin.load_coo_binary
+    monkeypatch.setattr(tbin, "load_coo_binary",
+                        lambda p: loaded.append(p) or real(p))
+    task = "r"
+    if "-task" in extra:
+        task, extra = extra[1], extra[2:]
+    argv = _args(d, method, *extra, "-out", "pred.txt", task=task)
+    _run_in(d / "torch", cli.main, argv + ["-device", "cpu"], monkeypatch)
+    out = capsys.readouterr().out
+    assert loaded == [str(d / "te.libfm")]  # the train file streamed
+    _run_in(d / "jax", jax_main, argv, monkeypatch)
+    jout = capsys.readouterr().out
+    np.testing.assert_allclose(np.loadtxt(d / "torch" / "pred.txt"),
+                               np.loadtxt(d / "jax" / "pred.txt"),
+                               rtol=1e-4, atol=1e-6)
+    for o in (out, jout):
+        assert "Final\tTest=" in o
+
+
+def test_cli_cache_size_vb_runs_windowed(data, monkeypatch, capsys):
+    """-method vb -cache_size on text input: the windowed learner over the
+    in-memory rows, as the JAX CLI, at the -factor_block given (it divides
+    K = 4)."""
+    from svbfm_tpu_torch.learners import vb_windowed as tvw
+
+    d, te, _ = data
+    made = []
+    real_init = tvw.WindowedVBLearner.__init__
+
+    def spy(self, *a, **k):
+        real_init(self, *a, **k)
+        made.append(self)
+    monkeypatch.setattr(tvw.WindowedVBLearner, "__init__", spy)
+    _run_in(d / "torch", cli.main,
+            _args(d, "vb", "-cache_size", "1000", "-device", "cpu"),
+            monkeypatch)
+    assert len(made) == 1 and made[0].cfg.factor_block == 1
+    assert "Final\tTest=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("method,extra,message", [
+    ("mcmc", ["-cache_size", "1000"], "windowed Gibbs/ALS"),
+    ("als", ["-cache_size", "1000"], "item 10"),
+    ("vb", ["-cache_size", "1000", "-num_eval_cases", "5"],
+     "-num_eval_cases is not supported with -cache_size"),
+    ("sgd", ["-cache_size", "1000"], "not read by -method sgd"),
+    ("vb_online", ["-feature_shards", "2"], "item 13"),
+    ("vb", ["-cache_size", "1000", "-bins", "greedy"], "-bins is not read"),
+])
+def test_cli_out_of_core_refusals(data, method, extra, message):
+    """The JAX CLI's refusals are kept, and -cache_size with mcmc/als
+    stays refused, naming windowed Gibbs/ALS and its ROADMAP item."""
+    d, _, _ = data
+    with pytest.raises(SystemExit) as ei:
+        cli.main(_args(d, method, *extra, "-device", "cpu"))
+    assert message in str(ei.value.code)

@@ -19,6 +19,7 @@ another order; the worst is noted beside each):
 """
 
 import dataclasses
+import os
 from functools import partial
 
 import jax
@@ -477,7 +478,8 @@ def test_exp_sgd_and_from_reader_refused():
     """The full-batch exp_sgd runs classification as JAX does, with no task
     branch (tests/test_torch_classification.py holds it to JAX), and
     refuses the Poisson task, naming its ROADMAP item; the out-of-core
-    sgd_online waits for item 10."""
+    sgd_online streams a binary file's chunks (held to JAX in
+    tests/test_torch_sgd_streaming.py)."""
     cfg = FMConfig(num_attributes=4, num_factor=2, task=2)
     with pytest.raises(NotImplementedError, match="item 15"):
         tx.ExpSGDLearner(cfg, None, None, device="cpu")
@@ -491,8 +493,22 @@ def test_exp_sgd_and_from_reader_refused():
         device="cpu", write_files=False)
     _, h = learner.run(num_iter=1, verbose=False)
     assert np.isfinite(h[0]["rmse"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ts.SGDOnlineLearner.from_reader(None, None, None)
+    import tempfile
+
+    from svbfm_tpu_torch.data.binary import save_coo_binary
+    from svbfm_tpu_torch.data.stream import BinaryChunkReader
+
+    with tempfile.TemporaryDirectory() as tmp:
+        save_coo_binary(os.path.join(tmp, "tr"), tr)
+        reader = BinaryChunkReader(os.path.join(tmp, "tr.x"),
+                                   os.path.join(tmp, "tr.y"))
+        online = ts.SGDOnlineLearner.from_reader(
+            dataclasses.replace(cfg, num_attributes=D, task=0,
+                                num_batches=3, learn_rate=0.05),
+            reader, SparseDataset.from_coo(te, D), device="cpu",
+            write_files=False)
+        _, h = online.run(num_iter=1, verbose=False)
+    assert np.isfinite(h[0]["rmse"])
 
 
 def test_shuffled_batches_drop_the_remainder():

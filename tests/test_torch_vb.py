@@ -262,9 +262,14 @@ def test_out_of_slice_raises(change):
 
 
 def test_num_eval_cases_raises():
+    """-num_eval_cases runs (held to JAX in tests/test_torch_num_eval.py):
+    the eval over the first 5 rows, rmse_test2_this over the rest."""
     ds, cfg = _tiny_port_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvb.VBLearner(cfg, ds, ds, device="cpu", num_eval_cases=5)
+    learner = tvb.VBLearner(cfg, ds, ds, device="cpu", num_eval_cases=5,
+                            write_files=False)
+    assert learner._eval_n == 5 and learner._rest_valid is not None
+    _, h = learner.run(num_iter=1, verbose=False)
+    assert np.isfinite(h[0]["rmse"]) and np.isfinite(h[0]["rmse_test2_this"])
 
 
 @pytest.mark.parametrize("F,P,ld,shift,plan", [
