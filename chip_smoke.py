@@ -33,7 +33,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      on one of 40 buckets, P1 on index counts that are not a multiple of
      4 and on bases one element past a 16-byte boundary, X13a and X13b
      (K3's and K5's window-accumulating modes) over the 4 windows of the
-     windowed batch VB at F = 4 and on small ragged windows; time both, and
+     windowed batch VB at F = 4 and on small ragged windows, X14a and X14b
+     (X8a's and X8c's) over the 4 windows of the windowed Gibbs at F = 4
+     and F = 1 and on small ragged windows (NaN sums, NaN lambdas, Inf
+     noise, L = 1, an empty bucket); time each, and
      one PyTorch call where one computes the same function.  Then x9b-digest: sha256 of X9b's outputs on
      seeded inputs.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
@@ -57,11 +60,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
  11. ovb quality: -reshuffle 1, 20 chunks, 10 epochs (not 30, to keep
      the run's time); test RMSE at epoch 10 beside the reference C++
      run's (information).
- 12. cli (ten child processes started together): python -m
+ 12. cli (twelve child processes started together): python -m
      svbfm_tpu_torch.cli -method vb_online, -method sgd,
      -method exp_sgd and -method als -relation items, and -task c with
      -method mcmc and -method sgd (-out must hold probabilities), -device
-     cuda on small libFM files; each must exit 0 and write its files.
+     cuda on small libFM files, and on binary files vb_online,
+     sgd_online and -cache_size with vb, mcmc and als (4 windows), and
+     mcmc -num_eval_cases; each must exit 0 and write its files.
  13. ovb-profile: device time of one online-VB epoch by kernel, K5's
      (w_bin_kernel) apart.
  14. mcmc: Gibbs MCMC, factor_block=0 (F=20), 10 iterations from the
@@ -150,14 +155,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      sweeps beside resident exact VB at factor_block 4 from the same init
      (trajectory within 2e-4, sec/iter, peak memory, which must be lower),
      a profiled sweep (X13a's, X13b's and the copies' shares), and
-     vb-windowed-gpu-vs-cpu on the 100k-row recipe, 2 sweeps.
+     vb-windowed-gpu-vs-cpu on the 100k-row recipe, 2 sweeps; then
+     mcmc-windowed and als-windowed: Gibbs and ALS (-regular 5) on the same
+     4 windows at factor_block 4, 5 iterations each from one host-table
+     draw source beside the resident learner at factor_block 4 (trajectory
+     within 5e-4, alpha 5e-3, sec/iter, launches a sweep, peak memory,
+     which must be lower), Gibbs' profiled sweep (X14a's, X14b's and the
+     copies' shares), and mcmc-windowed-gpu-vs-cpu on the 100k-row recipe,
+     2 sweeps.
  42. ovb-stream-10m (the same child): OVB on 10M rows of ML-10M's shape
      (71,567 x 10,681) streamed in 100 chunks, 1 epoch: sec/epoch, peak
      memory beside the bytes the train rows would take resident, which it
      must stay below.
 Then the nvidia-smi line again, a JSON line with each kernel's launches
 (summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28,
-30-32, 35, 37, 39, 41 and 42, each read just after its run with the
+30-32, 35, 37, 39, 41 (with mcmc-windowed and als-windowed) and 42, each
+read just after its run with the
 counts zeroed just before),
 error, times and bound, and as the last line {"ok": true, "device": {...}}.
 
@@ -268,6 +281,10 @@ REF_CLASS_VB_LL = {10: 0.4601, 15: 0.5767}
 # -num_eval_cases on half the test rows, the split identity to float32
 # rounding of sums of 10^5 squares
 WIN_CACHE_BYTES, WIN_SHAPE, WIN_TRAJ_RTOL = 8_388_608, (4, 250_880), 2e-4
+# the windowed Gibbs/ALS beside the resident learner at the same
+# factor_block and draws: the JAX test's own bound (test_mcmc_windowed.py:
+# 51-56: rmse rtol 5e-4, alpha 5e-3)
+MWIN_TRAJ_RTOL, MWIN_ALPHA_RTOL = 5e-4, 5e-3
 ML10M_SHAPE, STREAM_10M_CHUNKS = (71_567, 10_681, 10_000_000), 100
 NEC, NEC_RTOL = 50_000, 1e-5
 # "not falling": the last iteration's test accuracy at most this far below
@@ -343,6 +360,12 @@ SOURCES = {
                             "svbfm_tpu/learners/vb_windowed.py:447"),
     "w_col_window": ("svbfm_tpu_torch/csrc/w_sweep.cu",
                      "svbfm_tpu/learners/vb_windowed.py:550"),
+    # X8a's and X8c's window-accumulating modes (X14a, X14b), the windowed
+    # Gibbs/ALS v and w statistics and draws
+    "mcmc_col_draw_window": ("svbfm_tpu_torch/csrc/mcmc_sweep.cu",
+                             "svbfm_tpu/learners/mcmc_windowed.py:339"),
+    "mcmc_w_window": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                      "svbfm_tpu/learners/mcmc_windowed.py:246"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
 # (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
@@ -412,6 +435,12 @@ PATH_KERNELS = {
     "vb-windowed": ("fm_scores", "fm_t_terms", "vb_build_qt",
                     "vb_col_stats_window", "vb_patch_rows", "w_col_window",
                     "w_patch_rows"),
+    # the windowed Gibbs/ALS: X14a and X14b with X8d, X8b and the w patch
+    # on its windows
+    "mcmc-windowed": ("fm_scores", "build_q", "mcmc_col_draw_window",
+                      "mcmc_patch_rows", "mcmc_w_window", "w_patch_rows"),
+    "als-windowed": ("fm_scores", "build_q", "mcmc_col_draw_window",
+                     "mcmc_patch_rows", "mcmc_w_window", "w_patch_rows"),
 }
 
 
@@ -967,6 +996,9 @@ def make_cases(s: dict):
     if "win" in s:  # X13a, X13b: the windows of one bin, factor block 0
         win_cases(add, s["win"], bucket_cost, bin_cost)
 
+    for W in s.get("mwin", ()):  # X14a (and X14b): the windows of one bin
+        mwin_cases(add, W, bucket_cost, bin_cost)
+
     # X9a, X9b and (SGDA) X9c, per mode
     for key in ("sgd", "sgd_wide", "sgd_tasks"):
         for mode_case in s.get(key, {}).get("modes", ()):
@@ -1156,6 +1188,221 @@ def ragged_win_tensors(device) -> list:
         if not any(bool(((b["x"][w] == 0).all(1)).any())
                    for b in W["buckets"] for w in range(3)):
             raise AssertionError("ragged-win: no column with an empty "
+                                 "window")
+        out.append(s)
+    return out
+
+
+def mwin_cases(add, W: dict, bucket_cost, bin_cost) -> None:
+    """X14a on each bucket of the bin ``W`` holds at F = W["F"] (and, where
+    ``W`` has its w tables, X14b on the bin, with and without noise):
+    every window in order (the first writes the accumulator, the last
+    draws), checked against the twin's chain; then, timed, one launch of
+    the last window (the draw) and of the first (the writes to the
+    accumulator alone) on the largest bucket, and of the bin."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+
+    F, nw = W["F"], len(W["e"])
+    last = nw - 1
+    dev = W["ptab"].device
+    nout = km.col_outputs(F)
+
+    def a_prepare(C):
+        def prepare():
+            return (W["ptab"].clone(), W["vt"].clone(),
+                    torch.zeros(2, dtype=torch.int32, device=dev),
+                    torch.zeros(C, nout, device=dev))
+        return prepare
+
+    def x14a(b, ws):
+        def call(variant, inp):
+            fn = (km.mcmc_col_draw_window if variant == "kernel"
+                  else km.mcmc_col_draw_window_plain)
+            ptab, vt, nans, acc = inp
+            for w in ws:
+                fn(b["rows"][w], b["x"][w], b["cols"], b["group"], W["e"][w],
+                   W["q"][w], ptab, vt, W["mu"], W["lam"], W["alpha"],
+                   W["z"], nans, acc, w == 0, w == last)
+            return [ptab, vt, nans, acc]
+        return call
+
+    def a_cost(b, w):
+        # rows and x of the window; e and q at its real entries; the
+        # pre-bin v, the accumulator read (after the first) and written
+        # (before the last); the last: the priors and noise, v and dv
+        per_col = F + (nout if w else 0) + (nout if w < last else 5 * F)
+        c = bucket_cost(dict(rows=b["rows"][w], x=b["x"][w]), 1 + F,
+                        per_col, 7 * F + F * (F - 1),
+                        plain_graph=w < last)  # the twin's draw syncs
+        if F == 1:
+            c["note"] = f1_note(dict(rows=b["rows"][w], x=b["x"][w]))
+        return c
+
+    def shape(b, w=0):
+        return f"[{b['rows'][w].shape[0]},{b['rows'][w].shape[1]}]"
+
+    for b in W["buckets"]:  # the chains, checked
+        add("mcmc_col_draw_window", f"F={F} {shape(b)} windows 0-{last}",
+            a_prepare(b["rows"][0].shape[0]), x14a(b, range(nw)), None)
+    big = W["buckets"][0]
+    for w in dict.fromkeys((last, 0)):  # timed: the last window first
+        add("mcmc_col_draw_window",
+            f"F={F} {shape(big, w)} window {w} of {nw}",
+            a_prepare(big["rows"][0].shape[0]), x14a(big, [w]),
+            a_cost(big, w))
+    if "w_bins" not in W:
+        return
+
+    def b_prepare():
+        D = W["w"].shape[0]
+        return (W["w"].clone(), torch.zeros(D, 2, device=dev), _bad(dev),
+                torch.zeros(D, device=dev))
+
+    def x14b(ws, z):
+        def call(variant, inp):
+            fn = (kw.mcmc_w_bin_draw_window if variant == "kernel"
+                  else kw.mcmc_w_bin_draw_window_plain)
+            w_, dtab, bad, acc = inp
+            for w in ws:
+                fn(W["w_bins"][w], W["e"][w], w_, W["w_mu"], W["w_lambda"],
+                   W["alpha"], z, dtab, bad, acc, w == 0, w == last)
+            return [w_, dtab, bad, acc]
+        return call
+
+    label = "+".join(f"[{b.rows.shape[0]},{b.rows.shape[1]}]"
+                     for b in W["w_bins"][0])
+    for z in (W["zw"], None):
+        add("mcmc_w_window", f"{'gibbs' if z is not None else 'als'} bin "
+            f"{label} windows 0-{last}", b_prepare, x14b(range(nw), z),
+            None)
+    for w in dict.fromkeys((last, 0)):
+        add("mcmc_w_window", f"gibbs bin {label} window {w} of {nw}",
+            b_prepare, x14b([w], W["zw"]),
+            bin_cost(W["w_bins"][w], (1 if w else 0) + (
+                1 if w < last else 8), 2))
+
+
+def mwin_tensors(learner, state, tag: str, timed: bool = True,
+                 widths=(None, 1)) -> dict:
+    """X14a's and X14b's inputs at the windowed Gibbs path's shapes: every
+    window of ``learner`` (a WindowedMCMCLearner on the card) from
+    ``state`` (one sweep in: drawn priors, residual), the bin of the most
+    columns (its buckets the largest first), e and each window's q of the
+    first block of each width in ``widths`` (None: the learner's F), a
+    noise table for each; X14b's tables with the first."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.learners.vb_windowed import WindowBlock
+
+    Wl, nw = learner.wlen, learner.num_windows
+    D = learner.cfg.num_attributes
+    dev = state.e.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    plan = learner.plan
+    b = max(range(len(plan.bins)),
+            key=lambda i: sum(len(bu.cols) for bu in plan.bins[i]))
+    buckets = sorted(
+        (dict(rows=[t(bu.rows[w]) for w in range(nw)],
+              x=[t(bu.x[w]) for w in range(nw)], cols=cols, group=group,
+              sx2=sx2)
+         for bu, (cols, group, sx2) in zip(plan.bins[b],
+                                           learner._bins_dev[b])),
+        key=lambda d: -d["rows"][0].numel())
+    e = [state.e[w * Wl:(w + 1) * Wl] for w in range(nw)]
+    out = []
+    for F in widths:
+        F = learner.F if F is None else F
+        vt = state.v[:F].T.contiguous()
+        ptab = torch.cat([vt, torch.zeros_like(vt)], 1)
+        W = dict(F=F, e=e, vt=vt, ptab=ptab, buckets=buckets,
+                 q=[kv.build_q_plain(ptab, F, t(plan.ids[w]),
+                                     t(plan.vals[w])) for w in range(nw)],
+                 mu=state.v_mu[:, :F].contiguous(),
+                 lam=state.v_lambda[:, :F].contiguous(), alpha=state.alpha,
+                 z=torch.randn(F, D, generator=gen, device=dev))
+        if not out:
+            W.update(w=state.w.clone(), w_mu=state.w_mu,
+                     w_lambda=state.w_lambda,
+                     zw=torch.randn(D, generator=gen, device=dev),
+                     w_bins=[[WindowBlock(d["rows"][w], d["x"][w], d["cols"],
+                                          d["group"], d["sx2"])
+                              for d in buckets] for w in range(nw)])
+        out.append(W)
+    return dict(tag=tag, timed=timed, D=D, mwin=out)
+
+
+def ragged_mwin_tensors(device) -> list:
+    """X14a and X14b on three windows of ragged_win_tensors' small problem
+    (rows sorted by user: most user columns have no entries in most
+    windows, the last window padded), at F = 3 (single floats in the
+    block form) and F = 1, and at K = 4 with F = 2 (pairs): e is NaN at
+    one row of window 1 (its columns' sums turn NaN, their draws are
+    counted and reverted), group 1's lambdas (v and w) are NaN (its draws
+    come out 0, uncounted), a noise number of each table is Inf (counted
+    and reverted).  X14a also runs on an L = 1 bucket (each window's first
+    slot of the largest bucket); X14b's bin also holds an L = 1 bucket (the
+    same slots given the item columns) and an empty one."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import make_movielens_like
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.mcmc_windowed import WindowedMCMCLearner
+    from svbfm_tpu_torch.learners.vb_windowed import WindowBlock
+
+    coo = make_movielens_like(40, 30, 2600, seed=9)
+    users = np.bincount(coo.row, weights=coo.col * (coo.col < 40),
+                        minlength=coo.num_rows)
+    by_user = np.argsort(users, kind="stable")  # rows sorted by user
+    inv = np.empty_like(by_user)
+    inv[by_user] = np.arange(len(by_user))
+    coo.row = inv[coo.row].astype(np.int32)
+    coo.target = coo.target[by_user]
+    D = coo.num_features
+    out = []
+    for K, fb, widths in ((6, 3, (None, 1)), (4, 2, (None,))):
+        meta = DataMetaInfo.from_field_offsets(D, [0, 40])
+        cfg = FMConfig(num_attributes=D, num_factor=K, factor_block=fb,
+                       num_groups=2, min_target=1.0, max_target=5.0, seed=3)
+        lr = WindowedMCMCLearner(cfg, SparseDataset.from_coo(coo, D),
+                                 SparseDataset.from_coo(coo, D), meta,
+                                 device=device, num_windows=3,
+                                 write_files=False)
+        st, _ = lr.step(lr.init_state())
+        st.e[lr.wlen + 5] = float("nan")
+        st.v_lambda[1] = float("nan")
+        st.w_lambda[1] = float("nan")
+        s = mwin_tensors(lr, st, f"ragged-mwin K={K}", timed=False,
+                         widths=widths)
+        for W in s["mwin"]:
+            if len(W["e"]) != 3:
+                raise AssertionError("ragged-mwin: not three windows")
+            big = W["buckets"][0]
+            W["buckets"].append(dict(
+                big, rows=[r[:, :1].contiguous() for r in big["rows"]],
+                x=[x[:, :1].contiguous() for x in big["x"]]))
+            W["z"][0, big["cols"][1].item()] = float("inf")
+            if "w_bins" in W:
+                W["zw"][big["cols"][2].item()] = float("inf")
+                none = torch.zeros(0, dtype=torch.int32, device=device)
+                C1 = min(big["rows"][0].shape[0], D - 40)
+                items = torch.arange(40, 40 + C1, dtype=torch.int32,
+                                     device=device)
+                for w, wb in enumerate(W["w_bins"]):
+                    x1 = big["x"][w][:C1, :1].contiguous()
+                    wb.append(WindowBlock(
+                        big["rows"][w][:C1, :1].contiguous(), x1, items,
+                        torch.ones_like(items), (x1 * x1).sum(1)))
+                    wb.append(WindowBlock(
+                        torch.zeros(0, 8, dtype=torch.int32, device=device),
+                        torch.zeros(0, 8, device=device), none, none,
+                        torch.zeros(0, device=device)))
+        if not any(bool(((b["x"][w] == 0).all(1)).any())
+                   for b in s["mwin"][0]["buckets"] for w in range(3)):
+            raise AssertionError("ragged-mwin: no column with an empty "
                                  "window")
         out.append(s)
     return out
@@ -1830,7 +2077,7 @@ def ragged_tensors(device) -> list:
     return [s, vb, ov, ragged_mcmc_tensors(device),
             *ragged_sgd_tensors(device), ragged_bs_tensors(device),
             *ragged_w_tensors(device), *ragged_win_tensors(device),
-            ragged_probit_tensors(device)]
+            *ragged_mwin_tensors(device), ragged_probit_tensors(device)]
 
 
 def ragged_w_tensors(device) -> list:
@@ -3441,8 +3688,8 @@ def ooc_phases(build, card, dev, tr, te, train, test, meta, base_cfg, plan,
                ovb_ref: dict, sgd_online_sec: str) -> tuple:
     """Phases 36-40 in this process: [binary], [ovb-stream] (and its
     profile), [ovb-stream-gpu-vs-cpu], [sgd-online-stream] (and its
-    GPU-vs-CPU check), [num-eval]; then [vb-windowed] and
-    [ovb-stream-10m] in a child process of their own,
+    GPU-vs-CPU check), [num-eval]; then [vb-windowed], [mcmc-windowed],
+    [als-windowed] and [ovb-stream-10m] in a child process of their own,
     whose peak device memory is theirs alone.  Returns the launch counts
     of the driven runs."""
     from svbfm_tpu_torch.data.binary import load_coo_binary, save_coo_binary
@@ -3638,7 +3885,11 @@ def memory_phases(train_prefix: str, test_prefix: str) -> int:
     (-cache_size 8,388,608), 5 sweeps beside resident exact VB at the same
     factor_block from the same init (trajectory, sec/iter, peak memory over
     what was allocated before the learner), its profile and
-    [vb-windowed-gpu-vs-cpu] (100k rows, 2 sweeps); then [ovb-stream-10m]:
+    [vb-windowed-gpu-vs-cpu] (100k rows, 2 sweeps); [mcmc-windowed] and
+    [als-windowed], Gibbs and ALS on the same windows, 5 iterations each
+    beside the resident learner at factor_block 4 from one init and one
+    host-table draw source (trajectory, peak memory, Gibbs' profile), and
+    [mcmc-windowed-gpu-vs-cpu] (100k rows, 2 sweeps); then [ovb-stream-10m]:
     OVB on 10M rows of ML-10M's shape streamed in 100 chunks, 1 epoch,
     its peak beside the bytes its train rows would take resident.  The last
     line is the JSON of the driven runs' launch counts."""
@@ -3648,9 +3899,14 @@ def memory_phases(train_prefix: str, test_prefix: str) -> int:
     from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
     from svbfm_tpu_torch.kernels import build
     from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.learners.mcmc_windowed import (WindowedALSLearner,
+                                                        WindowedMCMCLearner)
     from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
     from svbfm_tpu_torch.learners.vb_online import OVBLearner
     from svbfm_tpu_torch.learners.vb_windowed import WindowedVBLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
 
     dev = torch.device("cuda", torch.cuda.current_device())
     build.build_all()
@@ -3716,9 +3972,72 @@ def memory_phases(train_prefix: str, test_prefix: str) -> int:
         peak_mem_over_base_bytes=wpeak,
         resident_peak_mem_over_base_bytes=rpeak,
         launches=json.dumps(l_win, separators=(",", ":")), card=repr(card))
+
+    # ---- 41b. Gibbs and ALS windowed, the same 4 windows, factor_block 4 ----
+    g0 = init_fm_params(torch.Generator().manual_seed(SEED), D, K,
+                        init_stdev=cfg.init_stdev, init_w_normal=True)
+    als_cfg = dataclasses.replace(cfg, reg0=ALS_REG, regw=ALS_REG,
+                                  regv=ALS_REG)
+    l_mwin = {}
+    for path, wcls, rcls, mcfg, key in (
+            ("mcmc-windowed", WindowedMCMCLearner, MCMCLearner, cfg, "rmse"),
+            ("als-windowed", WindowedALSLearner, ALSLearner, als_cfg,
+             "rmse_this")):
+        t0 = time.perf_counter()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        w0 = time.perf_counter()
+        mw = wcls(mcfg, reader, test, meta, device=dev,
+                  cache_bytes=WIN_CACHE_BYTES, write_files=False)
+        setup_s = time.perf_counter() - w0
+        if (mw.num_windows, mw.wlen, mw.F) != WIN_SHAPE + (4,):
+            raise AssertionError(f"{path}: {mw.num_windows} windows of "
+                                 f"{mw.wlen} rows at F = {mw.F}")
+        (mst, hw), l_mwin[path] = drive(build, path, lambda: mw.run(
+            mw.state_from_params(g0.w0, g0.w, g0.v, host_draws(SEED, dev)),
+            num_iter=5, verbose=False, chunk=1))
+        wpeak = torch.cuda.max_memory_allocated() - base
+        check_mcmc_history(hw, path, key)
+        prof = {}
+        if path == "mcmc-windowed":
+            m_dev_us = profile_run(
+                lambda: mw.run(mst, num_iter=1, verbose=False), 1, "sweep",
+                "mcmc-windowed-profile",
+                focus=("col_draw_win", "w_bin_win_kernel", "Memcpy HtoD"))
+            prof = dict(device_ms_per_iter=f"{m_dev_us / 1e3:.3f}")
+        del mw, mst
+        # the resident learner at the same factor_block, init and draws
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = rcls(mcfg, train, test, meta, device=dev, plan=rplan,
+                   write_files=False)
+        _, hr = res.run(res.state_from_params(g0.w0, g0.w, g0.v,
+                                              host_draws(SEED, dev)),
+                        num_iter=5, verbose=False, chunk=1)
+        rpeak = torch.cuda.max_memory_allocated() - base
+        del res
+        worst = compare_traj(hw, hr, ("rmse", "rmse_this"),
+                             MWIN_TRAJ_RTOL, f"{path} vs resident")
+        worst_a = compare_traj(hw, hr, ("alpha",), MWIN_ALPHA_RTOL,
+                               f"{path} vs resident")
+        if not wpeak < rpeak:
+            raise AssertionError(f"{path}: peak {wpeak} not below the "
+                                 f"resident learner's {rpeak}")
+        per = {k: v // len(hw) for k, v in l_mwin[path].items() if v}
+        say(path, t0, iterations=len(hw), windows=WIN_SHAPE[0],
+            window_rows=WIN_SHAPE[1], factor_block=4,
+            setup_s=f"{setup_s:.3f}", sec_per_iter=f"{med(hw):.6f}", **prof,
+            resident_sec_per_iter=f"{med(hr):.6f}",
+            **{key: ",".join(f"{h[key]:.5f}" for h in hw)},
+            vs_resident_max_rel=f"{worst:.3e}", rtol=MWIN_TRAJ_RTOL,
+            alpha_max_rel=f"{worst_a:.3e}",
+            peak_mem_over_base_bytes=wpeak,
+            resident_peak_mem_over_base_bytes=rpeak,
+            launches_per_iter=json.dumps(per, separators=(",", ":")),
+            card=repr(card))
     del train, rplan
 
-    # ---- 41b. windowed, GPU kernels vs CPU twins (100k rows) ---------------
+    # ---- 41c. windowed, GPU kernels vs CPU twins (100k rows) ---------------
     t0 = time.perf_counter()
     tr1, _, _, test1, meta1 = ml_data(100_000)
     work = ooc_work("chip_smoke_memory")
@@ -3738,6 +4057,24 @@ def memory_phases(train_prefix: str, test_prefix: str) -> int:
     worst = compare_traj(*hists, ("rmse", "train_rmse", "free_energy"),
                          TRAJ_RTOL, "vb-windowed gpu vs cpu")
     say("vb-windowed-gpu-vs-cpu", t0, train_rows=tr1.num_rows, windows=4,
+        sweeps=2, max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL)
+
+    # ---- 41d. windowed Gibbs, GPU kernels vs CPU twins (100k rows) ---------
+    t0 = time.perf_counter()
+    cfgm = dataclasses.replace(cfg1, factor_block=2)
+    gm = init_fm_params(torch.Generator().manual_seed(SEED),
+                        tr1.num_features, cfgm.num_factor,
+                        init_stdev=cfgm.init_stdev, init_w_normal=True)
+    hists = []
+    for d in (dev, "cpu"):
+        lr = WindowedMCMCLearner(cfgm, binary_reader(p1), test1, meta1,
+                                 device=d, num_windows=4, write_files=False)
+        hists.append(lr.run(lr.state_from_params(gm.w0, gm.w, gm.v,
+                                                 host_draws(SEED, d)),
+                            num_iter=2, verbose=False)[1])
+    worst = compare_traj(*hists, ("rmse", "rmse_this", "mae", "alpha"),
+                         TRAJ_RTOL, "mcmc-windowed gpu vs cpu")
+    say("mcmc-windowed-gpu-vs-cpu", t0, train_rows=tr1.num_rows, windows=4,
         sweeps=2, max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL)
 
     # ---- 42. OVB on 10M rows of ML-10M's shape, 100 chunks, 1 epoch ---------
@@ -3793,7 +4130,8 @@ def memory_phases(train_prefix: str, test_prefix: str) -> int:
         launches=json.dumps(l_10m, separators=(",", ":")), card=repr(card))
     del o10, reader10
     shutil.rmtree(work, ignore_errors=True)
-    print(json.dumps({"launches": [l_win, l_10m]}), flush=True)
+    print(json.dumps({"launches": [l_win, l_10m, *l_mwin.values()]}),
+          flush=True)
     return 0
 
 
@@ -3826,6 +4164,7 @@ def main() -> int:
     from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
     from svbfm_tpu_torch.learners.vb_online import OVBLearner, init_ovb_state
     from svbfm_tpu_torch.learners.vb_windowed import WindowedVBLearner
+    from svbfm_tpu_torch.learners.mcmc_windowed import WindowedMCMCLearner
     from svbfm_tpu_torch.models.fm import init_fm_params
 
     # ---- 1. build --------------------------------------------------------
@@ -3899,6 +4238,10 @@ def main() -> int:
                             cache_bytes=WIN_CACHE_BYTES, write_files=False)
     win0 = win.state_from_params(init_vb_params(
         torch.Generator().manual_seed(SEED), wcfg, dev))
+    mwin = WindowedMCMCLearner(wcfg, train, test, meta, device=dev,
+                               cache_bytes=WIN_CACHE_BYTES,
+                               write_files=False)
+    mwin1, _ = mwin.step(mwin.init_state())
     report = merge_reports(
         check_cases(fast_tensors(learner, vb0), timed=True),
         check_cases(ovb_tensors(ovb, ovb0), timed=True),
@@ -3911,8 +4254,9 @@ def main() -> int:
         check_cases(bs_tensors(bs_mcmc, bs1, "bs", True, (K, 0, 1),
                                agg_widths=(BS_AGG_BLOCK_F,)), timed=True),
         check_cases(win_tensors(win, win0, "vb-windowed"), timed=True),
+        check_cases(mwin_tensors(mwin, mwin1, "mcmc-windowed"), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
-    del mc1, bs1, win, win0
+    del mc1, bs1, win, win0, mwin, mwin1
     missing = sorted(set(SOURCES) - set(report))
     if missing:
         raise AssertionError(f"kernels with no case: {missing}")
@@ -4083,6 +4427,9 @@ def main() -> int:
         ("sgd_online", ["-batch", "5", "-learn_rate", "0.05"], (),
          dict(binary=True)),
         ("vb", ["-cache_size", "40000"], ("free_energy_118_vb",),
+         dict(binary=True)),
+        ("mcmc", ["-cache_size", "40000"], (), dict(binary=True)),
+        ("als", ["-cache_size", "40000", "-regular", "1"], (),
          dict(binary=True)),
         ("mcmc", ["-num_eval_cases", "500"], (), {})])
 

@@ -1,7 +1,7 @@
 """Time one family of the port's kernels on the card and profile the paths
 that launch them, for one checkout.
 
-    python3 kernel_times.py {bs,forward,mcmc,sgd,stream,w} [--tree DIR] [--label NAME]
+    python3 kernel_times.py {bs,forward,mcmc,sass,sgd,stream,w} [--tree DIR] [--label NAME]
 
 Runs the kernels and learners of the checkout at ``--tree`` (default: the
 one holding this script) on the inputs ``chip_smoke.py`` (of this script's
@@ -59,6 +59,12 @@ graph replay of 20 calls, then the family's profiles:
   exp_sgd and one OVB epoch, and ``profile_run`` of each, twice, with
   K5's device time and share.
 
+- ``sass``: no timing and no card: every CUDA library of ``--tree`` and
+  of this checkout compiled to a cubin (the build's nvcc flags) and
+  disassembled by ``cuobjdump -sass``; for each kernel of ``--tree``,
+  whether this checkout's build of it is the same instructions (under
+  its name or, where it became a template, as one of ``name<...>``), and
+  the kernels this checkout adds.
 - ``stream``: the out-of-core learners' host side: OVB (20 chunks) and
   sgd_online (50 chunks) on the ML-1M recipe written as binary files,
   four epochs each (the first is a warm-up) in memory and streamed from
@@ -70,7 +76,7 @@ To hold a change against its parent, run it on both in one call, in turns
 into a git-ignored directory.  The inputs and bounds are this script's
 ``chip_smoke.py``'s, so the other tree must share their layouts (for
 ``bs``, the (qB | lin | sumsB) moments rows).  Exits non-zero without a
-card.
+card (``sass``: without nvcc).
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ FAMILIES = {
             "bs_scores")),
     "forward": (("fm_forward", "vb_sweep"), ("fm_", "build_qt")),
     "mcmc": (("mcmc_sweep",), ("col_draw_f1", "row_patch")),
+    "sass": ((), ()),
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
     "w": (("w_sweep", "gather_probe"), ("w_", "gather")),
     "stream": ((), ()),
@@ -112,6 +119,8 @@ def main() -> int:
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--label", default="")
     a = ap.parse_args()
+    if a.family == "sass":
+        return sass_family(os.path.abspath(a.tree))
     sys.path.insert(0, os.path.abspath(a.tree))
     import torch
 
@@ -149,6 +158,61 @@ def main() -> int:
               "mcmc": mcmc_family, "sgd": sgd_family, "w": w_family,
               "stream": stream_family}
     family[a.family](cs, build, dev, tag, line)
+    return 0
+
+
+def sass_family(tree: str) -> int:
+    """See the module docstring: this checkout's SASS beside ``tree``'s."""
+    import re
+    import subprocess
+    import tempfile
+
+    sys.path.insert(0, HERE)
+    from svbfm_tpu_torch.kernels import build
+
+    nvcc = build._nvcc()
+    objdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    drop = {"-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"}
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"))
+
+    def kernels(root, lib):
+        """{kernel name: its instructions} of ``root``'s csrc/<lib>.cu."""
+        src = os.path.join(root, "svbfm_tpu_torch", "csrc", f"{lib}.cu")
+        if not os.path.exists(src):
+            return {}
+        out = os.path.join(work.name, "k.cubin")
+        flags = [f for f in build._flags(lib) if f not in drop]
+        subprocess.run([nvcc, *flags, "-cubin", "-o", out, src], check=True)
+        txt = subprocess.run([objdump, "-sass", out], check=True,
+                             capture_output=True, text=True).stdout
+        funcs, name = {}, None
+        for ln in txt.splitlines():
+            m = re.match(r"\s*Function : (\S+)", ln)
+            if m:
+                name = subprocess.run(["c++filt", m.group(1)],
+                                      capture_output=True, text=True
+                                      ).stdout.strip()
+                name = re.sub(r"^void ", "", name.replace(
+                    "(anonymous namespace)::", "")).split("(")[0]
+                funcs[name] = []
+            elif name:  # the instruction, without addresses and encodings
+                ins = re.sub(r"/\*.*?\*/", "", ln.split(";")[0]).strip()
+                if ins:
+                    funcs[name].append(ins)
+        return funcs
+
+    with work:
+        for lib in build.LIBRARIES:
+            old, new = kernels(tree, lib), kernels(HERE, lib)
+            for k, v in sorted(old.items()):
+                hit = [n for n in new if (n == k or n.startswith(f"{k}<"))
+                       and new[n] == v]
+                print(f"[sass] {lib} {k}: "
+                      f"{'same as ' + hit[0] if hit else 'DIFFERENT'} "
+                      f"({len(v)} instructions)", flush=True)
+            print(f"[sass] {lib} new: "
+                  f"{sorted(n for n in new if n not in old)}", flush=True)
     return 0
 
 

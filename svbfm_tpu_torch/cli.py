@@ -12,9 +12,10 @@ natively for mcmc and als, and as the materialised join for every other
 method, as ``svbfm_tpu/cli.py`` does.  Train and test files are libFM text
 or the reference's binary ``.x``/``.y`` (``.data``/``.target``) beside
 the name, which wins where present; with a binary train file and no
-``-relation``, vb_online, sgd_online and ``-method vb -cache_size N``
-stream it from disk and never load it whole (``-cache_size``: batch VB
-with device-windowed rows, ``learners/vb_windowed.py``).
+``-relation``, vb_online, sgd_online and ``-method vb|mcmc|als
+-cache_size N`` stream it from disk and never load it whole
+(``-cache_size``: batch VB, Gibbs or ALS with device-windowed rows,
+``learners/vb_windowed.py``, ``learners/mcmc_windowed.py``).
 ``-num_eval_cases n`` evaluates the first n test rows (vb, mcmc and als
 also report the rest as ``rmse_test2_*``); the final ``Test=`` is over
 them for every method.
@@ -78,9 +79,9 @@ Flags (-name value):
                for bpr; default=50
   -reshuffle   vb_online: 1 = re-partition chunk membership every epoch;
                default 0 keeps membership fixed with shuffled order
-  -cache_size  vb: device bytes for the row windows of out-of-core batch VB
-               (0 = all rows resident); a binary train file is streamed
-               from disk; default=0
+  -cache_size  vb, mcmc, als: device bytes for the row windows of
+               out-of-core batch VB, Gibbs or ALS (0 = all rows resident);
+               a binary train file is streamed from disk; default=0
   -num_eval_cases  evaluate the first n test rows (the rest: rmse_test2_*
                for vb, mcmc, als); default=all
   -factor_block  factors per sweep block; 0=all (fast), 1=reference-exact
@@ -241,10 +242,13 @@ def main(argv: Optional[list[str]] = None) -> int:
                          "-do_sampling 0)")
     cache_bytes = cmd.get_int("cache_size", 0)
     nec = cmd.get_int("num_eval_cases", 0) or None
-    if cache_bytes > 0 and method in ("mcmc", "als"):
-        raise SystemExit(f"-cache_size with -method {method}: out-of-core "
-                         f"windowed Gibbs/ALS is not ported yet ({_Q1}, "
-                         "item 10); -method vb runs windowed")
+    if cache_bytes > 0 and factor_jacobi:
+        raise SystemExit("-factor_jacobi is not read with -cache_size: the "
+                         "windowed Gibbs/ALS draws exactly")
+    if cache_bytes > 0 and method in ("mcmc", "als") \
+            and cmd.has("relation"):
+        raise SystemExit("-cache_size is not read by the block-structure "
+                         "sampler (-relation): its rows stay resident")
     if cache_bytes > 0 and nec:  # svbfm_tpu/cli.py:385-390, :408-413
         raise SystemExit("-num_eval_cases is not supported with "
                          "-cache_size")
@@ -291,10 +295,10 @@ def main(argv: Optional[list[str]] = None) -> int:
                 else load_libfm_text(path))
 
     # the online methods never load the train file (libfm.cpp:149-171),
-    # nor does windowed batch VB: a binary train file streams from disk
-    # (svbfm_tpu/cli.py:222-243)
+    # nor do the windowed vb, mcmc and als: a binary train file streams
+    # from disk (svbfm_tpu/cli.py:222-243)
     defer_train = ((method in ("vb_online", "sgd_online")
-                    or (method == "vb" and cache_bytes > 0))
+                    or (method in ("vb", "mcmc", "als") and cache_bytes > 0))
                    and has_binary(train_file) and not cmd.has("relation"))
     reader = train = None
     if defer_train:
@@ -394,6 +398,13 @@ def main(argv: Optional[list[str]] = None) -> int:
         rels, tr_joins, te_joins, d_main = bs_native
         learner = cls(cfg, tr_ds, te_ds, rels, tr_joins, te_joins, meta,
                       d_main, device=device, bins=bins,
+                      w_lambda_init=w_lambda, v_lambda_init=v_lambda)
+    elif method in ("mcmc", "als") and cache_bytes > 0:
+        from svbfm_tpu_torch.learners.mcmc_windowed import (
+            WindowedALSLearner, WindowedMCMCLearner)
+        cls = WindowedALSLearner if method == "als" else WindowedMCMCLearner
+        learner = cls(cfg, reader if defer_train else tr_ds, te_ds, meta,
+                      device=device, cache_bytes=cache_bytes,
                       w_lambda_init=w_lambda, v_lambda_init=v_lambda)
     elif method in ("mcmc", "als"):
         from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner

@@ -68,6 +68,22 @@
 // latency: each lane loads its slots' ids and x with vector loads and
 // issues all their gathers before its first FMA, a warp a column (2-4 on
 // long columns, a few lanes on short ones); see col_draw_f1_kernel.
+// X14a, the window-accumulating mode (kWin, the out-of-core Gibbs/ALS of
+// svbfm_tpu/learners/mcmc_windowed.py:339-398, make_stats + make_draw):
+// the bucket is one window's [C, L] view of a global column bucket, its
+// rows local to the window, and e, q the window's rows of the resident
+// caches (base pointers at the window's first row).  The block's sums
+// (s0 | sh2 | M packed, the layout of the draw) go to the [C, nout]
+// accumulator gacc in window order: the first window writes them, every
+// later one adds its sums to what is there (JAX's a + x); each sum's
+// owner thread writes it, so no atomics.  Only the last window's launch
+// runs the exact sequential draw, on the accumulated sums, and writes v_t,
+// ptab's dv channels and the counts, as the resident exact mode does.
+// F = 1 takes col_draw_f1_kernel's form (lanes over a column's slots, at
+// the card's gather rate, as the resident F = 1 sweep) with the column's
+// head lane adding its (s0, sh2) into gacc [C, 2]; the block form at F = 1
+// would idle most of its 128 threads on one factor.  The mode is a
+// template parameter of each body: the resident builds are unchanged.
 // X8b: bound by bytes, the [N, F] cache read and written once and each
 // row's ids, x and e (186 MB at ML-1M, F = 20: 55 us at 3.35 TB/s); its
 // ptab rows (2F floats an attribute) stay in L2.  A warp a row, lanes
@@ -113,7 +129,9 @@ __host__ __device__ __forceinline__ int col_outputs(int mode, int F) {
 
 // One column's block (the kernels below); kSlots: the factors a lane of
 // the exact draw holds (svbfm::with_draw_slots).
-template <int kMode, int kSlots>
+// kWin: X14a's window mode (exact draws only), gacc [C, nout] the
+// accumulator and win its place (bit 0 the first window, bit 1 the last).
+template <int kMode, int kSlots, bool kWin = false>
 __device__ __forceinline__ void col_draw_block(
     const int* __restrict__ rows, const float* __restrict__ x, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
@@ -121,7 +139,9 @@ __device__ __forceinline__ void col_draw_block(
     float* __restrict__ ptab, float* __restrict__ v_t,
     const float* __restrict__ mu, const float* __restrict__ lam,
     const float* __restrict__ alpha_p, const float* __restrict__ z,
-    int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases) {
+    int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases,
+    float* __restrict__ gacc = nullptr, int win = 0) {
+  static_assert(!kWin || kMode == kExact, "X14a draws exactly");
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -136,9 +156,11 @@ __device__ __forceinline__ void col_draw_block(
 
   const int64_t col = cols[c];
   const int64_t ldp = 2 * F;
+  // the draw's operands: not read by a window before the last
+  const bool draws = kMode != kGrad && (!kWin || (win & 2));
   for (int f = tid; f < F; f += nt) {
     vc[f] = ptab[col * ldp + f];
-    if (kMode != kGrad) {
+    if (draws) {
       const int g_c = group[c];
       prior[f] = mu[g_c * F + f];
       prior[F + f] = lam[g_c * F + f];
@@ -188,6 +210,20 @@ __device__ __forceinline__ void col_draw_block(
       acc[o] += s;
     }
     __syncthreads();
+  }
+
+  if (kWin) {  // X14a: the window's sums into gacc, in window order
+    float* arow = gacc + static_cast<int64_t>(c) * nout;
+    for (int o = tid; o < nout; o += nt) {
+      const float tot = (win & 1) ? acc[o] : arow[o] + acc[o];
+      if (win & 2) {
+        acc[o] = tot;
+      } else {
+        arow[o] = tot;
+      }
+    }
+    if (!(win & 2)) return;
+    __syncthreads();  // the draw reads every owner's total
   }
 
   if (kMode == kGrad) {  // exp_sgd.py:129-136: every factor at once
@@ -256,6 +292,37 @@ __global__ void __launch_bounds__(256, 6) col_draw_exact32_kernel(
                             lam, alpha_p, z, D, nans, lr, reg, n_cases);
 }
 
+// X14a's kernels at F >= 2: the exact mode's two builds with the window
+// accumulator (the F <= 32 one under the same register bound).
+template <int kSlots>
+__global__ void col_draw_win_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int L,
+    const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q, int F,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases,
+    float* __restrict__ gacc, int win) {
+  col_draw_block<kExact, kSlots, true>(rows, x, L, cols, group, e, q, F, ptab,
+                                       v_t, mu, lam, alpha_p, z, D, nans, lr,
+                                       reg, n_cases, gacc, win);
+}
+
+__global__ void __launch_bounds__(256, 6) col_draw_win32_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int L,
+    const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q, int F,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases,
+    float* __restrict__ gacc, int win) {
+  col_draw_block<kExact, 1, true>(rows, x, L, cols, group, e, q, F, ptab, v_t,
+                                  mu, lam, alpha_p, z, D, nans, lr, reg,
+                                  n_cases, gacc, win);
+}
+
 // X8a at F = 1 (v_factor_main_bins, mcmc.py:684-705), with kGradF1 the
 // exp_sgd step of one factor (exp_sgd.py:129-136 at F = 1): G lanes a
 // column of a [C, L] bucket (f1_lanes), kF1Threads / G columns a block.
@@ -270,15 +337,18 @@ __global__ void __launch_bounds__(256, 6) col_draw_exact32_kernel(
 // Padding (svbfm::PadRow): of the x = 0 slots at the pad row only the last
 // slot is gathered, so a non-finite q or e there still makes the sums NaN,
 // as in the twin.
-template <bool kGradF1, int V>
-__global__ void __launch_bounds__(kF1Threads) col_draw_f1_kernel(
+// kWin (X14a at F = 1): the head lane adds the column's (s0, sh2) into gacc
+// [C, 2] in window order; only the last window's launch draws.
+template <bool kGradF1, int V, bool kWin>
+__device__ __forceinline__ void col_f1_body(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
     int G, const int* __restrict__ cols, const int* __restrict__ group,
     const float* __restrict__ e, const float* __restrict__ q,
     float* __restrict__ ptab, float* __restrict__ v_t,
     const float* __restrict__ mu, const float* __restrict__ lam,
     const float* __restrict__ alpha_p, const float* __restrict__ z,
-    int* __restrict__ nans, float lr, float reg, float n_cases) {
+    int* __restrict__ nans, float lr, float reg, float n_cases,
+    float* __restrict__ gacc, int win) {
   constexpr int kR = kF1Slots / V;  // loads of V slots a lane a round
   __shared__ float part[2][kF1Threads / 32];
   const int tid = threadIdx.x;
@@ -292,7 +362,7 @@ __global__ void __launch_bounds__(kF1Threads) col_draw_f1_kernel(
   if (live) {
     col = cols[c];
     v_c = ptab[2 * col];
-    if (!kGradF1 && li == 0) {
+    if (!kGradF1 && li == 0 && (!kWin || (win & 2))) {
       const int g_c = group[c];
       mu_c = mu[g_c];
       lam_c = lam[g_c];
@@ -367,6 +437,18 @@ __global__ void __launch_bounds__(kF1Threads) col_draw_f1_kernel(
     }
   }
   if (!live || li != 0) return;
+  if (kWin) {
+    float* arow = gacc + 2 * c;
+    const float t0 = (win & 1) ? s0 : arow[0] + s0;
+    const float t1 = (win & 1) ? sh2 : arow[1] + sh2;
+    if (!(win & 2)) {
+      arow[0] = t0;
+      arow[1] = t1;
+      return;
+    }
+    s0 = t0;
+    sh2 = t1;
+  }
   if (kGradF1) {
     const float nv = grad_step(v_c, s0, lr, reg, n_cases);
     v_t[col] = nv;
@@ -380,6 +462,36 @@ __global__ void __launch_bounds__(kF1Threads) col_draw_f1_kernel(
   ptab[2 * col + 1] = v_c - nv;
   if (nan_c) atomicAdd(&nans[0], nan_c);
   if (inf_c) atomicAdd(&nans[1], inf_c);
+}
+
+template <bool kGradF1, int V>
+__global__ void __launch_bounds__(kF1Threads) col_draw_f1_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    int G, const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int* __restrict__ nans, float lr, float reg, float n_cases) {
+  col_f1_body<kGradF1, V, false>(rows, x, C, L, G, cols, group, e, q, ptab,
+                                 v_t, mu, lam, alpha_p, z, nans, lr, reg,
+                                 n_cases, nullptr, 0);
+}
+
+// X14a at F = 1: the draw mode with the window accumulator.
+template <int V>
+__global__ void __launch_bounds__(kF1Threads) col_draw_f1_win_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    int G, const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int* __restrict__ nans, float lr, float reg, float n_cases,
+    float* __restrict__ gacc, int win) {
+  col_f1_body<false, V, true>(rows, x, C, L, G, cols, group, e, q, ptab, v_t,
+                              mu, lam, alpha_p, z, nans, lr, reg, n_cases,
+                              gacc, win);
 }
 
 // X8b at F = 1: a thread a row.  Every position reads the pre-bin q; dq
@@ -502,37 +614,48 @@ size_t col_draw_smem(int F, int mode) {
                           4 * F);
 }
 
-// X8a's kernel for a mode and a draw's slots.
-template <int kMode, int kSlots>
+// X8a's kernel for a mode and a draw's slots (kWin: X14a's).
+template <int kMode, int kSlots, bool kWin>
 auto col_draw_entry() {
-  if constexpr (kMode == kExact && kSlots == 1) {
+  if constexpr (kWin && kSlots == 1) {
+    return col_draw_win32_kernel;
+  } else if constexpr (kWin) {
+    return col_draw_win_kernel<kSlots>;
+  } else if constexpr (kMode == kExact && kSlots == 1) {
     return col_draw_exact32_kernel;
   } else {
     return col_draw_kernel<kMode, kSlots>;
   }
 }
 
-template <int kMode, int kSlots>
+template <int kMode, int kSlots, bool kWin = false>
 int launch_col_draw(const int* rows, const float* x, int C, int L,
                     const int* cols, const int* group, const float* e,
                     const float* q, int F, float* ptab, float* v_t,
                     const float* mu, const float* lam, const float* alpha,
                     const float* z, int64_t D, int* nans, float lr, float reg,
-                    float n_cases, cudaStream_t stream) {
+                    float n_cases, cudaStream_t stream,
+                    float* gacc = nullptr, int win = 0) {
   const size_t smem = col_draw_smem(F, kMode);
   const int threads = col_outputs(kMode, F) > 128 ? 256 : 128;
   if (kMode == kExact && F > 32 * kSlots)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = col_draw_entry<kMode, kSlots>();
+  auto kernel = col_draw_entry<kMode, kSlots, kWin>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<C, threads, smem, stream>>>(rows, x, L, cols, group, e, q, F,
-                                       ptab, v_t, mu, lam, alpha, z, D, nans,
-                                       lr, reg, n_cases);
+  if constexpr (kWin) {
+    kernel<<<C, threads, smem, stream>>>(rows, x, L, cols, group, e, q, F,
+                                         ptab, v_t, mu, lam, alpha, z, D,
+                                         nans, lr, reg, n_cases, gacc, win);
+  } else {
+    kernel<<<C, threads, smem, stream>>>(rows, x, L, cols, group, e, q, F,
+                                         ptab, v_t, mu, lam, alpha, z, D,
+                                         nans, lr, reg, n_cases);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -564,26 +687,32 @@ int f1_vec(const int* rows, const float* x, int L, int G) {
   return 1;
 }
 
-template <bool kGradF1>
+template <bool kGradF1, bool kWin = false>
 int launch_col_f1(const int* rows, const float* x, int C, int L,
                   const int* cols, const int* group, const float* e,
                   const float* q, float* ptab, float* v_t, const float* mu,
                   const float* lam, const float* alpha, const float* z,
                   int* nans, float lr, float reg, float n_cases,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, float* gacc = nullptr, int win = 0) {
   const int G = f1_lanes(C, L);
   const unsigned blocks = static_cast<unsigned>(
       (static_cast<int64_t>(C) * G + kF1Threads - 1) / kF1Threads);
-  auto go = [&](auto kernel) {
-    kernel<<<blocks, kF1Threads, 0, stream>>>(rows, x, C, L, G, cols, group,
-                                              e, q, ptab, v_t, mu, lam,
-                                              alpha, z, nans, lr, reg,
-                                              n_cases);
+  auto go = [&](auto v) {
+    constexpr int kV = decltype(v)::value;
+    if constexpr (kWin) {
+      col_draw_f1_win_kernel<kV><<<blocks, kF1Threads, 0, stream>>>(
+          rows, x, C, L, G, cols, group, e, q, ptab, v_t, mu, lam, alpha, z,
+          nans, lr, reg, n_cases, gacc, win);
+    } else {
+      col_draw_f1_kernel<kGradF1, kV><<<blocks, kF1Threads, 0, stream>>>(
+          rows, x, C, L, G, cols, group, e, q, ptab, v_t, mu, lam, alpha, z,
+          nans, lr, reg, n_cases);
+    }
   };
   switch (f1_vec(rows, x, L, G)) {
-    case 4: go(col_draw_f1_kernel<kGradF1, 4>); break;
-    case 2: go(col_draw_f1_kernel<kGradF1, 2>); break;
-    default: go(col_draw_f1_kernel<kGradF1, 1>); break;
+    case 4: go(std::integral_constant<int, 4>()); break;
+    case 2: go(std::integral_constant<int, 2>()); break;
+    default: go(std::integral_constant<int, 1>()); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -612,6 +741,29 @@ SVBFM_EXPORT int svbfm_mcmc_col_draw(
     return launch_col_draw<kExact, decltype(slots)::value>(
         rows, x, C, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D,
         nans, 0.f, 0.f, 1.f, stream);
+  });
+}
+
+// X14a: X8a's exact draw on one window's [C, L] view of a bucket, its rows
+// local to the window's caches e [Wlen], q [Wlen, F].  The window's sums
+// (s0 | sh2 | M packed, 2F + F(F-1)/2 a column) go into acc [C, ...] in
+// window order, win bit 0 marking the first window and bit 1 the last,
+// whose launch also draws from the accumulated sums and writes v_t, ptab's
+// dv channels and nans as svbfm_mcmc_col_draw does.
+SVBFM_EXPORT int svbfm_mcmc_col_draw_window(
+    const int* rows, const float* x, int C, int L, const int* cols,
+    const int* group, const float* e, const float* q, int F, float* ptab,
+    float* v_t, const float* mu, const float* lam, const float* alpha,
+    const float* z, int64_t D, int* nans, float* acc, int win,
+    cudaStream_t stream) {
+  if (F == 1)
+    return launch_col_f1<false, true>(rows, x, C, L, cols, group, e, q, ptab,
+                                      v_t, mu, lam, alpha, z, nans, 0.f, 0.f,
+                                      1.f, stream, acc, win);
+  return svbfm::with_draw_slots(F, [&](auto slots) {
+    return launch_col_draw<kExact, decltype(slots)::value, true>(
+        rows, x, C, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D,
+        nans, 0.f, 0.f, 1.f, stream, acc, win);
   });
 }
 

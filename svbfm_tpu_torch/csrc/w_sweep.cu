@@ -57,7 +57,7 @@
 // loop, so that their latency overlaps the gathers (after the sum, an
 // OVB bin took 10 % longer).  The lanes close with a butterfly of
 // __shfl_xor_sync in a fixed order: no shared memory, and two launches
-// give the same bits.  The mode is a template parameter: one body, five
+// give the same bits.  The mode is a template parameter: one body, six
 // builds.
 //
 // X13b, the window-accumulating mode (kVBWin, the out-of-core batch VB of
@@ -70,6 +70,13 @@
 // only the last window's launch applies batch VB's closed form to the
 // accumulated sum with the bucket's GLOBAL sx2 and writes w, the delta
 // table and the counts, as mode VB does.  One lane writes each column.
+//
+// X14b (kMCMCWin, the out-of-core Gibbs/ALS of
+// svbfm_tpu/learners/mcmc_windowed.py:246-292, make_wstats + make_wdraw)
+// is the same window accumulator with mode MCMC's draw at the last
+// window: the GLOBAL sx2, the z table's number for the column, the delta
+// table (w_new - w_old, 0) and the NaN/Inf draw counts.  The window kernel
+// is a template on the two window modes.
 #include "svbfm_common.cuh"
 
 namespace {
@@ -88,7 +95,7 @@ constexpr int kMaxBuckets = 32;  // buckets a launch
 // lambdas, prior_mu the group means, z the [D] noise table or nullptr;
 // bad[0], bad[1] += nan, inf draws.  Grad: the exp_sgd step (see the top);
 // mu_w is w, and lr, reg, n_cases its step size, regw and N.
-enum Mode { kVB, kOVB, kMCMC, kGrad, kVBWin };
+enum Mode { kVB, kOVB, kMCMC, kGrad, kVBWin, kMCMCWin };
 
 struct Bucket {
   const int* rows;         // [C, L]
@@ -173,7 +180,7 @@ __device__ __forceinline__ void column(const Bucket& bk, int64_t c, int li,
     if (kMode == kOVB || head) mu_c = a.mu_w[col];  // OVB: every slot's term
     if (head && kMode != kGrad) {
       sw = a.sigma_w[g];
-      if (kMode == kMCMC) {
+      if (kMode == kMCMC || kMode == kMCMCWin) {
         pm = a.prior_mu[g];
         if (a.z != nullptr) zc = a.z[col];
       } else {
@@ -198,7 +205,7 @@ __device__ __forceinline__ void column(const Bucket& bk, int64_t c, int li,
   for (int o = stride >> 1; o > 0; o >>= 1)
     s += __shfl_xor_sync(svbfm::kFullMask, s, o);
   if (!head) return;
-  if (kMode == kVBWin) {
+  if (kMode == kVBWin || kMode == kMCMCWin) {
     const float tot = (wa.win & 1) ? s : wa.acc[col] + s;
     if (!(wa.win & 2)) {
       wa.acc[col] = tot;
@@ -215,7 +222,7 @@ __device__ __forceinline__ void column(const Bucket& bk, int64_t c, int li,
     drow[1] = 0.f;
     return;
   }
-  if (kMode == kMCMC) {  // mcmc.py:641-652
+  if (kMode == kMCMC || kMode == kMCMCWin) {  // mcmc.py:641-652
     const float s2 = 1.f / (sw + alpha * sxx);
     const float mean = -s2 * (alpha * (s - mu_c * sxx) - pm * sw);
     float val = a.z != nullptr ? mean + sqrtf(s2) * zc : mean;
@@ -284,8 +291,9 @@ __global__ void __launch_bounds__(kThreads)
     column<kMode, 0>(bk, c, threadIdx.x & (U - 1), U, a);
 }
 
-// X13b: the same block-to-bucket walk; mode VB's body with the window
-// accumulator.
+// X13b (kVBWin) and X14b (kMCMCWin): the same block-to-bucket walk; mode
+// VB's or MCMC's body with the window accumulator.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     w_bin_win_kernel(const __grid_constant__ Plan p,
                      const __grid_constant__ WArgs a,
@@ -300,9 +308,9 @@ __global__ void __launch_bounds__(kThreads)
       ((static_cast<int64_t>(blockIdx.x) - bk.first) * kThreads +
        threadIdx.x) / U;
   if (U == 32)
-    column<kVBWin, 32>(bk, c, threadIdx.x & 31, U, a, wa);
+    column<kMode, 32>(bk, c, threadIdx.x & 31, U, a, wa);
   else
-    column<kVBWin, 0>(bk, c, threadIdx.x & (U - 1), U, a, wa);
+    column<kMode, 0>(bk, c, threadIdx.x & (U - 1), U, a, wa);
 }
 
 Plan make_plan(const int64_t* plan, int nb) {
@@ -329,6 +337,18 @@ int launch(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
   if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
   w_bin_kernel<kMode><<<static_cast<unsigned>(blocks), kThreads, 0,
                         stream>>>(make_plan(plan, nb), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The window modes' launch (kVBWin, kMCMCWin).
+template <int kMode>
+int launch_win(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
+               float* acc, int win, cudaStream_t stream) {
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
+  w_bin_win_kernel<kMode><<<static_cast<unsigned>(blocks), kThreads, 0,
+                            stream>>>(make_plan(plan, nb), a,
+                                      WinArgs{acc, win});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,12 +413,26 @@ SVBFM_EXPORT int svbfm_w_col_window(const int64_t* plan, int nb,
                                     const float* sigma_w, const float* alpha,
                                     float* dtab, int* bad, float* acc,
                                     int win, cudaStream_t stream) {
-  if (blocks == 0) return static_cast<int>(cudaSuccess);
-  if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
   const WArgs a{e,       mu_w,    sig_w,   sigma_w, nullptr, alpha,
                 nullptr, nullptr, nullptr, nullptr, nullptr, dtab,
                 bad,     0.f,     0.f,     1.f};
-  w_bin_win_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      make_plan(plan, nb), a, WinArgs{acc, win});
-  return static_cast<int>(cudaGetLastError());
+  return launch_win<kVBWin>(plan, nb, blocks, a, acc, win, stream);
+}
+
+// X14b, every bucket of one window of one bin of the out-of-core Gibbs/ALS
+// w sweep: the window sums go into acc [D] at the bin's columns in window
+// order (win bit 0: the first window, bit 1: the last); the last window's
+// launch also draws w [D] at the bin's columns with the buckets' global
+// sx2 and writes dtab [D, 2] and bad[0], bad[1] as svbfm_mcmc_w_draw does
+// (z nullptr: ALS, the mean).
+SVBFM_EXPORT int svbfm_mcmc_w_window(const int64_t* plan, int nb,
+                                    int64_t blocks, const float* e, float* w,
+                                    const float* w_mu, const float* w_lambda,
+                                    const float* alpha, const float* z,
+                                    float* dtab, int* bad, float* acc,
+                                    int win, cudaStream_t stream) {
+  const WArgs a{e,       w,       nullptr, w_lambda, w_mu, alpha,
+                z,       nullptr, nullptr, nullptr,  nullptr, dtab,
+                bad,     0.f,     0.f,     1.f};
+  return launch_win<kMCMCWin>(plan, nb, blocks, a, acc, win, stream);
 }

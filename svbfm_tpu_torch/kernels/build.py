@@ -39,9 +39,10 @@ LIBRARIES = {
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
                  "w_patch_rows", "build_q", "vb_col_stats_window"),
     "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step",
-                "w_col_window"),
+                "w_col_window", "mcmc_w_window"),
     "ovb_sweep": ("ovb_col_stats_update",),
-    "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows", "mcmc_col_grad"),
+    "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows", "mcmc_col_grad",
+                   "mcmc_col_draw_window"),
     "gather_probe": ("gather_probe",),
     "sgd_step": ("sgd_grad_scatter", "sgd_apply", "sgda_lambda"),
     "bs_sweep": ("bs_join_agg", "bs_rel_draw", "bs_rel_w_draw",
@@ -81,6 +82,10 @@ SIGNATURES = {
     "svbfm_mcmc_col_draw": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                             _P, _P, _P, _L, _I, _P, _P),
     "svbfm_mcmc_patch_rows": (_P, _I, _P, _P, _L, _I, _P, _P, _P),
+    "svbfm_mcmc_col_draw_window": (_P, _P, _I, _I, _P, _P, _P, _P, _I, _P,
+                                   _P, _P, _P, _P, _P, _L, _P, _P, _I, _P),
+    "svbfm_mcmc_w_window": (_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _P),
     "svbfm_w_grad_step": (_P, _I, _L, _P, _P, _P, _F, _F, _F, _P),
     "svbfm_mcmc_col_grad": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _F,
                             _F, _P),

@@ -24,6 +24,14 @@ function of the bucket's shape and alignment, ``col_draw_f1_plan``; X8b's
 (a thread a row at F = 1, else a row's factor chunks over lanes, several
 rows a warp) of F and the alignment of q and ptab, ``patch_plan``.
 
+``mcmc_col_draw_window`` (X14a) is X8a's window-accumulating mode, the v
+sweep of the out-of-core Gibbs/ALS (``learners/mcmc_windowed.py``): a
+bucket is one window's view, each column's sums (s0 | sh2 | M packed, the
+strict upper triangle in row order: ``col_outputs`` a column) go into an
+accumulator in window order, and the last window draws exactly from the
+totals (replaces ``svbfm_tpu/learners/mcmc_windowed.py``'s ``make_stats``
+:339-365 and ``make_draw`` :367-398).
+
 ``mcmc_col_grad`` (X9d's v half) is X8a's gradient mode, the v columns of
 the full-batch exp_sgd: the same s0 = sum h e from the pre-bin e (here
 stdev yhat - y) and the step v' = keep_finite(v - lr (s0 + regv v) / N, v)
@@ -192,13 +200,11 @@ def exact_block_draws(s0, sh2_all, m_x, v_c, mu_g, lam_g, alpha, zmat):
 
 # ---- X8a --------------------------------------------------------------------
 
-def mcmc_col_draw_plain(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
-                        z: Optional[torch.Tensor], exact_seq: bool,
-                        nans) -> None:
+def _col_sums(rows, x, cols, e, q, ptab, F: int, exact_seq: bool):
+    """One [C, L] bucket's column sums from the pre-bin v of ``ptab``:
+    s0, sh2 [F, C] and, with ``exact_seq``, M [F, F, C] (else None)."""
     C, L = rows.shape
-    F = v_t.shape[1]
-    cl = cols.long()
-    v_c = ptab[cl, :F]  # [C, F] pre-bin
+    v_c = ptab[cols.long(), :F]  # [C, F] pre-bin
     ridx = rows.reshape(-1)
     e_g = e.index_select(0, ridx).reshape(C, L)
     q_g = q.index_select(0, ridx).reshape(C, L, F)
@@ -206,11 +212,22 @@ def mcmc_col_draw_plain(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
     h = xb * (q_g - xb * v_c[:, None, :])  # [C, L, F]
     s0 = (h * e_g[:, :, None]).sum(1).T  # [F, C]
     sh2 = (h * h).sum(1).T
+    m_x = torch.einsum("clf,clg->fgc", h, h) if exact_seq else None
+    return s0, sh2, m_x
+
+
+def _col_draw(s0, sh2, m_x, cols, group, ptab, v_t, mu, lam, alpha, z,
+              nans) -> None:
+    """Draw the bucket's columns from their sums (exactly where ``m_x`` is
+    given, else factor-Jacobi), in place on v_t, ptab's dv channels and
+    nans."""
+    F = v_t.shape[1]
+    cl = cols.long()
+    v_c = ptab[cl, :F]  # [C, F] pre-bin
     mu_g = mu.index_select(0, group)
     lam_g = lam.index_select(0, group)
     zc = None if z is None else z.index_select(1, cols)  # [F, C]
-    if exact_seq:
-        m_x = torch.einsum("clf,clg->fgc", h, h)
+    if m_x is not None:
         new, nan_c, inf_c = exact_block_draws(s0, sh2, m_x, v_c, mu_g, lam_g,
                                               alpha, zc)
     else:
@@ -224,6 +241,14 @@ def mcmc_col_draw_plain(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
     ptab[cl, F:] = v_c - new
     nans[0] += nan_c
     nans[1] += inf_c
+
+
+def mcmc_col_draw_plain(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
+                        z: Optional[torch.Tensor], exact_seq: bool,
+                        nans) -> None:
+    s0, sh2, m_x = _col_sums(rows, x, cols, e, q, ptab, v_t.shape[1],
+                             exact_seq)
+    _col_draw(s0, sh2, m_x, cols, group, ptab, v_t, mu, lam, alpha, z, nans)
 
 
 def mcmc_col_draw(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
@@ -268,6 +293,106 @@ def mcmc_col_draw(rows, x, cols, group, e, q, ptab, v_t, mu, lam, alpha,
             None if z is None else build.ptr(z), D, int(exact_seq),
             build.ptr(nans), build.stream_of(rows))
     build.check_launch(lib, rc, "mcmc_col_draw")
+
+
+# ---- X14a: X8a over the windows of the out-of-core Gibbs/ALS ---------------
+
+def col_outputs(F: int) -> int:
+    """The sums X14a keeps a column (``csrc/mcmc_sweep.cu:col_outputs`` of
+    the exact mode): s0 [F], sh2 [F], the strict upper triangle of M."""
+    return 2 * F + F * (F - 1) // 2
+
+
+def pack_sums(s0, sh2, m_x) -> torch.Tensor:
+    """The [C, col_outputs(F)] rows (s0 | sh2 | M_fg for f < g in row
+    order) of a bucket's sums."""
+    F = s0.shape[0]
+    f, g = torch.triu_indices(F, F, 1, device=s0.device)
+    return torch.cat([s0, sh2, m_x[f, g]], 0).T
+
+
+def unpack_sums(acc):
+    """s0, sh2 [F, C] and the symmetric M [F, F, C] (sh2 on its
+    diagonal) of ``pack_sums``' rows."""
+    C, n = acc.shape
+    F = next(F for F in range(n + 1) if col_outputs(F) == n)
+    t = acc.T
+    s0, sh2 = t[:F], t[F:2 * F]
+    m_x = torch.zeros(F, F, C, dtype=acc.dtype, device=acc.device)
+    f, g = torch.triu_indices(F, F, 1, device=acc.device)
+    m_x[f, g] = t[2 * F:]
+    m_x[g, f] = t[2 * F:]
+    d = torch.arange(F, device=acc.device)
+    m_x[d, d] = sh2
+    return s0, sh2, m_x
+
+
+def mcmc_col_draw_window_plain(rows, x, cols, group, e, q, ptab, v_t, mu, lam,
+                               alpha, z: Optional[torch.Tensor], nans, acc,
+                               first: bool, last: bool) -> None:
+    """One window's [C, L] view of a bucket (rows local to the window's
+    caches e, q): its packed sums go into ``acc`` [C, col_outputs(F)],
+    written at the first window and added to (acc + part) at the later
+    ones; the last window draws exactly from the accumulated sums.  One
+    window (first and last) is ``mcmc_col_draw_plain``'s exact mode."""
+    part = pack_sums(*_col_sums(rows, x, cols, e, q, ptab, v_t.shape[1],
+                                True))
+    tot = part if first else acc + part
+    if not last:
+        acc.copy_(tot)
+        return
+    _col_draw(*unpack_sums(tot), cols, group, ptab, v_t, mu, lam, alpha, z,
+              nans)
+
+
+def mcmc_col_draw_window(rows, x, cols, group, e, q, ptab, v_t, mu, lam,
+                         alpha, z: Optional[torch.Tensor], nans, acc,
+                         first: bool, last: bool) -> None:
+    if build.on_cpu(rows):
+        return mcmc_col_draw_window_plain(rows, x, cols, group, e, q, ptab,
+                                          v_t, mu, lam, alpha, z, nans, acc,
+                                          first, last)
+    C, L = rows.shape
+    D, F = v_t.shape
+    G = mu.shape[0]
+    N = e.shape[0]
+    dev = rows.device
+    req = build.require
+    name = "mcmc_col_draw_window"
+    req(rows, _I32, (C, L), dev, f"{name}.rows")
+    req(x, _F32, (C, L), dev, f"{name}.x")
+    req(cols, _I32, (C,), dev, f"{name}.cols")
+    req(group, _I32, (C,), dev, f"{name}.group")
+    req(e, _F32, (N,), dev, f"{name}.e")
+    req(q, _F32, (N, F), dev, f"{name}.q")
+    req(ptab, _F32, (D, 2 * F), dev, f"{name}.ptab")
+    req(v_t, _F32, (D, F), dev, f"{name}.v_t")
+    req(mu, _F32, (G, F), dev, f"{name}.mu")
+    req(lam, _F32, (G, F), dev, f"{name}.lam")
+    req(alpha, _F32, (), dev, f"{name}.alpha")
+    if z is not None:
+        req(z, _F32, (F, D), dev, f"{name}.z")
+    req(nans, _I32, (2,), dev, f"{name}.nans")
+    req(acc, _F32, (C, col_outputs(F)), dev, f"{name}.acc")
+    if C == 0 or F == 0:
+        return
+    if not col_draw_fits(F, True):
+        raise ValueError(
+            f"{name}: F = {F} is wider than the {MAX_COL_F[True]} factors "
+            f"a block of the exact mode takes (it needs "
+            f"{col_draw_smem(F, True)} bytes of shared memory of the "
+            f"{MAX_BLOCK_SMEM} one block may take); use a narrower "
+            f"factor_block")
+    lib = build.load_library("mcmc_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_mcmc_col_draw_window(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(group), build.ptr(e), build.ptr(q), F, build.ptr(ptab),
+            build.ptr(v_t), build.ptr(mu), build.ptr(lam), build.ptr(alpha),
+            None if z is None else build.ptr(z), D, build.ptr(nans),
+            build.ptr(acc), int(first) | 2 * int(last),
+            build.stream_of(rows))
+    build.check_launch(lib, rc, name)
 
 
 # ---- X9d: X8a's gradient mode ----------------------------------------------

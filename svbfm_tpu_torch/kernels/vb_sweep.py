@@ -27,7 +27,8 @@ the w patch of ``vb_w_bin_update`` (:149-157) and of the online w sweep
 (:653-656).
 K2 and K4 also serve the online VB factor sweep (``learners/vb_online.py``;
 ``vb_patch_rows(..., sequential=False)``), and the windowed batch VB on a
-window's rows of the resident caches (views: ``vb_build_qt(..., out=)``).
+window's rows of the resident caches (views: ``vb_build_qt(..., out=)``);
+X8d the windowed Gibbs/ALS the same way (``build_q(..., out=)``).
 X13a replaces ``svbfm_tpu/learners/vb_windowed.py``'s ``make_stats``
 (:447-481) and ``make_draw`` (:483-518).
 """
@@ -159,10 +160,13 @@ def build_q_plain(ptab, F: int, ids, vals, q0=None):
     return q
 
 
-def build_q(ptab, F: int, ids, vals, q0=None):
-    """X8d: q [N, F] from its starting value q0 [N, F] (None: 0)."""
+def build_q(ptab, F: int, ids, vals, q0=None, out=None):
+    """X8d: q [N, F] from its starting value q0 [N, F] (None: 0);
+    ``out``: the [N, F] tensor to write (the windowed learner's view of its
+    resident cache), else a new one."""
     if build.on_cpu(ids):
-        return build_q_plain(ptab, F, ids, vals, q0)
+        q = build_q_plain(ptab, F, ids, vals, q0)
+        return q if out is None else out.copy_(q)
     N, P = ids.shape
     dev = ids.device
     if ptab.dim() != 2 or ptab.shape[1] < F:
@@ -173,7 +177,11 @@ def build_q(ptab, F: int, ids, vals, q0=None):
     build.require(vals, _F32, (N, P), dev, "build_q.vals")
     if q0 is not None:
         build.require(q0, _F32, (N, F), dev, "build_q.q0")
-    q = torch.empty(N, F, dtype=_F32, device=dev)
+    if out is None:
+        q = torch.empty(N, F, dtype=_F32, device=dev)
+    else:
+        build.require(out, _F32, (N, F), dev, "build_q.out")
+        q = out
     if N * F == 0:
         return q.zero_()
     lib = build.load_library("vb_sweep")

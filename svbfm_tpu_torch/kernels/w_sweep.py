@@ -31,6 +31,12 @@ accumulator in window order, and the last window applies the closed form
 with the bucket's global sx2 (replaces ``svbfm_tpu/learners/vb_windowed.py``'s
 ``make_wstats`` :583-599 and ``make_wdraw`` :550-581).
 
+``mcmc_w_bin_draw_window`` (X14b) is X8c's window-accumulating mode, the w
+sweep of the out-of-core Gibbs/ALS (``learners/mcmc_windowed.py``): X13b's
+accumulator with the MCMC draw, from the bucket's global sx2, at the last
+window (replaces ``svbfm_tpu/learners/mcmc_windowed.py``'s ``make_wstats``
+:246-262 and ``make_wdraw`` :264-292).
+
 ``w_bin_grad_step`` (X9d's w half) is its gradient mode: the bin's step of
 the full-batch exp_sgd, w' = keep_finite(w - lr (sum x e + regw w) / N, w),
 with the same delta table (w_new - w_old, 0) for the w patch.
@@ -129,12 +135,19 @@ def mcmc_w_draw_plain(rows, x, cols, group, sx2, e, w, w_mu, w_lambda, alpha,
                       z, dtab, bad) -> None:
     """One [C, L] bucket of the MCMC/ALS w sweep (mcmc.py:636-652), in
     place on w and dtab; ``z`` is the [D] noise table, or None (ALS)."""
+    e_g = e.index_select(0, rows.reshape(-1)).reshape(rows.shape)
+    _mcmc_w_close((x * e_g).sum(1), cols, group, sx2, w, w_mu, w_lambda,
+                  alpha, z, dtab, bad)
+
+
+def _mcmc_w_close(sxe, cols, group, sx2, w, w_mu, w_lambda, alpha, z, dtab,
+                  bad) -> None:
+    """The MCMC/ALS w draw (mcmc.py:641-652) at ``cols`` from their sums
+    ``sxe`` = sum x e, in place on w, dtab and bad."""
     cl = cols.long()
     w_c = w[cl]
     mu_g = w_mu.index_select(0, group)
     lam_g = w_lambda.index_select(0, group)
-    e_g = e.index_select(0, rows.reshape(-1)).reshape(rows.shape)
-    sxe = (x * e_g).sum(1)
     s2 = 1.0 / (lam_g + alpha * sx2)
     val = -s2 * (alpha * (sxe - w_c * sx2) - mu_g * lam_g)
     if z is not None:
@@ -351,6 +364,61 @@ def mcmc_w_bin_draw(buckets, e, w, w_mu, w_lambda, alpha, z, dtab,
                 None if z is None else build.ptr(z), build.ptr(dtab),
                 build.ptr(bad), build.stream_of(e))
         build.check_launch(lib, rc, "mcmc_w_draw")
+
+
+def mcmc_w_bin_draw_window_plain(buckets, e, w, w_mu, w_lambda, alpha, z,
+                                 dtab, bad, acc, first: bool,
+                                 last: bool) -> None:
+    """The twin of X14b on one window of a bin: each bucket's sum x e (rows
+    local to the window's residual ``e``) goes into ``acc`` [D] at its
+    columns, written at the first window and added to (acc + part) at the
+    later ones; the last window draws w with the bucket's global sx2.  One
+    window (first and last) is ``mcmc_w_bin_draw_plain``."""
+    for b in buckets:
+        e_g = e.index_select(0, b.rows.reshape(-1)).reshape(b.rows.shape)
+        part = (b.x * e_g).sum(1)
+        cl = b.cols.long()
+        tot = part if first else acc[cl] + part
+        if not last:
+            acc[cl] = tot
+            continue
+        _mcmc_w_close(tot, b.cols, b.group, b.sx2, w, w_mu, w_lambda, alpha,
+                      z, dtab, bad)
+
+
+def mcmc_w_bin_draw_window(buckets, e, w, w_mu, w_lambda, alpha, z, dtab,
+                           bad, acc, first: bool, last: bool) -> None:
+    """X14b on every bucket of one window of a bin in one launch; ``z``
+    is the [D] noise table, or None (ALS)."""
+    if build.on_cpu(e):
+        return mcmc_w_bin_draw_window_plain(buckets, e, w, w_mu, w_lambda,
+                                            alpha, z, dtab, bad, acc, first,
+                                            last)
+    D = w.shape[0]
+    G = w_mu.shape[0]
+    dev = e.device
+    req = build.require
+    name = "mcmc_w_bin_draw_window"
+    launches = _bin_launches(buckets, e, ("group", "sx2"), name)
+    req(w, _F32, (D,), dev, f"{name}.w")
+    req(w_mu, _F32, (G,), dev, f"{name}.w_mu")
+    req(w_lambda, _F32, (G,), dev, f"{name}.w_lambda")
+    req(alpha, _F32, (), dev, f"{name}.alpha")
+    if z is not None:
+        req(z, _F32, (D,), dev, f"{name}.z")
+    req(dtab, _F32, (D, 2), dev, f"{name}.dtab")
+    req(bad, _I32, (4,), dev, f"{name}.bad")
+    req(acc, _F32, (D,), dev, f"{name}.acc")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(dev):
+            rc = lib.svbfm_mcmc_w_window(
+                table, nb, blocks, build.ptr(e), build.ptr(w),
+                build.ptr(w_mu), build.ptr(w_lambda), build.ptr(alpha),
+                None if z is None else build.ptr(z), build.ptr(dtab),
+                build.ptr(bad), build.ptr(acc), int(first) | 2 * int(last),
+                build.stream_of(e))
+        build.check_launch(lib, rc, "mcmc_w_window")
 
 
 def w_bin_grad_step_plain(buckets, e, w, dtab, lr: float, reg: float,

@@ -10,7 +10,12 @@ source, an object with these methods:
 * ``uniform(shape, lo, hi)``: uniform floats in [lo, hi) (float32), the
   Gibbs probit draw's (``mcmc.py:1079-1082``, which also splits its key
   under ALS and uses no number: the port then asks for a zero-length
-  draw).
+  draw);
+* ``window_uniform(windows, length, lo, hi)``: the same for the windowed
+  Gibbs (``mcmc_windowed.py:499-516``): JAX splits its key once and draws
+  each window's ``length`` numbers from that sub-key folded with the
+  window's index; the windows' numbers in window order, one
+  [windows * length] tensor (``length`` 0 under ALS).
 
 The learner calls them in the JAX package's order and with its shapes
 (``svbfm_tpu/learners/mcmc.py``, where each draw splits the key chain and
@@ -63,11 +68,14 @@ class Draws:
                              dtype=torch.int32,
                              device=self.generator.device).to(self.device)
 
-
     def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
         u = torch.rand(tuple(shape), generator=self.generator, dtype=_F32,
                        device=self.generator.device)
         return (u * (hi - lo) + lo).to(self.device)
+
+    def window_uniform(self, windows: int, length: int, lo: float,
+                       hi: float) -> torch.Tensor:
+        return self.uniform((windows * length,), lo, hi)
 
 
 def device_draws(seed: int, device) -> Draws:

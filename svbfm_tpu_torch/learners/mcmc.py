@@ -254,8 +254,13 @@ def w_sweep_main(e, w, w_mu, w_lambda, alpha, plan: PlanData, row: RowData,
         w_patch_rows(dtab, row.ids, row.vals, e)
     counters["nan_w"] = counters["nan_w"] + bad[0]
     counters["inf_w"] = counters["inf_w"] + bad[1]
-    # unobserved columns: posterior = prior N(mu_g, 1/lambda_g), from the
-    # same z table (mcmc.py:657-668)
+    w_unobserved(w, w_mu, w_lambda, zw, plan, cfg, counters)
+
+
+def w_unobserved(w, w_mu, w_lambda, zw, plan: PlanData, cfg: FMConfig,
+                 counters) -> None:
+    """The unobserved columns' w: posterior = prior N(mu_g, 1/lambda_g),
+    from the w sweep's z table (mcmc.py:657-668), in place on w."""
     ag, unobs = plan.attr_group, plan.unobserved
     new_un = _maybe_sample(cfg.do_sample, zw, w_mu.index_select(0, ag),
                            1.0 / w_lambda.index_select(0, ag), w,
@@ -302,8 +307,7 @@ def _v_blocked_sweep(e, v, v_mu, v_lambda, alpha, plan: PlanData,
     """Factor-blocked v sweep (mcmc.py:203-263) in K / F blocks of F
     factors, in place on e and v [K, D]; each block's unobserved columns
     then take the prior."""
-    K, D = v.shape
-    ag, unobs = plan.attr_group, plan.unobserved[:, None]
+    K = v.shape[0]
     for f0 in range(0, K, F):
         fs = slice(f0, f0 + F)
         v_t = v[fs].T.contiguous()  # [D, F]
@@ -311,13 +315,22 @@ def _v_blocked_sweep(e, v, v_mu, v_lambda, alpha, plan: PlanData,
         lam_gf = v_lambda[:, fs].contiguous()
         _v_block_pass(e, v_t, mu_gf, lam_gf, draws, plan, row, cfg, alpha,
                       exact_seq, counters)
-        # JAX splits a key here whether or not it samples
-        new_un = _maybe_sample(cfg.do_sample, draws.normal((D, F)),
-                               mu_gf.index_select(0, ag),
-                               1.0 / lam_gf.index_select(0, ag), v_t,
-                               counters=counters, count_as="v",
-                               count_mask=unobs)
-        v[fs] = torch.where(unobs, new_un, v_t).T
+        v[fs] = v_block_unobserved(v_t, mu_gf, lam_gf, draws, plan, cfg,
+                                   counters).T
+
+
+def v_block_unobserved(v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
+                       cfg: FMConfig, counters) -> torch.Tensor:
+    """A factor block's v_t [D, F] with its unobserved columns drawn from
+    their prior (mcmc.py:254-261), from a [D, F] table of their own."""
+    D, F = v_t.shape
+    ag, unobs = plan.attr_group, plan.unobserved[:, None]
+    # JAX splits a key here whether or not it samples
+    new_un = _maybe_sample(cfg.do_sample, draws.normal((D, F)),
+                           mu_gf.index_select(0, ag),
+                           1.0 / lam_gf.index_select(0, ag), v_t,
+                           counters=counters, count_as="v", count_mask=unobs)
+    return torch.where(unobs, new_un, v_t)
 
 
 def v_factor_main_bins(e, q, v_f, mu_f, lam_f, alpha, plan: PlanData,
@@ -564,7 +577,7 @@ class MCMCLearner:
         if cfg.task != TASK_REGRESSION:
             m = probit_eval(scores, trow.target, trow.valid, nt, psum_all,
                             psum_but5, it)
-            resample_class_targets(state, self.train_row, cfg)
+            self._resample(state)
             return self._packed([m, state.alpha[None]], nans, state)
         p = torch.clamp(scores, lo, hi)
         psum_all += p
@@ -593,6 +606,10 @@ class MCMCLearner:
         return self._packed([torch.stack(
             [rmse_all, rmse_this, rmse_but5, mae, state.alpha])], nans, state,
             tail)
+
+    def _resample(self, state: MCMCState) -> None:
+        """The latent update of the train rows under classification."""
+        resample_class_targets(state, self.train_row, self.cfg)
 
     def _packed(self, head: list, nans: dict, state: MCMCState,
                 tail: list = ()):

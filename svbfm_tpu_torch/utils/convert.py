@@ -53,7 +53,8 @@ def ovb_state_from_jax(np_state: Any, device) -> OVBState:
 
 def mcmc_state_from_jax(np_state: Any, device, draws: Draws) -> MCMCState:
     """The Gibbs/ALS state; the JAX ``key`` is skipped and ``draws`` takes
-    its place."""
+    its place.  e keeps its length: the resident learner's padded train
+    rows, or the windowed learner's windows of rows (``n_pad``)."""
     return MCMCState(**_tensors(np_state, TENSOR_FIELDS, device), draws=draws)
 
 

@@ -90,7 +90,10 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra,kw,message", [
     (["-relation", "rel"], dict(task="p"), "item 15"),
-    (["-cache_size", "1000"], dict(method="mcmc"), "item 10"),
+    # -cache_size runs mcmc (item 10 done); its -bins stays refused
+    pytest.param(["-cache_size", "1000", "-bins", "fields"],
+                 dict(method="mcmc"), "-bins is not read",
+                 id="extra1-kw1-item 10"),
     (["-checkpoint", "ck"], {}, "item 12"),
     (["-rlog", "log.tsv"], {}, "item 12"),
     (["-feature_shards", "2"], {}, "item 13"),
@@ -150,10 +153,11 @@ def test_module_exit_codes(data):
     d, _, _ = data
     env = dict(os.environ, PYTHONPATH=REPO)
     run = [sys.executable, "-m", "svbfm_tpu_torch.cli"]
-    r = subprocess.run(run + _args(d, "mcmc", "-cache_size", "10", "-device",
-                                   "cpu"), cwd=d, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode != 0 and "item 10" in r.stderr
+    r = subprocess.run(run + _args(d, "mcmc", "-cache_size", "10",
+                                   "-num_eval_cases", "5", "-device", "cpu"),
+                       cwd=d, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0 and "not supported with -cache_size" in r.stderr
     r = subprocess.run(run + ["-help"], cwd=d, env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0 and "-device" in r.stdout
@@ -469,8 +473,11 @@ def test_cli_cache_size_vb_runs_windowed(data, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("method,extra,message", [
-    ("mcmc", ["-cache_size", "1000"], "windowed Gibbs/ALS"),
-    ("als", ["-cache_size", "1000"], "item 10"),
+    ("mcmc", ["-cache_size", "1000", "-do_sampling", "0", "-factor_jacobi",
+              "1"], "windowed Gibbs/ALS"),
+    pytest.param("als", ["-cache_size", "1000", "-num_eval_cases", "5"],
+                 "-num_eval_cases is not supported with -cache_size",
+                 id="als-extra1-item 10"),
     ("vb", ["-cache_size", "1000", "-num_eval_cases", "5"],
      "-num_eval_cases is not supported with -cache_size"),
     ("sgd", ["-cache_size", "1000"], "not read by -method sgd"),
@@ -478,8 +485,9 @@ def test_cli_cache_size_vb_runs_windowed(data, monkeypatch, capsys):
     ("vb", ["-cache_size", "1000", "-bins", "greedy"], "-bins is not read"),
 ])
 def test_cli_out_of_core_refusals(data, method, extra, message):
-    """The JAX CLI's refusals are kept, and -cache_size with mcmc/als
-    stays refused, naming windowed Gibbs/ALS and its ROADMAP item."""
+    """The JAX CLI's refusals are kept with -cache_size, for vb, mcmc
+    and als, and -factor_jacobi is refused there (the windowed Gibbs/ALS
+    draws exactly)."""
     d, _, _ = data
     with pytest.raises(SystemExit) as ei:
         cli.main(_args(d, method, *extra, "-device", "cpu"))

@@ -76,6 +76,10 @@ _, hbm = MCMCBSLearner(bcfg, *bs_args, device="cpu",
 _, hba = ALSBSLearner(dataclasses.replace(bcfg, factor_block=1), *bs_args,
                       device="cpu", write_files=False).run(num_iter=1,
                                                            verbose=False)
+from svbfm_tpu_torch.learners.mcmc_windowed import WindowedMCMCLearner
+_, hw = WindowedMCMCLearner(dataclasses.replace(cfg, factor_block=1), train,
+                            test, meta, device="cpu", num_windows=2,
+                            write_files=False).run(num_iter=1, verbose=False)
 loaded = [m for m, v in sys.modules.items() if v is not None and
           m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
 assert not loaded, loaded
@@ -86,6 +90,7 @@ print("sgd", len(hs), "sgda", len(hg), "bpr", len(hb), hs[-1]["rmse"],
       hg[-1]["rmse_val"], hb[-1]["accuracy"])
 print("exp_sgd", len(he), "bs", len(hbm), len(hba), he[-1]["rmse"],
       hbm[-1]["rmse"])
+print("windowed", len(hw))
 """
 
 
@@ -98,6 +103,7 @@ def test_port_runs_two_sweeps_without_jax():
     assert "mcmc 2 als 2" in r.stdout
     assert "sgd 1 sgda 1 bpr 1" in r.stdout
     assert "exp_sgd 2 bs 2 1" in r.stdout
+    assert "windowed 1" in r.stdout
 
 
 def test_no_jax_import_statement_in_port():

@@ -1,6 +1,7 @@
 """The out-of-core paths on the card: X13a and X13b (K3's and K5's
-window-accumulating modes) against their plain twins, and the streamed
-OVB and sgd_online and the windowed batch VB against the CPU.
+window-accumulating modes) and X14a and X14b (X8a's and X8c's) against
+their plain twins, and the streamed OVB and sgd_online and the windowed
+batch VB, Gibbs and ALS against the CPU.
 
 These need an NVIDIA GPU and nvcc (a CUDA kernel has no CPU mode); without
 a GPU they skip.  On the card:
@@ -48,6 +49,102 @@ def _cases(cuda):
             assert cases[name]
             for case in cases[name]:
                 yield name, case
+
+
+def _mcmc_cases(cuda):
+    import chip_smoke
+
+    for s in chip_smoke.ragged_mwin_tensors(cuda):
+        cases = chip_smoke.make_cases(s)
+        for name in ("mcmc_col_draw_window", "mcmc_w_window"):
+            assert cases[name]
+            for case in cases[name]:
+                yield name, case
+
+
+def test_mcmc_window_modes_match_twins(cuda):
+    """X14a at F = 3, 1 and 2 and X14b with and without noise, every window
+    in order and single launches, with a NaN e row, NaN group lambdas, an
+    Inf noise number, L = 1 buckets, an empty bucket, columns whose window
+    holds no entry and pad rows: the kernel gives the twin's outputs, the
+    accumulator and the counters included."""
+    import chip_smoke
+
+    before = {k: build.launch_counts[k]
+              for k in ("mcmc_col_draw_window", "mcmc_w_window")}
+    for name, (label, prepare, call, _) in _mcmc_cases(cuda):
+        ok, op = call("kernel", prepare()), call("plain", prepare())
+        torch.cuda.synchronize()
+        chip_smoke.compare(ok, op, f"{name} ({label})")
+    assert all(build.launch_counts[k] > v for k, v in before.items())
+
+
+def test_mcmc_window_modes_repeat_bit_for_bit(cuda):
+    for name, (label, prepare, call, _) in _mcmc_cases(cuda):
+        a, b = call("kernel", prepare()), call("kernel", prepare())
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x.nan_to_num(), y.nan_to_num()), (name, label)
+
+
+@pytest.mark.parametrize("F", [1, 4, 20])
+def test_one_window_equals_the_resident_mcmc_kernels(cuda, F):
+    """At one window (first and last) X14a gives X8a's exact bits (at F = 1
+    its lanes form, at F = 4 and 20 the block form) and X14b X8c's, with
+    and without noise."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+    from svbfm_tpu_torch.learners.base import BlockData
+
+    g = torch.Generator().manual_seed(F)
+    N, D, C, L = 300, 50, 20, 40
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    rows = torch.randint(0, N, (C, L), generator=g,
+                         dtype=torch.int32).to(cuda)
+    x, e, q = r(C, L), r(N), r(N, F)
+    cols = torch.arange(0, 2 * C, 2, dtype=torch.int32, device=cuda)
+    group = (cols % 3 == 0).to(torch.int32)
+    vt, mu, lam, z = r(D, F), r(2, F), r(2, F).abs() + 0.5, r(F, D)
+    alpha = torch.tensor(1.2, device=cuda)
+    for noise in (z, None):
+        outs = []
+        for windowed in (False, True):
+            v, ptab = vt.clone(), torch.cat([vt, torch.zeros_like(vt)], 1)
+            nans = torch.zeros(2, dtype=torch.int32, device=cuda)
+            if windowed:
+                km.mcmc_col_draw_window(
+                    rows, x, cols, group, e, q, ptab, v, mu, lam, alpha,
+                    noise, nans, torch.empty(C, km.col_outputs(F),
+                                             device=cuda), True, True)
+            else:
+                km.mcmc_col_draw(rows, x, cols, group, e, q, ptab, v, mu,
+                                 lam, alpha, noise, True, nans)
+            outs.append((v, ptab, nans))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    blk = BlockData(rows=rows, x=x, cols=cols, group=group,
+                    sx2=(x * x).sum(1), cnt=torch.zeros(C, device=cuda),
+                    col_count=torch.zeros(C, device=cuda))
+    w_mu, w_lambda = r(2), r(2).abs() + 0.5
+    for noise in (r(D), None):
+        outs = []
+        for windowed in (False, True):
+            w, dtab = vt[:, 0].clone(), torch.zeros(D, 2, device=cuda)
+            bad = torch.zeros(4, dtype=torch.int32, device=cuda)
+            if windowed:
+                kw.mcmc_w_bin_draw_window([blk], e, w, w_mu, w_lambda, alpha,
+                                          noise, dtab, bad,
+                                          torch.empty(D, device=cuda), True,
+                                          True)
+            else:
+                kw.mcmc_w_bin_draw([blk], e, w, w_mu, w_lambda, alpha, noise,
+                                   dtab, bad)
+            outs.append((w, dtab, bad))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
 
 
 def test_window_modes_match_twins(cuda):
@@ -178,6 +275,49 @@ def test_windowed_vb_gpu_matches_cpu(cuda, tmp_path):
                       "vb_patch_rows", "w_patch_rows"):
                 assert build.launch_counts[k] > 0, k
     _close(*hists, ("rmse", "train_rmse", "free_energy"))
+
+
+@pytest.mark.parametrize("kind,task", [("gibbs", 0), ("als", 0),
+                                       ("gibbs", 1)])
+def test_windowed_mcmc_gpu_matches_cpu(cuda, tmp_path, kind, task):
+    """Windowed Gibbs (a host-table draw source) and ALS, 3 windows, factor
+    block 2, 2 sweeps on the card and on the CPU, Gibbs also under -task c
+    (the ratings above 3.5 the positive class; X12a over the windows'
+    uniforms); X14a, X14b, X8d, X8b and the w patch launched."""
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners import mcmc_windowed as tmw
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    tr, te, D, meta, cfg, prefix = _data(tmp_path)
+    cfg = dataclasses.replace(cfg, factor_block=2, regw=0.1, regv=0.1)
+    keys = ("rmse", "rmse_this", "mae", "alpha")
+    if task:
+        for coo in (tr, te):
+            coo.target = np.where(coo.target > 3.5, 1.0, -1.0).astype(
+                np.float32)
+        save_coo_binary(prefix, tr)
+        cfg = dataclasses.replace(cfg, task=1, min_target=-1.0,
+                                  max_target=1.0)
+        keys = ("accuracy", "loglik", "alpha")
+    cls = tmw.WindowedALSLearner if kind == "als" else tmw.WindowedMCMCLearner
+    p0 = init_fm_params(torch.Generator().manual_seed(3), D, 4,
+                        init_stdev=0.1, init_w_normal=True)
+    hists = []
+    for dev in (cuda, "cpu"):
+        lr = cls(cfg, _reader(prefix), SparseDataset.from_coo(te, D), meta,
+                 device=dev, num_windows=3, write_files=False)
+        assert lr.num_windows == 3
+        build.reset_launch_counts()
+        hists.append(lr.run(lr.state_from_params(p0.w0, p0.w, p0.v,
+                                                 host_draws(3, dev)),
+                            num_iter=2, verbose=False)[1])
+        if dev == cuda:
+            torch.cuda.synchronize()
+            for k in ("mcmc_col_draw_window", "mcmc_w_window", "build_q",
+                      "mcmc_patch_rows", "w_patch_rows", "fm_scores") + (
+                          ("probit_latent",) if task else ()):
+                assert build.launch_counts[k] > 0, k
+    _close(*hists, keys)
 
 
 def test_streamed_ovb_gpu_matches_cpu(cuda, tmp_path):
