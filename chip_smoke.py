@@ -36,7 +36,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      windowed batch VB at F = 4 and on small ragged windows, X14a and X14b
      (X8a's and X8c's) over the 4 windows of the windowed Gibbs at F = 4
      and F = 1 and on small ragged windows (NaN sums, NaN lambdas, Inf
-     noise, L = 1, an empty bucket); time each, and
+     noise, L = 1, an empty bucket), X8a's exact mode and K3 at F = 4 on
+     every bucket of the sweep (the resident factor_block-4 shapes, which
+     take the windowed paths' lanes forms), their forms printed; time
+     each, and
      one PyTorch call where one computes the same function.  Then x9b-digest: sha256 of X9b's outputs on
      seeded inputs.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
@@ -585,6 +588,30 @@ def f1_note(b: dict) -> str:
                      ("lanes", "vec"))
 
 
+def draw_form_note(F: int, rows, mode: str = "exact") -> str:
+    """X8a's (X14a's) form for a bucket of ``rows`` [C, L]: lanes, or
+    block, and lanes a column or threads a block."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
+    C, L = rows.shape
+    return plan_note(km, "col_draw_form", (F, C, L, mode),
+                     ("form", "lanes", "cols"))
+
+
+def stats_note(F: int, rows, q, tq) -> str:
+    """K3's (X13a's) form for a bucket of ``rows`` [C, L] on the caches q
+    and tq: lanes or block, lanes a column (a slot in the block form),
+    warps a block, floats a load."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+
+    if not hasattr(kv, "col_stats_vec"):
+        return "form=?"
+    C, L = rows.shape
+    return plan_note(kv, "col_stats_form",
+                     (F, C, L, kv.col_stats_vec(F, q, tq)),
+                     ("form", "lanes", "cols", "warps", "vec"))
+
+
 def w_note(bins) -> str:
     """K5's form on each bucket of a bin: U lanes a column."""
     from svbfm_tpu_torch.kernels import w_sweep as kw
@@ -993,11 +1020,14 @@ def make_cases(s: dict):
     for r in s.get("bs", ()):  # X10a-X10d on one relation
         bs_cases(add, r)
 
-    if "win" in s:  # X13a, X13b: the windows of one bin, factor block 0
-        win_cases(add, s["win"], bucket_cost, bin_cost)
+    for W in s.get("win", ()):  # X13a (and X13b): the windows of one bin
+        win_cases(add, W, bucket_cost, bin_cost)
 
     for W in s.get("mwin", ()):  # X14a (and X14b): the windows of one bin
         mwin_cases(add, W, bucket_cost, bin_cost)
+
+    if "r4" in s:  # X8a and K3 at the resident factor_block-4 shapes
+        resident4_cases(add, s["r4"], bucket_cost)
 
     # X9a, X9b and (SGDA) X9c, per mode
     for key in ("sgd", "sgd_wide", "sgd_tasks"):
@@ -1024,11 +1054,12 @@ def make_cases(s: dict):
 
 
 def win_cases(add, W: dict, bucket_cost, bin_cost) -> None:
-    """X13a on each bucket of the bin ``W`` holds, and X13b on the bin:
-    every window in order (first writes the accumulator, the last applies
-    the update), checked against the twin's chain; then, timed, one launch
-    of the last window (the update) and of the first (the writes to the
-    accumulator alone) on the largest bucket, and of the bin."""
+    """X13a on each bucket of the bin ``W`` holds at F = W["F"] (and, where
+    ``W`` has its w tables, X13b on the bin): every window in order (first
+    writes the accumulator, the last applies the update), checked against
+    the twin's chain; then, timed, one launch of the last window (the
+    update) and of the first (the writes to the accumulator alone) on the
+    largest bucket, and of the bin."""
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.kernels import w_sweep as kw
 
@@ -1073,10 +1104,13 @@ def win_cases(add, W: dict, bucket_cost, bin_cost) -> None:
             a_prepare(C), x13a(b, range(nw)), None)
     big = W["buckets"][0]
     for w in dict.fromkeys((last, 0)):  # timed: the last window first
+        c = a_cost(big, w)
+        c["note"] = stats_note(F, big["rows"][w], W["q"][w], W["tq"][w])
         add("vb_col_stats_window",
             f"F={F} {shape(big, w)} window {w} of {nw}",
-            a_prepare(big["rows"][0].shape[0]), x13a(big, [w]),
-            a_cost(big, w))
+            a_prepare(big["rows"][0].shape[0]), x13a(big, [w]), c)
+    if "w_bins" not in W:
+        return
 
     def b_prepare():
         return (W["mu_w"].clone(), W["sig_w"].clone(),
@@ -1103,28 +1137,106 @@ def win_cases(add, W: dict, bucket_cost, bin_cost) -> None:
                 1 if w < last else 9), 2))
 
 
-def win_tensors(learner, state, tag: str, timed: bool = True) -> dict:
+def resident4_cases(add, R: dict, bucket_cost) -> None:
+    """X8a's exact mode with a noise table and K3 without the w rider at
+    F = R["F"] on every bucket of the ML-1M sweep: the shapes the resident
+    learners at factor_block 4 give them (the windowed phases' reference
+    runs), where X8a takes its lanes form and K3 its lanes form on the
+    buckets of L <= 128; each timed, its form printed."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+
+    F = R["F"]
+    dev = R["ptab"].device
+
+    def nans():
+        return torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def x8a(b):
+        def call(variant, inp):
+            fn = (km.mcmc_col_draw if variant == "kernel"
+                  else km.mcmc_col_draw_plain)
+            ptab, vt, n = inp
+            fn(b["rows"], b["x"], b["cols"], b["group"], R["e"], R["q"],
+               ptab, vt, R["mu"], R["lam"], R["alpha"], R["z"], True, n)
+            return [ptab, vt, n]
+        return call
+
+    def k3(b):
+        def call(variant, inp):
+            fn = (kv.vb_col_stats_update if variant == "kernel"
+                  else kv.vb_col_stats_update_plain)
+            mu_t, sig_t, ptab, n = inp
+            fn(b["rows"], b["x"], b["cols"], b["group"], b["sx2"],
+               R["vb_e"], R["vq"], R["vtq"], ptab, mu_t, sig_t, R["sv"],
+               R["vb_alpha"], None, n)
+            return [mu_t, sig_t, ptab, n]
+        return call
+
+    for b in R["buckets"]:
+        C, L = b["rows"].shape
+        c = bucket_cost(b, 1 + F, 4 * F, 7 * F + F * (F - 1),
+                        plain_graph=False)  # the twin's draw syncs
+        c["note"] = draw_form_note(F, b["rows"])
+        add("mcmc_col_draw", f"F={F} exact+z [{C},{L}]",
+            lambda: (R["ptab"].clone(), R["vt"].clone(), nans()), x8a(b), c)
+        c = bucket_cost(b, 1 + 2 * F, 8 * F, 12 * F + 2)
+        c["note"] = stats_note(F, b["rows"], R["vq"], R["vtq"])
+        add("vb_col_stats_update", f"F={F} [{C},{L}]",
+            lambda: (R["mu_t"].clone(), R["sig_t"].clone(),
+                     R["vptab"].clone(), nans()), k3(b), c)
+
+
+def resident4_tensors(gibbs, gstate, vb, vstate, F: int = 4) -> dict:
+    """``resident4_cases``' inputs: factors 0..F-1 of a Gibbs state one
+    sweep in (its residual, priors, a noise table) for X8a and of a VB init
+    for K3 (its caches built from them, its prior precisions), on every
+    bucket of the learners' plan, the largest first."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+
+    D = gibbs.cfg.num_attributes
+    dev = gstate.e.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + F)
+    vt = gstate.v[:F].T.contiguous()
+    ptab = torch.cat([vt, torch.zeros_like(vt)], 1)
+    mu_t = vstate.mu_v[:F].T.contiguous()
+    sig_t = vstate.sigma_v_dash[:F].T.contiguous()
+    vptab = torch.zeros(D, 5 * F, device=dev)
+    vptab[:, :F], vptab[:, F:2 * F] = mu_t, sig_t
+    vq, vtq, _ = kv.vb_build_qt_plain(vptab, F, vb.train_row.ids,
+                                      vb.train_row.vals)
+    row = gibbs.train_row
+    every = sorted((_bucket_dict(b) for bb in gibbs.plan_data.blocks
+                    for b in bb), key=lambda d: -d["rows"].numel())
+    return dict(tag="fb4", D=D, r4=dict(
+        F=F, buckets=every, e=gstate.e, vt=vt, ptab=ptab,
+        q=kv.build_q_plain(ptab, F, row.ids, row.vals),
+        mu=gstate.v_mu[:, :F].contiguous(),
+        lam=gstate.v_lambda[:, :F].contiguous(), alpha=gstate.alpha,
+        z=torch.randn(F, D, generator=gen, device=dev), vb_e=vstate.e,
+        vq=vq, vtq=vtq, vptab=vptab, mu_t=mu_t, sig_t=sig_t,
+        sv=vstate.sigma_v[:, :F].contiguous(), vb_alpha=vstate.alpha))
+
+
+def win_tensors(learner, state, tag: str, timed: bool = True,
+                widths=(None,)) -> dict:
     """X13a's and X13b's inputs at the windowed path's shapes: every
     window of ``learner`` (a WindowedVBLearner on the card) from
-    ``state``, factor block 0, the bin of the most columns (its buckets
-    the largest first), and the caches e, q, tq of each window."""
+    ``state``, the bin of the most columns (its buckets the largest
+    first), and the caches e, q, tq of each window for the first block of
+    each width in ``widths`` (None: the learner's F); X13b's tables with
+    the first."""
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.learners.vb_windowed import WindowBlock
 
-    F, Wl, nw = learner.F, learner.wlen, learner.num_windows
+    Wl, nw = learner.wlen, learner.num_windows
     D = learner.cfg.num_attributes
     dev = state.e.device
-    mu_t = state.mu_v[:F].T.contiguous()
-    sig_t = state.sigma_v_dash[:F].T.contiguous()
-    ptab = torch.zeros(D, 5 * F, device=dev)
-    ptab[:, :F], ptab[:, F:2 * F] = mu_t, sig_t
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     plan = learner.plan
-    caches = [kv.vb_build_qt_plain(ptab, F, t(plan.ids[w]), t(plan.vals[w]))
-              for w in range(nw)]
     b = max(range(len(plan.bins)),
             key=lambda i: sum(len(bu.cols) for bu in plan.bins[i]))
     buckets = sorted(
@@ -1134,15 +1246,28 @@ def win_tensors(learner, state, tag: str, timed: bool = True) -> dict:
          for bu, (cols, group, sx2) in zip(plan.bins[b],
                                            learner._bins_dev[b])),
         key=lambda d: -d["rows"][0].numel())
-    w_bins = [[WindowBlock(d["rows"][w], d["x"][w], d["cols"], d["group"],
-                           d["sx2"]) for d in buckets] for w in range(nw)]
-    return dict(tag=tag, timed=timed, D=D, win=dict(
-        F=F, e=[state.e[w * Wl:(w + 1) * Wl] for w in range(nw)],
-        q=[c[0] for c in caches], tq=[c[1] for c in caches], ptab=ptab,
-        mu_t=mu_t, sig_t=sig_t, sv=state.sigma_v[:, :F].contiguous(),
-        alpha=state.alpha, buckets=buckets, w_bins=w_bins,
-        mu_w=state.mu_w.clone(), sig_w=state.sigma_w_dash.clone(),
-        sigma_w=state.sigma_w))
+    e = [state.e[w * Wl:(w + 1) * Wl] for w in range(nw)]
+    out = []
+    for F in widths:
+        F = learner.F if F is None else F
+        mu_t = state.mu_v[:F].T.contiguous()
+        sig_t = state.sigma_v_dash[:F].T.contiguous()
+        ptab = torch.zeros(D, 5 * F, device=dev)
+        ptab[:, :F], ptab[:, F:2 * F] = mu_t, sig_t
+        caches = [kv.vb_build_qt_plain(ptab, F, t(plan.ids[w]),
+                                       t(plan.vals[w])) for w in range(nw)]
+        W = dict(F=F, e=e, q=[c[0] for c in caches],
+                 tq=[c[1] for c in caches], ptab=ptab, mu_t=mu_t,
+                 sig_t=sig_t, sv=state.sigma_v[:, :F].contiguous(),
+                 alpha=state.alpha, buckets=buckets)
+        if not out:
+            W.update(w_bins=[[WindowBlock(d["rows"][w], d["x"][w],
+                                          d["cols"], d["group"], d["sx2"])
+                              for d in buckets] for w in range(nw)],
+                     mu_w=state.mu_w.clone(),
+                     sig_w=state.sigma_w_dash.clone(), sigma_w=state.sigma_w)
+        out.append(W)
+    return dict(tag=tag, timed=timed, D=D, win=out)
 
 
 def ragged_win_tensors(device) -> list:
@@ -1150,9 +1275,10 @@ def ragged_win_tensors(device) -> list:
     sorted by user, so that most user columns have no entries in most
     windows (their window sums are 0; the case fails if none does), the
     last window padded (rows at wlen - 1 with x = 0), at F = 3 (single
-    floats) and F = 2 (pairs): e is NaN at one row of window 1, group 1's
-    prior precisions (sigma_v, sigma_w) are NaN, so candidates are
-    counted and reverted."""
+    floats), F = 2 (pairs) and F = 4 (16-byte loads): e is NaN at one row
+    of window 1, group 1's prior precisions (sigma_v, sigma_w) are NaN, so
+    candidates are counted and reverted.  X13a also runs on an L = 1
+    bucket (each window's first slot of the largest bucket)."""
     from svbfm_tpu_torch.data.dataset import SparseDataset
     from svbfm_tpu_torch.data.meta import DataMetaInfo
     from svbfm_tpu_torch.data.synth import make_movielens_like
@@ -1169,7 +1295,7 @@ def ragged_win_tensors(device) -> list:
     coo.target = coo.target[by_user]
     D = coo.num_features
     out = []
-    for K, fb in ((6, 3), (4, 2)):
+    for K, fb in ((6, 3), (4, 2), (8, 4)):
         meta = DataMetaInfo.from_field_offsets(D, [0, 40])
         cfg = FMConfig(num_attributes=D, num_factor=K, factor_block=fb,
                        num_groups=2, min_target=1.0, max_target=5.0, seed=3)
@@ -1182,13 +1308,17 @@ def ragged_win_tensors(device) -> list:
         st.sigma_v[1] = float("nan")
         st.sigma_w[1] = float("nan")
         s = win_tensors(lr, st, f"ragged-win F={fb}", timed=False)
-        W = s["win"]
+        W = s["win"][0]
         if len(W["e"]) != 3:
             raise AssertionError("ragged-win: not three windows")
         if not any(bool(((b["x"][w] == 0).all(1)).any())
                    for b in W["buckets"] for w in range(3)):
             raise AssertionError("ragged-win: no column with an empty "
                                  "window")
+        big = W["buckets"][0]
+        W["buckets"].append(dict(
+            big, rows=[r[:, :1].contiguous() for r in big["rows"]],
+            x=[x[:, :1].contiguous() for x in big["x"]]))
         out.append(s)
     return out
 
@@ -1235,8 +1365,8 @@ def mwin_cases(add, W: dict, bucket_cost, bin_cost) -> None:
         c = bucket_cost(dict(rows=b["rows"][w], x=b["x"][w]), 1 + F,
                         per_col, 7 * F + F * (F - 1),
                         plain_graph=w < last)  # the twin's draw syncs
-        if F == 1:
-            c["note"] = f1_note(dict(rows=b["rows"][w], x=b["x"][w]))
+        c["note"] = (f1_note(dict(rows=b["rows"][w], x=b["x"][w]))
+                     if F == 1 else draw_form_note(F, b["rows"][w]))
         return c
 
     def shape(b, w=0):
@@ -1339,7 +1469,8 @@ def ragged_mwin_tensors(device) -> list:
     """X14a and X14b on three windows of ragged_win_tensors' small problem
     (rows sorted by user: most user columns have no entries in most
     windows, the last window padded), at F = 3 (single floats in the
-    block form) and F = 1, and at K = 4 with F = 2 (pairs): e is NaN at
+    lanes form) and F = 1, at K = 4 with F = 2 (pairs) and at K = 8 with
+    F = 4 (16-byte loads of q): e is NaN at
     one row of window 1 (its columns' sums turn NaN, their draws are
     counted and reverted), group 1's lambdas (v and w) are NaN (its draws
     come out 0, uncounted), a noise number of each table is Inf (counted
@@ -1363,7 +1494,8 @@ def ragged_mwin_tensors(device) -> list:
     coo.target = coo.target[by_user]
     D = coo.num_features
     out = []
-    for K, fb, widths in ((6, 3, (None, 1)), (4, 2, (None,))):
+    for K, fb, widths in ((6, 3, (None, 1)), (4, 2, (None,)),
+                          (8, 4, (None,))):
         meta = DataMetaInfo.from_field_offsets(D, [0, 40])
         cfg = FMConfig(num_attributes=D, num_factor=K, factor_block=fb,
                        num_groups=2, min_target=1.0, max_target=5.0, seed=3)
@@ -3943,7 +4075,7 @@ def memory_phases(train_prefix: str, test_prefix: str) -> int:
                                       "free_energy", "alpha"), True)
     w_dev_us = profile_run(lambda: win.run(wst, num_iter=1, verbose=False),
                            1, "sweep", "vb-windowed-profile",
-                           focus=("col_stats_kernel", "w_bin_win_kernel",
+                           focus=("col_stats", "w_bin_win_kernel",
                                   "Memcpy HtoD"))
     del win, wst
     # resident exact VB at the same factor_block, from the same init
@@ -4246,6 +4378,7 @@ def main() -> int:
         check_cases(fast_tensors(learner, vb0), timed=True),
         check_cases(ovb_tensors(ovb, ovb0), timed=True),
         check_cases(mcmc_tensors(gibbs, mc1), timed=True),
+        check_cases(resident4_tensors(gibbs, mc1, learner, vb0), timed=True),
         check_cases(dict(tag="probe", gathers=gather_sets(dev)), timed=True),
         check_cases(sgd_tensors(sgd, exp_sgd, sgda, bpr, dev), timed=True),
         check_cases(exp_sgd_tensors(exp_full, exp_full.init_state()),

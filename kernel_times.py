@@ -1,7 +1,7 @@
 """Time one family of the port's kernels on the card and profile the paths
 that launch them, for one checkout.
 
-    python3 kernel_times.py {bs,forward,mcmc,sass,sgd,stream,w} [--tree DIR] [--label NAME]
+    python3 kernel_times.py {bs,forward,mcmc,sass,sgd,stream,w,win} [--tree DIR] [--label NAME]
 
 Runs the kernels and learners of the checkout at ``--tree`` (default: the
 one holding this script) on the inputs ``chip_smoke.py`` (of this script's
@@ -59,6 +59,17 @@ graph replay of 20 calls, then the family's profiles:
   exp_sgd and one OVB epoch, and ``profile_run`` of each, twice, with
   K5's device time and share.
 
+- ``win``: the windowed paths' column kernels on the ML-1M recipe at
+  factor_block 4, 4 windows (``chip_smoke.WIN_CACHE_BYTES``): X13a (K3's
+  window mode) at F = 4 and F = 1 and X14a (X8a's) at F = 4 and F = 1,
+  each on the user bin's largest window bucket, one launch of the last
+  window and one of the first; the resident shapes their forms share: X8a's
+  exact mode and K3 at F = 4 on every bucket of the sweep
+  (``chip_smoke.resident4_cases``) and K3 in exact mode (F = 1) on
+  ``[14,128]``; each with its form (``form=?`` for a tree without the
+  mirrors); then ``profile_run`` of one windowed VB sweep and one windowed
+  Gibbs sweep, twice each, with the column kernels' device time and share
+  (``col_stats``: X13a; ``col_draw``: X14a).
 - ``sass``: no timing and no card: every CUDA library of ``--tree`` and
   of this checkout compiled to a cubin (the build's nvcc flags) and
   disassembled by ``cuobjdump -sass``; for each kernel of ``--tree``,
@@ -100,6 +111,7 @@ FAMILIES = {
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
     "w": (("w_sweep", "gather_probe"), ("w_", "gather")),
     "stream": ((), ()),
+    "win": (("mcmc_sweep", "vb_sweep"), ("col_draw", "col_stats")),
 }
 # K5's kernel, by its name in this tree and in one that launches it once a
 # bucket
@@ -156,7 +168,7 @@ def main() -> int:
     line("launch floor (zero_ of one element)", one.zero_)
     family = {"bs": bs_family, "forward": forward_family,
               "mcmc": mcmc_family, "sgd": sgd_family, "w": w_family,
-              "stream": stream_family}
+              "stream": stream_family, "win": win_family}
     family[a.family](cs, build, dev, tag, line)
     return 0
 
@@ -524,6 +536,63 @@ def w_family(cs, build, dev, tag, line) -> None:
         for _ in range(2):
             cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
                            1, unit, f"{tag} {path}-profile", focus=W_FOCUS)
+
+
+def win_family(cs, build, dev, tag, line) -> None:
+    import torch
+
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.mcmc import MCMCLearner
+    from svbfm_tpu_torch.learners.mcmc_windowed import WindowedMCMCLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+    from svbfm_tpu_torch.learners.vb_windowed import WindowedVBLearner
+
+    tr, te, train, test, meta = cs.ml_data(cs.NUM_TRAIN)
+    base = dict(num_attributes=tr.num_features, num_factor=cs.K,
+                min_target=float(tr.target.min()),
+                max_target=float(tr.target.max()),
+                num_groups=meta.num_attr_groups, seed=cs.SEED)
+    kw_ = dict(device=dev, write_files=False)
+    wcfg = FMConfig(factor_block=4, **base)
+    win = WindowedVBLearner(wcfg, train, test, meta,
+                            cache_bytes=cs.WIN_CACHE_BYTES, **kw_)
+    win0 = win.state_from_params(init_vb_params(
+        torch.Generator().manual_seed(cs.SEED), wcfg, dev))
+    mwin = WindowedMCMCLearner(wcfg, train, test, meta,
+                               cache_bytes=cs.WIN_CACHE_BYTES, **kw_)
+    mwin1, _ = mwin.step(mwin.init_state())
+    cfg = FMConfig(factor_block=0, **base)
+    vb = VBLearner(cfg, train, test, meta, **kw_)
+    vb0 = vb.state_from_params(init_vb_params(
+        torch.Generator().manual_seed(cs.SEED), cfg, dev))
+    gibbs = MCMCLearner(cfg, train, test, meta, **kw_)
+    sets = [(cs.win_tensors(win, win0, "vb-windowed", widths=(None, 1)),
+             ("vb_col_stats_window",), ""),
+            (cs.mwin_tensors(mwin, mwin1, "mcmc-windowed"),
+             ("mcmc_col_draw_window",), ""),
+            (cs.resident4_tensors(gibbs, gibbs.step(gibbs.init_state())[0],
+                                  vb, vb0),
+             ("mcmc_col_draw", "vb_col_stats_update"), ""),
+            (cs.fast_tensors(vb, vb0), ("vb_col_stats_update",),
+             "exact F=1 [14,128]")]
+    for s, names, only in sets:
+        cases = cs.make_cases(s)
+        for name in names:
+            for label, prepare, call, c in cases[name]:
+                if c is None or only not in label:
+                    continue
+                inp = prepare()
+                line(f"{name} {label} {c['note']}".rstrip(),
+                     lambda: call("kernel", inp))
+    del sets, cases
+
+    for path, lr, focus in (("vb-windowed", win, "col_stats"),
+                            ("mcmc-windowed", mwin, "col_draw")):
+        state, _ = lr.run(num_iter=1, verbose=False)
+        for _ in range(2):
+            cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
+                           1, "sweep", f"{tag} {path}-profile",
+                           focus=(focus, "Memcpy HtoD"))
 
 
 def stream_family(cs, build, dev, tag, line) -> None:

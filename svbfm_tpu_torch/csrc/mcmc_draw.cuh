@@ -125,7 +125,8 @@ __device__ __forceinline__ void pair_step(int& f, int& g, int n, int F) {
 
 // The exact sequential draw of one column's F <= kW kSlots factors by a
 // group of kW lanes of a warp (kW = 32: one warp, X8a; kW = 8: four
-// columns a warp, X10b's one-hot buckets), every lane of the warp calling
+// columns a warp, X10b's one-hot buckets; kW = 4: X8a's lanes form at
+// F <= 4), every lane of the warp calling
 // it: acc = (s0 | sh2 | M packed), vc [F] the pre-bin values and prior
 // [3, F] = (mu, lambda, z) of the group's column, complete and visible to
 // the warp.  Lane f mod kW of the group draws factor f and, where `write`,
@@ -141,7 +142,8 @@ __device__ __forceinline__ void group_sequential_draws(
     float alpha, bool has_z, bool write, float* v_out, float* dv_out,
     int& nan_c, int& inf_c) {
   static_assert(kSlots >= 1 && kSlots <= kDrawSlots, "1 to 10 slots");
-  static_assert(kW == 8 || kW == 16 || kW == 32, "a group within a warp");
+  static_assert(kW == 4 || kW == 8 || kW == 16 || kW == 32,
+                "a group within a warp");
   const int gl = threadIdx.x & (kW - 1);
   float corr[kSlots], she[kSlots], sh2[kSlots], v[kSlots], mu[kSlots],
       lam[kSlots], zv[kSlots], s2[kSlots], sq[kSlots];

@@ -38,14 +38,16 @@
 // K3/K4; the cross-factor matrix M adds F(F-1)/2 FMAs per entry (190 at
 // F = 20), done from shared memory in float32, never TF32.
 //
-// X8a, F >= 2: one block per column.  The block stages a tile of kTile
-// entries of h in shared memory as [F, kTile + 1] (the +1 keeps threads on
-// different factors in different banks), then each thread owns some of the
-// 2F + F(F-1)/2 sums (s0, sh2, the strict upper triangle of M) and adds the
-// tile into them; the sums live in shared memory, owner-written, and a
-// thread finds the pair (f, g) of its sum in closed form, so the block needs
-// about (F^2/2 + 39 F) floats (the learner takes F <= 303 in the exact
-// mode, learners/mcmc.py:factor_width).  After the last tile's barrier,
+// X8a, F >= 2 (the exact mode from F = 5; at 2 <= F <= 4 it takes the
+// lanes form, col_lanes_body): one block per column.  The block stages a
+// tile of kTile entries of h in shared memory as [F, kTile + 1] (the +1
+// keeps threads on different factors in different banks), then each
+// thread owns some of the 2F + F(F-1)/2 sums (s0, sh2, the strict upper
+// triangle of M) and adds the tile into them; the sums live in shared
+// memory, owner-written, and a thread finds the pair (f, g) of its sum in
+// closed form, so the block needs about (F^2/2 + 39 F) floats (the
+// learner takes F <= 303 in the exact mode, learners/mcmc.py:
+// factor_width).  After the last tile's barrier,
 // warp 0 runs the F-step draw (svbfm::warp_sequential_draws,
 // mcmc_draw.cuh, which X10b shares): the corrections in registers (kSlots
 // factors a lane: 1 up to F = 32, 2 up to 64, 4 up to 128, 10 beyond),
@@ -82,8 +84,10 @@
 // F = 1 takes col_draw_f1_kernel's form (lanes over a column's slots, at
 // the card's gather rate, as the resident F = 1 sweep) with the column's
 // head lane adding its (s0, sh2) into gacc [C, 2]; the block form at F = 1
-// would idle most of its 128 threads on one factor.  The mode is a
-// template parameter of each body: the resident builds are unchanged.
+// would idle most of its 128 threads on one factor, and 2 <= F <= 4 the
+// lanes form's (col_lanes_body), which the resident exact mode takes at
+// those widths too, so one window gives the resident draws' bits.  The
+// mode is a template parameter of each body.
 // X8b: bound by bytes, the [N, F] cache read and written once and each
 // row's ids, x and e (186 MB at ML-1M, F = 20: 55 us at 3.35 TB/s); its
 // ptab rows (2F floats an attribute) stay in L2.  A warp a row, lanes
@@ -494,6 +498,199 @@ __global__ void __launch_bounds__(kF1Threads) col_draw_f1_win_kernel(
                               gacc, win);
 }
 
+// X8a's exact mode at 2 <= F <= kLanesMaxF, resident and in X14a's window
+// mode (kWin): U lanes a column of a [C, L] bucket (col_lanes: the next
+// power of two >= L / 8, or >= L / 4 where C < 2048, 4 to 32), up to
+// kLanesThreads / U columns a block (fewer where C is small, so that the
+// columns spread over the SMs, but never less than two warps:
+// svbfm::lanes_block_cols).
+// Lane li takes slots li, li + U, ... (consecutive lanes on consecutive
+// slots, so the group's row and x loads are contiguous), kLanesRound a
+// round: their ids and x, then every e and q-row gather (one QW-float load
+// a row piece: 16 bytes at F = 4), then the FMAs.  All 2F + F(F-1)/2 sums
+// (s0 | sh2 | M packed, 14 at F = 4) stay in registers across the lane's
+// slots and close by a butterfly over the column's lanes, a fixed order in
+// which every lane gets the same totals: no shared-memory tile and no
+// barrier.  The block form's 128 threads on one column left 114 of them
+// idle in its serial sums at F = 4, two barriers a 32-slot tile.
+// Padding: svbfm::PadRow, as at F = 1.  kWin: the window's sums go to
+// gacc [C, nout] in window order, each sum's owner lane (sum k, lane
+// k mod U) writing it (the first window), or adding it to what is there;
+// only the last window's launch draws.  The draw: the owner lanes put the
+// sums, v and the priors in the column's slab of shared memory, and
+// svbfm::group_sequential_draws runs on it with groups of kLanesDraw lanes
+// (a factor a lane); the column's first group writes and counts, any
+// other group of its lanes repeats the same steps and drops them.
+constexpr int kLanesThreads = 256;
+constexpr int kLanesMaxF = 4;
+constexpr int kLanesRound = 4;  // slots a lane gathers before its FMAs
+constexpr int kLanesDraw = 4;   // lanes of the draw's group, >= kLanesMaxF
+
+template <int kF, int QW, bool kWin>
+__device__ __forceinline__ void col_lanes_body(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    int U, const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t D, int* __restrict__ nans, float* __restrict__ gacc, int win) {
+  constexpr int kOut = 2 * kF + kF * (kF - 1) / 2;  // s0 | sh2 | M packed
+  constexpr int kPri = 3 * kF;                      // mu | lambda | z
+  __shared__ float slab[kLanesThreads / kLanesDraw][kOut + kF + kPri];
+  const int tid = threadIdx.x;
+  const int cb = tid / U;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * (blockDim.x / U) + cb;
+  const int li = tid & (U - 1);
+  const bool live = c < C;
+  const bool draws = !kWin || (win & 2);
+  // prev: the lane's entries of the window accumulator, loaded ahead of
+  // the gathers
+  float s[kOut], prev[kOut], vc[kF], pri[kPri];
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) s[k] = prev[k] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPri; ++i) pri[i] = 0.f;
+  int64_t col = 0;
+  float alpha = 0.f;
+  float* arow = kWin ? gacc + c * kOut : nullptr;
+  if (live) {
+    col = cols[c];
+    if (kWin && !(win & 1)) {
+#pragma unroll
+      for (int k = 0; k < kOut; ++k)
+        if ((k & (U - 1)) == li) prev[k] = arow[k];
+    }
+#pragma unroll
+    for (int f = 0; f < kF; ++f) vc[f] = ptab[col * (2 * kF) + f];
+    if (draws) {  // the draw's operands, each loaded by its owner lane
+      alpha = *alpha_p;
+      const int g_c = group[c];
+#pragma unroll
+      for (int i = 0; i < kPri; ++i) {
+        if ((i & (U - 1)) != li) continue;
+        const int f = i % kF;
+        pri[i] = i < kF       ? mu[g_c * kF + f]
+                 : i < 2 * kF ? lam[g_c * kF + f]
+                 : z != nullptr ? z[f * D + col]
+                                : 0.f;
+      }
+    }
+    const int* crow = rows + c * L;
+    const float* cx = x + c * L;
+    const svbfm::PadRow pr(crow, cx, L);
+    for (int l0 = li; l0 < L; l0 += U * kLanesRound) {
+      int r[kLanesRound];
+      float xv[kLanesRound];
+#pragma unroll
+      for (int i = 0; i < kLanesRound; ++i) {
+        const int l = l0 + i * U;
+        r[i] = l < L ? crow[l] : 0;
+        xv[i] = l < L ? cx[l] : 0.f;
+      }
+      bool keep[kLanesRound];
+      float ev[kLanesRound], qv[kLanesRound][kF];
+#pragma unroll
+      for (int i = 0; i < kLanesRound; ++i) {
+        const int l = l0 + i * U;
+        keep[i] = l < L && pr.gathers(l, r[i], xv[i]);
+        ev[i] = keep[i] ? e[r[i]] : 0.f;
+        if (keep[i]) {
+          load_vec<kF, QW>(q + static_cast<int64_t>(r[i]) * kF, qv[i]);
+        } else {
+#pragma unroll
+          for (int f = 0; f < kF; ++f) qv[i][f] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kLanesRound; ++i) {
+        if (!keep[i]) continue;
+        const float xk = xv[i];
+        float h[kF];
+#pragma unroll
+        for (int f = 0; f < kF; ++f) h[f] = xk * (qv[i][f] - xk * vc[f]);
+        int p = 2 * kF;
+#pragma unroll
+        for (int f = 0; f < kF; ++f) {
+          s[f] += h[f] * ev[i];
+          s[kF + f] += h[f] * h[f];
+#pragma unroll
+          for (int g = f + 1; g < kF; ++g) s[p++] += h[f] * h[g];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < kF; ++f) vc[f] = 0.f;
+  }
+  for (int o = U >> 1; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kOut; ++k)
+      s[k] += __shfl_xor_sync(svbfm::kFullMask, s[k], o);
+  }
+  float* sl = slab[cb];
+  if (kWin) {  // X14a: the window's sums into gacc, in window order
+#pragma unroll
+    for (int k = 0; k < kOut; ++k) {
+      if ((k & (U - 1)) != li) continue;
+      const float tot = (win & 1) || !live ? s[k] : prev[k] + s[k];
+      if (win & 2) {
+        sl[k] = tot;
+      } else if (live) {
+        arow[k] = tot;
+      }
+    }
+    if (!(win & 2)) return;  // the whole warp leaves: win is the launch's
+  } else {
+#pragma unroll
+    for (int k = 0; k < kOut; ++k)
+      if ((k & (U - 1)) == li) sl[k] = s[k];
+  }
+#pragma unroll
+  for (int f = 0; f < kF; ++f)
+    if ((f & (U - 1)) == li) sl[kOut + f] = vc[f];
+#pragma unroll
+  for (int i = 0; i < kPri; ++i)
+    if ((i & (U - 1)) == li) sl[kOut + kF + i] = pri[i];
+  __syncwarp();
+  int nan_c = 0, inf_c = 0;
+  const bool write = live && li < kLanesDraw;
+  svbfm::group_sequential_draws<kLanesDraw, 1>(
+      sl, kF, sl + kOut, sl + kOut + kF, alpha, z != nullptr, write,
+      v_t + col * kF, ptab + col * (2 * kF) + kF, nan_c, inf_c);
+  if (!write) return;
+  if (nan_c) atomicAdd(&nans[0], nan_c);
+  if (inf_c) atomicAdd(&nans[1], inf_c);
+}
+
+template <int kF, int QW>
+__global__ void __launch_bounds__(kLanesThreads) col_draw_lanes_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    int U, const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t D, int* __restrict__ nans) {
+  col_lanes_body<kF, QW, false>(rows, x, C, L, U, cols, group, e, q, ptab,
+                                v_t, mu, lam, alpha_p, z, D, nans, nullptr,
+                                0);
+}
+
+// X14a at 2 <= F <= kLanesMaxF: the lanes form with the window accumulator.
+template <int kF, int QW>
+__global__ void __launch_bounds__(kLanesThreads) col_draw_win_lanes_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    int U, const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ e, const float* __restrict__ q,
+    float* __restrict__ ptab, float* __restrict__ v_t,
+    const float* __restrict__ mu, const float* __restrict__ lam,
+    const float* __restrict__ alpha_p, const float* __restrict__ z,
+    int64_t D, int* __restrict__ nans, float* __restrict__ gacc, int win) {
+  col_lanes_body<kF, QW, true>(rows, x, C, L, U, cols, group, e, q, ptab,
+                               v_t, mu, lam, alpha_p, z, D, nans, gacc, win);
+}
+
 // X8b at F = 1: a thread a row.  Every position reads the pre-bin q; dq
 // is applied after the last.
 __global__ void row_patch_f1_kernel(const float* __restrict__ ptab,
@@ -687,6 +884,66 @@ int f1_vec(const int* rows, const float* x, int L, int G) {
   return 1;
 }
 
+// X8a's lanes a column in its lanes form (mirrored by kernels/
+// mcmc_sweep.py:col_draw_lanes): the next power of two >= L / 8 (at most
+// 8 slots a lane; 4 in a bucket of fewer than 2,048 columns, which would
+// leave the SMs few warps), at least the draw's kLanesDraw, at most a warp
+// (more slots a lane past L = 256 or 128).
+int col_lanes(int C, int L) {
+  const int per = C < 2048 ? 4 : 8;
+  int U = kLanesDraw;
+  while (U < 32 && U * per < L) U <<= 1;
+  return U;
+}
+
+// X8a's exact mode (kWin: X14a) at 2 <= F <= kLanesMaxF in the lanes form,
+// each q row read in loads of QW floats, the widest of 4, 2, 1 that
+// divides F and q's alignment allows.
+template <bool kWin>
+int launch_col_lanes(const int* rows, const float* x, int C, int L,
+                     const int* cols, const int* group, const float* e,
+                     const float* q, int F, float* ptab, float* v_t,
+                     const float* mu, const float* lam, const float* alpha,
+                     const float* z, int64_t D, int* nans,
+                     cudaStream_t stream, float* gacc = nullptr,
+                     int win = 0) {
+  const int U = col_lanes(C, L);
+  const int cpb = svbfm::lanes_block_cols(C, U, kLanesThreads);
+  const int threads = cpb * U;
+  const unsigned blocks = static_cast<unsigned>((C + cpb - 1) / cpb);
+  auto go = [&](auto f, auto w) {
+    constexpr int kF = decltype(f)::value;
+    constexpr int kQW = decltype(w)::value;
+    if constexpr (kWin) {
+      col_draw_win_lanes_kernel<kF, kQW><<<blocks, threads, 0, stream>>>(
+          rows, x, C, L, U, cols, group, e, q, ptab, v_t, mu, lam, alpha, z,
+          D, nans, gacc, win);
+    } else {
+      col_draw_lanes_kernel<kF, kQW><<<blocks, threads, 0, stream>>>(
+          rows, x, C, L, U, cols, group, e, q, ptab, v_t, mu, lam, alpha, z,
+          D, nans);
+    }
+  };
+  using I1 = std::integral_constant<int, 1>;
+  using I2 = std::integral_constant<int, 2>;
+  using I4 = std::integral_constant<int, 4>;
+  const int qw = chunk_width(F, q);
+  switch (F) {
+    case 2:
+      qw == 2 ? go(I2(), I2()) : go(I2(), I1());
+      break;
+    case 3:
+      go(std::integral_constant<int, 3>(), I1());
+      break;
+    case 4:
+      qw == 4 ? go(I4(), I4()) : qw == 2 ? go(I4(), I2()) : go(I4(), I1());
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kGradF1, bool kWin = false>
 int launch_col_f1(const int* rows, const float* x, int C, int L,
                   const int* cols, const int* group, const float* e,
@@ -723,7 +980,9 @@ int launch_col_f1(const int* rows, const float* x, int C, int L,
 // bucket's columns and ptab's dv channels (F..2F-1 of [D, 2F]); reads the
 // pre-bin v from ptab's channels 0..F-1; nans[0], nans[1] += the NaN, Inf
 // draws.  exact = 0 is factor-Jacobi; z (the [F, D] noise table) nullptr
-// draws the mean (ALS).
+// draws the mean (ALS).  The form (mirrored by kernels/mcmc_sweep.py:
+// col_draw_form): F = 1 lanes over a column's slots; the exact mode at
+// 2 <= F <= 4 the lanes form; else a block a column.
 SVBFM_EXPORT int svbfm_mcmc_col_draw(
     const int* rows, const float* x, int C, int L, const int* cols,
     const int* group, const float* e, const float* q, int F, float* ptab,
@@ -737,6 +996,9 @@ SVBFM_EXPORT int svbfm_mcmc_col_draw(
     return launch_col_draw<kJacobi, 1>(rows, x, C, L, cols, group, e, q, F,
                                        ptab, v_t, mu, lam, alpha, z, D, nans,
                                        0.f, 0.f, 1.f, stream);
+  if (F <= kLanesMaxF)
+    return launch_col_lanes<false>(rows, x, C, L, cols, group, e, q, F, ptab,
+                                   v_t, mu, lam, alpha, z, D, nans, stream);
   return svbfm::with_draw_slots(F, [&](auto slots) {
     return launch_col_draw<kExact, decltype(slots)::value>(
         rows, x, C, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D,
@@ -749,7 +1011,7 @@ SVBFM_EXPORT int svbfm_mcmc_col_draw(
 // (s0 | sh2 | M packed, 2F + F(F-1)/2 a column) go into acc [C, ...] in
 // window order, win bit 0 marking the first window and bit 1 the last,
 // whose launch also draws from the accumulated sums and writes v_t, ptab's
-// dv channels and nans as svbfm_mcmc_col_draw does.
+// dv channels and nans as svbfm_mcmc_col_draw does, in its form.
 SVBFM_EXPORT int svbfm_mcmc_col_draw_window(
     const int* rows, const float* x, int C, int L, const int* cols,
     const int* group, const float* e, const float* q, int F, float* ptab,
@@ -760,6 +1022,10 @@ SVBFM_EXPORT int svbfm_mcmc_col_draw_window(
     return launch_col_f1<false, true>(rows, x, C, L, cols, group, e, q, ptab,
                                       v_t, mu, lam, alpha, z, nans, 0.f, 0.f,
                                       1.f, stream, acc, win);
+  if (F <= kLanesMaxF)
+    return launch_col_lanes<true>(rows, x, C, L, cols, group, e, q, F, ptab,
+                                  v_t, mu, lam, alpha, z, D, nans, stream,
+                                  acc, win);
   return svbfm::with_draw_slots(F, [&](auto slots) {
     return launch_col_draw<kExact, decltype(slots)::value, true>(
         rows, x, C, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z, D,

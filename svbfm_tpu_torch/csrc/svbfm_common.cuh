@@ -84,6 +84,19 @@ int chunk_width(int F, Ptrs... ptrs) {
   return v;
 }
 
+// Columns a block of a form with U lanes a column (a power of two <= 32)
+// on a bucket of C columns, blocks of at most `most` threads: about
+// kSpreadBlocks blocks (the H100 has 132 SMs), so that a small bucket's
+// gathers spread over the SMs, but at least 64 threads (whole warps: the
+// forms shuffle over all 32 lanes).  Mirrored by kernels/mcmc_sweep.py:
+// lanes_block_cols.
+constexpr int kSpreadBlocks = 128;
+
+inline int lanes_block_cols(int C, int U, int most) {
+  const int cpb = ceil_div(C, kSpreadBlocks);
+  return cpb < 64 / U ? 64 / U : cpb > most / U ? most / U : cpb;
+}
+
 // The padding rule of the column and relation-row sums (X8a at F = 1,
 // X10a): a degree bucket's padding slots have x = 0 and point at one pad
 // row, and the JAX code adds x times the gathered values at every slot, so

@@ -295,6 +295,7 @@ int launch_qt(const float* ptab, int64_t ld, int F, const int* ids,
 }
 
 // ---- K3: per-column statistics + closed-form update of one bucket --------
+// (At F <= 4 on buckets of L <= 128: col_stats_lanes_kernel below.)
 // One block per column c of the [C, L] bucket (blockIdx.y over groups of GT
 // <= kStatChunks factor chunks of V factors).  Lanes map to (entry slot,
 // chunk) pairs inside each warp: a warp holds SW = 32 / GT slots of GT
@@ -518,6 +519,224 @@ col_stats_kernel(
     prow[5 * F + 1] = wsig_new - wsig_c;
     if (bad) atomicAdd(&nans[1], bad);
   }
+}
+
+// K3 and X13a at F <= kStatLanesMaxF on buckets of L <= kStatLanesMaxL
+// (the shapes where the form above gives a block one warp, 32 threads an
+// SM's block slot: at most half its warps): U lanes a column (stat_lanes:
+// the next power of two >= L / kStatLanesSlots, or >= L / 2 where C <
+// 2,048, 8 to 32), up to kStatLanesThreads / U columns a block (fewer
+// where C is small, at least two warps: svbfm::lanes_block_cols).  Lane li takes slots li, li + U, ... (at most
+// kStatLanesSlots; consecutive lanes on consecutive slots): their ids and x
+// in registers, then every e, q and tq gather (a slot's F floats of q and
+// of tq in loads of V floats: 16 bytes at F = 4), then the FMAs.  vm [F],
+// vs [F] (and sum x e with the w rider) close by a butterfly over the
+// column's lanes, a fixed order: no staging, no shared-memory tree, no
+// barrier.  Padding: svbfm::PadRow (x = 0 slots at the pad row gathered
+// once, so a non-finite cache there still reaches the sums).  The
+// column's first lane applies the update (or, kWin, adds its sums into acc
+// in window order and, at the last window, updates from the totals), with
+// the arithmetic of col_stats_kernel.
+constexpr int kStatLanesThreads = 256;
+constexpr int kStatLanesMaxF = 4;
+constexpr int kStatLanesSlots = 4;
+constexpr int kStatLanesMaxL = 32 * kStatLanesSlots;
+
+template <int kF, int V, bool kWin>
+__global__ void __launch_bounds__(kStatLanesThreads) col_stats_lanes_kernel(
+    const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
+    int U, const int* __restrict__ cols, const int* __restrict__ group,
+    const float* __restrict__ sx2, const float* __restrict__ e,
+    const float* __restrict__ q, const float* __restrict__ tq,
+    float* __restrict__ ptab, int CH, float* __restrict__ mu_t,
+    float* __restrict__ sig_t, const float* __restrict__ sv,
+    const float* __restrict__ alpha_p, float* __restrict__ mu_w,
+    float* __restrict__ sig_w, const float* __restrict__ sigma_w,
+    int* __restrict__ nans, float* __restrict__ acc, int win) {
+  constexpr int kS = kStatLanesSlots;
+  const int tid = threadIdx.x;
+  const int64_t c =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x / U) + tid / U;
+  const int li = tid & (U - 1);
+  const bool live = c < C;
+  const bool rider = mu_w != nullptr;  // never in the window mode
+  const bool updates = live && li == 0 && (!kWin || (win & 2));
+  float vm[kF], vs[kF], mu_c[kF], sig_c[kF], svv[kF];
+  float sxe = 0.f, alpha = 0.f;
+  float wmu_c = 0.f, wsig_c = 0.f, sxx = 0.f, wprior = 0.f;
+#pragma unroll
+  for (int f = 0; f < kF; ++f)
+    vm[f] = vs[f] = mu_c[f] = sig_c[f] = svv[f] = 0.f;
+  int64_t col = 0;
+  float* prow = ptab;
+  if (live) {
+    col = cols[c];
+    prow = ptab + col * CH;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      mu_c[f] = prow[f];
+      sig_c[f] = prow[kF + f];
+    }
+    if (updates) {  // the update's operands, loaded ahead of the gathers
+      const int g = group[c];
+      alpha = *alpha_p;
+#pragma unroll
+      for (int f = 0; f < kF; ++f) svv[f] = sv[g * kF + f];
+      if (rider) {
+        wmu_c = mu_w[col];
+        wsig_c = sig_w[col];
+        sxx = sx2[c];
+        wprior = sigma_w[g];
+      }
+    }
+    const int* crow = rows + c * L;
+    const float* cx = x + c * L;
+    const svbfm::PadRow pr(crow, cx, L);
+    int r[kS];
+    float xv[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int l = li + i * U;
+      r[i] = l < L ? crow[l] : 0;
+      xv[i] = l < L ? cx[l] : 0.f;
+    }
+    bool keep[kS];
+    float ev[kS], qv[kS][kF], tqv[kS][kF];
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      const int l = li + i * U;
+      keep[i] = l < L && pr.gathers(l, r[i], xv[i]);
+      ev[i] = keep[i] ? e[r[i]] : 0.f;
+      if (keep[i]) {
+        const int64_t o = static_cast<int64_t>(r[i]) * kF;
+        load_vec<kF, V>(q + o, qv[i]);
+        load_vec<kF, V>(tq + o, tqv[i]);
+      } else {
+#pragma unroll
+        for (int f = 0; f < kF; ++f) qv[i][f] = tqv[i][f] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      if (!keep[i]) continue;
+      const float xb = xv[i];
+      const float eb = ev[i];
+      sxe += xb * eb;
+#pragma unroll
+      for (int f = 0; f < kF; ++f) {
+        const float h = qv[i][f] - xb * mu_c[f];
+        const float h1 = tqv[i][f] - xb * xb * sig_c[f];
+        vm[f] += xb * h * (eb + xb * mu_c[f] * h);
+        vs[f] += xb * xb * (h * h + h1);
+      }
+    }
+  }
+  for (int o = U >> 1; o > 0; o >>= 1) {
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      vm[f] += __shfl_xor_sync(svbfm::kFullMask, vm[f], o);
+      vs[f] += __shfl_xor_sync(svbfm::kFullMask, vs[f], o);
+    }
+    if (rider) sxe += __shfl_xor_sync(svbfm::kFullMask, sxe, o);
+  }
+  if (!live || li != 0) return;
+  if (kWin) {  // win bit 0: the first window; bit 1: the last
+    float* arow = acc + c * 2 * kF;
+#pragma unroll
+    for (int f = 0; f < kF; ++f) {
+      if (!(win & 1)) {
+        vm[f] = arow[f] + vm[f];
+        vs[f] = arow[kF + f] + vs[f];
+      }
+      if (!(win & 2)) {
+        arow[f] = vm[f];
+        arow[kF + f] = vs[f];
+      }
+    }
+    if (!(win & 2)) return;
+  }
+  int bad = 0;
+#pragma unroll
+  for (int f = 0; f < kF; ++f) {
+    // vb.py:449-469, as col_stats_kernel
+    const float sig_cand = 1.f / (svv[f] + alpha * vs[f]);
+    bad += isfinite(sig_cand) ? 0 : 1;
+    const float sig_new = isfinite(sig_cand) ? sig_cand : sig_c[f];
+    const float mu_cand = sig_new * alpha * vm[f];
+    bad += isfinite(mu_cand) ? 0 : 1;
+    const float mu_new = isfinite(mu_cand) ? mu_cand : mu_c[f];
+    mu_t[col * kF + f] = mu_new;
+    sig_t[col * kF + f] = sig_new;
+    prow[2 * kF + f] = mu_new - mu_c[f];
+    prow[3 * kF + f] = sig_new - sig_c[f];
+    prow[4 * kF + f] = mu_new * mu_new - mu_c[f] * mu_c[f];
+  }
+  if (bad) atomicAdd(&nans[0], bad);
+  if (rider) {  // vb.py:471-487, as col_stats_kernel
+    const float wsig_cand = 1.f / (wprior + alpha * sxx);
+    const float wsig_new = isfinite(wsig_cand) ? wsig_cand : wsig_c;
+    const float wmu_cand = wsig_new * alpha * (sxe + wmu_c * sxx);
+    const int wbad =
+        (isfinite(wsig_cand) ? 0 : 1) + (isfinite(wmu_cand) ? 0 : 1);
+    const float wmu_new = isfinite(wmu_cand) ? wmu_cand : wmu_c;
+    mu_w[col] = wmu_new;
+    sig_w[col] = wsig_new;
+    prow[5 * kF] = wmu_c - wmu_new;
+    prow[5 * kF + 1] = wsig_new - wsig_c;
+    if (wbad) atomicAdd(&nans[1], wbad);
+  }
+}
+
+// K3's lanes a column in the lanes form (mirrored by kernels/vb_sweep.py:
+// col_stats_lanes): the next power of two >= L / 4 (>= L / 2 in a bucket of
+// fewer than 2,048 columns), 8 to 32.
+int stat_lanes(int C, int L) {
+  const int per = C < 2048 ? kStatLanesSlots / 2 : kStatLanesSlots;
+  int U = 8;
+  while (U < 32 && U * per < L) U <<= 1;
+  return U;
+}
+
+template <bool kWin>
+int launch_col_stats_lanes(int C, int L, int F, int V, const int* rows,
+                           const float* x, const int* cols, const int* group,
+                           const float* sx2, const float* e, const float* q,
+                           const float* tq, float* ptab, int CH, float* mu_t,
+                           float* sig_t, const float* sv, const float* alpha,
+                           float* mu_w, float* sig_w, const float* sigma_w,
+                           int* nans, float* acc, int win,
+                           cudaStream_t stream) {
+  const int U = stat_lanes(C, L);
+  const int cpb = svbfm::lanes_block_cols(C, U, kStatLanesThreads);
+  const int threads = cpb * U;
+  const unsigned blocks = static_cast<unsigned>((C + cpb - 1) / cpb);
+  auto go = [&](auto f, auto v) {
+    constexpr int kF = decltype(f)::value;
+    constexpr int kV = decltype(v)::value;
+    col_stats_lanes_kernel<kF, kV, kWin><<<blocks, threads, 0, stream>>>(
+        rows, x, C, L, U, cols, group, sx2, e, q, tq, ptab, CH, mu_t, sig_t,
+        sv, alpha, mu_w, sig_w, sigma_w, nans, acc, win);
+  };
+  using I1 = std::integral_constant<int, 1>;
+  using I2 = std::integral_constant<int, 2>;
+  using I4 = std::integral_constant<int, 4>;
+  switch (F) {
+    case 1:
+      go(I1(), I1());
+      break;
+    case 2:
+      V == 2 ? go(I2(), I2()) : go(I2(), I1());
+      break;
+    case 3:
+      go(std::integral_constant<int, 3>(), I1());
+      break;
+    case 4:
+      V == 4 ? go(I4(), I4()) : V == 2 ? go(I4(), I2()) : go(I4(), I1());
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int V, bool kWin>
@@ -796,7 +1015,10 @@ SVBFM_EXPORT int svbfm_build_q(const float* ptab, int64_t ld, int F,
 // One [C, L] bucket.  Writes mu_t/sig_t [D, F] and mu_w/sig_w [D] in place
 // at the bucket's columns, and ptab's delta channels; nans[0] += v
 // candidates that were not finite, nans[1] += w ones.  mu_w == nullptr
-// turns the w rider off (then sx2, sig_w and sigma_w are not read).
+// turns the w rider off (then sx2, sig_w and sigma_w are not read).  The
+// form (mirrored by kernels/vb_sweep.py:col_stats_form): the lanes form at
+// F <= 4 on buckets of L <= 128, else a block a column (and group of
+// chunks).
 SVBFM_EXPORT int svbfm_vb_col_stats_update(
     const int* rows, const float* x, int C, int L, const int* cols,
     const int* group, const float* sx2, const float* e, const float* q,
@@ -804,6 +1026,10 @@ SVBFM_EXPORT int svbfm_vb_col_stats_update(
     const float* sv, const float* alpha, float* mu_w, float* sig_w,
     const float* sigma_w, int* nans, cudaStream_t stream) {
   const int V = chunk_width(F, q, tq);
+  if (F <= kStatLanesMaxF && L <= kStatLanesMaxL)
+    return launch_col_stats_lanes<false>(
+        C, L, F, V, rows, x, cols, group, sx2, e, q, tq, ptab, CH, mu_t,
+        sig_t, sv, alpha, mu_w, sig_w, sigma_w, nans, nullptr, 0, stream);
   auto go = V == 4 ? &launch_col_stats<4, false>
           : V == 2 ? &launch_col_stats<2, false>
                    : &launch_col_stats<1, false>;
@@ -817,13 +1043,19 @@ SVBFM_EXPORT int svbfm_vb_col_stats_update(
 // [C, 2F] (vm | vs) in window order, win bit 0 marking the first window
 // and bit 1 the last, whose launch also applies the update from acc and
 // writes mu_t/sig_t and ptab's delta channels (CH = 5F) as the resident
-// mode does; nans[0] += the v candidates that were not finite.
+// mode does, in its form; nans[0] += the v candidates that were not
+// finite.
 SVBFM_EXPORT int svbfm_vb_col_stats_window(
     const int* rows, const float* x, int C, int L, const int* cols,
     const int* group, const float* e, const float* q, const float* tq, int F,
     float* ptab, float* mu_t, float* sig_t, const float* sv,
     const float* alpha, int* nans, float* acc, int win, cudaStream_t stream) {
   const int V = chunk_width(F, q, tq);
+  if (F <= kStatLanesMaxF && L <= kStatLanesMaxL)
+    return launch_col_stats_lanes<true>(
+        C, L, F, V, rows, x, cols, group, nullptr, e, q, tq, ptab, 5 * F,
+        mu_t, sig_t, sv, alpha, nullptr, nullptr, nullptr, nans, acc, win,
+        stream);
   auto go = V == 4 ? &launch_col_stats<4, true>
           : V == 2 ? &launch_col_stats<2, true>
                    : &launch_col_stats<1, true>;

@@ -19,8 +19,11 @@ v_old - v_new), dv zeroed before each bin; group priors mu/lam [G, F]; the
 noise table z [F, D] or None (ALS); ``nans`` an int32 [2] counter of the NaN
 and Inf draws.  MCMC's e is yhat - y.
 
-At F = 1 X8a's form (lanes a column, the width of its loads) is a
-function of the bucket's shape and alignment, ``col_draw_f1_plan``; X8b's
+X8a's form is a function of F, the mode and the bucket's shape
+(``col_draw_form``): at F = 1 lanes a column and the width of their loads
+(also of the alignment, ``col_draw_f1_plan``), in the exact mode at
+2 <= F <= 4 lanes a column and several columns a block, else a block a
+column; X8b's
 (a thread a row at F = 1, else a row's factor chunks over lanes, several
 rows a warp) of F and the alignment of q and ptab, ``patch_plan``.
 
@@ -103,6 +106,61 @@ def col_draw_f1_lanes(C: int, L: int) -> int:
         return G
     per = 128 if C < 2048 else 256
     return 32 * min(4, -(-L // per))
+
+
+#: the widest block X8a's exact mode takes in its lanes form
+LANES_MAX_F = 4
+
+
+#: the blocks a lanes form spreads a small bucket over
+#: (``csrc/svbfm_common.cuh`` kSpreadBlocks)
+SPREAD_BLOCKS = 128
+
+
+def col_draw_lanes(C: int, L: int) -> int:
+    """X8a's lanes a column in its lanes form (``csrc/mcmc_sweep.cu:
+    col_lanes``): the next power of two >= L / 8 (L / 4 in a bucket of
+    fewer than 2,048 columns), at least the draw's group of 4 lanes, at
+    most a warp."""
+    per = 4 if C < 2048 else 8
+    U = 4
+    while U < 32 and U * per < L:
+        U *= 2
+    return U
+
+
+def lanes_block_cols(C: int, U: int) -> int:
+    """Columns a block of a lanes form (X8a's, K3's), U lanes a column on C
+    columns (``csrc/svbfm_common.cuh:lanes_block_cols``): about
+    SPREAD_BLOCKS blocks, but 64 to 256 threads a block."""
+    return max(64 // U, min(256 // U, -(-C // SPREAD_BLOCKS)))
+
+
+class DrawForm(NamedTuple):
+    """X8a's (and X14a's) form on a [C, L] bucket: "f1" (F = 1, ``lanes``
+    a column), "lanes" (the exact mode at 2 <= F <= 4, ``lanes`` a column,
+    ``cols`` columns a block) or "block" (a block of ``lanes`` threads a
+    column)."""
+    form: str
+    lanes: int
+    cols: int = 1
+
+
+def col_draw_form(F: int, C: int, L: int, mode: str = "exact") -> DrawForm:
+    """The form ``csrc/mcmc_sweep.cu``'s entries launch for an F-factor
+    block on a [C, L] bucket in ``mode`` ("exact", "jacobi" or "grad";
+    X14a takes the exact mode's): at F = 1 ``col_draw_f1_lanes``; the
+    exact mode at 2 <= F <= LANES_MAX_F the lanes form (``col_draw_lanes``
+    a column, ``lanes_block_cols`` columns a block); else a block a column, of
+    256 threads where it owns more than 128 sums, else 128."""
+    if F == 1:
+        return DrawForm("f1", col_draw_f1_lanes(C, L))
+    if mode == "exact" and F <= LANES_MAX_F:
+        U = col_draw_lanes(C, L)
+        return DrawForm("lanes", U, lanes_block_cols(C, U))
+    nout = F if mode == "grad" else 2 * F + (
+        F * (F - 1) // 2 if mode == "exact" else 0)
+    return DrawForm("block", 256 if nout > 128 else 128)
 
 
 def col_draw_f1_plan(rows, x) -> F1Plan:

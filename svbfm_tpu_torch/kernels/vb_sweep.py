@@ -5,7 +5,9 @@ K2's q-only instantiation) the MCMC/ALS cache q alone, from a starting q
 where one is given (``qt_plan``: the form, a thread a row at F = 1, lanes
 over a row's chunks at F >= 2);
 ``vb_col_stats_update`` (K3) computes one degree bucket's per-column
-statistics and applies the closed-form update, and
+statistics and applies the closed-form update (``col_stats_form``: lanes
+over a column's slots, several columns a block, at F <= 4 on buckets of
+L <= 128; else a block a column), and
 ``vb_col_stats_window`` (X13a, K3's window-accumulating mode) the same
 over the windows of the out-of-core batch VB (``learners/vb_windowed.py``):
 each window's sums added to an accumulator in window order, the update
@@ -40,6 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from svbfm_tpu_torch.kernels import build
+from svbfm_tpu_torch.kernels.mcmc_sweep import lanes_block_cols
 from svbfm_tpu_torch.learners.base import keep_finite, nonfinite
 
 _I32, _F32 = torch.int32, torch.float32
@@ -195,6 +198,68 @@ def build_q(ptab, F: int, ids, vals, q0=None, out=None):
 
 
 # ---- K3 ---------------------------------------------------------------------
+
+#: K3's lanes form (``csrc/vb_sweep.cu:col_stats_lanes_kernel``): the
+#: widest block and the longest bucket it takes (4 slots a lane, a warp)
+STAT_LANES_MAX_F = 4
+STAT_LANES_MAX_L = 128
+
+
+def col_stats_lanes(C: int, L: int) -> int:
+    """K3's lanes a column in its lanes form (``csrc/vb_sweep.cu:
+    stat_lanes``): the next power of two >= L / 4 (L / 2 in a bucket of
+    fewer than 2,048 columns), 8 to 32."""
+    per = 2 if C < 2048 else 4
+    U = 8
+    while U < 32 and U * per < L:
+        U *= 2
+    return U
+
+
+class StatsForm(NamedTuple):
+    """K3's (and X13a's) form on a [C, L] bucket: "lanes" (``lanes`` a
+    column, ``cols`` columns a block) or "block" (``warps`` a block,
+    ``groups`` blocks a column over its factor chunks, ``lanes`` a slot);
+    ``vec``: the floats of a q/tq load."""
+    form: str
+    lanes: int
+    warps: int
+    groups: int
+    vec: int
+    cols: int = 1
+
+
+def col_stats_form(F: int, C: int, L: int, vec: int) -> StatsForm:
+    """The form ``csrc/vb_sweep.cu``'s K3 and X13a entries launch for F
+    factors on a [C, L] bucket, q and tq read ``vec`` floats a load
+    (``col_stats_vec``): the lanes form at F <= 4 on L <= 128
+    (``col_stats_lanes`` a column, ``mcmc_sweep.lanes_block_cols``
+    columns a block); else ``launch_col_stats``' blocks: the F / vec chunks in groups
+    of at most 8 (a block each), a slot a group's lanes, a round of 2
+    entries a slot at vec = 4 (4 below) over enough warps to cover L, 1 to
+    8, at least one thread for each value a slot sums."""
+    if F <= STAT_LANES_MAX_F and L <= STAT_LANES_MAX_L:
+        U = col_stats_lanes(C, L)
+        cpb = lanes_block_cols(C, U)
+        return StatsForm("lanes", U, -(-cpb * U // 32), 1, vec, cpb)
+    G = F // vec
+    ny = -(-G // 8)
+    GT = -(-G // ny)
+    SW = 32 // GT
+    least = -(-GT * 2 * vec // 32)
+    warps = min(8, max(least, -(-L // ((2 if vec == 4 else 4) * SW))))
+    return StatsForm("block", GT, warps, ny, vec)
+
+
+def col_stats_vec(F: int, q, tq) -> int:
+    """The floats of K3's q/tq loads: the widest of 4, 2, 1 that divides F
+    and to whose size both caches are aligned (``svbfm::chunk_width``)."""
+    vec = 4 if F % 4 == 0 else 2 if F % 2 == 0 else 1
+    a = q.data_ptr() | tq.data_ptr()
+    while vec > 1 and a % (4 * vec):
+        vec //= 2
+    return vec
+
 
 def _col_sums(rows, x, cols, e, q, tq, ptab, F: int):
     """One [C, L] bucket's per-column sums (vm, vs [C, F], sum x e [C]) from

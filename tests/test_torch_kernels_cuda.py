@@ -1211,6 +1211,74 @@ def test_rel_draw_narrow_lanes_match_twin(cuda, F, L):
     _check_rel_draw(F, t, f"X10b group G={G} L={L} F={F}")
 
 
+@pytest.mark.parametrize("poison", [None, "pad_row", "nan_e"])
+@pytest.mark.parametrize("C,L", [(1, 1), (150, 7), (70, 40), (23, 300),
+                                 (9, 700)])
+@pytest.mark.parametrize("F", [2, 3, 4])
+def test_col_draw_lanes_matches_twin(cuda, F, C, L, poison):
+    """X8a's exact mode at 2 <= F <= 4, its lanes form: 4-32 lanes a
+    column, several columns a block (150 columns of 4 lanes: 10 blocks),
+    up to 22 slots a lane in rounds of 4 (L = 700); padding entries at the
+    pad row in columns past the first, a NaN q there (pad_row: its
+    factor's sh2 turns NaN in every padded column, which draws it 0,
+    uncounted) or a NaN e at a real row of column 0 (nan_e: its draws NaN,
+    counted and reverted); a NaN group lambda (drawn 0, uncounted) and an
+    Inf noise number (counted, reverted); q one float off its alignment
+    where C is odd (4-byte loads of its rows).  Two launches give the same
+    bits and counters, the twin's."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
+    assert km.col_draw_form(F, C, L).form == "lanes"
+    g = torch.Generator().manual_seed(100 * F + L)
+    N, D, G = 400, 200, 3
+    rows = torch.randint(0, N - 1, (C, L), generator=g, dtype=torch.int32)
+    x = torch.rand(C, L, generator=g) + 0.5
+    cnt = torch.randint(1, L + 1, (C,), generator=g)
+    cnt[0] = L
+    pad = torch.arange(L)[None, :] >= cnt[:, None]
+    rows[pad], x[pad] = N - 1, 0.0
+    cols = torch.randperm(D, generator=g)[:C].to(torch.int32)
+    group = (torch.arange(C) % G).to(torch.int32)
+    e = torch.randn(N, generator=g)
+    qa = 0.1 * torch.randn(N * F + 1, generator=g)
+    q = (qa[1:] if C % 2 else qa[:-1]).view(N, F)
+    if poison == "pad_row":
+        q[N - 1, F - 1] = float("nan")
+    elif poison == "nan_e":
+        e[rows[0, 0].long()] = float("nan")
+    v_t = 0.1 * torch.randn(D, F, generator=g)
+    ptab = torch.cat([v_t, torch.zeros(D, F)], 1)
+    mu = 0.1 * torch.randn(G, F, generator=g)
+    lam = torch.rand(G, F, generator=g) + 1.0
+    lam[2] = float("nan")
+    z = torch.randn(F, D, generator=g)
+    z[F // 2, cols[0].long()] = float("inf")
+    alpha = torch.tensor(1.3)
+    outs = []
+    for dev in (cuda, cuda, "cpu"):
+        a = [t.to(dev) for t in (rows, x, cols, group, e)]
+        qd = qa.to(dev)
+        qd = (qd[1:] if C % 2 else qd[:-1]).view(N, F)
+        a += [qd] + [t.to(dev) for t in (ptab.clone(), v_t.clone(), mu, lam,
+                                         alpha, z)]
+        nans = torch.zeros(2, dtype=torch.int32, device=dev)
+        km.mcmc_col_draw(*a[:11], a[11], True, nans)
+        outs.append([a[6].cpu(), a[7].cpu(), nans.cpu()])
+    what = f"mcmc_col_draw lanes F={F} [{C},{L}] {poison}"
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), what
+    chip_smoke.compare(outs[0], outs[2], what)
+    assert outs[0][2].tolist() == outs[2][2].tolist(), what
+    if poison is None:
+        assert outs[0][2].tolist() == [0, 1], what  # the Inf noise number
+    elif poison == "nan_e":
+        assert outs[0][2][0] > 0, what
+    else:
+        padded = cols[pad.any(1)].long()
+        assert (outs[0][1][padded, F - 1] == 0).all(), what
+
+
 @pytest.mark.parametrize("F", [20, 33, 64, 100, 256, 303])
 def test_col_draw_exact_warp_draw_matches_twin(cuda, F):
     """X8a's exact mode, its draw by one warp: F = 20, 33 and 64 (a lane

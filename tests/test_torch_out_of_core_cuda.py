@@ -63,7 +63,8 @@ def _mcmc_cases(cuda):
 
 
 def test_mcmc_window_modes_match_twins(cuda):
-    """X14a at F = 3, 1 and 2 and X14b with and without noise, every window
+    """X14a at F = 3, 1, 2 and 4 (the lanes form at F >= 2) and X14b with
+    and without noise, every window
     in order and single launches, with a NaN e row, NaN group lambdas, an
     Inf noise number, L = 1 buckets, an empty bucket, columns whose window
     holds no entry and pad rows: the kernel gives the twin's outputs, the
@@ -87,11 +88,11 @@ def test_mcmc_window_modes_repeat_bit_for_bit(cuda):
             assert torch.equal(x.nan_to_num(), y.nan_to_num()), (name, label)
 
 
-@pytest.mark.parametrize("F", [1, 4, 20])
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 20])
 def test_one_window_equals_the_resident_mcmc_kernels(cuda, F):
     """At one window (first and last) X14a gives X8a's exact bits (at F = 1
-    its lanes form, at F = 4 and 20 the block form) and X14b X8c's, with
-    and without noise."""
+    its F = 1 lanes form, at F = 2-4 the lanes form, at F = 20 the block
+    form) and X14b X8c's, with and without noise."""
     from svbfm_tpu_torch.kernels import mcmc_sweep as km
     from svbfm_tpu_torch.kernels import w_sweep as kw
     from svbfm_tpu_torch.learners.base import BlockData
@@ -148,10 +149,10 @@ def test_one_window_equals_the_resident_mcmc_kernels(cuda, F):
 
 
 def test_window_modes_match_twins(cuda):
-    """Every window in order and single launches, at F = 3 and 2, with a
-    NaN e row, NaN group precisions, columns whose window holds no entry,
-    and pad rows: the kernel gives the twin's outputs, counters
-    included."""
+    """Every window in order and single launches, at F = 3, 2 and 4 (X13a
+    in its lanes form), with a NaN e row, NaN group precisions, columns
+    whose window holds no entry, an L = 1 bucket and pad rows: the kernel
+    gives the twin's outputs, counters included."""
     import chip_smoke
 
     before = {k: build.launch_counts[k]
@@ -171,15 +172,13 @@ def test_window_modes_repeat_bit_for_bit(cuda):
             assert torch.equal(x.nan_to_num(), y.nan_to_num()), (name, label)
 
 
-def test_one_window_equals_the_resident_kernels(cuda):
-    """At one window (first and last) X13a gives K3's bits and X13b K5's,
-    on the card."""
+def _x13a_one_window(cuda, g, F, L):
+    """X13a at one window (first and last) against K3 on a random [20, L]
+    bucket at F factors: the same bits (returns the generator and the
+    bucket's tensors for X13b)."""
     from svbfm_tpu_torch.kernels import vb_sweep as kv
-    from svbfm_tpu_torch.kernels import w_sweep as kw
-    from svbfm_tpu_torch.learners.base import BlockData
 
-    g = torch.Generator().manual_seed(0)
-    N, F, D, C, L = 300, 4, 50, 20, 16
+    N, D, C = 300, 50, 20
 
     def r(*shape):
         return torch.randn(*shape, generator=g).to(cuda)
@@ -208,7 +207,19 @@ def test_one_window_equals_the_resident_kernels(cuda):
                                    mu, sig, sv, alpha, None, nans)
         outs.append((mu, sig, p, nans))
     for a, b in zip(*outs):
-        assert torch.equal(a, b)
+        assert torch.equal(a, b), (F, L)
+    return r, rows, x, e, cols, group, alpha, D, C
+
+
+def test_one_window_equals_the_resident_kernels(cuda):
+    """At one window (first and last) X13a gives K3's bits and X13b K5's,
+    on the card (F = 4 on a [20, 16] bucket: both in the lanes form)."""
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+    from svbfm_tpu_torch.learners.base import BlockData
+
+    g = torch.Generator().manual_seed(0)
+    r, rows, x, e, cols, group, alpha, D, C = _x13a_one_window(cuda, g, 4,
+                                                               16)
     blk = BlockData(rows=rows, x=x, cols=cols, group=group,
                     sx2=(x * x).sum(1), cnt=torch.zeros(C, device=cuda),
                     col_count=torch.zeros(C, device=cuda))
@@ -228,6 +239,15 @@ def test_one_window_equals_the_resident_kernels(cuda):
         outs.append((mu_w, sig_w, dtab, bad))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("F,L", [(2, 64), (3, 40), (4, 64), (1, 128),
+                                 (4, 200)])
+def test_one_window_equals_the_resident_k3_forms(cuda, F, L):
+    """X13a at one window gives K3's bits in the lanes form (F = 2 on the
+    windowed paths' L = 64, F = 3 and 4, F = 1 at L = 128, exact mode's
+    [14,128] shape) and in the block form past L = 128."""
+    _x13a_one_window(cuda, torch.Generator().manual_seed(10 * F + L), F, L)
 
 
 def _data(tmp_path, num_rows=6000, users=60, items=40, seed=4):
