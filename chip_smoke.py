@@ -256,6 +256,17 @@ BS_ROWS, BS_SLOTS, BS_REG = 1_000_000, 20, 0.05
 # X10a is also timed past the widths of its warp form (F <= 32), in its
 # block form, on the same join plans
 BS_AGG_BLOCK_F = 33
+# and held against its twin across its block form's widths, on each join
+# plan cut to its first BS_AGG_CHECK_COLS relation rows a bucket, with no
+# poison, a NaN e and an Inf q at the pad row, two launches the same bits
+BS_AGG_CHECK_F = (33, 64, 251)
+BS_AGG_CHECK_COLS = 128
+# the [bs-k64] phase: BS Gibbs on the relational recipe at -dim 1,1,64 (F =
+# 64 at factor_block 0: X10a's block form twice a sweep)
+BS_K64 = 64
+# X10a's twin is run on column chunks of at most this many channel floats
+# past F = 32 (its [CH, C, L] stack is 12 GB on the items' plan at F = 64)
+BS_TWIN_FLOATS = 1 << 28
 # the reference C++ on the PARITY_RUNS.md:166-183 recipe (100k rows, 4+4
 # slots, the first 10% held out, dim 1,1,8): MCMC posterior-mean and ALS
 # (-regular 10) test RMSE by iteration; other draws and inits
@@ -407,6 +418,7 @@ PATH_KERNELS = {
     "bs-mcmc": BS_KERNELS,
     "bs-als": BS_KERNELS,
     "bs-seq": BS_KERNELS + ("build_q",),
+    "bs-k64": BS_KERNELS,
     "bs-nine": BS_KERNELS,
     # classification: X12b's eval, and X12a's latent update where the
     # method has one (OVB has none)
@@ -1561,7 +1573,7 @@ def bs_cases(add, r: dict) -> None:
         CH = ks.agg_channels(F)
 
         def x10a(variant, inp):
-            fn = ks.bs_join_agg if variant == "kernel" else ks.bs_join_agg_plain
+            fn = ks.bs_join_agg if variant == "kernel" else join_agg_twin
             (rtab,) = inp
             fn(rd.jplan, r["e"], w["q"], F, rtab)
             return [rtab]
@@ -1571,6 +1583,10 @@ def bs_cases(add, r: dict) -> None:
                 0, rd.join_tr, r["e"])
 
         form = getattr(ks, "join_form", None)
+        note = f"form={form(F) if form else '?'}"
+        if form and form(F) == "block" and hasattr(ks, "join_block_plan"):
+            p = ks.join_block_plan(F)  # units a thread, threads a block
+            note += f" kU={p.kU} threads={p.threads}"
         # the join plan's slots, e and q at each data row, qB0 and wn read,
         # the CH channel sums written; per entry: qO (F), e qO (F), the
         # products (P), x times each channel and its sum (2 CH)
@@ -1579,7 +1595,7 @@ def bs_cases(add, r: dict) -> None:
             cost(njs * 8 + N * (1 + F) * 4 + R * (F + 1) * 4 + R * CH * 4,
                  N * (2 * F + lay["P"] + 2 * CH),
                  x10a_library if F == 0 else None, plain_graph=False,
-                 note=f"form={form(F) if form else '?'}"))
+                 note=note))
 
     for F, w in r["widths"]:
         lay = ks.rel_layout(F)
@@ -1697,6 +1713,24 @@ def bs_cases(add, r: dict) -> None:
 
     for F, w in r["agg_widths"]:  # X10a alone (its block form)
         x10a_case(F, w)
+
+    for F, poison, w in r["agg_checks"]:  # checked only, two launches
+        def x10a_bits(variant, inp, F=F, w=w, poison=poison):
+            (rtab,) = inp
+            if variant == "plain":
+                join_agg_twin(w["plan"], w["e"], w["q"], F, rtab)
+                return [rtab]
+            again = rtab.clone()
+            for out in (rtab, again):
+                ks.bs_join_agg(w["plan"], w["e"], w["q"], F, out)
+            if not torch.equal(rtab.view(torch.int32),
+                               again.view(torch.int32)):
+                raise AssertionError(f"bs_join_agg F={F} poison={poison}: "
+                                     "two launches differ")
+            return [rtab]
+
+        add("bs_join_agg", f"{name} F={F} cut poison={poison}",
+            lambda w=w: (w["rtab0"].clone(),), x10a_bits, None)
 
     def moments(variant, _):
         fn = (kf.bs_rel_moments if variant == "kernel"
@@ -1984,6 +2018,18 @@ def check_cases(s: dict, timed: bool) -> dict:
                             graph=c["plain_graph"]),
                     None if lib is None else cuda_ms(lib, 20), c))
     return out
+
+
+def print_report(report: dict) -> None:
+    """Each kernel's worst error against its twin, and each timed case."""
+    for name, r in report.items():
+        print(f"  kernel {name}: max_abs_err={r['max_abs_err']:.3e} "
+              f"(tol {KERNEL_TOL:g} x scale)", flush=True)
+        for label, ms, pms, lms, c in r["times"]:
+            lib = "null" if lms is None else f"{lms:.4f}"
+            print(f"    {label}: ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"library_ms={lib} bound_ms={bound(c)[0]:.6f} "
+                  f"({bound(c)[1]}) {c['note']}".rstrip())
 
 
 def merge_reports(*reports) -> dict:
@@ -2377,8 +2423,26 @@ def _rebucket(b, rows, x):
                                real=ks.real_counts(x))
 
 
+def join_agg_twin(buckets, e, q, F: int, rtab) -> None:
+    """X10a's twin (``bs_join_agg_plain``) on column chunks of each bucket
+    of at most BS_TWIN_FLOATS channel floats: a relation row's sums are its
+    own column's, so the result is the twin's on the whole plan."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+    from svbfm_tpu_torch.learners.mcmc_bs import JoinBlock
+
+    CH = ks.agg_channels(F)
+    parts = []
+    for b in buckets:
+        C, L = b.rows.shape
+        step = max(1, BS_TWIN_FLOATS // max(CH * L, 1))
+        parts += [JoinBlock(rows=b.rows[c:c + step], x=b.x[c:c + step],
+                            cols=b.cols[c:c + step])
+                  for c in range(0, C, step)]
+    ks.bs_join_agg_plain(parts, e, q, F, rtab)
+
+
 def bs_tensors(learner, state, tag: str, timed: bool, widths,
-               poison: bool = False, agg_widths=()) -> dict:
+               poison: bool = False, agg_widths=(), agg_checks=()) -> dict:
     """X10a-X10d inputs from a block-structure learner and a state, per
     relation and per width F in ``widths`` (0: the w sweep): the relation
     table as X10a starts it (qB0 of the first F factors, wn) and as it
@@ -2392,10 +2456,14 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
     bucket is also drawn cut to L = 1 and widened to L = 32 (one real
     entry), and the longest bucket cut to its first 32 slots and with its
     first column all padding.  ``agg_widths``: widths past K at which X10a
-    alone runs, from seeded q and qB0 (its block form, F > 32)."""
+    alone runs, from seeded q and qB0 (its block form, F > 32);
+    ``agg_checks``: widths at which X10a alone is checked, not timed, on
+    the join plan cut to BS_AGG_CHECK_COLS relation rows a bucket (renumbered
+    0, 1, ...), from seeded q and qB0, with no poison, a NaN e and an Inf q
+    at the pad row N - 1."""
     from svbfm_tpu_torch.kernels import bs_forward as kf
     from svbfm_tpu_torch.kernels import bs_sweep as ks
-    from svbfm_tpu_torch.learners.mcmc_bs import param_table
+    from svbfm_tpu_torch.learners.mcmc_bs import JoinBlock, param_table
 
     dev = state.e.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2440,7 +2508,8 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
             picks.append((b_0, _rebucket(first, first.rows[:, :1],
                                          first.x[:, :1])))
         r = dict(name=f"rel{i}", rd=rd, Dr=Dr, off=off, e=e,
-                 alpha=state.alpha, stab=stab, widths=[], agg_widths=[])
+                 alpha=state.alpha, stab=stab, widths=[], agg_widths=[],
+                 agg_checks=[])
         for F in agg_widths:
             lay = ks.rel_layout(F)
             rtab0 = torch.zeros(R, lay["ld"], device=dev)
@@ -2448,6 +2517,28 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
             r["agg_widths"].append((F, dict(
                 rtab0=rtab0,
                 q=torch.randn(N, F, generator=gen, device=dev))))
+        for F in agg_checks:
+            cut, n0 = [], 0
+            for b in rd.jplan:
+                c = min(b.rows.shape[0], BS_AGG_CHECK_COLS)
+                cut.append(JoinBlock(rows=b.rows[:c], x=b.x[:c],
+                                     cols=torch.arange(n0, n0 + c,
+                                                       dtype=torch.int32,
+                                                       device=dev)))
+                n0 += c
+            rtab0 = torch.zeros(n0, ks.rel_layout(F)["ld"], device=dev)
+            rtab0[:, :F] = torch.randn(n0, F, generator=gen, device=dev)
+            qc = torch.randn(N, F, generator=gen, device=dev)
+            for bad in (None, "e", "q"):
+                ep, qp = e, qc
+                if bad == "e":
+                    ep = e.clone()
+                    ep[N - 1] = float("nan")
+                elif bad == "q":
+                    qp = qc.clone()
+                    qp[N - 1, F - 1] = float("inf")
+                r["agg_checks"].append((F, bad, dict(plan=cut, e=ep, q=qp,
+                                                     rtab0=rtab0)))
         for F in widths:
             Fo = max(F, 1)
             lay = ks.rel_layout(F)
@@ -2475,7 +2566,7 @@ def bs_tensors(learner, state, tag: str, timed: bool, widths,
                 lam = torch.cat([lam, torch.full_like(lam[:1], float("nan"))])
                 z.view(Fo, Dr)[:, picks[0][1].cols[0].long()] = float("inf")
             rtab = rtab0.clone()
-            ks.bs_join_agg_plain(rd.jplan, e, q, F, rtab)
+            join_agg_twin(rd.jplan, e, q, F, rtab)
             ptab = torch.cat([vt.view(Dr, Fo), torch.zeros(Dr, Fo,
                                                            device=dev)], 1)
             patched = []
@@ -3668,8 +3759,10 @@ def bs_learner(p: dict, device, als: bool = False, **cfg_kw):
 def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
     """The block-structure sampler on the relational recipe (1M ratings,
     42 joined entries a row, the join never materialised): Gibbs and ALS at
-    F = K, the factor-sequential path, card against CPU, nine relations
-    card against CPU, quality beside the reference C++, the profile.
+    F = K, the factor-sequential path, Gibbs at K = BS_K64 (X10a's block
+    form on the path, its relation kernels at F = 64 against their twins),
+    card against CPU, nine relations card against CPU, quality beside the
+    reference C++, the profile.
     Returns the driven runs' launch counts."""
     from svbfm_tpu_torch.learners.draws import host_draws
     from svbfm_tpu_torch.models.fm import init_fm_params
@@ -3733,6 +3826,31 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
         launches=json.dumps(l_seq, separators=(",", ":")))
     del seq
 
+    # ---- 31b. BS Gibbs at -dim 1,1,64: X10a's block form on the path ----
+    t0 = time.perf_counter()
+    k64 = bs_learner(bsp, dev, num_factor=BS_K64, regw=BS_REG, regv=BS_REG)
+    torch.cuda.reset_peak_memory_stats()
+    (kstate, hk), l_k64 = drive(build, "bs-k64", lambda: k64.run(
+        k64.init_state(), num_iter=3, verbose=False, chunk=1))
+    peak = torch.cuda.max_memory_allocated()
+    check_mcmc_history(hk, "bs-k64", "rmse")
+    k_dev_us = profile_run(lambda: k64.run(kstate, num_iter=1,
+                                           verbose=False),
+                           1, "sweep", "bs-k64-profile", focus=BS_FOCUS)
+    say("bs-k64", t0, rows=k64.train_n, K=BS_K64,
+        factor_block=k64.factor_width, sec_per_iter=med(hk),
+        ms_per_iter=",".join(f"{1e3 * h['time_learn']:.3f}" for h in hk),
+        device_ms_per_iter=f"{k_dev_us / 1e3:.3f}",
+        rmse_first=f"{hk[0]['rmse']:.5f}", rmse_last=f"{hk[-1]['rmse']:.5f}",
+        peak_mem_bytes=peak, launches=json.dumps(l_k64, separators=(",", ":")))
+    # the sweep's relation kernels at F = 64 against their twins, timed
+    t0 = time.perf_counter()
+    rep = check_cases(bs_tensors(k64, kstate, "bs-k64", True,
+                                 (k64.factor_width,)), timed=True)
+    print_report(rep)
+    say("bs-k64-kernels", t0, compared=len(rep), tol=KERNEL_TOL)
+    del k64, kstate, rep
+
     # ---- 32. BS Gibbs, card against CPU (100k-row recipe) ----------------
     t0 = time.perf_counter()
     qp = bs_problem(BS_Q_ROWS, BS_Q_SLOTS, holdout=True)
@@ -3793,7 +3911,7 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
     # ---- 34. where a blocked BS Gibbs sweep's device time goes -----------
     profile_run(lambda: bs_mcmc.run(bstate, num_iter=1, verbose=False), 1,
                 "sweep", "bs-profile", focus=BS_FOCUS)
-    return l_bs, l_als, l_seq, l_nine
+    return l_bs, l_als, l_seq, l_nine, l_k64
 
 
 # ---------------------------------------------------------------------------
@@ -4385,7 +4503,8 @@ def main() -> int:
                     timed=True),
         check_cases(probit_tensors(gibbs, mc1), timed=True),
         check_cases(bs_tensors(bs_mcmc, bs1, "bs", True, (K, 0, 1),
-                               agg_widths=(BS_AGG_BLOCK_F,)), timed=True),
+                               agg_widths=(BS_AGG_BLOCK_F,),
+                               agg_checks=BS_AGG_CHECK_F), timed=True),
         check_cases(win_tensors(win, win0, "vb-windowed"), timed=True),
         check_cases(mwin_tensors(mwin, mwin1, "mcmc-windowed"), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
@@ -4398,14 +4517,7 @@ def main() -> int:
     one = torch.zeros(1, device=dev)
     print(f"  launch floor: ms={cuda_ms(one.zero_, 20):.4f} (graph replay "
           "of a one-element zero_())", flush=True)
-    for name, r in report.items():
-        print(f"  kernel {name}: max_abs_err={r['max_abs_err']:.3e} "
-              f"(tol {KERNEL_TOL:g} x scale)", flush=True)
-        for label, ms, pms, lms, c in r["times"]:
-            lib = "null" if lms is None else f"{lms:.4f}"
-            print(f"    {label}: ms={ms:.4f} plain_ms={pms:.4f} "
-                  f"library_ms={lib} bound_ms={bound(c)[0]:.6f} "
-                  f"({bound(c)[1]}) {c['note']}".rstrip())
+    print_report(report)
     say("kernels", t0, compared=len(report), tol=KERNEL_TOL)
     t0 = time.perf_counter()
     say("x9b-digest", t0, **x9b_digests(dev))
@@ -4691,8 +4803,8 @@ def main() -> int:
         rtol=TRAJ_RTOL)
     del cpu
 
-    l_bs, l_bs_als, l_bs_seq, l_bs_nine = bs_phases(build, card, dev,
-                                                    bs_mcmc, bsp)
+    l_bs, l_bs_als, l_bs_seq, l_bs_nine, l_bs_k64 = bs_phases(
+        build, card, dev, bs_mcmc, bsp)
     del bs_mcmc
     l_class = class_phases(build, card, dev, train, test, meta, base_cfg,
                            plan, bsp, (tr90, va10))
@@ -4701,7 +4813,7 @@ def main() -> int:
 
     runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
-            l_bs_nine, *l_class, *l_ooc)
+            l_bs_nine, l_bs_k64, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}
     kernels = []
     for n in SOURCES:

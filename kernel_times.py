@@ -12,7 +12,8 @@ kernels, for each case the least and the most of three means of a CUDA
 graph replay of 20 calls, then the family's profiles:
 
 - ``bs``: the block-structure sampler's join aggregation X10a (F = 20,
-  the w sweep's F = 0, F = 1 and, in its block form, F = 33), its
+  the w sweep's F = 0, F = 1 and, in its block form, F = 33, 64, 128 and
+  251, the widest the learners give it), its
   relation-row patch X10c (F = 20, F = 1 and the w mode, after each timed
   bin), its data-row resync (X10d: full, q-build and w forms), its
   relation-row moments (X10d, K = 20) and its joined scores (X10d,
@@ -21,7 +22,8 @@ graph replay of 20 calls, then the family's profiles:
   (``scripts/bench_bs.py``), for the users and the items relation, each
   with its form (the scores' moments stride among it); their launches in
   one sweep of each BS path; and ``chip_smoke.profile_run`` of one blocked
-  Gibbs sweep and of one factor-sequential sweep (factor_block 1), twice
+  Gibbs sweep, of one factor-sequential sweep (factor_block 1) and of one
+  blocked sweep at K = 64 (``bs-k64``: X10a's block form at F = 64), twice
   each, with X10a's, X10c's, the resync's, the moments' and
   ``bs_scores``' device time and share (``fm_rows``: K1a's kernel in its
   relations mode).
@@ -116,6 +118,9 @@ FAMILIES = {
 # K5's kernel, by its name in this tree and in one that launches it once a
 # bucket
 W_FOCUS = ("w_bin_kernel", "w_col_update_kernel")
+# X10a's block form is timed at these widths (F > 32) on the K = 20
+# learner's join plans, from seeded q and qB0
+BS_AGG_WIDTHS = (33, 64, 128, 251)
 # the bs family's timed kernels, by their wrappers' launch-count names
 BS_TIMED = ("bs_join_agg", "bs_rel_patch", "bs_rel_w_patch", "bs_resync",
             "bs_rel_moments", "bs_scores")
@@ -236,7 +241,7 @@ def bs_family(cs, build, dev, tag, line) -> None:
                        regv=cs.BS_REG)
     st, _ = bs.step(bs.init_state())
     s = cs.bs_tensors(bs, st, "bs", True, (cs.K, 0, 1),
-                      agg_widths=(cs.BS_AGG_BLOCK_F,))
+                      agg_widths=BS_AGG_WIDTHS)
     cases = cs.make_cases(s)
     for name in BS_TIMED:
         for label, prepare, call, c in cases[name]:
@@ -247,7 +252,9 @@ def bs_family(cs, build, dev, tag, line) -> None:
 
     seq = cs.bs_learner(bsp, dev, num_factor=cs.K, regw=cs.BS_REG,
                         regv=cs.BS_REG, factor_block=1)
-    for path, lr in (("bs", bs), ("bs-seq", seq)):
+    k64 = cs.bs_learner(bsp, dev, num_factor=cs.BS_K64, regw=cs.BS_REG,
+                        regv=cs.BS_REG)
+    for path, lr in (("bs", bs), ("bs-seq", seq), ("bs-k64", k64)):
         state, _ = lr.run(num_iter=1, verbose=False)
         torch.cuda.synchronize()
         build.reset_launch_counts()

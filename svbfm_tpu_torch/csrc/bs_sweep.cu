@@ -46,20 +46,20 @@
 // each relation row whole (wcc, [R, 210] at F = 20, for the weq matvec)
 // and its positions' ptab rows, and writes qB, we, weq and dy, in every bin.
 //
-// Design.  X10a runs a whole join plan in one launch: its buckets' blocks
-// are laid end to end, and each block finds its bucket in the plan table
-// (kPlanCols int64 a bucket, built once per plan by the wrapper), so a
+// Design.  X10a runs a whole join plan in one launch: its buckets are laid
+// end to end in the plan table (kPlanCols int64 a bucket, built once per
+// plan by the wrapper), where each block or warp finds its bucket, so a
 // relation pays one launch, not one a bucket.  Three forms, chosen by F
 // (kernels/bs_sweep.py:join_form).  2 <= F <= 32 (1 + 2F + P channels,
 // 251 at F = 20): a warp a relation row, the warps of a persistent grid
 // walking the plan's rows; the warp stages only a row's gathered entries,
 // their q rows by cp.async, the next round's in flight while it sums this
-// one, and each lane adds them into the channel sums it owns in registers
-// (join_agg_warp_kernel).  F > 32: one
-// block per relation row; the block stages a tile of kTile entries of e
-// and qO in shared memory, and each thread owns some of the channel sums
-// (X8a's pattern).  F <= 1 (1 or 4 channels, the relation w sweep and the
-// factor-sequential path), where a block a row would leave all but one
+// one, and each lane adds them into the 4 x 4 Gram tiles it owns in
+// registers (join_agg_warp_kernel).  F > 32 (628 to 32,129 channels): the
+// same tiles spread over a block a row, the blocks of a persistent grid
+// walking the rows, the next rows' gathers in flight
+// (join_agg_block_kernel).  F <= 1 (1 or 4 channels, the relation w sweep
+// and the factor-sequential path), where a block a row would leave all but one
 // thread idle: G lanes a relation row, G the next power of two >= L capped
 // at 32, many rows a block; the lanes stride over the row's entries
 // (coalesced reads of rows and x), keep the channel sums in registers and
@@ -111,12 +111,11 @@
 
 namespace {
 
-constexpr int kTile = 32;
 constexpr int kNarrowThreads = 256;  // X10a at F <= 1
 // X10a's plan table, int64 [nb, kPlanCols], a row a bucket of the join
 // plan: rows, x and cols pointers, C, L, G (the F <= 1 form's lanes a
-// relation row) and the bucket's first block (mirrored by
-// kernels/bs_sweep.py:join_plan_rows)
+// relation row) and the bucket's first block (F <= 1) or first relation
+// row (F >= 2) (mirrored by kernels/bs_sweep.py:join_plan_rows)
 constexpr int kPlanCols = 7;
 
 struct Bucket {
@@ -156,71 +155,6 @@ struct RelLayout {
 
 __host__ __device__ inline int agg_channels(int F) {
   return 1 + 2 * F + F * (F + 1) / 2;
-}
-
-// X10a at F >= 2: one block per relation row (a column of one of the join
-// plan's buckets).
-__global__ void join_agg_kernel(const int64_t* __restrict__ plan, int nb,
-                                const float* __restrict__ e,
-                                const float* __restrict__ q, int F,
-                                float* __restrict__ rtab) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const Bucket bk = find_bucket(plan, nb);
-  const int64_t c = blockIdx.x - bk.first;
-  const int L = bk.L;
-  const RelLayout lay(F);
-  const int CH = agg_channels(F);
-  const int ldt = kTile + 1;
-  float* acc = smem;          // [CH]
-  float* es = acc + CH;       // [kTile] e x
-  float* xs = es + kTile;     // [kTile]
-  float* qs = xs + kTile;     // [F, kTile + 1] qO
-  float* qb = qs + F * ldt;   // [F] qB0 of the row
-  const int64_t rho = bk.cols[c];
-  for (int f = tid; f < F; f += nt) qb[f] = rtab[rho * lay.ld + f];
-  for (int o = tid; o < CH; o += nt) acc[o] = 0.f;
-  __syncthreads();
-  const int* crow = bk.rows + c * L;
-  const float* cx = bk.x + c * L;
-  const svbfm::PadRow pr(crow, cx, L);
-  for (int l0 = 0; l0 < L; l0 += kTile) {
-    const int nl = min(kTile, L - l0);
-    for (int i = tid; i < kTile * F; i += nt) {
-      const int l = i / F;
-      const int f = i - l * F;
-      const float xv = l < nl ? cx[l0 + l] : 0.f;
-      const int rl = l < nl ? crow[l0 + l] : 0;
-      const int64_t r = l < nl && pr.gathers(l0 + l, rl, xv) ? rl : -1;
-      qs[f * ldt + l] = r >= 0 ? q[r * F + f] - qb[f] : 0.f;
-      if (f == 0) {
-        xs[l] = xv;
-        es[l] = r >= 0 ? e[r] : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int o = tid; o < CH; o += nt) {
-      float s = 0.f;
-      if (o == 0) {
-        for (int l = 0; l < kTile; ++l) s += es[l] * xs[l];
-      } else if (o <= F) {
-        const float* qf = qs + (o - 1) * ldt;
-        for (int l = 0; l < kTile; ++l) s += es[l] * qf[l] * xs[l];
-      } else if (o <= 2 * F) {
-        const float* qf = qs + (o - 1 - F) * ldt;
-        for (int l = 0; l < kTile; ++l) s += qf[l] * xs[l];
-      } else {
-        const int fg = svbfm::pair_at(o - 1 - 2 * F, F + 1);
-        const float* qf = qs + (fg >> 16) * ldt;
-        const float* qg = qs + ((fg & 0xffff) - 1) * ldt;
-        for (int l = 0; l < kTile; ++l) s += qf[l] * qg[l] * xs[l];
-      }
-      acc[o] += s;
-    }
-    __syncthreads();
-  }
-  for (int o = tid; o < CH; o += nt) rtab[rho * lay.ld + F + o] = acc[o];
 }
 
 // X10a at F <= 1 (kCH = 1: e; kCH = 4: e, e qO, qO, qO^2 with qO = q - qB0):
@@ -623,6 +557,521 @@ decltype(auto) with_agg_form(int F, Fn&& fn) {
   if (F <= 30)
     return fn(integral_constant<int, 32>{}, integral_constant<int, 2>{});
   return fn(integral_constant<int, 40>{}, integral_constant<int, 2>{});
+}
+
+// X10a past kAggMaxF (33 <= F <= 251, 628 to 32,129 channels a relation
+// row): the warp form's Gram tiles spread over a block, a relation row a
+// block at a time, the blocks the card holds at once (a persistent grid)
+// walking the plan's rows g = blockIdx.x, + gridDim.x, ... in rounds of
+// kRound slots.  Bound: bytes, mostly the CH sums written (632 MB at F = 64
+// on the 71,567 users' rows); the float32 FMAs, about a quarter of that
+// time at F = 64, run on CUDA cores (TF32 would break the 1e-4
+// tolerance).  An entry is t = (e | 1 | 0 | 0 | qO | zeros), kS =
+// join_stride(F) floats, qO at a 16-byte boundary.  A round: warp 0 reads
+// its slots (coalesced) two rounds ahead, and a round later keeps the
+// gathered ones (svbfm::PadRow) by a ballot and stages them compacted (row
+// id, x, e by cp.async) with the row's qB0 in one of kJoinBufs buffers; a
+// round later still every thread issues its share of the entries' q rows
+// by 16-byte cp.async, into their t where q's rows are 16-byte aligned,
+// else as the raw 16-byte words that hold each row; so while the block
+// sums a round the next two rounds' gathers are in flight, across rows
+// too (a user's row of ~14 entries is one round: a row a block, the next
+// rows prefetched, as many blocks an SM as fit, the round size chosen for
+// that).  At its turn a round's t is built (qO = q - qB0: in place, or from
+// the raw words into the block's t area), and thread t owns units t,
+// t + nt, ... (kU of them) of the Gram upper triangle of t, a unit two
+// 4 x 4 tiles over one column block (row blocks 2p, 2p + 1, row-pair-major),
+// its 32 kU sums in registers across the row's rounds: an entry is three
+// 16-byte shared-memory loads, four products by x and 32 FMAs a unit
+// (neighbouring threads on neighbouring column blocks: conflict-free loads,
+// the row blocks broadcast; the shared-memory loads, not the FMAs, bound a
+// tile a thread).  The entries are added four a step (zero-padded), in
+// slot order, so two launches give the same bits.  After a row's last
+// round the block puts its cells at their channels in the round's first
+// area (stage_cells: with e and 1 first, each row of a tile is a run of
+// channels), shifted by the row's 16-byte misalignment, and streams them
+// out as 16-byte stores (__stcs) whatever ld is, the ragged ends as 4-byte
+// ones, in windows where a row's channels outgrow the area.
+constexpr int kJoinBufs = 3;  // rounds staged at once
+// the widest blocks at 1 unit a thread, and at 2 or 3 (F <= 260: 1,122
+// units), so that no SM sub-partition holds more than 4 (3) of a block's
+// warps and a thread may take 128 (168) registers without spills
+constexpr int kJoinThreads = 512;
+constexpr int kJoinThreadsWide = 384;
+
+// Walks the cells (k, c) of a grid of w columns, row-major, from cell
+// `start` on, `step` cells at a time (a thread's share of a block-strided
+// loop), without a division in the loop.
+struct GridWalk {
+  int k, c, dk, dc, w;
+  __device__ GridWalk(int start, int step, int w_)
+      : k(start / w_), c(start % w_), dk(step / w_), dc(step % w_), w(w_) {}
+  __device__ void next() {
+    k += dk;
+    c += dc;
+    if (c >= w) {
+      c -= w;
+      ++k;
+    }
+  }
+};
+
+// A round as the block form's warp 0 reads it: this lane's slot (l, r, x),
+// the row's last slot (rl, xl: its pad row) and relation row, and where the
+// round sits in the row.
+struct JoinRound {
+  bool valid = false, last = false;
+  int L = 0, l = 0, r = 0, rl = 0;
+  float x = 0.f, xl = 1.f;
+  int64_t rho = 0;
+};
+
+// kS of the block form: an entry's floats, (e | 1 | 0 | 0 | q_0 .. q_{F-1})
+// and zeros to a multiple of 8 (mirrored by kernels/bs_sweep.py:
+// join_stride).
+__host__ __device__ constexpr int join_stride(int F) {
+  return (F + 4 + 7) / 8 * 8;
+}
+
+// Puts the 16 sums a[at .. at + 16) of the block form's Gram tile (bi, bj)
+// over t = (e | 1 | 0 | 0 | qO) at their channels o, in cb[o + off] where
+// that lies in [0, win).  Each row i of the tile is a run of channels
+// o = base(i) + j: e qO_m (channel 1 + m) at i = 0, qO_m (1 + F + m) at
+// i = 1, qO_m qO_n (1 + 2F + m F - m (m - 1) / 2 + n - m, n >= m) at
+// i = 4 + m; e x (channel 0, cell (0, 1)) alone sits in tile (0, 0), whose
+// other cells (e e x, x and the zeros) are none, as rows 2, 3, the cells
+// below the diagonal and the columns past F + 3.
+__device__ __forceinline__ void stage_cells(const float (&a)[32], int at,
+                                            int bi, int bj, int F, int off,
+                                            int win, float* cb) {
+  if (bi == 0 && bj == 0) {
+    if (static_cast<unsigned>(off) < static_cast<unsigned>(win))
+      cb[off] = a[at + 1];
+    return;
+  }
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    if (bi == 0 && ii >= 2) continue;
+    const int m = 4 * bi + ii - 4;
+    const int base = bi > 0 ? 2 * F - 3 + m * F - m * (m + 1) / 2
+                            : (ii == 0 ? -3 : F - 3);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * bj + jj;
+      const int k = base + j + off;
+      if ((jj >= ii || bi != bj) && j < F + 4 &&
+          static_cast<unsigned>(k) < static_cast<unsigned>(win))
+        cb[k] = a[at + 4 * ii + jj];
+    }
+  }
+}
+
+// The block form's layout at F, by whether q's rows start at 16-byte
+// boundaries (kRaw false: F % 4 == 0 and q aligned) or not, in rounds of
+// kRound slots (32, or 16 where that lets an SM hold half as many blocks
+// again: more rows in flight; see svbfm_bs_join_agg).  A round buffer
+// holds kRound entries' areas, then their x, row ids and e, the row's qB0
+// (to a float4) and a header (the entries, -1 past the block's last round;
+// whether the round ends its row; the row's id, two ints).  Aligned, an
+// entry's area is its t itself (join_stride(F) floats), q copied into
+// place.  Unaligned, it is the raw span of q: the 16-byte words that hold
+// the row (F + 3 floats at most), and the block's one t area (kRound
+// entries of t) follows the kJoinBufs buffers.  Either way the round's
+// first area stages the row's sums once the t of the round is built
+// (mirrored by kernels/bs_sweep.py:join_block_smem).
+__host__ __device__ constexpr int join_area(int F, bool raw) {
+  return raw ? (F + 6) / 4 * 4 : join_stride(F);
+}
+__host__ __device__ constexpr int join_buf(int F, bool raw, int round) {
+  return round * (join_area(F, raw) + 3) + (F + 3) / 4 * 4 + 4;
+}
+__host__ __device__ constexpr int join_smem_floats(int F, bool raw,
+                                                   int round) {
+  return kJoinBufs * join_buf(F, raw, round) +
+         (raw ? round * join_stride(F) : 0);
+}
+// ... and the block's whole, with the sums area at two or three units a
+// thread
+__host__ __device__ constexpr int join_block_floats(int F, bool raw, int round,
+                                                    int kU, int threads) {
+  return join_smem_floats(F, raw, round) + (kU > 1 ? kU * 32 * threads : 0);
+}
+
+template <int kU, bool kRaw, int kRound>
+__global__ void __launch_bounds__(kU > 1 ? kJoinThreadsWide : kJoinThreads, 1)
+    join_agg_block_kernel(const int64_t* __restrict__ plan, int nb,
+                          int64_t nrows, const float* __restrict__ e,
+                          const float* __restrict__ q, int F,
+                          float* __restrict__ rtab) {
+  extern __shared__ float4 agg_smem4[];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int kS = join_stride(F);
+  const int kB = kS / 4;  // 4-blocks a side of the Gram matrix (even)
+  const int units = kB * (kB + 2) / 4;
+  const int kA = join_area(F, kRaw);
+  const int kBuf = join_buf(F, kRaw, kRound);
+  const int nq = (F + 3) / 4;  // float4s of q an entry
+  float* const smem = reinterpret_cast<float*>(agg_smem4);
+  const int64_t ld = RelLayout(F).ld;
+  const int CH = agg_channels(F);
+  // this thread's units (row blocks 2p, 2p + 1 over column block bj >= 2p,
+  // the tiles (2p, bj) in its sums [0:16], (2p + 1, bj) in [16:32]); a
+  // thread without one sums unit 0 and writes nothing.  At one unit a
+  // thread the sums stay in acc across a row's rounds; at two or three
+  // (F > 172) that many would spill, so a unit's sums are in acc only
+  // while it adds a round, and in the block's sums area (after the round
+  // buffers; [kU][8][nt] float4s, so that neighbouring threads touch
+  // neighbouring words) between rounds
+  constexpr bool kSwap = kU > 1;
+  int bp[kU], bj[kU];
+  float acc[32];
+#pragma unroll
+  for (int s = 0; s < kU; ++s) {
+    int u = tid + nt * s;
+    bp[s] = bj[s] = 0;
+    if (u < units) {
+      int p = 0;
+      while (u >= kB - 2 * p) u -= kB - 2 * p++;
+      bp[s] = 2 * p;
+      bj[s] = 2 * p + u;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+  float4* const sacc = reinterpret_cast<float4*>(
+      smem + join_smem_floats(F, kRaw, kRound));
+  auto sums_at = [&](int s, int c) { return sacc + (s * 8 + c) * nt + tid; };
+  bool fresh = true;  // the next round starts a row
+  // a round buffer's parts
+  auto xs_of = [&](float* buf) { return buf + kRound * kA; };
+  auto sr_of = [&](float* buf) {
+    return reinterpret_cast<int*>(buf + kRound * (kA + 1));
+  };
+  auto es_of = [&](float* buf) { return buf + kRound * (kA + 2); };
+  auto qb_of = [&](float* buf) { return buf + kRound * (kA + 3); };
+  auto hdr_of = [&](float* buf) {
+    return reinterpret_cast<int*>(buf + kRound * (kA + 3) + 4 * nq);
+  };
+
+  // warp 0's stream of rounds (as the warp form's, a block a row): read()
+  // issues a round's loads and leaves them to land, stage_head() takes
+  // them a round later (a select or a test on them here would stall the
+  // warp, and the block at its next barrier, for a memory latency)
+  AggBuckets bks{plan, nb};
+  int64_t g = blockIdx.x;
+  int l0 = 0;
+  JoinRound rd;
+  auto read = [&]() {
+    rd.valid = g < nrows;
+    if (!rd.valid) return;
+    bks.seek(g);
+    const int64_t c = g - bks.first;
+    const int L = bks.L;
+    const int* crow = bks.rows + c * L;
+    const float* cx = bks.x + c * L;
+    rd.L = L;
+    rd.l = l0 + lane;
+    rd.r = rd.rl = 0;
+    rd.x = 0.f;
+    rd.xl = 1.f;
+    if (lane < kRound && rd.l < L) {
+      rd.r = crow[rd.l];
+      rd.x = cx[rd.l];
+    }
+    if (L > 0) {  // the row's last slot (its pad row) in every round
+      rd.rl = crow[L - 1];
+      rd.xl = cx[L - 1];
+    }
+    rd.rho = bks.cols[c];
+    l0 += kRound;
+    rd.last = l0 >= L;
+    if (rd.last) {
+      g += gridDim.x;
+      l0 = 0;
+    }
+  };
+  // warp 0: the round read last into buffer buf, its gathered entries
+  // compacted: row ids, x (0 past them to a multiple of four), e by
+  // cp.async (aligned: into the entry's t, with the 1, the zeros and zero
+  // entries to a multiple of four), the row's qB0 (cp.async; zeros to a
+  // float4) and the header
+  auto stage_head = [&](float* buf) {
+    int* s_r = sr_of(buf);
+    float* xs = xs_of(buf);
+    const bool keep = rd.valid && lane < kRound && rd.l < rd.L &&
+                      svbfm::PadRow(rd.rl, rd.L, rd.xl == 0.f)
+                          .gathers(rd.l, rd.r, rd.x);
+    const unsigned m = __ballot_sync(svbfm::kFullMask, keep);
+    const int n = __popc(m);
+    const int n4 = (n + 3) & ~3;
+    if (keep) {
+      const int i = __popc(m & ((1u << lane) - 1));
+      s_r[i] = rd.r;
+      xs[i] = rd.x;
+      if constexpr (kRaw) {
+        cp_async<4>(es_of(buf) + i, e + rd.r);
+      } else {
+        float* t = buf + i * kS;
+        cp_async<4>(t, e + rd.r);
+        t[1] = 1.f;
+        t[2] = t[3] = 0.f;
+        for (int c = F + 4; c < kS; ++c) t[c] = 0.f;
+      }
+    }
+    if (lane >= n && lane < n4) xs[lane] = 0.f;
+    if constexpr (!kRaw) {
+      for (int i = n * kS + lane; i < n4 * kS; i += 32) buf[i] = 0.f;
+    }
+    if (rd.valid) {
+      float* qbs = qb_of(buf);
+      for (int f = lane; f < F; f += 32)
+        cp_async<4>(qbs + f, rtab + rd.rho * ld + f);
+      if (lane < 4 * nq - F) qbs[F + lane] = 0.f;
+    }
+    if (lane == 0) {
+      int* hdr = hdr_of(buf);
+      hdr[0] = rd.valid ? n : -1;
+      hdr[1] = rd.last;
+      hdr[2] = static_cast<int>(rd.rho);
+      hdr[3] = static_cast<int>(rd.rho >> 32);
+    }
+  };
+  // every thread: its share of the round's q rows by 16-byte copies,
+  // word c0 (+ nt, ... where a row has more words than the block threads)
+  // of entries k0, k0 + per, ...: aligned, the row's F / 4 words into its
+  // t; unaligned, the words that hold the row (a row of F floats at any
+  // alignment lies in at most kA / 4 of them) into its raw span (4-byte
+  // copies of an unaligned row, a request a float, were the kernel's
+  // largest cost at F = 33 on the H100)
+  const int nw = kRaw ? kA / 4 : nq;
+  const int per = nt >= nw ? nt / nw : 1;
+  const int k0 = tid / nw;
+  const int c0 = tid - k0 * nw;
+  auto stage_q = [&](float* buf) {
+    const int* s_r = sr_of(buf);
+    const int n = hdr_of(buf)[0];
+    if (k0 >= per) return;
+    for (int c = c0; c < nw; c += nt) {
+#pragma unroll 4
+      for (int k = k0; k < n; k += per) {
+        const float* row = q + static_cast<int64_t>(s_r[k]) * F;
+        if constexpr (kRaw) {
+          const uintptr_t a = reinterpret_cast<uintptr_t>(row);
+          // the words that hold one of the row's floats, no further
+          if (16 * c < static_cast<int>(a & 15) + 4 * F)
+            cp_async<16>(buf + k * kA + 4 * c,
+                         reinterpret_cast<const float*>(
+                             (a & ~uintptr_t{15}) + 16 * c));
+        } else {
+          cp_async<16>(buf + k * kS + 4 + 4 * c, row + 4 * c);
+        }
+      }
+    }
+  };
+
+  if (warp == 0) {
+    read();
+#pragma unroll
+    for (int d = 0; d < kJoinBufs - 1; ++d) {
+      stage_head(smem + d * kBuf);
+      read();
+    }
+  }
+  cp_async_commit();
+  __syncthreads();
+#pragma unroll
+  for (int d = 0; d < kJoinBufs - 2; ++d) {
+    stage_q(smem + d * kBuf);
+    cp_async_commit();
+  }
+  const GridWalk twalk(tid, nt, kRaw ? kB : nq);
+  for (int i = 0;; ++i) {
+    // round i + kJoinBufs - 1's slots into the buffer summed last, round
+    // i + kJoinBufs - 2's q rows; then round i, whose copies were issued
+    // rounds ago
+    if (warp == 0) {
+      stage_head(smem + (i + kJoinBufs - 1) % kJoinBufs * kBuf);
+      read();
+    }
+    stage_q(smem + (i + kJoinBufs - 2) % kJoinBufs * kBuf);
+    cp_async_commit();
+    cp_async_wait<kJoinBufs - 2>();
+    __syncthreads();
+    float* const cb = smem + i % kJoinBufs * kBuf;
+    const float* xs = xs_of(cb);
+    const int n = hdr_of(cb)[0];
+    if (n < 0) break;  // past the block's last round
+    // the round's t: aligned, qO = q - qB0 in place; unaligned, built in
+    // the t area, word c of entry k = (e, 1, 0, 0), qO from its raw span,
+    // or zeros (past F + 3, and entries n .. n4 - 1)
+    const float4* qb4 = reinterpret_cast<const float4*>(qb_of(cb));
+    float* const tt = kRaw ? smem + kJoinBufs * kBuf : cb;
+    float4* const t4 = reinterpret_cast<float4*>(tt);
+    if constexpr (kRaw) {
+      const int* s_r = sr_of(cb);
+      const float* es = es_of(cb);
+      for (GridWalk w = twalk; w.k < ((n + 3) & ~3); w.next()) {
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (w.k < n) {
+          if (w.c == 0) {
+            t.x = es[w.k];
+            t.y = 1.f;
+          } else if (w.c <= nq) {
+            const int f0 = 4 * (w.c - 1);
+            // the row's float offset in its first 16-byte word
+            const int sh = static_cast<int>(
+                (reinterpret_cast<uintptr_t>(
+                     q + static_cast<int64_t>(s_r[w.k]) * F) >> 2) & 3);
+            const float* src = cb + w.k * kA + sh + f0;
+            const float4 b = qb4[w.c - 1];
+            // float f0 < F; the word's floats past F (the next row's q)
+            // become zeros
+            t.x = src[0] - b.x;
+            t.y = f0 + 1 < F ? src[1] - b.y : 0.f;
+            t.z = f0 + 2 < F ? src[2] - b.z : 0.f;
+            t.w = f0 + 3 < F ? src[3] - b.w : 0.f;
+          }
+        }
+        t4[w.k * kB + w.c] = t;
+      }
+    } else {
+      for (GridWalk w = twalk; w.k < n; w.next()) {
+        float4 t = t4[w.k * kB + 1 + w.c];
+        const float4 b = qb4[w.c];
+        t.x -= b.x;
+        t.y -= b.y;
+        t.z -= b.z;
+        t.w -= b.w;
+        t4[w.k * kB + 1 + w.c] = t;
+      }
+    }
+    __syncthreads();
+    // unit s's sums of the round into a (four entries' loads in flight)
+    auto add_round = [&](float (&a)[32], int s) {
+      for (int k = 0; k < n; k += 4) {
+        const float4* tk = t4 + k * kB;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float xk = xs[k + u];
+          const float4 a0 = tk[u * kB + bp[s]];
+          const float4 a1 = tk[u * kB + bp[s] + 1];
+          const float4 b = tk[u * kB + bj[s]];
+          const float av[8] = {a0.x, a0.y, a0.z, a0.w,
+                               a1.x, a1.y, a1.z, a1.w};
+          const float bx[4] = {b.x * xk, b.y * xk, b.z * xk, b.w * xk};
+#pragma unroll
+          for (int ii = 0; ii < 8; ++ii) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              a[4 * ii + jj] = fmaf(av[ii], bx[jj], a[4 * ii + jj]);
+          }
+        }
+      }
+    };
+    if constexpr (kSwap) {
+#pragma unroll
+      for (int s = 0; s < kU; ++s) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float4 v = fresh ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                 : *sums_at(s, c);
+          acc[4 * c] = v.x;
+          acc[4 * c + 1] = v.y;
+          acc[4 * c + 2] = v.z;
+          acc[4 * c + 3] = v.w;
+        }
+        add_round(acc, s);
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          *sums_at(s, c) = make_float4(acc[4 * c], acc[4 * c + 1],
+                                       acc[4 * c + 2], acc[4 * c + 3]);
+      }
+    } else {
+      add_round(acc, 0);
+    }
+    const int* hdr = hdr_of(cb);
+    fresh = hdr[1];
+    if (!hdr[1]) {
+      __syncthreads();  // the round is summed: buffer i is free for the next
+      continue;
+    }
+    // the row's last round: its CH sums out through the round's first area
+    // (unaligned: its raw spans, free since the t area was built, so no
+    // thread waits for the others' sums before it stages)
+    const int64_t rho = static_cast<int64_t>(
+        (static_cast<uint64_t>(static_cast<unsigned>(hdr[3])) << 32) |
+        static_cast<unsigned>(hdr[2]));
+    float* const out = rtab + rho * ld + F;  // streaming: never read back
+    // channel o sits at cb[o + mis - w0] in the window from w0, so that the
+    // area's float4s are the row's aligned 16-byte words
+    const int mis =
+        static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 2) & 3);
+    const int win = kRound * kA;
+    float* const base = out - mis;
+    for (int w0 = 0; w0 < CH + mis; w0 += win) {
+      // aligned, the round summed; then the last window out
+      if (!kRaw || w0 > 0) __syncthreads();
+#pragma unroll
+      for (int s = 0; s < kU; ++s) {
+        if (tid + nt * s < units) {
+          if constexpr (kSwap) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const float4 v = *sums_at(s, c);
+              acc[4 * c] = v.x;
+              acc[4 * c + 1] = v.y;
+              acc[4 * c + 2] = v.z;
+              acc[4 * c + 3] = v.w;
+            }
+          }
+          stage_cells(acc, 0, bp[s], bj[s], F, mis - w0, win, cb);
+          if (bp[s] < bj[s])
+            stage_cells(acc, 16, bp[s] + 1, bj[s], F, mis - w0, win, cb);
+        }
+      }
+      // the window staged; and every thread's sums of the round done, so
+      // that warp 0 may stage round i + kJoinBufs into buffer i
+      __syncthreads();
+      const int m = min(win, CH + mis - w0);
+      for (int k4 = tid; 4 * k4 < m; k4 += nt) {
+        const int o = w0 + 4 * k4 - mis;  // the channel of cb[4 k4]
+        if (o >= 0 && o + 4 <= CH) {
+          __stcs(reinterpret_cast<float4*>(base + w0) + k4,
+                 reinterpret_cast<const float4*>(cb)[k4]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            if (o + v >= 0 && o + v < CH) __stcs(out + o + v, cb[4 * k4 + v]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+    // aligned, the window just stored from is round i + kJoinBufs's t
+    if constexpr (!kRaw) __syncthreads();
+  }
+  cp_async_wait_all();
+}
+
+// X10a's block form at F: (kU units a thread, threads a block), kU the
+// fewest of 1, 2, 3 with which the kB (kB + 2) / 4 units fit a block; 0
+// threads past the widest (mirrored by kernels/bs_sweep.py:
+// join_block_plan).
+struct JoinBlockPlan {
+  int kU, threads;
+};
+static JoinBlockPlan join_block_plan(int F) {
+  const int kB = join_stride(F) / 4;
+  const int units = kB * (kB + 2) / 4;
+  const int kU = units <= kJoinThreads           ? 1
+                 : units <= 2 * kJoinThreadsWide ? 2
+                                                 : 3;
+  const int threads = ((units + kU - 1) / kU + 31) / 32 * 32;
+  return {kU, threads <= (kU > 1 ? kJoinThreadsWide : kJoinThreads) ? threads
+                                                                    : 0};
 }
 
 // ---- X10b -------------------------------------------------------------------
@@ -1568,11 +2017,6 @@ __global__ void __launch_bounds__(kPatchThreads)
 
 }  // namespace
 
-// Mirrored by kernels/bs_sweep.py:join_agg_smem.
-static size_t join_agg_smem(int F) {
-  return sizeof(float) * (agg_channels(F) + 2 * kTile + F * (kTile + 1) + F);
-}
-
 // The widest copy (4, 2 or 1 floats) that a row of ld floats at rtab allows.
 static int row_vec(int ld, const float* rtab) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(rtab);
@@ -1589,15 +2033,65 @@ static cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-static int block_threads(int n) { return n > 128 ? 256 : (n > 32 ? 128 : 64); }
+// The blocks an SM holds of X10a's block form in rounds of kRound slots.
+template <int kU, bool kRaw, int kRound>
+static cudaError_t join_block_fit(int F, int threads, int& fit) {
+  auto kernel = join_agg_block_kernel<kU, kRaw, kRound>;
+  const size_t smem =
+      sizeof(float) * join_block_floats(F, kRaw, kRound, kU, threads);
+  fit = 0;
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaSuccess;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, threads,
+                                                        smem);
+  return err;
+}
+
+// X10a's block form with kU units a thread: rounds of 16 slots where the
+// SM holds at least half as many blocks again as at 32 (the unaligned
+// layout at small F, whose shared memory, not its registers, limits the
+// blocks: more rows in flight ran faster on the H100), else 32 (where the
+// registers hold the blocks, halved rounds only add rounds, and ran
+// slower); a persistent grid of the blocks the card holds.
+template <int kU>
+static int launch_join_block(bool raw, const int64_t* plan, int nb,
+                             int64_t blocks, const float* e, const float* q,
+                             int F, float* rtab, int threads,
+                             cudaStream_t stream) {
+  int dev = 0, sms = 0, fit32 = 0, fit16 = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = raw ? join_block_fit<kU, true, 32>(F, threads, fit32)
+              : join_block_fit<kU, false, 32>(F, threads, fit32);
+  if (err == cudaSuccess)
+    err = raw ? join_block_fit<kU, true, 16>(F, threads, fit16)
+              : join_block_fit<kU, false, 16>(F, threads, fit16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool r16 = 2 * fit16 >= 3 * fit32;
+  const int fit = r16 ? fit16 : fit32;
+  if (fit == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid =
+      static_cast<unsigned>(std::min<int64_t>(int64_t{fit} * sms, blocks));
+  const size_t smem = sizeof(float) * join_block_floats(F, raw, r16 ? 16 : 32,
+                                                        kU, threads);
+  auto kernel = r16 ? (raw ? join_agg_block_kernel<kU, true, 16>
+                           : join_agg_block_kernel<kU, false, 16>)
+                    : (raw ? join_agg_block_kernel<kU, true, 32>
+                           : join_agg_block_kernel<kU, false, 32>);
+  kernel<<<grid, threads, smem, stream>>>(plan, nb, blocks, e, q, F, rtab);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // X10a over the nb buckets of a join plan (each [C, L]; rows: data rows,
 // cols: relation rows): writes rtab [R, 3F + 2 + P] channels F .. 3F + P
 // (F = 0: rtab [R, 2], channel 0) at the buckets' relation rows.  plan is
-// the device table [nb, kPlanCols], blocks the buckets' blocks in all: C
-// a bucket at F > 32, ceil(C G / kNarrowThreads) at F <= 1; at
-// 2 <= F <= 32 the relation rows in all (C a bucket), which the warps of
-// a persistent grid walk.
+// the device table [nb, kPlanCols], blocks the buckets' blocks in all:
+// ceil(C G / kNarrowThreads) a bucket at F <= 1; at F >= 2 the relation
+// rows in all (C a bucket), which the warps (F <= 32) or the blocks
+// (F > 32) of a persistent grid walk.
 SVBFM_EXPORT int svbfm_bs_join_agg(const int64_t* plan, int nb,
                                    int64_t blocks, const float* e,
                                    const float* q, int F, float* rtab,
@@ -1640,12 +2134,17 @@ SVBFM_EXPORT int svbfm_bs_join_agg(const int64_t* plan, int nb,
       return static_cast<int>(cudaGetLastError());
     });
   }
-  const size_t smem = join_agg_smem(F);
-  const cudaError_t err = allow_smem(join_agg_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  join_agg_kernel<<<grid, block_threads(agg_channels(F)), smem, stream>>>(
-      plan, nb, e, q, F, rtab);
-  return static_cast<int>(cudaGetLastError());
+  // the block form: blocks the plan's relation rows, which the blocks of a
+  // persistent grid walk
+  const JoinBlockPlan bp = join_block_plan(F);
+  if (bp.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool raw = row_vec(F, q) < 4;
+  return bp.kU == 1   ? launch_join_block<1>(raw, plan, nb, blocks, e, q, F,
+                                             rtab, bp.threads, stream)
+         : bp.kU == 2 ? launch_join_block<2>(raw, plan, nb, blocks, e, q, F,
+                                             rtab, bp.threads, stream)
+                      : launch_join_block<3>(raw, plan, nb, blocks, e, q, F,
+                                             rtab, bp.threads, stream);
 }
 
 // X10b on one [C, L] bucket of a relation bin (rows: relation rows; cols:

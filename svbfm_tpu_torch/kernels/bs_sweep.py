@@ -4,7 +4,8 @@
 ``bs_join_agg`` (X10a) sums, per relation row, the channels built from e and
 qO = q - qB0 over the data rows joined to it (all degree buckets of a join
 plan in one launch; ``join_form``: a group of up to 32 lanes a relation row
-at F <= 1, a warp a row to F = 32, a block a row past it);
+at F <= 1, a warp a row to F = 32, a block a row past it, the 4 x 4 tiles
+of the row's Gram matrix spread over the block, ``join_block_plan``);
 ``bs_rel_draw`` (X10b) computes one
 relation bucket's she, sh2 and cross-factor matrix M from the relation-row
 table and draws the bucket's factors with exact sequential conditionals
@@ -48,7 +49,6 @@ from svbfm_tpu_torch.kernels.mcmc_sweep import (MAX_BLOCK_SMEM,
 from svbfm_tpu_torch.learners.base import keep_finite
 
 _I32, _F32 = torch.int32, torch.float32
-_TILE = 32  # csrc/bs_sweep.cu kTile
 _NARROW_THREADS = 256  # csrc/bs_sweep.cu kNarrowThreads
 # the least real entries a block of X10b takes when a column is split
 _SPLIT_MIN = 128
@@ -85,32 +85,93 @@ _AGG_WARPS = 4  # csrc/bs_sweep.cu kAggWarps: X10a's warp form, a block
 _AGG_ROUND = 32  # kAggRound: the slots a warp reads a round
 _AGG_BUFS = 3  # kAggBufs: a warp's buffers, the rounds staged at once
 _AGG_MAX_F = 32  # kAggMaxF: the widest F of the warp form
+_JOIN_BUFS = 3  # kJoinBufs: the block form's buffers, the rounds staged
+# kJoinThreads, kJoinThreadsWide: the widest blocks of the block form at 1
+# unit a thread, and at 2 or 3
+_JOIN_THREADS = {1: 512, 2: 384, 3: 384}
 
 
 def join_form(F: int) -> str:
     """X10a's form at F factors (``csrc/bs_sweep.cu:svbfm_bs_join_agg``):
     ``narrow`` (G lanes a relation row) at F <= 1, ``warp`` (a warp a row,
     the warps of a persistent grid walking the rows, the channel sums in
-    registers) to F = 32, ``block`` (a block a row) past it."""
+    registers) to F = 32, ``block`` (a block a row, the blocks of a
+    persistent grid walking the rows, the sums over its threads) past
+    it."""
     if F <= 1:
         return "narrow"
     return "warp" if F <= _AGG_MAX_F else "block"
 
 
 def agg_stride(F: int) -> int:
-    """kS, the floats of half an entry the warp form stages at F: the next
-    multiple of 8 >= F + 2 (``csrc/bs_sweep.cu:with_agg_form``)."""
+    """kS, the floats of an entry the warp form stages at F (q | e | 1 and
+    zeros): the next multiple of 8 >= F + 2
+    (``csrc/bs_sweep.cu:with_agg_form``)."""
     return -(-(F + 2) // 8) * 8
 
 
+def join_stride(F: int) -> int:
+    """kS of the block form: the floats of an entry (e | 1 | 0 | 0 | q) and
+    zeros to a multiple of 8 (``csrc/bs_sweep.cu:join_stride``)."""
+    return -(-(F + 4) // 8) * 8
+
+
+class JoinBlockPlan(NamedTuple):
+    """X10a's block form at F: kU, the units (two 4 x 4 Gram tiles over one
+    column block) a thread owns, and the threads a block (0 past the
+    widest block)."""
+
+    kU: int
+    threads: int
+
+
+def join_block_plan(F: int) -> JoinBlockPlan:
+    """The block form's units a thread and threads a block at F
+    (``csrc/bs_sweep.cu:join_block_plan``): the kB (kB + 2) / 4 units of
+    the Gram upper triangle, kB = join_stride(F) / 4, the fewest of 1, 2, 3
+    a thread with which they fit a block (512 threads at 1, 384 at 2 or 3),
+    in whole warps."""
+    kB = join_stride(F) // 4
+    units = kB * (kB + 2) // 4
+    kU = next(k for k in (1, 2, 3) if units <= k * _JOIN_THREADS[k] or k == 3)
+    threads = -(-(-(-units // kU)) // 32) * 32
+    return JoinBlockPlan(kU, threads if threads <= _JOIN_THREADS[kU] else 0)
+
+
 def join_agg_smem(F: int) -> int:
-    """Bytes of shared memory X10a's block takes at F >= 2
-    (``csrc/bs_sweep.cu:join_agg_smem`` for the block form, kAggBufs
-    ``agg_buf`` a warp for the warp form); the F <= 1 form takes none."""
-    if join_form(F) == "warp":  # kAggBufs buffers a warp
+    """Bytes of shared memory X10a's block takes at F >= 2: kAggBufs
+    buffers of a round (``csrc/bs_sweep.cu:agg_buf``) a warp in the warp
+    form; in the block form the larger of its two layouts at the least it
+    can take, rounds of 16 (``join_block_smem``); the F <= 1 form takes
+    none."""
+    if join_form(F) == "warp":
         kS = agg_stride(F)
         return 4 * _AGG_WARPS * _AGG_BUFS * (_AGG_ROUND * (kS + 2) + kS + 4)
-    return 4 * (agg_channels(F) + 2 * _TILE + F * (_TILE + 1) + F)
+    return max(join_block_smem(F, raw, 16) for raw in (False, True))
+
+
+def join_block_smem(F: int, raw: bool, round_: int = 32) -> int:
+    """Bytes of shared memory of the block form's block at F in rounds of
+    ``round_`` slots (``csrc/bs_sweep.cu:join_block_floats``; the launch
+    takes 32 where that fits, unless the SM then holds half as many blocks
+    again at 16): kJoinBufs round buffers, each entry's area its t where
+    q's rows are 16-byte aligned, else the raw span of its q row with the
+    block's one t area after them; at two or three units a thread the
+    units' sums between rounds."""
+    area = (F + 6) // 4 * 4 if raw else join_stride(F)
+    buf = round_ * (area + 3) + -(-F // 4) * 4 + 4
+    floats = _JOIN_BUFS * buf + (round_ * join_stride(F) if raw else 0)
+    p = join_block_plan(F)
+    if p.kU > 1:
+        floats += p.kU * 32 * p.threads
+    return 4 * floats
+
+
+def join_fits(F: int) -> bool:
+    """Whether X10a takes F factors: every F whose form fits a block (the
+    block form's widest, F = 260, past MAX_REL_F)."""
+    return join_agg_smem(F) <= MAX_BLOCK_SMEM and (
+        join_form(F) != "block" or join_block_plan(F).threads > 0)
 
 
 def draw_outputs(F: int) -> int:
@@ -127,7 +188,7 @@ def rel_draw_fits(F: int) -> bool:
     """Whether the learners give X10a and X10b blocks of F factors: F up to
     MAX_REL_F, where X10a's block and the X10b form draw_form picks (at
     F >= 2 the tiled form without wcc the widest) fit the card."""
-    return (F <= MAX_REL_F and join_agg_smem(F) <= MAX_BLOCK_SMEM
+    return (F <= MAX_REL_F and join_fits(F)
             and (F <= 1 or tile_rows(F, False) > 0))
 
 
@@ -293,9 +354,9 @@ def join_plan_rows(buckets, F: int) -> tuple[tuple, int]:
     (rows, x, cols pointers, C, L, G, first), the buckets laid end to end,
     and their total.  By ``join_form``: narrow, G the lanes a relation row
     (``narrow_lanes``), first the bucket's first block, ceil(C G / 256)
-    blocks a bucket, the total the blocks; warp, G = 32, first the
-    bucket's first relation row, the total the rows (the kernel sizes its
-    persistent grid itself); block, G unread, C blocks a bucket."""
+    blocks a bucket, the total the blocks; warp and block, G = 32 (unread),
+    first the bucket's first relation row, the total the rows (the kernel
+    sizes its persistent grid itself)."""
     form = join_form(F)
     out, first = [], 0
     for b in buckets:
@@ -304,7 +365,7 @@ def join_plan_rows(buckets, F: int) -> tuple[tuple, int]:
             G = narrow_lanes(L)
             size = -(-C * G // _NARROW_THREADS)
         else:
-            G, size = (32 if form == "warp" else narrow_lanes(L)), C
+            G, size = 32, C
         out.append((b.rows.data_ptr(), b.x.data_ptr(), b.cols.data_ptr(), C,
                     L, G, first))
         first += size
@@ -350,9 +411,9 @@ def bs_join_agg(buckets, e, q, F: int, rtab) -> None:
     rows, blocks = join_plan_rows(buckets, F)
     if blocks == 0:
         return
-    if join_agg_smem(F) > MAX_BLOCK_SMEM:
-        raise ValueError(f"bs_join_agg: F = {F} needs more shared memory "
-                         f"than one block may take")
+    if not join_fits(F):
+        raise ValueError(f"bs_join_agg: F = {F} is wider than a block of "
+                         "X10a takes")
     plan = build.device_table(rows, dev)
     lib = build.load_library("bs_sweep")
     with torch.cuda.device(dev):

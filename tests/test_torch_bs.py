@@ -315,6 +315,8 @@ def _sweeps_match(jl, tl, n_sweeps):
 BS_CASES = {
     "factor_block=1": dict(factor_block=1),
     "factor_block=K": dict(factor_block=0),
+    # F = 34: past the warp form's F <= 32, X10a's block form on the card
+    "factor_block=K, K=34": dict(factor_block=0, K=34),
     "two relations, empty main, factor_block=K": dict(factor_block=0,
                                                       users_rel=True),
     "nine relations, factor_block=K": dict(factor_block=0, **NINE),
@@ -324,9 +326,9 @@ BS_CASES = {
 @pytest.mark.parametrize("case", list(BS_CASES))
 def test_bs_als_sweeps_match_jax(case):
     jl, tl = _pair(True, **BS_CASES[case])
-    fb = BS_CASES[case]["factor_block"]
-    assert tl.factor_width == (1 if fb == 1 else 3) == (
-        jl.cfg.factor_block if fb else 3)
+    fb, K = BS_CASES[case]["factor_block"], BS_CASES[case].get("K", 3)
+    assert tl.factor_width == (1 if fb == 1 else K) == (
+        jl.cfg.factor_block if fb else K)
     _sweeps_match(jl, tl, 3)
 
 
@@ -558,9 +560,9 @@ def test_narrow_lanes_is_the_cu_formula(L, G):
 def test_join_plan_rows_lay_the_buckets_end_to_end():
     """X10a's plan table: a row a bucket (pointers, C, L, G, first), the
     buckets end to end: ceil(C G / 256) blocks a bucket at F <= 1, C
-    blocks (a block a relation row) at F > 32, C relation rows at
-    2 <= F <= 32 (G = 32 lanes a row; a persistent grid walks them), an
-    empty bucket taking none; and the blocks or rows in all."""
+    relation rows at F >= 2 (G = 32, unread; a persistent grid of warps
+    at F <= 32, of blocks past it, walks them), an empty bucket taking
+    none; and the blocks or rows in all."""
     from svbfm_tpu_torch.kernels import bs_sweep as ks
 
     bs = [tbs.JoinBlock(rows=torch.zeros(C, L, dtype=torch.int32),
@@ -577,23 +579,25 @@ def test_join_plan_rows_lay_the_buckets_end_to_end():
                                      (32, 150)]
     assert blocks == 153
     rows, blocks = ks.join_plan_rows(bs, 33)
-    assert [r[6] for r in rows] == [0, 100, 100, 150] and blocks == 153
+    assert [r[5:] for r in rows] == [(32, 0), (32, 100), (32, 100),
+                                     (32, 150)]
+    assert blocks == 153
 
 
-def _join_plan_walk(rows, total, F, nwarps=None):
+def _join_plan_walk(rows, total, F, ngrid=None):
     """Emulate X10a's launch over a plan table (csrc/bs_sweep.cu), each
-    form with its own mapping: narrow and block, each block finds its
-    bucket (find_bucket) and its threads their relation rows; warp,
-    ``nwarps`` warps of a persistent grid walk the rows laid end to end,
-    warp w rows w, w + nwarps, ..., each in rounds of 32 slots.  Returns
-    {(bucket, row): [slots read]}."""
+    form with its own mapping: narrow, each block finds its bucket
+    (find_bucket) and its threads their relation rows; warp and block,
+    ``ngrid`` warps or blocks of a persistent grid walk the rows laid end
+    to end (AggBuckets), unit w rows w, w + ngrid, ..., each in rounds of
+    32 slots.  Returns {(bucket, row): [slots read]}."""
     from svbfm_tpu_torch.kernels import bs_sweep as ks
 
     form = ks.join_form(F)
     seen = {}
-    if form == "warp":
-        for w in range(nwarps):
-            for g in range(w, total, nwarps):
+    if form in ("warp", "block"):
+        for w in range(ngrid):
+            for g in range(w, total, ngrid):
                 b = max(i for i, r in enumerate(rows)
                         if r[6] <= g and r[3] > 0)
                 _, _, _, C, L, G, first = rows[b]
@@ -607,26 +611,20 @@ def _join_plan_walk(rows, total, F, nwarps=None):
         while b + 1 < len(rows) and rows[b + 1][6] <= blk:
             b += 1
         _, _, _, C, L, G, first = rows[b]
-        if form == "narrow":  # G lanes a row, 256 threads a block
-            for tid in range(256):
-                c = ((blk - first) * 256 + tid) // G
-                if c < C:
-                    seen.setdefault((b, c), []).extend(
-                        range(tid % G, L, G))
-        else:  # a block a row, its threads over tiles of 32 slots
-            c = blk - first
-            assert c < C
-            seen.setdefault((b, c), []).extend(range(L))
+        for tid in range(256):  # G lanes a row, 256 threads a block
+            c = ((blk - first) * 256 + tid) // G
+            if c < C:
+                seen.setdefault((b, c), []).extend(range(tid % G, L, G))
     return seen
 
 
-@pytest.mark.parametrize("F", [0, 1, 2, 5, 20, 32, 33])
+@pytest.mark.parametrize("F", [0, 1, 2, 5, 20, 32, 33, 64, 251])
 def test_join_plan_covers_every_relation_row_once(F):
     """X10a's plan in each form reaches every relation row of every
     bucket (empty buckets among them, L = 1-4,096) once and reads each of
-    its slots exactly once; in the warp form whatever the persistent
-    grid's size (1, 3 and 1,000 warps: a warp walking many rows across
-    buckets, or fewer rows than warps)."""
+    its slots exactly once; in the warp and block forms whatever the
+    persistent grid's size (1, 3 and 1,000 warps or blocks: one walking
+    many rows across buckets, or fewer rows than the grid)."""
     from svbfm_tpu_torch.kernels import bs_sweep as ks
 
     shapes = ((0, 8), (37, 1), (100, 8), (0, 16), (50, 33), (9, 128),
@@ -636,13 +634,111 @@ def test_join_plan_covers_every_relation_row_once(F):
                         cols=torch.zeros(C, dtype=torch.int32))
           for C, L in shapes]
     rows, total = ks.join_plan_rows(bs, F)
-    grids = (1, 3, 1000) if ks.join_form(F) == "warp" else (None,)
-    for nwarps in grids:
-        seen = _join_plan_walk(rows, total, F, nwarps)
+    grids = (None,) if ks.join_form(F) == "narrow" else (1, 3, 1000)
+    for ngrid in grids:
+        seen = _join_plan_walk(rows, total, F, ngrid)
         assert sorted(seen) == [(b, c) for b, (C, _) in enumerate(shapes)
                                 for c in range(C)]
         for (b, c), slots in seen.items():
             assert sorted(slots) == list(range(shapes[b][1])), (b, c)
+
+
+@pytest.mark.parametrize("F,kU,threads", [
+    (33, 1, 32), (36, 1, 32), (37, 1, 64), (64, 1, 96), (128, 1, 320),
+    (172, 1, 512), (173, 2, 288), (212, 2, 384), (213, 3, 288),
+    (251, 3, 352), (260, 3, 384), (261, 3, 0)])
+def test_join_block_plan_owns_every_gram_tile(F, kU, threads):
+    """X10a's block form past F = 32 (csrc/bs_sweep.cu:join_block_plan):
+    the kB (kB + 2) / 4 units (row blocks 2p, 2p + 1 over a column block
+    bj >= 2p) of the Gram upper triangle of t = (e | 1 | 0 | 0 | qO),
+    kB = join_stride(F) / 4, the fewest of 1, 2, 3 a thread with which they
+    fit a block (512 threads at 1, 384 at 2 or 3), in whole warps; the
+    units hold
+    every tile of the triangle once; the block's rounds fit its shared
+    memory in both layouts at every width the learners admit, so they keep
+    F up to 251 (0 threads past F = 260)."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+    from svbfm_tpu_torch.kernels.mcmc_sweep import MAX_BLOCK_SMEM
+
+    p = ks.join_block_plan(F)
+    assert (p.kU, p.threads) == (kU, threads)
+    kS = ks.join_stride(F)
+    kB = kS // 4
+    assert kS % 8 == 0 and F + 4 <= kS < F + 12
+    units = _block_units(kB)
+    assert len(units) == kB * (kB + 2) // 4
+    tiles = [t for bp, bj in units for t in ((bp, bj), (bp + 1, bj))
+             if t[0] <= t[1]]
+    assert sorted(tiles) == [(i, j) for i in range(kB) for j in range(i, kB)]
+    if threads:
+        assert threads % 32 == 0 and kU * threads >= len(units)
+        assert kU * (threads - 32) < len(units)
+        assert ks.join_fits(F) and ks.join_agg_smem(F) <= MAX_BLOCK_SMEM
+        assert ks.join_agg_smem(F) == max(ks.join_block_smem(F, raw, 16)
+                                          for raw in (False, True))
+    else:
+        assert not ks.join_fits(F)
+    assert all(ks.join_fits(F2) for F2 in range(2, ks.MAX_REL_F + 1))
+
+
+def _block_units(kB):
+    """The block form's units as its threads decode them
+    (csrc/bs_sweep.cu:join_agg_block_kernel): unit u -> (2p, bj),
+    row-pair-major, bj from 2p to kB - 1."""
+    out = []
+    for u in range(kB * (kB + 2) // 4):
+        p = 0
+        while u >= kB - 2 * p:
+            u -= kB - 2 * p
+            p += 1
+        out.append((2 * p, 2 * p + u))
+    return out
+
+
+def _block_cells(F):
+    """csrc/bs_sweep.cu:stage_cells over every unit's tiles: {(i, j):
+    channel} of t = (e | 1 | 0 | 0 | qO)."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    out = {}
+    for bp, bj in _block_units(ks.join_stride(F) // 4):
+        for bi in (bp, bp + 1):
+            if bi > bj:
+                continue
+            if bi == bj == 0:
+                out[(0, 1)] = 0
+                continue
+            for ii in range(4 if bi else 2):
+                m = 4 * bi + ii - 4
+                base = (2 * F - 3 + m * F - m * (m + 1) // 2 if bi
+                        else (-3 if ii == 0 else F - 3))
+                for jj in range(4):
+                    j = 4 * bj + jj
+                    if (jj >= ii or bi != bj) and j < F + 4:
+                        assert (4 * bi + ii, j) not in out
+                        out[(4 * bi + ii, j)] = base + j
+    return out
+
+
+@pytest.mark.parametrize("F", [2, 5, 20, 33, 37, 48, 64, 65, 66, 128, 251,
+                               260])
+def test_join_block_cells_land_on_their_channels(F):
+    """The block form's epilogue puts each Gram cell of t = (e | 1 | 0 | 0 |
+    qO) at the channel of its product (e x, e qO_m x, qO_m x, then
+    qO_m qO_n x in numpy's triu order, as bs_join_agg_plain stacks them):
+    every channel once, and no cell of e e, 1 1, the zeros or below the
+    diagonal."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    iu0, iu1, _, _ = ks._sym(F)
+    want = {(0, 1): 0}
+    want.update({(0, 4 + m): 1 + m for m in range(F)})
+    want.update({(1, 4 + m): 1 + F + m for m in range(F)})
+    want.update({(4 + m, 4 + n): 1 + 2 * F + p
+                 for p, (m, n) in enumerate(zip(iu0, iu1))})
+    got = _block_cells(F)
+    assert got == want
+    assert sorted(got.values()) == list(range(ks.agg_channels(F)))
 
 
 @pytest.mark.parametrize("F,L,form", [

@@ -544,10 +544,12 @@ def _join_bucket(rng, C, L, N, cols, dev):
                      cols=torch.from_numpy(cols.astype(np.int32)).to(dev))
 
 
-def _join_agg_case(cuda, F, shapes, seed, poison=None, twice=False):
+def _join_agg_case(cuda, F, shapes, seed, poison=None, twice=False,
+                   q_shift=0):
     """X10a against its twin on a plan of ``shapes``; ``poison`` "e" (a NaN
     residual) or "q" (an Inf cache) at the pad row N - 1; ``twice``: a
-    second launch must give the same bits."""
+    second launch must give the same bits; ``q_shift``: q a view that many
+    floats into its buffer (its rows off their 16-byte boundaries)."""
     import chip_smoke
     from svbfm_tpu_torch.kernels import bs_sweep as ks
 
@@ -574,7 +576,11 @@ def _join_agg_case(cuda, F, shapes, seed, poison=None, twice=False):
     elif poison == "q":
         qn[N - 1, F - 1] = np.inf
     e_t = torch.from_numpy(e.astype(np.float32)).to(cuda)
-    q = torch.from_numpy(qn.astype(np.float32)).to(cuda) if F else None
+    q = None
+    if F:
+        flat = torch.zeros(N * F + q_shift, device=cuda)
+        q = flat[q_shift:].view(N, F)
+        q.copy_(torch.from_numpy(qn.astype(np.float32)))
     got, want = rtab.clone(), rtab.clone()
     before = build.launch_counts["bs_join_agg"]
     ks.bs_join_agg(buckets, e_t, q, F, got)
@@ -624,17 +630,34 @@ def test_join_agg_plan_in_one_launch_matches_twin(cuda, F):
 
 @pytest.mark.parametrize("F,poison", [
     (0, None), (0, "e"), (1, None), (1, "e"), (1, "q"),
-    *((F, p) for F in (2, 5, 20, 32, 33) for p in (None, "e", "q"))])
+    *((F, p) for F in (2, 5, 20, 32, 33, 48, 64, 128, 200, 251)
+      for p in (None, "e", "q"))])
 def test_join_agg_forms_match_twin(cuda, F, poison):
     """X10a in each form (``join_form``): G lanes a relation row at F <= 1,
     a warp a row at F = 2, 5, 20, 32 (rows of 1 to 32 rounds of 32 slots,
-    L = 300 and 1,000 among them), a block a row at F = 33; buckets of
-    L = 1-1,000 with an empty one, ragged padding and a column of padding
-    only; with ``poison`` a NaN e or an Inf q at the pad row, which the
-    twin's x = 0 products carry into every padded relation row's sums;
-    two launches give the same bits."""
+    L = 300 and 1,000 among them), a block a row at F = 33, 48, 64, 128,
+    200 and 251 (one, two and three units a thread, q's rows staged in
+    place and as raw 16-byte words, rows written in one window and in
+    several); buckets of L = 1-1,000
+    with an empty one, ragged padding and a column of padding only; with
+    ``poison`` a NaN e or an Inf q at the pad row, which the twin's x = 0
+    products carry into every padded relation row's sums; two launches
+    give the same bits."""
     _join_agg_case(cuda, F, [(23, 1), (40, 7), (0, 8), (31, 33), (9, 300),
                              (3, 1000)], 100 + F, poison, twice=True)
+
+
+@pytest.mark.parametrize("F", [48, 64, 200])
+@pytest.mark.parametrize("poison", [None, "e", "q"])
+def test_join_agg_block_form_on_unaligned_q_matches_twin(cuda, F, poison):
+    """X10a's block form at F % 4 == 0 with q's rows off their 16-byte
+    boundaries (q a view one float into its buffer): the layout that
+    stages each row's raw 16-byte words and builds t from them, which odd
+    F always takes, against the twin with the same poisons; two launches
+    give the same bits."""
+    _join_agg_case(cuda, F, [(23, 1), (40, 7), (0, 8), (31, 33), (9, 300),
+                             (3, 1000)], 200 + F, poison, twice=True,
+                   q_shift=1)
 
 
 def _col_f1_case(cuda, C, L, mode, shift, poison):
