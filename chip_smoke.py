@@ -508,6 +508,43 @@ def cuda_ms(fn, reps: int, graph: bool = True) -> float:
     return a.elapsed_time(b) / reps
 
 
+def fresh_ms(prepare, fn, reps: int, means: int = 1) -> list:
+    """Mean device times of one call of ``fn(inputs)``, each call on its own
+    input set from ``prepare()``: ``reps`` calls on ``reps`` sets captured
+    in a CUDA graph, the sets copied back from one untouched set before
+    each replay, outside the timed events.  A path that applies an
+    in-place op once (X12a) sees fresh values, where ``cuda_ms`` feeds each
+    call its predecessor's output.  One mean a replay, ``means`` of them."""
+    sets = [prepare() for _ in range(reps)]
+    src = prepare()
+
+    def refresh():
+        for s in sets:
+            for t, o in zip(s, src):
+                t.copy_(o)
+
+    fn(prepare())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for s in sets:
+            fn(s)
+    out = []
+    for i in range(means + 1):
+        refresh()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        if i:  # the first replay warms
+            out.append(a.elapsed_time(b) / reps)
+    graph.reset()
+    return out
+
+
 def compare(outs_k, outs_p, what: str) -> float:
     """Max abs error of kernel outputs against the twin's where the twin is
     finite; where it is not, the kernel must have the same NaN/Inf there.
@@ -552,12 +589,14 @@ def _bad(device):
 # ---------------------------------------------------------------------------
 
 def cost(nbytes: float, flops: float, library=None,
-         plain_graph: bool = True, note: str = "") -> dict:
+         plain_graph: bool = True, note: str = "",
+         fresh: bool = False) -> dict:
     """``plain_graph=False``: the twin synchronises (exact_block_draws tests
     its solve on the host), so it is timed host-paced; ``note``: what the
-    timed line also prints (X10b's form and split)."""
+    timed line also prints (X10b's form and split); ``fresh``: each timed
+    call on its own fresh inputs (``fresh_ms``)."""
     return dict(bytes=float(nbytes), flops=float(flops), library=library,
-                plain_graph=plain_graph, note=note)
+                plain_graph=plain_graph, note=note, fresh=fresh)
 
 
 def plan_note(mod, plan: str, args: tuple, fields: tuple) -> str:
@@ -1780,10 +1819,18 @@ def probit_cases(add, s: dict) -> None:
     counted a row, a transcendental function as one: ~30 in X12a's mean
     modes, ~55 in its Gibbs mode (the erf, then Giles' erfinv), ~50 in
     X12b.  X12b's library call is torch.special.ndtr on the scores, the
-    exact Phi (not the reference's A&S erf) and no sums: a yardstick."""
+    exact Phi (not the reference's A&S erf) and no sums: a yardstick.
+    X12a is timed twice: a replay of calls on one e, each reading the one
+    before's output (``cuda_ms``; in the ALS mode e drifts towards -+Inf
+    from call to call), and the path's single application, each call on a
+    fresh copy of e (``fresh_ms``)."""
     from svbfm_tpu_torch.kernels import probit as kp
 
-    for label, e, y, u, mode in s.get("probit_latent", ()):
+    latent = [(label, e, y, u, mode, fresh)
+              for fresh in ((False, True) if s.get("timed", True)
+                            else (False,))
+              for label, e, y, u, mode in s.get("probit_latent", ())]
+    for label, e, y, u, mode, fresh in latent:
         def call(variant, inp, y=y, u=u, mode=mode):
             (t,) = inp
             fn = (kp.probit_latent if variant == "kernel"
@@ -1792,9 +1839,12 @@ def probit_cases(add, s: dict) -> None:
             return [t]
 
         n = e.shape[0]
-        add("probit_latent", f"{label} N={n}", lambda e=e: (e.clone(),),
-            call, cost(n * (12 + (4 if u is not None else 0)),
-                       n * (55 if u is not None else 30)))
+        note = (f"blocks={kp.latent_blocks(n)}"
+                if hasattr(kp, "latent_blocks") else "form=?")
+        add("probit_latent", f"{label}{' fresh' if fresh else ''} N={n}",
+            lambda e=e: (e.clone(),), call,
+            cost(n * (12 + (4 if u is not None else 0)),
+                 n * (55 if u is not None else 30), note=note, fresh=fresh))
     for label, sc, y, valid, nt, acc, it in s.get("probit_eval", ()):
         def prepare(acc=acc):
             return () if acc is None else (acc.clone(), acc.clone())
@@ -1806,10 +1856,13 @@ def probit_cases(add, s: dict) -> None:
 
         n = sc.shape[0]
         rw = 0 if acc is None else n * (8 + (8 if it >= 5 else 0))
+        form = (f"blocks={kp.eval_blocks(n)} "
+                if hasattr(kp, "latent_blocks") else "")
         add("probit_eval", f"{label} N={n}", prepare, call,
             cost(n * 12 + rw + 16, n * 50,
                  library=lambda sc=sc: torch.special.ndtr(sc),
-                 note="library_ms: torch.special.ndtr, the exact Phi"))
+                 note=f"{form}library_ms: torch.special.ndtr, the exact "
+                 "Phi"))
 
 
 def probit_tensors(gibbs, state) -> dict:
@@ -2012,11 +2065,17 @@ def check_cases(s: dict, timed: bool) -> dict:
             if timed and c is not None:
                 inp_k, inp_p = prepare(), prepare()
                 lib = c["library"]
+                if c["fresh"]:
+                    ms, pms = (fresh_ms(prepare, lambda inp, v=v: call(v, inp),
+                                        reps)[0]
+                               for v, reps in (("kernel", 20), ("plain", 5)))
+                else:
+                    ms = cuda_ms(lambda: call("kernel", inp_k), 20)
+                    pms = cuda_ms(lambda: call("plain", inp_p), 5,
+                                  graph=c["plain_graph"])
                 r["times"].append((
-                    label, cuda_ms(lambda: call("kernel", inp_k), 20),
-                    cuda_ms(lambda: call("plain", inp_p), 5,
-                            graph=c["plain_graph"]),
-                    None if lib is None else cuda_ms(lib, 20), c))
+                    label, ms, pms, None if lib is None else cuda_ms(lib, 20),
+                    c))
     return out
 
 

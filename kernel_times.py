@@ -1,7 +1,7 @@
 """Time one family of the port's kernels on the card and profile the paths
 that launch them, for one checkout.
 
-    python3 kernel_times.py {bs,forward,mcmc,sass,sgd,stream,w,win} [--tree DIR] [--label NAME]
+    python3 kernel_times.py {bs,forward,mcmc,probit,sass,sgd,stream,w,win} [--tree DIR] [--label NAME]
 
 Runs the kernels and learners of the checkout at ``--tree`` (default: the
 one holding this script) on the inputs ``chip_smoke.py`` (of this script's
@@ -45,6 +45,24 @@ graph replay of 20 calls, then the family's profiles:
   patch table as each of the two bins leaves it, with its form; and
   ``profile_run`` of one Gibbs sweep at factor_block 0 (X8a's and X8b's
   device time) and one at factor_block 1 (X8a's), twice each.
+- ``probit``: X12a in its VB, ALS and Gibbs modes on the 1,000,022 train
+  rows of the ML-1M recipe and X12b on its 99,978 test rows (VB's eval,
+  and Gibbs's at iteration 6 with its accumulators), the inputs
+  ``chip_smoke.probit_tensors`` makes, each with its grid.  X12a is timed
+  twice: the replay of 20 calls on one e, each reading the one before's
+  output (in the ALS mode e drifts to -+Inf), and the path's single
+  application, each call on its own fresh copy of e (``fresh_ms``).  The
+  first tree run in a checkout saves these inputs
+  (``build/probit_outputs/inputs.pt``) and every later one reads them.
+  The outputs of one application of each (X12a on a fresh copy, X12b's
+  [4] and accumulators) go to ``build/probit_outputs/<label>.pt``; against
+  every other label's file there (a tree run before in the same
+  checkout) it prints the count of X12a's output words whose bits differ
+  and X12b's largest relative difference.  Then ``profile_run`` of one
+  sweep of classification VB (exact mode), Gibbs, ALS (``-regular`` 5)
+  and block-structure Gibbs on the recipes binarised as ``chip_smoke``'s
+  class phases do, twice each, with X12a's and X12b's device time and
+  share (``probit``).
 - ``sgd``: X9a on a batch of 1,024 rows of the ML-1M recipe in the
   regression, exponential-family and SGDA modes and on BPR's batch of
   11,063 pairs; X9c on SGDA's validation batch of 113 rows (G = 2), at
@@ -109,6 +127,7 @@ FAMILIES = {
             "bs_scores")),
     "forward": (("fm_forward", "vb_sweep"), ("fm_", "build_qt")),
     "mcmc": (("mcmc_sweep",), ("col_draw_f1", "row_patch")),
+    "probit": (("probit",), ("probit",)),
     "sass": ((), ()),
     "sgd": (("sgd_step",), ("grad_scatter", "lambda")),
     "w": (("w_sweep", "gather_probe"), ("w_", "gather")),
@@ -172,8 +191,9 @@ def main() -> int:
     one = torch.zeros(1, device=dev)
     line("launch floor (zero_ of one element)", one.zero_)
     family = {"bs": bs_family, "forward": forward_family,
-              "mcmc": mcmc_family, "sgd": sgd_family, "w": w_family,
-              "stream": stream_family, "win": win_family}
+              "mcmc": mcmc_family, "probit": probit_family,
+              "sgd": sgd_family, "w": w_family, "stream": stream_family,
+              "win": win_family}
     family[a.family](cs, build, dev, tag, line)
     return 0
 
@@ -394,6 +414,98 @@ def mcmc_family(cs, build, dev, tag, line) -> None:
     for _ in range(2):
         cs.profile_run(lambda: seq.run(state, num_iter=1, verbose=False), 1,
                        "sweep", f"{tag} mcmc-seq-profile", focus=GIBBS_FOCUS)
+
+
+def probit_family(cs, build, dev, tag, line) -> None:
+    import numpy as np
+    import torch
+
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner
+
+    tr, te, train, test, meta = cs.ml_data(cs.NUM_TRAIN)
+    base = dict(num_attributes=tr.num_features, num_factor=cs.K,
+                min_target=float(tr.target.min()),
+                max_target=float(tr.target.max()),
+                num_groups=meta.num_attr_groups, seed=cs.SEED)
+    # the inputs of the first tree run in this checkout, so that every tree
+    # reads the same values (a Gibbs sweep's e differs from run to run in
+    # its last bits: its sums go by atomics)
+    folder = os.path.join(HERE, "build", "probit_outputs")
+    os.makedirs(folder, exist_ok=True)
+    saved = os.path.join(folder, "inputs.pt")
+    if os.path.exists(saved):
+        s = torch.load(saved, map_location=dev)
+    else:
+        gibbs = MCMCLearner(FMConfig(factor_block=0, **base), train, test,
+                            meta, device=dev, write_files=False)
+        s = cs.probit_tensors(gibbs, gibbs.step(gibbs.init_state())[0])
+        torch.save(s, saved)
+        del gibbs
+    cases = cs.make_cases(s)
+    outs = {}
+    for name in ("probit_latent", "probit_eval"):
+        for label, prepare, call, c in cases[name]:
+            text = f"{name} {label} {c['note']}".rstrip()
+            if c["fresh"]:
+                times = cs.fresh_ms(prepare, lambda i: call("kernel", i), 20,
+                                    3)
+                print(f"[{tag}] {text}: ms={min(times):.4f}-"
+                      f"{max(times):.4f}", flush=True)
+            else:
+                inp = prepare()
+                line(text, lambda: call("kernel", inp))
+            if c["fresh"] or name == "probit_eval":
+                outs[f"{name} {label}"] = [
+                    t.cpu() for t in call("kernel", prepare())]
+    del cases, s
+    torch.save(outs, os.path.join(folder, f"{tag}.pt"))
+    for fn in sorted(os.listdir(folder)):
+        other = fn[:-len(".pt")]
+        if other in (tag, "inputs") or not fn.endswith(".pt"):
+            continue
+        theirs = torch.load(os.path.join(folder, fn))
+        for key, mine in outs.items():
+            if key.startswith("probit_latent"):
+                a, b = mine[0].view(torch.int32), theirs[key][0].view(
+                    torch.int32)
+                print(f"[{tag}] vs {other}: {key}: "
+                      f"{int((a != b).sum())} of {a.numel()} output words "
+                      "differ in their bits", flush=True)
+            else:
+                rel = max(float(((x.double() - y.double()).abs()
+                                 / y.double().abs().clamp_min(1e-30)).max())
+                          for x, y in zip(mine, theirs[key]))
+                print(f"[{tag}] vs {other}: {key}: max relative "
+                      f"difference {rel:.3e}", flush=True)
+
+    ctr, cte = (cs.binarised(d, cs.CLASS_THRESHOLD) for d in (train, test))
+    ccfg = dict(base, task=1, min_target=-1.0, max_target=1.0)
+    kw = dict(device=dev, write_files=False)
+    bsp = cs.bs_problem(cs.BS_ROWS, cs.BS_SLOTS, holdout=False)
+    thr = float(np.median(bsp["train"].target[: bsp["train"].num_rows]))
+    bspc = dict(bsp, train=cs.binarised(bsp["train"], thr),
+                test=cs.binarised(bsp["test"], thr))
+    paths = (
+        ("vb-class", lambda: VBLearner(FMConfig(factor_block=1, **ccfg), ctr,
+                                       cte, meta, **kw)),
+        ("mcmc-class", lambda: MCMCLearner(FMConfig(factor_block=0, **ccfg),
+                                           ctr, cte, meta, **kw)),
+        ("als-class", lambda: ALSLearner(FMConfig(factor_block=0, **dict(
+            ccfg, reg0=cs.ALS_REG, regw=cs.ALS_REG, regv=cs.ALS_REG)), ctr,
+            cte, meta, **kw)),
+        ("bs-class", lambda: cs.bs_learner(
+            bspc, dev, num_factor=cs.K, regw=cs.BS_REG, regv=cs.BS_REG,
+            task=1, min_target=-1.0, max_target=1.0)))
+    for path, make in paths:
+        lr = make()
+        state, _ = lr.run(lr.init_state(), num_iter=1, verbose=False)
+        for _ in range(2):
+            cs.profile_run(lambda: lr.run(state, num_iter=1, verbose=False),
+                           1, "sweep", f"{tag} {path}-profile",
+                           focus=("probit",))
+        del lr, state
 
 
 def sgd_family(cs, build, dev, tag, line) -> None:

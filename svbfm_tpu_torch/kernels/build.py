@@ -110,9 +110,8 @@ SIGNATURES = {
     "svbfm_sgda_lambda": (
         _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _F, _F, _F,
         _F, _F, _I, _I, _I, _I, _P),
-    "svbfm_probit_latent": (_P, _P, _P, _L, _I, _P),
-    "svbfm_probit_eval": (_P, _P, _P, _L, _P, _P, _I, _F, _I, _P, _P, _P,
-                          _P),
+    "svbfm_probit_latent": (_P, _P, _P, _L, _I, _I, _P),
+    "svbfm_probit_eval": (_P, _P, _P, _L, _P, _P, _I, _F, _I, _P, _P, _P),
 }
 
 launch_counts: dict[str, int] = {

@@ -11,6 +11,10 @@ in place, and returns [4] = (accuracy, loglik, accuracy_this,
 loglik_this) on the device (the first two of the posterior mean under
 Gibbs; all four of Phi(score) elsewhere).
 
+Both kernels take the rows in chunks of 4, a chunk a thread
+(``latent_blocks``, ``eval_blocks``), so X12b's sums go in an order fixed
+by N alone.
+
 On CUDA tensors each op launches its hand-written kernel; on CPU tensors it
 runs the plain twin beside it, the JAX arithmetic in the same order:
 ``svbfm_tpu/learners/vb.py:1002-1019`` and ``mcmc.py:1046-1090``, the
@@ -38,8 +42,12 @@ PROBIT_VB, PROBIT_ALS, PROBIT_GIBBS = 0, 1, 2
 CDF_EPS = 1e-7
 # sqrt(2) in float32, as jnp.sqrt(2.0)
 SQRT2 = float(torch.sqrt(torch.tensor(2.0, dtype=_F32)))
-# X12b: 256-thread blocks, 4 rows a thread, at most 2 a streaming
-# multiprocessor of an H100; the grid is a function of N alone
+# rows go by chunks of 4 (csrc/probit.cu), a chunk a thread
+CHUNK = 4
+# X12a: 256-thread blocks, as many as the chunks need
+LATENT_THREADS = 256
+# X12b: 256-thread blocks, at most 2 a streaming multiprocessor of an
+# H100; the grid is a function of N alone
 EVAL_THREADS, EVAL_MAX_BLOCKS = 256, 264
 
 # Giles' single-precision erfinv ("Approximating the erfinv function",
@@ -112,15 +120,23 @@ def probit_eval_plain(scores, target, valid, nt: float,
                         torch.sum(hit_t) / nt, -torch.sum(ll_t) / nt])
 
 
+def latent_blocks(n: int) -> int:
+    """X12a's grid for n rows: a thread a chunk of 4 (the N % 4 rows past
+    the chunks go to the first threads)."""
+    return max(1, -(-n // (CHUNK * LATENT_THREADS)))
+
+
 def eval_blocks(n: int) -> int:
-    """X12b's grid for n rows."""
-    return max(1, min(EVAL_MAX_BLOCKS, -(-n // (4 * EVAL_THREADS))))
+    """X12b's grid for n rows: a thread a chunk of 4, at most
+    EVAL_MAX_BLOCKS blocks (past that each thread strides over several)."""
+    return max(1, min(EVAL_MAX_BLOCKS, -(-n // (CHUNK * EVAL_THREADS))))
 
 
 # ---- wrappers ---------------------------------------------------------------
 
-# per device: the ticket counter X12b's launches leave at zero
-_tickets: dict = {}
+# per device: X12b's scratch, a ticket (zero between launches) and then the
+# blocks' 16-byte partials rows
+_scratch: dict = {}
 
 
 def probit_latent(e, y, u: Optional[torch.Tensor], mode: int) -> None:
@@ -141,7 +157,7 @@ def probit_latent(e, y, u: Optional[torch.Tensor], mode: int) -> None:
     with torch.cuda.device(dev):
         rc = lib.svbfm_probit_latent(
             build.ptr(e), build.ptr(y), None if u is None else build.ptr(u),
-            N, mode, build.stream_of(e))
+            N, mode, latent_blocks(N), build.stream_of(e))
     build.check_launch(lib, rc, "probit_latent")
 
 
@@ -164,19 +180,17 @@ def probit_eval(scores, target, valid, nt: float,
         if t is not None:
             build.require(t, _F32, (N,), dev, f"probit_eval.{name}")
     lib = build.load_library("probit")
-    blocks = eval_blocks(N)
-    ticket = _tickets.get(dev)
-    if ticket is None:
-        ticket = _tickets[dev] = torch.zeros(1, dtype=torch.int32,
-                                             device=dev)
-    partials = torch.empty(blocks, 4, dtype=_F32, device=dev)
+    scratch = _scratch.get(dev)
+    if scratch is None:
+        scratch = _scratch[dev] = torch.zeros(4 * (1 + EVAL_MAX_BLOCKS),
+                                              dtype=_F32, device=dev)
     out = torch.empty(4, dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.svbfm_probit_eval(
             build.ptr(scores), build.ptr(target), build.ptr(valid), N,
             None if psum_all is None else build.ptr(psum_all),
             None if psum_but5 is None else build.ptr(psum_but5), it,
-            float(nt), blocks, build.ptr(partials), build.ptr(ticket),
-            build.ptr(out), build.stream_of(scores))
+            float(nt), eval_blocks(N), build.ptr(scratch), build.ptr(out),
+            build.stream_of(scores))
     build.check_launch(lib, rc, "probit_eval")
     return out

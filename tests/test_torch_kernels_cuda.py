@@ -2163,7 +2163,7 @@ def _probit_rows(cuda, n, seed):
     return t(e), t(y), t(u), t(rng.uniform(0, 4, n))
 
 
-@pytest.mark.parametrize("n", [1, 7, 300, 1_000_022])
+@pytest.mark.parametrize("n", [1, 7, 300, 1_000_022, 2, 3, 5, 1026, 4099])
 @pytest.mark.parametrize("mode", [0, 1, 2], ids=["vb", "als", "gibbs"])
 def test_probit_latent_matches_twin(cuda, mode, n):
     """X12a in its three modes against its twin on the card: NaN and Inf
@@ -2187,7 +2187,14 @@ def test_probit_latent_matches_twin(cuda, mode, n):
     assert torch.equal(outs[0].view(torch.int32), outs[2].view(torch.int32))
 
 
-@pytest.mark.parametrize("n", [1, 7, 300, 99_978, 1_000_022])
+# X12b's blocks take 1,024 rows each, at most 264 of them: sizes on both
+# sides of a block, of the 98 blocks of the 100k test rows, of the cap and
+# of a second pass over the capped grid
+EVAL_EDGES = [1023, 1025, 98 * 1024, 98 * 1024 + 1, 264 * 1024,
+              264 * 1024 + 1, 264 * 1024 + 3, 2 * 264 * 1024 + 6]
+
+
+@pytest.mark.parametrize("n", [1, 7, 300, 99_978, 1_000_022] + EVAL_EDGES)
 @pytest.mark.parametrize("gibbs_it", [None, 3, 7])
 def test_probit_eval_matches_twin(cuda, gibbs_it, n):
     """X12b against its twin: VB's eval (no accumulators) and Gibbs's at
@@ -2215,6 +2222,58 @@ def test_probit_eval_matches_twin(cuda, gibbs_it, n):
                            f"probit_eval it={gibbs_it} n={n}")
         assert torch.equal(outs[0].view(torch.int32),
                            outs[2].view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 6, 1025, 99_979])
+@pytest.mark.parametrize("mode", [0, 1, 2], ids=["vb", "als", "gibbs"])
+def test_probit_latent_misaligned_view(cuda, mode, n):
+    """X12a on views one float in (e[1:], y[1:], u[1:]): four 4-byte loads a
+    chunk in place of one 16-byte load, the twin's values and the aligned
+    launch's bits; the row before the view is left alone."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import probit as kp
+
+    e, y, u, _ = _probit_rows(cuda, n + 1, 31 + mode)
+    uv = u[1:] if mode == kp.PROBIT_GIBBS else None
+    ua = None if uv is None else uv.clone()
+    view, aligned, plain = e.clone(), e[1:].clone(), e[1:].clone()
+    kp.probit_latent(view[1:], y[1:], uv, mode)
+    kp.probit_latent(aligned, y[1:].clone(), ua, mode)
+    kp.probit_latent_plain(plain, y[1:], uv, mode)
+    torch.cuda.synchronize()
+    chip_smoke.compare([view[1:]], [plain], f"probit_latent view n={n}")
+    assert torch.equal(view[1:].view(torch.int32),
+                       aligned.view(torch.int32))
+    assert torch.equal(view[:1].view(torch.int32), e[:1].view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 6, 1025, 99_978])
+@pytest.mark.parametrize("gibbs_it", [None, 7])
+def test_probit_eval_misaligned_view(cuda, gibbs_it, n):
+    """X12b on views one float in (scores[1:] and the rest): the twin's sums
+    and accumulators, and the aligned launch's bits (the rows go to the
+    same threads in the same order)."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import probit as kp
+
+    s, y, _, acc = _probit_rows(cuda, n + 1, 41)
+    s = torch.nan_to_num(s, nan=0.3, posinf=4.0, neginf=-4.0)
+    valid = (torch.arange(n + 1, device=cuda) < n - 1).float()
+    outs, sums = [], []
+    for fn, cut in ((kp.probit_eval, lambda t: t[1:]),
+                    (kp.probit_eval, lambda t: t[1:].clone()),
+                    (kp.probit_eval_plain, lambda t: t[1:])):
+        pa = pb = None
+        if gibbs_it is not None:
+            pa, pb = cut(acc.clone()), cut(acc.clone() * 0.5)
+        outs.append(fn(cut(s), cut(y), cut(valid), float(n), pa, pb,
+                       gibbs_it or 0))
+        sums.append([] if pa is None else [pa, pb])
+    torch.cuda.synchronize()
+    chip_smoke.compare([outs[0]] + sums[0], [outs[2]] + sums[2],
+                       f"probit_eval view it={gibbs_it} n={n}")
+    for a, b in zip([outs[0]] + sums[0], [outs[1]] + sums[1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("method", ["vb", "vb_exact", "mcmc", "als", "ovb"])
