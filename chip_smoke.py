@@ -42,6 +42,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      each, and
      one PyTorch call where one computes the same function.  Then x9b-digest: sha256 of X9b's outputs on
      seeded inputs.
+  2b. serve: the serving path, BatchScorer on K1a's serve epilogue
+     (fm_serve, also in the kernel phase in its three modes, at the
+     path's batch and on rows and tables with NaN and +-Inf) at
+     scripts/bench_serve.py's shape: 10M one-hot rows, K=20, batches of
+     2^20, two in flight, host arrays to host predictions (fm_serve
+     launched; finite, in [1, 5], the first and last 200k rows against
+     the CPU twin's); the same rows in 4,096-row batches through a window
+     of two equal to one-shot scoring bit for bit; the probit scorer
+     against the twin; end-to-end and device-resident (8 distinct batches
+     on the card, one fetch at the end) rows/s, a slot's host fill and a
+     batch's copy to the card timed alone.
   3. vb-fast: batch VBFM (fast mode) init + 10 sweeps through VBLearner;
      every kernel of the path must have been launched; the free energy must
      not fall and the test RMSE must drop.
@@ -68,8 +79,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      -method exp_sgd and -method als -relation items, and -task c with
      -method mcmc and -method sgd (-out must hold probabilities), -device
      cuda on small libFM files, and on binary files vb_online,
-     sgd_online and -cache_size with vb, mcmc and als (4 windows), and
-     mcmc -num_eval_cases; each must exit 0 and write its files.
+     sgd_online and -cache_size with vb, mcmc and als (4 windows),
+     mcmc -num_eval_cases; each must exit 0 and write its files.  Three
+     of them also check a flag (aux-cli): vb_online -rlog (the
+     reference's header, a row an iteration), sgd -profile (a Chrome
+     trace that names K1a's kernel), mcmc -task c -map_eval (MAP@5 on
+     every #Iter line and the final one).
  13. ovb-profile: device time of one online-VB epoch by kernel, K5's
      (w_bin_kernel) apart.
  14. mcmc: Gibbs MCMC, factor_block=0 (F=20), 10 iterations from the
@@ -90,6 +105,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      table (the kernel and torch.take), the lane-local [S,128] form and
      the depth sweep 8/32/1024 (the counterpart of
      scripts/pallas_gather_probe.py).
+ 19b. ckpt-resume: batch VB (fast mode), Gibbs (the generator on the
+     card), OVB and SGD: 2 sweeps saved by utils/checkpoint.py, a resume
+     and 2 more against 4 uninterrupted: every state tensor and metric
+     equal bit for bit (SGD, whose X9a adds with float atomics so that two
+     uninterrupted runs differ too: within the GPU-vs-CPU bounds).
  20. sgd: minibatch SGD (batch 1024, 976 batches an epoch), 5 epochs:
      X9a, X9b and K1 launched, test RMSE falling; sec/epoch, the host's
      enqueue time and the device's wait after it, peak memory.
@@ -171,7 +191,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      memory beside the bytes the train rows would take resident, which it
      must stay below.
 Then the nvidia-smi line again, a JSON line with each kernel's launches
-(summed over the driven runs of phases 3, 7, 9, 14, 16, 19, 20-25, 28,
+(summed over the driven runs of phases 2b, 3, 7, 9, 14, 16, 19, 20-25, 28,
 30-32, 35, 37, 39, 41 (with mcmc-windowed and als-windowed) and 42, each
 read just after its run with the
 counts zeroed just before),
@@ -305,6 +325,20 @@ NEC, NEC_RTOL = 50_000, 1e-5
 # the first's, three standard deviations of an accuracy near 0.65 measured
 # on 99,978 test rows (sqrt(0.65 * 0.35 / 99,978) = 0.0015)
 CLASS_ACC_SLACK = 0.005
+# the serving path at scripts/bench_serve.py's shape: ML-1M's one-hot rows
+# of a user and an item, K = 20, w0 = 3.5 and w, v ~ 0.1 N(0, 1) from
+# seed 0, regression clamped to the star range, 10M rows in batches of
+# 2^20; the in-flight window checked at 4,096-row batches, two in flight,
+# on 2M rows; the device-resident rate over 8 distinct batches on the card
+SERVE_ROWS, SERVE_BATCH = 10_000_000, 1 << 20
+SERVE_LO, SERVE_HI = 1.0, 5.0
+SERVE_CHECK_ROWS, SERVE_CHECK_BATCH = 2_000_000, 4096
+SERVE_RESIDENT_BATCHES, SERVE_RESIDENT_PASSES = 8, 4
+# rows of the served predictions held to the CPU twin's
+SERVE_CPU_ROWS = 200_000
+# checkpoint/resume on the card: CKPT_SWEEPS, a resume, CKPT_SWEEPS more,
+# against 2 * CKPT_SWEEPS uninterrupted
+CKPT_SWEEPS = 2
 # the least time of a kernel's work (PERF.md): its bytes at the H100's HBM
 # rate, or its float32 operations at the peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -315,6 +349,10 @@ SOURCES = {
                   "svbfm_tpu/ops/forward.py:61"),
     "fm_t_terms": ("svbfm_tpu_torch/csrc/fm_forward.cu",
                    "svbfm_tpu/ops/forward.py:111"),
+    # K1a with the serve epilogue: fm_scores and the output transform of
+    # BatchScorer's compiled program (serve.py:138-155)
+    "fm_serve": ("svbfm_tpu_torch/csrc/fm_forward.cu",
+                 "svbfm_tpu/serve.py:140"),
     "vb_build_qt": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
                     "svbfm_tpu/learners/vb.py:317"),
     "vb_col_stats_update": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
@@ -407,6 +445,7 @@ PATH_KERNELS = {
     "als": ("fm_scores", "build_q", "mcmc_col_draw", "mcmc_patch_rows",
             "mcmc_w_draw", "w_patch_rows"),
     "gather-probe": ("gather_probe",),
+    "serve": ("fm_serve",),
     "sgd": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
     "sgd-online": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
     "exp-sgd-stoc": ("fm_scores", "sgd_grad_scatter", "sgd_apply"),
@@ -783,6 +822,38 @@ def make_cases(s: dict):
             cost(rows_bytes(s["ids"]) + table_bytes(s["ttab"]) + N * 4,
                  N * P * (9 * K + 2) + 4 * N * K,
                  note=k1_note(s["ttab"], K, s["ids"])))
+
+    if "serve" in s:  # K1a with the serve epilogue, its three modes, at
+        # bench_serve.py's shape and on rows and tables with NaN and +-Inf
+        sv = s["serve"]
+        K = sv["tab"].shape[1] - 1
+
+        def serve_call(mode, tab, ids, vals):
+            def call(variant, _):
+                if variant == "kernel":
+                    return [k1.fm_serve_op(tab, sv["w0"], ids, vals, mode,
+                                           SERVE_LO, SERVE_HI)]
+                return [k1.fm_serve_plain(tab, sv["w0"], ids, vals, mode,
+                                          SERVE_LO, SERVE_HI)]
+            return call
+
+        ids64, dense = sv["ids"].long(), sv["tab"].contiguous()
+        N, P = sv["ids"].shape
+        for mode, name, epi in ((k1.SERVE_CLAMP, "clamp", 2),
+                                (k1.SERVE_PROBIT, "probit", 20),
+                                (k1.SERVE_SCORE, "score", 0)):
+            add("fm_serve", f"{name} N={N}", nothing,
+                serve_call(mode, sv["tab"], sv["ids"], sv["vals"]),
+                cost(rows_bytes(sv["ids"]) + sv["tab"].shape[0] * (K + 1) * 4
+                     + N * 4, N * P * (4 * K + 2) + 2 * N * K + N * epi,
+                     lambda: torch.nn.functional.embedding_bag(
+                         ids64, dense, per_sample_weights=sv["vals"],
+                         mode="sum"),
+                     note=plan_note(k1, "fm_plan", (sv["tab"], K, P),
+                                    ("vec", "lanes", "rows", "build"))))
+            add("fm_serve", f"{name} poisoned N={sv['bad_ids'].shape[0]}",
+                nothing, serve_call(mode, sv["bad_tab"], sv["bad_ids"],
+                                    sv["bad_vals"]), None)
 
     if "buckets" in s:  # batch VB, fast mode (all K factors in one block)
         F = s["F"]
@@ -2314,7 +2385,8 @@ def ragged_tensors(device) -> list:
     return [s, vb, ov, ragged_mcmc_tensors(device),
             *ragged_sgd_tensors(device), ragged_bs_tensors(device),
             *ragged_w_tensors(device), *ragged_win_tensors(device),
-            *ragged_mwin_tensors(device), ragged_probit_tensors(device)]
+            *ragged_mwin_tensors(device), ragged_probit_tensors(device),
+            serve_tensors(device, ragged=True)]
 
 
 def ragged_w_tensors(device) -> list:
@@ -3052,6 +3124,278 @@ def ragged_sgd_tensors(device) -> list:
     return out
 
 
+def serve_model():
+    """scripts/bench_serve.py's model: w0 = 3.5, w and v 0.1 N(0, 1) from
+    seed 0, D = 6,040 + 3,952, K = 20."""
+    rng = np.random.default_rng(0)
+    D = NUM_USERS + NUM_ITEMS
+    w = 0.1 * rng.standard_normal(D).astype(np.float32)
+    v = 0.1 * rng.standard_normal((K, D)).astype(np.float32)
+    return 3.5, w, v
+
+
+def serve_rows(first: int, rows: int):
+    """Rows first..first + rows of scripts/bench_serve.py's requests: user
+    n % 6,040 and item (7 n) % 3,952, both one-hot."""
+    n = np.arange(first, first + rows, dtype=np.int64)
+    ids = np.stack([(n % NUM_USERS).astype(np.int32),
+                    (NUM_USERS + (n * 7) % NUM_ITEMS).astype(np.int32)], 1)
+    return ids, np.ones((rows, 2), np.float32)
+
+
+def serve_tensors(device, ragged: bool = False) -> dict:
+    """The serve epilogue's inputs on ``device``: one batch of the serving
+    path (2^20 rows; ``ragged``: 1,001 rows of 3 positions at K = 5, some
+    of them padding, untimed), and 4,096 (ragged: 1,001) rows over a table
+    whose linear channel is +Inf, -Inf or NaN at some features, a NaN
+    value every ninth row, so that scores are NaN, +Inf and -Inf."""
+    from svbfm_tpu_torch.ops.forward import score_table
+
+    w0, w, v = serve_model()
+    if ragged:
+        rng = np.random.default_rng(SEED)
+        w, v = w[:40], v[:5, :40]
+        ids = rng.integers(0, 40, (1001, 3)).astype(np.int32)
+        vals = rng.uniform(0.5, 1.5, (1001, 3)).astype(np.float32)
+        ids[1::3, 2], vals[1::3, 2] = 39, 0.0
+        bad_ids, bad_vals = ids, vals.copy()
+    else:
+        ids, vals = serve_rows(0, SERVE_BATCH)
+        bad_ids, bad_vals = serve_rows(0, 4096)
+    t = torch.from_numpy
+    wb = w.copy()
+    f = np.arange(wb.shape[0])
+    wb[f % 11 == 0], wb[f % 13 == 1], wb[f % 17 == 2] = np.inf, -np.inf, np.nan
+    bad_vals[::9, 0] = np.nan
+    return dict(tag="ragged" if ragged else "serve", timed=not ragged,
+                serve=dict(
+        tab=score_table(t(w).to(device), t(v).to(device)),
+        bad_tab=score_table(t(wb).to(device), t(v).to(device)),
+        w0=torch.tensor(w0, dtype=torch.float32, device=device),
+        ids=t(ids).to(device), vals=t(vals).to(device),
+        bad_ids=t(bad_ids).to(device), bad_vals=t(bad_vals).to(device)))
+
+
+def serve_phase(build, card: str, dev) -> dict:
+    """[serve]: BatchScorer at scripts/bench_serve.py's shape, 10M rows
+    from host arrays to host predictions (the launch counts zeroed before
+    and read after), held to the CPU twin on the first and last rows, in
+    [1, 5]; the 4,096-row window (two in flight) equal to one-shot scoring
+    bit for bit, and the probit scorer's probabilities against the twin;
+    the device-resident rate over 8 distinct batches on the card, one
+    fetch at the end; the host's fill of a pinned slot and one batch's
+    copy to the card, timed alone.  Returns the serve run's launches."""
+    from svbfm_tpu_torch.learners.base import TASK_CLASSIFICATION
+    from svbfm_tpu_torch.serve import BatchScorer
+
+    t0 = time.perf_counter()
+    w0, w, v = serve_model()
+    ids, vals = serve_rows(0, SERVE_ROWS)
+    kw = dict(min_target=SERVE_LO, max_target=SERVE_HI)
+    scorer = BatchScorer(w0, w, v, batch_rows=SERVE_BATCH, device=dev, **kw)
+    warm = 2 * SERVE_BATCH  # both slots' pinned buffers, made once
+    scorer.score_rows(ids[:warm], vals[:warm])
+    t1 = time.perf_counter()
+    out, launches = drive(build, "serve", lambda: scorer.score_rows(ids,
+                                                                    vals))
+    e2e = SERVE_ROWS / (time.perf_counter() - t1)
+    if out.shape != (SERVE_ROWS,) or not np.isfinite(out).all() or not (
+            (out >= SERVE_LO) & (out <= SERVE_HI)).all():
+        raise AssertionError("serve: predictions not finite in [1, 5]")
+    cpu = BatchScorer(w0, w, v, batch_rows=SERVE_CPU_ROWS, device="cpu",
+                      **kw)
+    n = SERVE_CPU_ROWS
+    err = max(compare([torch.from_numpy(out[sl])], [torch.from_numpy(
+        cpu.score_rows(ids[sl], vals[sl]))], "serve vs cpu")
+        for sl in (slice(0, n), slice(SERVE_ROWS - n, SERVE_ROWS)))
+    # many batches through a window of two: the slots reused under load
+    m = SERVE_CHECK_ROWS
+    small = BatchScorer(w0, w, v, batch_rows=SERVE_CHECK_BATCH, inflight=2,
+                        device=dev, **kw)
+    one = BatchScorer(w0, w, v, batch_rows=m, device=dev, **kw)
+    if not np.array_equal(small.score_rows(ids[:m], vals[:m]),
+                          one.score_rows(ids[:m], vals[:m])):
+        raise AssertionError("serve: the 4,096-row window differs from "
+                             "one-shot scoring")
+    probit = BatchScorer(w0, w, v, batch_rows=SERVE_BATCH, device=dev,
+                         task=TASK_CLASSIFICATION)
+    pcpu = BatchScorer(w0, w, v, batch_rows=n, device="cpu",
+                       task=TASK_CLASSIFICATION)
+    perr = compare([torch.from_numpy(probit.score_rows(ids[:n], vals[:n]))],
+                   [torch.from_numpy(pcpu.score_rows(ids[:n], vals[:n]))],
+                   "serve probit vs cpu")
+    # device-resident: distinct batches already on the card
+    B = SERVE_BATCH
+    res = []
+    for b in range(SERVE_RESIDENT_BATCHES):
+        bi, bv = serve_rows(b * B, B)
+        res.append((torch.from_numpy(bi).to(dev), torch.from_numpy(bv).to(dev),
+                    torch.empty(B, device=dev)))
+    for bi, bv, o in res:
+        scorer.score_device(bi, bv, out=o)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b_ = torch.cuda.Event(enable_timing=True)
+    t2 = time.perf_counter()
+    a.record()
+    for _ in range(SERVE_RESIDENT_PASSES):
+        for bi, bv, o in res:
+            scorer.score_device(bi, bv, out=o)
+    b_.record()
+    total = float(torch.stack([o.sum() for _, _, o in res]).sum())
+    wall = time.perf_counter() - t2
+    calls = SERVE_RESIDENT_PASSES * SERVE_RESIDENT_BATCHES
+    resident = calls * B / wall
+    kernel_ms = a.elapsed_time(b_) / calls
+    # the host's fill of one pinned slot, and one batch's copy to the card
+    pin_i = torch.empty((B, 2), dtype=torch.int32, pin_memory=True)
+    pin_v = torch.empty((B, 2), dtype=torch.float32, pin_memory=True)
+    fills = min(10, SERVE_ROWS // B)
+    t3 = time.perf_counter()
+    for b in range(fills):
+        sl = slice(b * B, (b + 1) * B)
+        pin_i.numpy()[:] = ids[sl]
+        pin_v.numpy()[:] = vals[sl]
+    fill_ms = (time.perf_counter() - t3) * 1e3 / fills
+    d_i, d_v = torch.empty_like(pin_i, device=dev), torch.empty_like(
+        pin_v, device=dev)
+    h2d_ms = cuda_ms(lambda: (d_i.copy_(pin_i, non_blocking=True),
+                              d_v.copy_(pin_v, non_blocking=True)), 10,
+                     graph=False)
+    del res, d_i, d_v
+    say("serve", t0, rows=SERVE_ROWS, batch_rows=B, inflight=2,
+        e2e_rows_per_s=f"{e2e:.0f}", resident_rows_per_s=f"{resident:.0f}",
+        resident_kernel_ms_per_batch=f"{kernel_ms:.4f}",
+        host_fill_ms_per_batch=f"{fill_ms:.3f}",
+        h2d_ms_per_batch=f"{h2d_ms:.3f}", resident_sum=f"{total:.6e}",
+        max_abs_err_vs_cpu=f"{err:.3e}", probit_max_abs_err=f"{perr:.3e}",
+        window_rows=m, window_batch=SERVE_CHECK_BATCH,
+        window_equals_one_shot=True,
+        launches=json.dumps({k: c for k, c in launches.items() if c},
+                            separators=(",", ":")), card=repr(card))
+    return launches
+
+
+def ckpt_phase(dev, runs: dict) -> None:
+    """[ckpt-resume]: for each (name: (learner, run kwargs, tol)),
+    CKPT_SWEEPS sweeps saved, a resume from the checkpoint and CKPT_SWEEPS
+    more against 2 * CKPT_SWEEPS uninterrupted sweeps: every tensor of the
+    state and every record's metric equal bit for bit where ``tol`` is
+    None; else (a path whose kernels add with float atomics, so that two
+    uninterrupted runs differ too, which the phase shows by running one
+    twice) within ``tol`` = (rtol on the metrics, atol on the state).
+    Each run starts from a fresh init_state (Gibbs, SGD: a new generator
+    on the card) and, for OVB, a fresh epoch-order generator."""
+    from svbfm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    n = CKPT_SWEEPS
+
+    def tensors(state):
+        return {f.name: getattr(state, f.name)
+                for f in dataclasses.fields(state)
+                if isinstance(getattr(state, f.name), torch.Tensor)}
+
+    def metrics(hist):
+        return {k: [h[k] for h in hist] for k in hist[0]
+                if not k.startswith("time_") and isinstance(hist[0][k], float)}
+
+    def differ(a, b, ha, hb, tol):
+        """The state fields and metrics where runs a and b differ: at all,
+        or past ``tol``; and the largest differences."""
+        ta, tb, ma, mb = tensors(a), tensors(b), metrics(ha), metrics(hb)
+        d_state = max((float((ta[k] - tb[k]).abs().max()) for k in ta
+                       if ta[k].numel()), default=0.0)
+        d_rel = max((abs(x - y) / max(abs(y), 1e-30) for k in ma
+                     for x, y in zip(ma[k], mb[k])), default=0.0)
+        if tol is None:
+            bad = [k for k in ta if not torch.equal(ta[k], tb[k])]
+            bad += [k for k in ma if ma[k] != mb[k]]
+        else:
+            bad = [k for k in ta if not torch.allclose(
+                ta[k], tb[k], rtol=0.0, atol=tol[1], equal_nan=True)]
+            bad += [k for k in ma if any(
+                abs(x - y) > tol[0] * abs(y) for x, y in zip(ma[k], mb[k]))]
+        return bad, d_state, d_rel
+
+    try:
+        for name, (lr, kw, tol) in runs.items():
+            def go(**extra):
+                if hasattr(lr, "_member_rng"):  # OVB's host generators
+                    lr.rng = np.random.default_rng(lr.cfg.seed + 1)
+                return lr.run(lr.init_state(), verbose=False, **kw, **extra)
+            full, hf = go(num_iter=2 * n)
+            mgr = CheckpointManager(os.path.join(root, name))
+            go(num_iter=n, ckpt=mgr, ckpt_every=n)
+            res, hr = go(num_iter=2 * n, ckpt=mgr, ckpt_every=100)
+            if [h["iter"] for h in hr] != list(range(n, 2 * n)):
+                raise AssertionError(f"ckpt-resume {name}: the resumed run "
+                                     f"ran iterations {[h['iter'] for h in hr]}")
+            bad, d_state, d_rel = differ(res, full, hr, hf[n:], tol)
+            if bad:
+                raise AssertionError(f"ckpt-resume {name}: resumed and "
+                                     f"uninterrupted differ in {bad} "
+                                     f"(state {d_state:.3e}, metrics "
+                                     f"{d_rel:.3e}, tol {tol})")
+            kv = dict(path=name, sweeps=f"{n}+{n}",
+                      bitwise_equal=not differ(res, full, hr, hf[n:],
+                                               None)[0],
+                      max_state_diff=f"{d_state:.3e}",
+                      max_metric_rel=f"{d_rel:.3e}")
+            if tol is not None:
+                again, ha = go(num_iter=2 * n)
+                kv.update(tol=",".join(f"{t:g}" for t in tol),
+                          repeat_bitwise_equal=not differ(
+                              again, full, ha, hf, None)[0])
+            say("ckpt-resume", t0, **kv, fields=len(tensors(full)),
+                metrics=len(metrics(hr)), checkpoints=",".join(
+                    sorted(os.listdir(os.path.join(root, name)))))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def write_map_fixture(work: str, te) -> None:
+    """fix.txt in ``work``: the MAP fixture of the test rows of ``te`` (a
+    user and an item a row), in the test file's order: whether the row is
+    positive, the user, the item."""
+    order = np.lexsort((te.col, te.row))
+    col = te.col[order].reshape(-1, 2)
+    with open(os.path.join(work, "fix.txt"), "w") as f:
+        for u, i, y in zip(col.min(1), col.max(1), te.target):
+            f.write(f"{int(y > 0)} {u}:1 {i}:1\n")
+
+
+def aux_check(flag: str, work: str, out: str) -> str:
+    """What a CLI run with -rlog (a header that starts with rmse and mae,
+    and one row an iteration), -map_eval (MAP@5 on each #Iter line and the
+    final MAP@5) or -profile (a Chrome trace that names K1a's kernel) left
+    in ``work`` and printed; raises where it is missing.  Returns a note."""
+    lines = out.splitlines()
+    if flag == "rlog":
+        with open(os.path.join(work, "log.tsv")) as f:
+            log = f.read().splitlines()
+        if len(log) != 3 or not log[0].startswith("rmse\tmae\t"):
+            raise AssertionError(f"cli -rlog: {log[:1]}, {len(log)} lines")
+        return f"columns={len(log[0].split())}"
+    if flag == "map_eval":
+        final = [ln for ln in lines if ln.startswith("MAP@5\t")]
+        if sum("MAP@5= " in ln for ln in lines) != 2 or not final:
+            raise AssertionError("cli -map_eval: no MAP@5 lines")
+        return f"final_map={final[0].split()[1]}"
+    with open(os.path.join(work, "prof", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    # K1a: fm_rows_kernel<W, 2, false, 0, 0>, demangled or not
+    if not any("fm_rows_kernel" in e.get("name", "") and any(
+            t in e["name"] for t in ("2, false, 0, 0>", "Li2ELb0ELi0ELi0E"))
+            for e in events):
+        raise AssertionError("cli -profile: the trace names no K1a kernel")
+    return (f"kernel_events="
+            f"{sum(e.get('cat') == 'kernel' for e in events)}")
+
+
 def positives(coo):
     """The rows rated BPR_MIN_RATING or more, as implicit-feedback
     positives (target 1)."""
@@ -3266,9 +3610,11 @@ def run_clis(dev_index: int, specs: list) -> None:
     files, options) with options ``relation`` (move the items into a
     relation, ``-relation items``), ``task`` "c" (classification on the
     stars less 3.5, the CLI's positive class > 0: pred.txt must hold
-    probabilities) and ``binary`` (the files are the reference's binary
-    .x/.y alone, no text).  Each must exit 0 and write v_file.txt,
-    pred.txt, its test_rmse file and ``files``."""
+    probabilities), ``binary`` (the files are the reference's binary
+    .x/.y alone, no text) and ``aux`` (rlog, map_eval or profile: the
+    flag's output checked by ``aux_check``, on a ``[aux-cli]`` line; the
+    MAP fixture written beside the files).  Each must exit 0 and write
+    v_file.txt, pred.txt, its test_rmse file and ``files``."""
     from svbfm_tpu_torch.data.binary import save_coo_binary
     from svbfm_tpu_torch.data.libfm_text import save_libfm_text
     from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
@@ -3300,6 +3646,8 @@ def run_clis(dev_index: int, specs: list) -> None:
             else:
                 save_libfm_text(os.path.join(work, "train.libfm"), tr)
                 save_libfm_text(os.path.join(work, "test.libfm"), te)
+            if opt.get("aux") == "map_eval":
+                write_map_fixture(work, te)
             cmd = [sys.executable, "-m", "svbfm_tpu_torch.cli", "-task",
                    task, "-train", "train.libfm", "-test", "test.libfm",
                    "-dim", "1,1,8", "-method", method, *extra, "-iter", "2",
@@ -3332,6 +3680,10 @@ def run_clis(dev_index: int, specs: list) -> None:
                 binary=bool(opt.get("binary")),
                 flags=",".join(extra) or "-", rc=proc.returncode,
                 final=final.split("=")[1])
+            if opt.get("aux"):
+                say("aux-cli", t0, flag=f"-{opt['aux']}", method=method,
+                    rc=proc.returncode,
+                    **dict([aux_check(opt["aux"], work, out).split("=", 1)]))
     finally:
         for *_, proc in runs:
             if proc.poll() is None:
@@ -4561,6 +4913,7 @@ def main() -> int:
         check_cases(exp_sgd_tensors(exp_full, exp_full.init_state()),
                     timed=True),
         check_cases(probit_tensors(gibbs, mc1), timed=True),
+        check_cases(serve_tensors(dev), timed=True),
         check_cases(bs_tensors(bs_mcmc, bs1, "bs", True, (K, 0, 1),
                                agg_widths=(BS_AGG_BLOCK_F,),
                                agg_checks=BS_AGG_CHECK_F), timed=True),
@@ -4580,6 +4933,9 @@ def main() -> int:
     say("kernels", t0, compared=len(report), tol=KERNEL_TOL)
     t0 = time.perf_counter()
     say("x9b-digest", t0, **x9b_digests(dev))
+
+    # ---- 2b. the serving path: BatchScorer on K1a's serve epilogue ----------
+    l_serve = serve_phase(build, card, dev)
 
     # ---- 3. batch VB, fast mode, on the card ---------------------------------
     t0 = time.perf_counter()
@@ -4719,12 +5075,16 @@ def main() -> int:
     # ---- 12. the port's CLI -------------------------------------------------
     # (and out of core: binary files streamed, -cache_size,
     # -num_eval_cases)
+    # (-rlog, -profile and -map_eval ride on three of the runs)
     run_clis(dev.index, [
-        ("vb_online", ["-batch", "5"], ("free_energy_118_vb_online",), {}),
-        ("sgd", ["-learn_rate", "0.05"], (), {}),
+        ("vb_online", ["-batch", "5", "-rlog", "log.tsv"],
+         ("free_energy_118_vb_online", "log.tsv"), dict(aux="rlog")),
+        ("sgd", ["-learn_rate", "0.05", "-profile", "prof"],
+         ("prof/trace.json",), dict(aux="profile")),
         ("exp_sgd", ["-learn_rate", str(EXP_SGD_LR)], (), {}),
         ("als", ["-regular", "1"], (), dict(relation=True)),
-        ("mcmc", [], (), dict(task="c")),
+        ("mcmc", ["-map_eval", "fix.txt", "-map_k", "5"], (),
+         dict(task="c", aux="map_eval")),
         ("sgd", ["-learn_rate", "0.05"], (), dict(task="c")),
         ("vb_online", ["-batch", "5"], ("free_energy_118_vb_online",),
          dict(binary=True)),
@@ -4831,6 +5191,15 @@ def main() -> int:
     print("\n".join(lines))
     say("gather-probe", t0, sets=len(sets), card=repr(card))
 
+    # ---- 19b. checkpoint/resume on the card, bit for bit --------------------
+    # (SGD's X9a adds each batch's gradients with float atomics: two of
+    # its runs differ in their last bits, so it is held to the GPU-vs-CPU
+    # bounds)
+    ckpt_phase(dev, {"vb": (learner, dict(chunk=1), None),
+                     "gibbs": (gibbs, dict(chunk=1), None),
+                     "ovb": (ovb, {}, None),
+                     "sgd": (sgd, {}, (SGD_TRAJ_RTOL, SGD_PARAM_ATOL))})
+
     l_sgd, l_online, l_exp, l_sgda, l_bpr, online_sec = sgd_phases(
         build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
         base_cfg, (tr90, va10))
@@ -4870,7 +5239,7 @@ def main() -> int:
     l_ooc = ooc_phases(build, card, dev, tr, te, train, test, meta, base_cfg,
                        plan, ovb_ref, online_sec)
 
-    runs = (l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
+    runs = (l_serve, l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
             l_bs_nine, l_bs_k64, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}

@@ -94,8 +94,9 @@ graph replay of 20 calls, then the family's profiles:
   of this checkout compiled to a cubin (the build's nvcc flags) and
   disassembled by ``cuobjdump -sass``; for each kernel of ``--tree``,
   whether this checkout's build of it is the same instructions (under
-  its name or, where it became a template, as one of ``name<...>``), and
-  the kernels this checkout adds.
+  its name or, where it became a template, as one of ``name<...>``, or,
+  where its template took one more parameter, as ``name<its arguments,
+  ...>``), and the kernels this checkout adds.
 - ``stream``: the out-of-core learners' host side: OVB (20 chunks) and
   sgd_online (50 chunks) on the ML-1M recipe written as binary files,
   four epochs each (the first is a warm-up) in memory and streamed from
@@ -242,14 +243,20 @@ def sass_family(tree: str) -> int:
     with work:
         for lib in build.LIBRARIES:
             old, new = kernels(tree, lib), kernels(HERE, lib)
+            matched = set()
             for k, v in sorted(old.items()):
-                hit = [n for n in new if (n == k or n.startswith(f"{k}<"))
+                # the same name; a function become a template; a template
+                # given one more parameter (k's arguments, then more)
+                hit = [n for n in new if (n == k or n.startswith(f"{k}<") or (
+                    k.endswith(">") and n.startswith(f"{k[:-1]}, ")))
                        and new[n] == v]
+                matched.update(hit[:1])
                 print(f"[sass] {lib} {k}: "
                       f"{'same as ' + hit[0] if hit else 'DIFFERENT'} "
                       f"({len(v)} instructions)", flush=True)
             print(f"[sass] {lib} new: "
-                  f"{sorted(n for n in new if n not in old)}", flush=True)
+                  f"{sorted(n for n in new if n not in set(old) | matched)}",
+                  flush=True)
     return 0
 
 

@@ -18,7 +18,14 @@ the name, which wins where present; with a binary train file and no
 ``learners/vb_windowed.py``, ``learners/mcmc_windowed.py``).
 ``-num_eval_cases n`` evaluates the first n test rows (vb, mcmc and als
 also report the rest as ``rmse_test2_*``); the final ``Test=`` is over
-them for every method.
+them for every method.  ``-checkpoint DIR`` saves the training state every
+``-checkpoint_every`` iterations and resumes from the newest checkpoint in
+DIR (every method but bpr, and not with ``-cache_size``); ``-rlog FILE``
+streams the reference's per-iteration RLog columns; ``-map_eval FIXTURE``
+(with ``-map_item_offset``, ``-map_k``) adds MAP@k to the Gibbs/ALS and
+vb_online iterations under ``-task c`` and prints the final ``MAP@k``;
+``-profile DIR`` writes a ``torch.profiler`` Chrome trace of the training
+run to DIR/trace.json.
 
     python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
         -dim '1,1,20' -method mcmc -iter 10 -device cuda
@@ -87,6 +94,17 @@ Flags (-name value):
   -factor_block  factors per sweep block; 0=all (fast), 1=reference-exact
   -bins        column-bin mode: auto|fields|greedy|jacobi
   -seed        RNG seed
+  -rlog        write the per-iteration RLog (tab separated) to this file
+  -checkpoint  directory of checkpoints: save the training state and
+               resume from the newest one (not bpr; not with -cache_size)
+  -checkpoint_every  iterations between checkpoints; default=10
+  -map_eval    MAP@k fixture ('<rating> <user>:1 <item>:1' lines aligned
+               with the test rows): per-iteration MAP@k (mcmc, als,
+               vb_online under -task c) and the final MAP@k
+  -map_item_offset  subtracted from the fixture's item ids; default=0
+  -map_k       k of MAP@k; default=5
+  -profile     directory for a torch.profiler trace (trace.json) of the
+               training run
   -verbosity   how much to print; default=0
   -device      torch device to train on; default=cuda (cpu runs the
                kernels' plain PyTorch twins)
@@ -98,7 +116,9 @@ SUPPORTED = {"task", "train", "test", "meta", "out", "dim", "iter", "method",
              "verbosity", "device", "help", "regular", "init_stdev",
              "do_sampling", "do_multilevel", "factor_jacobi", "learn_rate",
              "validation", "stdev", "bpr_neg_field", "relation",
-             "cache_size", "num_eval_cases"}
+             "cache_size", "num_eval_cases", "checkpoint",
+             "checkpoint_every", "rlog", "map_eval", "map_item_offset",
+             "map_k", "profile"}
 SGD_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd", "exp_sgd_stoc", "bpr")
 # the methods that read each method-specific flag
 FLAG_METHODS = {
@@ -113,18 +133,15 @@ FLAG_METHODS = {
     "stdev": ("exp_sgd", "exp_sgd_stoc"),
     "bpr_neg_field": ("bpr",),
     "cache_size": ("vb", "mcmc", "als"),
+    # bpr's run keeps no checkpoint (svbfm_tpu/learners/bpr.py:225 accepts
+    # and ignores one)
+    "checkpoint": tuple(m for m in ("mcmc", "als", "vb", "vb_online")
+                        + SGD_METHODS if m != "bpr"),
 }
 
 _Q1 = "ROADMAP.md queue 1"
 # flags of svbfm_tpu/cli.py that the port refuses, and why
 REFUSED = {
-    "checkpoint": f"checkpoints are not ported yet ({_Q1}, item 12)",
-    "checkpoint_every": f"checkpoints are not ported yet ({_Q1}, item 12)",
-    "rlog": f"the RLog metrics file is not ported yet ({_Q1}, item 12)",
-    "map_eval": f"MAP@k evaluation is not ported yet ({_Q1}, item 12)",
-    "map_item_offset": f"MAP@k evaluation is not ported yet ({_Q1}, item 12)",
-    "map_k": f"MAP@k evaluation is not ported yet ({_Q1}, item 12)",
-    "profile": f"the profiler flag is not ported yet ({_Q1}, item 12)",
     "feature_shards": f"feature sharding over several GPUs is not ported yet "
                       f"({_Q1}, item 13)",
     "distributed": f"multi-process training is not ported yet ({_Q1}, "
@@ -252,6 +269,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     if cache_bytes > 0 and nec:  # svbfm_tpu/cli.py:385-390, :408-413
         raise SystemExit("-num_eval_cases is not supported with "
                          "-cache_size")
+    if cache_bytes > 0 and cmd.has("checkpoint"):  # svbfm_tpu/cli.py:388
+        raise SystemExit("-checkpoint is not supported with -cache_size: "
+                         "the windowed learners do not resume")
     if cache_bytes > 0 and cmd.has("bins"):
         raise SystemExit("-bins is not read with -cache_size: the windowed "
                          "plan colours the columns by field structure")
@@ -484,8 +504,31 @@ def main(argv: Optional[list[str]] = None) -> int:
             print(f"num_eval_cases={nec or te_ds.num_rows}")
         print(f"device={device}")
 
-    state, _history = learner.run(state=init_state, num_iter=cfg.num_iter,
-                                  verbose=True)
+    # the reference's RLog columns, streamed by the learner every
+    # iteration (svbfm_tpu/cli.py:345, :496-499)
+    from svbfm_tpu_torch.utils.rlog import RLog
+    from svbfm_tpu_torch.utils.rlog_schema import register_for
+    rlog = RLog(cmd.get_str("rlog") or None)
+    register_for(learner, rlog)
+    # per-iteration MAP@k inside the Gibbs/ALS and OVB classification
+    # loops (svbfm_tpu/cli.py:501-509); the fixture comes from -map_eval
+    if cmd.has("map_eval") and task == TASK_CLASSIFICATION \
+            and hasattr(type(learner), "map_eval"):
+        from svbfm_tpu_torch.learners.base import MapEval
+        learner.map_eval = MapEval.from_file(
+            cmd.get_str("map_eval"), cmd.get_int("map_item_offset", 0),
+            cmd.get_int("map_k", 5))
+    run_kw = {}
+    if cmd.has("checkpoint"):  # svbfm_tpu/cli.py:535-539
+        from svbfm_tpu_torch.utils.checkpoint import CheckpointManager
+        run_kw["ckpt"] = CheckpointManager(cmd.get_str("checkpoint"))
+        run_kw["ckpt_every"] = cmd.get_int("checkpoint_every", 10)
+    from svbfm_tpu_torch.utils.profiling import trace
+    with trace(cmd.get_str("profile") or None):
+        state, _history = learner.run(state=init_state,
+                                      num_iter=cfg.num_iter, verbose=True,
+                                      **run_kw)
+    rlog.close()
 
     # final evaluation + -out predictions (libfm.cpp:508-519,
     # svbfm_tpu/cli.py:543-573): sampling MCMC outputs the posterior mean
@@ -504,6 +547,13 @@ def main(argv: Optional[list[str]] = None) -> int:
     # over the first -num_eval_cases rows (svbfm_tpu/cli.py:565-583)
     vals_eval = out_vals[:nec] if nec else out_vals
     target_eval = test.target[:nec] if nec else test.target
+    if cmd.has("map_eval"):  # svbfm_tpu/cli.py:568-574, on the scores
+        from svbfm_tpu_torch.learners.base import load_map_fixture, map_at_k
+        u, i, pos = load_map_fixture(cmd.get_str("map_eval"),
+                                     cmd.get_int("map_item_offset", 0))
+        mk = cmd.get_int("map_k", 5)
+        print(f"MAP@{mk}\t"
+              f"{map_at_k(learner.predict_test_scores(state), u, i, pos, k=mk):.6g}")
     if task == TASK_REGRESSION:
         rmse = float(np.sqrt(np.mean((vals_eval - target_eval) ** 2)))
         print(f"Final\tTest={rmse:.6g}")

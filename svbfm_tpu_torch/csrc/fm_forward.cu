@@ -1,5 +1,6 @@
 // K1: FM score and VBFM T-term forward over the padded row layout; in its
-// relations mode, X10d's block-structure scores (bs_scores, below).
+// relations mode, X10d's block-structure scores (bs_scores, below); with an
+// output epilogue, the serving path's scores (svbfm_fm_serve, at the end).
 //
 // Replaces svbfm_tpu/ops/forward.py:fm_scores and :fm_t_terms (XLA gather
 // chains).  Per row n of ids/vals [N, P]:
@@ -185,17 +186,41 @@ __device__ __forceinline__ void add_relations(
   }
 }
 
+// The serve epilogue's output modes (svbfm_tpu/serve.py:147-155): the
+// score as it is, clamped to [lo, hi], or Phi(score).
+constexpr int kOutScore = 0, kOutClamp = 1, kOutProbit = 2;
+
+// A score's output in mode kOut.  The clamp keeps a NaN score NaN (as
+// jnp.maximum / jnp.minimum do; fmaxf would return the bound) and takes
+// +-Inf to the bounds; the host passes -Inf / +Inf for a side whose bound
+// is not finite, which then leaves every score as it is.
+template <int kOut>
+__device__ __forceinline__ float serve_out(float s, float lo, float hi) {
+  if constexpr (kOut == kOutClamp) {
+    s = s < lo ? lo : s;
+    return s > hi ? hi : s;
+  } else if constexpr (kOut == kOutProbit) {
+    return svbfm::ref_cdf(s);
+  } else {
+    return s;
+  }
+}
+
 // Wm = 0: K1 (no relations).  Wm = 4 or 1: bs_scores, the main positions
 // read at 4 bytes (W = 1) and each relation's moments row in loads of Wm
-// floats.
-template <int W, int kP, bool kT, int Wm>
+// floats.  kOut: the serve epilogue (kOutScore everywhere else; lo and hi
+// are read by kOutClamp alone).
+template <int W, int kP, bool kT, int Wm, int kOut>
 __global__ void __launch_bounds__(kThreads)
     fm_rows_kernel(const float* __restrict__ tab, int64_t ld, int K,
                    const float* __restrict__ base0,
                    const int* __restrict__ ids,
                    const float* __restrict__ vals, int64_t N, int P_any,
-                   int TPR, Relations rel, float* __restrict__ out) {
+                   int TPR, Relations rel, float* __restrict__ out, float lo,
+                   float hi) {
   static_assert(Wm == 0 || !kT, "the relations join the scores alone");
+  static_assert(kOut == kOutScore || (Wm == 0 && !kT),
+                "the serve epilogue follows K1a alone");
   constexpr int kB = kP > 0 ? kP : kPos;  // positions a batch
   const int P = kP > 0 ? kP : P_any;
   const int lane = threadIdx.x & 31;
@@ -284,7 +309,7 @@ __global__ void __launch_bounds__(kThreads)
     const float t = __shfl_down_sync(svbfm::kFullMask, part, d);
     if (j + d < TPR) part += t;
   }
-  if (valid && j == 0) out[n] = b0 + part;
+  if (valid && j == 0) out[n] = serve_out<kOut>(b0 + part, lo, hi);
 }
 
 // The loads' width (mirrored by kernels/fm_forward.py:fm_plan): 4 floats
@@ -310,11 +335,13 @@ int row_lanes(int K) {
   return std::max(1, std::min((K + kChunk - 1) / kChunk, 32));
 }
 
-// W: the main table's load width; Wm: the moments' (0: no relations).
-template <bool kT, int W, int Wm>
+// W: the main table's load width; Wm: the moments' (0: no relations);
+// kOut: the output mode.
+template <bool kT, int W, int Wm, int kOut = kOutScore>
 int launch(const float* tab, int64_t ld, int K, const float* base0,
            const int* ids, const float* vals, int64_t N, int P,
-           const Relations& rel, float* out, cudaStream_t stream) {
+           const Relations& rel, float* out, cudaStream_t stream,
+           float lo = 0.f, float hi = 0.f) {
   const int TPR = row_lanes(K);
   const int64_t warps = (N + 32 / TPR - 1) / (32 / TPR);
   const unsigned blocks =
@@ -322,14 +349,14 @@ int launch(const float* tab, int64_t ld, int K, const float* base0,
   // K1 has a build for rows of two positions (ML-1M's), the relations
   // mode one for rows of one (the block-structure recipes' main block:
   // empty, padded to P = 1)
-  auto kernel = fm_rows_kernel<W, 0, kT, Wm>;
+  auto kernel = fm_rows_kernel<W, 0, kT, Wm, kOut>;
   if constexpr (Wm == 0) {
-    if (P == 2) kernel = fm_rows_kernel<W, 2, kT, 0>;
+    if (P == 2) kernel = fm_rows_kernel<W, 2, kT, 0, kOut>;
   } else {
-    if (P == 1) kernel = fm_rows_kernel<W, 1, kT, Wm>;
+    if (P == 1) kernel = fm_rows_kernel<W, 1, kT, Wm, kOut>;
   }
   kernel<<<blocks, kThreads, 0, stream>>>(tab, ld, K, base0, ids, vals, N, P,
-                                          TPR, rel, out);
+                                          TPR, rel, out, lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -343,6 +370,18 @@ int launch_fm(const float* tab, int64_t ld, int K, const float* base0,
                                 stream)
              : launch<kT, 1, 0>(tab, ld, K, base0, ids, vals, N, P, none, out,
                                 stream);
+}
+
+template <int kOut>
+int launch_serve(const float* tab, int64_t ld, int K, const float* w0,
+                 const int* ids, const float* vals, int64_t N, int P,
+                 float lo, float hi, float* out, cudaStream_t stream) {
+  const Relations none{0, nullptr, nullptr, 0};
+  return load_width(tab, ld, K) == 4
+             ? launch<false, 4, 0, kOut>(tab, ld, K, w0, ids, vals, N, P,
+                                         none, out, stream, lo, hi)
+             : launch<false, 1, 0, kOut>(tab, ld, K, w0, ids, vals, N, P,
+                                         none, out, stream, lo, hi);
 }
 
 }  // namespace
@@ -384,4 +423,28 @@ SVBFM_EXPORT int svbfm_bs_scores(const float* stab, int64_t ld, int K,
                                    stream)
              : launch<false, 1, 1>(stab, ld, K, w0, ids, vals, N, P, rel, out,
                                    stream);
+}
+
+// The serving path's scores (svbfm_tpu/serve.py:125-155): K1a's kernel with
+// its output epilogue, mode 0 the scores, 1 the scores clamped to [lo, hi]
+// (-Inf / +Inf for an open side), 2 Phi(score); tab, w0, ids, vals and out
+// as svbfm_fm_scores.
+SVBFM_EXPORT int svbfm_fm_serve(const float* tab, int64_t ld, int K,
+                                const float* w0, const int* ids,
+                                const float* vals, int64_t N, int P, int mode,
+                                float lo, float hi, float* out,
+                                cudaStream_t stream) {
+  switch (mode) {
+    case kOutScore:
+      return launch_serve<kOutScore>(tab, ld, K, w0, ids, vals, N, P, lo, hi,
+                                     out, stream);
+    case kOutClamp:
+      return launch_serve<kOutClamp>(tab, ld, K, w0, ids, vals, N, P, lo, hi,
+                                     out, stream);
+    case kOutProbit:
+      return launch_serve<kOutProbit>(tab, ld, K, w0, ids, vals, N, P, lo,
+                                      hi, out, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -71,20 +71,7 @@ __device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// the reference's erf (src/util/random.h:47-62)
-__device__ __forceinline__ float ref_erf(float x) {
-  const float t = 1.0f / (1.0f + 0.3275911f * fabsf(x));
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float r = 1.0f - poly * expf(-x * x);
-  return x >= 0.f ? r : -r;
-}
-
-__device__ __forceinline__ float ref_cdf(float x) {
-  return 0.5f + 0.5f * ref_erf(0.707106781f * x);
-}
+using svbfm::ref_cdf;  // the reference's Phi (svbfm_common.cuh)
 
 // E[z | z > 0] = mu + phi / (1 - Phi) and E[z | z < 0] = mu - phi / Phi,
 // z ~ N(mu, 1), Phi = Phi(-mu), the reference's 3.141; one division, by the

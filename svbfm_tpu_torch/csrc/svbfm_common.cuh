@@ -70,6 +70,25 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
   }
 }
 
+// The reference's erf (src/util/random.h:47-62), the Abramowitz-Stegun
+// polynomial of svbfm_tpu/learners/base.py:ref_erf, and its Phi; a NaN
+// stays NaN, Phi(+-Inf) = 1 and 0.  probit.cu (built with -fmad=false)
+// rounds it as the plain twin does; fm_forward.cu's serve epilogue lets
+// nvcc contract it.
+__device__ __forceinline__ float ref_erf(float x) {
+  const float t = 1.0f / (1.0f + 0.3275911f * fabsf(x));
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f +
+                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float r = 1.0f - poly * expf(-x * x);
+  return x >= 0.f ? r : -r;
+}
+
+__device__ __forceinline__ float ref_cdf(float x) {
+  return 0.5f + 0.5f * ref_erf(0.707106781f * x);
+}
+
 // Whether p is a multiple of ``bytes`` (nullptr is).
 inline bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # one source file per library; the kernels each library holds
 LIBRARIES = {
-    "fm_forward": ("fm_scores", "fm_t_terms", "bs_scores"),
+    "fm_forward": ("fm_scores", "fm_t_terms", "bs_scores", "fm_serve"),
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
                  "w_patch_rows", "build_q", "vb_col_stats_window"),
     "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step",
@@ -60,6 +60,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "svbfm_fm_scores": (_P, _L, _I, _P, _P, _P, _L, _I, _P, _P),
     "svbfm_fm_t_terms": (_P, _L, _I, _P, _P, _P, _L, _I, _P, _P),
+    "svbfm_fm_serve": (_P, _L, _I, _P, _P, _P, _L, _I, _I, _F, _F, _P, _P),
     "svbfm_vb_build_qt": (_P, _L, _I, _P, _P, _L, _I, _P, _P, _P, _P),
     "svbfm_vb_col_stats_update": (
         _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,

@@ -9,18 +9,26 @@ beside it.  The twin is also what ``chip_smoke.py`` holds the kernel
 against on the card.  ``fm_plan`` mirrors the kernel's form.
 
 Replaces ``svbfm_tpu/ops/forward.py:fm_scores`` (:61) and ``:fm_t_terms``
-(:111).
+(:111); ``fm_serve_op`` is K1a with the serving path's output epilogue
+(``svbfm_tpu/serve.py:125-155``: the scores clamped to the target range,
+or Phi of them), fused into the same kernel.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 
 from svbfm_tpu_torch.kernels import build
 
 _CHUNK = 4  # csrc/fm_forward.cu kChunk: factors a lane takes a pass
+
+# fm_serve_op's output modes (csrc/fm_forward.cu kOutScore, kOutClamp,
+# kOutProbit)
+SERVE_SCORE, SERVE_CLAMP, SERVE_PROBIT = 0, 1, 2
 
 
 class FMPlan(NamedTuple):
@@ -95,6 +103,42 @@ def fm_t_terms_plain(tab: torch.Tensor, s0: torch.Tensor, ids: torch.Tensor,
     return acc + t.sum(1)
 
 
+def serve_bounds(lo: float, hi: float) -> tuple:
+    """The clamp's bounds as the kernel takes them: a side whose bound is
+    not finite is left open (-Inf / +Inf), as ``serve.py:150-154`` applies
+    only finite bounds."""
+    return (float(lo) if math.isfinite(lo) else -math.inf,
+            float(hi) if math.isfinite(hi) else math.inf)
+
+
+def serve_epilogue_plain(s: torch.Tensor, mode: int, lo: float,
+                         hi: float) -> torch.Tensor:
+    """The serving path's output transform of scores ``s``
+    (``svbfm_tpu/serve.py:147-155``): ``torch.maximum`` / ``torch.minimum``
+    on the finite sides (a NaN stays NaN), or the reference's Phi."""
+    if mode == SERVE_PROBIT:
+        from svbfm_tpu_torch.learners.base import ref_cdf_gaussian
+        return ref_cdf_gaussian(s)
+    if mode == SERVE_CLAMP:  # the bounds made on the device (a fill, no
+        # host copy: the twin is captured in CUDA graphs)
+        if math.isfinite(lo):
+            s = torch.maximum(s, s.new_full((), lo))
+        if math.isfinite(hi):
+            s = torch.minimum(s, s.new_full((), hi))
+        return s
+    if mode != SERVE_SCORE:
+        raise ValueError(f"unknown serve mode {mode}")
+    return s
+
+
+def fm_serve_plain(tab: torch.Tensor, w0: torch.Tensor, ids: torch.Tensor,
+                   vals: torch.Tensor, mode: int, lo: float = -math.inf,
+                   hi: float = math.inf) -> torch.Tensor:
+    """``fm_scores_plain``, then the serve epilogue of ``mode``."""
+    return serve_epilogue_plain(fm_scores_plain(tab, w0, ids, vals), mode,
+                                lo, hi)
+
+
 # ---- wrappers ---------------------------------------------------------------
 
 def _launch(kname: str, tab, scalar, ids, vals, channels_per_k):
@@ -132,3 +176,39 @@ def fm_t_terms_op(tab, s0, ids, vals) -> torch.Tensor:
     if build.on_cpu(ids):
         return fm_t_terms_plain(tab, s0, ids, vals)
     return _launch("fm_t_terms", tab, s0, ids, vals, 2)
+
+
+def fm_serve_op(tab, w0, ids, vals, mode: int, lo: float = -math.inf,
+                hi: float = math.inf, out=None) -> torch.Tensor:
+    """The serving path's predictions [N] of rows ``ids``/``vals`` [N, P]
+    over K1a's table: the scores (``SERVE_SCORE``), clamped to the finite
+    sides of [lo, hi] (``SERVE_CLAMP``) or Phi of them (``SERVE_PROBIT``).
+    Kernel on CUDA tensors, written into ``out`` (a float32 [N] tensor)
+    where given; plain twin on CPU tensors.  N = 0 launches nothing."""
+    if mode not in (SERVE_SCORE, SERVE_CLAMP, SERVE_PROBIT):
+        raise ValueError(f"unknown serve mode {mode}")
+    if build.on_cpu(ids):
+        s = fm_serve_plain(tab, w0, ids, vals, mode, lo, hi)
+        return s if out is None else out.copy_(s)
+    N, P = ids.shape
+    dev = ids.device
+    K = tab.shape[1] - 1
+    build.require(ids, torch.int32, (N, P), dev, "fm_serve.ids")
+    build.require(vals, torch.float32, (N, P), dev, "fm_serve.vals")
+    ld = build.require_rows(tab, torch.float32, (tab.shape[0], 1 + K), dev,
+                            "fm_serve.tab")
+    build.require(w0, torch.float32, (), dev, "fm_serve.w0")
+    if out is None:
+        out = torch.empty(N, dtype=torch.float32, device=dev)
+    build.require(out, torch.float32, (N,), dev, "fm_serve.out")
+    if N == 0:
+        return out
+    b_lo, b_hi = serve_bounds(lo, hi)
+    lib = build.load_library("fm_forward")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_fm_serve(
+            build.ptr(tab), ld, K, build.ptr(w0), build.ptr(ids),
+            build.ptr(vals), N, P, mode, b_lo, b_hi, build.ptr(out),
+            build.stream_of(ids))
+    build.check_launch(lib, rc, "fm_serve")
+    return out

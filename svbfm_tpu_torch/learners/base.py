@@ -9,6 +9,7 @@ defaults for the fields the port reads.
 from __future__ import annotations
 
 import os
+import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -165,6 +166,36 @@ def rmse_over(p: torch.Tensor, row: RowData, mask: torch.Tensor,
     return torch.sqrt(torch.sum(err * err) / float(n))
 
 
+# group_sum's row order and group sizes, by the id of the group tensor they
+# are for (an entry leaves with its tensor)
+_GROUP_SPLITS: dict = {}
+
+
+def group_sum(x: torch.Tensor, group: torch.Tensor, G: int) -> torch.Tensor:
+    """The sums of ``x``'s rows ([D] or [D, K]) by ``group`` ([D], in
+    [0, G)): [G] or [G, K] (JAX's ``segment_sum``).  ``index_add_`` on the
+    CPU.  On a card ``index_add_`` adds with float atomics, in an order
+    that changes from run to run; there the rows are put in group order
+    (found once for each ``group`` tensor) and each group's rows summed by
+    ``torch.sum``, which gives the same bits every run, so that a run
+    resumed from a checkpoint repeats the uninterrupted one."""
+    if x.device.type == "cpu":
+        return x.new_zeros((G,) + tuple(x.shape[1:])).index_add_(0, group, x)
+    key = id(group)
+    split = _GROUP_SPLITS.get(key)
+    if split is None or split[0]() is not group:
+        g = group.cpu().numpy()
+        order = np.argsort(g, kind="stable")
+        perm = (None if np.array_equal(order, np.arange(len(g)))
+                else torch.from_numpy(order).to(group.device))
+        split = _GROUP_SPLITS[key] = (
+            weakref.ref(group, lambda _, k=key: _GROUP_SPLITS.pop(k, None)),
+            perm, np.bincount(g, minlength=G)[:G].tolist())
+    _, perm, sizes = split
+    rows = x if perm is None else x.index_select(0, perm)
+    return torch.stack([part.sum(0) for part in rows.split(sizes)])
+
+
 def keep_finite(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     """The reference's NaN/Inf revert guard (e.g. fm_learn_vb.h:545-565)."""
     return torch.where(torch.isfinite(new), new, old)
@@ -289,6 +320,103 @@ def evaluate_regression(pred, target, min_target, max_target, normalizer=1.0,
     p = np.clip(pred * normalizer, min_target, max_target)
     err = p - target
     return float(np.sqrt(np.mean(err**2))), float(np.mean(np.abs(err)))
+
+
+# ---------------------------------------------------------------------------
+# Implicit-feedback MAP@k (host code, as svbfm_tpu/learners/base.py:291-386)
+# ---------------------------------------------------------------------------
+
+def map_at_k(pred, user_ids, item_ids, positives: dict, k: int = 5):
+    """MAP@k over per-user ranked predictions, using the reference's exact
+    (nonstandard) average-precision recurrence (fm_learn.h:203-231): on a
+    hit at 0-based rank r the AP state updates as (ap*r + 1)/(r+1) and is
+    accumulated — this differs from textbook AP when misses interleave
+    hits, and the curves were produced with it.
+
+    positives: {user_id: set(item_id)} of positively-rated items.
+    """
+    user_ids = np.asarray(user_ids)
+    item_ids = np.asarray(item_ids)
+    order = np.argsort(user_ids, kind="stable")
+    users, items, preds = user_ids[order], item_ids[order], np.asarray(pred)[order]
+    ap_sum, n_users = 0.0, 0
+    start = 0
+    while start < len(users):
+        end = start
+        while end < len(users) and users[end] == users[start]:
+            end += 1
+        u = users[start]
+        pos = positives.get(int(u), set())
+        topk = np.argsort(-preds[start:end], kind="stable")[:k]
+        ap, temp = 0.0, 0.0
+        for rank, idx in enumerate(topk):
+            if int(items[start + idx]) in pos:
+                ap = (ap * rank + 1.0) / (rank + 1)
+                temp += ap
+        if len(pos) > 0:
+            ap_sum += temp / len(pos)
+        n_users += 1
+        start = end
+    return ap_sum / max(n_users, 1)
+
+
+def load_map_fixture(path: str, item_offset: int = 0):
+    """Implicit-feedback MAP fixture: libFM-style lines
+    ``<rating> <user>:1 <item>:1`` aligned with the test rows
+    (the reference hardcodes this file's path and an item offset,
+    fm_learn.h:118-153; both are flags here).
+
+    Returns (user_ids [N], item_ids [N], positives {user: set(items)}).
+    """
+    users, items = [], []
+    positives: dict[int, set] = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            rating = int(float(parts[0]))
+            user = int(parts[1].split(":")[0])
+            item = int(parts[2].split(":")[0]) - item_offset
+            users.append(user)
+            items.append(item)
+            if rating == 1:
+                positives.setdefault(user, set()).add(item)
+    return (np.asarray(users, np.int64), np.asarray(items, np.int64),
+            positives)
+
+
+class MapEval:
+    """Per-iteration implicit-feedback MAP@k evaluator for classification.
+
+    The reference evaluates MAP@5 *inside* the MCMC and OVBFM iteration
+    loops (fm_learn_mcmc_simultaneous.h:270-275 on the posterior-mean
+    probabilities, fm_learn_vb_online_simultaneous.h:258-262 on the current
+    epoch's probabilities), using a fixture whose path is hardcoded
+    (fm_learn_mcmc.h:1164-1196); here the fixture comes from the
+    ``-map_eval``/``-map_item_offset``/``-map_k`` flags and is attached to a
+    learner as ``learner.map_eval = MapEval.from_file(...)`` before ``run``.
+
+    Note a deliberate deviation: the reference's ``test_user_prediction_item``
+    multimap is never cleared between iterations, so its iteration-i MAP ranks
+    a mixture of predictions from ALL iterations <= i; we rank each
+    iteration's predictions alone (see PARITY.md).
+    """
+
+    def __init__(self, user_ids, item_ids, positives: dict, k: int = 5):
+        self.user_ids = np.asarray(user_ids)
+        self.item_ids = np.asarray(item_ids)
+        self.positives = positives
+        self.k = int(k)
+
+    @classmethod
+    def from_file(cls, path: str, item_offset: int = 0, k: int = 5) -> "MapEval":
+        u, i, pos = load_map_fixture(path, item_offset)
+        return cls(u, i, pos, k)
+
+    def __call__(self, probs) -> float:
+        return map_at_k(probs, self.user_ids, self.item_ids,
+                        self.positives, k=self.k)
 
 
 class TrajectoryFile:

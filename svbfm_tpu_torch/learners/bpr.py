@@ -37,6 +37,7 @@ from svbfm_tpu_torch.learners.draws import Draws, device_draws
 from svbfm_tpu_torch.learners.sgd import (SGDState, _shuffled_batches, _sync,
                                           table, table_scores)
 from svbfm_tpu_torch.models.fm import init_fm_params
+from svbfm_tpu_torch.utils.rlog_schema import stream_row
 
 _F32 = torch.float32
 
@@ -173,5 +174,6 @@ class BPRLearner:
             traj.append(acc)
             if verbose:
                 print(f"#Iter={it:3d}\tPairAcc={acc:.6g}\tLoss={loss:.6g}")
+            stream_row(self, rec)
             history.append(rec)
         return state, history

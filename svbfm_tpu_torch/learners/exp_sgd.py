@@ -51,6 +51,8 @@ from svbfm_tpu_torch.learners.base import (FMConfig, PlanData, RowData,
 from svbfm_tpu_torch.learners.sgd import SGDLearner
 from svbfm_tpu_torch.models.fm import init_fm_params
 from svbfm_tpu_torch.ops.forward import fm_scores
+from svbfm_tpu_torch.utils.checkpoint import resume
+from svbfm_tpu_torch.utils.rlog_schema import stream_row
 
 _F32 = torch.float32
 
@@ -175,27 +177,37 @@ class ExpSGDLearner:
         return state, torch.sqrt(torch.sum(err * err) / float(self.test_n))
 
     def run(self, state: Optional[ExpSGDState] = None,
-            num_iter: Optional[int] = None, verbose: bool = True):
+            num_iter: Optional[int] = None, verbose: bool = True,
+            ckpt=None, ckpt_every: int = 10):
         """``num_iter`` sweeps (exp_sgd.py:224-261): each fetches its test
-        RMSE (``time_learn`` up to that fetch).  Returns (state, history)."""
+        RMSE (``time_learn`` up to that fetch).  ``ckpt`` resumes and saves
+        as ``SGDLearner.run`` (exp_sgd.py:231-259).  Returns (state,
+        history)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
         num_iter = num_iter if num_iter is not None else cfg.num_iter
+        state, it0 = resume(self, ckpt, state)
         rmse_file = TrajectoryFile("test_rmse", cfg, self.method,
-                                   self.out_dir, self.write_files)
+                                   self.out_dir,
+                                   self.write_files and it0 == 0)
         history = []
-        for it in range(num_iter):
+        for it in range(it0, num_iter):
             t0 = time.perf_counter()
             state, rmse = self.step(state)
             t1 = time.perf_counter()
             rmse = float(rmse)  # the one sync of the sweep
             now = time.perf_counter()
             rmse_file.append(rmse)
-            history.append({"iter": it, "rmse": rmse, "time_pred": now - t1,
-                            "time_learn": now - t0})
+            rec = {"iter": it, "rmse": rmse, "time_pred": now - t1,
+                   "time_learn": now - t0}
+            stream_row(self, rec)
+            history.append(rec)
             if verbose:
                 print(f"#Iter={it:3d}\tTest={rmse:.6g}")
+            if ckpt is not None and ((it + 1 - it0) % ckpt_every == 0
+                                     or it + 1 >= num_iter):
+                ckpt.save(state, it + 1, {"method": self.method})
         return state, history
 
 

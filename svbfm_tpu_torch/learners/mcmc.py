@@ -21,7 +21,7 @@ runs on the CPU:
   the test eval into the posterior-mean accumulators, then the latent
   target update of the train rows (mcmc.py:1046-1090).
 
-The hyperparameter segment sums are plain ``index_add_``, as in
+The hyperparameter segment sums are ``base.group_sum``, as in
 ``learners/vb.py``.
 
 Semantics kept from the JAX package (and the reference): e = yhat - y
@@ -71,13 +71,15 @@ from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, PlanData,
                                            RowData, TrajectoryFile,
                                            build_plan_data, build_row_data,
                                            check_task_r_or_c, count_bad,
-                                           held_back, keep_finite,
+                                           group_sum, held_back, keep_finite,
                                            print_nonzero_nans,
                                            ref_cdf_gaussian, rmse_over,
                                            zero_counters)
 from svbfm_tpu_torch.learners.draws import Draws, device_draws
 from svbfm_tpu_torch.models.fm import init_fm_params
 from svbfm_tpu_torch.ops.forward import fm_scores
+from svbfm_tpu_torch.utils.checkpoint import resume
+from svbfm_tpu_torch.utils.rlog_schema import stream_row
 
 _F32 = torch.float32
 
@@ -186,8 +188,8 @@ def draw_w_hyperpriors(w, w_mu, w_lambda, attr_group, napg, cfg: FMConfig,
     """draw_w_lambda then draw_w_mu (fm_learn_mcmc.h:425-426, 931-1007)."""
     if not cfg.do_multilevel:
         return torch.full((G,), MU_0, dtype=_F32, device=w.device), w_lambda
-    dev = torch.zeros(G, dtype=_F32, device=w.device).index_add_(
-        0, attr_group, (w - w_mu.index_select(0, attr_group)) ** 2)
+    dev = group_sum((w - w_mu.index_select(0, attr_group)) ** 2, attr_group,
+                    G)
     lam_gamma = BETA_0 * (w_mu - MU_0) ** 2 + GAMMA_0 + dev
     lam_alpha = ALPHA_0 + napg + 1.0
     if cfg.do_sample:
@@ -196,8 +198,7 @@ def draw_w_hyperpriors(w, w_mu, w_lambda, attr_group, napg, cfg: FMConfig,
         draw = lam_alpha / lam_gamma
     count_bad(counters, "w_lambda", draw)
     w_lambda = keep_finite(draw, w_lambda)
-    wsum = torch.zeros(G, dtype=_F32, device=w.device).index_add_(
-        0, attr_group, w)
+    wsum = group_sum(w, attr_group, G)
     mu_mean = (wsum + BETA_0 * MU_0) / (napg + BETA_0)
     mu_s2 = 1.0 / ((napg + BETA_0) * w_lambda)
     w_mu = _maybe_sample(cfg.do_sample, draws.normal((G,)), mu_mean, mu_s2,
@@ -213,8 +214,8 @@ def draw_v_hyperpriors(v, v_mu, v_lambda, attr_group, napg, cfg: FMConfig,
     if not cfg.do_multilevel:
         return (torch.full((G, K), MU_0, dtype=_F32, device=v.device),
                 v_lambda)
-    dev = torch.zeros(G, K, dtype=_F32, device=v.device).index_add_(
-        0, attr_group, (v - v_mu.index_select(0, attr_group).T).T ** 2)
+    dev = group_sum((v - v_mu.index_select(0, attr_group).T).T ** 2,
+                    attr_group, G)
     lam_gamma = BETA_0 * (v_mu - MU_0) ** 2 + GAMMA_0 + dev
     lam_alpha = ALPHA_0 + napg[:, None] + 1.0  # [G, 1]
     if cfg.do_sample:
@@ -223,8 +224,7 @@ def draw_v_hyperpriors(v, v_mu, v_lambda, attr_group, napg, cfg: FMConfig,
         draw = lam_alpha / lam_gamma
     count_bad(counters, "v_lambda", draw)
     v_lambda = keep_finite(draw, v_lambda)
-    vsum = torch.zeros(G, K, dtype=_F32, device=v.device).index_add_(
-        0, attr_group, v.T)
+    vsum = group_sum(v.T, attr_group, G)
     mu_mean = (vsum + BETA_0 * MU_0) / (napg[:, None] + BETA_0)
     mu_s2 = 1.0 / ((napg[:, None] + BETA_0) * v_lambda)
     v_mu = _maybe_sample(cfg.do_sample, draws.normal((G, K)), mu_mean, mu_s2,
@@ -456,6 +456,7 @@ class MCMCLearner:
     runs where it is told and never moves itself)."""
 
     method = "mcmc"
+    map_eval = None  # a base.MapEval: per-iteration MAP@k (classification)
 
     def __init__(self, cfg: FMConfig, train: SparseDataset,
                  test: SparseDataset, meta: Optional[DataMetaInfo] = None, *,
@@ -640,24 +641,38 @@ class MCMCLearner:
 
     def run(self, state: Optional[MCMCState] = None,
             num_iter: Optional[int] = None, verbose: bool = True,
-            chunk: Optional[int] = None):
+            chunk: Optional[int] = None, ckpt=None, ckpt_every: int = 10):
         """Run ``num_iter`` sweeps with the on-device eval and posterior-mean
         accumulators.  The per-iteration metrics are fetched once per chunk
-        of ``chunk`` sweeps (default min(10, num_iter)); ``time_learn`` is
-        the chunk's wall time per sweep, up to that fetch.  Returns
-        (state, history)."""
+        of ``chunk`` sweeps (default min(10, num_iter); 1 with a
+        ``map_eval`` under classification, which ranks the posterior-mean
+        probabilities every iteration, mcmc.py:1401-1405);
+        ``time_learn`` is the chunk's wall time per sweep, up to that
+        fetch.  ``ckpt`` (a ``utils.checkpoint.CheckpointManager``) saves
+        and resumes ``{"state", "psum_all", "psum_but5"}``, the draw
+        source's generator state in the state (mcmc.py:1414-1426,
+        :1523-1528), as ``VBLearner.run`` does.  Returns (state,
+        history)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
         num_iter = num_iter if num_iter is not None else cfg.num_iter
         chunk = chunk if chunk is not None else max(1, min(10, num_iter))
-        rmse_file = TrajectoryFile("test_rmse", cfg, self.method,
-                                   self.out_dir, self.write_files)
+        map_eval = self.map_eval if cfg.task != TASK_REGRESSION else None
+        if map_eval is not None:
+            chunk = 1
         n_test = self.test_row.target.shape[0]
         psum_all = torch.zeros(n_test, dtype=_F32, device=self.device)
-        psum_but5 = torch.zeros_like(psum_all)
+        blob, done = resume(self, ckpt, {
+            "state": state, "psum_all": psum_all,
+            "psum_but5": torch.zeros_like(psum_all)})
+        state, psum_all, psum_but5 = (blob["state"], blob["psum_all"],
+                                      blob["psum_but5"])
+        rmse_file = TrajectoryFile("test_rmse", cfg, self.method,
+                                   self.out_dir,
+                                   self.write_files and done == 0)
         history = []
-        done = 0
+        last_saved = done
         while done < num_iter:
             n = min(chunk, num_iter - done)
             t0 = time.perf_counter()
@@ -677,7 +692,17 @@ class MCMCLearner:
                 rec.update(self._unpack(metrics[j]))
                 if cfg.task != TASK_REGRESSION:
                     rmse_file.append(rec["accuracy"])
-                    if verbose:
+                    if map_eval is not None:
+                        # the posterior-mean probabilities at this
+                        # iteration (one iteration a chunk)
+                        probs = (psum_all.cpu().numpy()[: self.test_n]
+                                 / (rec["iter"] + 1.0))
+                        rec["map"] = map_eval(probs)
+                        if verbose:
+                            print(f"#Iter={rec['iter']:3d}\t"
+                                  f"Test={rec['accuracy']:.6g}"
+                                  f"\tMAP@{map_eval.k}= {rec['map']:.6g}")
+                    elif verbose:
                         print(f"#Iter={rec['iter']:3d}\t"
                               f"Test={rec['accuracy']:.6g}")
                 else:
@@ -687,8 +712,15 @@ class MCMCLearner:
                               f"Test={rec['rmse']:.6g}"
                               f"\tTest(this)={rec['rmse_this']:.6g}")
                 print_nonzero_nans(rec, verbose)
+                stream_row(self, rec)
                 history.append(rec)
             done += n
+            if ckpt is not None and (done - last_saved >= ckpt_every
+                                     or done >= num_iter):
+                ckpt.save({"state": state, "psum_all": psum_all,
+                           "psum_but5": psum_but5}, done,
+                          {"method": self.method})
+                last_saved = done
         self._pred_sum_all = psum_all.cpu().numpy()[: self.test_n]
         self._pred_iters = done
         return state, history

@@ -85,6 +85,7 @@ class WindowedMCMCLearner(WindowedRows, MCMCLearner):
     Jacobi bin)."""
 
     method = "mcmc"
+    resumable = False  # -checkpoint is refused with -cache_size
 
     def __init__(self, cfg: FMConfig, train_src, test: SparseDataset,
                  meta: Optional[DataMetaInfo] = None, *, device,

@@ -56,6 +56,8 @@ from svbfm_tpu_torch.learners.draws import Draws, device_draws
 from svbfm_tpu_torch.learners.streaming import DeviceFeed
 from svbfm_tpu_torch.models.fm import init_fm_params
 from svbfm_tpu_torch.ops.forward import fm_scores
+from svbfm_tpu_torch.utils.checkpoint import resume
+from svbfm_tpu_torch.utils.rlog_schema import stream_row
 
 _F32 = torch.float32
 
@@ -300,23 +302,40 @@ class SGDLearner:
                 print(f"#Iter={it:3d}\tTest={rmse:.6g}")
         history.append(rec)
 
+    def _replay_rng(self, epochs: int) -> None:
+        """Advance the host generators past ``epochs`` finished epochs
+        (none here; the streaming learner's chunk order)."""
+
     def run(self, state: Optional[SGDState] = None,
-            num_iter: Optional[int] = None, verbose: bool = True):
+            num_iter: Optional[int] = None, verbose: bool = True,
+            ckpt=None, ckpt_every: int = 10):
         """``num_iter`` epochs from a copy of ``state`` (default: a fresh
         init), each followed by the test eval; ``time_learn`` is an epoch's
-        wall time to a device synchronise.  Returns (state, history)."""
+        wall time to a device synchronise.  ``ckpt`` (a
+        ``utils.checkpoint.CheckpointManager``) resumes from its latest
+        checkpoint (the draw source's generator state in it, the host
+        generators replayed) and saves after every ``ckpt_every`` epochs
+        counted from the resumed one and after the last (sgd.py:415-451).
+        Returns (state, history)."""
         cfg = self.cfg
         state = self.init_state() if state is None else state.copy()
         num_iter = num_iter if num_iter is not None else cfg.num_iter
+        state, it0 = resume(self, ckpt, state)
+        self._replay_rng(it0)
         rmse_file = TrajectoryFile("test_rmse", cfg, self.method,
-                                   self.out_dir, self.write_files)
+                                   self.out_dir,
+                                   self.write_files and it0 == 0)
         history = []
-        for it in range(num_iter):
+        for it in range(it0, num_iter):
             t0 = time.perf_counter()
             state = self.epoch(state, it)
             _sync(self.device)
             self._eval_iter(state, it, rmse_file, history, verbose,
                             extra={"time_learn": time.perf_counter() - t0})
+            stream_row(self, history[-1], state)
+            if ckpt is not None and ((it + 1 - it0) % ckpt_every == 0
+                                     or it + 1 >= num_iter):
+                ckpt.save(state, it + 1, {"method": self.method})
         return state, history
 
 
@@ -450,6 +469,15 @@ class SGDOnlineLearner(SGDLearner):
             sgd_epoch(state, row, max(1, row.ids.shape[0] // bs), self.mode,
                       self.ws)
         return state
+
+    def _replay_rng(self, epochs: int) -> None:
+        """The chunk orders of ``epochs`` finished epochs (sgd.py:600-608):
+        one permutation an epoch, of the chunks out of core, of the rows in
+        memory."""
+        nb = max(1, self.cfg.num_batches)
+        for _ in range(epochs):
+            self.rng.permutation(min(nb, self.reader.num_rows)
+                                 if self.reader is not None else self.train_n)
 
     def epoch(self, state: SGDState, it: int = 0) -> SGDState:
         cfg = self.cfg

@@ -49,10 +49,12 @@ from svbfm_tpu_torch.kernels.w_sweep import w_bin_update
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, PlanData,
                                            RowData, TrajectoryFile,
                                            build_plan_data, build_row_data,
-                                           check_task_r_or_c, held_back,
-                                           keep_finite, nonfinite,
+                                           check_task_r_or_c, group_sum,
+                                           held_back, keep_finite, nonfinite,
                                            regression_metrics, rmse_over)
 from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
+from svbfm_tpu_torch.utils.checkpoint import resume
+from svbfm_tpu_torch.utils.rlog_schema import stream_row
 
 _F32 = torch.float32
 
@@ -240,7 +242,7 @@ def vb_finalize(e, t, mu_0, sigma_0_dash, mu_w, sigma_w_dash, mu_v,
     """Sweep tail: unobserved-column fixups, hyperparameter updates
     (fm_learn_vb.h:446-498) and the free energy (:646-681, constant 2*3.14
     kept).  ``state`` carries the PRE-SWEEP hyperparameters.  The segment
-    sums over attribute groups are plain ``index_add_``."""
+    sums over attribute groups are ``base.group_sum``."""
     K, G = cfg.num_factor, cfg.num_groups
     dev = e.device
     ag = plan.attr_group
@@ -263,11 +265,9 @@ def vb_finalize(e, t, mu_0, sigma_0_dash, mu_w, sigma_w_dash, mu_v,
     nan_alpha = nonfinite(alpha_cand)
     alpha = keep_finite(alpha_cand, state.alpha)
     sigma_0 = 1.0 / (mu_0 * mu_0 + sigma_0_dash)
-    w_stat = torch.zeros(G, dtype=_F32, device=dev).index_add_(
-        0, ag, mu_w * mu_w + sigma_w_dash)
+    w_stat = group_sum(mu_w * mu_w + sigma_w_dash, ag, G)
     sigma_w = plan.num_attr_per_group / w_stat
-    v_stat = torch.zeros(G, K, dtype=_F32, device=dev).index_add_(
-        0, ag, (mu_v * mu_v + sigma_v_dash).T)  # [G, K]
+    v_stat = group_sum((mu_v * mu_v + sigma_v_dash).T, ag, G)  # [G, K]
     sigma_v = plan.num_attr_per_group[:, None] / v_stat
 
     # --- free energy (fm_learn_vb.h:646-681; constant 2*3.14 kept) ---
@@ -423,23 +423,30 @@ class VBLearner:
 
     def run(self, state: Optional[VBState] = None,
             num_iter: Optional[int] = None, verbose: bool = True,
-            chunk: Optional[int] = None):
+            chunk: Optional[int] = None, ckpt=None, ckpt_every: int = 10):
         """Train for ``num_iter`` sweeps.  The per-iteration metrics stay on
         the device and are fetched once per chunk of ``chunk`` sweeps
         (default min(10, num_iter)); ``time_learn`` is the chunk's wall
-        time per sweep, up to that fetch.  Returns (state, history)."""
+        time per sweep, up to that fetch.  ``ckpt`` (a
+        ``utils.checkpoint.CheckpointManager``) resumes from its latest
+        checkpoint and saves one after a chunk once ``ckpt_every`` sweeps
+        have passed since the last (counted from the resumed sweep) and
+        after the last chunk (vb.py:1402-1408, :1498-1501); a resumed run
+        leaves the trajectory files as they are.  Returns (state,
+        history)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
         num_iter = num_iter if num_iter is not None else cfg.num_iter
         chunk = chunk if chunk is not None else max(1, min(10, num_iter))
-        on = self.write_files
+        state, done = resume(self, ckpt, state)
+        on = self.write_files and done == 0
         rmse_file = TrajectoryFile("test_rmse", cfg, self.method,
                                    self.out_dir, on)
         fe_file = TrajectoryFile("free_energy", cfg, self.method,
                                  self.out_dir, on)
         history = []
-        done = 0
+        last_saved = done
         while done < num_iter:
             n = min(chunk, num_iter - done)
             t0 = time.perf_counter()
@@ -474,6 +481,11 @@ class VBLearner:
                     if nw or nv or int(rec["nan_alpha"]):
                         print(f"#nans in w: {nw}\t#nans in v: {nv}\t"
                               f"#nans in alpha: {int(rec['nan_alpha'])}")
+                stream_row(self, rec)
                 history.append(rec)
             done += n
+            if ckpt is not None and (done - last_saved >= ckpt_every
+                                     or done >= num_iter):
+                ckpt.save(state, done, {"method": self.method})
+                last_saved = done
         return state, history

@@ -36,9 +36,12 @@ Not carried over from the JAX learner, each for its reason:
   pass): same values, a later performance candidate;
 * the alignment of all chunk plans to one padded shape (one compiled XLA
   program): each chunk runs its own plan here;
-* the ``lax.scan`` epoch program: a Python loop over chunks;
-* MAP@k under classification (``map_eval``, ROADMAP.md queue 1, item 12):
-  not ported yet.
+* the ``lax.scan`` epoch program: a Python loop over chunks.
+
+``run`` takes the JAX learner's ``ckpt`` / ``ckpt_every`` (the host
+generators replayed on resume) and, under classification, a ``map_eval``
+(MAP@k on each epoch's probabilities, written into the ``test_rmse``
+file as the reference writes it).
 
 Out of core (``from_reader``, the reference's disk-chunked epochs,
 ``fm_learn_vb_online_simultaneous.h:76-157``): the chunks are the row
@@ -86,12 +89,15 @@ from svbfm_tpu_torch.learners.base import (TASK_CLASSIFICATION,
                                            FMConfig, RowData,
                                            TrajectoryFile, build_plan_data,
                                            build_row_data, check_task_r_or_c,
-                                           count_bad, keep_finite,
+                                           count_bad, group_sum, keep_finite,
                                            print_nonzero_nans,
+                                           ref_cdf_gaussian,
                                            regression_metrics, zero_counters)
 from svbfm_tpu_torch.learners.streaming import DeviceFeed
 from svbfm_tpu_torch.learners.vb import factor_blocks, init_vb_params
 from svbfm_tpu_torch.ops.forward import fm_scores, fm_t_terms
+from svbfm_tpu_torch.utils.checkpoint import resume
+from svbfm_tpu_torch.utils.rlog_schema import stream_row
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -292,14 +298,12 @@ def ovb_chunk_update(state: OVBState, row: RowData, bins, cfg: FMConfig,
                     + rho0 * (1.0 / (mu_0 * mu_0 + sigma_0_dash)))
     count_bad(counters, "sigma_0", sigma_0_cand)
     sigma_0 = torch.where(alpha_ok, sigma_0_cand, state.sigma_0)
-    w_stat = torch.zeros(G, dtype=_F32, device=dev).index_add_(
-        0, attr_group, mu_w * mu_w + sigma_w_dash)
+    w_stat = group_sum(mu_w * mu_w + sigma_w_dash, attr_group, G)
     sigma_w_cand = ((1.0 - rho0) * state.sigma_w
                     + rho0 * (num_attr_per_group / w_stat))
     count_bad(counters, "sigma_w", sigma_w_cand)
     sigma_w = torch.where(alpha_ok, sigma_w_cand, state.sigma_w)
-    v_stat = torch.zeros(G, K, dtype=_F32, device=dev).index_add_(
-        0, attr_group, (mu_v * mu_v + sigma_v_dash).T)
+    v_stat = group_sum((mu_v * mu_v + sigma_v_dash).T, attr_group, G)
     sigma_v_cand = ((1.0 - rho0) * state.sigma_v
                     + rho0 * (num_attr_per_group[:, None] / v_stat))
     count_bad(counters, "sigma_v", sigma_v_cand)
@@ -337,6 +341,7 @@ class OVBLearner:
 
     method = "vb_online"
     reader = None  # the BinaryChunkReader of an out-of-core learner
+    map_eval = None  # a base.MapEval: per-epoch MAP@k (classification)
 
     def __init__(self, cfg: FMConfig, train: SparseDataset,
                  test: SparseDataset, meta: Optional[DataMetaInfo] = None, *,
@@ -549,23 +554,67 @@ class OVBLearner:
 
     # ---- training loop ----------------------------------------------------
 
+    def _replay_rngs(self, epochs: int) -> None:
+        """Advance the host generators past ``epochs`` finished epochs, so
+        that a resumed run draws what the uninterrupted one would: the
+        epoch order once an epoch and, with ``reshuffle``, the membership
+        once an epoch from the second on (the epoch resumed at draws its
+        own in the loop; vb_online.py:1091-1097, :1330-1331)."""
+        for _ in range(epochs):
+            self.rng.permutation(self.num_chunks)
+        if self.reader is None and self.cfg.reshuffle:
+            for _ in range(max(0, epochs - 1)):
+                self._member_rng.permutation(self.train_n)
+
+    def _classification_iter(self, state, rec, rmse_file,
+                             verbose: bool) -> None:
+        """An epoch's classification record, with MAP@k on the epoch's
+        probabilities Phi(score) where a fixture is attached; the reference
+        then writes MAP@k, not the accuracy, into the ``test_rmse_*`` file
+        (fm_learn_vb_online_simultaneous.h:258-262, vb_online.py:1296-1315).
+        """
+        it = rec["iter"]
+        if self.map_eval is not None:
+            probs = ref_cdf_gaussian(torch.from_numpy(
+                self.predict_test_scores(state))).numpy()
+            rec["map"] = self.map_eval(probs)
+            rmse_file.append(rec["map"])
+            if verbose:
+                print(f"#Iter={it:3d}\tTest={rec['accuracy']:.6g}"
+                      f"\tMAP@{self.map_eval.k}= {rec['map']:.6g}")
+        else:
+            rmse_file.append(rec["accuracy"])
+            if verbose:
+                print(f"#Iter={it:3d}\tTest={rec['accuracy']:.6g}")
+
     def run(self, state: Optional[OVBState] = None,
-            num_iter: Optional[int] = None, verbose: bool = True):
+            num_iter: Optional[int] = None, verbose: bool = True,
+            ckpt=None, ckpt_every: int = 10):
         """Train for ``num_iter`` epochs; one device sync per epoch, where
         its metrics are fetched.  ``time_learn`` is the epoch's wall time
         up to that fetch (membership re-draw included), ``time_pred`` the
-        fetch.  Returns (state, history)."""
+        fetch.  ``ckpt`` (a ``utils.checkpoint.CheckpointManager``)
+        resumes from its latest checkpoint, the host generators replayed,
+        and saves after every epoch whose count is a multiple of
+        ``ckpt_every`` (in memory; streamed: counted from the resumed
+        epoch) and after the last (vb_online.py:1406-1409, :1210-1213); a
+        resumed run leaves the trajectory files as they are.  Returns
+        (state, history)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
         num_iter = num_iter if num_iter is not None else cfg.num_iter
-        on = self.write_files
+        state, it0 = resume(self, ckpt, state)
+        self._replay_rngs(it0)
+        on = self.write_files and it0 == 0
         rmse_file = TrajectoryFile("test_rmse", cfg, self.method,
                                    self.out_dir, on)
         fe_file = TrajectoryFile("free_energy", cfg, self.method,
                                  self.out_dir, on)
+        # the streamed run counts ckpt_every from the resumed epoch
+        base = it0 if self.reader is not None else 0
         history = []
-        for it in range(num_iter):
+        for it in range(it0, num_iter):
             t0 = time.perf_counter()
             if cfg.reshuffle and it > 0:
                 self._reshuffle_membership()
@@ -583,9 +632,16 @@ class OVBLearner:
                    names[0]: float(m[2]), names[1]: float(m[3]),
                    "time_pred": now - t_pred, "time_learn": now - t0,
                    **{k: int(v) for k, v in zip(COUNTER_KEYS, m[4:])}}
-            rmse_file.append(rec[names[0]])
-            if verbose:
-                print(f"#Iter={it:3d}\tTest={rec[names[0]]:.6g}")
+            if cfg.task == TASK_REGRESSION:
+                rmse_file.append(rec["rmse"])
+                if verbose:
+                    print(f"#Iter={it:3d}\tTest={rec['rmse']:.6g}")
+            else:
+                self._classification_iter(state, rec, rmse_file, verbose)
             print_nonzero_nans(rec, verbose)
+            stream_row(self, rec, state)
             history.append(rec)
+            if ckpt is not None and ((it + 1 - base) % ckpt_every == 0
+                                     or it + 1 >= num_iter):
+                ckpt.save(state, it + 1, {"method": self.method})
         return state, history

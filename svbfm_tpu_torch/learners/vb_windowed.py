@@ -427,6 +427,7 @@ class WindowedVBLearner(WindowedRows, VBLearner):
     does (it takes no ``bins``)."""
 
     method = "vb"
+    resumable = False  # -checkpoint is refused with -cache_size
 
     def __init__(self, cfg: FMConfig, train_src, test: SparseDataset,
                  meta: Optional[DataMetaInfo] = None, *, device,

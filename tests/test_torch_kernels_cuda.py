@@ -2322,3 +2322,156 @@ def test_classification_learners_on_gpu_match_cpu(cuda, method):
     for g, c in zip(*hists):
         for k in ("accuracy", "loglik"):
             np.testing.assert_allclose(g[k], c[k], rtol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The serving path: K1a's serve epilogue, BatchScorer; group_sum; resume
+# ---------------------------------------------------------------------------
+
+_SERVE_POISONS = [None, "nan_row", "inf_row", "ninf_row", "nan_x"]
+_SERVE_BOUNDS = [(1.0, 5.0), (-float("inf"), 0.5), (-0.5, float("inf")),
+                 (float("nan"), 2.0)]
+
+
+@pytest.mark.parametrize("poison", _SERVE_POISONS)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("K", [0, 5, 20, 33])
+def test_fm_serve_forms_match_twin(cuda, K, P, mode, poison):
+    """fm_serve (K1a with its epilogue: the scores, clamped to the finite
+    sides of one of four bound pairs, or Phi) in the P = 2 build and at any
+    P, 16-byte loads or 4-byte, on 1,001 rows with padding entries; a NaN
+    factor, a +Inf or -Inf w, a NaN x: the twin's values and its NaN/Inf
+    pattern (a NaN score stays NaN, +-Inf clamps to a finite bound); two
+    launches the same bits; N = 0 launches nothing."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import fm_forward as k1
+    from svbfm_tpu_torch.ops import forward as fwd
+
+    rng = np.random.default_rng([K, P, mode, _SERVE_POISONS.index(poison)])
+    D, N = 40, 1001
+    ids = rng.integers(0, D - 1, (N, P))
+    vals = rng.uniform(0.5, 1.5, (N, P))
+    ids[1::3, -1], vals[1::3, -1] = D - 1, 0.0
+    w = rng.normal(0, 2.0, D)
+    v = rng.normal(0, 0.5, (K, D))
+    ids[0, 0], ids[3, 0] = 5, 7
+    if poison == "nan_row":
+        if K:
+            v[K - 1, 5] = np.nan
+        else:
+            w[5] = np.nan
+    elif poison == "inf_row":
+        w[7] = np.inf
+    elif poison == "ninf_row":
+        w[7] = -np.inf
+    elif poison == "nan_x":
+        vals[2, 0] = np.nan
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(cuda)
+
+    tab = fwd.score_table(t(w), t(v))
+    w0 = torch.tensor(0.3, device=cuda)
+    lo, hi = _SERVE_BOUNDS[(K + P) % len(_SERVE_BOUNDS)]
+    ids_t, vals_t = t(ids, torch.int32), t(vals)
+    before = build.launch_counts["fm_serve"]
+    outs = [k1.fm_serve_op(tab, w0, ids_t, vals_t, mode, lo, hi),
+            k1.fm_serve_op(tab, w0, ids_t, vals_t, mode, lo, hi),
+            k1.fm_serve_plain(tab, w0, ids_t, vals_t, mode, lo, hi)]
+    empty = k1.fm_serve_op(tab, w0, ids_t[:0], vals_t[:0], mode, lo, hi)
+    torch.cuda.synchronize()
+    assert build.launch_counts["fm_serve"] == before + 2 and empty.numel() == 0
+    what = f"fm_serve K={K} P={P} mode={mode} {poison} [{lo}, {hi}]"
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    chip_smoke.compare(outs[:1], outs[2:], what)
+    if poison in ("nan_row", "nan_x"):
+        assert torch.isnan(outs[0]).any(), what
+
+
+def test_batch_scorer_on_card(cuda):
+    """BatchScorer on the card: 1,001 rows in batches of 7, two in flight
+    (143 batches through two slots), equal to one-shot scoring bit for bit
+    and to the CPU scorer within the kernel tolerance; a row pad wider
+    than the rows; the probit scorer; score_device on device rows; and
+    no rows."""
+    import chip_smoke
+    from svbfm_tpu_torch.learners.base import TASK_CLASSIFICATION
+    from svbfm_tpu_torch.serve import BatchScorer
+
+    rng = np.random.default_rng(0)
+    D, K, N = 50, 8, 1001
+    w0 = 0.5
+    w = rng.normal(0, 0.5, D).astype(np.float32)
+    v = rng.normal(0, 0.5, (K, D)).astype(np.float32)
+    ids = rng.integers(0, D, (N, 2)).astype(np.int32)
+    vals = rng.uniform(0.5, 1.5, (N, 2)).astype(np.float32)
+    for kw in (dict(min_target=-1.0, max_target=2.0),
+               dict(task=TASK_CLASSIFICATION)):
+        before = build.launch_counts["fm_serve"]
+        many = BatchScorer(w0, w, v, batch_rows=7, inflight=2, device=cuda,
+                           **kw).score_rows(ids, vals)
+        assert build.launch_counts["fm_serve"] == before + 143
+        one = BatchScorer(w0, w, v, device=cuda, **kw)
+        np.testing.assert_array_equal(many, one.score_rows(ids, vals))
+        padded = BatchScorer(w0, w, v, device=cuda, row_pad=5, **kw)
+        np.testing.assert_array_equal(padded.score_rows(ids, vals), many)
+        cpu = BatchScorer(w0, w, v, device="cpu", **kw).score_rows(ids, vals)
+        chip_smoke.compare([torch.from_numpy(many)], [torch.from_numpy(cpu)],
+                           f"BatchScorer {kw}")
+        dev_out = one.score_device(torch.from_numpy(ids).to(cuda),
+                                   torch.from_numpy(vals).to(cuda))
+        np.testing.assert_array_equal(dev_out.cpu().numpy(), many)
+        assert one.score_rows(ids[:0], vals[:0]).shape == (0,)
+
+
+def test_group_sum_on_card_matches_index_add(cuda):
+    """group_sum on the card (rows in group order, torch.sum a group) gives
+    index_add_'s sums within float32 reordering, an empty group 0, a NaN
+    only in its own group, and the same bits call after call."""
+    from svbfm_tpu_torch.learners.base import group_sum
+
+    rng = np.random.default_rng(1)
+    D, K, G = 3000, 7, 4
+    g = rng.integers(0, 3, D)  # group 3 empty; unsorted
+    x = rng.normal(size=(D, K)).astype(np.float32)
+    x[np.where(g == 1)[0][0], 2] = np.nan
+    for xs in (x, x[:, 0]):
+        gx = torch.from_numpy(g).to(cuda)
+        xt = torch.from_numpy(np.ascontiguousarray(xs)).to(cuda)
+        a, b = group_sum(xt, gx, G), group_sum(xt, gx, G)
+        want = torch.zeros((G,) + xt.shape[1:], device=cuda).index_add_(
+            0, gx, xt)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5,
+                                   equal_nan=True)
+        assert torch.equal(torch.isnan(a), torch.isnan(want))
+        assert (a[3] == 0).all()
+
+
+@pytest.mark.parametrize("method", ["vb", "gibbs", "ovb"])
+def test_checkpoint_resume_on_card_is_bitwise(cuda, method, tmp_path):
+    """2 sweeps, a checkpoint, a resume and 2 more equal 4 uninterrupted
+    sweeps bit for bit on the card (Gibbs: the CUDA generator's state in
+    the checkpoint)."""
+    from svbfm_tpu_torch.learners.mcmc import MCMCLearner
+    from svbfm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    tr, te, D, meta, cfg = _small(K=5, num_batches=4)
+    cls = {"vb": VBLearner, "gibbs": MCMCLearner, "ovb": OVBLearner}[method]
+
+    def run(**kw):
+        lr = cls(cfg, SparseDataset.from_coo(tr, D),
+                 SparseDataset.from_coo(te, D), meta, device=cuda,
+                 write_files=False)
+        return lr.run(num_iter=kw.pop("n"), verbose=False, **kw)
+    full, hf = run(n=4)
+    mgr = CheckpointManager(str(tmp_path))
+    run(n=2, ckpt=mgr, ckpt_every=2)
+    res, hr = run(n=4, ckpt=mgr, ckpt_every=100)
+    assert [h["iter"] for h in hr] == [2, 3]
+    for f in dataclasses.fields(full):
+        a, b = getattr(full, f.name), getattr(res, f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f.name
+    assert [h["rmse"] for h in hr] == [h["rmse"] for h in hf[2:]]
