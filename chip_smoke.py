@@ -67,6 +67,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      sec/iter.
   8. vb-exact gpu-vs-cpu: 2 exact-mode sweeps at full size from one
      host-made init on the card and on the CPU; the trajectories must agree.
+  8b. the feature-sharded batch VB (T1-T4; the kernel phase also holds
+     them to their twins at Sf = 2 and 1 and the Sf = 2 partials, summed,
+     to K1a, K1b, K2 and K4): group-sum (X6, group_sum beside
+     index_add_), tp-vb (TPVBLearner on NCCL with a world of one at
+     ML-1M's width, K = 20, 5 sweeps beside the resident fast VB from one
+     init, within 1e-4; sec/iter and device time a sweep beside the
+     resident's), tp-vb-k0 (K = 0, 2 sweeps: T3's w form) and
+     tp-vb-ranks (four gloo ranks on the one card, a (2, 2) mesh, the
+     100k-row recipe at K = 8, 3 sweeps beside the resident VB on the
+     card; a rank's failure fails the phase).
   9. ovb: online VBFM, 20 chunks of fixed membership, 5 epochs: kernels
      launched, RMSE falling; sec/epoch and peak memory.
  10. ovb gpu-vs-cpu: 2 epochs of the 100k-row recipe from one host-made
@@ -191,7 +201,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      memory beside the bytes the train rows would take resident, which it
      must stay below.
 Then the nvidia-smi line again, a JSON line with each kernel's launches
-(summed over the driven runs of phases 2b, 3, 7, 9, 14, 16, 19, 20-25, 28,
+(summed over the driven runs of phases 2b, 3, 7, 8b, 9, 14, 16, 19, 20-25, 28,
 30-32, 35, 37, 39, 41 (with mcmc-windowed and als-windowed) and 42, each
 read just after its run with the
 counts zeroed just before),
@@ -315,6 +325,13 @@ REF_CLASS_VB_LL = {10: 0.4601, 15: 0.5767}
 # -num_eval_cases on half the test rows, the split identity to float32
 # rounding of sums of 10^5 squares
 WIN_CACHE_BYTES, WIN_SHAPE, WIN_TRAJ_RTOL = 8_388_608, (4, 250_880), 2e-4
+# the feature-sharded VB against the resident fast-mode VB: the CPU tests'
+# rtol on RMSE, free energy and alpha (tests/test_tp.py:69-80); its ranks
+# phase: four gloo ranks on a (2, 2) mesh on the one card, the 100k-row
+# recipe at K = 8, 3 sweeps, within RANKS_TIMEOUT seconds
+TP_RTOL = 1e-4
+TP_RANKS, TP_RANKS_ROWS, TP_RANKS_K, TP_RANKS_SWEEPS = 4, 100_000, 8, 3
+TP_RANKS_TIMEOUT = 240
 # the windowed Gibbs/ALS beside the resident learner at the same
 # factor_block and draws: the JAX test's own bound (test_mcmc_windowed.py:
 # 51-56: rmse rtol 5e-4, alpha 5e-3)
@@ -418,6 +435,24 @@ SOURCES = {
                              "svbfm_tpu/learners/mcmc_windowed.py:339"),
     "mcmc_w_window": ("svbfm_tpu_torch/csrc/w_sweep.cu",
                       "svbfm_tpu/learners/mcmc_windowed.py:246"),
+    # T1-T4, the feature-sharded batch VB (parallel/tp_vb.py): T1 the
+    # forward's partials (also tp.py:51's scorer), T2 the caches, T3 a
+    # bucket's stats and update launches (K = 0: the w sweep's), T4 the
+    # bin patch
+    "tp_fm_partials": ("svbfm_tpu_torch/csrc/fm_forward.cu",
+                       "svbfm_tpu/parallel/tp_vb.py:229"),
+    "tp_build_qt": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
+                    "svbfm_tpu/parallel/tp_vb.py:337"),
+    "tp_col_stats": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
+                     "svbfm_tpu/parallel/tp_vb.py:355"),
+    "tp_col_update": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
+                      "svbfm_tpu/parallel/tp_vb.py:383"),
+    "tp_patch_delta": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
+                       "svbfm_tpu/parallel/tp_vb.py:407"),
+    "tp_w_stats": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                   "svbfm_tpu/parallel/tp_vb.py:459"),
+    "tp_w_update": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                    "svbfm_tpu/parallel/tp_vb.py:473"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
 # (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
@@ -495,6 +530,11 @@ PATH_KERNELS = {
                       "mcmc_patch_rows", "mcmc_w_window", "w_patch_rows"),
     "als-windowed": ("fm_scores", "build_q", "mcmc_col_draw_window",
                      "mcmc_patch_rows", "mcmc_w_window", "w_patch_rows"),
+    # the feature-sharded batch VB at K = 20 and K = 0
+    "tp-vb": ("tp_fm_partials", "tp_build_qt", "tp_col_stats",
+              "tp_col_update", "tp_patch_delta"),
+    "tp-vb-k0": ("tp_fm_partials", "tp_w_stats", "tp_w_update",
+                 "tp_patch_delta"),
 }
 
 
@@ -1172,7 +1212,281 @@ def make_cases(s: dict):
                 return torch.take_along_dim(t, i64, dim=0)
         add("gather_probe", label, nothing, gcall,
             cost(idx.numel() * 8 + t.numel() * 4, 0, library))
+
+    if "tp" in s:  # T1-T4, the feature-sharded batch VB's kernels
+        tp_cases(add, s, bucket_cost, bin_cost, bin_label)
     return cases
+
+
+def tp_tensors(learner, state) -> dict:
+    """T1-T4's inputs at the feature-sharded batch VB's shapes (ML-1M, K =
+    20, one data shard) from a real init: every shard of Sf = 2 feature
+    shards, then the one of Sf = 1, each with its tables, patch table and
+    plan; the caches qt as the feature all-reduce leaves them (K2's twin on
+    the whole table); a shard's patch table as bin 0 of T3 leaves it; and
+    the same at K = 0 for the w sweep."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+    from svbfm_tpu_torch.ops.forward import score_table, t_term_table
+    from svbfm_tpu_torch.parallel.tp_vb import _build_tp_plan, local_plan
+
+    cfg = learner.cfg
+    D, K = cfg.num_attributes, cfg.num_factor
+    dev = state.e.device
+    row = learner.train_row
+    full = torch.zeros(D, 5 * K + 2, device=dev)
+    full[:, :K], full[:, K:2 * K] = state.mu_v.T, state.sigma_v_dash.T
+    qt = torch.cat(kv.vb_build_qt_plain(full, K, row.ids, row.vals), 1)
+    shards = []
+    for Sf in (2, 1):
+        plan_np, D_loc = _build_tp_plan((1, Sf), learner.plan, learner.meta,
+                                        D)
+
+        def cut(a, f):  # the shard's slice of a table over the last dim
+            a = torch.nn.functional.pad(a, (0, D_loc * Sf - a.shape[-1]))
+            return a[..., f * D_loc:(f + 1) * D_loc].contiguous()
+
+        for f in range(Sf):
+            mu_v, sig_v = cut(state.mu_v, f), cut(state.sigma_v_dash, f)
+            mu_w, sig_w = cut(state.mu_w, f), cut(state.sigma_w_dash, f)
+            ptab = torch.zeros(D_loc, 5 * K + 2, device=dev)
+            ptab[:, :K], ptab[:, K:2 * K] = mu_v.T, sig_v.T
+            pl = local_plan(plan_np, 0, f, dev)
+            sh = dict(Sf=Sf, f=f, lo=f * D_loc, D_loc=D_loc, plan=pl,
+                      stab=score_table(mu_w, mu_v),
+                      ttab=t_term_table(sig_w, mu_v, sig_v), ptab=ptab,
+                      mu_t=mu_v.T.contiguous(), sig_t=sig_v.T.contiguous(),
+                      mu_w=mu_w, sig_w=sig_w)
+            # bin 0 of T3 on the twins: the patch table T4 reads
+            pt, mt, st = ptab.clone(), sh["mu_t"].clone(), sh["sig_t"].clone()
+            mw, sw = mu_w.clone(), sig_w.clone()
+            nans = torch.zeros(2, dtype=torch.int32, device=dev)
+            for b in pl.blocks[0]:
+                acc = kv.tp_col_stats_plain(b.rows, b.x, b.cols, D_loc,
+                                            state.e, qt, pt, K)
+                kv.tp_col_update_plain(acc, b.cols, D_loc, b.group, b.sx2,
+                                       pt, mt, st, state.sigma_v,
+                                       state.alpha,
+                                       (mw, sw, state.sigma_w), nans)
+            sh["ptab_patch"] = pt
+            # K = 0: bin 0 of the w sweep's stats and update, its dtab
+            acc = torch.zeros(D_loc, device=dev)
+            kw.tp_w_stats_plain(pl.blocks[0], state.e, acc, D_loc)
+            dtab = torch.zeros(D_loc, 2, device=dev)
+            kw.tp_w_update_plain(pl.blocks[0], acc, D_loc, mu_w.clone(),
+                                 sig_w.clone(), state.sigma_w, state.alpha,
+                                 dtab, _bad(dev))
+            sh["w_acc"], sh["dtab"] = acc, dtab
+            shards.append(sh)
+    return dict(tag="tp", tp=shards, K=K, D=D, ids=row.ids, vals=row.vals,
+                eval_ids=learner.test_row.ids,
+                eval_vals=learner.test_row.vals, e=state.e, qt=qt,
+                w0=state.mu_0, s0=state.sigma_0_dash, sv=state.sigma_v,
+                sigma_w=state.sigma_w, alpha=state.alpha, full_ptab=full)
+
+
+def tp_cases(add, s: dict, bucket_cost, bin_cost, bin_label) -> None:
+    """T1-T4 on each shard of Sf = 2 and Sf = 1, each against its twin
+    (timed on the first shard of each: the JSON line's is Sf = 2's); and
+    at Sf = 2 the shards' partials, summed, against the unsharded kernels
+    (K1a, K1b, K2, K4 and the w patch: kernel against kernel)."""
+    from svbfm_tpu_torch.kernels import fm_forward as k1
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+    from svbfm_tpu_torch.parallel.tp import (scores_from_partials,
+                                             t_terms_from_partials)
+
+    K = s["K"]
+    dev = s["e"].device
+
+    def nothing():
+        return ()
+
+    def twin(fn_k, fn_p, *args):
+        def call(variant, _):
+            out = (fn_k if variant == "kernel" else fn_p)(*args)
+            return [out]
+        return call
+
+    def rows_in(ids, sh):  # the positions whose ids the shard holds
+        loc = ids.long() - sh["lo"]
+        return int(((loc >= 0) & (loc < sh["D_loc"])).sum())
+
+    for sh in s["tp"]:
+        Sf, f, lo, D_loc = sh["Sf"], sh["f"], sh["lo"], sh["D_loc"]
+        tag = f"Sf={Sf} shard {f}"
+        timed = f == 0
+        for what, ids, vals in (("train", s["ids"], s["vals"]),
+                                ("test", s["eval_ids"], s["eval_vals"])):
+            N, P = ids.shape
+            n_in = rows_in(ids, sh)
+            for t_terms, tab in ((False, sh["stab"]), (True, sh["ttab"])):
+                if t_terms and what == "test":
+                    continue
+                ch = k1.tp_channels(K, t_terms)
+                ids64 = (ids.long() - lo).clamp(0, D_loc - 1)
+                wts = torch.where((ids.long() >= lo) & (ids.long() < lo
+                                                        + D_loc), vals,
+                                  torch.zeros((), device=dev))
+                dense = tab.contiguous()
+                c = cost(N * P * 8 + tab.shape[0] * tab.shape[1] * 4
+                         + N * ch * 4, n_in * (9 * K + 2 if t_terms
+                                               else 4 * K + 2),
+                         lambda ids64=ids64, dense=dense, wts=wts:
+                         torch.nn.functional.embedding_bag(
+                             ids64, dense, per_sample_weights=wts,
+                             mode="sum"))
+                add("tp_fm_partials",
+                    f"{tag} {'t_terms' if t_terms else 'scores'} {what} "
+                    f"N={N}", nothing,
+                    twin(k1.tp_fm_partials, k1.tp_fm_partials_plain, tab, K,
+                         t_terms, ids, vals, lo, D_loc),
+                    c if timed else None)
+        N, P = s["ids"].shape
+        n_in = rows_in(s["ids"], sh)
+        add("tp_build_qt", f"{tag} F={K}", nothing,
+            twin(kv.tp_build_qt, kv.tp_build_qt_plain, sh["ptab"], K,
+                 s["ids"], s["vals"], lo, D_loc),
+            cost(N * P * 8 + D_loc * 2 * K * 4 + N * 3 * K * 4,
+                 n_in * K * 6) if timed else None)
+
+        def k3_prepare(sh=sh):
+            return _clones(sh, "mu_t", "sig_t", "ptab", "mu_w", "sig_w") + (
+                torch.zeros(2, dtype=torch.int32, device=dev),)
+
+        def stats(b, sh=sh):
+            return twin(kv.tp_col_stats, kv.tp_col_stats_plain, b.rows, b.x,
+                        b.cols, sh["D_loc"], s["e"], s["qt"], sh["ptab"], K)
+
+        def update(b, acc, sh=sh):
+            def call(variant, inp):
+                fn = (kv.tp_col_update if variant == "kernel"
+                      else kv.tp_col_update_plain)
+                mu_t, sig_t, ptab, mu_w, sig_w, nans = inp
+                fn(acc, b.cols, sh["D_loc"], b.group, b.sx2, ptab, mu_t,
+                   sig_t, s["sv"], s["alpha"], (mu_w, sig_w, s["sigma_w"]),
+                   nans)
+                return [mu_t, sig_t, ptab, mu_w, sig_w, nans]
+            return call
+
+        every = sorted((b for bb in sh["plan"].blocks for b in bb),
+                       key=lambda b: -b.rows.numel())
+        for i, b in enumerate(every):
+            C, L = b.rows.shape
+            bd = dict(rows=b.rows, x=b.x)
+            acc = kv.tp_col_stats_plain(b.rows, b.x, b.cols, D_loc, s["e"],
+                                        s["qt"], sh["ptab"], K)
+            first = timed and i == 0
+            add("tp_col_stats", f"{tag} F={K} [{C},{L}]", nothing, stats(b),
+                bucket_cost(bd, 1 + 2 * K, 2 * K + 2 * K + 1, 12 * K + 2)
+                if first else None)
+            # (the update's and the w sweep's twins pick the real columns
+            # by a mask, which synchronises: timed host-paced)
+            add("tp_col_update", f"{tag} F={K} [{C},{L}]", k3_prepare,
+                update(b, acc),
+                # a column reads acc (2K + 1), cols/group/sx2, ptab's
+                # mu/sig (2K) and mu_w/sig_w; writes mu_t/sig_t (2K),
+                # ptab's deltas (3K) and the w pair and its deltas; the
+                # [G, K] sv and sigma_w [G] once
+                cost(C * ((2 * K + 1) + 3 + 2 * K + 2) * 4
+                     + C * (5 * K + 4) * 4
+                     + s["sv"].shape[0] * (K + 1) * 4, C * (8 * K + 8),
+                     plain_graph=False) if first else None)
+        add("tp_patch_delta", f"{tag} F={K} bin 0", nothing,
+            twin(kv.tp_patch_delta, kv.tp_patch_delta_plain,
+                 sh["ptab_patch"], K, True, s["ids"], s["vals"], s["qt"], lo,
+                 D_loc),
+            cost(N * P * 8 + D_loc * (5 * K + 2) * 4 + N * 3 * K * 4
+                 + N * (3 * K + 2) * 4, n_in * K * 20) if timed else None)
+        # K = 0: the standalone w sweep's stats and update on bin 0, and
+        # T4's w patch
+        bins = sh["plan"].blocks[0]
+
+        def w_stats(variant, inp, sh=sh, bins=bins):
+            fn = kw.tp_w_stats if variant == "kernel" else kw.tp_w_stats_plain
+            (acc,) = inp
+            fn(bins, s["e"], acc, sh["D_loc"])
+            return [acc]
+
+        def w_update(variant, inp, sh=sh, bins=bins):
+            fn = (kw.tp_w_update if variant == "kernel"
+                  else kw.tp_w_update_plain)
+            mu_w, sig_w, dtab, bad = inp
+            fn(bins, sh["w_acc"], sh["D_loc"], mu_w, sig_w, s["sigma_w"],
+               s["alpha"], dtab, bad)
+            return [mu_w, sig_w, dtab, bad]
+
+        C = sum(b.rows.shape[0] for b in bins)
+        c = bin_cost(bins, 1, 2)
+        c["plain_graph"] = False
+        add("tp_w_stats", f"{tag} {bin_label(bins)}",
+            lambda D_loc=D_loc: (torch.zeros(D_loc, device=dev),), w_stats,
+            c if timed else None)
+        add("tp_w_update", f"{tag} {bin_label(bins)}",
+            lambda sh=sh: _clones(sh, "mu_w", "sig_w") + (
+                torch.zeros(sh["D_loc"], 2, device=dev), _bad(dev)),
+            w_update, cost(C * 16 + C * 4 * 6, C * 10, plain_graph=False)
+            if timed else None)
+        add("tp_patch_delta", f"{tag} F=0 bin 0", nothing,
+            twin(kv.tp_patch_delta, kv.tp_patch_delta_plain, sh["dtab"], 0,
+                 True, s["ids"], s["vals"], None, lo, D_loc), None)
+
+    # the shards of Sf = 2 summed against the unsharded kernels
+    two = [sh for sh in s["tp"] if sh["Sf"] == 2]
+
+    def summed(part):
+        return sum(part(sh) for sh in two)
+
+    def t1_vs_k1(t_terms):
+        def call(variant, _):
+            if variant == "kernel":
+                tot = summed(lambda sh: k1.tp_fm_partials(
+                    sh["ttab" if t_terms else "stab"], K, t_terms, s["ids"],
+                    s["vals"], sh["lo"], sh["D_loc"]))
+                if t_terms:
+                    return [t_terms_from_partials(tot, s["s0"], K)]
+                return [scores_from_partials(tot, s["w0"], K)]
+            from svbfm_tpu_torch.ops.forward import score_table, t_term_table
+            full = [torch.cat([sh[k] for sh in two])[:s["D"]]
+                    for k in ("mu_t", "sig_t")]
+            mu_w = torch.cat([sh["mu_w"] for sh in two])[:s["D"]]
+            sig_w = torch.cat([sh["sig_w"] for sh in two])[:s["D"]]
+            if t_terms:
+                return [k1.fm_t_terms_op(t_term_table(
+                    sig_w, full[0].T, full[1].T), s["s0"], s["ids"],
+                    s["vals"])]
+            return [k1.fm_scores_op(score_table(mu_w, full[0].T), s["w0"],
+                                    s["ids"], s["vals"])]
+        return call
+
+    add("tp_fm_partials", "Sf=2 summed scores vs K1a", nothing,
+        t1_vs_k1(False), None)
+    add("tp_fm_partials", "Sf=2 summed t_terms vs K1b", nothing,
+        t1_vs_k1(True), None)
+
+    def t2_vs_k2(variant, _):
+        if variant == "kernel":
+            return [summed(lambda sh: kv.tp_build_qt(
+                sh["ptab"], K, s["ids"], s["vals"], sh["lo"], sh["D_loc"]))]
+        return [torch.cat(kv.vb_build_qt(s["full_ptab"], K, s["ids"],
+                                         s["vals"]), 1)]
+
+    add("tp_build_qt", "Sf=2 summed vs K2", nothing, t2_vs_k2, None)
+
+    def t4_vs_k4(variant, _):
+        if variant == "kernel":
+            return list(kv.tp_patch_views(summed(lambda sh: kv.tp_patch_delta(
+                sh["ptab_patch"], K, True, s["ids"], s["vals"], s["qt"],
+                sh["lo"], sh["D_loc"])), s["ids"].shape[0], K))
+        pt = torch.cat([sh["ptab_patch"] for sh in two])[:s["D"]]
+        q, tq, tz = (s["qt"][:, i * K:(i + 1) * K].clone() for i in range(3))
+        e = torch.zeros_like(s["e"])
+        t = torch.zeros_like(s["e"])
+        kv.vb_patch_rows(pt.contiguous(), K, True, s["ids"], s["vals"], q,
+                         tq, tz, e, t)
+        return [torch.cat([q, tq, tz], 1) - s["qt"], e, t]
+
+    add("tp_patch_delta", "Sf=2 summed vs K4", nothing, t4_vs_k4, None)
 
 
 def win_cases(add, W: dict, bucket_cost, bin_cost) -> None:
@@ -2386,7 +2700,35 @@ def ragged_tensors(device) -> list:
             *ragged_sgd_tensors(device), ragged_bs_tensors(device),
             *ragged_w_tensors(device), *ragged_win_tensors(device),
             *ragged_mwin_tensors(device), ragged_probit_tensors(device),
-            serve_tensors(device, ragged=True)]
+            serve_tensors(device, ragged=True),
+            *(ragged_tp_tensors(device, K) for K in (3, 5))]
+
+
+def ragged_tp_tensors(device, K: int) -> dict:
+    """T1-T4 on a small problem at K = 3 or 5 (chunks of one factor), an
+    odd D (the second of two feature shards holds a padding column) and
+    buckets with padding columns: ``tp_tensors`` of a fast-mode VB init."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import (make_movielens_like,
+                                            train_test_split)
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+
+    coo = make_movielens_like(37, 26, 900, rank=2, noise=0.4, seed=K)
+    tr, te = train_test_split(coo, 0.2, seed=K + 1)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 37])
+    cfg = FMConfig(num_attributes=D, num_factor=K, num_groups=2, seed=SEED,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()))
+    lr = VBLearner(cfg, SparseDataset.from_coo(tr, D),
+                   SparseDataset.from_coo(te, D), meta, device=device,
+                   write_files=False)
+    s = tp_tensors(lr, lr.state_from_params(init_vb_params(
+        torch.Generator().manual_seed(SEED), cfg, device)))
+    s["tag"] = f"tp-ragged K={K}"
+    return s
 
 
 def ragged_w_tensors(device) -> list:
@@ -4330,6 +4672,174 @@ def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
 # the windowed batch VB, -num_eval_cases
 # ---------------------------------------------------------------------------
 
+def tp_rank_child(rank: int, store: str, out: str) -> None:
+    """One of the [tp-vb-ranks] phase's gloo ranks on the card: the
+    feature-sharded VB on a (2, 2) mesh, TP_RANKS_SWEEPS sweeps of the
+    100k-row recipe; rank 0 writes the history and the launch counts to
+    ``out`` (JSON)."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.learners.vb import init_vb_params
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_vb import TPVBLearner
+
+    distributed_init(init_method=f"file://{store}", world_size=TP_RANKS,
+                     rank=rank, backend="gloo", device="cuda")
+    tr1, _, train1, test1, meta1 = ml_data(TP_RANKS_ROWS)
+    cfg1 = tp_ranks_cfg(tr1, meta1)
+    tp = TPVBLearner(cfg1, train1, test1, meta1,
+                     mesh=make_mesh2d(n_data=2, n_feature=2, device="cuda"))
+    params = init_vb_params(torch.Generator().manual_seed(SEED), cfg1, "cpu")
+    state = tp.state_from_params(params)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    _, hist = tp.run(state, num_iter=TP_RANKS_SWEEPS, verbose=False)
+    torch.cuda.synchronize()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(dict(hist=[{k: h[k] for k in (
+                "rmse", "free_energy", "alpha", "time_learn", "iter")}
+                for h in hist], launches=dict(build.launch_counts),
+                device=str(tp.device), mesh=list(tp.mesh.shape)), f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_ranks_cfg(tr1, meta1):
+    from svbfm_tpu_torch.learners.base import FMConfig
+
+    return FMConfig(num_attributes=tr1.num_features, num_factor=TP_RANKS_K,
+                    min_target=float(tr1.target.min()),
+                    max_target=float(tr1.target.max()),
+                    num_groups=meta1.num_attr_groups, seed=SEED)
+
+
+def tp_phases(build, card, dev, train, test, meta, base_cfg, plan) -> tuple:
+    """[group-sum] (X6 beside index_add_), [tp-vb] (the feature-sharded VB
+    on NCCL with a world of one at ML-1M's width, K = 20, 5 sweeps beside
+    the resident fast-mode VB from one init; its profile and the
+    resident's), [tp-vb-k0] (K = 0, 2 sweeps: T3's w form) and
+    [tp-vb-ranks] (four gloo ranks on the card, a (2, 2) mesh, beside the
+    resident VB on the card).  Returns the launch counts of the two driven
+    runs."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from svbfm_tpu_torch.learners.base import FMConfig, group_sum
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_vb import TPVBLearner
+
+    # ---- X6: group_sum at [D, K] -> [G, K] beside index_add_ ---------------
+    t0 = time.perf_counter()
+    D, G = meta.num_attributes, meta.num_attr_groups
+    ag = torch.from_numpy(meta.attr_group.astype(np.int64)).to(dev)
+    x = torch.rand(D, K, device=dev)
+    gs = cuda_ms(lambda: group_sum(x, ag, G), 20)
+    ia = cuda_ms(lambda: x.new_zeros((G, K)).index_add_(0, ag, x), 20)
+    if not torch.allclose(group_sum(x, ag, G), x.new_zeros(
+            (G, K)).index_add_(0, ag, x), rtol=1e-5, atol=1e-4):
+        raise AssertionError("group-sum: group_sum and index_add_ differ")
+    say("group-sum", t0, shape=f"[{D},{K}]->[{G},{K}]", ms=f"{gs:.4f}",
+        index_add_ms=f"{ia:.4f}",
+        bound_ms=f"{1e3 * (D * K + G * K + D) * 4 / HBM_BYTES_PER_S:.6f}",
+        card=repr(card))
+
+    # ---- the feature-sharded VB on NCCL, a world of one, full width ------
+    t0 = time.perf_counter()
+    work = ooc_work("tp")
+    distributed_init(init_method=f"file://{os.path.join(work, 'store')}",
+                     world_size=1, rank=0, backend="nccl", device="cuda")
+    cfg = FMConfig(factor_block=0, **base_cfg)
+    params = init_vb_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    tp = TPVBLearner(cfg, train, test, meta, mesh=make_mesh2d(device="cuda"))
+    (tstate, ht), l_tp = drive(build, "tp-vb", lambda: tp.run(
+        tp.state_from_params(params), num_iter=5, verbose=False))
+    check_history(ht, "tp-vb", ("rmse", "free_energy", "alpha"), True)
+    res = VBLearner(cfg, train, test, meta, device=dev, plan=plan,
+                    write_files=False)
+    rstate, hr = res.run(res.state_from_params(params), num_iter=5,
+                         verbose=False, chunk=1)
+    worst = compare_traj(ht, hr, ("rmse", "free_energy", "alpha"), TP_RTOL,
+                         "tp-vb vs resident vb")
+    tp_us = profile_run(lambda: tp.run(tstate, num_iter=1, verbose=False), 1,
+                        "sweep", "tp-vb-profile", focus=("tp_",))
+    res_us = profile_run(lambda: res.run(rstate, num_iter=1, verbose=False),
+                         1, "sweep", "tp-vb-resident-profile")
+    sec, rsec = (statistics.median(h["time_learn"] for h in hh[1:])
+                 for hh in (ht, hr))
+    say("tp-vb", t0, backend=dist.get_backend(), world=dist.get_world_size(),
+        mesh="1x1", sweeps=len(ht), sec_per_iter=f"{sec:.6f}",
+        resident_sec_per_iter=f"{rsec:.6f}",
+        device_ms_per_iter=f"{tp_us / 1e3:.3f}",
+        resident_device_ms_per_iter=f"{res_us / 1e3:.3f}",
+        rmse=",".join(f"{h['rmse']:.5f}" for h in ht),
+        fe_last=f"{ht[-1]['free_energy']:.2f}", max_rel=f"{worst:.3e}",
+        rtol=TP_RTOL, launches=json.dumps(l_tp, separators=(",", ":")),
+        card=repr(card))
+    del tstate, rstate
+
+    t0 = time.perf_counter()
+    cfg0 = FMConfig(**dict(base_cfg, num_factor=0))
+    p0 = init_vb_params(torch.Generator().manual_seed(SEED), cfg0, "cpu")
+    tp0 = TPVBLearner(cfg0, train, test, meta, mesh=tp.mesh)
+    (_, h0), l_tp0 = drive(build, "tp-vb-k0", lambda: tp0.run(
+        tp0.state_from_params(p0), num_iter=2, verbose=False))
+    r0 = VBLearner(cfg0, train, test, meta, device=dev, plan=plan,
+                   write_files=False)
+    _, hr0 = r0.run(r0.state_from_params(p0), num_iter=2, verbose=False)
+    worst = compare_traj(h0, hr0, ("rmse", "free_energy", "alpha"), TP_RTOL,
+                         "tp-vb k0 vs resident vb")
+    say("tp-vb-k0", t0, sweeps=len(h0), max_rel=f"{worst:.3e}",
+        launches=json.dumps(l_tp0, separators=(",", ":")))
+    dist.destroy_process_group()
+    del tp, tp0, res, r0
+
+    # ---- four gloo ranks on the one card ----------------------------------
+    t0 = time.perf_counter()
+    work = ooc_work("tp-ranks")
+    out = os.path.join(work, "rank0.json")
+    ctx = mp.start_processes(tp_rank_child, args=(
+        os.path.join(work, "store"), out), nprocs=TP_RANKS, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + TP_RANKS_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"tp-vb-ranks: the ranks ran past "
+                                     f"{TP_RANKS_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    with open(out) as f:
+        got = json.load(f)
+    missing = [k for k in PATH_KERNELS["tp-vb"] if got["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"tp-vb-ranks: kernels never launched: "
+                             f"{missing}")
+    tr1, _, train1, test1, meta1 = ml_data(TP_RANKS_ROWS)
+    cfg1 = tp_ranks_cfg(tr1, meta1)
+    r1 = VBLearner(cfg1, train1, test1, meta1, device=dev, write_files=False)
+    _, hr1 = r1.run(r1.state_from_params(init_vb_params(
+        torch.Generator().manual_seed(SEED), cfg1, "cpu")),
+        num_iter=TP_RANKS_SWEEPS, verbose=False)
+    worst = compare_traj(got["hist"], hr1, ("rmse", "free_energy", "alpha"),
+                         TP_RTOL, "tp-vb-ranks vs resident vb")
+    say("tp-vb-ranks", t0, ranks=TP_RANKS, backend="gloo",
+        mesh="x".join(map(str, got["mesh"])), device=got["device"],
+        train_rows=tr1.num_rows, K=TP_RANKS_K, sweeps=len(got["hist"]),
+        sec_per_iter=f"{statistics.median(
+            h['time_learn'] for h in got['hist'][1:]):.6f}",
+        max_rel=f"{worst:.3e}", rtol=TP_RTOL,
+        launches=json.dumps({k: got["launches"][k]
+                             for k in PATH_KERNELS["tp-vb"]},
+                            separators=(",", ":")))
+    return l_tp, l_tp0
+
+
 def ooc_work(name: str) -> str:
     """A fresh folder under the git-ignored build/ for a phase's files."""
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -4919,6 +5429,7 @@ def main() -> int:
                                agg_checks=BS_AGG_CHECK_F), timed=True),
         check_cases(win_tensors(win, win0, "vb-windowed"), timed=True),
         check_cases(mwin_tensors(mwin, mwin1, "mcmc-windowed"), timed=True),
+        check_cases(tp_tensors(learner, vb0), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
     del mc1, bs1, win, win0, mwin, mwin1
     missing = sorted(set(SOURCES) - set(report))
@@ -5011,6 +5522,10 @@ def main() -> int:
     say("vb-exact-gpu-vs-cpu", t0, sweeps=2, max_rel=f"{worst:.3e}",
         rtol=TRAJ_RTOL)
     del cpu
+
+    # ---- 8b. the feature-sharded batch VB (T1-T4) ----------------------------
+    l_tp, l_tp0 = tp_phases(build, card, dev, train, test, meta, base_cfg,
+                            plan)
 
     # ---- 9. online VB, 20 chunks of fixed membership -------------------------
     t0 = time.perf_counter()
@@ -5239,7 +5754,7 @@ def main() -> int:
     l_ooc = ooc_phases(build, card, dev, tr, te, train, test, meta, base_cfg,
                        plan, ovb_ref, online_sec)
 
-    runs = (l_serve, l_fast, l_exact, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
+    runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
             l_bs_nine, l_bs_k64, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}

@@ -25,7 +25,13 @@ streams the reference's per-iteration RLog columns; ``-map_eval FIXTURE``
 (with ``-map_item_offset``, ``-map_k``) adds MAP@k to the Gibbs/ALS and
 vb_online iterations under ``-task c`` and prints the final ``MAP@k``;
 ``-profile DIR`` writes a ``torch.profiler`` Chrome trace of the training
-run to DIR/trace.json.
+run to DIR/trace.json.  ``-feature_shards S`` trains batch VB (fast mode,
+regression) with its tables sharded over S ranks of a (data, feature)
+mesh of every rank (``parallel/tp_vb.py``), and ``-distributed 1`` joins
+the ranks' process group from ``SVBFM_COORDINATOR``,
+``SVBFM_NUM_PROCESSES`` and ``SVBFM_PROCESS_ID`` (NCCL on ``cuda``, gloo
+on ``cpu``; several ranks without ``-feature_shards`` shard the rows);
+rank 0 prints and writes the files.
 
     python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
         -dim '1,1,20' -method mcmc -iter 10 -device cuda
@@ -105,6 +111,10 @@ Flags (-name value):
   -map_k       k of MAP@k; default=5
   -profile     directory for a torch.profiler trace (trace.json) of the
                training run
+  -feature_shards  vb: shard the tables over this many ranks (fast mode,
+               -task r); must divide the world size; default=1
+  -distributed 1 = join the process group of SVBFM_COORDINATOR,
+               SVBFM_NUM_PROCESSES, SVBFM_PROCESS_ID (vb); default=0
   -verbosity   how much to print; default=0
   -device      torch device to train on; default=cuda (cpu runs the
                kernels' plain PyTorch twins)
@@ -118,7 +128,7 @@ SUPPORTED = {"task", "train", "test", "meta", "out", "dim", "iter", "method",
              "validation", "stdev", "bpr_neg_field", "relation",
              "cache_size", "num_eval_cases", "checkpoint",
              "checkpoint_every", "rlog", "map_eval", "map_item_offset",
-             "map_k", "profile"}
+             "map_k", "profile", "feature_shards", "distributed"}
 SGD_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd", "exp_sgd_stoc", "bpr")
 # the methods that read each method-specific flag
 FLAG_METHODS = {
@@ -140,13 +150,8 @@ FLAG_METHODS = {
 }
 
 _Q1 = "ROADMAP.md queue 1"
-# flags of svbfm_tpu/cli.py that the port refuses, and why
-REFUSED = {
-    "feature_shards": f"feature sharding over several GPUs is not ported yet "
-                      f"({_Q1}, item 13)",
-    "distributed": f"multi-process training is not ported yet ({_Q1}, "
-                   "item 13)",
-}
+# the methods that run feature-sharded or on several ranks
+TP_METHODS = ("vb",)
 METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 # the methods that read -task p (svbfm_tpu/learners/sgd.py:87-100)
 POISSON_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd_stoc")
@@ -221,8 +226,6 @@ def main(argv: Optional[list[str]] = None) -> int:
         print(HELP)
         return 0
     for name in cmd.args:
-        if name in REFUSED:
-            raise SystemExit(f"-{name}: {REFUSED[name]}")
         if name not in SUPPORTED:
             raise SystemExit(f"unknown parameter '{name}'")
 
@@ -275,6 +278,18 @@ def main(argv: Optional[list[str]] = None) -> int:
     if cache_bytes > 0 and cmd.has("bins"):
         raise SystemExit("-bins is not read with -cache_size: the windowed "
                          "plan colours the columns by field structure")
+    fs = cmd.get_int("feature_shards", 1)
+    distributed = cmd.get_int("distributed", 0) != 0
+    for name in ("feature_shards", "distributed"):
+        if cmd.has(name) and method not in TP_METHODS:
+            raise SystemExit(f"-{name} runs -method vb alone so far; for "
+                             f"-method {method} it is not ported ({_Q1}, "
+                             "item 13)")
+    if fs > 1 and cmd.has("relation"):  # svbfm_tpu/cli.py:356-358
+        raise SystemExit("-feature_shards is not supported with -relation "
+                         "block structure")
+
+    import os
 
     import torch
 
@@ -285,6 +300,33 @@ def main(argv: Optional[list[str]] = None) -> int:
                          "-device cpu to run the plain PyTorch twins)")
     if device.type not in ("cuda", "cpu"):
         raise SystemExit(f"-device {device}: use cuda or cpu")
+    # several ranks: join their process group before anything else
+    # (svbfm_tpu/cli.py:160-168)
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, process_info
+    if os.environ.get("SVBFM_COORDINATOR") and method not in TP_METHODS:
+        raise SystemExit(f"SVBFM_COORDINATOR is set: -method {method} does "
+                         "not run data-parallel across ranks in the port "
+                         f"yet ({_Q1}, item 13.4)")
+    if (distributed or os.environ.get("SVBFM_COORDINATOR")) \
+            and distributed_init(device=device):
+        rank, world = process_info()
+        if rank == 0:
+            print(f"# distributed: process {rank}/{world}")
+    rank, world = process_info()
+    tp = fs > 1 or world > 1
+    if tp and fs and world % fs:
+        raise SystemExit(f"-feature_shards {fs} does not divide the world "
+                         f"size {world}")
+    if tp:
+        for name, bad in (("cache_size", cache_bytes > 0), ("num_eval_cases",
+                          nec), ("factor_block",
+                                 cmd.get_int("factor_block", 0) != 0),
+                          ("map_eval", cmd.has("map_eval"))):
+            if bad:
+                raise SystemExit(f"-{name} is not read by the feature-"
+                                 "sharded VB (fast mode, resident rows)")
+        if task_s != "r":
+            raise SystemExit("the feature-sharded VB runs -task r alone")
 
     dim = cmd.get_list("dim") or [1, 1, 8]
     if len(dim) != 3:
@@ -437,6 +479,12 @@ def main(argv: Optional[list[str]] = None) -> int:
         learner = WindowedVBLearner(cfg, reader if defer_train else tr_ds,
                                     te_ds, meta, device=device,
                                     cache_bytes=cache_bytes)
+    elif method == "vb" and tp:
+        from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+        from svbfm_tpu_torch.parallel.tp_vb import TPVBLearner
+        learner = TPVBLearner(cfg, tr_ds, te_ds, meta,
+                              mesh=make_mesh2d(n_feature=fs, device=device),
+                              bins=bins, write_files=True)
     elif method == "vb":
         from svbfm_tpu_torch.learners.vb import VBLearner
         learner = VBLearner(cfg, tr_ds, te_ds, meta, device=device, bins=bins,
@@ -479,10 +527,13 @@ def main(argv: Optional[list[str]] = None) -> int:
     # the initial factors (fm_model::init writes v_file.txt,
     # fm_model.h:92-101); the state is handed to run() below
     init_state = learner.init_state()
-    v0 = (init_state.mu_v if method in ("vb", "vb_online")
+    v0 = (learner.global_state(init_state).mu_v[:, :D] if tp
+          else init_state.mu_v if method in ("vb", "vb_online")
           else init_state.v)
-    np.savetxt("v_file.txt", v0.cpu().numpy(), fmt="%g")
-    if verbosity > 0:
+    lead = rank == 0  # what the ranks print and write, rank 0 does
+    if lead:
+        np.savetxt("v_file.txt", v0.cpu().numpy(), fmt="%g")
+    if verbosity > 0 and lead:
         print(f"num_attributes={D}")
         print(f"use w0={int(k0)}")
         print(f"use w1={int(k1)}")
@@ -508,7 +559,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     # iteration (svbfm_tpu/cli.py:345, :496-499)
     from svbfm_tpu_torch.utils.rlog import RLog
     from svbfm_tpu_torch.utils.rlog_schema import register_for
-    rlog = RLog(cmd.get_str("rlog") or None)
+    rlog = RLog((cmd.get_str("rlog") or None) if lead else None)
     register_for(learner, rlog)
     # per-iteration MAP@k inside the Gibbs/ALS and OVB classification
     # loops (svbfm_tpu/cli.py:501-509); the fixture comes from -map_eval
@@ -524,7 +575,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         run_kw["ckpt"] = CheckpointManager(cmd.get_str("checkpoint"))
         run_kw["ckpt_every"] = cmd.get_int("checkpoint_every", 10)
     from svbfm_tpu_torch.utils.profiling import trace
-    with trace(cmd.get_str("profile") or None):
+    with trace((cmd.get_str("profile") or None) if lead else None):
         state, _history = learner.run(state=init_state,
                                       num_iter=cfg.num_iter, verbose=True,
                                       **run_kw)
@@ -545,6 +596,8 @@ def main(argv: Optional[list[str]] = None) -> int:
         out_vals = 1.0 / (1.0 + np.exp(-np.asarray(
             learner.predict_test_scores(state), np.float64)))
     # over the first -num_eval_cases rows (svbfm_tpu/cli.py:565-583)
+    if not lead:
+        return 0
     vals_eval = out_vals[:nec] if nec else out_vals
     target_eval = test.target[:nec] if nec else test.target
     if cmd.has("map_eval"):  # svbfm_tpu/cli.py:568-574, on the scores

@@ -1,6 +1,7 @@
 // K1: FM score and VBFM T-term forward over the padded row layout; in its
 // relations mode, X10d's block-structure scores (bs_scores, below); with an
-// output epilogue, the serving path's scores (svbfm_fm_serve, at the end).
+// output epilogue, the serving path's scores (svbfm_fm_serve); over one
+// feature shard, T1's partial sums (tp_partials_kernel, at the end).
 //
 // Replaces svbfm_tpu/ops/forward.py:fm_scores and :fm_t_terms (XLA gather
 // chains).  Per row n of ids/vals [N, P]:
@@ -384,6 +385,88 @@ int launch_serve(const float* tab, int64_t ld, int K, const float* w0,
                                          none, out, stream, lo, hi);
 }
 
+// T1: K1's partial sums over one feature shard (svbfm_tpu/parallel/
+// tp_vb.py:tp_scores, :tp_t_terms; parallel/tp.py:make_tp_scorer.scorer).
+// The table holds the shard's ids [lo, lo + D_loc) at local rows 0 ..
+// D_loc - 1; an id outside the window adds nothing and reads no table row.
+// A row's partials are written, not its score: out [N, CH] at row stride
+// CH = 1 + 2K, (lin | s_f | s2_f), or 1 + 3K for the T-terms, (lin | q2_f |
+// z_f | neg_f).  The square of s_f, and z_f^2 and z_f q2_f, are taken after
+// the partials of every shard have been summed (the feature all-reduce),
+// by the finalize in parallel/tp.py.  K1's lane form: TPR = min(ceil(K /
+// 4), 32) lanes a row, lane j owning chunks j, j + TPR, ... of 4 factors
+// read in loads of W floats (load_width), the linear channel on the
+// chunk-0 lane; each lane writes its own chunks' sums, so no lane waits on
+// another and there is no shuffle.
+template <int W, bool kT>
+__global__ void __launch_bounds__(kThreads)
+    tp_partials_kernel(const float* __restrict__ tab, int64_t ld, int K,
+                       int64_t lo, int D_loc, const int* __restrict__ ids,
+                       const float* __restrict__ vals, int64_t N, int P,
+                       int TPR, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int rpw = 32 / TPR;  // rows a warp
+  const int slot = lane / TPR;
+  const int j = lane - slot * TPR;
+  const int64_t n =
+      ((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) *
+          rpw + slot;
+  if (slot >= rpw || n >= N) return;
+  const int G = (K + kChunk - 1) / kChunk;  // chunks a row
+  const int64_t CH = 1 + (kT ? 3 : 2) * static_cast<int64_t>(K);
+  const int* nid = ids + n * P;
+  const float* nx = vals + n * P;
+  float* orow = out + n * CH;
+  for (int ch = j; ch < G || ch == 0; ch += TPR) {
+    const bool lin = ch == 0;
+    const bool fac = ch < G;
+    const int f0 = ch * kChunk;
+    const int n_in = K - f0;
+    float s[kChunk], s2[kChunk], s3[kChunk], l = 0.f;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) s[k] = s2[k] = s3[k] = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int64_t loc = static_cast<int64_t>(nid[p]) - lo;
+      if (loc < 0 || loc >= D_loc) continue;  // another shard's id
+      const float x = nx[p];
+      const float* row = tab + loc * ld;
+      if (lin) l += row[0] * (kT ? x * x : x);
+      if (fac) {
+        Pieces<kT> g;
+        load_chunk<W>(row + 1 + f0, n_in, g.a);
+        if constexpr (kT) load_chunk<W>(row + 1 + K + f0, n_in, g.b);
+        add_factors<kT>(g, x, s, s2, s3);
+      }
+    }
+    if (lin) orow[0] = l;
+    if (fac) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        if (k < n_in) {
+          orow[1 + f0 + k] = s[k];
+          orow[1 + K + f0 + k] = s2[k];
+          if constexpr (kT) orow[1 + 2 * K + f0 + k] = s3[k];
+        }
+      }
+    }
+  }
+}
+
+template <bool kT>
+int launch_tp_partials(const float* tab, int64_t ld, int K, int64_t lo,
+                       int D_loc, const int* ids, const float* vals,
+                       int64_t N, int P, float* out, cudaStream_t stream) {
+  const int TPR = row_lanes(K);
+  const int64_t warps = (N + 32 / TPR - 1) / (32 / TPR);
+  const unsigned blocks =
+      static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads);
+  auto kernel = load_width(tab, ld, K) == 4 ? tp_partials_kernel<4, kT>
+                                            : tp_partials_kernel<1, kT>;
+  kernel<<<blocks, kThreads, 0, stream>>>(tab, ld, K, lo, D_loc, ids, vals,
+                                          N, P, TPR, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // tab [D, 1+K] = (w | v^T) at row stride ld; w0 a device scalar; out [N]
@@ -447,4 +530,19 @@ SVBFM_EXPORT int svbfm_fm_serve(const float* tab, int64_t ld, int K,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// T1: the partials [N, 1 + 2K] (t_terms = 0: lin | s | s2, from tab [D_loc,
+// 1+K] = (w | v^T)) or [N, 1 + 3K] (t_terms = 1: lin | q2 | z | neg, from
+// tab [D_loc, 1+2K] = (sw | m^T | s^T)) of rows ids/vals [N, P] over the
+// ids of one feature shard [lo, lo + D_loc), tab at row stride ld.
+SVBFM_EXPORT int svbfm_tp_fm_partials(const float* tab, int64_t ld, int K,
+                                      int t_terms, int64_t lo, int D_loc,
+                                      const int* ids, const float* vals,
+                                      int64_t N, int P, float* out,
+                                      cudaStream_t stream) {
+  return t_terms ? launch_tp_partials<true>(tab, ld, K, lo, D_loc, ids, vals,
+                                            N, P, out, stream)
+                 : launch_tp_partials<false>(tab, ld, K, lo, D_loc, ids,
+                                             vals, N, P, out, stream);
 }

@@ -4,7 +4,8 @@
 // online VB factor sweep (vb_online.py:444 _qtz_generic, :561-580), whose
 // column statistics are K6 (ovb_sweep.cu).  K2's q channel alone is X8d,
 // the q cache of the MCMC/ALS sweep (mcmc_sweep.cu), and K4 at F = 0 is
-// also MCMC's w patch (with no t cache).
+// also MCMC's w patch (with no t cache).  T2-T4, the feature-sharded
+// sweep's kernels, are at the end.
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_v_block_update, whose three XLA
 // gather chains are
@@ -990,6 +991,288 @@ void patch_wide(const float* ptab, int CH, int F, int merge_w,
      e, t, stream);
 }
 
+// ---- T1-T4's sweep kernels: the feature-sharded sweep ----------------------
+// Replaces the XLA chains of svbfm_tpu/parallel/tp_vb.py:tp_vb_update_all
+// (fast mode, all K factors in one block, the w rider on): each rank holds
+// the columns [lo, lo + D_loc) of the tables (its feature shard) and the
+// rows of its data shard, and a sum that crosses a shard is taken by an
+// all-reduce between two launches.  Local column ids run 0 .. D_loc - 1;
+// a bucket's padding columns carry the local id D_loc and are skipped
+// (JAX drops them through an out-of-bounds .at[].set; here such a write
+// would land outside the table).  The row caches are one [N, 3F] buffer
+// qt = (q | tq | tz), so that one feature all-reduce serves the three.
+// Simple forms: each of these kernels is right first.
+//
+// T2 (tp_vb.py:337-353): qt of the shard's ids, K2's sums.  A thread a
+// (row, chunk of V factors); an id outside [lo, lo + D_loc) adds nothing
+// and reads no ptab row.
+template <int V>
+__global__ void __launch_bounds__(kQtThreads)
+    tp_build_qt_kernel(const float* __restrict__ ptab, int64_t ld, int F,
+                       int64_t lo, int D_loc, const int* __restrict__ ids,
+                       const float* __restrict__ vals, int64_t N, int P,
+                       float* __restrict__ qt) {
+  const int C = F / V;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= N * C) return;
+  const int64_t n = i / C;
+  const int ch = static_cast<int>(i - n * C);
+  float qa[V], tqa[V], tza[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) qa[k] = tqa[k] = tza[k] = 0.f;
+  for (int p = 0; p < P; ++p) {
+    const int64_t loc = static_cast<int64_t>(ids[n * P + p]) - lo;
+    if (loc < 0 || loc >= D_loc) continue;
+    const float x = vals[n * P + p];
+    const float x2 = x * x;
+    const float* row = ptab + loc * ld + ch * V;
+    float mu[V], sg[V];
+    load_vec<V>(row, mu);
+    load_vec<V>(row + F, sg);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      qa[k] += mu[k] * x;
+      tqa[k] += sg[k] * x2;
+      tza[k] += mu[k] * mu[k] * x2;
+    }
+  }
+  float* o = qt + n * 3 * F + ch * V;
+  store_vec<V>(o, qa);
+  store_vec<V>(o + F, tqa);
+  store_vec<V>(o + 2 * F, tza);
+}
+
+// T3's stats launch (tp_vb.py:355-382, 396; K3's sums with the w rider's
+// sum x e): one block a column of a [C, L] bucket, TF = min(F, 32) threads
+// a slot over the column's factors (factor groups of TF in turn) and
+// 128 / TF slots over its entries; acc [C, 2F + 1] = (vm | vs | sxe) of the
+// rows of this data shard, summed over the slots in a fixed order (shared
+// memory, no atomics).  Every slot is added, as the twin adds it: a
+// padding entry has x = 0.  A padding column gets a zero row.
+constexpr int kTpStatThreads = 128;
+
+__global__ void __launch_bounds__(kTpStatThreads)
+    tp_col_stats_kernel(const int* __restrict__ rows,
+                        const float* __restrict__ x, int L,
+                        const int* __restrict__ cols, int D_loc,
+                        const float* __restrict__ e,
+                        const float* __restrict__ qt, int F,
+                        const float* __restrict__ ptab, int CH,
+                        float* __restrict__ acc) {
+  __shared__ float s_vm[kTpStatThreads], s_vs[kTpStatThreads];
+  __shared__ float s_xe[kTpStatThreads];
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int TF = F < 32 ? F : 32;
+  const int S = kTpStatThreads / TF;  // slots
+  const int sl = tid / TF;
+  const int j = tid - sl * TF;
+  const bool on = sl < S;
+  const int64_t col = cols[c];
+  float* arow = acc + static_cast<int64_t>(c) * (2 * F + 1);
+  if (col == D_loc) {  // a padding column
+    for (int u = tid; u < 2 * F + 1; u += blockDim.x) arow[u] = 0.f;
+    return;
+  }
+  const int* crow = rows + static_cast<int64_t>(c) * L;
+  const float* cx = x + static_cast<int64_t>(c) * L;
+  const float* prow = ptab + col * CH;
+  for (int f0 = 0; f0 < F; f0 += TF) {
+    const int f = f0 + j;
+    const bool act = on && f < F;
+    const float mu_c = act ? prow[f] : 0.f;
+    const float sig_c = act ? prow[F + f] : 0.f;
+    float vm = 0.f, vs = 0.f, xe = 0.f;
+    for (int l = sl; on && l < L; l += S) {
+      const int64_t r = crow[l];
+      const float xb = cx[l];
+      const float eb = e[r];
+      if (f0 == 0 && j == 0) xe += xb * eb;
+      if (act) {
+        const float h = qt[r * 3 * F + f] - xb * mu_c;
+        const float h1 = qt[r * 3 * F + F + f] - xb * xb * sig_c;
+        vm += xb * h * (eb + xb * mu_c * h);
+        vs += xb * xb * (h * h + h1);
+      }
+    }
+    s_vm[tid] = vm;
+    s_vs[tid] = vs;
+    s_xe[tid] = xe;
+    __syncthreads();
+    if (tid < TF && f0 + tid < F) {
+      float a = 0.f, b = 0.f;
+      for (int k = 0; k < S; ++k) {
+        a += s_vm[k * TF + tid];
+        b += s_vs[k * TF + tid];
+      }
+      arow[f0 + tid] = a;
+      arow[F + f0 + tid] = b;
+    }
+    if (f0 == 0 && tid == 0) {
+      float a = 0.f;
+      for (int k = 0; k < S; ++k) a += s_xe[k * TF];
+      arow[2 * F] = a;
+    }
+    __syncthreads();  // the next factor group reuses the staging
+  }
+}
+
+// T3's update launch (tp_vb.py:383-405): K3's closed form from the
+// column sums acc [C, 2F + 1], summed over the data shards, and no rows; a
+// thread a (column, factor), and at factor F the w rider.  Writes
+// mu_t/sig_t [D_loc, F] and mu_w/sig_w at the column, ptab's delta
+// channels (dmu, dsig, dmu2 [, wdmu, wdsig]) and the counts of candidates
+// that were not finite into nans[0] (v) and nans[1] (w); mu_w == nullptr
+// turns the w rider off.  Padding columns are skipped.
+__global__ void __launch_bounds__(256)
+    tp_col_update_kernel(const float* __restrict__ acc, int C,
+                         const int* __restrict__ cols, int D_loc,
+                         const int* __restrict__ group,
+                         const float* __restrict__ sx2, int F,
+                         float* __restrict__ ptab, int CH,
+                         float* __restrict__ mu_t, float* __restrict__ sig_t,
+                         const float* __restrict__ sv,
+                         const float* __restrict__ alpha_p,
+                         float* __restrict__ mu_w, float* __restrict__ sig_w,
+                         const float* __restrict__ sigma_w,
+                         int* __restrict__ nans) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  const int64_t c = i / (F + 1);
+  const int f = static_cast<int>(i - c * (F + 1));
+  if (c >= C) return;
+  const int64_t col = cols[c];
+  if (col == D_loc) return;  // a padding column
+  const int g = group[c];
+  const float alpha = *alpha_p;
+  const float* arow = acc + c * (2 * F + 1);
+  float* prow = ptab + col * CH;
+  if (f < F) {  // vb.py:449-469, as K3
+    const float mu_c = prow[f], sig_c = prow[F + f];
+    const float sig_cand = 1.f / (sv[g * F + f] + alpha * arow[F + f]);
+    const float sig_new = isfinite(sig_cand) ? sig_cand : sig_c;
+    const float mu_cand = sig_new * alpha * arow[f];
+    const float mu_new = isfinite(mu_cand) ? mu_cand : mu_c;
+    const int bad = (isfinite(sig_cand) ? 0 : 1) + (isfinite(mu_cand) ? 0 : 1);
+    mu_t[col * F + f] = mu_new;
+    sig_t[col * F + f] = sig_new;
+    prow[2 * F + f] = mu_new - mu_c;
+    prow[3 * F + f] = sig_new - sig_c;
+    prow[4 * F + f] = mu_new * mu_new - mu_c * mu_c;
+    if (bad) atomicAdd(&nans[0], bad);
+  } else if (mu_w != nullptr) {  // vb.py:471-487, as K3's rider
+    const float wmu_c = mu_w[col], wsig_c = sig_w[col], sxx = sx2[c];
+    const float wsig_cand = 1.f / (sigma_w[g] + alpha * sxx);
+    const float wsig_new = isfinite(wsig_cand) ? wsig_cand : wsig_c;
+    const float wmu_cand = wsig_new * alpha * (arow[2 * F] + wmu_c * sxx);
+    const int wbad =
+        (isfinite(wsig_cand) ? 0 : 1) + (isfinite(wmu_cand) ? 0 : 1);
+    const float wmu_new = isfinite(wmu_cand) ? wmu_cand : wmu_c;
+    mu_w[col] = wmu_new;
+    sig_w[col] = wsig_new;
+    prow[5 * F] = wmu_c - wmu_new;
+    prow[5 * F + 1] = wsig_new - wsig_c;
+    if (wbad) atomicAdd(&nans[1], wbad);
+  }
+}
+
+// T4 (tp_vb.py:407-453; at F = 0 the w patch, :483-496): K4 in its delta
+// mode.  The contributions of a row's ids in the window [lo, lo + D_loc),
+// against the PRE-patch caches qt, written to out and not applied: at
+// several feature shards each shard's part must see the caches from
+// before the bin, and the parts are summed by a feature all-reduce before
+// the add.  out is one buffer of N (3F + 2) floats, planar where that
+// keeps the add after the all-reduce contiguous: the [N, 3F] deltas
+// (dq | dtq | dtz) of the rows, then de [N], then dt [N].  ptab [D_loc,
+// CH], CH = 5F (+2 with the w rider, merge_w); at F = 0 it is the w delta
+// table [D_loc, 2].  K4's wide form (patch_rows_wide_kernel): TPR threads
+// a row, thread j owning the V-factor chunks j, j + TPR, ..., the caches
+// read and the deltas written as V-float vectors, the ptab pieces in
+// W-float loads; a row's e and t sums meet in shared memory, added in
+// chunk order by the row's first thread, which adds the w rider's.
+template <int V, int W>
+__global__ void __launch_bounds__(kPatchThreads)
+    tp_patch_delta_kernel(const float* __restrict__ ptab, int CH, int F,
+                          int merge_w, int64_t lo, int D_loc,
+                          const int* __restrict__ ids,
+                          const float* __restrict__ vals, int64_t N, int P,
+                          int TPR, const float* __restrict__ qt,
+                          float* __restrict__ out) {
+  __shared__ float s_es[kPatchThreads];
+  __shared__ float s_ts[kPatchThreads];
+  const int G = F / V;
+  const int rr = threadIdx.x / TPR;
+  const int j = threadIdx.x - rr * TPR;
+  const int64_t n =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x / TPR) + rr;
+  const bool valid = n < N;
+  const int* nid = ids + n * P;
+  const float* nx = vals + n * P;
+  float es = 0.f, ts = 0.f;
+  if (valid) {
+    for (int ch = j; ch < G; ch += TPR) {
+      const int f0 = ch * V;
+      const float* qrow = qt + n * 3 * F + f0;
+      float qv[V], tqv[V], tzv[V], dq[V], dtq[V], dtz[V];
+      load_vec<V, V>(qrow, qv);
+      load_vec<V, V>(qrow + F, tqv);
+      load_vec<V, V>(qrow + 2 * F, tzv);
+#pragma unroll
+      for (int k = 0; k < V; ++k) dq[k] = dtq[k] = dtz[k] = 0.f;
+      for (int p = 0; p < P; ++p) {
+        const int64_t loc = static_cast<int64_t>(nid[p]) - lo;
+        if (loc < 0 || loc >= D_loc) continue;  // another shard's id
+        const float* row = ptab + loc * CH + f0;
+        float g[5][V];
+#pragma unroll
+        for (int c = 0; c < 5; ++c) load_vec<V, W>(row + c * F, g[c]);
+        const float xv = nx[p];
+        const float x2 = xv * xv;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float mu_e = g[0][k];
+          const float he = xv * (qv[k] - xv * mu_e);
+          const float h1e = x2 * (tqv[k] - x2 * g[1][k]);
+          const float h2e = x2 * (tzv[k] - x2 * mu_e * mu_e);
+          dq[k] += xv * g[2][k];
+          dtq[k] += x2 * g[3][k];
+          dtz[k] += x2 * g[4][k];
+          es += he * g[2][k];
+          ts += (h1e + h2e) * g[3][k] + h1e * g[4][k];
+        }
+      }
+      float* orow = out + n * 3 * F + f0;
+      store_vec<V>(orow, dq);
+      store_vec<V>(orow + F, dtq);
+      store_vec<V>(orow + 2 * F, dtz);
+    }
+  }
+  s_es[threadIdx.x] = es;
+  s_ts[threadIdx.x] = ts;
+  __syncthreads();
+  if (valid && j == 0) {
+    float esum = 0.f, tsum = 0.f;
+    for (int k = 0; k < TPR; ++k) {
+      esum += s_es[rr * TPR + k];
+      tsum += s_ts[rr * TPR + k];
+    }
+    float de = -esum, dt = tsum;
+    if (merge_w) {
+      for (int p = 0; p < P; ++p) {
+        const int64_t loc = static_cast<int64_t>(nid[p]) - lo;
+        if (loc < 0 || loc >= D_loc) continue;
+        const float* g = ptab + loc * CH;
+        const float xv = nx[p];
+        de += xv * g[5 * F];
+        dt += xv * xv * g[5 * F + 1];
+      }
+    }
+    out[3 * F * N + n] = de;
+    out[3 * F * N + N + n] = dt;
+  }
+}
+
 }  // namespace
 
 // ptab [D, ld] with mu in channels 0..F-1 and sigma in F..2F-1;
@@ -1107,5 +1390,87 @@ SVBFM_EXPORT int svbfm_w_patch_rows(const float* dtab, const int* ids,
       static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
   patch_rows_kernel<true><<<blocks, kPatchThreads, 0, stream>>>(
       dtab, 2, 0, 1, ids, vals, N, P, nullptr, nullptr, nullptr, e, t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T2: qt [N, 3F] = (q | tq | tz) of rows ids/vals [N, P] over the ids of
+// one feature shard [lo, lo + D_loc), from ptab [D_loc, ld] (mu in channels
+// 0..F-1, sigma in F..2F-1).  Chunks of 4, 2 or 1 factors: the widest that
+// divides F and ld and to whose size ptab and qt are aligned.
+SVBFM_EXPORT int svbfm_tp_build_qt(const float* ptab, int64_t ld, int F,
+                                   int64_t lo, int D_loc, const int* ids,
+                                   const float* vals, int64_t N, int P,
+                                   float* qt, cudaStream_t stream) {
+  if (N == 0 || F == 0) return static_cast<int>(cudaSuccess);
+  int V = chunk_width(F, ptab, qt);
+  while (V > 1 && ld % V != 0) V /= 2;
+  const int64_t threads = N * (F / V);
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kQtThreads - 1) / kQtThreads);
+  auto kernel = V == 4   ? tp_build_qt_kernel<4>
+                : V == 2 ? tp_build_qt_kernel<2>
+                         : tp_build_qt_kernel<1>;
+  kernel<<<blocks, kQtThreads, 0, stream>>>(ptab, ld, F, lo, D_loc, ids,
+                                            vals, N, P, qt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T3, stats: acc [C, 2F + 1] = (vm | vs | sum x e) of one [C, L] bucket's
+// columns (local ids cols [C], padding D_loc) over this data shard's rows
+// (rows local to e [N] and qt [N, 3F]), from ptab's pre-bin mu/sig.
+SVBFM_EXPORT int svbfm_tp_col_stats(const int* rows, const float* x, int C,
+                                    int L, const int* cols, int D_loc,
+                                    const float* e, const float* qt, int F,
+                                    const float* ptab, int CH, float* acc,
+                                    cudaStream_t stream) {
+  if (C == 0 || F == 0) return static_cast<int>(cudaSuccess);
+  tp_col_stats_kernel<<<static_cast<unsigned>(C), kTpStatThreads, 0,
+                        stream>>>(rows, x, L, cols, D_loc, e, qt, F, ptab, CH,
+                                  acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T3, update: the closed form at the bucket's columns from acc [C, 2F + 1]
+// (see tp_col_update_kernel); mu_w == nullptr: no w rider.
+SVBFM_EXPORT int svbfm_tp_col_update(
+    const float* acc, int C, const int* cols, int D_loc, const int* group,
+    const float* sx2, int F, float* ptab, int CH, float* mu_t, float* sig_t,
+    const float* sv, const float* alpha, float* mu_w, float* sig_w,
+    const float* sigma_w, int* nans, cudaStream_t stream) {
+  if (C == 0 || F == 0) return static_cast<int>(cudaSuccess);
+  const int64_t threads = static_cast<int64_t>(C) * (F + 1);
+  const unsigned blocks = static_cast<unsigned>((threads + 255) / 256);
+  tp_col_update_kernel<<<blocks, 256, 0, stream>>>(
+      acc, C, cols, D_loc, group, sx2, F, ptab, CH, mu_t, sig_t, sv, alpha,
+      mu_w, sig_w, sigma_w, nans);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T4: out [N (3F + 2)] = the [N, 3F] (dq | dtq | dtz), then de [N], then
+// dt [N]: the bin's patch of the rows ids/vals [N, P] from the ids of one
+// feature shard, against the pre-patch caches qt [N, 3F] (unread at
+// F = 0); ptab [D_loc, CH].  Chunks of V = 4, 2 or 1 factors (the widest
+// that divides F and to whose size qt and out are aligned), ptab's pieces
+// in loads of W floats (W <= V, dividing CH, ptab aligned to it).
+SVBFM_EXPORT int svbfm_tp_patch_delta(const float* ptab, int CH, int F,
+                                      int merge_w, int64_t lo, int D_loc,
+                                      const int* ids, const float* vals,
+                                      int64_t N, int P, const float* qt,
+                                      float* out, cudaStream_t stream) {
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  int V = F > 0 ? chunk_width(F, qt, out) : 1;
+  int W = V;
+  while (W > 1 && (CH % W != 0 || !aligned(ptab, 4u * W))) W /= 2;
+  if (W == 1) V = 1;
+  const int G = F / V;
+  const int TPR = G > 0 ? ceil_div(G, ceil_div(G, 32)) : 1;
+  const int rows = kPatchThreads / TPR;
+  const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
+  auto kernel = V == 4   ? (W == 4 ? tp_patch_delta_kernel<4, 4>
+                                   : tp_patch_delta_kernel<4, 2>)
+                : V == 2 ? tp_patch_delta_kernel<2, 2>
+                         : tp_patch_delta_kernel<1, 1>;
+  kernel<<<blocks, rows * TPR, 0, stream>>>(ptab, CH, F, merge_w, lo, D_loc,
+                                            ids, vals, N, P, TPR, qt, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // K5: the standalone linear-term column sweep, batch VB (exact mode, K = 0)
 // and online VB; X8c, the w draw of Gibbs MCMC and ALS; and K5's gradient
 // mode, the w column step of the full-batch exp_sgd (X9d).  Every degree
-// bucket of one conflict-free bin in one launch.
+// bucket of one conflict-free bin in one launch.  T3 at K = 0, the
+// feature-sharded w sweep's stats and update launches, is at the end.
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_w_bin_update (vb.py:125-148) and its
 // OVB twin vb_online.py:230-269: per [C, L] degree bucket, the column
@@ -352,6 +353,76 @@ int launch_win(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
   return static_cast<int>(cudaGetLastError());
 }
 
+// T3 at K = 0 (svbfm_tpu/parallel/tp_vb.py:459-482): the standalone w
+// sweep of the feature-sharded batch VB, K5's bin launch split in two.
+// kStats: each column's sum x e over this data shard's rows goes to the
+// [D_loc] accumulator acc at its local id; an all-reduce over the data
+// shards follows.  !kStats: mode VB's closed form from acc, reading no
+// rows (the column's head lane alone works), writing w, the delta table
+// and the counts as mode VB does.  Padding columns (local id D_loc) are
+// skipped in both.
+template <bool kStats>
+__global__ void __launch_bounds__(kThreads)
+    tp_w_kernel(const __grid_constant__ Plan p,
+                const __grid_constant__ WArgs a, float* __restrict__ acc,
+                int D_loc) {
+  int b = 0;
+  while (b + 1 < p.nb &&
+         p.b[b + 1].first <= static_cast<int64_t>(blockIdx.x))
+    ++b;
+  const Bucket& bk = p.b[b];
+  const int U = col_lanes(bk.L);
+  const int64_t c =
+      ((static_cast<int64_t>(blockIdx.x) - bk.first) * kThreads +
+       threadIdx.x) / U;
+  const int li = threadIdx.x & (U - 1);
+  const bool live = c < bk.C;
+  const int64_t col = live ? __ldg(bk.cols + c) : D_loc;
+  const bool real = live && col != D_loc;
+  if constexpr (kStats) {
+    float s = 0.f;
+    if (real) {
+      const int L = bk.L;
+      const int* __restrict__ crow = bk.rows + c * L;
+      const float* __restrict__ cx = bk.x + c * L;
+      for (int l = li; l < L; l += U)
+        s += __ldg(cx + l) * __ldg(a.e + __ldg(crow + l));
+    }
+    for (int o = U >> 1; o > 0; o >>= 1)
+      s += __shfl_xor_sync(svbfm::kFullMask, s, o);
+    if (real && li == 0) acc[col] = s;
+  } else {
+    if (!real || li != 0) return;
+    const int g = __ldg(bk.group + c);
+    const float sxx = __ldg(bk.sx2 + c);
+    const float alpha = *a.alpha;
+    const float mu_c = a.mu_w[col], sig_c = a.sig_w[col];
+    const float s = acc[col];
+    const float sig_cand = 1.f / (a.sigma_w[g] + alpha * sxx);
+    const float sig_new = isfinite(sig_cand) ? sig_cand : sig_c;
+    const float mu_cand = sig_new * alpha * (s + mu_c * sxx);
+    const float mu_new = isfinite(mu_cand) ? mu_cand : mu_c;
+    a.mu_w[col] = mu_new;
+    a.sig_w[col] = sig_new;
+    a.dtab[2 * col] = mu_c - mu_new;
+    a.dtab[2 * col + 1] = sig_new - sig_c;
+    if (isnan(mu_cand)) atomicAdd(&a.bad[0], 1);
+    if (isinf(mu_cand)) atomicAdd(&a.bad[1], 1);
+    if (isnan(sig_cand)) atomicAdd(&a.bad[2], 1);
+    if (isinf(sig_cand)) atomicAdd(&a.bad[3], 1);
+  }
+}
+
+template <bool kStats>
+int launch_tp(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
+              float* acc, int D_loc, cudaStream_t stream) {
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
+  tp_w_kernel<kStats><<<static_cast<unsigned>(blocks), kThreads, 0,
+                        stream>>>(make_plan(plan, nb), a, acc, D_loc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Every bucket of one bin (plan: nb rows of kPlanCols, `blocks` the sum of
@@ -435,4 +506,32 @@ SVBFM_EXPORT int svbfm_mcmc_w_window(const int64_t* plan, int nb,
                 z,       nullptr, nullptr, nullptr,  nullptr, dtab,
                 bad,     0.f,     0.f,     1.f};
   return launch_win<kMCMCWin>(plan, nb, blocks, a, acc, win, stream);
+}
+
+// T3 at K = 0, stats: acc [D_loc] at the local ids of one bin's columns =
+// their sum x e over this data shard's rows e [N] (padding columns, local
+// id D_loc, skipped).
+SVBFM_EXPORT int svbfm_tp_w_stats(const int64_t* plan, int nb,
+                                  int64_t blocks, const float* e, float* acc,
+                                  int D_loc, cudaStream_t stream) {
+  const WArgs a{e,       nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, 0.f,     0.f,     1.f};
+  return launch_tp<true>(plan, nb, blocks, a, acc, D_loc, stream);
+}
+
+// T3 at K = 0, update: mode VB's closed form at one bin's columns from
+// acc [D_loc] (summed over the data shards): writes mu_w/sig_w [D_loc],
+// dtab [D_loc, 2] and bad[4] as svbfm_w_col_update does.
+SVBFM_EXPORT int svbfm_tp_w_update(const int64_t* plan, int nb,
+                                   int64_t blocks, const float* acc,
+                                   int D_loc, float* mu_w, float* sig_w,
+                                   const float* sigma_w, const float* alpha,
+                                   float* dtab, int* bad,
+                                   cudaStream_t stream) {
+  const WArgs a{nullptr, mu_w,    sig_w,   sigma_w, nullptr, alpha,
+                nullptr, nullptr, nullptr, nullptr, nullptr, dtab,
+                bad,     0.f,     0.f,     1.f};
+  return launch_tp<false>(plan, nb, blocks, a, const_cast<float*>(acc),
+                          D_loc, stream);
 }

@@ -35,11 +35,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # one source file per library; the kernels each library holds
 LIBRARIES = {
-    "fm_forward": ("fm_scores", "fm_t_terms", "bs_scores", "fm_serve"),
+    "fm_forward": ("fm_scores", "fm_t_terms", "bs_scores", "fm_serve",
+                   "tp_fm_partials"),
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
-                 "w_patch_rows", "build_q", "vb_col_stats_window"),
+                 "w_patch_rows", "build_q", "vb_col_stats_window",
+                 "tp_build_qt", "tp_col_stats", "tp_col_update",
+                 "tp_patch_delta"),
     "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step",
-                "w_col_window", "mcmc_w_window"),
+                "w_col_window", "mcmc_w_window", "tp_w_stats",
+                "tp_w_update"),
     "ovb_sweep": ("ovb_col_stats_update",),
     "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows", "mcmc_col_grad",
                    "mcmc_col_draw_window"),
@@ -112,6 +116,17 @@ SIGNATURES = {
         _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _F, _F, _F,
         _F, _F, _I, _I, _I, _I, _P),
     "svbfm_probit_latent": (_P, _P, _P, _L, _I, _I, _P),
+    # T1-T4, the feature-sharded batch VB (parallel/tp_vb.py)
+    "svbfm_tp_fm_partials": (_P, _L, _I, _I, _L, _I, _P, _P, _L, _I, _P, _P),
+    "svbfm_tp_build_qt": (_P, _L, _I, _L, _I, _P, _P, _L, _I, _P, _P),
+    "svbfm_tp_col_stats": (_P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _I, _P,
+                           _P),
+    "svbfm_tp_col_update": (_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P),
+    "svbfm_tp_patch_delta": (_P, _I, _I, _I, _L, _I, _P, _P, _L, _I, _P, _P,
+                             _P),
+    "svbfm_tp_w_stats": (_P, _I, _L, _P, _P, _I, _P),
+    "svbfm_tp_w_update": (_P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P),
     "svbfm_probit_eval": (_P, _P, _P, _L, _P, _P, _I, _F, _I, _P, _P, _P),
 }
 

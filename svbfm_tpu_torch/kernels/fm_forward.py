@@ -11,7 +11,12 @@ against on the card.  ``fm_plan`` mirrors the kernel's form.
 Replaces ``svbfm_tpu/ops/forward.py:fm_scores`` (:61) and ``:fm_t_terms``
 (:111); ``fm_serve_op`` is K1a with the serving path's output epilogue
 (``svbfm_tpu/serve.py:125-155``: the scores clamped to the target range,
-or Phi of them), fused into the same kernel.
+or Phi of them), fused into the same kernel.  ``tp_fm_partials`` (T1) is
+K1 over one feature shard's ids, writing the partial sums that the
+feature-sharded learners all-reduce before the square
+(``svbfm_tpu/parallel/tp_vb.py:tp_scores`` :229, ``:tp_t_terms`` :260,
+``parallel/tp.py:make_tp_scorer`` :51; the finalizes are in the port's
+``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -211,4 +216,79 @@ def fm_serve_op(tab, w0, ids, vals, mode: int, lo: float = -math.inf,
             build.ptr(vals), N, P, mode, b_lo, b_hi, build.ptr(out),
             build.stream_of(ids))
     build.check_launch(lib, rc, "fm_serve")
+    return out
+
+
+# ---- T1: K1's partial sums over one feature shard ---------------------------
+
+def tp_channels(K: int, t_terms: bool) -> int:
+    """T1's partials a row: (lin | s | s2), 1 + 2K, for the scores; (lin |
+    q2 | z | neg), 1 + 3K, for the T-terms."""
+    return 1 + (3 if t_terms else 2) * K
+
+
+def tp_fm_partials_plain(tab, K: int, t_terms: bool, ids, vals, lo: int,
+                         D_loc: int) -> torch.Tensor:
+    """The partial sums [N, tp_channels(K, t_terms)] of rows ``ids``/
+    ``vals`` [N, P] over the ids of one feature shard, [lo, lo + D_loc),
+    from its table ``tab`` [D_loc, 1+K] = (w | v^T) (scores) or [D_loc,
+    1+2K] = (sw | m^T | s^T) (T-terms), at any row stride.  An id outside
+    the shard adds nothing.  Summed over the shards, the partials give the
+    scores and T-terms through ``parallel/tp.py``'s finalizes."""
+    N = ids.shape[0]
+    lid = ids.long() - lo
+    inr = (lid >= 0) & (lid < D_loc)
+    lidc = lid.clamp(0, max(D_loc - 1, 0))
+    zero = torch.zeros((), dtype=tab.dtype, device=tab.device)
+    lin = torch.zeros(N, dtype=tab.dtype, device=tab.device)
+    a = torch.zeros(N, K, dtype=tab.dtype, device=tab.device)
+    b = torch.zeros_like(a)
+    c = torch.zeros_like(a)
+    for p in range(ids.shape[1]):
+        g = tab.index_select(0, lidc[:, p])
+        m = inr[:, p]
+        xp = vals[:, p]
+        x2 = xp * xp
+        xc, x2c = xp[:, None], x2[:, None]
+        lin = lin + torch.where(m, g[:, 0] * (x2 if t_terms else xp), zero)
+        if K == 0:
+            continue
+        mc = m[:, None]
+        if t_terms:
+            mg, sg = g[:, 1:1 + K], g[:, 1 + K:1 + 2 * K]
+            mx = mg * xc
+            a = a + torch.where(mc, mx * mx, zero)
+            b = b + torch.where(mc, sg * x2c, zero)
+            c = c + torch.where(mc, mg * mg * (x2c * x2c) * sg
+                                + 0.5 * (x2c * x2c) * sg * sg, zero)
+        else:
+            d = g[:, 1:1 + K] * xc
+            a = a + torch.where(mc, d, zero)
+            b = b + torch.where(mc, d * d, zero)
+    parts = [lin[:, None], a, b] + ([c] if t_terms else [])
+    return torch.cat(parts, 1)
+
+
+def tp_fm_partials(tab, K: int, t_terms: bool, ids, vals, lo: int,
+                   D_loc: int) -> torch.Tensor:
+    """T1: kernel on CUDA tensors, plain twin on CPU tensors."""
+    if build.on_cpu(ids):
+        return tp_fm_partials_plain(tab, K, t_terms, ids, vals, lo, D_loc)
+    N, P = ids.shape
+    dev = ids.device
+    build.require(ids, torch.int32, (N, P), dev, "tp_fm_partials.ids")
+    build.require(vals, torch.float32, (N, P), dev, "tp_fm_partials.vals")
+    ld = build.require_rows(tab, torch.float32,
+                            (D_loc, 1 + (2 if t_terms else 1) * K), dev,
+                            "tp_fm_partials.tab")
+    out = torch.empty(N, tp_channels(K, t_terms), dtype=torch.float32,
+                      device=dev)
+    if N == 0:
+        return out
+    lib = build.load_library("fm_forward")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_fm_partials(
+            build.ptr(tab), ld, K, int(t_terms), lo, D_loc, build.ptr(ids),
+            build.ptr(vals), N, P, build.ptr(out), build.stream_of(ids))
+    build.check_launch(lib, rc, "tp_fm_partials")
     return out

@@ -32,7 +32,13 @@ K2 and K4 also serve the online VB factor sweep (``learners/vb_online.py``;
 window's rows of the resident caches (views: ``vb_build_qt(..., out=)``);
 X8d the windowed Gibbs/ALS the same way (``build_q(..., out=)``).
 X13a replaces ``svbfm_tpu/learners/vb_windowed.py``'s ``make_stats``
-(:447-481) and ``make_draw`` (:483-518).
+(:447-481) and ``make_draw`` (:483-518).  T2-T4 are the feature-sharded
+batch VB's (``svbfm_tpu/parallel/tp_vb.py:tp_vb_update_all``): T2
+``tp_build_qt`` the shard's q/tq/tz partials (:337-353), T3
+``tp_col_stats`` + ``tp_col_update`` a bucket's column sums, then, after
+the caller's data all-reduce, K3's closed form (:355-405), T4
+``tp_patch_delta`` a bin's patch deltas against the pre-patch caches
+(:407-453, at F = 0 :483-496).
 """
 
 from __future__ import annotations
@@ -529,3 +535,253 @@ def w_patch_rows(dtab, ids, vals, e, t=None) -> None:
             build.ptr(e), None if t is None else build.ptr(t),
             build.stream_of(ids))
     build.check_launch(lib, rc, "w_patch_rows")
+
+
+# ---- T2-T4: the feature-sharded sweep (parallel/tp_vb.py) ------------------
+# Each rank holds the table columns [lo, lo + D_loc) (local ids 0 ..
+# D_loc - 1; a bucket's padding columns carry D_loc) and the rows of its
+# data shard; the row caches are one [N, 3F] buffer qt = (q | tq | tz).
+
+def _in_window(ids, lo: int, D_loc: int):
+    """(local ids clamped into the table, whether each id is the shard's)."""
+    lid = ids.long() - lo
+    return lid.clamp(0, max(D_loc - 1, 0)), (lid >= 0) & (lid < D_loc)
+
+
+def tp_build_qt_plain(ptab, F: int, ids, vals, lo: int,
+                      D_loc: int) -> torch.Tensor:
+    """T2's twin: qt [N, 3F] = (q | tq | tz), K2's sums over the ids of
+    the shard [lo, lo + D_loc) alone, from channels 0..F-1 (mu) and
+    F..2F-1 (sig) of ``ptab`` [D_loc, CH]."""
+    lidc, inr = _in_window(ids, lo, D_loc)
+    N = ids.shape[0]
+    zero = torch.zeros((), dtype=_F32, device=ptab.device)
+    q = torch.zeros(N, F, dtype=_F32, device=ptab.device)
+    tq = torch.zeros_like(q)
+    tz = torch.zeros_like(q)
+    for p in range(ids.shape[1]):
+        g = ptab.index_select(0, lidc[:, p])
+        m = inr[:, p, None]
+        xp = vals[:, p, None]
+        x2p = xp * xp
+        mug, sigg = g[:, :F], g[:, F:2 * F]
+        q = q + torch.where(m, mug * xp, zero)
+        tq = tq + torch.where(m, sigg * x2p, zero)
+        tz = tz + torch.where(m, mug * mug * x2p, zero)
+    return torch.cat([q, tq, tz], 1)
+
+
+def tp_build_qt(ptab, F: int, ids, vals, lo: int, D_loc: int) -> torch.Tensor:
+    """T2: kernel on CUDA tensors, plain twin on CPU tensors."""
+    if build.on_cpu(ids):
+        return tp_build_qt_plain(ptab, F, ids, vals, lo, D_loc)
+    N, P = ids.shape
+    dev = ids.device
+    build.require(ptab, _F32, (D_loc, ptab.shape[1]), dev,
+                  "tp_build_qt.ptab")
+    if ptab.shape[1] < 2 * F:
+        raise ValueError(f"tp_build_qt.ptab: fewer than 2F={2 * F} channels")
+    build.require(ids, _I32, (N, P), dev, "tp_build_qt.ids")
+    build.require(vals, _F32, (N, P), dev, "tp_build_qt.vals")
+    qt = torch.empty(N, 3 * F, dtype=_F32, device=dev)
+    if N * F == 0:
+        return qt.zero_()
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_build_qt(
+            build.ptr(ptab), ptab.shape[1], F, lo, D_loc, build.ptr(ids),
+            build.ptr(vals), N, P, build.ptr(qt), build.stream_of(ids))
+    build.check_launch(lib, rc, "tp_build_qt")
+    return qt
+
+
+def tp_col_stats_plain(rows, x, cols, D_loc: int, e, qt, ptab,
+                       F: int) -> torch.Tensor:
+    """T3's stats twin: acc [C, 2F + 1] = (vm | vs | sum x e) of a [C, L]
+    bucket's columns over this data shard's rows (``_col_sums`` on the
+    caches of ``qt``); a padding column (local id D_loc) gets a zero
+    row."""
+    C, L = rows.shape
+    real = cols != D_loc
+    cl = torch.where(real, cols, torch.zeros_like(cols))
+    q, tq = qt[:, :F], qt[:, F:2 * F]
+    vm, vs, sxe = _col_sums(rows, x, cl, e, q, tq, ptab, F)
+    acc = torch.cat([vm, vs, sxe[:, None]], 1)
+    return torch.where(real[:, None], acc, torch.zeros((), device=acc.device))
+
+
+def tp_col_stats(rows, x, cols, D_loc: int, e, qt, ptab,
+                 F: int) -> torch.Tensor:
+    """T3, stats launch: kernel on CUDA tensors, plain twin on CPU
+    tensors."""
+    if build.on_cpu(rows):
+        return tp_col_stats_plain(rows, x, cols, D_loc, e, qt, ptab, F)
+    C, L = rows.shape
+    N = e.shape[0]
+    dev = rows.device
+    req = build.require
+    req(rows, _I32, (C, L), dev, "tp_col_stats.rows")
+    req(x, _F32, (C, L), dev, "tp_col_stats.x")
+    req(cols, _I32, (C,), dev, "tp_col_stats.cols")
+    req(e, _F32, (N,), dev, "tp_col_stats.e")
+    req(qt, _F32, (N, 3 * F), dev, "tp_col_stats.qt")
+    req(ptab, _F32, (D_loc, ptab.shape[1]), dev, "tp_col_stats.ptab")
+    acc = torch.empty(C, 2 * F + 1, dtype=_F32, device=dev)
+    if C == 0 or F == 0:
+        return acc.zero_()
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_col_stats(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols), D_loc,
+            build.ptr(e), build.ptr(qt), F, build.ptr(ptab), ptab.shape[1],
+            build.ptr(acc), build.stream_of(rows))
+    build.check_launch(lib, rc, "tp_col_stats")
+    return acc
+
+
+def tp_col_update_plain(acc, cols, D_loc: int, group, sx2, ptab, mu_t, sig_t,
+                        sv, alpha, w: Optional[tuple], nans) -> None:
+    """T3's update twin: K3's closed form (and the w rider's, ``w`` =
+    (mu_w, sig_w_dash, sigma_w)) at the bucket's real columns from the
+    column sums ``acc`` [C, 2F + 1], in place as K3's twin."""
+    F = mu_t.shape[1]
+    real = cols != D_loc
+    cols, group, sx2, acc = cols[real], group[real], sx2[real], acc[real]
+    _col_update(acc[:, :F], acc[:, F:2 * F], cols, group, ptab, mu_t, sig_t,
+                sv, alpha, nans)
+    if w is not None:
+        mu_w, sig_w, sigma_w = w
+        cl = cols.long()
+        wmu_c, wsig_c = mu_w[cl], sig_w[cl]
+        wsig_cand = 1.0 / (sigma_w.index_select(0, group) + alpha * sx2)
+        wsig_new = keep_finite(wsig_cand, wsig_c)
+        wmu_cand = wsig_new * alpha * (acc[:, 2 * F] + wmu_c * sx2)
+        nans[1] += nonfinite(wsig_cand) + nonfinite(wmu_cand)
+        wmu_new = keep_finite(wmu_cand, wmu_c)
+        mu_w[cl] = wmu_new
+        sig_w[cl] = wsig_new
+        ptab[cl, 5 * F] = wmu_c - wmu_new
+        ptab[cl, 5 * F + 1] = wsig_new - wsig_c
+
+
+def tp_col_update(acc, cols, D_loc: int, group, sx2, ptab, mu_t, sig_t, sv,
+                  alpha, w: Optional[tuple], nans) -> None:
+    """T3, update launch (reads ``acc``, no rows): kernel on CUDA tensors,
+    plain twin on CPU tensors; in place."""
+    if build.on_cpu(acc):
+        return tp_col_update_plain(acc, cols, D_loc, group, sx2, ptab, mu_t,
+                                   sig_t, sv, alpha, w, nans)
+    C = cols.shape[0]
+    F = mu_t.shape[1]
+    CH = 5 * F + (2 if w is not None else 0)
+    dev = acc.device
+    req = build.require
+    req(acc, _F32, (C, 2 * F + 1), dev, "tp_col_update.acc")
+    req(cols, _I32, (C,), dev, "tp_col_update.cols")
+    req(group, _I32, (C,), dev, "tp_col_update.group")
+    req(sx2, _F32, (C,), dev, "tp_col_update.sx2")
+    req(ptab, _F32, (D_loc, CH), dev, "tp_col_update.ptab")
+    req(mu_t, _F32, (D_loc, F), dev, "tp_col_update.mu_t")
+    req(sig_t, _F32, (D_loc, F), dev, "tp_col_update.sig_t")
+    req(sv, _F32, (sv.shape[0], F), dev, "tp_col_update.sv")
+    req(alpha, _F32, (), dev, "tp_col_update.alpha")
+    req(nans, _I32, (2,), dev, "tp_col_update.nans")
+    if w is not None:
+        mu_w, sig_w, sigma_w = w
+        req(mu_w, _F32, (D_loc,), dev, "tp_col_update.mu_w")
+        req(sig_w, _F32, (D_loc,), dev, "tp_col_update.sig_w")
+        req(sigma_w, _F32, (sv.shape[0],), dev, "tp_col_update.sigma_w")
+        wp = (build.ptr(mu_w), build.ptr(sig_w), build.ptr(sigma_w))
+    else:
+        wp = (None, None, None)
+    if C == 0 or F == 0:
+        return
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_col_update(
+            build.ptr(acc), C, build.ptr(cols), D_loc, build.ptr(group),
+            build.ptr(sx2), F, build.ptr(ptab), CH, build.ptr(mu_t),
+            build.ptr(sig_t), build.ptr(sv), build.ptr(alpha), *wp,
+            build.ptr(nans), build.stream_of(acc))
+    build.check_launch(lib, rc, "tp_col_update")
+
+
+def tp_patch_views(patch, N: int, F: int) -> tuple:
+    """T4's output, one buffer of N (3F + 2) floats, as its three parts:
+    the [N, 3F] (dq | dtq | dtz) of the rows, de [N] and dt [N] (planar, so
+    that the adds after the all-reduce read contiguous memory)."""
+    return (patch[:N * 3 * F].view(N, 3 * F),
+            patch[N * 3 * F:N * (3 * F + 1)], patch[N * (3 * F + 1):])
+
+
+def tp_patch_delta_plain(ptab, F: int, merge_w: bool, ids, vals, qt,
+                         lo: int, D_loc: int) -> torch.Tensor:
+    """T4's twin: the bin's patch (dq | dtq | dtz), de, dt of the rows from
+    the ids of the shard (``tp_patch_views``' layout), against the
+    pre-patch caches ``qt`` (every position reads them: K4's
+    non-sequential order, which a conflict-free bin makes equal to the
+    sequential one).  At F = 0 ``ptab`` is the w delta table [D_loc, 2]
+    and ``qt`` is not read."""
+    lidc, inr = _in_window(ids, lo, D_loc)
+    N = ids.shape[0]
+    dev = ptab.device
+    zero = torch.zeros((), dtype=_F32, device=dev)
+    dq = torch.zeros(N, F, dtype=_F32, device=dev)
+    dtq = torch.zeros_like(dq)
+    dtz = torch.zeros_like(dq)
+    de = torch.zeros(N, dtype=_F32, device=dev)
+    dt = torch.zeros_like(de)
+    if F:
+        q, tq, tz = qt[:, :F], qt[:, F:2 * F], qt[:, 2 * F:]
+    for p in range(ids.shape[1]):
+        gg = ptab.index_select(0, lidc[:, p])
+        m = inr[:, p]
+        x = vals[:, p]
+        if F:
+            mc = m[:, None]
+            xp = x[:, None]
+            x2p = xp * xp
+            mu_e, sig_e = gg[:, :F], gg[:, F:2 * F]
+            dmu_e, dsig_e, dmu2_e = (gg[:, 2 * F:3 * F], gg[:, 3 * F:4 * F],
+                                     gg[:, 4 * F:5 * F])
+            he = xp * (q - xp * mu_e)
+            h1e = x2p * (tq - x2p * sig_e)
+            h2e = x2p * (tz - x2p * mu_e * mu_e)
+            dq = dq + torch.where(mc, xp * dmu_e, zero)
+            dtq = dtq + torch.where(mc, x2p * dsig_e, zero)
+            dtz = dtz + torch.where(mc, x2p * dmu2_e, zero)
+            de = de - torch.where(m, (he * dmu_e).sum(1), zero)
+            dt = dt + torch.where(
+                m, ((h1e + h2e) * dsig_e + h1e * dmu2_e).sum(1), zero)
+        if merge_w:
+            de = de + torch.where(m, x * gg[:, 5 * F], zero)
+            dt = dt + torch.where(m, x * x * gg[:, 5 * F + 1], zero)
+    return torch.cat([torch.cat([dq, dtq, dtz], 1).reshape(-1), de, dt])
+
+
+def tp_patch_delta(ptab, F: int, merge_w: bool, ids, vals, qt, lo: int,
+                   D_loc: int) -> torch.Tensor:
+    """T4: kernel on CUDA tensors, plain twin on CPU tensors."""
+    if build.on_cpu(ids):
+        return tp_patch_delta_plain(ptab, F, merge_w, ids, vals, qt, lo,
+                                    D_loc)
+    N, P = ids.shape
+    CH = 5 * F + (2 if merge_w else 0)
+    dev = ids.device
+    req = build.require
+    req(ptab, _F32, (D_loc, CH), dev, "tp_patch_delta.ptab")
+    req(ids, _I32, (N, P), dev, "tp_patch_delta.ids")
+    req(vals, _F32, (N, P), dev, "tp_patch_delta.vals")
+    if F:
+        req(qt, _F32, (N, 3 * F), dev, "tp_patch_delta.qt")
+    out = torch.empty(N * (3 * F + 2), dtype=_F32, device=dev)
+    if N == 0:
+        return out
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_patch_delta(
+            build.ptr(ptab), CH, F, int(merge_w), lo, D_loc, build.ptr(ids),
+            build.ptr(vals), N, P, build.ptr(qt) if F else None,
+            build.ptr(out), build.stream_of(ids))
+    build.check_launch(lib, rc, "tp_patch_delta")
+    return out

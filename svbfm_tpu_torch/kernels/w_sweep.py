@@ -41,6 +41,12 @@ window (replaces ``svbfm_tpu/learners/mcmc_windowed.py``'s ``make_wstats``
 the full-batch exp_sgd, w' = keep_finite(w - lr (sum x e + regw w) / N, w),
 with the same delta table (w_new - w_old, 0) for the w patch.
 
+``tp_w_stats`` and ``tp_w_update`` (T3 at K = 0) split K5's VB mode
+around the feature-sharded learner's data all-reduce: the bin's column
+sums into a [D_loc] accumulator, then the closed form from it
+(``svbfm_tpu/parallel/tp_vb.py:459-482``); padding columns (local id
+D_loc) are skipped.
+
 Replaces ``svbfm_tpu/learners/vb.py:vb_w_bin_update`` (:125-148), the w
 column updates of ``svbfm_tpu/learners/vb_online.py:ovb_chunk_update``
 (:230-269), the bucket body of ``svbfm_tpu/learners/mcmc.py:w_sweep_main``
@@ -446,3 +452,72 @@ def w_bin_grad_step(buckets, e, w, dtab, lr: float, reg: float,
                 table, nb, blocks, build.ptr(e), build.ptr(w),
                 build.ptr(dtab), lr, reg, n_cases, build.stream_of(e))
         build.check_launch(lib, rc, "w_grad_step")
+
+
+# ---- T3 at K = 0: the feature-sharded w sweep, stats then update -----------
+
+def _real(b, D_loc: int):
+    """The bucket's real columns (padding columns carry local id D_loc)."""
+    return b.cols != D_loc
+
+
+def tp_w_stats_plain(buckets, e, acc, D_loc: int) -> None:
+    """The twin of T3's stats launch at K = 0: acc[col] = sum x e of each
+    real column of the bin's buckets over this data shard's rows."""
+    for b in buckets:
+        real = _real(b, D_loc)
+        e_g = e.index_select(0, b.rows.reshape(-1)).reshape(b.rows.shape)
+        acc[b.cols[real].long()] = (b.x * e_g).sum(1)[real]
+
+
+def tp_w_stats(buckets, e, acc, D_loc: int) -> None:
+    """T3's stats launch at K = 0, every bucket of a bin in one launch."""
+    if build.on_cpu(e):
+        return tp_w_stats_plain(buckets, e, acc, D_loc)
+    launches = _bin_launches(buckets, e, (), "tp_w_stats")
+    build.require(acc, _F32, (D_loc,), e.device, "tp_w_stats.acc")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(e.device):
+            rc = lib.svbfm_tp_w_stats(table, nb, blocks, build.ptr(e),
+                                      build.ptr(acc), D_loc,
+                                      build.stream_of(e))
+        build.check_launch(lib, rc, "tp_w_stats")
+
+
+def tp_w_update_plain(buckets, acc, D_loc: int, mu_w, sig_w, sigma_w, alpha,
+                      dtab, bad) -> None:
+    """The twin of T3's update launch at K = 0: batch VB's closed form at
+    each real column of the bin from its sum ``acc[col]``."""
+    for b in buckets:
+        real = _real(b, D_loc)
+        cols = b.cols[real]
+        _vb_w_close(acc[cols.long()], cols, b.group[real], b.sx2[real], mu_w,
+                    sig_w, sigma_w, alpha, dtab, bad)
+
+
+def tp_w_update(buckets, acc, D_loc: int, mu_w, sig_w, sigma_w, alpha, dtab,
+                bad) -> None:
+    """T3's update launch at K = 0 (reads ``acc``, no rows), every bucket
+    of a bin in one launch; in place on mu_w, sig_w, dtab and bad."""
+    if build.on_cpu(acc):
+        return tp_w_update_plain(buckets, acc, D_loc, mu_w, sig_w, sigma_w,
+                                 alpha, dtab, bad)
+    dev = acc.device
+    req = build.require
+    launches = _bin_launches(buckets, acc, ("group", "sx2"), "tp_w_update")
+    req(acc, _F32, (D_loc,), dev, "tp_w_update.acc")
+    req(mu_w, _F32, (D_loc,), dev, "tp_w_update.mu_w")
+    req(sig_w, _F32, (D_loc,), dev, "tp_w_update.sig_w")
+    req(sigma_w, _F32, (sigma_w.shape[0],), dev, "tp_w_update.sigma_w")
+    req(alpha, _F32, (), dev, "tp_w_update.alpha")
+    req(dtab, _F32, (D_loc, 2), dev, "tp_w_update.dtab")
+    req(bad, _I32, (4,), dev, "tp_w_update.bad")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(dev):
+            rc = lib.svbfm_tp_w_update(
+                table, nb, blocks, build.ptr(acc), D_loc, build.ptr(mu_w),
+                build.ptr(sig_w), build.ptr(sigma_w), build.ptr(alpha),
+                build.ptr(dtab), build.ptr(bad), build.stream_of(acc))
+        build.check_launch(lib, rc, "tp_w_update")

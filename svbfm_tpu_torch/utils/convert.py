@@ -3,8 +3,9 @@
 ``jax.random`` bits cannot be reproduced in torch, so tests that hold the
 two packages to each other start both from the same parameters: the JAX
 learner's ``VBState`` (or ``OVBState``, ``MCMCState``, ``SGDState``,
-``SGDAState``, ``BPRState``, or exp_sgd's tuple (w0, w, v)), fetched to
-numpy with ``jax.device_get``, becomes the port's state of the same name.
+``SGDAState``, ``BPRState``, ``TPVBState``, or exp_sgd's tuple (w0, w,
+v)), fetched to numpy with ``jax.device_get``, becomes the port's state of
+the same name (a feature-sharded state: one rank's part of it).
 A block-structure state is an ``MCMCState`` over the joined attributes.
 Nothing here imports JAX.
 """
@@ -24,6 +25,7 @@ from svbfm_tpu_torch.learners.mcmc import TENSOR_FIELDS, MCMCState
 from svbfm_tpu_torch.learners.sgd import SGDAState, SGDState, table
 from svbfm_tpu_torch.learners.vb import VBState
 from svbfm_tpu_torch.learners.vb_online import OVBState
+from svbfm_tpu_torch.parallel.tp_vb import TPVBState
 
 
 def _tensors(np_state: Any, names, device) -> dict:
@@ -88,3 +90,20 @@ def exp_sgd_state_from_jax(np_state: Any, device) -> ExpSGDState:
     w0, w, v = (torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
                 for a in np_state)
     return ExpSGDState(w0=w0, w=w, v=v)
+
+
+def tp_vb_state_from_jax(np_state: Any, device, *, d: int, f: int,
+                         n_data: int, D_loc: int) -> TPVBState:
+    """The feature-sharded VB state of rank (d, f) of a mesh of ``n_data``
+    data shards: JAX keeps the ``TPVBState`` as global arrays, the tables
+    padded to D_pad over the feature (last) dim and e/t over the padded
+    rows; the rank takes the feature slice [f D_loc, (f + 1) D_loc) of the
+    tables and data slice d of e and t."""
+    t = _tensors(np_state, [fl.name for fl in dataclasses.fields(TPVBState)],
+                 "cpu")
+    for k in ("mu_w", "sigma_w_dash", "mu_v", "sigma_v_dash"):
+        t[k] = t[k][..., f * D_loc:(f + 1) * D_loc]
+    rps = t["e"].shape[0] // n_data
+    for k in ("e", "t"):
+        t[k] = t[k][d * rps:(d + 1) * rps]
+    return TPVBState(**{k: v.contiguous().to(device) for k, v in t.items()})

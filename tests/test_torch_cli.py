@@ -103,7 +103,10 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
     pytest.param(["-checkpoint", "ck"], dict(method="bpr"),
                  "-checkpoint is not read by -method bpr",
                  id="extra3-kw3-item 12"),
-    (["-feature_shards", "2"], {}, "item 13"),
+    # -feature_shards runs batch VB (item 13's first slice); the other
+    # methods still refuse it
+    pytest.param(["-feature_shards", "2"], dict(method="mcmc"), "item 13",
+                 id="extra4-kw4-item 13"),
     pytest.param(["-num_eval_cases", "5", "-cache_size", "1000"], {},
                  "not supported with -cache_size", id="extra5-kw5-item 4"),
     (["-learn_rate", "0.1"], {}, "not read"),
@@ -501,6 +504,24 @@ def test_cli_out_of_core_refusals(data, method, extra, message):
     assert message in str(ei.value.code)
 
 
+@pytest.mark.parametrize("method", ["mcmc", "als", "sgd", "vb_online"])
+def test_coordinator_refused_outside_tp_methods(data, method, tmp_path,
+                                                monkeypatch):
+    """With SVBFM_COORDINATOR set, a method that does not run across ranks
+    yet is refused before any group is joined, and no rank runs its own
+    copy of the learner."""
+    import torch.distributed as dist
+
+    d, _, _ = data
+    monkeypatch.setenv("SVBFM_COORDINATOR", f"file://{tmp_path / 'store'}")
+    monkeypatch.setenv("SVBFM_NUM_PROCESSES", "2")
+    monkeypatch.setenv("SVBFM_PROCESS_ID", "0")
+    with pytest.raises(SystemExit) as ei:
+        cli.main(_args(d, method, "-device", "cpu"))
+    assert "item 13.4" in str(ei.value.code)
+    assert not dist.is_initialized()
+
+
 def _both(d, argv_of, monkeypatch, capsys, sub=""):
     """Run both CLIs, each in its own directory (d/torch<sub>,
     d/jax<sub>); returns {"torch": (dir, stdout), "jax": (dir, stdout)}."""
@@ -583,3 +604,50 @@ def test_cli_map_eval_like_the_jax_cli(data, monkeypatch, capsys):
         lines = out.splitlines()
         assert sum("MAP@5= " in ln for ln in lines) == 2, name
         assert sum(ln.startswith("MAP@5\t") for ln in lines) == 1, name
+
+
+def test_cli_feature_shards_like_the_jax_cli(data, tmp_path, monkeypatch,
+                                             capsys):
+    """-feature_shards 2 -distributed 1 on two spawned gloo ranks (a (1, 2)
+    mesh) beside the JAX CLI's -feature_shards 2 on the 8-device mesh (a
+    (4, 2) mesh), both from the JAX init: the same files (rank 0 writes
+    them, the RLog's header and rows among them), the trajectories within
+    test_tp.py's rtol 1e-4."""
+    from svbfm_tpu.parallel import tp_vb as jtp
+    from torch_tp_ranks import cli_rank, run_ranks
+
+    d, _, D = data
+    argv = _args(d, "vb", "-feature_shards", "2", "-out", "pred.txt",
+                 "-rlog", "log.tsv")
+    argv = [a for a in argv if a not in ("-factor_block", "1")]
+    seen = {}
+    init = jtp.TPVBLearner.init_state
+
+    def keep_init(self, key=None):
+        seen["state"] = init(self, key)
+        return seen["state"]
+
+    monkeypatch.setattr(jtp.TPVBLearner, "init_state", keep_init)
+    theirs = _run_in(d / "jax", jax_main, argv, monkeypatch)
+    st = seen["state"]
+    params = {k: np.asarray(getattr(st, k))[..., :D] if k in (
+        "mu_w", "sigma_w_dash", "mu_v", "sigma_v_dash")
+        else np.asarray(getattr(st, k)) for k in (
+        "mu_0", "sigma_0_dash", "mu_w", "sigma_w_dash", "mu_v",
+        "sigma_v_dash", "alpha", "sigma_0", "sigma_w", "sigma_v")}
+    np.savez(tmp_path / "init.npz", **params)
+    (d / "torch").mkdir()
+    run_ranks(cli_rank, 2, tmp_path / "ranks", timeout=120,
+              argv=argv + ["-distributed", "1", "-device", "cpu"],
+              cwd=str(d / "torch"), init=str(tmp_path / "init.npz"))
+    ours = sorted(os.listdir(d / "torch"))
+    assert ours == theirs
+    for name in ("test_rmse_114_vb", "free_energy_114_vb", "pred.txt"):
+        np.testing.assert_allclose(np.loadtxt(d / "torch" / name),
+                                   np.loadtxt(d / "jax" / name), rtol=1e-4,
+                                   err_msg=name)
+    # the RLog: rank 0's header and a row an iteration, as the JAX CLI's
+    ours_log = (d / "torch" / "log.tsv").read_text().splitlines()
+    theirs_log = (d / "jax" / "log.tsv").read_text().splitlines()
+    assert ours_log[0] == theirs_log[0]
+    assert len(ours_log) == len(theirs_log) == 3

@@ -2475,3 +2475,38 @@ def test_checkpoint_resume_on_card_is_bitwise(cuda, method, tmp_path):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b), f.name
     assert [h["rmse"] for h in hr] == [h["rmse"] for h in hf[2:]]
+
+
+def test_tp_vb_on_gpu_matches_cpu(cuda):
+    """The feature-sharded VB (T1-T4) in one process on a (1, 1) mesh, card
+    against CPU from one init, 3 sweeps; every T kernel launched."""
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_vb import TPVBLearner
+
+    coo = make_movielens_like(num_users=60, num_items=40, num_ratings=3000,
+                              seed=4)
+    tr, te = train_test_split(coo, 0.2, seed=5)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 60])
+    hists = []
+    for K in (6, 0):
+        cfg = FMConfig(num_attributes=D, num_factor=K, num_groups=2, seed=7,
+                       min_target=float(tr.target.min()),
+                       max_target=float(tr.target.max()))
+        params = init_vb_params(torch.Generator().manual_seed(7), cfg, "cpu")
+        for dev in (cuda, "cpu"):
+            lr = TPVBLearner(cfg, SparseDataset.from_coo(tr, D),
+                             SparseDataset.from_coo(te, D), meta,
+                             mesh=make_mesh2d(device=dev))
+            before = dict(build.launch_counts)
+            _, h = lr.run(lr.state_from_params(params), num_iter=3,
+                          verbose=False)
+            hists.append(h)
+            if dev is cuda:
+                names = (("tp_build_qt", "tp_col_stats", "tp_col_update")
+                         if K else ("tp_w_stats", "tp_w_update"))
+                assert all(build.launch_counts[k] > before[k] for k in
+                           names + ("tp_fm_partials", "tp_patch_delta"))
+        for a, b in zip(hists[-2], hists[-1]):
+            for k in ("rmse", "free_energy", "alpha"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5)

@@ -80,6 +80,14 @@ from svbfm_tpu_torch.learners.mcmc_windowed import WindowedMCMCLearner
 _, hw = WindowedMCMCLearner(dataclasses.replace(cfg, factor_block=1), train,
                             test, meta, device="cpu", num_windows=2,
                             write_files=False).run(num_iter=1, verbose=False)
+from svbfm_tpu_torch.parallel import make_mesh, make_mesh2d
+from svbfm_tpu_torch.parallel.mesh import distributed_init
+from svbfm_tpu_torch.parallel.tp import make_tp_scorer  # noqa: F401
+from svbfm_tpu_torch.parallel.tp_vb import TPVBLearner
+assert distributed_init(device="cpu") is False  # no configuration
+_, ht = TPVBLearner(cfg, train, test, meta, mesh=make_mesh2d(device="cpu")
+                    ).run(num_iter=2, verbose=False)
+assert make_mesh(device="cpu").shape == (1, 1)
 loaded = [m for m, v in sys.modules.items() if v is not None and
           m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
 assert not loaded, loaded
@@ -91,6 +99,7 @@ print("sgd", len(hs), "sgda", len(hg), "bpr", len(hb), hs[-1]["rmse"],
 print("exp_sgd", len(he), "bs", len(hbm), len(hba), he[-1]["rmse"],
       hbm[-1]["rmse"])
 print("windowed", len(hw))
+print("tp", len(ht))
 """
 
 
@@ -104,6 +113,75 @@ def test_port_runs_two_sweeps_without_jax():
     assert "sgd 1 sgda 1 bpr 1" in r.stdout
     assert "exp_sgd 2 bs 2 1" in r.stdout
     assert "windowed 1" in r.stdout
+    assert "tp 2" in r.stdout
+
+
+def test_nccl_refuses_two_ranks_on_one_device(tmp_path):
+    """NCCL needs a device a rank: two ranks on one card raise, before any
+    group is joined, and nothing switches to gloo quietly; gloo may share
+    a card."""
+    import pytest
+
+    from svbfm_tpu_torch.parallel.mesh import check_backend, distributed_init
+
+    with pytest.raises(ValueError, match="NCCL cannot run 2 ranks on 1"):
+        check_backend("nccl", "cuda", 2, 1)
+    with pytest.raises(ValueError, match="NCCL runs on CUDA devices only"):
+        check_backend("nccl", "cpu", 1, 0)
+    check_backend("gloo", "cuda", 4, 1)
+    check_backend("nccl", "cuda", 1, 1)
+    with pytest.raises(ValueError, match="NCCL cannot run 2 ranks"):
+        distributed_init(init_method=f"file://{tmp_path / 'store'}",
+                         world_size=2, rank=0, backend="nccl",
+                         device="cuda")
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+
+def test_nccl_across_hosts_leaves_the_card_count_to_nccl(monkeypatch):
+    """Ranks across hosts (a coordinator at another host, no
+    LOCAL_WORLD_SIZE) are not held to this host's card count: a world of
+    8 over hosts of 4 cards reaches the process group; LOCAL_WORLD_SIZE,
+    a file:// store or a loopback address still count the host's ranks."""
+    import pytest
+
+    from svbfm_tpu_torch.parallel import mesh
+
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert mesh.local_world_size("tcp://coordinator.invalid:1234", 8) \
+        is None
+    assert mesh.local_world_size("file:///store", 8) == 8
+    assert mesh.local_world_size("tcp://localhost:1234", 4) == 4
+    assert mesh.local_world_size("tcp://127.0.0.1:1234", 4) == 4
+    mesh.check_backend("nccl", "cuda", None, 4)
+    joined = {}
+
+    def init_process_group(backend, **kw):  # records, contacts nothing
+        joined.update(kw, backend=backend)
+
+    monkeypatch.setattr(mesh.dist, "init_process_group", init_process_group)
+    monkeypatch.setattr(mesh.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(mesh, "rank_device", lambda device, rank: None)
+    monkeypatch.setattr(mesh.torch.cuda, "device_count", lambda: 4)
+    assert mesh.distributed_init(
+        init_method="tcp://coordinator.invalid:1234", world_size=8, rank=5,
+        device="cuda") is True
+    assert joined == dict(backend="nccl",
+                          init_method="tcp://coordinator.invalid:1234",
+                          world_size=8, rank=5)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "8")
+    with pytest.raises(ValueError, match="NCCL cannot run 8 ranks on 4"):
+        mesh.distributed_init(init_method="tcp://coordinator.invalid:1234",
+                              world_size=8, rank=5, device="cuda")
+
+
+def test_distributed_init_without_configuration_is_a_noop(monkeypatch):
+    """As tests/test_distributed.py:22 holds of the JAX package's."""
+    from svbfm_tpu_torch.parallel import mesh
+
+    monkeypatch.delenv("SVBFM_COORDINATOR", raising=False)
+    assert mesh.distributed_init(device="cpu") is False
+    assert mesh.process_info() == (0, 1)
 
 
 def test_no_jax_import_statement_in_port():

@@ -1,0 +1,365 @@
+"""The plain twins of the feature-sharded kernels T1-T4, in one process.
+
+For Sf = 1, 2 and 4 feature shards the shards' partials, summed, must equal
+the port's unsharded twins (K1a/K1b, K2, K3, K4, K5 and the w patch) and
+the JAX package's ``tp_scores``, ``tp_t_terms`` (``parallel/tp_vb.py``)
+and ``make_tp_scorer`` (``parallel/tp.py``) on conftest's 8-device CPU
+mesh.  D = 37 is divided by none of 2 and 4, so the last shard holds
+padding columns, and the rows hold ids on the shards' boundaries; the
+edge dims of ``tests/test_tp.py`` (k0 and k1 off; K = 0) are covered.
+Tolerance: ``test_tp.py:29``'s rtol 2e-4 / atol 2e-4 for JAX, 1e-5 / 1e-6
+for the port's own twins (the same sums in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from svbfm_tpu.parallel.mesh import DATA_AXIS, FEATURE_AXIS
+from svbfm_tpu.parallel.mesh import make_mesh as jmesh
+from svbfm_tpu.parallel.mesh import make_mesh2d as jmesh2d
+from svbfm_tpu.parallel.tp import make_tp_scorer as jscorer
+from svbfm_tpu.parallel.tp import shard_params_by_feature as jshard
+from svbfm_tpu.parallel.tp_vb import tp_scores as jtp_scores
+from svbfm_tpu.parallel.tp_vb import tp_t_terms as jtp_t_terms
+from svbfm_tpu_torch.data.dataset import SweepPlan
+from svbfm_tpu_torch.data.libfm_text import COOData
+from svbfm_tpu_torch.data.meta import DataMetaInfo
+from svbfm_tpu_torch.kernels import fm_forward as k1
+from svbfm_tpu_torch.kernels import vb_sweep as kv
+from svbfm_tpu_torch.kernels import w_sweep as kw
+from svbfm_tpu_torch.learners.base import build_plan_data
+from svbfm_tpu_torch.ops.forward import (fm_scores, fm_t_terms, score_table,
+                                         t_term_table)
+from svbfm_tpu_torch.parallel.tp import (make_tp_scorer, pad_feature_dim,
+                                         scores_from_partials,
+                                         shard_params_by_feature,
+                                         t_terms_from_partials)
+from svbfm_tpu_torch.parallel.tp_vb import _build_tp_plan, local_plan
+
+D, N, P_ROW, NU = 37, 300, 2, 20
+SHARDS = (1, 2, 4)
+TOL = dict(rtol=1e-5, atol=1e-6)
+JAX_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _rows(seed=0):
+    """N rows of a user id in [0, NU) and an item id in [NU, D), the ids on
+    the shards' boundaries (D_loc = 37, 19, 10) among them."""
+    rng = np.random.default_rng(seed)
+    ids = np.stack([rng.integers(0, NU, N), rng.integers(NU, D, N)], 1)
+    ids[:6, 0] = [0, 9, 10, 18, 19, NU - 1]
+    ids[:6, 1] = [NU, 29, 30, 36, 36, 28]
+    vals = rng.uniform(0.5, 1.5, (N, P_ROW))
+    return ids.astype(np.int32), vals.astype(np.float32)
+
+
+def _tables(K, seed=1):
+    rng = np.random.default_rng(seed)
+    return dict(w0=np.float32(0.3),
+                w=rng.standard_normal(D).astype(np.float32),
+                v=(0.3 * rng.standard_normal((K, D))).astype(np.float32),
+                sw=rng.uniform(0.01, 0.1, D).astype(np.float32),
+                sv=rng.uniform(0.01, 0.1, (K, D)).astype(np.float32),
+                s0=np.float32(0.02))
+
+
+def _shard(a, Sf, f):
+    D_loc = -(-D // Sf)
+    a = pad_feature_dim(a, D_loc * Sf)
+    return _t(a[..., f * D_loc:(f + 1) * D_loc]).contiguous(), f * D_loc, D_loc
+
+
+def _summed(Sf, part_of):
+    """The sum over the Sf shards f of part_of(f, sh), ``sh(a)`` giving
+    shard f of a table (its slice, lo and D_loc)."""
+    return sum(part_of(f, lambda a: _shard(a, Sf, f)) for f in range(Sf))
+
+
+def _jax_fwd(Sf, fn, ids, vals, k0, k1, table_args):
+    """JAX's tp_scores / tp_t_terms on a (1, Sf) mesh."""
+    D_loc = -(-D // Sf)
+    mesh = jmesh2d(n_data=1, n_feature=Sf)
+
+    def body(*a):
+        *tabs, i, v = a
+        return fn(*tabs, i, v, D_loc, k0, k1)
+
+    specs = tuple(P() if t.ndim == 0 else P(FEATURE_AXIS) if t.ndim == 1
+                  else P(None, FEATURE_AXIS) for t in table_args)
+    f = jax.jit(jax.shard_map(body, mesh=mesh,
+                              in_specs=specs + (P(DATA_AXIS), P(DATA_AXIS)),
+                              out_specs=P(DATA_AXIS)))
+    tabs = [jnp.asarray(pad_feature_dim(t, D_loc * Sf)) if t.ndim else
+            jnp.asarray(t) for t in table_args]
+    return np.asarray(f(*tabs, jnp.asarray(ids), jnp.asarray(vals)))
+
+
+CASES = [(4, True, True), (4, False, False), (0, True, True),
+         (5, True, False)]
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+@pytest.mark.parametrize("K,k0,k1", CASES)
+def test_t1_scores_partials(Sf, K, k0, k1):
+    ids, vals = _rows()
+    tb = _tables(K)
+    it, vt = _t(ids), _t(vals)
+
+    def part(f, sh):
+        w, lo, D_loc = sh(tb["w"])
+        v = sh(tb["v"])[0]
+        return k1_partials(score_table(w, v, k1), K, False, it, vt, lo, D_loc)
+
+    summed = _summed(Sf, part)
+    w0 = torch.tensor(tb["w0"] if k0 else 0.0)
+    ours = scores_from_partials(summed, w0, K).numpy()
+    ref = fm_scores(_t(tb["w0"]), _t(tb["w"]), _t(tb["v"]), it, vt, k0=k0,
+                    k1=k1).numpy()
+    np.testing.assert_allclose(ours, ref, **TOL)
+    jax_out = _jax_fwd(Sf, jtp_scores, ids, vals, k0, k1,
+                       [tb["w0"], tb["w"], tb["v"]])
+    np.testing.assert_allclose(ours, jax_out, **JAX_TOL)
+
+
+def k1_partials(tab, K, t_terms, ids, vals, lo, D_loc):
+    out = k1.tp_fm_partials(tab, K, t_terms, ids, vals, lo, D_loc)
+    assert out.shape == (ids.shape[0], k1.tp_channels(K, t_terms))
+    return out
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+@pytest.mark.parametrize("K,k0,k1", CASES)
+def test_t1_t_terms_partials(Sf, K, k0, k1):
+    ids, vals = _rows(2)
+    tb = _tables(K, 3)
+    it, vt = _t(ids), _t(vals)
+
+    def part(f, sh):
+        sw, lo, D_loc = sh(tb["sw"])
+        tab = t_term_table(sw, sh(tb["v"])[0], sh(tb["sv"])[0], k1)
+        return k1_partials(tab, K, True, it, vt, lo, D_loc)
+
+    summed = _summed(Sf, part)
+    s0 = torch.tensor(tb["s0"] if k0 else 0.0)
+    ours = t_terms_from_partials(summed, s0, K).numpy()
+    ref = fm_t_terms(_t(tb["s0"]), _t(tb["sw"]), _t(tb["v"]), _t(tb["sv"]),
+                     it, vt, k0=k0, k1=k1).numpy()
+    np.testing.assert_allclose(ours, ref, **TOL)
+    jax_out = _jax_fwd(Sf, jtp_t_terms, ids, vals, k0, k1,
+                       [tb["s0"], tb["sw"], tb["v"], tb["sv"]])
+    np.testing.assert_allclose(ours, jax_out, **JAX_TOL)
+
+
+class _OneRank:
+    """A stand-in mesh of Sf ranks for ``make_tp_scorer`` run rank by rank:
+    its all-reduce keeps the partials, summed by the test."""
+
+    def __init__(self, size, rank):
+        self.size, self.rank, self.device = size, rank, torch.device("cpu")
+        self.parts = []
+
+    def all_reduce(self, t):
+        self.parts.append(t.clone())
+        return t
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+@pytest.mark.parametrize("k0,k1", [(True, True), (False, False)])
+def test_make_tp_scorer_matches_jax(Sf, k0, k1):
+    ids, vals = _rows(4)
+    tb = _tables(8, 5)
+    parts = []
+    for r in range(Sf):
+        m = _OneRank(Sf, r)
+        scorer, d_pad = make_tp_scorer(m, D, k0, k1)
+        w0, w, v = shard_params_by_feature(
+            m, tb["w0"], pad_feature_dim(tb["w"], d_pad),
+            pad_feature_dim(tb["v"], d_pad))
+        scorer(w0, w, v, _t(ids), _t(vals))
+        parts += m.parts
+    w0 = torch.tensor(tb["w0"] if k0 else 0.0)
+    ours = scores_from_partials(sum(parts), w0, 8).numpy()
+    mesh = jmesh(Sf)
+    fn, d_pad = jscorer(mesh, D, k0=k0, k1=k1)
+    args = jshard(mesh, tb["w0"], pad_feature_dim(tb["w"], d_pad),
+                  pad_feature_dim(tb["v"], d_pad))
+    ref = np.asarray(fn(*args, jnp.asarray(ids), jnp.asarray(vals)))
+    np.testing.assert_allclose(ours, ref, **JAX_TOL)
+
+
+# ---- T2-T4 against the unsharded sweep twins ------------------------------
+
+def _sweep_setup(K, seed=6):
+    """A conflict-free plan over the rows, caches and a patch table as the
+    fast-mode sweep has them at a bin's start."""
+    ids, vals = _rows(seed)
+    rows = np.repeat(np.arange(N), P_ROW)
+    coo = COOData(row=rows, col=ids.reshape(-1).astype(np.int64),
+                  val=vals.reshape(-1), target=np.zeros(N, np.float32),
+                  num_rows=N, num_features=D)
+    meta = DataMetaInfo.from_field_offsets(D, [0, NU])
+    plan = SweepPlan.build(coo, D, meta_groups=meta.attr_group)
+    rng = np.random.default_rng(seed)
+    F = K
+    CH = 5 * F + 2 if F else 2
+    ptab = torch.zeros(D, CH)
+    if F:
+        ptab[:, :F] = _t(0.3 * rng.standard_normal((D, F)).astype(np.float32))
+        ptab[:, F:2 * F] = _t(rng.uniform(0.01, 0.1, (D, F)).astype(
+            np.float32))
+    e = _t(rng.standard_normal(N).astype(np.float32))
+    return dict(ids=_t(ids), vals=_t(vals), plan=plan, meta=meta, ptab=ptab,
+                e=e, F=F, CH=CH, rng=rng)
+
+
+def _tp_plans(s, Sf):
+    plan_np, D_loc = _build_tp_plan((1, Sf), s["plan"], s["meta"], D)
+    return [local_plan(plan_np, 0, f, "cpu") for f in range(Sf)], D_loc
+
+
+def _pad_rows(a, D_loc, Sf):
+    out = torch.zeros((D_loc * Sf,) + tuple(a.shape[1:]))
+    out[:a.shape[0]] = a
+    return out
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+@pytest.mark.parametrize("K", [4, 3])
+def test_t2_t3_t4_match_the_unsharded_sweep(Sf, K):
+    s = _sweep_setup(K)
+    F, ids, vals, e = s["F"], s["ids"], s["vals"], s["e"]
+    plans, D_loc = _tp_plans(s, Sf)
+    gptab = _pad_rows(s["ptab"], D_loc, Sf)
+    # T2: the caches
+    qt = sum(kv.tp_build_qt(gptab[f * D_loc:(f + 1) * D_loc].contiguous(),
+                            F, ids, vals, f * D_loc, D_loc)
+             for f in range(Sf))
+    q, tq, tz = kv.vb_build_qt(s["ptab"], F, ids, vals)
+    np.testing.assert_allclose(qt.numpy(), torch.cat([q, tq, tz], 1).numpy(),
+                               **TOL)
+    # T3 on bin 0: stats (the column sums, padding columns' rows zero),
+    # then the update, against K3's twin with the w rider
+    G = s["meta"].num_attr_groups
+    sv = torch.rand(G, F, generator=torch.Generator().manual_seed(1)) + 0.5
+    sigma_w = torch.rand(G, generator=torch.Generator().manual_seed(2)) + 0.5
+    alpha = torch.tensor(1.3)
+    mu_w0 = _t(s["rng"].standard_normal(D).astype(np.float32))
+    ref = dict(ptab=s["ptab"].clone(), mu_t=s["ptab"][:, :F].clone(),
+               sig_t=s["ptab"][:, F:2 * F].clone(), mu_w=mu_w0.clone(),
+               sig_w=torch.full((D,), 0.02),
+               nans=torch.zeros(2, dtype=torch.int32))
+    for blk in build_plan_data(s["plan"], s["meta"], "cpu").blocks[0]:
+        kv.vb_col_stats_update_plain(
+            blk.rows, blk.x, blk.cols, blk.group, blk.sx2, e, q, tq,
+            ref["ptab"], ref["mu_t"], ref["sig_t"], sv, alpha,
+            (ref["mu_w"], ref["sig_w"], sigma_w), ref["nans"])
+    got_ptab = gptab.clone()
+    got_mu, got_sig = (_pad_rows(a, D_loc, Sf) for a in
+                       (s["ptab"][:, :F], s["ptab"][:, F:2 * F]))
+    got_mw = _pad_rows(mu_w0, D_loc, Sf)
+    got_sw = _pad_rows(torch.full((D,), 0.02), D_loc, Sf)
+    nans = torch.zeros(2, dtype=torch.int32)
+    saw_padding = False
+    for f, pl in enumerate(plans):
+        sl = slice(f * D_loc, (f + 1) * D_loc)
+        views = [a[sl] for a in (got_ptab, got_mu, got_sig, got_mw, got_sw)]
+        pt, mt, st, mw, sw = views
+        for blk in pl.blocks[0]:
+            saw_padding |= bool((blk.cols == D_loc).any())
+            acc = kv.tp_col_stats(blk.rows, blk.x, blk.cols, D_loc, e, qt,
+                                  pt, F)
+            assert acc.shape == (blk.cols.shape[0], 2 * F + 1)
+            pad = blk.cols == D_loc
+            assert (acc[pad] == 0).all()
+            real = ~pad
+            vm, vs, sxe = kv._col_sums(blk.rows[real], blk.x[real],
+                                       blk.cols[real], e, q, tq, pt, F)
+            np.testing.assert_allclose(
+                acc[real].numpy(), torch.cat([vm, vs, sxe[:, None]],
+                                             1).numpy(), **TOL)
+            kv.tp_col_update(acc, blk.cols, D_loc, blk.group, blk.sx2, pt,
+                             mt, st, sv, alpha, (mw, sw, sigma_w), nans)
+    assert Sf == 1 or saw_padding
+    for got, want in ((got_mu, ref["mu_t"]), (got_sig, ref["sig_t"]),
+                      (got_mw, ref["mu_w"]), (got_sw, ref["sig_w"]),
+                      (got_ptab, ref["ptab"])):
+        np.testing.assert_allclose(got[:D].numpy(), want.numpy(), **TOL)
+    assert torch.equal(nans, ref["nans"])
+    # T4: the bin's patch, summed over the shards, is what K4's twin adds
+    patch = sum(kv.tp_patch_delta(got_ptab[f * D_loc:(f + 1) * D_loc]
+                                  .contiguous(), F, True, ids, vals, qt,
+                                  f * D_loc, D_loc) for f in range(Sf))
+    caches = [c.clone() for c in (q, tq, tz)]
+    e1, t1 = e.clone(), torch.zeros(N)
+    kv.vb_patch_rows_plain(ref["ptab"], F, True, ids, vals, *caches, e1, t1)
+    assert patch.shape == (N * (3 * F + 2),)
+    want = (torch.cat([caches[0] - q, caches[1] - tq, caches[2] - tz], 1),
+            e1 - e, t1)
+    for got, w in zip(kv.tp_patch_views(patch, N, F), want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+def test_t3_t4_at_k0_match_k5_and_the_w_patch(Sf):
+    s = _sweep_setup(0, seed=8)
+    ids, vals, e = s["ids"], s["vals"], s["e"]
+    plans, D_loc = _tp_plans(s, Sf)
+    G = s["meta"].num_attr_groups
+    sigma_w = torch.rand(G, generator=torch.Generator().manual_seed(3)) + 0.5
+    alpha = torch.tensor(0.7)
+    mu_w0 = _t(s["rng"].standard_normal(D).astype(np.float32))
+    for b in range(len(s["plan"].blocks)):
+        ref_mw, ref_sw = mu_w0.clone(), torch.full((D,), 0.02)
+        ref_dt, ref_bad = torch.zeros(D, 2), torch.zeros(4, dtype=torch.int32)
+        kw.w_bin_update_plain(
+            build_plan_data(s["plan"], s["meta"], "cpu").blocks[b], e,
+            ref_mw, ref_sw, sigma_w, alpha, ref_dt, ref_bad)
+        mw, sw = (_pad_rows(a, D_loc, Sf) for a in (mu_w0,
+                                                     torch.full((D,), 0.02)))
+        dtab = torch.zeros(D_loc * Sf, 2)
+        bad = torch.zeros(4, dtype=torch.int32)
+        for f, pl in enumerate(plans):
+            sl = slice(f * D_loc, (f + 1) * D_loc)
+            acc = torch.zeros(D_loc)
+            kw.tp_w_stats(pl.blocks[b], e, acc, D_loc)
+            kw.tp_w_update(pl.blocks[b], acc, D_loc, mw[sl], sw[sl], sigma_w,
+                           alpha, dtab[sl], bad)
+        np.testing.assert_allclose(mw[:D].numpy(), ref_mw.numpy(), **TOL)
+        np.testing.assert_allclose(sw[:D].numpy(), ref_sw.numpy(), **TOL)
+        np.testing.assert_allclose(dtab[:D].numpy(), ref_dt.numpy(), **TOL)
+        assert torch.equal(bad, ref_bad)
+        patch = sum(kv.tp_patch_delta(dtab[f * D_loc:(f + 1) * D_loc]
+                                      .contiguous(), 0, True, ids, vals,
+                                      None, f * D_loc, D_loc)
+                    for f in range(Sf))
+        e1, t1 = e.clone(), torch.zeros(N)
+        kv.w_patch_rows_plain(ref_dt, ids, vals, e1, t1)
+        _, de, dt = kv.tp_patch_views(patch, N, 0)
+        np.testing.assert_allclose(de.numpy(), (e1 - e).numpy(), **TOL)
+        np.testing.assert_allclose(dt.numpy(), t1.numpy(), **TOL)
+
+
+def test_t1_reads_no_row_for_another_shards_id():
+    """An id outside [lo, lo + D_loc) adds nothing and reads no table row:
+    a NaN at the shard's last row, where JAX's clip puts the ids past the
+    window (and multiplies them by 0, so NaN), reaches only the rows that
+    hold that row's own id."""
+    ids, vals = _rows(9)
+    tb = _tables(4, 9)
+    w, lo, D_loc = _shard(tb["w"], 2, 0)
+    tab = score_table(w, _shard(tb["v"], 2, 0)[0])
+    tab[D_loc - 1, :] = float("nan")
+    out = k1.tp_fm_partials(tab, 4, False, _t(ids), _t(vals), lo, D_loc)
+    mine = torch.from_numpy((ids == D_loc - 1).any(1))
+    assert mine.any() and (~mine).any()
+    assert torch.isnan(out[mine]).any(1).all()
+    assert torch.isfinite(out[~mine]).all()

@@ -1,0 +1,162 @@
+"""Spawned gloo ranks for the tests of the port's feature-sharded learner.
+
+``run_ranks(fn, world, workdir, **kw)`` starts ``world`` processes
+(``torch.multiprocessing``, the spawn method), joins them into one gloo
+group through a ``file://`` store in ``workdir`` (no TCP port: several
+test workers run at once), calls ``fn(rank, **kw)`` in each and returns
+the ranks' results in rank order.  A child's failure or a run past
+``timeout`` fails the call.  ``fn`` must be a module-level function of an
+importable module; this module imports no JAX, so a child does not.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+import traceback
+
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _entry(rank: int, fn, world: int, workdir: str, kw: dict) -> None:
+    out = os.path.join(workdir, f"rank{rank}.pkl")
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{os.path.join(workdir, 'store')}",
+            world_size=world, rank=rank)
+        res = fn(rank, **kw)
+        dist.barrier()
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump(("ok", res), f)
+    except BaseException:
+        with open(out, "wb") as f:
+            pickle.dump(("error", traceback.format_exc()), f)
+        raise
+
+
+def run_ranks(fn, world: int, workdir, timeout: float = 90.0, **kw) -> list:
+    workdir = str(workdir)
+    os.makedirs(workdir, exist_ok=True)
+    ctx = mp.start_processes(_entry, args=(fn, world, workdir, kw),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks ran past {timeout} s")
+    except mp.ProcessRaisedException as exc:
+        raise AssertionError(f"a rank failed:\n{exc}") from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+            status, res = pickle.load(f)
+        assert status == "ok", res
+        results.append(res)
+    return results
+
+
+# ---- the recipe and the ranks' work -----------------------------------------
+
+def tp_setup(seed: int = 2, K: int = 4):
+    """``tests/test_tp.py:_tp_train_setup``'s recipe in the port (700
+    ratings, 20 users, 14 items, K = 4): (cfg, train, test, meta, D)."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import (make_movielens_like,
+                                            train_test_split)
+    from svbfm_tpu_torch.learners.base import FMConfig
+
+    coo = make_movielens_like(num_users=20, num_items=14, num_ratings=700,
+                              rank=2, noise=0.4, seed=seed)
+    tr, te = train_test_split(coo, 0.2, seed=seed + 1)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 20])
+    cfg = FMConfig(num_attributes=D, num_factor=K,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()),
+                   num_groups=meta.num_attr_groups, seed=7)
+    return (cfg, SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta, D)
+
+
+def _learner(shape, setup: dict):
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_vb import TPVBLearner
+
+    cfg, tr, te, meta, _ = tp_setup(**setup)
+    mesh = make_mesh2d(n_data=shape[0], n_feature=shape[1], device="cpu")
+    return TPVBLearner(cfg, tr, te, meta, mesh=mesh)
+
+
+def _numpy(state) -> dict:
+    import dataclasses
+    return {f.name: getattr(state, f.name).numpy()
+            for f in dataclasses.fields(state)}
+
+
+def train(rank: int, shape, setup: dict, num_iter: int,
+          init: str = "") -> dict:
+    """``num_iter`` sweeps on a mesh of ``shape``, from the JAX learner's
+    global state saved as npz at ``init`` (else the port's own init):
+    the history and the gathered global state."""
+    import numpy as np
+
+    from svbfm_tpu_torch.utils.convert import tp_vb_state_from_jax
+
+    lr = _learner(shape, setup)
+    state = None
+    if init:
+        with np.load(init) as z:
+            state = tp_vb_state_from_jax(
+                dict(z), "cpu", d=lr.mesh.d_index, f=lr.mesh.f_index,
+                n_data=lr.mesh.n_data, D_loc=lr.D_loc)
+    state, hist = lr.run(state, num_iter=num_iter, verbose=False)
+    return dict(hist=hist, state=_numpy(lr.global_state(state)),
+                D_loc=lr.D_loc, scores=lr.predict_test_scores(state))
+
+
+def train_ckpt(rank: int, shape, setup: dict, num_iter: int, ckpt_dir: str,
+               ckpt_every: int) -> dict:
+    """Sweeps up to ``num_iter`` through a checkpoint directory (resuming
+    from it where it holds one): the history and the global state."""
+    from svbfm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    lr = _learner(shape, setup)
+    state, hist = lr.run(num_iter=num_iter, verbose=False,
+                         ckpt=CheckpointManager(ckpt_dir),
+                         ckpt_every=ckpt_every)
+    return dict(hist=hist, state=_numpy(lr.global_state(state)))
+
+
+def full_and_first(rank: int, setup: dict, ck: str):
+    """On a (1, 2) mesh: 6 uninterrupted sweeps, then 3 that save a
+    checkpoint in ``ck``."""
+    return (train(rank, (1, 2), setup, 6),
+            train_ckpt(rank, (1, 2), setup, 3, ck, 3))
+
+
+def cli_rank(rank: int, argv: list, cwd: str, init: str) -> int:
+    """The port's CLI on this rank, from the JAX init parameters saved as
+    npz at ``init`` (whole [D] tables), run in ``cwd``."""
+    import numpy as np
+    import torch
+
+    from svbfm_tpu_torch import cli
+    from svbfm_tpu_torch.parallel import tp_vb
+
+    def init_state(self, generator=None):
+        with np.load(init) as z:
+            return self.state_from_params(
+                {k: torch.from_numpy(z[k]) for k in z.files})
+
+    tp_vb.TPVBLearner.init_state = init_state
+    os.chdir(cwd)
+    return cli.main(argv)
