@@ -332,6 +332,9 @@ WIN_CACHE_BYTES, WIN_SHAPE, WIN_TRAJ_RTOL = 8_388_608, (4, 250_880), 2e-4
 TP_RTOL = 1e-4
 TP_RANKS, TP_RANKS_ROWS, TP_RANKS_K, TP_RANKS_SWEEPS = 4, 100_000, 8, 3
 TP_RANKS_TIMEOUT = 240
+# [tp-mcmc]: Gibbs iterations beside the resident Gibbs, and how far apart
+# their posterior-mean RMSEs may end (two chains of other draws)
+TP_MCMC_ITERS, TP_MCMC_RMSE_GAP = 20, 0.01
 # the windowed Gibbs/ALS beside the resident learner at the same
 # factor_block and draws: the JAX test's own bound (test_mcmc_windowed.py:
 # 51-56: rmse rtol 5e-4, alpha 5e-3)
@@ -453,6 +456,19 @@ SOURCES = {
                    "svbfm_tpu/parallel/tp_vb.py:459"),
     "tp_w_update": ("svbfm_tpu_torch/csrc/w_sweep.cu",
                     "svbfm_tpu/parallel/tp_vb.py:473"),
+    # T5-T8, the feature-sharded Gibbs/ALS (parallel/tp_mcmc.py): T5 the w
+    # draw after T3's w stats, T6 the block's q partials, T7 a bucket's
+    # stats and draw launches (X14a's window modes), T8 the bin patch
+    "tp_w_draw": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                  "svbfm_tpu/parallel/tp_mcmc.py:158"),
+    "tp_build_q": ("svbfm_tpu_torch/csrc/vb_sweep.cu",
+                   "svbfm_tpu/parallel/tp_mcmc.py:230"),
+    "tp_col_draw_stats": ("svbfm_tpu_torch/csrc/mcmc_sweep.cu",
+                          "svbfm_tpu/parallel/tp_mcmc.py:239"),
+    "tp_col_draw": ("svbfm_tpu_torch/csrc/mcmc_sweep.cu",
+                    "svbfm_tpu/parallel/tp_mcmc.py:269"),
+    "tp_mcmc_patch_delta": ("svbfm_tpu_torch/csrc/mcmc_sweep.cu",
+                            "svbfm_tpu/parallel/tp_mcmc.py:284"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
 # (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
@@ -466,6 +482,10 @@ MCMC_FOCUS = ("col_draw", "row_patch")
 BS_KERNELS = ("bs_rel_moments", "bs_scores", "bs_resync", "bs_join_agg",
               "bs_rel_draw", "bs_rel_w_draw", "bs_rel_patch",
               "bs_rel_w_patch")
+# the kernels of the feature-sharded Gibbs/ALS sweep
+TP_MCMC_KERNELS = ("tp_fm_partials", "tp_w_stats", "tp_w_draw",
+                   "tp_patch_delta", "tp_build_q", "tp_col_draw_stats",
+                   "tp_col_draw", "tp_mcmc_patch_delta")
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "vb-fast": ("fm_scores", "fm_t_terms", "vb_build_qt",
@@ -535,6 +555,11 @@ PATH_KERNELS = {
               "tp_col_update", "tp_patch_delta"),
     "tp-vb-k0": ("tp_fm_partials", "tp_w_stats", "tp_w_update",
                  "tp_patch_delta"),
+    # the feature-sharded Gibbs and ALS (T1, T3's w stats, T4 at F = 0 and
+    # T5-T8), and under -task c X12a and X12b
+    "tp-mcmc": TP_MCMC_KERNELS,
+    "tp-als": TP_MCMC_KERNELS,
+    "tp-mcmc-class": TP_MCMC_KERNELS + ("probit_latent", "probit_eval"),
 }
 
 
@@ -1230,13 +1255,29 @@ def tp_tensors(learner, state) -> dict:
     from svbfm_tpu_torch.ops.forward import score_table, t_term_table
     from svbfm_tpu_torch.parallel.tp_vb import _build_tp_plan, local_plan
 
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+
     cfg = learner.cfg
     D, K = cfg.num_attributes, cfg.num_factor
+    G = cfg.num_groups
     dev = state.e.device
     row = learner.train_row
     full = torch.zeros(D, 5 * K + 2, device=dev)
     full[:, :K], full[:, K:2 * K] = state.mu_v.T, state.sigma_v_dash.T
     qt = torch.cat(kv.vb_build_qt_plain(full, K, row.ids, row.vals), 1)
+    # T5-T8's: the block's q of the whole v (X8d's twin), seeded group
+    # priors and [K, D] / [D] noise tables
+    gfull = torch.cat([state.mu_v.T, torch.zeros(D, K, device=dev)], 1)
+    gq = kv.build_q_plain(gfull, K, row.ids, row.vals)
+    gen = torch.Generator().manual_seed(SEED + 1)
+
+    def rand(*shape, lo=None, hi=None):
+        u = (torch.randn(shape, generator=gen) if lo is None else
+             lo + (hi - lo) * torch.rand(shape, generator=gen))
+        return u.to(dev)
+    pri = dict(mu=0.1 * rand(G, K), lam=rand(G, K, lo=0.5, hi=2.0),
+               w_mu=0.1 * rand(G), w_lam=rand(G, lo=0.5, hi=2.0),
+               z=rand(K, D), zw=rand(D))
     shards = []
     for Sf in (2, 1):
         plan_np, D_loc = _build_tp_plan((1, Sf), learner.plan, learner.meta,
@@ -1277,12 +1318,36 @@ def tp_tensors(learner, state) -> dict:
                                  sig_w.clone(), state.sigma_w, state.alpha,
                                  dtab, _bad(dev))
             sh["w_acc"], sh["dtab"] = acc, dtab
+            # T5-T8: the shard's v as the block's patch table (v | 0), its
+            # noise, and the patch table as bin 0's twins leave it (F = K;
+            # factor 0 alone for F = 1)
+            vt = mu_v.T.contiguous()
+            gb = dict(vt=vt, ptab=torch.cat([vt, torch.zeros_like(vt)], 1),
+                      z=cut(pri["z"], f), zw=cut(pri["zw"], f))
+            pt, v2 = gb["ptab"].clone(), vt.clone()
+            for b in pl.blocks[0]:
+                acc = km.tp_col_draw_stats_plain(b.rows, b.x, b.cols, D_loc,
+                                                 state.e, gq, gb["ptab"], K,
+                                                 True)
+                km.tp_col_draw_plain(acc, b.cols, b.group, D_loc, pt, v2,
+                                     pri["mu"], pri["lam"], state.alpha,
+                                     gb["z"], True, _bad(dev)[:2])
+            gb["ptab_patch"] = pt
+            gb.update(vt1=vt[:, :1].contiguous(),
+                      ptab1=gb["ptab"][:, [0, K]].contiguous(),
+                      ptab1_patch=pt[:, [0, K]].contiguous(),
+                      z1=gb["z"][:1].contiguous())
+            sh["gibbs"] = gb
             shards.append(sh)
     return dict(tag="tp", tp=shards, K=K, D=D, ids=row.ids, vals=row.vals,
                 eval_ids=learner.test_row.ids,
                 eval_vals=learner.test_row.vals, e=state.e, qt=qt,
                 w0=state.mu_0, s0=state.sigma_0_dash, sv=state.sigma_v,
-                sigma_w=state.sigma_w, alpha=state.alpha, full_ptab=full)
+                sigma_w=state.sigma_w, alpha=state.alpha, full_ptab=full,
+                gq=gq, gq1=gq[:, :1].contiguous(),
+                **{f"pri_{k}": v for k, v in pri.items()},
+                pri_mu1=pri["mu"][:, :1].contiguous(),
+                pri_lam1=pri["lam"][:, :1].contiguous())
 
 
 def tp_cases(add, s: dict, bucket_cost, bin_cost, bin_label) -> None:
@@ -1291,6 +1356,7 @@ def tp_cases(add, s: dict, bucket_cost, bin_cost, bin_label) -> None:
     at Sf = 2 the shards' partials, summed, against the unsharded kernels
     (K1a, K1b, K2, K4 and the w patch: kernel against kernel)."""
     from svbfm_tpu_torch.kernels import fm_forward as k1
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
     from svbfm_tpu_torch.kernels import vb_sweep as kv
     from svbfm_tpu_torch.kernels import w_sweep as kw
     from svbfm_tpu_torch.parallel.tp import (scores_from_partials,
@@ -1430,6 +1496,8 @@ def tp_cases(add, s: dict, bucket_cost, bin_cost, bin_label) -> None:
         add("tp_patch_delta", f"{tag} F=0 bin 0", nothing,
             twin(kv.tp_patch_delta, kv.tp_patch_delta_plain, sh["dtab"], 0,
                  True, s["ids"], s["vals"], None, lo, D_loc), None)
+        tp_mcmc_cases(add, s, sh, every, bins, C, bucket_cost, bin_label,
+                      timed)
 
     # the shards of Sf = 2 summed against the unsharded kernels
     two = [sh for sh in s["tp"] if sh["Sf"] == 2]
@@ -1487,6 +1555,149 @@ def tp_cases(add, s: dict, bucket_cost, bin_cost, bin_label) -> None:
         return [torch.cat([q, tq, tz], 1) - s["qt"], e, t]
 
     add("tp_patch_delta", "Sf=2 summed vs K4", nothing, t4_vs_k4, None)
+
+    def t6_vs_x8d(variant, _):
+        if variant == "kernel":
+            return [summed(lambda sh: kv.tp_build_q(
+                sh["gibbs"]["ptab"], K, s["ids"], s["vals"], sh["lo"],
+                sh["D_loc"]))]
+        pt = torch.cat([sh["gibbs"]["ptab"] for sh in two])[:s["D"]]
+        return [kv.build_q(pt.contiguous(), K, s["ids"], s["vals"])]
+
+    add("tp_build_q", "Sf=2 summed vs X8d", nothing, t6_vs_x8d, None)
+
+    def t8_vs_x8b(variant, _):
+        N = s["ids"].shape[0]
+        if variant == "kernel":
+            return list(km.tp_mcmc_patch_views(summed(
+                lambda sh: km.tp_mcmc_patch_delta(
+                    sh["gibbs"]["ptab_patch"], K, s["ids"], s["vals"],
+                    s["gq"], sh["lo"], sh["D_loc"])), N, K))
+        pt = torch.cat([sh["gibbs"]["ptab_patch"] for sh in two])[:s["D"]]
+        q, e = s["gq"].clone(), torch.zeros_like(s["e"])
+        km.mcmc_patch_rows(pt.contiguous(), K, s["ids"], s["vals"], q, e)
+        return [s["gq"] - q, -e]
+
+    add("tp_mcmc_patch_delta", "Sf=2 summed vs X8b", nothing, t8_vs_x8b,
+        None)
+
+
+def tp_mcmc_cases(add, s: dict, sh: dict, every, bins, C: int, bucket_cost,
+                  bin_label, timed: bool) -> None:
+    """T5-T8 on one feature shard against their twins: T5 on bin 0 from
+    T3's K = 0 sums; T6 at F = K; T7's stats and draw launches on every
+    bucket at F = K (exact), and on the widest bucket also factor-Jacobi
+    and F = 1; T8 at F = K and F = 1 on bin 0's patch table.  The timed
+    cases (``timed``) are the JSON line's."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+
+    K = s["K"]
+    dev = s["e"].device
+    Sf, f, lo, D_loc = sh["Sf"], sh["f"], sh["lo"], sh["D_loc"]
+    tag = f"Sf={Sf} shard {f}"
+    gb = sh["gibbs"]
+    ids, vals = s["ids"], s["vals"]
+    N, P = ids.shape
+    G = s["pri_mu"].shape[0]
+    loc = ids.long() - lo
+    inr = (loc >= 0) & (loc < D_loc)
+    n_in = int(inr.sum())
+
+    def nothing():
+        return ()
+
+    def twin(fn_k, fn_p, *args):
+        def call(variant, _):
+            return [(fn_k if variant == "kernel" else fn_p)(*args)]
+        return call
+
+    # T5: X8c's draw from the bin's data-summed column sums
+    def t5(variant, inp):
+        fn = kw.tp_w_draw if variant == "kernel" else kw.tp_w_draw_plain
+        w, dtab, bad = inp
+        fn(bins, sh["w_acc"], D_loc, w, s["pri_w_mu"], s["pri_w_lam"],
+           s["alpha"], gb["zw"], dtab, bad)
+        return [w, dtab, bad]
+
+    # a column reads its sum, cols/group/sx2, w and z, writes w and the
+    # delta pair; the [G] priors once (the twin masks: host-paced)
+    add("tp_w_draw", f"{tag} {bin_label(bins)}",
+        lambda: (sh["mu_w"].clone(), torch.zeros(D_loc, 2, device=dev),
+                 torch.zeros(4, dtype=torch.int32, device=dev)), t5,
+        cost(C * 4 * 9 + G * 8, C * 12, plain_graph=False)
+        if timed else None)
+
+    # T6: the shard's q partials
+    ids64 = loc.clamp(0, D_loc - 1)
+    wts = torch.where(inr, vals, torch.zeros((), device=dev))
+    add("tp_build_q", f"{tag} F={K} N={N}", nothing,
+        twin(kv.tp_build_q, kv.tp_build_q_plain, gb["ptab"], K, ids, vals,
+             lo, D_loc),
+        cost(N * P * 8 + D_loc * K * 4 + N * K * 4, n_in * K * 2,
+             lambda: torch.nn.functional.embedding_bag(
+                 ids64, gb["vt"], per_sample_weights=wts, mode="sum"))
+        if timed else None)
+
+    # T7: the stats launch, then the draw from the twin's sums
+    def draw(b, acc, F, exact, ptab, vt, mu, lam, z):
+        def call(variant, inp):
+            fn = km.tp_col_draw if variant == "kernel" else km.tp_col_draw_plain
+            pt, v, nans = inp
+            fn(acc, b.cols, b.group, D_loc, pt, v, mu, lam, s["alpha"], z,
+               exact, nans)
+            return [pt, v, nans]
+
+        def prepare():
+            return (ptab.clone(), vt.clone(),
+                    torch.zeros(2, dtype=torch.int32, device=dev))
+        return prepare, call
+
+    for i, b in enumerate(every):
+        Cb, L = b.rows.shape
+        bd = dict(rows=b.rows, x=b.x)
+        modes = [(K, True, gb["ptab"], gb["vt"], s["gq"], s["pri_mu"],
+                  s["pri_lam"], gb["z"])]
+        if i == 0:
+            modes += [(K, False, gb["ptab"], gb["vt"], s["gq"], s["pri_mu"],
+                       s["pri_lam"], None),
+                      (1, True, gb["ptab1"], gb["vt1"], s["gq1"],
+                       s["pri_mu1"], s["pri_lam1"], gb["z1"])]
+        for F, exact, ptab, vt, q, mu, lam, z in modes:
+            mode = ("exact" if exact else "jacobi") + (
+                "+z" if z is not None else "")
+            nout = km.tp_col_outputs(F, exact)
+            first = timed and i == 0 and F == K and exact
+            # stats: a real entry gathers e and q's F floats; a column
+            # reads its id and v (F) and writes its nout sums
+            add("tp_col_draw_stats", f"{tag} F={F} {mode} [{Cb},{L}]",
+                nothing, twin(km.tp_col_draw_stats,
+                              km.tp_col_draw_stats_plain, b.rows, b.x,
+                              b.cols, D_loc, s["e"], q, ptab, F, exact),
+                bucket_cost(bd, 1 + F, 1 + F + nout,
+                            6 * F + (F * (F - 1) if exact else 0))
+                if first else None)
+            acc = km.tp_col_draw_stats_plain(b.rows, b.x, b.cols, D_loc,
+                                             s["e"], q, ptab, F, exact)
+            # draw: a column reads its sums, id, group, v and the priors
+            # and z (3F), writes v and dv; the sequential draw's F^2 / 2
+            # multiply-adds (the twin solves on the host: host-paced)
+            add("tp_col_draw", f"{tag} F={F} {mode} [{Cb},{L}]",
+                *draw(b, acc, F, exact, ptab, vt, mu, lam, z),
+                cost(Cb * (nout + 2 + 4 * F + 2 * F) * 4,
+                     Cb * (F * F + 10 * F), plain_graph=False)
+                if first else None)
+
+    # T8: bin 0's patch against the pre-patch q
+    for F, pt, q in ((K, gb["ptab_patch"], s["gq"]),
+                     (1, gb["ptab1_patch"], s["gq1"])):
+        add("tp_mcmc_patch_delta", f"{tag} F={F} bin 0", nothing,
+            twin(km.tp_mcmc_patch_delta, km.tp_mcmc_patch_delta_plain, pt, F,
+                 ids, vals, q, lo, D_loc),
+            cost(N * P * 8 + D_loc * 2 * F * 4 + N * F * 4
+                 + N * (F + 1) * 4, n_in * F * 6)
+            if timed and F == K else None)
 
 
 def win_cases(add, W: dict, bucket_cost, bin_cost) -> None:
@@ -4840,6 +5051,198 @@ def tp_phases(build, card, dev, train, test, meta, base_cfg, plan) -> tuple:
     return l_tp, l_tp0
 
 
+def tp_mcmc_rank_child(rank: int, store: str, out: str) -> None:
+    """One of the [tp-mcmc-ranks] phase's gloo ranks on the card: the
+    feature-sharded Gibbs on a (2, 2) mesh, TP_RANKS_SWEEPS sweeps of the
+    100k-row recipe from the seed's init and draws; rank 0 writes the
+    history and the launch counts to ``out`` (JSON)."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh2d
+
+    distributed_init(init_method=f"file://{store}", world_size=TP_RANKS,
+                     rank=rank, backend="gloo", device="cuda")
+    tp = tp_mcmc_ranks_learner(make_mesh2d(n_data=2, n_feature=2,
+                                           device="cuda"))
+    state = tp.init_state()
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    _, hist = tp.run(state, num_iter=TP_RANKS_SWEEPS, verbose=False)
+    torch.cuda.synchronize()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(dict(hist=[{k: h[k] for k in (
+                "rmse", "rmse_this", "alpha", "time_learn", "iter")}
+                for h in hist], launches=dict(build.launch_counts),
+                device=str(tp.device), mesh=list(tp.mesh.shape)), f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_mcmc_ranks_learner(mesh):
+    """The [tp-mcmc-ranks] recipe's feature-sharded Gibbs on ``mesh``:
+    100k rows of the ML-1M recipe, K = 8."""
+    from svbfm_tpu_torch.parallel.tp_mcmc import TPMCMCLearner
+
+    tr1, _, train1, test1, meta1 = ml_data(TP_RANKS_ROWS)
+    return TPMCMCLearner(tp_ranks_cfg(tr1, meta1), train1, test1, meta1,
+                         mesh=mesh)
+
+
+def tp_mcmc_phases(build, card, dev, train, test, meta, base_cfg,
+                   plan) -> tuple:
+    """[tp-mcmc] (the feature-sharded ALS and Gibbs on NCCL with a world of
+    one at ML-1M's width, K = 20: ALS 5 sweeps beside the resident
+    ALSLearner; Gibbs 2 sweeps card against CPU under one host-table draw
+    source; 20 Gibbs iterations' posterior-mean RMSE beside the resident
+    Gibbs's; a sweep's device time), [tp-mcmc-class] (2 Gibbs sweeps under
+    -task c, card against CPU) and [tp-mcmc-ranks] (four gloo ranks on the
+    card, a (2, 2) mesh, beside the world of one).  Returns the launch
+    counts of the driven runs."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_mcmc import TPALSLearner, TPMCMCLearner
+
+    t0 = time.perf_counter()
+    work = ooc_work("tp-mcmc")
+    distributed_init(init_method=f"file://{os.path.join(work, 'store')}",
+                     world_size=1, rank=0, backend="nccl", device="cuda")
+    mesh = make_mesh2d(device="cuda")
+    D = meta.num_attributes
+    cfg = FMConfig(factor_block=0, **base_cfg)
+    p = init_fm_params(torch.Generator().manual_seed(SEED), D, K,
+                       init_stdev=cfg.init_stdev, init_w_normal=True)
+    # ALS, 5 sweeps, beside the resident ALSLearner (-regular ALS_REG)
+    acfg = FMConfig(factor_block=0, **dict(base_cfg, reg0=ALS_REG,
+                                           regw=ALS_REG, regv=ALS_REG))
+    tpa = TPALSLearner(acfg, train, test, meta, mesh=mesh)
+    (_, ha), l_als = drive(build, "tp-als", lambda: tpa.run(
+        tpa.state_from_params(p.w0, p.w, p.v, host_draws(SEED, dev)),
+        num_iter=5, verbose=False))
+    check_mcmc_history(ha, "tp-als", "rmse_this")
+    ra = ALSLearner(acfg, train, test, meta, device=dev, plan=plan,
+                    write_files=False)
+    _, hra = ra.run(ra.state_from_params(p.w0, p.w, p.v, host_draws(
+        SEED, dev)), num_iter=5, verbose=False)
+    worst_als = compare_traj(ha, hra, ("rmse_this",), TP_RTOL,
+                             "tp-als vs resident als")
+    del tpa, ra
+    # Gibbs: 2 sweeps card against CPU, one host-table draw source
+    tp = TPMCMCLearner(cfg, train, test, meta, mesh=mesh)
+    (_, hg), l_mcmc = drive(build, "tp-mcmc", lambda: tp.run(
+        tp.state_from_params(p.w0, p.w, p.v, host_draws(SEED, dev)),
+        num_iter=2, verbose=False))
+    cpu = TPMCMCLearner(cfg, train, test, meta, mesh=make_mesh2d(
+        device="cpu"))
+    _, hc = cpu.run(cpu.state_from_params(p.w0, p.w, p.v, host_draws(
+        SEED, "cpu")), num_iter=2, verbose=False)
+    worst_cpu = compare_traj(hg, hc, ("rmse", "rmse_this", "alpha"),
+                             TRAJ_RTOL, "tp-mcmc gpu vs cpu")
+    del cpu
+    # 20 Gibbs iterations' posterior mean beside the resident Gibbs's
+    tstate, h20 = tp.run(num_iter=TP_MCMC_ITERS, verbose=False)
+    check_mcmc_history(h20, "tp-mcmc", "rmse")
+    rg = MCMCLearner(cfg, train, test, meta, device=dev, plan=plan,
+                     write_files=False)
+    _, hr20 = rg.run(num_iter=TP_MCMC_ITERS, verbose=False)
+    gap = abs(h20[-1]["rmse"] - hr20[-1]["rmse"])
+    if gap > TP_MCMC_RMSE_GAP:
+        raise AssertionError(f"tp-mcmc: posterior-mean RMSE "
+                             f"{h20[-1]['rmse']:.5f} at iteration "
+                             f"{TP_MCMC_ITERS}, the resident Gibbs's "
+                             f"{hr20[-1]['rmse']:.5f}: {gap:.4f} apart")
+    us = profile_run(lambda: tp.run(tstate, num_iter=1, verbose=False), 1,
+                     "sweep", "tp-mcmc-profile", focus=("tp_",))
+    sec, rsec = (statistics.median(h["time_learn"] for h in hh[1:])
+                 for hh in (h20, hr20))
+    say("tp-mcmc", t0, backend=dist.get_backend(),
+        world=dist.get_world_size(), mesh="1x1", F=K,
+        als_rmse_this=",".join(f"{h['rmse_this']:.5f}" for h in ha),
+        als_vs_resident_max_rel=f"{worst_als:.3e}", rtol=TP_RTOL,
+        gibbs_gpu_vs_cpu_max_rel=f"{worst_cpu:.3e}", cpu_rtol=TRAJ_RTOL,
+        iterations=TP_MCMC_ITERS, rmse=f"{h20[-1]['rmse']:.5f}",
+        resident_rmse=f"{hr20[-1]['rmse']:.5f}", gap=f"{gap:.5f}",
+        sec_per_iter=f"{sec:.6f}", resident_sec_per_iter=f"{rsec:.6f}",
+        device_ms_per_iter=f"{us / 1e3:.3f}",
+        launches=json.dumps(l_mcmc, separators=(",", ":")), card=repr(card))
+    del tp, tstate, rg
+
+    # -task c: 2 Gibbs sweeps, card against CPU
+    t0 = time.perf_counter()
+    ctr, cte = (binarised(d, CLASS_THRESHOLD) for d in (train, test))
+    ccfg = FMConfig(factor_block=0, **dict(base_cfg, task=1, min_target=-1.0,
+                                           max_target=1.0))
+    hist = []
+    for d in ("cuda", "cpu"):
+        lc = TPMCMCLearner(ccfg, ctr, cte, meta, mesh=mesh if d == "cuda"
+                           else make_mesh2d(device="cpu"))
+
+        def go(lc=lc, d=d):
+            return lc.run(lc.state_from_params(p.w0, p.w, p.v, host_draws(
+                SEED, lc.device)), num_iter=2, verbose=False)
+        if d == "cuda":
+            (_, h), l_class = drive(build, "tp-mcmc-class", go)
+        else:
+            _, h = go()
+        check_class_history(h, f"tp-mcmc-class {d}")
+        hist.append(h)
+    worst_class = compare_traj(*hist, ("accuracy", "loglik", "alpha"),
+                               TRAJ_RTOL, "tp-mcmc-class gpu vs cpu")
+    say("tp-mcmc-class", t0, sweeps=2,
+        accuracy=",".join(f"{h['accuracy']:.5f}" for h in hist[0]),
+        max_rel=f"{worst_class:.3e}", rtol=TRAJ_RTOL,
+        launches=json.dumps(l_class, separators=(",", ":")))
+
+    # four gloo ranks on the one card beside the world of one, one seed
+    t0 = time.perf_counter()
+    one = tp_mcmc_ranks_learner(mesh)
+    _, h1 = one.run(num_iter=TP_RANKS_SWEEPS, verbose=False)
+    dist.destroy_process_group()
+    del one
+    rwork = ooc_work("tp-mcmc-ranks")
+    out = os.path.join(rwork, "rank0.json")
+    ctx = mp.start_processes(tp_mcmc_rank_child, args=(
+        os.path.join(rwork, "store"), out), nprocs=TP_RANKS, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + TP_RANKS_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"tp-mcmc-ranks: the ranks ran past "
+                                     f"{TP_RANKS_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    with open(out) as f:
+        got = json.load(f)
+    missing = [k for k in TP_MCMC_KERNELS if got["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"tp-mcmc-ranks: kernels never launched: "
+                             f"{missing}")
+    worst = compare_traj(got["hist"], h1, ("rmse", "rmse_this", "alpha"),
+                         TP_RTOL, "tp-mcmc-ranks vs the world of one")
+    say("tp-mcmc-ranks", t0, ranks=TP_RANKS, backend="gloo",
+        mesh="x".join(map(str, got["mesh"])), device=got["device"],
+        K=TP_RANKS_K, sweeps=len(got["hist"]),
+        sec_per_iter=f"{statistics.median(
+            h['time_learn'] for h in got['hist'][1:]):.6f}",
+        rmse=",".join(f"{h['rmse']:.5f}" for h in got["hist"]),
+        max_rel=f"{worst:.3e}", rtol=TP_RTOL,
+        launches=json.dumps({k: got["launches"][k]
+                             for k in TP_MCMC_KERNELS},
+                            separators=(",", ":")))
+    return l_als, l_mcmc, l_class
+
+
 def ooc_work(name: str) -> str:
     """A fresh folder under the git-ignored build/ for a phase's files."""
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -5526,6 +5929,9 @@ def main() -> int:
     # ---- 8b. the feature-sharded batch VB (T1-T4) ----------------------------
     l_tp, l_tp0 = tp_phases(build, card, dev, train, test, meta, base_cfg,
                             plan)
+    # ---- 8c. the feature-sharded Gibbs and ALS (T5-T8) ----------------------
+    l_tpm = tp_mcmc_phases(build, card, dev, train, test, meta, base_cfg,
+                           plan)
 
     # ---- 9. online VB, 20 chunks of fixed membership -------------------------
     t0 = time.perf_counter()
@@ -5754,7 +6160,8 @@ def main() -> int:
     l_ooc = ooc_phases(build, card, dev, tr, te, train, test, meta, base_cfg,
                        plan, ovb_ref, online_sec)
 
-    runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, l_ovb, l_mcmc, *l_als, l_probe, l_sgd,
+    runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, *l_tpm, l_ovb, l_mcmc,
+            *l_als, l_probe, l_sgd,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
             l_bs_nine, l_bs_k64, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}

@@ -26,12 +26,13 @@ streams the reference's per-iteration RLog columns; ``-map_eval FIXTURE``
 vb_online iterations under ``-task c`` and prints the final ``MAP@k``;
 ``-profile DIR`` writes a ``torch.profiler`` Chrome trace of the training
 run to DIR/trace.json.  ``-feature_shards S`` trains batch VB (fast mode,
-regression) with its tables sharded over S ranks of a (data, feature)
-mesh of every rank (``parallel/tp_vb.py``), and ``-distributed 1`` joins
+regression; ``parallel/tp_vb.py``) or Gibbs MCMC and ALS (regression and
+``-task c``; ``parallel/tp_mcmc.py``) with the tables sharded over S ranks
+of a (data, feature) mesh of every rank, and ``-distributed 1`` joins
 the ranks' process group from ``SVBFM_COORDINATOR``,
 ``SVBFM_NUM_PROCESSES`` and ``SVBFM_PROCESS_ID`` (NCCL on ``cuda``, gloo
-on ``cpu``; several ranks without ``-feature_shards`` shard the rows);
-rank 0 prints and writes the files.
+on ``cpu``; several ranks of vb without ``-feature_shards`` shard the
+rows); rank 0 prints and writes the files.
 
     python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
         -dim '1,1,20' -method mcmc -iter 10 -device cuda
@@ -111,10 +112,12 @@ Flags (-name value):
   -map_k       k of MAP@k; default=5
   -profile     directory for a torch.profiler trace (trace.json) of the
                training run
-  -feature_shards  vb: shard the tables over this many ranks (fast mode,
-               -task r); must divide the world size; default=1
+  -feature_shards  vb, mcmc, als: shard the tables over this many ranks
+               (vb: fast mode, -task r); must divide the world size;
+               default=1
   -distributed 1 = join the process group of SVBFM_COORDINATOR,
-               SVBFM_NUM_PROCESSES, SVBFM_PROCESS_ID (vb); default=0
+               SVBFM_NUM_PROCESSES, SVBFM_PROCESS_ID (vb, mcmc, als);
+               default=0
   -verbosity   how much to print; default=0
   -device      torch device to train on; default=cuda (cpu runs the
                kernels' plain PyTorch twins)
@@ -151,7 +154,7 @@ FLAG_METHODS = {
 
 _Q1 = "ROADMAP.md queue 1"
 # the methods that run feature-sharded or on several ranks
-TP_METHODS = ("vb",)
+TP_METHODS = ("vb", "mcmc", "als")
 METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 # the methods that read -task p (svbfm_tpu/learners/sgd.py:87-100)
 POISSON_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd_stoc")
@@ -282,9 +285,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     distributed = cmd.get_int("distributed", 0) != 0
     for name in ("feature_shards", "distributed"):
         if cmd.has(name) and method not in TP_METHODS:
-            raise SystemExit(f"-{name} runs -method vb alone so far; for "
-                             f"-method {method} it is not ported ({_Q1}, "
-                             "item 13)")
+            raise SystemExit(f"-{name} runs -method vb, mcmc and als alone so "
+                             f"far; for -method {method} it is not ported "
+                             f"({_Q1}, item 13)")
     if fs > 1 and cmd.has("relation"):  # svbfm_tpu/cli.py:356-358
         raise SystemExit("-feature_shards is not supported with -relation "
                          "block structure")
@@ -303,10 +306,14 @@ def main(argv: Optional[list[str]] = None) -> int:
     # several ranks: join their process group before anything else
     # (svbfm_tpu/cli.py:160-168)
     from svbfm_tpu_torch.parallel.mesh import distributed_init, process_info
-    if os.environ.get("SVBFM_COORDINATOR") and method not in TP_METHODS:
-        raise SystemExit(f"SVBFM_COORDINATOR is set: -method {method} does "
-                         "not run data-parallel across ranks in the port "
-                         f"yet ({_Q1}, item 13.4)")
+    # without -feature_shards svbfm_tpu/cli.py sends mcmc and als to the
+    # replicated learner, data-parallel across the ranks
+    if os.environ.get("SVBFM_COORDINATOR") and (
+            method not in TP_METHODS or (method != "vb" and fs == 1)):
+        how = "" if method not in TP_METHODS else " without -feature_shards"
+        raise SystemExit(f"SVBFM_COORDINATOR is set: -method {method}{how} "
+                         "does not run data-parallel across ranks in the "
+                         f"port yet ({_Q1}, item 13.4)")
     if (distributed or os.environ.get("SVBFM_COORDINATOR")) \
             and distributed_init(device=device):
         rank, world = process_info()
@@ -314,19 +321,20 @@ def main(argv: Optional[list[str]] = None) -> int:
             print(f"# distributed: process {rank}/{world}")
     rank, world = process_info()
     tp = fs > 1 or world > 1
-    if tp and fs and world % fs:
-        raise SystemExit(f"-feature_shards {fs} does not divide the world "
-                         f"size {world}")
     if tp:
         for name, bad in (("cache_size", cache_bytes > 0), ("num_eval_cases",
-                          nec), ("factor_block",
-                                 cmd.get_int("factor_block", 0) != 0),
-                          ("map_eval", cmd.has("map_eval"))):
+                          nec), ("map_eval", cmd.has("map_eval"))):
             if bad:
                 raise SystemExit(f"-{name} is not read by the feature-"
-                                 "sharded VB (fast mode, resident rows)")
-        if task_s != "r":
+                                 "sharded learners (resident rows)")
+        if method == "vb" and cmd.get_int("factor_block", 0) != 0:
+            raise SystemExit("-factor_block is not read by the feature-"
+                             "sharded VB (fast mode)")
+        if method == "vb" and task_s != "r":
             raise SystemExit("the feature-sharded VB runs -task r alone")
+        if fs < 1 or world % fs:
+            raise SystemExit(f"-feature_shards {fs} does not divide the "
+                             f"world size {world}")
 
     dim = cmd.get_list("dim") or [1, 1, 8]
     if len(dim) != 3:
@@ -461,6 +469,15 @@ def main(argv: Optional[list[str]] = None) -> int:
         learner = cls(cfg, tr_ds, te_ds, rels, tr_joins, te_joins, meta,
                       d_main, device=device, bins=bins,
                       w_lambda_init=w_lambda, v_lambda_init=v_lambda)
+    elif method in ("mcmc", "als") and tp:
+        from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+        from svbfm_tpu_torch.parallel.tp_mcmc import (TPALSLearner,
+                                                      TPMCMCLearner)
+        cls = TPALSLearner if method == "als" else TPMCMCLearner
+        learner = cls(cfg, tr_ds, te_ds, meta,
+                      mesh=make_mesh2d(n_feature=fs, device=device),
+                      device=device, bins=bins, write_files=True,
+                      w_lambda_init=w_lambda, v_lambda_init=v_lambda)
     elif method in ("mcmc", "als") and cache_bytes > 0:
         from svbfm_tpu_torch.learners.mcmc_windowed import (
             WindowedALSLearner, WindowedMCMCLearner)
@@ -527,9 +544,12 @@ def main(argv: Optional[list[str]] = None) -> int:
     # the initial factors (fm_model::init writes v_file.txt,
     # fm_model.h:92-101); the state is handed to run() below
     init_state = learner.init_state()
-    v0 = (learner.global_state(init_state).mu_v[:, :D] if tp
-          else init_state.mu_v if method in ("vb", "vb_online")
-          else init_state.v)
+    if tp:
+        g = learner.global_state(init_state)
+        v0 = (g.mu_v if method == "vb" else g.v)[:, :D]
+    else:
+        v0 = (init_state.mu_v if method in ("vb", "vb_online")
+              else init_state.v)
     lead = rank == 0  # what the ranks print and write, rank 0 does
     if lead:
         np.savetxt("v_file.txt", v0.cpu().numpy(), fmt="%g")

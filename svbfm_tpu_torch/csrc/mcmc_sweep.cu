@@ -1,5 +1,8 @@
 // X8a and X8b: one factor block of the Gibbs MCMC / ALS v sweep; X8a's
-// gradient mode is the v column step of the full-batch exp_sgd (X9d).
+// gradient mode is the v column step of the full-batch exp_sgd (X9d).  T7
+// and T8, the feature-sharded Gibbs/ALS's modes of X14a and X8b (kTP: local
+// column ids, the padding column skipped; X8b's patch written, not
+// applied), are at the end.
 //
 // Replaces the per-bin body of svbfm_tpu/learners/mcmc.py:_v_block_pass
 // (mcmc.py:361-496) and its factor-sequential form v_factor_main_bins
@@ -135,7 +138,9 @@ __host__ __device__ __forceinline__ int col_outputs(int mode, int F) {
 // the exact draw holds (svbfm::with_draw_slots).
 // kWin: X14a's window mode (exact draws only), gacc [C, nout] the
 // accumulator and win its place (bit 0 the first window, bit 1 the last).
-template <int kMode, int kSlots, bool kWin = false>
+// kTP: T7's (with kWin; exact or factor-Jacobi draws): cols are local ids
+// of a feature shard of D columns, and a padding column (id D) is skipped.
+template <int kMode, int kSlots, bool kWin = false, bool kTP = false>
 __device__ __forceinline__ void col_draw_block(
     const int* __restrict__ rows, const float* __restrict__ x, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
@@ -145,7 +150,8 @@ __device__ __forceinline__ void col_draw_block(
     const float* __restrict__ alpha_p, const float* __restrict__ z,
     int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases,
     float* __restrict__ gacc = nullptr, int win = 0) {
-  static_assert(!kWin || kMode == kExact, "X14a draws exactly");
+  static_assert(!kWin || kMode == kExact || (kTP && kMode == kJacobi),
+                "X14a draws exactly");
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -159,6 +165,7 @@ __device__ __forceinline__ void col_draw_block(
   float* prior = vc + F;         // [3, F]: mu, lambda, z
 
   const int64_t col = cols[c];
+  if (kTP && col >= D) return;  // a padding column: the whole block leaves
   const int64_t ldp = 2 * F;
   // the draw's operands: not read by a window before the last
   const bool draws = kMode != kGrad && (!kWin || (win & 2));
@@ -297,8 +304,9 @@ __global__ void __launch_bounds__(256, 6) col_draw_exact32_kernel(
 }
 
 // X14a's kernels at F >= 2: the exact mode's two builds with the window
-// accumulator (the F <= 32 one under the same register bound).
-template <int kSlots>
+// accumulator (the F <= 32 one under the same register bound).  kTP: T7's
+// builds (kMode kExact, or kJacobi under -factor_jacobi ALS).
+template <int kSlots, bool kTP = false, int kMode = kExact>
 __global__ void col_draw_win_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
@@ -308,11 +316,12 @@ __global__ void col_draw_win_kernel(
     const float* __restrict__ alpha_p, const float* __restrict__ z,
     int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases,
     float* __restrict__ gacc, int win) {
-  col_draw_block<kExact, kSlots, true>(rows, x, L, cols, group, e, q, F, ptab,
-                                       v_t, mu, lam, alpha_p, z, D, nans, lr,
-                                       reg, n_cases, gacc, win);
+  col_draw_block<kMode, kSlots, true, kTP>(rows, x, L, cols, group, e, q, F,
+                                           ptab, v_t, mu, lam, alpha_p, z, D,
+                                           nans, lr, reg, n_cases, gacc, win);
 }
 
+template <bool kTP = false>
 __global__ void __launch_bounds__(256, 6) col_draw_win32_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int L,
     const int* __restrict__ cols, const int* __restrict__ group,
@@ -322,9 +331,9 @@ __global__ void __launch_bounds__(256, 6) col_draw_win32_kernel(
     const float* __restrict__ alpha_p, const float* __restrict__ z,
     int64_t D, int* __restrict__ nans, float lr, float reg, float n_cases,
     float* __restrict__ gacc, int win) {
-  col_draw_block<kExact, 1, true>(rows, x, L, cols, group, e, q, F, ptab, v_t,
-                                  mu, lam, alpha_p, z, D, nans, lr, reg,
-                                  n_cases, gacc, win);
+  col_draw_block<kExact, 1, true, kTP>(rows, x, L, cols, group, e, q, F, ptab,
+                                       v_t, mu, lam, alpha_p, z, D, nans, lr,
+                                       reg, n_cases, gacc, win);
 }
 
 // X8a at F = 1 (v_factor_main_bins, mcmc.py:684-705), with kGradF1 the
@@ -342,8 +351,10 @@ __global__ void __launch_bounds__(256, 6) col_draw_win32_kernel(
 // slot is gathered, so a non-finite q or e there still makes the sums NaN,
 // as in the twin.
 // kWin (X14a at F = 1): the head lane adds the column's (s0, sh2) into gacc
-// [C, 2] in window order; only the last window's launch draws.
-template <bool kGradF1, int V, bool kWin>
+// [C, 2] in window order; only the last window's launch draws.  kTP (T7):
+// cols are local ids of a feature shard of D columns, a padding column (id
+// D) is not live.
+template <bool kGradF1, int V, bool kWin, bool kTP = false>
 __device__ __forceinline__ void col_f1_body(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
     int G, const int* __restrict__ cols, const int* __restrict__ group,
@@ -352,14 +363,14 @@ __device__ __forceinline__ void col_f1_body(
     const float* __restrict__ mu, const float* __restrict__ lam,
     const float* __restrict__ alpha_p, const float* __restrict__ z,
     int* __restrict__ nans, float lr, float reg, float n_cases,
-    float* __restrict__ gacc, int win) {
+    float* __restrict__ gacc, int win, int64_t D = 0) {
   constexpr int kR = kF1Slots / V;  // loads of V slots a lane a round
   __shared__ float part[2][kF1Threads / 32];
   const int tid = threadIdx.x;
   const int64_t c =
       static_cast<int64_t>(blockIdx.x) * (kF1Threads / G) + tid / G;
   const int li = tid & (G - 1);
-  const bool live = c < C;
+  const bool live = c < C && (!kTP || cols[c] < D);
   float s0 = 0.f, sh2 = 0.f;
   int64_t col = 0;
   float v_c = 0.f, mu_c = 0.f, lam_c = 0.f, alpha = 0.f, zc = 0.f;
@@ -482,8 +493,9 @@ __global__ void __launch_bounds__(kF1Threads) col_draw_f1_kernel(
                                  n_cases, nullptr, 0);
 }
 
-// X14a at F = 1: the draw mode with the window accumulator.
-template <int V>
+// X14a at F = 1: the draw mode with the window accumulator (kTP: T7's, D
+// the shard's columns; unread otherwise).
+template <int V, bool kTP = false>
 __global__ void __launch_bounds__(kF1Threads) col_draw_f1_win_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
     int G, const int* __restrict__ cols, const int* __restrict__ group,
@@ -492,10 +504,10 @@ __global__ void __launch_bounds__(kF1Threads) col_draw_f1_win_kernel(
     const float* __restrict__ mu, const float* __restrict__ lam,
     const float* __restrict__ alpha_p, const float* __restrict__ z,
     int* __restrict__ nans, float lr, float reg, float n_cases,
-    float* __restrict__ gacc, int win) {
-  col_f1_body<false, V, true>(rows, x, C, L, G, cols, group, e, q, ptab, v_t,
-                              mu, lam, alpha_p, z, nans, lr, reg, n_cases,
-                              gacc, win);
+    float* __restrict__ gacc, int win, int64_t D) {
+  col_f1_body<false, V, true, kTP>(rows, x, C, L, G, cols, group, e, q, ptab,
+                                   v_t, mu, lam, alpha_p, z, nans, lr, reg,
+                                   n_cases, gacc, win, D);
 }
 
 // X8a's exact mode at 2 <= F <= kLanesMaxF, resident and in X14a's window
@@ -513,6 +525,8 @@ __global__ void __launch_bounds__(kF1Threads) col_draw_f1_win_kernel(
 // which every lane gets the same totals: no shared-memory tile and no
 // barrier.  The block form's 128 threads on one column left 114 of them
 // idle in its serial sums at F = 4, two barriers a 32-slot tile.
+// kTP (T7, with kWin): cols are local ids of a feature shard of D columns,
+// and a padding column (id D) is not live: nothing read, nothing written.
 // Padding: svbfm::PadRow, as at F = 1.  kWin: the window's sums go to
 // gacc [C, nout] in window order, each sum's owner lane (sum k, lane
 // k mod U) writing it (the first window), or adding it to what is there;
@@ -526,7 +540,7 @@ constexpr int kLanesMaxF = 4;
 constexpr int kLanesRound = 4;  // slots a lane gathers before its FMAs
 constexpr int kLanesDraw = 4;   // lanes of the draw's group, >= kLanesMaxF
 
-template <int kF, int QW, bool kWin>
+template <int kF, int QW, bool kWin, bool kTP = false>
 __device__ __forceinline__ void col_lanes_body(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
     int U, const int* __restrict__ cols, const int* __restrict__ group,
@@ -542,7 +556,7 @@ __device__ __forceinline__ void col_lanes_body(
   const int cb = tid / U;
   const int64_t c = static_cast<int64_t>(blockIdx.x) * (blockDim.x / U) + cb;
   const int li = tid & (U - 1);
-  const bool live = c < C;
+  const bool live = c < C && (!kTP || cols[c] < D);
   const bool draws = !kWin || (win & 2);
   // prev: the lane's entries of the window accumulator, loaded ahead of
   // the gathers
@@ -677,8 +691,9 @@ __global__ void __launch_bounds__(kLanesThreads) col_draw_lanes_kernel(
                                 0);
 }
 
-// X14a at 2 <= F <= kLanesMaxF: the lanes form with the window accumulator.
-template <int kF, int QW>
+// X14a at 2 <= F <= kLanesMaxF: the lanes form with the window accumulator
+// (kTP: T7's).
+template <int kF, int QW, bool kTP = false>
 __global__ void __launch_bounds__(kLanesThreads) col_draw_win_lanes_kernel(
     const int* __restrict__ rows, const float* __restrict__ x, int C, int L,
     int U, const int* __restrict__ cols, const int* __restrict__ group,
@@ -687,31 +702,48 @@ __global__ void __launch_bounds__(kLanesThreads) col_draw_win_lanes_kernel(
     const float* __restrict__ mu, const float* __restrict__ lam,
     const float* __restrict__ alpha_p, const float* __restrict__ z,
     int64_t D, int* __restrict__ nans, float* __restrict__ gacc, int win) {
-  col_lanes_body<kF, QW, true>(rows, x, C, L, U, cols, group, e, q, ptab,
-                               v_t, mu, lam, alpha_p, z, D, nans, gacc, win);
+  col_lanes_body<kF, QW, true, kTP>(rows, x, C, L, U, cols, group, e, q,
+                                    ptab, v_t, mu, lam, alpha_p, z, D, nans,
+                                    gacc, win);
 }
 
 // X8b at F = 1: a thread a row.  Every position reads the pre-bin q; dq
 // is applied after the last.
+// kTP (T8, svbfm_tpu/parallel/tp_mcmc.py:284-301): X8b's delta mode over
+// the ids of one feature shard [lo, lo + D_loc) (ptab's rows at the local
+// ids, the other ids skipped): dq and de are written to out (dq [N, F],
+// then de [N]) and not applied, for the feature all-reduce to sum.
+template <bool kTP = false>
 __global__ void row_patch_f1_kernel(const float* __restrict__ ptab,
                                     const int* __restrict__ ids,
                                     const float* __restrict__ vals, int64_t N,
                                     int P, float* __restrict__ q,
-                                    float* __restrict__ e) {
+                                    float* __restrict__ e, int64_t lo,
+                                    int D_loc, float* __restrict__ out) {
   const int64_t n =
       static_cast<int64_t>(blockIdx.x) * kPatchThreads + threadIdx.x;
   if (n >= N) return;
   const float qv = q[n];
   float de = 0.f, dq = 0.f;
   for (int p = 0; p < P; ++p) {
-    const float* g = ptab + static_cast<int64_t>(ids[n * P + p]) * 2;
+    int64_t id = ids[n * P + p];
+    if constexpr (kTP) {
+      id -= lo;
+      if (id < 0 || id >= D_loc) continue;  // another shard's id
+    }
+    const float* g = ptab + id * 2;
     const float xv = vals[n * P + p];
     const float dv = g[1];
     de += xv * (qv - xv * g[0]) * dv;
     dq += xv * dv;
   }
-  q[n] = qv - dq;
-  e[n] -= de;
+  if constexpr (kTP) {
+    out[n] = dq;
+    out[N + n] = de;
+  } else {
+    q[n] = qv - dq;
+    e[n] -= de;
+  }
 }
 
 // X8b at F >= 2: TPR = min(F / V, 32) lanes a row, 32 / TPR rows a warp
@@ -732,13 +764,16 @@ __global__ void row_patch_f1_kernel(const float* __restrict__ ptab,
 // with the sums met in shared memory behind a barrier and the next
 // position's pieces loaded ahead, needs more registers and ran about 1.4x
 // slower on the H100).
-template <int V, int kP>
+// kTP (T8): the delta mode of row_patch_f1_kernel's kTP, the chunks' dq
+// and the row's de written to out.
+template <int V, int kP, bool kTP = false>
 __global__ void __launch_bounds__(kPatchThreads)
     row_patch_wide_kernel(const float* __restrict__ ptab, int F,
                           const int* __restrict__ ids,
                           const float* __restrict__ vals, int64_t N,
                           int P_any, int TPR, float* __restrict__ q,
-                          float* __restrict__ e) {
+                          float* __restrict__ e, int64_t lo, int D_loc,
+                          float* __restrict__ out) {
   const int P = kP > 0 ? kP : P_any;
   const int lane = threadIdx.x & 31;
   const int rpw = 32 / TPR;  // rows a warp
@@ -754,7 +789,9 @@ __global__ void __launch_bounds__(kPatchThreads)
   const int64_t ldp = 2 * F;
   float de = 0.f, ev = 0.f;
   if (valid) {
-    if (j == 0) ev = e[n];
+    if constexpr (!kTP) {
+      if (j == 0) ev = e[n];
+    }
     const int* nid = ids + n * P;
     const float* nx = vals + n * P;
     for (int ch = j; ch < G; ch += 32) {  // TPR = G where G <= 32
@@ -766,16 +803,22 @@ __global__ void __launch_bounds__(kPatchThreads)
       for (int k = 0; k < V; ++k) dq[k] = 0.f;
       for (int p0 = 0; p0 < P; p0 += kPatchPos) {
         int id[kPatchPos];
+        bool use[kPatchPos];  // kTP: the position's id is the shard's
         float xv[kPatchPos], g[kPatchPos][2][V];
 #pragma unroll
         for (int b = 0; b < kPatchPos; ++b) {
           const bool in = p0 + b < P;
           id[b] = in ? nid[p0 + b] : 0;
           xv[b] = in ? nx[p0 + b] : 0.f;
+          if constexpr (kTP) {
+            const int64_t loc = static_cast<int64_t>(id[b]) - lo;
+            use[b] = in && loc >= 0 && loc < D_loc;
+            id[b] = use[b] ? static_cast<int>(loc) : 0;
+          }
         }
 #pragma unroll
         for (int b = 0; b < kPatchPos; ++b) {
-          if (p0 + b < P) {
+          if (kTP ? use[b] : p0 + b < P) {
             const float* row = ptab + static_cast<int64_t>(id[b]) * ldp + f0;
             load_vec<V>(row, g[b][0]);
             load_vec<V>(row + F, g[b][1]);
@@ -783,7 +826,7 @@ __global__ void __launch_bounds__(kPatchThreads)
         }
 #pragma unroll
         for (int b = 0; b < kPatchPos; ++b) {
-          if (p0 + b < P) {
+          if (kTP ? use[b] : p0 + b < P) {
 #pragma unroll
             for (int k = 0; k < V; ++k) {
               const float dv = g[b][1][k];
@@ -793,16 +836,24 @@ __global__ void __launch_bounds__(kPatchThreads)
           }
         }
       }
+      if constexpr (kTP) {
+        store_vec<V>(out + o, dq);
+      } else {
 #pragma unroll
-      for (int k = 0; k < V; ++k) q0[k] -= dq[k];
-      store_vec<V>(q + o, q0);
+        for (int k = 0; k < V; ++k) q0[k] -= dq[k];
+        store_vec<V>(q + o, q0);
+      }
     }
   }
   for (int d = 1; d < TPR; d <<= 1) {
     const float t = __shfl_down_sync(svbfm::kFullMask, de, d);
     if (j + d < TPR) de += t;
   }
-  if (valid && j == 0) e[n] = ev - de;
+  if constexpr (kTP) {
+    if (valid && j == 0) out[N * F + n] = de;
+  } else {
+    if (valid && j == 0) e[n] = ev - de;
+  }
 }
 
 // Mirrored by kernels/mcmc_sweep.py:col_draw_smem.
@@ -811,13 +862,13 @@ size_t col_draw_smem(int F, int mode) {
                           4 * F);
 }
 
-// X8a's kernel for a mode and a draw's slots (kWin: X14a's).
-template <int kMode, int kSlots, bool kWin>
+// X8a's kernel for a mode and a draw's slots (kWin: X14a's; kTP: T7's).
+template <int kMode, int kSlots, bool kWin, bool kTP = false>
 auto col_draw_entry() {
-  if constexpr (kWin && kSlots == 1) {
-    return col_draw_win32_kernel;
+  if constexpr (kWin && kSlots == 1 && kMode == kExact) {
+    return col_draw_win32_kernel<kTP>;
   } else if constexpr (kWin) {
-    return col_draw_win_kernel<kSlots>;
+    return col_draw_win_kernel<kSlots, kTP, kMode>;
   } else if constexpr (kMode == kExact && kSlots == 1) {
     return col_draw_exact32_kernel;
   } else {
@@ -825,7 +876,7 @@ auto col_draw_entry() {
   }
 }
 
-template <int kMode, int kSlots, bool kWin = false>
+template <int kMode, int kSlots, bool kWin = false, bool kTP = false>
 int launch_col_draw(const int* rows, const float* x, int C, int L,
                     const int* cols, const int* group, const float* e,
                     const float* q, int F, float* ptab, float* v_t,
@@ -837,7 +888,7 @@ int launch_col_draw(const int* rows, const float* x, int C, int L,
   const int threads = col_outputs(kMode, F) > 128 ? 256 : 128;
   if (kMode == kExact && F > 32 * kSlots)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = col_draw_entry<kMode, kSlots, kWin>();
+  auto kernel = col_draw_entry<kMode, kSlots, kWin, kTP>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -899,7 +950,7 @@ int col_lanes(int C, int L) {
 // X8a's exact mode (kWin: X14a) at 2 <= F <= kLanesMaxF in the lanes form,
 // each q row read in loads of QW floats, the widest of 4, 2, 1 that
 // divides F and q's alignment allows.
-template <bool kWin>
+template <bool kWin, bool kTP = false>
 int launch_col_lanes(const int* rows, const float* x, int C, int L,
                      const int* cols, const int* group, const float* e,
                      const float* q, int F, float* ptab, float* v_t,
@@ -915,7 +966,7 @@ int launch_col_lanes(const int* rows, const float* x, int C, int L,
     constexpr int kF = decltype(f)::value;
     constexpr int kQW = decltype(w)::value;
     if constexpr (kWin) {
-      col_draw_win_lanes_kernel<kF, kQW><<<blocks, threads, 0, stream>>>(
+      col_draw_win_lanes_kernel<kF, kQW, kTP><<<blocks, threads, 0, stream>>>(
           rows, x, C, L, U, cols, group, e, q, ptab, v_t, mu, lam, alpha, z,
           D, nans, gacc, win);
     } else {
@@ -944,22 +995,23 @@ int launch_col_lanes(const int* rows, const float* x, int C, int L,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kGradF1, bool kWin = false>
+template <bool kGradF1, bool kWin = false, bool kTP = false>
 int launch_col_f1(const int* rows, const float* x, int C, int L,
                   const int* cols, const int* group, const float* e,
                   const float* q, float* ptab, float* v_t, const float* mu,
                   const float* lam, const float* alpha, const float* z,
                   int* nans, float lr, float reg, float n_cases,
-                  cudaStream_t stream, float* gacc = nullptr, int win = 0) {
+                  cudaStream_t stream, float* gacc = nullptr, int win = 0,
+                  int64_t D = 0) {
   const int G = f1_lanes(C, L);
   const unsigned blocks = static_cast<unsigned>(
       (static_cast<int64_t>(C) * G + kF1Threads - 1) / kF1Threads);
   auto go = [&](auto v) {
     constexpr int kV = decltype(v)::value;
     if constexpr (kWin) {
-      col_draw_f1_win_kernel<kV><<<blocks, kF1Threads, 0, stream>>>(
+      col_draw_f1_win_kernel<kV, kTP><<<blocks, kF1Threads, 0, stream>>>(
           rows, x, C, L, G, cols, group, e, q, ptab, v_t, mu, lam, alpha, z,
-          nans, lr, reg, n_cases, gacc, win);
+          nans, lr, reg, n_cases, gacc, win, D);
     } else {
       col_draw_f1_kernel<kGradF1, kV><<<blocks, kF1Threads, 0, stream>>>(
           rows, x, C, L, G, cols, group, e, q, ptab, v_t, mu, lam, alpha, z,
@@ -1062,7 +1114,7 @@ SVBFM_EXPORT int svbfm_mcmc_patch_rows(const float* ptab, int F,
     const unsigned blocks =
         static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
     row_patch_f1_kernel<<<blocks, kPatchThreads, 0, stream>>>(
-        ptab, ids, vals, N, P, q, e);
+        ptab, ids, vals, N, P, q, e, 0, 0, nullptr);
     return static_cast<int>(cudaGetLastError());
   }
   const int V = chunk_width(F, q, ptab);
@@ -1075,7 +1127,120 @@ SVBFM_EXPORT int svbfm_mcmc_patch_rows(const float* ptab, int F,
     auto kernel = P == 2 ? row_patch_wide_kernel<kV, 2>
                          : row_patch_wide_kernel<kV, 0>;
     kernel<<<blocks, kPatchThreads, 0, stream>>>(ptab, F, ids, vals, N, P,
-                                                 TPR, q, e);
+                                                 TPR, q, e, 0, 0, nullptr);
+  };
+  if (V == 4) {
+    go(std::integral_constant<int, 4>());
+  } else if (V == 2) {
+    go(std::integral_constant<int, 2>());
+  } else {
+    go(std::integral_constant<int, 1>());
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// T7's two launches (see svbfm_tp_col_draw_stats and svbfm_tp_col_draw): X14a's
+// first window that is not the last (win 1), or its last that is not the
+// first on a bucket of no slots (win 2, L = 0: no row read), in X14a's form
+// for F and the mode.
+int tp_col_draw_launch(const int* rows, const float* x, int C, int L,
+                       const int* cols, const int* group, const float* e,
+                       const float* q, int F, float* ptab, float* v_t,
+                       const float* mu, const float* lam, const float* alpha,
+                       const float* z, int64_t D_loc, int exact, int* nans,
+                       float* acc, int win, cudaStream_t stream) {
+  if (C == 0 || F == 0) return static_cast<int>(cudaSuccess);
+  if (F == 1)
+    return launch_col_f1<false, true, true>(rows, x, C, L, cols, group, e, q,
+                                            ptab, v_t, mu, lam, alpha, z,
+                                            nans, 0.f, 0.f, 1.f, stream, acc,
+                                            win, D_loc);
+  if (!exact)
+    return launch_col_draw<kJacobi, 1, true, true>(
+        rows, x, C, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z,
+        D_loc, nans, 0.f, 0.f, 1.f, stream, acc, win);
+  if (F <= kLanesMaxF)
+    return launch_col_lanes<true, true>(rows, x, C, L, cols, group, e, q, F,
+                                        ptab, v_t, mu, lam, alpha, z, D_loc,
+                                        nans, stream, acc, win);
+  return svbfm::with_draw_slots(F, [&](auto slots) {
+    return launch_col_draw<kExact, decltype(slots)::value, true, true>(
+        rows, x, C, L, cols, group, e, q, F, ptab, v_t, mu, lam, alpha, z,
+        D_loc, nans, 0.f, 0.f, 1.f, stream, acc, win);
+  });
+}
+
+}  // namespace
+
+// T7 (svbfm_tpu/parallel/tp_mcmc.py:239-283), X14a's window modes on one
+// [C, L] bucket of a feature shard of the Gibbs/ALS v sweep, cols local ids
+// of the shard's D_loc columns (padding: D_loc, skipped: neither read nor
+// written).  The stats launch: the bucket's sums over this data shard's rows
+// (e [N], q [N, F]; the pre-bin v from ptab [D_loc, 2F]'s channels 0..F-1)
+// go into acc [C, nout], nout = 2F + F(F-1)/2 (s0 | sh2 | M packed), or 2F
+// (s0 | sh2) where exact = 0; the caller all-reduces acc over the data
+// shards.  X14a's forms: F = 1 lanes over a column's slots, the exact mode
+// at 2 <= F <= 4 the lanes form, else a block a column.
+SVBFM_EXPORT int svbfm_tp_col_draw_stats(const int* rows, const float* x,
+                                         int C, int L, const int* cols,
+                                         const float* e, const float* q,
+                                         int F, float* ptab, int64_t D_loc,
+                                         int exact, float* acc,
+                                         cudaStream_t stream) {
+  return tp_col_draw_launch(rows, x, C, L, cols, nullptr, e, q, F, ptab,
+                            nullptr, nullptr, nullptr, nullptr, nullptr,
+                            D_loc, exact, nullptr, acc, 1, stream);
+}
+
+// T7's draw launch: no row read; the bucket's columns drawn from acc [C,
+// nout] (the data shards' sums) as svbfm_mcmc_col_draw draws them, exactly
+// or factor-Jacobi where exact = 0, into v_t [D_loc, F], ptab's dv channels
+// and nans; mu/lam [G, F] the group priors, z the [F, D_loc] noise table at
+// the shard's columns (nullptr: ALS).
+SVBFM_EXPORT int svbfm_tp_col_draw(const int* rows, const float* x, int C,
+                                   const int* cols, const int* group, int F,
+                                   float* ptab, float* v_t, const float* mu,
+                                   const float* lam, const float* alpha,
+                                   const float* z, int64_t D_loc, int exact,
+                                   int* nans, float* acc,
+                                   cudaStream_t stream) {
+  return tp_col_draw_launch(rows, x, C, 0, cols, group, nullptr, nullptr, F,
+                            ptab, v_t, mu, lam, alpha, z, D_loc, exact, nans,
+                            acc, 2, stream);
+}
+
+// T8 (svbfm_tpu/parallel/tp_mcmc.py:284-301): X8b's delta mode.  out
+// [N (F + 1)] = dq [N, F] = sum_p x dv, then de [N] = sum_p sum_f
+// x (q - x v_old) dv, over the positions whose ids lie in the feature
+// shard [lo, lo + D_loc), against the pre-patch q [N, F]; ptab [D_loc, 2F]
+// = (v_old, dv) at local ids.  Not applied: the caller all-reduces out
+// over the feature shards, then q -= dq and e -= de.  X8b's forms.
+SVBFM_EXPORT int svbfm_tp_mcmc_patch_delta(const float* ptab, int F,
+                                           int64_t lo, int D_loc,
+                                           const int* ids, const float* vals,
+                                           int64_t N, int P, const float* q,
+                                           float* out, cudaStream_t stream) {
+  float* qm = const_cast<float*>(q);  // read, never written, in this mode
+  if (F == 1) {
+    const unsigned blocks =
+        static_cast<unsigned>((N + kPatchThreads - 1) / kPatchThreads);
+    row_patch_f1_kernel<true><<<blocks, kPatchThreads, 0, stream>>>(
+        ptab, ids, vals, N, P, qm, nullptr, lo, D_loc, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int V = chunk_width(F, q, ptab, out);
+  const int TPR = std::min(F / V, 32);
+  const int64_t warps = (N + 32 / TPR - 1) / (32 / TPR);
+  const unsigned blocks = static_cast<unsigned>(
+      (warps * 32 + kPatchThreads - 1) / kPatchThreads);
+  auto go = [&](auto v) {
+    constexpr int kV = decltype(v)::value;
+    auto kernel = P == 2 ? row_patch_wide_kernel<kV, 2, true>
+                         : row_patch_wide_kernel<kV, 0, true>;
+    kernel<<<blocks, kPatchThreads, 0, stream>>>(
+        ptab, F, ids, vals, N, P, TPR, qm, nullptr, lo, D_loc, out);
   };
   if (V == 4) {
     go(std::integral_constant<int, 4>());

@@ -5,7 +5,8 @@
 // column statistics are K6 (ovb_sweep.cu).  K2's q channel alone is X8d,
 // the q cache of the MCMC/ALS sweep (mcmc_sweep.cu), and K4 at F = 0 is
 // also MCMC's w patch (with no t cache).  T2-T4, the feature-sharded
-// sweep's kernels, are at the end.
+// sweep's kernels, are at the end, with T6, T2's q-only mode (the
+// feature-sharded Gibbs/ALS's q cache).
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_v_block_update, whose three XLA
 // gather chains are
@@ -1006,7 +1007,9 @@ void patch_wide(const float* ptab, int CH, int F, int merge_w,
 // T2 (tp_vb.py:337-353): qt of the shard's ids, K2's sums.  A thread a
 // (row, chunk of V factors); an id outside [lo, lo + D_loc) adds nothing
 // and reads no ptab row.
-template <int V>
+// T6 (kQOnly, svbfm_tpu/parallel/tp_mcmc.py:230-238): the feature-sharded
+// Gibbs/ALS block's q [N, F] alone, from ptab's channels 0..F-1 (v).
+template <int V, bool kQOnly = false>
 __global__ void __launch_bounds__(kQtThreads)
     tp_build_qt_kernel(const float* __restrict__ ptab, int64_t ld, int F,
                        int64_t lo, int D_loc, const int* __restrict__ ids,
@@ -1029,18 +1032,24 @@ __global__ void __launch_bounds__(kQtThreads)
     const float* row = ptab + loc * ld + ch * V;
     float mu[V], sg[V];
     load_vec<V>(row, mu);
-    load_vec<V>(row + F, sg);
+    if constexpr (!kQOnly) load_vec<V>(row + F, sg);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       qa[k] += mu[k] * x;
-      tqa[k] += sg[k] * x2;
-      tza[k] += mu[k] * mu[k] * x2;
+      if constexpr (!kQOnly) {
+        tqa[k] += sg[k] * x2;
+        tza[k] += mu[k] * mu[k] * x2;
+      }
     }
   }
-  float* o = qt + n * 3 * F + ch * V;
-  store_vec<V>(o, qa);
-  store_vec<V>(o + F, tqa);
-  store_vec<V>(o + 2 * F, tza);
+  if constexpr (kQOnly) {
+    store_vec<V>(qt + n * F + ch * V, qa);
+  } else {
+    float* o = qt + n * 3 * F + ch * V;
+    store_vec<V>(o, qa);
+    store_vec<V>(o + F, tqa);
+    store_vec<V>(o + 2 * F, tza);
+  }
 }
 
 // T3's stats launch (tp_vb.py:355-382, 396; K3's sums with the w rider's
@@ -1412,6 +1421,26 @@ SVBFM_EXPORT int svbfm_tp_build_qt(const float* ptab, int64_t ld, int F,
                          : tp_build_qt_kernel<1>;
   kernel<<<blocks, kQtThreads, 0, stream>>>(ptab, ld, F, lo, D_loc, ids,
                                             vals, N, P, qt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T6: q [N, F] of rows ids/vals [N, P] over the ids of one feature shard
+// [lo, lo + D_loc), from ptab [D_loc, ld]'s channels 0..F-1; chunks as T2's.
+SVBFM_EXPORT int svbfm_tp_build_q(const float* ptab, int64_t ld, int F,
+                                  int64_t lo, int D_loc, const int* ids,
+                                  const float* vals, int64_t N, int P,
+                                  float* q, cudaStream_t stream) {
+  if (N == 0 || F == 0) return static_cast<int>(cudaSuccess);
+  int V = chunk_width(F, ptab, q);
+  while (V > 1 && ld % V != 0) V /= 2;
+  const int64_t threads = N * (F / V);
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kQtThreads - 1) / kQtThreads);
+  auto kernel = V == 4   ? tp_build_qt_kernel<4, true>
+                : V == 2 ? tp_build_qt_kernel<2, true>
+                         : tp_build_qt_kernel<1, true>;
+  kernel<<<blocks, kQtThreads, 0, stream>>>(ptab, ld, F, lo, D_loc, ids,
+                                            vals, N, P, q);
   return static_cast<int>(cudaGetLastError());
 }
 

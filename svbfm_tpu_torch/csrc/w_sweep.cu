@@ -2,7 +2,8 @@
 // and online VB; X8c, the w draw of Gibbs MCMC and ALS; and K5's gradient
 // mode, the w column step of the full-batch exp_sgd (X9d).  Every degree
 // bucket of one conflict-free bin in one launch.  T3 at K = 0, the
-// feature-sharded w sweep's stats and update launches, is at the end.
+// feature-sharded w sweep's stats and update launches, and T5, its Gibbs/ALS
+// draw, are at the end.
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_w_bin_update (vb.py:125-148) and its
 // OVB twin vb_online.py:230-269: per [C, L] degree bucket, the column
@@ -361,7 +362,11 @@ int launch_win(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
 // rows (the column's head lane alone works), writing w, the delta table
 // and the counts as mode VB does.  Padding columns (local id D_loc) are
 // skipped in both.
-template <bool kStats>
+// T5 (kMCMC, svbfm_tpu/parallel/tp_mcmc.py:158-200): the w draw of the
+// feature-sharded Gibbs/ALS from acc, mode MCMC's (X8c's) draw with the
+// z table's number at the column's local id, w_new - w_old into the
+// delta table as X8c writes it; its stats launch is kStats unchanged.
+template <bool kStats, bool kMCMC = false>
 __global__ void __launch_bounds__(kThreads)
     tp_w_kernel(const __grid_constant__ Plan p,
                 const __grid_constant__ WArgs a, float* __restrict__ acc,
@@ -391,6 +396,23 @@ __global__ void __launch_bounds__(kThreads)
     for (int o = U >> 1; o > 0; o >>= 1)
       s += __shfl_xor_sync(svbfm::kFullMask, s, o);
     if (real && li == 0) acc[col] = s;
+  } else if constexpr (kMCMC) {
+    if (!real || li != 0) return;
+    const int g = __ldg(bk.group + c);
+    const float sxx = __ldg(bk.sx2 + c);
+    const float alpha = *a.alpha;
+    const float w_c = a.mu_w[col], lam = a.sigma_w[g];
+    const float s2 = 1.f / (lam + alpha * sxx);
+    const float mean =
+        -s2 * (alpha * (acc[col] - w_c * sxx) - a.prior_mu[g] * lam);
+    float val = a.z != nullptr ? mean + sqrtf(s2) * a.z[col] : mean;
+    if (!isfinite(s2)) val = 0.f;  // uncounted, as the reference
+    if (isnan(val)) atomicAdd(&a.bad[0], 1);
+    if (isinf(val)) atomicAdd(&a.bad[1], 1);
+    const float w_new = isfinite(val) ? val : w_c;
+    a.mu_w[col] = w_new;
+    a.dtab[2 * col] = w_new - w_c;
+    a.dtab[2 * col + 1] = 0.f;
   } else {
     if (!real || li != 0) return;
     const int g = __ldg(bk.group + c);
@@ -413,13 +435,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kStats>
+template <bool kStats, bool kMCMC = false>
 int launch_tp(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
               float* acc, int D_loc, cudaStream_t stream) {
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
-  tp_w_kernel<kStats><<<static_cast<unsigned>(blocks), kThreads, 0,
-                        stream>>>(make_plan(plan, nb), a, acc, D_loc);
+  tp_w_kernel<kStats, kMCMC><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               stream>>>(make_plan(plan, nb), a, acc, D_loc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -534,4 +556,21 @@ SVBFM_EXPORT int svbfm_tp_w_update(const int64_t* plan, int nb,
                 bad,     0.f,     0.f,     1.f};
   return launch_tp<false>(plan, nb, blocks, a, const_cast<float*>(acc),
                           D_loc, stream);
+}
+
+// T5, the w draw of the feature-sharded Gibbs/ALS at one bin's columns
+// from acc [D_loc] (their sum x e, summed over the data shards): w [D_loc]
+// drawn as svbfm_mcmc_w_draw draws it (z the [D_loc] noise table at the
+// shard's columns, nullptr: ALS, the mean), dtab [D_loc, 2] = (w_new -
+// w_old, 0), bad[0], bad[1] += the NaN, Inf draws; padding columns skipped.
+SVBFM_EXPORT int svbfm_tp_w_draw(const int64_t* plan, int nb, int64_t blocks,
+                                 const float* acc, int D_loc, float* w,
+                                 const float* w_mu, const float* w_lambda,
+                                 const float* alpha, const float* z,
+                                 float* dtab, int* bad, cudaStream_t stream) {
+  const WArgs a{nullptr, w,       nullptr, w_lambda, w_mu,    alpha,
+                z,       nullptr, nullptr, nullptr,  nullptr, dtab,
+                bad,     0.f,     0.f,     1.f};
+  return launch_tp<false, true>(plan, nb, blocks, a, const_cast<float*>(acc),
+                                D_loc, stream);
 }

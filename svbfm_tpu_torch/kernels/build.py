@@ -40,13 +40,14 @@ LIBRARIES = {
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
                  "w_patch_rows", "build_q", "vb_col_stats_window",
                  "tp_build_qt", "tp_col_stats", "tp_col_update",
-                 "tp_patch_delta"),
+                 "tp_patch_delta", "tp_build_q"),
     "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step",
                 "w_col_window", "mcmc_w_window", "tp_w_stats",
-                "tp_w_update"),
+                "tp_w_update", "tp_w_draw"),
     "ovb_sweep": ("ovb_col_stats_update",),
     "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows", "mcmc_col_grad",
-                   "mcmc_col_draw_window"),
+                   "mcmc_col_draw_window", "tp_col_draw_stats", "tp_col_draw",
+                   "tp_mcmc_patch_delta"),
     "gather_probe": ("gather_probe",),
     "sgd_step": ("sgd_grad_scatter", "sgd_apply", "sgda_lambda"),
     "bs_sweep": ("bs_join_agg", "bs_rel_draw", "bs_rel_w_draw",
@@ -127,6 +128,15 @@ SIGNATURES = {
                              _P),
     "svbfm_tp_w_stats": (_P, _I, _L, _P, _P, _I, _P),
     "svbfm_tp_w_update": (_P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P),
+    # T5-T8, the feature-sharded Gibbs/ALS (parallel/tp_mcmc.py)
+    "svbfm_tp_w_draw": (_P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "svbfm_tp_build_q": (_P, _L, _I, _L, _I, _P, _P, _L, _I, _P, _P),
+    "svbfm_tp_col_draw_stats": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _L, _I,
+                                _P, _P),
+    "svbfm_tp_col_draw": (_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L,
+                          _I, _P, _P, _P),
+    "svbfm_tp_mcmc_patch_delta": (_P, _I, _L, _I, _P, _P, _L, _I, _P, _P,
+                                  _P),
     "svbfm_probit_eval": (_P, _P, _P, _L, _P, _P, _I, _F, _I, _P, _P, _P),
 }
 

@@ -42,6 +42,18 @@ for all F factors at once; it fills ``ptab``'s dv channels, so X8b patches
 q and e as after a draw (``svbfm_tpu/learners/exp_sgd.py:exp_sgd_sweep``,
 :120-143).
 
+``tp_col_draw_stats`` + ``tp_col_draw`` (T7) are X14a's window modes on
+a feature shard of the feature-sharded Gibbs/ALS (``parallel/tp_mcmc.py``):
+the stats launch puts a bucket's packed sums over the data shard's rows
+into an accumulator (its first window, not its last), and after the
+caller's data all-reduce the draw launch draws from it (its last window on
+a bucket of no slots), exactly or, under ``-factor_jacobi`` ALS, from
+(s0 | sh2) alone; columns are local ids and the padding column (D_loc) is
+skipped (``svbfm_tpu/parallel/tp_mcmc.py:239-283``).
+``tp_mcmc_patch_delta`` (T8) is X8b's delta mode over the shard's ids: the
+bin's dq and de against the pre-patch q, written to one buffer for the
+caller's feature all-reduce (:284-301).
+
 Replaces ``svbfm_tpu/learners/mcmc.py:_v_block_pass`` → ``tile_stats``
 (:371-391) + ``exact_block_draws`` (:137-200) or the factor-Jacobi draws
 (:449-459), and ``patch_tile`` (:468-478); at F = 1 the bucket body and the
@@ -545,3 +557,176 @@ def mcmc_patch_rows(ptab, F: int, ids, vals, q, e) -> None:
             build.ptr(ptab), F, build.ptr(ids), build.ptr(vals), N, P,
             build.ptr(q), build.ptr(e), build.stream_of(ids))
     build.check_launch(lib, rc, "mcmc_patch_rows")
+
+
+# ---- T7: X14a's window modes on a feature shard ----------------------------
+
+def tp_col_outputs(F: int, exact: bool) -> int:
+    """The sums T7 keeps a column: X14a's (``col_outputs``), or (s0 | sh2)
+    under factor-Jacobi."""
+    return col_outputs(F) if exact else 2 * F
+
+
+def tp_col_draw_stats_plain(rows, x, cols, D_loc: int, e, q, ptab, F: int,
+                            exact: bool) -> torch.Tensor:
+    """T7's stats twin: acc [C, tp_col_outputs(F, exact)], the packed sums
+    of a [C, L] bucket's columns over this data shard's rows; a padding
+    column (local id D_loc) gets a zero row."""
+    real = cols != D_loc
+    cl = torch.where(real, cols, torch.zeros_like(cols))
+    s0, sh2, m_x = _col_sums(rows, x, cl, e, q, ptab, F, exact)
+    acc = pack_sums(s0, sh2, m_x) if exact else torch.cat([s0, sh2], 0).T
+    return torch.where(real[:, None], acc,
+                       torch.zeros((), dtype=_F32,
+                                   device=acc.device)).contiguous()
+
+
+def tp_col_draw_stats(rows, x, cols, D_loc: int, e, q, ptab, F: int,
+                      exact: bool) -> torch.Tensor:
+    """T7, stats launch: kernel on CUDA tensors, plain twin on CPU
+    tensors."""
+    if build.on_cpu(rows):
+        return tp_col_draw_stats_plain(rows, x, cols, D_loc, e, q, ptab, F,
+                                       exact)
+    C, L = rows.shape
+    N = e.shape[0]
+    dev = rows.device
+    req = build.require
+    name = "tp_col_draw_stats"
+    req(rows, _I32, (C, L), dev, f"{name}.rows")
+    req(x, _F32, (C, L), dev, f"{name}.x")
+    req(cols, _I32, (C,), dev, f"{name}.cols")
+    req(e, _F32, (N,), dev, f"{name}.e")
+    req(q, _F32, (N, F), dev, f"{name}.q")
+    req(ptab, _F32, (D_loc, 2 * F), dev, f"{name}.ptab")
+    acc = torch.zeros(C, tp_col_outputs(F, exact), dtype=_F32, device=dev)
+    if C == 0 or F == 0:
+        return acc
+    _check_fits(name, F, exact)
+    lib = build.load_library("mcmc_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_col_draw_stats(
+            build.ptr(rows), build.ptr(x), C, L, build.ptr(cols),
+            build.ptr(e), build.ptr(q), F, build.ptr(ptab), D_loc,
+            int(exact), build.ptr(acc), build.stream_of(rows))
+    build.check_launch(lib, rc, name)
+    return acc
+
+
+def tp_col_draw_plain(acc, cols, group, D_loc: int, ptab, v_t, mu, lam,
+                      alpha, z, exact: bool, nans) -> None:
+    """T7's draw twin: X8a's draw (exact, or factor-Jacobi) at the
+    bucket's real columns from their summed sums ``acc``, in place on v_t,
+    ptab's dv channels and nans."""
+    F = v_t.shape[1]
+    real = cols != D_loc
+    acc = acc[real]
+    if exact:
+        s0, sh2, m_x = unpack_sums(acc)
+    else:
+        s0, sh2, m_x = acc[:, :F].T, acc[:, F:].T, None
+    _col_draw(s0, sh2, m_x, cols[real], group[real], ptab, v_t, mu, lam,
+              alpha, z, nans)
+
+
+def tp_col_draw(acc, cols, group, D_loc: int, ptab, v_t, mu, lam, alpha,
+                z: Optional[torch.Tensor], exact: bool, nans) -> None:
+    """T7, draw launch (reads ``acc``, no rows): kernel on CUDA tensors,
+    plain twin on CPU tensors; in place.  ``z`` the [F, D_loc] noise
+    table, or None (ALS)."""
+    if build.on_cpu(acc):
+        return tp_col_draw_plain(acc, cols, group, D_loc, ptab, v_t, mu, lam,
+                                 alpha, z, exact, nans)
+    C = cols.shape[0]
+    F = v_t.shape[1]
+    G = mu.shape[0]
+    dev = acc.device
+    req = build.require
+    name = "tp_col_draw"
+    req(acc, _F32, (C, tp_col_outputs(F, exact)), dev, f"{name}.acc")
+    req(cols, _I32, (C,), dev, f"{name}.cols")
+    req(group, _I32, (C,), dev, f"{name}.group")
+    req(ptab, _F32, (D_loc, 2 * F), dev, f"{name}.ptab")
+    req(v_t, _F32, (D_loc, F), dev, f"{name}.v_t")
+    req(mu, _F32, (G, F), dev, f"{name}.mu")
+    req(lam, _F32, (G, F), dev, f"{name}.lam")
+    req(alpha, _F32, (), dev, f"{name}.alpha")
+    if z is not None:
+        req(z, _F32, (F, D_loc), dev, f"{name}.z")
+    req(nans, _I32, (2,), dev, f"{name}.nans")
+    if C == 0 or F == 0:
+        return
+    _check_fits(name, F, exact)
+    lib = build.load_library("mcmc_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_col_draw(
+            None, None, C, build.ptr(cols), build.ptr(group), F,
+            build.ptr(ptab), build.ptr(v_t), build.ptr(mu), build.ptr(lam),
+            build.ptr(alpha), None if z is None else build.ptr(z), D_loc,
+            int(exact), build.ptr(nans), build.ptr(acc),
+            build.stream_of(acc))
+    build.check_launch(lib, rc, name)
+
+
+def _check_fits(name: str, F: int, exact: bool) -> None:
+    if not col_draw_fits(F, exact):
+        raise ValueError(
+            f"{name}: F = {F} is wider than the {MAX_COL_F[exact]} factors "
+            f"a block of this mode takes (it needs "
+            f"{col_draw_smem(F, exact)} bytes of shared memory of the "
+            f"{MAX_BLOCK_SMEM} one block may take); use a narrower "
+            f"factor_block")
+
+
+# ---- T8: X8b's delta mode on a feature shard -------------------------------
+
+def tp_mcmc_patch_views(patch, N: int, F: int) -> tuple:
+    """T8's output, one buffer of N (F + 1) floats, as dq [N, F] and de
+    [N]."""
+    return patch[:N * F].view(N, F), patch[N * F:]
+
+
+def tp_mcmc_patch_delta_plain(ptab, F: int, ids, vals, q, lo: int,
+                              D_loc: int) -> torch.Tensor:
+    """T8's twin: the bin's dq = sum_p x dv and de = sum_p sum_f x (q - x
+    v_old) dv over the ids of the shard [lo, lo + D_loc), against the
+    pre-patch q [N, F] (``tp_mcmc_patch_views``' layout)."""
+    lid = ids.long() - lo
+    inr = (lid >= 0) & (lid < D_loc)
+    lidc = lid.clamp(0, max(D_loc - 1, 0))
+    zero = torch.zeros((), dtype=_F32, device=ptab.device)
+    dq = torch.zeros_like(q)
+    de = torch.zeros(q.shape[0], dtype=_F32, device=q.device)
+    for p in range(ids.shape[1]):
+        gg = ptab.index_select(0, lidc[:, p])  # [N, 2F]
+        m = inr[:, p]
+        xp = vals[:, p, None]
+        v_e, dv_e = gg[:, :F], gg[:, F:]
+        h_e = xp * (q - xp * v_e)
+        dq = dq + torch.where(m[:, None], xp * dv_e, zero)
+        de = de + torch.where(m, (h_e * dv_e).sum(1), zero)
+    return torch.cat([dq.reshape(-1), de])
+
+
+def tp_mcmc_patch_delta(ptab, F: int, ids, vals, q, lo: int,
+                        D_loc: int) -> torch.Tensor:
+    """T8: kernel on CUDA tensors, plain twin on CPU tensors."""
+    if build.on_cpu(ids):
+        return tp_mcmc_patch_delta_plain(ptab, F, ids, vals, q, lo, D_loc)
+    N, P = ids.shape
+    dev = ids.device
+    req = build.require
+    req(ptab, _F32, (D_loc, 2 * F), dev, "tp_mcmc_patch_delta.ptab")
+    req(ids, _I32, (N, P), dev, "tp_mcmc_patch_delta.ids")
+    req(vals, _F32, (N, P), dev, "tp_mcmc_patch_delta.vals")
+    req(q, _F32, (N, F), dev, "tp_mcmc_patch_delta.q")
+    out = torch.zeros(N * (F + 1), dtype=_F32, device=dev)
+    if N == 0 or F == 0 or P == 0:
+        return out
+    lib = build.load_library("mcmc_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_mcmc_patch_delta(
+            build.ptr(ptab), F, lo, D_loc, build.ptr(ids), build.ptr(vals), N,
+            P, build.ptr(q), build.ptr(out), build.stream_of(ids))
+    build.check_launch(lib, rc, "tp_mcmc_patch_delta")
+    return out

@@ -38,7 +38,9 @@ batch VB's (``svbfm_tpu/parallel/tp_vb.py:tp_vb_update_all``): T2
 ``tp_col_stats`` + ``tp_col_update`` a bucket's column sums, then, after
 the caller's data all-reduce, K3's closed form (:355-405), T4
 ``tp_patch_delta`` a bin's patch deltas against the pre-patch caches
-(:407-453, at F = 0 :483-496).
+(:407-453, at F = 0 :483-496).  T6 ``tp_build_q`` is T2's q-only mode,
+the feature-sharded Gibbs/ALS block's q partials
+(``svbfm_tpu/parallel/tp_mcmc.py:230-238``).
 """
 
 from __future__ import annotations
@@ -593,6 +595,43 @@ def tp_build_qt(ptab, F: int, ids, vals, lo: int, D_loc: int) -> torch.Tensor:
             build.ptr(vals), N, P, build.ptr(qt), build.stream_of(ids))
     build.check_launch(lib, rc, "tp_build_qt")
     return qt
+
+
+def tp_build_q_plain(ptab, F: int, ids, vals, lo: int,
+                     D_loc: int) -> torch.Tensor:
+    """T6's twin: q [N, F], X8d's sums over the ids of the shard [lo, lo +
+    D_loc) alone, from channels 0..F-1 of ``ptab`` [D_loc, CH]."""
+    lidc, inr = _in_window(ids, lo, D_loc)
+    zero = torch.zeros((), dtype=_F32, device=ptab.device)
+    q = torch.zeros(ids.shape[0], F, dtype=_F32, device=ptab.device)
+    for p in range(ids.shape[1]):
+        g = ptab.index_select(0, lidc[:, p])[:, :F]
+        q = q + torch.where(inr[:, p, None], g * vals[:, p, None], zero)
+    return q
+
+
+def tp_build_q(ptab, F: int, ids, vals, lo: int, D_loc: int) -> torch.Tensor:
+    """T6, T2's q-only mode (the feature-sharded Gibbs/ALS block's q):
+    kernel on CUDA tensors, plain twin on CPU tensors."""
+    if build.on_cpu(ids):
+        return tp_build_q_plain(ptab, F, ids, vals, lo, D_loc)
+    N, P = ids.shape
+    dev = ids.device
+    build.require(ptab, _F32, (D_loc, ptab.shape[1]), dev, "tp_build_q.ptab")
+    if ptab.shape[1] < F:
+        raise ValueError(f"tp_build_q.ptab: fewer than F={F} channels")
+    build.require(ids, _I32, (N, P), dev, "tp_build_q.ids")
+    build.require(vals, _F32, (N, P), dev, "tp_build_q.vals")
+    q = torch.empty(N, F, dtype=_F32, device=dev)
+    if N * F == 0:
+        return q.zero_()
+    lib = build.load_library("vb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_build_q(
+            build.ptr(ptab), ptab.shape[1], F, lo, D_loc, build.ptr(ids),
+            build.ptr(vals), N, P, build.ptr(q), build.stream_of(ids))
+    build.check_launch(lib, rc, "tp_build_q")
+    return q
 
 
 def tp_col_stats_plain(rows, x, cols, D_loc: int, e, qt, ptab,

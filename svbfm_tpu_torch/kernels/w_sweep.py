@@ -45,7 +45,10 @@ with the same delta table (w_new - w_old, 0) for the w patch.
 around the feature-sharded learner's data all-reduce: the bin's column
 sums into a [D_loc] accumulator, then the closed form from it
 (``svbfm_tpu/parallel/tp_vb.py:459-482``); padding columns (local id
-D_loc) are skipped.
+D_loc) are skipped.  ``tp_w_draw`` (T5) is the update launch's Gibbs/ALS
+mode, the feature-sharded Gibbs w sweep after ``tp_w_stats``: X8c's draw
+from the accumulator, the delta table (w_new - w_old, 0)
+(``svbfm_tpu/parallel/tp_mcmc.py:158-200``).
 
 Replaces ``svbfm_tpu/learners/vb.py:vb_w_bin_update`` (:125-148), the w
 column updates of ``svbfm_tpu/learners/vb_online.py:ovb_chunk_update``
@@ -521,3 +524,45 @@ def tp_w_update(buckets, acc, D_loc: int, mu_w, sig_w, sigma_w, alpha, dtab,
                 build.ptr(sig_w), build.ptr(sigma_w), build.ptr(alpha),
                 build.ptr(dtab), build.ptr(bad), build.stream_of(acc))
         build.check_launch(lib, rc, "tp_w_update")
+
+
+def tp_w_draw_plain(buckets, acc, D_loc: int, w, w_mu, w_lambda, alpha, z,
+                    dtab, bad) -> None:
+    """The twin of T5: X8c's draw at each real column of the bin from its
+    sum ``acc[col]``; ``z`` the [D_loc] noise table, or None (ALS)."""
+    for b in buckets:
+        real = _real(b, D_loc)
+        cols = b.cols[real]
+        _mcmc_w_close(acc[cols.long()], cols, b.group[real], b.sx2[real], w,
+                      w_mu, w_lambda, alpha, z, dtab, bad)
+
+
+def tp_w_draw(buckets, acc, D_loc: int, w, w_mu, w_lambda, alpha, z, dtab,
+              bad) -> None:
+    """T5 (reads ``acc``, no rows), every bucket of a bin in one launch; in
+    place on w, dtab and bad."""
+    if build.on_cpu(acc):
+        return tp_w_draw_plain(buckets, acc, D_loc, w, w_mu, w_lambda, alpha,
+                               z, dtab, bad)
+    dev = acc.device
+    G = w_mu.shape[0]
+    req = build.require
+    launches = _bin_launches(buckets, acc, ("group", "sx2"), "tp_w_draw")
+    req(acc, _F32, (D_loc,), dev, "tp_w_draw.acc")
+    req(w, _F32, (D_loc,), dev, "tp_w_draw.w")
+    req(w_mu, _F32, (G,), dev, "tp_w_draw.w_mu")
+    req(w_lambda, _F32, (G,), dev, "tp_w_draw.w_lambda")
+    req(alpha, _F32, (), dev, "tp_w_draw.alpha")
+    if z is not None:
+        req(z, _F32, (D_loc,), dev, "tp_w_draw.z")
+    req(dtab, _F32, (D_loc, 2), dev, "tp_w_draw.dtab")
+    req(bad, _I32, (4,), dev, "tp_w_draw.bad")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(dev):
+            rc = lib.svbfm_tp_w_draw(
+                table, nb, blocks, build.ptr(acc), D_loc, build.ptr(w),
+                build.ptr(w_mu), build.ptr(w_lambda), build.ptr(alpha),
+                None if z is None else build.ptr(z), build.ptr(dtab),
+                build.ptr(bad), build.stream_of(acc))
+        build.check_launch(lib, rc, "tp_w_draw")

@@ -194,18 +194,20 @@ def tp_buffer_bytes(plan_data: TPPlanData, n_loc: int, K: int,
 
 
 def check_tp_memory_budget(plan_data: TPPlanData, n_loc: int, K: int,
-                           D_loc: int, learner: str, device) -> None:
+                           D_loc: int, learner: str, device,
+                           parts: Optional[dict] = None) -> None:
     """Fail LOUDLY, at construction, where the feature-sharded sweep's
-    buffers (``tp_buffer_bytes``) exceed the rank's device memory
-    (``TP_BUDGET_BYTES``, else the free bytes ``torch.cuda.mem_get_info``
-    reports on the card), instead of letting the sweep run out of memory
-    in its middle."""
+    buffers (``parts``, by default the VB sweep's ``tp_buffer_bytes``)
+    exceed the rank's device memory (``TP_BUDGET_BYTES``, else the free
+    bytes ``torch.cuda.mem_get_info`` reports on the card), instead of
+    letting the sweep run out of memory in its middle."""
     budget = TP_BUDGET_BYTES
     if budget is None and torch.device(device).type == "cuda":
         budget = torch.cuda.mem_get_info(device)[0]
     if budget is None:
         return
-    parts = tp_buffer_bytes(plan_data, n_loc, K, D_loc)
+    if parts is None:
+        parts = tp_buffer_bytes(plan_data, n_loc, K, D_loc)
     need = sum(parts.values())
     if need > budget:
         items = "; ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in
@@ -358,6 +360,37 @@ def tp_vb_update_all(state: TPVBState, row: RowData, plan: TPPlanData,
 _SCALARS = ("free_energy", "rmse", "alpha", "nan_w", "nan_v", "nan_alpha")
 
 
+def shard_cols(a: torch.Tensor, lo: int, D_loc: int,
+               D_pad: int) -> torch.Tensor:
+    """The feature shard [lo, lo + D_loc) of a table over its last dim
+    [..., D], zero-padded to D_pad first."""
+    pad = D_pad - a.shape[-1]
+    if pad > 0:
+        a = torch.nn.functional.pad(a, (0, pad))
+    return a[..., lo:lo + D_loc].contiguous()
+
+
+def gather_cols(mesh: Mesh, t: torch.Tensor, lo: int,
+                D_pad: int) -> torch.Tensor:
+    """The feature shards' [..., D_loc] tables as one [..., D_pad] on every
+    rank: an all-reduce over every rank of zero-filled tensors, data shard
+    0's ranks filling their columns.  Every rank must call it."""
+    g = t.new_zeros(tuple(t.shape[:-1]) + (D_pad,))
+    if mesh.d_index == 0:
+        g[..., lo:lo + t.shape[-1]] = t
+    return mesh.all_reduce(g)
+
+
+def gather_rows(mesh: Mesh, t: torch.Tensor, rps: int) -> torch.Tensor:
+    """The data shards' [rps, ...] row blocks laid end to end on every
+    rank, feature shard 0's ranks filling their block, as
+    ``gather_cols``."""
+    g = t.new_zeros((rps * mesh.n_data,) + tuple(t.shape[1:]))
+    if mesh.f_index == 0:
+        g[mesh.d_index * rps:(mesh.d_index + 1) * rps] = t
+    return mesh.all_reduce(g)
+
+
 def shard_rows(ds: SparseDataset, n_data: int, d: int, device):
     """Data shard ``d`` of ``n_data`` of ``ds``'s rows, padded to a
     multiple of ``n_data`` (the JAX learner's ``padded_to`` and row
@@ -440,10 +473,7 @@ class TPVBLearner:
     def _shard_of(self, a: torch.Tensor) -> torch.Tensor:
         """The rank's feature shard of a table over the last dim [..., D]
         (padded to D_pad)."""
-        pad = self.D_pad - a.shape[-1]
-        if pad > 0:
-            a = torch.nn.functional.pad(a, (0, pad))
-        return a[..., self.lo:self.lo + self.D_loc].contiguous()
+        return shard_cols(a, self.lo, self.D_loc, self.D_pad)
 
     def state_from_params(self, params: Mapping[str, torch.Tensor]
                           ) -> TPVBState:
@@ -484,11 +514,8 @@ class TPVBLearner:
         """The scores of every test row (the data shards' gathered by an
         all-reduce of zero-filled vectors)."""
         s = self._scores(state, self.test_row)
-        full = torch.zeros(self.test_rps * self.mesh.n_data, dtype=_F32,
-                           device=self.device)
-        d = self.mesh.d_index
-        full[d * self.test_rps:(d + 1) * self.test_rps] = s
-        return self.mesh.all_reduce_data(full).cpu().numpy()[: self.test_n]
+        return gather_rows(self.mesh, s, self.test_rps).cpu().numpy()[
+            : self.test_n]
 
     # ---- checkpoints: the JAX package's padded global layout ----------------
 
@@ -498,20 +525,13 @@ class TPVBLearner:
         all-reduce over every rank of zero-filled tensors, each rank
         filling its tables (data shard 0's) and its rows (feature shard
         0's).  Every rank must call it."""
-        m = self.mesh
         out = {}
         for f in dataclasses.fields(TPVBState):
             a = getattr(state, f.name)
             if f.name in _TABLES:
-                g = a.new_zeros(a.shape[:-1] + (self.D_pad,))
-                if m.d_index == 0:
-                    g[..., self.lo:self.lo + self.D_loc] = a
-                a = m.all_reduce(g)
+                a = gather_cols(self.mesh, a, self.lo, self.D_pad)
             elif f.name in ("e", "t"):
-                g = a.new_zeros(self.rps * m.n_data)
-                if m.f_index == 0:
-                    g[m.d_index * self.rps:(m.d_index + 1) * self.rps] = a
-                a = m.all_reduce(g)
+                a = gather_rows(self.mesh, a, self.rps)
             out[f.name] = a.cpu()
         return TPVBState(**out)
 

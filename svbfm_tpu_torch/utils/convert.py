@@ -3,9 +3,10 @@
 ``jax.random`` bits cannot be reproduced in torch, so tests that hold the
 two packages to each other start both from the same parameters: the JAX
 learner's ``VBState`` (or ``OVBState``, ``MCMCState``, ``SGDState``,
-``SGDAState``, ``BPRState``, ``TPVBState``, or exp_sgd's tuple (w0, w,
-v)), fetched to numpy with ``jax.device_get``, becomes the port's state of
-the same name (a feature-sharded state: one rank's part of it).
+``SGDAState``, ``BPRState``, ``TPVBState``, the feature-sharded learners'
+``MCMCState``, or exp_sgd's tuple (w0, w, v)), fetched to numpy with
+``jax.device_get``, becomes the port's state of the same name (a
+feature-sharded state: one rank's part of it).
 A block-structure state is an ``MCMCState`` over the joined attributes.
 Nothing here imports JAX.
 """
@@ -107,3 +108,20 @@ def tp_vb_state_from_jax(np_state: Any, device, *, d: int, f: int,
     for k in ("e", "t"):
         t[k] = t[k][d * rps:(d + 1) * rps]
     return TPVBState(**{k: v.contiguous().to(device) for k, v in t.items()})
+
+
+def tp_mcmc_state_from_jax(np_state: Any, device, draws: Draws, *, d: int,
+                           f: int, n_data: int, D_loc: int) -> MCMCState:
+    """The feature-sharded Gibbs/ALS state of rank (d, f) of a mesh of
+    ``n_data`` data shards: JAX keeps the ``MCMCState`` of its
+    ``TPMCMCLearner`` as global arrays, w [D_pad] and v [K, D_pad] padded
+    over the feature (last) dim and e over the padded rows; the rank takes
+    the feature slice [f D_loc, (f + 1) D_loc) of the tables and data slice
+    d of e.  The JAX ``key`` is skipped and ``draws`` takes its place."""
+    t = _tensors(np_state, TENSOR_FIELDS, "cpu")
+    for k in ("w", "v"):
+        t[k] = t[k][..., f * D_loc:(f + 1) * D_loc]
+    rps = t["e"].shape[0] // n_data
+    t["e"] = t["e"][d * rps:(d + 1) * rps]
+    return MCMCState(**{k: v.contiguous().to(device) for k, v in t.items()},
+                     draws=draws)

@@ -103,9 +103,9 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
     pytest.param(["-checkpoint", "ck"], dict(method="bpr"),
                  "-checkpoint is not read by -method bpr",
                  id="extra3-kw3-item 12"),
-    # -feature_shards runs batch VB (item 13's first slice); the other
-    # methods still refuse it
-    pytest.param(["-feature_shards", "2"], dict(method="mcmc"), "item 13",
+    # -feature_shards runs batch VB, Gibbs and ALS (item 13's slices 1 and
+    # 13.1); the other methods still refuse it
+    pytest.param(["-feature_shards", "2"], dict(method="sgd"), "item 13",
                  id="extra4-kw4-item 13"),
     pytest.param(["-num_eval_cases", "5", "-cache_size", "1000"], {},
                  "not supported with -cache_size", id="extra5-kw5-item 4"),
@@ -651,3 +651,73 @@ def test_cli_feature_shards_like_the_jax_cli(data, tmp_path, monkeypatch,
     theirs_log = (d / "jax" / "log.tsv").read_text().splitlines()
     assert ours_log[0] == theirs_log[0]
     assert len(ours_log) == len(theirs_log) == 3
+
+
+@pytest.mark.parametrize("method", ["als", "mcmc"])
+def test_cli_feature_shards_mcmc_als(data, tmp_path, monkeypatch, capsys,
+                                     method):
+    """-method als|mcmc -feature_shards 2 -distributed 1 on two spawned
+    gloo ranks (a (1, 2) mesh) beside the JAX CLI's -feature_shards 2 on
+    the 8-device mesh (a (4, 2) mesh), both from the JAX init: the same
+    files (rank 0 writes them); ALS's trajectory and predictions within
+    test_tp_mcmc.py's rtol 2e-4, Gibbs (its own draws) finite and its
+    posterior-mean predictions in the target range."""
+    from svbfm_tpu.parallel import tp_mcmc as jtm
+    from torch_tp_ranks import cli_mcmc_rank, run_ranks
+
+    d, te, D = data
+    argv = _args(d, method, "-feature_shards", "2", "-out", "pred.txt",
+                 "-regular", "0.1")
+    seen = {}
+    init = jtm.TPMCMCLearner.init_state
+
+    def keep_init(self, key=None):
+        seen["state"] = init(self, key)
+        return seen["state"]
+
+    monkeypatch.setattr(jtm.TPMCMCLearner, "init_state", keep_init)
+    theirs = _run_in(d / "jax", jax_main, argv, monkeypatch)
+    st = seen["state"]
+    np.savez(tmp_path / "init.npz", w0=np.asarray(st.w0),
+             w=np.asarray(st.w)[:D], v=np.asarray(st.v)[:, :D])
+    (d / "torch").mkdir()
+    run_ranks(cli_mcmc_rank, 2, tmp_path / "ranks", timeout=120,
+              argv=argv + ["-distributed", "1", "-device", "cpu"],
+              cwd=str(d / "torch"), init=str(tmp_path / "init.npz"))
+    assert sorted(os.listdir(d / "torch")) == theirs
+    ours = {n: np.loadtxt(d / "torch" / n)
+            for n in ("test_rmse_114_mcmc", "pred.txt", "v_file.txt")}
+    np.testing.assert_allclose(ours["v_file.txt"],
+                               np.loadtxt(d / "jax" / "v_file.txt"),
+                               rtol=1e-6)
+    if method == "als":
+        for name in ("test_rmse_114_mcmc", "pred.txt"):
+            np.testing.assert_allclose(ours[name],
+                                       np.loadtxt(d / "jax" / name),
+                                       rtol=2e-4, err_msg=name)
+    else:
+        assert np.isfinite(ours["test_rmse_114_mcmc"]).all()
+        assert ours["pred.txt"].shape == (te.num_rows,)
+        assert ((ours["pred.txt"] >= 1.0) & (ours["pred.txt"] <= 5.0)).all()
+
+
+@pytest.mark.parametrize("method,extra,message", [
+    ("mcmc", ["-cache_size", "1000"], "not read by the feature-sharded"),
+    ("als", ["-num_eval_cases", "5"], "not read by the feature-sharded"),
+    ("mcmc", ["-map_eval", "fixture"], "not read by the feature-sharded"),
+    ("vb", [], "-factor_block is not read by the feature-sharded VB"),
+    ("mcmc", ["-factor_block", "2"], "does not divide the world size 1"),
+    ("als", ["-task", "c"], "does not divide the world size 1"),
+])
+def test_cli_feature_shards_refusals(data, method, extra, message):
+    """What the feature-sharded learners do not read is refused by name
+    (vb: -factor_block; every method: -cache_size, -num_eval_cases,
+    -map_eval), before the world size is checked; Gibbs and ALS read
+    -factor_block and -task c."""
+    d, _, _ = data
+    argv = _args(d, method, "-feature_shards", "2", "-device", "cpu")
+    if extra[:1] == ["-task"]:
+        argv = argv[2:]
+    with pytest.raises(SystemExit) as ei:
+        cli.main(argv + extra)
+    assert message in str(ei.value.code)

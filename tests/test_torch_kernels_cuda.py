@@ -2510,3 +2510,82 @@ def test_tp_vb_on_gpu_matches_cpu(cuda):
         for a, b in zip(hists[-2], hists[-1]):
             for k in ("rmse", "free_energy", "alpha"):
                 np.testing.assert_allclose(a[k], b[k], rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [1, 4, 20])
+def test_tp_mcmc_kernels_match_twins(cuda, K):
+    """T5-T8 (the feature-sharded Gibbs/ALS) against their twins on a small
+    problem of odd D, so that the second of two feature shards holds a
+    padding column, at F = K (T7 in its exact mode on every bucket, its
+    factor-Jacobi mode and F = 1 on the widest), on each shard of Sf = 2
+    and 1; the Sf = 2 partials of T6 and T8 summed against X8d and X8b;
+    two launches give the same bits."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_tp_tensors(cuda, K)
+    cases = chip_smoke.make_cases(s)
+    names = ("tp_w_draw", "tp_build_q", "tp_col_draw_stats", "tp_col_draw",
+             "tp_mcmc_patch_delta")
+    before = dict(build.launch_counts)
+    for name in names:
+        assert cases[name]
+        for label, prepare, call, _ in cases[name]:
+            ok, op = call("kernel", prepare()), call("plain", prepare())
+            again = call("kernel", prepare())
+            torch.cuda.synchronize()
+            chip_smoke.compare(ok, op, f"{name} ({label})")
+            for a, b in zip(ok, again):
+                assert torch.equal(a, b), f"{name} ({label})"
+    assert all(build.launch_counts[k] > before[k] for k in names)
+
+
+@pytest.mark.parametrize("method", ["gibbs", "als", "jacobi", "class"])
+def test_tp_mcmc_on_gpu_matches_cpu(cuda, method):
+    """The feature-sharded Gibbs/ALS in one process on a (1, 1) mesh, card
+    against CPU from one init and one host-table draw source, 3 sweeps
+    (ALS under -factor_jacobi too; Gibbs under -task c); every kernel of
+    the path launched."""
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.models.fm import init_fm_params
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_mcmc import TPALSLearner, TPMCMCLearner
+
+    coo = make_movielens_like(num_users=61, num_items=40, num_ratings=3000,
+                              seed=4)
+    tr, te = train_test_split(coo, 0.2, seed=5)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 61])
+    kw = dict(regw=2.0, regv=2.0)
+    task = 0
+    if method == "jacobi":
+        kw.update(mcmc_factor_jacobi=True)
+    if method == "class":
+        task = 1
+        for c in (tr, te):
+            c.target = np.where(c.target > 3.5, 1.0, -1.0).astype(np.float32)
+    cfg = FMConfig(num_attributes=D, num_factor=6, num_groups=2, seed=7,
+                   task=task, min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()), **kw)
+    cls = TPMCMCLearner if method in ("gibbs", "class") else TPALSLearner
+    p = init_fm_params(torch.Generator().manual_seed(7), D, 6,
+                       init_stdev=cfg.init_stdev, init_w_normal=True)
+    hists = []
+    for dev in (cuda, "cpu"):
+        lr = cls(cfg, SparseDataset.from_coo(tr, D),
+                 SparseDataset.from_coo(te, D), meta,
+                 mesh=make_mesh2d(device=dev))
+        before = dict(build.launch_counts)
+        _, h = lr.run(lr.state_from_params(p.w0, p.w, p.v,
+                                           host_draws(7, dev)),
+                      num_iter=3, verbose=False)
+        hists.append(h)
+        if dev is cuda:
+            names = ("tp_fm_partials", "tp_w_stats", "tp_w_draw",
+                     "tp_patch_delta", "tp_build_q", "tp_col_draw_stats",
+                     "tp_col_draw", "tp_mcmc_patch_delta") + (
+                ("probit_latent", "probit_eval") if task else ())
+            assert all(build.launch_counts[k] > before[k] for k in names)
+    key = "accuracy" if task else "rmse"
+    for a, b in zip(*hists):
+        np.testing.assert_allclose(a[key], b[key], rtol=1e-5)
+        np.testing.assert_allclose(a["alpha"], b["alpha"], rtol=1e-5)

@@ -77,13 +77,21 @@ class JaxKeyDraws:
         return torch.tensor(np.asarray(
             jax.random.gamma(self._sub(), a, dtype=jnp.float32)))
 
-    def uniform(self, shape, lo, hi):
-        """The probit draw's chain (mcmc.py:1079-1082): split, fold in
-        shard 0, uniform in [lo, hi).  A zero-length draw (ALS) still
-        splits, as JAX does."""
-        sub = jax.random.fold_in(self._sub(), 0)
+    def uniform(self, shape, lo, hi, shard=0, n_shards=1):
+        """The probit draw's chain (mcmc.py:1079-1082): split, fold in the
+        data shard's index, uniform in [lo, hi).  A zero-length draw (ALS)
+        still splits, as JAX does."""
+        sub = jax.random.fold_in(self._sub(), shard)
         return torch.tensor(np.asarray(jax.random.uniform(
             sub, tuple(shape), jnp.float32, lo, hi)))
+
+    def column_normal(self, F, lo, D_loc):
+        """The feature-sharded sweep's z table (tp_mcmc.py:170, :228-229):
+        one sub-key, the shard's [F, D_loc] slice of its W-aligned
+        chunks."""
+        from svbfm_tpu.parallel.tp_mcmc import _z_table_local
+        return torch.tensor(np.asarray(_z_table_local(
+            self._sub(), F, D_loc, lo, jnp.float32)))
 
 
 def _data(num_rows=96, num_users=9, num_items=7, seed=2):

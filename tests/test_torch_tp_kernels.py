@@ -1,4 +1,4 @@
-"""The plain twins of the feature-sharded kernels T1-T4, in one process.
+"""The plain twins of the feature-sharded kernels T1-T8, in one process.
 
 For Sf = 1, 2 and 4 feature shards the shards' partials, summed, must equal
 the port's unsharded twins (K1a/K1b, K2, K3, K4, K5 and the w patch) and
@@ -7,6 +7,11 @@ and ``make_tp_scorer`` (``parallel/tp.py``) on conftest's 8-device CPU
 mesh.  D = 37 is divided by none of 2 and 4, so the last shard holds
 padding columns, and the rows hold ids on the shards' boundaries; the
 edge dims of ``tests/test_tp.py`` (k0 and k1 off; K = 0) are covered.
+T5-T8, the feature-sharded Gibbs/ALS's, are run shard by shard in lockstep
+(each collective a sum over the shards in the test) and held to the port's
+unsharded twins (X8c, X8d, X8a, X8b) and to the JAX package's
+``tp_w_sweep`` and ``tp_v_block_pass`` (``parallel/tp_mcmc.py``) on a
+(1, Sf) mesh, Gibbs with the JAX key chain replayed (JaxKeyDraws).
 Tolerance: ``test_tp.py:29``'s rtol 2e-4 / atol 2e-4 for JAX, 1e-5 / 1e-6
 for the port's own twins (the same sums in another order).
 """
@@ -29,6 +34,7 @@ from svbfm_tpu_torch.data.dataset import SweepPlan
 from svbfm_tpu_torch.data.libfm_text import COOData
 from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.kernels import fm_forward as k1
+from svbfm_tpu_torch.kernels import mcmc_sweep as km
 from svbfm_tpu_torch.kernels import vb_sweep as kv
 from svbfm_tpu_torch.kernels import w_sweep as kw
 from svbfm_tpu_torch.learners.base import build_plan_data
@@ -363,3 +369,338 @@ def test_t1_reads_no_row_for_another_shards_id():
     assert mine.any() and (~mine).any()
     assert torch.isnan(out[mine]).any(1).all()
     assert torch.isfinite(out[~mine]).all()
+
+
+# ---- T5-T8: the feature-sharded Gibbs/ALS ----------------------------------
+
+def _gibbs_inputs(F, seed):
+    """The sweep setup of F factors with a v table, its group priors and
+    an unobserved column (the last item's id appears in no row)."""
+    s = _sweep_setup(0, seed=seed)
+    rng = s["rng"]
+    G = s["meta"].num_attr_groups
+    s.update(
+        F=F, G=G, v=_t(0.3 * rng.standard_normal((D, F)).astype(np.float32)),
+        w=_t(rng.standard_normal(D).astype(np.float32)),
+        mu=_t(0.1 * rng.standard_normal((G, F)).astype(np.float32)),
+        lam=_t(rng.uniform(0.5, 2.0, (G, F)).astype(np.float32)),
+        w_mu=_t(0.1 * rng.standard_normal(G).astype(np.float32)),
+        w_lam=_t(rng.uniform(0.5, 2.0, G).astype(np.float32)),
+        alpha=torch.tensor(1.3))
+    return s
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+def test_t5_matches_x8c_and_the_w_patch(Sf):
+    """T3's w stats, T5's draw (the shard's slice of a [D] z table) and
+    T4 at F = 0, bin by bin, against X8c and the w patch."""
+    s = _gibbs_inputs(1, seed=11)
+    ids, vals, e = s["ids"], s["vals"], s["e"]
+    plans, D_loc = _tp_plans(s, Sf)
+    z = torch.randn(D_loc * Sf, generator=torch.Generator().manual_seed(4))
+    for b in range(len(s["plan"].blocks)):
+        ref_w, ref_dt = s["w"].clone(), torch.zeros(D, 2)
+        ref_bad = torch.zeros(4, dtype=torch.int32)
+        kw.mcmc_w_bin_draw_plain(
+            build_plan_data(s["plan"], s["meta"], "cpu").blocks[b], e, ref_w,
+            s["w_mu"], s["w_lam"], s["alpha"], z[:D], ref_dt, ref_bad)
+        w = _pad_rows(s["w"], D_loc, Sf)
+        dtab = torch.zeros(D_loc * Sf, 2)
+        bad = torch.zeros(4, dtype=torch.int32)
+        for f, pl in enumerate(plans):
+            sl = slice(f * D_loc, (f + 1) * D_loc)
+            acc = torch.zeros(D_loc)
+            kw.tp_w_stats(pl.blocks[b], e, acc, D_loc)
+            kw.tp_w_draw(pl.blocks[b], acc, D_loc, w[sl], s["w_mu"],
+                         s["w_lam"], s["alpha"], z[sl].contiguous(), dtab[sl],
+                         bad)
+        np.testing.assert_allclose(w[:D].numpy(), ref_w.numpy(), **TOL)
+        np.testing.assert_allclose(dtab[:D].numpy(), ref_dt.numpy(), **TOL)
+        assert torch.equal(bad, ref_bad)
+        _, de, _ = kv.tp_patch_views(sum(
+            kv.tp_patch_delta(dtab[f * D_loc:(f + 1) * D_loc].contiguous(),
+                              0, True, ids, vals, None, f * D_loc, D_loc)
+            for f in range(Sf)), N, 0)
+        e1 = e.clone()
+        kv.w_patch_rows_plain(ref_dt, ids, vals, e1)
+        np.testing.assert_allclose((e + de).numpy(), e1.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+@pytest.mark.parametrize("F,exact", [(4, True), (4, False), (1, True),
+                                     (5, True)])
+def test_t6_t7_t8_match_x8d_x8a_x8b(Sf, F, exact):
+    """Bin 0 of a factor block: T6's q partials summed against X8d; T7's
+    stats (padding columns' rows zero) against X8a's sums, its draw from
+    them against X8a (exact, or factor-Jacobi); T8's patch summed against
+    X8b's."""
+    s = _gibbs_inputs(F, seed=12)
+    ids, vals, e = s["ids"], s["vals"], s["e"]
+    plans, D_loc = _tp_plans(s, Sf)
+    ptab = torch.zeros(D, 2 * F)
+    ptab[:, :F] = s["v"]
+    gptab = _pad_rows(ptab, D_loc, Sf)
+    shard = [gptab[f * D_loc:(f + 1) * D_loc] for f in range(Sf)]
+    q = sum(kv.tp_build_q(shard[f].contiguous(), F, ids, vals, f * D_loc,
+                          D_loc) for f in range(Sf))
+    q_ref = kv.build_q_plain(ptab, F, ids, vals)
+    np.testing.assert_allclose(q.numpy(), q_ref.numpy(), **TOL)
+    z = torch.randn(F, D_loc * Sf, generator=torch.Generator().manual_seed(5))
+    ref_pt, ref_v = ptab.clone(), s["v"].clone()
+    ref_nans = torch.zeros(2, dtype=torch.int32)
+    for blk in build_plan_data(s["plan"], s["meta"], "cpu").blocks[0]:
+        km.mcmc_col_draw_plain(blk.rows, blk.x, blk.cols, blk.group, e, q_ref,
+                               ref_pt, ref_v, s["mu"], s["lam"], s["alpha"],
+                               z[:, :D].contiguous(), exact, ref_nans)
+    v_t = _pad_rows(s["v"], D_loc, Sf)
+    nans = torch.zeros(2, dtype=torch.int32)
+    saw_padding = False
+    for f, pl in enumerate(plans):
+        sl = slice(f * D_loc, (f + 1) * D_loc)
+        for blk in pl.blocks[0]:
+            pad = blk.cols == D_loc
+            saw_padding |= bool(pad.any())
+            acc = km.tp_col_draw_stats(blk.rows, blk.x, blk.cols, D_loc, e,
+                                       q, shard[f], F, exact)
+            assert acc.shape == (blk.cols.shape[0],
+                                 km.tp_col_outputs(F, exact))
+            assert (acc[pad] == 0).all()
+            s0, sh2, m_x = km._col_sums(blk.rows[~pad], blk.x[~pad],
+                                        blk.cols[~pad], e, q, shard[f], F,
+                                        exact)
+            want = (km.pack_sums(s0, sh2, m_x) if exact
+                    else torch.cat([s0, sh2], 0).T)
+            np.testing.assert_allclose(acc[~pad].numpy(), want.numpy(), **TOL)
+            km.tp_col_draw(acc, blk.cols, blk.group, D_loc, shard[f],
+                           v_t[sl], s["mu"], s["lam"], s["alpha"],
+                           z[:, sl].contiguous(), exact, nans)
+    assert Sf == 1 or saw_padding
+    np.testing.assert_allclose(v_t[:D].numpy(), ref_v.numpy(), **TOL)
+    np.testing.assert_allclose(gptab[:D].numpy(), ref_pt.numpy(), **TOL)
+    assert torch.equal(nans, ref_nans)
+    patch = sum(km.tp_mcmc_patch_delta(shard[f].contiguous(), F, ids, vals,
+                                       q, f * D_loc, D_loc)
+                for f in range(Sf))
+    assert patch.shape == (N * (F + 1),)
+    q1, e1 = q_ref.clone(), e.clone()
+    km.mcmc_patch_rows_plain(ref_pt, F, ids, vals, q1, e1)
+    dq, de = km.tp_mcmc_patch_views(patch, N, F)
+    np.testing.assert_allclose((q - dq).numpy(), q1.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose((e - de).numpy(), e1.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_t8_reads_no_row_for_another_shards_id():
+    """T8 skips an id outside [lo, lo + D_loc): a NaN in the shard's last
+    ptab row reaches only the rows holding that row's own id."""
+    s = _gibbs_inputs(4, seed=13)
+    ids, vals = s["ids"], s["vals"]
+    D_loc = -(-D // 2)
+    ptab = torch.ones(D_loc, 8)
+    ptab[D_loc - 1] = float("nan")
+    q = torch.ones(N, 4)
+    out = km.tp_mcmc_patch_delta(ptab, 4, ids, vals, q, 0, D_loc)
+    dq, de = km.tp_mcmc_patch_views(out, N, 4)
+    mine = (ids == D_loc - 1).any(1)
+    assert mine.any() and (~mine).any()
+    assert torch.isnan(de[mine]).all() and torch.isfinite(de[~mine]).all()
+    assert torch.isfinite(dq[~mine]).all()
+
+
+def _jax_plan(s, Sf):
+    """The JAX package's TPPlanData of the same plan on a (1, Sf) mesh."""
+    from svbfm_tpu.data.dataset import SweepPlan as JPlan
+    from svbfm_tpu.data.libfm_text import COOData as JCOO
+    from svbfm_tpu.data.meta import DataMetaInfo as JMeta
+    from svbfm_tpu.parallel import tp_vb as jtv
+
+    ids = s["ids"].numpy()
+    coo = JCOO(row=np.repeat(np.arange(N), P_ROW).astype(np.int32),
+               col=ids.reshape(-1).astype(np.int32),
+               val=s["vals"].numpy().reshape(-1),
+               target=np.zeros(N, np.float32), num_rows=N, num_features=D)
+    meta = JMeta.from_field_offsets(D, [0, NU])
+    mesh = jmesh2d(n_data=1, n_feature=Sf)
+    plan = JPlan.build(coo, D, meta_groups=meta.attr_group)
+    plan_data, D_loc = jtv._build_tp_plan(mesh, plan, meta, D)
+    return mesh, plan_data, jtv._plan_specs(plan_data), D_loc
+
+
+def _jax_row(s):
+    from svbfm_tpu.learners.base import RowData as JRow
+    return JRow(ids=jnp.asarray(s["ids"].numpy()),
+                vals=jnp.asarray(s["vals"].numpy()),
+                target=jnp.zeros(N, jnp.float32),
+                valid=jnp.ones(N, jnp.float32))
+
+
+def _row_specs():
+    from svbfm_tpu.learners.base import RowData as JRow
+    d = P(DATA_AXIS)
+    return JRow(ids=d, vals=d, target=d, valid=d)
+
+
+class _ThreadMesh:
+    """Shard f of the feature group of a (1, Sf) mesh run as one of Sf
+    threads: ``all_reduce_feature`` sums the shards' tensors in shard
+    order (every thread gets the same bits); the data group is one."""
+
+    def __init__(self, Sf, f, shared):
+        self.n_data, self.n_feature, self.d_index, self.f_index = 1, Sf, 0, f
+        self.shared = shared
+
+    def all_reduce_data(self, t):
+        return t
+
+    def all_reduce_feature(self, t):
+        sh = self.shared
+        sh["slots"][self.f_index] = t.clone()
+        sh["barrier"].wait()
+        tot = sh["slots"][0].clone()
+        for x in sh["slots"][1:]:
+            tot += x
+        sh["barrier"].wait()
+        return t.copy_(tot)
+
+
+def _on_threads(Sf, fn):
+    """fn(f, mesh) on Sf threads, one a feature shard: their results."""
+    import threading
+
+    shared = dict(barrier=threading.Barrier(Sf), slots=[None] * Sf)
+    out, errors = [None] * Sf, []
+
+    def run(f):
+        try:
+            out[f] = fn(f, _ThreadMesh(Sf, f, shared))
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+            shared["barrier"].abort()
+
+    threads = [threading.Thread(target=run, args=(f,)) for f in range(Sf)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _port_row(s):
+    from svbfm_tpu_torch.learners.base import RowData
+    return RowData(ids=s["ids"], vals=s["vals"], target=torch.zeros(N),
+                   valid=torch.ones(N))
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+@pytest.mark.parametrize("sample", [False, True], ids=["als", "gibbs"])
+def test_t5_w_sweep_matches_jax(Sf, sample):
+    """The port's tp_w_sweep (T3's w stats, T5, T4 at F = 0 and the
+    unobserved columns' prior draws) on Sf threads against JAX's on a
+    (1, Sf) mesh; Gibbs replays the key (the [1, D_loc] column table)."""
+    from svbfm_tpu.learners.base import FMConfig as JConfig
+    from svbfm_tpu.parallel import tp_mcmc as jtm
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.parallel.tp_mcmc import tp_w_sweep
+    from test_torch_mcmc import JaxKeyDraws
+
+    s = _gibbs_inputs(1, seed=14)
+    mesh, jplan, specs, D_loc = _jax_plan(s, Sf)
+    jcfg = JConfig(num_attributes=D, num_factor=0, do_sample=sample)
+    key = jax.random.PRNGKey(3)
+
+    def body(e, w_l, w_mu, w_lam, alpha, key, plan, row):
+        k = [key]
+
+        def next_key():
+            k[0], sub = jax.random.split(k[0])
+            return sub
+        return jtm.tp_w_sweep(e, w_l, w_mu, w_lam, alpha, plan, row, jcfg,
+                              next_key, D_loc, plan.attr_group[0],
+                              plan.unobserved[0])
+
+    f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(
+        P(DATA_AXIS), P(FEATURE_AXIS), P(), P(), P(), P(), specs,
+        _row_specs()), out_specs=(P(DATA_AXIS), P(FEATURE_AXIS))))
+    w_pad = pad_feature_dim(s["w"].numpy(), D_loc * Sf)
+    je, jw = f(jnp.asarray(s["e"].numpy()), jnp.asarray(w_pad),
+               jnp.asarray(s["w_mu"].numpy()),
+               jnp.asarray(s["w_lam"].numpy()), jnp.asarray(1.3, jnp.float32),
+               key, jplan, _jax_row(s))
+    plans, _ = _tp_plans(s, Sf)
+    cfg = FMConfig(num_attributes=D, num_factor=0, do_sample=sample)
+    row = _port_row(s)
+
+    def shard(f, m):
+        e, w = s["e"].clone(), _t(w_pad[f * D_loc:(f + 1) * D_loc]).clone()
+        tp_w_sweep(e, w, s["w_mu"], s["w_lam"], s["alpha"], plans[f], row,
+                   cfg, JaxKeyDraws(np.asarray(key)), m, D_loc, f * D_loc)
+        return e, w
+
+    out = _on_threads(Sf, shard)
+    for e, _ in out:
+        np.testing.assert_allclose(e.numpy(), np.asarray(je), **JAX_TOL)
+    np.testing.assert_allclose(torch.cat([w for _, w in out]).numpy(),
+                               np.asarray(jw), **JAX_TOL)
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+@pytest.mark.parametrize("F,sample,exact", [
+    (4, False, True), (4, True, True), (4, False, False), (1, True, True)],
+    ids=["als", "gibbs", "jacobi", "gibbs-f1"])
+def test_t6_t7_t8_block_pass_matches_jax(Sf, F, sample, exact):
+    """The port's tp_v_block_pass (T6's q, T7's two launches a bucket, T8's
+    patch a bin, the unobserved columns' prior draws) on Sf threads
+    against JAX's on a (1, Sf) mesh: e and the block's v after the
+    sweep; Gibbs replays the key (the block's [F, D_loc] table)."""
+    from svbfm_tpu.learners.base import FMConfig as JConfig
+    from svbfm_tpu.parallel import tp_mcmc as jtm
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.parallel.tp_mcmc import tp_v_block_pass
+    from test_torch_mcmc import JaxKeyDraws
+
+    s = _gibbs_inputs(F, seed=15)
+    mesh, jplan, specs, D_loc = _jax_plan(s, Sf)
+    jcfg = JConfig(num_attributes=D, num_factor=F, do_sample=sample)
+    key = jax.random.PRNGKey(5)
+    # the columns' priors as JAX's learner takes them (take_rows with
+    # mode="clip": the padding columns' group G reads group G - 1's)
+    ag = np.full(D_loc * Sf, s["G"] - 1)
+    ag[:D] = s["meta"].attr_group
+    mu_t, lam_t = (a.numpy()[ag] for a in (s["mu"], s["lam"]))
+
+    def body(e, v_t, mu_t, lam_t, alpha, key, plan, row):
+        e, v_t, _ = jtm.tp_v_block_pass(e, v_t, mu_t, lam_t, key, plan, row,
+                                        jcfg, alpha, exact, D_loc,
+                                        plan.unobserved[0])
+        return e, v_t
+
+    fsh = P(FEATURE_AXIS)
+    f = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(
+        P(DATA_AXIS), fsh, fsh, fsh, P(), P(), specs, _row_specs()),
+        out_specs=(P(DATA_AXIS), fsh)))
+    v_pad = pad_feature_dim(s["v"].numpy().T, D_loc * Sf).T
+    je, jv = f(jnp.asarray(s["e"].numpy()), jnp.asarray(v_pad),
+               jnp.asarray(np.ascontiguousarray(mu_t)),
+               jnp.asarray(np.ascontiguousarray(lam_t)),
+               jnp.asarray(1.3, jnp.float32), key, jplan, _jax_row(s))
+    plans, _ = _tp_plans(s, Sf)
+    cfg = FMConfig(num_attributes=D, num_factor=F, do_sample=sample)
+    row = _port_row(s)
+
+    def shard(f, m):
+        e = s["e"].clone()
+        v_t = _t(v_pad[f * D_loc:(f + 1) * D_loc]).contiguous()
+        v_t = tp_v_block_pass(e, v_t, s["mu"], s["lam"], plans[f], row, cfg,
+                              s["alpha"], exact,
+                              JaxKeyDraws(np.asarray(key)), m, D_loc,
+                              f * D_loc)
+        return e, v_t
+
+    out = _on_threads(Sf, shard)
+    for e, _ in out:
+        np.testing.assert_allclose(e.numpy(), np.asarray(je), **JAX_TOL)
+    np.testing.assert_allclose(torch.cat([v for _, v in out]).numpy(),
+                               np.asarray(jv), **JAX_TOL)

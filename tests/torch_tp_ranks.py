@@ -160,3 +160,178 @@ def cli_rank(rank: int, argv: list, cwd: str, init: str) -> int:
     tp_vb.TPVBLearner.init_state = init_state
     os.chdir(cwd)
     return cli.main(argv)
+
+
+def cli_mcmc_rank(rank: int, argv: list, cwd: str, init: str) -> int:
+    """The port's CLI (-method mcmc or als) on this rank, the tables of
+    its start (w0, w [D], v [K, D]) from the npz at ``init``, run in
+    ``cwd``."""
+    import numpy as np
+    import torch
+
+    from svbfm_tpu_torch import cli
+    from svbfm_tpu_torch.learners.draws import device_draws
+    from svbfm_tpu_torch.parallel import tp_mcmc
+
+    def init_state(self, generator=None, draws=None):
+        with np.load(init) as z:
+            t = {k: torch.from_numpy(z[k]) for k in z.files}
+        return self.state_from_params(t["w0"], t["w"], t["v"], device_draws(
+            self.cfg.seed, self.device))
+
+    tp_mcmc.TPMCMCLearner.init_state = init_state
+    os.chdir(cwd)
+    return cli.main(argv)
+
+
+# ---- the feature-sharded Gibbs/ALS (parallel/tp_mcmc.py) ---------------------
+
+def mcmc_setup(seed: int = 3, n: int = 900, **cfg_kw):
+    """``tests/test_tp_mcmc.py:_setup``'s recipe in the port (900 ratings,
+    25 users, 16 items, K = 4): (cfg, train, test, meta, D)."""
+    import dataclasses
+
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import (make_movielens_like,
+                                            train_test_split)
+    from svbfm_tpu_torch.learners.base import FMConfig
+
+    coo = make_movielens_like(num_users=25, num_items=16, num_ratings=n,
+                              rank=2, noise=0.3, seed=seed)
+    tr, te = train_test_split(coo, 0.2, seed=seed + 1)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 25])
+    cfg = FMConfig(num_attributes=D, num_factor=4,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()),
+                   num_groups=meta.num_attr_groups, seed=11, regw=0.1,
+                   regv=0.1)
+    return (dataclasses.replace(cfg, **cfg_kw),
+            SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta, D)
+
+
+def binarized(setup):
+    """``test_tp_mcmc.py:test_tp_mcmc_classification``'s binarised recipe:
+    the targets above the train median are +1, the others -1."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg, tr, te, meta, D = setup
+    med = float(np.median(tr.target[: tr.num_rows]))
+
+    def binarize(ds):
+        t = np.where(ds.target > med, 1.0, -1.0).astype(np.float32)
+        return dataclasses.replace(ds, target=t)
+    cfg = dataclasses.replace(cfg, task=1, min_target=-1.0, max_target=1.0)
+    return cfg, binarize(tr), binarize(te), meta, D
+
+
+def _mcmc_learner(shape, setup, als: bool = False, **kw):
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_mcmc import TPALSLearner, TPMCMCLearner
+
+    cfg, tr, te, meta, _ = setup
+    mesh = make_mesh2d(n_data=shape[0], n_feature=shape[1], device="cpu")
+    cls = TPALSLearner if als else TPMCMCLearner
+    return cls(cfg, tr, te, meta, mesh=mesh, **kw)
+
+
+def _mcmc_result(lr, state, hist) -> dict:
+    import dataclasses
+
+    g = lr.global_state(state)
+    return dict(hist=hist, D_loc=lr.D_loc,
+                state={f.name: getattr(g, f.name).numpy()
+                       for f in dataclasses.fields(g) if f.name != "draws"})
+
+
+def mcmc_run(shape, setup, num_iter: int, init: str = "", als=False,
+             replay=False, **run_kw) -> dict:
+    """``num_iter`` sweeps of the TP Gibbs (``als``: ALS) on a mesh of
+    ``shape`` from the JAX learner's global ``MCMCState`` saved as npz at
+    ``init`` (else the port's own init), the draws from the JAX key chain
+    replayed (``replay``: test_torch_mcmc.py's JaxKeyDraws, from the key
+    saved beside the state) or from a host generator of the seed: the
+    history, the gathered global state and, under replay, the key."""
+    import numpy as np
+
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.utils.convert import tp_mcmc_state_from_jax
+
+    lr = _mcmc_learner(shape, setup, als)
+    state = None
+    if init:
+        with np.load(init) as z:
+            z = dict(z)
+        if replay:
+            from test_torch_mcmc import JaxKeyDraws
+            draws = JaxKeyDraws(z["key"])
+        else:
+            draws = host_draws(lr.cfg.seed, "cpu")
+        state = tp_mcmc_state_from_jax(
+            z, "cpu", draws, d=lr.mesh.d_index, f=lr.mesh.f_index,
+            n_data=lr.mesh.n_data, D_loc=lr.D_loc)
+    state, hist = lr.run(state, num_iter=num_iter, verbose=False, **run_kw)
+    out = _mcmc_result(lr, state, hist)
+    if replay:
+        out["key"] = np.asarray(state.draws.key)
+    return out
+
+
+def mcmc_ckpt(shape, setup, num_iter: int, ckpt_dir: str,
+              ckpt_every: int) -> dict:
+    """Sweeps up to ``num_iter`` (chunks of 3) through a checkpoint
+    directory, resuming from it where it holds one."""
+    from svbfm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    lr = _mcmc_learner(shape, setup)
+    state, hist = lr.run(num_iter=num_iter, verbose=False, chunk=3,
+                         ckpt=CheckpointManager(ckpt_dir),
+                         ckpt_every=ckpt_every)
+    return _mcmc_result(lr, state, hist)
+
+
+def mcmc_two_ranks(rank: int, inits: dict, ck: str) -> dict:
+    """Two ranks: ALS and the replayed Gibbs, 4 sweeps each from the JAX
+    init, on the meshes (1, 2) and (2, 1); the port's own Gibbs on (1, 2)
+    (mesh invariance); 6 Gibbs sweeps against 3 that save a checkpoint in
+    ``ck`` on (1, 2), resumed to 6 on (2, 1); dim 1,1,0 Gibbs and 0,0,4
+    ALS, 3 sweeps."""
+    import dataclasses
+
+    base = mcmc_setup()
+    out = {}
+    for shape in ((1, 2), (2, 1)):
+        path = inits[shape]
+        out[shape, "als"] = mcmc_run(shape, base, 4, path, als=True)
+        out[shape, "gibbs"] = mcmc_run(shape, base, 4, path, replay=True)
+    out["own"] = mcmc_run((1, 2), mcmc_setup(seed=9), 4)
+    ck_setup = mcmc_setup(seed=23)
+    out["full"] = mcmc_run((1, 2), ck_setup, 6, chunk=3)
+    out["first"] = mcmc_ckpt((1, 2), ck_setup, 3, ck, 3)
+    out["resumed"] = mcmc_ckpt((2, 1), ck_setup, 6, ck, 100)
+    cfg, tr, te, meta, D = mcmc_setup(seed=31, n=600)
+    out["k0"] = mcmc_run((1, 2), (dataclasses.replace(cfg, num_factor=0),
+                                  tr, te, meta, D), 3)
+    out["bias_off"] = mcmc_run(
+        (1, 2), (dataclasses.replace(cfg, k0=False, k1=False), tr, te, meta,
+                 D), 3, als=True)
+    return out
+
+
+def mcmc_four_ranks(rank: int, init: str, ml_init: str) -> dict:
+    """Four ranks, the mesh (2, 2): ALS and the replayed Gibbs, 4 sweeps
+    from the JAX init; one deterministic multilevel step (do_sample=False,
+    do_multilevel=True) from its JAX init; the port's own Gibbs (mesh
+    invariance); 10 Gibbs sweeps of the binarised recipe under -task c."""
+    out = {"als": mcmc_run((2, 2), mcmc_setup(), 4, init, als=True),
+           "gibbs": mcmc_run((2, 2), mcmc_setup(), 4, init, replay=True),
+           "multilevel": mcmc_run((2, 2), mcmc_setup(
+               seed=41, do_sample=False, do_multilevel=True), 1, ml_init,
+               replay=True),
+           "own": mcmc_run((2, 2), mcmc_setup(seed=9), 4),
+           "class": mcmc_run((2, 2), binarized(mcmc_setup(seed=13)), 10)}
+    return out
