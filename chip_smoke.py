@@ -79,6 +79,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      card; a rank's failure fails the phase).
   9. ovb: online VBFM, 20 chunks of fixed membership, 5 epochs: kernels
      launched, RMSE falling; sec/epoch and peak memory.
+  9b. the feature-sharded online VB (T9 and T10 with T1, T2 at F = 1 and
+     T4 at F = 1 and 0; the kernel phase holds them to their twins on
+     every bin of chunk 0 at Sf = 1 and 2): tp-ovb (TPOVBLearner on NCCL
+     with a world of one at ML-1M's width, K = 20, 20 chunks, as many
+     epochs as ovb from the same init, the trajectory and the ten tables
+     within 1e-5 of ovb's; card against CPU on the 100k-row recipe;
+     sec/epoch beside ovb's), tp-ovb-profile (an epoch's device time,
+     busy share and ops; tp-ovb-device, after ovb-profile, sets them
+     beside the resident's) and tp-ovb-ranks (four gloo ranks on the
+     card, a (2, 2) mesh, the 100k-row recipe at K = 8, 5 chunks, 2
+     epochs, within 1e-4 of the world of one).
  10. ovb gpu-vs-cpu: 2 epochs of the 100k-row recipe from one host-made
      init on the card and on the CPU; the trajectories must agree.
  11. ovb quality: -reshuffle 1, 20 chunks, 10 epochs (not 30, to keep
@@ -96,7 +107,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      trace that names K1a's kernel), mcmc -task c -map_eval (MAP@5 on
      every #Iter line and the final one).
  13. ovb-profile: device time of one online-VB epoch by kernel, K5's
-     (w_bin_kernel) apart.
+     (w_bin_kernel) apart; tp-ovb-device: the feature-sharded epoch's
+     (9b) beside it.
  14. mcmc: Gibbs MCMC, factor_block=0 (F=20), 10 iterations from the
      default device generator: kernels launched, no NaN/Inf counts,
      posterior-mean RMSE falling; sec/iter and peak memory.
@@ -331,6 +343,9 @@ WIN_CACHE_BYTES, WIN_SHAPE, WIN_TRAJ_RTOL = 8_388_608, (4, 250_880), 2e-4
 # recipe at K = 8, 3 sweeps, within RANKS_TIMEOUT seconds
 TP_RTOL = 1e-4
 TP_RANKS, TP_RANKS_ROWS, TP_RANKS_K, TP_RANKS_SWEEPS = 4, 100_000, 8, 3
+# [tp-ovb-ranks]: the same four ranks and recipe, 5 chunks, 2 epochs (the
+# ranks' gloo collectives, some 70 a chunk, set its time)
+TP_OVB_RANKS_CHUNKS, TP_OVB_RANKS_EPOCHS = 5, 2
 TP_RANKS_TIMEOUT = 240
 # [tp-mcmc]: Gibbs iterations beside the resident Gibbs, and how far apart
 # their posterior-mean RMSEs may end (two chains of other draws)
@@ -469,6 +484,17 @@ SOURCES = {
                     "svbfm_tpu/parallel/tp_mcmc.py:269"),
     "tp_mcmc_patch_delta": ("svbfm_tpu_torch/csrc/mcmc_sweep.cu",
                             "svbfm_tpu/parallel/tp_mcmc.py:284"),
+    # T9 and T10, the feature-sharded online VB (parallel/tp_ovb.py): K6
+    # split into a stats and a blend launch around the data all-reduce
+    # (T9), and K5's OVB mode split the same way in tp_w_kernel (T10)
+    "tp_ovb_stats": ("svbfm_tpu_torch/csrc/ovb_sweep.cu",
+                     "svbfm_tpu/parallel/tp_ovb.py:308"),
+    "tp_ovb_blend": ("svbfm_tpu_torch/csrc/ovb_sweep.cu",
+                     "svbfm_tpu/parallel/tp_ovb.py:312"),
+    "tp_w_ovb_stats": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                       "svbfm_tpu/parallel/tp_ovb.py:222"),
+    "tp_w_ovb_blend": ("svbfm_tpu_torch/csrc/w_sweep.cu",
+                       "svbfm_tpu/parallel/tp_ovb.py:224"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
 # (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
@@ -486,6 +512,10 @@ BS_KERNELS = ("bs_rel_moments", "bs_scores", "bs_resync", "bs_join_agg",
 TP_MCMC_KERNELS = ("tp_fm_partials", "tp_w_stats", "tp_w_draw",
                    "tp_patch_delta", "tp_build_q", "tp_col_draw_stats",
                    "tp_col_draw", "tp_mcmc_patch_delta")
+# the kernels of the feature-sharded online VB's chunk update
+TP_OVB_KERNELS = ("tp_fm_partials", "tp_w_ovb_stats", "tp_w_ovb_blend",
+                  "tp_patch_delta", "tp_build_qt", "tp_ovb_stats",
+                  "tp_ovb_blend")
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "vb-fast": ("fm_scores", "fm_t_terms", "vb_build_qt",
@@ -560,6 +590,9 @@ PATH_KERNELS = {
     "tp-mcmc": TP_MCMC_KERNELS,
     "tp-als": TP_MCMC_KERNELS,
     "tp-mcmc-class": TP_MCMC_KERNELS + ("probit_latent", "probit_eval"),
+    # the feature-sharded online VB (T1, T10, T4 at F = 0 and 1, T2 at
+    # F = 1, T9)
+    "tp-ovb": TP_OVB_KERNELS,
 }
 
 
@@ -1240,6 +1273,8 @@ def make_cases(s: dict):
 
     if "tp" in s:  # T1-T4, the feature-sharded batch VB's kernels
         tp_cases(add, s, bucket_cost, bin_cost, bin_label)
+    if "tp_ovb" in s:  # T9, T10 and the OVB chunk's T1, T2, T4
+        tp_ovb_cases(add, s, bucket_cost, bin_label)
     return cases
 
 
@@ -1580,6 +1615,250 @@ def tp_cases(add, s: dict, bucket_cost, bin_cost, bin_label) -> None:
 
     add("tp_mcmc_patch_delta", "Sf=2 summed vs X8b", nothing, t8_vs_x8b,
         None)
+
+
+def tp_ovb_tensors(ovb, state) -> dict:
+    """T9, T10, and T1, T2 at F = 1 and T4 at F = 1 and 0, at the
+    feature-sharded OVB's shapes: chunk 0 of the resident learner ``ovb``'s
+    membership (ML-1M, K = 20, 20 chunks: N = 50,002), factor 0, from a
+    real init; the shard of Sf = 1 (the world of one's: the JSON line's),
+    then each of Sf = 2, with its chunk plan (local ids, padding columns),
+    its cut tables, each bin's sums as T9's and T10's stats twins give them
+    (one data shard: nothing to all-reduce), and the patch tables as bin 0
+    of T9's and T10's blend twins leaves them."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
+    from svbfm_tpu_torch.kernels import ovb_sweep as ko
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+    from svbfm_tpu_torch.ops.forward import (fm_scores, score_table,
+                                             t_term_table)
+    from svbfm_tpu_torch.parallel.tp_vb import _build_tp_plan, local_plan
+
+    cfg, meta, train = ovb.cfg, ovb.meta, ovb._train_ds
+    D, K = cfg.num_attributes, cfg.num_factor
+    row, _ = ovb.chunks[0]
+    dev = row.ids.device
+    idx = np.array_split(ovb.member_perm, ovb.num_chunks)[0]
+    sub = SparseDataset(
+        ids=train.ids[idx], vals=train.vals[idx], target=train.target[idx],
+        num_rows=len(idx), num_features=D, min_target=train.min_target,
+        max_target=train.max_target, row_nnz=train.row_nnz[idx])
+    plan = SweepPlan.build(sub.to_coo(), D, meta_groups=meta.attr_group,
+                           col_count=ovb.col_count)
+    e = row.target - fm_scores(state.mu_0, state.mu_w, state.mu_v, row.ids,
+                               row.vals)
+    full = torch.zeros(D, 5, device=dev)
+    full[:, 0], full[:, 1] = state.mu_v[0], state.sigma_v_dash[0]
+    qt = torch.cat(kv.vb_build_qt_plain(full, 1, row.ids, row.vals), 1)
+    sv = state.sigma_v[:, :1].contiguous()
+    shards = []
+    for Sf in (1, 2):
+        plan_np, D_loc = _build_tp_plan((1, Sf), plan, meta, D)
+
+        def cut(a, f):  # the shard's slice of a table over the last dim
+            a = torch.nn.functional.pad(a, (0, D_loc * Sf - a.shape[-1]))
+            return a[..., f * D_loc:(f + 1) * D_loc].contiguous()
+
+        for f in range(Sf):
+            pl = local_plan(plan_np, 0, f, dev)
+            mu_v, sig_v = cut(state.mu_v, f), cut(state.sigma_v_dash, f)
+            mu_w, sig_w = cut(state.mu_w, f), cut(state.sigma_w_dash, f)
+            ptab = torch.zeros(D_loc, 5, device=dev)
+            ptab[:, 0], ptab[:, 1] = mu_v[0], sig_v[0]
+            sh = dict(
+                Sf=Sf, f=f, lo=f * D_loc, D_loc=D_loc, blocks=pl.blocks,
+                bins=[ko.BinPlan(bb) for bb in pl.blocks],
+                stab=score_table(mu_w, mu_v),
+                ttab=t_term_table(sig_w, mu_v, sig_v), ptab=ptab,
+                mu=mu_v[:1].T.contiguous(), sig=sig_v[:1].T.contiguous(),
+                nmu=cut(state.n_mu_v, f)[:1].T.contiguous(),
+                nsig=cut(state.n_sig_v, f)[:1].T.contiguous(),
+                rho_v=(1.0 + cut(state.t_vj, f)) ** -0.5, mu_w=mu_w,
+                sig_w=sig_w, nmu_w=cut(state.n_mu_w, f),
+                nsig_w=cut(state.n_sig_w, f), t_wj=cut(state.t_wj, f))
+            sh["rho_w"] = (1.0 + sh["t_wj"]) ** -0.5
+            sh["sums"] = [ko.tp_ovb_stats_plain(b, D_loc, e, qt, ptab)
+                          for b in sh["bins"]]
+            sh["w_acc"] = []
+            for bb in pl.blocks:
+                acc = torch.zeros(D_loc, device=dev)
+                kw.tp_w_ovb_stats_plain(bb, e, mu_w, acc, D_loc)
+                sh["w_acc"].append(acc)
+            pt = ptab.clone()
+            ko.tp_ovb_blend_plain(
+                sh["bins"][0], D_loc, sh["sums"][0], pt, *_clones(
+                    sh, "mu", "sig", "nmu", "nsig"), sv, state.alpha,
+                sh["rho_v"], None, _bad(dev))
+            dtab = torch.zeros(D_loc, 2, device=dev)
+            kw.tp_w_ovb_blend_plain(
+                pl.blocks[0], sh["w_acc"][0], D_loc, mu_w.clone(),
+                sig_w.clone(), state.sigma_w, state.alpha, dtab, _bad(dev),
+                (sh["nmu_w"].clone(), sh["nsig_w"].clone(), sh["rho_w"],
+                 sh["t_wj"].clone()))
+            sh.update(ptab_patch=pt, dtab=dtab)
+            shards.append(sh)
+    return dict(tag="tp-ovb", tp_ovb=shards, K=K, ids=row.ids,
+                vals=row.vals, e=e, qt=qt, sv=sv, sigma_w=state.sigma_w,
+                alpha=state.alpha)
+
+
+def ragged_tp_ovb_tensors(device) -> dict:
+    """T9 and T10 (and the chunk's T1, T2, T4) on a small problem of odd D
+    (the second of two feature shards holds a padding column, buckets
+    padding columns), 3 chunks at K = 3: ``tp_ovb_tensors`` of an OVB
+    init, each shard's eta2 of factor 0 and of w NaN at its local column 1
+    (NaN candidates, counted)."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import (make_movielens_like,
+                                            train_test_split)
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+
+    coo = make_movielens_like(37, 26, 900, rank=2, noise=0.4, seed=5)
+    tr, te = train_test_split(coo, 0.2, seed=6)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 37])
+    cfg = FMConfig(num_attributes=D, num_factor=3, num_groups=2, seed=SEED,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()), num_batches=3)
+    lr = OVBLearner(cfg, SparseDataset.from_coo(tr, D),
+                    SparseDataset.from_coo(te, D), meta, device=device,
+                    write_files=False)
+    s = tp_ovb_tensors(lr, lr.init_state())
+    for sh in s["tp_ovb"]:
+        sh["nsig"][1] = float("nan")
+        sh["nsig_w"][1] = float("nan")
+    s.update(tag="tp-ovb-ragged", timed=False)
+    return s
+
+
+def tp_ovb_cases(add, s: dict, bucket_cost, bin_label) -> None:
+    """On each shard of the OVB chunk (Sf = 1, then 2), each against its
+    twin: T1's partials of the chunk's rows, T2 at F = 1, T9's stats and
+    blend launches and T10's on every bin, T4 at F = 1 and 0 on bin 0's
+    patch tables.  Timed on the first shard of each Sf; the JSON line's
+    are Sf = 1's (the world of one's) for T9 and T10."""
+    from svbfm_tpu_torch.kernels import fm_forward as k1
+    from svbfm_tpu_torch.kernels import ovb_sweep as ko
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+
+    K, e, qt = s["K"], s["e"], s["qt"]
+    ids, vals = s["ids"], s["vals"]
+    N, P = ids.shape
+    dev = e.device
+    G = s["sv"].shape[0]
+
+    def nothing():
+        return ()
+
+    def twin(fn_k, fn_p, *args):
+        def call(variant, _):
+            return [(fn_k if variant == "kernel" else fn_p)(*args)]
+        return call
+
+    def bin_stats_cost(bins, per_entry, per_col, flops, plain_graph=True):
+        parts = [bucket_cost(dict(rows=b.rows, x=b.x), per_entry, per_col,
+                             flops) for b in bins]
+        return cost(sum(c["bytes"] for c in parts),
+                    sum(c["flops"] for c in parts), plain_graph=plain_graph)
+
+    for sh in s["tp_ovb"]:
+        Sf, f, lo, D_loc = sh["Sf"], sh["f"], sh["lo"], sh["D_loc"]
+        tag = f"Sf={Sf} shard {f}"
+        timed = f == 0
+        loc = ids.long() - lo
+        n_in = int(((loc >= 0) & (loc < D_loc)).sum())
+        ids64 = loc.clamp(0, D_loc - 1)
+        wts = torch.where((loc >= 0) & (loc < D_loc), vals,
+                          torch.zeros((), device=dev))
+        for t_terms, tab in ((False, sh["stab"]), (True, sh["ttab"])):
+            ch = k1.tp_channels(K, t_terms)
+            dense = tab.contiguous()
+            add("tp_fm_partials",
+                f"{tag} ovb-chunk {'t_terms' if t_terms else 'scores'} "
+                f"N={N}", nothing,
+                twin(k1.tp_fm_partials, k1.tp_fm_partials_plain, tab, K,
+                     t_terms, ids, vals, lo, D_loc),
+                cost(N * P * 8 + tab.shape[0] * tab.shape[1] * 4 + N * ch * 4,
+                     n_in * (9 * K + 2 if t_terms else 4 * K + 2),
+                     lambda dense=dense: torch.nn.functional.embedding_bag(
+                         ids64, dense, per_sample_weights=wts, mode="sum"))
+                if timed else None)
+        add("tp_build_qt", f"{tag} F=1 ovb-chunk N={N}", nothing,
+            twin(kv.tp_build_qt, kv.tp_build_qt_plain, sh["ptab"], 1, ids,
+                 vals, lo, D_loc),
+            cost(N * P * 8 + D_loc * 2 * 4 + N * 3 * 4, n_in * 6)
+            if timed else None)
+        for i, (plan, bb) in enumerate(zip(sh["bins"], sh["blocks"])):
+            label = f"{tag} {bin_label(bb)}"
+            C = plan.num_cols
+            # T9, stats: per entry e, q, tq gathered; per column its id,
+            # ptab's mu/sig and the two sums written
+            add("tp_ovb_stats", label, nothing,
+                twin(ko.tp_ovb_stats, ko.tp_ovb_stats_plain, plan, D_loc, e,
+                     qt, sh["ptab"]),
+                bin_stats_cost(bb, 3, 5, 15) if timed else None)
+
+            def v_blend(variant, inp, plan=plan, i=i, sh=sh):
+                fn = (ko.tp_ovb_blend if variant == "kernel"
+                      else ko.tp_ovb_blend_plain)
+                ptab, mu, sig, nmu, nsig, tv, bad = inp
+                fn(plan, sh["D_loc"], sh["sums"][i], ptab, mu, sig, nmu,
+                   nsig, s["sv"], s["alpha"], sh["rho_v"], tv, bad)
+                return list(inp)
+
+            # (the blend twins pick the real columns by a mask, which
+            # synchronises: timed host-paced)
+            # T9, blend: a column reads its id, cnt, col_count, group, two
+            # sums, ptab's mu/sig, rho, eta1, eta2 and tv_add, and writes
+            # the four tables, three deltas and tv_add; sigma_v [G] once
+            add("tp_ovb_blend", label,
+                lambda sh=sh: _clones(sh, "ptab", "mu", "sig", "nmu",
+                                      "nsig") + (
+                    torch.zeros(sh["D_loc"], device=dev), _bad(dev)),
+                v_blend, cost(C * 20 * 4 + G * 4, C * 25, plain_graph=False)
+                if timed else None)
+
+            def w_stats(variant, inp, bb=bb, sh=sh):
+                fn = (kw.tp_w_ovb_stats if variant == "kernel"
+                      else kw.tp_w_ovb_stats_plain)
+                (acc,) = inp
+                fn(bb, e, sh["mu_w"], acc, sh["D_loc"])
+                return [acc]
+
+            def w_blend(variant, inp, bb=bb, i=i, sh=sh):
+                fn = (kw.tp_w_ovb_blend if variant == "kernel"
+                      else kw.tp_w_ovb_blend_plain)
+                mu_w, sig_w, nmu_w, nsig_w, t_wj, dtab, bad = inp
+                fn(bb, sh["w_acc"][i], sh["D_loc"], mu_w, sig_w,
+                   s["sigma_w"], s["alpha"], dtab, bad,
+                   (nmu_w, nsig_w, sh["rho_w"], t_wj))
+                return list(inp)
+
+            # T10, stats: per entry e; per column its id, mu_w and the sum
+            add("tp_w_ovb_stats", label,
+                lambda sh=sh: (torch.zeros(sh["D_loc"], device=dev),),
+                w_stats, bin_stats_cost(bb, 1, 3, 4, plain_graph=False)
+                if timed else None)
+            # T10, blend: a column reads its id, group, sx2, cnt,
+            # col_count, acc, mu, sig, rho, eta1, eta2 and t_wj, and writes
+            # eta1, eta2, t_wj, mu, sig and its two deltas; sigma_w [G] once
+            add("tp_w_ovb_blend", label,
+                lambda sh=sh: _clones(sh, "mu_w", "sig_w", "nmu_w", "nsig_w",
+                                      "t_wj") + (
+                    torch.zeros(sh["D_loc"], 2, device=dev), _bad(dev)),
+                w_blend, cost(C * 19 * 4 + G * 4, C * 20, plain_graph=False)
+                if timed else None)
+        add("tp_patch_delta", f"{tag} F=1 ovb-chunk bin 0", nothing,
+            twin(kv.tp_patch_delta, kv.tp_patch_delta_plain,
+                 sh["ptab_patch"], 1, False, ids, vals, qt, lo, D_loc),
+            cost(N * P * 8 + D_loc * 5 * 4 + N * 3 * 4 + N * 5 * 4,
+                 n_in * 20) if timed else None)
+        add("tp_patch_delta", f"{tag} F=0 ovb-chunk bin 0", nothing,
+            twin(kv.tp_patch_delta, kv.tp_patch_delta_plain, sh["dtab"], 0,
+                 True, ids, vals, None, lo, D_loc), None)
 
 
 def tp_mcmc_cases(add, s: dict, sh: dict, every, bins, C: int, bucket_cost,
@@ -2912,7 +3191,8 @@ def ragged_tensors(device) -> list:
             *ragged_w_tensors(device), *ragged_win_tensors(device),
             *ragged_mwin_tensors(device), ragged_probit_tensors(device),
             serve_tensors(device, ragged=True),
-            *(ragged_tp_tensors(device, K) for K in (3, 5))]
+            *(ragged_tp_tensors(device, K) for K in (3, 5)),
+            ragged_tp_ovb_tensors(device)]
 
 
 def ragged_tp_tensors(device, K: int) -> dict:
@@ -5243,6 +5523,173 @@ def tp_mcmc_phases(build, card, dev, train, test, meta, base_cfg,
     return l_als, l_mcmc, l_class
 
 
+def tp_ovb_rank_child(rank: int, store: str, out: str) -> None:
+    """One of the [tp-ovb-ranks] phase's gloo ranks on the card: the
+    feature-sharded OVB on a (2, 2) mesh, TP_OVB_RANKS_EPOCHS epochs of the
+    100k-row recipe from the seed's init; rank 0 writes the history and
+    the launch counts to ``out`` (JSON)."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh2d
+
+    distributed_init(init_method=f"file://{store}", world_size=TP_RANKS,
+                     rank=rank, backend="gloo", device="cuda")
+    tp = tp_ovb_ranks_learner(make_mesh2d(n_data=2, n_feature=2,
+                                          device="cuda"))
+    state = tp.init_state()
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    _, hist = tp.run(state, num_iter=TP_OVB_RANKS_EPOCHS, verbose=False)
+    torch.cuda.synchronize()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(dict(hist=[{k: h[k] for k in (
+                "rmse", "mae", "free_energy", "time_learn", "iter")}
+                for h in hist], launches=dict(build.launch_counts),
+                device=str(tp.device), mesh=list(tp.mesh.shape)), f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_ovb_ranks_learner(mesh):
+    """The [tp-ovb-ranks] recipe's feature-sharded OVB on ``mesh``: 100k
+    rows of the ML-1M recipe, K = 8, TP_OVB_RANKS_CHUNKS chunks."""
+    from svbfm_tpu_torch.parallel.tp_ovb import TPOVBLearner
+
+    tr1, _, train1, test1, meta1 = ml_data(TP_RANKS_ROWS)
+    cfg = dataclasses.replace(tp_ranks_cfg(tr1, meta1),
+                              num_batches=TP_OVB_RANKS_CHUNKS)
+    return TPOVBLearner(cfg, train1, test1, meta1, mesh=mesh)
+
+
+def table_gap(a, b, names, D: int) -> float:
+    """The largest difference between the tables ``names`` of states a and
+    b over their first D columns, each relative to the larger of 1 and its
+    table's largest magnitude in b."""
+    worst = 0.0
+    for k in names:
+        x = getattr(a, k)[..., :D].double().cpu()
+        y = getattr(b, k)[..., :D].double().cpu()
+        worst = max(worst, float((x - y).abs().max())
+                    / max(1.0, float(y.abs().max())))
+    return worst
+
+
+def tp_ovb_phases(build, card, dev, train, test, meta, base_cfg, ho,
+                  ostate, ovb_sec: str) -> tuple:
+    """[tp-ovb] (the feature-sharded OVB on NCCL with a world of one at
+    ML-1M's width, K = 20, 20 chunks of fixed membership, as many epochs
+    as [ovb] ran, beside [ovb]'s resident run from the same init: the
+    trajectory and the ten tables within TRAJ_RTOL; card against CPU on
+    the 100k-row recipe; sec/epoch beside [ovb]'s), [tp-ovb-profile] (an
+    epoch's device time, busy share and ops; [ovb-profile] gives the
+    resident's) and [tp-ovb-ranks] (four gloo ranks on the card, a (2, 2)
+    mesh, beside the world of one).  Returns the launch counts of the
+    driven runs and the device µs of the profiled epoch."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_ovb import SHARDED_TABLES, TPOVBLearner
+
+    t0 = time.perf_counter()
+    work = ooc_work("tp-ovb")
+    distributed_init(init_method=f"file://{os.path.join(work, 'store')}",
+                     world_size=1, rank=0, backend="nccl", device="cuda")
+    mesh = make_mesh2d(device="cuda")
+    tp = TPOVBLearner(FMConfig(num_batches=OVB_CHUNKS, **base_cfg), train,
+                      test, meta, mesh=mesh)
+    (tstate, ht), l_tpo = drive(build, "tp-ovb", lambda: tp.run(
+        tp.init_state(), num_iter=len(ho), verbose=False))
+    check_history(ht, "tp-ovb", ("rmse", "mae", "free_energy"), False)
+    bad = {k: v for h in ht for k, v in h.items()
+           if k.startswith(("nan_", "inf_")) and v}
+    if bad:
+        raise AssertionError(f"tp-ovb: non-finite candidates {bad}")
+    worst = compare_traj(ht, ho, ("rmse", "mae", "free_energy"), TRAJ_RTOL,
+                         "tp-ovb vs resident ovb")
+    tab = table_gap(tp.global_state(tstate), ostate, SHARDED_TABLES,
+                    meta.num_attributes)
+    if tab > TRAJ_RTOL:
+        raise AssertionError(f"tp-ovb: the tables {tab:.3e} (of each "
+                             f"table's scale) from the resident's")
+    # card against CPU on the 100k-row recipe, [ovb-gpu-vs-cpu]'s
+    tr1, _, train1, test1, meta1 = ml_data(100_000)
+    cfg1 = FMConfig(num_attributes=tr1.num_features, num_factor=8,
+                    min_target=float(tr1.target.min()),
+                    max_target=float(tr1.target.max()),
+                    num_groups=meta1.num_attr_groups, seed=SEED,
+                    num_batches=10)
+    hists = []
+    for m in (mesh, make_mesh2d(device="cpu")):
+        lr = TPOVBLearner(cfg1, train1, test1, meta1, mesh=m)
+        hists.append(lr.run(lr.init_state(), num_iter=2, verbose=False)[1])
+    worst_cpu = compare_traj(*hists, ("rmse", "mae", "free_energy"),
+                             OVB_TRAJ_RTOL, "tp-ovb gpu vs cpu")
+    del lr
+    sec = statistics.median(h["time_learn"] for h in ht[1:])
+    say("tp-ovb", t0, backend=dist.get_backend(),
+        world=dist.get_world_size(), mesh="1x1", epochs=len(ht),
+        chunks=OVB_CHUNKS, sec_per_epoch=f"{sec:.6f}",
+        resident_sec_per_epoch=ovb_sec,
+        rmse=",".join(f"{h['rmse']:.5f}" for h in ht),
+        fe_last=f"{ht[-1]['free_energy']:.2f}", max_rel=f"{worst:.3e}",
+        tables_max_rel=f"{tab:.3e}", rtol=TRAJ_RTOL,
+        gpu_vs_cpu_rows=tr1.num_rows, gpu_vs_cpu_max_rel=f"{worst_cpu:.3e}",
+        cpu_rtol=OVB_TRAJ_RTOL,
+        launches_per_epoch=json.dumps({k: l_tpo[k] // len(ht)
+                                       for k in TP_OVB_KERNELS},
+                                      separators=(",", ":")),
+        card=repr(card))
+    us = profile_run(lambda: tp.run(tstate, num_iter=1, verbose=False), 1,
+                     "epoch", "tp-ovb-profile", focus=("tp_",))
+    del tp, tstate
+
+    # four gloo ranks on the one card beside the world of one, one seed
+    t0 = time.perf_counter()
+    one = tp_ovb_ranks_learner(mesh)
+    _, h1 = one.run(num_iter=TP_OVB_RANKS_EPOCHS, verbose=False)
+    dist.destroy_process_group()
+    del one
+    rwork = ooc_work("tp-ovb-ranks")
+    out = os.path.join(rwork, "rank0.json")
+    ctx = mp.start_processes(tp_ovb_rank_child, args=(
+        os.path.join(rwork, "store"), out), nprocs=TP_RANKS, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + TP_RANKS_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"tp-ovb-ranks: the ranks ran past "
+                                     f"{TP_RANKS_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    with open(out) as f:
+        got = json.load(f)
+    missing = [k for k in TP_OVB_KERNELS if got["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"tp-ovb-ranks: kernels never launched: "
+                             f"{missing}")
+    worst = compare_traj(got["hist"], h1, ("rmse", "mae", "free_energy"),
+                         TP_RTOL, "tp-ovb-ranks vs the world of one")
+    say("tp-ovb-ranks", t0, ranks=TP_RANKS, backend="gloo",
+        mesh="x".join(map(str, got["mesh"])), device=got["device"],
+        K=TP_RANKS_K, chunks=TP_OVB_RANKS_CHUNKS, epochs=len(got["hist"]),
+        sec_per_epoch=",".join(f"{h['time_learn']:.6f}"
+                               for h in got["hist"]),
+        rmse=",".join(f"{h['rmse']:.5f}" for h in got["hist"]),
+        max_rel=f"{worst:.3e}", rtol=TP_RTOL,
+        launches=json.dumps({k: got["launches"][k]
+                             for k in TP_OVB_KERNELS},
+                            separators=(",", ":")))
+    return (l_tpo,), us
+
+
 def ooc_work(name: str) -> str:
     """A fresh folder under the git-ignored build/ for a phase's files."""
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -5833,6 +6280,7 @@ def main() -> int:
         check_cases(win_tensors(win, win0, "vb-windowed"), timed=True),
         check_cases(mwin_tensors(mwin, mwin1, "mcmc-windowed"), timed=True),
         check_cases(tp_tensors(learner, vb0), timed=True),
+        check_cases(tp_ovb_tensors(ovb, ovb0), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
     del mc1, bs1, win, win0, mwin, mwin1
     missing = sorted(set(SOURCES) - set(report))
@@ -5960,6 +6408,10 @@ def main() -> int:
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         launches=json.dumps(l_ovb, separators=(",", ":")))
 
+    # ---- 9b. the feature-sharded online VB (T9, T10 with T1, T2, T4) -------
+    l_tpo, tpo_us = tp_ovb_phases(build, card, dev, train, test, meta,
+                                  base_cfg, ho, ostate, ovb_ref["sec"])
+
     # ---- 10. online VB, GPU kernels vs CPU twins (100k-row recipe) -----------
     t0 = time.perf_counter()
     tr1, _, train1, test1, meta1 = ml_data(100_000)
@@ -6019,8 +6471,12 @@ def main() -> int:
         ("mcmc", ["-num_eval_cases", "500"], (), {})])
 
     # ---- 13. where an online-VB epoch's device time goes --------------------
-    profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False), 1,
-                "epoch", "ovb-profile", focus=("w_bin_kernel",))
+    t0 = time.perf_counter()
+    res_us = profile_run(lambda: ovb.run(ostate, num_iter=1, verbose=False),
+                         1, "epoch", "ovb-profile", focus=("w_bin_kernel",))
+    say("tp-ovb-device", t0, device_ms_per_epoch=f"{tpo_us / 1e3:.3f}",
+        resident_device_ms_per_epoch=f"{res_us / 1e3:.3f}",
+        ratio=f"{tpo_us / res_us:.3f}", card=repr(card))
 
     # ---- 14. Gibbs MCMC, factor_block=0 (F = K), on the card --------------
     t0 = time.perf_counter()
@@ -6160,8 +6616,8 @@ def main() -> int:
     l_ooc = ooc_phases(build, card, dev, tr, te, train, test, meta, base_cfg,
                        plan, ovb_ref, online_sec)
 
-    runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, *l_tpm, l_ovb, l_mcmc,
-            *l_als, l_probe, l_sgd,
+    runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, *l_tpm, l_ovb, *l_tpo,
+            l_mcmc, *l_als, l_probe, l_sgd,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
             l_bs_nine, l_bs_k64, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}

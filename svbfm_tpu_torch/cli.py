@@ -26,9 +26,11 @@ streams the reference's per-iteration RLog columns; ``-map_eval FIXTURE``
 vb_online iterations under ``-task c`` and prints the final ``MAP@k``;
 ``-profile DIR`` writes a ``torch.profiler`` Chrome trace of the training
 run to DIR/trace.json.  ``-feature_shards S`` trains batch VB (fast mode,
-regression; ``parallel/tp_vb.py``) or Gibbs MCMC and ALS (regression and
-``-task c``; ``parallel/tp_mcmc.py``) with the tables sharded over S ranks
-of a (data, feature) mesh of every rank, and ``-distributed 1`` joins
+regression; ``parallel/tp_vb.py``), online VB (in memory, fixed chunk
+membership, regression; ``parallel/tp_ovb.py``) or Gibbs MCMC and ALS
+(regression and ``-task c``; ``parallel/tp_mcmc.py``) with the tables
+sharded over S ranks of a (data, feature) mesh of every rank, and
+``-distributed 1`` joins
 the ranks' process group from ``SVBFM_COORDINATOR``,
 ``SVBFM_NUM_PROCESSES`` and ``SVBFM_PROCESS_ID`` (NCCL on ``cuda``, gloo
 on ``cpu``; several ranks of vb without ``-feature_shards`` shard the
@@ -112,12 +114,12 @@ Flags (-name value):
   -map_k       k of MAP@k; default=5
   -profile     directory for a torch.profiler trace (trace.json) of the
                training run
-  -feature_shards  vb, mcmc, als: shard the tables over this many ranks
-               (vb: fast mode, -task r); must divide the world size;
-               default=1
+  -feature_shards  vb, vb_online, mcmc, als: shard the tables over this
+               many ranks (vb: fast mode, -task r; vb_online: -task r,
+               in memory); must divide the world size; default=1
   -distributed 1 = join the process group of SVBFM_COORDINATOR,
-               SVBFM_NUM_PROCESSES, SVBFM_PROCESS_ID (vb, mcmc, als);
-               default=0
+               SVBFM_NUM_PROCESSES, SVBFM_PROCESS_ID (vb, vb_online, mcmc,
+               als); default=0
   -verbosity   how much to print; default=0
   -device      torch device to train on; default=cuda (cpu runs the
                kernels' plain PyTorch twins)
@@ -154,7 +156,7 @@ FLAG_METHODS = {
 
 _Q1 = "ROADMAP.md queue 1"
 # the methods that run feature-sharded or on several ranks
-TP_METHODS = ("vb", "mcmc", "als")
+TP_METHODS = ("vb", "vb_online", "mcmc", "als")
 METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 # the methods that read -task p (svbfm_tpu/learners/sgd.py:87-100)
 POISSON_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd_stoc")
@@ -285,9 +287,12 @@ def main(argv: Optional[list[str]] = None) -> int:
     distributed = cmd.get_int("distributed", 0) != 0
     for name in ("feature_shards", "distributed"):
         if cmd.has(name) and method not in TP_METHODS:
-            raise SystemExit(f"-{name} runs -method vb, mcmc and als alone so "
-                             f"far; for -method {method} it is not ported "
-                             f"({_Q1}, item 13)")
+            # sgd's feature-sharded learner and the other methods'
+            # data-parallel replicas are still to port
+            item = "13.3" if method == "sgd" else "13.4"
+            raise SystemExit(f"-{name} runs -method vb, vb_online, mcmc and "
+                             f"als alone so far; for -method {method} it is "
+                             f"not ported ({_Q1}, item {item})")
     if fs > 1 and cmd.has("relation"):  # svbfm_tpu/cli.py:356-358
         raise SystemExit("-feature_shards is not supported with -relation "
                          "block structure")
@@ -332,6 +337,25 @@ def main(argv: Optional[list[str]] = None) -> int:
                              "sharded VB (fast mode)")
         if method == "vb" and task_s != "r":
             raise SystemExit("the feature-sharded VB runs -task r alone")
+        if method == "vb_online":  # svbfm_tpu/parallel/tp_ovb.py:504-512
+            if task_s != "r":
+                raise SystemExit("the feature-sharded OVB runs -task r "
+                                 "alone")
+            if cmd.get_int("factor_block", 0) not in (0, 1):
+                raise SystemExit("-factor_block is read by the feature-"
+                                 "sharded OVB as 0 or 1 alone (the "
+                                 "factor-sequential sweep)")
+            for name, bad in (("reshuffle", cmd.get_int("reshuffle") == 1),
+                              ("checkpoint", cmd.has("checkpoint"))):
+                if bad:
+                    raise SystemExit(f"-{name} is not read by the feature-"
+                                     "sharded OVB (fixed chunk membership, "
+                                     "no checkpoints)")
+            from svbfm_tpu_torch.data.binary import has_binary
+            if has_binary(cmd.get_str("train")):  # svbfm_tpu/cli.py:429-432
+                raise SystemExit("-feature_shards with out-of-core "
+                                 "vb_online streaming is not supported; "
+                                 "load the train set in memory")
         if fs < 1 or world % fs:
             raise SystemExit(f"-feature_shards {fs} does not divide the "
                              f"world size {world}")
@@ -506,6 +530,12 @@ def main(argv: Optional[list[str]] = None) -> int:
         from svbfm_tpu_torch.learners.vb import VBLearner
         learner = VBLearner(cfg, tr_ds, te_ds, meta, device=device, bins=bins,
                             num_eval_cases=nec)
+    elif method == "vb_online" and tp:
+        from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+        from svbfm_tpu_torch.parallel.tp_ovb import TPOVBLearner
+        learner = TPOVBLearner(cfg, tr_ds, te_ds, meta,
+                               mesh=make_mesh2d(n_feature=fs, device=device),
+                               bins=bins, write_files=True)
     elif method == "vb_online":
         from svbfm_tpu_torch.learners.vb_online import OVBLearner
         if defer_train:
@@ -546,7 +576,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     init_state = learner.init_state()
     if tp:
         g = learner.global_state(init_state)
-        v0 = (g.mu_v if method == "vb" else g.v)[:, :D]
+        v0 = (g.mu_v if method in ("vb", "vb_online") else g.v)[:, :D]
     else:
         v0 = (init_state.mu_v if method in ("vb", "vb_online")
               else init_state.v)

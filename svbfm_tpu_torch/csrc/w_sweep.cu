@@ -2,8 +2,8 @@
 // and online VB; X8c, the w draw of Gibbs MCMC and ALS; and K5's gradient
 // mode, the w column step of the full-batch exp_sgd (X9d).  Every degree
 // bucket of one conflict-free bin in one launch.  T3 at K = 0, the
-// feature-sharded w sweep's stats and update launches, and T5, its Gibbs/ALS
-// draw, are at the end.
+// feature-sharded w sweep's stats and update launches, T5, its Gibbs/ALS
+// draw, and T10, its online-VB stats and blend, are at the end.
 //
 // Replaces svbfm_tpu/learners/vb.py:vb_w_bin_update (vb.py:125-148) and its
 // OVB twin vb_online.py:230-269: per [C, L] degree bucket, the column
@@ -366,7 +366,12 @@ int launch_win(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
 // feature-sharded Gibbs/ALS from acc, mode MCMC's (X8c's) draw with the
 // z table's number at the column's local id, w_new - w_old into the
 // delta table as X8c writes it; its stats launch is kStats unchanged.
-template <bool kStats, bool kMCMC = false>
+// T10 (kOVB, svbfm_tpu/parallel/tp_ovb.py:204-244): the feature-sharded
+// OVB's w sweep.  kStats sums x (e + x mu_c) as K5's OVB mode does, in its
+// lanes and order, so that at a world of one the sums are K5's; !kStats
+// is K5's OVB blend (rate rho_w, chunk counts cnt and col_count, the
+// naturals, t_wj) from acc, the column's head lane alone working.
+template <bool kStats, bool kMCMC = false, bool kOVB = false>
 __global__ void __launch_bounds__(kThreads)
     tp_w_kernel(const __grid_constant__ Plan p,
                 const __grid_constant__ WArgs a, float* __restrict__ acc,
@@ -390,8 +395,17 @@ __global__ void __launch_bounds__(kThreads)
       const int L = bk.L;
       const int* __restrict__ crow = bk.rows + c * L;
       const float* __restrict__ cx = bk.x + c * L;
-      for (int l = li; l < L; l += U)
-        s += __ldg(cx + l) * __ldg(a.e + __ldg(crow + l));
+      if constexpr (kOVB) {
+        const float mu_c = a.mu_w[col];
+        for (int l = li; l < L; l += U) {
+          const float xv = __ldg(cx + l);
+          const float ev = __ldg(a.e + __ldg(crow + l));
+          s += xv * (ev + xv * mu_c);
+        }
+      } else {
+        for (int l = li; l < L; l += U)
+          s += __ldg(cx + l) * __ldg(a.e + __ldg(crow + l));
+      }
     }
     for (int o = U >> 1; o > 0; o >>= 1)
       s += __shfl_xor_sync(svbfm::kFullMask, s, o);
@@ -413,6 +427,42 @@ __global__ void __launch_bounds__(kThreads)
     a.mu_w[col] = w_new;
     a.dtab[2 * col] = w_new - w_c;
     a.dtab[2 * col + 1] = 0.f;
+  } else if constexpr (kOVB) {  // K5's OVB blend from the summed acc
+    if (!real || li != 0) return;
+    float* drow = a.dtab + 2 * col;
+    const float n = __ldg(bk.cnt + c);
+    if (!(n > 0.f)) {
+      drow[0] = 0.f;
+      drow[1] = 0.f;
+      return;
+    }
+    const int g = __ldg(bk.group + c);
+    const float sxx = __ldg(bk.sx2 + c);
+    const float cc = __ldg(bk.col_count + c);
+    const float alpha = *a.alpha;
+    const float mu_c = a.mu_w[col], sig_c = a.sig_w[col];
+    const float rho = a.rho_w[col], nmu = a.nmu_w[col];
+    const float nsig = a.nsig_w[col];
+    const float cnt1 = fmaxf(n, 1.f);
+    const float nsig_new =
+        (1.f - rho) * nsig + rho * (a.sigma_w[g] + alpha * cc * (sxx / cnt1));
+    const float nmu_new =
+        (1.f - rho) * nmu + rho * cc * alpha * (acc[col] / cnt1);
+    const float mu_cand = nmu_new / nsig_new;
+    const float sig_cand = 1.f / nsig_new;
+    const float mu_new = isfinite(mu_cand) ? mu_cand : mu_c;
+    const float sig_new = isfinite(sig_cand) ? sig_cand : sig_c;
+    a.nmu_w[col] = nmu_new;
+    a.nsig_w[col] = nsig_new;
+    a.t_wj[col] = a.t_wj[col] + n;
+    a.mu_w[col] = mu_new;
+    a.sig_w[col] = sig_new;
+    drow[0] = mu_c - mu_new;
+    drow[1] = sig_new - sig_c;
+    if (isnan(mu_cand)) atomicAdd(&a.bad[0], 1);
+    if (isinf(mu_cand)) atomicAdd(&a.bad[1], 1);
+    if (isnan(sig_cand)) atomicAdd(&a.bad[2], 1);
+    if (isinf(sig_cand)) atomicAdd(&a.bad[3], 1);
   } else {
     if (!real || li != 0) return;
     const int g = __ldg(bk.group + c);
@@ -435,13 +485,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kStats, bool kMCMC = false>
+template <bool kStats, bool kMCMC = false, bool kOVB = false>
 int launch_tp(const int64_t* plan, int nb, int64_t blocks, const WArgs& a,
               float* acc, int D_loc, cudaStream_t stream) {
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   if (nb > kMaxBuckets) return static_cast<int>(cudaErrorInvalidValue);
-  tp_w_kernel<kStats, kMCMC><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               stream>>>(make_plan(plan, nb), a, acc, D_loc);
+  tp_w_kernel<kStats, kMCMC, kOVB><<<static_cast<unsigned>(blocks), kThreads,
+                                     0, stream>>>(make_plan(plan, nb), a, acc,
+                                                  D_loc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -573,4 +624,38 @@ SVBFM_EXPORT int svbfm_tp_w_draw(const int64_t* plan, int nb, int64_t blocks,
                 bad,     0.f,     0.f,     1.f};
   return launch_tp<false, true>(plan, nb, blocks, a, const_cast<float*>(acc),
                                 D_loc, stream);
+}
+
+// T10, stats: acc [D_loc] at the local ids of one bin's columns = their
+// sum x (e + x mu_w[col]) over this data shard's rows e [N], K5's OVB sum
+// (padding columns, local id D_loc, skipped).
+SVBFM_EXPORT int svbfm_tp_w_ovb_stats(const int64_t* plan, int nb,
+                                      int64_t blocks, const float* e,
+                                      const float* mu_w, float* acc,
+                                      int D_loc, cudaStream_t stream) {
+  const WArgs a{e,       const_cast<float*>(mu_w), nullptr, nullptr,
+                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, nullptr, nullptr, 0.f,     0.f,     1.f};
+  return launch_tp<true, false, true>(plan, nb, blocks, a, acc, D_loc,
+                                      stream);
+}
+
+// T10, blend: K5's OVB blend at one bin's columns from acc [D_loc] (their
+// sums, summed over the data shards), reading the plan's group, sx2, cnt
+// and col_count: writes mu_w/sig_w/nmu_w/nsig_w [D_loc], t_wj += cnt,
+// dtab [D_loc, 2] and bad[4] as svbfm_w_col_update's OVB mode does.
+SVBFM_EXPORT int svbfm_tp_w_ovb_blend(const int64_t* plan, int nb,
+                                      int64_t blocks, const float* acc,
+                                      int D_loc, float* mu_w, float* sig_w,
+                                      const float* sigma_w,
+                                      const float* alpha, float* dtab,
+                                      int* bad, float* nmu_w, float* nsig_w,
+                                      const float* rho_w, float* t_wj,
+                                      cudaStream_t stream) {
+  const WArgs a{nullptr, mu_w,  sig_w, sigma_w, nullptr, alpha,
+                nullptr, nmu_w, nsig_w, rho_w,  t_wj,    dtab,
+                bad,     0.f,   0.f,   1.f};
+  return launch_tp<false, false, true>(plan, nb, blocks, a,
+                                       const_cast<float*>(acc), D_loc,
+                                       stream);
 }

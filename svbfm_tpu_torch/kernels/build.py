@@ -43,8 +43,9 @@ LIBRARIES = {
                  "tp_patch_delta", "tp_build_q"),
     "w_sweep": ("w_col_update", "mcmc_w_draw", "w_grad_step",
                 "w_col_window", "mcmc_w_window", "tp_w_stats",
-                "tp_w_update", "tp_w_draw"),
-    "ovb_sweep": ("ovb_col_stats_update",),
+                "tp_w_update", "tp_w_draw", "tp_w_ovb_stats",
+                "tp_w_ovb_blend"),
+    "ovb_sweep": ("ovb_col_stats_update", "tp_ovb_stats", "tp_ovb_blend"),
     "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows", "mcmc_col_grad",
                    "mcmc_col_draw_window", "tp_col_draw_stats", "tp_col_draw",
                    "tp_mcmc_patch_delta"),
@@ -137,6 +138,13 @@ SIGNATURES = {
                           _I, _P, _P, _P),
     "svbfm_tp_mcmc_patch_delta": (_P, _I, _L, _I, _P, _P, _L, _I, _P, _P,
                                   _P),
+    # T9 and T10, the feature-sharded online VB (parallel/tp_ovb.py)
+    "svbfm_tp_ovb_stats": (_P, _I, _L, _P, _P, _P, _P, _L, _P),
+    "svbfm_tp_ovb_blend": (_P, _I, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P),
+    "svbfm_tp_w_ovb_stats": (_P, _I, _L, _P, _P, _P, _I, _P),
+    "svbfm_tp_w_ovb_blend": (_P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P),
     "svbfm_probit_eval": (_P, _P, _P, _L, _P, _P, _I, _F, _I, _P, _P, _P),
 }
 

@@ -17,6 +17,16 @@ the plan's order.
 
 Replaces the bucket body of ``svbfm_tpu/learners/vb_online.py:ovb_v_block``
 (:512-559) and of its F = 1 flat form ``ovb_v_factor`` (:598).
+
+``tp_ovb_stats`` and ``tp_ovb_blend`` (T9) split K6 around the
+feature-sharded OVB's data all-reduce (``parallel/tp_ovb.py``, F = 1, the
+factor-sequential v sweep): the bin's per-column sums (v_mean, v_sig
+before the division by cnt) over the data shard's rows into one
+[C_bin, 2] buffer, each bucket's columns at its offset, q and tq read from
+T2's qt [N, 3]; then, from the all-reduced sums, K6's ending step at the
+bin's columns, reading no rows.  Padding columns (local id D_loc) get zero
+sums and are not updated.  Replaces ``svbfm_tpu/parallel/tp_ovb.py:
+tp_ovb_chunk_update``'s v bucket body (:290-338).
 """
 
 from __future__ import annotations
@@ -24,18 +34,17 @@ from __future__ import annotations
 import torch
 
 from svbfm_tpu_torch.kernels import build
-from svbfm_tpu_torch.kernels.w_sweep import count_candidates
+from svbfm_tpu_torch.kernels.w_sweep import _real, count_candidates
 from svbfm_tpu_torch.learners.base import keep_finite
 
 _I32, _F32 = torch.int32, torch.float32
 
 
-def ovb_col_stats_update_plain(rows, x, cols, group, cnt, col_count, e, q, tq,
-                               ptab, mu_t, sig_t, nmu_t, nsig_t, sv, alpha,
-                               rho_v, tv_add, bad) -> None:
+def _v_sums(rows, x, cols, e, q, tq, ptab, F: int):
+    """K6's per-column sums of a [C, L] bucket before the division by cnt:
+    (sum x h (e + x mu h), sum x^2 h h + x^2 h1), each [C, F], from the
+    pre-bin mu/sig in channels 0..2F-1 of ``ptab``."""
     C, L = rows.shape
-    F = mu_t.shape[1]
-    cl = cols.long()
     prow = ptab.index_select(0, cols)
     mu_c, sig_c = prow[:, :F], prow[:, F:2 * F]
     ridx = rows.reshape(-1)
@@ -47,17 +56,39 @@ def ovb_col_stats_update_plain(rows, x, cols, group, cnt, col_count, e, q, tq,
     mu_b = mu_c[:, None, :]
     h = q_g - xb * mu_b
     h1 = tq_g - x2 * sig_c[:, None, :]
+    return ((xb * h * (e_g + xb * mu_b * h)).sum(1),
+            (x2 * h * h + x2 * h1).sum(1))
+
+
+def ovb_col_stats_update_plain(rows, x, cols, group, cnt, col_count, e, q, tq,
+                               ptab, mu_t, sig_t, nmu_t, nsig_t, sv, alpha,
+                               rho_v, tv_add, bad) -> None:
+    F = mu_t.shape[1]
+    vm, vs = _v_sums(rows, x, cols, e, q, tq, ptab, F)
+    _v_blend(vm, vs, cols, group, cnt, col_count, ptab, mu_t, sig_t, nmu_t,
+             nsig_t, sv, alpha, rho_v, tv_add, bad)
+
+
+def _v_blend(vm, vs, cols, group, cnt, col_count, ptab, mu_t, sig_t, nmu_t,
+             nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
+    """K6's ending step at ``cols`` from their sums ``vm``/``vs`` [C, F]:
+    the division by max(cnt, 1), the blend, the four tables, ptab's deltas,
+    ``tv_add`` (None: not counted) and ``bad``, in place."""
+    F = mu_t.shape[1]
+    cl = cols.long()
+    prow = ptab.index_select(0, cols)
+    mu_c, sig_c = prow[:, :F], prow[:, F:2 * F]
     active = (cnt > 0)[:, None]
     cnt1 = torch.clamp(cnt, min=1.0)[:, None]
-    v_mean = (xb * h * (e_g + xb * mu_b * h)).sum(1) / cnt1
-    v_sig = (x2 * h * h + x2 * h1).sum(1) / cnt1
+    v_mean = vm / cnt1
+    v_sig = vs / cnt1
     rho = rho_v[cl][:, None]
     cc = col_count[:, None]
     nmu_c, nsig_c = nmu_t[cl], nsig_t[cl]
     nsig_new = (1.0 - rho) * nsig_c + rho * (sv.index_select(0, group)
                                              + alpha * cc * v_sig)
     nmu_new = (1.0 - rho) * nmu_c + rho * cc * alpha * v_mean
-    zero = torch.zeros((), dtype=_F32, device=e.device)
+    zero = torch.zeros((), dtype=_F32, device=vm.device)
     mu_cand, sig_cand = nmu_new / nsig_new, 1.0 / nsig_new
     count_candidates(bad, torch.where(active, mu_cand, zero),
                      torch.where(active, sig_cand, zero))
@@ -70,7 +101,8 @@ def ovb_col_stats_update_plain(rows, x, cols, group, cnt, col_count, e, q, tq,
     ptab[cl, 2 * F:3 * F] = mu_new - mu_c
     ptab[cl, 3 * F:4 * F] = sig_new - sig_c
     ptab[cl, 4 * F:5 * F] = mu_new * mu_new - mu_c * mu_c
-    tv_add.index_add_(0, cols, torch.where(active[:, 0], cnt, zero))
+    if tv_add is not None:
+        tv_add.index_add_(0, cols, torch.where(active[:, 0], cnt, zero))
 
 
 # the kernel's threads a block and plan columns (csrc/ovb_sweep.cu)
@@ -142,6 +174,16 @@ class BinPlan:
             self._blocks[F] = n
         return n
 
+    @property
+    def num_cols(self) -> int:
+        """C_bin, the bin's columns: the rows of T9's sums."""
+        return sum(C for *_, C, _L in self.rows)
+
+    def blend_blocks(self) -> int:
+        """T9's blend launch's blocks: a thread a column, each bucket's
+        ceil(C / 256) laid end to end."""
+        return sum(-(-C // _THREADS) for *_, C, _L in self.rows)
+
 
 def ovb_bin_update_plain(plan: BinPlan, e, q, tq, ptab, mu_t, sig_t, nmu_t,
                          nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
@@ -189,3 +231,107 @@ def ovb_col_stats_update(plan: BinPlan, e, q, tq, ptab, mu_t, sig_t, nmu_t,
             build.ptr(sv), build.ptr(alpha), build.ptr(rho_v),
             build.ptr(tv_add), build.ptr(bad), build.stream_of(e))
     build.check_launch(lib, rc, "ovb_col_stats_update")
+
+
+# ---- T9: K6 split around the feature-sharded OVB's data all-reduce ----------
+
+def tp_ovb_stats_plain(plan: BinPlan, D_loc: int, e, qt,
+                       ptab) -> torch.Tensor:
+    """T9's stats twin: the bin's sums [C_bin, 2] = (v_mean, v_sig before
+    the division by cnt) of each bucket's columns over this data shard's
+    rows, the buckets laid end to end; q and tq are columns 0 and 1 of
+    ``qt`` [N, 3]; a padding column's row is zero."""
+    out = []
+    zero = torch.zeros((), dtype=_F32, device=e.device)
+    for b in plan.buckets:
+        real = _real(b, D_loc)
+        cl = torch.where(real, b.cols, torch.zeros_like(b.cols))
+        vm, vs = _v_sums(b.rows, b.x, cl, e, qt[:, :1], qt[:, 1:2], ptab, 1)
+        out.append(torch.where(real[:, None], torch.cat([vm, vs], 1), zero))
+    if not out:
+        return torch.zeros(0, 2, dtype=_F32, device=e.device)
+    return torch.cat(out)
+
+
+def tp_ovb_stats(plan: BinPlan, D_loc: int, e, qt, ptab) -> torch.Tensor:
+    """T9, stats launch: every bucket of the bin in one launch; returns the
+    sums [C_bin, 2] (kernel on CUDA tensors, twin on CPU tensors)."""
+    if build.on_cpu(e):
+        return tp_ovb_stats_plain(plan, D_loc, e, qt, ptab)
+    N = e.shape[0]
+    dev = e.device
+    req = build.require
+    req(e, _F32, (N,), dev, "tp_ovb_stats.e")
+    req(qt, _F32, (N, 3), dev, "tp_ovb_stats.qt")
+    req(ptab, _F32, (D_loc, 5), dev, "tp_ovb_stats.ptab")
+    blocks = plan.blocks(1)
+    if blocks and plan.table.device != dev:
+        raise ValueError(f"tp_ovb_stats.plan: on {plan.table.device}, "
+                         f"expected {dev}")
+    sums = torch.empty(plan.num_cols, 2, dtype=_F32, device=dev)
+    if blocks == 0:
+        return sums
+    lib = build.load_library("ovb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_ovb_stats(
+            build.ptr(plan.table), len(plan.rows), blocks, build.ptr(e),
+            build.ptr(qt), build.ptr(ptab), build.ptr(sums), D_loc,
+            build.stream_of(e))
+    build.check_launch(lib, rc, "tp_ovb_stats")
+    return sums
+
+
+def tp_ovb_blend_plain(plan: BinPlan, D_loc: int, sums, ptab, mu_t, sig_t,
+                       nmu_t, nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
+    """T9's blend twin: K6's ending step at each real column of the bin
+    from its row of the all-reduced ``sums``, in place as K6's twin
+    (``tv_add`` None: not counted)."""
+    at = 0
+    for b in plan.buckets:
+        C = b.cols.shape[0]
+        real = _real(b, D_loc)
+        part = sums[at:at + C][real]
+        at += C
+        _v_blend(part[:, :1], part[:, 1:], b.cols[real], b.group[real],
+                 b.cnt[real], b.col_count[real], ptab, mu_t, sig_t, nmu_t,
+                 nsig_t, sv, alpha, rho_v, tv_add, bad)
+
+
+def tp_ovb_blend(plan: BinPlan, D_loc: int, sums, ptab, mu_t, sig_t, nmu_t,
+                 nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
+    """T9, blend launch (reads ``sums``, no rows), a thread a column; in
+    place on the [D_loc, 1] tables, ptab's deltas, ``tv_add`` (None: not
+    counted) and ``bad``."""
+    if build.on_cpu(sums):
+        return tp_ovb_blend_plain(plan, D_loc, sums, ptab, mu_t, sig_t,
+                                  nmu_t, nsig_t, sv, alpha, rho_v, tv_add,
+                                  bad)
+    dev = sums.device
+    req = build.require
+    req(sums, _F32, (plan.num_cols, 2), dev, "tp_ovb_blend.sums")
+    req(ptab, _F32, (D_loc, 5), dev, "tp_ovb_blend.ptab")
+    for name, a in (("mu_t", mu_t), ("sig_t", sig_t), ("nmu_t", nmu_t),
+                    ("nsig_t", nsig_t)):
+        req(a, _F32, (D_loc, 1), dev, f"tp_ovb_blend.{name}")
+    req(sv, _F32, (sv.shape[0], 1), dev, "tp_ovb_blend.sv")
+    req(alpha, _F32, (), dev, "tp_ovb_blend.alpha")
+    req(rho_v, _F32, (D_loc,), dev, "tp_ovb_blend.rho_v")
+    if tv_add is not None:
+        req(tv_add, _F32, (D_loc,), dev, "tp_ovb_blend.tv_add")
+    req(bad, _I32, (4,), dev, "tp_ovb_blend.bad")
+    blocks = plan.blend_blocks()
+    if blocks and plan.table.device != dev:
+        raise ValueError(f"tp_ovb_blend.plan: on {plan.table.device}, "
+                         f"expected {dev}")
+    if blocks == 0:
+        return
+    lib = build.load_library("ovb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_ovb_blend(
+            build.ptr(plan.table), len(plan.rows), blocks, build.ptr(sums),
+            D_loc, build.ptr(ptab), build.ptr(mu_t), build.ptr(sig_t),
+            build.ptr(nmu_t), build.ptr(nsig_t), build.ptr(sv),
+            build.ptr(alpha), build.ptr(rho_v),
+            None if tv_add is None else build.ptr(tv_add), build.ptr(bad),
+            build.stream_of(sums))
+    build.check_launch(lib, rc, "tp_ovb_blend")

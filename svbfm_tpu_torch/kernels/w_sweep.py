@@ -48,7 +48,11 @@ sums into a [D_loc] accumulator, then the closed form from it
 D_loc) are skipped.  ``tp_w_draw`` (T5) is the update launch's Gibbs/ALS
 mode, the feature-sharded Gibbs w sweep after ``tp_w_stats``: X8c's draw
 from the accumulator, the delta table (w_new - w_old, 0)
-(``svbfm_tpu/parallel/tp_mcmc.py:158-200``).
+(``svbfm_tpu/parallel/tp_mcmc.py:158-200``).  ``tp_w_ovb_stats`` and
+``tp_w_ovb_blend`` (T10) are the two launches' online-VB mode, the
+feature-sharded OVB's w sweep: K5's OVB sums x (e + x mu) into the
+accumulator, then K5's OVB blend from it
+(``svbfm_tpu/parallel/tp_ovb.py:204-244``).
 
 Replaces ``svbfm_tpu/learners/vb.py:vb_w_bin_update`` (:125-148), the w
 column updates of ``svbfm_tpu/learners/vb_online.py:ovb_chunk_update``
@@ -91,20 +95,29 @@ def w_col_update_plain(rows, x, cols, group, sx2, e, mu_w, sig_w, sigma_w,
         _vb_w_close((x * e_g).sum(1), cols, group, sx2, mu_w, sig_w,
                     sigma_w, alpha, dtab, bad)
         return
+    mu_c = mu_w[cols.long()]
+    _ovb_w_close((x * (e_g + x * mu_c[:, None])).sum(1), cols, group, sx2,
+                 mu_w, sig_w, sigma_w, alpha, dtab, bad, ovb)
+
+
+def _ovb_w_close(sxe, cols, group, sx2, mu_w, sig_w, sigma_w, alpha, dtab,
+                 bad, ovb: tuple) -> None:
+    """Online VB's blend of the linear term (vb_online.py:236-269) at
+    ``cols`` from their sums ``sxe`` = sum x (e + x mu), ``ovb`` = (cnt,
+    col_count, n_mu_w, n_sig_w, rho_w, t_wj), in place."""
     cl = cols.long()
     mu_c, sig_c = mu_w[cl], sig_w[cl]
     sw = sigma_w.index_select(0, group)
-    # vb_online.py:236-269
     cnt, col_count, n_mu, n_sig, rho_w, t_wj = ovb
     active = cnt > 0
     cnt1 = torch.clamp(cnt, min=1.0)
     rho = rho_w[cl]
-    s1 = (x * (e_g + x * mu_c[:, None])).sum(1) / cnt1
+    s1 = sxe / cnt1
     msx2 = sx2 / cnt1
     nmu_c, nsig_c = n_mu[cl], n_sig[cl]
     nsig_new = (1.0 - rho) * nsig_c + rho * (sw + alpha * col_count * msx2)
     nmu_new = (1.0 - rho) * nmu_c + rho * col_count * alpha * s1
-    zero = torch.zeros((), dtype=_F32, device=e.device)
+    zero = torch.zeros((), dtype=_F32, device=sxe.device)
     mu_cand = torch.where(active, nmu_new / nsig_new, zero)
     sig_cand = torch.where(active, 1.0 / nsig_new, zero)
     mu_new = torch.where(active, keep_finite(nmu_new / nsig_new, mu_c),
@@ -566,3 +579,78 @@ def tp_w_draw(buckets, acc, D_loc: int, w, w_mu, w_lambda, alpha, z, dtab,
                 None if z is None else build.ptr(z), build.ptr(dtab),
                 build.ptr(bad), build.stream_of(acc))
         build.check_launch(lib, rc, "tp_w_draw")
+
+
+# ---- T10: K5's OVB mode split around the feature-sharded OVB's all-reduce ---
+
+def tp_w_ovb_stats_plain(buckets, e, mu_w, acc, D_loc: int) -> None:
+    """The twin of T10's stats launch: acc[col] = sum x (e + x mu_w[col])
+    of each real column of the bin's buckets over this data shard's
+    rows."""
+    for b in buckets:
+        real = _real(b, D_loc)
+        mu_c = mu_w[torch.where(real, b.cols, 0).long()]
+        e_g = e.index_select(0, b.rows.reshape(-1)).reshape(b.rows.shape)
+        s = (b.x * (e_g + b.x * mu_c[:, None])).sum(1)
+        acc[b.cols[real].long()] = s[real]
+
+
+def tp_w_ovb_stats(buckets, e, mu_w, acc, D_loc: int) -> None:
+    """T10's stats launch, every bucket of a bin in one launch."""
+    if build.on_cpu(e):
+        return tp_w_ovb_stats_plain(buckets, e, mu_w, acc, D_loc)
+    launches = _bin_launches(buckets, e, (), "tp_w_ovb_stats")
+    build.require(mu_w, _F32, (D_loc,), e.device, "tp_w_ovb_stats.mu_w")
+    build.require(acc, _F32, (D_loc,), e.device, "tp_w_ovb_stats.acc")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(e.device):
+            rc = lib.svbfm_tp_w_ovb_stats(table, nb, blocks, build.ptr(e),
+                                          build.ptr(mu_w), build.ptr(acc),
+                                          D_loc, build.stream_of(e))
+        build.check_launch(lib, rc, "tp_w_ovb_stats")
+
+
+def tp_w_ovb_blend_plain(buckets, acc, D_loc: int, mu_w, sig_w, sigma_w,
+                         alpha, dtab, bad, ovb: tuple) -> None:
+    """The twin of T10's blend launch: online VB's blend at each real
+    column of the bin from its sum ``acc[col]``; ``ovb`` = (n_mu_w,
+    n_sig_w, rho_w, t_wj), the buckets' cnt and col_count beside them."""
+    for b in buckets:
+        real = _real(b, D_loc)
+        cols = b.cols[real]
+        _ovb_w_close(acc[cols.long()], cols, b.group[real], b.sx2[real],
+                     mu_w, sig_w, sigma_w, alpha, dtab, bad,
+                     (b.cnt[real], b.col_count[real], *ovb))
+
+
+def tp_w_ovb_blend(buckets, acc, D_loc: int, mu_w, sig_w, sigma_w, alpha,
+                   dtab, bad, ovb: tuple) -> None:
+    """T10's blend launch (reads ``acc``, no rows), every bucket of a bin
+    in one launch; in place on mu_w, sig_w, the naturals, t_wj, dtab and
+    bad."""
+    if build.on_cpu(acc):
+        return tp_w_ovb_blend_plain(buckets, acc, D_loc, mu_w, sig_w,
+                                    sigma_w, alpha, dtab, bad, ovb)
+    dev = acc.device
+    req = build.require
+    launches = _bin_launches(buckets, acc, ("group", "sx2", "cnt",
+                                            "col_count"), "tp_w_ovb_blend")
+    req(acc, _F32, (D_loc,), dev, "tp_w_ovb_blend.acc")
+    req(mu_w, _F32, (D_loc,), dev, "tp_w_ovb_blend.mu_w")
+    req(sig_w, _F32, (D_loc,), dev, "tp_w_ovb_blend.sig_w")
+    req(sigma_w, _F32, (sigma_w.shape[0],), dev, "tp_w_ovb_blend.sigma_w")
+    req(alpha, _F32, (), dev, "tp_w_ovb_blend.alpha")
+    req(dtab, _F32, (D_loc, 2), dev, "tp_w_ovb_blend.dtab")
+    req(bad, _I32, (4,), dev, "tp_w_ovb_blend.bad")
+    for a, name in zip(ovb, ("n_mu_w", "n_sig_w", "rho_w", "t_wj")):
+        req(a, _F32, (D_loc,), dev, f"tp_w_ovb_blend.{name}")
+    lib = build.load_library("w_sweep")
+    for table, nb, blocks in launches:
+        with torch.cuda.device(dev):
+            rc = lib.svbfm_tp_w_ovb_blend(
+                table, nb, blocks, build.ptr(acc), D_loc, build.ptr(mu_w),
+                build.ptr(sig_w), build.ptr(sigma_w), build.ptr(alpha),
+                build.ptr(dtab), build.ptr(bad),
+                *(build.ptr(a) for a in ovb), build.stream_of(acc))
+        build.check_launch(lib, rc, "tp_w_ovb_blend")

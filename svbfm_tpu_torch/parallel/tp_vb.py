@@ -91,6 +91,8 @@ class TPBlock:
     cols: torch.Tensor  # int32 [C] LOCAL column ids (padding: D_loc)
     group: torch.Tensor  # int32 [C]
     sx2: torch.Tensor  # f32 [C]
+    cnt: torch.Tensor  # f32 [C] entry count in the plan's data (OVB chunk)
+    col_count: torch.Tensor  # f32 [C] occurrences in the full train set
 
 
 @dataclass
@@ -123,7 +125,9 @@ def _build_tp_plan(shape: tuple, plan: SweepPlan, meta: DataMetaInfo,
             x = np.zeros((Sf, Sd, C_max, L), np.float32)
             cols = np.full((Sf, C_max), D_loc, np.int32)  # padding
             group = np.zeros((Sf, C_max), np.int32)
-            sx2 = np.zeros((Sf, C_max), np.float32)
+            # sx2, cnt, col_count: zero at the padding columns
+            per_col = {k: np.zeros((Sf, C_max), np.float32)
+                       for k in ("sx2", "cnt", "col_count")}
             for s in range(Sf):
                 sel = np.where(owner == s)[0]
                 c = len(sel)
@@ -133,9 +137,10 @@ def _build_tp_plan(shape: tuple, plan: SweepPlan, meta: DataMetaInfo,
                 x[s, :, :c] = blk.x[:, sel]
                 cols[s, :c] = blk.cols[sel] - s * D_loc  # local ids
                 group[s, :c] = blk.group[sel]
-                sx2[s, :c] = blk.sx2[sel]
+                for k, a in per_col.items():
+                    a[s, :c] = getattr(blk, k)[sel]
             bucket_list.append(TPBlock(rows=rows, x=x, cols=cols,
-                                       group=group, sx2=sx2))
+                                       group=group, **per_col))
         blocks.append(tuple(bucket_list))
     D_pad = D_loc * Sf
     ag = np.full(D_pad, meta.num_attr_groups, np.int32)  # padding: G
@@ -161,9 +166,10 @@ def local_plan(plan: TPPlanData, d: int, f: int, device) -> TPPlanData:
     ``device``."""
     blocks = tuple(
         tuple(TPBlock(rows=_put(b.rows[f, d], device),
-                      x=_put(b.x[f, d], device), cols=_put(b.cols[f], device),
-                      group=_put(b.group[f], device),
-                      sx2=_put(b.sx2[f], device)) for b in bin_blocks)
+                      x=_put(b.x[f, d], device),
+                      **{k: _put(getattr(b, k)[f], device) for k in (
+                          "cols", "group", "sx2", "cnt", "col_count")})
+              for b in bin_blocks)
         for bin_blocks in plan.blocks)
     return TPPlanData(
         blocks=blocks, attr_group=_put(plan.attr_group[f], device),

@@ -4,7 +4,8 @@
 two packages to each other start both from the same parameters: the JAX
 learner's ``VBState`` (or ``OVBState``, ``MCMCState``, ``SGDState``,
 ``SGDAState``, ``BPRState``, ``TPVBState``, the feature-sharded learners'
-``MCMCState``, or exp_sgd's tuple (w0, w, v)), fetched to numpy with
+``MCMCState`` and ``TPOVBState``, or exp_sgd's tuple (w0, w, v)), fetched
+to numpy with
 ``jax.device_get``, becomes the port's state of the same name (a
 feature-sharded state: one rank's part of it).
 A block-structure state is an ``MCMCState`` over the joined attributes.
@@ -26,6 +27,7 @@ from svbfm_tpu_torch.learners.mcmc import TENSOR_FIELDS, MCMCState
 from svbfm_tpu_torch.learners.sgd import SGDAState, SGDState, table
 from svbfm_tpu_torch.learners.vb import VBState
 from svbfm_tpu_torch.learners.vb_online import OVBState
+from svbfm_tpu_torch.parallel.tp_ovb import SHARDED_TABLES
 from svbfm_tpu_torch.parallel.tp_vb import TPVBState
 
 
@@ -125,3 +127,18 @@ def tp_mcmc_state_from_jax(np_state: Any, device, draws: Draws, *, d: int,
     t["e"] = t["e"][d * rps:(d + 1) * rps]
     return MCMCState(**{k: v.contiguous().to(device) for k, v in t.items()},
                      draws=draws)
+
+
+def tp_ovb_state_from_jax(np_state: Any, device, *, d: int, f: int,
+                          D_loc: int) -> OVBState:
+    """The feature-sharded online VB state of rank (d, f): JAX keeps its
+    ``TPOVBState`` as global arrays, the ten tables padded to D_pad over
+    the feature (last) dim; the rank takes their feature slice
+    [f D_loc, (f + 1) D_loc), the scalars and group hyperparameters whole.
+    The state holds no rows, so every data shard ``d`` takes the same."""
+    del d  # the state has no data-sharded part
+    t = _tensors(np_state, [fl.name for fl in dataclasses.fields(OVBState)],
+                 "cpu")
+    for k in SHARDED_TABLES:
+        t[k] = t[k][..., f * D_loc:(f + 1) * D_loc]
+    return OVBState(**{k: v.contiguous().to(device) for k, v in t.items()})

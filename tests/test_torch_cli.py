@@ -491,7 +491,11 @@ def test_cli_cache_size_vb_runs_windowed(data, monkeypatch, capsys):
     ("vb", ["-cache_size", "1000", "-num_eval_cases", "5"],
      "-num_eval_cases is not supported with -cache_size"),
     ("sgd", ["-cache_size", "1000"], "not read by -method sgd"),
-    ("vb_online", ["-feature_shards", "2"], "item 13"),
+    # -feature_shards runs vb_online (item 13.2): on one rank its two
+    # shards do not divide the world
+    pytest.param("vb_online", ["-feature_shards", "2"],
+                 "does not divide the world size 1",
+                 id="vb_online-extra4-item 13"),
     ("vb", ["-cache_size", "1000", "-bins", "greedy"], "-bins is not read"),
 ])
 def test_cli_out_of_core_refusals(data, method, extra, message):
@@ -708,12 +712,26 @@ def test_cli_feature_shards_mcmc_als(data, tmp_path, monkeypatch, capsys,
     ("vb", [], "-factor_block is not read by the feature-sharded VB"),
     ("mcmc", ["-factor_block", "2"], "does not divide the world size 1"),
     ("als", ["-task", "c"], "does not divide the world size 1"),
+    ("vb_online", ["-task", "c"], "feature-sharded OVB runs -task r alone"),
+    ("vb_online", ["-factor_block", "2"],
+     "-factor_block is read by the feature-sharded OVB as 0 or 1"),
+    ("vb_online", ["-reshuffle", "1"],
+     "-reshuffle is not read by the feature-sharded OVB"),
+    ("vb_online", ["-checkpoint", "ck"],
+     "-checkpoint is not read by the feature-sharded OVB"),
+    ("vb_online", ["-cache_size", "1000"],
+     "-cache_size is not read by -method vb_online"),
+    ("vb_online", ["-num_eval_cases", "5"], "not read by the feature-sharded"),
+    ("vb_online", ["-factor_block", "1"], "does not divide the world size 1"),
+    ("sgd", [], "item 13.3"),
 ])
 def test_cli_feature_shards_refusals(data, method, extra, message):
     """What the feature-sharded learners do not read is refused by name
-    (vb: -factor_block; every method: -cache_size, -num_eval_cases,
-    -map_eval), before the world size is checked; Gibbs and ALS read
-    -factor_block and -task c."""
+    (vb: -factor_block; vb_online: -task c, -factor_block other than 0 and
+    1, -reshuffle 1, -checkpoint; every method: -cache_size,
+    -num_eval_cases, -map_eval), before the world size is checked; Gibbs
+    and ALS read -factor_block and -task c; sgd's feature-sharded learner
+    is not ported yet."""
     d, _, _ = data
     argv = _args(d, method, "-feature_shards", "2", "-device", "cpu")
     if extra[:1] == ["-task"]:
@@ -721,3 +739,91 @@ def test_cli_feature_shards_refusals(data, method, extra, message):
     with pytest.raises(SystemExit) as ei:
         cli.main(argv + extra)
     assert message in str(ei.value.code)
+
+
+def test_cli_feature_shards_refuses_streamed_vb_online(data):
+    """A binary train file streams vb_online from disk; the feature-sharded
+    OVB holds its rows, so -feature_shards refuses it as the JAX CLI does
+    (svbfm_tpu/cli.py:429-432)."""
+    from svbfm_tpu_torch.data.binary import save_coo_binary
+    from svbfm_tpu_torch.data.libfm_text import load_libfm_text
+
+    d, _, _ = data
+    save_coo_binary(str(d / "tr.libfm"), load_libfm_text(str(d / "tr.libfm")))
+    with pytest.raises(SystemExit) as ei:
+        cli.main(_args(d, "vb_online", "-feature_shards", "2", "-device",
+                       "cpu"))
+    assert "out-of-core vb_online streaming" in str(ei.value.code)
+
+
+def test_cli_feature_shards_vb_online(data, tmp_path, monkeypatch, capsys):
+    """-method vb_online -feature_shards 2 -distributed 1 on two spawned
+    gloo ranks (a (1, 2) mesh) from the JAX CLI's init: the JAX CLI's files
+    (rank 0 writes them); its test_rmse / free_energy files those that the
+    library's TPOVBLearner writes on one rank from the same state (rtol
+    1e-5), and within test_tp_ovb.py's rtol 2e-3 of the JAX CLI's
+    -feature_shards 2 on the 8-device mesh (a (4, 2) mesh)."""
+    import dataclasses
+
+    import jax
+
+    from svbfm_tpu.parallel import tp_ovb as jto
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.libfm_text import load_libfm_text
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_ovb import TPOVBLearner
+    from svbfm_tpu_torch.utils.convert import ovb_state_from_jax
+    from torch_tp_ranks import cli_ovb_rank, run_ranks
+
+    d, _, D = data
+    argv = _args(d, "vb_online", "-feature_shards", "2", "-out", "pred.txt")
+    seen = {}
+    init = jto.TPOVBLearner.init_state
+
+    def keep_init(self, key=None):  # a host copy: the step donates it
+        s = init(self, key)
+        seen["state"] = jax.device_get(s)
+        return s
+
+    monkeypatch.setattr(jto.TPOVBLearner, "init_state", keep_init)
+    theirs = _run_in(d / "jax", jax_main, argv, monkeypatch)
+    st = seen["state"]
+    np.savez(tmp_path / "init.npz", **{
+        f.name: np.asarray(getattr(st, f.name))[..., :D]
+        if np.ndim(getattr(st, f.name)) and f.name not in (
+            "sigma_w", "sigma_v") else np.asarray(getattr(st, f.name))
+        for f in dataclasses.fields(st)})
+    (d / "torch").mkdir()
+    run_ranks(cli_ovb_rank, 2, tmp_path / "ranks", timeout=120,
+              argv=argv + ["-distributed", "1", "-device", "cpu"],
+              cwd=str(d / "torch"), init=str(tmp_path / "init.npz"))
+    assert sorted(os.listdir(d / "torch")) == theirs
+    traj = [n for n in theirs if n.startswith(("test_rmse", "free_energy"))]
+    assert len(traj) == 2
+    for name in traj + ["pred.txt"]:
+        np.testing.assert_allclose(np.loadtxt(d / "torch" / name),
+                                   np.loadtxt(d / "jax" / name), rtol=2e-3,
+                                   err_msg=name)
+    # the library's run on one rank from the same state and data
+    tr, te = (load_libfm_text(str(d / n)) for n in ("tr.libfm", "te.libfm"))
+    Dl = max(tr.num_features, te.num_features)
+    cfg = FMConfig(num_attributes=Dl, num_factor=4, num_groups=1,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()), num_iter=2,
+                   num_batches=3)
+    lib = tmp_path / "lib"
+    lib.mkdir()
+    lr = TPOVBLearner(cfg, SparseDataset.from_coo(tr, Dl),
+                      SparseDataset.from_coo(te, Dl), DataMetaInfo(Dl),
+                      mesh=make_mesh2d(device="cpu"), out_dir=str(lib),
+                      write_files=True)
+    with np.load(tmp_path / "init.npz") as z:
+        state = lr.local_state(ovb_state_from_jax(dict(z), "cpu"))
+    lr.run(state, num_iter=2, verbose=False)
+    assert sorted(os.listdir(lib)) == traj
+    for name in traj:
+        np.testing.assert_allclose(np.loadtxt(d / "torch" / name),
+                                   np.loadtxt(lib / name), rtol=1e-5,
+                                   err_msg=name)

@@ -2589,3 +2589,67 @@ def test_tp_mcmc_on_gpu_matches_cpu(cuda, method):
     for a, b in zip(*hists):
         np.testing.assert_allclose(a[key], b[key], rtol=1e-5)
         np.testing.assert_allclose(a["alpha"], b["alpha"], rtol=1e-5)
+
+
+def test_tp_ovb_kernels_match_twins(cuda):
+    """T9's stats and blend launches and T10's (the feature-sharded OVB)
+    against their twins on every bin of a small problem's chunk, odd D so
+    that the second of two feature shards holds a padding column, buckets
+    with padding columns, each shard's eta2 NaN at one column (counted
+    candidates); with the chunk's T1, T2 at F = 1 and T4 at F = 1 and 0;
+    two launches give the same bits."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_tp_ovb_tensors(cuda)
+    cases = chip_smoke.make_cases(s)
+    names = ("tp_ovb_stats", "tp_ovb_blend", "tp_w_ovb_stats",
+             "tp_w_ovb_blend", "tp_build_qt", "tp_patch_delta",
+             "tp_fm_partials")
+    before = dict(build.launch_counts)
+    for name in names:
+        assert cases[name]
+        for label, prepare, call, _ in cases[name]:
+            ok, op = call("kernel", prepare()), call("plain", prepare())
+            again = call("kernel", prepare())
+            torch.cuda.synchronize()
+            chip_smoke.compare(ok, op, f"{name} ({label})")
+            for a, b in zip(ok, again):  # the NaN candidates' too
+                assert _same_bits(a, b), f"{name} ({label})"
+    assert all(build.launch_counts[k] > before[k] for k in names)
+
+
+def test_tp_ovb_on_gpu_matches_cpu(cuda):
+    """The feature-sharded OVB in one process on a (1, 1) mesh, card
+    against CPU from one init, 3 epochs of 4 chunks; every kernel of its
+    path launched; and the resident OVBLearner on the card from the same
+    init, within 1e-5."""
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_ovb import TPOVBLearner
+
+    coo = make_movielens_like(num_users=61, num_items=40, num_ratings=3000,
+                              seed=4)
+    tr, te = train_test_split(coo, 0.2, seed=5)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 61])
+    cfg = FMConfig(num_attributes=D, num_factor=6, num_groups=2, seed=7,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()), num_batches=4)
+    data = (SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta)
+    hists = []
+    for dev in (cuda, "cpu"):
+        lr = TPOVBLearner(cfg, *data, mesh=make_mesh2d(device=dev))
+        before = dict(build.launch_counts)
+        _, h = lr.run(num_iter=3, verbose=False)
+        hists.append(h)
+        if dev is cuda:
+            names = ("tp_fm_partials", "tp_w_ovb_stats", "tp_w_ovb_blend",
+                     "tp_patch_delta", "tp_build_qt", "tp_ovb_stats",
+                     "tp_ovb_blend")
+            assert all(build.launch_counts[k] > before[k] for k in names)
+    res = OVBLearner(cfg, *data, device=cuda, write_files=False)
+    _, hr = res.run(num_iter=3, verbose=False)
+    for other in (hists[1], hr):
+        for a, b in zip(hists[0], other):
+            for k in ("rmse", "mae", "free_energy"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5)

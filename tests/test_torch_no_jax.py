@@ -92,6 +92,10 @@ _, htm = TPMCMCLearner(cfg, train, test, meta, mesh=make_mesh2d(device="cpu")
                        ).run(num_iter=2, verbose=False)
 _, hta = TPALSLearner(cfg, train, test, meta, mesh=make_mesh2d(device="cpu")
                       ).run(num_iter=1, verbose=False)
+from svbfm_tpu_torch.parallel.tp_ovb import TPOVBLearner
+_, hto = TPOVBLearner(dataclasses.replace(cfg, num_batches=3), train, test,
+                      meta, mesh=make_mesh2d(device="cpu")
+                      ).run(num_iter=1, verbose=False)
 assert make_mesh(device="cpu").shape == (1, 1)
 loaded = [m for m, v in sys.modules.items() if v is not None and
           m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
@@ -106,6 +110,7 @@ print("exp_sgd", len(he), "bs", len(hbm), len(hba), he[-1]["rmse"],
 print("windowed", len(hw))
 print("tp", len(ht))
 print("tp_mcmc", len(htm), "tp_als", len(hta))
+print("tp_ovb", len(hto))
 """
 
 
@@ -121,6 +126,7 @@ def test_port_runs_two_sweeps_without_jax():
     assert "windowed 1" in r.stdout
     assert "tp 2" in r.stdout
     assert "tp_mcmc 2 tp_als 1" in r.stdout
+    assert "tp_ovb 1" in r.stdout
 
 
 def test_nccl_refuses_two_ranks_on_one_device(tmp_path):

@@ -564,8 +564,9 @@ class _ThreadMesh:
         return t.copy_(tot)
 
 
-def _on_threads(Sf, fn):
-    """fn(f, mesh) on Sf threads, one a feature shard: their results."""
+def _on_threads(Sf, fn, mesh_cls=None):
+    """fn(f, mesh) on Sf threads, one a feature shard (its mesh a
+    ``mesh_cls``, by default ``_ThreadMesh``): their results."""
     import threading
 
     shared = dict(barrier=threading.Barrier(Sf), slots=[None] * Sf)
@@ -573,7 +574,7 @@ def _on_threads(Sf, fn):
 
     def run(f):
         try:
-            out[f] = fn(f, _ThreadMesh(Sf, f, shared))
+            out[f] = fn(f, (mesh_cls or _ThreadMesh)(Sf, f, shared))
         except BaseException as exc:  # noqa: BLE001 - re-raised below
             errors.append(exc)
             shared["barrier"].abort()
@@ -704,3 +705,186 @@ def test_t6_t7_t8_block_pass_matches_jax(Sf, F, sample, exact):
         np.testing.assert_allclose(e.numpy(), np.asarray(je), **JAX_TOL)
     np.testing.assert_allclose(torch.cat([v for _, v in out]).numpy(),
                                np.asarray(jv), **JAX_TOL)
+
+
+# ---- T9 and T10, the feature-sharded online VB (parallel/tp_ovb.py) -------
+
+def _ovb_inputs(seed=21):
+    """A conflict-free plan (with chunk counts) and, at F = 1, the caches
+    qt = (q | tq | tz), a patch table [D, 5] and the naturals, rates and
+    counters of the w and v tables."""
+    s = _sweep_setup(1, seed=seed)
+    rng = s["rng"]
+    G = s["meta"].num_attr_groups
+    ptab = torch.zeros(D, 5)
+    ptab[:, :2] = s["ptab"][:, :2]
+    q, tq, tz = kv.vb_build_qt(ptab, 1, s["ids"], s["vals"])
+
+    def uni(lo, hi, *shape):
+        return _t(rng.uniform(lo, hi, shape).astype(np.float32))
+    s.update(ptab=ptab, qt=torch.cat([q, tq, tz], 1), q=q, tq=tq, G=G,
+             nmu=uni(-5, 5, D, 1), nsig=uni(20, 60, D, 1),
+             rho=uni(0.2, 1.0, D), sv=uni(0.5, 2.0, G, 1),
+             mu_w=_t(rng.standard_normal(D).astype(np.float32)),
+             sig_w=uni(0.01, 0.1, D), nmu_w=uni(-5, 5, D),
+             nsig_w=uni(20, 60, D), t_wj=uni(0, 3, D),
+             sigma_w=uni(0.5, 2.0, G), alpha=torch.tensor(1.3))
+    return s
+
+
+@pytest.mark.parametrize("Sf", SHARDS)
+def test_t9_t10_match_k6_and_k5_ovb(Sf):
+    """T9's stats and blend launches on every shard of each bin against
+    K6's twin on the unsharded bin (the sums themselves, at Sf = 1, the
+    bits of K6's), and T10's against K5's OVB twin: the tables, the patch
+    table's deltas, tv_add / t_wj and the counts; the padding columns get
+    zero sums and no update."""
+    from svbfm_tpu_torch.kernels import ovb_sweep as ko
+
+    s = _ovb_inputs()
+    plans, D_loc = _tp_plans(s, Sf)
+    full = build_plan_data(s["plan"], s["meta"], "cpu").blocks
+    e, qt, alpha = s["e"], s["qt"], s["alpha"]
+    saw_padding = False
+    for b in range(len(full)):
+        # K6 on the whole bin
+        ref = dict(ptab=s["ptab"].clone(), mu=s["ptab"][:, :1].clone(),
+                   sig=s["ptab"][:, 1:2].clone(), nmu=s["nmu"].clone(),
+                   nsig=s["nsig"].clone(), tv=torch.zeros(D),
+                   bad=torch.zeros(4, dtype=torch.int32))
+        ko.ovb_bin_update_plain(
+            ko.BinPlan(full[b]), e, s["q"], s["tq"], ref["ptab"], ref["mu"],
+            ref["sig"], ref["nmu"], ref["nsig"], s["sv"], alpha, s["rho"],
+            ref["tv"], ref["bad"])
+        got = {k: _pad_rows(ref_v, D_loc, Sf) for k, ref_v in (
+            ("ptab", s["ptab"]), ("mu", s["ptab"][:, :1]),
+            ("sig", s["ptab"][:, 1:2]), ("nmu", s["nmu"]),
+            ("nsig", s["nsig"]), ("tv", torch.zeros(D)),
+            ("rho", s["rho"]))}
+        bad = torch.zeros(4, dtype=torch.int32)
+        for f, pl in enumerate(plans):
+            sl = slice(f * D_loc, (f + 1) * D_loc)
+            v = {k: a[sl] for k, a in got.items()}
+            plan = ko.BinPlan(pl.blocks[b])
+            sums = ko.tp_ovb_stats(plan, D_loc, e, qt,
+                                   v["ptab"].contiguous())
+            assert sums.shape == (plan.num_cols, 2)
+            at = 0
+            for blk in pl.blocks[b]:
+                C = blk.cols.shape[0]
+                pad = blk.cols == D_loc
+                saw_padding |= bool(pad.any())
+                assert (sums[at:at + C][pad] == 0).all()
+                if Sf == 1:  # K6's own sums, bit for bit
+                    vm, vs = ko._v_sums(blk.rows, blk.x, blk.cols, e,
+                                        s["q"], s["tq"], s["ptab"], 1)
+                    assert torch.equal(sums[at:at + C],
+                                       torch.cat([vm, vs], 1))
+                at += C
+            ko.tp_ovb_blend(plan, D_loc, sums, v["ptab"], v["mu"], v["sig"],
+                            v["nmu"], v["nsig"], s["sv"], alpha, v["rho"],
+                            v["tv"], bad)
+        for k in ("ptab", "mu", "sig", "nmu", "nsig", "tv"):
+            np.testing.assert_allclose(got[k][:D].numpy(), ref[k].numpy(),
+                                       err_msg=k, **TOL)
+            assert (got[k][D:] == 0).all() or k == "ptab"
+        assert torch.equal(bad, ref["bad"])
+
+        # T10 against K5's OVB mode on the same bin
+        ref_w = {k: s[k].clone() for k in ("mu_w", "sig_w", "nmu_w",
+                                            "nsig_w", "t_wj")}
+        ref_w.update(dtab=torch.zeros(D, 2),
+                     bad=torch.zeros(4, dtype=torch.int32))
+        rho_w = (1.0 + s["t_wj"]) ** -0.5
+        kw.w_bin_update_plain(
+            full[b], e, ref_w["mu_w"], ref_w["sig_w"], s["sigma_w"], alpha,
+            ref_w["dtab"], ref_w["bad"],
+            ovb=(ref_w["nmu_w"], ref_w["nsig_w"], rho_w, ref_w["t_wj"]))
+        gw = {k: _pad_rows(s[k], D_loc, Sf) for k in ("mu_w", "sig_w",
+                                                      "nmu_w", "nsig_w",
+                                                      "t_wj")}
+        gw.update(dtab=torch.zeros(D_loc * Sf, 2),
+                  rho=_pad_rows(rho_w, D_loc, Sf))
+        wbad = torch.zeros(4, dtype=torch.int32)
+        for f, pl in enumerate(plans):
+            sl = slice(f * D_loc, (f + 1) * D_loc)
+            v = {k: a[sl] for k, a in gw.items()}
+            acc = torch.zeros(D_loc)
+            kw.tp_w_ovb_stats(pl.blocks[b], e, v["mu_w"], acc, D_loc)
+            if Sf == 1:  # K5's OVB sums
+                for blk in pl.blocks[b]:
+                    e_g = e[blk.rows.long()]
+                    want = (blk.x * (e_g + blk.x * s["mu_w"][
+                        blk.cols.long()][:, None])).sum(1)
+                    assert torch.equal(acc[blk.cols.long()], want)
+            kw.tp_w_ovb_blend(pl.blocks[b], acc, D_loc, v["mu_w"],
+                              v["sig_w"], s["sigma_w"], alpha, v["dtab"],
+                              wbad, (v["nmu_w"], v["nsig_w"], v["rho"],
+                                     v["t_wj"]))
+        for k, want in (("mu_w", ref_w["mu_w"]), ("sig_w", ref_w["sig_w"]),
+                        ("nmu_w", ref_w["nmu_w"]), ("nsig_w", ref_w["nsig_w"]),
+                        ("t_wj", ref_w["t_wj"]), ("dtab", ref_w["dtab"])):
+            np.testing.assert_allclose(gw[k][:D].numpy(), want.numpy(),
+                                       err_msg=k, **TOL)
+        assert torch.equal(wbad, ref_w["bad"])
+    assert Sf == 1 or saw_padding
+
+
+class _OVBThreadMesh(_ThreadMesh):
+    """``_ThreadMesh`` with what a learner's constructor reads of a mesh."""
+
+    def __init__(self, Sf, f, shared):
+        super().__init__(Sf, f, shared)
+        self.shape, self.device, self.rank = (1, Sf), torch.device("cpu"), f
+
+
+@pytest.mark.parametrize("Sf", [2, 4])
+def test_t9_t10_chunk_update_matches_jax(Sf):
+    """One chunk of the port's tp_ovb_chunk_update (T1, T10's two launches,
+    T2, T9's two launches, T4 at F = 0 and 1) on Sf threads against JAX's
+    on a (1, Sf) mesh, from the JAX learner's init: every table of the
+    shards, the hyperparameters and the chunk's free energy."""
+    from svbfm_tpu.data.dataset import SparseDataset as JDataset
+    from svbfm_tpu.parallel import tp_ovb as jto
+    from svbfm_tpu_torch.parallel.tp_ovb import (TPOVBLearner,
+                                                 tp_ovb_chunk_update)
+    from svbfm_tpu_torch.utils.convert import tp_ovb_state_from_jax
+    from test_tp_ovb import _setup
+    from torch_tp_ranks import ovb_setup
+
+    tr, te, Dj, jmeta, jcfg = _setup(num_batches=2)
+    jl = jto.TPOVBLearner(jcfg, JDataset.from_coo(tr, Dj),
+                          JDataset.from_coo(te, Dj), jmeta,
+                          mesh=jmesh2d(n_data=1, n_feature=Sf),
+                          write_files=False)
+    js0 = jl.init_state()
+    init = {f.name: np.asarray(getattr(jax.device_get(js0), f.name))
+            for f in js0.__dataclass_fields__.values()}
+    row = jax.tree.map(lambda a: a[0], jl.chunk_row)
+    js, jfe, _ = jl._step(js0, row, jto._pick_chunk(jl.chunk_blocks, 0),
+                          jnp.asarray(float(jl.chunk_sizes[0]), jnp.float32),
+                          jl.attr_group_sh, jl.col_valid_sh, jl.napg)
+    js = jax.device_get(js)
+    cfg, ptr_, pte, meta, _ = ovb_setup(num_batches=2)
+
+    def shard(f, m):
+        lr = TPOVBLearner(cfg, ptr_, pte, meta, mesh=m)
+        st = tp_ovb_state_from_jax(init, "cpu", d=0, f=f, D_loc=lr.D_loc)
+        c = lr.chunks[0]
+        return tp_ovb_chunk_update(
+            st, c.row, c, lr.cfg, float(lr.train_n),
+            float(lr.chunk_sizes[0]), lr.columns, m, lr.D_loc, lr.lo)
+
+    out = _on_threads(Sf, shard, _OVBThreadMesh)
+    for k in ("mu_w", "sigma_w_dash", "n_mu_w", "n_sig_w", "t_wj", "mu_v",
+              "sigma_v_dash", "n_mu_v", "n_sig_v", "t_vj"):
+        got = torch.cat([getattr(st, k) for st, _, _ in out], -1)
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(js, k)),
+                                   err_msg=k, **JAX_TOL)
+    for st, fe, nans in out:
+        for k in ("mu_0", "alpha", "sigma_w", "sigma_v", "t_w0"):
+            np.testing.assert_allclose(getattr(st, k).numpy(),
+                                       np.asarray(getattr(js, k)),
+                                       err_msg=k, **JAX_TOL)
+        np.testing.assert_allclose(float(fe), float(jfe), rtol=2e-4)
+        assert all(int(v) == 0 for v in nans.values())

@@ -335,3 +335,89 @@ def mcmc_four_ranks(rank: int, init: str, ml_init: str) -> dict:
            "own": mcmc_run((2, 2), mcmc_setup(seed=9), 4),
            "class": mcmc_run((2, 2), binarized(mcmc_setup(seed=13)), 10)}
     return out
+
+
+# ---- the feature-sharded online VB (parallel/tp_ovb.py) ---------------------
+
+def ovb_setup(**cfg_kw):
+    """``tests/test_tp_ovb.py:_setup``'s recipe in the port (900 ratings,
+    18 users, 14 items, K = 3, 4 chunks): (cfg, train, test, meta, D)."""
+    import dataclasses
+
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import (make_movielens_like,
+                                            train_test_split)
+    from svbfm_tpu_torch.learners.base import FMConfig
+
+    coo = make_movielens_like(num_users=18, num_items=14, num_ratings=900,
+                              rank=2, noise=0.4, seed=2)
+    tr, te = train_test_split(coo, 0.25, seed=3)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 18])
+    cfg = FMConfig(num_attributes=D, num_factor=3,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()),
+                   num_groups=meta.num_attr_groups, seed=7, num_batches=4)
+    return (dataclasses.replace(cfg, **cfg_kw),
+            SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta, D)
+
+
+def ovb_run(shape, num_iter: int, init: str = "") -> dict:
+    """``num_iter`` epochs of the TP OVB on a mesh of ``shape`` from the
+    JAX learner's global ``TPOVBState`` saved as npz at ``init`` (else the
+    port's own init): the history, the gathered global state and the test
+    scores."""
+    import dataclasses
+
+    import numpy as np
+
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_ovb import TPOVBLearner
+    from svbfm_tpu_torch.utils.convert import tp_ovb_state_from_jax
+
+    cfg, tr, te, meta, _ = ovb_setup()
+    lr = TPOVBLearner(cfg, tr, te, meta, mesh=make_mesh2d(
+        n_data=shape[0], n_feature=shape[1], device="cpu"))
+    state = None
+    if init:
+        with np.load(init) as z:
+            state = tp_ovb_state_from_jax(dict(z), "cpu", d=lr.mesh.d_index,
+                                          f=lr.mesh.f_index, D_loc=lr.D_loc)
+    state, hist = lr.run(state, num_iter=num_iter, verbose=False)
+    g = lr.global_state(state)
+    return dict(hist=hist, D_loc=lr.D_loc,
+                state={f.name: getattr(g, f.name).numpy()
+                       for f in dataclasses.fields(g)},
+                scores=lr.predict_test_scores(state))
+
+
+def ovb_ranks(rank: int, runs: list, num_iter: int) -> dict:
+    """Each (shape, init) of ``runs`` in turn on this world's ranks:
+    ``ovb_run``'s results by shape (a second run of one shape: by
+    (shape, "own"))."""
+    out = {}
+    for shape, init in runs:
+        out[tuple(shape) if init else (tuple(shape), "own")] = ovb_run(
+            tuple(shape), num_iter, init)
+    return out
+
+
+def cli_ovb_rank(rank: int, argv: list, cwd: str, init: str) -> int:
+    """The port's CLI (-method vb_online -feature_shards) on this rank, its
+    start the JAX init state saved as npz at ``init`` (the global
+    ``TPOVBState``), run in ``cwd``."""
+    import numpy as np
+
+    from svbfm_tpu_torch import cli
+    from svbfm_tpu_torch.parallel import tp_ovb
+    from svbfm_tpu_torch.utils.convert import ovb_state_from_jax
+
+    def init_state(self, generator=None):
+        with np.load(init) as z:
+            return self.local_state(ovb_state_from_jax(dict(z), "cpu"))
+
+    tp_ovb.TPOVBLearner.init_state = init_state
+    os.chdir(cwd)
+    return cli.main(argv)
