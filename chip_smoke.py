@@ -148,6 +148,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (information).
  27. sgd-profile: device time of one SGD epoch by kernel; sgda-profile:
      of one SGDA iteration with its lambda steps, and X9c's share.
+ 27b. the feature-sharded SGD and serving over a mesh (T11, X9a's window
+     mode, and T12, the sharded finalize with the serve epilogue; the
+     kernel phase holds T11 at every loss to its twin on 1,024 train rows
+     with padding entries and valid = 0 rows, at Sf = 1 and on both
+     windows of Sf = 2, X9b's dense form on each window, and T12 on
+     [serve]'s partials, summed over two shards, and on NaN/+-Inf
+     scores): tp-sgd (TPSGDLearner on NCCL with a world of one at
+     [sgd]'s width and batch, [sgd]'s epochs from the same init and
+     permutations, the RMSE within 2e-4 of [sgd]'s; card against CPU on
+     the 100k-row recipe; sec/epoch beside [sgd]'s), tp-sgd-profile and
+     tp-sgd-device (an epoch's device time beside [sgd-profile]'s),
+     serve-mesh (BatchScorer over the world of one at [serve]'s shape:
+     replicated the same bits as [serve]'s predictions, feature-sharded
+     within 1e-6 relative; rows/s beside [serve]'s), tp-sgd-ranks (four
+     gloo ranks on the card: (1, 4) within 1e-4 of the world of one on
+     the 100k-row recipe at K = 8, 2 epochs; (2, 2) beside (2, 1) on two
+     more ranks) and serve-mesh-ranks (the scorer over the four ranks,
+     replicated and feature-sharded, clamp and probit, on 100,003 of
+     [serve]'s rows beside the one-card scorer).
  28. exp-sgd: the full-batch exponential-family sweep (-method exp_sgd,
      learn rate 0.5), factor_block 0, 5 sweeps: X9d's two modes, X8b, X8d,
      the w patch and K1 launched, test RMSE falling; sec/iter, peak memory.
@@ -213,7 +232,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      memory beside the bytes the train rows would take resident, which it
      must stay below.
 Then the nvidia-smi line again, a JSON line with each kernel's launches
-(summed over the driven runs of phases 2b, 3, 7, 8b, 9, 14, 16, 19, 20-25, 28,
+(summed over the driven runs of phases 2b, 3, 7, 8b, 9, 14, 16, 19, 20-25,
+27b (tp-sgd, serve-mesh), 28,
 30-32, 35, 37, 39, 41 (with mcmc-windowed and als-windowed) and 42, each
 read just after its run with the
 counts zeroed just before),
@@ -347,6 +367,13 @@ TP_RANKS, TP_RANKS_ROWS, TP_RANKS_K, TP_RANKS_SWEEPS = 4, 100_000, 8, 3
 # ranks' gloo collectives, some 70 a chunk, set its time)
 TP_OVB_RANKS_CHUNKS, TP_OVB_RANKS_EPOCHS = 5, 2
 TP_RANKS_TIMEOUT = 240
+# [tp-sgd]: the feature-sharded SGD beside the resident [sgd] from one init
+# and the same permutations (tests/test_tp_sgd.py:52-54's bound); its ranks
+# phase: the 100k-row recipe at K = 8, 2 epochs
+TP_SGD_RTOL, TP_SGD_ATOL, TP_SGD_RANKS_EPOCHS = 2e-4, 2e-5, 2
+# [serve-mesh]: the feature-sharded scorer beside the one-card scorer (T12
+# squares after the sum, K1a in its chunks), and its four gloo ranks' rows
+SERVE_MESH_RTOL, SERVE_MESH_RANK_ROWS = 1e-6, 100_003
 # [tp-mcmc]: Gibbs iterations beside the resident Gibbs, and how far apart
 # their posterior-mean RMSEs may end (two chains of other draws)
 TP_MCMC_ITERS, TP_MCMC_RMSE_GAP = 20, 0.01
@@ -495,6 +522,13 @@ SOURCES = {
                        "svbfm_tpu/parallel/tp_ovb.py:222"),
     "tp_w_ovb_blend": ("svbfm_tpu_torch/csrc/w_sweep.cu",
                        "svbfm_tpu/parallel/tp_ovb.py:224"),
+    # T11, X9a's window mode: the feature-sharded SGD's batch scatter
+    # (parallel/tp_sgd.py, with X9b's dense form), and T12, the
+    # feature-sharded scorer's finalize with the serve epilogue (serve.py)
+    "tp_sgd_scatter": ("svbfm_tpu_torch/csrc/sgd_step.cu",
+                       "svbfm_tpu/parallel/tp_sgd.py:91"),
+    "tp_serve": ("svbfm_tpu_torch/csrc/fm_forward.cu",
+                 "svbfm_tpu/serve.py:129"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
 # (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
@@ -516,6 +550,8 @@ TP_MCMC_KERNELS = ("tp_fm_partials", "tp_w_stats", "tp_w_draw",
 TP_OVB_KERNELS = ("tp_fm_partials", "tp_w_ovb_stats", "tp_w_ovb_blend",
                   "tp_patch_delta", "tp_build_qt", "tp_ovb_stats",
                   "tp_ovb_blend")
+# the kernels of the feature-sharded SGD's minibatch
+TP_SGD_KERNELS = ("tp_fm_partials", "tp_sgd_scatter", "sgd_apply")
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "vb-fast": ("fm_scores", "fm_t_terms", "vb_build_qt",
@@ -593,6 +629,10 @@ PATH_KERNELS = {
     # the feature-sharded online VB (T1, T10, T4 at F = 0 and 1, T2 at
     # F = 1, T9)
     "tp-ovb": TP_OVB_KERNELS,
+    # the feature-sharded SGD (T1, T11, X9b dense) and serving over a mesh
+    # (replicated: X11; feature-sharded: T1, T12)
+    "tp-sgd": TP_SGD_KERNELS,
+    "serve-mesh": ("fm_serve", "tp_fm_partials", "tp_serve"),
 }
 
 
@@ -1255,6 +1295,21 @@ def make_cases(s: dict):
             sgd_cases(add, s[key], *mode_case)
 
     probit_cases(add, s)
+
+    if "tp_sgd" in s:  # T11 and X9b's dense form over a window
+        tp_sgd_cases(add, s["tp_sgd"])
+
+    for label, part, w0, mode, timed_case in s.get("tp_serve", ()):  # T12
+        K = (part.shape[1] - 1) // 2
+        N = part.shape[0]
+
+        def t12(variant, _, part=part, w0=w0, K=K, mode=mode):
+            fn = k1.tp_serve_op if variant == "kernel" else k1.tp_serve_plain
+            return [fn(part, w0, K, mode, SERVE_LO, SERVE_HI)]
+
+        add("tp_serve", f"{label} N={N}", nothing, t12,
+            cost(part.numel() * 4 + N * 4 + 4, N * (3 * K + 3))
+            if timed_case else None)
 
     for label, t, idx in s.get("gathers", ()):  # P1: o[r, l] = t[i[r, l], l]
         def gcall(variant, _, t=t, idx=idx):
@@ -2890,6 +2945,159 @@ def sgd_cases(add, g: dict, label: str, m, kind: str, batch) -> None:
                  g["attr_group"], val, mv, cap)
 
 
+def tp_sgd_cases(add, g: dict) -> None:
+    """T11 on each window of ``g``'s batch at each loss (timed in the
+    regression mode), and X9b's dense form on each window's accumulator as
+    T11's twin leaves it (regression).  T11's bytes: the batch, its
+    partials, the table and accumulator rows of the window's entries and
+    acc0; X9b dense: every row of the window's table (read and written)
+    and accumulator (read and zeroed)."""
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    ids, vals, valid = g["batch"]
+    B, P = ids.shape
+    for name, m, y in g["modes"]:
+        K = m.K
+        for sh in g["shards"]:
+            tab, lo, part = sh["tab"], sh["lo"], sh["part"]
+            D_loc = tab.shape[0]
+
+            def prepare(D_loc=D_loc, K=K, dev=tab.device):
+                return (torch.zeros(D_loc, 2 + K, device=dev),
+                        torch.zeros(2, device=dev))
+
+            def t11(variant, inp, tab=tab, lo=lo, part=part, m=m, y=y):
+                fn = (ks.tp_sgd_scatter if variant == "kernel"
+                      else ks.tp_sgd_scatter_plain)
+                fn(tab, g["w0"], ids, vals, y, valid, part, lo, *inp, m)
+                return list(inp)
+
+            loc = ids.long() - lo
+            inr = (loc >= 0) & (loc < D_loc)
+            n_in = int(inr.sum())
+            n_u = int(torch.unique(loc[inr]).numel())
+            timed = name == "regression"
+            add("tp_sgd_scatter", f"{name} {sh['label']} B={B}", prepare, t11,
+                cost(B * (P * 8 + 8) + part.numel() * 4
+                     + n_u * (3 + 2 * K) * 4 + 8,
+                     B * 3 * K + n_in * (4 * K + 4)) if timed else None)
+            if not timed:
+                continue
+            acc, acc0 = prepare()
+            t11("plain", (acc, acc0))
+
+            def x9b_prepare(tab=tab, acc=acc, acc0=acc0):
+                return (tab.clone(), g["w0"].clone(), acc.clone(),
+                        acc0.clone())
+
+            def x9b(variant, inp, m=m):
+                fn = (ks.sgd_apply_dense if variant == "kernel"
+                      else ks.sgd_apply_plain)
+                fn(*inp, m)
+                return list(inp)
+
+            add("sgd_apply", f"dense window {sh['label']} D_loc={D_loc}",
+                x9b_prepare, x9b,
+                cost(D_loc * ((1 + K) * 8 + (2 + K) * 8) + 16,
+                     D_loc * (1 + K) * 8))
+
+
+def tp_sgd_tensors(tag: str, tab, w0, batch, modes, timed: bool) -> dict:
+    """T11's and X9b's dense form's inputs: ``batch`` (ids, vals, valid)
+    on the table ``tab`` [D, 1+K] cut into the windows of Sf = 2 (an odd D
+    leaves the second a padding row) and of Sf = 1, each window's partials
+    as the feature all-reduce leaves them (T1's twin summed over the
+    windows); ``modes``: (name, StepMode, the loss's targets)."""
+    from svbfm_tpu_torch.kernels import fm_forward as k1
+
+    D, K = tab.shape[0], tab.shape[1] - 1
+    ids, vals = batch[:2]
+    shards = []
+    for Sf in (2, 1):
+        D_loc = -(-D // Sf)
+        padded = torch.nn.functional.pad(tab, (0, 0, 0, D_loc * Sf - D))
+        wins = [padded[f * D_loc:(f + 1) * D_loc].contiguous()
+                for f in range(Sf)]
+        part = sum(k1.tp_fm_partials_plain(w, K, False, ids, vals,
+                                           f * D_loc, D_loc)
+                   for f, w in enumerate(wins))
+        shards += [dict(label=f"Sf={Sf} shard {f}", tab=w, lo=f * D_loc,
+                        part=part) for f, w in enumerate(wins)]
+    return dict(tag=tag, timed=timed, tp_sgd=dict(
+        w0=w0, batch=batch, modes=modes, shards=shards))
+
+
+def tp_sgd_path_tensors(sgd, exp, device) -> dict:
+    """``tp_sgd_tensors`` at the feature-sharded SGD's shape: a batch of
+    the path's 1,024 train rows (ML-1M, K = 20) with a padding entry (id
+    0, x = 0) every 17th row and three valid = 0 rows, a random table,
+    X9a's four losses (the targets binarised at 3.5, the stars above 3 as
+    counts)."""
+    from svbfm_tpu_torch.learners.sgd import sgd_step_mode
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    D, K = sgd.cfg.num_attributes, sgd.cfg.num_factor
+    row = sgd.train_row
+    n = row.ids.shape[0]
+    idx = torch.randperm(n, generator=gen, device=device)[
+        : n // sgd.num_batches]
+    ids, vals, y, valid = (t.index_select(0, idx) for t in (
+        row.ids, row.vals, row.target, row.valid))
+    ids[::17, 1], vals[::17, 1], valid[-3:] = 0, 0.0, 0.0
+
+    def task_mode(task, lo, hi):
+        return sgd_step_mode(dataclasses.replace(
+            sgd.cfg, task=task, min_target=lo, max_target=hi))
+
+    modes = [("regression", sgd.mode, y), ("exp", exp.mode, y),
+             ("classification", task_mode(1, -1.0, 1.0),
+              torch.where(y > CLASS_THRESHOLD, 1.0, -1.0)),
+             ("poisson", task_mode(2, 0.0, 2.0),
+              torch.clamp(y - 3.0, min=0.0))]
+    tab = 0.1 * torch.randn(D, 1 + K, generator=gen, device=device)
+    return tp_sgd_tensors("tp-sgd", tab, torch.tensor(3.5, device=device),
+                          (ids, vals, valid), modes, True)
+
+
+def ragged_tp_sgd_tensors(device) -> dict:
+    """``tp_sgd_tensors`` on a small ragged batch: D = 31 (a padding row in
+    the second window of two), K = 5, 40 rows of 3 positions, the third a
+    padding entry in every other row, an x = 0 entry at a real id, two
+    valid = 0 rows, a NaN target (a non-finite multiplier)."""
+    from svbfm_tpu_torch.kernels import sgd_step as ks
+
+    rng = np.random.default_rng(31)
+    N, P, D, K = 40, 3, 31, 5
+
+    def t(a, dt=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
+
+    ids = np.stack([rng.integers(0, 12, N), rng.integers(12, D, N),
+                    rng.integers(0, D, N)], 1)
+    vals = rng.uniform(0.5, 1.5, (N, P))
+    ids[::2, 2], vals[::2, 2] = 0, 0.0
+    vals[1, 2] = 0.0
+    valid = np.ones(N)
+    valid[-2:] = 0.0
+    y = rng.uniform(1, 5, N)
+    y[2] = np.nan
+    common = dict(K=K, lr=0.05, min_target=1.0, max_target=5.0,
+                  base_w=0.9995, base_v=0.9995, w0_base=0.999)
+    modes = [("regression", ks.StepMode(ks.LOSS_REGRESSION, **common), t(y)),
+             ("exp", ks.StepMode(ks.LOSS_EXP, stdev=1.5, **common), t(y)),
+             ("classification", ks.StepMode(
+                 ks.LOSS_CLASSIFICATION, **dict(common, min_target=-1.0,
+                                                max_target=1.0)),
+              t(np.where(y > 3, 1.0, -1.0))),
+             ("poisson", ks.StepMode(ks.LOSS_POISSON, **dict(
+                 common, min_target=0.0, max_target=2.0)),
+              t(np.clip(y - 3, 0, None)))]
+    return tp_sgd_tensors("ragged-tp-sgd", t(rng.normal(0, 0.3, (D, 1 + K))),
+                          torch.tensor(0.3, device=device),
+                          (t(ids, np.int32), t(vals), t(valid)), modes,
+                          False)
+
+
 def x9c_case(add, label: str, tab, grad_tab, w0, reg_w, reg_v, attr_group,
              val, m, max_blocks: int = 0) -> None:
     """X9c on the validation batch ``val`` in step mode ``m``, its cluster
@@ -3192,7 +3400,7 @@ def ragged_tensors(device) -> list:
             *ragged_mwin_tensors(device), ragged_probit_tensors(device),
             serve_tensors(device, ragged=True),
             *(ragged_tp_tensors(device, K) for K in (3, 5)),
-            ragged_tp_ovb_tensors(device)]
+            ragged_tp_ovb_tensors(device), ragged_tp_sgd_tensors(device)]
 
 
 def ragged_tp_tensors(device, K: int) -> dict:
@@ -4000,13 +4208,35 @@ def serve_tensors(device, ragged: bool = False) -> dict:
     f = np.arange(wb.shape[0])
     wb[f % 11 == 0], wb[f % 13 == 1], wb[f % 17 == 2] = np.inf, -np.inf, np.nan
     bad_vals[::9, 0] = np.nan
-    return dict(tag="ragged" if ragged else "serve", timed=not ragged,
-                serve=dict(
+    sv = dict(
         tab=score_table(t(w).to(device), t(v).to(device)),
         bad_tab=score_table(t(wb).to(device), t(v).to(device)),
         w0=torch.tensor(w0, dtype=torch.float32, device=device),
         ids=t(ids).to(device), vals=t(vals).to(device),
-        bad_ids=t(bad_ids).to(device), bad_vals=t(bad_vals).to(device)))
+        bad_ids=t(bad_ids).to(device), bad_vals=t(bad_vals).to(device))
+    # T12 on the partials of the same rows, summed over two feature shards
+    # as the mesh's all-reduce leaves them, each mode; and on the poisoned
+    # rows' (NaN, +-Inf scores), untimed
+    from svbfm_tpu_torch.kernels import fm_forward as k1
+
+    def partials(tab, ids, vals):
+        D, K = tab.shape[0], tab.shape[1] - 1
+        D_loc = -(-D // 2)
+        padded = torch.nn.functional.pad(tab, (0, 0, 0, 2 * D_loc - D))
+        return sum(k1.tp_fm_partials_plain(
+            padded[f * D_loc:(f + 1) * D_loc], K, False, ids, vals,
+            f * D_loc, D_loc) for f in (0, 1))
+
+    good = partials(sv["tab"], sv["ids"], sv["vals"])
+    bad = partials(sv["bad_tab"], sv["bad_ids"], sv["bad_vals"])
+    tp_serve = [(f"{name}{tag}", part, sv["w0"], mode, timed)
+                for name, mode in (("clamp", k1.SERVE_CLAMP),
+                                   ("probit", k1.SERVE_PROBIT),
+                                   ("score", k1.SERVE_SCORE))
+                for tag, part, timed in (("", good, True),
+                                         (" poisoned", bad, False))]
+    return dict(tag="ragged" if ragged else "serve", timed=not ragged,
+                serve=sv, tp_serve=tp_serve)
 
 
 def serve_phase(build, card: str, dev) -> dict:
@@ -4017,7 +4247,8 @@ def serve_phase(build, card: str, dev) -> dict:
     bit for bit, and the probit scorer's probabilities against the twin;
     the device-resident rate over 8 distinct batches on the card, one
     fetch at the end; the host's fill of a pinned slot and one batch's
-    copy to the card, timed alone.  Returns the serve run's launches."""
+    copy to the card, timed alone.  Returns the serve run's launches, its
+    predictions and its end-to-end rows/s."""
     from svbfm_tpu_torch.learners.base import TASK_CLASSIFICATION
     from svbfm_tpu_torch.serve import BatchScorer
 
@@ -4106,7 +4337,7 @@ def serve_phase(build, card: str, dev) -> dict:
         window_equals_one_shot=True,
         launches=json.dumps({k: c for k, c in launches.items() if c},
                             separators=(",", ":")), card=repr(card))
-    return launches
+    return launches, out, e2e
 
 
 def ckpt_phase(dev, runs: dict) -> None:
@@ -4816,7 +5047,8 @@ def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
                base_cfg, sgda_split) -> tuple:
     """Phases 20-27, the SGD family; ``sgda_split`` holds SGDA's train and
     validation datasets.  Returns the launch counts of the driven runs of
-    sgd, sgd-online, exp-sgd-stoc, sgda and bpr."""
+    sgd, sgd-online, exp-sgd-stoc, sgda and bpr, sgd-online's sec/epoch,
+    and [sgd]'s history, sec/epoch and profiled device µs an epoch."""
     from svbfm_tpu_torch.learners.base import FMConfig
     from svbfm_tpu_torch.learners.draws import host_draws
     from svbfm_tpu_torch.learners.sgd import (SGDALearner, SGDLearner,
@@ -4950,11 +5182,12 @@ def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
         sgda_sec_per_iter=med(hqa))
 
     # ---- 27. where an SGD epoch's and an SGDA iteration's device time goes -
-    profile_run(lambda: sgd.run(sstate, num_iter=1, verbose=False), 1,
-                "epoch", "sgd-profile")
+    sgd_us = profile_run(lambda: sgd.run(sstate, num_iter=1, verbose=False),
+                         1, "epoch", "sgd-profile")
     profile_run(lambda: sgda.epoch(astate, 1), 1, "iteration",
                 "sgda-profile", focus=("sgda_lambda",))
-    return l_sgd, l_online, l_exp, l_sgda, l_bpr, f"{med(ho)}"
+    return (l_sgd, l_online, l_exp, l_sgda, l_bpr, f"{med(ho)}",
+            dict(hist=hs, sec=med(hs), us=sgd_us))
 
 
 def bs_problem(rows: int, slots: int, holdout: bool) -> dict:
@@ -5215,7 +5448,6 @@ def tp_phases(build, card, dev, train, test, meta, base_cfg, plan) -> tuple:
     resident VB on the card).  Returns the launch counts of the two driven
     runs."""
     import torch.distributed as dist
-    import torch.multiprocessing as mp
 
     from svbfm_tpu_torch.learners.base import FMConfig, group_sum
     from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
@@ -5291,20 +5523,8 @@ def tp_phases(build, card, dev, train, test, meta, base_cfg, plan) -> tuple:
     t0 = time.perf_counter()
     work = ooc_work("tp-ranks")
     out = os.path.join(work, "rank0.json")
-    ctx = mp.start_processes(tp_rank_child, args=(
-        os.path.join(work, "store"), out), nprocs=TP_RANKS, join=False,
-        start_method="spawn")
-    deadline = time.monotonic() + TP_RANKS_TIMEOUT
-    try:
-        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"tp-vb-ranks: the ranks ran past "
-                                     f"{TP_RANKS_TIMEOUT} s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-                proc.join()
+    spawn_ranks(tp_rank_child, TP_RANKS,
+                (os.path.join(work, "store"), out), "tp-vb-ranks")
     with open(out) as f:
         got = json.load(f)
     missing = [k for k in PATH_KERNELS["tp-vb"] if got["launches"][k] == 0]
@@ -5381,7 +5601,6 @@ def tp_mcmc_phases(build, card, dev, train, test, meta, base_cfg,
     card, a (2, 2) mesh, beside the world of one).  Returns the launch
     counts of the driven runs."""
     import torch.distributed as dist
-    import torch.multiprocessing as mp
 
     from svbfm_tpu_torch.learners.base import FMConfig
     from svbfm_tpu_torch.learners.draws import host_draws
@@ -5488,20 +5707,8 @@ def tp_mcmc_phases(build, card, dev, train, test, meta, base_cfg,
     del one
     rwork = ooc_work("tp-mcmc-ranks")
     out = os.path.join(rwork, "rank0.json")
-    ctx = mp.start_processes(tp_mcmc_rank_child, args=(
-        os.path.join(rwork, "store"), out), nprocs=TP_RANKS, join=False,
-        start_method="spawn")
-    deadline = time.monotonic() + TP_RANKS_TIMEOUT
-    try:
-        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"tp-mcmc-ranks: the ranks ran past "
-                                     f"{TP_RANKS_TIMEOUT} s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-                proc.join()
+    spawn_ranks(tp_mcmc_rank_child, TP_RANKS,
+                (os.path.join(rwork, "store"), out), "tp-mcmc-ranks")
     with open(out) as f:
         got = json.load(f)
     missing = [k for k in TP_MCMC_KERNELS if got["launches"][k] == 0]
@@ -5588,7 +5795,6 @@ def tp_ovb_phases(build, card, dev, train, test, meta, base_cfg, ho,
     mesh, beside the world of one).  Returns the launch counts of the
     driven runs and the device µs of the profiled epoch."""
     import torch.distributed as dist
-    import torch.multiprocessing as mp
 
     from svbfm_tpu_torch.learners.base import FMConfig
     from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh2d
@@ -5655,20 +5861,8 @@ def tp_ovb_phases(build, card, dev, train, test, meta, base_cfg, ho,
     del one
     rwork = ooc_work("tp-ovb-ranks")
     out = os.path.join(rwork, "rank0.json")
-    ctx = mp.start_processes(tp_ovb_rank_child, args=(
-        os.path.join(rwork, "store"), out), nprocs=TP_RANKS, join=False,
-        start_method="spawn")
-    deadline = time.monotonic() + TP_RANKS_TIMEOUT
-    try:
-        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"tp-ovb-ranks: the ranks ran past "
-                                     f"{TP_RANKS_TIMEOUT} s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
-                proc.join()
+    spawn_ranks(tp_ovb_rank_child, TP_RANKS,
+                (os.path.join(rwork, "store"), out), "tp-ovb-ranks")
     with open(out) as f:
         got = json.load(f)
     missing = [k for k in TP_OVB_KERNELS if got["launches"][k] == 0]
@@ -5688,6 +5882,269 @@ def tp_ovb_phases(build, card, dev, train, test, meta, base_cfg, ho,
                              for k in TP_OVB_KERNELS},
                             separators=(",", ":")))
     return (l_tpo,), us
+
+
+def tp_sgd_ranks_learner(mesh):
+    """The [tp-sgd-ranks] recipe's feature-sharded SGD on ``mesh``: 100k
+    rows of the ML-1M recipe, K = 8, batch 1024."""
+    from svbfm_tpu_torch.parallel.tp_sgd import TPSGDLearner
+
+    tr1, _, train1, test1, meta1 = ml_data(TP_RANKS_ROWS)
+    return TPSGDLearner(tp_ranks_cfg(tr1, meta1), train1, test1, meta1,
+                        mesh=mesh)
+
+
+def mesh_scorers(mesh, task: int, batch_rows: int) -> dict:
+    """[serve]'s model in a BatchScorer over ``mesh``, replicated (False)
+    and feature-sharded (True)."""
+    from svbfm_tpu_torch.serve import BatchScorer
+
+    w0, w, v = serve_model()
+    return {fs: BatchScorer(w0, w, v, mesh=mesh, feature_sharded=fs,
+                            task=task, batch_rows=batch_rows,
+                            min_target=SERVE_LO, max_target=SERVE_HI)
+            for fs in (False, True)}
+
+
+def tp_sgd_rank_child(rank: int, world: int, store: str, out: str) -> None:
+    """One of [tp-sgd-ranks]' gloo ranks on the card.  ``world`` 4: the
+    feature-sharded SGD on a (1, 4) and a (2, 2) mesh, TP_SGD_RANKS_EPOCHS
+    epochs of the 100k-row recipe from the seed's init, then
+    [serve-mesh]'s BatchScorer over the four ranks, replicated and
+    feature-sharded, clamp and probit, on SERVE_MESH_RANK_ROWS of [serve]'s
+    rows; ``world`` 2: the (2, 1) mesh.  Rank 0 writes each run's history
+    and launch counts to ``out`` (JSON) and the predictions beside it
+    (npz)."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.parallel.mesh import (distributed_init, make_mesh,
+                                               make_mesh2d)
+
+    distributed_init(init_method=f"file://{store}", world_size=world,
+                     rank=rank, backend="gloo", device="cuda")
+    runs = {}
+    for shape in ((1, 4), (2, 2)) if world == 4 else ((2, 1),):
+        tp = tp_sgd_ranks_learner(make_mesh2d(*shape, device="cuda"))
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        _, hist = tp.run(num_iter=TP_SGD_RANKS_EPOCHS, verbose=False)
+        torch.cuda.synchronize()
+        runs["x".join(map(str, shape))] = dict(
+            hist=[{k: h[k] for k in ("rmse", "mae", "time_learn", "iter")}
+                  for h in hist], launches=dict(build.launch_counts))
+    preds = {}
+    if world == 4:
+        mesh = make_mesh(device="cuda")
+        ids, vals = serve_rows(0, SERVE_MESH_RANK_ROWS)
+        build.reset_launch_counts()
+        for task in (0, 1):
+            for fs, sc in mesh_scorers(mesh, task, 1 << 15).items():
+                preds[f"task{task}_fs{int(fs)}"] = sc.score_rows(ids, vals)
+        torch.cuda.synchronize()
+        runs["serve"] = dict(launches=dict(build.launch_counts))
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(runs, f)
+        np.savez(out + ".npz", **preds)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_ranks(child, nprocs: int, args: tuple, what: str) -> None:
+    """``nprocs`` spawned processes running ``child(rank, *args)``; fails
+    where one fails or they run past TP_RANKS_TIMEOUT."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(child, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + TP_RANKS_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: the ranks ran past "
+                                     f"{TP_RANKS_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
+def serve_gap(got: np.ndarray, want: np.ndarray, what: str) -> float:
+    """The largest |got - want| / |want|; fails past SERVE_MESH_RTOL."""
+    rel = float(np.max(np.abs(got.astype(np.float64) - want)
+                       / np.abs(want.astype(np.float64))))
+    if not rel <= SERVE_MESH_RTOL:
+        raise AssertionError(f"{what}: {rel:.3e} relative, more than "
+                             f"{SERVE_MESH_RTOL}")
+    return rel
+
+
+def tp_sgd_phases(build, card, dev, sgd, sgd_ref, train, test, meta,
+                  served, serve_e2e) -> tuple:
+    """[tp-sgd] (the feature-sharded SGD on NCCL with a world of one at
+    [sgd]'s width and batch, as many epochs from the same init and
+    permutations, the RMSE trajectory within TP_SGD_RTOL of [sgd]'s; card
+    against CPU on the 100k-row recipe; sec/epoch beside [sgd]'s),
+    [tp-sgd-profile] and [tp-sgd-device] (an epoch's device time beside
+    [sgd-profile]'s), [serve-mesh] (BatchScorer over the world of one at
+    [serve]'s shape: replicated the same bits as [serve]'s predictions,
+    feature-sharded within SERVE_MESH_RTOL; rows/s beside [serve]'s) and
+    [tp-sgd-ranks] with [serve-mesh-ranks] (four gloo ranks on the card: a
+    (1, 4) mesh beside the world of one, a (2, 2) beside a (2, 1) on two
+    more ranks; the scorer over the four ranks, clamp and probit, beside
+    the one-card scorer).  Returns the launch counts of the driven
+    [tp-sgd] and [serve-mesh] runs."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.models.fm import init_fm_params
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_sgd import TPSGDLearner
+    from svbfm_tpu_torch.serve import BatchScorer
+
+    t0 = time.perf_counter()
+    work = ooc_work("tp-sgd")
+    distributed_init(init_method=f"file://{os.path.join(work, 'store')}",
+                     world_size=1, rank=0, backend="nccl", device="cuda")
+    mesh = make_mesh2d(device="cuda")
+    tp = TPSGDLearner(sgd.cfg, train, test, meta, mesh=mesh)
+    hs = sgd_ref["hist"]
+    (tstate, ht), l_tps = drive(build, "tp-sgd", lambda: tp.run(
+        tp.init_state(), num_iter=len(hs), verbose=False))
+    check_sgd_history(ht, "tp-sgd")
+    worst = compare_traj(ht, hs, ("rmse", "mae"), TP_SGD_RTOL,
+                         "tp-sgd vs resident sgd")
+    # card against CPU on the 100k-row recipe, one host-drawn epoch
+    tr1, _, train1, test1, meta1 = ml_data(TP_RANKS_ROWS)
+    cfg1 = tp_ranks_cfg(tr1, meta1)
+    p1 = init_fm_params(torch.Generator().manual_seed(SEED),
+                        cfg1.num_attributes, cfg1.num_factor,
+                        init_stdev=cfg1.init_stdev)
+    hists = []
+    for m in (mesh, make_mesh2d(device="cpu")):
+        lr = TPSGDLearner(cfg1, train1, test1, meta1, mesh=m)
+        hists.append(lr.run(lr.state_from_params(
+            p1.w0, p1.w, p1.v, host_draws(SEED, lr.device)), num_iter=1,
+            verbose=False)[1])
+    worst_cpu = compare_traj(*hists, ("rmse", "mae"), SGD_TRAJ_RTOL,
+                             "tp-sgd gpu vs cpu")
+    del lr
+    say("tp-sgd", t0, backend=dist.get_backend(),
+        world=dist.get_world_size(), mesh="1x1", epochs=len(ht),
+        batches_per_epoch=tp.num_batches,
+        sec_per_epoch=f"{statistics.median(h['time_learn'] for h in ht[1:]):.6f}",
+        resident_sec_per_epoch=sgd_ref["sec"],
+        rmse=",".join(f"{h['rmse']:.5f}" for h in ht), max_rel=f"{worst:.3e}",
+        rtol=TP_SGD_RTOL, gpu_vs_cpu_rows=tr1.num_rows,
+        gpu_vs_cpu_max_rel=f"{worst_cpu:.3e}", cpu_rtol=SGD_TRAJ_RTOL,
+        launches_per_epoch=json.dumps({k: l_tps[k] // len(ht)
+                                       for k in TP_SGD_KERNELS},
+                                      separators=(",", ":")),
+        card=repr(card))
+    t0 = time.perf_counter()
+    us = profile_run(lambda: tp.run(tstate, num_iter=1, verbose=False), 1,
+                     "epoch", "tp-sgd-profile",
+                     focus=("tp_partials", "sgd_grad_scatter",
+                            "sgd_apply_dense"))
+    say("tp-sgd-device", t0, device_ms_per_epoch=f"{us / 1e3:.3f}",
+        resident_device_ms_per_epoch=f"{sgd_ref['us'] / 1e3:.3f}",
+        ratio=f"{us / sgd_ref['us']:.3f}", card=repr(card))
+    del tp, tstate
+
+    # ---- serving over the world of one, at [serve]'s shape ------------------
+    t0 = time.perf_counter()
+    ids, vals = serve_rows(0, SERVE_ROWS)
+    scorers = mesh_scorers(mesh, 0, SERVE_BATCH)
+    warm = 2 * SERVE_BATCH  # both slots' pinned buffers, made once
+    for sc in scorers.values():
+        sc.score_rows(ids[:warm], vals[:warm])
+    preds, rates = {}, {}
+
+    def both():
+        for fs, sc in scorers.items():
+            t1 = time.perf_counter()
+            preds[fs] = sc.score_rows(ids, vals)
+            rates[fs] = SERVE_ROWS / (time.perf_counter() - t1)
+    _, l_smesh = drive(build, "serve-mesh", both)
+    if not np.array_equal(preds[False], served):
+        raise AssertionError("serve-mesh: the replicated scorer's bits "
+                             "differ from [serve]'s")
+    gap = serve_gap(preds[True], served, "serve-mesh feature-sharded")
+    del scorers, preds
+    say("serve-mesh", t0, rows=SERVE_ROWS, batch_rows=SERVE_BATCH,
+        backend=dist.get_backend(), world=dist.get_world_size(),
+        replicated_rows_per_s=f"{rates[False]:.0f}",
+        sharded_rows_per_s=f"{rates[True]:.0f}",
+        serve_rows_per_s=f"{serve_e2e:.0f}", replicated_same_bits=True,
+        sharded_max_rel=f"{gap:.3e}", rtol=SERVE_MESH_RTOL,
+        launches=json.dumps({k: c for k, c in l_smesh.items() if c},
+                            separators=(",", ":")), card=repr(card))
+
+    # ---- several gloo ranks on the card, beside the world of one -----------
+    t0 = time.perf_counter()
+    one = tp_sgd_ranks_learner(mesh)
+    _, h1 = one.run(num_iter=TP_SGD_RANKS_EPOCHS, verbose=False)
+    del one
+    sids, svals = serve_rows(0, SERVE_MESH_RANK_ROWS)
+    w0, w, v = serve_model()
+    want = {task: BatchScorer(w0, w, v, device=dev, task=task,
+                              min_target=SERVE_LO, max_target=SERVE_HI
+                              ).score_rows(sids, svals) for task in (0, 1)}
+    dist.destroy_process_group()
+    got, preds = {}, None
+    for world in (4, 2):
+        rwork = ooc_work(f"tp-sgd-ranks-{world}")
+        out = os.path.join(rwork, "rank0.json")
+        spawn_ranks(tp_sgd_rank_child, world, (world, os.path.join(
+            rwork, "store"), out), "tp-sgd-ranks")
+        with open(out) as f:
+            got.update(json.load(f))
+        if world == 4:
+            with np.load(out + ".npz") as z:
+                preds = dict(z)
+    for name in ("1x4", "2x2", "2x1"):
+        missing = [k for k in TP_SGD_KERNELS
+                   if got[name]["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"tp-sgd-ranks {name}: kernels never "
+                                 f"launched: {missing}")
+    w14 = compare_traj(got["1x4"]["hist"], h1, ("rmse", "mae"), TP_RTOL,
+                       "tp-sgd-ranks (1, 4) vs the world of one")
+    w22 = compare_traj(got["2x2"]["hist"], got["2x1"]["hist"],
+                       ("rmse", "mae"), TP_RTOL,
+                       "tp-sgd-ranks (2, 2) vs (2, 1)")
+    say("tp-sgd-ranks", t0, ranks="4+2", backend="gloo", device=str(dev),
+        K=TP_RANKS_K, epochs=TP_SGD_RANKS_EPOCHS,
+        **{f"sec_per_epoch_{n}": ",".join(
+            f"{h['time_learn']:.6f}" for h in got[n]["hist"])
+           for n in ("1x4", "2x2", "2x1")},
+        rmse_1x4=",".join(f"{h['rmse']:.5f}" for h in got["1x4"]["hist"]),
+        max_rel_1x4_vs_one=f"{w14:.3e}", max_rel_2x2_vs_2x1=f"{w22:.3e}",
+        rtol=TP_RTOL,
+        launches_1x4=json.dumps({k: got["1x4"]["launches"][k]
+                                 for k in TP_SGD_KERNELS},
+                                separators=(",", ":")))
+    t0 = time.perf_counter()
+    missing = [k for k in PATH_KERNELS["serve-mesh"]
+               if got["serve"]["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"serve-mesh-ranks: kernels never launched: "
+                             f"{missing}")
+    gaps = {}
+    for task in (0, 1):
+        if not np.array_equal(preds[f"task{task}_fs0"], want[task]):
+            raise AssertionError(f"serve-mesh-ranks task {task}: the "
+                                 "replicated scorer's bits differ from the "
+                                 "one-card scorer's")
+        gaps[task] = serve_gap(preds[f"task{task}_fs1"], want[task],
+                               f"serve-mesh-ranks task {task} sharded")
+    say("serve-mesh-ranks", t0, ranks=4, backend="gloo",
+        rows=SERVE_MESH_RANK_ROWS, batch_rows=1 << 15,
+        replicated_same_bits=True, sharded_clamp_max_rel=f"{gaps[0]:.3e}",
+        sharded_probit_max_rel=f"{gaps[1]:.3e}", rtol=SERVE_MESH_RTOL)
+    return l_tps, l_smesh
 
 
 def ooc_work(name: str) -> str:
@@ -6281,6 +6738,7 @@ def main() -> int:
         check_cases(mwin_tensors(mwin, mwin1, "mcmc-windowed"), timed=True),
         check_cases(tp_tensors(learner, vb0), timed=True),
         check_cases(tp_ovb_tensors(ovb, ovb0), timed=True),
+        check_cases(tp_sgd_path_tensors(sgd, exp_sgd, dev), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
     del mc1, bs1, win, win0, mwin, mwin1
     missing = sorted(set(SOURCES) - set(report))
@@ -6297,7 +6755,7 @@ def main() -> int:
     say("x9b-digest", t0, **x9b_digests(dev))
 
     # ---- 2b. the serving path: BatchScorer on K1a's serve epilogue ----------
-    l_serve = serve_phase(build, card, dev)
+    l_serve, served, serve_e2e = serve_phase(build, card, dev)
 
     # ---- 3. batch VB, fast mode, on the card ---------------------------------
     t0 = time.perf_counter()
@@ -6577,9 +7035,15 @@ def main() -> int:
                      "ovb": (ovb, {}, None),
                      "sgd": (sgd, {}, (SGD_TRAJ_RTOL, SGD_PARAM_ATOL))})
 
-    l_sgd, l_online, l_exp, l_sgda, l_bpr, online_sec = sgd_phases(
+    l_sgd, l_online, l_exp, l_sgda, l_bpr, online_sec, sgd_ref = sgd_phases(
         build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
         base_cfg, (tr90, va10))
+
+    # ---- 27b. the feature-sharded SGD (T1, T11, X9b dense) and serving
+    # over a mesh (X11 replicated; T1 and T12 feature-sharded) ------------
+    l_tps, l_smesh = tp_sgd_phases(build, card, dev, sgd, sgd_ref, train,
+                                   test, meta, served, serve_e2e)
+    del served
 
     # ---- 28. full-batch exp_sgd, factor_block 0, 5 sweeps ------------------
     t0 = time.perf_counter()
@@ -6617,7 +7081,7 @@ def main() -> int:
                        plan, ovb_ref, online_sec)
 
     runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, *l_tpm, l_ovb, *l_tpo,
-            l_mcmc, *l_als, l_probe, l_sgd,
+            l_mcmc, *l_als, l_probe, l_sgd, l_tps, l_smesh,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
             l_bs_nine, l_bs_k64, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}

@@ -27,8 +27,9 @@ vb_online iterations under ``-task c`` and prints the final ``MAP@k``;
 ``-profile DIR`` writes a ``torch.profiler`` Chrome trace of the training
 run to DIR/trace.json.  ``-feature_shards S`` trains batch VB (fast mode,
 regression; ``parallel/tp_vb.py``), online VB (in memory, fixed chunk
-membership, regression; ``parallel/tp_ovb.py``) or Gibbs MCMC and ALS
-(regression and ``-task c``; ``parallel/tp_mcmc.py``) with the tables
+membership, regression; ``parallel/tp_ovb.py``), Gibbs MCMC and ALS
+(regression and ``-task c``; ``parallel/tp_mcmc.py``) or minibatch SGD
+(every task; ``parallel/tp_sgd.py``) with the tables
 sharded over S ranks of a (data, feature) mesh of every rank, and
 ``-distributed 1`` joins
 the ranks' process group from ``SVBFM_COORDINATOR``,
@@ -114,12 +115,12 @@ Flags (-name value):
   -map_k       k of MAP@k; default=5
   -profile     directory for a torch.profiler trace (trace.json) of the
                training run
-  -feature_shards  vb, vb_online, mcmc, als: shard the tables over this
+  -feature_shards  vb, vb_online, mcmc, als, sgd: shard the tables over this
                many ranks (vb: fast mode, -task r; vb_online: -task r,
                in memory); must divide the world size; default=1
   -distributed 1 = join the process group of SVBFM_COORDINATOR,
                SVBFM_NUM_PROCESSES, SVBFM_PROCESS_ID (vb, vb_online, mcmc,
-               als); default=0
+               als, sgd); default=0
   -verbosity   how much to print; default=0
   -device      torch device to train on; default=cuda (cpu runs the
                kernels' plain PyTorch twins)
@@ -156,7 +157,7 @@ FLAG_METHODS = {
 
 _Q1 = "ROADMAP.md queue 1"
 # the methods that run feature-sharded or on several ranks
-TP_METHODS = ("vb", "vb_online", "mcmc", "als")
+TP_METHODS = ("vb", "vb_online", "mcmc", "als", "sgd")
 METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 # the methods that read -task p (svbfm_tpu/learners/sgd.py:87-100)
 POISSON_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd_stoc")
@@ -287,12 +288,11 @@ def main(argv: Optional[list[str]] = None) -> int:
     distributed = cmd.get_int("distributed", 0) != 0
     for name in ("feature_shards", "distributed"):
         if cmd.has(name) and method not in TP_METHODS:
-            # sgd's feature-sharded learner and the other methods'
-            # data-parallel replicas are still to port
-            item = "13.3" if method == "sgd" else "13.4"
-            raise SystemExit(f"-{name} runs -method vb, vb_online, mcmc and "
-                             f"als alone so far; for -method {method} it is "
-                             f"not ported ({_Q1}, item {item})")
+            # the other methods' data-parallel replicas are still to port
+            # (svbfm_tpu/cli.py:349-354 refuses them -feature_shards)
+            raise SystemExit(f"-{name} runs -method vb, vb_online, mcmc, als "
+                             f"and sgd alone so far; for -method {method} it "
+                             f"is not ported ({_Q1}, item 13.4)")
     if fs > 1 and cmd.has("relation"):  # svbfm_tpu/cli.py:356-358
         raise SystemExit("-feature_shards is not supported with -relation "
                          "block structure")
@@ -544,6 +544,12 @@ def main(argv: Optional[list[str]] = None) -> int:
         else:
             learner = OVBLearner(cfg, tr_ds, te_ds, meta, device=device,
                                  bins=bins)
+    elif method == "sgd" and tp:
+        from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+        from svbfm_tpu_torch.parallel.tp_sgd import TPSGDLearner
+        learner = TPSGDLearner(cfg, tr_ds, te_ds, meta,
+                               mesh=make_mesh2d(n_feature=fs, device=device),
+                               write_files=True)
     elif method == "sgda":
         from svbfm_tpu_torch.learners.sgd import SGDALearner
         val = load_libfm_text(cmd.get_str("validation"))

@@ -1,7 +1,8 @@
 // K1: FM score and VBFM T-term forward over the padded row layout; in its
 // relations mode, X10d's block-structure scores (bs_scores, below); with an
 // output epilogue, the serving path's scores (svbfm_fm_serve); over one
-// feature shard, T1's partial sums (tp_partials_kernel, at the end).
+// feature shard, T1's partial sums (tp_partials_kernel), and T12, their
+// finalize with the serve epilogue (tp_serve_kernel, at the end).
 //
 // Replaces svbfm_tpu/ops/forward.py:fm_scores and :fm_t_terms (XLA gather
 // chains).  Per row n of ids/vals [N, P]:
@@ -467,6 +468,40 @@ int launch_tp_partials(const float* tab, int64_t ld, int K, int64_t lo,
   return static_cast<int>(cudaGetLastError());
 }
 
+// T12: the feature-sharded scorer's finalize with the serve epilogue
+// (svbfm_tpu/serve.py:129-136 and :147-155): from T1's partials part
+// [N, 1 + 2K] summed over the shards, out[n] = serve_out<kOut>(lin +
+// 1/2 sum_f (s_f^2 - s2_f) + w0), the square after the sum.  A warp a row,
+// lanes over the factors, their terms summed by a shuffle; lane 0 writes.
+template <int kOut>
+__global__ void __launch_bounds__(kThreads)
+    tp_serve_kernel(const float* __restrict__ part, int K,
+                    const float* __restrict__ w0, int64_t N, float lo,
+                    float hi, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t n =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (n >= N) return;  // the whole warp leaves together
+  const float* row = part + n * (1 + 2 * static_cast<int64_t>(K));
+  float q = 0.f;
+  for (int f = lane; f < K; f += 32) {
+    const float s = row[1 + f];
+    q += s * s - row[1 + K + f];
+  }
+  q = svbfm::warp_sum(q);
+  if (lane == 0) out[n] = serve_out<kOut>(row[0] + 0.5f * q + *w0, lo, hi);
+}
+
+template <int kOut>
+int launch_tp_serve(const float* part, int K, const float* w0, int64_t N,
+                    float lo, float hi, float* out, cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((N * 32 + kThreads - 1) / kThreads);
+  tp_serve_kernel<kOut><<<blocks, kThreads, 0, stream>>>(part, K, w0, N, lo,
+                                                         hi, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // tab [D, 1+K] = (w | v^T) at row stride ld; w0 a device scalar; out [N]
@@ -545,4 +580,24 @@ SVBFM_EXPORT int svbfm_tp_fm_partials(const float* tab, int64_t ld, int K,
                                             N, P, out, stream)
                  : launch_tp_partials<false>(tab, ld, K, lo, D_loc, ids,
                                              vals, N, P, out, stream);
+}
+
+// T12: predictions out [N] from the partials part [N, 1 + 2K] (lin | s |
+// s2) summed over the feature shards and w0 (a device scalar, 0 with k0
+// off); mode and lo/hi as svbfm_fm_serve's.
+SVBFM_EXPORT int svbfm_tp_serve(const float* part, int K, const float* w0,
+                                int64_t N, int mode, float lo, float hi,
+                                float* out, cudaStream_t stream) {
+  if (N == 0) return 0;
+  switch (mode) {
+    case kOutScore:
+      return launch_tp_serve<kOutScore>(part, K, w0, N, lo, hi, out, stream);
+    case kOutClamp:
+      return launch_tp_serve<kOutClamp>(part, K, w0, N, lo, hi, out, stream);
+    case kOutProbit:
+      return launch_tp_serve<kOutProbit>(part, K, w0, N, lo, hi, out,
+                                         stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

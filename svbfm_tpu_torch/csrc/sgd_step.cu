@@ -67,6 +67,19 @@
 //   winner is -1.  Entries with x = 0, rows with valid = 0 and negatives
 //   equal to the positive item are in the list, so whatever they add is
 //   applied.
+// T11 tp_sgd_scatter (svbfm_tpu/parallel/tp_sgd.py:91-131): X9a's kernel
+//   in a window mode (its template parameter kWindow) for the
+//   feature-sharded SGD, whose table holds one feature shard, the ids
+//   [lo, lo + D_loc) at local rows 0 .. D_loc - 1.  The row is not scored
+//   from the table: T1's partials (lin | s_f | s2_f) of every shard,
+//   summed by the feature all-reduce, give p = w0 + lin + 1/2 sum_f (s_f^2
+//   - s2_f) (the square after the sum; lin left out with k1 off) and the
+//   global s_f.  A warp a row, lanes over factors: mult as X9a forms it,
+//   then each entry inside the window adds mult (s_f x - v_f x^2), v_f the
+//   local table's, its count and mult x at id - lo; an entry outside adds
+//   nothing and reads no table row.  No owner, no SGDA record, no pair
+//   mode: after the data all-reduce of acc the shard's rows hold other
+//   data shards' entries too, and X9b runs dense over the D_loc rows.
 // X9c sgda_lambda: one launch of one thread-block cluster of blocks of 16
 //   warps on neighbouring SMs, ceil(Bv/16) of them up to 16 (a
 //   non-portable size the H100 holds; 8 where a card cannot hold one of
@@ -105,6 +118,7 @@
 // rate sets its pace.  The TPU design avoided scatters (they serialise
 // there); here float atomics into L2-resident tables take their place.
 #include <algorithm>
+#include <type_traits>
 
 #include "svbfm_common.cuh"
 
@@ -163,6 +177,69 @@ struct Scatter {
   int* winner;
   int* owner;  // [D]: an entry of the batch naming each attribute
 };
+
+// T11's arguments: X9a's, the summed partials [B, 1 + 2K] and the window
+// [win_lo, win_lo + D_loc) of the shard's table.
+struct WindowScatter : Scatter {
+  const float* part;
+  int64_t win_lo;
+  int D_loc;
+};
+
+// The loss multiplier of a row scored p (every mode but pair), times
+// mult_scale and valid (svbfm_tpu/learners/sgd.py:87-100): X9a's, written
+// out again in its kernel so that its builds keep their instructions.
+__device__ __forceinline__ float loss_mult(const Scatter& a, float p,
+                                           float yb, float valid) {
+  if (a.loss == kLossExp) return a.mult_scale * (p / a.stdev - yb) * valid;
+  if (a.loss == kLossClass)
+    return a.mult_scale * yb * (1.f / (1.f + expf(-(yb * p))) - 1.f) * valid;
+  if (a.loss == kLossPoisson)
+    return a.mult_scale * (expf(clip_nan(p, a.min_t, a.max_t)) - yb) * valid;
+  return a.mult_scale * (clip_nan(p, a.min_t, a.max_t) - yb) * valid;
+}
+
+// T11: row b of X9a's window mode (see the top), by the warp's lanes;
+// returns the row's valid and multiplier for the block's acc0 sums.
+__device__ __forceinline__ void window_row(const WindowScatter& a, int64_t b,
+                                           int lane, float& n_eff,
+                                           float& msum) {
+  const int64_t ld = a.K + 1, la = a.K + 2, CH = 1 + 2 * int64_t{a.K};
+  const int* rid = a.ids + b * a.P;
+  const float* rx = a.vals + b * a.P;
+  const float* prow = a.part + b * CH;
+  const float valid = a.valid[b];
+  float q = 0.f;
+  for (int f = lane; f < a.K; f += 32) {
+    const float s = prow[1 + f];
+    q += s * s - prow[1 + a.K + f];
+  }
+  float p = (a.k1 ? prow[0] : 0.f) + 0.5f * svbfm::warp_sum(q);
+  if (a.k0) p += *a.w0;
+  const float mult = loss_mult(a, p, a.y[b], valid);
+  for (int f = lane; f < a.K; f += 32) {
+    const float s = prow[1 + f];
+    for (int e = 0; e < a.P; ++e) {
+      const int64_t loc = static_cast<int64_t>(__ldg(rid + e)) - a.win_lo;
+      if (loc < 0 || loc >= a.D_loc) continue;  // another shard's id
+      const float x = __ldg(rx + e);
+      const float v = __ldg(a.tab + loc * ld + 1 + f);
+      const float g = mult * (s * x - v * (x * x));
+      if (g != 0.f) atomicAdd(a.acc + loc * la + 2 + f, g);
+    }
+  }
+  for (int e = lane; e < a.P; e += 32) {
+    const int64_t loc = static_cast<int64_t>(__ldg(rid + e)) - a.win_lo;
+    if (loc < 0 || loc >= a.D_loc) continue;
+    const float x = __ldg(rx + e);
+    float* row = a.acc + loc * la;
+    if (x != 0.f && valid != 0.f) atomicAdd(row, valid);
+    const float gw = mult * x;
+    if (a.k1 && gw != 0.f) atomicAdd(row + 1, gw);
+  }
+  n_eff = valid;
+  msum = mult;
+}
 
 // A chunk of kP entries of a row as one lane holds them: ids, values, and
 // the table's w and factor f at each (tab is read through the read-only
@@ -231,16 +308,20 @@ __device__ __forceinline__ void add_chunk(const Scatter& a,
 // X9a: a warp a row (a pair in pair mode), lanes over factors.  The row's
 // entries are gathered once: with P <= kP and K <= 32 the registers hold
 // them from the score to the scatter; otherwise the scatter gathers them
-// again (the same values: each entry's gradient keeps its bits).
-template <int kP>
+// again (the same values: each entry's gradient keeps its bits).  kWindow:
+// T11, a row by window_row (kP unread), from WindowScatter's arguments.
+template <int kP, bool kWindow = false>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-    sgd_grad_scatter_kernel(Scatter a) {
+    sgd_grad_scatter_kernel(
+        std::conditional_t<kWindow, WindowScatter, Scatter> a) {
   __shared__ float red[2][kWarpsPerBlock];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t b =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
   float n_eff = 0.f, msum = 0.f;
-  if (b < a.B) {  // the whole warp takes the branch together
+  if constexpr (kWindow) {
+    if (b < a.B) window_row(a, b, lane, n_eff, msum);
+  } else if (b < a.B) {  // the whole warp takes the branch together
     const int64_t ld = a.K + 1, la = a.K + 2;
     const int* rid = a.ids + b * a.P;
     const float* rx = a.vals + b * a.P;
@@ -857,6 +938,28 @@ SVBFM_EXPORT int svbfm_sgd_grad_scatter(
   auto kernel =
       P <= 2 ? sgd_grad_scatter_kernel<2> : sgd_grad_scatter_kernel<4>;
   kernel<<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T11: X9a's window mode on rows ids/vals [B, P] (global ids) of a shard's
+// table tab [D_loc, 1+K] (ids [lo, lo + D_loc)), from their partials part
+// [B, 1 + 2K] summed over the feature shards; adds into acc [D_loc, 2+K]
+// and acc0 [2].  Every loss but pair.
+SVBFM_EXPORT int svbfm_tp_sgd_scatter(
+    const float* tab, int K, const float* w0, const int* ids, const float* vals,
+    const float* y, const float* valid, int64_t B, int P, const float* part,
+    int64_t win_lo, int D_loc, int loss, int k0, int k1, float mult_scale,
+    float min_t, float max_t, float stdev, float* acc, float* acc0,
+    cudaStream_t stream) {
+  if (loss == kLossPair) return static_cast<int>(cudaErrorInvalidValue);
+  WindowScatter a{{tab, K, w0, ids, vals, y, valid, B, P, loss, k0, k1,
+                   mult_scale, min_t, max_t, stdev, nullptr, 0, 0, acc,
+                   acc0, nullptr, nullptr, nullptr, nullptr},
+                  part, win_lo, D_loc};
+  const unsigned blocks = warp_blocks(B);
+  if (blocks == 0) return 0;
+  sgd_grad_scatter_kernel<2, true>
+      <<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

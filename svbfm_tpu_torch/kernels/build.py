@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # one source file per library; the kernels each library holds
 LIBRARIES = {
     "fm_forward": ("fm_scores", "fm_t_terms", "bs_scores", "fm_serve",
-                   "tp_fm_partials"),
+                   "tp_fm_partials", "tp_serve"),
     "vb_sweep": ("vb_build_qt", "vb_col_stats_update", "vb_patch_rows",
                  "w_patch_rows", "build_q", "vb_col_stats_window",
                  "tp_build_qt", "tp_col_stats", "tp_col_update",
@@ -50,7 +50,8 @@ LIBRARIES = {
                    "mcmc_col_draw_window", "tp_col_draw_stats", "tp_col_draw",
                    "tp_mcmc_patch_delta"),
     "gather_probe": ("gather_probe",),
-    "sgd_step": ("sgd_grad_scatter", "sgd_apply", "sgda_lambda"),
+    "sgd_step": ("sgd_grad_scatter", "sgd_apply", "sgda_lambda",
+                 "tp_sgd_scatter"),
     "bs_sweep": ("bs_join_agg", "bs_rel_draw", "bs_rel_w_draw",
                  "bs_rel_patch", "bs_rel_w_patch"),
     "bs_forward": ("bs_rel_moments", "bs_resync"),
@@ -146,6 +147,11 @@ SIGNATURES = {
     "svbfm_tp_w_ovb_blend": (_P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P),
     "svbfm_probit_eval": (_P, _P, _P, _L, _P, _P, _I, _F, _I, _P, _P, _P),
+    # T11, the feature-sharded SGD (parallel/tp_sgd.py), and T12, the
+    # feature-sharded scorer's finalize (serve.py)
+    "svbfm_tp_sgd_scatter": (_P, _I, _P, _P, _P, _P, _P, _L, _I, _P, _L, _I,
+                             _I, _I, _I, _F, _F, _F, _F, _P, _P, _P),
+    "svbfm_tp_serve": (_P, _I, _P, _L, _I, _F, _F, _P, _P),
 }
 
 launch_counts: dict[str, int] = {

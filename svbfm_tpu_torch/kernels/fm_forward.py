@@ -15,8 +15,11 @@ or Phi of them), fused into the same kernel.  ``tp_fm_partials`` (T1) is
 K1 over one feature shard's ids, writing the partial sums that the
 feature-sharded learners all-reduce before the square
 (``svbfm_tpu/parallel/tp_vb.py:tp_scores`` :229, ``:tp_t_terms`` :260,
-``parallel/tp.py:make_tp_scorer`` :51; the finalizes are in the port's
-``parallel/tp.py``).
+``parallel/tp.py:make_tp_scorer`` :51; the scores' finalize,
+``scores_from_partials``, is here, the T-terms' in the port's
+``parallel/tp.py``).  ``tp_serve_op`` (T12) is the feature-sharded
+scorer's finalize of T1's summed partials with ``fm_serve_op``'s
+epilogue (``svbfm_tpu/serve.py:129-136`` with ``:147-155``).
 """
 
 from __future__ import annotations
@@ -134,6 +137,26 @@ def serve_epilogue_plain(s: torch.Tensor, mode: int, lo: float,
     if mode != SERVE_SCORE:
         raise ValueError(f"unknown serve mode {mode}")
     return s
+
+
+def scores_from_partials(part: torch.Tensor, w0, K: int) -> torch.Tensor:
+    """Scores [N] from T1's (lin | s | s2) partials summed over the
+    shards; ``w0`` a 0-d tensor (0 with k0 off): the square after the
+    sum."""
+    out = part[:, 0]
+    if K:
+        s, s2 = part[:, 1:1 + K], part[:, 1 + K:1 + 2 * K]
+        out = out + 0.5 * (s * s - s2).sum(1)
+    return out + w0
+
+
+def tp_serve_plain(part: torch.Tensor, w0: torch.Tensor, K: int, mode: int,
+                   lo: float = -math.inf, hi: float = math.inf
+                   ) -> torch.Tensor:
+    """T12's twin: ``scores_from_partials``, then the serve epilogue of
+    ``mode``."""
+    return serve_epilogue_plain(scores_from_partials(part, w0, K), mode, lo,
+                                hi)
 
 
 def fm_serve_plain(tab: torch.Tensor, w0: torch.Tensor, ids: torch.Tensor,
@@ -291,4 +314,37 @@ def tp_fm_partials(tab, K: int, t_terms: bool, ids, vals, lo: int,
             build.ptr(tab), ld, K, int(t_terms), lo, D_loc, build.ptr(ids),
             build.ptr(vals), N, P, build.ptr(out), build.stream_of(ids))
     build.check_launch(lib, rc, "tp_fm_partials")
+    return out
+
+
+# ---- T12: the feature-sharded scorer's finalize and epilogue ----------------
+
+def tp_serve_op(part, w0, K: int, mode: int, lo: float = -math.inf,
+                hi: float = math.inf, out=None) -> torch.Tensor:
+    """Predictions [N] from T1's partials ``part`` [N, 1 + 2K] summed over
+    the feature shards and ``w0`` (0-d; 0 with k0 off): the scores, clamped
+    to the finite sides of [lo, hi] or Phi of them, as ``fm_serve_op``.
+    Kernel on CUDA tensors, written into ``out`` where given; plain twin on
+    CPU tensors."""
+    if mode not in (SERVE_SCORE, SERVE_CLAMP, SERVE_PROBIT):
+        raise ValueError(f"unknown serve mode {mode}")
+    if build.on_cpu(part):
+        s = tp_serve_plain(part, w0, K, mode, lo, hi)
+        return s if out is None else out.copy_(s)
+    N = part.shape[0]
+    dev = part.device
+    build.require(part, torch.float32, (N, 1 + 2 * K), dev, "tp_serve.part")
+    build.require(w0, torch.float32, (), dev, "tp_serve.w0")
+    if out is None:
+        out = torch.empty(N, dtype=torch.float32, device=dev)
+    build.require(out, torch.float32, (N,), dev, "tp_serve.out")
+    if N == 0:
+        return out
+    b_lo, b_hi = serve_bounds(lo, hi)
+    lib = build.load_library("fm_forward")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_serve(build.ptr(part), K, build.ptr(w0), N, mode,
+                                b_lo, b_hi, build.ptr(out),
+                                build.stream_of(part))
+    build.check_launch(lib, rc, "tp_serve")
     return out

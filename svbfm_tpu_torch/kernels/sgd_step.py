@@ -15,13 +15,21 @@ tensors it runs the plain PyTorch twin beside it, the JAX arithmetic in
 the same order (``index_add_`` for the scatters).  All three update their
 outputs in place, kernel and twin alike.
 
+``tp_sgd_scatter`` (T11) is X9a's kernel in its window mode for the
+feature-sharded SGD: over one feature shard's table [D_loc, 1+K] (the ids
+[lo, lo + D_loc)), the row scored from T1's partials summed over the
+shards, only the window's entries added; ``sgd_apply_dense`` is X9b's
+dense kernel over every row of a table, which the feature-sharded SGD runs
+after the data all-reduce of the accumulator.
+
 ``run_batches`` drives an epoch's batches: it validates the tensors once
 and then launches (or runs the twins) batch after batch, so the per-batch
 host cost is the launches alone.
 
 Replaces ``svbfm_tpu/learners/sgd.py:sgd_minibatch_update`` (:103-156),
 ``:sgda_lambda_update`` (:195-264) and the cache scatter of ``sgda_epoch``
-(:287-294), and ``svbfm_tpu/learners/bpr.py:bpr_pair_update`` (:68-113).
+(:287-294), ``svbfm_tpu/learners/bpr.py:bpr_pair_update`` (:68-113), and
+``svbfm_tpu/parallel/tp_sgd.py:tp_sgd_minibatch_update`` (:91-131).
 """
 
 from __future__ import annotations
@@ -257,6 +265,40 @@ def sgd_apply_plain(tab, w0, acc, acc0, m: StepMode, sgda=None) -> None:
             grad_tab[:, 1:] = torch.where(won[:, None], flat_v[idx],
                                           grad_tab[:, 1:])
         winner.fill_(-1)
+
+
+def tp_sgd_scatter_plain(tab, w0, ids, vals, y, valid, part, lo: int, acc,
+                         acc0, m: StepMode) -> None:
+    """T11's twin (``svbfm_tpu/parallel/tp_sgd.py:91-131``): ``tab``
+    [D_loc, 1+K] holds the ids [lo, lo + D_loc), ``part`` [B, 1 + 2K] the
+    rows' (lin | s | s2) partials summed over the feature shards.  p from
+    the partials (lin left out with k1 off), the loss multiplier, and each
+    entry inside the window adds its count, mult x and mult (s_f x - v_f
+    x^2) (s_f global, v_f local) into ``acc`` [D_loc, 2+K] at id - lo; an
+    entry outside adds nothing.  ``acc0`` [2] takes (n_eff, sum mult)."""
+    K, D_loc = m.K, tab.shape[0]
+    lid = ids.long() - lo
+    inr = (lid >= 0) & (lid < D_loc)
+    lidc = lid.clamp(0, max(D_loc - 1, 0))
+    zero = torch.zeros((), dtype=_F32, device=tab.device)
+    p = part[:, 0] if m.k1 else torch.zeros_like(part[:, 0])
+    s = part[:, 1:1 + K]
+    if K:
+        p = p + 0.5 * (s * s - part[:, 1 + K:1 + 2 * K]).sum(1)
+    if m.k0:
+        p = p + w0
+    mult = multiplier_plain(p, y, valid, m)
+    touch = torch.where(inr, (vals != 0).to(_F32) * valid[:, None], zero)
+    gw = torch.where(inr, mult[:, None] * vals, zero) if m.k1 \
+        else torch.zeros_like(vals)
+    vg = tab[lidc, 1:]  # [B, P, K]
+    gv = torch.where(inr[:, :, None], mult[:, None, None] * (
+        s[:, None, :] * vals[:, :, None] - vg * (vals * vals)[:, :, None]),
+        zero)
+    B, P = ids.shape
+    acc.index_add_(0, lidc.reshape(-1), torch.cat(
+        [touch.reshape(-1, 1), gw.reshape(-1, 1), gv.reshape(B * P, K)], 1))
+    acc0 += torch.stack([valid.sum(), mult.sum()])
 
 
 def sgda_lambda_plain(tab, grad_tab, w0, reg_w, reg_v, attr_group, ids,
@@ -509,6 +551,63 @@ def sgda_lambda(tab, grad_tab, w0, reg_w, reg_v, attr_group, ids, vals, y,
         _Steps(tab, w0, ws, m, sgda=(reg_w, reg_v, attr_group, grad_tab),
                val_batches=_one(ids, vals, y, valid)).lambda_step(
                    0, max_blocks)
+
+
+def tp_sgd_scatter(tab, w0, ids, vals, y, valid, part, lo: int, acc, acc0,
+                   m: StepMode) -> None:
+    """T11 on one batch of a feature shard (``tp_sgd_scatter_plain``):
+    kernel on CUDA tensors, plain twin on CPU tensors; adds into ``acc``
+    and ``acc0`` in place.  Every loss but pair."""
+    if build.on_cpu(ids):
+        return tp_sgd_scatter_plain(tab, w0, ids, vals, y, valid, part, lo,
+                                    acc, acc0, m)
+    if m.loss == LOSS_PAIR:
+        raise ValueError("tp_sgd_scatter: the pair loss has no window mode")
+    dev, (B, P), D_loc, K = ids.device, ids.shape, tab.shape[0], m.K
+    req = build.require
+    req(tab, _F32, (D_loc, 1 + K), dev, "tp_sgd_scatter.tab")
+    req(w0, _F32, (), dev, "tp_sgd_scatter.w0")
+    req(ids, _I32, (B, P), dev, "tp_sgd_scatter.ids")
+    req(vals, _F32, (B, P), dev, "tp_sgd_scatter.vals")
+    req(y, _F32, (B,), dev, "tp_sgd_scatter.y")
+    req(valid, _F32, (B,), dev, "tp_sgd_scatter.valid")
+    req(part, _F32, (B, 1 + 2 * K), dev, "tp_sgd_scatter.part")
+    req(acc, _F32, (D_loc, 2 + K), dev, "tp_sgd_scatter.acc")
+    req(acc0, _F32, (2,), dev, "tp_sgd_scatter.acc0")
+    lib = build.load_library("sgd_step")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_tp_sgd_scatter(
+            build.ptr(tab), K, build.ptr(w0), build.ptr(ids),
+            build.ptr(vals), build.ptr(y), build.ptr(valid), B, P,
+            build.ptr(part), lo, D_loc, m.loss, int(m.k0), int(m.k1),
+            m.mult_scale, m.min_target, m.max_target, m.stdev,
+            build.ptr(acc), build.ptr(acc0), build.stream_of(ids))
+    build.check_launch(lib, rc, "tp_sgd_scatter")
+
+
+def sgd_apply_dense(tab, w0, acc, acc0, m: StepMode) -> None:
+    """X9b's dense kernel on every row of ``tab`` [D, 1+K] from ``acc``
+    [D, 2+K] and ``acc0`` [2], which it zeroes (a row whose accumulator is
+    zero keeps its bits): the feature-sharded SGD's apply, whose window
+    rows hold the entries of every data shard's batch.  Scalar regs; plain
+    twin on CPU tensors."""
+    if build.on_cpu(tab):
+        return sgd_apply_plain(tab, w0, acc, acc0, m)
+    dev, D = tab.device, tab.shape[0]
+    req = build.require
+    req(tab, _F32, (D, 1 + m.K), dev, "sgd_apply_dense.tab")
+    req(w0, _F32, (), dev, "sgd_apply_dense.w0")
+    req(acc, _F32, (D, 2 + m.K), dev, "sgd_apply_dense.acc")
+    req(acc0, _F32, (2,), dev, "sgd_apply_dense.acc0")
+    lib = build.load_library("sgd_step")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_sgd_apply(
+            build.ptr(tab), m.K, build.ptr(acc), m.lr, m.decay,
+            m.mult_scale, m.base_w, m.base_v, None, None, None, int(m.k0),
+            int(m.k1), build.ptr(w0), build.ptr(acc0), m.w0_base,
+            int(m.w0_grad), None, None, None, None, None, D, None, 0, None,
+            build.stream_of(tab))
+    build.check_launch(lib, rc, "sgd_apply")
 
 
 def run_batches(tab, w0, batches, ws: Workspace, m: StepMode, negs=None,

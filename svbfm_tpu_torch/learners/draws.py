@@ -5,7 +5,10 @@ source, an object with these methods:
 
 * ``normal(shape)``: standard normal draws of that shape;
 * ``gamma(a)``: standard Gamma(a, 1) draws, elementwise in the tensor ``a``;
-* ``permutation(n)``: a random permutation of range(n) (int64);
+* ``permutation(n, shard=0, n_shards=1)``: a random permutation of
+  range(n) (int64), for data shard ``shard`` of ``n_shards`` (JAX folds
+  the data shard's index into its sub-key, ``svbfm_tpu/learners/
+  sgd.py:163``; every shard takes one item of the chain);
 * ``randint(shape, lo, hi)``: uniform integers in [lo, hi) (int32);
 * ``uniform(shape, lo, hi, shard=0, n_shards=1)``: uniform floats in
   [lo, hi) (float32), the Gibbs probit draw's (``mcmc.py:1079-1082``,
@@ -42,8 +45,8 @@ itself never calls a global random number generator.
 source (``device_draws``); with a CPU generator it is a host-table source
 (``host_draws``), which gives a card and the CPU the same numbers.  Gamma
 draws use ``torch._standard_gamma`` with the generator.  Its
-``uniform`` draws the ``n_shards`` shards' numbers and keeps the shard's,
-so the chain moves alike on every rank; its ``column_normal`` takes one
+``uniform`` and ``permutation`` draw the ``n_shards`` shards' numbers and
+keep the shard's, so the chain moves alike on every rank; its ``column_normal`` takes one
 64-bit seed from the chain and draws chunk c from a fresh generator on the
 same device seeded with ``chunk_seed(seed, c)``.
 """
@@ -84,9 +87,12 @@ class Draws:
         return torch._standard_gamma(a, generator=self.generator).to(
             self.device)
 
-    def permutation(self, n: int) -> torch.Tensor:
-        return torch.randperm(n, generator=self.generator,
-                              device=self.generator.device).to(self.device)
+    def permutation(self, n: int, shard: int = 0,
+                    n_shards: int = 1) -> torch.Tensor:
+        perms = [torch.randperm(n, generator=self.generator,
+                                device=self.generator.device)
+                 for _ in range(n_shards)]
+        return perms[shard].to(self.device)
 
     def randint(self, shape, lo: int, hi: int) -> torch.Tensor:
         return torch.randint(lo, hi, tuple(shape), generator=self.generator,

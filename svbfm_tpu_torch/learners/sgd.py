@@ -320,7 +320,7 @@ class SGDLearner:
         cfg = self.cfg
         state = self.init_state() if state is None else state.copy()
         num_iter = num_iter if num_iter is not None else cfg.num_iter
-        state, it0 = resume(self, ckpt, state)
+        state, it0 = self._resume(ckpt, state)
         self._replay_rng(it0)
         rmse_file = TrajectoryFile("test_rmse", cfg, self.method,
                                    self.out_dir,
@@ -335,8 +335,16 @@ class SGDLearner:
             stream_row(self, history[-1], state)
             if ckpt is not None and ((it + 1 - it0) % ckpt_every == 0
                                      or it + 1 >= num_iter):
-                ckpt.save(state, it + 1, {"method": self.method})
+                self._save(ckpt, state, it + 1)
         return state, history
+
+    def _resume(self, ckpt, state):
+        """(state, epochs done) from ``ckpt``'s latest checkpoint, restored
+        into ``state``'s structure (``utils/checkpoint.py:resume``)."""
+        return resume(self, ckpt, state)
+
+    def _save(self, ckpt, state, done: int) -> None:
+        ckpt.save(state, done, {"method": self.method})
 
 
 class SGDALearner(SGDLearner):

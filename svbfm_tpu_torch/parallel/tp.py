@@ -10,8 +10,9 @@ are partials, not scores:
 
 s_f = sum_{i in shard} v_fi x_i: the square comes AFTER the all-reduce of
 s_f, so the collective carries the [N, 1 + 2K] partials of kernel T1
-(``kernels/fm_forward.py:tp_fm_partials``) and the finalize below squares
-their sums.  ``make_tp_scorer`` keeps the rows replicated and shards the
+(``kernels/fm_forward.py:tp_fm_partials``) and the finalize
+(``kernels/fm_forward.py:scores_from_partials``; the T-terms' below)
+squares their sums.  ``make_tp_scorer`` keeps the rows replicated and shards the
 tables over every rank of a mesh; the learners of ``tp_vb`` shard the
 tables over a mesh's feature group and the rows over its data group.
 """
@@ -21,19 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from svbfm_tpu_torch.kernels.fm_forward import tp_fm_partials
+from svbfm_tpu_torch.kernels.fm_forward import (scores_from_partials,
+                                                tp_fm_partials)
 from svbfm_tpu_torch.ops.forward import _scalar, score_table, t_term_table
 from svbfm_tpu_torch.parallel.mesh import Mesh
-
-
-def scores_from_partials(part: torch.Tensor, w0, K: int) -> torch.Tensor:
-    """Scores [N] from T1's (lin | s | s2) partials summed over the
-    shards; ``w0`` a 0-d tensor (0 with k0 off)."""
-    out = part[:, 0]
-    if K:
-        s, s2 = part[:, 1:1 + K], part[:, 1 + K:1 + 2 * K]
-        out = out + 0.5 * (s * s - s2).sum(1)
-    return out + w0
 
 
 def t_terms_from_partials(part: torch.Tensor, s0, K: int) -> torch.Tensor:

@@ -4,7 +4,8 @@
 two packages to each other start both from the same parameters: the JAX
 learner's ``VBState`` (or ``OVBState``, ``MCMCState``, ``SGDState``,
 ``SGDAState``, ``BPRState``, ``TPVBState``, the feature-sharded learners'
-``MCMCState`` and ``TPOVBState``, or exp_sgd's tuple (w0, w, v)), fetched
+``MCMCState``, ``TPOVBState`` and ``TPSGDState``, or exp_sgd's tuple (w0,
+w, v)), fetched
 to numpy with
 ``jax.device_get``, becomes the port's state of the same name (a
 feature-sharded state: one rank's part of it).
@@ -142,3 +143,19 @@ def tp_ovb_state_from_jax(np_state: Any, device, *, d: int, f: int,
     for k in SHARDED_TABLES:
         t[k] = t[k][..., f * D_loc:(f + 1) * D_loc]
     return OVBState(**{k: v.contiguous().to(device) for k, v in t.items()})
+
+
+def tp_sgd_state_from_jax(np_state: Any, device, draws: Draws, *, d: int,
+                          f: int, D_loc: int) -> SGDState:
+    """The feature-sharded SGD state of rank (d, f): JAX keeps its
+    ``TPSGDState`` as global arrays, w [D_pad] and v [K, D_pad] padded over
+    the feature (last) dim; the rank takes their feature slice
+    [f D_loc, (f + 1) D_loc) as its table (w | v^T) and w0 whole.  The JAX
+    ``key`` is skipped and ``draws`` takes its place.  The state holds no
+    rows, so every data shard ``d`` takes the same."""
+    del d  # the state has no data-sharded part
+    t = _tensors(np_state, ("w0", "w", "v"), "cpu")
+    cols = slice(f * D_loc, (f + 1) * D_loc)
+    return SGDState(w0=t["w0"].to(device),
+                    tab=table(t["w"][cols], t["v"][:, cols]).to(device),
+                    draws=draws)

@@ -103,10 +103,10 @@ def test_file_names_match_jax_cli(data, method, monkeypatch, capsys):
     pytest.param(["-checkpoint", "ck"], dict(method="bpr"),
                  "-checkpoint is not read by -method bpr",
                  id="extra3-kw3-item 12"),
-    # -feature_shards runs batch VB, Gibbs and ALS (item 13's slices 1 and
-    # 13.1); the other methods still refuse it
-    pytest.param(["-feature_shards", "2"], dict(method="sgd"), "item 13",
-                 id="extra4-kw4-item 13"),
+    # -feature_shards runs batch VB, online VB, Gibbs, ALS and SGD (item
+    # 13's slices 13.1-13.3); the other methods still refuse it
+    pytest.param(["-feature_shards", "2"], dict(method="sgd_online"),
+                 "item 13", id="extra4-kw4-item 13"),
     pytest.param(["-num_eval_cases", "5", "-cache_size", "1000"], {},
                  "not supported with -cache_size", id="extra5-kw5-item 4"),
     (["-learn_rate", "0.1"], {}, "not read"),
@@ -723,15 +723,18 @@ def test_cli_feature_shards_mcmc_als(data, tmp_path, monkeypatch, capsys,
      "-cache_size is not read by -method vb_online"),
     ("vb_online", ["-num_eval_cases", "5"], "not read by the feature-sharded"),
     ("vb_online", ["-factor_block", "1"], "does not divide the world size 1"),
-    ("sgd", [], "item 13.3"),
+    # sgd's feature-sharded learner reads -task c and -checkpoint
+    pytest.param("sgd", ["-task", "c", "-checkpoint", "ck"],
+                 "does not divide the world size 1",
+                 id="sgd-extra13-item 13.3"),
 ])
 def test_cli_feature_shards_refusals(data, method, extra, message):
     """What the feature-sharded learners do not read is refused by name
     (vb: -factor_block; vb_online: -task c, -factor_block other than 0 and
     1, -reshuffle 1, -checkpoint; every method: -cache_size,
     -num_eval_cases, -map_eval), before the world size is checked; Gibbs
-    and ALS read -factor_block and -task c; sgd's feature-sharded learner
-    is not ported yet."""
+    and ALS read -factor_block and -task c, sgd -task c and
+    -checkpoint."""
     d, _, _ = data
     argv = _args(d, method, "-feature_shards", "2", "-device", "cpu")
     if extra[:1] == ["-task"]:
@@ -827,3 +830,44 @@ def test_cli_feature_shards_vb_online(data, tmp_path, monkeypatch, capsys):
         np.testing.assert_allclose(np.loadtxt(d / "torch" / name),
                                    np.loadtxt(lib / name), rtol=1e-5,
                                    err_msg=name)
+
+
+def test_cli_feature_shards_sgd(data, tmp_path, monkeypatch, capsys):
+    """-method sgd -feature_shards 2 -distributed 1 on two spawned gloo
+    ranks (a (1, 2) mesh; T1, T11 and X9b dense): the files of the world
+    of one (rank 0 writes them; the resident SGD from the same seed's init
+    and permutations), its RMSE file and predictions within
+    test_tp_sgd.py's rtol 2e-4 / atol 2e-5; the JAX CLI's files among
+    them (its feature-sharded SGD writes no trajectory file: its
+    TPSGDLearner's write_files defaults to False)."""
+    from torch_tp_ranks import cli_sgd_rank, run_ranks
+
+    d, _, _ = data
+    argv = _args(d, "sgd", "-learn_rate", "0.05", "-out", "pred.txt")
+    one = _run_in(d / "one", cli.main, argv + ["-device", "cpu"],
+                  monkeypatch)
+    theirs = _run_in(d / "jax", jax_main, argv + ["-feature_shards", "2"],
+                     monkeypatch)
+    (d / "torch").mkdir()
+    run_ranks(cli_sgd_rank, 2, tmp_path / "ranks", timeout=120,
+              argv=argv + ["-feature_shards", "2", "-distributed", "1",
+                           "-device", "cpu"], cwd=str(d / "torch"))
+    assert sorted(os.listdir(d / "torch")) == one
+    assert set(theirs) < set(one)
+    for name in ("test_rmse_114_sgd", "pred.txt", "v_file.txt"):
+        np.testing.assert_allclose(np.loadtxt(d / "torch" / name),
+                                   np.loadtxt(d / "one" / name), rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("method", ["sgd_online", "sgda", "exp_sgd", "bpr"])
+def test_cli_feature_shards_refuses_the_other_sgd_methods(data, method):
+    """sgda, sgd_online, exp_sgd and bpr have no feature-sharded learner,
+    as the JAX CLI has none (svbfm_tpu/cli.py:349-354): -feature_shards is
+    refused with the replicated learners' item."""
+    d, _, _ = data
+    extra = ["-validation", str(d / "va.libfm")] if method == "sgda" else []
+    with pytest.raises(SystemExit) as ei:
+        cli.main(_args(d, method, "-feature_shards", "2", "-device", "cpu",
+                       *extra))
+    assert "item 13.4" in str(ei.value.code)

@@ -2653,3 +2653,123 @@ def test_tp_ovb_on_gpu_matches_cpu(cuda):
         for a, b in zip(hists[0], other):
             for k in ("rmse", "mae", "free_energy"):
                 np.testing.assert_allclose(a[k], b[k], rtol=1e-5)
+
+
+def test_tp_sgd_scatter_and_dense_apply_match_twins(cuda):
+    """T11 (X9a's window mode) at every loss on each window of Sf = 2 and 1
+    of chip_smoke's ragged batch (padding entries, an x = 0 entry at a real
+    id, valid = 0 rows, a NaN target; D odd, so the second window holds a
+    padding row), and X9b's dense form on each window's accumulator as
+    T11's twin leaves it, against their twins."""
+    import chip_smoke
+
+    cases = chip_smoke.make_cases(chip_smoke.ragged_tp_sgd_tensors(cuda))
+    before = dict(build.launch_counts)
+    for name, count in (("tp_sgd_scatter", 12), ("sgd_apply", 3)):
+        assert len(cases[name]) == count
+        for label, prepare, call, _ in cases[name]:
+            ok, op = call("kernel", prepare()), call("plain", prepare())
+            torch.cuda.synchronize()
+            chip_smoke.compare(ok, op, f"{name} ({label})")
+        assert build.launch_counts[name] == before[name] + count
+
+
+@pytest.mark.parametrize("K", [0, 1, 20, 40])
+def test_tp_serve_matches_twin_and_repeats_its_bits(cuda, K):
+    """T12 in its three modes on partials of 3,001 rows, K = 0 to 40 (past
+    a warp of factors), the lin channel NaN, +Inf or -Inf every few rows:
+    the twin's values and NaN/Inf pattern, and two launches the same
+    bits (no atomics)."""
+    import chip_smoke
+    from svbfm_tpu_torch.kernels import fm_forward as k1
+
+    g = torch.Generator(device=cuda).manual_seed(K)
+    part = torch.randn(3001, 1 + 2 * K, generator=g, device=cuda)
+    part[::7, 0], part[1::11, 0], part[2::13, 0] = (
+        float("nan"), float("inf"), float("-inf"))
+    w0 = torch.tensor(0.4, device=cuda)
+    for mode in (k1.SERVE_SCORE, k1.SERVE_CLAMP, k1.SERVE_PROBIT):
+        got = k1.tp_serve_op(part, w0, K, mode, -1.0, 2.0)
+        again = k1.tp_serve_op(part, w0, K, mode, -1.0, 2.0)
+        want = k1.tp_serve_plain(part, w0, K, mode, -1.0, 2.0)
+        torch.cuda.synchronize()
+        chip_smoke.compare([got], [want], f"tp_serve K={K} mode={mode}")
+        assert _same_bits(got, again)
+    assert k1.tp_serve_op(part[:0], w0, K, k1.SERVE_CLAMP).shape == (0,)
+
+
+def test_tp_sgd_on_gpu_matches_cpu(cuda):
+    """The feature-sharded SGD in one process on a (1, 1) mesh, card
+    against CPU from one init and host-drawn permutations, 3 epochs (T1,
+    T11 and X9b dense launched), and the resident SGDLearner on the card
+    from the same start, within the SGD family's card-vs-CPU bound (X9a's
+    and T11's float atomics)."""
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.sgd import SGDLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_sgd import TPSGDLearner
+
+    coo = make_movielens_like(num_users=61, num_items=40, num_ratings=5000,
+                              seed=4)
+    tr, te = train_test_split(coo, 0.2, seed=5)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 61])
+    cfg = FMConfig(num_attributes=D, num_factor=6, num_groups=2, seed=7,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()), learn_rate=0.05,
+                   batch_size=256)
+    data = (SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta)
+    p = init_fm_params(torch.Generator().manual_seed(7), D, 6,
+                       init_stdev=0.1)
+    hists = []
+    for dev in (cuda, "cpu"):
+        lr = TPSGDLearner(cfg, *data, mesh=make_mesh2d(device=dev))
+        before = dict(build.launch_counts)
+        _, h = lr.run(lr.state_from_params(p.w0, p.w, p.v,
+                                           host_draws(7, dev)),
+                      num_iter=3, verbose=False)
+        hists.append(h)
+        if dev is cuda:
+            assert all(build.launch_counts[k] > before[k] for k in (
+                "tp_fm_partials", "tp_sgd_scatter", "sgd_apply"))
+    res = SGDLearner(cfg, *data, device=cuda, write_files=False)
+    _, hr = res.run(res.state_from_params(p.w0, p.w, p.v, host_draws(7,
+                                                                      cuda)),
+                    num_iter=3, verbose=False)
+    for other in (hists[1], hr):
+        for a, b in zip(hists[0], other):
+            for k in ("rmse", "mae"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5)
+
+
+def test_batch_scorer_over_a_world_of_one_on_card(cuda):
+    """BatchScorer over a (1, 1) mesh on the card: replicated, fm_serve's
+    bits; feature-sharded (T1, then T12 launched, a batch each), within
+    1e-6 of the one-card scorer, relative, or absolute near 0 (the square
+    after the sum in T12 against K1a's chunks: a few ulps of scores near
+    1), clamp and probit, 1,001 rows in batches of 100 through the window
+    of two."""
+    from svbfm_tpu_torch.learners.base import TASK_CLASSIFICATION
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.serve import BatchScorer
+
+    rng = np.random.default_rng(1)
+    D, K, N = 53, 8, 1001
+    w = rng.normal(0, 0.5, D).astype(np.float32)
+    v = rng.normal(0, 0.5, (K, D)).astype(np.float32)
+    ids = rng.integers(0, D, (N, 2)).astype(np.int32)
+    vals = rng.uniform(0.5, 1.5, (N, 2)).astype(np.float32)
+    mesh = make_mesh2d(device=cuda)
+    for kw in (dict(min_target=-1.0, max_target=2.0),
+               dict(task=TASK_CLASSIFICATION)):
+        one = BatchScorer(0.5, w, v, device=cuda, **kw).score_rows(ids, vals)
+        rep = BatchScorer(0.5, w, v, mesh=mesh, batch_rows=100,
+                          **kw).score_rows(ids, vals)
+        np.testing.assert_array_equal(rep, one)
+        before = build.launch_counts["tp_serve"]
+        sh = BatchScorer(0.5, w, v, mesh=mesh, feature_sharded=True,
+                         batch_rows=100, **kw).score_rows(ids, vals)
+        assert build.launch_counts["tp_serve"] == before + 11
+        np.testing.assert_allclose(sh, one, rtol=1e-6, atol=1e-6)

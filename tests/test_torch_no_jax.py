@@ -96,6 +96,17 @@ from svbfm_tpu_torch.parallel.tp_ovb import TPOVBLearner
 _, hto = TPOVBLearner(dataclasses.replace(cfg, num_batches=3), train, test,
                       meta, mesh=make_mesh2d(device="cpu")
                       ).run(num_iter=1, verbose=False)
+from svbfm_tpu_torch.parallel.tp_sgd import TPSGDLearner
+_, hts = TPSGDLearner(sgd_cfg, train, test, meta,
+                      mesh=make_mesh2d(device="cpu")).run(num_iter=1,
+                                                          verbose=False)
+import numpy as np
+from svbfm_tpu_torch.serve import BatchScorer
+scored = BatchScorer(0.5, np.zeros(D, np.float32),
+                     np.zeros((3, D), np.float32),
+                     mesh=make_mesh2d(device="cpu"),
+                     feature_sharded=True).score_rows(
+                         test.ids[:5], test.vals[:5])
 assert make_mesh(device="cpu").shape == (1, 1)
 loaded = [m for m, v in sys.modules.items() if v is not None and
           m.split(".")[0] in ("jax", "flax", "svbfm_tpu")]
@@ -111,6 +122,7 @@ print("windowed", len(hw))
 print("tp", len(ht))
 print("tp_mcmc", len(htm), "tp_als", len(hta))
 print("tp_ovb", len(hto))
+print("tp_sgd", len(hts), "served", scored.shape[0])
 """
 
 
@@ -127,6 +139,7 @@ def test_port_runs_two_sweeps_without_jax():
     assert "tp 2" in r.stdout
     assert "tp_mcmc 2 tp_als 1" in r.stdout
     assert "tp_ovb 1" in r.stdout
+    assert "tp_sgd 1 served 5" in r.stdout
 
 
 def test_nccl_refuses_two_ranks_on_one_device(tmp_path):

@@ -3,10 +3,12 @@ its serve epilogue) on the CPU, where the epilogue is the plain twin
 (``kernels/fm_forward.py:fm_serve_plain``), against the JAX package's
 ``svbfm_tpu.serve.BatchScorer`` and the port's own learners.
 
-Counterparts of the six cases of ``tests/test_serve.py`` (feature sharding
-is a refusal here: several GPUs are ROADMAP.md queue 1, item 13), plus the
-same numpy parameters through both scorers (regression, one-sided bounds
-and probit) and the epilogue on NaN, +-Inf and one-sided bounds.
+Counterparts of the six cases of ``tests/test_serve.py``, plus the same
+numpy parameters through both scorers (regression, one-sided bounds and
+probit) and the epilogue on NaN, +-Inf and one-sided bounds; over a mesh
+(``mesh=``, replicated or ``feature_sharded``) on 2 and 4 spawned gloo
+ranks (``torch_tp_ranks.serve_ranks``) against the JAX scorer on as many
+devices of conftest's CPU mesh, and T12's twin (``tp_serve_plain``).
 Tolerance: rtol 1e-5, atol 1e-6, as ``test_serve.py:46``; windowed and
 one-shot scoring agree bit for bit."""
 
@@ -25,7 +27,10 @@ from svbfm_tpu_torch.data.synth import make_movielens_like, train_test_split
 from svbfm_tpu_torch.kernels import fm_forward as k1
 from svbfm_tpu_torch.learners.base import (TASK_CLASSIFICATION, FMConfig,
                                            ref_cdf_gaussian)
+from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+from svbfm_tpu_torch.parallel.tp import scores_from_partials
 from svbfm_tpu_torch.serve import BatchScorer
+from torch_tp_ranks import run_ranks, serve_ranks
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -79,13 +84,6 @@ def test_scorer_classification_probit():
     want = ref_cdf_gaussian(torch.from_numpy(raw)).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     assert (got >= 0).all() and (got <= 1).all()
-
-
-def test_scorer_feature_sharded_refused():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        BatchScorer(0.0, np.zeros(10, np.float32),
-                    np.zeros((2, 10), np.float32), device="cpu",
-                    feature_sharded=True)
 
 
 def test_scorer_row_pad_and_empty():
@@ -252,3 +250,96 @@ def test_from_state_reads_each_state_kind(kind):
     want = BatchScorer(w0, w, v, device="cpu", min_target=-2.0,
                        max_target=2.0).score_rows(ids, vals)
     np.testing.assert_array_equal(got, want)
+
+
+# ---- over a mesh: replicated and feature-sharded ------------------------------
+
+MESH_KW = {"clamp": dict(min_target=1.0, max_target=5.0),
+           "lo-only": dict(min_target=0.5, max_target=np.inf),
+           "probit": dict(task=TASK_CLASSIFICATION),
+           "k0k1-off": dict(k0=False, k1=False, min_target=-1.0,
+                            max_target=1.0)}
+MESH_CASES = [(f"{name}-{'sharded' if fs else 'replicated'}", fs, kw)
+              for name, kw in MESH_KW.items() for fs in (False, True)]
+
+
+@pytest.fixture(scope="module")
+def mesh_scores(tmp_path_factory):
+    """Each case on 2 and 4 gloo ranks (every rank's predictions) and the
+    JAX scorer's on as many devices: D = 30 (padded to 32 over 4 ranks),
+    300 rows of 3 positions in batches of 64 (66 over 4 ranks, ceiled to
+    the ranks in both packages: the last batch partial)."""
+    d = tmp_path_factory.mktemp("serve_ranks")
+    w0, w, v = _params()
+    ids, vals = _rows()
+    model = str(d / "model.npz")
+    np.savez(model, w0=w0, w=w, v=v, ids=ids, vals=vals)
+    cases = [(name, fs, dict(kw, batch_rows=66)) for name, fs, kw
+             in MESH_CASES]
+    out = {}
+    for n in (2, 4):
+        got = run_ranks(serve_ranks, n, d / f"r{n}", timeout=120,
+                        model=model, cases=cases)
+        for name, fs, kw in cases:
+            want = JScorer(w0, w, v, mesh=make_mesh(n), feature_sharded=fs,
+                           **kw).score_rows(ids, vals)
+            out[n, name] = ([r[name] for r in got], want)
+    return out
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("name", [c[0] for c in MESH_CASES])
+def test_scorer_over_ranks_matches_jax_mesh_scorer(mesh_scores, ranks, name):
+    """Every rank's ``score_rows`` returns the whole [N], the same on every
+    rank, within the tolerance of the JAX scorer over as many devices
+    (replicated: each rank's slice of a batch gathered; feature-sharded:
+    T1's partials all-reduced, T12's twin)."""
+    got, want = mesh_scores[ranks, name]
+    assert len(got) == ranks
+    for g in got:
+        assert g.shape == want.shape
+        np.testing.assert_array_equal(g, got[0])
+    np.testing.assert_allclose(got[0], want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("fs", [False, True], ids=["replicated", "sharded"])
+def test_scorer_over_a_world_of_one(fs):
+    """A mesh of one rank (no process group): replicated is the one-device
+    scorer bit for bit; feature-sharded (T1 over the whole table, T12)
+    within the tolerance; ``score_coo`` sizes its rows from the data's
+    features in the feature-sharded mode."""
+    lr, state, cfg, te, D = _trained()
+    one = BatchScorer.from_state(state, cfg, device="cpu", batch_rows=100)
+    mesh = BatchScorer.from_state(state, cfg, mesh=make_mesh2d(device="cpu"),
+                                  feature_sharded=fs, batch_rows=100)
+    want = one.score_coo(te)
+    got = mesh.score_coo(te)
+    if fs:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", [k1.SERVE_SCORE, k1.SERVE_CLAMP,
+                                  k1.SERVE_PROBIT])
+def test_tp_serve_twin_on_special_scores(mode):
+    """T12's twin (``tp_serve_op`` on CPU tensors) is the serve epilogue of
+    the finalize of the partials, on rows whose scores are SPECIAL's (NaN,
+    +-Inf, ordinary): the lin channel carries them, the factors add a
+    finite term; K = 0 and the out= form too."""
+    K = 3
+    rng = np.random.default_rng(5)
+    part = torch.from_numpy(np.concatenate([
+        SPECIAL[:, None], rng.normal(0, 1, (SPECIAL.shape[0], 2 * K))],
+        1).astype(np.float32))
+    w0 = torch.tensor(0.25)
+    for k, p in ((K, part), (0, part[:, :1].contiguous())):
+        want = k1.serve_epilogue_plain(scores_from_partials(p, w0, k), mode,
+                                       -1.0, 2.0)
+        out = torch.empty(p.shape[0])
+        got = k1.tp_serve_op(p, w0, k, mode, -1.0, 2.0, out=out)
+        assert got is out
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+    with pytest.raises(ValueError, match="unknown serve mode"):
+        k1.tp_serve_op(part, w0, K, 7)

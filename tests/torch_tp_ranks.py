@@ -421,3 +421,129 @@ def cli_ovb_rank(rank: int, argv: list, cwd: str, init: str) -> int:
     tp_ovb.TPOVBLearner.init_state = init_state
     os.chdir(cwd)
     return cli.main(argv)
+
+
+# ---- the feature-sharded SGD (parallel/tp_sgd.py) ----------------------------
+
+class RecordedPerms:
+    """A draw source of recorded permutations ``perms`` [epochs, Sd, n]
+    (the JAX learner's, replayed by the test in the parent): an epoch's
+    call takes the next epoch's, its data shard's."""
+
+    def __init__(self, perms):
+        self.perms, self.epoch = perms, 0
+
+    def permutation(self, n: int, shard: int = 0, n_shards: int = 1):
+        import torch
+
+        p = self.perms[self.epoch]
+        self.epoch += 1
+        assert p.shape == (n_shards, n), (p.shape, n_shards, n)
+        return torch.from_numpy(p[shard].astype("int64"))
+
+
+def sgd_setup(task: int = 0, **cfg_kw):
+    """``tests/test_tp_sgd.py:_setup``'s recipe in the port (900 ratings, 18
+    users, 14 items, K = 3, batch 128, learn rate 0.05); ``task`` 1: the
+    targets binarised at the rating midpoint, as
+    ``test_tp_sgd_classification`` does.  (cfg, train, test, meta, D)."""
+    import dataclasses
+
+    import numpy as np
+
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import (make_movielens_like,
+                                            train_test_split)
+    from svbfm_tpu_torch.learners.base import FMConfig
+
+    coo = make_movielens_like(num_users=18, num_items=14, num_ratings=900,
+                              rank=2, noise=0.4, seed=2)
+    tr, te = train_test_split(coo, 0.25, seed=3)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 18])
+    cfg = FMConfig(num_attributes=D, num_factor=3, task=task,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()),
+                   num_groups=meta.num_attr_groups, seed=7,
+                   learn_rate=0.05, regw=0.01, regv=0.01, batch_size=128)
+    if task == 1:
+        mid = 0.5 * (cfg.min_target + cfg.max_target)
+        for c in (tr, te):
+            c.target = np.where(c.target > mid, 1.0, -1.0).astype(
+                np.float32)
+        cfg = dataclasses.replace(cfg, min_target=-1.0, max_target=1.0)
+    return (dataclasses.replace(cfg, **cfg_kw), SparseDataset.from_coo(tr, D),
+            SparseDataset.from_coo(te, D), meta, D)
+
+
+def sgd_run(shape, setup: dict, num_iter: int, init: str = "",
+            ckpt: str = "", ckpt_every: int = 100) -> dict:
+    """``num_iter`` epochs of the TP SGD on a mesh of ``shape`` from the
+    JAX learner's global state and replayed permutations saved as npz at
+    ``init`` (else the port's own init, the draws from a host generator of
+    the seed), through the checkpoint directory ``ckpt`` where given: the
+    history, the gathered table and w0, the test scores."""
+    import numpy as np
+
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.parallel.mesh import make_mesh2d
+    from svbfm_tpu_torch.parallel.tp_sgd import TPSGDLearner
+    from svbfm_tpu_torch.utils.checkpoint import CheckpointManager
+    from svbfm_tpu_torch.utils.convert import tp_sgd_state_from_jax
+
+    cfg, tr, te, meta, _ = sgd_setup(**setup)
+    lr = TPSGDLearner(cfg, tr, te, meta, mesh=make_mesh2d(
+        n_data=shape[0], n_feature=shape[1], device="cpu"))
+    if init:
+        with np.load(init) as z:
+            z = dict(z)
+        state = tp_sgd_state_from_jax(
+            z, "cpu", RecordedPerms(z["perms"]), d=lr.mesh.d_index,
+            f=lr.mesh.f_index, D_loc=lr.D_loc)
+    else:
+        state = lr.init_state(draws=host_draws(cfg.seed, "cpu"))
+    kw = dict(ckpt=CheckpointManager(ckpt), ckpt_every=ckpt_every) \
+        if ckpt else {}
+    state, hist = lr.run(state, num_iter=num_iter, verbose=False, **kw)
+    g = lr.global_state(state)
+    return dict(hist=hist, D_loc=lr.D_loc, num_batches=lr.num_batches,
+                w0=float(g.w0), tab=g.tab.numpy(),
+                scores=lr.predict_test_scores(state))
+
+
+def sgd_ranks(rank: int, runs: list) -> dict:
+    """Each (name, shape, setup, num_iter, init, ckpt, ckpt_every) of
+    ``runs`` in turn on this world's ranks: ``sgd_run``'s results by
+    name."""
+    return {name: sgd_run(tuple(shape), setup, n, init, ck, every)
+            for name, shape, setup, n, init, ck, every in runs}
+
+
+# ---- serving over the ranks (serve.py BatchScorer with a mesh) ----------------
+
+def serve_ranks(rank: int, model: str, cases: list) -> dict:
+    """BatchScorer over the 1-D mesh of every rank, for each (name,
+    feature_sharded, scorer kwargs) of ``cases``, on the parameters and
+    rows saved as npz at ``model``: the predictions by name."""
+    import numpy as np
+
+    from svbfm_tpu_torch.parallel.mesh import make_mesh
+    from svbfm_tpu_torch.serve import BatchScorer
+
+    with np.load(model) as z:
+        z = dict(z)
+    mesh = make_mesh(device="cpu")
+    return {name: BatchScorer(z["w0"], z["w"], z["v"], mesh=mesh,
+                              feature_sharded=fs, **kw).score_rows(
+                                  z["ids"], z["vals"])
+            for name, fs, kw in cases}
+
+
+def cli_sgd_rank(rank: int, argv: list, cwd: str) -> int:
+    """The port's CLI on this rank (``-method sgd -feature_shards``, the
+    port's own init), run in ``cwd``."""
+    from svbfm_tpu_torch import cli
+
+    os.chdir(cwd)
+    return cli.main(argv)
