@@ -77,7 +77,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      tp-vb-ranks (four gloo ranks on the one card, a (2, 2) mesh, the
      100k-row recipe at K = 8, 3 sweeps beside the resident VB on the
      card; a rank's failure fails the phase).
-  9. ovb: online VBFM, 20 chunks of fixed membership, 5 epochs: kernels
+   8d. the data-parallel replicated learners (VBLearner, MCMCLearner and
+     ALSLearner with mesh=: T2-T4 for a VB block, T3 at K = 0 for the
+     standalone w sweep, T3's w stats, T5 and T7 for Gibbs/ALS, at lo = 0
+     and D_loc = D around the data all-reduce; the kernel phase also
+     holds T3 and T7 at F = 1 and 4 on every bucket of the resident plan
+     and T3 at K = 0 and T5 on every bin to their twins): dp-vb,
+     dp-vb-exact (factor_block 1) and dp-vb-class (-task c, factor_block
+     1) on NCCL with a world of one at ML-1M's width, K = 20, beside the
+     resident VB from one init; dp-als, dp-mcmc, dp-mcmc-seq
+     (factor_block 1) and dp-mcmc-class beside the resident learner under
+     one host-table draw source each; every trajectory within 1e-5, a
+     sweep's device time and sec/iter beside the resident's; then
+     dp-vb-ranks and dp-mcmc-ranks (four gloo ranks on the one card, the
+     100k-row recipe at K = 8, 2-3 sweeps each of VB fast and exact mode,
+     ALS and Gibbs, within 1e-5 of the world of one).
+ 9. ovb: online VBFM, 20 chunks of fixed membership, 5 epochs: kernels
      launched, RMSE falling; sec/epoch and peak memory.
   9b. the feature-sharded online VB (T9 and T10 with T1, T2 at F = 1 and
      T4 at F = 1 and 0; the kernel phase holds them to their twins on
@@ -374,6 +389,18 @@ TP_SGD_RTOL, TP_SGD_ATOL, TP_SGD_RANKS_EPOCHS = 2e-4, 2e-5, 2
 # [serve-mesh]: the feature-sharded scorer beside the one-card scorer (T12
 # squares after the sum, K1a in its chunks), and its four gloo ranks' rows
 SERVE_MESH_RTOL, SERVE_MESH_RANK_ROWS = 1e-6, 100_003
+# the data-parallel replicated learners: T3 and T7's cases at the exact
+# mode's factor blocks (F = 20 is the Sf = 1 shard of the TP cases); the
+# ranks phases' runs on the 100k-row recipe at K = 8: name -> (path,
+# factor_block, sweeps, the metrics held to the world of one's)
+DP_KERNEL_F = (1, 4)
+DP_RANKS = 4
+DP_RANKS_RUNS = {
+    "vb": ("dp-vb", 0, 3, ("rmse", "free_energy", "alpha")),
+    "vb_exact": ("dp-vb-exact", 1, 2, ("rmse", "free_energy", "alpha")),
+    "als": ("dp-als", 0, 3, ("rmse_this", "alpha")),
+    "gibbs": ("dp-mcmc", 0, 2, ("rmse", "rmse_this", "alpha")),
+}
 # [tp-mcmc]: Gibbs iterations beside the resident Gibbs, and how far apart
 # their posterior-mean RMSEs may end (two chains of other draws)
 TP_MCMC_ITERS, TP_MCMC_RMSE_GAP = 20, 0.01
@@ -552,6 +579,12 @@ TP_OVB_KERNELS = ("tp_fm_partials", "tp_w_ovb_stats", "tp_w_ovb_blend",
                   "tp_ovb_blend")
 # the kernels of the feature-sharded SGD's minibatch
 TP_SGD_KERNELS = ("tp_fm_partials", "tp_sgd_scatter", "sgd_apply")
+# the kernels of the data-parallel VB (fast mode) and Gibbs/ALS sweeps
+DP_VB_KERNELS = ("fm_scores", "fm_t_terms", "tp_build_qt", "tp_col_stats",
+                 "tp_col_update", "tp_patch_delta")
+DP_MCMC_KERNELS = ("fm_scores", "build_q", "tp_w_stats", "tp_w_draw",
+                   "w_patch_rows", "tp_col_draw_stats", "tp_col_draw",
+                   "mcmc_patch_rows")
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "vb-fast": ("fm_scores", "fm_t_terms", "vb_build_qt",
@@ -633,6 +666,19 @@ PATH_KERNELS = {
     # (replicated: X11; feature-sharded: T1, T12)
     "tp-sgd": TP_SGD_KERNELS,
     "serve-mesh": ("fm_serve", "tp_fm_partials", "tp_serve"),
+    # the data-parallel replicated learners: T2-T4 for a VB block, T3 at
+    # K = 0 and K4 at F = 0 for the standalone w sweep; X8d, T3's w stats,
+    # T5, T7 and X8b for Gibbs/ALS; K1 on the rank's rows
+    "dp-vb": DP_VB_KERNELS,
+    "dp-vb-exact": DP_VB_KERNELS + ("tp_w_stats", "tp_w_update",
+                                    "w_patch_rows"),
+    "dp-vb-class": DP_VB_KERNELS + ("tp_w_stats", "tp_w_update",
+                                    "w_patch_rows", "probit_latent",
+                                    "probit_eval"),
+    "dp-als": DP_MCMC_KERNELS,
+    "dp-mcmc": DP_MCMC_KERNELS,
+    "dp-mcmc-seq": DP_MCMC_KERNELS,
+    "dp-mcmc-class": DP_MCMC_KERNELS + ("probit_latent", "probit_eval"),
 }
 
 
@@ -1328,6 +1374,8 @@ def make_cases(s: dict):
 
     if "tp" in s:  # T1-T4, the feature-sharded batch VB's kernels
         tp_cases(add, s, bucket_cost, bin_cost, bin_label)
+    if "dp" in s:  # T3, T5, T7 at the data-parallel learners' shapes
+        dp_cases(add, s, bucket_cost, bin_cost, bin_label)
     if "tp_ovb" in s:  # T9, T10 and the OVB chunk's T1, T2, T4
         tp_ovb_cases(add, s, bucket_cost, bin_label)
     return cases
@@ -2032,6 +2080,186 @@ def tp_mcmc_cases(add, s: dict, sh: dict, every, bins, C: int, bucket_cost,
             cost(N * P * 8 + D_loc * 2 * F * 4 + N * F * 4
                  + N * (F + 1) * 4, n_in * F * 6)
             if timed and F == K else None)
+
+
+def dp_tensors(learner, state, gibbs, gstate) -> dict:
+    """T3, T3 at K = 0, T5 and T7's inputs at the data-parallel replicated
+    learners' shapes (``VBLearner``/``MCMCLearner(mesh=)``: ML-1M's
+    buckets of the resident plan, lo = 0, D_loc = D, one data shard) from
+    a real init: for F = 1, 4 (exact mode's factor blocks; F = 20 is the
+    Sf = 1 shard of ``tp_tensors``) the VB patch table and T2's caches
+    (K2's twin), and the Gibbs block's (v | 0) table, q (X8d's twin),
+    seeded group priors and noise; the w sweep's bins."""
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+
+    cfg = learner.cfg
+    D, K, G = cfg.num_attributes, cfg.num_factor, cfg.num_groups
+    dev = state.e.device
+    row = learner.train_row
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    def rand(*shape, lo=None, hi=None):
+        u = (torch.randn(shape, generator=gen) if lo is None else
+             lo + (hi - lo) * torch.rand(shape, generator=gen))
+        return u.to(dev)
+    widths = {}
+    for F in DP_KERNEL_F:
+        ptab = torch.zeros(D, 5 * F, device=dev)
+        ptab[:, :F] = state.mu_v[:F].T
+        ptab[:, F:2 * F] = state.sigma_v_dash[:F].T
+        vt = gstate.v[:F].T.contiguous()
+        gptab = torch.cat([vt, torch.zeros_like(vt)], 1)
+        widths[F] = dict(
+            ptab=ptab, mu_t=state.mu_v[:F].T.contiguous(),
+            sig_t=state.sigma_v_dash[:F].T.contiguous(),
+            sv=state.sigma_v[:, :F].contiguous(),
+            qt=torch.cat(kv.vb_build_qt_plain(ptab, F, row.ids, row.vals), 1),
+            vt=vt, gptab=gptab,
+            gq=kv.build_q_plain(gptab, F, row.ids, row.vals),
+            mu=0.1 * rand(G, F), lam=rand(G, F, lo=0.5, hi=2.0),
+            z=rand(F, D))
+    return dict(tag="dp", dp=widths, plan=learner.plan_data, D=D,
+                e=state.e, ge=gstate.e, alpha=state.alpha,
+                galpha=gstate.alpha, mu_w=state.mu_w,
+                sig_w=state.sigma_w_dash, sigma_w=state.sigma_w,
+                w=gstate.w, w_mu=0.1 * rand(G),
+                w_lam=rand(G, lo=0.5, hi=2.0), zw=rand(D))
+
+
+def dp_cases(add, s: dict, bucket_cost, bin_cost, bin_label) -> None:
+    """T3 (stats, then update with no w rider) and T7 (stats, then the
+    exact draw with noise) at F = 1 and 4 on every bucket of the resident
+    plan, lo = 0, D_loc = D, each against its twin, timed on the widest
+    bucket; T3 at K = 0 and T5 on every bin, timed on bin 0."""
+    from svbfm_tpu_torch.kernels import mcmc_sweep as km
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+
+    D = s["D"]
+    dev = s["e"].device
+    G = s["w_mu"].shape[0]
+    every = sorted((b for bb in s["plan"].blocks for b in bb),
+                   key=lambda b: -b.rows.numel())
+
+    def nothing():
+        return ()
+
+    def twin(fn_k, fn_p, *args):
+        def call(variant, _):
+            return [(fn_k if variant == "kernel" else fn_p)(*args)]
+        return call
+
+    for F, t in s["dp"].items():
+        def k3_prepare(t=t):
+            return _clones(t, "mu_t", "sig_t", "ptab") + (
+                torch.zeros(2, dtype=torch.int32, device=dev),)
+
+        def update(b, acc, t=t):
+            def call(variant, inp):
+                fn = (kv.tp_col_update if variant == "kernel"
+                      else kv.tp_col_update_plain)
+                mu_t, sig_t, ptab, nans = inp
+                fn(acc, b.cols, D, b.group, b.sx2, ptab, mu_t, sig_t,
+                   t["sv"], s["alpha"], None, nans)
+                return [mu_t, sig_t, ptab, nans]
+            return call
+
+        def draw(b, acc, t=t):
+            def call(variant, inp):
+                fn = (km.tp_col_draw if variant == "kernel"
+                      else km.tp_col_draw_plain)
+                pt, v, nans = inp
+                fn(acc, b.cols, b.group, D, pt, v, t["mu"], t["lam"],
+                   s["galpha"], t["z"], True, nans)
+                return [pt, v, nans]
+            return call
+
+        def d_prepare(t=t):
+            return (t["gptab"].clone(), t["vt"].clone(),
+                    torch.zeros(2, dtype=torch.int32, device=dev))
+
+        nout = km.tp_col_outputs(F, True)
+        for i, b in enumerate(every):
+            C, L = b.rows.shape
+            bd = dict(rows=b.rows, x=b.x)
+            first = i == 0
+            add("tp_col_stats", f"F={F} [{C},{L}]", nothing,
+                twin(kv.tp_col_stats, kv.tp_col_stats_plain, b.rows, b.x,
+                     b.cols, D, s["e"], t["qt"], t["ptab"], F),
+                bucket_cost(bd, 1 + 2 * F, 2 * F + 2 * F + 1, 12 * F + 2)
+                if first else None)
+            acc = kv.tp_col_stats_plain(b.rows, b.x, b.cols, D, s["e"],
+                                        t["qt"], t["ptab"], F)
+            # a column reads acc (2F + 1), cols/group/sx2 and ptab's mu/sig
+            # (2F); writes mu_t/sig_t (2F) and ptab's deltas (3F); the
+            # [G, F] sv once (the twin masks: host-paced)
+            add("tp_col_update", f"F={F} [{C},{L}]", k3_prepare,
+                update(b, acc),
+                cost(C * ((2 * F + 1) + 3 + 2 * F) * 4 + C * 5 * F * 4
+                     + G * F * 4, C * 8 * F, plain_graph=False)
+                if first else None)
+            add("tp_col_draw_stats", f"F={F} exact+z [{C},{L}]", nothing,
+                twin(km.tp_col_draw_stats, km.tp_col_draw_stats_plain,
+                     b.rows, b.x, b.cols, D, s["ge"], t["gq"], t["gptab"],
+                     F, True),
+                bucket_cost(bd, 1 + F, 1 + F + nout,
+                            6 * F + F * (F - 1)) if first else None)
+            gacc = km.tp_col_draw_stats_plain(b.rows, b.x, b.cols, D,
+                                              s["ge"], t["gq"], t["gptab"],
+                                              F, True)
+            add("tp_col_draw", f"F={F} exact+z [{C},{L}]", d_prepare,
+                draw(b, gacc),
+                cost(C * (nout + 2 + 4 * F + 2 * F) * 4, C * (F * F + 10 * F),
+                     plain_graph=False) if first else None)
+
+    # the w sweep: T3's K = 0 stats and update, T5's draw, every bin
+    for bi, bins in enumerate(s["plan"].blocks):
+        if not bins:
+            continue
+        first = bi == 0
+        C = sum(b.rows.shape[0] for b in bins)
+
+        def w_stats(variant, inp, bins=bins):
+            fn = kw.tp_w_stats if variant == "kernel" else kw.tp_w_stats_plain
+            (acc,) = inp
+            fn(bins, s["e"], acc, D)
+            return [acc]
+
+        acc = torch.zeros(D, device=dev)
+        kw.tp_w_stats_plain(bins, s["e"], acc, D)
+        gacc = torch.zeros(D, device=dev)
+        kw.tp_w_stats_plain(bins, s["ge"], gacc, D)
+
+        def w_update(variant, inp, bins=bins, acc=acc):
+            fn = (kw.tp_w_update if variant == "kernel"
+                  else kw.tp_w_update_plain)
+            mu_w, sig_w, dtab, bad = inp
+            fn(bins, acc, D, mu_w, sig_w, s["sigma_w"], s["alpha"], dtab,
+               bad)
+            return [mu_w, sig_w, dtab, bad]
+
+        def t5(variant, inp, bins=bins, gacc=gacc):
+            fn = kw.tp_w_draw if variant == "kernel" else kw.tp_w_draw_plain
+            w, dtab, bad = inp
+            fn(bins, gacc, D, w, s["w_mu"], s["w_lam"], s["galpha"],
+               s["zw"], dtab, bad)
+            return [w, dtab, bad]
+
+        c = bin_cost(bins, 1, 2)
+        c["plain_graph"] = False
+        add("tp_w_stats", f"K=0 {bin_label(bins)}",
+            lambda: (torch.zeros(D, device=dev),), w_stats,
+            c if first else None)
+        add("tp_w_update", f"K=0 {bin_label(bins)}",
+            lambda: _clones(s, "mu_w", "sig_w") + (
+                torch.zeros(D, 2, device=dev), _bad(dev)),
+            w_update, cost(C * 16 + C * 4 * 6, C * 10, plain_graph=False)
+            if first else None)
+        add("tp_w_draw", f"{bin_label(bins)}",
+            lambda: (s["w"].clone(), torch.zeros(D, 2, device=dev),
+                     _bad(dev)), t5,
+            cost(C * 4 * 9 + G * 8, C * 12, plain_graph=False)
+            if first else None)
 
 
 def win_cases(add, W: dict, bucket_cost, bin_cost) -> None:
@@ -5730,6 +5958,244 @@ def tp_mcmc_phases(build, card, dev, train, test, meta, base_cfg,
     return l_als, l_mcmc, l_class
 
 
+def dp_rank_child(rank: int, store: str, out: str) -> None:
+    """One of the [dp-vb-ranks]/[dp-mcmc-ranks] phases' gloo ranks on the
+    card: the data-parallel VB (fast mode, then exact mode at factor_block
+    1), ALS and Gibbs on a data mesh of DP_RANKS, the 100k-row recipe at
+    K = 8, from the seed's init and host-table draws (``dp_ranks_runs``);
+    rank 0 writes the histories and each run's launch counts to ``out``
+    (JSON)."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+    distributed_init(init_method=f"file://{store}", world_size=DP_RANKS,
+                     rank=rank, backend="gloo", device="cuda")
+    got = dp_ranks_runs(make_mesh(device="cuda"))
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(got, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_ranks_runs(mesh) -> dict:
+    """The ranks phases' runs on ``mesh`` (a world of one in the parent,
+    DP_RANKS gloo ranks in the children): for each of DP_RANKS_RUNS, the
+    history's metrics, the launch counts and the mesh."""
+    from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    tr1, _, train1, test1, meta1 = ml_data(TP_RANKS_ROWS)
+    base = tp_ranks_cfg(tr1, meta1)
+    out = {}
+    for name, (path, fb, n, keys) in DP_RANKS_RUNS.items():
+        cfg = dataclasses.replace(base, factor_block=fb, **(
+            dict(reg0=ALS_REG, regw=ALS_REG, regv=ALS_REG) if name == "als"
+            else {}))
+        gen = torch.Generator().manual_seed(SEED)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()  # the init's K1 launches count too
+        if path.startswith("dp-vb"):
+            lr = VBLearner(cfg, train1, test1, meta1, mesh=mesh,
+                           write_files=False)
+            state = lr.state_from_params(init_vb_params(gen, cfg, "cpu"))
+        else:
+            cls = ALSLearner if name == "als" else MCMCLearner
+            lr = cls(cfg, train1, test1, meta1, mesh=mesh, write_files=False)
+            p = init_fm_params(gen, cfg.num_attributes, cfg.num_factor,
+                               init_stdev=cfg.init_stdev, init_w_normal=True)
+            state = lr.state_from_params(p.w0, p.w, p.v,
+                                         host_draws(SEED, lr.device))
+        _, hist = lr.run(state, num_iter=n, verbose=False, chunk=1)
+        torch.cuda.synchronize()
+        out[name] = dict(hist=[{k: h[k] for k in keys + (
+            "time_learn", "iter")} for h in hist],
+            launches=dict(build.launch_counts), device=str(lr.device),
+            ranks=mesh.n_data)
+    return out
+
+
+def dp_vb_phase(build, card, dev, mesh, train, test, meta, base_cfg, plan,
+                path: str, fb: int, sweeps: int) -> dict:
+    """One [dp-vb*] run: the data-parallel VB on ``mesh`` beside the
+    resident VB from one init, ``sweeps`` sweeps, the trajectories within
+    TRAJ_RTOL; a sweep's device time beside the resident's.  Returns the
+    launch counts."""
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.vb import VBLearner, init_vb_params
+
+    t0 = time.perf_counter()
+    task = 1 if path.endswith("class") else 0
+    if task:
+        train, test = (binarised(d, CLASS_THRESHOLD) for d in (train, test))
+        base_cfg = dict(base_cfg, task=1, min_target=-1.0, max_target=1.0)
+    cfg = FMConfig(factor_block=fb, **base_cfg)
+    params = init_vb_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    dp = VBLearner(cfg, train, test, meta, mesh=mesh, write_files=False)
+    (dstate, hd), launches = drive(build, path, lambda: dp.run(
+        dp.state_from_params(params), num_iter=sweeps, verbose=False,
+        chunk=1))
+    res = VBLearner(cfg, train, test, meta, device=dev, plan=plan,
+                    write_files=False)
+    rstate, hr = res.run(res.state_from_params(params), num_iter=sweeps,
+                         verbose=False, chunk=1)
+    if task:
+        check_class_history(hd, path)
+        keys = ("accuracy", "loglik", "free_energy", "alpha")
+    else:
+        check_history(hd, path, ("rmse", "free_energy", "alpha"), True)
+        keys = ("rmse", "train_rmse", "free_energy", "alpha")
+    worst = compare_traj(hd, hr, keys, TRAJ_RTOL, f"{path} vs resident vb")
+    d_us = profile_run(lambda: dp.run(dstate, num_iter=1, verbose=False), 1,
+                       "sweep", f"{path}-profile", focus=("tp_",))
+    r_us = profile_run(lambda: res.run(rstate, num_iter=1, verbose=False), 1,
+                       "sweep", f"{path}-resident-profile")
+    sec, rsec = (statistics.median(h["time_learn"] for h in hh[1:])
+                 for hh in (hd, hr))
+    say(path, t0, backend=dist_backend(), ranks=mesh.n_data,
+        factor_block=fb, task=task, sweeps=sweeps,
+        sec_per_iter=f"{sec:.6f}", resident_sec_per_iter=f"{rsec:.6f}",
+        device_ms_per_iter=f"{d_us / 1e3:.3f}",
+        resident_device_ms_per_iter=f"{r_us / 1e3:.3f}",
+        **{keys[0]: ",".join(f"{h[keys[0]]:.5f}" for h in hd)},
+        max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL,
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=repr(card))
+    return launches
+
+
+def dp_mcmc_phase(build, card, dev, mesh, train, test, meta, base_cfg, plan,
+                  path: str, fb: int, sweeps: int) -> dict:
+    """One [dp-mcmc*]/[dp-als] run: the data-parallel Gibbs (ALS) on
+    ``mesh`` beside the resident learner from one init and one host-table
+    draw source each, the trajectories within TRAJ_RTOL; a sweep's device
+    time beside the resident's.  Returns the launch counts."""
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    t0 = time.perf_counter()
+    task = 1 if path.endswith("class") else 0
+    als = path == "dp-als"
+    if task:
+        train, test = (binarised(d, CLASS_THRESHOLD) for d in (train, test))
+        base_cfg = dict(base_cfg, task=1, min_target=-1.0, max_target=1.0)
+    if als:
+        base_cfg = dict(base_cfg, reg0=ALS_REG, regw=ALS_REG, regv=ALS_REG)
+    cfg = FMConfig(factor_block=fb, **base_cfg)
+    cls = ALSLearner if als else MCMCLearner
+    p = init_fm_params(torch.Generator().manual_seed(SEED),
+                       cfg.num_attributes, K, init_stdev=cfg.init_stdev,
+                       init_w_normal=True)
+    dp = cls(cfg, train, test, meta, mesh=mesh, write_files=False)
+    (dstate, hd), launches = drive(build, path, lambda: dp.run(
+        dp.state_from_params(p.w0, p.w, p.v, host_draws(SEED, dev)),
+        num_iter=sweeps, verbose=False, chunk=1))
+    res = cls(cfg, train, test, meta, device=dev, plan=plan,
+              write_files=False)
+    rstate, hr = res.run(res.state_from_params(p.w0, p.w, p.v, host_draws(
+        SEED, dev)), num_iter=sweeps, verbose=False, chunk=1)
+    if task:
+        check_class_history(hd, path)
+        keys = ("accuracy", "loglik", "alpha")
+    else:
+        check_mcmc_history(hd, path, "rmse_this" if als else "rmse")
+        keys = ("rmse", "rmse_this", "alpha")
+    worst = compare_traj(hd, hr, keys, TRAJ_RTOL, f"{path} vs resident")
+    d_us = profile_run(lambda: dp.run(dstate, num_iter=1, verbose=False), 1,
+                       "sweep", f"{path}-profile", focus=("tp_",))
+    r_us = profile_run(lambda: res.run(rstate, num_iter=1, verbose=False), 1,
+                       "sweep", f"{path}-resident-profile")
+    sec, rsec = (statistics.median(h["time_learn"] for h in hh[1:])
+                 for hh in (hd, hr))
+    say(path, t0, backend=dist_backend(), ranks=mesh.n_data,
+        factor_block=fb, task=task, sweeps=sweeps,
+        sec_per_iter=f"{sec:.6f}", resident_sec_per_iter=f"{rsec:.6f}",
+        device_ms_per_iter=f"{d_us / 1e3:.3f}",
+        resident_device_ms_per_iter=f"{r_us / 1e3:.3f}",
+        **{keys[1]: ",".join(f"{h[keys[1]]:.5f}" for h in hd)},
+        max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL,
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=repr(card))
+    return launches
+
+
+def dist_backend() -> str:
+    import torch.distributed as dist
+
+    return dist.get_backend() if dist.is_initialized() else "none"
+
+
+def dp_phases(build, card, dev, train, test, meta, base_cfg, plan) -> list:
+    """The data-parallel replicated learners (``VBLearner``/``MCMCLearner``/
+    ``ALSLearner(mesh=)``: T3, T3 at K = 0, T5 and T7 at lo = 0, D_loc = D
+    around the data all-reduce): [dp-vb] (NCCL, a world of one, ML-1M,
+    K = 20: fast mode and exact mode at factor_block 1 beside the resident
+    VB, and -task c at factor_block 1), [dp-mcmc] (ALS at the default
+    block, Gibbs at the default block and at factor_block 1, and Gibbs
+    under -task c, each beside the resident learner under one host-table
+    draw source), then [dp-vb-ranks] and [dp-mcmc-ranks] (DP_RANKS gloo
+    ranks on the card, the 100k-row recipe at K = 8, beside the world of
+    one).  Every trajectory within TRAJ_RTOL.  Returns the launch counts
+    of the driven runs."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+    work = ooc_work("dp")
+    distributed_init(init_method=f"file://{os.path.join(work, 'store')}",
+                     world_size=1, rank=0, backend="nccl", device="cuda")
+    mesh = make_mesh(device="cuda")
+    args = (build, card, dev, mesh, train, test, meta, base_cfg, plan)
+    runs = [dp_vb_phase(*args, path, fb, n) for path, fb, n in (
+        ("dp-vb", 0, 5), ("dp-vb-exact", 1, 3), ("dp-vb-class", 1, 3))]
+    runs += [dp_mcmc_phase(*args, path, fb, n) for path, fb, n in (
+        ("dp-als", 0, 5), ("dp-mcmc", 0, 2), ("dp-mcmc-seq", 1, 2),
+        ("dp-mcmc-class", 1, 2))]
+
+    # DP_RANKS gloo ranks on the one card beside the world of one
+    t0 = time.perf_counter()
+    one = dp_ranks_runs(mesh)
+    dist.destroy_process_group()
+    rwork = ooc_work("dp-ranks")
+    out = os.path.join(rwork, "rank0.json")
+    spawn_ranks(dp_rank_child, DP_RANKS,
+                (os.path.join(rwork, "store"), out), "dp-ranks")
+    with open(out) as f:
+        got = json.load(f)
+    for phase, names in (("dp-vb-ranks", ("vb", "vb_exact")),
+                         ("dp-mcmc-ranks", ("als", "gibbs"))):
+        kv = {}
+        for name in names:
+            path, _fb, _n, keys = DP_RANKS_RUNS[name]
+            g = got[name]
+            missing = [k for k in PATH_KERNELS[path]
+                       if g["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"{phase} {name}: kernels never "
+                                     f"launched: {missing}")
+            worst = compare_traj(g["hist"], one[name]["hist"], keys,
+                                 TRAJ_RTOL,
+                                 f"{phase} {name} vs the world of one")
+            kv.update({
+                f"{name}_{keys[0]}": ",".join(f"{h[keys[0]]:.5f}"
+                                              for h in g["hist"]),
+                f"{name}_sec_per_iter": f"{statistics.median(
+                    h['time_learn'] for h in g['hist'][1:]):.6f}",
+                f"{name}_one_sec_per_iter": f"{statistics.median(
+                    h['time_learn'] for h in one[name]['hist'][1:]):.6f}",
+                f"{name}_max_rel": f"{worst:.3e}"})
+        say(phase, t0, ranks=got[names[0]]["ranks"], backend="gloo",
+            device=got[names[0]]["device"], K=TP_RANKS_K, rtol=TRAJ_RTOL,
+            **kv)
+    return runs
+
+
 def tp_ovb_rank_child(rank: int, store: str, out: str) -> None:
     """One of the [tp-ovb-ranks] phase's gloo ranks on the card: the
     feature-sharded OVB on a (2, 2) mesh, TP_OVB_RANKS_EPOCHS epochs of the
@@ -6737,6 +7203,7 @@ def main() -> int:
         check_cases(win_tensors(win, win0, "vb-windowed"), timed=True),
         check_cases(mwin_tensors(mwin, mwin1, "mcmc-windowed"), timed=True),
         check_cases(tp_tensors(learner, vb0), timed=True),
+        check_cases(dp_tensors(learner, vb0, gibbs, mc1), timed=True),
         check_cases(tp_ovb_tensors(ovb, ovb0), timed=True),
         check_cases(tp_sgd_path_tensors(sgd, exp_sgd, dev), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
@@ -6838,6 +7305,8 @@ def main() -> int:
     # ---- 8c. the feature-sharded Gibbs and ALS (T5-T8) ----------------------
     l_tpm = tp_mcmc_phases(build, card, dev, train, test, meta, base_cfg,
                            plan)
+    # ---- 8d. the data-parallel replicated VB, Gibbs and ALS ----------------
+    l_dp = dp_phases(build, card, dev, train, test, meta, base_cfg, plan)
 
     # ---- 9. online VB, 20 chunks of fixed membership -------------------------
     t0 = time.perf_counter()
@@ -7080,8 +7549,8 @@ def main() -> int:
     l_ooc = ooc_phases(build, card, dev, tr, te, train, test, meta, base_cfg,
                        plan, ovb_ref, online_sec)
 
-    runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, *l_tpm, l_ovb, *l_tpo,
-            l_mcmc, *l_als, l_probe, l_sgd, l_tps, l_smesh,
+    runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, *l_tpm, *l_dp, l_ovb,
+            *l_tpo, l_mcmc, *l_als, l_probe, l_sgd, l_tps, l_smesh,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
             l_bs_nine, l_bs_k64, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}

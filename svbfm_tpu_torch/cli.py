@@ -34,8 +34,12 @@ sharded over S ranks of a (data, feature) mesh of every rank, and
 ``-distributed 1`` joins
 the ranks' process group from ``SVBFM_COORDINATOR``,
 ``SVBFM_NUM_PROCESSES`` and ``SVBFM_PROCESS_ID`` (NCCL on ``cuda``, gloo
-on ``cpu``; several ranks of vb without ``-feature_shards`` shard the
-rows); rank 0 prints and writes the files.
+on ``cpu``); several ranks of vb, mcmc or als without ``-feature_shards``
+train the replicated learner data-parallel on a data mesh of every rank
+(``VBLearner``/``MCMCLearner``/``ALSLearner(mesh=)``: each rank a block of
+the rows, every table on every rank; ``-factor_block``, ``-task c``,
+``-num_eval_cases``, ``-map_eval`` and ``-checkpoint`` read as on one
+device); rank 0 prints and writes the files.
 
     python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
         -dim '1,1,20' -method mcmc -iter 10 -device cuda
@@ -120,7 +124,8 @@ Flags (-name value):
                in memory); must divide the world size; default=1
   -distributed 1 = join the process group of SVBFM_COORDINATOR,
                SVBFM_NUM_PROCESSES, SVBFM_PROCESS_ID (vb, vb_online, mcmc,
-               als, sgd); default=0
+               als, sgd; without -feature_shards vb, mcmc and als train
+               data-parallel on every rank); default=0
   -verbosity   how much to print; default=0
   -device      torch device to train on; default=cuda (cpu runs the
                kernels' plain PyTorch twins)
@@ -158,6 +163,8 @@ FLAG_METHODS = {
 _Q1 = "ROADMAP.md queue 1"
 # the methods that run feature-sharded or on several ranks
 TP_METHODS = ("vb", "vb_online", "mcmc", "als", "sgd")
+# the methods whose replicated learner runs data-parallel across ranks
+DP_METHODS = ("vb", "mcmc", "als")
 METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 # the methods that read -task p (svbfm_tpu/learners/sgd.py:87-100)
 POISSON_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd_stoc")
@@ -311,21 +318,35 @@ def main(argv: Optional[list[str]] = None) -> int:
     # several ranks: join their process group before anything else
     # (svbfm_tpu/cli.py:160-168)
     from svbfm_tpu_torch.parallel.mesh import distributed_init, process_info
-    # without -feature_shards svbfm_tpu/cli.py sends mcmc and als to the
-    # replicated learner, data-parallel across the ranks
-    if os.environ.get("SVBFM_COORDINATOR") and (
-            method not in TP_METHODS or (method != "vb" and fs == 1)):
-        how = "" if method not in TP_METHODS else " without -feature_shards"
-        raise SystemExit(f"SVBFM_COORDINATOR is set: -method {method}{how} "
-                         "does not run data-parallel across ranks in the "
-                         f"port yet ({_Q1}, item 13.4)")
+    # without -feature_shards svbfm_tpu/cli.py sends vb, mcmc and als to
+    # the replicated learner, data-parallel across the ranks
+    # (svbfm_tpu/cli.py:364-424); the others have none in the port yet
+    def refuse_dp(why):
+        if method not in DP_METHODS and (method not in TP_METHODS or fs == 1):
+            how = ("" if method not in TP_METHODS
+                   else " without -feature_shards")
+            raise SystemExit(f"{why}: -method {method}{how} does not run "
+                             "data-parallel across ranks in the port yet "
+                             f"({_Q1}, item 13.4)")
+    if os.environ.get("SVBFM_COORDINATOR"):
+        refuse_dp("SVBFM_COORDINATOR is set")
     if (distributed or os.environ.get("SVBFM_COORDINATOR")) \
             and distributed_init(device=device):
         rank, world = process_info()
         if rank == 0:
             print(f"# distributed: process {rank}/{world}")
     rank, world = process_info()
-    tp = fs > 1 or world > 1
+    tp = fs > 1  # the feature-sharded learners
+    dp = world > 1 and not tp  # the replicated ones on a data mesh
+    if dp:
+        refuse_dp(f"{world} ranks")
+        if cmd.has("relation"):
+            raise SystemExit("-relation block structure does not run "
+                             "data-parallel across ranks in the port yet "
+                             f"({_Q1}, item 13.4)")
+        if cache_bytes > 0:
+            raise SystemExit("-cache_size is not read by the data-parallel "
+                             "learners (resident rows)")
     if tp:
         for name, bad in (("cache_size", cache_bytes > 0), ("num_eval_cases",
                           nec), ("map_eval", cmd.has("map_eval"))):
@@ -483,6 +504,10 @@ def main(argv: Optional[list[str]] = None) -> int:
         num_batches=cmd.get_int("batch", 50),
         reshuffle=cmd.get_int("reshuffle", 0) == 1)
     bins = cmd.get_str("bins", "auto")
+    mesh = None
+    if dp:
+        from svbfm_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(device=device)
     tr_ds = SparseDataset.from_coo(train, D) if train is not None else None
     te_ds = SparseDataset.from_coo(test, D)
     if method in ("mcmc", "als") and bs_native is not None:
@@ -514,7 +539,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         cls = ALSLearner if method == "als" else MCMCLearner
         learner = cls(cfg, tr_ds, te_ds, meta, device=device, bins=bins,
                       w_lambda_init=w_lambda, v_lambda_init=v_lambda,
-                      num_eval_cases=nec)
+                      num_eval_cases=nec, mesh=mesh)
     elif method == "vb" and cache_bytes > 0:
         from svbfm_tpu_torch.learners.vb_windowed import WindowedVBLearner
         learner = WindowedVBLearner(cfg, reader if defer_train else tr_ds,
@@ -529,7 +554,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     elif method == "vb":
         from svbfm_tpu_torch.learners.vb import VBLearner
         learner = VBLearner(cfg, tr_ds, te_ds, meta, device=device, bins=bins,
-                            num_eval_cases=nec)
+                            num_eval_cases=nec, mesh=mesh)
     elif method == "vb_online" and tp:
         from svbfm_tpu_torch.parallel.mesh import make_mesh2d
         from svbfm_tpu_torch.parallel.tp_ovb import TPOVBLearner
@@ -651,6 +676,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     else:
         out_vals = 1.0 / (1.0 + np.exp(-np.asarray(
             learner.predict_test_scores(state), np.float64)))
+    # the final MAP@k ranks the scores (every rank gathers them)
+    map_scores = (learner.predict_test_scores(state)
+                  if cmd.has("map_eval") else None)
     # over the first -num_eval_cases rows (svbfm_tpu/cli.py:565-583)
     if not lead:
         return 0
@@ -662,7 +690,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                                      cmd.get_int("map_item_offset", 0))
         mk = cmd.get_int("map_k", 5)
         print(f"MAP@{mk}\t"
-              f"{map_at_k(learner.predict_test_scores(state), u, i, pos, k=mk):.6g}")
+              f"{map_at_k(map_scores, u, i, pos, k=mk):.6g}")
     if task == TASK_REGRESSION:
         rmse = float(np.sqrt(np.mean((vals_eval - target_eval) ** 2)))
         print(f"Final\tTest={rmse:.6g}")

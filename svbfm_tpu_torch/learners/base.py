@@ -1,9 +1,12 @@
 """Shared learner infrastructure: config, device data bundles, eval, logs.
 
-Counterpart of ``svbfm_tpu/learners/base.py`` for one device: the data
-bundles are plain dataclasses of tensors on the device the learner was
-given, with no sharding.  ``FMConfig`` keeps the JAX config's names and
-defaults for the fields the port reads.
+Counterpart of ``svbfm_tpu/learners/base.py``: the data bundles are plain
+dataclasses of tensors on the device the learner was given.  On one
+device they hold every row; on a data mesh of ranks
+(``parallel/mesh.py:make_mesh``) rank d holds the contiguous block d of
+the rows, padded as the JAX package pads them, and its slice of each
+bucket of a ``SweepPlan`` built for as many shards.  ``FMConfig`` keeps
+the JAX config's names and defaults for the fields the port reads.
 """
 
 from __future__ import annotations
@@ -109,26 +112,91 @@ def _put(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def build_row_data(ds: SparseDataset, device) -> tuple[RowData, int]:
-    """Returns (RowData, num_cases) on ``device``."""
-    valid = (np.arange(ds.ids.shape[0]) < ds.num_rows).astype(np.float32)
+# Datasets of this many rows or more are padded to a multiple of
+# ROW_QUANTUM rows a shard on a data mesh, as the JAX package pads them
+# (svbfm_tpu/learners/base.py:115-129)
+ROW_QUANTUM = 16384
+_ROW_QUANTUM_MIN_ROWS = 2_000_000
+
+
+def padded_rows(ds: SparseDataset, n_shards: int) -> int:
+    """The row count of ``ds`` split over a data mesh of ``n_shards``: a
+    multiple of ``n_shards``, and of ``n_shards`` x ``ROW_QUANTUM`` at
+    2M rows or more."""
+    n = max(ds.num_rows, ds.ids.shape[0], 1)
+    q = n_shards * (ROW_QUANTUM if ds.num_rows >= _ROW_QUANTUM_MIN_ROWS
+                    else 1)
+    return -(-n // q) * q
+
+
+def build_row_data(ds: SparseDataset, device,
+                   mesh=None) -> tuple[RowData, int]:
+    """Returns (RowData, num_cases) on ``device``: every row, or on a data
+    ``mesh`` the rank's contiguous block of ``padded_rows`` rows (the
+    padding rows carry valid = 0); num_cases counts the real rows of all
+    ranks."""
+    lo, hi = 0, ds.ids.shape[0]
+    if mesh is not None:
+        ds = ds.padded_to(padded_rows(ds, mesh.n_data))
+        rps = ds.ids.shape[0] // mesh.n_data
+        lo, hi = mesh.d_index * rps, (mesh.d_index + 1) * rps
+    valid = (np.arange(lo, hi) < ds.num_rows).astype(np.float32)
     return RowData(
-        ids=_put(ds.ids.astype(np.int32), device),
-        vals=_put(ds.vals.astype(np.float32), device),
-        target=_put(ds.target.astype(np.float32), device),
+        ids=_put(ds.ids[lo:hi].astype(np.int32), device),
+        vals=_put(ds.vals[lo:hi].astype(np.float32), device),
+        target=_put(ds.target[lo:hi].astype(np.float32), device),
         valid=_put(valid, device),
     ), ds.num_rows
 
 
-def build_plan_data(plan: SweepPlan, meta: DataMetaInfo, device) -> PlanData:
-    if plan.num_shards != 1:
-        raise NotImplementedError(
-            "svbfm_tpu_torch runs on one device: build the SweepPlan with "
-            "n_shards=1 (multiple GPUs: ROADMAP.md queue 1, item 13)")
+def learner_device(device, mesh):
+    """The device of a learner given ``device`` and/or a data ``mesh``
+    (the mesh's device; one given beside it must be the same)."""
+    if mesh is None:
+        if device is None:
+            raise TypeError("the learner needs a device (or a mesh)")
+        return torch.device(device)
+    dev = torch.device(device if device is not None else mesh.device)
+    if dev.type != mesh.device.type or dev.index not in (None,
+                                                         mesh.device.index):
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device
+
+
+def mesh_plan(train: SparseDataset, cfg: FMConfig, meta: DataMetaInfo,
+              bins: str, mesh, plan: Optional[SweepPlan]) -> SweepPlan:
+    """The learner's SweepPlan: ``plan``, else built for the data shards of
+    ``mesh`` (one without), its rows per shard those of
+    ``build_row_data``'s blocks."""
+    if mesh is None:
+        return plan if plan is not None else SweepPlan.build(
+            train.to_coo(), cfg.num_attributes, meta_groups=meta.attr_group,
+            bins=bins)
+    n_pad = padded_rows(train, mesh.n_data)
+    if plan is None:
+        return SweepPlan.build(train.to_coo(), cfg.num_attributes,
+                               meta_groups=meta.attr_group, bins=bins,
+                               n_shards=mesh.n_data, n_rows_total=n_pad)
+    if plan.rows_per_shard * mesh.n_data != n_pad:
+        raise ValueError(f"the SweepPlan has {plan.rows_per_shard} rows a "
+                         f"shard; the mesh's blocks {n_pad // mesh.n_data}")
+    return plan
+
+
+def build_plan_data(plan: SweepPlan, meta: DataMetaInfo, device,
+                    mesh=None) -> PlanData:
+    """The plan on ``device``: its one shard, or on a data ``mesh`` the
+    rank's slice [d] of each bucket's rows and x (rows local to the rank's
+    block; a padding slot is its last row, with x = 0)."""
+    n, d = (1, 0) if mesh is None else (mesh.n_data, mesh.d_index)
+    if plan.num_shards != n:
+        raise ValueError(f"the SweepPlan was built for {plan.num_shards} "
+                         f"shard(s); the learner runs on {n}: build it with "
+                         f"n_shards={n}")
     blocks = tuple(
         tuple(
             BlockData(
-                rows=_put(blk.rows[0], device), x=_put(blk.x[0], device),
+                rows=_put(blk.rows[d], device), x=_put(blk.x[d], device),
                 cols=_put(blk.cols, device), group=_put(blk.group, device),
                 sx2=_put(blk.sx2, device), cnt=_put(blk.cnt, device),
                 col_count=_put(blk.col_count, device))
@@ -143,27 +211,43 @@ def build_plan_data(plan: SweepPlan, meta: DataMetaInfo, device) -> PlanData:
     )
 
 
-def held_back(row: RowData, num_rows: int, num_eval_cases: Optional[int]):
+def gather_rows(mesh, t: torch.Tensor, rps: int) -> torch.Tensor:
+    """The data shards' [rps, ...] row blocks laid end to end on every
+    rank (an all-reduce over every rank of zero-filled tensors, feature
+    shard 0's ranks filling their block).  Every rank must call it."""
+    g = t.new_zeros((rps * mesh.n_data,) + tuple(t.shape[1:]))
+    if mesh.f_index == 0:
+        g[mesh.d_index * rps:(mesh.d_index + 1) * rps] = t
+    return mesh.all_reduce(g)
+
+
+def row_block(mesh, a: torch.Tensor, rps: int) -> torch.Tensor:
+    """The rank's block of ``rps`` rows of a global per-row vector [N]
+    (``gather_rows``' inverse), zero-padded to ``rps`` x the data
+    shards."""
+    a = torch.nn.functional.pad(a, (0, rps * mesh.n_data - a.shape[0]))
+    d = mesh.d_index
+    return a[d * rps:(d + 1) * rps].contiguous()
+
+
+def held_back(row: RowData, num_rows: int, num_eval_cases: Optional[int],
+              first_row: int = 0):
     """The test eval over the first ``num_eval_cases`` rows (libFM's
     -num_eval_cases, fm_learn_mcmc_simultaneous.h:240-256,
     fm_learn_vb_simultaneous.h:220-232): returns (row, rest, eval_n), the
     row data with its ``valid`` mask REPLACED by the first rows' mask (the
     metric and its normaliser both use it), the held-back rows' mask
-    ``rest`` (None when every row is evaluated) and the rows evaluated."""
+    ``rest`` (None when every row is evaluated) and the rows evaluated.
+    ``first_row``: the global index of ``row``'s first row (a rank's
+    block on a data mesh); the masks are taken on the global index."""
     if num_eval_cases is None or not 0 < num_eval_cases < num_rows:
         return row, None, num_rows
-    idx = torch.arange(row.valid.shape[0], device=row.valid.device)
+    idx = first_row + torch.arange(row.valid.shape[0],
+                                   device=row.valid.device)
     emask = (idx < num_eval_cases).to(torch.float32)
     rest = ((idx >= num_eval_cases) & (idx < num_rows)).to(torch.float32)
     return (RowData(ids=row.ids, vals=row.vals, target=row.target,
                     valid=emask), rest, int(num_eval_cases))
-
-
-def rmse_over(p: torch.Tensor, row: RowData, mask: torch.Tensor,
-              n: int) -> torch.Tensor:
-    """sqrt(sum(((p - target) mask)^2) / n), a device scalar."""
-    err = (p - row.target) * mask
-    return torch.sqrt(torch.sum(err * err) / float(n))
 
 
 # group_sum's row order and group sizes, by the id of the group tensor they

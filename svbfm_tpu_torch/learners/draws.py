@@ -40,6 +40,12 @@ permutation; a test source replays each learner's chain
 (``svbfm_tpu/learners/sgd.py:163-177``, ``bpr.py:164-179``).  The port
 itself never calls a global random number generator.
 
+On a data mesh (the replicated learners' ``mesh=``) every rank holds a
+source seeded alike and makes every call, its share of the rows or of a
+bucket notwithstanding, so the ranks draw the same numbers in the same
+order and their tables stay equal; only ``uniform`` and ``permutation``
+keep the rank's shard of the numbers they draw for every shard.
+
 ``Draws`` draws on ``generator``'s device and moves the result to
 ``device``: with a generator on the learner's device it is the default
 source (``device_draws``); with a CPU generator it is a host-table source

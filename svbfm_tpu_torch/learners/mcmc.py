@@ -1,4 +1,4 @@
-"""Gibbs MCMC and ALS, on one device.
+"""Gibbs MCMC and ALS, on one device or on a data mesh of ranks.
 
 Counterpart of ``svbfm_tpu/learners/mcmc.py``'s resident path, regression
 and probit classification: ``MCMCLearner`` (libFM's Bayesian FM,
@@ -47,6 +47,19 @@ Every random number comes from the state's draw source
 (``learners/draws.py``) in JAX's order and shapes.  Everything a sweep
 computes stays on the device: the per-iteration metrics are fetched once
 per ``run`` chunk.
+
+Data-parallel (``mesh=``, a ``parallel/mesh.py:make_mesh`` data mesh of
+the ranks; the JAX learner on ``make_mesh(n)``): rank d holds the block d
+of the rows with e and the q cache, and every table; the sums the JAX
+package psums over its data axis (alpha's and w0's residual sums, a bin's
+w sums, a bucket's column sums, the test eval's) are all-reduced over the
+data group, and every rank draws the same numbers from a draw source
+seeded alike, so the tables stay equal bit for bit on every rank.  The
+column statistics run as the split forms of the feature-sharded sweep at
+``lo = 0``, ``D_loc = D``: T3's w stats + T5 for the w sweep (X8c split),
+T7's stats + draw launches for a bucket's factors (X8a split); X8d's q
+build, X8b's patch, K4 at F = 0 and K1 run on the rank's rows.  A mesh of
+one rank runs the same forms, with no collective.
 """
 
 from __future__ import annotations
@@ -62,18 +75,21 @@ import torch
 from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
 from svbfm_tpu_torch.data.meta import DataMetaInfo
 from svbfm_tpu_torch.kernels.mcmc_sweep import (col_draw_fits, mcmc_col_draw,
-                                                mcmc_patch_rows)
+                                                mcmc_patch_rows, tp_col_draw,
+                                                tp_col_draw_stats)
 from svbfm_tpu_torch.kernels.probit import (CDF_EPS, PROBIT_ALS, PROBIT_GIBBS,
                                             probit_eval, probit_latent)
 from svbfm_tpu_torch.kernels.vb_sweep import build_q, w_patch_rows
-from svbfm_tpu_torch.kernels.w_sweep import mcmc_w_bin_draw
+from svbfm_tpu_torch.kernels.w_sweep import (mcmc_w_bin_draw, tp_w_draw,
+                                             tp_w_stats)
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig, PlanData,
                                            RowData, TrajectoryFile,
                                            build_plan_data, build_row_data,
                                            check_task_r_or_c, count_bad,
-                                           group_sum, held_back, keep_finite,
-                                           print_nonzero_nans,
-                                           ref_cdf_gaussian, rmse_over,
+                                           gather_rows, group_sum, held_back,
+                                           keep_finite, learner_device,
+                                           mesh_plan, print_nonzero_nans,
+                                           ref_cdf_gaussian, row_block,
                                            zero_counters)
 from svbfm_tpu_torch.learners.draws import Draws, device_draws
 from svbfm_tpu_torch.models.fm import init_fm_params
@@ -253,10 +269,12 @@ def draw_v_hyperpriors(v, v_mu, v_lambda, attr_group, napg, cfg: FMConfig,
 # ---------------------------------------------------------------------------
 
 def w_sweep_main(e, w, w_mu, w_lambda, alpha, plan: PlanData, row: RowData,
-                 cfg: FMConfig, draws: Draws, counters) -> None:
+                 cfg: FMConfig, draws: Draws, counters, mesh=None) -> None:
     """Binned w sweep + unobserved prior draws (fm_learn_mcmc.h:671-718),
     in place on e and w: X8c on every bucket of a bin at once into the
-    zeroed [D, 2] delta table, then the w patch of e per bin."""
+    zeroed [D, 2] delta table, then the w patch of e per bin.  On a data
+    ``mesh``: T3's w stats of the rank's rows, the bin's [D] sums
+    all-reduced over the data group (mcmc.py:640), then T5's draw."""
     D = w.shape[0]
     dev = w.device
     # one [D] table per sweep: each column is drawn once
@@ -265,7 +283,14 @@ def w_sweep_main(e, w, w_mu, w_lambda, alpha, plan: PlanData, row: RowData,
     bad = torch.zeros(4, dtype=torch.int32, device=dev)
     for bin_blocks in plan.blocks:
         dtab.zero_()
-        mcmc_w_bin_draw(bin_blocks, e, w, w_mu, w_lambda, alpha, zw, dtab, bad)
+        if mesh is None:
+            mcmc_w_bin_draw(bin_blocks, e, w, w_mu, w_lambda, alpha, zw, dtab,
+                            bad)
+        else:
+            acc = torch.zeros(D, dtype=_F32, device=dev)
+            tp_w_stats(bin_blocks, e, acc, D)
+            tp_w_draw(bin_blocks, mesh.all_reduce_data(acc), D, w, w_mu,
+                      w_lambda, alpha, zw, dtab, bad)
         w_patch_rows(dtab, row.ids, row.vals, e)
     counters["nan_w"] = counters["nan_w"] + bad[0]
     counters["inf_w"] = counters["inf_w"] + bad[1]
@@ -283,9 +308,26 @@ def w_unobserved(w, w_mu, w_lambda, zw, plan: PlanData, cfg: FMConfig,
     w.copy_(torch.where(unobs, new_un, w))
 
 
+def col_draw(blk, e, q, ptab, v_t, mu, lam, alpha, z, exact_seq: bool, nans,
+             mesh=None) -> None:
+    """One bucket's column draw, in place as X8a's: X8a itself, or on a
+    data ``mesh`` T7's packed sums of the rank's rows, all-reduced over
+    the data group (mcmc.py:437-439, :692), then T7's draw (no rows)."""
+    if mesh is None:
+        mcmc_col_draw(blk.rows, blk.x, blk.cols, blk.group, e, q, ptab, v_t,
+                      mu, lam, alpha, z, exact_seq, nans)
+        return
+    D, F = v_t.shape
+    acc = mesh.all_reduce_data(tp_col_draw_stats(
+        blk.rows, blk.x, blk.cols, D, e, q, ptab, F, exact_seq))
+    tp_col_draw(acc, blk.cols, blk.group, D, ptab, v_t, mu, lam, alpha, z,
+                exact_seq, nans)
+
+
 def _v_block_pass(e, v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
                   row: RowData, cfg: FMConfig, alpha, exact_seq: bool,
-                  counters, q_extra: Optional[torch.Tensor] = None):
+                  counters, q_extra: Optional[torch.Tensor] = None,
+                  mesh=None):
     """One factor block's bin sweep (mcmc.py:304-497), in place on e and
     v_t [D, F]; ``mu_gf``/``lam_gf`` [G, F] are the block's group priors.
     Per bin: the patch table ``ptab`` [D, 2F] takes the pre-bin v and
@@ -293,8 +335,8 @@ def _v_block_pass(e, v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
     their dv; X8b patches q and e from ``ptab``.  ``q_extra`` [N, F] is the
     non-main part of the q cache (the block-structure learner's relation
     qB gathers, mcmc.py:344-348), X8d's starting q: the positions add onto
-    it, in JAX's order.  Returns the q cache after the
-    sweep (None when the plan has no bin)."""
+    it, in JAX's order.  ``mesh``: a data mesh (``col_draw``).  Returns
+    the q cache after the sweep (None when the plan has no bin)."""
     D, F = v_t.shape
     dev = v_t.device
     # one [F, D] table per block step: each column is drawn once
@@ -308,8 +350,8 @@ def _v_block_pass(e, v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
         if bi == 0:
             q = build_q(ptab, F, row.ids, row.vals, q_extra)
         for blk in bin_blocks:
-            mcmc_col_draw(blk.rows, blk.x, blk.cols, blk.group, e, q, ptab,
-                          v_t, mu_gf, lam_gf, alpha, z, exact_seq, nans)
+            col_draw(blk, e, q, ptab, v_t, mu_gf, lam_gf, alpha, z,
+                     exact_seq, nans, mesh)
         mcmc_patch_rows(ptab, F, row.ids, row.vals, q, e)
     counters["nan_v"] = counters["nan_v"] + nans[0]
     counters["inf_v"] = counters["inf_v"] + nans[1]
@@ -318,7 +360,7 @@ def _v_block_pass(e, v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
 
 def _v_blocked_sweep(e, v, v_mu, v_lambda, alpha, plan: PlanData,
                      row: RowData, cfg: FMConfig, F: int, draws: Draws,
-                     exact_seq: bool, counters) -> None:
+                     exact_seq: bool, counters, mesh=None) -> None:
     """Factor-blocked v sweep (mcmc.py:203-263) in K / F blocks of F
     factors, in place on e and v [K, D]; each block's unobserved columns
     then take the prior."""
@@ -329,7 +371,7 @@ def _v_blocked_sweep(e, v, v_mu, v_lambda, alpha, plan: PlanData,
         mu_gf = v_mu[:, fs].contiguous()
         lam_gf = v_lambda[:, fs].contiguous()
         _v_block_pass(e, v_t, mu_gf, lam_gf, draws, plan, row, cfg, alpha,
-                      exact_seq, counters)
+                      exact_seq, counters, mesh=mesh)
         v[fs] = v_block_unobserved(v_t, mu_gf, lam_gf, draws, plan, cfg,
                                    counters).T
 
@@ -350,7 +392,7 @@ def v_block_unobserved(v_t, mu_gf, lam_gf, draws: Draws, plan: PlanData,
 
 def v_factor_main_bins(e, q, v_f, mu_f, lam_f, alpha, plan: PlanData,
                        row: RowData, cfg: FMConfig, draws: Draws,
-                       counters) -> None:
+                       counters, mesh=None) -> None:
     """One factor's bin sweep on its q cache [N, 1] with exact per-bin
     patches (draw_v, fm_learn_mcmc.h:784-840), then the unobserved columns'
     prior draws from the same noise table (mcmc.py:671-730); in place on
@@ -365,9 +407,8 @@ def v_factor_main_bins(e, q, v_f, mu_f, lam_f, alpha, plan: PlanData,
         ptab[:, 0] = v_f
         ptab[:, 1].zero_()
         for blk in bin_blocks:
-            mcmc_col_draw(blk.rows, blk.x, blk.cols, blk.group, e, q, ptab,
-                          v_t, mu_f, lam_f, alpha,
-                          None if z is None else z.view(1, D), True, nans)
+            col_draw(blk, e, q, ptab, v_t, mu_f, lam_f, alpha,
+                     None if z is None else z.view(1, D), True, nans, mesh)
         mcmc_patch_rows(ptab, 1, row.ids, row.vals, q, e)
     counters["nan_v"] = counters["nan_v"] + nans[0]
     counters["inf_v"] = counters["inf_v"] + nans[1]
@@ -379,12 +420,14 @@ def v_factor_main_bins(e, q, v_f, mu_f, lam_f, alpha, plan: PlanData,
 
 
 def mcmc_draw_all(state: MCMCState, row: RowData, plan: PlanData,
-                  cfg: FMConfig, num_cases: float):
+                  cfg: FMConfig, num_cases: float, mesh=None):
     """One Gibbs (or ALS) sweep + the full re-predict of the train residual
     (mcmc.py:757-853).  Returns (new_state, counters) with the int32 device
     counters ``nan_<family>``/``inf_<family>``; ``state``'s tensors are not
-    modified (its draw source advances)."""
+    modified (its draw source advances).  ``mesh``: a data mesh of the
+    ranks, ``row``/``plan`` the rank's (``MCMCLearner(mesh=)``)."""
     check_slice(cfg)
+    total = _same if mesh is None else mesh.all_reduce_data
     dev = state.e.device
     G, K = cfg.num_groups, cfg.num_factor
     N = torch.full((), num_cases, dtype=_F32, device=dev)
@@ -393,10 +436,12 @@ def mcmc_draw_all(state: MCMCState, row: RowData, plan: PlanData,
     counters = zero_counters(NAN_FAMILIES, dev)
     ag, napg = plan.attr_group, plan.num_attr_per_group
 
-    alpha = draw_alpha(e, row.valid, state.alpha, cfg, N, draws, counters)
+    alpha = draw_alpha(e, row.valid, state.alpha, cfg, N, draws, counters,
+                       total)
     w0 = state.w0
     if cfg.k0:
-        e, w0 = draw_w0(e, row.valid, w0, cfg, alpha, N, draws, counters)
+        e, w0 = draw_w0(e, row.valid, w0, cfg, alpha, N, draws, counters,
+                        total)
 
     w, v = state.w.clone(), state.v.clone()
     w_mu, w_lambda = state.w_mu, state.w_lambda
@@ -405,14 +450,14 @@ def mcmc_draw_all(state: MCMCState, row: RowData, plan: PlanData,
         w_mu, w_lambda = draw_w_hyperpriors(w, w_mu, w_lambda, ag, napg, cfg,
                                             G, draws, counters)
         w_sweep_main(e, w, w_mu, w_lambda, alpha, plan, row, cfg, draws,
-                     counters)
+                     counters, mesh)
     if K > 0:
         v_mu, v_lambda = draw_v_hyperpriors(v, v_mu, v_lambda, ag, napg, cfg,
                                             G, K, draws, counters)
         F = factor_width(cfg)
         if F > 1 and K % F == 0:
             _v_blocked_sweep(e, v, v_mu, v_lambda, alpha, plan, row, cfg, F,
-                             draws, exact_draws(cfg), counters)
+                             draws, exact_draws(cfg), counters, mesh)
         else:
             # the reference's factor-sequential chain (also where F does
             # not divide K, mcmc.py:808-817)
@@ -421,7 +466,7 @@ def mcmc_draw_all(state: MCMCState, row: RowData, plan: PlanData,
                 q = build_q(v_f.view(-1, 1), 1, row.ids, row.vals)
                 v_factor_main_bins(e, q, v_f, v_mu[:, f:f + 1].contiguous(),
                                    v_lambda[:, f:f + 1].contiguous(), alpha,
-                                   plan, row, cfg, draws, counters)
+                                   plan, row, cfg, draws, counters, mesh)
 
     # full re-predict (fm_learn_mcmc_simultaneous.h:134-176): e := yhat - y;
     # classification leaves e = yhat for the latent update
@@ -468,41 +513,47 @@ _SCALARS_CLASS = ("accuracy", "loglik", "acc_this", "ll_this",
 
 
 class MCMCLearner:
-    """Gibbs MCMC trainer on one device (``device`` is required: the learner
-    runs where it is told and never moves itself)."""
+    """Gibbs MCMC trainer on one device, or data-parallel over a data mesh
+    of ranks (``mesh``: ``parallel/mesh.py:make_mesh``; every rank
+    constructs the learner with the whole data and keeps its block of
+    rows).  The learner runs where it is told (``device``, or the mesh's)
+    and never moves itself."""
 
     method = "mcmc"
     map_eval = None  # a base.MapEval: per-iteration MAP@k (classification)
+    mesh = None  # a data mesh of ranks (parallel/mesh.py:make_mesh)
 
     def __init__(self, cfg: FMConfig, train: SparseDataset,
                  test: SparseDataset, meta: Optional[DataMetaInfo] = None, *,
-                 device, bins: str = "auto", out_dir: str = ".",
+                 device=None, bins: str = "auto", out_dir: str = ".",
                  write_files: bool = True,
                  w_lambda_init: Optional[np.ndarray] = None,
                  v_lambda_init: Optional[np.ndarray] = None,
                  plan: Optional[SweepPlan] = None,
-                 num_eval_cases: Optional[int] = None):
+                 num_eval_cases: Optional[int] = None, mesh=None):
         check_slice(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = learner_device(device, mesh)
         meta = meta if meta is not None else DataMetaInfo(cfg.num_attributes)
         if meta.num_attributes != cfg.num_attributes:
             raise ValueError("meta and cfg disagree on num_attributes")
         self.meta = meta
-        if plan is None:
-            plan = SweepPlan.build(train.to_coo(), cfg.num_attributes,
-                                   meta_groups=meta.attr_group, bins=bins)
-        self.plan = plan
-        self.plan_data = build_plan_data(plan, meta, self.device)
-        self.train_row, self.train_n = build_row_data(train, self.device)
-        self.test_row, self.test_n = build_row_data(test, self.device)
+        self.plan = mesh_plan(train, cfg, meta, bins, mesh, plan)
+        self.plan_data = build_plan_data(self.plan, meta, self.device, mesh)
+        self.train_row, self.train_n = build_row_data(train, self.device,
+                                                      mesh)
+        self.test_row, self.test_n = build_row_data(test, self.device, mesh)
+        self.rps = self.train_row.ids.shape[0]
+        self.test_rps = self.test_row.ids.shape[0]
         # -num_eval_cases: the eval over the first rows (its mask replaces
         # the test valid mask), rmse_test2_this/_all over the rest
-        # (mcmc.py:905-923)
+        # (mcmc.py:905-923), on the global row index
+        first = 0 if mesh is None else mesh.d_index * self.test_rps
         self.test_row, self._rest_valid, self._eval_n = held_back(
-            self.test_row, self.test_n, num_eval_cases)
+            self.test_row, self.test_n, num_eval_cases, first)
         self.out_dir = out_dir
-        self.write_files = write_files
+        self.write_files = write_files and self.lead
         G, K = cfg.num_groups, cfg.num_factor
         # -regular: the per-group lambda init (libfm.cpp:367-407)
         self.w_lambda_init = (np.full(G, cfg.regw, np.float32)
@@ -552,27 +603,66 @@ class MCMCLearner:
     def predict_test_scores(self, state: MCMCState) -> np.ndarray:
         return self._test_vector(self._test_scores(state))
 
-    # ---- what a sharded learner overrides ---------------------------------
+    # ---- what a data mesh changes (a sharded learner overrides) -----------
 
     @property
     def lead(self) -> bool:
         """Whether this process prints and writes the files (one device:
-        always)."""
-        return True
+        always; a data mesh: rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def _test_vector(self, t: torch.Tensor) -> np.ndarray:
-        """A per-test-row device vector on the host, its real rows."""
+        """A per-test-row device vector on the host, its real rows in
+        global order (on a data mesh gathered over the shards: every rank
+        calls it)."""
+        if self.mesh is not None:
+            t = gather_rows(self.mesh, t, self.test_rps)
         return t.cpu().numpy()[: self.test_n]
 
     def _total(self, t: torch.Tensor) -> torch.Tensor:
-        """A sum over the test rows, total over the rows' shards."""
-        return t
+        """A sum over the rank's rows, total over the rows' shards."""
+        return t if self.mesh is None else self.mesh.all_reduce_data(t)
+
+    def _ckpt_blob(self, blob: dict) -> dict:
+        """The run's blob as a data mesh's checkpoint holds it, on the
+        host: e [N] and the accumulators [N_test] of the real rows in
+        global order (a resident learner's layout), so that another
+        number of ranks resumes it.  Every rank must call it."""
+        st = blob["state"]
+        host = {f.name: getattr(st, f.name).cpu() for f in
+                dataclasses.fields(MCMCState) if f.name != "draws"}
+        host["e"] = gather_rows(self.mesh, st.e, self.rps)[
+            : self.train_n].cpu()
+        return {"state": MCMCState(**host, draws=st.draws),
+                **{k: torch.from_numpy(self._test_vector(blob[k]))
+                   for k in ("psum_all", "psum_but5")}}
 
     def _resume(self, ckpt, blob: dict):
-        return resume(self, ckpt, blob)
+        if self.mesh is None:
+            return resume(self, ckpt, blob)
+        if ckpt is None:
+            return blob, 0
+        restored = ckpt.restore_latest(self._ckpt_blob(blob))
+        if restored is None:
+            return blob, 0
+        g, step, _meta = restored
+        st = g["state"]
+        local = {f.name: getattr(st, f.name) for f in
+                 dataclasses.fields(MCMCState) if f.name != "draws"}
+        local["e"] = row_block(self.mesh, st.e, self.rps)
+        return {"state": MCMCState(**{k: a.to(self.device) for k, a in
+                                      local.items()}, draws=st.draws),
+                **{k: row_block(self.mesh, g[k], self.test_rps).to(
+                    self.device) for k in ("psum_all", "psum_but5")}}, step
 
     def _save(self, ckpt, blob: dict, done: int) -> None:
-        ckpt.save(blob, done, {"method": self.method})
+        if self.mesh is None:
+            ckpt.save(blob, done, {"method": self.method})
+            return
+        g = self._ckpt_blob(blob)
+        if self.lead:
+            ckpt.save(g, done, {"method": self.method})
+        self.mesh.barrier()
 
     def final_test_predictions(self, state: MCMCState) -> np.ndarray:
         """The reference's predict() (fm_learn_mcmc.h:355-379): the
@@ -595,7 +685,7 @@ class MCMCLearner:
     def step(self, state: MCMCState):
         """One sweep (no eval).  Returns (state, counters)."""
         return mcmc_draw_all(state, self.train_row, self.plan_data, self.cfg,
-                             float(self.train_n))
+                             float(self.train_n), self.mesh)
 
     def _eval(self, state: MCMCState, nans: dict, psum_all, psum_but5,
               it: int) -> torch.Tensor:
@@ -638,18 +728,23 @@ class MCMCLearner:
         mae = self._total(torch.sum(torch.abs(err_all))) / nt
         tail = []
         if self._rest_valid is not None:
-            n2 = self.test_n - self._eval_n
-            tail = [torch.stack([
-                rmse_over(p, trow, self._rest_valid, n2),
-                rmse_over(torch.clamp(psum_all / (it + 1.0), lo, hi), trow,
-                          self._rest_valid, n2)])]
+            n2 = float(self.test_n - self._eval_n)
+            e2 = (p - trow.target) * self._rest_valid
+            pm2 = (torch.clamp(psum_all / (it + 1.0), lo, hi)
+                   - trow.target) * self._rest_valid
+            tail = [torch.sqrt(self._total(torch.stack(
+                [torch.sum(e2 * e2), torch.sum(pm2 * pm2)])) / n2)]
         return self._packed([torch.stack(
             [rmse_all, rmse_this, rmse_but5, mae, state.alpha])], nans, state,
             tail)
 
     def _resample(self, state: MCMCState) -> None:
-        """The latent update of the train rows under classification."""
-        resample_class_targets(state, self.train_row, self.cfg)
+        """The latent update of the train rows under classification (on a
+        data mesh the uniforms of the rank's shard, mcmc.py:1081's fold-in
+        of its index)."""
+        d, n = (0, 1) if self.mesh is None else (self.mesh.d_index,
+                                                 self.mesh.n_data)
+        resample_class_targets(state, self.train_row, self.cfg, d, n)
 
     def _packed(self, head: list, nans: dict, state: MCMCState,
                 tail: list = ()):

@@ -60,7 +60,7 @@ from svbfm_tpu_torch.kernels.vb_sweep import (tp_build_q, tp_patch_delta,
                                               tp_patch_views)
 from svbfm_tpu_torch.kernels.w_sweep import tp_w_draw, tp_w_stats
 from svbfm_tpu_torch.learners.base import (FMConfig, RowData, group_sum,
-                                           zero_counters)
+                                           row_block, zero_counters)
 from svbfm_tpu_torch.learners.draws import Draws
 from svbfm_tpu_torch.learners.mcmc import (NAN_FAMILIES, MCMCLearner,
                                            MCMCState, _maybe_sample,
@@ -383,10 +383,7 @@ class TPMCMCLearner(MCMCLearner):
         g, step, _meta = restored
 
         def rows(a, rps):  # the rank's block of rows, zero-padded
-            a = torch.nn.functional.pad(a, (0, rps * self.mesh.n_data
-                                            - a.shape[0]))
-            d = self.mesh.d_index
-            return a[d * rps:(d + 1) * rps].contiguous().to(self.device)
+            return row_block(self.mesh, a, rps).to(self.device)
 
         st = g["state"]
         local = {f.name: torch.as_tensor(getattr(st, f.name), dtype=_F32).to(

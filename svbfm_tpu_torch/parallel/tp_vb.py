@@ -43,14 +43,14 @@ import torch
 
 from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
 from svbfm_tpu_torch.data.meta import DataMetaInfo
-from svbfm_tpu_torch.kernels.vb_sweep import (tp_build_qt, tp_col_stats,
-                                              tp_col_update, tp_patch_delta,
-                                              tp_patch_views)
+from svbfm_tpu_torch.kernels.vb_sweep import tp_patch_delta, tp_patch_views
 from svbfm_tpu_torch.kernels.w_sweep import tp_w_stats, tp_w_update
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig,
                                            RowData, TrajectoryFile,
-                                           group_sum, keep_finite, nonfinite)
-from svbfm_tpu_torch.learners.vb import PARAM_FIELDS, init_vb_params
+                                           gather_rows, group_sum,
+                                           keep_finite, nonfinite)
+from svbfm_tpu_torch.learners.vb import (PARAM_FIELDS, init_vb_params,
+                                         split_v_block_update)
 from svbfm_tpu_torch.parallel.mesh import Mesh, make_mesh2d
 from svbfm_tpu_torch.parallel.tp import sharded_scores, sharded_t_terms
 from svbfm_tpu_torch.utils.rlog_schema import stream_row
@@ -263,33 +263,10 @@ def tp_vb_update_all(state: TPVBState, row: RowData, plan: TPPlanData,
     merge_w = cfg.k1 and K > 0
     if K > 0:
         mu_t, sig_t = mu_v.T.contiguous(), sig_v.T.contiguous()
-        sv = state.sigma_v.contiguous()
         w_state = (mu_w, sig_w, state.sigma_w) if merge_w else None
-        ptab = torch.empty(D_loc, 5 * K + (2 if merge_w else 0), dtype=_F32,
-                           device=dev)
-        qt = None
-        for bin_blocks in plan.blocks:
-            # the PRE-BIN mu/sig that every bucket and the patch read, and
-            # zeroed deltas
-            ptab[:, :K] = mu_t
-            ptab[:, K:2 * K] = sig_t
-            ptab[:, 2 * K:].zero_()
-            if qt is None:  # T2 + ONE feature all-reduce a sweep
-                qt = mesh.all_reduce_feature(
-                    tp_build_qt(ptab, K, ids, vals, lo, D_loc))
-            for blk in bin_blocks:  # T3: stats, data all-reduce, update
-                acc = mesh.all_reduce_data(tp_col_stats(
-                    blk.rows, blk.x, blk.cols, D_loc, e, qt, ptab, K))
-                tp_col_update(acc, blk.cols, D_loc, blk.group, blk.sx2, ptab,
-                              mu_t, sig_t, sv, alpha, w_state, nans)
-            # T4: the shard's part of the bin's patch against the
-            # pre-patch caches, ONE feature all-reduce, then the add
-            dqt, de, dt = tp_patch_views(mesh.all_reduce_feature(
-                tp_patch_delta(ptab, K, merge_w, ids, vals, qt, lo, D_loc)),
-                e.shape[0], K)
-            qt += dqt
-            e += de
-            t += dt
+        nans = split_v_block_update(e, t, mu_t, sig_t,
+                                    state.sigma_v.contiguous(), alpha, plan,
+                                    row, mesh, w_state, lo)
         # unobserved columns: sigma' = 1/sigma_v(g,f), mu' = 0
         unob = plan.unobserved[:, None]
         sig_t = torch.where(unob, 1.0 / state.sigma_v.index_select(0, agc),
@@ -384,16 +361,6 @@ def gather_cols(mesh: Mesh, t: torch.Tensor, lo: int,
     g = t.new_zeros(tuple(t.shape[:-1]) + (D_pad,))
     if mesh.d_index == 0:
         g[..., lo:lo + t.shape[-1]] = t
-    return mesh.all_reduce(g)
-
-
-def gather_rows(mesh: Mesh, t: torch.Tensor, rps: int) -> torch.Tensor:
-    """The data shards' [rps, ...] row blocks laid end to end on every
-    rank, feature shard 0's ranks filling their block, as
-    ``gather_cols``."""
-    g = t.new_zeros((rps * mesh.n_data,) + tuple(t.shape[1:]))
-    if mesh.f_index == 0:
-        g[mesh.d_index * rps:(mesh.d_index + 1) * rps] = t
     return mesh.all_reduce(g)
 
 

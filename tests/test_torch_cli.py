@@ -508,7 +508,7 @@ def test_cli_out_of_core_refusals(data, method, extra, message):
     assert message in str(ei.value.code)
 
 
-@pytest.mark.parametrize("method", ["mcmc", "als", "sgd", "vb_online"])
+@pytest.mark.parametrize("method", ["sgd", "vb_online"])
 def test_coordinator_refused_outside_tp_methods(data, method, tmp_path,
                                                 monkeypatch):
     """With SVBFM_COORDINATOR set, a method that does not run across ranks
@@ -651,6 +651,58 @@ def test_cli_feature_shards_like_the_jax_cli(data, tmp_path, monkeypatch,
                                    np.loadtxt(d / "jax" / name), rtol=1e-4,
                                    err_msg=name)
     # the RLog: rank 0's header and a row an iteration, as the JAX CLI's
+    ours_log = (d / "torch" / "log.tsv").read_text().splitlines()
+    theirs_log = (d / "jax" / "log.tsv").read_text().splitlines()
+    assert ours_log[0] == theirs_log[0]
+    assert len(ours_log) == len(theirs_log) == 3
+
+
+@pytest.mark.parametrize("method", ["vb", "als", "mcmc"])
+def test_cli_data_parallel_like_the_jax_cli(data, tmp_path, monkeypatch,
+                                            capsys, method):
+    """-method vb (-factor_block 1), als or mcmc with -distributed 1 and no
+    -feature_shards on two spawned gloo ranks (the replicated learner on a
+    data mesh of the two) beside the JAX CLI on its 8-device data mesh,
+    both from the JAX init (Gibbs replaying the JAX key chain): the same
+    files (rank 0 writes them) and the trajectories, the predictions and
+    v_file.txt within rtol 1e-4, -num_eval_cases and -rlog read."""
+    from svbfm_tpu.learners import mcmc as jm
+    from svbfm_tpu.learners import vb as jv
+    from torch_tp_ranks import cli_dp_rank, run_ranks
+
+    d, _, _ = data
+    argv = _args(d, method, "-out", "pred.txt", "-rlog", "log.tsv",
+                 "-num_eval_cases", "100", *(
+                     ["-regular", "0.1"] if method != "vb" else []))
+    import jax
+
+    cls = jv.VBLearner if method == "vb" else jm.MCMCLearner
+    seen = {}
+    init = cls.init_state
+
+    def keep_init(self, key=None):  # a host copy: the VB run donates it
+        s = init(self, key)
+        seen["state"] = jax.device_get(s)
+        return s
+
+    monkeypatch.setattr(cls, "init_state", keep_init)
+    theirs = _run_in(d / "jax", jax_main, argv, monkeypatch)
+    st = seen["state"]
+    from svbfm_tpu_torch.learners.vb import PARAM_FIELDS
+    names = PARAM_FIELDS if method == "vb" else ("w0", "w", "v", "key")
+    np.savez(tmp_path / "init.npz",
+             **{k: np.asarray(getattr(st, k)) for k in names})
+    (d / "torch").mkdir()
+    run_ranks(cli_dp_rank, 2, tmp_path / "ranks", timeout=120,
+              argv=argv + ["-distributed", "1", "-device", "cpu"],
+              cwd=str(d / "torch"), init=str(tmp_path / "init.npz"))
+    assert sorted(os.listdir(d / "torch")) == theirs
+    tag = "vb" if method == "vb" else "mcmc"
+    for name in (f"test_rmse_114_{tag}", "pred.txt", "v_file.txt") + (
+            ("free_energy_114_vb",) if method == "vb" else ()):
+        np.testing.assert_allclose(np.loadtxt(d / "torch" / name),
+                                   np.loadtxt(d / "jax" / name), rtol=1e-4,
+                                   err_msg=name)
     ours_log = (d / "torch" / "log.tsv").read_text().splitlines()
     theirs_log = (d / "jax" / "log.tsv").read_text().splitlines()
     assert ours_log[0] == theirs_log[0]

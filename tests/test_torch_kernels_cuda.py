@@ -2773,3 +2773,98 @@ def test_batch_scorer_over_a_world_of_one_on_card(cuda):
                          batch_rows=100, **kw).score_rows(ids, vals)
         assert build.launch_counts["tp_serve"] == before + 11
         np.testing.assert_allclose(sh, one, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("K", [1, 4, 20])
+def test_dp_split_forms_match_twins_at_the_replicated_shapes(cuda, K):
+    """T3 (stats, then the update with no w rider), T7 (stats, then the
+    exact draw) at F = K on every bucket of the replicated learners' plan
+    (lo = 0, D_loc = D), T3 at K = 0 and T5 on every bin, against their
+    twins (chip_smoke's dp cases on a small problem); two launches give
+    the same bits."""
+    import chip_smoke
+    from svbfm_tpu_torch.learners.mcmc import MCMCLearner
+
+    tr, te, D, meta, cfg = _small(K=K)
+    args = (cfg, SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta)
+    vb = VBLearner(*args, device=cuda, write_files=False)
+    gibbs = MCMCLearner(*args, device=cuda, write_files=False)
+    vb0 = vb.state_from_params(init_vb_params(
+        torch.Generator().manual_seed(3), cfg, cuda))
+    mc1, _ = gibbs.step(gibbs.init_state())
+    kf = chip_smoke.DP_KERNEL_F
+    chip_smoke.DP_KERNEL_F = (K,)
+    try:
+        s = chip_smoke.dp_tensors(vb, vb0, gibbs, mc1)
+    finally:
+        chip_smoke.DP_KERNEL_F = kf
+    s["timed"] = False
+    cases = chip_smoke.make_cases(s)
+    names = ("tp_col_stats", "tp_col_update", "tp_col_draw_stats",
+             "tp_col_draw", "tp_w_stats", "tp_w_update", "tp_w_draw")
+    before = dict(build.launch_counts)
+    for name in names:
+        assert cases[name]
+        for label, prepare, call, _ in cases[name]:
+            ok, op = call("kernel", prepare()), call("plain", prepare())
+            again = call("kernel", prepare())
+            torch.cuda.synchronize()
+            chip_smoke.compare(ok, op, f"{name} ({label})")
+            for a, b in zip(ok, again):
+                assert torch.equal(a, b), f"{name} ({label})"
+    assert all(build.launch_counts[k] > before[k] for k in names)
+
+
+@pytest.mark.parametrize("method", ["vb-fast", "vb-exact", "vb-k0",
+                                    "vb-class", "gibbs", "als", "class"])
+def test_dp_learners_on_gpu_match_cpu(cuda, method):
+    """The data-parallel replicated learners on a data mesh of one rank
+    (no process group: the split forms around no collective), card
+    against CPU from one init and one host-table draw source, 3 sweeps,
+    and beside the resident learner on the card; every kernel of the path
+    launched."""
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+    from svbfm_tpu_torch.parallel.mesh import make_mesh
+
+    kw = dict(factor_block=1) if method in ("vb-exact", "vb-class") else {}
+    tr, te, D, meta, cfg = _small(K=0 if method == "vb-k0" else 5,
+                                  regw=2.0, regv=2.0, **kw)
+    if method in ("vb-class", "class"):
+        for c in (tr, te):
+            c.target = np.where(c.target > 3.5, 1.0, -1.0).astype(np.float32)
+        cfg = dataclasses.replace(cfg, task=1, min_target=-1.0,
+                                  max_target=1.0)
+    args = (cfg, SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta)
+    vb = method.startswith("vb")
+    cls = VBLearner if vb else ALSLearner if method == "als" else MCMCLearner
+    p = init_fm_params(torch.Generator().manual_seed(7), D, cfg.num_factor,
+                       init_stdev=cfg.init_stdev, init_w_normal=True)
+    params = init_vb_params(torch.Generator().manual_seed(7), cfg, "cpu")
+    hists = []
+    for dev, mesh in ((cuda, True), ("cpu", True), (cuda, False)):
+        where = dict(mesh=make_mesh(device=dev)) if mesh else dict(device=dev)
+        lr = cls(*args, write_files=False, **where)
+        state = (lr.state_from_params(params) if vb else
+                 lr.state_from_params(p.w0, p.w, p.v, host_draws(7, dev)))
+        before = dict(build.launch_counts)
+        _, h = lr.run(state, num_iter=3, verbose=False)
+        hists.append(h)
+        if dev is cuda and mesh:
+            names = (("tp_w_stats", "tp_w_update", "w_patch_rows")
+                     if method in ("vb-exact", "vb-k0", "vb-class") else ())
+            names += (("tp_build_qt", "tp_col_stats", "tp_col_update",
+                       "tp_patch_delta") if vb and cfg.num_factor else ()) + (
+                () if vb else ("build_q", "tp_w_stats", "tp_w_draw",
+                               "tp_col_draw_stats", "tp_col_draw",
+                               "mcmc_patch_rows"))
+            assert all(build.launch_counts[k] > before[k] for k in names)
+    keys = ("accuracy",) if cfg.task else ("rmse",)
+    keys += ("free_energy",) if vb else ("alpha",)
+    for other in hists[1:]:
+        for a, b in zip(hists[0], other):
+            for k in keys:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)

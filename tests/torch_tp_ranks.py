@@ -547,3 +547,140 @@ def cli_sgd_rank(rank: int, argv: list, cwd: str) -> int:
 
     os.chdir(cwd)
     return cli.main(argv)
+
+
+# ---- the data-parallel replicated learners (VBLearner/MCMCLearner(mesh=)) --
+
+def dp_setup(num_rows: int = 96, num_users: int = 9, num_items: int = 7,
+             K: int = 3, seed: int = 2, task: int = 0, **cfg_kw):
+    """``tests/test_vb.py:_setup``'s and ``test_mcmc.py:_setup``'s recipe
+    in the port (96 ratings, 9 users, 7 items, K = 3, a 75/25 split);
+    ``task`` 1: the targets above the train median +1, the others -1.
+    (cfg, train, test, meta, D)."""
+    import numpy as np
+
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import (make_movielens_like,
+                                            train_test_split)
+    from svbfm_tpu_torch.learners.base import FMConfig
+
+    coo = make_movielens_like(num_users=num_users, num_items=num_items,
+                              num_ratings=num_rows, rank=2, noise=0.4,
+                              seed=seed)
+    tr, te = train_test_split(coo, 0.25, seed=seed + 1)
+    D = coo.num_features
+    if task == 1:
+        thr = np.median(tr.target)
+        for c in (tr, te):
+            c.target = np.where(c.target > thr, 1.0, -1.0).astype(
+                np.float32)
+    meta = DataMetaInfo.from_field_offsets(D, [0, num_users])
+    cfg = FMConfig(num_attributes=D, num_factor=K, task=task,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()),
+                   num_groups=meta.num_attr_groups, seed=7, **cfg_kw)
+    return (cfg, SparseDataset.from_coo(tr, D), SparseDataset.from_coo(te, D),
+            meta, D)
+
+
+def _dp_learner(mesh, setup: dict, mcmc: str = "", **kw):
+    """VBLearner (``mcmc`` "": batch VB), MCMCLearner ("gibbs") or
+    ALSLearner ("als") on ``mesh`` (None: one device) for the
+    ``dp_setup(**setup)`` recipe."""
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner
+
+    cfg, tr, te, meta, _ = dp_setup(**setup)
+    cls = {"": VBLearner, "gibbs": MCMCLearner, "als": ALSLearner}[mcmc]
+    dev = dict(device="cpu") if mesh is None else dict(mesh=mesh)
+    return cls(cfg, tr, te, meta, write_files=False, **dev, **kw)
+
+
+def _dp_start(lr, init: str):
+    """The learner's state from the JAX learner's parameters saved as npz
+    at ``init`` (VB: the ten parameter arrays; Gibbs/ALS: w0, w, v and
+    the key, whose chain ``JaxKeyDraws`` replays), else its own init."""
+    import numpy as np
+    import torch
+
+    if not init:
+        return lr.init_state()
+    with np.load(init) as z:
+        z = dict(z)
+    if lr.method == "vb":
+        return lr.state_from_params({k: torch.from_numpy(a)
+                                     for k, a in z.items()})
+    from test_torch_mcmc import JaxKeyDraws
+    return lr.state_from_params(*(torch.from_numpy(z[k])
+                                  for k in ("w0", "w", "v")),
+                                JaxKeyDraws(z["key"]))
+
+
+def dp_run(mesh, setup: dict, num_iter: int, init: str = "",
+           mcmc: str = "", num_eval_cases=None, ckpt: str = "",
+           ckpt_every: int = 100) -> dict:
+    """``num_iter`` iterations of a replicated learner on ``mesh`` (None:
+    one device), each a sweep and the test eval as ``run`` makes them
+    (through the checkpoint directory ``ckpt`` where given, resuming from
+    it): the history, the tables after every sweep (``sweeps``, to hold
+    the ranks' bits equal), the final state in the global layout and the
+    test predictions."""
+    from svbfm_tpu_torch.learners.base import gather_rows
+    from svbfm_tpu_torch.utils.checkpoint import CheckpointManager
+
+    lr = _dp_learner(mesh, setup, mcmc, num_eval_cases=num_eval_cases)
+    state = _dp_start(lr, init)
+    tables = (("mu_0", "mu_w", "sigma_w_dash", "mu_v", "sigma_v_dash",
+               "alpha", "sigma_w", "sigma_v") if lr.method == "vb" else
+              ("w0", "w", "v", "alpha", "w_mu", "w_lambda", "v_mu",
+               "v_lambda"))
+    sweeps = []
+
+    def keep(step):
+        def step_and_keep(st):
+            st, out = step(st)
+            sweeps.append({k: getattr(st, k).numpy().copy() for k in tables})
+            return st, out
+        return step_and_keep
+
+    lr.step = keep(lr.step)
+    kw = dict(ckpt=CheckpointManager(ckpt), ckpt_every=ckpt_every) \
+        if ckpt else {}
+    state, hist = lr.run(state, num_iter=num_iter, verbose=False, chunk=1,
+                         **kw)
+    final = {k: getattr(state, k).numpy() for k in tables}
+    e = state.e if mesh is None else gather_rows(mesh, state.e, lr.rps)
+    final["e"] = e[: lr.train_n].numpy()
+    preds = (lr.final_test_predictions(state) if mcmc
+             else lr.predict_test_scores(state))
+    return dict(hist=hist, sweeps=sweeps, final=final, preds=preds)
+
+
+def dp_ranks(rank: int, runs: list) -> dict:
+    """Each (name, setup, num_iter, init, mcmc, num_eval_cases, ckpt,
+    ckpt_every) of ``runs`` in turn on the data mesh of every rank:
+    ``dp_run``'s results by name."""
+    from svbfm_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    return {name: dp_run(mesh, setup, n, init, mcmc, nec, ck, every)
+            for name, setup, n, init, mcmc, nec, ck, every in runs}
+
+
+def cli_dp_rank(rank: int, argv: list, cwd: str, init: str) -> int:
+    """The port's CLI (-method vb, mcmc or als, no -feature_shards) on this
+    rank, the replicated learner's start from the JAX CLI's init saved as
+    npz at ``init`` (VB: the ten parameters; Gibbs/ALS: w0, w, v and the
+    key, replayed by ``JaxKeyDraws``), run in ``cwd``."""
+    from svbfm_tpu_torch import cli
+    from svbfm_tpu_torch.learners.mcmc import MCMCLearner
+    from svbfm_tpu_torch.learners.vb import VBLearner
+
+    def init_state(self, generator=None, draws=None):
+        return _dp_start(self, init)
+
+    VBLearner.init_state = init_state
+    MCMCLearner.init_state = init_state
+    os.chdir(cwd)
+    return cli.main(argv)
