@@ -203,6 +203,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
  34. bs-profile: device time of one blocked BS Gibbs sweep by kernel
      (bs-profile and bs-seq-profile also give X10a's, X10c's, the
      resync's and the moments').
+ 34b. the data-parallel block structure and online VB on NCCL with a
+     world of one (the kernel phase holds T13 at F = 1, 4, 20 on every bin
+     of OVB chunk 0, on one data shard and on two summed against K6's
+     twin, T10 on each shard, and X10a on two join slices of each
+     relation at F = 0, 1, 20, 33, each slice against its twin and the
+     two summed against one launch on the whole plan): dp-bs (Gibbs at
+     F = K beside bs-mcmc's resident learner, 2 sweeps from one init and
+     one host-table draw source, and its device time beside the
+     resident's), dp-bs-seq (factor_block 1, the same), dp-bs-als,
+     dp-bs-class (the recipe binarised at its median), dp-bs-main (the
+     100k-row recipe with the items as one-hot main-block columns, so the
+     main block's split forms run: T3's w stats, T5, T7); dp-ovb (ML-1M,
+     K = 20, 20 chunks, 2 epochs beside the resident OVB from one init:
+     factor_block 1 with an epoch's device time, 4, and 1 with
+     -reshuffle), dp-ovb-class, dp-ovb-stream (the train rows as a binary
+     file, streamed); trajectories and OVB's tables within 1e-5; then
+     dp-bs-ranks and dp-ovb-ranks (four gloo ranks on the card, the
+     100k-row recipes at K = 8: BS Gibbs (items in the main block) and
+     ALS, OVB at factor_block 1 and 4, 2 sweeps or epochs, beside the
+     world of one); dp-slice-total: these phases' seconds together.
  35. classification (-task c) on ML-1M with its targets binarised at 3.5:
      vb-class (10 exact-mode sweeps; vb-class-fast, 5 fast-mode sweeps,
      prints where its free energy turns NaN, as the JAX package's does on
@@ -249,7 +269,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
 Then the nvidia-smi line again, a JSON line with each kernel's launches
 (summed over the driven runs of phases 2b, 3, 7, 8b, 9, 14, 16, 19, 20-25,
 27b (tp-sgd, serve-mesh), 28,
-30-32, 35, 37, 39, 41 (with mcmc-windowed and als-windowed) and 42, each
+30-32, 34b, 35, 37, 39, 41 (with mcmc-windowed and als-windowed) and 42,
+each
 read just after its run with the
 counts zeroed just before),
 error, times and bound, and as the last line {"ok": true, "device": {...}}.
@@ -400,6 +421,22 @@ DP_RANKS_RUNS = {
     "vb_exact": ("dp-vb-exact", 1, 2, ("rmse", "free_energy", "alpha")),
     "als": ("dp-als", 0, 3, ("rmse_this", "alpha")),
     "gibbs": ("dp-mcmc", 0, 2, ("rmse", "rmse_this", "alpha")),
+}
+# the data-parallel block structure and online VB: T13's cases at these F
+# on every bin of chunk 0 (one shard; two, summed), X10a's on two join
+# slices at these F; the world of one's sweeps and epochs beside the
+# resident learners'; the ranks phases' runs on the 100k-row recipes
+# (BS_Q_*; OVB at K = 8, 5 chunks): name -> (path, factor_block, sweeps
+# or epochs, the metrics held to the world of one's)
+DP_OVB_KERNEL_F = (1, 4, 20)
+DP_JOIN_F = (0, 1, 20, 33)
+DP_BS_SWEEPS, DP_OVB_EPOCHS = 2, 2
+DP_SLICE_RANKS_RUNS = {
+    # Gibbs on the recipe whose items are main-block columns
+    "bs_gibbs": ("dp-bs-main", 0, 2, ("rmse", "rmse_this", "alpha")),
+    "bs_als": ("dp-bs-als", 0, 2, ("rmse_this", "alpha")),
+    "ovb": ("dp-ovb", 1, 2, ("rmse", "free_energy")),
+    "ovb_fb4": ("dp-ovb", 4, 2, ("rmse", "free_energy")),
 }
 # [tp-mcmc]: Gibbs iterations beside the resident Gibbs, and how far apart
 # their posterior-mean RMSEs may end (two chains of other draws)
@@ -556,6 +593,13 @@ SOURCES = {
                        "svbfm_tpu/parallel/tp_sgd.py:91"),
     "tp_serve": ("svbfm_tpu_torch/csrc/fm_forward.cu",
                  "svbfm_tpu/serve.py:129"),
+    # T13, K6 split at any F around the data-parallel OVB's all-reduce
+    # (learners/vb_online.py on a data mesh): the stats and the psum,
+    # then the blend
+    "dp_ovb_stats": ("svbfm_tpu_torch/csrc/ovb_sweep.cu",
+                     "svbfm_tpu/learners/vb_online.py:531"),
+    "dp_ovb_blend": ("svbfm_tpu_torch/csrc/ovb_sweep.cu",
+                     "svbfm_tpu/learners/vb_online.py:533"),
 }
 # the kernel names whose device time the BS profiles report apart: X10c
 # (rel_patch_*_kernel), X10d's resync (resync_*_kernel), moments
@@ -585,6 +629,14 @@ DP_VB_KERNELS = ("fm_scores", "fm_t_terms", "tp_build_qt", "tp_col_stats",
 DP_MCMC_KERNELS = ("fm_scores", "build_q", "tp_w_stats", "tp_w_draw",
                    "w_patch_rows", "tp_col_draw_stats", "tp_col_draw",
                    "mcmc_patch_rows")
+# the data-parallel BS sweep's main-block pass (w and blocked v)
+DP_BS_MAIN_KERNELS = ("build_q", "tp_w_stats", "tp_w_draw", "w_patch_rows",
+                      "tp_col_draw_stats", "tp_col_draw", "mcmc_patch_rows")
+# the data-parallel OVB chunk: K1, K2 and K4 on the rank's rows, T10 for a
+# w bin, T13 for a v bin
+DP_OVB_KERNELS = ("fm_scores", "fm_t_terms", "vb_build_qt", "vb_patch_rows",
+                  "tp_w_ovb_stats", "tp_w_ovb_blend", "w_patch_rows",
+                  "dp_ovb_stats", "dp_ovb_blend")
 # the kernels each driven path must launch
 PATH_KERNELS = {
     "vb-fast": ("fm_scores", "fm_t_terms", "vb_build_qt",
@@ -679,6 +731,19 @@ PATH_KERNELS = {
     "dp-mcmc": DP_MCMC_KERNELS,
     "dp-mcmc-seq": DP_MCMC_KERNELS,
     "dp-mcmc-class": DP_MCMC_KERNELS + ("probit_latent", "probit_eval"),
+    # the data-parallel block structure (the 1M-row recipe has an empty
+    # main block: X10a on the rank's join slices, then an all-reduce; with
+    # the items in the main block, its pass on the rank's slice of the
+    # main plan: X8d, T3's w stats, T5, T7, X8b) and online VB (T10, T13),
+    # in memory and streamed
+    "dp-bs": BS_KERNELS,
+    "dp-bs-main": BS_KERNELS + DP_BS_MAIN_KERNELS,
+    "dp-bs-seq": BS_KERNELS + ("build_q",),
+    "dp-bs-als": BS_KERNELS,
+    "dp-bs-class": BS_KERNELS + ("probit_latent", "probit_eval"),
+    "dp-ovb": DP_OVB_KERNELS,
+    "dp-ovb-class": DP_OVB_KERNELS + ("probit_eval",),
+    "dp-ovb-stream": DP_OVB_KERNELS,
 }
 
 
@@ -1378,6 +1443,10 @@ def make_cases(s: dict):
         dp_cases(add, s, bucket_cost, bin_cost, bin_label)
     if "tp_ovb" in s:  # T9, T10 and the OVB chunk's T1, T2, T4
         tp_ovb_cases(add, s, bucket_cost, bin_label)
+    if "dp_ovb" in s:  # T13 and T10 at the data-parallel OVB's shapes
+        dp_ovb_cases(add, s, bucket_cost)
+    if "dp_join" in s:  # X10a on a data-parallel learner's join slices
+        dp_join_cases(add, s)
     return cases
 
 
@@ -2260,6 +2329,331 @@ def dp_cases(add, s: dict, bucket_cost, bin_cost, bin_label) -> None:
                      _bad(dev)), t5,
             cost(C * 4 * 9 + G * 8, C * 12, plain_graph=False)
             if first else None)
+
+
+def _shard_bins(plan, meta, dev, S: int) -> list:
+    """Each of the ``S`` data shards' ``BinPlan`` a bin of ``plan`` (built
+    for S shards), as ``learners/base.py:build_plan_data`` cuts it."""
+    import types
+
+    from svbfm_tpu_torch.kernels import ovb_sweep as ko
+    from svbfm_tpu_torch.learners.base import build_plan_data
+
+    return [[ko.BinPlan(bb) for bb in build_plan_data(
+        plan, meta, dev, types.SimpleNamespace(n_data=S, d_index=d)).blocks]
+        for d in range(S)]
+
+
+def dp_ovb_tensors(ovb, state) -> dict:
+    """T13's and T10's inputs at the data-parallel OVB's shapes: chunk 0 of
+    the resident learner ``ovb``'s membership (ML-1M, K = 20, 20 chunks:
+    N = 50,002), its rows padded to a multiple of two, its plan built for
+    one data shard (the world of one's: the JSON line's) and for two (each
+    shard's block of rows and slice of the buckets), from a real init: the
+    chunk's e; for F in DP_OVB_KERNEL_F the pre-bin (mu | sig | 0) patch
+    table of the first F factors, K2's q and tq (its twin), the four [D, F]
+    tables, sigma_v's [G, F] and rho_v."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset, SweepPlan
+    from svbfm_tpu_torch.kernels import vb_sweep as kv
+    from svbfm_tpu_torch.ops.forward import fm_scores
+
+    cfg, meta, train = ovb.cfg, ovb.meta, ovb._train_ds
+    D = cfg.num_attributes
+    dev = state.mu_w.device
+    idx = np.array_split(ovb.member_perm, ovb.num_chunks)[0]
+    sub = SparseDataset(
+        ids=train.ids[idx], vals=train.vals[idx], target=train.target[idx],
+        num_rows=len(idx), num_features=D, min_target=train.min_target,
+        max_target=train.max_target, row_nnz=train.row_nnz[idx])
+    n_pad = -(-len(idx) // 2) * 2
+    rows = sub.padded_to(n_pad)
+    ids = torch.from_numpy(rows.ids.astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rows.vals.astype(np.float32)).to(dev)
+    valid = (torch.arange(n_pad, device=dev) < len(idx)).to(torch.float32)
+    target = torch.from_numpy(rows.target.astype(np.float32)).to(dev)
+    e = (target - fm_scores(state.mu_0, state.mu_w, state.mu_v, ids,
+                            vals)) * valid
+    bins = {S: _shard_bins(SweepPlan.build(
+        sub.to_coo(), D, meta_groups=meta.attr_group,
+        col_count=ovb.col_count, n_shards=S, n_rows_total=n_pad), meta, dev,
+        S) for S in (1, 2)}
+    widths = {}
+    for F in DP_OVB_KERNEL_F:
+        ptab = torch.zeros(D, 5 * F, device=dev)
+        ptab[:, :F] = state.mu_v[:F].T
+        ptab[:, F:2 * F] = state.sigma_v_dash[:F].T
+        q, tq, _ = kv.vb_build_qt_plain(ptab, F, ids, vals)
+        widths[F] = dict(
+            ptab=ptab, q=q, tq=tq, mu=state.mu_v[:F].T.contiguous(),
+            sig=state.sigma_v_dash[:F].T.contiguous(),
+            nmu=state.n_mu_v[:F].T.contiguous(),
+            nsig=state.n_sig_v[:F].T.contiguous(),
+            sv=state.sigma_v[:, :F].contiguous())
+    return dict(tag="dp-ovb", dp_ovb=widths, bins=bins, D=D, e=e,
+                rho_v=(1.0 + state.t_vj) ** -0.5, alpha=state.alpha,
+                mu_w=state.mu_w, sig_w=state.sigma_w_dash,
+                nmu_w=state.n_mu_w, nsig_w=state.n_sig_w, t_wj=state.t_wj,
+                sigma_w=state.sigma_w)
+
+
+def ragged_dp_ovb_tensors(device) -> dict:
+    """T13 (and T10) on a small problem, 3 chunks at K = 20: an OVB init's
+    ``dp_ovb_tensors``, eta2 NaN at column 1 of every width's table and of
+    w (NaN candidates, counted)."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.meta import DataMetaInfo
+    from svbfm_tpu_torch.data.synth import (make_movielens_like,
+                                            train_test_split)
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+
+    coo = make_movielens_like(37, 26, 900, rank=2, noise=0.4, seed=5)
+    tr, te = train_test_split(coo, 0.2, seed=6)
+    D = coo.num_features
+    meta = DataMetaInfo.from_field_offsets(D, [0, 37])
+    cfg = FMConfig(num_attributes=D, num_factor=max(DP_OVB_KERNEL_F),
+                   num_groups=2, seed=SEED, num_batches=3,
+                   min_target=float(tr.target.min()),
+                   max_target=float(tr.target.max()))
+    lr = OVBLearner(cfg, SparseDataset.from_coo(tr, D),
+                    SparseDataset.from_coo(te, D), meta, device=device,
+                    write_files=False)
+    s = dp_ovb_tensors(lr, lr.init_state())
+    for t in s["dp_ovb"].values():
+        t["nsig"][1] = float("nan")
+    s["nsig_w"] = s["nsig_w"].clone()
+    s["nsig_w"][1] = float("nan")
+    s.update(tag="dp-ovb-ragged", timed=False)
+    return s
+
+
+def dp_ovb_cases(add, s: dict, bucket_cost) -> None:
+    """At each F of DP_OVB_KERNEL_F, on every bin of the chunk, each
+    against its twin: T13's stats launch on one shard and on each of two
+    (its shard's rows), its blend launch from the twin's one-shard sums;
+    then the two shards' stats launches summed and the blend against K6's
+    twin on the whole bin (the world of one's K6 launch), and T10's stats
+    and blend launches at lo = 0, D_loc = D on each shard.  Timed on bin
+    0, one shard."""
+    from svbfm_tpu_torch.kernels import ovb_sweep as ko
+    from svbfm_tpu_torch.kernels import w_sweep as kw
+
+    D, e = s["D"], s["e"]
+    dev = e.device
+    half = e.shape[0] // 2
+    one, two = s["bins"][1][0], s["bins"][2]
+
+    def nothing():
+        return ()
+
+    def rows_of(S, d):
+        return slice(0, 2 * half) if S == 1 else slice(d * half,
+                                                       (d + 1) * half)
+
+    def bin_cost(plan, per_entry, per_col, flops):
+        parts = [bucket_cost(dict(rows=b.rows, x=b.x), per_entry, per_col,
+                             flops) for b in plan.buckets]
+        return cost(sum(c["bytes"] for c in parts),
+                    sum(c["flops"] for c in parts))
+
+    for F, t in s["dp_ovb"].items():
+        G = t["sv"].shape[0]
+
+        def prep(t=t):
+            return _clones(t, "ptab", "mu", "sig", "nmu", "nsig") + (
+                torch.zeros(D, device=dev), _bad(dev))
+
+        def blend(plan, sums, t=t):
+            def call(variant, inp):
+                fn = (ko.dp_ovb_blend if variant == "kernel"
+                      else ko.dp_ovb_blend_plain)
+                ptab, mu, sig, nmu, nsig, tv, bad = inp
+                fn(plan, D, sums, ptab, mu, sig, nmu, nsig, t["sv"],
+                   s["alpha"], s["rho_v"], tv, bad)
+                return list(inp)
+            return call
+
+        def split_vs_k6(i, t=t):
+            def call(variant, inp):
+                ptab, mu, sig, nmu, nsig, tv, bad = inp
+                args = (t["sv"], s["alpha"], s["rho_v"], tv, bad)
+                if variant == "plain":
+                    ko.ovb_bin_update_plain(one[i], e, t["q"], t["tq"], ptab,
+                                            mu, sig, nmu, nsig, *args)
+                    return list(inp)
+                sums = sum(ko.dp_ovb_stats(
+                    two[d][i], D, e[rows_of(2, d)], t["q"][rows_of(2, d)],
+                    t["tq"][rows_of(2, d)], ptab) for d in range(2))
+                ko.dp_ovb_blend(two[0][i], D, sums, ptab, mu, sig, nmu,
+                                nsig, *args)
+                return list(inp)
+            return call
+
+        for S, shards in ((1, [one]), (2, two)):
+            for d, bins in enumerate(shards):
+                r = rows_of(S, d)
+                for i, plan in enumerate(bins):
+                    timed = S == 1 and i == 0
+                    label = f"F={F} S={S} shard {d} bin {i} C={plan.num_cols}"
+                    # stats: per entry e, q, tq gathered; per column its
+                    # id, ptab's mu/sig and the 2F sums written
+                    add("dp_ovb_stats", label, nothing,
+                        lambda variant, _, plan=plan, r=r, t=t: [
+                            (ko.dp_ovb_stats if variant == "kernel"
+                             else ko.dp_ovb_stats_plain)(
+                                plan, D, e[r], t["q"][r], t["tq"][r],
+                                t["ptab"])],
+                        bin_cost(plan, 1 + 2 * F, 1 + 4 * F, 15 * F)
+                        if timed else None)
+                    if S == 2:
+                        continue
+                    # blend: a column reads its id, cnt, col_count, group,
+                    # tv_add, rho, 2F sums, ptab's mu/sig, eta1 and eta2,
+                    # and writes the four tables, three deltas and tv_add;
+                    # sigma_v [G, F] once (the twin masks: host-paced)
+                    C = plan.num_cols
+                    sums = ko.dp_ovb_stats_plain(plan, D, e, t["q"],
+                                                 t["tq"], t["ptab"])
+                    add("dp_ovb_blend", label, prep, blend(plan, sums),
+                        cost(C * (7 + 13 * F) * 4 + G * F * 4, C * 25 * F,
+                             plain_graph=False) if timed else None)
+                    add("dp_ovb_blend", f"F={F} bin {i}: two shards' stats "
+                        "summed, the blend, against K6's twin on the bin",
+                        prep, split_vs_k6(i), None)
+    # T10 at lo = 0, D_loc = D on each shard's rows (F = 0)
+    for S, shards in ((1, [one]), (2, two)):
+        for d, bins in enumerate(shards):
+            r = rows_of(S, d)
+            for i, plan in enumerate(bins):
+                label = f"F=0 S={S} shard {d} bin {i}"
+                acc = torch.zeros(D, device=dev)
+                kw.tp_w_ovb_stats_plain(plan.buckets, e[r], s["mu_w"], acc,
+                                        D)
+
+                def w_stats(variant, inp, plan=plan, r=r):
+                    fn = (kw.tp_w_ovb_stats if variant == "kernel"
+                          else kw.tp_w_ovb_stats_plain)
+                    (a,) = inp
+                    fn(plan.buckets, e[r], s["mu_w"], a, D)
+                    return [a]
+
+                def w_blend(variant, inp, plan=plan, acc=acc):
+                    fn = (kw.tp_w_ovb_blend if variant == "kernel"
+                          else kw.tp_w_ovb_blend_plain)
+                    mu_w, sig_w, nmu_w, nsig_w, t_wj, dtab, bad = inp
+                    fn(plan.buckets, acc, D, mu_w, sig_w, s["sigma_w"],
+                       s["alpha"], dtab, bad,
+                       (nmu_w, nsig_w, (1.0 + s["t_wj"]) ** -0.5, t_wj))
+                    return list(inp)
+
+                add("tp_w_ovb_stats", label,
+                    lambda: (torch.zeros(D, device=dev),), w_stats, None)
+                add("tp_w_ovb_blend", label,
+                    lambda: _clones(s, "mu_w", "sig_w", "nmu_w", "nsig_w",
+                                    "t_wj") + (
+                        torch.zeros(D, 2, device=dev), _bad(dev)),
+                    w_blend, None)
+
+
+def dp_join_tensors(learner, state, widths=DP_JOIN_F) -> dict:
+    """X10a's inputs at the data-parallel BS learner's shapes: each
+    relation's join plan of the BS learner ``learner`` (the relational
+    recipe, 1M rows) built for one data shard and for two (the rows padded
+    to a multiple of two, each shard's slice of the buckets), the train
+    residual e of ``state`` and, for F in ``widths``, a seeded q [N, F] and
+    the relation-row table's qB | wn columns (its channel columns zero)."""
+    from svbfm_tpu_torch.data.dataset import SweepPlan
+    from svbfm_tpu_torch.data.libfm_text import COOData
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+    from svbfm_tpu_torch.learners.mcmc_bs import JoinBlock
+
+    dev = state.e.device
+    N = learner.train_n
+    n_pad = -(-N // 2) * 2
+    e = torch.nn.functional.pad(state.e[:N], (0, n_pad - N))
+    gen = torch.Generator().manual_seed(SEED + 3)
+    qs = {F: (torch.randn(n_pad, F, generator=gen) * 0.3).to(dev) if F
+          else None for F in widths}
+    rels = []
+    for ri, rd in enumerate(learner.rels):
+        join = rd.join_tr.cpu().numpy()
+        R = learner.rstats[ri].num_rows
+        coo = COOData(row=np.arange(N, dtype=np.int32), col=join,
+                      val=np.ones(N, np.float32),
+                      target=np.zeros(N, np.float32), num_rows=N,
+                      num_features=R)
+        plans = {}
+        for S in (1, 2):
+            plan = SweepPlan.build(coo, R, bins="jacobi", n_shards=S,
+                                   n_rows_total=n_pad)
+            plans[S] = [[JoinBlock(
+                rows=torch.from_numpy(b.rows[d].copy()).to(dev),
+                x=torch.from_numpy(b.x[d].copy()).to(dev),
+                cols=torch.from_numpy(b.cols.copy()).to(dev))
+                for b in plan.blocks[0]] for d in range(S)]
+        tabs = {}
+        for F in widths:
+            lay = ks.rel_layout(F)
+            tab = torch.zeros(R, lay["ld"], device=dev)
+            tab[:, :F] = (torch.randn(R, F, generator=gen) * 0.3).to(dev)
+            tab[:, lay["wn"]] = rd.wnum
+            tabs[F] = tab
+        rels.append(dict(name=("users", "items")[ri] if ri < 2 else str(ri),
+                         plans=plans, tabs=tabs))
+    return dict(tag="dp-bs", dp_join=rels, e=e, q=qs, widths=widths)
+
+
+def dp_join_cases(add, s: dict) -> None:
+    """X10a on each shard's slice of each relation's join plan (shard-local
+    rows, x = 0 pad slots; a relation row joined to no row of the shard
+    gets zero sums) against its twin (column chunks past F = 32,
+    ``join_agg_twin``), at every F of ``s["widths"]``; and the two slices'
+    launches, their channel columns summed, against one launch on the
+    whole plan."""
+    from svbfm_tpu_torch.kernels import bs_sweep as ks
+
+    e = s["e"]
+    half = e.shape[0] // 2
+    for rel in s["dp_join"]:
+        for F in s["widths"]:
+            lay = ks.rel_layout(F)
+            ch = slice(lay["we"], lay["wn"])
+            q = s["q"][F]
+            tab = rel["tabs"][F]
+
+            def slice_call(d, tab=tab, q=q, F=F, rel=rel):
+                r = slice(d * half, (d + 1) * half)
+
+                def call(variant, _):
+                    fn = ks.bs_join_agg if variant == "kernel" \
+                        else join_agg_twin
+                    out = tab.clone()
+                    fn(rel["plans"][2][d], e[r], None if q is None else q[r],
+                       F, out)
+                    return [out]
+                return call
+
+            def sum_call(variant, _, tab=tab, q=q, F=F, rel=rel, ch=ch):
+                if variant == "plain":
+                    out = tab.clone()
+                    ks.bs_join_agg(rel["plans"][1][0], e, q, F, out)
+                    return [out]
+                outs = []
+                for d in range(2):
+                    r = slice(d * half, (d + 1) * half)
+                    out = tab.clone()
+                    ks.bs_join_agg(rel["plans"][2][d], e[r],
+                                   None if q is None else q[r], F, out)
+                    outs.append(out)
+                outs[0][:, ch] += outs[1][:, ch]
+                return [outs[0]]
+
+            for d in range(2):
+                add("bs_join_agg", f"{rel['name']} F={F} slice {d} of 2",
+                    lambda: (), slice_call(d), None)
+            add("bs_join_agg", f"{rel['name']} F={F} two slices' launches "
+                "summed, against one launch on the whole plan", lambda: (),
+                sum_call, None)
 
 
 def win_cases(add, W: dict, bucket_cost, bin_cost) -> None:
@@ -3628,7 +4022,8 @@ def ragged_tensors(device) -> list:
             *ragged_mwin_tensors(device), ragged_probit_tensors(device),
             serve_tensors(device, ragged=True),
             *(ragged_tp_tensors(device, K) for K in (3, 5)),
-            ragged_tp_ovb_tensors(device), ragged_tp_sgd_tensors(device)]
+            ragged_tp_ovb_tensors(device), ragged_dp_ovb_tensors(device),
+            ragged_tp_sgd_tensors(device)]
 
 
 def ragged_tp_tensors(device, K: int) -> dict:
@@ -5418,12 +5813,15 @@ def sgd_phases(build, card, dev, sgd, exp_sgd, sgda, bpr, train, test, meta,
             dict(hist=hs, sec=med(hs), us=sgd_us))
 
 
-def bs_problem(rows: int, slots: int, holdout: bool) -> dict:
+def bs_problem(rows: int, slots: int, holdout: bool,
+               main_items: bool = False) -> dict:
     """The relational recipe (``make_bs_problem``): the joined meta, the two
     relations, the train and test main blocks (empty designs) and their
     joins.  The test rows are the first tenth; ``holdout`` keeps them out of
     the train rows (PARITY_RUNS.md:166-183), else the train set is every row
-    (scripts/bench_bs.py:100-104)."""
+    (scripts/bench_bs.py:100-104).  ``main_items``: the items are one-hot
+    columns of the main block instead of a relation (the Gibbs/ALS
+    main-block pass then runs beside the user relation's)."""
     from svbfm_tpu_torch.data.dataset import SparseDataset
     from svbfm_tpu_torch.data.libfm_text import COOData
     from svbfm_tpu_torch.data.meta import DataMetaInfo
@@ -5431,34 +5829,44 @@ def bs_problem(rows: int, slots: int, holdout: bool) -> dict:
     from svbfm_tpu_torch.data.synth import make_bs_problem
 
     _, ru, ri, users, items, y = make_bs_problem(rows, slots, slots)
-    meta = build_joined_meta(DataMetaInfo(0), [ru, ri])
+    rels, joins = ([ru], [users]) if main_items else ([ru, ri],
+                                                      [users, items])
+    d_main = ri.num_rows if main_items else 0
+    meta = build_joined_meta(DataMetaInfo(d_main), rels)
     D = meta.num_attributes
     te_n = min(rows // 10, 1_000_000)
     lo = te_n if holdout else 0
 
     def block(a, b):
+        n = b - a
+        if not main_items:
+            return SparseDataset.from_coo(COOData(
+                row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
+                val=np.zeros(0, np.float32), target=y[a:b], num_rows=n,
+                num_features=0), D)
         return SparseDataset.from_coo(COOData(
-            row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
-            val=np.zeros(0, np.float32), target=y[a:b], num_rows=b - a,
-            num_features=0), D)
+            row=np.arange(n, dtype=np.int32), col=items[a:b].astype(np.int32),
+            val=np.ones(n, np.float32), target=y[a:b], num_rows=n,
+            num_features=d_main), D)
 
-    return dict(meta=meta, rels=[ru, ri], train=block(lo, rows),
-                test=block(0, te_n), joins_tr=[users[lo:], items[lo:]],
-                joins_te=[users[:te_n], items[:te_n]],
-                expanded=rows * (2 + 2 * slots),
+    return dict(meta=meta, rels=rels, d_main=d_main, train=block(lo, rows),
+                test=block(0, te_n), joins_tr=[j[lo:] for j in joins],
+                joins_te=[j[:te_n] for j in joins],
+                expanded=rows * (2 + (1 if main_items else 2) * slots),
                 cfg=dict(num_attributes=D, num_groups=meta.num_attr_groups,
                          min_target=float(y[lo:].min()),
                          max_target=float(y[lo:].max()), seed=SEED))
 
 
-def bs_learner(p: dict, device, als: bool = False, **cfg_kw):
+def bs_learner(p: dict, device, als: bool = False, mesh=None, **cfg_kw):
+    """The BS learner on ``bs_problem``'s ``p`` (``mesh``: a data mesh)."""
     from svbfm_tpu_torch.learners.base import FMConfig
     from svbfm_tpu_torch.learners.mcmc_bs import ALSBSLearner, MCMCBSLearner
 
     cls = ALSBSLearner if als else MCMCBSLearner
     return cls(FMConfig(**dict(p["cfg"], **cfg_kw)), p["train"], p["test"],
-               p["rels"], p["joins_tr"], p["joins_te"], p["meta"], 0,
-               device=device, write_files=False)
+               p["rels"], p["joins_tr"], p["joins_te"], p["meta"],
+               p["d_main"], device=device, write_files=False, mesh=mesh)
 
 
 def bs_phases(build, card, dev, bs_mcmc, bsp: dict) -> tuple:
@@ -6193,6 +6601,296 @@ def dp_phases(build, card, dev, train, test, meta, base_cfg, plan) -> list:
         say(phase, t0, ranks=got[names[0]]["ranks"], backend="gloo",
             device=got[names[0]]["device"], K=TP_RANKS_K, rtol=TRAJ_RTOL,
             **kv)
+    return runs
+
+
+def dp_slice_rank_child(rank: int, store: str, out: str) -> None:
+    """One of the [dp-bs-ranks]/[dp-ovb-ranks] phases' gloo ranks on the
+    card: ``dp_slice_ranks_runs`` on a data mesh of DP_RANKS; rank 0
+    writes the histories and each run's launch counts to ``out``
+    (JSON)."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+    distributed_init(init_method=f"file://{store}", world_size=DP_RANKS,
+                     rank=rank, backend="gloo", device="cuda")
+    got = dp_slice_ranks_runs(make_mesh(device="cuda"))
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(got, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_slice_ranks_runs(mesh) -> dict:
+    """The ranks phases' runs on ``mesh`` (a world of one in the parent,
+    DP_RANKS gloo ranks in the children), each of DP_SLICE_RANKS_RUNS from
+    the seed's init: BS Gibbs and ALS on the 100k-row relational recipe
+    (4 + 4 slots, K = 8, host-table draws; Gibbs with the items as
+    main-block columns beside the user relation), OVB on the 100k-row
+    recipe (K = 8, TP_OVB_RANKS_CHUNKS chunks) at factor_block 1 and 4.  For each,
+    the history's metrics, the launch counts and the mesh."""
+    from svbfm_tpu_torch.kernels import build
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner, init_ovb_state
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    qps = {main: bs_problem(BS_Q_ROWS, BS_Q_SLOTS, holdout=True,
+                            main_items=main) for main in (False, True)}
+    tr1, _, train1, test1, meta1 = ml_data(TP_RANKS_ROWS)
+    out = {}
+    for name, (path, fb, n, keys) in DP_SLICE_RANKS_RUNS.items():
+        torch.cuda.synchronize()
+        build.reset_launch_counts()  # the init's launches count too
+        if name.startswith("bs"):
+            qp = qps[path == "dp-bs-main"]
+            lr = bs_learner(qp, mesh.device, name == "bs_als", mesh=mesh,
+                            num_factor=BS_Q_K, regw=BS_REG, regv=BS_REG,
+                            factor_block=fb)
+            p = init_fm_params(torch.Generator().manual_seed(SEED),
+                               lr.cfg.num_attributes, BS_Q_K,
+                               init_w_normal=True)
+            state = lr.state_from_params(p.w0, p.w, p.v,
+                                         host_draws(SEED, lr.device))
+            kw = dict(chunk=1)
+        else:
+            cfg = dataclasses.replace(tp_ranks_cfg(tr1, meta1),
+                                      num_batches=TP_OVB_RANKS_CHUNKS,
+                                      factor_block=fb)
+            lr = OVBLearner(cfg, train1, test1, meta1, mesh=mesh,
+                            write_files=False)
+            state = to_device(init_ovb_state(
+                torch.Generator().manual_seed(SEED), cfg, "cpu"), lr.device)
+            kw = {}
+        _, hist = lr.run(state, num_iter=n, verbose=False, **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(hist=[{k: h[k] for k in keys + (
+            "time_learn", "iter")} for h in hist],
+            launches=dict(build.launch_counts), device=str(lr.device),
+            ranks=mesh.n_data)
+    return out
+
+
+def dp_bs_phase(build, card, dev, mesh, bsp: dict, resident, path: str,
+                als: bool, fb: int, task: int, sweeps: int,
+                profile: bool) -> dict:
+    """One [dp-bs*] run: the data-parallel BS learner on ``mesh`` beside
+    the resident one (``resident``, else built here) from one init and one
+    host-table draw source each, ``sweeps`` sweeps, the trajectories
+    within TRAJ_RTOL; with ``profile`` a sweep's device time beside the
+    resident's.  Returns the launch counts."""
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.models.fm import init_fm_params
+
+    t0 = time.perf_counter()
+    cfg_kw = dict(num_factor=K, regw=BS_REG, regv=BS_REG, factor_block=fb)
+    if task:
+        thr = float(np.median(bsp["train"].target[: bsp["train"].num_rows]))
+        bsp = dict(bsp, train=binarised(bsp["train"], thr),
+                   test=binarised(bsp["test"], thr))
+        cfg_kw.update(task=1, min_target=-1.0, max_target=1.0)
+    dp = bs_learner(bsp, dev, als, mesh=mesh, **cfg_kw)
+    res = resident or bs_learner(bsp, dev, als, **cfg_kw)
+    p = init_fm_params(torch.Generator().manual_seed(SEED),
+                       dp.cfg.num_attributes, K, init_w_normal=True)
+
+    def start(lr):
+        return lr.state_from_params(p.w0, p.w, p.v, host_draws(SEED, dev))
+
+    (dstate, hd), launches = drive(build, path, lambda: dp.run(
+        start(dp), num_iter=sweeps, verbose=False, chunk=1))
+    rstate, hr = res.run(start(res), num_iter=sweeps, verbose=False, chunk=1)
+    if task:
+        check_class_history(hd, path)
+        keys = ("accuracy", "loglik", "alpha")
+    else:
+        check_mcmc_history(hd, path, "rmse_this" if als else "rmse")
+        keys = ("rmse", "rmse_this", "alpha")
+    worst = compare_traj(hd, hr, keys, TRAJ_RTOL, f"{path} vs resident")
+    kv = {}
+    if profile:
+        d_us = profile_run(lambda: dp.run(dstate, num_iter=1, verbose=False),
+                           1, "sweep", f"{path}-profile", focus=BS_FOCUS)
+        r_us = profile_run(lambda: res.run(rstate, num_iter=1,
+                                           verbose=False),
+                           1, "sweep", f"{path}-resident-profile",
+                           focus=BS_FOCUS)
+        kv = dict(device_ms_per_iter=f"{d_us / 1e3:.3f}",
+                  resident_device_ms_per_iter=f"{r_us / 1e3:.3f}")
+    sec, rsec = (statistics.median(h["time_learn"] for h in hh[1:])
+                 for hh in (hd, hr))
+    say(path, t0, backend=dist_backend(), ranks=mesh.n_data,
+        factor_block=dp.factor_width, task=task, sweeps=sweeps,
+        sec_per_iter=f"{sec:.6f}", resident_sec_per_iter=f"{rsec:.6f}", **kv,
+        **{keys[1]: ",".join(f"{h[keys[1]]:.5f}" for h in hd)},
+        max_rel=f"{worst:.3e}", rtol=TRAJ_RTOL,
+        launches=json.dumps(launches, separators=(",", ":")),
+        card=repr(card))
+    return launches
+
+
+def dp_ovb_phase(build, card, dev, mesh, train, test, meta, base_cfg,
+                 path: str, fb: int, reshuffle: bool, epochs: int,
+                 profile: bool, stream: str = "") -> dict:
+    """One [dp-ovb*] run: the data-parallel OVB on ``mesh`` (in memory, or
+    streamed from the binary train file ``stream``) beside the resident
+    OVB built alike, from one init, ``epochs`` epochs of OVB_CHUNKS
+    chunks, the trajectories and the tables within TRAJ_RTOL; with
+    ``profile`` an epoch's device time beside the resident's.  Returns the
+    launch counts."""
+    from svbfm_tpu_torch.learners.base import FMConfig
+    from svbfm_tpu_torch.learners.vb_online import (OVBLearner,
+                                                    init_ovb_state)
+
+    t0 = time.perf_counter()
+    task = 1 if path.endswith("class") else 0
+    if task:
+        train, test = (binarised(d, CLASS_THRESHOLD) for d in (train, test))
+        base_cfg = dict(base_cfg, task=1, min_target=-1.0, max_target=1.0)
+    cfg = FMConfig(num_batches=OVB_CHUNKS, factor_block=fb,
+                   reshuffle=reshuffle, **base_cfg)
+    init = init_ovb_state(torch.Generator().manual_seed(SEED), cfg, "cpu")
+
+    def learner(**kw):
+        if stream:
+            return OVBLearner.from_reader(cfg, binary_reader(stream), test,
+                                          meta, write_files=False, **kw)
+        return OVBLearner(cfg, train, test, meta, write_files=False, **kw)
+
+    w0 = time.perf_counter()
+    dp = learner(mesh=mesh)
+    setup_s = time.perf_counter() - w0
+    (dstate, hd), launches = drive(build, path, lambda: dp.run(
+        to_device(init, dev), num_iter=epochs, verbose=False))
+    res = learner(device=dev)
+    rstate, hr = res.run(to_device(init, dev), num_iter=epochs,
+                         verbose=False)
+    if task:
+        check_class_history(hd, path)
+        keys = ("accuracy", "loglik", "free_energy")
+    else:
+        check_history(hd, path, ("rmse", "mae", "free_energy"), False)
+        keys = ("rmse", "mae", "free_energy")
+    worst = compare_traj(hd, hr, keys, TRAJ_RTOL, f"{path} vs resident ovb")
+    tab = table_gap(dstate, rstate, ("mu_w", "sigma_w_dash", "mu_v",
+                                     "sigma_v_dash", "n_mu_v", "n_sig_v"),
+                    cfg.num_attributes)
+    if tab > TRAJ_RTOL:
+        raise AssertionError(f"{path}: the tables {tab:.3e} (of each "
+                             "table's scale) from the resident's")
+    kv = {}
+    if profile:
+        d_us = profile_run(lambda: dp.run(dstate, num_iter=1, verbose=False),
+                           1, "epoch", f"{path}-profile",
+                           focus=("ovb_col_stats", "tp_w_kernel"))
+        r_us = profile_run(lambda: res.run(rstate, num_iter=1,
+                                           verbose=False),
+                           1, "epoch", f"{path}-resident-profile",
+                           focus=("ovb_col_stats", "w_bin_kernel"))
+        kv = dict(device_ms_per_epoch=f"{d_us / 1e3:.3f}",
+                  resident_device_ms_per_epoch=f"{r_us / 1e3:.3f}")
+    sec = [h["time_learn"] for h in hd]
+    rsec = [h["time_learn"] for h in hr]
+    say(path, t0, backend=dist_backend(), ranks=mesh.n_data,
+        factor_block=fb, reshuffle=int(reshuffle), task=task,
+        streamed=int(bool(stream)), epochs=epochs, chunks=OVB_CHUNKS,
+        n_chunk=dp.n_chunk, setup_s=f"{setup_s:.3f}",
+        sec_per_epoch=",".join(f"{x:.6f}" for x in sec),
+        resident_sec_per_epoch=",".join(f"{x:.6f}" for x in rsec), **kv,
+        **{keys[0]: ",".join(f"{h[keys[0]]:.5f}" for h in hd)},
+        max_rel=f"{worst:.3e}", tables_max_rel=f"{tab:.3e}",
+        rtol=TRAJ_RTOL, launches=json.dumps(launches, separators=(",", ":")),
+        card=repr(card))
+    return launches
+
+
+def dp_slice_phases(build, card, dev, tr, train, test, meta, base_cfg,
+                    bsp: dict, bs_mcmc) -> list:
+    """The data-parallel block structure and online VB
+    (``MCMCBSLearner``/``ALSBSLearner``/``OVBLearner(mesh=)``: X10a on the
+    rank's join slices and an all-reduce of the channel columns; T10 and
+    T13 around the data all-reduces): on NCCL with a world of one,
+    [dp-bs] (Gibbs at F = K beside [bs-mcmc]'s resident learner, then at
+    factor_block 1, [dp-bs-seq]), [dp-bs-als], [dp-bs-class] on the 1M-row
+    relational recipe at K = 20, each beside the resident learner from one
+    init and one host-table draw source; [dp-ovb] (ML-1M, K = 20,
+    OVB_CHUNKS chunks: factor_block 1 with its device time, 4, and 1 with
+    ``reshuffle``), [dp-ovb-class], [dp-ovb-stream] (the train rows as a
+    binary file), each beside the resident OVB from one init; then
+    [dp-bs-ranks] and [dp-ovb-ranks] (DP_RANKS gloo ranks on the card,
+    the 100k-row recipes, beside the world of one).  Every trajectory
+    within TRAJ_RTOL.  Returns the launch counts of the driven runs."""
+    import torch.distributed as dist
+
+    from svbfm_tpu_torch.data.binary import save_coo_binary
+    from svbfm_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+    t_all = time.perf_counter()
+    work = ooc_work("dp-slice")
+    distributed_init(init_method=f"file://{os.path.join(work, 'store')}",
+                     world_size=1, rank=0, backend="nccl", device="cuda")
+    mesh = make_mesh(device="cuda")
+    runs = [dp_bs_phase(build, card, dev, mesh, bsp, res, path, als, fb,
+                        task, DP_BS_SWEEPS, prof)
+            for res, path, als, fb, task, prof in (
+                (bs_mcmc, "dp-bs", False, 0, 0, True),
+                (None, "dp-bs-seq", False, 1, 0, True),
+                (None, "dp-bs-als", True, 0, 0, False),
+                (None, "dp-bs-class", False, 0, 1, False))]
+    runs.append(dp_bs_phase(
+        build, card, dev, mesh, bs_problem(BS_Q_ROWS, BS_Q_SLOTS,
+                                           holdout=True, main_items=True),
+        None, "dp-bs-main", False, 0, 0, DP_BS_SWEEPS, False))
+    prefix = os.path.join(work, "ml1m_train")
+    save_coo_binary(prefix, tr)
+    args = (build, card, dev, mesh, train, test, meta, base_cfg)
+    runs += [dp_ovb_phase(*args, path, fb, resh, DP_OVB_EPOCHS, prof,
+                          stream)
+             for path, fb, resh, prof, stream in (
+                 ("dp-ovb", 1, False, True, ""),
+                 ("dp-ovb", 4, False, False, ""),
+                 ("dp-ovb", 1, True, False, ""),
+                 ("dp-ovb-class", 1, False, False, ""),
+                 ("dp-ovb-stream", 1, False, False, prefix))]
+
+    # DP_RANKS gloo ranks on the one card beside the world of one
+    t0 = time.perf_counter()
+    one = dp_slice_ranks_runs(mesh)
+    dist.destroy_process_group()
+    rwork = ooc_work("dp-slice-ranks")
+    out = os.path.join(rwork, "rank0.json")
+    spawn_ranks(dp_slice_rank_child, DP_RANKS,
+                (os.path.join(rwork, "store"), out), "dp-slice-ranks")
+    with open(out) as f:
+        got = json.load(f)
+    for phase, names in (("dp-bs-ranks", ("bs_gibbs", "bs_als")),
+                         ("dp-ovb-ranks", ("ovb", "ovb_fb4"))):
+        kv = {}
+        for name in names:
+            path, _fb, _n, keys = DP_SLICE_RANKS_RUNS[name]
+            g = got[name]
+            missing = [k for k in PATH_KERNELS[path]
+                       if g["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"{phase} {name}: kernels never "
+                                     f"launched: {missing}")
+            worst = compare_traj(g["hist"], one[name]["hist"], keys,
+                                 TRAJ_RTOL,
+                                 f"{phase} {name} vs the world of one")
+            kv.update({
+                f"{name}_{keys[0]}": ",".join(f"{h[keys[0]]:.5f}"
+                                              for h in g["hist"]),
+                f"{name}_sec_per_iter": ",".join(
+                    f"{h['time_learn']:.6f}" for h in g["hist"]),
+                f"{name}_one_sec_per_iter": ",".join(
+                    f"{h['time_learn']:.6f}" for h in one[name]["hist"]),
+                f"{name}_max_rel": f"{worst:.3e}"})
+        say(phase, t0, ranks=got[names[0]]["ranks"], backend="gloo",
+            device=got[names[0]]["device"], K=BS_Q_K, rtol=TRAJ_RTOL, **kv)
+    # every [dp-bs*] and [dp-ovb*] phase, the ranks' spawn among them
+    say("dp-slice-total", t_all, phases=len(runs) + 2)
     return runs
 
 
@@ -7205,6 +7903,8 @@ def main() -> int:
         check_cases(tp_tensors(learner, vb0), timed=True),
         check_cases(dp_tensors(learner, vb0, gibbs, mc1), timed=True),
         check_cases(tp_ovb_tensors(ovb, ovb0), timed=True),
+        check_cases(dp_ovb_tensors(ovb, ovb0), timed=True),
+        check_cases(dp_join_tensors(bs_mcmc, bs1), timed=False),
         check_cases(tp_sgd_path_tensors(sgd, exp_sgd, dev), timed=True),
         *(check_cases(s, timed=False) for s in ragged_tensors(dev)))
     del mc1, bs1, win, win0, mwin, mwin1
@@ -7543,6 +8243,9 @@ def main() -> int:
 
     l_bs, l_bs_als, l_bs_seq, l_bs_nine, l_bs_k64 = bs_phases(
         build, card, dev, bs_mcmc, bsp)
+    # ---- 34b. the data-parallel block structure and online VB ------------
+    l_dps = dp_slice_phases(build, card, dev, tr, train, test, meta,
+                            base_cfg, bsp, bs_mcmc)
     del bs_mcmc
     l_class = class_phases(build, card, dev, train, test, meta, base_cfg,
                            plan, bsp, (tr90, va10))
@@ -7552,7 +8255,7 @@ def main() -> int:
     runs = (l_serve, l_fast, l_exact, l_tp, l_tp0, *l_tpm, *l_dp, l_ovb,
             *l_tpo, l_mcmc, *l_als, l_probe, l_sgd, l_tps, l_smesh,
             l_online, l_exp, l_sgda, l_bpr, l_xsgd, l_bs, l_bs_als, l_bs_seq,
-            l_bs_nine, l_bs_k64, *l_class, *l_ooc)
+            l_bs_nine, l_bs_k64, *l_dps, *l_class, *l_ooc)
     launches = {n: sum(lp[n] for lp in runs) for n in SOURCES}
     kernels = []
     for n in SOURCES:

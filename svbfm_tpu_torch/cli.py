@@ -34,12 +34,15 @@ sharded over S ranks of a (data, feature) mesh of every rank, and
 ``-distributed 1`` joins
 the ranks' process group from ``SVBFM_COORDINATOR``,
 ``SVBFM_NUM_PROCESSES`` and ``SVBFM_PROCESS_ID`` (NCCL on ``cuda``, gloo
-on ``cpu``); several ranks of vb, mcmc or als without ``-feature_shards``
-train the replicated learner data-parallel on a data mesh of every rank
-(``VBLearner``/``MCMCLearner``/``ALSLearner(mesh=)``: each rank a block of
-the rows, every table on every rank; ``-factor_block``, ``-task c``,
-``-num_eval_cases``, ``-map_eval`` and ``-checkpoint`` read as on one
-device); rank 0 prints and writes the files.
+on ``cpu``); several ranks of vb, vb_online, mcmc or als without
+``-feature_shards`` train the replicated learner data-parallel on a data
+mesh of every rank (``VBLearner``/``OVBLearner``/``MCMCLearner``/
+``ALSLearner(mesh=)``, with ``-relation`` ``MCMCBSLearner``/
+``ALSBSLearner(mesh=)``, vb_online also streamed from a binary train
+file: each rank a block of the rows, every table on every rank;
+``-factor_block``, ``-task c``, ``-reshuffle``, ``-num_eval_cases``,
+``-map_eval`` and ``-checkpoint`` read as on one device); rank 0 prints
+and writes the files.
 
     python -m svbfm_tpu_torch.cli -task r -train tr.libfm -test te.libfm \\
         -dim '1,1,20' -method mcmc -iter 10 -device cuda
@@ -124,8 +127,9 @@ Flags (-name value):
                in memory); must divide the world size; default=1
   -distributed 1 = join the process group of SVBFM_COORDINATOR,
                SVBFM_NUM_PROCESSES, SVBFM_PROCESS_ID (vb, vb_online, mcmc,
-               als, sgd; without -feature_shards vb, mcmc and als train
-               data-parallel on every rank); default=0
+               als, sgd; without -feature_shards vb, vb_online, mcmc and
+               als train data-parallel on every rank, mcmc and als with
+               -relation too); default=0
   -verbosity   how much to print; default=0
   -device      torch device to train on; default=cuda (cpu runs the
                kernels' plain PyTorch twins)
@@ -164,7 +168,7 @@ _Q1 = "ROADMAP.md queue 1"
 # the methods that run feature-sharded or on several ranks
 TP_METHODS = ("vb", "vb_online", "mcmc", "als", "sgd")
 # the methods whose replicated learner runs data-parallel across ranks
-DP_METHODS = ("vb", "mcmc", "als")
+DP_METHODS = ("vb", "vb_online", "mcmc", "als")
 METHODS = ("mcmc", "als", "vb", "vb_online") + SGD_METHODS
 # the methods that read -task p (svbfm_tpu/learners/sgd.py:87-100)
 POISSON_METHODS = ("sgd", "sgd_online", "sgda", "exp_sgd_stoc")
@@ -318,9 +322,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     # several ranks: join their process group before anything else
     # (svbfm_tpu/cli.py:160-168)
     from svbfm_tpu_torch.parallel.mesh import distributed_init, process_info
-    # without -feature_shards svbfm_tpu/cli.py sends vb, mcmc and als to
-    # the replicated learner, data-parallel across the ranks
-    # (svbfm_tpu/cli.py:364-424); the others have none in the port yet
+    # without -feature_shards svbfm_tpu/cli.py sends vb, vb_online, mcmc
+    # and als (with -relation: block structure) to the replicated learner,
+    # data-parallel across the ranks (svbfm_tpu/cli.py:364-441); the SGD
+    # family has none in the port yet
     def refuse_dp(why):
         if method not in DP_METHODS and (method not in TP_METHODS or fs == 1):
             how = ("" if method not in TP_METHODS
@@ -340,10 +345,6 @@ def main(argv: Optional[list[str]] = None) -> int:
     dp = world > 1 and not tp  # the replicated ones on a data mesh
     if dp:
         refuse_dp(f"{world} ranks")
-        if cmd.has("relation"):
-            raise SystemExit("-relation block structure does not run "
-                             "data-parallel across ranks in the port yet "
-                             f"({_Q1}, item 13.4)")
         if cache_bytes > 0:
             raise SystemExit("-cache_size is not read by the data-parallel "
                              "learners (resident rows)")
@@ -517,7 +518,8 @@ def main(argv: Optional[list[str]] = None) -> int:
         rels, tr_joins, te_joins, d_main = bs_native
         learner = cls(cfg, tr_ds, te_ds, rels, tr_joins, te_joins, meta,
                       d_main, device=device, bins=bins,
-                      w_lambda_init=w_lambda, v_lambda_init=v_lambda)
+                      w_lambda_init=w_lambda, v_lambda_init=v_lambda,
+                      mesh=mesh)
     elif method in ("mcmc", "als") and tp:
         from svbfm_tpu_torch.parallel.mesh import make_mesh2d
         from svbfm_tpu_torch.parallel.tp_mcmc import (TPALSLearner,
@@ -565,10 +567,11 @@ def main(argv: Optional[list[str]] = None) -> int:
         from svbfm_tpu_torch.learners.vb_online import OVBLearner
         if defer_train:
             learner = OVBLearner.from_reader(cfg, reader, te_ds, meta,
-                                             device=device, bins=bins)
+                                             device=device, bins=bins,
+                                             mesh=mesh)
         else:
             learner = OVBLearner(cfg, tr_ds, te_ds, meta, device=device,
-                                 bins=bins)
+                                 bins=bins, mesh=mesh)
     elif method == "sgd" and tp:
         from svbfm_tpu_torch.parallel.mesh import make_mesh2d
         from svbfm_tpu_torch.parallel.tp_sgd import TPSGDLearner

@@ -63,6 +63,16 @@
 // Both skip a padding column (local id D_loc): the stats write it zero
 // sums, the blend writes nothing.  At a world of one the stats are K6's
 // sums, bit for bit.
+//
+// T13, K6 split the same way at any F, for the data-parallel OVB
+// (svbfm_tpu/learners/vb_online.py's psums :531-532 at F > 1 and :660-661
+// at F = 1): the kernel's second template parameter kAnyF.  Its launches
+// read K2's separate q and tq [N, F] at K6's row stride F; the stats write
+// the bin's [C_bin, 2F] sums (v_mean's F, then v_sig's F, before the
+// division by cnt) at K6's lanes and order; the blend takes FL lanes a
+// column, a lane a factor (FL as K6's), and applies K6's ending step from
+// the all-reduced sums.  The padding column rule is T9's (the data-parallel
+// learner passes D_loc = D, which no column holds).
 #include "svbfm_common.cuh"
 
 namespace {
@@ -113,9 +123,9 @@ __host__ __device__ inline int64_t bucket_blocks(int C, int F, int L) {
 // picks the first bucket that ends past this block (an empty bucket ends
 // where the one before it does, so it is never picked).  T9's launches
 // also sum the buckets' columns, for the bucket's first column in the
-// bin's sums (col0); its blend launch lays a bucket out a thread a column.
-// The whole warp takes part.
-template <int kPart = kFused>
+// bin's sums (col0); its blend launch lays a bucket out a thread a column
+// (T13's: FL threads a column).  The whole warp takes part.
+template <int kPart = kFused, bool kAnyF = false>
 __device__ inline Bucket find_bucket(const int64_t* __restrict__ plan,
                                      int nb, int F, int64_t& first,
                                      int64_t& col0) {
@@ -130,7 +140,9 @@ __device__ inline Bucket find_bucket(const int64_t* __restrict__ plan,
       p[k] = b < nb ? plan[b * kPlanCols + k] : 0;
     const int64_t nblk =
         b < nb ? (kPart == kBlend
-                      ? (p[6] + kThreads - 1) / kThreads
+                      ? (kAnyF ? (p[6] * factor_lanes(F) + kThreads - 1) /
+                                     kThreads
+                               : (p[6] + kThreads - 1) / kThreads)
                       : bucket_blocks(static_cast<int>(p[6]), F,
                                       static_cast<int>(p[7])))
                : 0;
@@ -169,11 +181,12 @@ __device__ inline Bucket find_bucket(const int64_t* __restrict__ plan,
 }
 
 // K6 (kFused), or T9's stats or blend launch (sums: the bin's [C_bin, 2],
-// D_loc: the padding column's local id; K6 reads neither).  The parts
-// share one body; T9's differ from K6 at two seams: after the butterfly
-// the stats launch writes its sums and stops, and the blend launch takes
-// its sums from the buffer where K6 sums the entries.
-template <int kPart = kFused>
+// D_loc: the padding column's local id; K6 reads neither), or with kAnyF
+// T13's (sums [C_bin, 2F]).  The parts share one body; the split ones
+// differ from K6 at two seams: after the butterfly the stats launch writes
+// its sums and stops, and the blend launch takes its sums from the buffer
+// where K6 sums the entries.
+template <int kPart = kFused, bool kAnyF = false>
 __global__ void __launch_bounds__(kThreads) ovb_col_stats_kernel(
     const int64_t* __restrict__ plan, int nb, const float* __restrict__ e,
     const float* __restrict__ q, const float* __restrict__ tq, int F,
@@ -183,16 +196,20 @@ __global__ void __launch_bounds__(kThreads) ovb_col_stats_kernel(
     const float* __restrict__ alpha_p, const float* __restrict__ rho_v,
     float* __restrict__ tv_add, int* __restrict__ bad,
     float* __restrict__ sums, int64_t D_loc) {
-  // T9 runs at F = 1, its q and tq a row of T2's qt apart
+  // T9 runs at F = 1, its q and tq a row of T2's qt apart; T13 at the
+  // block's F, on K2's q and tq
   constexpr bool kTp = kPart != kFused;
-  if constexpr (kTp) F = 1;
-  const int qs = kTp ? kQt : F;  // the row stride of q and tq
+  constexpr bool kT9 = kTp && !kAnyF;
+  if constexpr (kT9) F = 1;
+  const int qs = kT9 ? kQt : F;  // the row stride of q and tq
   int64_t first, col0;
-  const Bucket bk = find_bucket<kPart>(plan, nb, F, first, col0);
+  const Bucket bk = find_bucket<kPart, kAnyF>(plan, nb, F, first, col0);
   const int L = bk.L;
   // U and FL are powers of two: shifts, not divisions (T9's blend: a
-  // thread a column)
-  const int u_shift = kPart == kBlend ? 0 : __ffs(col_lanes(F, L)) - 1;
+  // thread a column; T13's: FL threads a column)
+  const int u_shift =
+      kPart == kBlend ? (kAnyF ? __ffs(factor_lanes(F)) - 1 : 0)
+                      : __ffs(col_lanes(F, L)) - 1;
   const int fl_shift = __ffs(factor_lanes(F)) - 1;
   const int U = 1 << u_shift;
   const int FL = 1 << fl_shift;
@@ -261,8 +278,13 @@ __global__ void __launch_bounds__(kThreads) ovb_col_stats_kernel(
     float vm = 0.f, vs = 0.f;
     if constexpr (kPart == kBlend) {  // the sums of every data shard
       if (on) {
-        vm = sums[2 * (col0 + c)];
-        vs = sums[2 * (col0 + c) + 1];
+        if constexpr (kAnyF) {
+          vm = sums[(col0 + c) * 2 * F + f];
+          vs = sums[(col0 + c) * 2 * F + F + f];
+        } else {
+          vm = sums[2 * (col0 + c)];
+          vs = sums[2 * (col0 + c) + 1];
+        }
       }
     } else if (on && has0) {
       const float x2 = x0 * x0;
@@ -288,7 +310,12 @@ __global__ void __launch_bounds__(kThreads) ovb_col_stats_kernel(
     if constexpr (kPart == kStats) {
       // this data shard's sums, before the division by cnt (zero at the
       // padding column)
-      if (live && sl == 0) {
+      if constexpr (kAnyF) {
+        if (live && sl == 0 && f < F) {
+          sums[(col0 + c) * 2 * F + f] = vm;
+          sums[(col0 + c) * 2 * F + F + f] = vs;
+        }
+      } else if (live && sl == 0) {
         sums[2 * (col0 + c)] = vm;
         sums[2 * (col0 + c) + 1] = vs;
       }
@@ -383,6 +410,45 @@ SVBFM_EXPORT int svbfm_tp_ovb_blend(const int64_t* plan, int nb,
   ovb_col_stats_kernel<kBlend><<<static_cast<unsigned>(blocks), kThreads, 0,
                                  stream>>>(
       plan, nb, nullptr, nullptr, nullptr, 1, ptab, mu_t, sig_t, nmu_t,
+      nsig_t, sv, alpha, rho_v, tv_add, bad, const_cast<float*>(sums),
+      D_loc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T13, stats: the sums [C_bin, 2F] of one bin's columns (plan as K6's,
+// `blocks` K6's at F) over this data shard's rows e [N] and K2's q, tq
+// [N, F], with the pre-bin mu/sig in channels 0..2F-1 of ptab [D, 5F];
+// a padding column's (id D_loc) sums are zero.
+SVBFM_EXPORT int svbfm_dp_ovb_stats(const int64_t* plan, int nb,
+                                    int64_t blocks, const float* e,
+                                    const float* q, const float* tq, int F,
+                                    const float* ptab, float* sums,
+                                    int64_t D_loc, cudaStream_t stream) {
+  if (blocks == 0) return 0;
+  ovb_col_stats_kernel<kStats, true><<<static_cast<unsigned>(blocks),
+                                       kThreads, 0, stream>>>(
+      plan, nb, e, q, tq, F, const_cast<float*>(ptab), nullptr, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, sums,
+      D_loc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// T13, blend: K6's ending step at one bin's columns from sums [C_bin, 2F]
+// (summed over the data shards; `blocks`: FL threads a column, each
+// bucket's ceil(C FL / 256)): mu/sig/nmu/nsig [D, F], ptab's delta
+// channels, tv_add[col] += cnt (tv_add nullptr: not counted) and bad[4],
+// as svbfm_ovb_col_stats_update writes them; padding columns skipped.
+SVBFM_EXPORT int svbfm_dp_ovb_blend(const int64_t* plan, int nb,
+                                    int64_t blocks, const float* sums, int F,
+                                    int64_t D_loc, float* ptab, float* mu_t,
+                                    float* sig_t, float* nmu_t, float* nsig_t,
+                                    const float* sv, const float* alpha,
+                                    const float* rho_v, float* tv_add,
+                                    int* bad, cudaStream_t stream) {
+  if (blocks == 0) return 0;
+  ovb_col_stats_kernel<kBlend, true><<<static_cast<unsigned>(blocks),
+                                       kThreads, 0, stream>>>(
+      plan, nb, nullptr, nullptr, nullptr, F, ptab, mu_t, sig_t, nmu_t,
       nsig_t, sv, alpha, rho_v, tv_add, bad, const_cast<float*>(sums),
       D_loc);
   return static_cast<int>(cudaGetLastError());

@@ -45,7 +45,8 @@ LIBRARIES = {
                 "w_col_window", "mcmc_w_window", "tp_w_stats",
                 "tp_w_update", "tp_w_draw", "tp_w_ovb_stats",
                 "tp_w_ovb_blend"),
-    "ovb_sweep": ("ovb_col_stats_update", "tp_ovb_stats", "tp_ovb_blend"),
+    "ovb_sweep": ("ovb_col_stats_update", "tp_ovb_stats", "tp_ovb_blend",
+                  "dp_ovb_stats", "dp_ovb_blend"),
     "mcmc_sweep": ("mcmc_col_draw", "mcmc_patch_rows", "mcmc_col_grad",
                    "mcmc_col_draw_window", "tp_col_draw_stats", "tp_col_draw",
                    "tp_mcmc_patch_delta"),
@@ -147,6 +148,11 @@ SIGNATURES = {
     "svbfm_tp_w_ovb_blend": (_P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P),
     "svbfm_probit_eval": (_P, _P, _P, _L, _P, _P, _I, _F, _I, _P, _P, _P),
+    # T13, K6 split at any F for the data-parallel online VB
+    # (learners/vb_online.py on a data mesh)
+    "svbfm_dp_ovb_stats": (_P, _I, _L, _P, _P, _P, _I, _P, _P, _L, _P),
+    "svbfm_dp_ovb_blend": (_P, _I, _L, _P, _I, _L, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P),
     # T11, the feature-sharded SGD (parallel/tp_sgd.py), and T12, the
     # feature-sharded scorer's finalize (serve.py)
     "svbfm_tp_sgd_scatter": (_P, _I, _P, _P, _P, _P, _P, _L, _I, _P, _L, _I,

@@ -27,6 +27,15 @@ T2's qt [N, 3]; then, from the all-reduced sums, K6's ending step at the
 bin's columns, reading no rows.  Padding columns (local id D_loc) get zero
 sums and are not updated.  Replaces ``svbfm_tpu/parallel/tp_ovb.py:
 tp_ovb_chunk_update``'s v bucket body (:290-338).
+
+``dp_ovb_stats`` and ``dp_ovb_blend`` (T13) split K6 the same way at any
+F, around the data-parallel OVB's data all-reduce (``learners/
+vb_online.py`` on a data mesh): the stats read K2's separate q and tq
+[N, F] and return the bin's [C_bin, 2F] sums (v_mean's F, then v_sig's
+F); the blend writes what K6 writes, at the block's F.  Replaces the
+psums of ``svbfm_tpu/learners/vb_online.py`` :531-532 (a v block at
+F > 1) and :660-661 (the factor-sequential sweep at F = 1).  T9's twins
+are T13's at F = 1.
 """
 
 from __future__ import annotations
@@ -179,10 +188,12 @@ class BinPlan:
         """C_bin, the bin's columns: the rows of T9's sums."""
         return sum(C for *_, C, _L in self.rows)
 
-    def blend_blocks(self) -> int:
-        """T9's blend launch's blocks: a thread a column, each bucket's
-        ceil(C / 256) laid end to end."""
-        return sum(-(-C // _THREADS) for *_, C, _L in self.rows)
+    def blend_blocks(self, F: int = 1) -> int:
+        """The blend launch's blocks at F factors (T9: F = 1): FL threads
+        a column (``col_lanes`` at L = 1), each bucket's ceil(C FL / 256)
+        laid end to end."""
+        fl = col_lanes(F, 1)
+        return sum(-(-C * fl // _THREADS) for *_, C, _L in self.rows)
 
 
 def ovb_bin_update_plain(plan: BinPlan, e, q, tq, ptab, mu_t, sig_t, nmu_t,
@@ -237,20 +248,9 @@ def ovb_col_stats_update(plan: BinPlan, e, q, tq, ptab, mu_t, sig_t, nmu_t,
 
 def tp_ovb_stats_plain(plan: BinPlan, D_loc: int, e, qt,
                        ptab) -> torch.Tensor:
-    """T9's stats twin: the bin's sums [C_bin, 2] = (v_mean, v_sig before
-    the division by cnt) of each bucket's columns over this data shard's
-    rows, the buckets laid end to end; q and tq are columns 0 and 1 of
-    ``qt`` [N, 3]; a padding column's row is zero."""
-    out = []
-    zero = torch.zeros((), dtype=_F32, device=e.device)
-    for b in plan.buckets:
-        real = _real(b, D_loc)
-        cl = torch.where(real, b.cols, torch.zeros_like(b.cols))
-        vm, vs = _v_sums(b.rows, b.x, cl, e, qt[:, :1], qt[:, 1:2], ptab, 1)
-        out.append(torch.where(real[:, None], torch.cat([vm, vs], 1), zero))
-    if not out:
-        return torch.zeros(0, 2, dtype=_F32, device=e.device)
-    return torch.cat(out)
+    """T9's stats twin: T13's at F = 1, q and tq columns 0 and 1 of ``qt``
+    [N, 3]."""
+    return dp_ovb_stats_plain(plan, D_loc, e, qt[:, :1], qt[:, 1:2], ptab)
 
 
 def tp_ovb_stats(plan: BinPlan, D_loc: int, e, qt, ptab) -> torch.Tensor:
@@ -283,18 +283,9 @@ def tp_ovb_stats(plan: BinPlan, D_loc: int, e, qt, ptab) -> torch.Tensor:
 
 def tp_ovb_blend_plain(plan: BinPlan, D_loc: int, sums, ptab, mu_t, sig_t,
                        nmu_t, nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
-    """T9's blend twin: K6's ending step at each real column of the bin
-    from its row of the all-reduced ``sums``, in place as K6's twin
-    (``tv_add`` None: not counted)."""
-    at = 0
-    for b in plan.buckets:
-        C = b.cols.shape[0]
-        real = _real(b, D_loc)
-        part = sums[at:at + C][real]
-        at += C
-        _v_blend(part[:, :1], part[:, 1:], b.cols[real], b.group[real],
-                 b.cnt[real], b.col_count[real], ptab, mu_t, sig_t, nmu_t,
-                 nsig_t, sv, alpha, rho_v, tv_add, bad)
+    """T9's blend twin: T13's at F = 1."""
+    dp_ovb_blend_plain(plan, D_loc, sums, ptab, mu_t, sig_t, nmu_t, nsig_t,
+                       sv, alpha, rho_v, tv_add, bad)
 
 
 def tp_ovb_blend(plan: BinPlan, D_loc: int, sums, ptab, mu_t, sig_t, nmu_t,
@@ -335,3 +326,112 @@ def tp_ovb_blend(plan: BinPlan, D_loc: int, sums, ptab, mu_t, sig_t, nmu_t,
             None if tv_add is None else build.ptr(tv_add), build.ptr(bad),
             build.stream_of(sums))
     build.check_launch(lib, rc, "tp_ovb_blend")
+
+
+# ---- T13: K6 split at any F around the data-parallel OVB's all-reduce -----
+
+def dp_ovb_stats_plain(plan: BinPlan, D_loc: int, e, q, tq,
+                       ptab) -> torch.Tensor:
+    """T13's stats twin: the bin's sums [C_bin, 2F] = (v_mean's F, v_sig's
+    F, before the division by cnt) of each bucket's columns over this data
+    shard's rows, the buckets laid end to end; a padding column's (id
+    D_loc) row is zero."""
+    F = q.shape[1]
+    out = []
+    zero = torch.zeros((), dtype=_F32, device=e.device)
+    for b in plan.buckets:
+        real = _real(b, D_loc)
+        cl = torch.where(real, b.cols, torch.zeros_like(b.cols))
+        vm, vs = _v_sums(b.rows, b.x, cl, e, q, tq, ptab, F)
+        out.append(torch.where(real[:, None], torch.cat([vm, vs], 1), zero))
+    if not out:
+        return torch.zeros(0, 2 * F, dtype=_F32, device=e.device)
+    return torch.cat(out)
+
+
+def dp_ovb_stats(plan: BinPlan, D_loc: int, e, q, tq, ptab) -> torch.Tensor:
+    """T13, stats launch: every bucket of the bin in one launch, at K6's
+    lanes; returns the sums [C_bin, 2F] (kernel on CUDA tensors, twin on
+    CPU tensors)."""
+    if build.on_cpu(e):
+        return dp_ovb_stats_plain(plan, D_loc, e, q, tq, ptab)
+    N, F = q.shape
+    dev = e.device
+    req = build.require
+    req(e, _F32, (N,), dev, "dp_ovb_stats.e")
+    req(q, _F32, (N, F), dev, "dp_ovb_stats.q")
+    req(tq, _F32, (N, F), dev, "dp_ovb_stats.tq")
+    req(ptab, _F32, (ptab.shape[0], 5 * F), dev, "dp_ovb_stats.ptab")
+    blocks = plan.blocks(F) if F > 0 else 0
+    if blocks and plan.table.device != dev:
+        raise ValueError(f"dp_ovb_stats.plan: on {plan.table.device}, "
+                         f"expected {dev}")
+    sums = torch.empty(plan.num_cols, 2 * F, dtype=_F32, device=dev)
+    if blocks == 0:
+        return sums
+    lib = build.load_library("ovb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_dp_ovb_stats(
+            build.ptr(plan.table), len(plan.rows), blocks, build.ptr(e),
+            build.ptr(q), build.ptr(tq), F, build.ptr(ptab), build.ptr(sums),
+            D_loc, build.stream_of(e))
+    build.check_launch(lib, rc, "dp_ovb_stats")
+    return sums
+
+
+def dp_ovb_blend_plain(plan: BinPlan, D_loc: int, sums, ptab, mu_t, sig_t,
+                       nmu_t, nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
+    """T13's blend twin: K6's ending step at each real column of the bin
+    from its row of the all-reduced ``sums`` [C_bin, 2F], in place as K6's
+    twin (``tv_add`` None: not counted)."""
+    F = mu_t.shape[1]
+    at = 0
+    for b in plan.buckets:
+        C = b.cols.shape[0]
+        real = _real(b, D_loc)
+        part = sums[at:at + C][real]
+        at += C
+        _v_blend(part[:, :F], part[:, F:], b.cols[real], b.group[real],
+                 b.cnt[real], b.col_count[real], ptab, mu_t, sig_t, nmu_t,
+                 nsig_t, sv, alpha, rho_v, tv_add, bad)
+
+
+def dp_ovb_blend(plan: BinPlan, D_loc: int, sums, ptab, mu_t, sig_t, nmu_t,
+                 nsig_t, sv, alpha, rho_v, tv_add, bad) -> None:
+    """T13, blend launch (reads ``sums``, no rows), FL threads a column; in
+    place on the [D, F] tables, ptab's deltas, ``tv_add`` (None: not
+    counted) and ``bad``."""
+    if build.on_cpu(sums):
+        return dp_ovb_blend_plain(plan, D_loc, sums, ptab, mu_t, sig_t,
+                                  nmu_t, nsig_t, sv, alpha, rho_v, tv_add,
+                                  bad)
+    D, F = mu_t.shape
+    dev = sums.device
+    req = build.require
+    req(sums, _F32, (plan.num_cols, 2 * F), dev, "dp_ovb_blend.sums")
+    req(ptab, _F32, (D, 5 * F), dev, "dp_ovb_blend.ptab")
+    for name, a in (("mu_t", mu_t), ("sig_t", sig_t), ("nmu_t", nmu_t),
+                    ("nsig_t", nsig_t)):
+        req(a, _F32, (D, F), dev, f"dp_ovb_blend.{name}")
+    req(sv, _F32, (sv.shape[0], F), dev, "dp_ovb_blend.sv")
+    req(alpha, _F32, (), dev, "dp_ovb_blend.alpha")
+    req(rho_v, _F32, (D,), dev, "dp_ovb_blend.rho_v")
+    if tv_add is not None:
+        req(tv_add, _F32, (D,), dev, "dp_ovb_blend.tv_add")
+    req(bad, _I32, (4,), dev, "dp_ovb_blend.bad")
+    blocks = plan.blend_blocks(F) if F > 0 else 0
+    if blocks and plan.table.device != dev:
+        raise ValueError(f"dp_ovb_blend.plan: on {plan.table.device}, "
+                         f"expected {dev}")
+    if blocks == 0:
+        return
+    lib = build.load_library("ovb_sweep")
+    with torch.cuda.device(dev):
+        rc = lib.svbfm_dp_ovb_blend(
+            build.ptr(plan.table), len(plan.rows), blocks, build.ptr(sums),
+            F, D_loc, build.ptr(ptab), build.ptr(mu_t), build.ptr(sig_t),
+            build.ptr(nmu_t), build.ptr(nsig_t), build.ptr(sv),
+            build.ptr(alpha), build.ptr(rho_v),
+            None if tv_add is None else build.ptr(tv_add), build.ptr(bad),
+            build.stream_of(sums))
+    build.check_launch(lib, rc, "dp_ovb_blend")

@@ -189,7 +189,9 @@ def build_plan_data(plan: SweepPlan, meta: DataMetaInfo, device,
     rank's slice [d] of each bucket's rows and x (rows local to the rank's
     block; a padding slot is its last row, with x = 0)."""
     n, d = (1, 0) if mesh is None else (mesh.n_data, mesh.d_index)
-    if plan.num_shards != n:
+    # (a plan of no bucket, a block-structure model's empty main block,
+    # holds no shard's rows)
+    if plan.num_shards != n and any(plan.blocks):
         raise ValueError(f"the SweepPlan was built for {plan.num_shards} "
                          f"shard(s); the learner runs on {n}: build it with "
                          f"n_shards={n}")
@@ -388,11 +390,16 @@ def evaluate_classification(prob, target, normalizer=1.0,
 
 
 def regression_metrics(scores: torch.Tensor, row: RowData, num_rows: int,
-                       min_target: float, max_target: float):
-    """Test RMSE and MAE of clipped scores, as device scalars."""
+                       min_target: float, max_target: float, total=None):
+    """Test RMSE and MAE of clipped scores, as device scalars; ``total``
+    sums the squared and absolute errors' [2] sums over a mesh's data
+    shards (a ``parallel/mesh.py`` ``all_reduce_data``) before the root."""
     n = float(num_rows)
     err = (torch.clamp(scores, min_target, max_target) - row.target) * row.valid
-    return torch.sqrt(torch.sum(err * err) / n), torch.sum(torch.abs(err)) / n
+    sums = torch.stack([torch.sum(err * err), torch.sum(torch.abs(err))])
+    if total is not None:
+        sums = total(sums)
+    return torch.sqrt(sums[0] / n), sums[1] / n
 
 
 def evaluate_regression(pred, target, min_target, max_target, normalizer=1.0,

@@ -1,5 +1,5 @@
 """Native relational block structure (BS) for Gibbs MCMC and ALS, on one
-device.
+device or on a data mesh of ranks.
 
 Counterpart of ``svbfm_tpu/learners/mcmc_bs.py``, regression and probit
 classification (the re-predict leaves e = yhat there, and the learner's
@@ -37,6 +37,23 @@ whether or not it samples (mcmc_bs.py:344-346), the main block's prior one
 [D, F] table whenever the main block has attributes (:505-514); the
 factor-sequential path one [Dr] table per relation per factor when
 sampling (:761-765).
+
+Data-parallel (``mesh=``, a ``parallel/mesh.py:make_mesh`` data mesh of
+the ranks; the JAX learner on ``make_mesh(n)``): rank d holds the block d
+of the main rows, of ``join_tr`` and ``join_te`` (padded as the rows are)
+and its slice [d] of each bucket of the main plan and of each relation's
+join plan, both built for as many shards (a pad slot: the shard's last
+row, x = 0); the relation row layouts, their plans, ``wnum``, the patch
+positions and every table are whole on every rank, and every rank draws
+the same numbers, so the tables stay equal bit for bit.  The join
+aggregates JAX psums (mcmc_bs.py:326, :645, :755) are X10a's sums of the
+rank's slice, their channel columns of the relation-row table (``we`` to
+``wcc``; not ``qB`` or ``wn``, which are whole on every rank) copied out,
+all-reduced over the data group and written back; X10b and X10c then run
+on every rank alike.  The main block runs ``learners/mcmc.py``'s split
+forms (T3's w stats + T5, T7), alpha's and w0's sums are all-reduced, and
+X10d, X8d, X8b and the re-predict run on the rank's rows.  A mesh of one
+rank runs the same forms, with no collective.
 """
 
 from __future__ import annotations
@@ -63,9 +80,10 @@ from svbfm_tpu_torch.kernels.mcmc_sweep import col_draw_fits
 from svbfm_tpu_torch.kernels.vb_sweep import build_q
 from svbfm_tpu_torch.learners.base import (FMConfig, PlanData, RowData,
                                            count_bad, keep_finite,
+                                           padded_rows, row_block,
                                            zero_counters)
 from svbfm_tpu_torch.learners.mcmc import (NAN_FAMILIES, MCMCLearner,
-                                           MCMCState, _maybe_sample,
+                                           MCMCState, _maybe_sample, _same,
                                            _v_block_pass, check_slice,
                                            draw_alpha, draw_v_hyperpriors,
                                            draw_w0, draw_w_hyperpriors,
@@ -136,11 +154,16 @@ def _put(a: np.ndarray, device) -> torch.Tensor:
 
 def build_rel_device(rel: RelationData, join_tr: np.ndarray,
                      join_te: np.ndarray, joined_groups: np.ndarray, device,
-                     bins: str = "auto") -> tuple[RelDevice, RelStatic]:
+                     bins: str = "auto", mesh=None,
+                     n_pad: tuple = (0, 0)) -> tuple[RelDevice, RelStatic]:
     """The relation's row layout, its join plan (a Jacobi ``SweepPlan`` over
     the join: columns = relation rows, entries = train rows), its design
     plan (conflict-free bins of its attributes), wnum and the patch
-    positions (mcmc_bs.py:130-198); tensors on ``device``, unpadded."""
+    positions (mcmc_bs.py:130-198); tensors on ``device``, unpadded.  On a
+    data ``mesh``: the join plan built for its shards over ``n_pad`` =
+    (train, test) padded rows, the rank's slice of each bucket, and the
+    rank's blocks of the joins zero-padded to those counts
+    (mcmc_bs.py:143-150, :172-179)."""
     R, Dr = rel.num_rows, rel.num_features
     off = rel.attr_offset
     if off < 0:
@@ -155,7 +178,14 @@ def build_rel_device(rel: RelationData, join_tr: np.ndarray,
                    val=np.ones(n, np.float32),
                    target=np.zeros(n, np.float32), num_rows=n,
                    num_features=R)
-    jplan = SweepPlan.build(jcoo, R, bins="jacobi", n_rows_total=n)
+    shards, d = (1, 0) if mesh is None else (mesh.n_data, mesh.d_index)
+
+    def join_rows(join, n_rows):  # the rank's block, padded as its rows
+        t = _put(np.asarray(join).astype(np.int32), device)
+        return t if mesh is None else row_block(mesh, t, n_rows // shards)
+
+    jplan = SweepPlan.build(jcoo, R, bins="jacobi", n_shards=shards,
+                            n_rows_total=n if mesh is None else n_pad[0])
     rplan = SweepPlan.build(rcoo, Dr, meta_groups=joined_groups[off: off + Dr],
                             bins=bins)
     wnum = np.bincount(join_tr, minlength=R).astype(np.float32)
@@ -170,11 +200,11 @@ def build_rel_device(rel: RelationData, join_tr: np.ndarray,
     dev = RelDevice(
         rrow_ids=_put(rel_ds.ids.astype(np.int32), device),
         rrow_vals=_put(rel_ds.vals.astype(np.float32), device),
-        join_tr=_put(np.asarray(join_tr).astype(np.int32), device),
-        join_te=_put(np.asarray(join_te).astype(np.int32), device),
+        join_tr=join_rows(join_tr, n_pad[0]),
+        join_te=join_rows(join_te, n_pad[1]),
         wnum=_put(wnum, device),
-        jplan=tuple(JoinBlock(rows=_put(blk.rows[0], device),
-                              x=_put(blk.x[0], device),
+        jplan=tuple(JoinBlock(rows=_put(blk.rows[d], device),
+                              x=_put(blk.x[d], device),
                               cols=_put(blk.cols, device))
                     for blk in jplan.blocks[0]),
         rplan=tuple(tuple(RelBlock(rows=_put(blk.rows[0], device),
@@ -245,8 +275,20 @@ def _unobserved_prior(vr, mu_d, lam_d, z, rd: RelDevice, counters) -> None:
     vr.copy_(torch.where(unobs, keep_finite(un, vr), vr))
 
 
+def join_sums(rd: RelDevice, e, q, F: int, rtab, mesh=None) -> None:
+    """X10a's channel sums into ``rtab`` (its layout ``rel_layout(F)``),
+    over the join plan; on a data ``mesh`` over the rank's slice of it,
+    the channel columns ``we`` to ``wcc`` then all-reduced over the data
+    group through a contiguous copy (mcmc_bs.py:326, :645, :755)."""
+    bs_join_agg(rd.jplan, e, q, F, rtab)
+    if mesh is not None:
+        lay = rel_layout(F)
+        ch = slice(lay["we"], lay["wn"])
+        rtab[:, ch] = mesh.all_reduce_data(rtab[:, ch].contiguous())
+
+
 def rel_w_sweep(e, w, w_mu, w_lambda, alpha, rd: RelDevice, rs: RelStatic,
-                cfg: FMConfig, draws, counters) -> None:
+                cfg: FMConfig, draws, counters, mesh=None) -> None:
     """One relation's w sweep (draw_w_rel, mcmc_bs.py:641-690), in place on
     e and w: X10a's e channel, X10b/X10c in w mode per bin, the prior of the
     unobserved attributes, the resync e += dy[j] (X10d)."""
@@ -254,7 +296,7 @@ def rel_w_sweep(e, w, w_mu, w_lambda, alpha, rd: RelDevice, rs: RelStatic,
     dev = e.device
     rtab = torch.zeros(R, 2, dtype=_F32, device=dev)
     rtab[:, 1] = rd.wnum
-    bs_join_agg(rd.jplan, e, None, 0, rtab)
+    join_sums(rd, e, None, 0, rtab, mesh)
     wr = w[off:off + Dr]  # a view: the draws land in w
     dy = torch.zeros(R, 1, dtype=_F32, device=dev)
     zr = draws.normal((Dr,)) if cfg.do_sample else None
@@ -279,7 +321,7 @@ def rel_w_sweep(e, w, w_mu, w_lambda, alpha, rd: RelDevice, rs: RelStatic,
 
 
 def rel_v_sweep(e, q, vr, qB0, rd: RelDevice, rs: RelStatic, mu_gf, lam_gf,
-                alpha, z, F: int, counters) -> None:
+                alpha, z, F: int, counters, mesh=None) -> None:
     """One relation's v sweep of F factors, in place on e, q [N, F] and vr
     [Dr, F] (the relation's rows of the block's factor table): F >= 2 the
     blocked bin-major sweep (_bs_rel_block_sweep, mcmc_bs.py:304-469), F = 1
@@ -291,7 +333,7 @@ def rel_v_sweep(e, q, vr, qB0, rd: RelDevice, rs: RelStatic, mu_gf, lam_gf,
     rtab = torch.zeros(R, lay["ld"], dtype=_F32, device=dev)
     rtab[:, :F] = qB0
     rtab[:, lay["wn"]] = rd.wnum
-    bs_join_agg(rd.jplan, e, q, F, rtab)
+    join_sums(rd, e, q, F, rtab, mesh)
     dy = torch.zeros(R, F, dtype=_F32, device=dev)
     ptab = torch.empty(Dr, 2 * F, dtype=_F32, device=dev)
     nans = torch.zeros(2, dtype=_I32, device=dev)
@@ -316,7 +358,7 @@ def rel_v_sweep(e, q, vr, qB0, rd: RelDevice, rs: RelStatic, mu_gf, lam_gf,
 
 def _bs_v_blocked(e, v, v_mu, v_lambda, alpha, plan: PlanData, row: RowData,
                   rels, rstats, cfg: FMConfig, qB_pre, F: int, draws,
-                  counters) -> None:
+                  counters, mesh=None) -> None:
     """The factor-blocked v sweep (mcmc_bs.py:472-521), in place on e and
     v: per block, the q cache from the relations' qB (X10d), the main bins
     (X8d, X8a, X8b on the total q), the main block's unobserved prior, then
@@ -337,7 +379,7 @@ def _bs_v_blocked(e, v, v_mu, v_lambda, alpha, plan: PlanData, row: RowData,
         lam_gf = v_lambda[:, fs].contiguous()
         if has_main:
             q = _v_block_pass(e, v_t, mu_gf, lam_gf, draws, plan, row, cfg,
-                              alpha, True, counters, q_extra=q)
+                              alpha, True, counters, q_extra=q, mesh=mesh)
         if d_main > 0:
             # JAX splits a key here whether or not it samples
             new_un = _maybe_sample(cfg.do_sample, draws.normal((D, F)),
@@ -352,13 +394,13 @@ def _bs_v_blocked(e, v, v_mu, v_lambda, alpha, plan: PlanData, row: RowData,
             off = rs.attr_offset
             rel_v_sweep(e, q, v_t[off:off + rs.num_attrs], qb, rd, rs, mu_gf,
                         lam_gf, alpha, z if cfg.do_sample else None, F,
-                        counters)
+                        counters, mesh)
         v[fs] = v_t.T
 
 
 def _bs_v_sequential(e, v, v_mu, v_lambda, alpha, plan: PlanData,
                      row: RowData, rels, rstats, cfg: FMConfig, qB_pre,
-                     draws, counters) -> None:
+                     draws, counters, mesh=None) -> None:
     """The reference's factor-sequential chain (mcmc_bs.py:728-833), in
     place on e and v."""
     K = v.shape[0]
@@ -371,21 +413,25 @@ def _bs_v_sequential(e, v, v_mu, v_lambda, alpha, plan: PlanData,
         mu_f = v_mu[:, f:f + 1].contiguous()
         lam_f = v_lambda[:, f:f + 1].contiguous()
         v_factor_main_bins(e, q, v_f, mu_f, lam_f, alpha, plan, row, cfg,
-                           draws, counters)
+                           draws, counters, mesh)
         for rd, rs, qb in zip(rels, rstats, qB_f):
             z = draws.normal((1, rs.num_attrs)) if cfg.do_sample else None
             off = rs.attr_offset
             rel_v_sweep(e, q, v_f[off:off + rs.num_attrs].view(-1, 1), qb,
-                        rd, rs, mu_f, lam_f, alpha, z, 1, counters)
+                        rd, rs, mu_f, lam_f, alpha, z, 1, counters, mesh)
 
 
 def bs_draw_all(state: MCMCState, row: RowData, plan: PlanData, rels, rstats,
-                cfg: FMConfig, num_cases: float, F: int, score_moms=None):
+                cfg: FMConfig, num_cases: float, F: int, score_moms=None,
+                mesh=None):
     """One block-structure Gibbs (or ALS) sweep + the full re-predict of the
     train residual (mcmc_bs.py:576-844).  Returns (new_state, counters);
     ``state``'s tensors are not modified (its draw source advances).
-    ``score_moms``: the re-predict's moment tables (``bs_score_rows``)."""
+    ``score_moms``: the re-predict's moment tables (``bs_score_rows``).
+    ``mesh``: a data mesh of the ranks, ``row``/``plan``/``rels`` the
+    rank's (``MCMCBSLearner(mesh=)``)."""
     check_slice(cfg)
+    total = _same if mesh is None else mesh.all_reduce_data
     dev = state.e.device
     G, K = cfg.num_groups, cfg.num_factor
     N = torch.full((), num_cases, dtype=_F32, device=dev)
@@ -394,10 +440,12 @@ def bs_draw_all(state: MCMCState, row: RowData, plan: PlanData, rels, rstats,
     counters = zero_counters(NAN_FAMILIES, dev)
     ag, napg = plan.attr_group, plan.num_attr_per_group
 
-    alpha = draw_alpha(e, row.valid, state.alpha, cfg, N, draws, counters)
+    alpha = draw_alpha(e, row.valid, state.alpha, cfg, N, draws, counters,
+                       total)
     w0 = state.w0
     if cfg.k0:
-        e, w0 = draw_w0(e, row.valid, w0, cfg, alpha, N, draws, counters)
+        e, w0 = draw_w0(e, row.valid, w0, cfg, alpha, N, draws, counters,
+                        total)
     w, v = state.w.clone(), state.v.clone()
     w_mu, w_lambda = state.w_mu, state.w_lambda
     v_mu, v_lambda = state.v_mu, state.v_lambda
@@ -408,10 +456,10 @@ def bs_draw_all(state: MCMCState, row: RowData, plan: PlanData, rels, rstats,
         # the main bins and the unobserved main attributes (the padded
         # unobserved mask never touches a relation attribute)
         w_sweep_main(e, w, w_mu, w_lambda, alpha, plan, row, cfg, draws,
-                     counters)
+                     counters, mesh)
         for rd, rs in zip(rels, rstats):
             rel_w_sweep(e, w, w_mu, w_lambda, alpha, rd, rs, cfg, draws,
-                        counters)
+                        counters, mesh)
     if K > 0:
         v_mu, v_lambda = draw_v_hyperpriors(v, v_mu, v_lambda, ag, napg, cfg,
                                             G, K, draws, counters)
@@ -422,10 +470,10 @@ def bs_draw_all(state: MCMCState, row: RowData, plan: PlanData, rels, rstats,
                   for rd, rs in zip(rels, rstats)]
         if F > 1 and K % F == 0:
             _bs_v_blocked(e, v, v_mu, v_lambda, alpha, plan, row, rels,
-                          rstats, cfg, qB_pre, F, draws, counters)
+                          rstats, cfg, qB_pre, F, draws, counters, mesh)
         else:
             _bs_v_sequential(e, v, v_mu, v_lambda, alpha, plan, row, rels,
-                             rstats, cfg, qB_pre, draws, counters)
+                             rstats, cfg, qB_pre, draws, counters, mesh)
     # full re-predict (mcmc_bs.py:837-840): e := yhat - y, or yhat under
     # classification
     e = repredicted(bs_score_rows(w0, w, v, row.ids, row.vals, rels, rstats,
@@ -447,31 +495,39 @@ class MCMCBSLearner(MCMCLearner):
     column: every feature in the relations); ``relations`` with
     ``joins_train``/``joins_test`` carry the factored tables.  ``meta`` is
     the JOINED meta (``build_joined_meta``) and ``cfg.num_attributes`` the
-    joined attribute count."""
+    joined attribute count.  ``mesh``: a data mesh of the ranks (every
+    rank constructs the learner with the whole data and keeps its blocks
+    of rows; see the module docstring)."""
 
     method = "mcmc"
 
     def __init__(self, cfg: FMConfig, train: SparseDataset,
                  test: SparseDataset, relations: list[RelationData],
                  joins_train: list[np.ndarray], joins_test: list[np.ndarray],
-                 meta: DataMetaInfo, num_main_attributes: int, *, device,
+                 meta: DataMetaInfo, num_main_attributes: int, *, device=None,
                  bins: str = "auto", out_dir: str = ".",
                  write_files: bool = True,
                  w_lambda_init: Optional[np.ndarray] = None,
-                 v_lambda_init: Optional[np.ndarray] = None):
+                 v_lambda_init: Optional[np.ndarray] = None, mesh=None):
         check_slice(cfg)
-        # the main plan over the main columns only; unobserved padded to
-        # D_all with False so the main sweeps never draw a relation attribute
+        # the main plan over the main columns only (on a data mesh built
+        # for its shards over the padded rows, as learners/base.py:
+        # mesh_plan builds one); unobserved padded to D_all with False so
+        # the main sweeps never draw a relation attribute
+        n_pad = (0, 0) if mesh is None else (padded_rows(train, mesh.n_data),
+                                             padded_rows(test, mesh.n_data))
         plan = SweepPlan.build(
             train.to_coo(), num_main_attributes,
-            meta_groups=meta.attr_group[:num_main_attributes], bins=bins)
+            meta_groups=meta.attr_group[:num_main_attributes], bins=bins,
+            **({} if mesh is None else dict(n_shards=mesh.n_data,
+                                            n_rows_total=n_pad[0])))
         pad = np.zeros(cfg.num_attributes, dtype=bool)
         pad[:num_main_attributes] = plan.unobserved
         plan.unobserved = pad
         super().__init__(cfg, train, test, meta, device=device, bins=bins,
                          out_dir=out_dir, write_files=write_files,
                          w_lambda_init=w_lambda_init,
-                         v_lambda_init=v_lambda_init, plan=plan)
+                         v_lambda_init=v_lambda_init, plan=plan, mesh=mesh)
         self.num_main_attributes = num_main_attributes
         devs, stats = [], []
         min_off = num_main_attributes
@@ -483,7 +539,8 @@ class MCMCBSLearner(MCMCLearner):
                     "relations) before constructing the learner")
             min_off = rel.attr_offset + rel.num_features
             d, s = build_rel_device(rel, np.asarray(jt), np.asarray(je),
-                                    meta.attr_group, self.device, bins=bins)
+                                    meta.attr_group, self.device, bins=bins,
+                                    mesh=mesh, n_pad=n_pad)
             devs.append(d)
             stats.append(s)
         self.rels = tuple(devs)
@@ -521,7 +578,7 @@ class MCMCBSLearner(MCMCLearner):
     def step(self, state: MCMCState):
         return bs_draw_all(state, self.train_row, self.plan_data, self.rels,
                            self.rstats, self.cfg, float(self.train_n),
-                           self.factor_width, self.score_moms)
+                           self.factor_width, self.score_moms, self.mesh)
 
 
 class ALSBSLearner(MCMCBSLearner):

@@ -52,7 +52,8 @@ from svbfm_tpu_torch.kernels.vb_sweep import (tp_build_qt, tp_patch_delta,
                                               tp_patch_views)
 from svbfm_tpu_torch.kernels.w_sweep import tp_w_ovb_blend, tp_w_ovb_stats
 from svbfm_tpu_torch.learners.base import (TASK_REGRESSION, FMConfig,
-                                           RowData, zero_counters)
+                                           RowData, regression_metrics,
+                                           zero_counters)
 from svbfm_tpu_torch.learners.vb_online import (LAMBDA, OVB_NAN_FAMILIES,
                                                 T0_VJ, T0_W0, T0_WJ,
                                                 OVBLearner, OVBState,
@@ -366,13 +367,9 @@ class TPOVBLearner(OVBLearner):
         """Clamped RMSE and MAE of the test rows, the data shards' sums
         all-reduced (tp_ovb.py:612-620)."""
         cfg, trow = self.cfg, self.test_row
-        p = torch.clamp(self._scores(state, trow), cfg.min_target,
-                        cfg.max_target)
-        err = (p - trow.target) * trow.valid
-        tot = self.mesh.all_reduce_data(torch.stack(
-            [torch.sum(err * err), torch.sum(torch.abs(err))]))
-        n = float(self.test_n)
-        return torch.sqrt(tot[0] / n), tot[1] / n
+        return regression_metrics(self._scores(state, trow), trow,
+                                  self.test_n, cfg.min_target,
+                                  cfg.max_target, self.mesh.all_reduce_data)
 
     # ---- training loop ----------------------------------------------------
 
@@ -384,4 +381,4 @@ class TPOVBLearner(OVBLearner):
         no checkpoint: the JAX learner accepts one and never reads it."""
         if ckpt is not None:
             raise ValueError("the feature-sharded OVB does not checkpoint")
-        return super().run(state, num_iter, verbose and self.lead)
+        return super().run(state, num_iter, verbose)

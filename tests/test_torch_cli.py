@@ -221,6 +221,11 @@ def test_cli_sgd_family_writes_the_jax_cli_files(data, method, monkeypatch,
 def rel_data(tmp_path):
     """A main block of user one-hots and an item relation (one-hot + two
     attribute slots, with groups) joined through items.train/items.test."""
+    return _write_rel_data(tmp_path)
+
+
+def _write_rel_data(tmp_path):
+    """``rel_data``'s files in ``tmp_path``: (tmp_path, joined D)."""
     rng = np.random.default_rng(5)
     n_users, n_items = 12, 8
     for split, n in (("tr", 300), ("te", 60)):
@@ -508,7 +513,7 @@ def test_cli_out_of_core_refusals(data, method, extra, message):
     assert message in str(ei.value.code)
 
 
-@pytest.mark.parametrize("method", ["sgd", "vb_online"])
+@pytest.mark.parametrize("method", ["sgd"])
 def test_coordinator_refused_outside_tp_methods(data, method, tmp_path,
                                                 monkeypatch):
     """With SVBFM_COORDINATOR set, a method that does not run across ranks
@@ -657,26 +662,46 @@ def test_cli_feature_shards_like_the_jax_cli(data, tmp_path, monkeypatch,
     assert len(ours_log) == len(theirs_log) == 3
 
 
-@pytest.mark.parametrize("method", ["vb", "als", "mcmc"])
+@pytest.mark.parametrize("method", ["vb", "als", "mcmc", "vb_online",
+                                    "vb_online_binary", "als_relation",
+                                    "mcmc_relation"])
 def test_cli_data_parallel_like_the_jax_cli(data, tmp_path, monkeypatch,
                                             capsys, method):
-    """-method vb (-factor_block 1), als or mcmc with -distributed 1 and no
-    -feature_shards on two spawned gloo ranks (the replicated learner on a
-    data mesh of the two) beside the JAX CLI on its 8-device data mesh,
-    both from the JAX init (Gibbs replaying the JAX key chain): the same
-    files (rank 0 writes them) and the trajectories, the predictions and
-    v_file.txt within rtol 1e-4, -num_eval_cases and -rlog read."""
+    """-method vb (-factor_block 1), vb_online (-batch 3; in memory, and
+    streamed from a binary train file), als or mcmc (also with -relation:
+    block structure) with -distributed 1 and no -feature_shards on two
+    spawned gloo ranks (the replicated learner on a data mesh of the two)
+    beside the JAX CLI on its 8-device data mesh, both from the JAX init
+    (Gibbs replaying the JAX key chain): the same files (rank 0 writes
+    them) and the trajectories, the predictions and v_file.txt within rtol
+    1e-4, -num_eval_cases (not with -relation, which the JAX CLI does not
+    pass it) and -rlog read."""
     from svbfm_tpu.learners import mcmc as jm
+    from svbfm_tpu.learners import mcmc_bs as jbs
     from svbfm_tpu.learners import vb as jv
+    from svbfm_tpu.learners import vb_online as jov
     from torch_tp_ranks import cli_dp_rank, run_ranks
 
     d, _, _ = data
-    argv = _args(d, method, "-out", "pred.txt", "-rlog", "log.tsv",
-                 "-num_eval_cases", "100", *(
-                     ["-regular", "0.1"] if method != "vb" else []))
+    method, _, form = method.partition("_")
+    if method == "vb" and form:  # vb_online, vb_online_binary
+        method, form = "vb_online", form.partition("_")[2]
+    if form == "binary":
+        _binary_files(d)
+    if form == "relation":
+        (tmp_path / "rel").mkdir()
+        d, _ = _write_rel_data(tmp_path / "rel")
+        argv = ["-task", "r", "-train", str(d / "tr.libfm"), "-test",
+                str(d / "te.libfm"), "-dim", "1,1,3", "-iter", "2",
+                "-method", method, "-relation", str(d / "items")]
+    else:
+        argv = _args(d, method, "-num_eval_cases", "100")
+    argv += ["-out", "pred.txt", "-rlog", "log.tsv", *(
+        ["-regular", "0.1"] if method in ("als", "mcmc") else [])]
     import jax
 
-    cls = jv.VBLearner if method == "vb" else jm.MCMCLearner
+    cls = {"vb": jv.VBLearner, "vb_online": jov.OVBLearner}.get(
+        method, jbs.MCMCBSLearner if form == "relation" else jm.MCMCLearner)
     seen = {}
     init = cls.init_state
 
@@ -689,7 +714,9 @@ def test_cli_data_parallel_like_the_jax_cli(data, tmp_path, monkeypatch,
     theirs = _run_in(d / "jax", jax_main, argv, monkeypatch)
     st = seen["state"]
     from svbfm_tpu_torch.learners.vb import PARAM_FIELDS
-    names = PARAM_FIELDS if method == "vb" else ("w0", "w", "v", "key")
+    from torch_tp_ranks import OVB_FIELDS
+    names = {"vb": PARAM_FIELDS, "vb_online": OVB_FIELDS}.get(
+        method, ("w0", "w", "v", "key"))
     np.savez(tmp_path / "init.npz",
              **{k: np.asarray(getattr(st, k)) for k in names})
     (d / "torch").mkdir()
@@ -697,9 +724,10 @@ def test_cli_data_parallel_like_the_jax_cli(data, tmp_path, monkeypatch,
               argv=argv + ["-distributed", "1", "-device", "cpu"],
               cwd=str(d / "torch"), init=str(tmp_path / "init.npz"))
     assert sorted(os.listdir(d / "torch")) == theirs
-    tag = "vb" if method == "vb" else "mcmc"
-    for name in (f"test_rmse_114_{tag}", "pred.txt", "v_file.txt") + (
-            ("free_energy_114_vb",) if method == "vb" else ()):
+    tag = "mcmc" if method in ("als", "mcmc") else method
+    dim = "113" if form == "relation" else "114"
+    for name in (f"test_rmse_{dim}_{tag}", "pred.txt", "v_file.txt") + (
+            (f"free_energy_{dim}_{tag}",) if tag != "mcmc" else ()):
         np.testing.assert_allclose(np.loadtxt(d / "torch" / name),
                                    np.loadtxt(d / "jax" / name), rtol=1e-4,
                                    err_msg=name)

@@ -2868,3 +2868,129 @@ def test_dp_learners_on_gpu_match_cpu(cuda, method):
         for a, b in zip(hists[0], other):
             for k in keys:
                 np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
+
+
+def test_dp_ovb_kernels_match_twins(cuda):
+    """T13's stats and blend launches at F = 1, 4, 20 on every bin of a
+    small problem's chunk, on one data shard and on each of two, eta2 NaN
+    at one column (counted candidates); the two shards' stats launches
+    summed and the blend against K6's twin on the whole bin; T10 at lo = 0,
+    D_loc = D on each shard; two launches give the same bits."""
+    import chip_smoke
+
+    s = chip_smoke.ragged_dp_ovb_tensors(cuda)
+    cases = chip_smoke.make_cases(s)
+    names = ("dp_ovb_stats", "dp_ovb_blend", "tp_w_ovb_stats",
+             "tp_w_ovb_blend")
+    before = dict(build.launch_counts)
+    for name in names:
+        assert cases[name]
+        for label, prepare, call, _ in cases[name]:
+            ok, op = call("kernel", prepare()), call("plain", prepare())
+            again = call("kernel", prepare())
+            torch.cuda.synchronize()
+            chip_smoke.compare(ok, op, f"{name} ({label})")
+            for a, b in zip(ok, again):  # the NaN candidates' too
+                assert _same_bits(a, b), f"{name} ({label})"
+    assert all(build.launch_counts[k] > before[k] for k in names)
+
+
+def test_dp_join_agg_slices_match_twin(cuda):
+    """X10a at F = 0, 1, 20, 33 on each of two join slices of each relation
+    of a 20k-row relational problem (shard-local rows, x = 0 pad slots)
+    against its twin, and the two slices' launches summed against one
+    launch on the whole plan; two launches give the same bits."""
+    import chip_smoke
+
+    bsp = chip_smoke.bs_problem(20_000, 4, holdout=False)
+    bs = chip_smoke.bs_learner(bsp, cuda, num_factor=4, regw=0.05,
+                               regv=0.05)
+    s = chip_smoke.dp_join_tensors(bs, bs.init_state())
+    s["timed"] = False
+    cases = chip_smoke.make_cases(s)["bs_join_agg"]
+    assert len(cases) == 3 * 2 * len(chip_smoke.DP_JOIN_F)
+    before = build.launch_counts["bs_join_agg"]
+    for label, prepare, call, _ in cases:
+        ok, op = call("kernel", prepare()), call("plain", prepare())
+        again = call("kernel", prepare())
+        torch.cuda.synchronize()
+        chip_smoke.compare(ok, op, f"bs_join_agg ({label})")
+        for a, b in zip(ok, again):
+            assert torch.equal(a, b), label
+    assert build.launch_counts["bs_join_agg"] > before
+
+
+@pytest.mark.parametrize("method", ["bs-gibbs", "bs-seq", "bs-als",
+                                    "bs-class", "ovb", "ovb-fb4",
+                                    "ovb-reshuffle", "ovb-class"])
+def test_dp_slice_learners_on_gpu_match_cpu(cuda, method):
+    """The data-parallel BS and OVB learners on a data mesh of one rank
+    (no process group: X10a's slice and the channel copy, T10, T13 around
+    no collective), card against CPU from one init (BS: one host-table
+    draw source), 3 sweeps or epochs, and beside the resident learner on
+    the card; every kernel of the path launched."""
+    import chip_smoke
+    from svbfm_tpu_torch.learners.draws import host_draws
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+    from svbfm_tpu_torch.models.fm import init_fm_params
+    from svbfm_tpu_torch.parallel.mesh import make_mesh
+
+    hists = []
+    if method.startswith("bs"):
+        bsp = chip_smoke.bs_problem(20_000, 4, holdout=True)
+        kw = dict(num_factor=4, regw=0.05, regv=0.05,
+                  factor_block=1 if method == "bs-seq" else 0)
+        if method == "bs-class":
+            thr = float(np.median(bsp["train"].target))
+            bsp = dict(bsp, train=chip_smoke.binarised(bsp["train"], thr),
+                       test=chip_smoke.binarised(bsp["test"], thr))
+            kw.update(task=1, min_target=-1.0, max_target=1.0)
+        p = None
+        for dev, mesh in ((cuda, True), ("cpu", True), (cuda, False)):
+            lr = chip_smoke.bs_learner(
+                bsp, dev, method == "bs-als",
+                mesh=make_mesh(device=dev) if mesh else None, **kw)
+            if p is None:
+                p = init_fm_params(torch.Generator().manual_seed(7),
+                                   lr.cfg.num_attributes, 4,
+                                   init_w_normal=True)
+            before = dict(build.launch_counts)
+            _, h = lr.run(lr.state_from_params(p.w0, p.w, p.v,
+                                               host_draws(7, dev)),
+                          num_iter=3, verbose=False)
+            hists.append(h)
+            if dev is cuda and mesh:
+                assert all(build.launch_counts[k] > before[k]
+                           for k in chip_smoke.BS_KERNELS)
+        keys = ("accuracy", "alpha") if "class" in method else (
+            "rmse", "alpha")
+    else:
+        tr, te, D, meta, cfg = _small(K=5, num_batches=4,
+                                      factor_block=4 if method == "ovb-fb4"
+                                      else 1,
+                                      reshuffle=method == "ovb-reshuffle")
+        if method == "ovb-class":
+            for c in (tr, te):
+                c.target = np.where(c.target > 3.5, 1.0, -1.0).astype(
+                    np.float32)
+            cfg = dataclasses.replace(cfg, task=1, min_target=-1.0,
+                                      max_target=1.0)
+        args = (cfg, SparseDataset.from_coo(tr, D),
+                SparseDataset.from_coo(te, D), meta)
+        init = init_ovb_state(torch.Generator().manual_seed(7), cfg, "cpu")
+        for dev, mesh in ((cuda, True), ("cpu", True), (cuda, False)):
+            where = (dict(mesh=make_mesh(device=dev)) if mesh
+                     else dict(device=dev))
+            lr = OVBLearner(*args, write_files=False, **where)
+            before = dict(build.launch_counts)
+            _, h = lr.run(chip_smoke.to_device(init, dev), num_iter=3,
+                          verbose=False)
+            hists.append(h)
+            if dev is cuda and mesh:
+                assert all(build.launch_counts[k] > before[k]
+                           for k in chip_smoke.DP_OVB_KERNELS)
+        keys = ("accuracy" if cfg.task else "rmse", "free_energy")
+    for other in hists[1:]:
+        for a, b in zip(hists[0], other):
+            for k in keys:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)

@@ -587,10 +587,13 @@ def dp_setup(num_rows: int = 96, num_users: int = 9, num_items: int = 7,
 def _dp_learner(mesh, setup: dict, mcmc: str = "", **kw):
     """VBLearner (``mcmc`` "": batch VB), MCMCLearner ("gibbs") or
     ALSLearner ("als") on ``mesh`` (None: one device) for the
-    ``dp_setup(**setup)`` recipe."""
+    ``dp_setup(**setup)`` recipe; "bs_als", "bs_gibbs" and "join_als":
+    ``_bs_learner``'s."""
     from svbfm_tpu_torch.learners.mcmc import ALSLearner, MCMCLearner
     from svbfm_tpu_torch.learners.vb import VBLearner
 
+    if mcmc in ("bs_als", "bs_gibbs", "join_als"):
+        return _bs_learner(mesh, setup, mcmc, **kw)
     cfg, tr, te, meta, _ = dp_setup(**setup)
     cls = {"": VBLearner, "gibbs": MCMCLearner, "als": ALSLearner}[mcmc]
     dev = dict(device="cpu") if mesh is None else dict(mesh=mesh)
@@ -599,8 +602,9 @@ def _dp_learner(mesh, setup: dict, mcmc: str = "", **kw):
 
 def _dp_start(lr, init: str):
     """The learner's state from the JAX learner's parameters saved as npz
-    at ``init`` (VB: the ten parameter arrays; Gibbs/ALS: w0, w, v and
-    the key, whose chain ``JaxKeyDraws`` replays), else its own init."""
+    at ``init`` (VB: the ten parameter arrays; online VB: its state;
+    Gibbs/ALS: w0, w, v and the key, whose chain ``JaxKeyDraws``
+    replays), else its own init."""
     import numpy as np
     import torch
 
@@ -608,6 +612,9 @@ def _dp_start(lr, init: str):
         return lr.init_state()
     with np.load(init) as z:
         z = dict(z)
+    if lr.method == "vb_online":
+        from svbfm_tpu_torch.utils.convert import ovb_state_from_jax
+        return ovb_state_from_jax(z, "cpu")
     if lr.method == "vb":
         return lr.state_from_params({k: torch.from_numpy(a)
                                      for k, a in z.items()})
@@ -669,18 +676,144 @@ def dp_ranks(rank: int, runs: list) -> dict:
 
 
 def cli_dp_rank(rank: int, argv: list, cwd: str, init: str) -> int:
-    """The port's CLI (-method vb, mcmc or als, no -feature_shards) on this
-    rank, the replicated learner's start from the JAX CLI's init saved as
-    npz at ``init`` (VB: the ten parameters; Gibbs/ALS: w0, w, v and the
-    key, replayed by ``JaxKeyDraws``), run in ``cwd``."""
+    """The port's CLI (-method vb, vb_online, mcmc or als, with or without
+    -relation, no -feature_shards) on this rank, the replicated learner's
+    start from the JAX CLI's init saved as npz at ``init`` (``_dp_start``;
+    the block-structure learners inherit MCMCLearner's), run in
+    ``cwd``."""
     from svbfm_tpu_torch import cli
     from svbfm_tpu_torch.learners.mcmc import MCMCLearner
     from svbfm_tpu_torch.learners.vb import VBLearner
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
 
     def init_state(self, generator=None, draws=None):
         return _dp_start(self, init)
 
     VBLearner.init_state = init_state
     MCMCLearner.init_state = init_state
+    OVBLearner.init_state = init_state
     os.chdir(cwd)
     return cli.main(argv)
+
+
+# ---- the data-parallel BS and OVB learners (MCMCBSLearner/OVBLearner(mesh=))
+
+def bs_setup(problem: dict, K: int = 3, factor_block: int = 0,
+             task: int = 0):
+    """``tests/test_torch_bs.py:_problem(**problem)`` in the port, train =
+    test; ``task`` 1: the targets above their median +1, the others -1
+    (test_bs.py:174).  (cfg, dataset, relations, joins, meta, d_main,
+    the main block's arrays)."""
+    import numpy as np
+
+    from test_torch_bs import TPKG, _build, _problem
+
+    main, rels, joins, y = _problem(**problem)
+    if task == 1:
+        main["target"] = np.where(y > np.median(y), 1.0, -1.0).astype(
+            np.float32)
+    cfg, ds, robjs, meta, d_main = _build(TPKG, main, rels, joins, K,
+                                          factor_block=factor_block,
+                                          task=task)
+    return cfg, ds, robjs, joins, meta, d_main, main
+
+
+def _bs_learner(mesh, setup: dict, kind: str, num_eval_cases=None):
+    """ALSBSLearner ("bs_als") or MCMCBSLearner ("bs_gibbs") on ``mesh``
+    (None: one device) for ``bs_setup(**setup)``, or ALSLearner on its
+    materialised join ("join_als")."""
+    from svbfm_tpu_torch.data.dataset import SparseDataset
+    from svbfm_tpu_torch.data.libfm_text import COOData
+    from svbfm_tpu_torch.data.relation import join_relations
+    from svbfm_tpu_torch.learners import mcmc_bs as tbs
+    from svbfm_tpu_torch.learners.mcmc import ALSLearner
+
+    assert num_eval_cases is None
+    cfg, ds, robjs, joins, meta, d_main, main = bs_setup(**setup)
+    dev = dict(device="cpu") if mesh is None else dict(mesh=mesh)
+    if kind == "join_als":
+        joined = SparseDataset.from_coo(join_relations(
+            COOData(**main), robjs, joins, d_main), cfg.num_attributes)
+        return ALSLearner(cfg, joined, joined, meta, write_files=False,
+                          **dev)
+    cls = tbs.ALSBSLearner if kind == "bs_als" else tbs.MCMCBSLearner
+    return cls(cfg, ds, ds, robjs, joins, joins, meta, d_main,
+               write_files=False, **dev)
+
+
+OVB_FIELDS = ("mu_0", "sigma_0_dash", "mu_w", "sigma_w_dash", "mu_v",
+              "sigma_v_dash", "n_mu_0", "n_sig_0", "n_mu_w", "n_sig_w",
+              "n_mu_v", "n_sig_v", "alpha", "sigma_0", "sigma_w", "sigma_v",
+              "t_w0", "t_wj", "t_vj")
+
+
+def dp_ovb_run(mesh, setup: dict, num_iter: int, init: str = "",
+               ckpt: str = "", ckpt_every: int = 100,
+               stream: str = "") -> dict:
+    """``num_iter`` epochs of ``OVBLearner`` on ``mesh`` (None: one device)
+    for ``dp_setup(**setup)``, from the JAX learner's state saved as npz at
+    ``init`` (else its own init), in memory or streamed from the binary
+    train file ``stream`` (each rank's plans in a folder of its own),
+    through the checkpoint directory ``ckpt`` where given: the history,
+    the state after every chunk (``chunks``), the final state and the test
+    scores.  ``setup["quantum_from"]``, where given, stands in for
+    ``learners/base.py``'s 2M-row threshold of the row quantum padding
+    for this run (a small one puts small data sets on that path)."""
+    from svbfm_tpu_torch.learners import base
+
+    setup = dict(setup)
+    threshold = base._ROW_QUANTUM_MIN_ROWS
+    base._ROW_QUANTUM_MIN_ROWS = setup.pop("quantum_from", threshold)
+    try:
+        return _dp_ovb_run(mesh, setup, num_iter, init, ckpt, ckpt_every,
+                           stream)
+    finally:
+        base._ROW_QUANTUM_MIN_ROWS = threshold
+
+
+def _dp_ovb_run(mesh, setup, num_iter, init, ckpt, ckpt_every, stream):
+    import numpy as np
+
+    from svbfm_tpu_torch.data.stream import BinaryChunkReader
+    from svbfm_tpu_torch.learners.vb_online import OVBLearner
+    from svbfm_tpu_torch.utils.checkpoint import CheckpointManager
+    from svbfm_tpu_torch.utils.convert import ovb_state_from_jax
+
+    cfg, tr, te, meta, _ = dp_setup(**setup)
+    dev = dict(device="cpu") if mesh is None else dict(mesh=mesh)
+    if stream:
+        lr = OVBLearner.from_reader(
+            cfg, BinaryChunkReader(stream + ".x", stream + ".y"), te, meta,
+            write_files=False, **dev)
+    else:
+        lr = OVBLearner(cfg, tr, te, meta, write_files=False, **dev)
+    state = None
+    if init:
+        with np.load(init) as z:
+            state = ovb_state_from_jax(dict(z), "cpu")
+    chunks = []
+    update = lr._chunk_update
+
+    def update_and_keep(st, row, bins, ci):
+        st, fe, nans = update(st, row, bins, ci)
+        chunks.append({k: getattr(st, k).numpy().copy() for k in OVB_FIELDS})
+        return st, fe, nans
+
+    lr._chunk_update = update_and_keep
+    kw = dict(ckpt=CheckpointManager(ckpt), ckpt_every=ckpt_every) \
+        if ckpt else {}
+    state, hist = lr.run(state, num_iter=num_iter, verbose=False, **kw)
+    return dict(hist=hist, chunks=chunks,
+                final={k: getattr(state, k).numpy() for k in OVB_FIELDS},
+                preds=lr.predict_test_scores(state))
+
+
+def dp_ovb_ranks(rank: int, runs: list) -> dict:
+    """Each (name, setup, num_iter, init, ckpt, ckpt_every, stream) of
+    ``runs`` in turn on the data mesh of every rank: ``dp_ovb_run``'s
+    results by name."""
+    from svbfm_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    return {name: dp_ovb_run(mesh, setup, n, init, ck, every, stream)
+            for name, setup, n, init, ck, every, stream in runs}
